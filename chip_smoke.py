@@ -7,12 +7,15 @@ NVIDIA card and check it.
 Phases, each fatal on failure (exit code 1):
   1. card     refuse to run without CUDA; print the card's name and power
               limit as nvidia-smi reports them
-  2. build    build every CUDA kernel of the main path from the sources in
-              this checkout (one nvcc per source, started together)
-  3. kernels  hold each kernel against its plain PyTorch version on the
-              card at the shapes the main path gives it; time kernel, plain
-              version and the nearest single PyTorch call (a yardstick only:
-              the port never calls it)
+  2. build    build every CUDA kernel of the main paths from the sources in
+              this checkout (one nvcc per source, started together): K1
+              flash_attention_fwd, K2 flash_attention_bwd_dq, K3
+              flash_attention_bwd_dkv
+  3. kernels  hold K1 against mha_reference, and K2/K3 against
+              mha_bwd_reference, on the card at the shapes the main paths
+              give them and at the other forms they take; time kernel,
+              plain version and the nearest PyTorch call (a yardstick
+              only: the port never calls it)
   4. serving  full-width BERT-base (random weights from a seed, float32)
               behind PredictorServer + BatchingEngine on localhost: 1-, 2-
               and 3-row requests at seq 128 and 512, then a burst of 8
@@ -20,7 +23,17 @@ Phases, each fatal on failure (exit code 1):
               against the same weights run on the CPU through the plain
               versions; the kernel launch counts must equal 12 per fired
               batch (one per encoder layer)
-  5. summary  a {"kernels": [...]} line, then as the last line
+  5. training full-width BertForPretraining (bench.py's BERT-base
+              pretraining configuration: dropout 0.1/0.1, AdamW 1e-4 with
+              weight decay 0.01, ClipGradByGlobalNorm(1.0), seq 128, 20
+              masked positions, the packed [ids | positions] input) through
+              build_train_step: (a) one O0 float32 step at batch 4 on the
+              card and on the CPU from the same weights, batch and key,
+              compared; (b) 20 O1 bf16 steps at batch 64 on one batch with
+              a fresh key per step, whose loss must be finite and fall;
+              (c) K1, K2 and K3 each launched 12 times per step on the
+              card; (d) a torch.profiler breakdown of one O1 step
+  6. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 It imports nothing of JAX or the JAX package. Run from a directory that
@@ -47,6 +60,17 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 SEQ_OUT_TOL = 1e-3  # served sequence output vs the CPU run, float32
 TOL_O = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL_LSE = 1e-4
+# K2/K3 gradients vs mha_bwd_reference, relative to the gradient's max
+# magnitude (the kernels round dS and P to bf16 at the same points)
+TOL_GRAD = {"float32": 1e-4, "bfloat16": 2e-2}
+# training parity step, card vs CPU, float32 (GEMM sums in another order):
+# loss relative; clipped gradients relative to each tensor's max
+# magnitude; updated parameters absolute, 2.5 * lr because AdamW's first
+# step is about lr * sign(g) and a gradient near 0 may flip its sign
+TOL_STEP_LOSS = 1e-4
+TOL_STEP_GRAD = 1e-3
+LR = 1e-4
+TOL_STEP_PARAM = 2.5 * LR
 
 
 def log(msg=""):
@@ -106,23 +130,36 @@ def phase_build(cuda_build, fa, kernels):
         for line in info["log"].splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 log(f"    {line.strip()}")
-    log("[build] flash_attention_fwd dynamic shared memory per block: "
-        + ", ".join(f"head_dim {d}: {fa.smem_bytes(d)} bytes" for d in fa.HEAD_DIMS))
+    for k in kernels:
+        log(f"[build] {k['lib']} dynamic shared memory per block: "
+            + ", ".join(f"head_dim {d}: {fa.smem_bytes(d, k['lib'])} bytes"
+                        for d in fa.HEAD_DIMS))
 
 
 # ------------------------------------------------------------------ phase 3
-def attention_bound_ms(bh, sq, sk, d, dtype, causal):
-    """Least time for one flash forward: bytes (q, k, v read once, O and LSE
-    written once) over HBM rate vs operations over the dtype's peak. Causal
-    work counts only the unmasked (row, col) pairs these shapes have."""
+def attention_pairs(sq, sk, causal):
+    """(row, col) pairs of one head the kernels compute: all of them, or
+    under causal masking only the unmasked ones these shapes have."""
+    if not causal:
+        return sq * sk
+    off = sk - sq
+    return sum(max(0, min(sk, r + off + 1)) for r in range(sq))
+
+
+def attention_bound_ms(bh, sq, sk, d, dtype, causal, kernel="fwd"):
+    """Least time for one launch of ``kernel``: bytes (each input read
+    once, each output written once) over the HBM rate vs operations over
+    the dtype's peak. fwd reads q, k, v and writes O, LSE; 4 * pairs * d
+    operations (QK^T, PV). bwd_dq reads q, k, v, dO, LSE, delta and writes
+    dQ; 6 * pairs * d (S, dP, dQ). bwd_dkv reads the same and writes dK,
+    dV; 8 * pairs * d (S, dP, dV, dK)."""
     elem = 2 if dtype == "bfloat16" else 4
-    nbytes = bh * ((sq + 2 * sk) * d * elem + sq * d * elem + sq * 4)
-    if causal:
-        off = sk - sq
-        pairs = sum(max(0, min(sk, r + off + 1)) for r in range(sq))
-    else:
-        pairs = sq * sk
-    ops = 4 * bh * pairs * d
+    tensors, floats, per_pair = {
+        "fwd": ((2 * sq + 2 * sk), sq, 4),
+        "bwd_dq": ((3 * sq + 2 * sk), 2 * sq, 6),
+        "bwd_dkv": ((2 * sq + 4 * sk), 2 * sq, 8)}[kernel]
+    nbytes = bh * (tensors * d * elem + floats * 4)
+    ops = per_pair * bh * attention_pairs(sq, sk, causal) * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -130,8 +167,10 @@ def attention_bound_ms(bh, sq, sk, d, dtype, causal):
 
 def phase_kernels(torch, fa):
     """K1 against mha_reference at the shapes BERT-base serving gives it
-    ([batch*12, seq, 64], float32 and bfloat16) and at the other forms the
-    kernel takes (causal, cross lengths, dropout, head_dim 128)."""
+    ([batch*12, seq, 64], float32 and bfloat16), at the shape training
+    gives it ([64*12, 128, 64] bfloat16, with and without dropout) and at
+    the other forms the kernel takes (causal, cross lengths, dropout,
+    head_dim 128)."""
     F = torch.nn.functional
     cases = []
     for b in (1, 8):
@@ -140,6 +179,9 @@ def phase_kernels(torch, fa):
                 cases.append(dict(b=b, h=12, sq=s, sk=s, d=64, dtype=dt, causal=False,
                                   p=0.0))
     cases += [
+        # the shape BERT-base training gives K1 under O1 (batch 64, seq 128)
+        dict(b=64, h=12, sq=128, sk=128, d=64, dtype="bfloat16", causal=False, p=0.0),
+        dict(b=64, h=12, sq=128, sk=128, d=64, dtype="bfloat16", causal=False, p=0.1),
         dict(b=2, h=12, sq=512, sk=512, d=64, dtype="float32", causal=True, p=0.0),
         dict(b=2, h=12, sq=200, sk=512, d=64, dtype="float32", causal=True, p=0.0),
         dict(b=2, h=12, sq=512, sk=200, d=64, dtype="float32", causal=True, p=0.0),
@@ -187,6 +229,97 @@ def phase_kernels(torch, fa):
     bad = [r for r in results if not r["ok"]]
     if bad:
         fail(f"flash_attention_fwd disagrees with mha_reference in {len(bad)} case(s)")
+    return results
+
+
+def _rel_err(torch, got, want):
+    """max |got - want| over max |want| (the gradient's own scale)."""
+    scale = want.float().abs().max().clamp_min(1e-30)
+    return ((got.float() - want.float()).abs().max() / scale).item()
+
+
+def phase_bwd_kernels(torch, fa):
+    """K2 and K3 against mha_bwd_reference at the shape BERT-base training
+    gives them ([batch 64 * 12 heads, 128, 64], bfloat16 under O1, and
+    float32) and at the other forms they take (causal, cross lengths, fully
+    masked rows, dropout, head_dim 128). The library yardstick is one
+    torch.autograd.grad through scaled_dot_product_attention at p = 0 (it
+    computes dQ, dK and dV together; so does the plain version)."""
+    F = torch.nn.functional
+    cases = [dict(b=64, h=12, sq=128, sk=128, d=64, dtype=dt, causal=False, p=0.0)
+             for dt in ("bfloat16", "float32")]
+    cases += [
+        dict(b=64, h=12, sq=128, sk=128, d=64, dtype="bfloat16", causal=False, p=0.1),
+        dict(b=2, h=12, sq=512, sk=512, d=64, dtype="float32", causal=True, p=0.0),
+        dict(b=2, h=12, sq=200, sk=512, d=64, dtype="float32", causal=True, p=0.0),
+        dict(b=2, h=12, sq=512, sk=200, d=64, dtype="float32", causal=True, p=0.0),
+        dict(b=2, h=12, sq=384, sk=384, d=64, dtype="float32", causal=False, p=0.1),
+        dict(b=2, h=8, sq=512, sk=512, d=128, dtype="float32", causal=True, p=0.1),
+        dict(b=2, h=8, sq=512, sk=512, d=128, dtype="bfloat16", causal=False, p=0.0),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    results = []
+    log("[bwd kernels] flash_attention_bwd_dq (K2) / _dkv (K3) vs mha_bwd_reference "
+        f"(tolerance {TOL_GRAD['float32']} f32 / {TOL_GRAD['bfloat16']} bf16 of the "
+        "gradient's max magnitude)")
+    for c in cases:
+        bh = c["b"] * c["h"]
+        tdt = getattr(torch, c["dtype"])
+        q, k, v, do = (torch.randn(bh, n, c["d"], device="cuda", generator=gen).to(tdt)
+                       for n in (c["sq"], c["sk"], c["sk"], c["sq"]))
+        scale = c["d"] ** -0.5
+        o, lse = fa._fwd(q, k, v, 4321, scale, c["causal"], c["p"])
+        args = (q, k, v, o, lse, do, 4321, scale, c["causal"], c["p"])
+        got = fa._bwd(*args)
+        torch.cuda.synchronize()
+        want = fa.mha_bwd_reference(*args)
+        errs = [_rel_err(torch, g, w) for g, w in zip(got, want)]
+        abs_errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+        again = fa._bwd(*args)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        delta = (do.float() * o.float()).sum(-1).contiguous()
+        lse2 = lse.view(bh, c["sq"])
+        # each kernel alone, from the same delta the wrapper computes
+        ptrs = [t.data_ptr() for t in (q, k, v, do, lse2, delta)]
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        kargs = fa._kernel_args(4321, scale, c["causal"], c["p"], q.dtype, q.device)
+        dims = (bh, c["sq"], c["sk"], c["d"])
+        ms_dq = cuda_ms(torch, lambda: fa._launch("flash_attention_bwd_dq", *ptrs,
+                                                  dq.data_ptr(), *dims, *kargs))
+        ms_dkv = cuda_ms(torch, lambda: fa._launch("flash_attention_bwd_dkv", *ptrs,
+                                                   dk.data_ptr(), dv.data_ptr(), *dims,
+                                                   *kargs))
+        plain_ms = cuda_ms(torch, lambda: fa.mha_bwd_reference(*args), iters=5)
+        library_ms = None
+        if c["p"] == 0.0 and (not c["causal"] or c["sq"] == c["sk"]):
+            q4, k4, v4 = (x.view(c["b"], c["h"], -1, c["d"]).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=c["causal"],
+                                                 scale=scale)
+            do4 = do.view_as(out)
+            library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                out, (q4, k4, v4), do4, retain_graph=True))
+        bound_dq = attention_bound_ms(bh, c["sq"], c["sk"], c["d"], c["dtype"],
+                                      c["causal"], "bwd_dq")
+        bound_dkv = attention_bound_ms(bh, c["sq"], c["sk"], c["d"], c["dtype"],
+                                       c["causal"], "bwd_dkv")
+        ok = max(errs) <= TOL_GRAD[c["dtype"]] and same
+        r = dict(c, err_dq=errs[0], err_dk=errs[1], err_dv=errs[2],
+                 abs_err_dq=abs_errs[0], abs_err_dkv=max(abs_errs[1:]), ms_dq=ms_dq,
+                 ms_dkv=ms_dkv, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_dq=bound_dq, bound_dkv=bound_dkv, ok=ok)
+        results.append(r)
+        lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        log(f"  b={c['b']} h={c['h']} sq={c['sq']} sk={c['sk']} d={c['d']} {c['dtype']} "
+            f"causal={c['causal']} p={c['p']}: err dq {errs[0]:.3e} dk {errs[1]:.3e} "
+            f"dv {errs[2]:.3e} | K2 {ms_dq:.4f} ms (bound {bound_dq[0]:.4f} "
+            f"{bound_dq[1]}) K3 {ms_dkv:.4f} ms (bound {bound_dkv[0]:.4f} "
+            f"{bound_dkv[1]}) plain {plain_ms:.4f} ms library {lib} ms "
+            f"{'' if same else 'NOT REPEATABLE '}{'ok' if ok else 'DISAGREES'}")
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        fail(f"K2/K3 disagree with mha_bwd_reference (or are not repeatable) in "
+             f"{len(bad)} case(s)")
     return results
 
 
@@ -331,14 +464,15 @@ def phase_serving(torch, fa, port_mods):
     return launches
 
 
-def profile_forward(torch, run, ids):
-    """Where a served batch's device time goes: one forward traced with
-    torch.profiler (kernel device time by name) beside its CUDA-event time."""
+def profile_device(torch, fn, label, top=8):
+    """Where one call of ``fn`` spends its device time: its CUDA-event time,
+    then the same call traced with torch.profiler (kernel device time by
+    name, the top 8)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fwd_ms = cuda_ms(torch, lambda: run(ids), iters=5, warmup=1)
+    ms = cuda_ms(torch, fn, iters=1, warmup=0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(ids)
+        fn()
         torch.cuda.synchronize()
     kernels = []
     for ev in prof.key_averages():
@@ -350,11 +484,191 @@ def profile_forward(torch, run, ids):
         if t > 0:
             kernels.append((t / 1e3, ev.count, ev.key))
     busy = sum(t for t, _, _ in kernels)
-    log(f"[profile] forward of {ids.shape[0]} x {ids.shape[1]}: {fwd_ms:.3f} ms "
-        f"(CUDA events); kernels {busy:.3f} ms in the traced forward"
+    log(f"[profile] {label}: {ms:.3f} ms (CUDA events); kernels {busy:.3f} ms in the "
+        "traced call"
         + ("" if kernels else " (the profiler saw no device time: not measured)"))
-    for t, n, name in sorted(kernels, reverse=True)[:8]:
+    for t, n, name in sorted(kernels, reverse=True)[:top]:
         log(f"    {t:8.3f} ms {100 * t / busy:5.1f}% x{n:<4d} {name[:90]}")
+    groups = {}
+    for t, n, name in kernels:
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
+                     "other elementwise, reductions, copies")
+        tot, cnt = groups.get(group, (0.0, 0))
+        groups[group] = (tot + t, cnt + n)
+    for group, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"    [group] {t:8.3f} ms {100 * t / max(busy, 1e-9):5.1f}% x{n:<5d} {group}")
+    # what the host spent handing work to the card
+    calls = [(ev.key, ev.count, ev.self_cpu_time_total / 1e3) for ev in prof.key_averages()
+             if ev.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                           "cudaMemcpyAsync")]
+    log("    [host] " + (", ".join(f"{k} x{n} {t:.3f} ms" for k, n, t in calls)
+                         or "no launch calls traced"))
+    return ms, busy
+
+
+# kernel-name fragments -> the layer of the port that launched them
+KERNEL_GROUPS = (
+    ("K1 flash_attention_fwd", ("fwd_kernel",)),
+    ("K2 flash_attention_bwd_dq", ("dq_kernel",)),
+    ("K3 flash_attention_bwd_dkv", ("dkv_kernel",)),
+    ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_", "nvjet")),
+    ("int64 elementwise (counter-hash dropout masks)", ("<long",)),
+)
+
+
+def profile_forward(torch, run, ids):
+    """Where a served batch's device time goes."""
+    run(ids)  # warm
+    profile_device(torch, lambda: run(ids), f"forward of {ids.shape[0]} x {ids.shape[1]}")
+
+
+# ------------------------------------------------------------------ phase 5
+TRAIN_SEQ, TRAIN_PRED, O1_BATCH, O1_STEPS = 128, 20, 64, 20
+# tensors whose clipped gradients the parity step compares
+WATCH = ("inner.bert.embeddings.word_embeddings.weight",
+         "inner.bert.encoder.layers.0.self_attn.q_proj.weight",
+         "inner.bert.encoder.layers.0.self_attn.k_proj.weight",
+         "inner.bert.encoder.layers.0.self_attn.v_proj.weight",
+         "inner.bert.encoder.layers.11.linear1.weight",
+         "inner.bert.encoder.layers.11.linear2.weight",
+         "inner.cls.decoder_bias")
+
+
+def phase_training(torch, fa, mods, card):
+    BertForPretraining, nn, optimizer, spmd, prandom = mods
+    torch.set_num_threads(os.cpu_count() or 1)
+
+    class TrainWrapper(torch.nn.Module):
+        """bench.py's wrapper: one packed [B, S + P] int32 input, split
+        into ids and masked positions; returns the MLM logits."""
+
+        def __init__(self, inner, seq_len):
+            super().__init__()
+            self.inner = inner
+            self.seq_len = seq_len
+
+        def forward(self, packed):
+            mlm_logits, _ = self.inner(packed[:, :self.seq_len],
+                                       masked_positions=packed[:, self.seq_len:])
+            return mlm_logits
+
+    def loss_fn(mlm_logits, labels):
+        # bench.py's loss: mean NLL of the labels at the masked positions
+        logp = torch.log_softmax(mlm_logits.float(), dim=-1)
+        return -torch.take_along_dim(logp, labels[..., None].long(), dim=-1)[..., 0].mean()
+
+    def batch(b, vocab, seed=0):
+        rng = np.random.RandomState(seed)
+        ids = rng.randint(0, vocab, (b, TRAIN_SEQ)).astype(np.int32)
+        pos = np.stack([rng.choice(TRAIN_SEQ, TRAIN_PRED, replace=False)
+                        for _ in range(b)]).astype(np.int32)
+        labels = rng.randint(0, vocab, (b, TRAIN_PRED)).astype(np.int32)
+        return torch.from_numpy(np.concatenate([ids, pos], 1)), torch.from_numpy(labels)
+
+    def build(model, amp_level):
+        wrapper = TrainWrapper(model, TRAIN_SEQ)
+        opt = optimizer.AdamW(LR, parameters=wrapper.parameters(), weight_decay=0.01,
+                              grad_clip=nn.ClipGradByGlobalNorm(1.0))
+        return spmd.build_train_step(wrapper, loss_fn, opt, amp_level=amp_level)
+
+    t0 = time.perf_counter()
+    model = BertForPretraining(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+                               device="cuda", generator=torch.Generator().manual_seed(0))
+    n_layers = len(model.bert.encoder.layers)
+    vocab = model.bert.vocab_size
+    cpu_model = copy.deepcopy(model).to("cpu")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[training] BertForPretraining: {n_layers} layers, hidden "
+        f"{model.bert.hidden_size}, vocab {vocab}, {n_params} parameters (decoder tied "
+        f"to the word embeddings), built in {time.perf_counter() - t0:.1f} s")
+
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0  # count the main path only
+    steps_on_card = 0
+
+    # (a) one O0 float32 step on the card and on the CPU
+    x, y = batch(4, vocab)
+    res = {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        step, init = build(m, "O0")
+        params, state = init()
+        t = time.perf_counter()
+        loss, params, state = step(params, state, x.to(dev), y.to(dev),
+                                   key=prandom.PRNGKey(0))
+        loss = float(loss)  # a readback: the step has finished
+        secs = time.perf_counter() - t
+        steps_on_card += dev == "cuda"
+        res[dev] = (loss, {n: (state[n][0] / (1 - 0.9)).cpu() for n in WATCH},
+                    {n: p.cpu() for n, p in params.items()}, secs)
+    (gl, gg, gp, gs), (cl, cg, cp, cs) = res["cuda"], res["cpu"]
+    loss_err = abs(gl - cl) / abs(cl)
+    log(f"[training] O0 parity step, batch 4: loss card {gl:.6f} cpu {cl:.6f} "
+        f"(rel err {loss_err:.2e}, tolerance {TOL_STEP_LOSS}); card {gs:.2f} s, cpu "
+        f"{cs:.2f} s (first step, allocation included)")
+    bad = [] if loss_err <= TOL_STEP_LOSS and np.isfinite(gl) else ["loss"]
+    for n in WATCH:
+        err = _rel_err(torch, gg[n], cg[n])
+        ok = err <= TOL_STEP_GRAD
+        bad += [] if ok else [f"grad {n}"]
+        log(f"  clipped grad {n}: rel err {err:.2e} (max |g| "
+            f"{cg[n].abs().max().item():.3e}) {'ok' if ok else 'DISAGREES'}")
+    worst = max((gp[n] - cp[n]).abs().max().item() for n in cp)
+    bad += [] if worst <= TOL_STEP_PARAM else ["updated parameters"]
+    log(f"  updated parameters ({len(cp)} tensors): max abs err {worst:.3e} "
+        f"(tolerance {TOL_STEP_PARAM:.1e} = 2.5 lr)")
+    if bad:
+        fail(f"the card's training step disagrees with the CPU's: {', '.join(bad)}")
+    del cpu_model, res, gg, gp, cg, cp
+
+    # (b) O1 bf16 steps on one batch, a fresh key per step
+    step, init = build(model, "O1")
+    params, state = init()
+    x, y = (t.to("cuda") for t in batch(O1_BATCH, vocab))
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for i in range(O1_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, params, state = step(params, state, x, y,
+                                   key=prandom.fold_in(prandom.PRNGKey(0), i))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(loss)
+    steps_on_card += O1_STEPS
+    losses = [float(v) for v in losses]
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    tokens = O1_BATCH * TRAIN_SEQ
+    log(f"[training] O1 bf16, batch {O1_BATCH} x seq {TRAIN_SEQ}: loss "
+        + " ".join(f"{v:.4f}" for v in losses))
+    log(f"[training] O1 step (median of steps 2-{O1_STEPS}, host clock to synchronize): "
+        f"{steady * 1e3:.2f} ms, {tokens / steady:.0f} tokens/s; first step "
+        f"{secs[0] * 1e3:.1f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+    if not all(np.isfinite(losses)):
+        fail(f"O1 training loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"O1 training loss did not fall over {O1_STEPS} steps: {losses}")
+
+    # (c) every step on the card ran K1, K2 and K3 once per encoder layer
+    counts = dict(fwd=fa.launches, bwd_dq=fa.dq_launches, bwd_dkv=fa.dkv_launches)
+    want = n_layers * steps_on_card
+    log(f"[training] launches over {steps_on_card} steps on the card: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items()) + f" (expected {want} each)")
+    if any(v != want for v in counts.values()):
+        fail(f"kernel launches {counts} != {n_layers} x {steps_on_card} steps")
+
+    # (d) where an O1 step's device time goes
+    def one_step():
+        nonlocal params, state
+        _, params, state = step(params, state, x, y, key=prandom.PRNGKey(999))
+
+    step_ms, busy_ms = profile_device(torch, one_step,
+                                      f"O1 training step, batch {O1_BATCH} x {TRAIN_SEQ}",
+                                      top=16)
+    idle = (f"{100 * (1 - busy_ms / step_ms):.1f}%" if busy_ms > 0 else "not measured")
+    log(f"[profile] device idle {idle} of an O1 step (kernel time summed over the "
+        "traced step against the CUDA-event time of the step before it)")
+    return dict(counts=counts, steps=steps_on_card, step_ms=steady * 1e3,
+                tokens_per_s=tokens / steady, losses=losses)
 
 
 # ------------------------------------------------------------------ main
@@ -366,33 +680,62 @@ def main():
     card = phase_card(torch)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from paddle_tpu_torch import nn, optimizer
         from paddle_tpu_torch.core import cuda_build
+        from paddle_tpu_torch.core import random as prandom
+        from paddle_tpu_torch.distributed import spmd
         from paddle_tpu_torch.inference import wire_spec
         from paddle_tpu_torch.inference.batching import BatchingEngine
         from paddle_tpu_torch.inference.server import PredictorServer
         from paddle_tpu_torch.ops import flash_attention as fa
-        from paddle_tpu_torch.text.models import BertModel
+        from paddle_tpu_torch.text.models import BertForPretraining, BertModel
     except ImportError as e:
         fail(f"the port is not importable from this directory: {e}")
 
-    kernels = [dict(name="flash_attention_fwd", lib="flash_attention_fwd", route="cuda",
-                    source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-                    replaces="paddle_tpu/ops/pallas/flash_attention.py:208")]
+    src = "paddle_tpu_torch/csrc/"
+    tpu = "paddle_tpu/ops/pallas/flash_attention.py:"
+    kernels = [
+        dict(name="flash_attention_fwd", lib="flash_attention_fwd", route="cuda",
+             source=src + "flash_attention_fwd.cu", replaces=tpu + "208"),
+        dict(name="flash_attention_bwd_dq", lib="flash_attention_bwd_dq", route="cuda",
+             source=src + "flash_attention_bwd_dq.cu", replaces=tpu + "435"),
+        dict(name="flash_attention_bwd_dkv", lib="flash_attention_bwd_dkv", route="cuda",
+             source=src + "flash_attention_bwd_dkv.cu", replaces=tpu + "458"),
+    ]
     phase_build(cuda_build, fa, kernels)
     cases = phase_kernels(torch, fa)
-    launches = phase_serving(torch, fa, (BertModel, BatchingEngine, PredictorServer,
-                                         wire_spec))
+    bwd_cases = phase_bwd_kernels(torch, fa)
+    serving_launches = phase_serving(torch, fa, (BertModel, BatchingEngine, PredictorServer,
+                                                 wire_spec))
+    train = phase_training(torch, fa, (BertForPretraining, nn, optimizer, spmd, prandom),
+                           card)
 
-    # the kernel line reads the largest shape BERT-base serving gives K1:
-    # a full batch of 8 at seq 512, float32
+    # K1 at the largest shape BERT-base serving gives it (a full batch of 8
+    # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
+    # them under O1 ([64 * 12, 128, 64] bfloat16). Launches: every main
+    # path run, each counted from 0 just before it.
     main = next(r for r in cases if r["b"] == 8 and r["sq"] == 512
                 and r["dtype"] == "float32")
-    line = [dict(name=k["name"], route=k["route"], source=k["source"],
-                 replaces=k["replaces"], launches=launches,
-                 max_abs_err=main["max_abs_err"], ms=main["ms"],
-                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-                 bound_by=main["bound_by"], library_ms=main["library_ms"])
-            for k in kernels]
+    bmain = next(r for r in bwd_cases if r["b"] == 64 and r["dtype"] == "bfloat16"
+                 and r["p"] == 0.0)
+    line = [
+        dict(name=kernels[0]["name"], route="cuda", source=kernels[0]["source"],
+             replaces=kernels[0]["replaces"],
+             launches=serving_launches + train["counts"]["fwd"],
+             max_abs_err=main["max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
+             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+             library_ms=main["library_ms"]),
+        dict(name=kernels[1]["name"], route="cuda", source=kernels[1]["source"],
+             replaces=kernels[1]["replaces"], launches=train["counts"]["bwd_dq"],
+             max_abs_err=bmain["abs_err_dq"], ms=bmain["ms_dq"], plain_ms=bmain["plain_ms"],
+             bound_ms=bmain["bound_dq"][0], bound_by=bmain["bound_dq"][1],
+             library_ms=bmain["library_ms"]),
+        dict(name=kernels[2]["name"], route="cuda", source=kernels[2]["source"],
+             replaces=kernels[2]["replaces"], launches=train["counts"]["bwd_dkv"],
+             max_abs_err=bmain["abs_err_dkv"], ms=bmain["ms_dkv"],
+             plain_ms=bmain["plain_ms"], bound_ms=bmain["bound_dkv"][0],
+             bound_by=bmain["bound_dkv"][1], library_ms=bmain["library_ms"]),
+    ]
     log(card)
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,13 +3,15 @@ interface, loaded with ctypes.
 
 Each source under ``paddle_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into ``paddle_tpu_torch/_build/lib<name>-<hash>.so`` at first
-use. The hash covers the source and the flags, so an edited source never
-loads a stale library. Nothing here runs at import: the CPU tests import
+use. The hash covers the source, every header under ``csrc/`` that it
+includes (directly or through another header) and the flags, so an
+edited source or shared header never loads a stale library. Nothing here runs at import: the CPU tests import
 every module on a machine without ``nvcc``.
 """
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -40,11 +42,39 @@ def _nvcc():
                        "kernels of paddle_tpu_torch are built at first use")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(name):
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes, in
+    the order first reached. An include that is not under ``csrc/``
+    (a system or toolkit header) is left to nvcc."""
+    order, todo = [], [name + ".cu"]
+    while todo:
+        rel = todo.pop(0)
+        if rel in order:
+            continue
+        order.append(rel)
+        with open(os.path.join(CSRC_DIR, rel), encoding="utf-8") as f:
+            text = f.read()
+        todo += [inc for inc in _INCLUDE.findall(text)
+                 if os.path.exists(os.path.join(CSRC_DIR, inc))]
+    return order
+
+
+def source_hash(name):
+    """Hash of everything the library ``name`` is built from: its sources
+    (names and contents) and the nvcc flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in _sources(name):
+        with open(os.path.join(CSRC_DIR, rel), "rb") as f:
+            digest.update(rel.encode() + b"\0" + f.read() + b"\0")
+    return digest.hexdigest()[:12]
+
+
 def _target(name):
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{source_hash(name)}.so")
 
 
 def build(names):

@@ -28,41 +28,20 @@
 // (each of the 16 threads of a row holds the same copy after a shuffle
 // reduction). Ragged sequence lengths are masked here; causal k tiles past
 // the last one a q tile needs are skipped.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
+using fa::NEG_INF;
+using fa::round_like;
+using fa::store_out;
+using fa::to_f32;
+
 constexpr int BQ = 64;        // q rows per block
 constexpr int BK = 64;        // keys per k tile
 constexpr int THREADS = 256;  // 16 x 16
 constexpr int RPT = BQ / 16;  // rows per thread
 constexpr int CPT = BK / 16;  // S columns per thread
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// P is cast to V's dtype before the PV product, as the reference's
-// p.astype(v.dtype) does
-__device__ __forceinline__ float round_like(float x, const float*) { return x; }
-__device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// murmur3's 32-bit finalizer (paddle_tpu/core/random.py fmix32)
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -99,9 +78,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
 
   // per batch-head seed round of _keep_mask
-  uint32_t bseed = seed ^ ((uint32_t)bh * 0x85EBCA6Bu);
-  bseed ^= bseed >> 13;
-  bseed *= 0xC2B2AE35u;
+  const uint32_t bseed = fa::batch_seed(seed, bh);
 
   float m[RPT], l[RPT], acc[RPT][DPT];
 #pragma unroll
@@ -175,11 +152,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
         // m_new is NEG_INF and exp(s - m_new) would be 1
         float p = (s[i][j] == NEG_INF) ? 0.f : expf(s[i][j] - m_new);
         psum += p;
-        if (dropout) {
-          const uint32_t idx = (uint32_t)row * (uint32_t)sk + (uint32_t)col;
-          const uint32_t h = fmix32((idx * 0x9E3779B1u) ^ bseed);
-          p = (h < keep_thresh) ? p * inv_keep : 0.f;
-        }
+        if (dropout) p = fa::keep(bseed, row, col, sk, keep_thresh) ? p * inv_keep : 0.f;
         s[i][j] = round_like(p, v);
       }
 #pragma unroll
@@ -274,7 +247,7 @@ int flash_attention_fwd_smem_bytes(int d) {
   return -1;
 }
 
-const char* flash_attention_error_string(int err) {
+const char* flash_attention_fwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -1,10 +1,13 @@
 """Transformer encoder stack (counterpart of
 paddle_tpu/nn/layers/transformer.py). Attention dispatches through
-F.scaled_dot_product_attention: unmasked calls run the flash kernel."""
+F.scaled_dot_product_attention: unmasked calls run the flash kernels. The
+products and residual sums go through the port's tensor ops, which cast as
+auto_cast does for the reference's ops of the same name."""
 import copy
 
 import torch
 
+from ... import tensor as pt
 from .. import functional as F
 from .common import Dropout, Linear
 from .container import LayerList
@@ -52,7 +55,7 @@ class MultiHeadAttention(torch.nn.Module):
         w = torch.cat([self.q_proj.weight, self.k_proj.weight,
                        self.v_proj.weight], dim=1)
         b = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias])
-        return (torch.matmul(x, w) + b).chunk(3, dim=-1)
+        return pt.add(pt.matmul(x, w), b).chunk(3, dim=-1)
 
     def forward(self, query, key=None, value=None, attn_mask=None):
         key = query if key is None else key
@@ -91,7 +94,7 @@ class TransformerEncoderLayer(torch.nn.Module):
         residual = src
         if self.normalize_before:
             src = self.norm1(src)
-        src = residual + self.dropout1(self.self_attn(src, src, src, src_mask))
+        src = pt.add(residual, self.dropout1(self.self_attn(src, src, src, src_mask)))
         if not self.normalize_before:
             src = self.norm1(src)
         residual = src
@@ -99,7 +102,7 @@ class TransformerEncoderLayer(torch.nn.Module):
             src = self.norm2(src)
         act = getattr(F, self.activation)
         src = self.linear2(self.dropout(act(self.linear1(src))))
-        src = residual + self.dropout2(src)
+        src = pt.add(residual, self.dropout2(src))
         if not self.normalize_before:
             src = self.norm2(src)
         return src

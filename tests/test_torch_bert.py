@@ -92,12 +92,37 @@ def test_cpu_forward_launches_no_kernel(models):
     assert tfa.launches == before
 
 
-def test_training_mode_refuses_dropout(models):
-    _, tm = models
+def test_training_mode_refuses_dropout(models, monkeypatch):
+    """Training mode: hidden and attention dropout take the reference's
+    keys in the reference's order, so under one key the port's forward
+    equals the JAX model's. The JAX side takes its Pallas kernel (interpret
+    mode) for the unmasked attention, as the port takes its kernel's plain
+    version: both then drop by the kernel hash seeded with the key's last
+    word. Tolerance 1e-4 abs, as the eval-mode tests."""
+    from paddle_tpu.core import random as jrandom
+    from paddle_tpu.ops import attention as jattention
+    from paddle_tpu_torch.core import random as trandom
+    import jax
+
+    monkeypatch.setattr(jattention, "_use_pallas", lambda: True)
+    paddle.set_flags({"pallas_attention_min_seq": 0})
+    jm, tm = models
+    jm.train()
     tm.train()
+    ids = _ids(2, seed=3)
     try:
-        with pytest.raises(NotImplementedError, match="training slice"):
-            with torch.no_grad():
-                tm(torch.from_numpy(_ids(1)))
+        with jrandom.rng_guard(jax.random.PRNGKey(9)):
+            js, _ = jm(paddle.to_tensor(ids))
+        with torch.no_grad(), trandom.rng_guard(trandom.PRNGKey(9)):
+            ts, _ = tm(torch.from_numpy(ids))
+            # 1 embedding dropout + 3 keys per layer (attention, dropout1,
+            # dropout2) were taken
+            assert trandom.next_key() == trandom.fold_in(trandom.PRNGKey(9), 7)
+        with torch.no_grad(), trandom.rng_guard(trandom.PRNGKey(10)):
+            other, _ = tm(torch.from_numpy(ids))
     finally:
+        jm.eval()
         tm.eval()
+        paddle.set_flags({"pallas_attention_min_seq": 1024})
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js.numpy()), rtol=0, atol=TOL)
+    assert not torch.allclose(ts, other)  # another key, other masks

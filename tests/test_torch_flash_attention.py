@@ -1,12 +1,16 @@
-"""The port's flash-attention forward (paddle_tpu_torch/ops/flash_attention.py)
-against the JAX package's Pallas kernel, run here in interpret mode.
+"""The port's flash attention (paddle_tpu_torch/ops/flash_attention.py)
+against the JAX package's Pallas kernels, run here in interpret mode.
 
-On the CPU the port's ``_fwd`` runs ``mha_reference``, the plain version
-that sits beside the CUDA kernel; tests/test_torch_gpu.py holds the
-kernel itself against it on the card. Inputs come from a numpy seed and
-go through both. Tolerances: 2e-4 in float32 (as tests/test_pallas_kernels.py),
+On the CPU the port's ``_fwd`` runs ``mha_reference`` and its ``_bwd``
+runs ``mha_bwd_reference``, the plain versions that sit beside the CUDA
+kernels; tests/test_torch_gpu.py holds the kernels themselves against them
+on the card. Inputs come from a numpy seed and go through both.
+Tolerances: forward 2e-4 in float32 (as tests/test_pallas_kernels.py),
 2e-2 in bfloat16 (P is rounded to bf16 before the PV product at different
-points: per tile in the JAX kernel, once in the plain version).
+points: per tile in the JAX kernel, once in the plain version); backward
+1e-5 abs in float32 against the JAX ``_bwd`` (the same formulas, summed in
+another order) and 2e-2 abs in bfloat16; 1e-5 abs against torch autograd
+of ``mha_reference`` in float32.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -151,10 +155,99 @@ def test_cpu_tensors_never_touch_the_kernel():
     tfa._fwd(q, k, v, 0, 0.125, True, 0.1)
     assert tfa.launches == before
     # the build is lazy: nothing was compiled or loaded for a CPU call
-    assert tfa._lib is None and cuda_build._libs == {}
+    assert tfa._libs == {} and cuda_build._libs == {}
 
 
 def test_dropout_p_out_of_range_raises():
     q = torch.randn(1, 8, 16)
     with pytest.raises(ValueError):
         tfa._fwd(q, q, q, 0, 0.25, False, 1.0)
+
+
+# ------------------------------------------------------------------ backward
+
+
+def _both_bwd(bh, sq, sk, d, *, causal, dropout_p=0.0, seed=0, dtype="float32"):
+    """(JAX dq, dk, dv), (port dq, dk, dv) as float32 numpy arrays, both from
+    the JAX forward's O and LSE on the same inputs."""
+    rng = np.random.RandomState(11)
+    q, k, v, do = (rng.randn(bh, n, d).astype(np.float32) for n in (sq, sk, sk, sq))
+    scale = 1.0 / np.sqrt(d)
+    bq, bk = fa._block(sq, 256), fa._block(sk, 256)
+    seed2d = jnp.asarray(seed, jnp.int32).reshape(1, 1)
+    jq, jk, jv, jdo = (jnp.asarray(x, JDT[dtype]) for x in (q, k, v, do))
+    o, lse = fa._fwd(jq, jk, jv, seed2d, scale, causal, bq, bk, dropout_p)
+    jg = fa._bwd(scale, causal, bq, bk, dropout_p, (jq, jk, jv, o, lse, seed2d), jdo)
+    td = TDT[dtype]
+    tg = tfa._bwd(*(torch.from_numpy(x).to(td) for x in (q, k, v)),
+                  torch.from_numpy(np.array(o, np.float32)).to(td),
+                  torch.from_numpy(np.array(lse)),
+                  torch.from_numpy(do).to(td), seed, scale, causal, dropout_p)
+    for t, x in zip(tg, (q, k, v)):
+        assert t.dtype == td and tuple(t.shape) == x.shape
+    return ([np.asarray(g, np.float32) for g in jg], [t.float().numpy() for t in tg])
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,dropout_p,seed", [
+    (3, 64, 64, 16, False, 0.0, 0),
+    (2, 128, 128, 32, True, 0.0, 0),      # causal, sq == sk
+    (2, 32, 96, 32, True, 0.0, 0),        # causal, sq < sk
+    (2, 96, 32, 16, True, 0.0, 0),        # fully masked rows
+    (2, 100, 77, 16, False, 0.0, 0),      # ragged lengths
+    (2, 64, 64, 128, False, 0.0, 0),      # head_dim 128
+    (3, 64, 64, 16, False, 0.1, -1),      # dropout, seed -1
+    (2, 64, 64, 32, True, 0.2, 2**31 - 1),
+    (2, 96, 32, 16, True, 0.1, 5),        # dropout over fully masked rows
+])
+def test_bwd_reference_matches_pallas_bwd(bh, sq, sk, d, causal, dropout_p, seed):
+    j, t = _both_bwd(bh, sq, sk, d, causal=causal, dropout_p=dropout_p, seed=seed)
+    for a, b in zip(j, t):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-5)
+    if sq > sk and causal:
+        # rows that attend nothing have no gradient
+        assert np.all(t[0][:, :sq - sk] == 0.0)
+
+
+@pytest.mark.parametrize("causal,dropout_p", [(False, 0.1), (True, 0.0)])
+def test_bwd_reference_matches_pallas_bwd_bf16(causal, dropout_p):
+    j, t = _both_bwd(2, 64, 64, 64, causal=causal, dropout_p=dropout_p, seed=3,
+                     dtype="bfloat16")
+    for a, b in zip(j, t):
+        np.testing.assert_allclose(b, a, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("sq,sk,causal,dropout_p,seed", [
+    (48, 48, False, 0.0, 0), (32, 80, True, 0.0, 0), (80, 32, True, 0.0, 0),
+    (48, 48, False, 0.3, -1), (40, 56, True, 0.1, 2**31 - 1)])
+def test_function_gradients_match_autograd_of_the_plain_forward(sq, sk, causal,
+                                                                dropout_p, seed):
+    """The autograd Function (K1 forward, K2/K3 backward; their plain
+    versions here) against torch autograd through ``mha_reference``."""
+    rng = np.random.RandomState(5)
+    b, h, d = 2, 3, 16
+    arrs = [rng.randn(b, h, n, d).astype(np.float32) for n in (sq, sk, sk, sq)]
+    leaves = [torch.tensor(a, requires_grad=True) for a in arrs[:3]]
+    out = tfa.mha(*leaves, causal=causal, dropout_p=dropout_p, seed=seed)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(arrs[3]))
+    ref_leaves = [torch.tensor(a, requires_grad=True) for a in arrs[:3]]
+    flat = [x.reshape(b * h, -1, d) for x in ref_leaves]
+    ref_out, _ = tfa.mha_reference(*flat, seed, d ** -0.5, causal, dropout_p)
+    want = torch.autograd.grad(ref_out, ref_leaves,
+                               torch.from_numpy(arrs[3]).reshape(b * h, sq, d))
+    np.testing.assert_allclose(out.detach().numpy(),
+                               ref_out.detach().reshape(out.shape).numpy(), atol=1e-6)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
+
+
+def test_function_saves_nothing_without_grad_and_launches_nothing_on_cpu():
+    q = torch.randn(1, 2, 16, 64, requires_grad=True)
+    with torch.no_grad():
+        assert tfa.mha(q, q, q).grad_fn is None
+    counts = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    out = tfa.mha(q, q, q, dropout_p=0.1, seed=4)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == counts

@@ -12,7 +12,8 @@ import torch
 
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace, resolve_device
-from paddle_tpu_torch.text.models import BertModel
+from paddle_tpu_torch.core.random import fast_keep_mask
+from paddle_tpu_torch.text.models import BertForPretraining, BertModel
 
 torch.set_num_threads(1)
 
@@ -72,7 +73,10 @@ def test_default_device_raises_without_a_card(no_card):
                lambda: tnn.LayerNorm(4), lambda: BertModel(vocab_size=8, hidden_size=8,
                                                            num_hidden_layers=1,
                                                            num_attention_heads=2,
-                                                           intermediate_size=8)):
+                                                           intermediate_size=8),
+               lambda: BertForPretraining(vocab_size=8, hidden_size=8, num_hidden_layers=1,
+                                          num_attention_heads=2, intermediate_size=8),
+               lambda: fast_keep_mask((0, 1), 0.9, (2, 3))):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             fn()
 

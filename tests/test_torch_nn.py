@@ -1,15 +1,18 @@
 """The port's layers (paddle_tpu_torch/nn) against the JAX package's, with
 the weights carried across by paddle_tpu_torch/convert.py. Inputs come
 from a numpy seed; tolerance 1e-5 in float32."""
+import jax
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as paddle
 from paddle_tpu import nn as jnn
+from paddle_tpu.core import random as jrandom
 from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.convert import load_numpy_state
+from paddle_tpu_torch.core import random as trandom
 from paddle_tpu_torch.nn import functional as TF
 
 torch.set_num_threads(1)
@@ -86,12 +89,34 @@ def test_activations(name):
 
 
 def test_dropout_eval_is_identity_and_training_raises():
+    """Eval (or p = 0) is the identity and takes no key; training-mode
+    dropout equals the JAX package's bitwise under the same key, and takes
+    exactly one key of the stream."""
     layer = tnn.Dropout(0.1)
-    x = torch.randn(3, 4)
-    assert torch.equal(layer.eval()(x), x)
-    assert torch.equal(tnn.Dropout(0.0)(x), x)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        layer.train()(x)
+    x = _x(3, 40, 16)
+    xt = torch.from_numpy(x)
+    with trandom.rng_guard(trandom.PRNGKey(0)):
+        assert torch.equal(layer.eval()(xt), xt)
+        assert torch.equal(tnn.Dropout(0.0)(xt), xt)
+        assert trandom.next_key() == trandom.fold_in(trandom.PRNGKey(0), 0)
+    for p, axis in ((0.1, None), (0.5, None), (0.3, 1)):
+        with jrandom.rng_guard(jax.random.PRNGKey(4)):
+            want = np.asarray(JF.dropout(paddle.to_tensor(x), p, axis=axis).numpy())
+            jnext = np.asarray(jax.random.key_data(jrandom.next_key()))
+        with trandom.rng_guard(trandom.PRNGKey(4)):
+            got = TF.dropout(xt, p, axis=axis).numpy() if axis is not None else \
+                tnn.Dropout(p).train()(xt).numpy()
+            tnext = trandom.next_key()
+        np.testing.assert_array_equal(got, want)
+        assert tnext == tuple(int(w) for w in jnext)
+    # downscale_in_infer: keep unscaled in training, scale by 1 - p in eval
+    for training in (True, False):
+        with jrandom.rng_guard(jax.random.PRNGKey(6)):
+            want = np.asarray(JF.dropout(paddle.to_tensor(x), 0.25, training=training,
+                                         mode="downscale_in_infer").numpy())
+        with trandom.rng_guard(trandom.PRNGKey(6)):
+            got = TF.dropout(xt, 0.25, training=training, mode="downscale_in_infer").numpy()
+        np.testing.assert_array_equal(got, want)
 
 
 def _mha_mask(kind, b=2, s=12):
