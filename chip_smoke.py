@@ -13,9 +13,13 @@ Phases, each fatal on failure (exit code 1):
               flash_attention_bwd_dkv
   3. kernels  hold K1 against mha_reference, and K2/K3 against
               mha_bwd_reference, on the card at the shapes the main paths
-              give them and at the other forms they take; time kernel,
-              plain version and the nearest PyTorch call (a yardstick
-              only: the port never calls it)
+              give them and at the other forms they take, each form in
+              float32 and bfloat16; check that dropout lands exactly where
+              the counter hash keeps (K1's O, K3's dV); time kernel, plain
+              version and the nearest PyTorch call (a yardstick only: the
+              port never calls it) both by CUDA events over back-to-back
+              calls and by device time (the durations of the kernels each
+              call ran, from a torch.profiler window)
   4. serving  full-width BERT-base (random weights from a seed, float32)
               behind PredictorServer + BatchingEngine on localhost: 1-, 2-
               and 3-row requests at seq 128 and 512, then a burst of 8
@@ -117,7 +121,7 @@ def phase_card(torch):
 
 
 # ------------------------------------------------------------------ phase 2
-def phase_build(cuda_build, fa, kernels):
+def phase_build(torch, cuda_build, fa, kernels):
     t0 = time.perf_counter()
     cuda_build.build([k["lib"] for k in kernels])
     log(f"[build] {len(kernels)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
@@ -132,8 +136,8 @@ def phase_build(cuda_build, fa, kernels):
                 log(f"    {line.strip()}")
     for k in kernels:
         log(f"[build] {k['lib']} dynamic shared memory per block: "
-            + ", ".join(f"head_dim {d}: {fa.smem_bytes(d, k['lib'])} bytes"
-                        for d in fa.HEAD_DIMS))
+            + ", ".join(f"head_dim {d} {str(dt)[6:]}: {fa.smem_bytes(d, k['lib'], dt)} bytes"
+                        for d in fa.HEAD_DIMS for dt in (torch.float32, torch.bfloat16)))
 
 
 # ------------------------------------------------------------------ phase 3
@@ -165,12 +169,77 @@ def attention_bound_ms(bh, sq, sk, d, dtype, causal, kernel="fwd"):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def device_us(events):
+    """Device time, in microseconds, summed over the profiler events (a
+    ``key_averages()`` list) that ran on the card: kernels, copies and
+    fills. Host-side events are left out."""
+    total = 0.0
+    for ev in events:
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        total += t
+    return total
+
+
+def device_ms(torch, fn, iters=20, warmup=3):
+    """Mean device time of one call of ``fn``: the durations of the
+    kernels it ran, from a torch.profiler window over ``iters`` calls,
+    divided by ``iters``. Unlike ``cuda_ms`` it does not count the gaps
+    in which the card waits for the host. None where the profiler saw no
+    device time (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = device_us(prof.key_averages())
+    return us / 1e3 / iters if us > 0 else None
+
+
+def timed(torch, fn, iters=20):
+    """(CUDA-event ms, device ms) of one call of ``fn``."""
+    return cuda_ms(torch, fn, iters=iters), device_ms(torch, fn, iters=iters)
+
+
+def _fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+# the forms the kernels take besides the main paths' shapes, each run in
+# float32 and in bfloat16 (the bf16 forms are separate kernels)
+FORMS = [
+    dict(b=2, h=12, sq=512, sk=512, d=64, causal=True, p=0.0),
+    dict(b=2, h=12, sq=200, sk=512, d=64, causal=True, p=0.0),
+    dict(b=2, h=12, sq=512, sk=200, d=64, causal=True, p=0.0),  # fully masked rows
+    dict(b=2, h=12, sq=384, sk=384, d=64, causal=False, p=0.1),
+    dict(b=2, h=4, sq=100, sk=77, d=64, causal=False, p=0.0),   # ragged tiles
+    dict(b=2, h=8, sq=512, sk=512, d=128, causal=True, p=0.1),
+    dict(b=2, h=8, sq=512, sk=512, d=128, causal=False, p=0.0),
+]
+
+
+def library_reason(c):
+    """Why no single PyTorch call computes this case, or None."""
+    if c["causal"] and c["sq"] != c["sk"]:
+        return "sdpa aligns its causal mask top-left, the kernels bottom-right"
+    return None
+
+
 def phase_kernels(torch, fa):
     """K1 against mha_reference at the shapes BERT-base serving gives it
     ([batch*12, seq, 64], float32 and bfloat16), at the shape training
     gives it ([64*12, 128, 64] bfloat16, with and without dropout) and at
-    the other forms the kernel takes (causal, cross lengths, dropout,
-    head_dim 128)."""
+    the other forms the kernel takes (causal, cross lengths, fully masked
+    rows, ragged tiles, dropout, head_dim 128, single-query decode), each
+    in both dtypes. The library yardstick is one scaled_dot_product_attention
+    call (with dropout_p where the case drops, whose RNG differs)."""
     F = torch.nn.functional
     cases = []
     for b in (1, 8):
@@ -182,17 +251,14 @@ def phase_kernels(torch, fa):
         # the shape BERT-base training gives K1 under O1 (batch 64, seq 128)
         dict(b=64, h=12, sq=128, sk=128, d=64, dtype="bfloat16", causal=False, p=0.0),
         dict(b=64, h=12, sq=128, sk=128, d=64, dtype="bfloat16", causal=False, p=0.1),
-        dict(b=2, h=12, sq=512, sk=512, d=64, dtype="float32", causal=True, p=0.0),
-        dict(b=2, h=12, sq=200, sk=512, d=64, dtype="float32", causal=True, p=0.0),
-        dict(b=2, h=12, sq=512, sk=200, d=64, dtype="float32", causal=True, p=0.0),
-        dict(b=2, h=12, sq=384, sk=384, d=64, dtype="float32", causal=False, p=0.1),
-        dict(b=2, h=8, sq=512, sk=512, d=128, dtype="float32", causal=True, p=0.0),
-        dict(b=2, h=8, sq=512, sk=512, d=128, dtype="bfloat16", causal=False, p=0.0),
     ]
+    forms = FORMS + [dict(b=8, h=1, sq=1, sk=257, d=128, causal=True, p=0.0)]  # decode
+    cases += [dict(f, dtype=dt) for f in forms for dt in ("float32", "bfloat16")]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
     log("[kernels] flash_attention_fwd vs mha_reference "
-        f"(tolerance O {TOL_O['float32']} f32 / {TOL_O['bfloat16']} bf16, LSE {TOL_LSE})")
+        f"(tolerance O {TOL_O['float32']} f32 / {TOL_O['bfloat16']} bf16, LSE {TOL_LSE}); "
+        "times: CUDA events / device (profiler)")
     for c in cases:
         bh = c["b"] * c["h"]
         tdt = getattr(torch, c["dtype"])
@@ -206,26 +272,31 @@ def phase_kernels(torch, fa):
         ro, rlse = fa.mha_reference(*args)
         err_o = (o.float() - ro.float()).abs().max().item()
         err_lse = (lse - rlse).abs().max().item()
-        ms = cuda_ms(torch, lambda: fa._fwd(*args))
-        plain_ms = cuda_ms(torch, lambda: fa.mha_reference(*args), iters=5)
-        library_ms = None
-        if c["p"] == 0.0 and (not c["causal"] or c["sq"] == c["sk"]):
+        ms, dev = timed(torch, lambda: fa._fwd(*args))
+        plain_ms, plain_dev = timed(torch, lambda: fa.mha_reference(*args), iters=5)
+        library_ms = library_dev = None
+        reason = library_reason(c)
+        if reason is None:
             # one PyTorch call computing the same O (it returns no LSE)
             q4, k4, v4 = (x.view(c["b"], c["h"], -1, c["d"]) for x in (q, k, v))
-            library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=c["causal"], scale=scale))
+            library_ms, library_dev = timed(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=c["causal"], dropout_p=c["p"], scale=scale))
         bound, bound_by = attention_bound_ms(bh, c["sq"], c["sk"], c["d"], c["dtype"],
                                              c["causal"])
         ok = err_o <= TOL_O[c["dtype"]] and err_lse <= TOL_LSE
-        r = dict(c, max_abs_err=err_o, max_lse_err=err_lse, ms=ms, plain_ms=plain_ms,
-                 library_ms=library_ms, bound_ms=bound, bound_by=bound_by, ok=ok)
+        r = dict(c, max_abs_err=err_o, max_lse_err=err_lse, ms=ms, device_ms=dev,
+                 plain_ms=plain_ms, plain_device_ms=plain_dev, library_ms=library_ms,
+                 library_device_ms=library_dev, library_null_reason=reason, bound_ms=bound,
+                 bound_by=bound_by, ok=ok)
         results.append(r)
-        lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        share = f" = {100 * bound / dev:.1f}% of bound" if dev else ""
+        lib = (f"{_fmt(library_ms)} / {_fmt(library_dev)}" if reason is None
+               else f"null ({reason})")
         log(f"  b={c['b']} h={c['h']} sq={c['sq']} sk={c['sk']} d={c['d']} "
             f"{c['dtype']} causal={c['causal']} p={c['p']}: O err {err_o:.3e} "
-            f"LSE err {err_lse:.3e} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"library {lib} ms bound {bound:.4f} ms ({bound_by}) "
-            f"{'ok' if ok else 'DISAGREES'}")
+            f"LSE err {err_lse:.3e} | kernel {ms:.4f} / {_fmt(dev)} ms{share}; plain "
+            f"{plain_ms:.4f} / {_fmt(plain_dev)} ms; library {lib} ms; bound {bound:.4f} "
+            f"ms ({bound_by}) {'ok' if ok else 'DISAGREES'}")
     bad = [r for r in results if not r["ok"]]
     if bad:
         fail(f"flash_attention_fwd disagrees with mha_reference in {len(bad)} case(s)")
@@ -241,27 +312,21 @@ def _rel_err(torch, got, want):
 def phase_bwd_kernels(torch, fa):
     """K2 and K3 against mha_bwd_reference at the shape BERT-base training
     gives them ([batch 64 * 12 heads, 128, 64], bfloat16 under O1, and
-    float32) and at the other forms they take (causal, cross lengths, fully
-    masked rows, dropout, head_dim 128). The library yardstick is one
-    torch.autograd.grad through scaled_dot_product_attention at p = 0 (it
-    computes dQ, dK and dV together; so does the plain version)."""
+    float32) and at the other forms they take, each in both dtypes. The
+    library yardstick is one torch.autograd.grad through
+    scaled_dot_product_attention (with dropout_p where the case drops; it
+    computes dQ, dK and dV together, as does the plain version)."""
     F = torch.nn.functional
     cases = [dict(b=64, h=12, sq=128, sk=128, d=64, dtype=dt, causal=False, p=0.0)
              for dt in ("bfloat16", "float32")]
-    cases += [
-        dict(b=64, h=12, sq=128, sk=128, d=64, dtype="bfloat16", causal=False, p=0.1),
-        dict(b=2, h=12, sq=512, sk=512, d=64, dtype="float32", causal=True, p=0.0),
-        dict(b=2, h=12, sq=200, sk=512, d=64, dtype="float32", causal=True, p=0.0),
-        dict(b=2, h=12, sq=512, sk=200, d=64, dtype="float32", causal=True, p=0.0),
-        dict(b=2, h=12, sq=384, sk=384, d=64, dtype="float32", causal=False, p=0.1),
-        dict(b=2, h=8, sq=512, sk=512, d=128, dtype="float32", causal=True, p=0.1),
-        dict(b=2, h=8, sq=512, sk=512, d=128, dtype="bfloat16", causal=False, p=0.0),
-    ]
+    cases.append(dict(b=64, h=12, sq=128, sk=128, d=64, dtype="bfloat16", causal=False,
+                      p=0.1))
+    cases += [dict(f, dtype=dt) for f in FORMS for dt in ("float32", "bfloat16")]
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = []
     log("[bwd kernels] flash_attention_bwd_dq (K2) / _dkv (K3) vs mha_bwd_reference "
         f"(tolerance {TOL_GRAD['float32']} f32 / {TOL_GRAD['bfloat16']} bf16 of the "
-        "gradient's max magnitude)")
+        "gradient's max magnitude); times: CUDA events / device (profiler)")
     for c in cases:
         bh = c["b"] * c["h"]
         tdt = getattr(torch, c["dtype"])
@@ -284,20 +349,20 @@ def phase_bwd_kernels(torch, fa):
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         kargs = fa._kernel_args(4321, scale, c["causal"], c["p"], q.dtype, q.device)
         dims = (bh, c["sq"], c["sk"], c["d"])
-        ms_dq = cuda_ms(torch, lambda: fa._launch("flash_attention_bwd_dq", *ptrs,
-                                                  dq.data_ptr(), *dims, *kargs))
-        ms_dkv = cuda_ms(torch, lambda: fa._launch("flash_attention_bwd_dkv", *ptrs,
-                                                   dk.data_ptr(), dv.data_ptr(), *dims,
-                                                   *kargs))
-        plain_ms = cuda_ms(torch, lambda: fa.mha_bwd_reference(*args), iters=5)
-        library_ms = None
-        if c["p"] == 0.0 and (not c["causal"] or c["sq"] == c["sk"]):
+        ms_dq, dev_dq = timed(torch, lambda: fa._launch("flash_attention_bwd_dq", *ptrs,
+                                                        dq.data_ptr(), *dims, *kargs))
+        ms_dkv, dev_dkv = timed(torch, lambda: fa._launch(
+            "flash_attention_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, *kargs))
+        plain_ms, plain_dev = timed(torch, lambda: fa.mha_bwd_reference(*args), iters=5)
+        library_ms = library_dev = None
+        reason = library_reason(c)
+        if reason is None:
             q4, k4, v4 = (x.view(c["b"], c["h"], -1, c["d"]).detach().requires_grad_(True)
                           for x in (q, k, v))
             out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=c["causal"],
-                                                 scale=scale)
+                                                 dropout_p=c["p"], scale=scale)
             do4 = do.view_as(out)
-            library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            library_ms, library_dev = timed(torch, lambda: torch.autograd.grad(
                 out, (q4, k4, v4), do4, retain_graph=True))
         bound_dq = attention_bound_ms(bh, c["sq"], c["sk"], c["d"], c["dtype"],
                                       c["causal"], "bwd_dq")
@@ -306,21 +371,53 @@ def phase_bwd_kernels(torch, fa):
         ok = max(errs) <= TOL_GRAD[c["dtype"]] and same
         r = dict(c, err_dq=errs[0], err_dk=errs[1], err_dv=errs[2],
                  abs_err_dq=abs_errs[0], abs_err_dkv=max(abs_errs[1:]), ms_dq=ms_dq,
-                 ms_dkv=ms_dkv, plain_ms=plain_ms, library_ms=library_ms,
+                 device_ms_dq=dev_dq, ms_dkv=ms_dkv, device_ms_dkv=dev_dkv,
+                 plain_ms=plain_ms, plain_device_ms=plain_dev, library_ms=library_ms,
+                 library_device_ms=library_dev, library_null_reason=reason,
                  bound_dq=bound_dq, bound_dkv=bound_dkv, ok=ok)
         results.append(r)
-        lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        lib = (f"{_fmt(library_ms)} / {_fmt(library_dev)}" if reason is None
+               else f"null ({reason})")
+        share = f" = {100 * bound_dkv[0] / dev_dkv:.1f}% of bound" if dev_dkv else ""
         log(f"  b={c['b']} h={c['h']} sq={c['sq']} sk={c['sk']} d={c['d']} {c['dtype']} "
             f"causal={c['causal']} p={c['p']}: err dq {errs[0]:.3e} dk {errs[1]:.3e} "
-            f"dv {errs[2]:.3e} | K2 {ms_dq:.4f} ms (bound {bound_dq[0]:.4f} "
-            f"{bound_dq[1]}) K3 {ms_dkv:.4f} ms (bound {bound_dkv[0]:.4f} "
-            f"{bound_dkv[1]}) plain {plain_ms:.4f} ms library {lib} ms "
+            f"dv {errs[2]:.3e} | K2 {ms_dq:.4f} / {_fmt(dev_dq)} ms (bound "
+            f"{bound_dq[0]:.4f} {bound_dq[1]}) K3 {ms_dkv:.4f} / {_fmt(dev_dkv)} ms (bound "
+            f"{bound_dkv[0]:.4f} {bound_dkv[1]}{share}) plain {plain_ms:.4f} / "
+            f"{_fmt(plain_dev)} ms library {lib} ms "
             f"{'' if same else 'NOT REPEATABLE '}{'ok' if ok else 'DISAGREES'}")
     bad = [r for r in results if not r["ok"]]
     if bad:
         fail(f"K2/K3 disagree with mha_bwd_reference (or are not repeatable) in "
              f"{len(bad)} case(s)")
     return results
+
+
+def phase_dropout_placement(torch, fa):
+    """The dropout mask lands exactly where ``_keep_mask`` keeps: with q =
+    k = 0 every p is 1/sk, so with V = I (sk = d) K1's O is non-zero
+    exactly at the kept (row, col); with dO = I (sq = d) K3's dV is
+    non-zero exactly at the transposed mask. A tolerance on values alone
+    could miss a mask placed one element off."""
+    p, seed = 0.3, 2024
+    for d in fa.HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            bh = 6
+            zeros = torch.zeros(bh, d, d, device="cuda", dtype=dt)
+            eye = torch.eye(d, device="cuda", dtype=dt).expand(bh, d, d).contiguous()
+            o, lse = fa._fwd(zeros, zeros, eye, seed, d ** -0.5, False, p)
+            _, _, dv = fa._bwd(zeros, zeros, eye, o, lse, eye, seed, d ** -0.5, False, p)
+            torch.cuda.synchronize()
+            idx = torch.arange(d, device="cuda")
+            keep = fa._dropout_keep(seed, bh, idx[:, None], idx[None, :], d, p)
+            o_ok = torch.equal(o != 0, keep)
+            dv_ok = torch.equal(dv != 0, keep.transpose(1, 2))
+            kept = keep.float().mean().item()
+            log(f"[dropout placement] d={d} {str(dt)[6:]} p={p}: K1 O non-zero exactly "
+                f"where kept {o_ok}, K3 dV at the transposed mask {dv_ok} "
+                f"(kept share {kept:.3f})")
+            if not (o_ok and dv_ok):
+                fail(f"dropout placement differs from _keep_mask (d={d}, {dt})")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -508,9 +605,9 @@ def profile_device(torch, fn, label, top=8):
 
 # kernel-name fragments -> the layer of the port that launched them
 KERNEL_GROUPS = (
-    ("K1 flash_attention_fwd", ("fwd_kernel",)),
+    ("K1 flash_attention_fwd", ("fwd_f32_kernel", "fwd_bf16_kernel")),
     ("K2 flash_attention_bwd_dq", ("dq_kernel",)),
-    ("K3 flash_attention_bwd_dkv", ("dkv_kernel",)),
+    ("K3 flash_attention_bwd_dkv", ("dkv_kernel", "dkv_bf16_kernel")),
     ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_", "nvjet")),
     ("int64 elementwise (counter-hash dropout masks)", ("<long",)),
 )
@@ -702,9 +799,10 @@ def main():
         dict(name="flash_attention_bwd_dkv", lib="flash_attention_bwd_dkv", route="cuda",
              source=src + "flash_attention_bwd_dkv.cu", replaces=tpu + "458"),
     ]
-    phase_build(cuda_build, fa, kernels)
+    phase_build(torch, cuda_build, fa, kernels)
     cases = phase_kernels(torch, fa)
     bwd_cases = phase_bwd_kernels(torch, fa)
+    phase_dropout_placement(torch, fa)
     serving_launches = phase_serving(torch, fa, (BertModel, BatchingEngine, PredictorServer,
                                                  wire_spec))
     train = phase_training(torch, fa, (BertForPretraining, nn, optimizer, spmd, prandom),
@@ -718,23 +816,34 @@ def main():
                 and r["dtype"] == "float32")
     bmain = next(r for r in bwd_cases if r["b"] == 64 and r["dtype"] == "bfloat16"
                  and r["p"] == 0.0)
+    train_fwd = next(r for r in cases if r["b"] == 64 and r["dtype"] == "bfloat16"
+                     and r["p"] == 0.0)
+
+    def timing(r, suffix=""):
+        # ms: CUDA events over back-to-back calls; device_ms: the kernels'
+        # own durations from the profiler (what the table in PERF.md uses)
+        return dict(ms=r["ms" + suffix], device_ms=r["device_ms" + suffix],
+                    plain_ms=r["plain_ms"], plain_device_ms=r["plain_device_ms"],
+                    library_ms=r["library_ms"], library_device_ms=r["library_device_ms"])
+
     line = [
         dict(name=kernels[0]["name"], route="cuda", source=kernels[0]["source"],
              replaces=kernels[0]["replaces"],
              launches=serving_launches + train["counts"]["fwd"],
-             max_abs_err=main["max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
-             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-             library_ms=main["library_ms"]),
+             max_abs_err=main["max_abs_err"], **timing(main), bound_ms=main["bound_ms"],
+             bound_by=main["bound_by"],
+             # K1 at the training shape, [64 * 12, 128, 64] bfloat16
+             **{"train_bf16_" + k: v for k, v in dict(
+                 max_abs_err=train_fwd["max_abs_err"], **timing(train_fwd),
+                 bound_ms=train_fwd["bound_ms"], bound_by=train_fwd["bound_by"]).items()}),
         dict(name=kernels[1]["name"], route="cuda", source=kernels[1]["source"],
              replaces=kernels[1]["replaces"], launches=train["counts"]["bwd_dq"],
-             max_abs_err=bmain["abs_err_dq"], ms=bmain["ms_dq"], plain_ms=bmain["plain_ms"],
-             bound_ms=bmain["bound_dq"][0], bound_by=bmain["bound_dq"][1],
-             library_ms=bmain["library_ms"]),
+             max_abs_err=bmain["abs_err_dq"], **timing(bmain, "_dq"),
+             bound_ms=bmain["bound_dq"][0], bound_by=bmain["bound_dq"][1]),
         dict(name=kernels[2]["name"], route="cuda", source=kernels[2]["source"],
              replaces=kernels[2]["replaces"], launches=train["counts"]["bwd_dkv"],
-             max_abs_err=bmain["abs_err_dkv"], ms=bmain["ms_dkv"],
-             plain_ms=bmain["plain_ms"], bound_ms=bmain["bound_dkv"][0],
-             bound_by=bmain["bound_dkv"][1], library_ms=bmain["library_ms"]),
+             max_abs_err=bmain["abs_err_dkv"], **timing(bmain, "_dkv"),
+             bound_ms=bmain["bound_dkv"][0], bound_by=bmain["bound_dkv"][1]),
     ]
     log(card)
     log(json.dumps({"kernels": line}))

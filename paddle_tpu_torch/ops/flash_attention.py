@@ -40,6 +40,9 @@ dkv_launches = 0
 # library -> number of pointer arguments of its launch function
 _LIBS = {"flash_attention_fwd": 5, "flash_attention_bwd_dq": 7,
          "flash_attention_bwd_dkv": 8}
+# libraries whose ``_smem_bytes`` takes (head_dim, dtype code): their f32
+# and bf16 forms are separate kernels with their own shared memory
+_SMEM_BY_DTYPE = ("flash_attention_fwd", "flash_attention_bwd_dkv")
 _libs = {}
 
 
@@ -53,18 +56,22 @@ def _library(name):
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
                ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        for suffix, restype in (("_error_string", ctypes.c_char_p),
-                                ("_smem_bytes", ctypes.c_int)):
-            getattr(lib, name + suffix).argtypes = [ctypes.c_int]
-            getattr(lib, name + suffix).restype = restype
+        lib_error = getattr(lib, name + "_error_string")
+        lib_error.argtypes, lib_error.restype = [ctypes.c_int], ctypes.c_char_p
+        lib_smem = getattr(lib, name + "_smem_bytes")
+        lib_smem.argtypes = [ctypes.c_int] * (2 if name in _SMEM_BY_DTYPE else 1)
+        lib_smem.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 
 
-def smem_bytes(head_dim, kernel="flash_attention_fwd"):
+def smem_bytes(head_dim, kernel="flash_attention_fwd", dtype=torch.float32):
     """Dynamic shared memory one block of ``kernel`` (a library name of
-    ``_LIBS``) takes for ``head_dim``."""
-    return getattr(_library(kernel), kernel + "_smem_bytes")(int(head_dim))
+    ``_LIBS``) takes for ``head_dim`` and ``dtype``."""
+    fn = getattr(_library(kernel), kernel + "_smem_bytes")
+    if kernel in _SMEM_BY_DTYPE:
+        return fn(int(head_dim), _DTYPE_CODES[dtype])
+    return fn(int(head_dim))
 
 
 def _launch(name, *args):
@@ -178,6 +185,17 @@ def _check(q, k, v, *more):
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
 
 
+def _aligned(*ts):
+    """The tensors, contiguous, each copied once more where its data does
+    not start on a 16-byte boundary (the kernels stage rows with 16-byte
+    copies; a view into another tensor can start anywhere)."""
+    out = []
+    for t in ts:
+        t = t.contiguous()
+        out.append(t if t.data_ptr() % 16 == 0 else t.clone())
+    return out
+
+
 def _check_dropout(dropout_p):
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
@@ -199,7 +217,7 @@ def _fwd(q, k, v, seed, scale, causal, dropout_p):
     _check(q, k, v)
     bh, sq, d = q.shape
     sk = k.shape[1]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq, 1), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -229,7 +247,8 @@ def _bwd(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
         raise ValueError(f"flash attention backward: O {tuple(o.shape)}, dO "
                          f"{tuple(do.shape)}, LSE {tuple(lse.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    q, k, v, do, lse = (t.contiguous() for t in (q, k, v, do, lse))
+    q, k, v, do = _aligned(q, k, v, do)
+    lse = lse.contiguous()
     # delta = rowsum(dO * O) in f32, outside the kernels as in the reference
     delta = (do.float() * o.float()).sum(dim=-1).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

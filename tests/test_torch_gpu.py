@@ -34,15 +34,23 @@ def _qkv(bh, sq, sk, d, dtype, seed=0):
             for n in (sq, sk, sk)]
 
 
+# the forms of K1 and of the backward, each run in both dtypes: the f32
+# and bf16 forms are separate kernels
+FORMS = [
+    (8, 100, 77, 64, False, 0.0),    # ragged lengths
+    (8, 77, 300, 128, True, 0.0),    # causal, sq < sk
+    (8, 300, 77, 64, True, 0.0),     # fully masked rows
+    (8, 1, 257, 128, True, 0.0),     # single-query decode
+    (8, 256, 256, 64, True, 0.2),    # dropout
+    (8, 256, 256, 128, False, 0.1),  # head_dim 128
+]
+DTYPES = (torch.float32, torch.bfloat16)
+
+
 @pytest.mark.parametrize("bh,sq,sk,d,causal,p,dtype", [
     (12, 128, 128, 64, False, 0.0, torch.float32),
     (96, 512, 512, 64, False, 0.0, torch.bfloat16),
-    (8, 100, 77, 64, False, 0.0, torch.float32),
-    (8, 77, 300, 128, True, 0.0, torch.float32),
-    (8, 300, 77, 64, True, 0.0, torch.float32),   # fully masked rows
-    (8, 1, 257, 128, True, 0.0, torch.bfloat16),  # single-query decode
-    (8, 256, 256, 64, True, 0.2, torch.float32),
-])
+] + [f + (dt,) for f in FORMS for dt in DTYPES])
 def test_kernel_matches_plain_version(cuda, bh, sq, sk, d, causal, p, dtype):
     q, k, v = _qkv(bh, sq, sk, d, dtype)
     before = fa.launches
@@ -89,12 +97,9 @@ def _rel_err(a, b):
 @pytest.mark.parametrize("bh,sq,sk,d,causal,p,dtype", [
     (24, 128, 128, 64, False, 0.0, torch.float32),
     (24, 128, 128, 64, False, 0.1, torch.bfloat16),
-    (8, 100, 77, 64, False, 0.0, torch.float32),    # ragged lengths
-    (8, 77, 300, 128, True, 0.0, torch.float32),    # causal, sq < sk
-    (8, 300, 77, 64, True, 0.0, torch.float32),     # fully masked rows
     (8, 256, 256, 128, True, 0.2, torch.bfloat16),
     (8, 256, 256, 64, True, 0.1, torch.float32),
-])
+] + [f + (dt,) for f in FORMS for dt in DTYPES])
 def test_backward_kernels_match_plain_version(cuda, bh, sq, sk, d, causal, p, dtype):
     """K2 and K3 against mha_bwd_reference on the same saved O and LSE:
     within 1e-4 (f32) / 2e-2 (bf16) of the gradient's max magnitude."""
@@ -115,6 +120,56 @@ def test_backward_kernels_match_plain_version(cuda, bh, sq, sk, d, causal, p, dt
     # deterministic: no atomics, the same bits run to run
     again = fa._bwd(q, k, v, o, lse, do, 77, d ** -0.5, causal, p)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dropout_lands_exactly_where_the_hash_keeps(cuda, d, dtype):
+    """q = k = 0 makes every p 1/sk. With V = I (sk = d), K1's O is
+    non-zero exactly where ``_keep_mask`` keeps (row, col); with dO = I (sq
+    = d), K3's dV is non-zero exactly at the transposed mask. A value
+    tolerance alone could miss a mask placed one element off."""
+    bh, p, seed = 6, 0.3, 2024
+    zeros = torch.zeros(bh, d, d, device="cuda", dtype=dtype)
+    eye = torch.eye(d, device="cuda", dtype=dtype).expand(bh, d, d).contiguous()
+    o, lse = fa._fwd(zeros, zeros, eye, seed, d ** -0.5, False, p)
+    _, _, dv = fa._bwd(zeros, zeros, eye, o, lse, eye, seed, d ** -0.5, False, p)
+    idx = torch.arange(d, device="cuda")
+    keep = fa._dropout_keep(seed, bh, idx[:, None], idx[None, :], d, p)
+    assert 0.5 < keep.float().mean().item() < 0.9
+    assert torch.equal(o != 0, keep)
+    assert torch.equal(dv != 0, keep.transpose(1, 2))
+
+
+def test_kernels_take_unaligned_views(cuda):
+    """A view that does not start on a 16-byte boundary is copied once
+    before the kernels' 16-byte staging copies; the result is the plain
+    version's."""
+    for dtype in DTYPES:
+        g = torch.Generator(device="cuda").manual_seed(5)
+        base = torch.randn(3 * 8 * 96 * 64 + 1, device="cuda", generator=g).to(dtype)
+        q, k, v = base[1:].view(3, 8, 96, 64).unbind(0)
+        assert q.data_ptr() % 16 != 0
+        o, lse = fa._fwd(q, k, v, 1, 0.125, True, 0.0)
+        ro, rlse = fa.mha_reference(q, k, v, 1, 0.125, True, 0.0)
+        assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+        got = fa._bwd(q, k, v, o, lse, q, 1, 0.125, True, 0.0)
+        want = fa.mha_bwd_reference(q, k, v, o, lse, q, 1, 0.125, True, 0.0)
+        for a, b in zip(got, want):
+            assert _rel_err(a, b) <= TOL[dtype]
+
+
+def test_shared_memory_of_the_redesigned_kernels(cuda):
+    """The bf16 forms stage bf16 tiles: K1 about 45 / 85 KB and K3 about
+    55 / 103 KB at head_dim 64 / 128; every form fits one block."""
+    sizes = {(name, d, dt): fa.smem_bytes(d, name, dt)
+             for name in ("flash_attention_fwd", "flash_attention_bwd_dkv")
+             for d in fa.HEAD_DIMS for dt in DTYPES}
+    assert sizes["flash_attention_fwd", 64, torch.bfloat16] == 46080
+    assert sizes["flash_attention_fwd", 128, torch.bfloat16] == 87040
+    assert sizes["flash_attention_bwd_dkv", 64, torch.bfloat16] == 56320
+    assert sizes["flash_attention_bwd_dkv", 128, torch.bfloat16] == 105472
+    assert all(0 < b <= 232448 for b in sizes.values())
 
 
 def test_train_step_on_the_card_matches_the_cpu(cuda):
