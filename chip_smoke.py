@@ -15,11 +15,11 @@ Phases, each fatal on failure (exit code 1):
               mha_bwd_reference, on the card at the shapes the main paths
               give them and at the other forms they take, each form in
               float32 and bfloat16; check that dropout lands exactly where
-              the counter hash keeps (K1's O, K3's dV); time kernel, plain
-              version and the nearest PyTorch call (a yardstick only: the
-              port never calls it) both by CUDA events over back-to-back
-              calls and by device time (the durations of the kernels each
-              call ran, from a torch.profiler window)
+              the counter hash keeps (K1's O, K2's dQ, K3's dV); time
+              kernel, plain version and the nearest PyTorch call (a
+              yardstick only: the port never calls it) both by CUDA events
+              over back-to-back calls and by device time (the durations of
+              the kernels each call ran, from a torch.profiler window)
   4. serving  full-width BERT-base (random weights from a seed, float32)
               behind PredictorServer + BatchingEngine on localhost: 1-, 2-
               and 3-row requests at seq 128 and 512, then a burst of 8
@@ -169,14 +169,18 @@ def attention_bound_ms(bh, sq, sk, d, dtype, causal, kernel="fwd"):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def device_us(events):
+def device_us(events, calls=1):
     """Device time, in microseconds, summed over the profiler events (a
     ``key_averages()`` list) that ran on the card: kernels, copies and
-    fills. Host-side events are left out."""
+    fills. Host-side events are left out. None where a kernel ran a number
+    of times that is not a multiple of ``calls``: the profiler lost some of
+    the calls' records, and the sum would read low."""
     total = 0.0
     for ev in events:
         if "CUDA" not in str(getattr(ev, "device_type", "")):
             continue
+        if getattr(ev, "count", calls) % calls:
+            return None
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
             t = getattr(ev, "self_cuda_time_total", 0.0)
@@ -189,7 +193,7 @@ def device_ms(torch, fn, iters=20, warmup=3):
     kernels it ran, from a torch.profiler window over ``iters`` calls,
     divided by ``iters``. Unlike ``cuda_ms`` it does not count the gaps
     in which the card waits for the host. None where the profiler saw no
-    device time (not measured)."""
+    device time or lost some of the calls' records (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -199,17 +203,28 @@ def device_ms(torch, fn, iters=20, warmup=3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = device_us(prof.key_averages())
-    return us / 1e3 / iters if us > 0 else None
+    us = device_us(prof.key_averages(), iters)
+    return us / 1e3 / iters if us else None
 
 
 def timed(torch, fn, iters=20):
-    """(CUDA-event ms, device ms) of one call of ``fn``."""
-    return cuda_ms(torch, fn, iters=iters), device_ms(torch, fn, iters=iters)
+    """(CUDA-event ms, device ms) of one call of ``fn``. Where the profiler
+    window read nothing or lost records it is taken once more; None after
+    that prints as "not measured"."""
+    ms = cuda_ms(torch, fn, iters=iters)
+    dev = device_ms(torch, fn, iters=iters)
+    if dev is None:
+        dev = device_ms(torch, fn, iters=iters)
+    return ms, dev
 
 
 def _fmt(ms):
     return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def _share(bound_ms, dev_ms):
+    """" = x% of bound" for a measured device time, else ""."""
+    return f" = {100 * bound_ms / dev_ms:.1f}% of bound" if dev_ms else ""
 
 
 # the forms the kernels take besides the main paths' shapes, each run in
@@ -289,13 +304,13 @@ def phase_kernels(torch, fa):
                  library_device_ms=library_dev, library_null_reason=reason, bound_ms=bound,
                  bound_by=bound_by, ok=ok)
         results.append(r)
-        share = f" = {100 * bound / dev:.1f}% of bound" if dev else ""
         lib = (f"{_fmt(library_ms)} / {_fmt(library_dev)}" if reason is None
                else f"null ({reason})")
         log(f"  b={c['b']} h={c['h']} sq={c['sq']} sk={c['sk']} d={c['d']} "
             f"{c['dtype']} causal={c['causal']} p={c['p']}: O err {err_o:.3e} "
-            f"LSE err {err_lse:.3e} | kernel {ms:.4f} / {_fmt(dev)} ms{share}; plain "
-            f"{plain_ms:.4f} / {_fmt(plain_dev)} ms; library {lib} ms; bound {bound:.4f} "
+            f"LSE err {err_lse:.3e} | kernel {ms:.4f} / {_fmt(dev)} ms"
+            f"{_share(bound, dev)}; plain {plain_ms:.4f} / {_fmt(plain_dev)} ms; "
+            f"library {lib} ms; bound {bound:.4f} "
             f"ms ({bound_by}) {'ok' if ok else 'DISAGREES'}")
     bad = [r for r in results if not r["ok"]]
     if bad:
@@ -378,12 +393,12 @@ def phase_bwd_kernels(torch, fa):
         results.append(r)
         lib = (f"{_fmt(library_ms)} / {_fmt(library_dev)}" if reason is None
                else f"null ({reason})")
-        share = f" = {100 * bound_dkv[0] / dev_dkv:.1f}% of bound" if dev_dkv else ""
         log(f"  b={c['b']} h={c['h']} sq={c['sq']} sk={c['sk']} d={c['d']} {c['dtype']} "
             f"causal={c['causal']} p={c['p']}: err dq {errs[0]:.3e} dk {errs[1]:.3e} "
             f"dv {errs[2]:.3e} | K2 {ms_dq:.4f} / {_fmt(dev_dq)} ms (bound "
-            f"{bound_dq[0]:.4f} {bound_dq[1]}) K3 {ms_dkv:.4f} / {_fmt(dev_dkv)} ms (bound "
-            f"{bound_dkv[0]:.4f} {bound_dkv[1]}{share}) plain {plain_ms:.4f} / "
+            f"{bound_dq[0]:.4f} {bound_dq[1]}{_share(bound_dq[0], dev_dq)}) K3 {ms_dkv:.4f} / "
+            f"{_fmt(dev_dkv)} ms (bound {bound_dkv[0]:.4f} {bound_dkv[1]}"
+            f"{_share(bound_dkv[0], dev_dkv)}) plain {plain_ms:.4f} / "
             f"{_fmt(plain_dev)} ms library {lib} ms "
             f"{'' if same else 'NOT REPEATABLE '}{'ok' if ok else 'DISAGREES'}")
     bad = [r for r in results if not r["ok"]]
@@ -397,8 +412,10 @@ def phase_dropout_placement(torch, fa):
     """The dropout mask lands exactly where ``_keep_mask`` keeps: with q =
     k = 0 every p is 1/sk, so with V = I (sk = d) K1's O is non-zero
     exactly at the kept (row, col); with dO = I (sq = d) K3's dV is
-    non-zero exactly at the transposed mask. A tolerance on values alone
-    could miss a mask placed one element off."""
+    non-zero exactly at the transposed mask. For K2, q = 0, K = V = I,
+    dO = ones, O = 0 (delta = 0) and LSE = log d give P = 1/d, dS =
+    P * keep / (1 - p) and dQ = scale * dS, non-zero exactly where kept. A
+    tolerance on values alone could miss a mask placed one element off."""
     p, seed = 0.3, 2024
     for d in fa.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
@@ -407,16 +424,20 @@ def phase_dropout_placement(torch, fa):
             eye = torch.eye(d, device="cuda", dtype=dt).expand(bh, d, d).contiguous()
             o, lse = fa._fwd(zeros, zeros, eye, seed, d ** -0.5, False, p)
             _, _, dv = fa._bwd(zeros, zeros, eye, o, lse, eye, seed, d ** -0.5, False, p)
+            ones = torch.ones_like(zeros)
+            lse_d = torch.full((bh, d, 1), float(np.log(d)), device="cuda")
+            dq, _, _ = fa._bwd(zeros, eye, eye, zeros, lse_d, ones, seed, d ** -0.5, False, p)
             torch.cuda.synchronize()
             idx = torch.arange(d, device="cuda")
             keep = fa._dropout_keep(seed, bh, idx[:, None], idx[None, :], d, p)
             o_ok = torch.equal(o != 0, keep)
+            dq_ok = torch.equal(dq != 0, keep)
             dv_ok = torch.equal(dv != 0, keep.transpose(1, 2))
             kept = keep.float().mean().item()
             log(f"[dropout placement] d={d} {str(dt)[6:]} p={p}: K1 O non-zero exactly "
-                f"where kept {o_ok}, K3 dV at the transposed mask {dv_ok} "
-                f"(kept share {kept:.3f})")
-            if not (o_ok and dv_ok):
+                f"where kept {o_ok}, K2 dQ exactly where kept {dq_ok}, K3 dV at the "
+                f"transposed mask {dv_ok} (kept share {kept:.3f})")
+            if not (o_ok and dq_ok and dv_ok):
                 fail(f"dropout placement differs from _keep_mask (d={d}, {dt})")
 
 
@@ -606,8 +627,8 @@ def profile_device(torch, fn, label, top=8):
 # kernel-name fragments -> the layer of the port that launched them
 KERNEL_GROUPS = (
     ("K1 flash_attention_fwd", ("fwd_f32_kernel", "fwd_bf16_kernel")),
-    ("K2 flash_attention_bwd_dq", ("dq_kernel",)),
-    ("K3 flash_attention_bwd_dkv", ("dkv_kernel", "dkv_bf16_kernel")),
+    ("K2 flash_attention_bwd_dq", ("dq_f32_kernel", "dq_bf16_kernel")),
+    ("K3 flash_attention_bwd_dkv", ("dkv_f32_kernel", "dkv_bf16_kernel")),
     ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_", "nvjet")),
     ("int64 elementwise (counter-hash dropout masks)", ("<long",)),
 )
@@ -810,12 +831,13 @@ def main():
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
-    # them under O1 ([64 * 12, 128, 64] bfloat16). Launches: every main
-    # path run, each counted from 0 just before it.
+    # them under O1 ([64 * 12, 128, 64] bfloat16), and in float32 (the O0
+    # step's form) under f32_*. Launches: every main path run, each counted
+    # from 0 just before it.
     main = next(r for r in cases if r["b"] == 8 and r["sq"] == 512
                 and r["dtype"] == "float32")
-    bmain = next(r for r in bwd_cases if r["b"] == 64 and r["dtype"] == "bfloat16"
-                 and r["p"] == 0.0)
+    bmain, bf32 = (next(r for r in bwd_cases if r["b"] == 64 and r["dtype"] == dt
+                        and r["p"] == 0.0) for dt in ("bfloat16", "float32"))
     train_fwd = next(r for r in cases if r["b"] == 64 and r["dtype"] == "bfloat16"
                      and r["p"] == 0.0)
 
@@ -825,6 +847,12 @@ def main():
         return dict(ms=r["ms" + suffix], device_ms=r["device_ms" + suffix],
                     plain_ms=r["plain_ms"], plain_device_ms=r["plain_device_ms"],
                     library_ms=r["library_ms"], library_device_ms=r["library_device_ms"])
+
+    def bwd(r, which, prefix=""):
+        # K2 ("dq") or K3 ("dkv") fields of one backward case
+        return {prefix + k: v for k, v in dict(
+            max_abs_err=r["abs_err_" + which], **timing(r, "_" + which),
+            bound_ms=r["bound_" + which][0], bound_by=r["bound_" + which][1]).items()}
 
     line = [
         dict(name=kernels[0]["name"], route="cuda", source=kernels[0]["source"],
@@ -838,12 +866,10 @@ def main():
                  bound_ms=train_fwd["bound_ms"], bound_by=train_fwd["bound_by"]).items()}),
         dict(name=kernels[1]["name"], route="cuda", source=kernels[1]["source"],
              replaces=kernels[1]["replaces"], launches=train["counts"]["bwd_dq"],
-             max_abs_err=bmain["abs_err_dq"], **timing(bmain, "_dq"),
-             bound_ms=bmain["bound_dq"][0], bound_by=bmain["bound_dq"][1]),
+             **bwd(bmain, "dq"), **bwd(bf32, "dq", "f32_")),
         dict(name=kernels[2]["name"], route="cuda", source=kernels[2]["source"],
              replaces=kernels[2]["replaces"], launches=train["counts"]["bwd_dkv"],
-             max_abs_err=bmain["abs_err_dkv"], **timing(bmain, "_dkv"),
-             bound_ms=bmain["bound_dkv"][0], bound_by=bmain["bound_dkv"][1]),
+             **bwd(bmain, "dkv"), **bwd(bf32, "dkv", "f32_")),
     ]
     log(card)
     log(json.dumps({"kernels": line}))

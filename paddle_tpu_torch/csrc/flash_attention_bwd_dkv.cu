@@ -15,11 +15,11 @@
 // What bounds it on an H100: 8*sq*sk*d operations (four products) against
 // (2*sq + 4*sk)*d elements plus 2*sq floats of traffic per head, so at the
 // BERT-base training shape ([768, 128, 64]) the f32 form is bound by
-// operations (67 TFLOP/s outside the tensor cores) and the bf16 form by
-// bytes (3.35 TB/s). What the design does about it: P, dP and dS never
-// leave the block, K and V are read once per block and Q/dO once per
-// (block, q tile), and the dK/dV accumulators are f32 registers written
-// once at the end, without atomics. One block per (batch*head, 64-row k
+// operations (67 TFLOP/s outside the tensor cores; f32 stays full f32, no
+// TF32) and the bf16 form by bytes (3.35 TB/s). What the design does about
+// it: P, dP and dS never leave the block, K and V are read once per block
+// and Q/dO once per (block, q tile), and the dK/dV accumulators are f32
+// registers written once at the end, without atomics. One block per (batch*head, 64-row k
 // tile) in both forms.
 //
 // bf16 (`dkv_bf16_kernel`) runs on the tensor cores (mma.sync m16n8k16,
@@ -38,189 +38,180 @@
 // ldmatrix.trans. Rows are padded by 8 elements so ldmatrix is free of bank
 // conflicts. P's e^x is fa::fast_exp (one ex2.approx).
 //
-// f32 (`dkv_kernel`) runs as f32 FMAs on the CUDA cores, 256 threads as
-// 16 x 16: each thread owns 4 key rows x 4 q columns of the transposed
-// tiles S^T/dP^T and 4 key rows x d/16 columns of dK and dV. K and V rows
-// stay in shared memory for the whole block; Q and dO are stored
-// transposed ([d][64 + 1]) so the same arrays serve S^T = K Q^T and dK =
-// dS^T Q. At head_dim 128 a block takes 166,400 bytes of shared memory.
+// f32 (`dkv_f32_kernel`) runs on the CUDA cores, register-blocked as K1's
+// f32 form (csrc/flash_attention_f32.cuh): 128 threads; q tiles of 32 rows,
+// so each thread owns 4 key rows (ty + 16 i) x 4 q columns (tx + 8 j) of
+// S^T and dP^T and the same 4 key rows x D/8 columns (tx * 4 + 32 g, as
+// float4) of dK and dV. Every shared read is a float4 that the 8 lanes of
+// a quarter-warp either share (K, V, dS^T, P_drop^T) or take from 8
+// distinct bank groups (Q, dO). K and V rows stay for the whole block; Q
+// and dO have one buffer each, refilled as soon as the product that reads
+// them last is done (dK for Q, dV for dO); one [64][36] buffer holds dS^T
+// for dK, then P_drop^T for dV. That is 61,696 / 110,848 bytes of shared
+// memory at head_dim 64 / 128, so three / two blocks share an SM (64-row q
+// tiles, 4 x 8 a thread, took 87,552 bytes at head_dim 64, two blocks per
+// SM, and ran slower). e^x is fa::fast_exp in both forms.
 #include "flash_attention_common.cuh"
+#include "flash_attention_f32.cuh"
 #include "flash_attention_sm90.cuh"
 
 namespace {
 
 using fa::NEG_INF;
-using fa::round_like;
-using fa::store_out;
-using fa::to_f32;
 
-constexpr int BQ = 64;        // q rows per q tile
-constexpr int BK = 64;        // key rows per block
-constexpr int THREADS = 256;  // 16 x 16
-constexpr int RPT = BK / 16;  // key rows per thread
-constexpr int CPT = BQ / 16;  // q columns per thread
+constexpr int BQ = 64;  // q rows per q tile of the bf16 form
+constexpr int BK = 64;  // key rows per block
 
+// f32: K, V rows (the whole block); Q, dO rows of a 32-row q tile (one
+// buffer each); one [BK][PS] buffer for dS^T, then P_drop^T; LSE, delta
 template <int D>
-constexpr size_t smem_floats() {
-  return 2 * (size_t)BK * (D + 1)    // K, V rows
-         + 2 * (size_t)D * (BQ + 1)  // Q^T, dO^T
-         + 2 * (size_t)BK * (BQ + 1) // P_dropped^T, dS^T
-         + 2 * (size_t)BQ;           // LSE, delta of the q tile
-}
+struct F32Layout {
+  static constexpr int THREADS = 128;
+  static constexpr int QT = 32;      // q rows per q tile
+  static constexpr int LD = D + 4;   // row stride in floats (16-byte rows, 4-bank skew)
+  static constexpr int PS = QT + 4;  // dS^T / P_drop^T row stride
+  static constexpr size_t bytes =
+      (2 * (size_t)BK * LD + 2 * (size_t)QT * LD + (size_t)BK * PS + 2 * (size_t)QT) *
+      sizeof(float);
+};
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const T* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int sq,
-           int sk, float scale, int causal, int dropout, uint32_t seed, uint32_t keep_thresh,
-           float inv_keep) {
-  extern __shared__ float smem[];
-  constexpr int KS = D + 1;    // K / V row stride
-  constexpr int TS = BQ + 1;   // Q^T / dO^T / P^T / dS^T row stride
-  constexpr int DPT = D / 16;  // dK / dV columns per thread
-  float* Ks = smem;            // [BK][KS]
-  float* Vs = Ks + BK * KS;    // [BK][KS]
-  float* Qt = Vs + BK * KS;    // [D][TS]
-  float* dOt = Qt + D * TS;    // [D][TS]
-  float* Pt = dOt + D * TS;    // [BK][TS]
-  float* dSt = Pt + BK * TS;   // [BK][TS]
-  float* lse_s = dSt + BK * TS;
-  float* delta_s = lse_s + BQ;
+// three blocks per SM at head_dim 64 (60 KB of shared memory each), two
+// at head_dim 128 (108 KB)
+template <int D>
+__global__ void __launch_bounds__(F32Layout<D>::THREADS, D == 64 ? 3 : 2)
+dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dk, float* __restrict__ dv, int sq, int sk, float scale,
+               int causal, int dropout, uint32_t seed, uint32_t keep_thresh, float inv_keep) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int NTHREADS = F32Layout<D>::THREADS;
+  constexpr int QT = F32Layout<D>::QT;
+  constexpr int LD = F32Layout<D>::LD;
+  constexpr int PS = F32Layout<D>::PS;
+  constexpr int CPT = QT / 8;  // S^T / dP^T q columns per thread
+  constexpr int CH = D / 4;    // 16-byte chunks per row
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // [BK][LD]
+  float* Vs = Ks + BK * LD;                        // [BK][LD]
+  float* Qs = Vs + BK * LD;                        // [QT][LD]
+  float* dOs = Qs + QT * LD;                       // [QT][LD]
+  float* Ts = dOs + QT * LD;                       // [BK][PS]: dS^T, then P_drop^T
+  float* stats = Ts + BK * PS;                     // LSE [QT], delta [QT]
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * BK;
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const size_t qbase = (size_t)bh * sq * D;
-  const size_t kbase = (size_t)bh * sk * D;
+  const int lane = tid & 31;
+  const int ty = tid >> 3;  // 0..15: key rows ty + 16 i
+  const int tx = lane & 7;  // q columns tx + 8 j
+  const float* qg = q + (size_t)bh * sq * D;
+  const float* dog = dout + (size_t)bh * sq * D;
+  const float* kg = k + (size_t)bh * sk * D;
+  const float* vg = v + (size_t)bh * sk * D;
+  const float* lseg = lse + (size_t)bh * sq;
+  const float* deltag = delta + (size_t)bh * sq;
   const int offset = sk - sq;
 
-  for (int i = tid; i < BK * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    const bool ok = k0 + r < sk;
-    const size_t g = kbase + (size_t)(k0 + r) * D + c;
-    Ks[r * KS + c] = ok ? to_f32(k[g]) : 0.f;
-    Vs[r * KS + c] = ok ? to_f32(v[g]) : 0.f;
-  }
-  const uint32_t bseed = fa::batch_seed(seed, bh);
-
-  float dk_acc[RPT][DPT], dv_acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  const int n_qt = (sq + BQ - 1) / BQ;
+  const int n_qt = (sq + QT - 1) / QT;
   int first_qt = 0;
   if (causal) {
     // row r attends cols <= r + offset: q tiles before this one hold only
     // rows that see none of this k tile
     const int lo = k0 - offset;
-    first_qt = lo <= 0 ? 0 : lo / BQ;
+    first_qt = lo <= 0 ? 0 : lo / QT;
   }
+
+  // Q and dO have one buffer each: Q(qt + 1) (with its LSE and delta) is
+  // copied during tile qt's dV product, dO(qt + 1) during tile qt+1's S^T.
+  // Groups, in commit order: {K, V, Q0, ...}, {dO0}, {Q1, ...}, {dO1}, ...
+  auto load_rows = [&](float* dst, const float* src, int r0, int rows, int n) {
+    for (int i = tid; i < rows * CH; i += NTHREADS) {
+      const int r = i / CH, c = (i % CH) * 4;
+      const bool ok = r0 + r < n;
+      fa::cp_async16(&dst[r * LD + c], ok ? src + (size_t)(r0 + r) * D + c : src, ok);
+    }
+  };
+  auto load_q = [&](int qt) {
+    const int q0 = qt * QT;
+    load_rows(Qs, qg, q0, QT, sq);
+    for (int i = tid; i < 2 * QT; i += NTHREADS) {
+      const int r = i % QT;
+      const bool ok = q0 + r < sq;
+      const float* src = i < QT ? lseg : deltag;
+      fa::cp_async4(&stats[i], ok ? src + q0 + r : src, ok);
+    }
+  };
+  load_rows(Ks, kg, k0, BK, sk);
+  load_rows(Vs, vg, k0, BK, sk);
+  if (first_qt < n_qt) load_q(first_qt);
+  fa::cp_async_commit();
+  if (first_qt < n_qt) load_rows(dOs, dog, first_qt * QT, QT, sq);
+  fa::cp_async_commit();
+
+  const uint32_t bseed = fa::batch_seed(seed, bh);
+  float dka[4][D / 8], dva[4][D / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) dka[i][j] = dva[i][j] = 0.f;
 
   for (int qt = first_qt; qt < n_qt; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // the previous tile's reads of Qt/dOt/Pt/dSt are done
-    for (int i = tid; i < BQ * D; i += THREADS) {
-      const int r = i / D, e = i % D;
-      const bool ok = q0 + r < sq;
-      const size_t g = qbase + (size_t)(q0 + r) * D + e;
-      Qt[e * TS + r] = ok ? to_f32(q[g]) : 0.f;
-      dOt[e * TS + r] = ok ? to_f32(dout[g]) : 0.f;
-    }
-    if (tid < BQ) {
-      const bool ok = q0 + tid < sq;
-      lse_s[tid] = ok ? lse[(size_t)bh * sq + q0 + tid] : 0.f;
-      delta_s[tid] = ok ? delta[(size_t)bh * sq + q0 + tid] : 0.f;
-    }
+    const int q0 = qt * QT;
+    fa::cp_async_wait<1>();  // K, V, Q(qt), LSE/delta(qt) landed; dO(qt) may be in flight
     __syncthreads();
 
-    float st[RPT][CPT], dpt[RPT][CPT];
+    // S^T = K Q^T, then P^T = exp(S^T * scale - LSE) in place (0 where masked)
+    float p[4][CPT], dp[4][CPT];
+    fa::rows_dot_rows<D, LD, LD, CPT>(p, Ks, Qs, ty, tx);
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 4
-    for (int e = 0; e < D; ++e) {
-      float ka[RPT], va[RPT], qb[CPT], db[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        ka[i] = Ks[(ty + 16 * i) * KS + e];
-        va[i] = Vs[(ty + 16 * i) * KS + e];
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int key = k0 + ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        qb[j] = Qt[e * TS + tx + 16 * j];
-        db[j] = dOt[e * TS + tx + 16 * j];
+        const int row = q0 + tx + 8 * j;
+        const bool masked = key >= sk || row >= sq || (causal && row + offset < key);
+        p[i][j] = masked ? 0.f : fa::fast_exp(p[i][j] * scale - stats[tx + 8 * j]);
       }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          st[i][j] = fmaf(ka[i], qb[j], st[i][j]);
-          dpt[i][j] = fmaf(va[i], db[j], dpt[i][j]);
-        }
     }
 
+    fa::cp_async_wait<0>();  // dO(qt) has landed
+    __syncthreads();
+    fa::rows_dot_rows<D, LD, LD, CPT>(dp, Vs, dOs, ty, tx);  // dP^T
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int c = ty + 16 * i;
-      const int col = k0 + c;
+    for (int i = 0; i < 4; ++i) {
+      const int key = k0 + ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        const int r = tx + 16 * j;
-        const int row = q0 + r;
-        float x = st[i][j] * scale;
-        if (col >= sk || row >= sq || (causal && row + offset < col)) x = NEG_INF;
-        const float p = (x == NEG_INF) ? 0.f : expf(x - lse_s[r]);
-        float pd = p, dpv = dpt[i][j];
+        const int ql = tx + 8 * j;
+        float dpv = dp[i][j];
+        const float pv = p[i][j];
         if (dropout) {
-          const bool kept = fa::keep(bseed, row, col, sk, keep_thresh);
-          pd = kept ? p * inv_keep : 0.f;
+          const bool kept = fa::keep(bseed, q0 + ql, key, sk, keep_thresh);
+          p[i][j] = kept ? pv * inv_keep : 0.f;  // P_drop^T
           dpv = kept ? dpv * inv_keep : 0.f;
         }
-        Pt[c * TS + r] = round_like(pd, dout);
-        dSt[c * TS + r] = round_like(p * (dpv - delta_s[r]), q);
+        Ts[(ty + 16 * i) * PS + ql] = pv * (dpv - stats[QT + ql]);  // dS^T
       }
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
-      float pa[RPT], sa[RPT];
+    __syncthreads();  // dS^T is complete
+    fa::rows_times_tile<QT, D, PS, LD>(dka, Ts, Qs, ty, tx);
+    __syncthreads();  // every thread is done with Q(qt) and dS^T
+    if (qt + 1 < n_qt) load_q(qt + 1);
+    fa::cp_async_commit();
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        pa[i] = Pt[(ty + 16 * i) * TS + r];
-        sa[i] = dSt[(ty + 16 * i) * TS + r];
-      }
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const float dob = dOt[(tx + 16 * j) * TS + r];
-        const float qv = Qt[(tx + 16 * j) * TS + r];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          dv_acc[i][j] = fmaf(pa[i], dob, dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(sa[i], qv, dk_acc[i][j]);
-        }
-      }
-    }
+      for (int j = 0; j < CPT; ++j) Ts[(ty + 16 * i) * PS + tx + 8 * j] = p[i][j];
+    __syncthreads();  // P_drop^T is complete
+    fa::rows_times_tile<QT, D, PS, LD>(dva, Ts, dOs, ty, tx);
+    __syncthreads();  // every thread is done with dO(qt) and P_drop^T
+    if (qt + 1 < n_qt) load_rows(dOs, dog, q0 + QT, QT, sq);
+    fa::cp_async_commit();
   }
+  fa::cp_async_wait<0>();
 
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int col = k0 + ty + 16 * i;
-    if (col < sk) {
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const size_t g = kbase + (size_t)col * D + tx + 16 * j;
-        store_out(&dk[g], dk_acc[i][j] * scale);
-        store_out(&dv[g], dv_acc[i][j]);
-      }
-    }
-  }
+  fa::store_rows<D>(dk + (size_t)bh * sk * D, dka, scale, k0, sk, ty, tx);
+  fa::store_rows<D>(dv + (size_t)bh * sk * D, dva, 1.f, k0, sk, ty, tx);
 }
 
 template <int D>
@@ -422,11 +413,11 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
                        int sk, float scale, int causal, int dropout, uint32_t seed,
                        uint32_t keep_thresh, float inv_keep, cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<D>() * sizeof(float);
-  auto kern = dkv_kernel<float, D>;
+  constexpr size_t smem = F32Layout<D>::bytes;
+  auto kern = dkv_f32_kernel<D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);  // above 48 KB a block has to opt in
   const dim3 grid(bh, (sk + BK - 1) / BK);
-  kern<<<grid, THREADS, smem, stream>>>(
+  kern<<<grid, F32Layout<D>::THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), sq,
@@ -484,8 +475,8 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const v
 // dynamic shared memory of one block for head_dim d and dtype (0 = float32,
 // 1 = bfloat16), or -1
 int flash_attention_bwd_dkv_smem_bytes(int d, int dtype) {
-  if (dtype == 0 && d == 64) return (int)(smem_floats<64>() * sizeof(float));
-  if (dtype == 0 && d == 128) return (int)(smem_floats<128>() * sizeof(float));
+  if (dtype == 0 && d == 64) return (int)F32Layout<64>::bytes;
+  if (dtype == 0 && d == 128) return (int)F32Layout<128>::bytes;
   if (dtype == 1 && d == 64) return (int)Bf16Layout<64>::bytes;
   if (dtype == 1 && d == 128) return (int)Bf16Layout<128>::bytes;
   return -1;

@@ -1,30 +1,16 @@
 // Pieces shared by the flash-attention kernels (forward, dq, dk/dv): one
-// definition of the masking constant, the dtype conversions and the
+// definition of the masking constant, the causal k-tile count and the
 // counter-hash dropout, so the three kernels drop bit-identical elements.
 // Mirrors paddle_tpu/ops/pallas/flash_attention.py `_keep_mask` and
 // paddle_tpu/core/random.py `fmix32`.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace fa {
 
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// x rounded to the dtype of the pointer's target (the reference's
-// .astype(dtype) before a product); the pointer is only a type tag
-__device__ __forceinline__ float round_like(float x, const float*) { return x; }
-__device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // murmur3's 32-bit finalizer (paddle_tpu/core/random.py fmix32)
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -41,6 +27,19 @@ __device__ __forceinline__ uint32_t batch_seed(uint32_t seed, int bh) {
   uint32_t b = seed ^ ((uint32_t)bh * 0x85EBCA6Bu);
   b ^= b >> 13;
   return b * 0xC2B2AE35u;
+}
+
+// the number of BK-key tiles a BQ-row q tile starting at q0 reads: causal
+// tiles past the last key any of its rows attends to (bottom-right mask,
+// row r sees keys <= r + sk - sq) are skipped
+template <int BQ, int BK>
+__device__ __forceinline__ int k_tiles(int q0, int sq, int sk, int causal) {
+  int n_kt = (sk + BK - 1) / BK;
+  if (causal) {
+    const int last_col = q0 + BQ - 1 + (sk - sq);
+    n_kt = min(n_kt, last_col < 0 ? 0 : last_col / BK + 1);
+  }
+  return n_kt;
 }
 
 // true where dropout keeps attention probability (row, col)

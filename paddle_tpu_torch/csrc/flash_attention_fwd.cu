@@ -30,7 +30,8 @@
 // memory, rows padded by 8 elements so ldmatrix reads are free of bank
 // conflicts.
 //
-// f32 runs on the CUDA cores, register-blocked: each thread owns 4 q rows
+// f32 runs on the CUDA cores, register-blocked (the products are
+// csrc/flash_attention_f32.cuh's): each thread owns 4 q rows
 // (ty + 16 i) x 8 keys (tx + 8 j) of S and the same 4 rows x D/8 columns
 // (tx * 4 + 32 g, as float4) of O, and every shared read is a float4 that
 // the 8 lanes of a quarter-warp either share (Q, P) or take from 8
@@ -40,6 +41,7 @@
 // is done, so 68 KB at head_dim 64 lets three blocks share an SM (a
 // two-stage ring allowed two and measured slower, PERF.md).
 #include "flash_attention_common.cuh"
+#include "flash_attention_f32.cuh"
 #include "flash_attention_sm90.cuh"
 
 namespace {
@@ -64,21 +66,6 @@ struct Bf16Layout {
   static constexpr int LD = D + 8;  // row stride in bf16 (16-byte rows, 4-bank skew)
   static constexpr size_t bytes = ((size_t)BQ * LD + 4 * (size_t)BK * LD) * 2;
 };
-
-// the number of k tiles a q tile starting at q0 reads: causal tiles past
-// the last key column any of its rows attends to are skipped
-__device__ __forceinline__ int k_tiles(int q0, int sq, int sk, int causal) {
-  int n_kt = (sk + BK - 1) / BK;
-  if (causal) {
-    const int last_col = q0 + BQ - 1 + (sk - sq);
-    n_kt = min(n_kt, last_col < 0 ? 0 : last_col / BK + 1);
-  }
-  return n_kt;
-}
-
-__device__ __forceinline__ float lane_of(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
 
 // ------------------------------------------------------------------ f32
 template <int D>
@@ -109,7 +96,7 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kg = k + (size_t)bh * sk * D;
   const float* vg = v + (size_t)bh * sk * D;
   const int offset = sk - sq;
-  const int n_kt = k_tiles(q0, sq, sk, causal);
+  const int n_kt = fa::k_tiles<BQ, BK>(q0, sq, sk, causal);
 
   // K and V each have one buffer; the copy of K(kt + 1) runs during
   // tile kt's softmax and P V, the copy of V(kt + 1) during tile kt+1's
@@ -128,13 +115,13 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   fa::cp_async_commit();
 
   const uint32_t bseed = fa::batch_seed(seed, bh);
-  float m[RPT], l[RPT], acc[RPT][4 * GPT];
+  float m[RPT], l[RPT], acc[RPT][D / 8];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4 * GPT; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < D / 8; ++j) acc[i][j] = 0.f;
   }
 
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -143,28 +130,7 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-    for (int e = 0; e < D; e += 4) {
-      float4 qa[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * LD + e]);
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float4 kb = *reinterpret_cast<const float4*>(&Ks[(tx + 8 * j) * LD + e]);
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          s[i][j] = fmaf(qa[i].x, kb.x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, kb.y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, kb.z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, kb.w, s[i][j]);
-        }
-      }
-    }
+    fa::rows_dot_rows<D, LD, LD, CPT>(s, Qs, Ks, ty, tx);
     __syncthreads();  // every thread is done with K(kt)
     if (kt + 1 < n_kt) load_rows(Ks, kg, k0 + BK, BK, sk);
     fa::cp_async_commit();
@@ -204,34 +170,12 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l[i] = l[i] * alpha + psum;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 4 * GPT; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < D / 8; ++j) acc[i][j] *= alpha;
     }
     fa::cp_async_wait<1>();  // V(kt) has landed; K(kt + 1) may still be in flight
     __syncthreads();         // ... for every thread, and P is complete
 
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 pa[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(&Ps[(ty + 16 * i) * PS + c]);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float* vrow = Vs + (c + cc) * LD + tx * 4;
-#pragma unroll
-        for (int g = 0; g < GPT; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(vrow + 32 * g);
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) {
-            const float p = lane_of(pa[i], cc);
-            acc[i][4 * g + 0] = fmaf(p, vv.x, acc[i][4 * g + 0]);
-            acc[i][4 * g + 1] = fmaf(p, vv.y, acc[i][4 * g + 1]);
-            acc[i][4 * g + 2] = fmaf(p, vv.z, acc[i][4 * g + 2]);
-            acc[i][4 * g + 3] = fmaf(p, vv.w, acc[i][4 * g + 3]);
-          }
-        }
-      }
-    }
+    fa::rows_times_tile<BK, D, PS, LD>(acc, Ps, Vs, ty, tx);
     __syncthreads();  // every thread is done with V(kt) and P
     if (kt + 1 < n_kt) load_rows(Vs, vg, k0 + BK, BK, sk);
     fa::cp_async_commit();
@@ -283,7 +227,7 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   const __nv_bfloat16* kg = k + (size_t)bh * sk * D;
   const __nv_bfloat16* vg = v + (size_t)bh * sk * D;
   const int offset = sk - sq;
-  const int n_kt = k_tiles(q0, sq, sk, causal);
+  const int n_kt = fa::k_tiles<BQ, BK>(q0, sq, sk, causal);
   // ldmatrix row/column of this lane inside a 16 x 16 block
   const int lm_r = (lane & 7) + ((lane >> 3) & 1) * 8;  // A order: row half from lane bit 3
   const int lm_c = (lane >> 4) * 8;

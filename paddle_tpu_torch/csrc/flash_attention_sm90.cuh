@@ -1,7 +1,7 @@
 // Hopper building blocks of the redesigned flash-attention kernels (K1
-// forward, K3 dK/dV): 16- and 4-byte cp.async staging into shared memory,
-// ldmatrix fragment loads and the m16n8k16 bf16 tensor-core product with
-// f32 accumulators, as inline PTX for sm_90a.
+// forward, K2 dQ, K3 dK/dV): 16- and 4-byte cp.async staging into shared
+// memory, ldmatrix fragment loads and the m16n8k16 bf16 tensor-core product
+// with f32 accumulators, as inline PTX for sm_90a.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..),

@@ -40,9 +40,6 @@ dkv_launches = 0
 # library -> number of pointer arguments of its launch function
 _LIBS = {"flash_attention_fwd": 5, "flash_attention_bwd_dq": 7,
          "flash_attention_bwd_dkv": 8}
-# libraries whose ``_smem_bytes`` takes (head_dim, dtype code): their f32
-# and bf16 forms are separate kernels with their own shared memory
-_SMEM_BY_DTYPE = ("flash_attention_fwd", "flash_attention_bwd_dkv")
 _libs = {}
 
 
@@ -59,7 +56,9 @@ def _library(name):
         lib_error = getattr(lib, name + "_error_string")
         lib_error.argtypes, lib_error.restype = [ctypes.c_int], ctypes.c_char_p
         lib_smem = getattr(lib, name + "_smem_bytes")
-        lib_smem.argtypes = [ctypes.c_int] * (2 if name in _SMEM_BY_DTYPE else 1)
+        # (head_dim, dtype code): each library's f32 and bf16 forms are
+        # separate kernels with their own shared memory
+        lib_smem.argtypes = [ctypes.c_int, ctypes.c_int]
         lib_smem.restype = ctypes.c_int
         _libs[name] = lib
     return lib
@@ -69,9 +68,7 @@ def smem_bytes(head_dim, kernel="flash_attention_fwd", dtype=torch.float32):
     """Dynamic shared memory one block of ``kernel`` (a library name of
     ``_LIBS``) takes for ``head_dim`` and ``dtype``."""
     fn = getattr(_library(kernel), kernel + "_smem_bytes")
-    if kernel in _SMEM_BY_DTYPE:
-        return fn(int(head_dim), _DTYPE_CODES[dtype])
-    return fn(int(head_dim))
+    return fn(int(head_dim), _DTYPE_CODES[dtype])
 
 
 def _launch(name, *args):

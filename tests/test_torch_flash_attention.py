@@ -241,6 +241,30 @@ def test_function_gradients_match_autograd_of_the_plain_forward(sq, sk, causal,
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dq_dropout_placement_premise(d, dtype):
+    """The construction of the card's K2 dropout-placement check, held
+    through the plain version: q = 0, K = V = I, dO = ones, O = 0 (so
+    delta = 0) and LSE = log d give P = 1/d, dP = 1 dropped to keep / (1 -
+    p), dS = P * dP and dQ = scale * dS K = scale * dS: non-zero exactly
+    where ``_keep_mask`` keeps, and that value there."""
+    bh, p, seed = 3, 0.3, 2024
+    td = TDT[dtype]
+    zeros = torch.zeros(bh, d, d, dtype=td)
+    eye = torch.eye(d, dtype=td).expand(bh, d, d).contiguous()
+    lse = torch.full((bh, d, 1), float(np.log(d)))
+    dq, _, _ = tfa.mha_bwd_reference(zeros, eye, eye, zeros, lse, torch.ones_like(zeros),
+                                     seed, d ** -0.5, False, p)
+    idx = torch.arange(d)
+    keep = tfa._dropout_keep(seed, bh, idx[:, None], idx[None, :], d, p)
+    assert 0.5 < keep.float().mean().item() < 0.9
+    assert torch.equal(dq != 0, keep)
+    want = torch.where(keep, d ** -0.5 / (d * (1 - p)), 0.0)
+    tol = TOL[dtype]
+    torch.testing.assert_close(dq.float(), want, rtol=tol, atol=0)
+
+
 def test_function_saves_nothing_without_grad_and_launches_nothing_on_cpu():
     q = torch.randn(1, 2, 16, 64, requires_grad=True)
     with torch.no_grad():

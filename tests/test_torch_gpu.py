@@ -127,17 +127,24 @@ def test_backward_kernels_match_plain_version(cuda, bh, sq, sk, d, causal, p, dt
 def test_dropout_lands_exactly_where_the_hash_keeps(cuda, d, dtype):
     """q = k = 0 makes every p 1/sk. With V = I (sk = d), K1's O is
     non-zero exactly where ``_keep_mask`` keeps (row, col); with dO = I (sq
-    = d), K3's dV is non-zero exactly at the transposed mask. A value
-    tolerance alone could miss a mask placed one element off."""
+    = d), K3's dV is non-zero exactly at the transposed mask. With q = 0,
+    K = V = I, dO = ones, O = 0 (delta = 0) and LSE = log d, K2's dQ =
+    scale * P * keep / (1 - p) is non-zero exactly where kept (the premise
+    is held on the CPU in test_torch_flash_attention.py). A value tolerance
+    alone could miss a mask placed one element off."""
     bh, p, seed = 6, 0.3, 2024
     zeros = torch.zeros(bh, d, d, device="cuda", dtype=dtype)
     eye = torch.eye(d, device="cuda", dtype=dtype).expand(bh, d, d).contiguous()
     o, lse = fa._fwd(zeros, zeros, eye, seed, d ** -0.5, False, p)
     _, _, dv = fa._bwd(zeros, zeros, eye, o, lse, eye, seed, d ** -0.5, False, p)
+    lse_d = torch.full((bh, d, 1), float(np.log(d)), device="cuda")
+    dq, _, _ = fa._bwd(zeros, eye, eye, zeros, lse_d, torch.ones_like(zeros), seed,
+                       d ** -0.5, False, p)
     idx = torch.arange(d, device="cuda")
     keep = fa._dropout_keep(seed, bh, idx[:, None], idx[None, :], d, p)
     assert 0.5 < keep.float().mean().item() < 0.9
     assert torch.equal(o != 0, keep)
+    assert torch.equal(dq != 0, keep)
     assert torch.equal(dv != 0, keep.transpose(1, 2))
 
 
@@ -160,16 +167,28 @@ def test_kernels_take_unaligned_views(cuda):
 
 
 def test_shared_memory_of_the_redesigned_kernels(cuda):
-    """The bf16 forms stage bf16 tiles: K1 about 45 / 85 KB and K3 about
-    55 / 103 KB at head_dim 64 / 128; every form fits one block."""
+    """The bf16 forms stage bf16 tiles: K1 about 45 / 85 KB, K2 54 / 102 KB
+    and K3 about 55 / 103 KB at head_dim 64 / 128. K2's f32 form holds Q,
+    dO, K and V rows, LSE and delta (dS takes V's buffer); K3's K, V, a
+    32-row Q and dO tile and one dS/P buffer: three blocks per SM at
+    head_dim 64 for both. Every form fits one block."""
     sizes = {(name, d, dt): fa.smem_bytes(d, name, dt)
-             for name in ("flash_attention_fwd", "flash_attention_bwd_dkv")
-             for d in fa.HEAD_DIMS for dt in DTYPES}
+             for name in fa._LIBS for d in fa.HEAD_DIMS for dt in DTYPES}
     assert sizes["flash_attention_fwd", 64, torch.bfloat16] == 46080
     assert sizes["flash_attention_fwd", 128, torch.bfloat16] == 87040
+    assert sizes["flash_attention_bwd_dq", 64, torch.bfloat16] == 55296
+    assert sizes["flash_attention_bwd_dq", 128, torch.bfloat16] == 104448
+    assert sizes["flash_attention_bwd_dq", 64, torch.float32] == 70144
+    assert sizes["flash_attention_bwd_dq", 128, torch.float32] == 135680
     assert sizes["flash_attention_bwd_dkv", 64, torch.bfloat16] == 56320
     assert sizes["flash_attention_bwd_dkv", 128, torch.bfloat16] == 105472
+    assert sizes["flash_attention_bwd_dkv", 64, torch.float32] == 61696
+    assert sizes["flash_attention_bwd_dkv", 128, torch.float32] == 110848
     assert all(0 < b <= 232448 for b in sizes.values())
+    # three blocks of K2's and K3's f32 forms share an SM's 228 KB (each
+    # block also reserves 1 KB)
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert 3 * (sizes[name, 64, torch.float32] + 1024) <= 233472
 
 
 def test_train_step_on_the_card_matches_the_cpu(cuda):

@@ -11,9 +11,11 @@ import chip_smoke
 @pytest.mark.parametrize("kernel,bh,s,dtype,want_ms,want_by", [
     # K1 at the training shape (O1, batch 64 x 12 heads, seq 128)
     ("fwd", 768, 128, "bfloat16", 0.0151, "bytes"),
-    # K2 and K3 at the same shape
+    # K2 and K3 at the same shape, and in float32 (the O0 step's form)
     ("bwd_dq", 768, 128, "bfloat16", 0.0190, "bytes"),
     ("bwd_dkv", 768, 128, "bfloat16", 0.0228, "bytes"),
+    ("bwd_dq", 768, 128, "float32", 0.0721, "operations"),
+    ("bwd_dkv", 768, 128, "float32", 0.0962, "operations"),
     # K1 at the largest serving shape (batch 8 x 12 heads, seq 512, f32)
     ("fwd", 96, 512, "float32", 0.0962, "operations"),
 ])
@@ -49,3 +51,17 @@ def test_device_time_sums_only_what_ran_on_the_card():
     old = SimpleNamespace(key="k", device_type="DeviceType.CUDA", self_cuda_time_total=7.0)
     assert chip_smoke.device_us(events + [old]) == 157.5
     assert chip_smoke.device_us([]) == 0.0
+
+
+def test_device_time_refuses_a_window_that_lost_records():
+    """Over 20 calls every kernel of a call shows 20, 40, ... times; a
+    count that is not a multiple means the profiler dropped records, and
+    the sum would read below the kernel's own time."""
+    def ev(count, us):
+        return SimpleNamespace(key="k", device_type="DeviceType.CUDA",
+                               self_device_time_total=us, count=count)
+    assert chip_smoke.device_us([ev(20, 800.0), ev(40, 100.0)], calls=20) == 900.0
+    assert chip_smoke.device_us([ev(20, 800.0), ev(7, 300.0)], calls=20) is None
+    host = SimpleNamespace(key="cudaLaunchKernel", device_type="DeviceType.CPU",
+                           self_device_time_total=0.0, count=13)
+    assert chip_smoke.device_us([ev(20, 800.0), host], calls=20) == 800.0

@@ -464,3 +464,18 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
 def test_port_kernels_share_one_dropout_hash_header():
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         assert "flash_attention_common.cuh" in cuda_build._sources(name)
+
+
+@pytest.mark.parametrize("name,headers", [
+    ("flash_attention_fwd", ["flash_attention_common.cuh", "flash_attention_f32.cuh",
+                             "flash_attention_sm90.cuh"]),
+    ("flash_attention_bwd_dq", ["flash_attention_common.cuh", "flash_attention_f32.cuh",
+                                "flash_attention_sm90.cuh"]),
+    ("flash_attention_bwd_dkv", ["flash_attention_common.cuh", "flash_attention_f32.cuh",
+                                 "flash_attention_sm90.cuh"]),
+])
+def test_each_kernel_library_hashes_every_header_it_includes(name, headers):
+    """A library is rebuilt when any csrc header it includes changes: the
+    three kernels share the dropout hash, the f32 products and the sm90
+    PTX."""
+    assert cuda_build._sources(name) == [name + ".cu"] + headers
