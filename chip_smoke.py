@@ -37,7 +37,20 @@ Phases, each fatal on failure (exit code 1):
               a fresh key per step, whose loss must be finite and fall;
               (c) K1, K2 and K3 each launched 12 times per step on the
               card; (d) a torch.profiler breakdown of one O1 step
-  6. summary  a {"kernels": [...]} line, then as the last line
+  6. generation  Llama-2-7B's KV-cached greedy decode (random weights from
+              a seed): (a) at full width and depth 2, float32 then
+              bfloat16, prefill logits and generated tokens held against
+              the same weights on the CPU (a token may differ only at a
+              near-tie of the CPU's teacher-forced logits); (b) at full
+              width and depth in bfloat16 (weights drawn on the card),
+              bench.py's decode shape, 16 prompts x 128 tokens and 128 new
+              tokens: K1 launched exactly 32 x 128 times, every chosen
+              token within 3e-2 of the row's max |logit| of the top logit
+              of one full forward over the output; (c) the generic
+              full-width path, 4 tokens at batch 2, 32 x 4 launches; (d)
+              prefill ms, decode ms per step and tokens/s beside the
+              two-term bound, and a profile of one decode step
+  7. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 It imports nothing of JAX or the JAX package. Run from a directory that
@@ -240,11 +253,28 @@ FORMS = [
 ]
 
 
+# the two forms Llama-2-7B's cached generation gives K1 (phase 6): the
+# causal prefill of 16 prompts x 128 tokens over 32 heads of head_dim 128,
+# and one decode step (a single query over the first sk rows of a
+# 256-row cache; sk 192 is the mean of the steps' 129..255)
+LLAMA_FORMS = [
+    dict(b=16, h=32, sq=128, sk=128, d=128, causal=True, p=0.0),
+    dict(b=16, h=32, sq=1, sk=192, d=128, causal=True, p=0.0, total=256),
+]
+
+
 def library_reason(c):
     """Why no single PyTorch call computes this case, or None."""
-    if c["causal"] and c["sq"] != c["sk"]:
+    if c["causal"] and c["sq"] not in (1, c["sk"]):
         return "sdpa aligns its causal mask top-left, the kernels bottom-right"
     return None
+
+
+def library_causal(c):
+    """``is_causal`` of the sdpa call that computes case ``c``: a single
+    query under the kernels' bottom-right mask sees every key, so that
+    case is sdpa's non-causal one."""
+    return c["causal"] and c["sq"] > 1
 
 
 def phase_kernels(torch, fa):
@@ -268,6 +298,7 @@ def phase_kernels(torch, fa):
         dict(b=64, h=12, sq=128, sk=128, d=64, dtype="bfloat16", causal=False, p=0.1),
     ]
     forms = FORMS + [dict(b=8, h=1, sq=1, sk=257, d=128, causal=True, p=0.0)]  # decode
+    forms += LLAMA_FORMS
     cases += [dict(f, dtype=dt) for f in forms for dt in ("float32", "bfloat16")]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
@@ -277,8 +308,11 @@ def phase_kernels(torch, fa):
     for c in cases:
         bh = c["b"] * c["h"]
         tdt = getattr(torch, c["dtype"])
+        # K/V of a cached form: the first sk rows of a `total`-row buffer
+        rows = c.get("total", c["sk"])
         q, k, v = (torch.randn(bh, n, c["d"], device="cuda", generator=gen).to(tdt)
-                   for n in (c["sq"], c["sk"], c["sk"]))
+                   for n in (c["sq"], rows, rows))
+        k, v = k[:, :c["sk"]], v[:, :c["sk"]]
         scale = c["d"] ** -0.5
         seed = 1234
         args = (q, k, v, seed, scale, c["causal"], c["p"])
@@ -295,7 +329,7 @@ def phase_kernels(torch, fa):
             # one PyTorch call computing the same O (it returns no LSE)
             q4, k4, v4 = (x.view(c["b"], c["h"], -1, c["d"]) for x in (q, k, v))
             library_ms, library_dev = timed(torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=c["causal"], dropout_p=c["p"], scale=scale))
+                q4, k4, v4, is_causal=library_causal(c), dropout_p=c["p"], scale=scale))
         bound, bound_by = attention_bound_ms(bh, c["sq"], c["sk"], c["d"], c["dtype"],
                                              c["causal"])
         ok = err_o <= TOL_O[c["dtype"]] and err_lse <= TOL_LSE
@@ -306,7 +340,8 @@ def phase_kernels(torch, fa):
         results.append(r)
         lib = (f"{_fmt(library_ms)} / {_fmt(library_dev)}" if reason is None
                else f"null ({reason})")
-        log(f"  b={c['b']} h={c['h']} sq={c['sq']} sk={c['sk']} d={c['d']} "
+        view = f" (K/V: rows of a {c['total']}-row cache)" if "total" in c else ""
+        log(f"  b={c['b']} h={c['h']} sq={c['sq']} sk={c['sk']} d={c['d']}{view} "
             f"{c['dtype']} causal={c['causal']} p={c['p']}: O err {err_o:.3e} "
             f"LSE err {err_lse:.3e} | kernel {ms:.4f} / {_fmt(dev)} ms"
             f"{_share(bound, dev)}; plain {plain_ms:.4f} / {_fmt(plain_dev)} ms; "
@@ -374,7 +409,7 @@ def phase_bwd_kernels(torch, fa):
         if reason is None:
             q4, k4, v4 = (x.view(c["b"], c["h"], -1, c["d"]).detach().requires_grad_(True)
                           for x in (q, k, v))
-            out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=c["causal"],
+            out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=library_causal(c),
                                                  dropout_p=c["p"], scale=scale)
             do4 = do.view_as(out)
             library_ms, library_dev = timed(torch, lambda: torch.autograd.grad(
@@ -582,10 +617,11 @@ def phase_serving(torch, fa, port_mods):
     return launches
 
 
-def profile_device(torch, fn, label, top=8):
+def profile_device(torch, fn, label, top=8, groups=None):
     """Where one call of ``fn`` spends its device time: its CUDA-event time,
     then the same call traced with torch.profiler (kernel device time by
-    name, the top 8)."""
+    name, the top 8, and by ``groups``, KERNEL_GROUPS by default). Returns
+    (events ms, kernel ms, kernels launched)."""
     from torch.profiler import ProfilerActivity, profile
 
     ms = cuda_ms(torch, fn, iters=1, warmup=0)
@@ -607,21 +643,23 @@ def profile_device(torch, fn, label, top=8):
         + ("" if kernels else " (the profiler saw no device time: not measured)"))
     for t, n, name in sorted(kernels, reverse=True)[:top]:
         log(f"    {t:8.3f} ms {100 * t / busy:5.1f}% x{n:<4d} {name[:90]}")
-    groups = {}
+    sums = {}
     for t, n, name in kernels:
-        group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
+        group = next((g for g, keys in groups or KERNEL_GROUPS
+                      if any(k in name for k in keys)),
                      "other elementwise, reductions, copies")
-        tot, cnt = groups.get(group, (0.0, 0))
-        groups[group] = (tot + t, cnt + n)
-    for group, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        tot, cnt = sums.get(group, (0.0, 0))
+        sums[group] = (tot + t, cnt + n)
+    for group, (t, n) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
         log(f"    [group] {t:8.3f} ms {100 * t / max(busy, 1e-9):5.1f}% x{n:<5d} {group}")
+    launched = sum(n for _, n, _ in kernels)
     # what the host spent handing work to the card
     calls = [(ev.key, ev.count, ev.self_cpu_time_total / 1e3) for ev in prof.key_averages()
              if ev.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
                            "cudaMemcpyAsync")]
     log("    [host] " + (", ".join(f"{k} x{n} {t:.3f} ms" for k, n, t in calls)
-                         or "no launch calls traced"))
-    return ms, busy
+                         or "no launch calls traced") + f"; {launched} kernels on the card")
+    return ms, busy, launched
 
 
 # kernel-name fragments -> the layer of the port that launched them
@@ -631,6 +669,11 @@ KERNEL_GROUPS = (
     ("K3 flash_attention_bwd_dkv", ("dkv_f32_kernel", "dkv_bf16_kernel")),
     ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_", "nvjet")),
     ("int64 elementwise (counter-hash dropout masks)", ("<long",)),
+)
+# a decode step's kernels: the cache writes and layout changes apart
+DECODE_GROUPS = KERNEL_GROUPS[:1] + KERNEL_GROUPS[3:4] + (
+    ("copies (cache rows, head layouts, RoPE interleave)",
+     ("copy", "Copy", "Memcpy", "cat", "Cat")),
 )
 
 
@@ -779,7 +822,7 @@ def phase_training(torch, fa, mods, card):
         nonlocal params, state
         _, params, state = step(params, state, x, y, key=prandom.PRNGKey(999))
 
-    step_ms, busy_ms = profile_device(torch, one_step,
+    step_ms, busy_ms, _ = profile_device(torch, one_step,
                                       f"O1 training step, batch {O1_BATCH} x {TRAIN_SEQ}",
                                       top=16)
     idle = (f"{100 * (1 - busy_ms / step_ms):.1f}%" if busy_ms > 0 else "not measured")
@@ -787,6 +830,241 @@ def phase_training(torch, fa, mods, card):
         "traced step against the CUDA-event time of the step before it)")
     return dict(counts=counts, steps=steps_on_card, step_ms=steady * 1e3,
                 tokens_per_s=tokens / steady, losses=losses)
+
+
+# ------------------------------------------------------------------ phase 6
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 16, 128, 128  # bench.py's decode shape
+# depth-2 prefill logits, card vs CPU: float32 max abs; bfloat16 relative
+# to the row's max |logit|
+TOL_GEN_LOGITS = {"float32": 1e-3, "bfloat16": 2e-2}
+# a generated token may differ from the CPU's only where the CPU's
+# teacher-forced logits show a near-tie: float32 absolute, bfloat16
+# relative to the row's max |logit|
+TIE = {"float32": 1e-4, "bfloat16": 2e-2}
+# 7B cross-check: the cached path's token at most this share of the row's
+# max |logit| below the top logit of one full forward over the output
+TOL_XCHECK = 3e-2
+DECODE_REPEATS = 3  # timed decode loops after the checked generate
+
+
+def decode_bound(n_params, vocab, hidden, layers, kv_width, batch, mean_len, itemsize=2):
+    """The two-term bound of one decode step in bench.py's terms: the step
+    reads every weight but the embedding table once (the table only for
+    the batch's rows) and every row's valid K/V cache, over the HBM rate.
+    Returns (ms per step, tokens/s)."""
+    weights = (n_params - vocab * hidden + batch * hidden) * itemsize
+    kv = 2 * layers * kv_width * mean_len * itemsize
+    secs = (weights + batch * kv) / HBM_BYTES_PER_S
+    return secs * 1e3, batch / secs
+
+
+def token_gaps(torch, logits, out, t0):
+    """For each generated position of ``out`` [B, T] (t0 on): the top logit
+    of the forward ``logits`` [B, T, V] at the position before it minus
+    the chosen token's logit, the row's max |logit|, and whether the token
+    is the argmax. Numpy arrays [B, T - t0]."""
+    lg = logits[:, t0 - 1:-1].float()
+    chosen = torch.from_numpy(np.ascontiguousarray(out[:, t0:])).to(lg.device).long()
+    pick = lg.gather(-1, chosen[..., None])[..., 0]
+    return ((lg.amax(-1) - pick).cpu().numpy(), lg.abs().amax(-1).cpu().numpy(),
+            (lg.argmax(-1) == chosen).cpu().numpy())
+
+
+def _forward(torch, model, ids, dev):
+    with torch.inference_mode():
+        return model(torch.from_numpy(np.ascontiguousarray(ids)).to(dev))
+
+
+def phase_generation(torch, fa, mods, card):
+    LlamaModel, generation = mods
+    t_phase = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(0)
+    launched = 0  # K1 launches of the phase's runs on the card
+
+    # (a) full width, depth 2: the card against the CPU, float32 then bf16
+    t = time.perf_counter()
+    model = LlamaModel(num_layers=2, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0)).eval()
+    cpu_model = copy.deepcopy(model).to("cpu")
+    vocab = model.embed_tokens.weight.shape[0]
+    log(f"[generation] Llama-2-7B width at depth 2: "
+        f"{sum(p.numel() for p in model.parameters())} parameters, built in "
+        f"{time.perf_counter() - t:.1f} s (a CPU copy beside it)")
+    prompts = rng.randint(0, vocab, (2, 32)).astype(np.int32)
+    for dt in ("float32", "bfloat16"):
+        if dt == "bfloat16":  # the reference's model.to(dtype="bfloat16")
+            model.to(torch.bfloat16)
+            cpu_model.to(torch.bfloat16)
+        fa.launches = 0
+        gl = _forward(torch, model, prompts, "cuda").float().cpu()
+        cl = _forward(torch, cpu_model, prompts, "cpu").float()
+        err = (gl - cl).abs()
+        if dt == "float32":
+            lerr = err.max().item()
+        else:
+            lerr = (err.amax(-1) / cl.abs().amax(-1)).max().item()
+        t = time.perf_counter()
+        gout = model.generate(prompts, max_new_tokens=8)
+        g_s = time.perf_counter() - t
+        launched += fa.launches
+        t = time.perf_counter()
+        cout = cpu_model.generate(prompts, max_new_tokens=8)
+        c_s = time.perf_counter() - t
+        gap, scale, agree = token_gaps(torch, _forward(torch, cpu_model, gout, "cpu"),
+                                       gout, prompts.shape[1])
+        tie = TIE[dt] * (1.0 if dt == "float32" else scale)
+        bad = gap > tie
+        excused = int((~agree & ~bad).sum())
+        log(f"[generation] depth 2 {dt}: prefill logits of 2 x 32, card vs CPU: "
+            f"{'max abs err' if dt == 'float32' else 'max err / row max |logit|'} "
+            f"{lerr:.3e} (tolerance {TOL_GEN_LOGITS[dt]}); generate(8): tokens equal "
+            f"{np.array_equal(gout, cout)}, {excused} excused at a near-tie of the "
+            f"CPU's teacher-forced logits ({'' if dt == 'float32' else 'share '}"
+            f"{TIE[dt]}), {int(bad.sum())} beyond it; card {g_s:.2f} s, CPU {c_s:.2f} s")
+        if lerr > TOL_GEN_LOGITS[dt] or bad.any() or gout.shape != (2, 40):
+            fail(f"depth-2 Llama {dt} on the card disagrees with the CPU")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    # (b) Llama-2-7B at full width and depth, bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = LlamaModel(device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    model.to(torch.bfloat16).eval()
+    torch.cuda.synchronize()
+    n_layers = len(model.layers)
+    n_params = sum(p.numel() for p in model.parameters())
+    attn = model.layers[0].self_attn
+    vocab, hidden = model.embed_tokens.weight.shape
+    log(f"[generation] Llama-2-7B: {n_layers} layers, hidden {hidden}, {attn.num_heads} "
+        f"heads of {attn.head_dim}, vocab {vocab}, {n_params} parameters drawn on the card "
+        f"in float32 and cast to bfloat16 in {time.perf_counter() - t:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prompts = rng.randint(0, vocab, (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+    # K1 launches of the generate, split by the cached forward that made
+    # them: the prefill (start 0) and the single-token steps
+    split = {"prefill": 0, "decode": 0}
+    base_forward = generation._CachedLlama.forward
+
+    def counted_forward(self, token_ids, start):
+        before = fa.launches
+        logits = base_forward(self, token_ids, start)
+        split["prefill" if start == 0 else "decode"] += fa.launches - before
+        return logits
+
+    generation._CachedLlama.forward = counted_forward
+    fa.launches = 0  # count the main path only
+    try:
+        t = time.perf_counter()
+        out = model.generate(prompts, max_new_tokens=GEN_NEW)
+        gen_s = time.perf_counter() - t
+    finally:
+        generation._CachedLlama.forward = base_forward
+    gen_launches = fa.launches
+    launched += gen_launches
+    want = n_layers * GEN_NEW
+    gen_tps = GEN_BATCH * GEN_NEW / gen_s
+    log(f"[generation] generate({GEN_BATCH} x {GEN_PROMPT}, max_new_tokens={GEN_NEW}): "
+        f"{gen_s:.3f} s by host clock = {gen_tps:.1f} tokens/s over the whole call (the "
+        f"prefill included); K1 launches {gen_launches} (expected {n_layers} x {GEN_NEW} = "
+        f"{want}): prefill {split['prefill']} (expected {n_layers}), decode steps "
+        f"{split['decode']} (expected {n_layers} x {GEN_NEW - 1})")
+    if (gen_launches != want or split["prefill"] != n_layers
+            or split["decode"] != n_layers * (GEN_NEW - 1)):
+        fail(f"the cached generate launched K1 {gen_launches} times (prefill "
+             f"{split['prefill']}, decode {split['decode']}), not {want}")
+    if (out.shape != (GEN_BATCH, GEN_PROMPT + GEN_NEW) or not np.array_equal(
+            out[:, :GEN_PROMPT], prompts) or out.min() < 0 or out.max() >= vocab):
+        fail(f"generate returned {out.shape} ids out of shape or range")
+    fa.launches = 0
+    gap, scale, agree = token_gaps(torch, _forward(torch, model, out, "cuda"), out,
+                                   GEN_PROMPT)
+    launched += fa.launches
+    worst = (gap / (TOL_XCHECK * scale)).max()
+    log(f"[generation] teacher-forced cross-check, one forward over [{GEN_BATCH}, "
+        f"{out.shape[1]}]: argmax agrees at {100 * agree.mean():.2f}% of {agree.size} "
+        f"positions; worst gap {worst:.3f} of the limit ({TOL_XCHECK} of the row's "
+        f"max |logit|)")
+    if worst > 1.0:
+        fail("a cached-path token lies further below the full forward's top logit "
+             "than the limit")
+
+    # (c) the generic full-width path on the card
+    fa.launches = 0
+    gout = model.generate(prompts[:2], max_new_tokens=4, use_cache=False)
+    generic_launches = fa.launches
+    launched += generic_launches
+    ggap, gscale, gagree = token_gaps(torch, _forward(torch, model, gout, "cuda"), gout,
+                                      GEN_PROMPT)
+    gworst = (ggap / (TOL_XCHECK * gscale)).max()
+    log(f"[generation] generic path (use_cache=False), batch 2, 4 tokens: K1 launches "
+        f"{generic_launches} (expected {n_layers} x 4); argmax agrees "
+        f"{int(gagree.sum())}/{gagree.size}, worst gap {gworst:.3f} of the limit")
+    if generic_launches != n_layers * 4 or gout.shape != (2, GEN_PROMPT + 4) or gworst > 1:
+        fail("the generic generate path disagrees or took another path")
+
+    # (d) times: the prefill, every decode step, one step profiled
+    run = generation._CachedLlama(model, GEN_BATCH, GEN_PROMPT + GEN_NEW)
+    ids = torch.from_numpy(prompts).cuda()
+    prefill_bound = 2.0 * (n_params - vocab * hidden) * GEN_BATCH * GEN_PROMPT / \
+        PEAK_OPS_PER_S["bfloat16"] * 1e3
+    with torch.inference_mode():
+        prefill_ms, prefill_busy, _ = profile_device(
+            torch, lambda: run.forward(ids, 0), f"prefill of {GEN_BATCH} x {GEN_PROMPT} "
+            f"(bound {prefill_bound:.3f} ms, operations)", top=6, groups=DECODE_GROUPS)
+        # the prefill then every decode step, DECODE_REPEATS times: the
+        # host sets the step, so its spread is part of the number. The
+        # rate is over each loop's whole window (stalls included); the
+        # median step is a per-step statistic beside it
+        medians, window_ms = [], []
+        for rep in range(DECODE_REPEATS):
+            tok = generation.sample_next(run.forward(ids, 0)[:, -1])
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(GEN_NEW)]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            events[0].record()
+            for i in range(1, GEN_NEW):
+                tok = generation.sample_next(
+                    run.forward(tok[:, None], GEN_PROMPT + i - 1)[:, -1])
+                events[i].record()
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t
+            window_ms.append(events[0].elapsed_time(events[-1]))
+            steps = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+            medians.append(steps[len(steps) // 2])
+            log(f"[generation] decode loop {rep + 1}: steps 2-{GEN_NEW} in "
+                f"{window_ms[-1]:.3f} ms by CUDA events = "
+                f"{GEN_BATCH * (GEN_NEW - 1) / window_ms[-1] * 1e3:.1f} tokens/s over the "
+                f"window ({GEN_BATCH * (GEN_NEW - 1) / loop_s:.1f} by host clock); median "
+                f"step {medians[-1]:.3f} ms (min {steps[0]:.3f}, max {steps[-1]:.3f})")
+        decode_tps = DECODE_REPEATS * GEN_BATCH * (GEN_NEW - 1) / sum(window_ms) * 1e3
+        step_ms = sorted(medians)[len(medians) // 2]
+        mean_len = GEN_PROMPT + GEN_NEW // 2  # steps read 129..255 rows
+        bound_ms, bound_tps = decode_bound(n_params, vocab, hidden, n_layers,
+                                           attn.num_kv_heads * attn.head_dim, GEN_BATCH,
+                                           mean_len)
+        log(f"[generation] decode: {decode_tps:.1f} tokens/s over the {DECODE_REPEATS} "
+            f"loops' whole windows ({sum(window_ms) / (DECODE_REPEATS * (GEN_NEW - 1)):.3f} "
+            f"ms a step on average; the median of the loops' median steps {step_ms:.3f} ms); "
+            f"the generate call {gen_tps:.1f} tokens/s with its prefill; two-term bound "
+            f"{bound_ms:.3f} ms a step = {bound_tps:.0f} tokens/s at a mean cache length "
+            f"of {mean_len} (weights {(n_params - vocab * hidden) * 2 / 1e9:.2f} GB + KV, "
+            f"data-sheet HBM rate, not measured) | {card}")
+        dec_ms, dec_busy, dec_kernels = profile_device(
+            torch, lambda: run.forward(tok[:, None], mean_len - 1),
+            f"one decode step, batch {GEN_BATCH}, cache length {mean_len}", top=12,
+            groups=DECODE_GROUPS)
+    idle = f"{100 * (1 - dec_busy / dec_ms):.1f}%" if dec_busy > 0 else "not measured"
+    log(f"[profile] device idle {idle} of a decode step; {dec_kernels} kernels on the "
+        f"card, {dec_kernels / n_layers:.1f} a layer")
+    log(f"[generation] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launched, prefill_launches=split["prefill"],
+                decode_launches=split["decode"], prefill_ms=prefill_ms,
+                prefill_kernel_ms=prefill_busy, step_ms=step_ms, tokens_per_s=decode_tps,
+                generate_tokens_per_s=gen_tps, bound_step_ms=bound_ms,
+                bound_tokens_per_s=bound_tps, argmax_share=float(agree.mean()))
 
 
 # ------------------------------------------------------------------ main
@@ -806,7 +1084,8 @@ def main():
         from paddle_tpu_torch.inference.batching import BatchingEngine
         from paddle_tpu_torch.inference.server import PredictorServer
         from paddle_tpu_torch.ops import flash_attention as fa
-        from paddle_tpu_torch.text.models import BertForPretraining, BertModel
+        from paddle_tpu_torch.text import generation
+        from paddle_tpu_torch.text.models import BertForPretraining, BertModel, LlamaModel
     except ImportError as e:
         fail(f"the port is not importable from this directory: {e}")
 
@@ -828,6 +1107,7 @@ def main():
                                                  wire_spec))
     train = phase_training(torch, fa, (BertForPretraining, nn, optimizer, spmd, prandom),
                            card)
+    gen = phase_generation(torch, fa, (LlamaModel, generation), card)
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -840,6 +1120,11 @@ def main():
                         and r["p"] == 0.0) for dt in ("bfloat16", "float32"))
     train_fwd = next(r for r in cases if r["b"] == 64 and r["dtype"] == "bfloat16"
                      and r["p"] == 0.0)
+    # K1 at Llama-2-7B's two forms, bfloat16: the prefill and a decode step
+    # at the mean cache length, with the launches the 7B generate made in
+    # each (counted per cached forward)
+    prefill, decode = (next(r for r in cases if r["h"] == 32 and r["dtype"] == "bfloat16"
+                            and r["sq"] == sq) for sq in (GEN_PROMPT, 1))
 
     def timing(r, suffix=""):
         # ms: CUDA events over back-to-back calls; device_ms: the kernels'
@@ -847,6 +1132,12 @@ def main():
         return dict(ms=r["ms" + suffix], device_ms=r["device_ms" + suffix],
                     plain_ms=r["plain_ms"], plain_device_ms=r["plain_device_ms"],
                     library_ms=r["library_ms"], library_device_ms=r["library_device_ms"])
+
+    def fields(r, prefix, **more):
+        # one K1 case's fields under a prefix
+        return {prefix + k: v for k, v in dict(
+            **more, max_abs_err=r["max_abs_err"], **timing(r), bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"]).items()}
 
     def bwd(r, which, prefix=""):
         # K2 ("dq") or K3 ("dkv") fields of one backward case
@@ -857,13 +1148,13 @@ def main():
     line = [
         dict(name=kernels[0]["name"], route="cuda", source=kernels[0]["source"],
              replaces=kernels[0]["replaces"],
-             launches=serving_launches + train["counts"]["fwd"],
+             launches=serving_launches + train["counts"]["fwd"] + gen["launches"],
              max_abs_err=main["max_abs_err"], **timing(main), bound_ms=main["bound_ms"],
              bound_by=main["bound_by"],
              # K1 at the training shape, [64 * 12, 128, 64] bfloat16
-             **{"train_bf16_" + k: v for k, v in dict(
-                 max_abs_err=train_fwd["max_abs_err"], **timing(train_fwd),
-                 bound_ms=train_fwd["bound_ms"], bound_by=train_fwd["bound_by"]).items()}),
+             **fields(train_fwd, "train_bf16_"),
+             **fields(prefill, "llama_prefill_bf16_", launches=gen["prefill_launches"]),
+             **fields(decode, "llama_decode_bf16_", launches=gen["decode_launches"])),
         dict(name=kernels[1]["name"], route="cuda", source=kernels[1]["source"],
              replaces=kernels[1]["replaces"], launches=train["counts"]["bwd_dq"],
              **bwd(bmain, "dq"), **bwd(bf32, "dq", "f32_")),

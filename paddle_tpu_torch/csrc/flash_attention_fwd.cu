@@ -17,7 +17,9 @@
 // element from device memory once per q tile, stage tiles with 16-byte
 // cp.async so the next tile's copy overlaps this tile's products, and skip
 // causal k tiles past the last one a q tile needs. One block per
-// (batch*head, 64-row q tile), 128 threads.
+// (batch*head, 64-row q tile), 128 threads. K and V may be the first sk
+// rows of a longer per-head buffer (a KV cache): the launch takes their
+// batch-head stride, so a decode step reads the cache where it lies.
 //
 // bf16 runs on the tensor cores (mma.sync m16n8k16, f32 accumulators):
 // each warp owns 16 q rows, holds its Q fragments in registers for the
@@ -72,8 +74,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-               int sq, int sk, float scale, int causal, int dropout, uint32_t seed,
-               uint32_t keep_thresh, float inv_keep) {
+               int sq, int sk, long long kv_stride, float scale, int causal, int dropout,
+               uint32_t seed, uint32_t keep_thresh, float inv_keep) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int RPT = 4;       // q rows per thread
   constexpr int LD = F32Layout<D>::LD;
@@ -93,8 +95,8 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ty = tid >> 3;  // 0..15: the lanes of a quarter-warp share it
   const int tx = lane & 7;
   const float* qg = q + (size_t)bh * sq * D;
-  const float* kg = k + (size_t)bh * sk * D;
-  const float* vg = v + (size_t)bh * sk * D;
+  const float* kg = k + (size_t)bh * kv_stride;
+  const float* vg = v + (size_t)bh * kv_stride;
   const int offset = sk - sq;
   const int n_kt = fa::k_tiles<BQ, BK>(q0, sq, sk, causal);
 
@@ -205,8 +207,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, D == 64 ? 3 : 1)
 fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                float* __restrict__ lse, int sq, int sk, float scale, int causal, int dropout,
-                uint32_t seed, uint32_t keep_thresh, float inv_keep) {
+                float* __restrict__ lse, int sq, int sk, long long kv_stride, float scale,
+                int causal, int dropout, uint32_t seed, uint32_t keep_thresh, float inv_keep) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = Bf16Layout<D>::LD;
   constexpr int KSTEPS = D / 16;  // k steps of Q K^T
@@ -224,8 +226,8 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   const int t = lane & 3;
   const int row_lo = q0 + warp * 16 + (lane >> 2);  // C-fragment rows: row_lo, row_lo + 8
   const __nv_bfloat16* qg = q + (size_t)bh * sq * D;
-  const __nv_bfloat16* kg = k + (size_t)bh * sk * D;
-  const __nv_bfloat16* vg = v + (size_t)bh * sk * D;
+  const __nv_bfloat16* kg = k + (size_t)bh * kv_stride;
+  const __nv_bfloat16* vg = v + (size_t)bh * kv_stride;
   const int offset = sk - sq;
   const int n_kt = fa::k_tiles<BQ, BK>(q0, sq, sk, causal);
   // ldmatrix row/column of this lane inside a 16 x 16 block
@@ -385,23 +387,24 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                       int sq, int sk, float scale, int causal, int dropout, uint32_t seed,
-                       uint32_t keep_thresh, float inv_keep, cudaStream_t stream) {
+                       int sq, int sk, long long kv_stride, float scale, int causal, int dropout,
+                       uint32_t seed, uint32_t keep_thresh, float inv_keep, cudaStream_t stream) {
   constexpr size_t smem = F32Layout<D>::bytes;
   auto kern = fwd_f32_kernel<D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);  // above 48 KB a block has to opt in
   const dim3 grid(bh, (sq + BQ - 1) / BQ);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), sq, sk, scale, causal, dropout, seed,
-      keep_thresh, inv_keep);
+      static_cast<float*>(o), static_cast<float*>(lse), sq, sk, kv_stride, scale, causal, dropout,
+      seed, keep_thresh, inv_keep);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                        int sq, int sk, float scale, int causal, int dropout, uint32_t seed,
-                        uint32_t keep_thresh, float inv_keep, cudaStream_t stream) {
+                        int sq, int sk, long long kv_stride, float scale, int causal,
+                        int dropout, uint32_t seed, uint32_t keep_thresh, float inv_keep,
+                        cudaStream_t stream) {
   constexpr size_t smem = Bf16Layout<D>::bytes;
   auto kern = fwd_bf16_kernel<D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);
@@ -409,7 +412,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), sq, sk, scale, causal, dropout, seed, keep_thresh, inv_keep);
+      static_cast<float*>(lse), sq, sk, kv_stride, scale, causal, dropout, seed, keep_thresh,
+      inv_keep);
   return cudaGetLastError();
 }
 
@@ -417,27 +421,30 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
 
 extern "C" {
 
-// q [bh, sq, d], k/v [bh, sk, d] contiguous and 16-byte aligned, dtype 0 =
-// float32, 1 = bfloat16; o [bh, sq, d] in the input dtype, lse [bh, sq]
-// float32. Returns the cudaError_t of the launch (0 = success);
+// q [bh, sq, d] contiguous; k/v [bh, sk, d] with contiguous rows, head bh
+// starting kv_stride elements after head bh - 1 (sk * d for contiguous K/V;
+// a longer cache's row count times d for its first sk rows); every pointer
+// and kv_stride * element size a multiple of 16 bytes. dtype 0 = float32,
+// 1 = bfloat16; o [bh, sq, d] in the input dtype, lse [bh, sq] float32.
+// Returns the cudaError_t of the launch (0 = success);
 // cudaErrorInvalidValue for a head_dim or dtype this kernel does not take.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                        int bh, int sq, int sk, int d, float scale, int causal, int dropout,
-                        unsigned int seed, unsigned int keep_thresh, float inv_keep,
-                        int dtype, void* stream) {
+                        int bh, int sq, int sk, int d, long long kv_stride, float scale,
+                        int causal, int dropout, unsigned int seed, unsigned int keep_thresh,
+                        float inv_keep, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64)
-    return launch_f32<64>(q, k, v, o, lse, bh, sq, sk, scale, causal, dropout, seed,
+    return launch_f32<64>(q, k, v, o, lse, bh, sq, sk, kv_stride, scale, causal, dropout, seed,
                           keep_thresh, inv_keep, st);
   if (dtype == 0 && d == 128)
-    return launch_f32<128>(q, k, v, o, lse, bh, sq, sk, scale, causal, dropout, seed,
+    return launch_f32<128>(q, k, v, o, lse, bh, sq, sk, kv_stride, scale, causal, dropout, seed,
                            keep_thresh, inv_keep, st);
   if (dtype == 1 && d == 64)
-    return launch_bf16<64>(q, k, v, o, lse, bh, sq, sk, scale, causal, dropout, seed,
+    return launch_bf16<64>(q, k, v, o, lse, bh, sq, sk, kv_stride, scale, causal, dropout, seed,
                            keep_thresh, inv_keep, st);
   if (dtype == 1 && d == 128)
-    return launch_bf16<128>(q, k, v, o, lse, bh, sq, sk, scale, causal, dropout, seed,
-                            keep_thresh, inv_keep, st);
+    return launch_bf16<128>(q, k, v, o, lse, bh, sq, sk, kv_stride, scale, causal, dropout,
+                            seed, keep_thresh, inv_keep, st);
   return (int)cudaErrorInvalidValue;
 }
 

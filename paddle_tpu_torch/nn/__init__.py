@@ -2,5 +2,5 @@
 from . import functional  # noqa: F401
 from .clip import ClipGradByGlobalNorm  # noqa: F401
 from .layers import (Dropout, Embedding, LayerList, LayerNorm, Linear,  # noqa: F401
-                     MultiHeadAttention, TransformerEncoder,
+                     MultiHeadAttention, Transformer, TransformerEncoder,
                      TransformerEncoderLayer)

@@ -1,4 +1,4 @@
-"""The functional ops of the BERT serving and training path (counterpart of
+"""The functional ops of the BERT and Llama/GPT paths (counterpart of
 the matching entries of paddle_tpu/nn/functional.py). Each casts its
 inputs as the active auto_cast does for the reference op of the same
 name (amp/auto_cast.py)."""
@@ -21,6 +21,12 @@ def gelu(x):
     """Exact (erf) GELU, the JAX package's ``approximate=False`` default."""
     (x,) = cast_inputs("gelu", x)
     return 0.5 * x * (1.0 + torch.erf(x / math.sqrt(2.0)))
+
+
+def silu(x):
+    """x * sigmoid(x), as ``jax.nn.silu``."""
+    (x,) = cast_inputs("silu", x)
+    return x * torch.sigmoid(x)
 
 
 def tanh(x):

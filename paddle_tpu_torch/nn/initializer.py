@@ -1,7 +1,9 @@
-"""The default initializers of Linear, Embedding and LayerNorm
-(counterpart of paddle_tpu/nn/initializer.py), drawn from a
-``torch.Generator`` on the CPU and then moved to the target device, so a
-seed gives the same weights on every device."""
+"""The default initializers of Linear, Embedding, LayerNorm and RMSNorm
+(counterpart of paddle_tpu/nn/initializer.py). A draw takes the device of
+its ``torch.Generator``: by default the CPU, then the weights move to the
+target device, so a seed gives the same weights on every device; a CUDA
+generator draws on the card, so a 7B model never passes through host
+memory."""
 import math
 
 import torch
@@ -30,7 +32,8 @@ class Normal:
 
     def __call__(self, shape, generator=None):
         gen = generator or random_core.default_generator()
-        return self.mean + self.std * torch.randn(tuple(shape), generator=gen)
+        x = torch.randn(tuple(shape), generator=gen, device=gen.device)
+        return x.mul_(self.std).add_(self.mean)
 
 
 class XavierNormal:

@@ -7,9 +7,10 @@ from .. import initializer as I
 
 
 class Linear(torch.nn.Module):
-    """y = x W + b, with ``weight`` [in, out] as in Paddle."""
+    """y = x W + b, with ``weight`` [in, out] as in Paddle. With
+    ``bias_attr=False`` there is no bias parameter at all."""
 
-    def __init__(self, in_features, out_features, *, device="cuda",
+    def __init__(self, in_features, out_features, *, bias_attr=None, device="cuda",
                  generator=None):
         super().__init__()
         dev = resolve_device(device)
@@ -17,7 +18,8 @@ class Linear(torch.nn.Module):
         self._out_features = out_features
         self.weight = I.create_parameter([in_features, out_features],
                                          I.XavierNormal(), dev, generator)
-        self.bias = I.create_parameter([out_features], I.Constant(0.0), dev)
+        self.bias = (None if bias_attr is False
+                     else I.create_parameter([out_features], I.Constant(0.0), dev))
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)

@@ -1,4 +1,4 @@
-"""Transformer encoder stack (counterpart of
+"""Transformer encoder stack and the causal mask helper (counterpart of
 paddle_tpu/nn/layers/transformer.py). Attention dispatches through
 F.scaled_dot_product_attention: unmasked calls run the flash kernels. The
 products and residual sums go through the port's tensor ops, which cast as
@@ -8,6 +8,7 @@ import copy
 import torch
 
 from ... import tensor as pt
+from ...core.place import resolve_device
 from .. import functional as F
 from .common import Dropout, Linear
 from .container import LayerList
@@ -125,3 +126,20 @@ class TransformerEncoder(torch.nn.Module):
         if self.norm is not None:
             output = self.norm(output)
         return output
+
+
+class Transformer(torch.nn.Module):
+    """Only the reference's static mask helper so far: the encoder-decoder
+    model itself (``TransformerDecoder``, MHA caches) is a later slice."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("the port's Transformer has only "
+                                  "generate_square_subsequent_mask so far")
+
+    @staticmethod
+    def generate_square_subsequent_mask(length, *, device="cuda"):
+        """[length, length] float32 additive mask: 0 on and below the
+        diagonal, -inf above it."""
+        dev = resolve_device(device)
+        mask = torch.full((length, length), float("-inf"), device=dev)
+        return torch.triu(mask, diagonal=1)

@@ -37,9 +37,10 @@ launches = 0
 dq_launches = 0
 dkv_launches = 0
 
-# library -> number of pointer arguments of its launch function
-_LIBS = {"flash_attention_fwd": 5, "flash_attention_bwd_dq": 7,
-         "flash_attention_bwd_dkv": 8}
+# library -> (number of pointer arguments of its launch function, whether
+# it takes K/V's batch-head stride after the four dimensions)
+_LIBS = {"flash_attention_fwd": (5, True), "flash_attention_bwd_dq": (7, False),
+         "flash_attention_bwd_dkv": (8, False)}
 _libs = {}
 
 
@@ -48,8 +49,10 @@ def _library(name):
     if lib is None:
         lib = cuda_build.load(name)
         fn = getattr(lib, name)
+        n_ptrs, kv_stride = _LIBS[name]
         fn.argtypes = (
-            [ctypes.c_void_p] * _LIBS[name] + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
+            + [ctypes.c_longlong] * kv_stride
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
                ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -193,6 +196,21 @@ def _aligned(*ts):
     return out
 
 
+def _kv_operand(t):
+    """K or V for K1 as (tensor, batch-head stride in elements). A
+    [bh, sk, d] tensor whose rows are contiguous and whose heads start a
+    multiple of 16 bytes apart, on a 16-byte boundary, goes to the kernel
+    as it lies: the first sk rows of a longer cache are read in place.
+    Anything else is made contiguous and aligned (``_aligned``) first."""
+    bh, sk, d = t.shape
+    rows_ok = t.stride(2) == 1 and (sk == 1 or t.stride(1) == d)
+    stride = t.stride(0) if bh > 1 else sk * d
+    if rows_ok and (stride * t.element_size()) % 16 == 0 and t.data_ptr() % 16 == 0:
+        return t, stride
+    (t,) = _aligned(t)
+    return t, sk * d
+
+
 def _check_dropout(dropout_p):
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
@@ -206,7 +224,8 @@ def _kernel_args(seed, scale, causal, dropout_p, dtype, device):
 
 def _fwd(q, k, v, seed, scale, causal, dropout_p):
     """q [bh, sq, d], k/v [bh, sk, d] -> (O [bh, sq, d], LSE [bh, sq, 1] f32).
-    CUDA tensors launch K1; CPU tensors run ``mha_reference``."""
+    CUDA tensors launch K1; CPU tensors run ``mha_reference``. K and V may
+    be prefix views of a longer buffer (``_kv_operand``)."""
     global launches
     _check_dropout(dropout_p)
     if not q.is_cuda:
@@ -214,13 +233,18 @@ def _fwd(q, k, v, seed, scale, causal, dropout_p):
     _check(q, k, v)
     bh, sq, d = q.shape
     sk = k.shape[1]
-    q, k, v = _aligned(q, k, v)
+    (q,) = _aligned(q)
+    k, k_stride = _kv_operand(k)
+    v, v_stride = _kv_operand(v)
+    if v_stride != k_stride:  # one stride serves both
+        (k,), (v,) = _aligned(k), _aligned(v)
+        k_stride = sk * d
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq, 1), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
     _launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), bh, sq, sk, d,
+            o.data_ptr(), lse.data_ptr(), bh, sq, sk, d, k_stride,
             *_kernel_args(seed, scale, causal, dropout_p, q.dtype, q.device))
     launches += 1
     return o, lse

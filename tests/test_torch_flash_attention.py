@@ -275,3 +275,51 @@ def test_function_saves_nothing_without_grad_and_launches_nothing_on_cpu():
     out.sum().backward()
     assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
     assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == counts
+
+
+# ------------------------------------------------------------- cache views
+
+
+@pytest.mark.parametrize("sq,n", [(1, 40), (40, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mha_on_a_prefix_view_of_a_longer_cache(sq, n, dtype):
+    """The cached decode's form: K and V are the first n rows of a longer
+    [B, H, total, D] buffer, causal with sq = 1 (one decode step) and
+    sq = sk (the prefill). The view goes to K1 as it lies; here its plain
+    version, held against the Pallas kernel on the contiguous prefix."""
+    rng = np.random.RandomState(6)
+    b, h, total, d = 2, 3, 64, 128
+    q = rng.randn(b, h, sq, d).astype(np.float32)
+    kbuf, vbuf = (rng.randn(b, h, total, d).astype(np.float32) for _ in range(2))
+    jd, td = JDT[dtype], TDT[dtype]
+    jo = fa.mha(*(jnp.asarray(x, jd) for x in (q, kbuf[:, :, :n], vbuf[:, :, :n])),
+                causal=True)
+    tk, tv = (torch.from_numpy(x).to(td) for x in (kbuf, vbuf))
+    kview, vview = tk[:, :, :n], tv[:, :, :n]
+    assert not kview.is_contiguous()
+    to = tfa.mha(torch.from_numpy(q).to(td), kview, vview, causal=True)
+    np.testing.assert_allclose(to.float().numpy(), np.asarray(jo, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_kv_operand_passes_cache_views_through():
+    """K1's K/V operand: a [bh, sk, d] tensor with contiguous rows and a
+    16-byte head stride goes to the kernel in place with that stride (the
+    first sk rows of a longer buffer); anything else is copied first."""
+    buf = torch.zeros(6, 50, 64)
+    view = buf[:, :20]
+    t, stride = tfa._kv_operand(view)
+    assert t.data_ptr() == buf.data_ptr() and stride == 50 * 64
+    t, stride = tfa._kv_operand(buf)
+    assert t is buf and stride == 50 * 64
+    # rows that are not contiguous (a transposed view) are copied
+    tr = torch.zeros(6, 64, 20).transpose(1, 2)
+    t, stride = tfa._kv_operand(tr)
+    assert t.is_contiguous() and stride == 20 * 64 and torch.equal(t, tr)
+    # a head stride that is not a multiple of 16 bytes (5 * 3 floats) is copied
+    odd = torch.zeros(4, 5, 3)[:, :2]
+    t, stride = tfa._kv_operand(odd)
+    assert t.is_contiguous() and stride == 2 * 3
+    # one head: its stride does not matter
+    t, stride = tfa._kv_operand(buf[:1, :20])
+    assert t.data_ptr() == buf.data_ptr() and stride == 20 * 64

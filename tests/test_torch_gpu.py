@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: flash_attention_fwd (K1) against
 ``mha_reference``, flash_attention_bwd_dq/_dkv (K2/K3) against
-``mha_bwd_reference``, their refusals, the BERT forward and a training
-step through them. Needs a CUDA card (marker ``gpu``; skipped without one).
+``mha_bwd_reference``, their refusals, the BERT forward, a training step
+and Llama's cached decode through them. Needs a CUDA card (marker ``gpu``; skipped without one).
 This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -245,3 +245,73 @@ def test_bert_forward_on_the_card_matches_the_cpu(cuda):
     assert fa.launches == before + cfg["num_hidden_layers"]
     assert (gs.cpu() - cs).abs().max().item() <= 1e-3
     assert (gp.cpu() - cp).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sq,n", [(1, 193), (128, 128)])
+def test_cache_prefix_view_reaches_the_kernel_in_place(cuda, monkeypatch, dtype, sq, n):
+    """K/V as the first n rows of a [bh, total, d] cache buffer: K1 gets
+    the buffer's own data pointers and its head stride (no copy), and O
+    and LSE are the plain version's on the contiguous prefix."""
+    bh, total, d = 64, 256, 128
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn(bh, sq, d, device="cuda", generator=g).to(dtype)
+    kbuf, vbuf = (torch.randn(bh, total, d, device="cuda", generator=g).to(dtype)
+                  for _ in range(2))
+    seen = []
+    real = fa._launch
+    monkeypatch.setattr(fa, "_launch", lambda name, *a: (seen.append(a), real(name, *a)))
+    o, lse = fa._fwd(q, kbuf[:, :n], vbuf[:, :n], 0, d ** -0.5, True, 0.0)
+    torch.cuda.synchronize()
+    (args,) = seen
+    assert args[1] == kbuf.data_ptr() and args[2] == vbuf.data_ptr()
+    assert args[5:10] == (bh, sq, n, d, total * d)
+    ro, rlse = fa.mha_reference(q, kbuf[:, :n].contiguous(), vbuf[:, :n].contiguous(), 0,
+                                d ** -0.5, True, 0.0)
+    assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - rlse).abs().max().item() <= 1e-4
+
+
+def test_full_width_llama_layer_bf16_matches_its_plain_version(cuda, monkeypatch):
+    """One Llama-2-7B decoder layer (hidden 4096, 32 heads of 128, FFN
+    11008) in bfloat16 on the card, its causal attention through K1,
+    against the same layer with K1 replaced by its plain version: within
+    2e-2 of the output's max magnitude."""
+    from paddle_tpu_torch.text.models import LlamaDecoderLayer
+
+    layer = LlamaDecoderLayer(4096, 32, 11008, device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(0))
+    layer.to(torch.bfloat16).eval()
+    x = torch.randn(2, 128, 4096, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1)).to(torch.bfloat16)
+    before = fa.launches
+    with torch.inference_mode():
+        got = layer(x)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    monkeypatch.setattr(fa, "_fwd", lambda q, k, v, seed, scale, causal, p:
+                        fa.mha_reference(q, k, v, seed, scale, causal, p))
+    with torch.inference_mode():
+        want = layer(x)
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err.item() <= 2e-2
+
+
+def test_small_llama_generate_on_the_card_matches_the_cpu(cuda):
+    """A small Llama's cached greedy decode on the card, float32: the same
+    tokens as the CPU run of the same weights, one K1 launch per layer per
+    forward (the prefill and every step)."""
+    from paddle_tpu_torch.text.models import LlamaModel
+
+    cfg = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
+               intermediate_size=512)
+    gpu = LlamaModel(**cfg, device="cuda", generator=torch.Generator().manual_seed(3))
+    cpu = LlamaModel(**cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    prompt = np.random.RandomState(1).randint(0, 512, (3, 16)).astype(np.int32)
+    before = fa.launches
+    got = gpu.generate(prompt, max_new_tokens=6)
+    assert fa.launches == before + 2 * 6
+    np.testing.assert_array_equal(got, cpu.generate(prompt, max_new_tokens=6))
+    np.testing.assert_array_equal(gpu.generate(prompt, max_new_tokens=6, use_cache=False), got)

@@ -13,7 +13,7 @@ import torch
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace, resolve_device
 from paddle_tpu_torch.core.random import fast_keep_mask
-from paddle_tpu_torch.text.models import BertForPretraining, BertModel
+from paddle_tpu_torch.text.models import BertForPretraining, BertModel, GPTModel, LlamaModel
 
 torch.set_num_threads(1)
 
@@ -76,7 +76,11 @@ def test_default_device_raises_without_a_card(no_card):
                                                            intermediate_size=8),
                lambda: BertForPretraining(vocab_size=8, hidden_size=8, num_hidden_layers=1,
                                           num_attention_heads=2, intermediate_size=8),
-               lambda: fast_keep_mask((0, 1), 0.9, (2, 3))):
+               lambda: fast_keep_mask((0, 1), 0.9, (2, 3)),
+               lambda: LlamaModel(vocab_size=8, hidden_size=8, num_layers=1, num_heads=2,
+                                  intermediate_size=8),
+               lambda: GPTModel(vocab_size=8, hidden_size=8, num_layers=1, num_heads=2),
+               lambda: tnn.Transformer.generate_square_subsequent_mask(4)):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             fn()
 

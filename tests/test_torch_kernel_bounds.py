@@ -4,6 +4,7 @@ quotes) and the device time it reads from a profiler window."""
 from types import SimpleNamespace
 
 import pytest
+import torch
 
 import chip_smoke
 
@@ -33,6 +34,43 @@ def test_causal_bound_counts_only_the_unmasked_pairs():
     full, _ = chip_smoke.attention_bound_ms(8, 512, 512, 64, "float32", False)
     causal, by = chip_smoke.attention_bound_ms(8, 512, 512, 64, "float32", True)
     assert by == "operations" and causal == pytest.approx(full * 513 / 1024)
+
+
+def test_decode_form_is_timed_against_non_causal_sdpa():
+    """A single query under the kernels' bottom-right causal mask sees
+    every key, so the decode form has a library call: sdpa without a
+    causal mask. Causal with 1 < sq != sk has none (sdpa aligns top-left)."""
+    decode = dict(causal=True, sq=1, sk=192)
+    assert chip_smoke.library_reason(decode) is None
+    assert chip_smoke.library_causal(decode) is False
+    square = dict(causal=True, sq=128, sk=128)
+    assert chip_smoke.library_reason(square) is None and chip_smoke.library_causal(square)
+    assert chip_smoke.library_reason(dict(causal=True, sq=200, sk=512)) is not None
+    assert not chip_smoke.library_causal(dict(causal=False, sq=64, sk=64))
+    # the premise, on the CPU: non-causal sdpa is the kernels' causal
+    # single-query function (their plain version)
+    from paddle_tpu_torch.ops import flash_attention as tfa
+
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(4, n, 64, generator=g) for n in (1, 37, 37))
+    want, _ = tfa.mha_reference(q, k, v, 0, 0.125, True, 0.0)
+    got = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=False,
+                                                           scale=0.125)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_llama_decode_bound_in_bench_terms():
+    """Llama-2-7B (6,738,415,616 parameters) at batch 16: a step reads the
+    13.21 GB of weights but the embedding table, the batch's 16 embedding
+    rows and 16 rows of 100.7 MB of K/V at the mean length 192: 4.4255 ms,
+    about 3,615 tokens/s at the data sheet's 3.35 TB/s."""
+    ms, tps = chip_smoke.decode_bound(6738415616, 32000, 4096, 32, 4096, 16, 192)
+    assert round(ms, 4) == 4.4255 and round(tps) == 3615
+    # the bound of one Llama prefill or decode launch of K1 (bf16)
+    prefill, by = chip_smoke.attention_bound_ms(512, 128, 128, 128, "bfloat16", True)
+    assert by == "bytes" and round(prefill, 4) == 0.0201
+    step, by = chip_smoke.attention_bound_ms(512, 1, 192, 128, "bfloat16", True)
+    assert by == "bytes" and round(step, 4) == 0.0151
 
 
 def _ev(device_type, us, key="k"):
