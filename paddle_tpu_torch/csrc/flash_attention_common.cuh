@@ -29,17 +29,29 @@ __device__ __forceinline__ uint32_t batch_seed(uint32_t seed, int bh) {
   return b * 0xC2B2AE35u;
 }
 
-// the number of BK-key tiles a BQ-row q tile starting at q0 reads: causal
-// tiles past the last key any of its rows attends to (bottom-right mask,
-// row r sees keys <= r + sk - sq) are skipped
+// the keys batch-head bh may see: k_len[bh / heads] (clamped to the
+// operand's sk) where the launch gave per-row key lengths, else all sk
+__device__ __forceinline__ int row_keys(const int* k_len, int bh, int heads, int sk) {
+  return k_len == nullptr ? sk : max(0, min(sk, k_len[bh / heads]));
+}
+
+// the number of BK-key tiles a BQ-row q tile starting at q0 reads: tiles
+// past the row's key length kl (<= sk), and causal tiles past the last key
+// any of its rows attends to (bottom-right mask, row r sees keys <= r + sk
+// - sq, with sk the operand's extent), are skipped
 template <int BQ, int BK>
-__device__ __forceinline__ int k_tiles(int q0, int sq, int sk, int causal) {
-  int n_kt = (sk + BK - 1) / BK;
+__device__ __forceinline__ int k_tiles(int q0, int sq, int sk, int causal, int kl) {
+  int n_kt = (kl + BK - 1) / BK;
   if (causal) {
     const int last_col = q0 + BQ - 1 + (sk - sq);
     n_kt = min(n_kt, last_col < 0 ? 0 : last_col / BK + 1);
   }
   return n_kt;
+}
+
+template <int BQ, int BK>
+__device__ __forceinline__ int k_tiles(int q0, int sq, int sk, int causal) {
+  return k_tiles<BQ, BK>(q0, sq, sk, causal, sk);
 }
 
 // true where dropout keeps attention probability (row, col)

@@ -19,7 +19,13 @@
 // causal k tiles past the last one a q tile needs. One block per
 // (batch*head, 64-row q tile), 128 threads. K and V may be the first sk
 // rows of a longer per-head buffer (a KV cache): the launch takes their
-// batch-head stride, so a decode step reads the cache where it lies.
+// batch-head stride, so a decode step reads the cache where it lies. A
+// launch may also give per-batch-row key lengths in device memory (k_len,
+// int32 [bh / heads]): the row's tile loop stops at its length, keys past
+// it are masked and zero-filled in shared memory instead of read, so the
+// rows of one continuous-batching step sit at different lengths in one
+// launch, a row's O and LSE are the same bits at any operand width and
+// beside any neighbours, and stale cache rows never reach a product.
 //
 // bf16 runs on the tensor cores (mma.sync m16n8k16, f32 accumulators):
 // each warp owns 16 q rows, holds its Q fragments in registers for the
@@ -74,8 +80,9 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-               int sq, int sk, long long kv_stride, float scale, int causal, int dropout,
-               uint32_t seed, uint32_t keep_thresh, float inv_keep) {
+               int sq, int sk, long long kv_stride, const int* __restrict__ k_len, int heads,
+               float scale, int causal, int dropout, uint32_t seed, uint32_t keep_thresh,
+               float inv_keep) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int RPT = 4;       // q rows per thread
   constexpr int LD = F32Layout<D>::LD;
@@ -98,7 +105,9 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kg = k + (size_t)bh * kv_stride;
   const float* vg = v + (size_t)bh * kv_stride;
   const int offset = sk - sq;
-  const int n_kt = fa::k_tiles<BQ, BK>(q0, sq, sk, causal);
+  // keys at or past kl are masked, never loaded, and end the tile loop
+  const int kl = fa::row_keys(k_len, bh, heads, sk);
+  const int n_kt = fa::k_tiles<BQ, BK>(q0, sq, sk, causal, kl);
 
   // K and V each have one buffer; the copy of K(kt + 1) runs during
   // tile kt's softmax and P V, the copy of V(kt + 1) during tile kt+1's
@@ -111,9 +120,9 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   };
   load_rows(Qs, qg, q0, BQ, sq);
-  if (n_kt > 0) load_rows(Ks, kg, 0, BK, sk);
+  if (n_kt > 0) load_rows(Ks, kg, 0, BK, kl);
   fa::cp_async_commit();
-  if (n_kt > 0) load_rows(Vs, vg, 0, BK, sk);
+  if (n_kt > 0) load_rows(Vs, vg, 0, BK, kl);
   fa::cp_async_commit();
 
   const uint32_t bseed = fa::batch_seed(seed, bh);
@@ -134,13 +143,13 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float s[RPT][CPT];
     fa::rows_dot_rows<D, LD, LD, CPT>(s, Qs, Ks, ty, tx);
     __syncthreads();  // every thread is done with K(kt)
-    if (kt + 1 < n_kt) load_rows(Ks, kg, k0 + BK, BK, sk);
+    if (kt + 1 < n_kt) load_rows(Ks, kg, k0 + BK, BK, kl);
     fa::cp_async_commit();
 
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int row = q0 + ty + 16 * i;
-      const int lim = causal ? min(sk, row + offset + 1) : sk;  // cols >= lim are masked
+      const int lim = causal ? min(kl, row + offset + 1) : kl;  // cols >= lim are masked
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
@@ -179,7 +188,7 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     fa::rows_times_tile<BK, D, PS, LD>(acc, Ps, Vs, ty, tx);
     __syncthreads();  // every thread is done with V(kt) and P
-    if (kt + 1 < n_kt) load_rows(Vs, vg, k0 + BK, BK, sk);
+    if (kt + 1 < n_kt) load_rows(Vs, vg, k0 + BK, BK, kl);
     fa::cp_async_commit();
   }
   fa::cp_async_wait<0>();
@@ -207,8 +216,9 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, D == 64 ? 3 : 1)
 fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                float* __restrict__ lse, int sq, int sk, long long kv_stride, float scale,
-                int causal, int dropout, uint32_t seed, uint32_t keep_thresh, float inv_keep) {
+                float* __restrict__ lse, int sq, int sk, long long kv_stride,
+                const int* __restrict__ k_len, int heads, float scale, int causal, int dropout,
+                uint32_t seed, uint32_t keep_thresh, float inv_keep) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = Bf16Layout<D>::LD;
   constexpr int KSTEPS = D / 16;  // k steps of Q K^T
@@ -229,7 +239,9 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   const __nv_bfloat16* kg = k + (size_t)bh * kv_stride;
   const __nv_bfloat16* vg = v + (size_t)bh * kv_stride;
   const int offset = sk - sq;
-  const int n_kt = fa::k_tiles<BQ, BK>(q0, sq, sk, causal);
+  // keys at or past kl are masked, never loaded, and end the tile loop
+  const int kl = fa::row_keys(k_len, bh, heads, sk);
+  const int n_kt = fa::k_tiles<BQ, BK>(q0, sq, sk, causal, kl);
   // ldmatrix row/column of this lane inside a 16 x 16 block
   const int lm_r = (lane & 7) + ((lane >> 3) & 1) * 8;  // A order: row half from lane bit 3
   const int lm_c = (lane >> 4) * 8;
@@ -247,7 +259,7 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     const int k0 = kt * BK;
     for (int i = tid; i < BK * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 8;
-      const bool ok = k0 + r < sk;
+      const bool ok = k0 + r < kl;
       const size_t g = (size_t)(k0 + r) * D + c;
       fa::cp_async16(&Ks[r * LD + c], ok ? kg + g : kg, ok);
       fa::cp_async16(&Vs[r * LD + c], ok ? vg + g : vg, ok);
@@ -265,7 +277,7 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   // cols >= lim[h] are masked in row row_lo + 8 h
   int lim[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) lim[h] = causal ? min(sk, row_lo + 8 * h + offset + 1) : sk;
+  for (int h = 0; h < 2; ++h) lim[h] = causal ? min(kl, row_lo + 8 * h + offset + 1) : kl;
 
   for (int kt = 0; kt < n_kt; ++kt) {
     if (kt + 1 < n_kt) {
@@ -387,24 +399,25 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                       int sq, int sk, long long kv_stride, float scale, int causal, int dropout,
-                       uint32_t seed, uint32_t keep_thresh, float inv_keep, cudaStream_t stream) {
+                       int sq, int sk, long long kv_stride, const int* k_len, int heads,
+                       float scale, int causal, int dropout, uint32_t seed, uint32_t keep_thresh,
+                       float inv_keep, cudaStream_t stream) {
   constexpr size_t smem = F32Layout<D>::bytes;
   auto kern = fwd_f32_kernel<D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);  // above 48 KB a block has to opt in
   const dim3 grid(bh, (sq + BQ - 1) / BQ);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), sq, sk, kv_stride, scale, causal, dropout,
-      seed, keep_thresh, inv_keep);
+      static_cast<float*>(o), static_cast<float*>(lse), sq, sk, kv_stride, k_len, heads, scale,
+      causal, dropout, seed, keep_thresh, inv_keep);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                        int sq, int sk, long long kv_stride, float scale, int causal,
-                        int dropout, uint32_t seed, uint32_t keep_thresh, float inv_keep,
-                        cudaStream_t stream) {
+                        int sq, int sk, long long kv_stride, const int* k_len, int heads,
+                        float scale, int causal, int dropout, uint32_t seed, uint32_t keep_thresh,
+                        float inv_keep, cudaStream_t stream) {
   constexpr size_t smem = Bf16Layout<D>::bytes;
   auto kern = fwd_bf16_kernel<D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);
@@ -412,8 +425,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), sq, sk, kv_stride, scale, causal, dropout, seed, keep_thresh,
-      inv_keep);
+      static_cast<float*>(lse), sq, sk, kv_stride, k_len, heads, scale, causal, dropout, seed,
+      keep_thresh, inv_keep);
   return cudaGetLastError();
 }
 
@@ -424,27 +437,28 @@ extern "C" {
 // q [bh, sq, d] contiguous; k/v [bh, sk, d] with contiguous rows, head bh
 // starting kv_stride elements after head bh - 1 (sk * d for contiguous K/V;
 // a longer cache's row count times d for its first sk rows); every pointer
-// and kv_stride * element size a multiple of 16 bytes. dtype 0 = float32,
-// 1 = bfloat16; o [bh, sq, d] in the input dtype, lse [bh, sq] float32.
-// Returns the cudaError_t of the launch (0 = success);
-// cudaErrorInvalidValue for a head_dim or dtype this kernel does not take.
+// and kv_stride * element size a multiple of 16 bytes. k_len: null, or a
+// device int32 [bh / heads] of per-batch-row key lengths: keys j >=
+// k_len[bh / heads] are masked, never read, and end the tile loop, so a
+// row's O and LSE do not depend on sk beyond its length (the causal
+// offset stays sk - sq). dtype 0 = float32, 1 = bfloat16; o [bh, sq, d]
+// in the input dtype, lse [bh, sq] float32. Returns the cudaError_t of
+// the launch (0 = success); cudaErrorInvalidValue for a head_dim or dtype
+// this kernel does not take.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                        int bh, int sq, int sk, int d, long long kv_stride, float scale,
-                        int causal, int dropout, unsigned int seed, unsigned int keep_thresh,
-                        float inv_keep, int dtype, void* stream) {
+                        int bh, int sq, int sk, int d, long long kv_stride, const int* k_len,
+                        int heads, float scale, int causal, int dropout, unsigned int seed,
+                        unsigned int keep_thresh, float inv_keep, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64)
-    return launch_f32<64>(q, k, v, o, lse, bh, sq, sk, kv_stride, scale, causal, dropout, seed,
-                          keep_thresh, inv_keep, st);
-  if (dtype == 0 && d == 128)
-    return launch_f32<128>(q, k, v, o, lse, bh, sq, sk, kv_stride, scale, causal, dropout, seed,
-                           keep_thresh, inv_keep, st);
-  if (dtype == 1 && d == 64)
-    return launch_bf16<64>(q, k, v, o, lse, bh, sq, sk, kv_stride, scale, causal, dropout, seed,
-                           keep_thresh, inv_keep, st);
-  if (dtype == 1 && d == 128)
-    return launch_bf16<128>(q, k, v, o, lse, bh, sq, sk, kv_stride, scale, causal, dropout,
-                            seed, keep_thresh, inv_keep, st);
+  if (k_len != nullptr && heads < 1) return (int)cudaErrorInvalidValue;
+#define FA_FWD_ARGS                                                                      \
+  q, k, v, o, lse, bh, sq, sk, kv_stride, k_len, heads, scale, causal, dropout, seed, \
+      keep_thresh, inv_keep, st
+  if (dtype == 0 && d == 64) return launch_f32<64>(FA_FWD_ARGS);
+  if (dtype == 0 && d == 128) return launch_f32<128>(FA_FWD_ARGS);
+  if (dtype == 1 && d == 64) return launch_bf16<64>(FA_FWD_ARGS);
+  if (dtype == 1 && d == 128) return launch_bf16<128>(FA_FWD_ARGS);
+#undef FA_FWD_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

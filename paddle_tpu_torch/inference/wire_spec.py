@@ -296,6 +296,28 @@ def decode_arrays(payload):
     return decode_arrays_off(payload)[0]
 
 
+def encode_deadline(timeout_ms):
+    """The optional trailing deadline field (marker 0xDD + f64 ms)."""
+    return struct.pack("<Bd", DEADLINE_MARKER, float(timeout_ms))
+
+
+def encode_decode_opts(max_new_tokens, oneshot=False, snapshot_every=0,
+                       handoff=False, speculative=False):
+    """The optional trailing decode field (marker 0x5C + u64: low 32
+    bits max_new_tokens, bits 32-47 snapshot cadence, bit 61
+    speculative opt-in, bit 62 prefill-handoff, bit 63 one-shot)."""
+    val = int(max_new_tokens) & 0xFFFFFFFF
+    val |= (int(snapshot_every) & DECODE_SNAPSHOT_EVERY_MASK) \
+        << DECODE_SNAPSHOT_EVERY_SHIFT
+    if speculative:
+        val |= DECODE_SPEC_BIT
+    if handoff:
+        val |= DECODE_HANDOFF_BIT
+    if oneshot:
+        val |= DECODE_ONESHOT_BIT
+    return struct.pack("<BQ", DECODE_MARKER, val)
+
+
 def decode_request(payload):
     """Decode a cmd-1 infer body: arrays plus the optional trailing
     marker-tagged fields (any order). Returns (arrays,

@@ -3,7 +3,10 @@
 
 Three kernels, as in the JAX package:
 
-- ``_fwd`` launches K1, ``csrc/flash_attention_fwd.cu`` (O and LSE);
+- ``_fwd`` launches K1, ``csrc/flash_attention_fwd.cu`` (O and LSE),
+  optionally with per-batch-row key lengths read from device memory
+  (``k_len``: the continuous-batching decode step, whose rows sit at
+  different lengths in one KV pool);
 - ``_bwd`` computes delta = rowsum(dO * O) in plain torch, as the
   reference does outside its kernels, then launches K2,
   ``csrc/flash_attention_bwd_dq.cu`` (dQ), and K3,
@@ -37,10 +40,12 @@ launches = 0
 dq_launches = 0
 dkv_launches = 0
 
-# library -> (number of pointer arguments of its launch function, whether
-# it takes K/V's batch-head stride after the four dimensions)
-_LIBS = {"flash_attention_fwd": (5, True), "flash_attention_bwd_dq": (7, False),
-         "flash_attention_bwd_dkv": (8, False)}
+# library -> (number of pointer arguments of its launch function, the
+# arguments it takes after the four dimensions: K1 takes K/V's batch-head
+# stride, then its per-row key lengths (a device pointer or null) and the
+# heads per batch row)
+_LIBS = {"flash_attention_fwd": (5, [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int]),
+         "flash_attention_bwd_dq": (7, []), "flash_attention_bwd_dkv": (8, [])}
 _libs = {}
 
 
@@ -49,10 +54,9 @@ def _library(name):
     if lib is None:
         lib = cuda_build.load(name)
         fn = getattr(lib, name)
-        n_ptrs, kv_stride = _LIBS[name]
+        n_ptrs, extra = _LIBS[name]
         fn.argtypes = (
-            [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
-            + [ctypes.c_longlong] * kv_stride
+            [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + extra
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
                ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -94,16 +98,29 @@ def _keep_mask(seed, b, rows, cols, seq_k, keep_thresh):
     return fmix32(mul32(idx, 0x9E3779B1) ^ bseed) < keep_thresh
 
 
-def _scores(q, k, scale, causal):
-    """f32 S = Q K^T * scale with the kernels' NEG_INF causal mask, and the
-    (rows, cols) index grids."""
+def _scores(q, k, scale, causal, k_len=None, heads=1):
+    """f32 S = Q K^T * scale with the kernels' NEG_INF masks (causal,
+    bottom-right over the operand's sk; keys at or past ``k_len[bh //
+    heads]``), and the (rows, cols) index grids."""
     sq, sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     rows = torch.arange(sq, device=q.device)[:, None]
     cols = torch.arange(sk, device=q.device)[None, :]
     if causal:
         s = torch.where(rows + (sk - sq) >= cols, s, NEG_INF)
+    if k_len is not None:
+        lens = _row_lengths(k_len, q.shape[0], heads, q.device)
+        s = torch.where(cols < lens[:, None, None], s, NEG_INF)
     return s, rows, cols
+
+
+def _row_lengths(k_len, bh, heads, device):
+    """int64 [bh]: each batch-head's key length from ``k_len`` [bh / heads]."""
+    lens = torch.as_tensor(k_len, device=device).long().reshape(-1)
+    if heads < 1 or lens.numel() * heads != bh:
+        raise ValueError(f"k_len of {lens.numel()} rows x {heads} heads does not "
+                         f"cover {bh} batch-heads")
+    return lens.repeat_interleave(heads)
 
 
 def _dropout_keep(seed, bh, rows, cols, sk, dropout_p):
@@ -111,19 +128,29 @@ def _dropout_keep(seed, bh, rows, cols, sk, dropout_p):
     return _keep_mask(seed, b, rows, cols, sk, keep_thresh_u32(1.0 - dropout_p))
 
 
-def mha_reference(q, k, v, seed=0, scale=None, causal=False, dropout_p=0.0):
+def mha_reference(q, k, v, seed=0, scale=None, causal=False, dropout_p=0.0, k_len=None,
+                  heads=1):
     """Plain PyTorch version of K1 on [bh, seq, d] tensors: the whole
-    softmax at once, with the kernel's NEG_INF mask, its max(l, 1e-30)
-    clamp and its hash dropout (l sums the undropped p).
+    softmax at once, with the kernel's NEG_INF masks, its max(l, 1e-30)
+    clamp and its hash dropout (l sums the undropped p). ``k_len`` (int
+    [bh / heads], or None) masks each batch row's keys at or past its
+    length, as K1's length form does.
     Returns (O in q's dtype, LSE [bh, sq, 1] float32)."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    s, rows, cols = _scores(q, k, scale, causal)
+    _check_lengths(k_len, dropout_p)
+    if k_len is not None:
+        # rows past a length count as zeros, as K1 zero-fills them instead
+        # of reading them: a stale NaN there must not reach P V
+        keys = torch.arange(sk, device=q.device)
+        v = torch.where((keys < _row_lengths(k_len, bh, heads, q.device)[:, None])[..., None],
+                        v, torch.zeros((), dtype=v.dtype, device=v.device))
+    s, rows, cols = _scores(q, k, scale, causal, k_len, heads)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    if causal:
+    if causal or k_len is not None:
         # a fully masked row has m == NEG_INF and exp(s - m) == 1
         p = torch.where(s == NEG_INF, 0.0, p)
     l = p.sum(dim=-1, keepdim=True)
@@ -216,21 +243,41 @@ def _check_dropout(dropout_p):
         raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
 
 
+def _check_lengths(k_len, dropout_p):
+    # the dropout hash is keyed by the operand's width, which the length
+    # form promises not to depend on
+    if k_len is not None and dropout_p > 0.0:
+        raise ValueError("per-row key lengths (k_len) take no dropout")
+
+
 def _kernel_args(seed, scale, causal, dropout_p, dtype, device):
     return (float(scale), int(bool(causal)), int(dropout_p > 0.0), int(seed) & U32,
             keep_thresh_u32(1.0 - dropout_p), 1.0 / (1.0 - dropout_p),
             _DTYPE_CODES[dtype], torch.cuda.current_stream(device).cuda_stream)
 
 
-def _fwd(q, k, v, seed, scale, causal, dropout_p):
+def _fwd(q, k, v, seed, scale, causal, dropout_p, k_len=None, heads=1):
     """q [bh, sq, d], k/v [bh, sk, d] -> (O [bh, sq, d], LSE [bh, sq, 1] f32).
     CUDA tensors launch K1; CPU tensors run ``mha_reference``. K and V may
-    be prefix views of a longer buffer (``_kv_operand``)."""
+    be prefix views of a longer buffer (``_kv_operand``). ``k_len``: None,
+    or int32 [bh / heads] key lengths per batch row, read by K1 from
+    device memory (a row sees keys < its length)."""
     global launches
     _check_dropout(dropout_p)
+    _check_lengths(k_len, dropout_p)
     if not q.is_cuda:
-        return mha_reference(q, k, v, seed, scale, causal, dropout_p)
+        return mha_reference(q, k, v, seed, scale, causal, dropout_p, k_len, heads)
     _check(q, k, v)
+    k_len_ptr = None
+    if k_len is not None:
+        if not (isinstance(k_len, torch.Tensor) and k_len.device == q.device
+                and k_len.dtype == torch.int32):
+            raise TypeError("flash attention: k_len must be an int32 tensor on q's card")
+        if heads < 1 or k_len.numel() * heads != q.shape[0]:
+            raise ValueError(f"k_len of {k_len.numel()} rows x {heads} heads does not "
+                             f"cover {q.shape[0]} batch-heads")
+        k_len = k_len.contiguous()
+        k_len_ptr = k_len.data_ptr()
     bh, sq, d = q.shape
     sk = k.shape[1]
     (q,) = _aligned(q)
@@ -244,7 +291,7 @@ def _fwd(q, k, v, seed, scale, causal, dropout_p):
     if o.numel() == 0:
         return o, lse
     _launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), bh, sq, sk, d, k_stride,
+            o.data_ptr(), lse.data_ptr(), bh, sq, sk, d, k_stride, k_len_ptr, int(heads),
             *_kernel_args(seed, scale, causal, dropout_p, q.dtype, q.device))
     launches += 1
     return o, lse
@@ -306,15 +353,17 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def mha(q, k, v, *, scale=None, causal=False, dropout_p=0.0, seed=None,
-        block_q=256, block_k=256):
+        block_q=256, block_k=256, k_len=None):
     """Flash attention. q, k, v: [batch, heads, seq, head_dim] (or 3-d
     [batch*heads, seq, head_dim]). Returns the same shape as q, with a
     gradient through K2 and K3 where an input requires one.
 
     ``dropout_p > 0`` drops attention probabilities inside the kernels with
     the counter-hash mask keyed by ``seed`` (an int; same seed -> same
-    mask). ``block_q``/``block_k`` are kept for signature parity with the
-    JAX package: the CUDA kernels choose their own tiles."""
+    mask). ``k_len`` (int32 [batch] on q's device, forward only, no
+    dropout): batch row b sees only its keys j < k_len[b]. ``block_q``/
+    ``block_k`` are kept for signature parity with the JAX package: the
+    CUDA kernels choose their own tiles."""
     del block_q, block_k
     squeeze = q.dim() == 3
     if squeeze:
@@ -327,8 +376,10 @@ def mha(q, k, v, *, scale=None, causal=False, dropout_p=0.0, seed=None,
     args = (q.reshape(b * h, sq, d), k.reshape(b * h, sk, d), v.reshape(b * h, sk, d),
             seed, float(scale), bool(causal), float(dropout_p))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if k_len is not None:
+            raise NotImplementedError("k_len is a forward-only form of the kernel")
         o = _FlashAttention.apply(*args)
     else:
-        o, _ = _fwd(*args)
+        o, _ = _fwd(*args) if k_len is None else _fwd(*args, k_len=k_len, heads=h)
     o = o.reshape(b, h, sq, d)
     return o[0] if squeeze else o

@@ -13,14 +13,19 @@ paddle_tpu/text/generation.py).
   single-query step) runs K1 over the valid prefix of the cache, read in
   place (ops/flash_attention.py ``_kv_operand``).
 
+- ``llama_decode_model``: the same model as a ``DecodeModel`` for the
+  continuous-batching engine (inference/decode.py): per-slot K/V pools,
+  per-row positions, K1 at per-row key lengths.
+
 The reference runs the whole cached loop as one jitted ``lax.scan``; here
 it is a Python loop of eager ops whose tokens stay on the device until
-the end. ``_CachedLlama.forward`` repeats the decoder layer's maths over
+the end. ``_LlamaWeights.layers`` repeats the decoder layer's maths over
 the collected weights on purpose, as the reference's cached loop does
-beside its ``LlamaDecoderLayer``: a rounding change in
-``text/models.py`` must be made here too (the parity tests hold the two
-against each other). Sampling (``do_sample=True``: temperature, top-k, top-p and
-jax's categorical draw) is not ported yet and raises.
+beside its ``LlamaDecoderLayer``, and both cached paths (``_CachedLlama``
+and the engine's model) run it: a rounding change in ``text/models.py``
+must be made there too (the parity tests hold them against each other).
+Sampling (``do_sample=True``: temperature, top-k, top-p and jax's
+categorical draw) is not ported yet and raises.
 """
 import math
 
@@ -118,17 +123,55 @@ def _collect_llama_params(model):
             "head": p["lm_head.weight"], "layers": layers}
 
 
-class _CachedLlama:
+class _LlamaWeights:
+    """A LlamaModel's weights by the reference's keys, and its decoder maths
+    over them: ``layers`` runs x [B, T, hidden] through every decoder
+    layer and leaves the attention, with any cache write, to the caller's
+    ``attend(layer, q, k, v)`` (q [B, heads, T, D], k/v [B, kv_heads, T,
+    D], rotated); ``logits`` applies the final norm and the head. The cached
+    generate and the decode engine's model share it, so both round where
+    ``rms_norm`` and ``_rotate`` round."""
+
+    def __init__(self, model):
+        attn = model.layers[0].self_attn
+        self.params = _collect_llama_params(model)
+        self.nh, self.nkv, self.hd = attn.num_heads, attn.num_kv_heads, attn.head_dim
+        self.scale = 1.0 / math.sqrt(self.hd)
+
+    def layers(self, x, cos, sin, attend):
+        b, t, _ = x.shape
+        nh, nkv, hd = self.nh, self.nkv, self.hd
+        for li, lp in enumerate(self.params["layers"]):
+            h = rms_norm(x, lp["ln1"])
+            q = torch.matmul(h, lp["wq"]).reshape(b, t, nh, hd).transpose(1, 2)
+            k = torch.matmul(h, lp["wk"]).reshape(b, t, nkv, hd).transpose(1, 2)
+            v = torch.matmul(h, lp["wv"]).reshape(b, t, nkv, hd).transpose(1, 2)
+            q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
+            out = attend(li, q, k, v)
+            x = x + torch.matmul(out.transpose(1, 2).reshape(b, t, nh * hd), lp["wo"])
+            h2 = rms_norm(x, lp["ln2"])
+            x = x + torch.matmul(F.silu(torch.matmul(h2, lp["gate"]))
+                                 * torch.matmul(h2, lp["up"]), lp["down"])
+        return x
+
+    def logits(self, x):
+        return torch.matmul(rms_norm(x, self.params["norm"]), self.params["head"])
+
+    def attention(self, q, k, v, k_len=None):
+        """K1 (causal, bottom-right) of q over k/v, GQA heads repeated."""
+        rep = self.nh // self.nkv
+        return flash_attention.mha(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
+                                   scale=self.scale, causal=True, k_len=k_len)
+
+
+class _CachedLlama(_LlamaWeights):
     """A LlamaModel's weights and a KV cache for ``batch`` rows of up to
     ``total`` positions. ``forward(token_ids, start)`` runs the tokens at
     absolute positions start..start+t-1 through every layer, writes their
     K/V rows into the cache and attends over its first start + t rows."""
 
     def __init__(self, model, batch, total):
-        attn = model.layers[0].self_attn
-        self.params = _collect_llama_params(model)
-        self.nh, self.nkv, self.hd = attn.num_heads, attn.num_kv_heads, attn.head_dim
-        self.scale = 1.0 / math.sqrt(self.hd)
+        super().__init__(model)
         emb = self.params["embed"]
         # the cache dtype follows the params (bf16 weights -> bf16 cache)
         shape = (len(self.params["layers"]), batch, self.nkv, total, self.hd)
@@ -136,30 +179,19 @@ class _CachedLlama:
         self.v = torch.zeros(shape, dtype=emb.dtype, device=emb.device)
 
     def forward(self, token_ids, start):
-        b, t = token_ids.shape
-        nh, nkv, hd = self.nh, self.nkv, self.hd
-        n_valid = start + t
+        n_valid = start + token_ids.shape[1]
         x = self.params["embed"][token_ids.long()]
         positions = torch.arange(start, n_valid, device=x.device)
-        cos, sin = _rope_tables(hd, positions, x.dtype)
-        for li, lp in enumerate(self.params["layers"]):
-            h = rms_norm(x, lp["ln1"])
-            q = torch.matmul(h, lp["wq"]).reshape(b, t, nh, hd).transpose(1, 2)
-            k = torch.matmul(h, lp["wk"]).reshape(b, t, nkv, hd).transpose(1, 2)
-            v = torch.matmul(h, lp["wv"]).reshape(b, t, nkv, hd).transpose(1, 2)
-            q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
+        cos, sin = _rope_tables(self.hd, positions, x.dtype)
+
+        def attend(li, q, k, v):
             self.k[li, :, :, start:n_valid] = k
             self.v[li, :, :, start:n_valid] = v
             # causal, bottom-right aligned over the valid prefix: K1 reads
             # the cache's first n_valid rows in place
-            kc = _repeat_kv(self.k[li, :, :, :n_valid], nh // nkv)
-            vc = _repeat_kv(self.v[li, :, :, :n_valid], nh // nkv)
-            out = flash_attention.mha(q, kc, vc, scale=self.scale, causal=True)
-            x = x + torch.matmul(out.transpose(1, 2).reshape(b, t, nh * hd), lp["wo"])
-            h2 = rms_norm(x, lp["ln2"])
-            x = x + torch.matmul(F.silu(torch.matmul(h2, lp["gate"]))
-                                 * torch.matmul(h2, lp["up"]), lp["down"])
-        return torch.matmul(rms_norm(x, self.params["norm"]), self.params["head"])
+            return self.attention(q, self.k[li, :, :, :n_valid], self.v[li, :, :, :n_valid])
+
+        return self.logits(self.layers(x, cos, sin, attend))
 
 
 def llama_generate(model, input_ids, max_new_tokens=32, do_sample=False,
@@ -187,3 +219,61 @@ def llama_generate(model, input_ids, max_new_tokens=32, do_sample=False,
         if was_training:
             model.train()
     return np.concatenate([ids, new], axis=1)
+
+
+def llama_decode_model(model, max_slots, max_seq_len):
+    """A ``DecodeModel`` (inference/decode.py) over a text.models.LlamaModel,
+    for the continuous-batching ``DecodeEngine`` with ``max_slots`` slots of
+    ``max_seq_len`` positions. Its KV buffers are one K and one V pool a
+    layer, ``[max_slots, kv_heads, max_seq_len, head_dim]`` in the weights'
+    dtype (``kv_seq_axis`` 2), owned by the engine.
+
+    - prefill: one prompt ``[1, P_b]`` (padded to its bucket) through the
+      layers with K1 causal over its own K/V at ``k_len`` = the prompt's
+      length; returns the logits at its last token and every layer's K/V
+      ``[1, kv_heads, P_b, head_dim]``.
+    - step: one token for every slot (a step row is a slot). Each row
+      writes its K/V at ``(slot, positions[slot])`` of the pools and
+      attends through K1 over its own slot, read in place, at ``k_len`` =
+      positions + 1: the pools' width and the other rows' lengths never
+      enter a row's attention. It is ``_CachedLlama.forward``'s maths with
+      per-row positions (``_LlamaWeights.layers``)."""
+    from ..inference.decode import DecodeModel
+
+    w = _LlamaWeights(model)
+    emb = w.params["embed"]
+    n_layers = len(w.params["layers"])
+    rows = torch.arange(max_slots, device=emb.device)
+
+    def prefill_fn(weights, tokens, lengths):
+        x = weights.params["embed"][tokens]
+        cos, sin = _rope_tables(weights.hd, torch.arange(tokens.shape[1], device=x.device),
+                                x.dtype)
+        kv = []
+
+        def attend(li, q, k, v):
+            kv.extend((k, v))
+            return weights.attention(q, k, v, k_len=lengths)
+
+        x = weights.layers(x, cos, sin, attend)
+        last = x[torch.arange(tokens.shape[0], device=x.device), lengths.long() - 1]
+        return (weights.logits(last), *kv)
+
+    def step_fn(weights, tokens, positions, *pools):
+        x = weights.params["embed"][tokens][:, None]
+        cos, sin = _rope_tables(weights.hd, positions[:, None], x.dtype)
+        at = positions.long()
+        k_len = positions + 1
+
+        def attend(li, q, k, v):
+            pk, pv = pools[2 * li], pools[2 * li + 1]
+            pk[rows, :, at] = k[:, :, 0]
+            pv[rows, :, at] = v[:, :, 0]
+            return weights.attention(q, pk, pv, k_len=k_len)
+
+        return weights.logits(weights.layers(x, cos, sin, attend)[:, 0])
+
+    kv_spec = [((w.nkv, w.hd), emb.dtype)] * (2 * n_layers)
+    return DecodeModel(w, prefill_fn, step_fn, kv_spec, vocab_size=emb.shape[0],
+                       kv_seq_axis=2, device=emb.device, max_slots=max_slots,
+                       max_seq_len=max_seq_len)

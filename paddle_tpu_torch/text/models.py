@@ -217,12 +217,15 @@ def rms_norm(x, w, *, eps=1e-6):
 
 def _rope_tables(head_dim, positions, dtype, base=10000.0):
     """(cos, sin) [1, 1, T, head_dim / 2] of the absolute ``positions``
-    [T], computed in float32 and cast to ``dtype`` as the reference does.
-    A decode step computes them once for all layers."""
+    [T], or [B, 1, T, head_dim / 2] of per-row positions [B, T], computed
+    in float32 and cast to ``dtype`` as the reference does. A decode step
+    computes them once for all layers."""
     inv = 1.0 / (base ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                        device=positions.device) / head_dim))
-    freqs = torch.outer(positions.to(torch.float32), inv)
-    return torch.cos(freqs)[None, None].to(dtype), torch.sin(freqs)[None, None].to(dtype)
+    freqs = positions.to(torch.float32)[..., None] * inv  # torch.outer's products
+    if positions.dim() == 1:
+        freqs = freqs[None]
+    return torch.cos(freqs)[:, None].to(dtype), torch.sin(freqs)[:, None].to(dtype)
 
 
 def _rotate(x, cos, sin):

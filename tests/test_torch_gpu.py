@@ -315,3 +315,111 @@ def test_small_llama_generate_on_the_card_matches_the_cpu(cuda):
     assert fa.launches == before + 2 * 6
     np.testing.assert_array_equal(got, cpu.generate(prompt, max_new_tokens=6))
     np.testing.assert_array_equal(gpu.generate(prompt, max_new_tokens=6, use_cache=False), got)
+
+
+def _lengths_case(b, h, sq, sk, d, dtype, seed=8):
+    """q [b*h, sq, d] and a K/V pool [b*h, sk, d] whose rows past each
+    batch row's seeded length hold NaN (stale rows K1 must never read)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b * h, sq, d, device="cuda", generator=g).to(dtype)
+    k, v = (torch.randn(b * h, sk, d, device="cuda", generator=g).to(dtype) for _ in range(2))
+    k_len = torch.from_numpy(np.random.RandomState(seed).randint(1, sk + 1, b).astype(np.int32))
+    k_len = k_len.cuda()
+    stale = torch.arange(sk, device="cuda")[None, :] >= k_len.repeat_interleave(h)[:, None]
+    k[stale] = float("nan")
+    v[stale] = float("nan")
+    return q, k, v, k_len
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [(1, 256, True), (1, 100, False), (96, 96, True),
+                                          (70, 130, False)])
+def test_kernel_with_row_lengths_matches_plain_version(cuda, dtype, d, sq, sk, causal):
+    b, h = 6, 4
+    q, k, v, k_len = _lengths_case(b, h, sq, sk, d, dtype)
+    before = fa.launches
+    o, lse = fa._fwd(q, k, v, 0, d ** -0.5, causal, 0.0, k_len=k_len, heads=h)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ro, rlse = fa.mha_reference(q, k, v, 0, d ** -0.5, causal, 0.0, k_len=k_len, heads=h)
+    assert torch.isfinite(o).all()
+    assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    # mha's 4-d form passes the lengths per batch row
+    o4 = fa.mha(q.view(b, h, sq, d), k.view(b, h, sk, d), v.view(b, h, sk, d),
+                causal=causal, k_len=k_len)
+    assert torch.equal(o4.view(b * h, sq, d), o)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_row_bits_do_not_depend_on_pool_width_or_neighbours(cuda, dtype):
+    """A single-query row reads only its slot below its length: its O and
+    LSE are the same bits in a pool twice as wide (the new rows NaN) and
+    beside other rows' lengths."""
+    b, h, sk, d = 16, 32, 256, 128
+    q, k, v, k_len = _lengths_case(b, h, 1, sk, d, dtype)
+    args = (0, d ** -0.5, True, 0.0)
+    o, lse = fa._fwd(q, k, v, *args, k_len=k_len, heads=h)
+    wide = [torch.cat([t, torch.full_like(t, float("nan"))], 1) for t in (k, v)]
+    o2, lse2 = fa._fwd(q, *wide, *args, k_len=k_len, heads=h)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    clean = [torch.nan_to_num(t) for t in (k, v)]
+    other = k_len.clone()
+    other[1:] = sk + 1 - k_len[1:]
+    o3, lse3 = fa._fwd(q, *clean, *args, k_len=other, heads=h)
+    assert torch.equal(o3[:h], o[:h]) and torch.equal(lse3[:h], lse[:h])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sq,sk,causal", [(1, 193, True), (128, 128, True), (100, 77, False)])
+def test_null_lengths_give_the_full_length_bits(cuda, dtype, sq, sk, causal):
+    """Without k_len the kernel runs as before: the same bits as every row
+    at the operand's full length, and the plain version's values."""
+    q, k, v = _qkv(32, sq, sk, 128, dtype)
+    o, lse = fa._fwd(q, k, v, 0, 128 ** -0.5, causal, 0.0)
+    full = torch.full((8,), sk, dtype=torch.int32, device="cuda")
+    o2, lse2 = fa._fwd(q, k, v, 0, 128 ** -0.5, causal, 0.0, k_len=full, heads=4)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = fa.mha_reference(q, k, v, 0, 128 ** -0.5, causal, 0.0)
+    assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - rlse).abs().max().item() <= 1e-4
+
+
+def test_kernel_refuses_bad_lengths(cuda):
+    q, k, v = _qkv(8, 1, 64, 64, torch.float32)
+    with pytest.raises(TypeError):
+        fa._fwd(q, k, v, 0, 0.125, False, 0.0, k_len=torch.ones(2, dtype=torch.int64,
+                                                                 device="cuda"), heads=4)
+    with pytest.raises(ValueError):
+        fa._fwd(q, k, v, 0, 0.125, False, 0.0, k_len=torch.ones(3, dtype=torch.int32,
+                                                                 device="cuda"), heads=4)
+
+
+def test_small_llama_engine_on_the_card_batch_equals_solo(cuda):
+    """The continuous-batching engine over a small float32 Llama on the
+    card: sequences decoded together give exactly their solo tokens (alone
+    in the same engine), the CPU engine's tokens, and one K1 launch per
+    layer in every prefill and step."""
+    from paddle_tpu_torch.inference.decode import DecodeEngine
+    from paddle_tpu_torch.text.generation import llama_decode_model
+    from paddle_tpu_torch.text.models import LlamaModel
+
+    cfg = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
+               intermediate_size=512)
+    gpu = LlamaModel(**cfg, device="cuda", generator=torch.Generator().manual_seed(3)).eval()
+    cpu = LlamaModel(**cfg, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, 512, (n,)).astype(np.int32) for n in (3, 30, 17, 9, 1)]
+    with DecodeEngine(llama_decode_model(gpu, 4, 64), max_prompt_len=32) as eng:
+        before = fa.launches
+        reqs = [eng.submit(p, max_new_tokens=7) for p in prompts]
+        together = [r.result(timeout=300) for r in reqs]
+        st = eng.stats()
+        assert fa.launches - before == 2 * (st["prefills"] + st["steps"]) == st["k1_launches"]
+        alone = [eng.generate(p, max_new_tokens=7, timeout=300) for p in prompts]
+    with DecodeEngine(llama_decode_model(cpu, 4, 64), device="cpu", max_prompt_len=32) as eng:
+        on_cpu = [eng.generate(p, max_new_tokens=7, timeout=300) for p in prompts]
+    for t, a, c in zip(together, alone, on_cpu):
+        assert t.tolist() == a.tolist() == c.tolist()

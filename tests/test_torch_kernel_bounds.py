@@ -73,6 +73,25 @@ def test_llama_decode_bound_in_bench_terms():
     assert by == "bytes" and round(step, 4) == 0.0151
 
 
+def test_length_form_bound_counts_only_the_valid_rows():
+    """K1's length form reads each batch row's k_len valid K/V rows, not
+    the pool: at every length equal to the operand's it is the plain
+    form's bound, and shorter lengths lower it."""
+    for causal, sq, sk in ((False, 64, 64), (True, 1, 256), (True, 128, 128)):
+        full, by = chip_smoke.attention_bound_ms(16 * 32, sq, sk, 128, "bfloat16", causal)
+        got, by2 = chip_smoke.length_bound_ms(32, sq, sk, 128, "bfloat16", causal, [sk] * 16)
+        assert by == by2 and got == pytest.approx(full)
+    # the engine step at lengths 1 and 255 over a 256-row pool: q, O and LSE
+    # of 2 x 32 heads and 256 valid rows of K and V each
+    ms, by = chip_smoke.length_bound_ms(32, 1, 256, 128, "bfloat16", True, [1, 255])
+    want = (2 * 32 * (2 * 128 * 2 + 4) + 2 * 32 * 256 * 128 * 2) / 3.35e12 * 1e3
+    assert by == "bytes" and ms == pytest.approx(want)
+    # causal prefill at length 77: rows past 76 still see keys 0..76
+    assert chip_smoke.length_pairs(128, 128, 77, True) == 77 * 78 // 2 + (128 - 77) * 77
+    assert chip_smoke.length_pairs(1, 256, 40, True) == 40
+    assert chip_smoke.length_pairs(5, 9, 3, False) == 15
+
+
 def _ev(device_type, us, key="k"):
     return SimpleNamespace(key=key, device_type=device_type, self_device_time_total=us)
 
