@@ -21,8 +21,9 @@ Phases, each fatal on failure (exit code 1):
               over back-to-back calls and by device time (the durations of
               the kernels each call ran, from a torch.profiler window); K1's
               length form (per-row key lengths in device memory) at the
-              decode engine's step and prefill shapes, whose rows keep their
-              bits at twice the pool's width and beside other lengths
+              decode engine's step and prefill shapes and llama_generate's
+              step, whose rows keep their bits at twice the pool's width
+              and beside other lengths
   4. serving  full-width BERT-base (random weights from a seed, float32)
               behind PredictorServer + BatchingEngine on localhost: 1-, 2-
               and 3-row requests at seq 128 and 512, then a burst of 8
@@ -40,19 +41,27 @@ Phases, each fatal on failure (exit code 1):
               a fresh key per step, whose loss must be finite and fall;
               (c) K1, K2 and K3 each launched 12 times per step on the
               card; (d) a torch.profiler breakdown of one O1 step
-  6. generation  Llama-2-7B's KV-cached greedy decode (random weights from
-              a seed): (a) at full width and depth 2, float32 then
-              bfloat16, prefill logits and generated tokens held against
-              the same weights on the CPU (a token may differ only at a
-              near-tie of the CPU's teacher-forced logits); (b) at full
-              width and depth in bfloat16 (weights drawn on the card),
-              bench.py's decode shape, 16 prompts x 128 tokens and 128 new
-              tokens: K1 launched exactly 32 x 128 times, every chosen
-              token within 3e-2 of the row's max |logit| of the top logit
-              of one full forward over the output; (c) the generic
-              full-width path, 4 tokens at batch 2, 32 x 4 launches; (d)
-              prefill ms, decode ms per step and tokens/s beside the
-              two-term bound, and a profile of one decode step
+  6. generation  Llama-2-7B's KV-cached decode, its step captured as one
+              CUDA graph per call and replayed (random weights from a
+              seed): (a) at full width and depth 2, float32 then bfloat16,
+              prefill logits and generated tokens held against the same
+              weights on the CPU (a token may differ only at a near-tie of
+              the CPU's teacher-forced logits), and in float32 a sampled
+              call (temperature 0.8, top-k 50, top-p 0.9, seed 0) whose
+              tokens may differ from the CPU's only at a near-tie (1e-4) of
+              the CPU's perturbed scores; (b) at full width and depth in
+              bfloat16 (weights drawn on the card), bench.py's decode
+              shape, 16 prompts x 128 tokens and 128 new tokens: greedy
+              tokens bitwise equal to the same call with the steps run
+              eagerly, K1 launched exactly 32 x 128 times (the replays
+              credit theirs), every chosen token within 3e-2 of the row's
+              max |logit| of the top logit of one full forward over the
+              output; the sampled call, graphed and eager, bitwise equal;
+              (c) the generic full-width path, 4 tokens at batch 2, 32 x 4
+              launches; (d) prefill ms; the decode loop eager and graphed,
+              tokens/s over each whole window beside the two-term bound,
+              median step, capture ms and the graph pool's bytes; one
+              replay profiled (32 K1 records, the idle share)
   7. engine   the continuous-batching decode engine: (e) full width,
               depth 2, float32, the same 4 requests through the engine on
               the card and on the CPU (tokens equal, or a near-tie of the
@@ -67,8 +76,12 @@ Phases, each fatal on failure (exit code 1):
               sequences decoded again alone give the same tokens, bitwise;
               (c) every token lies within 3e-2 of the row's max |logit| of
               the top logit of a full forward; (d) K1 ran 32 x (prefills +
-              steps) times. Then tokens/s over the whole window beside the
-              two-term bound, and one engine step profiled
+              steps) times, credited by as many graph replays, and warmup
+              captured each program once. Then tokens/s over the whole
+              window beside the two-term bound, time to the first token,
+              one replayed engine step profiled; then the same streams
+              through the same engine run eagerly (cuda_graph=False), whose
+              tokens must equal the graphed window's bitwise
   8. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
@@ -276,13 +289,11 @@ FORMS = [
 ]
 
 
-# the two forms Llama-2-7B's cached generation gives K1 (phase 6): the
-# causal prefill of 16 prompts x 128 tokens over 32 heads of head_dim 128,
-# and one decode step (a single query over the first sk rows of a
-# 256-row cache; sk 192 is the mean of the steps' 129..255)
+# the prefix form Llama-2-7B's cached generation gives K1 (phase 6): the
+# causal prefill of 16 prompts x 128 tokens over 32 heads of head_dim 128
+# (its decode step takes the length form, LENGTH_FORMS)
 LLAMA_FORMS = [
     dict(b=16, h=32, sq=128, sk=128, d=128, causal=True, p=0.0),
-    dict(b=16, h=32, sq=1, sk=192, d=128, causal=True, p=0.0, total=256),
 ]
 
 
@@ -376,13 +387,16 @@ def phase_kernels(torch, fa):
     return results
 
 
-# K1's length form at the decode engine's two shapes (phase 7), float32 and
-# bfloat16: one step of 16 slots x 32 heads, a single query each over its
-# own slot of a 256-row pool at a seeded length in 1..256, and one joiner's
-# prefill of 128 positions (its prompt bucket) at length 77, causal
+# K1's length form at the decode paths' shapes, float32 and bfloat16: the
+# decode engine's (phase 7) step of 16 slots x 32 heads, a single query
+# each over its own slot of a 256-row pool at a seeded length in 1..256,
+# and one joiner's prefill of 128 positions (its prompt bucket) at length
+# 77, causal; and llama_generate's (phase 6) step, 16 rows over the whole
+# 256-row cache at one length, 192 (the mean of the steps' 129..255)
 LENGTH_FORMS = [
-    dict(b=16, h=32, sq=1, sk=256, d=128, causal=True, lens=None),
-    dict(b=1, h=32, sq=128, sk=128, d=128, causal=True, lens=[77]),
+    dict(name="engine_step", b=16, h=32, sq=1, sk=256, d=128, causal=True, lens=None),
+    dict(name="engine_prefill", b=1, h=32, sq=128, sk=128, d=128, causal=True, lens=[77]),
+    dict(name="llama_decode", b=16, h=32, sq=1, sk=256, d=128, causal=True, lens=[192] * 16),
 ]
 
 
@@ -484,9 +498,10 @@ def phase_length_kernels(torch, fa):
                                 device_ms=dev, plain_ms=plain_ms, plain_device_ms=plain_dev,
                                 library_ms=library_ms, library_device_ms=library_dev,
                                 bound_ms=bound, bound_by=bound_by, ok=ok))
-            lens = (f"k_len {k_lens[0]}" if b == 1 else
+            lens = (f"k_len {k_lens[0]}" if min(k_lens) == max(k_lens) else
                     f"k_len {min(k_lens)}..{max(k_lens)} (mean {np.mean(k_lens):.1f})")
-            log(f"  b={b} h={h} sq={sq} pool {sk} rows d={d} {dt} causal={causal} {lens}: "
+            log(f"  {form['name']}: b={b} h={h} sq={sq} pool {sk} rows d={d} {dt} "
+                f"causal={causal} {lens}: "
                 f"O err {err_o:.3e} LSE err {err_lse:.3e}; same bits at pool {2 * sk}: "
                 f"{_na(same_width)}; same bits beside other lengths: {_na(same_neighbours)} | "
                 "kernel "
@@ -792,7 +807,7 @@ def profile_device(torch, fn, label, top=8, groups=None):
     """Where one call of ``fn`` spends its device time: its CUDA-event time,
     then the same call traced with torch.profiler (kernel device time by
     name, the top 8, and by ``groups``, KERNEL_GROUPS by default). Returns
-    (events ms, kernel ms, kernels launched)."""
+    (events ms, kernel ms, kernels launched, {group: (ms, kernels)})."""
     from torch.profiler import ProfilerActivity, profile
 
     ms = cuda_ms(torch, fn, iters=1, warmup=0)
@@ -830,7 +845,7 @@ def profile_device(torch, fn, label, top=8, groups=None):
                            "cudaMemcpyAsync")]
     log("    [host] " + (", ".join(f"{k} x{n} {t:.3f} ms" for k, n, t in calls)
                          or "no launch calls traced") + f"; {launched} kernels on the card")
-    return ms, busy, launched
+    return ms, busy, launched, sums
 
 
 # kernel-name fragments -> the layer of the port that launched them
@@ -993,7 +1008,7 @@ def phase_training(torch, fa, mods, card):
         nonlocal params, state
         _, params, state = step(params, state, x, y, key=prandom.PRNGKey(999))
 
-    step_ms, busy_ms, _ = profile_device(torch, one_step,
+    step_ms, busy_ms, _, _ = profile_device(torch, one_step,
                                       f"O1 training step, batch {O1_BATCH} x {TRAIN_SEQ}",
                                       top=16)
     idle = (f"{100 * (1 - busy_ms / step_ms):.1f}%" if busy_ms > 0 else "not measured")
@@ -1015,7 +1030,12 @@ TIE = {"float32": 1e-4, "bfloat16": 2e-2}
 # 7B cross-check: the cached path's token at most this share of the row's
 # max |logit| below the top logit of one full forward over the output
 TOL_XCHECK = 3e-2
-DECODE_REPEATS = 1  # timed decode loops after the checked generate
+# the sampled calls (llama_generate's keywords)
+SAMPLED = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.9, seed=0)
+# a sampled token at depth 2, float32, may differ from the CPU's only where
+# the CPU's perturbed scores (filtered logits plus the step's Gumbel noise)
+# put it within this of their maximum
+SAMPLE_TIE = 1e-4
 
 
 def decode_bound(n_params, vocab, hidden, layers, kv_width, batch, mean_len, itemsize=2):
@@ -1046,15 +1066,71 @@ def _forward(torch, model, ids, dev):
         return model(torch.from_numpy(np.ascontiguousarray(ids)).to(dev))
 
 
+def sample_keys(prandom, seed, n):
+    """The keys llama_generate draws its n tokens with: PRNGKey(seed) for
+    the first, then ``sub`` of ``key, sub = split(key)`` for each later."""
+    key = prandom.PRNGKey(seed)
+    keys = [key]
+    for _ in range(1, n):
+        key, sub = prandom.split(key)
+        keys.append(sub)
+    return keys
+
+
+def sampled_gaps(torch, generation, prandom, logits, out, t0, cfg):
+    """For each sampled position of ``out`` [B, T] (t0 on): the top
+    perturbed score (the teacher-forced ``logits`` [B, T, V] at the position
+    before it, filtered, plus that step's Gumbel noise, the scores
+    jax.random.categorical takes the first maximum of) minus the chosen
+    token's. Numpy [B, T - t0]."""
+    opts = {k: cfg[k] for k in ("temperature", "top_k", "top_p")}
+    gaps = []
+    for i, key in enumerate(sample_keys(prandom, cfg["seed"], out.shape[1] - t0)):
+        filtered = generation._filter_logits(logits[:, t0 - 1 + i], **opts)
+        scores = prandom.gumbel(key, filtered.shape, filtered.device) + filtered
+        chosen = torch.from_numpy(np.ascontiguousarray(out[:, t0 + i])).to(scores.device)
+        pick = scores.gather(-1, chosen.long()[:, None])[:, 0]
+        gaps.append((scores.amax(-1) - pick).cpu().numpy())
+    return np.stack(gaps, 1)
+
+
+def timed_loop(torch, steps, run_step):
+    """``run_step()`` ``steps`` times with a CUDA event after each: (the
+    window's ms from the first event to the last, the median step ms,
+    min, max)."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    events[0].record()
+    for i in range(steps):
+        run_step()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    each = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    return events[0].elapsed_time(events[-1]), each[len(each) // 2], each[0], each[-1]
+
+
+def profile_replay(torch, replay, label, n_layers):
+    """One replay profiled: (events ms, kernel ms, kernels, K1 records).
+    The window is taken again once if it shows no K1 record per layer."""
+    for _ in range(2):
+        ms, busy, kernels, groups = profile_device(torch, replay, label, top=12,
+                                                   groups=DECODE_GROUPS)
+        k1 = groups.get(KERNEL_GROUPS[0][0], (0.0, 0))[1]
+        if k1 == n_layers:
+            break
+    return ms, busy, kernels, k1
+
+
 def phase_generation(torch, fa, mods, card):
-    LlamaModel, generation = mods
+    LlamaModel, generation, prandom, Graph, pool_bytes = mods
     t_phase = time.perf_counter()
     torch.set_num_threads(os.cpu_count() or 1)
     torch.cuda.empty_cache()
     rng = np.random.RandomState(0)
-    launched = 0  # K1 launches of the phase's runs on the card
+    launched = 0  # K1 launches of the phase's main-path runs on the card
 
-    # (a) full width, depth 2: the card against the CPU, float32 then bf16
+    # (a) full width, depth 2: the card against the CPU, float32 then bf16;
+    # in float32 a sampled call too
     t = time.perf_counter()
     model = LlamaModel(num_layers=2, device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(0)).eval()
@@ -1090,12 +1166,27 @@ def phase_generation(torch, fa, mods, card):
         excused = int((~agree & ~bad).sum())
         log(f"[generation] depth 2 {dt}: prefill logits of 2 x 32, card vs CPU: "
             f"{'max abs err' if dt == 'float32' else 'max err / row max |logit|'} "
-            f"{lerr:.3e} (tolerance {TOL_GEN_LOGITS[dt]}); generate(8): tokens equal "
+            f"{lerr:.3e} (tolerance {TOL_GEN_LOGITS[dt]}); generate(8), graphed: tokens equal "
             f"{np.array_equal(gout, cout)}, {excused} excused at a near-tie of the "
             f"CPU's teacher-forced logits ({'' if dt == 'float32' else 'share '}"
             f"{TIE[dt]}), {int(bad.sum())} beyond it; card {g_s:.2f} s, CPU {c_s:.2f} s")
         if lerr > TOL_GEN_LOGITS[dt] or bad.any() or gout.shape != (2, 40):
             fail(f"depth-2 Llama {dt} on the card disagrees with the CPU")
+        if dt == "float32":
+            fa.launches = 0
+            sout = model.generate(prompts, max_new_tokens=8, **SAMPLED)
+            launched += fa.launches
+            scout = cpu_model.generate(prompts, max_new_tokens=8, **SAMPLED)
+            sgap = sampled_gaps(torch, generation, prandom,
+                                _forward(torch, cpu_model, sout, "cpu"), sout,
+                                prompts.shape[1], SAMPLED)
+            near = int(((sgap > 0) & (sgap <= SAMPLE_TIE)).sum())
+            sbad = int((sgap > SAMPLE_TIE).sum())
+            log(f"[generation] depth 2 float32, sampled ({SAMPLED}): card tokens equal the "
+                f"CPU's {np.array_equal(sout, scout)}; {near} near-tie(s) of the CPU's "
+                f"perturbed scores (top two within {SAMPLE_TIE}), {sbad} token(s) beyond one")
+            if sbad or sout.shape != (2, 40):
+                fail("depth-2 sampled Llama on the card disagrees with the CPU")
     del model, cpu_model
     torch.cuda.empty_cache()
 
@@ -1114,34 +1205,35 @@ def phase_generation(torch, fa, mods, card):
         f"in float32 and cast to bfloat16 in {time.perf_counter() - t:.1f} s; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     prompts = rng.randint(0, vocab, (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
-    # K1 launches of the generate, split by the cached forward that made
-    # them: the prefill (start 0) and the single-token steps
-    split = {"prefill": 0, "decode": 0}
-    base_forward = generation._CachedLlama.forward
+    # K1 launches of the generate, split by where they ran: the prefill, and
+    # the steps (the warm-up step and the replays, each credited)
+    split = {"prefill": 0}
+    base_prefill = generation._CachedLlama.prefill
 
-    def counted_forward(self, token_ids, start):
+    def counted_prefill(self, prompt):
         before = fa.launches
-        logits = base_forward(self, token_ids, start)
-        split["prefill" if start == 0 else "decode"] += fa.launches - before
-        return logits
+        base_prefill(self, prompt)
+        split["prefill"] += fa.launches - before
 
-    generation._CachedLlama.forward = counted_forward
+    generation._CachedLlama.prefill = counted_prefill
     fa.launches = 0  # count the main path only
     try:
         t = time.perf_counter()
         out = model.generate(prompts, max_new_tokens=GEN_NEW)
         gen_s = time.perf_counter() - t
     finally:
-        generation._CachedLlama.forward = base_forward
+        generation._CachedLlama.prefill = base_prefill
     gen_launches = fa.launches
     launched += gen_launches
+    split["decode"] = gen_launches - split["prefill"]
     want = n_layers * GEN_NEW
     gen_tps = GEN_BATCH * GEN_NEW / gen_s
-    log(f"[generation] generate({GEN_BATCH} x {GEN_PROMPT}, max_new_tokens={GEN_NEW}): "
-        f"{gen_s:.3f} s by host clock = {gen_tps:.1f} tokens/s over the whole call (the "
-        f"prefill included); K1 launches {gen_launches} (expected {n_layers} x {GEN_NEW} = "
-        f"{want}): prefill {split['prefill']} (expected {n_layers}), decode steps "
-        f"{split['decode']} (expected {n_layers} x {GEN_NEW - 1})")
+    log(f"[generation] generate({GEN_BATCH} x {GEN_PROMPT}, max_new_tokens={GEN_NEW}), the "
+        f"step captured as a CUDA graph: {gen_s:.3f} s by host clock = {gen_tps:.1f} tokens/s "
+        f"over the whole call (the prefill and the capture included); K1 launches "
+        f"{gen_launches} (expected {n_layers} x {GEN_NEW} = {want}): prefill "
+        f"{split['prefill']} (expected {n_layers}), decode steps {split['decode']} (expected "
+        f"{n_layers} x {GEN_NEW - 1}: the warm-up step and {GEN_NEW - 2} replays)")
     if (gen_launches != want or split["prefill"] != n_layers
             or split["decode"] != n_layers * (GEN_NEW - 1)):
         fail(f"the cached generate launched K1 {gen_launches} times (prefill "
@@ -1149,6 +1241,13 @@ def phase_generation(torch, fa, mods, card):
     if (out.shape != (GEN_BATCH, GEN_PROMPT + GEN_NEW) or not np.array_equal(
             out[:, :GEN_PROMPT], prompts) or out.min() < 0 or out.max() >= vocab):
         fail(f"generate returned {out.shape} ids out of shape or range")
+    t = time.perf_counter()
+    eager = generation.llama_generate(model, prompts, GEN_NEW, cuda_graph=False)
+    eager_s = time.perf_counter() - t
+    log(f"[generation] the same call with the steps run eagerly: {eager_s:.3f} s; greedy "
+        f"tokens bitwise equal to the graphed call's: {np.array_equal(out, eager)}")
+    if not np.array_equal(out, eager):
+        fail("the graphed llama_generate's greedy tokens differ from the eager steps'")
     fa.launches = 0
     gap, scale, agree = token_gaps(torch, _forward(torch, model, out, "cuda"), out,
                                    GEN_PROMPT)
@@ -1161,6 +1260,20 @@ def phase_generation(torch, fa, mods, card):
     if worst > 1.0:
         fail("a cached-path token lies further below the full forward's top logit "
              "than the limit")
+    fa.launches = 0
+    sampled = model.generate(prompts, max_new_tokens=GEN_NEW, **SAMPLED)
+    launched += fa.launches
+    sampled_launches = fa.launches
+    sampled_eager = generation.llama_generate(model, prompts, GEN_NEW, cuda_graph=False,
+                                              **SAMPLED)
+    same_sampled = np.array_equal(sampled, sampled_eager)
+    log(f"[generation] sampled ({SAMPLED}): graphed tokens bitwise equal to the eager "
+        f"steps' {same_sampled}; K1 launches {sampled_launches}; "
+        f"{100 * np.mean(sampled[:, GEN_PROMPT:] == out[:, GEN_PROMPT:]):.1f}% of the "
+        "tokens equal the greedy run's")
+    if (not same_sampled or sampled.shape != out.shape or sampled_launches != want
+            or sampled.min() < 0 or sampled.max() >= vocab):
+        fail("the graphed sampled llama_generate differs from its eager steps")
 
     # (c) the generic full-width path on the card
     fa.launches = 0
@@ -1176,66 +1289,73 @@ def phase_generation(torch, fa, mods, card):
     if generic_launches != n_layers * 4 or gout.shape != (2, GEN_PROMPT + 4) or gworst > 1:
         fail("the generic generate path disagrees or took another path")
 
-    # (d) times: the prefill, every decode step, one step profiled
-    run = generation._CachedLlama(model, GEN_BATCH, GEN_PROMPT + GEN_NEW)
+    # (d) times: the prefill; the decode loop eager, then graphed (the
+    # steps after the warm-up step, each a replay); one replay profiled
     ids = torch.from_numpy(prompts).cuda()
     prefill_bound = 2.0 * (n_params - vocab * hidden) * GEN_BATCH * GEN_PROMPT / \
         PEAK_OPS_PER_S["bfloat16"] * 1e3
+    mean_len = GEN_PROMPT + GEN_NEW // 2  # steps read 129..255 rows
+    bound_ms, bound_tps = decode_bound(n_params, vocab, hidden, n_layers,
+                                       attn.num_kv_heads * attn.head_dim, GEN_BATCH, mean_len)
     with torch.inference_mode():
-        prefill_ms, prefill_busy, _ = profile_device(
+        run = generation._CachedLlama(model, GEN_BATCH, GEN_PROMPT, GEN_NEW)
+        prefill_ms, prefill_busy, _, _ = profile_device(
             torch, lambda: run.forward(ids, 0), f"prefill of {GEN_BATCH} x {GEN_PROMPT} "
             f"(bound {prefill_bound:.3f} ms, operations)", top=6, groups=DECODE_GROUPS)
-        # the prefill then every decode step, DECODE_REPEATS times: the
-        # host sets the step, so its spread is part of the number. The
-        # rate is over each loop's whole window (stalls included); the
-        # median step is a per-step statistic beside it
-        medians, window_ms = [], []
-        for rep in range(DECODE_REPEATS):
-            tok = generation.sample_next(run.forward(ids, 0)[:, -1])
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(GEN_NEW)]
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            events[0].record()
-            for i in range(1, GEN_NEW):
-                tok = generation.sample_next(
-                    run.forward(tok[:, None], GEN_PROMPT + i - 1)[:, -1])
-                events[i].record()
-            torch.cuda.synchronize()
-            loop_s = time.perf_counter() - t
-            window_ms.append(events[0].elapsed_time(events[-1]))
-            steps = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
-            medians.append(steps[len(steps) // 2])
-            log(f"[generation] decode loop {rep + 1}: steps 2-{GEN_NEW} in "
-                f"{window_ms[-1]:.3f} ms by CUDA events = "
-                f"{GEN_BATCH * (GEN_NEW - 1) / window_ms[-1] * 1e3:.1f} tokens/s over the "
-                f"window ({GEN_BATCH * (GEN_NEW - 1) / loop_s:.1f} by host clock); median "
-                f"step {medians[-1]:.3f} ms (min {steps[0]:.3f}, max {steps[-1]:.3f})")
-        decode_tps = DECODE_REPEATS * GEN_BATCH * (GEN_NEW - 1) / sum(window_ms) * 1e3
-        step_ms = sorted(medians)[len(medians) // 2]
-        mean_len = GEN_PROMPT + GEN_NEW // 2  # steps read 129..255 rows
-        bound_ms, bound_tps = decode_bound(n_params, vocab, hidden, n_layers,
-                                           attn.num_kv_heads * attn.head_dim, GEN_BATCH,
-                                           mean_len)
-        log(f"[generation] decode: {decode_tps:.1f} tokens/s over the {DECODE_REPEATS} "
-            f"loops' whole windows ({sum(window_ms) / (DECODE_REPEATS * (GEN_NEW - 1)):.3f} "
-            f"ms a step on average; the median of the loops' median steps {step_ms:.3f} ms); "
-            f"the generate call {gen_tps:.1f} tokens/s with its prefill; two-term bound "
-            f"{bound_ms:.3f} ms a step = {bound_tps:.0f} tokens/s at a mean cache length "
-            f"of {mean_len} (weights {(n_params - vocab * hidden) * 2 / 1e9:.2f} GB + KV, "
-            f"data-sheet HBM rate, not measured) | {card}")
-        dec_ms, dec_busy, dec_kernels = profile_device(
-            torch, lambda: run.forward(tok[:, None], mean_len - 1),
-            f"one decode step, batch {GEN_BATCH}, cache length {mean_len}", top=12,
-            groups=DECODE_GROUPS)
+        run.prefill(ids)
+        eager_window, eager_step, lo, hi = timed_loop(torch, GEN_NEW - 1, run.step)
+        eager_tps = GEN_BATCH * (GEN_NEW - 1) / eager_window * 1e3
+        eager_same = torch.equal(run.tokens.cpu(), torch.from_numpy(out[:, GEN_PROMPT:]).long())
+        log(f"[generation] eager decode loop: steps 2-{GEN_NEW} in {eager_window:.3f} ms by "
+            f"CUDA events = {eager_tps:.1f} tokens/s over the window; median step "
+            f"{eager_step:.3f} ms (min {lo:.3f}, max {hi:.3f}); tokens equal the call's "
+            f"{eager_same}")
+        run = generation._CachedLlama(model, GEN_BATCH, GEN_PROMPT, GEN_NEW)
+        run.prefill(ids)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        graph = Graph(run.step, ids.device)  # the warm-up is step 2
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t) * 1e3
+        pool = pool_bytes(graph.pool())
+        window_ms, step_ms, lo, hi = timed_loop(torch, GEN_NEW - 2, graph.replay)
+        decode_tps = GEN_BATCH * (GEN_NEW - 2) / window_ms * 1e3
+        graph_same = torch.equal(run.tokens.cpu(), torch.from_numpy(out[:, GEN_PROMPT:]).long())
+        log(f"[generation] graphed decode loop: warm-up step and capture {build_ms:.1f} ms "
+            f"(capture and instantiation {graph.capture_ms:.1f} ms), graph pool "
+            f"{pool} bytes; steps 3-{GEN_NEW} ({GEN_NEW - 2} replays) in {window_ms:.3f} ms by "
+            f"CUDA events = {decode_tps:.1f} tokens/s over the window, "
+            f"{100 * decode_tps / bound_tps:.1f}% of the two-term bound {bound_ms:.3f} ms a "
+            f"step = {bound_tps:.0f} tokens/s at a mean cache length of {mean_len} (weights "
+            f"{(n_params - vocab * hidden) * 2 / 1e9:.2f} GB + KV, data-sheet HBM rate, not "
+            f"measured); median step {step_ms:.3f} ms (min {lo:.3f}, max {hi:.3f}); tokens "
+            f"equal the call's {graph_same}; the generate call {gen_tps:.1f} tokens/s with "
+            f"its prefill | {card}")
+        if not (eager_same and graph_same):
+            fail("the timed decode loops' tokens differ from the generate call's")
+        # one replay at the mean cache length, profiled
+        run.pos.fill_(mean_len - 1)
+        run.k_len.fill_(mean_len)
+        run.index.fill_(1)
+        dec_ms, dec_busy, dec_kernels, k1_records = profile_replay(
+            torch, graph.replay, f"one decode step replayed, batch {GEN_BATCH}, cache "
+            f"length {mean_len}", n_layers)
     idle = f"{100 * (1 - dec_busy / dec_ms):.1f}%" if dec_busy > 0 else "not measured"
-    log(f"[profile] device idle {idle} of a decode step; {dec_kernels} kernels on the "
-        f"card, {dec_kernels / n_layers:.1f} a layer")
+    log(f"[profile] device idle {idle} of a replayed decode step; {dec_kernels} kernels on "
+        f"the card, {dec_kernels / n_layers:.1f} a layer; K1 records {k1_records} (expected "
+        f"{n_layers})")
+    if k1_records != n_layers:
+        fail(f"a profiled replay shows {k1_records} K1 kernels, not {n_layers}")
+    capture_ms = graph.capture_ms
+    del graph, run
     log(f"[generation] the phase took {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launched, prefill_launches=split["prefill"],
                 decode_launches=split["decode"], prefill_ms=prefill_ms,
                 prefill_kernel_ms=prefill_busy, step_ms=step_ms, tokens_per_s=decode_tps,
+                eager_tokens_per_s=eager_tps, eager_step_ms=eager_step,
                 generate_tokens_per_s=gen_tps, bound_step_ms=bound_ms,
-                bound_tokens_per_s=bound_tps, argmax_share=float(agree.mean()), idle=idle)
+                bound_tokens_per_s=bound_tps, argmax_share=float(agree.mean()), idle=idle,
+                capture_ms=capture_ms, pool_bytes=pool)
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1245,24 +1365,27 @@ ENGINE_FIRST, ENGINE_LATER = 16, 8  # streaming clients: all at once, then as th
 
 def _decode_call(wire_spec, port, prompt, n, budget_ms=None, oneshot=False, close_after=None):
     """One decode request over the wire: -> (statuses of its frames, the
-    token chunks they carried). ``close_after``: hang up after that many
-    frames, mid-stream."""
+    token chunks they carried, seconds from the send to the first frame).
+    ``close_after``: hang up after that many frames, mid-stream."""
     tail = wire_spec.encode_decode_opts(n, oneshot=oneshot)
     if budget_ms is not None:
         tail = wire_spec.encode_deadline(budget_ms) + tail
     frame = wire_spec.build_request(wire_spec.CMD_INFER,
                                     wire_spec.encode_arrays([prompt]) + tail)
-    statuses, chunks = [], []
+    statuses, chunks, first_s = [], [], None
     with socket.create_connection(("127.0.0.1", port), timeout=600) as s:
+        t0 = time.perf_counter()
         s.sendall(frame)
         while True:
             (blen,) = struct.unpack("<I", _recv(s, 4))
             body = _recv(s, blen)
+            if first_s is None:
+                first_s = time.perf_counter() - t0
             statuses.append(body[0])
             if len(body) > 1:
                 chunks.append(wire_spec.decode_arrays(body[1:])[0])
             if body[0] != wire_spec.STATUS_STREAM or len(statuses) == close_after:
-                return statuses, chunks
+                return statuses, chunks, first_s
 
 
 def engine_tokens(torch, generation, DecodeEngine, model, device, prompts, n):
@@ -1274,14 +1397,110 @@ def engine_tokens(torch, generation, DecodeEngine, model, device, prompts, n):
         return [r.result(timeout=600) for r in reqs]
 
 
+def serve_window(torch, fa, engine, PredictorServer, wire_spec, base):
+    """The engine behind PredictorServer on localhost, serving the streams
+    of ``base`` (a list of dicts with prompt and n; the first ENGINE_FIRST
+    all at once, the next ENGINE_LATER as the first retire) and the three
+    extras after them: one hangs up after its 4th chunk, one has a 1 ms
+    per-token budget, one is one-shot. The window runs from the first
+    submit to the last terminal frame, timed by CUDA events; K1 is counted
+    from 0 over it. Returns (the streams with statuses, chunks and time to
+    the first frame, the server, a dict of the window's numbers and stats
+    deltas, every DecodeRequest submitted)."""
+    work = [dict(prompt=w["prompt"], n=w["n"]) for w in base]
+    requests = []  # every DecodeRequest the server submits, to read its peak batch
+    submit = engine.submit
+
+    def recording_submit(*args, **kw):
+        req = submit(*args, **kw)
+        requests.append(req)
+        return req
+
+    engine.submit = recording_submit
+    server = PredictorServer(None, decode_engine=engine, own_decode_engine=True)
+    n_streams = ENGINE_FIRST + ENGINE_LATER
+    hang, tiny, oneshot = work[n_streams:]
+    retired = threading.Semaphore(0)
+    gate = threading.Barrier(ENGINE_FIRST + 2)  # the first wave, the 1 ms one, this thread
+    errors = []
+
+    def client(w, first, **kw):
+        try:
+            if first:
+                gate.wait()
+            else:
+                retired.acquire()
+            w["statuses"], w["chunks"], w["first_s"] = _decode_call(
+                wire_spec, server.port, w["prompt"], w["n"], **kw)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{type(e).__name__}: {e}")
+        finally:
+            retired.release()
+
+    threads = [threading.Thread(target=client, args=(w, i < ENGINE_FIRST))
+               for i, w in enumerate(work[:n_streams])]
+    threads += [threading.Thread(target=client, args=(hang, False), kwargs=dict(close_after=4)),
+                threading.Thread(target=client, args=(tiny, True), kwargs=dict(budget_ms=1.0)),
+                threading.Thread(target=client, args=(oneshot, False),
+                                 kwargs=dict(oneshot=True))]
+    for t in threads:
+        t.start()
+    before = engine.stats()
+    fa.launches = 0  # count the window's launches only
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    gate.wait()
+    start.record()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(900)
+        if t.is_alive():
+            fail("a decode client did not finish within 900 s")
+    end.record()
+    end.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = fa.launches
+    after = engine.stats()
+    if errors:
+        fail(f"decode clients failed: {errors[:3]}")
+    # wait for the hung-up stream's slot: the server cancels it at its next send
+    t_end = time.monotonic() + 30
+    while engine.health()["active"] or engine.health()["free_slots"] != ENGINE_SLOTS:
+        if time.monotonic() > t_end:
+            fail(f"the engine did not free its slots: {engine.health()}")
+        time.sleep(0.05)
+    st = engine.stats()
+    delta = {k: after[k] - before[k] for k in ("prefills", "steps", "tokens", "step_rows",
+                                               "k1_launches", "graph_replays")}
+    for w in work[:n_streams]:
+        w["tokens"] = np.concatenate(w["chunks"]) if w["chunks"] else np.zeros(0, np.int32)
+    oneshot["tokens"] = oneshot["chunks"][0] if oneshot["chunks"] else None
+    window = dict(window_ms=start.elapsed_time(end), host_s=host_s, launches=launches,
+                  delta=delta, stats=st,
+                  ttft_ms=1e3 * float(np.median([w["first_s"] for w in work[:n_streams]])))
+    return work, server, window, requests
+
+
+def stop_server(server, engine, wire_spec):
+    status, _ = _call(server.port, wire_spec.build_request(wire_spec.CMD_STOP))
+    if status != wire_spec.STATUS_OK:
+        fail(f"cmd 7 stop answered status {status}")
+    server._thread.join(30)
+    t_end = time.monotonic() + 30
+    while not engine.health()["closed"]:
+        if time.monotonic() > t_end:
+            fail("cmd 7 did not close the decode engine within 30 s")
+        time.sleep(0.05)
+
+
 def phase_engine(torch, fa, mods, card, gen6):
-    LlamaModel, generation, DecodeEngine, PredictorServer, wire_spec = mods
+    LlamaModel, generation, DecodeEngine, seq_bucket, PredictorServer, wire_spec = mods
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     rng = np.random.RandomState(6)
 
-    # (e) full width, depth 2, float32: the same engine on the card and on
-    # the CPU, 4 requests decoded together on each
+    # (e) full width, depth 2, float32: the same engine on the card (its
+    # programs captured at first use) and on the CPU, 4 requests decoded
+    # together on each
     model = LlamaModel(num_layers=2, device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(0)).eval()
     cpu_model = copy.deepcopy(model).to("cpu")
@@ -1300,10 +1519,10 @@ def phase_engine(torch, fa, mods, card, gen6):
         equal += int(np.array_equal(g, c))
         excused += int((~agree & (gap <= TIE["float32"])).sum())
         beyond += int((gap > TIE["float32"]).sum())
-    log(f"[engine] (e) depth 2 float32, 4 requests through the engine on the card and on "
-        f"the CPU: {equal}/4 token streams equal, {excused} token(s) excused at a near-tie "
-        f"of the CPU's teacher-forced logits ({TIE['float32']}), {beyond} beyond it; card "
-        f"{card_s:.2f} s, CPU {cpu_s:.2f} s")
+    log(f"[engine] (e) depth 2 float32, 4 requests through the engine on the card (graphed) "
+        f"and on the CPU: {equal}/4 token streams equal, {excused} token(s) excused at a "
+        f"near-tie of the CPU's teacher-forced logits ({TIE['float32']}), {beyond} beyond it; "
+        f"card {card_s:.2f} s, CPU {cpu_s:.2f} s")
     if beyond or any(g.shape != (8,) for g in card_out):
         fail("the decode engine on the card disagrees with the same engine on the CPU")
     del model, cpu_model
@@ -1322,95 +1541,32 @@ def phase_engine(torch, fa, mods, card, gen6):
     t = time.perf_counter()
     buckets = engine.warmup()
     torch.cuda.synchronize()
+    st0 = engine.stats()
     log(f"[engine] Llama-2-7B bf16, {ENGINE_SLOTS} slots x {ENGINE_SEQ} positions: KV pools "
-        f"{engine.stats()['kv_pool_bytes'] / 1e9:.2f} GB; warmup (prompt buckets {buckets} "
-        f"and one step) {time.perf_counter() - t:.2f} s; peak "
+        f"{st0['kv_pool_bytes'] / 1e9:.2f} GB; warmup (prompt buckets {buckets} and the step, "
+        f"each warmed up and captured) {time.perf_counter() - t:.2f} s; captures "
+        + ", ".join(f"{k} {v['capture_ms']:.1f} ms" for k, v in st0["programs"].items())
+        + f"; graph pool {st0['graph_pool_bytes']} bytes; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    requests = []  # every DecodeRequest the server submits, to read its peak batch
-    submit = engine.submit
-
-    def recording_submit(*args, **kw):
-        req = submit(*args, **kw)
-        requests.append(req)
-        return req
-
-    engine.submit = recording_submit
-    server = PredictorServer(None, decode_engine=engine, own_decode_engine=True)
     n_streams = ENGINE_FIRST + ENGINE_LATER
     plens = rng.randint(16, ENGINE_PROMPT + 1, n_streams + 3)
     news = rng.randint(16, 97, n_streams + 3)
-    work = [dict(prompt=rng.randint(0, vocab, (int(pl),)).astype(np.int32), n=int(nn))
+    base = [dict(prompt=rng.randint(0, vocab, (int(pl),)).astype(np.int32), n=int(nn))
             for pl, nn in zip(plens, news)]
-    # the extras: one hangs up after its 4th chunk, one has a 1 ms per-token
-    # budget, one is one-shot
+    base[n_streams]["n"] = 96  # the one that hangs up
+    work, server, win, requests = serve_window(torch, fa, engine, PredictorServer, wire_spec,
+                                               base)
     hang, tiny, oneshot = work[n_streams:]
-    hang["n"] = 96
-    retired = threading.Semaphore(0)
-    gate = threading.Barrier(ENGINE_FIRST + 2)  # the first wave, the 1 ms one, this thread
-    errors = []
-
-    def client(w, first, **kw):
-        try:
-            if first:
-                gate.wait()
-            else:
-                retired.acquire()
-            w["statuses"], w["chunks"] = _decode_call(wire_spec, server.port, w["prompt"],
-                                                      w["n"], **kw)
-        except Exception as e:  # noqa: BLE001 - reported below
-            errors.append(f"{type(e).__name__}: {e}")
-        finally:
-            retired.release()
-
-    threads = [threading.Thread(target=client, args=(w, i < ENGINE_FIRST))
-               for i, w in enumerate(work[:n_streams])]
-    threads += [threading.Thread(target=client, args=(hang, False), kwargs=dict(close_after=4)),
-                threading.Thread(target=client, args=(tiny, True), kwargs=dict(budget_ms=1.0)),
-                threading.Thread(target=client, args=(oneshot, False),
-                                 kwargs=dict(oneshot=True))]
-    for t in threads:
-        t.start()
-    before = engine.stats()
-    fa.launches = 0  # count the main path's launches only
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    gate.wait()
-    start.record()
-    t0 = time.perf_counter()
-    for t in threads:
-        t.join(900)
-        if t.is_alive():
-            fail("a decode client did not finish within 900 s")
-    end.record()
-    end.synchronize()
-    host_s = time.perf_counter() - t0
-    window_ms = start.elapsed_time(end)
-    launches = fa.launches
-    after = engine.stats()
-    if errors:
-        fail(f"decode clients failed: {errors[:3]}")
-    # wait for the hung-up stream's slot: the server cancels it at its next send
-    t_end = time.monotonic() + 30
-    while engine.health()["active"] or engine.health()["free_slots"] != ENGINE_SLOTS:
-        if time.monotonic() > t_end:
-            fail(f"the engine did not free its slots: {engine.health()}")
-        time.sleep(0.05)
-    st = engine.stats()
-    delta = {k: after[k] - before[k] for k in ("prefills", "steps", "tokens", "step_rows",
-                                               "k1_launches")}
+    st, delta = win["stats"], win["delta"]
     # (a) every stream well formed and whole; the 1 ms request shed; all
     # slots free again
-    bad = []
-    for i, w in enumerate(work[:n_streams]):
-        toks = np.concatenate(w["chunks"]) if w["chunks"] else np.zeros(0, np.int32)
-        w["tokens"] = toks
-        if (w["statuses"][-1] != wire_spec.STATUS_OK
-                or any(x != wire_spec.STATUS_STREAM for x in w["statuses"][:-1])
-                or toks.size != w["n"] or toks.dtype != np.int32):
-            bad.append(i)
-    oneshot["tokens"] = oneshot["chunks"][0] if oneshot["chunks"] else None
-    log(f"[engine] (a) {n_streams} streams: {n_streams - len(bad)} well formed with exactly "
-        f"their max_new_tokens; one-shot statuses {oneshot['statuses']}; 1 ms budget "
-        f"statuses {tiny['statuses']}; hung up after {len(hang['chunks'])} chunk(s); "
+    bad = [i for i, w in enumerate(work[:n_streams])
+           if (w["statuses"][-1] != wire_spec.STATUS_OK
+               or any(x != wire_spec.STATUS_STREAM for x in w["statuses"][:-1])
+               or w["tokens"].size != w["n"] or w["tokens"].dtype != np.int32)]
+    log(f"[engine] (a) graphed window, {n_streams} streams: {n_streams - len(bad)} well formed "
+        f"with exactly their max_new_tokens; one-shot statuses {oneshot['statuses']}; 1 ms "
+        f"budget statuses {tiny['statuses']}; hung up after {len(hang['chunks'])} chunk(s); "
         f"after the run {st['active']} active, {engine.health()['free_slots']}/"
         f"{ENGINE_SLOTS} slots free, retired {st['retired']}")
     if (bad or oneshot["statuses"] != [wire_spec.STATUS_OK]
@@ -1418,12 +1574,21 @@ def phase_engine(torch, fa, mods, card, gen6):
             or tiny["statuses"] != [wire_spec.STATUS_RETRYABLE]
             or len(hang["chunks"]) != 4 or st["retired"]["cancelled"] != 1):
         fail(f"decode streams malformed (streams {bad}) or the extras misbehaved")
-    # (d) K1 ran once per layer in every prefill and every step
+    # (d) K1 ran once per layer in every prefill and every step, credited by
+    # the replays; every program was captured once, by warmup
     want = n_layers * (delta["prefills"] + delta["steps"])
-    log(f"[engine] (d) K1 launches {launches} = {n_layers} x ({delta['prefills']} prefills + "
-        f"{delta['steps']} steps) = {want}; the engine counted {delta['k1_launches']}")
-    if launches != want or delta["k1_launches"] != want:
-        fail("the engine's K1 launches do not match its prefill and step calls")
+    used = {f"prefill1x{seq_bucket(w['prompt'].size, 8, ENGINE_SEQ)}" for w in work} | {
+        f"step{ENGINE_SLOTS}x{ENGINE_SEQ}"}
+    log(f"[engine] (d) K1 launches {win['launches']} = {n_layers} x ({delta['prefills']} "
+        f"prefills + {delta['steps']} steps) = {want}; the engine counted "
+        f"{delta['k1_launches']}; graph replays {delta['graph_replays']}; programs "
+        f"{st['programs']}")
+    if (win["launches"] != want or delta["k1_launches"] != want
+            or delta["graph_replays"] != delta["prefills"] + delta["steps"]
+            or not used <= set(st["programs"])
+            or any(v["compiles"] != 1 for v in st["programs"].values())):
+        fail("the engine's K1 launches, replays or captures do not match its prefill and "
+             "step calls")
     # (c) every token against one full forward over prompt + output
     decoded = work[:n_streams] + [oneshot]
     worst, agree_n, total_n = 0.0, 0, 0
@@ -1469,47 +1634,69 @@ def phase_engine(torch, fa, mods, card, gen6):
     bound_ms, bound_tps = decode_bound(n_params, vocab, hidden, n_layers,
                                        attn.num_kv_heads * attn.head_dim,
                                        occupancy * ENGINE_SLOTS, mean_len)
-    tps = delta["tokens"] / window_ms * 1e3
-    log(f"[engine] {delta['tokens']} tokens in {window_ms:.1f} ms by CUDA events from the "
-        f"first submit to the last terminal frame = {tps:.1f} tokens/s ({delta['tokens'] / host_s:.1f} "
-        f"by host clock); {delta['prefills']} prefills, {delta['steps']} steps, mean "
-        f"occupancy {occupancy:.3f} of {ENGINE_SLOTS} rows, median step "
-        f"{st['step_ms_median']:.3f} ms (host clock, argmax read back included); two-term "
-        f"bound {bound_ms:.3f} ms a step = {bound_tps:.0f} tokens/s at that occupancy and the "
-        f"mean cache length {mean_len:.1f} | {card}")
-    log(f"[engine] phase 6's llama_generate loop for comparison (batch {GEN_BATCH}, full "
-        f"occupancy): {gen6['tokens_per_s']:.1f} tokens/s, median step "
-        f"{gen6['step_ms']:.3f} ms, idle {gen6['idle']}, bound "
-        f"{gen6['bound_tokens_per_s']:.0f} tokens/s")
-    # one engine step at full occupancy at the mean length, profiled
-    tok = torch.zeros(ENGINE_SLOTS, dtype=torch.int64, device="cuda")
-    pos = torch.full((ENGINE_SLOTS,), int(mean_len) - 1, dtype=torch.int32, device="cuda")
-
-    def one_step():
-        logits = dm.step_fn(dm.params, tok, pos, *engine._slots.pools)
-        return torch.argmax(logits.float(), dim=-1).to(torch.int32).cpu()
-
-    with torch.inference_mode():
-        one_step()
-        step_ms, step_busy, step_kernels = profile_device(
-            torch, one_step, f"one engine step, {ENGINE_SLOTS} rows at cache length "
-            f"{int(mean_len)}", top=12, groups=DECODE_GROUPS)
+    tps = delta["tokens"] / win["window_ms"] * 1e3
+    log(f"[engine] graphed: {delta['tokens']} tokens in {win['window_ms']:.1f} ms by CUDA "
+        f"events from the first submit to the last terminal frame = {tps:.1f} tokens/s "
+        f"({delta['tokens'] / win['host_s']:.1f} by host clock), {100 * tps / bound_tps:.1f}% "
+        f"of the two-term bound {bound_ms:.3f} ms a step = {bound_tps:.0f} tokens/s at that "
+        f"occupancy and the mean cache length {mean_len:.1f}; {delta['prefills']} prefills, "
+        f"{delta['steps']} steps, mean occupancy {occupancy:.3f} of {ENGINE_SLOTS} rows, "
+        f"median step {st['step_ms_median']:.3f} ms (host clock, argmax read back included); "
+        f"time to first token median {win['ttft_ms']:.1f} ms over the {n_streams} streams "
+        f"| {card}")
+    # one replayed engine step at full occupancy at the mean length, profiled
+    key = ("step", ENGINE_SLOTS, ENGINE_SEQ)
+    with torch.inference_mode(), engine._exec_lock:
+        tokens, pos, _ = engine._graphs.inputs(key)
+        tokens.zero_()
+        pos.fill_(int(mean_len) - 1)
+        run = engine._program(key)
+        step_ms, step_busy, step_kernels, k1_records = profile_replay(
+            torch, lambda: run().cpu(), f"one engine step replayed, {ENGINE_SLOTS} rows "
+            f"at cache length {int(mean_len)}", n_layers)
     idle = f"{100 * (1 - step_busy / step_ms):.1f}%" if step_busy > 0 else "not measured"
-    log(f"[profile] device idle {idle} of an engine step; {step_kernels} kernels on the card, "
-        f"{step_kernels / n_layers:.1f} a layer")
-    status, _ = _call(server.port, wire_spec.build_request(wire_spec.CMD_STOP))
-    if status != wire_spec.STATUS_OK:
-        fail(f"cmd 7 stop answered status {status}")
-    server._thread.join(30)
-    t_end = time.monotonic() + 30
-    while not engine.health()["closed"]:
-        if time.monotonic() > t_end:
-            fail("cmd 7 did not close the decode engine within 30 s")
-        time.sleep(0.05)
+    log(f"[profile] device idle {idle} of a replayed engine step; {step_kernels} kernels on "
+        f"the card, {step_kernels / n_layers:.1f} a layer; K1 records {k1_records} "
+        f"(expected {n_layers})")
+    if k1_records != n_layers:
+        fail(f"a profiled engine replay shows {k1_records} K1 kernels, not {n_layers}")
+    stop_server(server, engine, wire_spec)
+
+    # the same streams through the same engine run eagerly (no graph)
+    eager_engine = DecodeEngine(dm, max_prompt_len=ENGINE_PROMPT, max_queue=64,
+                                name="llama-7b-eager", cuda_graph=False)
+    eager_engine.warmup()
+    ework, eserver, ewin, _ = serve_window(torch, fa, eager_engine, PredictorServer,
+                                           wire_spec, base)
+    est, edelta = ewin["stats"], ewin["delta"]
+    same = [np.array_equal(a["tokens"], b["tokens"])
+            for a, b in zip(work[:n_streams] + [oneshot], ework[:n_streams] + [ework[-1]])]
+    eocc = edelta["step_rows"] / (edelta["steps"] * ENGINE_SLOTS)
+    etps = edelta["tokens"] / ewin["window_ms"] * 1e3
+    ewant = n_layers * (edelta["prefills"] + edelta["steps"])
+    log(f"[engine] eager window, the same streams: {sum(same)}/{len(same)} token streams "
+        f"bitwise equal to the graphed window's; {edelta['tokens']} tokens in "
+        f"{ewin['window_ms']:.1f} ms = {etps:.1f} tokens/s; {edelta['prefills']} prefills, "
+        f"{edelta['steps']} steps, mean occupancy {eocc:.3f}, median step "
+        f"{est['step_ms_median']:.3f} ms; time to first token median {ewin['ttft_ms']:.1f} "
+        f"ms; K1 launches {ewin['launches']} (expected {ewant}); graph replays "
+        f"{edelta['graph_replays']} | {card}")
+    stop_server(eserver, eager_engine, wire_spec)
+    if not all(same) or ewin["launches"] != ewant or edelta["graph_replays"]:
+        fail("the graphed engine's tokens differ from the eager engine's, or the eager "
+             "engine replayed a graph")
+    log(f"[engine] phase 6's llama_generate loop for comparison (batch {GEN_BATCH}, full "
+        f"occupancy): graphed {gen6['tokens_per_s']:.1f} tokens/s, median step "
+        f"{gen6['step_ms']:.3f} ms, idle {gen6['idle']}; eager {gen6['eager_tokens_per_s']:.1f} "
+        f"tokens/s, median step {gen6['eager_step_ms']:.3f} ms; bound "
+        f"{gen6['bound_tokens_per_s']:.0f} tokens/s")
     log(f"[engine] the phase took {time.perf_counter() - t_phase:.1f} s")
-    return dict(launches=launches, prefill_launches=n_layers * delta["prefills"],
+    return dict(launches=win["launches"], prefill_launches=n_layers * delta["prefills"],
                 step_launches=n_layers * delta["steps"], tokens_per_s=tps,
-                bound_tokens_per_s=bound_tps, step_ms=st["step_ms_median"], idle=idle)
+                eager_tokens_per_s=etps, bound_tokens_per_s=bound_tps,
+                step_ms=st["step_ms_median"], eager_step_ms=est["step_ms_median"], idle=idle,
+                ttft_ms=win["ttft_ms"], eager_ttft_ms=ewin["ttft_ms"],
+                pool_bytes=st["graph_pool_bytes"])
 
 
 # ------------------------------------------------------------------ main
@@ -1524,10 +1711,11 @@ def main():
         from paddle_tpu_torch import nn, optimizer
         from paddle_tpu_torch.core import cuda_build
         from paddle_tpu_torch.core import random as prandom
+        from paddle_tpu_torch.core.cuda_graph import Graph, pool_bytes
         from paddle_tpu_torch.distributed import spmd
         from paddle_tpu_torch.inference import wire_spec
         from paddle_tpu_torch.inference.batching import BatchingEngine
-        from paddle_tpu_torch.inference.decode import DecodeEngine
+        from paddle_tpu_torch.inference.decode import DecodeEngine, seq_bucket
         from paddle_tpu_torch.inference.server import PredictorServer
         from paddle_tpu_torch.ops import flash_attention as fa
         from paddle_tpu_torch.text import generation
@@ -1554,9 +1742,10 @@ def main():
                                                  wire_spec))
     train = phase_training(torch, fa, (BertForPretraining, nn, optimizer, spmd, prandom),
                            card)
-    gen = phase_generation(torch, fa, (LlamaModel, generation), card)
-    eng = phase_engine(torch, fa, (LlamaModel, generation, DecodeEngine, PredictorServer,
-                                   wire_spec), card, gen)
+    gen = phase_generation(torch, fa, (LlamaModel, generation, prandom, Graph, pool_bytes),
+                           card)
+    eng = phase_engine(torch, fa, (LlamaModel, generation, DecodeEngine, seq_bucket,
+                                   PredictorServer, wire_spec), card, gen)
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -1569,15 +1758,17 @@ def main():
                         and r["p"] == 0.0) for dt in ("bfloat16", "float32"))
     train_fwd = next(r for r in cases if r["b"] == 64 and r["dtype"] == "bfloat16"
                      and r["p"] == 0.0)
-    # K1 at Llama-2-7B's two forms, bfloat16: the prefill and a decode step
-    # at the mean cache length, with the launches the 7B generate made in
-    # each (counted per cached forward)
-    prefill, decode = (next(r for r in cases if r["h"] == 32 and r["dtype"] == "bfloat16"
-                            and r["sq"] == sq) for sq in (GEN_PROMPT, 1))
+    # K1 at Llama-2-7B's two forms, bfloat16: the prefill (prefix form) and a
+    # decode step at the mean cache length (length form over the whole
+    # cache), with the launches the 7B generate made in each (the step's
+    # credited by the replays)
+    prefill = next(r for r in cases if r["h"] == 32 and r["dtype"] == "bfloat16"
+                   and r["sq"] == GEN_PROMPT)
     # K1's length form at the decode engine's two shapes, bfloat16, with the
     # launches phase 7's run made in each (32 per prefill, 32 per step)
-    eng_step, eng_prefill = (next(r for r in length_cases if r["dtype"] == "bfloat16"
-                                  and r["sq"] == sq) for sq in (1, ENGINE_PROMPT))
+    decode, eng_step, eng_prefill = (
+        next(r for r in length_cases if r["dtype"] == "bfloat16" and r["name"] == name)
+        for name in ("llama_decode", "engine_step", "engine_prefill"))
 
     def timing(r, suffix=""):
         # ms: CUDA events over back-to-back calls; device_ms: the kernels'

@@ -19,10 +19,19 @@ The counter-hash pieces (``fmix32``, ``keep_thresh_u32``,
 kernels' in-kernel masks are built from them. On tensors, uint32
 arithmetic is done in int64 masked to 32 bits, with each multiply split in
 16-bit halves so no product leaves int64's range.
+
+Sampling draws from jax.random's own stream, bitwise: ``random_bits``
+(jax's partitionable ``bits``), ``uniform``, ``gumbel`` (jax's default
+"low" mode) and ``categorical``. Their keys are the ``(hi, lo)`` words of
+a host key, or a 2-word int64 tensor on the device (``key_tensor``), which
+``split`` splits there: a captured CUDA graph advances such a key without
+the host.
 """
 import contextlib
 import contextvars
+import math
 
+import numpy as np
 import torch
 
 from .place import resolve_device
@@ -64,8 +73,18 @@ def PRNGKey(seed):
 
 def split(key, num=2):
     """jax.random.split in the partitionable mode: key i is
-    threefry2x32(key, (0, i))."""
+    threefry2x32(key, (0, i)). A host key gives a list of word tuples; a
+    device key (``key_tensor``) gives an int64 tensor [num, 2], split on
+    its device."""
+    if isinstance(key, torch.Tensor):
+        words = threefry2x32(key, (0, torch.arange(int(num), device=key.device)))
+        return torch.stack(words, dim=-1)
     return [threefry2x32(key, (0, i)) for i in range(int(num))]
+
+
+def key_tensor(key, device="cuda"):
+    """A host key's two words as an int64 tensor [2] on ``device``."""
+    return torch.tensor(key_data(key), dtype=torch.int64, device=resolve_device(device))
 
 
 def fold_in(key, data):
@@ -193,3 +212,39 @@ def fast_keep_mask(key, keep_prob, shape, device="cuda"):
         h = mul32(h ^ w, 0x85EBCA6B)
         h = h ^ (h >> 13)
     return (fmix32(h) < keep_thresh_u32(keep_prob)).reshape(shape)
+
+
+def random_bits(key, shape, device="cuda"):
+    """jax.random.bits (uint32, jax's partitionable threefry): the flat
+    index of each element, split into its high and low 32 bits, through
+    threefry2x32 under ``key``; the two output words xor-ed. An int64
+    tensor of uint32 values, on the device key's card or on ``device``."""
+    dev = key.device if isinstance(key, torch.Tensor) else resolve_device(device)
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=dev)
+    bits1, bits2 = threefry2x32(key, (idx >> 32, idx & U32))
+    return (bits1 ^ bits2).reshape(tuple(shape))
+
+
+def uniform(key, shape, minval=0.0, maxval=1.0, device="cuda"):
+    """jax.random.uniform in float32: the top 23 bits of ``random_bits``
+    as the mantissa of a float in [1, 2), minus 1, scaled to [minval,
+    maxval) in float32 and floored at minval."""
+    bits = random_bits(key, shape, device)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = np.float32(minval)
+    span = np.float32(maxval) - lo
+    return torch.clamp_min(floats * float(span) + float(lo), float(lo))
+
+
+def gumbel(key, shape, device="cuda"):
+    """jax.random.gumbel in float32, jax's default ("low") mode:
+    -log(-log(u)) of u uniform in [tiny, 1)."""
+    u = uniform(key, shape, float(np.finfo(np.float32).tiny), 1.0, device)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key, logits):
+    """jax.random.categorical over the last axis of float32 ``logits``
+    (the Gumbel-max trick): the first maximum of logits + gumbel noise.
+    int64 indices."""
+    return torch.argmax(gumbel(key, logits.shape, logits.device) + logits, dim=-1)

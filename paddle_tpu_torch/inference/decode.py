@@ -62,6 +62,21 @@ default, the reference's ``[rows, seq, *trailing]``; a Llama pool is
 finite outputs; rows past a sequence's length hold stale values the
 model must never read.
 
+**Programs as CUDA graphs** (the reference's ``_Programs``, one AOT
+program per ``(phase, rows, seq)`` key): the engine has one program per
+key, ``("step", max_slots, max_seq_len)`` for its life and ``("prefill",
+1, seq_bucket(P))`` per prompt bucket, each the model's function over
+static buffers that live as long as the engine (tokens, positions or
+lengths, feature rows, and the step's argmax ``int32 [max_slots]``). On a
+card each is warmed up on a side stream and captured once into a CUDA
+graph (core/cuda_graph.py), all in one memory pool; a step or prefill is
+then a copy of its inputs into the buffers and one replay. ``warmup``
+captures them all; otherwise each is captured at its first use. A CPU
+engine, or a CUDA one built with ``cuda_graph=False`` (to compare with
+the graphs), runs the same functions eagerly over the same buffers. A
+capture or replay that fails raises and fails its requests retryable, as
+a failed step does; nothing runs the eager step in its place.
+
 **Robustness kept**: the bounded queue (:class:`EngineOverloaded`),
 per-token deadlines (the wire budget bounds the time to the first token
 and every gap after it; a blown budget fails retryable and frees the slot
@@ -70,12 +85,12 @@ failing its requests retryable with their slots freed. There is no
 fallback: a CUDA engine whose kernel fails to build or launch fails the
 requests in flight, and never drops to the CPU or a plain version.
 
-Not ported (ROADMAP Queue 1): the AOT program cache and artifact store
-(eager torch has no programs to cache; CUDA graphs come next), breakers,
-the watchdog and scheduler restarts, obs metrics, spans and chaos sites,
-kv snapshots and resume (cmds 9/10, the handoff bit), the prefix cache,
-speculative decoding, quantized and meshed serving, phases, and
-sampling. Constructor options of those raise ``NotImplementedError``; a
+Not ported (ROADMAP Queue 1): the artifact store, breakers, the
+watchdog and scheduler restarts, obs metrics, spans and chaos sites, kv
+snapshots and resume (cmds 9/10, the handoff bit), the prefix cache,
+speculative decoding, quantized and meshed serving, and phases (the
+reference's engine decodes greedily, as this one does). Constructor
+options of those raise ``NotImplementedError``; a
 snapshot cadence raises ``ValueError``; the speculative opt-in is
 accepted and ignored, as the reference ignores it without a draft model.
 """
@@ -87,6 +102,7 @@ import traceback
 import numpy as np
 import torch
 
+from ..core.cuda_graph import Graph, pool_bytes
 from ..core.place import resolve_device
 from ..ops import flash_attention
 from .batching import (DeadlineExceeded, EngineClosed, EngineOverloaded, RetryableError,
@@ -138,12 +154,13 @@ class DecodeModel:
     numpy dtype); ``kv_seq_axis``: where the sequence axis sits in the
     pool ``[slots, ...]``. ``feature_spec``: ``(trailing_shape, numpy
     dtype)`` per per-sequence feature array (any wire dtype). ``device``:
-    where ``params`` live; the engine runs there. ``max_slots`` and
+    where ``params`` live, the card unless the caller asks for the CPU
+    (it raises without a card); the engine runs there. ``max_slots`` and
     ``max_seq_len``: the engine shape the functions were built for, if
     they fix one (an engine given none takes them)."""
 
     def __init__(self, params, prefill_fn, step_fn, kv_spec, vocab_size, feature_spec=(),
-                 eos_token_id=None, kv_seq_axis=1, device="cpu", max_slots=None,
+                 eos_token_id=None, kv_seq_axis=1, device="cuda", max_slots=None,
                  max_seq_len=None):
         self.params = params
         self.prefill_fn = prefill_fn
@@ -155,7 +172,7 @@ class DecodeModel:
         self.vocab_size = int(vocab_size)
         self.eos_token_id = None if eos_token_id is None else int(eos_token_id)
         self.kv_seq_axis = int(kv_seq_axis)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
 
@@ -201,6 +218,68 @@ class _KVSlots:
         ax = self.seq_axis - 1
         for pool, src in zip(self.pools, kv):
             pool[slot].narrow(ax, 0, length).copy_(src[0].narrow(ax, 0, length))
+
+
+class _Graphs:
+    """The engine's programs (the reference's ``_Programs``), keyed
+    ``(phase, rows, seq)``: ``inputs(key)`` gives a program's static input
+    buffers (made once, on the engine's device) and ``build(key)`` its
+    ``run()``, the model's function over them. The step's run returns the
+    argmax ``int32 [rows]`` in a static buffer; a prefill's returns its
+    logits and kv. With ``capture`` each build is a CUDA graph, warmed up
+    and captured in the shared pool ``pool`` (``run`` replays it);
+    without, ``run`` is the function itself."""
+
+    def __init__(self, model, pools, device, capture):
+        self._model = model
+        self._pools = pools
+        self.device = device
+        self.capture = capture
+        self.pool = torch.cuda.graph_pool_handle() if capture else None
+        self.pool_bytes = 0
+        self.capture_ms = {}  # key -> ms
+        self.graphs = []
+        self._inputs = {}
+
+    def inputs(self, key):
+        """(tokens int64, positions / lengths int32, [feature rows]) of
+        ``key``: the step's tokens and positions ``[rows]``, a prefill's
+        tokens ``[rows, seq]`` and lengths ``[rows]`` (1 until filled)."""
+        bufs = self._inputs.get(key)
+        if bufs is None:
+            phase, rows, seq = key
+            dev = self.device
+            tokens = torch.zeros((rows,) if phase == "step" else (rows, seq), dtype=torch.int64,
+                                 device=dev)
+            at = (torch.zeros if phase == "step" else torch.ones)(rows, dtype=torch.int32,
+                                                                  device=dev)
+            feats = [torch.zeros((rows,) + tr, dtype=_torch_dtype(dt), device=dev)
+                     for tr, dt in self._model.feature_spec]
+            bufs = self._inputs[key] = (tokens, at, feats)
+        return bufs
+
+    def build(self, key):
+        m = self._model
+        tokens, at, feats = self.inputs(key)
+        if key[0] == "step":
+            nxt = torch.zeros(key[1], dtype=torch.int32, device=self.device)
+
+            def fn():
+                logits = m.step_fn(m.params, tokens, at, *self._pools, *feats)
+                # greedy on the device (the first maximum, as np.argmax):
+                # only [rows] int32 comes back
+                nxt.copy_(torch.argmax(logits.float(), dim=-1))
+                return nxt
+        else:
+            def fn():
+                return m.prefill_fn(m.params, tokens, at, *feats)
+        if not self.capture:
+            return fn
+        graph = Graph(fn, self.device, self.pool)
+        self.graphs.append(graph)
+        self.capture_ms[key] = graph.capture_ms
+        self.pool_bytes = pool_bytes(self.pool)
+        return graph.replay
 
 
 class DecodeRequest:
@@ -337,11 +416,12 @@ class DecodeEngine:
     ``generate`` is the blocking form. Any number of threads may submit;
     one scheduler thread runs the iteration loop on ``device`` (default
     "cuda", which raises without a card; the model's params must live
-    there)."""
+    there). ``cuda_graph``: on a card, run the programs as captured CUDA
+    graphs (the default); False runs them eagerly there too, to compare."""
 
     def __init__(self, model, max_slots=None, max_seq_len=None, max_queue=64,
                  min_seq_bucket=8, max_prompt_len=None, default_max_new_tokens=64,
-                 name="decode", device="cuda", **unported):
+                 name="decode", device="cuda", cuda_graph=True, **unported):
         for key, val in unported.items():
             if key not in _UNPORTED:
                 raise TypeError(f"DecodeEngine got an unexpected keyword argument {key!r}")
@@ -370,16 +450,22 @@ class DecodeEngine:
             raise ValueError("max_prompt_len cannot exceed max_seq_len")
         self._slots = _KVSlots(self.max_slots, self.max_seq_len, model.kv_spec,
                                model.kv_seq_axis, self.device)
-        # the step's inputs: one device buffer each for the engine's life,
-        # filled from host staging (pinned on a card)
-        pin = self.device.type == "cuda"
-        self._h_tokens = torch.zeros(self.max_slots, dtype=torch.int64, pin_memory=pin)
-        self._h_pos = torch.zeros(self.max_slots, dtype=torch.int32, pin_memory=pin)
-        self._d_tokens = torch.zeros(self.max_slots, dtype=torch.int64, device=self.device)
-        self._d_pos = torch.zeros(self.max_slots, dtype=torch.int32, device=self.device)
+        cuda = self.device.type == "cuda"
+        self._graphs = _Graphs(model, self._slots.pools, self.device, cuda and cuda_graph)
+        self._step_key = ("step", self.max_slots, self.max_seq_len)
+        # host staging of the step's inputs (pinned on a card), copied into
+        # the step program's buffers
+        self._h_tokens = torch.zeros(self.max_slots, dtype=torch.int64, pin_memory=cuda)
+        self._h_pos = torch.zeros(self.max_slots, dtype=torch.int32, pin_memory=cuda)
+        self._h_feats = [torch.zeros((self.max_slots,) + tr, dtype=_torch_dtype(dt),
+                                     pin_memory=cuda) for tr, dt in model.feature_spec]
+        self._programs = {}  # key -> run
+        self._builds = collections.Counter()  # key -> builds (captures on a card)
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
-        self._exec_lock = threading.Lock()  # one model call at a time (warmup)
+        # one model call or build at a time; reentrant, so a call builds its
+        # program at first use under the lock it already holds
+        self._exec_lock = threading.RLock()
         self._pending = []  # FIFO of DecodeRequest
         self._joining = []  # (req, slot): popped, slot held, not yet prefilled
         self._active = []   # _Seq
@@ -541,24 +627,36 @@ class DecodeEngine:
             self._notify_retired(s, reason, err)
 
     # ----------------------------------------------------- the two paths
-    def _features(self, rows):
-        """Device tensors [n, *trailing] of the feature arrays, one row
-        per entry of ``rows`` (None = a padding row of zeros)."""
-        out = []
-        for i, (tr, dt) in enumerate(self._model.feature_spec):
-            a = np.zeros((len(rows),) + tr, dt)
-            for j, r in enumerate(rows):
-                if r is not None:
-                    a[j] = r.features[i]
-            out.append(torch.from_numpy(a).to(self.device))
-        return out
-
-    def _call(self, fn, *args):
-        """One model call, with K1's launches in it counted for stats."""
+    def _program(self, key):
+        """The program of ``key``, built once (the reference's
+        ``_program``): every build holds the exec lock, so warmup and the
+        scheduler never build one key twice, and a capture never overlaps
+        another model call. On a card a build warms the function up over
+        its buffers as they are, then captures it."""
+        with self._lock:
+            run = self._programs.get(key)
+        if run is not None:
+            return run
         with self._exec_lock:
+            with self._lock:
+                run = self._programs.get(key)
+            if run is None:
+                run = self._graphs.build(key)
+                with self._lock:
+                    self._programs[key] = run
+                    self._builds[key] += 1
+        return run
+
+    def _call(self, key, fill):
+        """Under the exec lock: ``fill`` the inputs of ``key``'s program,
+        build it at first use, run it; K1's launches in the run counted
+        for stats (a replay credits those of its capture)."""
+        with self._exec_lock:
+            fill(*self._graphs.inputs(key))
+            run = self._program(key)
             before = flash_attention.launches
             try:
-                return fn(self._model.params, *args)
+                return run()
             finally:
                 self._counts["k1_launches"] += flash_attention.launches - before
 
@@ -567,16 +665,21 @@ class DecodeEngine:
         rows 0..P-1 into its slot; it then joins the running set, and its
         first token comes from its row of the next step."""
         P = req.prompt.size
+        bucket = seq_bucket(P, self.min_seq_bucket, self.max_seq_len)
+
+        def fill(tokens, lengths, feats):
+            padded = np.zeros((1, bucket), np.int64)
+            padded[0, :P] = req.prompt
+            tokens.copy_(torch.from_numpy(padded))
+            lengths.fill_(P)
+            for buf, f in zip(feats, req.features):
+                buf.copy_(torch.from_numpy(f[None]))
+
         err = None
         try:
-            tokens = np.zeros((1, seq_bucket(P, self.min_seq_bucket, self.max_seq_len)),
-                              np.int64)
-            tokens[0, :P] = req.prompt
-            lengths = torch.tensor([P], dtype=torch.int32, device=self.device)
-            outs = self._call(self._model.prefill_fn,
-                              torch.from_numpy(tokens).to(self.device), lengths,
-                              *self._features([req]))
-            self._slots.write_prefill(slot, outs[1:], P)
+            with self._exec_lock:  # the outputs stay the program's until copied
+                outs = self._call(("prefill", 1, bucket), fill)
+                self._slots.write_prefill(slot, outs[1:], P)
         except Exception as e:  # noqa: BLE001 - fail this joiner
             err = e if isinstance(e, RetryableError) else RetryableError(
                 f"{self.name}: prefill failed ({type(e).__name__}: {e}); retry the request")
@@ -598,22 +701,27 @@ class DecodeEngine:
         padding rows for the free slots."""
         active = list(self._active)
         tokens, pos = self._h_tokens.numpy(), self._h_pos.numpy()
+        feats = [h.numpy() for h in self._h_feats]
         tokens[:] = 0
         pos[:] = 0
-        by_slot = [None] * self.max_slots
+        for f in feats:
+            f[:] = 0
         for s in active:
             tokens[s.slot] = s.last_token
             pos[s.slot] = s.pos
-            by_slot[s.slot] = s.req
+            for f, v in zip(feats, s.req.features):
+                f[s.slot] = v
+
+        def fill(d_tokens, d_pos, d_feats):
+            d_tokens.copy_(self._h_tokens, non_blocking=True)
+            d_pos.copy_(self._h_pos, non_blocking=True)
+            for d, h in zip(d_feats, self._h_feats):
+                d.copy_(h, non_blocking=True)
+
         t0 = time.monotonic()
         try:
-            self._d_tokens.copy_(self._h_tokens, non_blocking=True)
-            self._d_pos.copy_(self._h_pos, non_blocking=True)
-            logits = self._call(self._model.step_fn, self._d_tokens, self._d_pos,
-                                *self._slots.pools, *self._features(by_slot))
-            # greedy on the device (the first maximum, as np.argmax): only
-            # [rows] int32 comes back
-            nxt = torch.argmax(logits.float(), dim=-1).to(torch.int32).cpu().numpy()
+            with self._exec_lock:
+                nxt = self._call(self._step_key, fill).cpu().numpy()
         except Exception as e:  # noqa: BLE001 - fail the whole step batch
             err = e if isinstance(e, RetryableError) else RetryableError(
                 f"{self.name}: decode step failed ({type(e).__name__}: {e}); retry the "
@@ -714,32 +822,29 @@ class DecodeEngine:
 
     # -------------------------------------------------------------- lifecycle
     def warmup(self):
-        """Build the kernels and warm the libraries before serving: one
-        prefill per prompt bucket (the ladder from ``min_seq_bucket`` to
-        ``max_prompt_len``'s bucket) and one step, with no sequence running
-        (it writes only padding rows). Counted nowhere. Returns the prompt
-        buckets run."""
+        """Build every program before serving (the reference's ``warmup``):
+        one prefill per prompt bucket (the ladder from ``min_seq_bucket`` to
+        ``max_prompt_len``'s bucket) and the step. On a card each is warmed
+        up and captured here, so no request pays a capture. The step's
+        warm-up writes padding rows only (token 0 at position 0 in every
+        slot), so it needs an idle engine: no sequence running or joining.
+        Counted nowhere. Returns the prompt buckets."""
         top = seq_bucket(self.max_prompt_len, self.min_seq_bucket, self.max_seq_len)
         prompt_buckets, b = [], self.min_seq_bucket
         while b < top:
             prompt_buckets.append(b)
             b <<= 1
         prompt_buckets.append(top)
-        feats = self._features([None])
         with torch.inference_mode(), self._exec_lock:
             with self._lock:
-                if self._active:
+                if self._active or self._joining:
                     raise RuntimeError("warmup() needs an idle engine")
+            tokens, pos, feats = self._graphs.inputs(self._step_key)
+            for buf in (tokens, pos, *feats):
+                buf.zero_()
             for pb in prompt_buckets:
-                self._model.prefill_fn(
-                    self._model.params, torch.zeros((1, pb), dtype=torch.int64,
-                                                    device=self.device),
-                    torch.ones(1, dtype=torch.int32, device=self.device), *feats)
-            logits = self._model.step_fn(
-                self._model.params, torch.zeros_like(self._d_tokens),
-                torch.zeros_like(self._d_pos), *self._slots.pools,
-                *self._features([None] * self.max_slots))
-            torch.argmax(logits.float(), dim=-1).cpu()
+                self._program(("prefill", 1, pb))
+            self._program(self._step_key)
         return prompt_buckets
 
     def stats(self):
@@ -747,10 +852,20 @@ class DecodeEngine:
         lock acquisition. ``k1_launches``: K1 launches made inside the
         engine's prefill and step calls; ``step_rows``: running rows summed
         over steps (mean occupancy = step_rows / (steps * max_slots));
-        ``step_ms_median``: of the last 4096 steps, host clock."""
+        ``step_ms_median``: of the last 4096 steps, host clock. ``programs``:
+        the reference's map, ``"<phase><rows>x<seq>"`` -> builds
+        (``compiles``: captures on a card; ``store_loads`` 0, no artifact
+        store) and, for a graph, ``capture_ms``; ``graph_replays``: replays
+        of every graph; ``graph_pool_bytes``: their shared memory pool."""
         with self._lock:
             c = self._counts
             ms = sorted(self._step_ms)
+            programs = {}
+            for key, n in sorted(self._builds.items()):
+                entry = {"compiles": n, "store_loads": 0}
+                if key in self._graphs.capture_ms:
+                    entry["capture_ms"] = self._graphs.capture_ms[key]
+                programs["%s%dx%d" % key] = entry
             return {
                 "name": self.name,
                 "device": str(self.device),
@@ -771,6 +886,10 @@ class DecodeEngine:
                 "step_ms_median": ms[len(ms) // 2] if ms else None,
                 "k1_launches": c["k1_launches"],
                 "kv_pool_bytes": self._slots.nbytes(),
+                "programs": programs,
+                "cuda_graphs": self._graphs.capture,
+                "graph_replays": sum(g.replays for g in self._graphs.graphs),
+                "graph_pool_bytes": self._graphs.pool_bytes,
             }
 
     def health(self):

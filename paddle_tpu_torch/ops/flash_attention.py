@@ -35,7 +35,8 @@ HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches in this process of K1 (``_fwd``), K2 and K3 (``_bwd``); reset
-#: them to count a run
+#: them to count a run. A CUDA graph's replay runs no Python, so each replay
+#: credits the launches its capture recorded (core/cuda_graph.py)
 launches = 0
 dq_launches = 0
 dkv_launches = 0

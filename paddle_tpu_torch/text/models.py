@@ -312,8 +312,9 @@ class LlamaModel(torch.nn.Module):
     """Llama-2 architecture, 7B by default (vocab 32000, hidden 4096, 32
     layers, 32 heads, FFN 11008); shrink it by the keyword arguments.
     ``forward`` returns the logits [B, T, vocab]. ``generate`` runs the
-    KV-cached greedy decode (text/generation.py). ``tensor_parallel=True``
-    (the reference's Megatron-style shardings) is not ported yet."""
+    KV-cached decode, greedy or sampled (text/generation.py).
+    ``tensor_parallel=True`` (the reference's Megatron-style shardings) is
+    not ported yet."""
 
     def __init__(self, vocab_size=32000, hidden_size=4096, num_layers=32,
                  num_heads=32, intermediate_size=11008, num_kv_heads=None,

@@ -22,6 +22,7 @@ block of the CPU's GEMMs splits a row differently in batch and alone.
 """
 import socket
 import struct
+import sys
 import threading
 import time
 
@@ -121,7 +122,7 @@ def torch_toy_model(hidden=HID, vocab=VOCAB, seed=0, feature_spec=(), eos_token_
     return DecodeModel(params, prefill_fn, step_fn,
                        kv_spec=(((hidden,), np.float32), ((hidden,), np.float32)),
                        vocab_size=vocab, feature_spec=feature_spec,
-                       eos_token_id=eos_token_id)
+                       eos_token_id=eos_token_id, device="cpu")
 
 
 def make_engine(model, **kw):
@@ -339,6 +340,62 @@ def test_engine_device_and_off_values(model):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             DecodeEngine(model, max_slots=4, max_seq_len=32)  # device="cuda" by default
+
+
+def test_decode_model_defaults_to_the_card(model):
+    """Like every entry point of the port, a DecodeModel runs on the card
+    unless the caller asks for the CPU: with no card it raises."""
+    args = (model.params, model.prefill_fn, model.step_fn, model.kv_spec, VOCAB)
+    if torch.cuda.is_available():
+        assert DecodeModel(*args).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            DecodeModel(*args)
+    assert DecodeModel(*args, device="cpu").device == torch.device("cpu")
+
+
+def test_programs_built_once_per_key(model):
+    """The reference's program map: one build per (phase, rows, seq) key
+    used, then warmup's whole ladder; a CPU engine runs them eagerly."""
+    with make_engine(model) as eng:
+        for p in (PROMPTS[0], LONG, PROMPTS[2]):
+            eng.generate(p, max_new_tokens=4, timeout=60)
+        st = eng.stats()
+        one = {"compiles": 1, "store_loads": 0}
+        assert st["programs"] == {"prefill1x8": one, "prefill1x16": one, "step4x32": one}
+        assert (st["cuda_graphs"], st["graph_replays"], st["graph_pool_bytes"]) == (False, 0, 0)
+        assert eng.warmup() == [8, 16, 32]
+        assert eng.stats()["programs"] == {"prefill1x8": one, "prefill1x16": one,
+                                           "prefill1x32": one, "step4x32": one}
+
+
+def test_program_builds_once_under_concurrent_callers(model, monkeypatch):
+    with make_engine(model) as eng:
+        real, built = eng._graphs.build, []
+
+        def slow_build(key):
+            built.append(key)
+            time.sleep(0.05)
+            return real(key)
+
+        monkeypatch.setattr(eng._graphs, "build", slow_build)
+        key = ("prefill", 1, 16)
+        runs = []
+        threads = [threading.Thread(target=lambda: runs.append(eng._program(key)))
+                   for _ in range(8)]
+        threads.append(threading.Thread(target=eng.warmup))
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(30)
+                assert not t.is_alive()
+        finally:
+            sys.setswitchinterval(interval)
+        assert built.count(key) == 1 and len(runs) == 8 and len({id(r) for r in runs}) == 1
+        assert all(v["compiles"] == 1 for v in eng.stats()["programs"].values())
 
 
 def test_close_fails_inflight_retryable():

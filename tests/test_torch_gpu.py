@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: flash_attention_fwd (K1) against
 ``mha_reference``, flash_attention_bwd_dq/_dkv (K2/K3) against
 ``mha_bwd_reference``, their refusals, the BERT forward, a training step
-and Llama's cached decode through them. Needs a CUDA card (marker ``gpu``; skipped without one).
+and Llama's cached decode through them, and the decode paths captured as
+CUDA graphs against their eager runs. Needs a CUDA card (marker ``gpu``; skipped without one).
 This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -398,9 +399,11 @@ def test_kernel_refuses_bad_lengths(cuda):
 
 def test_small_llama_engine_on_the_card_batch_equals_solo(cuda):
     """The continuous-batching engine over a small float32 Llama on the
-    card: sequences decoded together give exactly their solo tokens (alone
-    in the same engine), the CPU engine's tokens, and one K1 launch per
-    layer in every prefill and step."""
+    card, its programs captured as CUDA graphs by ``warmup``: sequences
+    decoded together give exactly their solo tokens (alone in the same
+    engine), the tokens of the same engine run eagerly, the CPU engine's
+    tokens, and one K1 launch per layer in every prefill and step, credited
+    by the replays."""
     from paddle_tpu_torch.inference.decode import DecodeEngine
     from paddle_tpu_torch.text.generation import llama_decode_model
     from paddle_tpu_torch.text.models import LlamaModel
@@ -413,13 +416,119 @@ def test_small_llama_engine_on_the_card_batch_equals_solo(cuda):
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, 512, (n,)).astype(np.int32) for n in (3, 30, 17, 9, 1)]
     with DecodeEngine(llama_decode_model(gpu, 4, 64), max_prompt_len=32) as eng:
+        assert eng.warmup() == [8, 16, 32]
+        st = eng.stats()
+        assert st["cuda_graphs"] and st["graph_pool_bytes"] > 0 and st["graph_replays"] == 0
+        assert set(st["programs"]) == {"prefill1x8", "prefill1x16", "prefill1x32", "step4x64"}
+        assert all(v["compiles"] == 1 and v["capture_ms"] > 0
+                   for v in st["programs"].values())
         before = fa.launches
         reqs = [eng.submit(p, max_new_tokens=7) for p in prompts]
         together = [r.result(timeout=300) for r in reqs]
         st = eng.stats()
         assert fa.launches - before == 2 * (st["prefills"] + st["steps"]) == st["k1_launches"]
+        assert st["graph_replays"] == st["prefills"] + st["steps"]
+        assert all(v["compiles"] == 1 for v in st["programs"].values())
         alone = [eng.generate(p, max_new_tokens=7, timeout=300) for p in prompts]
+    with DecodeEngine(llama_decode_model(gpu, 4, 64), max_prompt_len=32,
+                      cuda_graph=False) as eng:
+        eager = [r.result(timeout=300) for r in [eng.submit(p, max_new_tokens=7)
+                                                  for p in prompts]]
+        assert eng.stats()["graph_replays"] == 0
     with DecodeEngine(llama_decode_model(cpu, 4, 64), device="cpu", max_prompt_len=32) as eng:
         on_cpu = [eng.generate(p, max_new_tokens=7, timeout=300) for p in prompts]
-    for t, a, c in zip(together, alone, on_cpu):
-        assert t.tolist() == a.tolist() == c.tolist()
+    for t, a, e, c in zip(together, alone, eager, on_cpu):
+        assert t.tolist() == a.tolist() == e.tolist() == c.tolist()
+
+
+def _small_llama(seed=3):
+    from paddle_tpu_torch.text.models import LlamaModel
+
+    cfg = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
+               intermediate_size=512)
+    return LlamaModel(**cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("sampling", [dict(), dict(do_sample=True, temperature=0.8, top_k=50,
+                                                   top_p=0.9, seed=4)])
+def test_graphed_llama_generate_equals_eager(cuda, sampling):
+    """The captured step, replayed, gives the eager steps' tokens bitwise,
+    greedy and sampled (the key splits on the card inside the graph); K1
+    is credited once per layer per replay, so the count is one per layer
+    per token."""
+    from paddle_tpu_torch.text.generation import llama_generate
+
+    model = _small_llama()
+    prompt = np.random.RandomState(1).randint(0, 512, (3, 16)).astype(np.int32)
+    before = fa.launches
+    graphed = llama_generate(model, prompt, max_new_tokens=9, **sampling)
+    assert fa.launches - before == 2 * 9
+    eager = llama_generate(model, prompt, max_new_tokens=9, cuda_graph=False, **sampling)
+    np.testing.assert_array_equal(graphed, eager)
+    assert graphed.shape == (3, 25)
+
+
+def test_replay_credits_the_captured_launches(cuda):
+    from paddle_tpu_torch.core.cuda_graph import Graph, pool_bytes
+
+    q, k, v = _qkv(8, 1, 64, 64, torch.float32)
+    out = torch.empty_like(q)
+
+    def fn():
+        out.copy_(fa._fwd(q, k, v, 0, 0.125, True, 0.0)[0])
+        return out
+
+    before = fa.launches
+    graph = Graph(fn, q.device)
+    assert fa.launches == before + 1  # the warm-up ran; the capture ran nothing
+    assert graph.launches == (1, 0, 0) and graph.capture_ms > 0
+    assert pool_bytes(graph.pool()) > 0
+    out.zero_()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert fa.launches == before + 4 and graph.replays == 3
+    assert torch.equal(out, fa._fwd(q, k, v, 0, 0.125, True, 0.0)[0])
+
+
+def test_a_failed_capture_raises_and_nothing_runs_eagerly(cuda, monkeypatch):
+    """A step that syncs with the host cannot be captured: llama_generate
+    raises after its prefill and the warm-up step, and the engine fails
+    the request retryable; neither runs the eager step in its place."""
+    from paddle_tpu_torch.inference.batching import RetryableError
+    from paddle_tpu_torch.inference.decode import DecodeEngine
+    from paddle_tpu_torch.text import generation
+
+    model = _small_llama()
+    prompt = np.random.RandomState(1).randint(0, 512, (2, 8)).astype(np.int32)
+    real_step = generation._CachedLlama.step
+
+    def syncing_step(self):
+        real_step(self)
+        self.pos.item()  # a host read: fine eagerly, illegal under capture
+
+    monkeypatch.setattr(generation._CachedLlama, "step", syncing_step)
+    before = fa.launches
+    with pytest.raises(RuntimeError):
+        generation.llama_generate(model, prompt, max_new_tokens=6)
+    torch.cuda.synchronize()
+    assert fa.launches - before == 2 * 2  # the prefill and the warm-up step only
+    monkeypatch.undo()
+
+    dm = generation.llama_decode_model(model, 4, 32)
+    real_fn = dm.step_fn
+
+    def syncing_step_fn(*args):
+        logits = real_fn(*args)
+        logits.sum().item()
+        return logits
+
+    dm.step_fn = syncing_step_fn
+    with DecodeEngine(dm, max_prompt_len=16) as eng:
+        req = eng.submit(prompt[0], max_new_tokens=4)
+        with pytest.raises(RetryableError):
+            req.result(timeout=300)
+        st = eng.stats()
+        assert st["steps"] == 0 and st["graph_replays"] == st["prefills"] == 1
+        assert "step4x32" not in st["programs"]
+        assert eng.health()["free_slots"] == 4

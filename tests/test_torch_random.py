@@ -116,3 +116,58 @@ def test_fast_keep_mask_bitwise(shape, keep_prob, seed):
                                   device="cpu")
     assert got.dtype == torch.bool and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------- jax.random's sampling stream
+TINY = float(np.finfo(np.float32).tiny)
+
+
+@pytest.mark.parametrize("shape", [(4, 1000), (16, 32000), (3, 5, 7)])
+@pytest.mark.parametrize("seed", [0, 42, 2**32 - 1])
+def test_random_bits_and_uniform_bitwise(shape, seed):
+    """jax.random.bits and uniform (minval tiny, as the Gumbel draw uses
+    it) from a host key and from the same key as a device tensor."""
+    jk = jax.random.fold_in(jax.random.PRNGKey(seed), 1)
+    tk = trandom.fold_in(trandom.PRNGKey(seed), 1)
+    want_bits = np.asarray(jax.random.bits(jk, shape))
+    want_u = np.asarray(jax.random.uniform(jk, shape, minval=TINY, maxval=1.0))
+    for key in (tk, trandom.key_tensor(tk, "cpu")):
+        bits = trandom.random_bits(key, shape, device="cpu")
+        assert bits.dtype == torch.int64 and tuple(bits.shape) == shape
+        np.testing.assert_array_equal(bits.numpy().astype(np.uint32), want_bits)
+        u = trandom.uniform(key, shape, TINY, 1.0, device="cpu")
+        assert u.dtype == torch.float32
+        np.testing.assert_array_equal(u.numpy(), want_u)
+    np.testing.assert_array_equal(trandom.uniform(tk, shape, device="cpu").numpy(),
+                                  np.asarray(jax.random.uniform(jk, shape)))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+def test_gumbel_within_two_ulp(seed):
+    """-log(-log(u)) of the bitwise uniform: torch's and XLA's log each
+    round within 1 ulp of the other, so the draws agree within 2 ulp of
+    max(|g|, 1) (an inner log's ulp carries to the scale of 1 where g is
+    near 0)."""
+    shape = (16, 4000)
+    want = np.asarray(jax.random.gumbel(jax.random.PRNGKey(seed), shape))
+    got = trandom.gumbel(trandom.PRNGKey(seed), shape, device="cpu").numpy()
+    ulp = np.spacing(np.maximum(np.abs(want), 1.0).astype(np.float32))
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    assert (np.abs(got - want) <= 2 * ulp).all()
+
+
+def test_split_of_a_device_key_is_the_host_split():
+    for seed in (0, 5, 2**32 - 1):
+        key = trandom.PRNGKey(seed)
+        for n in (2, 3):
+            dev = trandom.split(trandom.key_tensor(key, "cpu"), n)
+            assert dev.dtype == torch.int64 and tuple(dev.shape) == (n, 2)
+            assert [tuple(k) for k in dev.tolist()] == trandom.split(key, n)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_categorical_matches_jax(seed):
+    logits = (np.random.RandomState(seed).randn(8, 700) * 2).astype(np.float32)
+    want = np.asarray(jax.random.categorical(jax.random.PRNGKey(seed), logits))
+    got = trandom.categorical(trandom.PRNGKey(seed), torch.from_numpy(logits))
+    np.testing.assert_array_equal(got.numpy(), want)
