@@ -21,9 +21,13 @@ Phases, each fatal on failure (exit code 1):
               over back-to-back calls and by device time (the durations of
               the kernels each call ran, from a torch.profiler window); K1's
               length form (per-row key lengths in device memory) at the
-              decode engine's step and prefill shapes and llama_generate's
-              step, whose rows keep their bits at twice the pool's width
-              and beside other lengths
+              decode engine's step and llama_generate's step, whose rows
+              keep their bits at twice the pool's width
+              and beside other lengths; K1's chunk form (the engine's
+              fill: 64 queries of head_dim 128 over 32 heads, causal over
+              the first 64 or 128 rows of a longer staging buffer, read
+              in place), whose rows keep their bits when the operand is 64
+              rows wider
   4. serving  full-width BERT-base (random weights from a seed, float32)
               behind PredictorServer + BatchingEngine on localhost: 1-, 2-
               and 3-row requests at seq 128 and 512, then a burst of 8
@@ -58,14 +62,19 @@ Phases, each fatal on failure (exit code 1):
               max |logit| of the top logit of one full forward over the
               output; the sampled call, graphed and eager, bitwise equal;
               (c) the generic full-width path, 4 tokens at batch 2, 32 x 4
-              launches; (d) prefill ms; the decode loop eager and graphed,
-              tokens/s over each whole window beside the two-term bound,
-              median step, capture ms and the graph pool's bytes; one
-              replay profiled (32 K1 records, the idle share)
-  7. engine   the continuous-batching decode engine: (e) full width,
+              launches; (d) prefill ms; the decode loop eager (its first
+              31 steps only, to keep the script inside its time) and
+              graphed (all 126 replays), tokens/s over each whole window
+              beside the two-term bound, median step, capture ms and the
+              graph pool's bytes; one replay profiled (32 K1 records, the
+              idle share)
+  7. engine   the continuous-batching decode engine, filling each prompt
+              in one chunk of 128 (its traffic shares no prefix, and a
+              fill costs about the same at any chunk up to 128, so the
+              fewest fills win; `--fill-sweep`): (e) full width,
               depth 2, float32, the same 4 requests through the engine on
               the card and on the CPU (tokens equal, or a near-tie of the
-              CPU's logits); then Llama-2-7B bf16 at full width and depth
+              CPU's logits), then phase 8's (a); then Llama-2-7B bf16 at full width and depth
               (weights drawn on the card), 16 slots x 256 positions, behind
               PredictorServer on localhost: 24 streams (16 at once, 8 more
               as the first retire; prompts 16-128, 16-96 new tokens, seeded),
@@ -75,15 +84,52 @@ Phases, each fatal on failure (exit code 1):
               ends in status 2 and every slot is free after; (b) four
               sequences decoded again alone give the same tokens, bitwise;
               (c) every token lies within 3e-2 of the row's max |logit| of
-              the top logit of a full forward; (d) K1 ran 32 x (prefills +
-              steps) times, credited by as many graph replays, and warmup
-              captured each program once. Then tokens/s over the whole
-              window beside the two-term bound, time to the first token,
-              one replayed engine step profiled; then the same streams
-              through the same engine run eagerly (cuda_graph=False), whose
-              tokens must equal the graphed window's bitwise
-  8. summary  a {"kernels": [...]} line, then as the last line
+              the top logit of a full forward; (d) K1 ran 32 x (fill
+              replays + steps) times, credited by as many graph replays,
+              and warmup captured each program once. Then tokens/s over the
+              whole window beside the two-term bound, time to the first
+              token, one replayed engine step profiled; then the first
+              12 streams (8 at once, 4 as they retire; half, to keep the
+              script inside its time) and the extras through the same
+              engine run eagerly (cuda_graph=False), whose tokens must
+              equal the graphed window's bitwise
+  8. reuse    the engine's KV reuse and resume: (a) depth 2, float32,
+              prompts sharing a 32-token prefix, the later ones cache hits,
+              through the engine on the card and on the CPU (tokens equal,
+              or a near-tie of the CPU's logits); then with phase 7's
+              Llama-2-7B weights, two engines of phase 7's configuration
+              but for a chunk and page of 64 (the largest at which a
+              96-token prefix can hit), behind PredictorServer on
+              localhost, one with the prefix cache (a 1 GiB page budget,
+              which holds the shared prefix's entries) and one without:
+              (b) 24 seeded streams sharing a 96-token system prompt
+              (8-32-token suffixes, 16-64 new tokens) through each; it
+              fails unless every stream's tokens are bitwise equal across
+              the two, at least 23 streams hit,
+              K1 ran 32 x (fill replays + steps) and each program was
+              captured once; tokens/s over each window, first-token
+              medians (in the windows, and alone on an idle engine, hit
+              and cold), fill replays per joiner, one fill replay profiled;
+              (c) 4 streams with snapshot cadence 32 (0x5C bits 32-47):
+              every snapshot frame decodes; each stream's middle snapshot
+              is put (cmd 9, status 0) and resumed (cmd 10) on the other
+              engine, streamed (the suffix bitwise the unbroken stream's)
+              and one-shot (the whole sequence); a handoff (bit 62) gives
+              one snapshot frame and the first token, and its resume the
+              rest, bitwise; snapshots with a skewed weights digest,
+              fingerprint or position answer status 2 and no token.
+              Snapshot bytes, the scheduler's copy ms and the consumer's
+              build ms, resume-to-first-token ms and the weights digest's
+              ms are printed
+  9. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
+
+Each phase's seconds are printed as "[time]" lines.
+
+    python3 chip_smoke.py --fill-sweep 32,64,128
+
+instead builds the kernels and measures the 7B engine at each fill chunk
+(fill_chunk_sweep): the numbers the chunks above were chosen by.
 
 It imports nothing of JAX or the JAX package. Run from a directory that
 holds only this file it fails at the import of paddle_tpu_torch.
@@ -389,13 +435,12 @@ def phase_kernels(torch, fa):
 
 # K1's length form at the decode paths' shapes, float32 and bfloat16: the
 # decode engine's (phase 7) step of 16 slots x 32 heads, a single query
-# each over its own slot of a 256-row pool at a seeded length in 1..256,
-# and one joiner's prefill of 128 positions (its prompt bucket) at length
-# 77, causal; and llama_generate's (phase 6) step, 16 rows over the whole
-# 256-row cache at one length, 192 (the mean of the steps' 129..255)
+# each over its own slot of a 256-row pool at a seeded length in 1..256
+# (the engine's prompts take the chunk form, CHUNK_FORMS); and
+# llama_generate's (phase 6) step, 16 rows over the whole 256-row cache at
+# one length, 192 (the mean of the steps' 129..255)
 LENGTH_FORMS = [
     dict(name="engine_step", b=16, h=32, sq=1, sk=256, d=128, causal=True, lens=None),
-    dict(name="engine_prefill", b=1, h=32, sq=128, sk=128, d=128, causal=True, lens=[77]),
     dict(name="llama_decode", b=16, h=32, sq=1, sk=256, d=128, causal=True, lens=[192] * 16),
 ]
 
@@ -512,6 +557,77 @@ def phase_length_kernels(torch, fa):
     if any(not r["ok"] for r in results):
         fail("flash_attention_fwd's length form disagrees with mha_reference or changes "
              "a row's bits with the pool's width or the other rows' lengths")
+    return results
+
+
+# K1's chunk form, the decode engine's fill: one chunk of C queries of a
+# joiner over 32 heads of head_dim 128, causal bottom-right over the first
+# start + C rows of the engine's 128-row staging buffer, read in place by
+# its head stride. Phase 7's engine fills in one chunk of ENGINE_CHUNK = 128
+# (its unrelated prompts gain nothing from a smaller page), phase 8's in
+# chunks of REUSE_CHUNK = 64 (the largest that lets its 96-token system
+# prompt hit); both chosen from `--fill-sweep 32,64,128` (PERF.md). The
+# (C, start + C) pairs the two engines run:
+ENGINE_CHUNK, REUSE_CHUNK = 128, 64
+CHUNK_FORMS = ((ENGINE_CHUNK, 128), (REUSE_CHUNK, 64), (REUSE_CHUNK, 128))
+
+
+def phase_chunk_kernels(torch, fa):
+    """K1's chunk form at CHUNK_FORMS against mha_reference (float32 and
+    bfloat16), over prefix views of a staging buffer C rows longer than
+    the engine's (the room for the width check): a row's O and LSE must
+    keep their bits when the same query rows, as the first C of 2C, run
+    over C more keys. The library yardstick is one
+    scaled_dot_product_attention call with a boolean bottom-right causal
+    mask (its own is_causal aligns top-left)."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h, d = 32, 128
+    results = []
+    log("[kernels] flash_attention_fwd, chunk form (the engine's fill) vs mha_reference "
+        f"(tolerance O {TOL_O['float32']} f32 / {TOL_O['bfloat16']} bf16, LSE {TOL_LSE}); "
+        "times: CUDA events / device")
+    for c, end in CHUNK_FORMS:
+        total = ENGINE_PROMPT + c
+        for dt in ("float32", "bfloat16"):
+            tdt = getattr(torch, dt)
+            k, v = (torch.randn(h, total, d, device="cuda", generator=gen).to(tdt)
+                    for _ in range(2))
+            q2 = torch.randn(h, 2 * c, d, device="cuda", generator=gen).to(tdt)
+            q = q2[:, :c].contiguous()
+            scale = d ** -0.5
+            args = (q, k[:, :end], v[:, :end], 0, scale, True, 0.0)
+            o, lse = fa._fwd(*args)
+            torch.cuda.synchronize()
+            ro, rlse = fa.mha_reference(*args)
+            err_o = (o.float() - ro.float()).abs().max().item()
+            err_lse = (lse - rlse).abs().max().item()
+            wide, wlse = fa._fwd(q2, k[:, :end + c], v[:, :end + c], 0, scale, True, 0.0)
+            same = bool(torch.equal(wide[:, :c], o) and torch.equal(wlse[:, :c], lse))
+            ms, dev = timed(torch, lambda: fa._fwd(*args))
+            plain_ms, plain_dev = timed(torch, lambda: fa.mha_reference(*args), iters=5)
+            cols = torch.arange(end, device="cuda")
+            mask = cols[None, :] <= torch.arange(c, device="cuda")[:, None] + (end - c)
+            q4, k4, v4 = q[None], k[None, :, :end], v[None, :, :end]
+            library_ms, library_dev = timed(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, scale=scale))
+            bound, bound_by = attention_bound_ms(h, c, end, d, dt, True)
+            ok = err_o <= TOL_O[dt] and err_lse <= TOL_LSE and same
+            results.append(dict(b=1, h=h, sq=c, sk=end, d=d, dtype=dt, causal=True,
+                                max_abs_err=err_o, max_lse_err=err_lse, same_bits_wider=same,
+                                ms=ms, device_ms=dev, plain_ms=plain_ms,
+                                plain_device_ms=plain_dev, library_ms=library_ms,
+                                library_device_ms=library_dev, bound_ms=bound,
+                                bound_by=bound_by, ok=ok))
+            log(f"  chunk: h={h} sq={c} over rows 0..{end - 1} of a {total}-row buffer d={d} "
+                f"{dt} causal: O err {err_o:.3e} LSE err {err_lse:.3e}; same bits {c} rows "
+                f"wider: {same} | kernel {ms:.4f} / {_fmt(dev)} ms{_share(bound, dev)}; plain "
+                f"{plain_ms:.4f} / {_fmt(plain_dev)} ms; library (sdpa, boolean causal mask) "
+                f"{_fmt(library_ms)} / {_fmt(library_dev)} ms; bound {bound:.4f} ms "
+                f"({bound_by}) {'ok' if ok else 'DISAGREES'}")
+    if any(not r["ok"] for r in results):
+        fail("flash_attention_fwd's chunk form disagrees with mha_reference or changes a "
+             "row's bits with the operand's width")
     return results
 
 
@@ -640,13 +756,15 @@ def phase_dropout_placement(torch, fa):
 
 # ------------------------------------------------------------------ phase 4
 def _recv(s, n):
-    buf = b""
-    while len(buf) < n:
-        chunk = s.recv(n - len(buf))
-        if not chunk:
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = s.recv_into(view[got:], n - got)
+        if not k:
             raise ConnectionError("server closed the connection")
-        buf += chunk
-    return buf
+        got += k
+    return bytes(buf)
 
 
 def _call(port, frame):
@@ -1020,6 +1138,7 @@ def phase_training(torch, fa, mods, card):
 
 # ------------------------------------------------------------------ phase 6
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 16, 128, 128  # bench.py's decode shape
+GEN_EAGER_STEPS = 31  # the timed eager loop's steps (the graphed loop runs all)
 # depth-2 prefill logits, card vs CPU: float32 max abs; bfloat16 relative
 # to the row's max |logit|
 TOL_GEN_LOGITS = {"float32": 1e-3, "bfloat16": 2e-2}
@@ -1303,10 +1422,12 @@ def phase_generation(torch, fa, mods, card):
             torch, lambda: run.forward(ids, 0), f"prefill of {GEN_BATCH} x {GEN_PROMPT} "
             f"(bound {prefill_bound:.3f} ms, operations)", top=6, groups=DECODE_GROUPS)
         run.prefill(ids)
-        eager_window, eager_step, lo, hi = timed_loop(torch, GEN_NEW - 1, run.step)
-        eager_tps = GEN_BATCH * (GEN_NEW - 1) / eager_window * 1e3
-        eager_same = torch.equal(run.tokens.cpu(), torch.from_numpy(out[:, GEN_PROMPT:]).long())
-        log(f"[generation] eager decode loop: steps 2-{GEN_NEW} in {eager_window:.3f} ms by "
+        eager_window, eager_step, lo, hi = timed_loop(torch, GEN_EAGER_STEPS, run.step)
+        eager_tps = GEN_BATCH * GEN_EAGER_STEPS / eager_window * 1e3
+        n = GEN_EAGER_STEPS + 1
+        eager_same = torch.equal(run.tokens[:, :n].cpu(),
+                                 torch.from_numpy(out[:, GEN_PROMPT:GEN_PROMPT + n]).long())
+        log(f"[generation] eager decode loop: steps 2-{n} in {eager_window:.3f} ms by "
             f"CUDA events = {eager_tps:.1f} tokens/s over the window; median step "
             f"{eager_step:.3f} ms (min {lo:.3f}, max {hi:.3f}); tokens equal the call's "
             f"{eager_same}")
@@ -1397,10 +1518,11 @@ def engine_tokens(torch, generation, DecodeEngine, model, device, prompts, n):
         return [r.result(timeout=600) for r in reqs]
 
 
-def serve_window(torch, fa, engine, PredictorServer, wire_spec, base):
+def serve_window(torch, fa, engine, PredictorServer, wire_spec, base, first=ENGINE_FIRST,
+                 later=ENGINE_LATER):
     """The engine behind PredictorServer on localhost, serving the streams
-    of ``base`` (a list of dicts with prompt and n; the first ENGINE_FIRST
-    all at once, the next ENGINE_LATER as the first retire) and the three
+    of ``base`` (a list of dicts with prompt and n; the first ``first``
+    all at once, the next ``later`` as the first retire) and the three
     extras after them: one hangs up after its 4th chunk, one has a 1 ms
     per-token budget, one is one-shot. The window runs from the first
     submit to the last terminal frame, timed by CUDA events; K1 is counted
@@ -1418,10 +1540,10 @@ def serve_window(torch, fa, engine, PredictorServer, wire_spec, base):
 
     engine.submit = recording_submit
     server = PredictorServer(None, decode_engine=engine, own_decode_engine=True)
-    n_streams = ENGINE_FIRST + ENGINE_LATER
+    n_streams = first + later
     hang, tiny, oneshot = work[n_streams:]
     retired = threading.Semaphore(0)
-    gate = threading.Barrier(ENGINE_FIRST + 2)  # the first wave, the 1 ms one, this thread
+    gate = threading.Barrier(first + 2)  # the first wave, the 1 ms one, this thread
     errors = []
 
     def client(w, first, **kw):
@@ -1437,7 +1559,7 @@ def serve_window(torch, fa, engine, PredictorServer, wire_spec, base):
         finally:
             retired.release()
 
-    threads = [threading.Thread(target=client, args=(w, i < ENGINE_FIRST))
+    threads = [threading.Thread(target=client, args=(w, i < first))
                for i, w in enumerate(work[:n_streams])]
     threads += [threading.Thread(target=client, args=(hang, False), kwargs=dict(close_after=4)),
                 threading.Thread(target=client, args=(tiny, True), kwargs=dict(budget_ms=1.0)),
@@ -1469,8 +1591,8 @@ def serve_window(torch, fa, engine, PredictorServer, wire_spec, base):
             fail(f"the engine did not free its slots: {engine.health()}")
         time.sleep(0.05)
     st = engine.stats()
-    delta = {k: after[k] - before[k] for k in ("prefills", "steps", "tokens", "step_rows",
-                                               "k1_launches", "graph_replays")}
+    delta = {k: after[k] - before[k] for k in ("prefix_fill_steps", "steps", "tokens",
+                                               "step_rows", "k1_launches", "graph_replays")}
     for w in work[:n_streams]:
         w["tokens"] = np.concatenate(w["chunks"]) if w["chunks"] else np.zeros(0, np.int32)
     oneshot["tokens"] = oneshot["chunks"][0] if oneshot["chunks"] else None
@@ -1493,7 +1615,7 @@ def stop_server(server, engine, wire_spec):
 
 
 def phase_engine(torch, fa, mods, card, gen6):
-    LlamaModel, generation, DecodeEngine, seq_bucket, PredictorServer, wire_spec = mods
+    LlamaModel, generation, DecodeEngine, PredictorServer, wire_spec = mods
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     rng = np.random.RandomState(6)
@@ -1525,6 +1647,7 @@ def phase_engine(torch, fa, mods, card, gen6):
         f"card {card_s:.2f} s, CPU {cpu_s:.2f} s")
     if beyond or any(g.shape != (8,) for g in card_out):
         fail("the decode engine on the card disagrees with the same engine on the CPU")
+    reuse_depth2(torch, generation, DecodeEngine, model, cpu_model, rng)
     del model, cpu_model
     torch.cuda.empty_cache()
 
@@ -1537,14 +1660,17 @@ def phase_engine(torch, fa, mods, card, gen6):
     attn = model.layers[0].self_attn
     vocab, hidden = model.embed_tokens.weight.shape
     dm = generation.llama_decode_model(model, ENGINE_SLOTS, ENGINE_SEQ)
-    engine = DecodeEngine(dm, max_prompt_len=ENGINE_PROMPT, max_queue=64, name="llama-7b")
+    engine = DecodeEngine(dm, max_prompt_len=ENGINE_PROMPT, min_seq_bucket=ENGINE_CHUNK,
+                          max_queue=64, name="llama-7b")
     t = time.perf_counter()
     buckets = engine.warmup()
     torch.cuda.synchronize()
     st0 = engine.stats()
     log(f"[engine] Llama-2-7B bf16, {ENGINE_SLOTS} slots x {ENGINE_SEQ} positions: KV pools "
-        f"{st0['kv_pool_bytes'] / 1e9:.2f} GB; warmup (prompt buckets {buckets} and the step, "
-        f"each warmed up and captured) {time.perf_counter() - t:.2f} s; captures "
+        f"{st0['kv_pool_bytes'] / 1e9:.2f} GB, staging {st0['staging_bytes']} bytes; warmup "
+        f"(the fills ending at {buckets} and the step, each warmed up and captured, and the "
+        f"weights digest, {st0['weights_digest_ms']:.1f} ms) {time.perf_counter() - t:.2f} s; "
+        "captures "
         + ", ".join(f"{k} {v['capture_ms']:.1f} ms" for k, v in st0["programs"].items())
         + f"; graph pool {st0['graph_pool_bytes']} bytes; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1574,21 +1700,23 @@ def phase_engine(torch, fa, mods, card, gen6):
             or tiny["statuses"] != [wire_spec.STATUS_RETRYABLE]
             or len(hang["chunks"]) != 4 or st["retired"]["cancelled"] != 1):
         fail(f"decode streams malformed (streams {bad}) or the extras misbehaved")
-    # (d) K1 ran once per layer in every prefill and every step, credited by
-    # the replays; every program was captured once, by warmup
-    want = n_layers * (delta["prefills"] + delta["steps"])
-    used = {f"prefill1x{seq_bucket(w['prompt'].size, 8, ENGINE_SEQ)}" for w in work} | {
-        f"step{ENGINE_SLOTS}x{ENGINE_SEQ}"}
-    log(f"[engine] (d) K1 launches {win['launches']} = {n_layers} x ({delta['prefills']} "
-        f"prefills + {delta['steps']} steps) = {want}; the engine counted "
+    # (d) K1 ran once per layer in every fill replay and every step,
+    # credited by the replays; every program was captured once, by warmup
+    fills = delta["prefix_fill_steps"]
+    want = n_layers * (fills + delta["steps"])
+    used = {f"fill1x{end}" for w in work
+            for end in range(ENGINE_CHUNK, w["prompt"].size + ENGINE_CHUNK, ENGINE_CHUNK)}
+    used.add(f"step{ENGINE_SLOTS}x{ENGINE_SEQ}")
+    log(f"[engine] (d) K1 launches {win['launches']} = {n_layers} x ({fills} fill replays + "
+        f"{delta['steps']} steps) = {want}; the engine counted "
         f"{delta['k1_launches']}; graph replays {delta['graph_replays']}; programs "
         f"{st['programs']}")
     if (win["launches"] != want or delta["k1_launches"] != want
-            or delta["graph_replays"] != delta["prefills"] + delta["steps"]
+            or delta["graph_replays"] != fills + delta["steps"]
             or not used <= set(st["programs"])
             or any(v["compiles"] != 1 for v in st["programs"].values())):
-        fail("the engine's K1 launches, replays or captures do not match its prefill and "
-             "step calls")
+        fail("the engine's K1 launches, replays or captures do not match its fill and step "
+             "calls")
     # (c) every token against one full forward over prompt + output
     decoded = work[:n_streams] + [oneshot]
     worst, agree_n, total_n = 0.0, 0, 0
@@ -1619,11 +1747,14 @@ def phase_engine(torch, fa, mods, card, gen6):
              f"ran beside {ENGINE_SLOTS - 1} others": max(beside15, key=lambda w: w["n"])}
     solo_ok = []
     for label, w in picks.items():
+        hits = engine.stats()["prefix"]["hits"]
         alone = engine.generate(w["prompt"], max_new_tokens=w["n"], timeout=600)
         same = bool(np.array_equal(alone, w["tokens"]))
         solo_ok.append(same)
+        hit = engine.stats()["prefix"]["hits"] > hits
         log(f"[engine] (b) {label}: prompt {w['prompt'].size}, {w['n']} tokens, peak batch "
-            f"{w['peak_batch']}; decoded alone {'bitwise equal' if same else 'DIFFERS'}")
+            f"{w['peak_batch']}; decoded alone ({'a prefix-cache hit' if hit else 'cold'}) "
+            f"{'bitwise equal' if same else 'DIFFERS'}")
     if not all(solo_ok):
         fail("a sequence decoded alone differs from the same sequence decoded in the batch")
 
@@ -1639,7 +1770,7 @@ def phase_engine(torch, fa, mods, card, gen6):
         f"events from the first submit to the last terminal frame = {tps:.1f} tokens/s "
         f"({delta['tokens'] / win['host_s']:.1f} by host clock), {100 * tps / bound_tps:.1f}% "
         f"of the two-term bound {bound_ms:.3f} ms a step = {bound_tps:.0f} tokens/s at that "
-        f"occupancy and the mean cache length {mean_len:.1f}; {delta['prefills']} prefills, "
+        f"occupancy and the mean cache length {mean_len:.1f}; {fills} fill replays, "
         f"{delta['steps']} steps, mean occupancy {occupancy:.3f} of {ENGINE_SLOTS} rows, "
         f"median step {st['step_ms_median']:.3f} ms (host clock, argmax read back included); "
         f"time to first token median {win['ttft_ms']:.1f} ms over the {n_streams} streams "
@@ -1662,21 +1793,26 @@ def phase_engine(torch, fa, mods, card, gen6):
         fail(f"a profiled engine replay shows {k1_records} K1 kernels, not {n_layers}")
     stop_server(server, engine, wire_spec)
 
-    # the same streams through the same engine run eagerly (no graph)
-    eager_engine = DecodeEngine(dm, max_prompt_len=ENGINE_PROMPT, max_queue=64,
-                                name="llama-7b-eager", cuda_graph=False)
+    # the first half of the streams (8 at once, 4 as they retire) and the
+    # extras through the same engine run eagerly (no graph); half, to keep
+    # the script inside its time
+    eager_engine = DecodeEngine(dm, max_prompt_len=ENGINE_PROMPT, min_seq_bucket=ENGINE_CHUNK,
+                                max_queue=64, name="llama-7b-eager", cuda_graph=False)
     eager_engine.warmup()
+    ef, el = ENGINE_FIRST // 2, ENGINE_LATER // 2
     ework, eserver, ewin, _ = serve_window(torch, fa, eager_engine, PredictorServer,
-                                           wire_spec, base)
+                                           wire_spec, base[:ef + el] + base[n_streams:], ef, el)
     est, edelta = ewin["stats"], ewin["delta"]
     same = [np.array_equal(a["tokens"], b["tokens"])
-            for a, b in zip(work[:n_streams] + [oneshot], ework[:n_streams] + [ework[-1]])]
+            for a, b in zip(work[:ef + el] + [oneshot], ework[:ef + el] + [ework[-1]])]
     eocc = edelta["step_rows"] / (edelta["steps"] * ENGINE_SLOTS)
     etps = edelta["tokens"] / ewin["window_ms"] * 1e3
-    ewant = n_layers * (edelta["prefills"] + edelta["steps"])
-    log(f"[engine] eager window, the same streams: {sum(same)}/{len(same)} token streams "
+    ewant = n_layers * (edelta["prefix_fill_steps"] + edelta["steps"])
+    log(f"[engine] eager window, the first {ef + el} streams and the extras: {sum(same)}/"
+        f"{len(same)} token streams "
         f"bitwise equal to the graphed window's; {edelta['tokens']} tokens in "
-        f"{ewin['window_ms']:.1f} ms = {etps:.1f} tokens/s; {edelta['prefills']} prefills, "
+        f"{ewin['window_ms']:.1f} ms = {etps:.1f} tokens/s; {edelta['prefix_fill_steps']} "
+        "fill replays, "
         f"{edelta['steps']} steps, mean occupancy {eocc:.3f}, median step "
         f"{est['step_ms_median']:.3f} ms; time to first token median {ewin['ttft_ms']:.1f} "
         f"ms; K1 launches {ewin['launches']} (expected {ewant}); graph replays "
@@ -1691,20 +1827,435 @@ def phase_engine(torch, fa, mods, card, gen6):
         f"tokens/s, median step {gen6['eager_step_ms']:.3f} ms; bound "
         f"{gen6['bound_tokens_per_s']:.0f} tokens/s")
     log(f"[engine] the phase took {time.perf_counter() - t_phase:.1f} s")
-    return dict(launches=win["launches"], prefill_launches=n_layers * delta["prefills"],
+    return dict(launches=win["launches"], fill_launches=n_layers * fills,
                 step_launches=n_layers * delta["steps"], tokens_per_s=tps,
                 eager_tokens_per_s=etps, bound_tokens_per_s=bound_tps,
                 step_ms=st["step_ms_median"], eager_step_ms=est["step_ms_median"], idle=idle,
                 ttft_ms=win["ttft_ms"], eager_ttft_ms=ewin["ttft_ms"],
-                pool_bytes=st["graph_pool_bytes"])
+                pool_bytes=st["graph_pool_bytes"], model=model, dm=dm)
+
+
+# ------------------------------------------------------------------ phase 8
+REUSE_SYSTEM, REUSE_STREAMS = 96, 24  # a shared system prompt, its streams
+REUSE_BUDGET = 1 << 30  # prefix_max_bytes: 32 pages of 32 MiB at C = 64
+REUSE_CADENCE, REUSE_NEW = 32, 100  # (c): snapshots at 32, 64 and 96 tokens
+MAX_BODY = 1 << 30  # a 7B snapshot is ~1 MiB a position in f32
+
+
+def reuse_depth2(torch, generation, DecodeEngine, model, cpu_model, rng):
+    """Phase 8 (a): phase 7's depth-2 float32 pair, prompts sharing a
+    32-token prefix through a prefix-cached engine (C = 16) on the card
+    and on the CPU: the first seeds the cache, the other four hit. Tokens
+    equal, or a near-tie of the CPU's teacher-forced logits."""
+    vocab = model.embed_tokens.weight.shape[0]
+    shared = rng.randint(0, vocab, 32).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.randint(0, vocab, n).astype(np.int32)])
+               for n in (5, 3, 12, 16, 9)]
+    out, hits = {}, {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        dm = generation.llama_decode_model(m, 4, 64)
+        with DecodeEngine(dm, device=dev, max_prompt_len=48, min_seq_bucket=16,
+                          name=f"reuse-{dev}") as eng:
+            first = eng.generate(prompts[0], max_new_tokens=6, timeout=600)
+            reqs = [eng.submit(p, max_new_tokens=6) for p in prompts[1:]]
+            out[dev] = [first] + [r.result(timeout=600) for r in reqs]
+            hits[dev] = eng.stats()["prefix"]["hits"]
+    equal = excused = beyond = 0
+    for p, g, c in zip(prompts, out["cuda"], out["cpu"]):
+        ids = np.concatenate([p, g])[None]
+        gap, _, agree = token_gaps(torch, _forward(torch, cpu_model, ids, "cpu"), ids, p.size)
+        equal += int(np.array_equal(g, c))
+        excused += int((~agree & (gap <= TIE["float32"])).sum())
+        beyond += int((gap > TIE["float32"]).sum())
+    log(f"[reuse] (a) depth 2 float32, {len(prompts)} prompts sharing a 32-token prefix "
+        f"(cache hits: card {hits['cuda']}, CPU {hits['cpu']}), card vs CPU: {equal}/"
+        f"{len(prompts)} token streams equal, {excused} token(s) excused at a near-tie "
+        f"({TIE['float32']}), {beyond} beyond it")
+    if beyond or hits["cuda"] != len(prompts) - 1 or hits["cpu"] != len(prompts) - 1:
+        fail("the prefix-cached engine on the card disagrees with the CPU, or missed")
+
+
+def _frames(wire_spec, port, frame, timeout=900):
+    """One request over the wire: -> ([(status, payload)] up to the
+    terminal frame, seconds from the send to the first frame, seconds to
+    the first token frame or None)."""
+    frames, first_s, token_s = [], None, None
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as s:
+        t0 = time.perf_counter()
+        s.sendall(frame)
+        while True:
+            (blen,) = struct.unpack("<I", _recv(s, 4))
+            body = _recv(s, blen)
+            now = time.perf_counter() - t0
+            first_s = now if first_s is None else first_s
+            if token_s is None and len(body) > 1 and not wire_spec.is_kv_snapshot(body[1:]):
+                token_s = now
+            frames.append((body[0], body[1:]))
+            if body[0] != wire_spec.STATUS_STREAM:
+                return frames, first_s, token_s
+
+
+def _split(wire_spec, frames):
+    """-> (terminal status, token list, [snapshot blocks])."""
+    tokens, snaps = [], []
+    for _, payload in frames:
+        if wire_spec.is_kv_snapshot(payload):
+            snaps.append(payload)
+        elif payload:
+            tokens.extend(int(t) for t in wire_spec.decode_arrays(payload)[0])
+    return frames[-1][0], tokens, snaps
+
+
+def reuse_window(torch, fa, engine, port, wire_spec, work):
+    """Every stream of ``work`` at once through the server at ``port``
+    (the engine queues what its slots cannot hold). The window runs from
+    the first send to the last terminal frame, timed by CUDA events; K1
+    is counted from 0 over it. Returns (per stream: statuses, tokens,
+    seconds to the first frame; the window's numbers and stats deltas)."""
+    results = [None] * len(work)
+    errors = []
+    gate = threading.Barrier(len(work) + 1)
+
+    def client(i, w):
+        try:
+            frame = wire_spec.build_request(wire_spec.CMD_INFER, wire_spec.encode_arrays(
+                [w["prompt"]]) + wire_spec.encode_decode_opts(w["n"]))
+            gate.wait()
+            frames, first_s, _ = _frames(wire_spec, port, frame)
+            status, tokens, _ = _split(wire_spec, frames)
+            results[i] = dict(status=status, tokens=tokens, first_s=first_s)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i, w)) for i, w in enumerate(work)]
+    for t in threads:
+        t.start()
+    before = engine.stats()
+    fa.launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    gate.wait()
+    start.record()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(900)
+        if t.is_alive():
+            fail("a reuse client did not finish within 900 s")
+    end.record()
+    end.synchronize()
+    host_s = time.perf_counter() - t0
+    if errors:
+        fail(f"reuse clients failed: {errors[:3]}")
+    after = engine.stats()
+    delta = {k: after[k] - before[k] for k in ("prefix_fill_steps", "steps", "tokens",
+                                               "k1_launches", "graph_replays")}
+    if after["prefix"] is not None:
+        delta["hits"] = after["prefix"]["hits"] - before["prefix"]["hits"]
+    return results, dict(window_ms=start.elapsed_time(end), host_s=host_s,
+                         launches=fa.launches, delta=delta, stats=after)
+
+
+def first_token_alone(engine, prompts, n=4):
+    """Seconds from submit to the first token of each prompt, each alone
+    on an idle engine (host clock)."""
+    out = []
+    for p in prompts:
+        t0 = time.perf_counter()
+        req = engine.submit(p, max_new_tokens=n)
+        req.next_tokens(timeout=600)
+        out.append(time.perf_counter() - t0)
+        req.result(timeout=600)
+    return out
+
+
+def phase_reuse(torch, fa, mods, card, eng7):
+    """Phase 8 (b) and (c) with phase 7's 7B weights (module docstring)."""
+    import gc
+
+    generation, DecodeEngine, PredictorServer, wire_spec = mods
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, dm = eng7["model"], eng7["dm"]
+    n_layers = len(model.layers)
+    vocab = model.embed_tokens.weight.shape[0]
+    rng = np.random.RandomState(8)
+    kw = dict(max_prompt_len=ENGINE_PROMPT, min_seq_bucket=REUSE_CHUNK, max_queue=64)
+    hot = DecodeEngine(dm, prefix_max_bytes=REUSE_BUDGET, name="llama-7b-prefix", **kw)
+    cold = DecodeEngine(dm, prefix=False, name="llama-7b-cold", **kw)
+    t = time.perf_counter()
+    hot.warmup()
+    cold.warmup()
+    torch.cuda.synchronize()
+    log(f"[reuse] two engines of phase 7's configuration ({ENGINE_SLOTS} slots x "
+        f"{ENGINE_SEQ}, but chunk and page {REUSE_CHUNK}), one with the prefix cache "
+        f"({REUSE_BUDGET >> 20} MiB budget = {hot.stats()['prefix']['max_pages']} pages of "
+        f"{hot._pages.page_bytes()} bytes, as the reference counts them), warmed up in "
+        f"{time.perf_counter() - t:.2f} s; the weights digest was taken once, in phase 7, "
+        f"in {hot.stats()['weights_digest_ms']:.1f} ms | {card}")
+    servers = [PredictorServer(None, decode_engine=e, own_decode_engine=True,
+                               max_body=MAX_BODY) for e in (hot, cold)]
+    system = rng.randint(0, vocab, REUSE_SYSTEM).astype(np.int32)
+
+    def stream(n_new):
+        suffix = rng.randint(0, vocab, rng.randint(8, 33)).astype(np.int32)
+        return dict(prompt=np.concatenate([system, suffix]), n=n_new)
+
+    # (b) the same 24 streams through both engines
+    work = [stream(int(rng.randint(16, 65))) for _ in range(REUSE_STREAMS)]
+    got, won = {}, {}
+    for name, eng, srv in (("prefix", hot, servers[0]), ("cold", cold, servers[1])):
+        got[name], won[name] = reuse_window(torch, fa, eng, srv.port, wire_spec, work)
+    bad = [i for i, w in enumerate(work) for name in got
+           if got[name][i]["status"] != wire_spec.STATUS_OK
+           or len(got[name][i]["tokens"]) != w["n"]]
+    same = sum(got["prefix"][i]["tokens"] == got["cold"][i]["tokens"] for i in range(len(work)))
+    hits = won["prefix"]["delta"]["hits"]
+    counts_ok = True
+    for name in got:
+        d, win = won[name]["delta"], won[name]
+        want = n_layers * (d["prefix_fill_steps"] + d["steps"])
+        counts_ok &= (win["launches"] == want == d["k1_launches"]
+                      and d["graph_replays"] == d["prefix_fill_steps"] + d["steps"]
+                      and all(v["compiles"] == 1 for v in win["stats"]["programs"].values()))
+        tps = d["tokens"] / win["window_ms"] * 1e3
+        ttft = 1e3 * float(np.median([r["first_s"] for r in got[name]]))
+        log(f"[reuse] (b) {name} engine, {len(work)} streams sharing a {REUSE_SYSTEM}-token "
+            f"system prompt: {d['tokens']} tokens in {win['window_ms']:.1f} ms by CUDA events "
+            f"= {tps:.1f} tokens/s ({d['tokens'] / win['host_s']:.1f} by host clock); "
+            f"{d['prefix_fill_steps']} fill replays = {d['prefix_fill_steps'] / len(work):.2f} "
+            f"a joiner, {d['steps']} steps; first token median {ttft:.1f} ms in the window; "
+            f"K1 {win['launches']} (expected {want}), replays {d['graph_replays']}; "
+            f"programs {sorted(win['stats']['programs'])} | {card}")
+    log(f"[reuse] (b) {same}/{len(work)} streams bitwise equal across the two engines; "
+        f"{hits} of {len(work)} streams hit; malformed {bad}")
+    if bad or same != len(work) or hits < len(work) - 1 or not counts_ok:
+        fail("a prefix-cache hit differs from its cold stream, too few hits, or the engines' "
+             "K1 launches, replays or captures do not match their calls")
+    # first tokens alone on an idle engine: cold (no cache) and hit
+    probes = [stream(4)["prompt"] for _ in range(4)]
+    cold_s = first_token_alone(cold, probes)
+    hit_s = first_token_alone(hot, probes)
+    log(f"[reuse] (b) first token alone on an idle engine, {len(probes)} prompts of "
+        f"{[p.size for p in probes]} tokens: cold median {1e3 * np.median(cold_s):.1f} ms "
+        f"({', '.join(f'{1e3 * x:.1f}' for x in cold_s)}), hit median "
+        f"{1e3 * np.median(hit_s):.1f} ms ({', '.join(f'{1e3 * x:.1f}' for x in hit_s)}) "
+        f"(host clock: the fills, the finishing step and the read back) | {card}")
+    key = ("fill", 1, ENGINE_PROMPT)
+    with torch.inference_mode(), hot._exec_lock:
+        run = hot._program(key)
+        fill_ms, fill_busy, fill_kernels, fill_k1 = profile_replay(
+            torch, run, f"one fill replay, rows {ENGINE_PROMPT - REUSE_CHUNK}.."
+            f"{ENGINE_PROMPT - 1}", n_layers)
+    fill_idle = (f"{100 * (1 - fill_busy / fill_ms):.1f}%" if fill_busy > 0
+                 else "not measured")
+    log(f"[profile] device idle {fill_idle} of a fill replay; {fill_kernels} kernels, K1 "
+        f"records {fill_k1} (expected {n_layers})")
+    if fill_k1 != n_layers:
+        fail(f"a profiled fill replay shows {fill_k1} K1 kernels, not {n_layers}")
+
+    # (c) cadence-32 streams; their middle snapshots put and resumed on the
+    # other engine; a handoff; skewed snapshots
+    t_c = time.perf_counter()
+    cad = [stream(REUSE_NEW) for _ in range(4)]
+    out = [None] * len(cad)
+
+    def cadence_client(i):
+        frame = wire_spec.build_request(wire_spec.CMD_INFER, wire_spec.encode_arrays(
+            [cad[i]["prompt"]]) + wire_spec.encode_decode_opts(
+                REUSE_NEW, snapshot_every=REUSE_CADENCE))
+        out[i] = _split(wire_spec, _frames(wire_spec, servers[0].port, frame)[0])
+
+    threads = [threading.Thread(target=cadence_client, args=(i,)) for i in range(len(cad))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    if any(o is None for o in out):
+        fail("a cadence stream failed")
+    # the snapshots' n_generated; a frame goes out between token frames once
+    # its tokens are on the wire, so the last may miss the stream's end
+    marks = list(range(REUSE_CADENCE, REUSE_NEW, REUSE_CADENCE))
+    middle = marks[len(marks) // 2]
+    put_ok = resumed_ok = oneshot_ok = 0
+    resume_first_ms, sizes = [], []
+    for w, (status, tokens, snaps) in zip(cad, out):
+        heads = [wire_spec.decode_kv_snapshot_off(b)[0] for b in snaps]
+        gens = [h["n_generated"] for h in heads]
+        if (status != wire_spec.STATUS_OK or len(tokens) != REUSE_NEW
+                or not set(gens) <= set(marks) or middle not in gens
+                or any(h["pos"] != w["prompt"].size + h["n_generated"] - 1 for h in heads)):
+            fail(f"a cadence stream is malformed: status {status}, {len(tokens)} tokens, "
+                 f"snapshots at {gens}")
+        w["tokens"] = tokens
+        w["snapshots"] = gens
+        mid = snaps[gens.index(middle)]
+        g = middle
+        sizes.append(len(mid))
+        st, body = _call(servers[1].port, wire_spec.build_request(wire_spec.CMD_KV_PUT, mid))
+        put_ok += int(st == wire_spec.STATUS_OK
+                      and json.loads(body) == heads[gens.index(middle)])
+        frames, _, token_s = _frames(wire_spec, servers[1].port, wire_spec.build_request(
+            wire_spec.CMD_KV_RESUME, mid + wire_spec.encode_decode_opts(REUSE_NEW)))
+        rst, rest, _ = _split(wire_spec, frames)
+        resumed_ok += int(rst == wire_spec.STATUS_OK and rest == tokens[g:])
+        resume_first_ms.append(1e3 * token_s)
+        frames, _, _ = _frames(wire_spec, servers[1].port, wire_spec.build_request(
+            wire_spec.CMD_KV_RESUME, mid + wire_spec.encode_decode_opts(REUSE_NEW,
+                                                                        oneshot=True)))
+        ost, whole, _ = _split(wire_spec, frames)
+        oneshot_ok += int(ost == wire_spec.STATUS_OK and len(frames) == 1 and whole == tokens)
+    costs = hot.stats()["snapshot_costs"]
+    log(f"[reuse] (c) {len(cad)} streams of {REUSE_NEW} tokens at cadence {REUSE_CADENCE}: "
+        f"every snapshot frame decodes, at n_generated {[w['snapshots'] for w in cad]}; "
+        f"middle snapshots put {put_ok}/{len(cad)} status 0, resumed streamed "
+        f"{resumed_ok}/{len(cad)} and one-shot {oneshot_ok}/{len(cad)} bitwise; middle "
+        f"snapshot bytes {sizes}; a snapshot's medians: {costs['copy_ms']:.1f} ms of the "
+        f"scheduler's (queueing the copy), {costs['encode_ms']:.1f} ms to build the block on "
+        f"the server's thread, {costs['bytes']} bytes; resume to first token "
+        f"{', '.join(f'{x:.1f}' for x in resume_first_ms)} ms (cmd 10 sent to the first "
+        f"token frame) | {card}")
+    if put_ok != len(cad) or resumed_ok != len(cad) or oneshot_ok != len(cad):
+        fail("a snapshot was not accepted, or a resumed stream differs from the unbroken one")
+    w = cad[0]
+    frames, _, _ = _frames(wire_spec, servers[0].port, wire_spec.build_request(
+        wire_spec.CMD_INFER, wire_spec.encode_arrays([w["prompt"]])
+        + wire_spec.encode_decode_opts(REUSE_NEW, handoff=True)))
+    hst, first, hsnaps = _split(wire_spec, frames)
+    st, _ = _call(servers[1].port, wire_spec.build_request(wire_spec.CMD_KV_PUT, hsnaps[0])) \
+        if hsnaps else (None, None)
+    rst, rest, _ = _split(wire_spec, _frames(wire_spec, servers[1].port, wire_spec.build_request(
+        wire_spec.CMD_KV_RESUME, hsnaps[0] + wire_spec.encode_decode_opts(REUSE_NEW)))[0]) \
+        if hsnaps else (None, [], [])
+    handoff_ok = ([f[0] for f in frames] == [wire_spec.STATUS_STREAM, wire_spec.STATUS_OK]
+                  and len(hsnaps) == 1 and st == wire_spec.STATUS_OK
+                  and rst == wire_spec.STATUS_OK and first + rest == w["tokens"])
+    log(f"[reuse] (c) handoff (bit 62): frames {[f[0] for f in frames]}, one snapshot of "
+        f"{len(hsnaps[0]) if hsnaps else 0} bytes and the first token; put status {st}; "
+        f"its resume gives the other {len(rest)} tokens: "
+        f"{'bitwise the unbroken stream' if handoff_ok else 'DIFFERS'}")
+    if not handoff_ok:
+        fail("the prefill handoff and its resume do not give the unbroken stream")
+    hdr, arrays, _ = wire_spec.decode_kv_snapshot_off(out[0][2][0])
+    skews = {"weights digest": (dict(hdr, weights="0" * 64), arrays),
+             "fingerprint": (dict(hdr, fingerprint="0" * 64), arrays),
+             "position (kv rows short of pos)": (
+                 hdr, arrays[:2] + [a[:hdr["pos"] - 1] for a in arrays[2:]])}
+    refused = {}
+    for label, (h, a) in skews.items():
+        blob = wire_spec.encode_kv_snapshot(h, a)
+        pst, _ = _call(servers[1].port, wire_spec.build_request(wire_spec.CMD_KV_PUT, blob))
+        rframes, _, _ = _frames(wire_spec, servers[1].port, wire_spec.build_request(
+            wire_spec.CMD_KV_RESUME, blob + wire_spec.encode_decode_opts(REUSE_NEW)))
+        refused[label] = (pst, _split(wire_spec, rframes)[:2])
+    log(f"[reuse] (c) skewed snapshots, (kv_put status, (kv_resume status, tokens)): "
+        f"{refused}; resumes on the cold engine {cold.stats()['resumes']}; (c) took "
+        f"{time.perf_counter() - t_c:.1f} s")
+    if any(v != (wire_spec.STATUS_RETRYABLE, (wire_spec.STATUS_RETRYABLE, []))
+           for v in refused.values()):
+        fail("a skewed snapshot was not refused with status 2, or gave tokens")
+    for srv in servers:
+        srv.stop()
+    log(f"[reuse] the phase took {time.perf_counter() - t_phase:.1f} s")
+    # K1's launches in the two windows, and in their fills alone
+    return dict(launches=sum(won[n]["launches"] for n in won),
+                fill_launches=sum(n_layers * won[n]["delta"]["prefix_fill_steps"] for n in won))
+
+
+# ------------------------------------------------------- the chunk sweep
+def fill_chunk_sweep(torch, fa, mods, card, chunks):
+    """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
+    the 7B engine. Llama-2-7B bf16 (phase 7's weights, 16 slots x 256,
+    prompts up to 128) at each C in turn: phase 7's traffic (24 seeded
+    streams of unrelated prompts, 16-128 tokens and 16-96 new, with its
+    three extras) through a graphed engine -> tokens/s over the window,
+    first-token median, fill replays a joiner; phase 8's (24 streams
+    sharing a 96-token system prompt) through a cached engine -> hits,
+    tokens/s, first-token median, fills a joiner; the first token alone on
+    an idle engine, cold (unrelated 108-128-token prompts) and hit (the
+    system prompt's); one fill replay (the last chunk, rows 128-C..127)
+    by CUDA events. One JSON line at the end."""
+    import gc
+
+    LlamaModel, generation, DecodeEngine, PredictorServer, wire_spec = mods
+    model = LlamaModel(device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    model.to(torch.bfloat16).eval()
+    vocab = model.embed_tokens.weight.shape[0]
+    dm = generation.llama_decode_model(model, ENGINE_SLOTS, ENGINE_SEQ)
+    rng = np.random.RandomState(6)
+    n_streams = ENGINE_FIRST + ENGINE_LATER
+    plens = rng.randint(16, ENGINE_PROMPT + 1, n_streams + 3)
+    news = rng.randint(16, 97, n_streams + 3)
+    base = [dict(prompt=rng.randint(0, vocab, (int(pl),)).astype(np.int32), n=int(nn))
+            for pl, nn in zip(plens, news)]
+    base[n_streams]["n"] = 96  # the one that hangs up
+    system = rng.randint(0, vocab, REUSE_SYSTEM).astype(np.int32)
+    shared = [dict(prompt=np.concatenate([system, rng.randint(0, vocab, rng.randint(8, 33))
+                                          .astype(np.int32)]), n=int(rng.randint(16, 65)))
+              for _ in range(REUSE_STREAMS)]
+    hit_probes = [np.concatenate([system, rng.randint(0, vocab, rng.randint(12, 33))
+                                  .astype(np.int32)]) for _ in range(4)]
+    cold_probes = [rng.randint(0, vocab, p.size).astype(np.int32) for p in hit_probes]
+    rows = []
+    for c in chunks:
+        kw = dict(max_prompt_len=ENGINE_PROMPT, min_seq_bucket=c, max_queue=64)
+        engine = DecodeEngine(dm, name=f"sweep-{c}", **kw)
+        engine.warmup()
+        _, server, win, _ = serve_window(torch, fa, engine, PredictorServer, wire_spec, base)
+        stop_server(server, engine, wire_spec)
+        d7 = win["delta"]
+        hot = DecodeEngine(dm, prefix_max_bytes=REUSE_BUDGET, name=f"sweep-{c}-prefix", **kw)
+        hot.warmup()
+        srv = PredictorServer(None, decode_engine=hot, own_decode_engine=True)
+        got, w8 = reuse_window(torch, fa, hot, srv.port, wire_spec, shared)
+        if any(r["status"] != wire_spec.STATUS_OK for r in got):
+            fail(f"a shared-prefix stream failed at C = {c}")
+        cold_s = first_token_alone(hot, cold_probes)
+        hits = hot.stats()["prefix"]["hits"]
+        hit_s = first_token_alone(hot, hit_probes)
+        hit_probe_hits = hot.stats()["prefix"]["hits"] - hits
+        with torch.inference_mode(), hot._exec_lock:
+            fill_ms = cuda_ms(torch, hot._program(("fill", 1, ENGINE_PROMPT)), iters=10)
+        srv.stop()
+        hot.close()
+        d8 = w8["delta"]
+        row = dict(
+            chunk=c, p7_tokens_per_s=d7["tokens"] / win["window_ms"] * 1e3,
+            p7_ttft_ms=win["ttft_ms"], p7_fills_per_joiner=d7["prefix_fill_steps"] / (
+                n_streams + 3), p7_steps=d7["steps"],
+            p8_hits=d8["hits"], p8_tokens_per_s=d8["tokens"] / w8["window_ms"] * 1e3,
+            p8_ttft_ms=1e3 * float(np.median([r["first_s"] for r in got])),
+            p8_fills_per_joiner=d8["prefix_fill_steps"] / len(shared), p8_steps=d8["steps"],
+            alone_cold_ms=1e3 * float(np.median(cold_s)),
+            alone_hit_ms=1e3 * float(np.median(hit_s)), alone_hits=hit_probe_hits,
+            fill_ms=fill_ms)
+        rows.append(row)
+        log(f"[sweep] C = {c}: phase 7 traffic {row['p7_tokens_per_s']:.1f} tokens/s, first "
+            f"token median {row['p7_ttft_ms']:.1f} ms, {row['p7_fills_per_joiner']:.2f} fills a "
+            f"joiner, {d7['steps']} steps; phase 8 traffic {d8['hits']}/{len(shared)} hits, "
+            f"{row['p8_tokens_per_s']:.1f} tokens/s, first token median "
+            f"{row['p8_ttft_ms']:.1f} ms, {row['p8_fills_per_joiner']:.2f} fills a joiner, "
+            f"{d8['steps']} steps; alone cold {row['alone_cold_ms']:.1f} ms, hit "
+            f"{row['alone_hit_ms']:.1f} ms ({hit_probe_hits}/{len(hit_probes)} hit); a fill "
+            f"replay {fill_ms:.3f} ms | {card}")
+        del engine, server, hot, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(card)
+    log(json.dumps({"fill_sweep": rows}))
 
 
 # ------------------------------------------------------------------ main
 def main():
+    sweep = None
+    if len(sys.argv) > 1:
+        if len(sys.argv) != 3 or sys.argv[1] != "--fill-sweep":
+            fail("usage: chip_smoke.py [--fill-sweep C1,C2,...]")
+        sweep = [int(c) for c in sys.argv[2].split(",")]
     try:
         import torch
     except ImportError as e:
         fail(f"torch is not importable: {e}")
+    t_run = time.perf_counter()
     card = phase_card(torch)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
@@ -1715,7 +2266,7 @@ def main():
         from paddle_tpu_torch.distributed import spmd
         from paddle_tpu_torch.inference import wire_spec
         from paddle_tpu_torch.inference.batching import BatchingEngine
-        from paddle_tpu_torch.inference.decode import DecodeEngine, seq_bucket
+        from paddle_tpu_torch.inference.decode import DecodeEngine
         from paddle_tpu_torch.inference.server import PredictorServer
         from paddle_tpu_torch.ops import flash_attention as fa
         from paddle_tpu_torch.text import generation
@@ -1733,19 +2284,43 @@ def main():
         dict(name="flash_attention_bwd_dkv", lib="flash_attention_bwd_dkv", route="cuda",
              source=src + "flash_attention_bwd_dkv.cu", replaces=tpu + "458"),
     ]
+    t_phase = [time.perf_counter()]
+
+    def took(name):
+        now = time.perf_counter()
+        log(f"[time] {name} {now - t_phase[0]:.1f} s (the run so far {now - t_run:.1f} s)")
+        t_phase[0] = now
+
     phase_build(torch, cuda_build, fa, kernels)
+    took("build")
+    if sweep:
+        fill_chunk_sweep(torch, fa, (LlamaModel, generation, DecodeEngine, PredictorServer,
+                                     wire_spec), card, sweep)
+        took("fill sweep")
+        return
     cases = phase_kernels(torch, fa)
+    took("kernels: K1")
     length_cases = phase_length_kernels(torch, fa)
+    chunk_cases = phase_chunk_kernels(torch, fa)
+    took("kernels: K1 length and chunk forms")
     bwd_cases = phase_bwd_kernels(torch, fa)
     phase_dropout_placement(torch, fa)
+    took("kernels: K2, K3, dropout")
     serving_launches = phase_serving(torch, fa, (BertModel, BatchingEngine, PredictorServer,
                                                  wire_spec))
+    took("serving")
     train = phase_training(torch, fa, (BertForPretraining, nn, optimizer, spmd, prandom),
                            card)
+    took("training")
     gen = phase_generation(torch, fa, (LlamaModel, generation, prandom, Graph, pool_bytes),
                            card)
-    eng = phase_engine(torch, fa, (LlamaModel, generation, DecodeEngine, seq_bucket,
-                                   PredictorServer, wire_spec), card, gen)
+    took("generation")
+    eng = phase_engine(torch, fa, (LlamaModel, generation, DecodeEngine, PredictorServer,
+                                   wire_spec), card, gen)
+    took("engine")
+    reuse = phase_reuse(torch, fa, (generation, DecodeEngine, PredictorServer, wire_spec),
+                        card, eng)
+    took("reuse")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -1764,11 +2339,17 @@ def main():
     # credited by the replays)
     prefill = next(r for r in cases if r["h"] == 32 and r["dtype"] == "bfloat16"
                    and r["sq"] == GEN_PROMPT)
-    # K1's length form at the decode engine's two shapes, bfloat16, with the
-    # launches phase 7's run made in each (32 per prefill, 32 per step)
-    decode, eng_step, eng_prefill = (
+    # K1's length form at the decode engine's step, bfloat16, with the
+    # launches phase 7's run made in it (32 per step); its chunk form at the
+    # fill of a whole 128-token prompt (phase 7's engine, C = 128) and at the
+    # last chunk of phase 8's (C = 64, start + C = 128), with the launches
+    # each phase made in its fills (32 per replay)
+    decode, eng_step = (
         next(r for r in length_cases if r["dtype"] == "bfloat16" and r["name"] == name)
-        for name in ("llama_decode", "engine_step", "engine_prefill"))
+        for name in ("llama_decode", "engine_step"))
+    eng_fill, reuse_fill = (
+        next(r for r in chunk_cases if r["dtype"] == "bfloat16" and r["sq"] == c
+             and r["sk"] == ENGINE_PROMPT) for c in (ENGINE_CHUNK, REUSE_CHUNK))
 
     def timing(r, suffix=""):
         # ms: CUDA events over back-to-back calls; device_ms: the kernels'
@@ -1793,7 +2374,7 @@ def main():
         dict(name=kernels[0]["name"], route="cuda", source=kernels[0]["source"],
              replaces=kernels[0]["replaces"],
              launches=(serving_launches + train["counts"]["fwd"] + gen["launches"]
-                       + eng["launches"]),
+                       + eng["launches"] + reuse["launches"]),
              max_abs_err=main["max_abs_err"], **timing(main), bound_ms=main["bound_ms"],
              bound_by=main["bound_by"],
              # K1 at the training shape, [64 * 12, 128, 64] bfloat16
@@ -1803,7 +2384,10 @@ def main():
              **fields(eng_step, "engine_step_bf16_", launches=eng["step_launches"],
                       same_bits_wider=eng_step["same_bits_wider"],
                       same_bits_other_lengths=eng_step["same_bits_other_lengths"]),
-             **fields(eng_prefill, "engine_prefill_bf16_", launches=eng["prefill_launches"])),
+             **fields(eng_fill, "engine_fill_bf16_", launches=eng["fill_launches"],
+                      same_bits_wider=eng_fill["same_bits_wider"]),
+             **fields(reuse_fill, "reuse_fill_bf16_", launches=reuse["fill_launches"],
+                      same_bits_wider=reuse_fill["same_bits_wider"])),
         dict(name=kernels[1]["name"], route="cuda", source=kernels[1]["source"],
              replaces=kernels[1]["replaces"], launches=train["counts"]["bwd_dq"],
              **bwd(bmain, "dq"), **bwd(bf32, "dq", "f32_")),

@@ -9,45 +9,63 @@ frees and leave the moment they finish::
     requests --> bounded queue --> scheduler iteration
                   (shed, purge)      |
                                      v
-      each joiner: PREFILL [1, seq_bucket(P)] -> its slot's KV rows 0..P-1
+      each joiner: prefix lookup -> cached pages -> staging rows 0..k-1
+                   FILL [1, C] per chunk from k -> staging rows k..P-1
+                   staging rows 0..P-1 -> its slot; chain pages -> cache
+      each resume: snapshot rows -> a free slot, at its exact position
                                      |
       every slot:  STEP [max_slots] -> one token per running sequence
-                                     |
+                                     |       (kv snapshots at a cadence)
       retire on eos / max_new_tokens / max_seq_len / deadline / cancel
 
 **KV on the device, a step row is a slot.** The reference keeps paged KV
 in host numpy and gathers the active slots into a fresh ``[rows, seq_b,
 ...]`` batch every step. Here each ``kv_spec`` entry is one pool on the
 engine's device, zero-filled, holding every slot's rows at once
-(:class:`_KVSlots`). The prefill writes a joiner's prompt rows into its
-slot; each step runs **all** ``max_slots`` rows (free slots are padding
-rows: token 0, position 0), and row ``i`` writes its new KV at ``(i,
-positions[i])`` and attends over slot ``i`` in place. Nothing is gathered
-or copied per step, and the step has one shape for the engine's life.
+(:class:`_KVSlots`; entries of one shape and dtype are views of one
+stacked tensor, so a copy of a slot's rows is one copy a group, not one
+an entry). Each step runs **all** ``max_slots`` rows (free slots are
+padding rows: token 0, position 0), and row ``i`` writes its new KV at
+``(i, positions[i])`` and attends over slot ``i`` in place. Nothing is
+gathered or copied per step, and the step has one shape for the
+engine's life.
 
-**Bitwise contract** (the reference's, decode.py:40-52): a sequence
-decoded inside a continuous batch emits exactly the tokens it emits
-decoded alone in an engine of the same configuration, under greedy
-decoding, across joins and leaves. What keeps it here is one rule: the M
-of every product a sequence passes through is a constant of the engine
-(a step always runs ``max_slots`` rows) or a function of that sequence
-alone (a prefill runs one joiner at ``[1, seq_bucket(P)]``), never of its
-neighbours; and the model's attention over a slot reads only that slot's
-rows below its length (K1's per-row ``k_len``), so the pool's width and
-the other rows never enter it. As in the reference, every first token
-comes from step-shaped maths: a cold prefill is finished by feeding the
-last prompt token at position P-1 through the step, here as the joiner's
-row of the next regular step (the reference runs that *finishing step*
-as its own dispatch; the tokens are the same).
+**Bitwise contracts** (the reference's, decode.py:40-52, and its
+prefix cache's): a sequence decoded inside a continuous batch emits
+exactly the tokens it emits decoded alone in an engine of the same
+configuration, under greedy decoding, across joins and leaves; a prompt
+whose prefix is cached emits exactly its cold tokens; and a sequence
+resumed from a kv snapshot emits exactly the unbroken stream's suffix.
+What keeps them here is one rule: the M of every product a sequence
+passes through is a constant of the engine or of the sequence's own
+position, never of its neighbours or of the cache. A step always runs
+``max_slots`` rows. A prompt's KV rows are made by the **chunked fill**:
+chunk ``c`` of ``C`` tokens (``C`` = the page = ``min_seq_bucket``) runs
+one program, key ``("fill", 1, c*C + C)``, at M = C, writing rows
+``[c*C, c*C + C)`` of a static staging buffer and attending causally
+over its first ``c*C + C`` rows. A cold prompt runs chunks 0, 1, ...
+until row P-1 is covered; a hit at k cached tokens copies the k rows of
+its pages into staging and runs the same chunks from k/C on. Every row
+has one provenance on both paths, so hit = cold holds by construction
+(cuBLAS picks its kernels per M on the card, so a prompt run at another
+M, or a row fed through the step, would differ). Pages are published
+from staging, never from a slot. The model's attention over a slot
+reads only that slot's rows below its length (K1's per-row ``k_len``).
+The first token comes from step-shaped maths: the last prompt token is
+fed at position P-1 as the joiner's row of the next regular step (the
+*finishing step*; it rewrites row P-1 in the slot only). The fill is
+the engine's only prompt path: a prompt has no other program, so every
+engine, cached or not, fills alike.
 
 **Model contract** (:class:`DecodeModel`), torch functions on the
 engine's device::
 
-    prefill_fn(params, tokens[1, p] int64, lengths[1] int32, *feat)
-        -> (logits[1, vocab] at the last valid position, *kv)
-        one kv tensor per kv_spec entry, its batch axis 1 and its
-        sequence axis p long; the engine copies rows 0..P-1 into the
-        joiner's slot of the pool.
+    fill_fn(params, tokens[1, C] int64, start, *staging, *feat) -> None
+        the chunk of tokens at positions start..start+C-1 (``start`` a
+        Python int fixed per program): writes their kv rows into every
+        staging buffer ([1, ...] with max_prompt_len rows) at
+        [start, start+C) IN PLACE, attending causally over rows
+        0..start+C-1 of staging.
     step_fn(params, tokens[rows] int64, positions[rows] int32, *pools, *feat)
         -> logits[rows, vocab]
         rows == max_slots and row i is slot i. The step writes row i's
@@ -63,38 +81,60 @@ finite outputs; rows past a sequence's length hold stale values the
 model must never read.
 
 **Programs as CUDA graphs** (the reference's ``_Programs``, one AOT
-program per ``(phase, rows, seq)`` key): the engine has one program per
-key, ``("step", max_slots, max_seq_len)`` for its life and ``("prefill",
-1, seq_bucket(P))`` per prompt bucket, each the model's function over
-static buffers that live as long as the engine (tokens, positions or
-lengths, feature rows, and the step's argmax ``int32 [max_slots]``). On a
-card each is warmed up on a side stream and captured once into a CUDA
-graph (core/cuda_graph.py), all in one memory pool; a step or prefill is
-then a copy of its inputs into the buffers and one replay. ``warmup``
+program per ``(phase, rows, seq)`` key): ``("step", max_slots,
+max_seq_len)`` for the engine's life, and ``("fill", 1, start + C)`` per
+chunk start, each the model's function over static buffers that live as
+long as the engine. On a card each is warmed up on a side stream and captured once
+into a CUDA graph (core/cuda_graph.py), all in one memory pool; a call
+is then a copy of its inputs into the buffers and one replay. ``warmup``
 captures them all; otherwise each is captured at its first use. A CPU
-engine, or a CUDA one built with ``cuda_graph=False`` (to compare with
-the graphs), runs the same functions eagerly over the same buffers. A
-capture or replay that fails raises and fails its requests retryable, as
-a failed step does; nothing runs the eager step in its place.
+engine, or a CUDA one built with ``cuda_graph=False``, runs the same
+functions eagerly over the same buffers. A capture or replay that fails
+raises and fails its requests retryable; nothing runs eagerly in its
+place.
+
+**KV reuse and resume.** The prefix cache (inference/prefix_cache.py,
+on by default) keeps chain-hashed prefixes
+as refcounted pages of ``C`` rows in a device page store
+(:class:`_PageStore`, the counterpart of ``_KVSlots``' page methods). A
+slot never holds a page by reference: an install copies pages into
+staging, so no slot write can reach a cached page and the reference's
+copy-on-write barrier has no counterpart. ``submit(snapshot_every=N)``
+emits a kv-snapshot block (``wire_spec.encode_kv_snapshot``, the
+reference's bytes) every N generated tokens and, at N = 1, at the first
+token even if the sequence retires there (the prefill handoff). Under
+the exec lock the scheduler only queues a device copy of the slot's
+first ``pos`` rows, behind the step that wrote them, in the reference's
+``[pos, *trailing]`` layout, bf16 widened to f32 (exact; the wire has no
+bf16). The consumer's thread brings it to the host on a stream of its
+own and builds the block when it first asks
+(``DecodeRequest.take_snapshot``), so a snapshot never stalls the other
+slots' steps. ``resume`` checks a block against this replica's
+identity (``check_snapshot``: a skew raises :class:`SnapshotRefused`,
+wire status 2) and joins the sequence at its exact position with its
+last token as the next step's row.
 
 **Robustness kept**: the bounded queue (:class:`EngineOverloaded`),
 per-token deadlines (the wire budget bounds the time to the first token
 and every gap after it; a blown budget fails retryable and frees the slot
-at once), cancellation between iterations, and a failed prefill or step
-failing its requests retryable with their slots freed. There is no
-fallback: a CUDA engine whose kernel fails to build or launch fails the
-requests in flight, and never drops to the CPU or a plain version.
+at once), cancellation between iterations, and a failed fill,
+restore or step failing its requests retryable with their slots freed.
+There is no fallback: a CUDA engine whose kernel fails to build or
+launch fails the requests in flight, and never drops to the CPU or a
+plain version.
 
-Not ported (ROADMAP Queue 1): the artifact store, breakers, the
-watchdog and scheduler restarts, obs metrics, spans and chaos sites, kv
-snapshots and resume (cmds 9/10, the handoff bit), the prefix cache,
-speculative decoding, quantized and meshed serving, and phases (the
-reference's engine decodes greedily, as this one does). Constructor
-options of those raise ``NotImplementedError``; a
-snapshot cadence raises ``ValueError``; the speculative opt-in is
-accepted and ignored, as the reference ignores it without a draft model.
+Not ported (ROADMAP Queue 1): the artifact store and the persistent
+prefix tier (``prefix_dir``), breakers, the watchdog and scheduler
+restarts, obs metrics, spans and chaos sites, speculative decoding,
+quantized and meshed serving, and phases (the reference's engine decodes
+greedily, as this one does). Constructor options of those raise
+``NotImplementedError``; the speculative opt-in is accepted and ignored,
+as the reference ignores it without a draft model.
 """
 import collections
+import functools
+import hashlib
+import json
 import threading
 import time
 import traceback
@@ -105,8 +145,9 @@ import torch
 from ..core.cuda_graph import Graph, pool_bytes
 from ..core.place import resolve_device
 from ..ops import flash_attention
-from .batching import (DeadlineExceeded, EngineClosed, EngineOverloaded, RetryableError,
-                       bucket_rows)
+from . import wire_spec
+from .batching import DeadlineExceeded, EngineClosed, EngineOverloaded, RetryableError
+from .prefix_cache import PrefixCache, feature_seed, prefix_hashes
 
 # prompt / token dtypes of the wire spec (codes 1 and 2): streamed chunks
 # echo the prompt's dtype
@@ -118,19 +159,21 @@ _RETIRE_REASONS = ("eos", "max_tokens", "max_seq_len", "deadline", "error", "can
 # that ask for nothing (the reference's "off")
 _UNPORTED = {
     "store": (None,), "quant": (None, "f32"), "mesh": (None, "single"),
-    "phase": (None, "both"), "spec_k": (None, 0), "prefix": (None, False),
-    "prefix_dir": (None,), "prefix_max_bytes": (None,), "breaker_threshold": (None,),
-    "breaker_cooldown": (None,), "watchdog_interval": (None, 0, 0.0),
-    "wedge_timeout": (None,),
+    "phase": (None, "both"), "spec_k": (None, 0), "prefix_dir": (None,),
+    "breaker_threshold": (None,), "breaker_cooldown": (None,),
+    "watchdog_interval": (None, 0, 0.0), "wedge_timeout": (None,),
 }
 
+# the identity a snapshot header carries besides the fingerprint and the
+# weights digest: the port serves neither quantized nor meshed
+_QUANT, _MESH = "f32", "single"
 
-def seq_bucket(n, min_bucket, max_len):
-    """Power-of-2 sequence-length bucket: next pow2 >= n, floored at
-    ``min_bucket``, clamped to ``max_len`` (the ladder's top rung)."""
-    if n <= 0:
-        raise ValueError(f"need length >= 1, got {n}")
-    return max(min_bucket, bucket_rows(n, max_len))
+
+class SnapshotRefused(RetryableError):
+    """A kv snapshot does not match this replica's identity (fingerprint,
+    weights, quant, mesh or shape contract) or cannot fit its limits. Wire
+    status 2: the stream is resumable on a matching replica; refusing is
+    always preferable to decoding from a foreign KV layout."""
 
 
 def _indexed(device):
@@ -146,24 +189,49 @@ def _torch_dtype(dt):
     return torch.from_numpy(np.zeros(0, np.dtype(dt))).dtype
 
 
+def _dtype_name(dt):
+    """numpy's spelling of a torch dtype ("float32", "bfloat16")."""
+    return str(dt).replace("torch.", "")
+
+
+def _wire_dtype(dt):
+    """The numpy dtype a kv buffer of torch dtype ``dt`` travels as in a
+    snapshot: f16/bf16 widened to f32 (exact; the wire has no bf16)."""
+    if dt in (torch.float16, torch.bfloat16):
+        return np.dtype(np.float32)
+    return torch.empty(0, dtype=dt).numpy().dtype
+
+
+def _named_params(params):
+    """(name, tensor) of a model's params in their order: a list or tuple
+    (by index), a dict, or an object with ``named_tensors()``."""
+    if isinstance(params, (list, tuple)):
+        return [(str(i), p) for i, p in enumerate(params)]
+    if isinstance(params, dict):
+        return list(params.items())
+    return list(params.named_tensors())
+
+
 class DecodeModel:
-    """The prefill/step functions of a model, their parameters and the
-    shape contract (module docstring).
+    """The fill and step functions of a model, their parameters and the
+    shape contract (module docstring). The reference's one-shot
+    ``prefill_fn`` has no counterpart: the fixed-shape ``fill_fn`` is the
+    port's prompt program.
 
     ``kv_spec``: ``(trailing_shape, dtype)`` per KV buffer (a torch or
     numpy dtype); ``kv_seq_axis``: where the sequence axis sits in the
     pool ``[slots, ...]``. ``feature_spec``: ``(trailing_shape, numpy
     dtype)`` per per-sequence feature array (any wire dtype). ``device``:
-    where ``params`` live, the card unless the caller asks for the CPU
-    (it raises without a card); the engine runs there. ``max_slots`` and
+    where ``params`` live, the card unless the caller asks for the CPU (it
+    raises without a card); the engine runs there. ``max_slots`` and
     ``max_seq_len``: the engine shape the functions were built for, if
     they fix one (an engine given none takes them)."""
 
-    def __init__(self, params, prefill_fn, step_fn, kv_spec, vocab_size, feature_spec=(),
+    def __init__(self, params, fill_fn, step_fn, kv_spec, vocab_size, feature_spec=(),
                  eos_token_id=None, kv_seq_axis=1, device="cuda", max_slots=None,
                  max_seq_len=None):
         self.params = params
-        self.prefill_fn = prefill_fn
+        self.fill_fn = fill_fn
         self.step_fn = step_fn
         self.kv_spec = tuple((tuple(int(d) for d in tr), _torch_dtype(dt))
                              for tr, dt in kv_spec)
@@ -175,36 +243,112 @@ class DecodeModel:
         self.device = resolve_device(device)
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
+        self._digest = None  # (weights digest, ms), computed once
+        self._digest_lock = threading.Lock()
+
+    def weights_digest(self):
+        """-> (hex digest, ms it took): the reference's recipe
+        (``_Programs._weights_digest``), sha256 over every param's dtype
+        string, shape string and bytes, in param order (bf16 as its raw
+        2-byte words), so equal weights give the JAX engine's digest.
+        Computed once per model: a 7B model copies its 13.5 GB to the host
+        for it, which is why an engine's ``warmup`` takes it."""
+        with self._digest_lock:
+            if self._digest is None:
+                t0 = time.perf_counter()
+                h = hashlib.sha256()
+                for _, p in _named_params(self.params):
+                    t = p.detach().contiguous()
+                    h.update(_dtype_name(t.dtype).encode())
+                    h.update(str(tuple(t.shape)).encode())
+                    if t.dtype in (torch.bfloat16, torch.float16):
+                        t = t.view(torch.int16)
+                    h.update(t.cpu().numpy())
+                self._digest = (h.hexdigest(), (time.perf_counter() - t0) * 1e3)
+            return self._digest
+
+    def fingerprint(self, page_len):
+        """The model's program identity for snapshot headers: sha256 of a
+        canonical description (the params' class and the functions'
+        names, kv_spec, feature_spec, vocab, kv_seq_axis, the param names,
+        shapes and dtypes, and the engine's chunk ``page_len``). The
+        reference hashes its step program's exported module instead; the
+        port has no such module, and two engines of one description run
+        the same torch code, so this names the same thing. Weight values
+        are the weights digest's business."""
+        fns = [getattr(f, "__qualname__", type(f).__name__)
+               for f in (self.fill_fn, self.step_fn)]
+        desc = {
+            "model": type(self.params).__qualname__, "functions": fns,
+            "kv_spec": [[list(tr), _dtype_name(dt)] for tr, dt in self.kv_spec],
+            "feature_spec": [[list(tr), str(dt)] for tr, dt in self.feature_spec],
+            "vocab": self.vocab_size, "kv_seq_axis": self.kv_seq_axis,
+            "params": [[n, list(p.shape), _dtype_name(p.dtype)]
+                       for n, p in _named_params(self.params)],
+            "page_len": int(page_len),
+        }
+        return hashlib.sha256(json.dumps(desc, sort_keys=True).encode()).hexdigest()
+
+
+class _KVStack:
+    """One buffer per kv_spec entry, ``[batch, *trailing]`` with ``rows``
+    at the sequence axis (``ax`` + 1), entries of one (trailing, dtype)
+    stacked into one tensor ``[n, batch, ...]``: ``views[i]`` is entry
+    i's buffer, ``groups`` the (entry indices, stacked tensor) pairs a
+    copy runs over. Zero-filled once."""
+
+    def __init__(self, kv_spec, ax, batch, rows, device):
+        self.ax = ax
+        self.views = [None] * len(kv_spec)
+        self.groups = []
+        by_spec = {}
+        for i, spec in enumerate(kv_spec):
+            by_spec.setdefault(spec, []).append(i)
+        for (tr, dt), idx in by_spec.items():
+            if not 0 <= ax <= len(tr):
+                raise ValueError(f"kv_seq_axis {ax + 1} does not fit a kv buffer of "
+                                 f"trailing shape {tr}")
+            shape = list(tr)
+            shape.insert(ax, rows)
+            stacked = torch.zeros([len(idx), batch] + shape, dtype=dt, device=device)
+            self.groups.append((idx, stacked))
+            for j, i in enumerate(idx):
+                self.views[i] = stacked[j]
+
+    def rows(self, b, start, n):
+        """Per group: rows start..start+n-1 of batch row ``b``, a view
+        ``[n_entries, *trailing with n rows]``."""
+        return [t[:, b].narrow(self.ax + 1, start, n) for _, t in self.groups]
+
+    def nbytes(self):
+        return sum(t.numel() * t.element_size() for _, t in self.groups)
 
 
 class _KVSlots:
     """Per-slot KV storage on the device: one pool per kv_spec entry,
     ``[max_slots, *trailing]`` with ``max_seq_len`` rows at the sequence
-    axis, zero-filled once. A slot is a row of every pool; the step writes
-    and reads the pools in place, so ``pools`` are handed to the model as
-    they are. Rows past a sequence's length are never read (the model
-    masks them), so a released slot is not cleared."""
+    axis (a :class:`_KVStack`). A slot is a row of every pool; the step
+    writes and reads the pools in place, so ``pools`` are handed to the
+    model as they are. Rows past a sequence's length are never read (the
+    model masks them), so a released slot is not cleared. Slot rows are
+    written only under the engine's exec lock (fill copy, restore,
+    step)."""
 
     def __init__(self, max_slots, max_seq_len, kv_spec, seq_axis, device):
         self.max_slots = int(max_slots)
         self.max_seq_len = int(max_seq_len)
-        self.seq_axis = int(seq_axis)
-        self.pools = []
-        for tr, dt in kv_spec:
-            if not 1 <= self.seq_axis <= len(tr) + 1:
-                raise ValueError(f"kv_seq_axis {seq_axis} does not fit a kv buffer of "
-                                 f"trailing shape {tr}")
-            shape = list(tr)
-            shape.insert(self.seq_axis - 1, self.max_seq_len)
-            self.pools.append(torch.zeros([self.max_slots] + shape, dtype=dt,
-                                          device=device))
+        self.kv_spec = kv_spec
+        self.ax = int(seq_axis) - 1
+        self.device = device
+        self._stack = _KVStack(kv_spec, self.ax, self.max_slots, self.max_seq_len, device)
+        self.pools = self._stack.views
         self._free = list(range(self.max_slots - 1, -1, -1))
 
     def free_count(self):
         return len(self._free)
 
     def nbytes(self):
-        return sum(p.numel() * p.element_size() for p in self.pools)
+        return self._stack.nbytes()
 
     def alloc(self):
         return self._free.pop() if self._free else None
@@ -212,12 +356,167 @@ class _KVSlots:
     def release(self, slot):
         self._free.append(slot)
 
-    def write_prefill(self, slot, kv, length):
-        """Copy rows 0..length-1 of a prefill's kv (batch row 0, one
-        tensor per pool) into ``slot``."""
-        ax = self.seq_axis - 1
-        for pool, src in zip(self.pools, kv):
-            pool[slot].narrow(ax, 0, length).copy_(src[0].narrow(ax, 0, length))
+    def copy_from(self, slot, staging, length):
+        """Rows 0..length-1 of ``staging`` (a batch-1 :class:`_KVStack`
+        of the same kv_spec) into ``slot``: one copy a group."""
+        for dst, src in zip(self._stack.rows(slot, 0, length), staging.rows(0, 0, length)):
+            dst.copy_(src)
+
+    def snapshot(self, slot, length):
+        """Copy the slot's first ``length`` rows, on the device, into the
+        reference's ``_KVSlots.snapshot`` layout ``[length, *trailing]``
+        per kv_spec entry and its wire dtype (bf16 widened to f32,
+        exactly): one copy kernel a group, queued on the current stream
+        behind the step, so the caller waits for nothing and allocates
+        no host memory. The slot stays live and may be reused at once:
+        later writes queue behind the copies. -> ``arrays()``, which
+        brings the copies to the host on a stream of its own (the steps
+        do not queue behind it) and gives one numpy array per kv_spec
+        entry, on the thread that builds the snapshot block."""
+        outs = []
+        for rows in self._stack.rows(slot, 0, length):
+            rows = rows.movedim(self.ax + 1, 1)  # [n_entries, length, *trailing]
+            wire = torch.float32 if rows.dtype in (torch.float16, torch.bfloat16) else rows.dtype
+            out = torch.empty(rows.shape, dtype=wire, device=rows.device)
+            out.copy_(rows)
+            outs.append(out)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+
+        def arrays():
+            hosts = outs
+            if done is not None:
+                side = torch.cuda.Stream(device=self.device)
+                side.wait_event(done)
+                with torch.cuda.stream(side):
+                    hosts = [o.cpu() for o in outs]
+            out = [None] * len(self.kv_spec)
+            for (idx, _), host in zip(self._stack.groups, hosts):
+                rows = host.numpy()
+                for j, i in enumerate(idx):
+                    out[i] = rows[j]
+            return out
+
+        return arrays
+
+    def restore(self, slot, kv_arrays, length):
+        """Install a snapshot's first ``length`` rows (host arrays
+        ``[>= length, *trailing]``, one per kv_spec entry) into ``slot``:
+        the reference's ``restore``, as one device copy a group."""
+        for (idx, t), dst in zip(self._stack.groups, self._stack.rows(slot, 0, length)):
+            host = np.stack([np.asarray(kv_arrays[i])[:length] for i in idx])
+            src = torch.from_numpy(host).to(device=t.device, dtype=t.dtype)
+            dst.copy_(src.movedim(1, self.ax + 1))
+
+
+class _PageStore:
+    """Refcounted pages of ``page_len`` rows per kv_spec entry on the
+    engine's device, in the pool's layout (a Llama page is ``[kv_heads,
+    page_len, head_dim]``), stacked per group like the pools:
+    ``[n_entries, capacity, *page]``. The counterpart of ``_KVSlots``'
+    page methods in the reference (``page_bytes``, ``_page_alloc``,
+    ``_page_reclaim``, ``retain_page``, ``drop_page``, ``shared_pages``,
+    ``live_pages``). Only the prefix cache holds pages (slots copy
+    them), so a page is shared when two chain entries hold it. The
+    capacity doubles on demand. Used under the engine's exec lock; the
+    live and shared counts are plain ints, so ``stats`` reads them from
+    any thread without walking the refcount map."""
+
+    def __init__(self, kv_spec, seq_axis, page_len, device):
+        self.kv_spec = kv_spec
+        self.ax = int(seq_axis) - 1
+        self.page_len = int(page_len)
+        self.device = device
+        self._store = _KVStack(kv_spec, self.ax, 0, self.page_len, device)
+        self._rows = {}  # page id -> its row of the store
+        self._rc = {}    # page id -> refcount
+        self._spare = []  # store rows free for reuse
+        self._next_pid = 0
+        self._live = 0    # pages with a refcount
+        self._shared = 0  # pages with a refcount above 1
+
+    def page_bytes(self):
+        """Bytes of ONE page across every kv buffer (what the prefix cache
+        budgets with)."""
+        return sum(self.page_len * int(np.prod(tr)) * dt.itemsize for tr, dt in self.kv_spec)
+
+    def capacity(self):
+        return self._store.groups[0][1].shape[1] if self._store.groups else 0
+
+    def _grow(self):
+        cap = self.capacity()
+        new = max(8, 2 * cap)
+        groups = []
+        for idx, t in self._store.groups:
+            bigger = torch.zeros((t.shape[0], new) + tuple(t.shape[2:]), dtype=t.dtype,
+                                 device=t.device)
+            bigger[:, :cap] = t
+            groups.append((idx, bigger))
+        self._store.groups = groups
+        self._spare.extend(range(new - 1, cap - 1, -1))
+
+    def _page_alloc(self):
+        if not self._spare:
+            self._grow()
+        pid = self._next_pid
+        self._next_pid += 1
+        self._rows[pid] = self._spare.pop()
+        self._rc[pid] = 1
+        self._live += 1
+        return pid
+
+    def _page_reclaim(self, pid):
+        self._spare.append(self._rows.pop(pid))
+        del self._rc[pid]
+        self._live -= 1
+
+    def retain_page(self, pid):
+        self._rc[pid] += 1
+        if self._rc[pid] == 2:
+            self._shared += 1
+
+    def drop_page(self, pid):
+        rc = self._rc[pid] - 1
+        if rc == 1:
+            self._shared -= 1
+        if rc:
+            self._rc[pid] = rc
+        else:
+            self._page_reclaim(pid)
+
+    def shared_pages(self):
+        """Pages held by more than one owner (cache entries)."""
+        return self._shared
+
+    def live_pages(self):
+        return self._live
+
+    def _index(self, pages):
+        return torch.tensor([self._rows[p] for p in pages], dtype=torch.long,
+                            device=self.device)
+
+    def install(self, pages, staging):
+        """Copy ``pages`` into rows 0..len(pages)*page_len-1 of
+        ``staging`` (a batch-1 :class:`_KVStack`): one gather a group."""
+        n, ax = len(pages), self.ax
+        index = self._index(pages)
+        for (_, t), dst in zip(self._store.groups, staging.rows(0, 0, n * self.page_len)):
+            src = t.index_select(1, index).movedim(1, ax + 1)  # [n_g, ..., n, page, ...]
+            dst.copy_(src.reshape(dst.shape))
+
+    def publish(self, staging, first, n):
+        """``n`` fresh pages (refcount 1, the caller's) holding rows
+        ``[first*page_len, (first+n)*page_len)`` of ``staging``; -> ids."""
+        pages = [self._page_alloc() for _ in range(n)]
+        index = self._index(pages)
+        ax, pl = self.ax, self.page_len
+        for (_, t), src in zip(self._store.groups, staging.rows(0, first * pl, n * pl)):
+            shape = list(src.shape)
+            shape[ax + 1:ax + 2] = [n, pl]
+            t.index_copy_(1, index, src.reshape(shape).movedim(ax + 1, 1))
+        return pages
 
 
 class _Graphs:
@@ -225,14 +524,16 @@ class _Graphs:
     ``(phase, rows, seq)``: ``inputs(key)`` gives a program's static input
     buffers (made once, on the engine's device) and ``build(key)`` its
     ``run()``, the model's function over them. The step's run returns the
-    argmax ``int32 [rows]`` in a static buffer; a prefill's returns its
-    logits and kv. With ``capture`` each build is a CUDA graph, warmed up
-    and captured in the shared pool ``pool`` (``run`` replays it);
-    without, ``run`` is the function itself."""
+    argmax ``int32 [rows]`` in a static buffer; a fill's writes its rows
+    into ``staging`` and returns None. With ``capture`` each build is a
+    CUDA graph, warmed up and captured in the shared pool ``pool``
+    (``run`` replays it); without, ``run`` is the function itself."""
 
-    def __init__(self, model, pools, device, capture):
+    def __init__(self, model, pools, device, capture, staging, page_len):
         self._model = model
         self._pools = pools
+        self._staging = staging
+        self._page_len = page_len
         self.device = device
         self.capture = capture
         self.pool = torch.cuda.graph_pool_handle() if capture else None
@@ -242,17 +543,17 @@ class _Graphs:
         self._inputs = {}
 
     def inputs(self, key):
-        """(tokens int64, positions / lengths int32, [feature rows]) of
-        ``key``: the step's tokens and positions ``[rows]``, a prefill's
-        tokens ``[rows, seq]`` and lengths ``[rows]`` (1 until filled)."""
+        """(tokens int64, positions int32 or None, [feature rows]) of
+        ``key``: the step's tokens and positions ``[rows]``, a fill's
+        tokens ``[1, C]``."""
         bufs = self._inputs.get(key)
         if bufs is None:
-            phase, rows, seq = key
+            phase, rows, _ = key
             dev = self.device
-            tokens = torch.zeros((rows,) if phase == "step" else (rows, seq), dtype=torch.int64,
-                                 device=dev)
-            at = (torch.zeros if phase == "step" else torch.ones)(rows, dtype=torch.int32,
-                                                                  device=dev)
+            step = phase == "step"
+            width = () if step else (self._page_len,)
+            tokens = torch.zeros((rows,) + width, dtype=torch.int64, device=dev)
+            at = torch.zeros(rows, dtype=torch.int32, device=dev) if step else None
             feats = [torch.zeros((rows,) + tr, dtype=_torch_dtype(dt), device=dev)
                      for tr, dt in self._model.feature_spec]
             bufs = self._inputs[key] = (tokens, at, feats)
@@ -271,8 +572,10 @@ class _Graphs:
                 nxt.copy_(torch.argmax(logits.float(), dim=-1))
                 return nxt
         else:
+            start = key[2] - self._page_len
+
             def fn():
-                return m.prefill_fn(m.params, tokens, at, *feats)
+                m.fill_fn(m.params, tokens, start, *self._staging.views, *feats)
         if not self.capture:
             return fn
         graph = Graph(fn, self.device, self.pool)
@@ -294,11 +597,14 @@ class DecodeRequest:
     - ``result(timeout)`` -> the whole token array (raises on error).
     - ``cancel()``: abandon; the engine frees the slot before its next
       step.
+    - ``take_snapshot()`` / ``latest_snapshot()``: the newest kv-snapshot
+      block of a request with a ``snapshot_every`` cadence.
     """
 
     __slots__ = ("prompt", "features", "max_new_tokens", "eos_token_id", "token_budget_s",
-                 "trace_id", "token_dtype", "t_enqueue", "peak_batch", "_cond", "_tokens",
-                 "_taken", "_done", "_error", "finish_reason", "cancelled")
+                 "trace_id", "token_dtype", "t_enqueue", "peak_batch", "snapshot_every",
+                 "_cond", "_tokens", "_taken", "_done", "_error", "_snap", "_snap_fresh",
+                 "finish_reason", "cancelled")
 
     def __init__(self, prompt, features, max_new_tokens, eos_token_id, token_budget_s,
                  trace_id, token_dtype):
@@ -311,11 +617,14 @@ class DecodeRequest:
         self.token_dtype = token_dtype
         self.t_enqueue = time.monotonic()
         self.peak_batch = 0  # the most running sequences of any step it was in
+        self.snapshot_every = 0
         self._cond = threading.Condition()
         self._tokens = []
         self._taken = 0
         self._done = False
         self._error = None
+        self._snap = None
+        self._snap_fresh = False
         self.finish_reason = None
         self.cancelled = False
 
@@ -341,6 +650,17 @@ class DecodeRequest:
                 self._error = error
                 self.finish_reason = "error"
                 self._cond.notify_all()
+
+    def _push_snapshot(self, snap):
+        """Keep ``snap`` (a :class:`_Snapshot`) as the newest kv snapshot
+        (only the newest is kept: a resume restarts from the latest
+        position)."""
+        with self._cond:
+            if self._done:
+                return
+            self._snap = snap
+            self._snap_fresh = True
+            self._cond.notify_all()
 
     # ----------------------------------------------------- consumer side
     def cancel(self):
@@ -391,37 +711,98 @@ class DecodeRequest:
         with self._cond:
             return list(self._tokens)
 
+    def take_snapshot(self):
+        """-> ``(block, n_generated)`` for the newest kv-snapshot not yet
+        taken, or None (take-once: the server forwards each block once
+        its tokens are on the wire, so ``n_generated`` rides along). The
+        block is built here, on the caller's thread."""
+        with self._cond:
+            if not self._snap_fresh:
+                return None
+            self._snap_fresh = False
+            snap = self._snap
+        return snap.block(), snap.n_generated
+
+    def latest_snapshot(self):
+        """-> the newest kv-snapshot block (without taking it), or None;
+        built on the caller's thread at its first request."""
+        with self._cond:
+            snap = self._snap
+        return None if snap is None else snap.block()
+
+
+class _Snapshot:
+    """One kv snapshot of a running sequence: its rows copied on the
+    device (``_KVSlots.snapshot``'s ``arrays`` brings them over) and the
+    header's state. ``block()`` builds the wire block once, on the first
+    consumer thread that asks (``build(arrays, pos, last_token,
+    n_generated)``), and drops the copy; the scheduler never builds
+    one."""
+
+    __slots__ = ("_build", "_arrays", "pos", "last_token", "n_generated", "_block", "_lock")
+
+    def __init__(self, build, arrays, pos, last_token, n_generated):
+        self._build = build
+        self._arrays = arrays
+        self.pos = int(pos)
+        self.last_token = int(last_token)
+        self.n_generated = int(n_generated)
+        self._block = None
+        self._lock = threading.Lock()
+
+    def block(self):
+        with self._lock:
+            if self._block is None:
+                self._block = self._build(self._arrays, self.pos, self.last_token,
+                                          self.n_generated)
+                self._arrays = None
+            return self._block
+
 
 class _Seq:
     """One running sequence: its request, slot, and the token the next
-    step feeds at ``pos``. A joiner starts at ``pos`` = P-1 with its last
-    prompt token (the finishing step) and nothing generated."""
+    step feeds at ``pos`` (= the KV rows cached). A joiner starts at
+    ``pos`` = P-1 with its last prompt token (the finishing step) and
+    nothing generated; a resumed one at its snapshot's position, last
+    token and count."""
 
     __slots__ = ("req", "slot", "pos", "last_token", "n_generated", "t_last")
 
-    def __init__(self, req, slot):
+    def __init__(self, req, slot, state=None, now=None):
         self.req = req
         self.slot = slot
-        self.pos = req.prompt.size - 1
-        self.last_token = int(req.prompt[-1])
-        self.n_generated = 0
-        # the first token's budget runs from the enqueue
-        self.t_last = req.t_enqueue
+        if state is None:
+            self.pos = req.prompt.size - 1
+            self.last_token = int(req.prompt[-1])
+            self.n_generated = 0
+            # the first token's budget runs from the enqueue
+            self.t_last = req.t_enqueue
+        else:
+            self.pos = state["pos"]
+            self.last_token = state["last_token"]
+            self.n_generated = state["n_generated"]
+            self.t_last = now
 
 
 class DecodeEngine:
     """Continuous-batching decode front end (module docstring).
 
     ``submit`` enqueues a sequence and returns its :class:`DecodeRequest`;
-    ``generate`` is the blocking form. Any number of threads may submit;
-    one scheduler thread runs the iteration loop on ``device`` (default
-    "cuda", which raises without a card; the model's params must live
-    there). ``cuda_graph``: on a card, run the programs as captured CUDA
-    graphs (the default); False runs them eagerly there too, to compare."""
+    ``generate`` is the blocking form; ``resume`` continues a snapshotted
+    one. Any number of threads may submit; one scheduler thread runs the
+    iteration loop on ``device`` (default "cuda", which raises without a
+    card; the model's params must live there). ``cuda_graph``: on a card,
+    run the programs as captured CUDA graphs (the default); False runs
+    them eagerly there too, to compare. ``min_seq_bucket`` is the fill's
+    chunk and the prefix cache's page ``C`` (the reference's smallest
+    prompt bucket and page), and ``max_prompt_len`` must be a multiple of
+    it. ``prefix``: the prefix cache, on by default; ``prefix_max_bytes``
+    its page budget (256 MiB by default)."""
 
     def __init__(self, model, max_slots=None, max_seq_len=None, max_queue=64,
                  min_seq_bucket=8, max_prompt_len=None, default_max_new_tokens=64,
-                 name="decode", device="cuda", cuda_graph=True, **unported):
+                 name="decode", device="cuda", cuda_graph=True, prefix=True,
+                 prefix_max_bytes=None, **unported):
         for key, val in unported.items():
             if key not in _UNPORTED:
                 raise TypeError(f"DecodeEngine got an unexpected keyword argument {key!r}")
@@ -448,10 +829,24 @@ class DecodeEngine:
             raise ValueError("max_slots must be >= 1")
         if self.max_prompt_len > self.max_seq_len:
             raise ValueError("max_prompt_len cannot exceed max_seq_len")
+        # the chunk of the fill and the page of the prefix cache
+        self.page_len = self.min_seq_bucket
+        if self.max_prompt_len % self.page_len:
+            raise ValueError(f"max_prompt_len={self.max_prompt_len} must be a multiple of "
+                             f"the chunk min_seq_bucket={self.page_len}, so that a padded "
+                             "last chunk stays inside the staging buffer")
         self._slots = _KVSlots(self.max_slots, self.max_seq_len, model.kv_spec,
                                model.kv_seq_axis, self.device)
+        self._staging = _KVStack(model.kv_spec, model.kv_seq_axis - 1, 1, self.max_prompt_len,
+                                 self.device)
+        self._pages = _PageStore(model.kv_spec, model.kv_seq_axis, self.page_len, self.device)
+        self._prefix = None
+        if prefix:
+            self._prefix = PrefixCache(self._pages, max_bytes=prefix_max_bytes,
+                                       name=f"{name}-prefix")
         cuda = self.device.type == "cuda"
-        self._graphs = _Graphs(model, self._slots.pools, self.device, cuda and cuda_graph)
+        self._graphs = _Graphs(model, self._slots.pools, self.device, cuda and cuda_graph,
+                               self._staging, self.page_len)
         self._step_key = ("step", self.max_slots, self.max_seq_len)
         # host staging of the step's inputs (pinned on a card), copied into
         # the step program's buffers
@@ -463,17 +858,23 @@ class DecodeEngine:
         self._builds = collections.Counter()  # key -> builds (captures on a card)
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
-        # one model call or build at a time; reentrant, so a call builds its
-        # program at first use under the lock it already holds
+        # one model call, build or KV copy at a time; reentrant, so a call
+        # builds its program at first use under the lock it already holds
         self._exec_lock = threading.RLock()
+        self._fingerprint = None
+        self._id_lock = threading.Lock()
         self._pending = []  # FIFO of DecodeRequest
+        self._pending_resume = []  # FIFO of (req, kv arrays, state)
         self._joining = []  # (req, slot): popped, slot held, not yet prefilled
+        self._resuming = []  # (req, kv arrays, state, slot): not yet restored
         self._active = []   # _Seq
         self._closed = False
         self._dead = None   # the exception that ended the scheduler
         self._counts = collections.Counter()
         self._retired = collections.Counter()
         self._step_ms = collections.deque(maxlen=4096)
+        self._snap_copy_ms = collections.deque(maxlen=4096)  # the scheduler's share
+        self._snap_encode = collections.deque(maxlen=4096)   # (ms, bytes), consumers'
         self._scheduler = threading.Thread(target=self._run_scheduler,
                                            name=f"{name}-scheduler", daemon=True)
         self._scheduler.start()
@@ -486,8 +887,9 @@ class DecodeEngine:
         ``prompt``: 1-D (or [1, P]) int32/int64 token ids in the model's
         vocabulary (the output echoes the dtype). ``features``: arrays
         matching the model's ``feature_spec``. ``token_budget_s``: the
-        per-token budget (first token and every gap). ``snapshot_every``
-        other than 0/None raises (kv snapshots are not ported);
+        per-token budget (first token and every gap). ``snapshot_every``:
+        emit a resumable kv-snapshot block every N generated tokens
+        (``DecodeRequest.take_snapshot``; 0 or None: never).
         ``speculative`` is accepted and ignored (no draft model)."""
         del speculative
         prompt = np.asarray(prompt)
@@ -506,8 +908,6 @@ class DecodeEngine:
         if prompt.min() < 0 or prompt.max() >= self._model.vocab_size:
             # an out-of-range id would fault the embedding gather on the card
             raise ValueError(f"prompt token ids must lie in [0, {self._model.vocab_size})")
-        if snapshot_every:
-            raise ValueError("kv snapshots (snapshot_every) are not ported yet")
         spec = self._model.feature_spec
         features = [np.ascontiguousarray(np.asarray(f)) for f in features]
         if len(features) != len(spec):
@@ -525,6 +925,7 @@ class DecodeEngine:
         eos = self._model.eos_token_id if eos_token_id is None else eos_token_id
         req = DecodeRequest(np.ascontiguousarray(prompt.astype(np.int64)), features,
                             max_new_tokens, eos, token_budget_s, trace_id, token_dtype)
+        req.snapshot_every = max(0, int(snapshot_every or 0))
         with self._cond:
             if self._closed:
                 raise EngineClosed(f"{self.name} is closed")
@@ -548,7 +949,175 @@ class DecodeEngine:
         with self._cond:
             if req in self._pending:
                 self._pending.remove(req)
+            self._pending_resume[:] = [e for e in self._pending_resume if e[0] is not req]
             self._cond.notify_all()
+
+    # --------------------------------------------------- snapshot, resume
+    def _identity(self):
+        """-> (fingerprint, weights digest) of this replica, computed once
+        (``warmup`` takes them, so no stream pays for them)."""
+        with self._id_lock:
+            if self._fingerprint is None:
+                self._fingerprint = self._model.fingerprint(self.page_len)
+        return self._fingerprint, self._model.weights_digest()[0]
+
+    def _build_snapshot(self, req, arrays, pos, last_token, n_generated):
+        """Encode one kv-snapshot block (the reference's header and array
+        order: prompt int32, the generated tail, the kv buffers, the
+        features). Runs on the consumer's thread (``_Snapshot.block``),
+        outside the engine's locks; its ms (the copy to the host
+        included) and bytes go to ``stats()["snapshot_costs"]``."""
+        t0 = time.perf_counter()
+        fp, wd = self._identity()
+        header = {
+            "fingerprint": fp, "weights": wd, "quant": _QUANT, "mesh": _MESH,
+            "pos": int(pos), "last_token": int(last_token), "n_generated": int(n_generated),
+            "prompt_len": int(req.prompt.size), "max_new_tokens": int(req.max_new_tokens),
+            "eos_token_id": req.eos_token_id, "n_kv": len(self._model.kv_spec),
+        }
+        tail = np.asarray(req.tokens_so_far()[:n_generated], dtype=req.token_dtype)
+        blob = wire_spec.encode_kv_snapshot(
+            header, [req.prompt.astype(np.int32), tail] + arrays() + list(req.features))
+        with self._lock:
+            self._snap_encode.append(((time.perf_counter() - t0) * 1e3, len(blob)))
+        return blob
+
+    def _refuse(self, why):
+        with self._lock:
+            self._counts["resumes_refused"] += 1
+        raise SnapshotRefused(f"{self.name}: snapshot refused ({why}); resume on a replica "
+                              "matching the snapshot's identity")
+
+    def check_snapshot(self, payload):
+        """Parse and validate one kv-snapshot block against this replica's
+        identity and limits; -> (header, arrays). ValueError for a
+        malformed or inconsistent block (wire status 1),
+        :class:`SnapshotRefused` for an identity or capacity skew (wire
+        status 2). The kv_put preflight and ``resume`` share it."""
+        header, arrays, _ = wire_spec.decode_kv_snapshot_off(payload)
+        m = self._model
+        pos, n_gen = int(header["pos"]), int(header["n_generated"])
+        plen = int(header["prompt_len"])
+        prompt, tail = arrays[0], arrays[1]
+        n_kv = int(header.get("n_kv", len(m.kv_spec)))
+        if n_gen < 1:
+            raise ValueError("kv snapshot carries no generated tokens")
+        if prompt.ndim != 1 or prompt.size != plen:
+            raise ValueError(f"kv snapshot prompt shape {tuple(prompt.shape)} does not match "
+                             f"its declared prompt_len {plen}")
+        if tail.ndim != 1 or tail.size != n_gen:
+            raise ValueError(f"kv snapshot token tail of {tail.size} does not match its "
+                             f"declared n_generated {n_gen}")
+        if tail.dtype not in _TOKEN_DTYPES:
+            raise ValueError(f"kv snapshot token tail dtype {tail.dtype} is not a token dtype "
+                             "(int32 / int64)")
+        if pos != plen + n_gen - 1:
+            raise ValueError(f"kv snapshot position invariant broken: pos {pos} != prompt_len "
+                             f"{plen} + n_generated {n_gen} - 1")
+        if int(header["last_token"]) != int(tail[-1]):
+            raise ValueError("kv snapshot last_token does not match its token tail")
+        fp, wd = self._identity()
+        if header["fingerprint"] != fp:
+            self._refuse(f"model fingerprint {header['fingerprint']!r} != {fp!r}")
+        if header["weights"] != wd:
+            self._refuse("weights digest mismatch: same architecture, different parameter "
+                         "values; a foreign KV cache would decode garbage")
+        if header["quant"] != _QUANT:
+            self._refuse(f"quant mode {header['quant']!r} != {_QUANT!r}")
+        if header["mesh"] != _MESH:
+            self._refuse(f"mesh {header['mesh']!r} != {_MESH!r}")
+        if n_kv != len(m.kv_spec):
+            self._refuse(f"{n_kv} kv buffers != this model's {len(m.kv_spec)}")
+        if len(arrays) != 2 + n_kv + len(m.feature_spec):
+            self._refuse(f"{len(arrays)} arrays != prompt + tail + {n_kv} kv + "
+                         f"{len(m.feature_spec)} features")
+        if pos > self.max_seq_len:
+            self._refuse(f"position {pos} exceeds this engine's max_seq_len "
+                         f"{self.max_seq_len}")
+        for a, (tr, dt) in zip(arrays[2:2 + n_kv], m.kv_spec):
+            if (a.ndim != 1 + len(tr) or tuple(a.shape[1:]) != tr
+                    or a.dtype != _wire_dtype(dt) or a.shape[0] < pos):
+                self._refuse(f"kv buffer {tuple(a.shape)}/{a.dtype} does not match kv_spec "
+                             f"{tr}/{_dtype_name(dt)} at position {pos}")
+        for f, (tr, dt) in zip(arrays[2 + n_kv:], m.feature_spec):
+            if tuple(f.shape) != tr or f.dtype != dt:
+                self._refuse(f"feature {tuple(f.shape)}/{f.dtype} does not match "
+                             f"feature_spec {tr}/{dt}")
+        return header, arrays
+
+    def seed_check(self, payload):
+        """The kv_put preflight of a prefill-to-decode handoff:
+        ``check_snapshot`` plus this engine's capacity to seed a fresh
+        slot now (a full queue, or no free slot with sequences already
+        waiting, refuses retryable); -> (header, arrays)."""
+        header, arrays = self.check_snapshot(payload)
+        with self._lock:
+            if self._closed:
+                raise EngineClosed(f"{self.name} is closed")
+            waiting = len(self._pending) + len(self._pending_resume)
+            if waiting >= self.max_queue:
+                self._counts["shed"] += 1
+                raise EngineOverloaded(f"{self.name} decode queue full; seed the handoff "
+                                       "elsewhere")
+            if self._slots.free_count() == 0 and waiting > 0:
+                raise EngineOverloaded(f"{self.name} has no free KV slot and {waiting} "
+                                       "sequences already waiting; seed the handoff elsewhere")
+        return header, arrays
+
+    def resume(self, snapshot, token_budget_s=None, trace_id=None, snapshot_every=None,
+               max_new_tokens=None, speculative=False):
+        """Resume a snapshotted sequence on this engine at its exact
+        position; -> :class:`DecodeRequest`. Its ``next_tokens`` yields
+        only the tokens after the snapshot; ``result`` the whole sequence,
+        the snapshot's tail included. The sequence joins the running set
+        with its last token as the next step's row, so its suffix equals
+        the unbroken stream's, bitwise, on an engine of the same
+        configuration."""
+        del speculative
+        header, arrays = self.check_snapshot(snapshot)
+        m = self._model
+        n_kv = int(header.get("n_kv", len(m.kv_spec)))
+        prompt, tail = arrays[0], arrays[1]
+        kv_arrays = list(arrays[2:2 + n_kv])
+        feats = [np.ascontiguousarray(a) for a in arrays[2 + n_kv:]]
+        max_new = int(max_new_tokens if max_new_tokens is not None
+                      else header.get("max_new_tokens") or self.default_max_new_tokens)
+        eos = header.get("eos_token_id")
+        pos, n_gen = int(header["pos"]), int(header["n_generated"])
+        last = int(header["last_token"])
+        req = DecodeRequest(np.ascontiguousarray(prompt.astype(np.int64)), feats, max_new, eos,
+                            token_budget_s, trace_id, tail.dtype.type)
+        req.snapshot_every = max(0, int(snapshot_every or 0))
+        # the snapshot's tail counts as already consumed: result() sees the
+        # whole sequence, the stream re-emits nothing
+        req._tokens = [int(t) for t in tail]
+        req._taken = n_gen
+        # a snapshot taken at a stop boundary resumes to a clean finish
+        if eos is not None and last == eos:
+            done = "eos"
+        elif n_gen >= max_new:
+            done = "max_tokens"
+        elif pos >= self.max_seq_len:
+            done = "max_seq_len"
+        else:
+            done = None
+        if done is not None:
+            with self._lock:
+                self._counts["resumes_ok"] += 1
+                self._retired[done] += 1
+            req._finish(done)
+            return req
+        state = {"pos": pos, "last_token": last, "n_generated": n_gen}
+        with self._cond:
+            if self._closed:
+                raise EngineClosed(f"{self.name} is closed")
+            if len(self._pending) + len(self._pending_resume) >= self.max_queue:
+                self._counts["shed"] += 1
+                raise EngineOverloaded(f"{self.name} decode queue full; resume shed")
+            self._pending_resume.append((req, kv_arrays, state))
+            self._counts["requests"] += 1
+            self._cond.notify_all()
+        return req
 
     # --------------------------------------------------------- scheduler
     def _run_scheduler(self):
@@ -565,9 +1134,12 @@ class DecodeEngine:
 
     def _scheduler_loop(self):
         while True:
-            joiners = self._wait_for_work()
-            if joiners is None:
+            work = self._wait_for_work()
+            if work is None:
                 return
+            resumes, joiners = work
+            for entry in resumes:
+                self._restore(*entry)
             for req, slot in joiners:
                 self._prefill(req, slot)
             self._purge_blown_budgets()
@@ -575,28 +1147,38 @@ class DecodeEngine:
                 self._step_group()
 
     def _wait_for_work(self):
-        """Park until there is work; pop this iteration's joiners, each
-        with a slot (bounded by the free slots). None = exit."""
+        """Park until there is work; pop this iteration's resumes (first:
+        they paid their prefill elsewhere) and joiners, each with a slot
+        (bounded by the free slots). None = exit."""
         with self._cond:
             while True:
                 self._purge_expired_pending_locked(time.monotonic())
                 self._pending[:] = [r for r in self._pending if not r.cancelled]
+                self._pending_resume[:] = [e for e in self._pending_resume
+                                           if not e[0].cancelled]
                 if self._closed:
                     return None
-                if self._active or self._pending:
+                if self._active or self._pending or self._pending_resume:
                     break
                 self._cond.wait()
+            while self._pending_resume and self._slots.free_count():
+                self._resuming.append(self._pending_resume.pop(0) + (self._slots.alloc(),))
             while self._pending and self._slots.free_count():
                 self._joining.append((self._pending.pop(0), self._slots.alloc()))
-            return list(self._joining)
+            return list(self._resuming), list(self._joining)
 
     def _purge_expired_pending_locked(self, now):
-        """A queued request whose per-token budget elapsed before it could
-        join is dropped without compute."""
+        """A queued request (or resume) whose per-token budget elapsed
+        before it could join is dropped without compute."""
         expired = [r for r in self._pending if r.token_budget_s is not None
                    and now - r.t_enqueue >= r.token_budget_s]
+        expired_resume = [e for e in self._pending_resume if e[0].token_budget_s is not None
+                          and now - e[0].t_enqueue >= e[0].token_budget_s]
         for r in expired:
             self._pending.remove(r)
+        for e in expired_resume:
+            self._pending_resume.remove(e)
+        for r in expired + [e[0] for e in expired_resume]:
             self._counts["deadline_expired"] += 1
             r._fail(DeadlineExceeded(f"{self.name}: per-token budget elapsed before the "
                                      "sequence could join; dropped without compute"))
@@ -626,7 +1208,7 @@ class DecodeEngine:
         for s, reason, err in purged:
             self._notify_retired(s, reason, err)
 
-    # ----------------------------------------------------- the two paths
+    # ------------------------------------------------------- the paths
     def _program(self, key):
         """The program of ``key``, built once (the reference's
         ``_program``): every build holds the exec lock, so warmup and the
@@ -660,45 +1242,106 @@ class DecodeEngine:
             finally:
                 self._counts["k1_launches"] += flash_attention.launches - before
 
-    def _prefill(self, req, slot):
-        """Run one joiner's prompt at [1, seq_bucket(P)] and write its KV
-        rows 0..P-1 into its slot; it then joins the running set, and its
-        first token comes from its row of the next step."""
-        P = req.prompt.size
-        bucket = seq_bucket(P, self.min_seq_bucket, self.max_seq_len)
-
-        def fill(tokens, lengths, feats):
-            padded = np.zeros((1, bucket), np.int64)
-            padded[0, :P] = req.prompt
-            tokens.copy_(torch.from_numpy(padded))
-            lengths.fill_(P)
-            for buf, f in zip(feats, req.features):
-                buf.copy_(torch.from_numpy(f[None]))
-
-        err = None
-        try:
-            with self._exec_lock:  # the outputs stay the program's until copied
-                outs = self._call(("prefill", 1, bucket), fill)
-                self._slots.write_prefill(slot, outs[1:], P)
-        except Exception as e:  # noqa: BLE001 - fail this joiner
-            err = e if isinstance(e, RetryableError) else RetryableError(
-                f"{self.name}: prefill failed ({type(e).__name__}: {e}); retry the request")
+    def _admit(self, inflight, entry, err, state=None):
+        """After a joiner's prefill or a resume's restore: take ``entry``
+        off the in-flight list named ``inflight`` and join the running
+        set, or fail retryable with the slot freed, in one lock
+        acquisition (a close in between fails what is in flight)."""
+        req, slot = entry[0], entry[-1]
         with self._lock:
             if self._closed:
                 return  # close() failed the request and released the slot
-            self._joining.remove((req, slot))
+            getattr(self, inflight).remove(entry)
             if err is None:
-                self._counts["prefills"] += 1
-                self._active.append(_Seq(req, slot))
+                self._active.append(_Seq(req, slot, state, time.monotonic()))
+                if state is not None:
+                    self._counts["resumes_ok"] += 1
             else:
                 self._slots.release(slot)
                 self._retired["error"] += 1
         if err is not None:
             req._fail(err)
 
+    def _retryable(self, e, what):
+        return e if isinstance(e, RetryableError) else RetryableError(
+            f"{self.name}: {what} failed ({type(e).__name__}: {e}); retry the request")
+
+    def _restore(self, req, kv_arrays, state, slot):
+        """Copy a resumed sequence's snapshot rows into its slot."""
+        err = None
+        try:
+            with self._exec_lock:
+                self._slots.restore(slot, kv_arrays, state["pos"])
+        except Exception as e:  # noqa: BLE001 - fail this resume
+            err = self._retryable(e, "resume")
+        self._admit("_resuming", (req, kv_arrays, state, slot), err, state)
+
+    def _prefill(self, req, slot):
+        """One joiner's KV rows 0..P-1 into its slot by the chunked fill
+        (with the prefix cache); it then joins the running set, and its
+        first token comes from its row of the next step."""
+        err = None
+        try:
+            with self._exec_lock:
+                self._fill_chunks(req, slot)
+        except Exception as e:  # noqa: BLE001 - fail this joiner
+            err = self._retryable(e, "prefill")
+        self._admit("_joining", (req, slot), err)
+
+    def _fill_chunks(self, req, slot):
+        """The chunked fill of one joiner (under the exec lock): hash the
+        prompt at page boundaries, copy the longest cached prefix's pages
+        into staging rows 0..k-1, replay the fill keys from k until row
+        P-1 is covered, copy staging rows 0..P-1 into the slot, and insert
+        every chain boundary, its pages made from staging."""
+        P, C = req.prompt.size, self.page_len
+        hashes, hit = [], None
+        if self._prefix is not None:
+            hashes = prefix_hashes(req.prompt, C, feature_seed(req.features))
+            if hashes:
+                hit = self._prefix.lookup(hashes)
+        k, have = hit if hit is not None else (0, [])
+        if k:
+            self._pages.install(have, self._staging)
+        for start in range(k, P, C):
+            chunk = req.prompt[start:start + C]
+
+            def fill(tokens, _, feats, chunk=chunk):
+                padded = np.zeros((1, C), np.int64)
+                padded[0, :chunk.size] = chunk
+                tokens.copy_(torch.from_numpy(padded))
+                for buf, f in zip(feats, req.features):
+                    buf.copy_(torch.from_numpy(f[None]))
+
+            self._call(("fill", 1, start + C), fill)
+            self._counts["fill_steps"] += 1
+        self._slots.copy_from(slot, self._staging, P)
+        if hashes:
+            self._publish(hashes, have)
+
+    def _publish(self, hashes, have):
+        """Insert every chain boundary of a filled prompt: the hit's pages
+        for the rows it covered, fresh pages from staging for the rest
+        (one boundary's pages are a prefix of the next's)."""
+        n_full = hashes[-1][0] // self.page_len
+        for pid in have:  # held while the inserts may evict their entry
+            self._pages.retain_page(pid)
+        new = self._pages.publish(self._staging, len(have), n_full - len(have)) \
+            if n_full > len(have) else []
+        pages = have + new
+        evicted = 0
+        for n_tok, hx in hashes:
+            evicted += self._prefix.insert(hx, n_tok, pages[:n_tok // self.page_len])
+        for pid in pages:
+            self._pages.drop_page(pid)
+        self._counts["prefix_evictions"] += evicted
+
     def _step_group(self):
         """One step over every slot: the running sequences' rows and
-        padding rows for the free slots."""
+        padding rows for the free slots; then each row's token, and the
+        copies of the kv snapshots its cadence asks for, queued before any
+        slot can be reused (the exec lock is held throughout). The blocks
+        are built by their consumers."""
         active = list(self._active)
         tokens, pos = self._h_tokens.numpy(), self._h_pos.numpy()
         feats = [h.numpy() for h in self._h_feats]
@@ -719,56 +1362,74 @@ class DecodeEngine:
                 d.copy_(h, non_blocking=True)
 
         t0 = time.monotonic()
-        try:
-            with self._exec_lock:
+        with self._exec_lock:
+            try:
                 nxt = self._call(self._step_key, fill).cpu().numpy()
-        except Exception as e:  # noqa: BLE001 - fail the whole step batch
-            err = e if isinstance(e, RetryableError) else RetryableError(
-                f"{self.name}: decode step failed ({type(e).__name__}: {e}); retry the "
-                "request")
+            except Exception as e:  # noqa: BLE001 - fail the whole step batch
+                err = self._retryable(e, "decode step")
+                with self._lock:
+                    if self._closed:
+                        return
+                    for s in active:
+                        self._slots.release(s.slot)
+                    drop = {id(s) for s in active}
+                    self._active[:] = [x for x in self._active if id(x) not in drop]
+                    self._retired["error"] += len(active)
+                for s in active:
+                    s.req._fail(err)
+                return
+            now = time.monotonic()
+            finished, snaps = [], []
             with self._lock:
                 if self._closed:
                     return
+                self._counts["steps"] += 1
+                self._counts["step_rows"] += len(active)
+                self._step_ms.append((now - t0) * 1e3)
+                drop = set()
                 for s in active:
+                    s.req.peak_batch = max(s.req.peak_batch, len(active))
+                    s.pos += 1
+                    s.last_token = int(nxt[s.slot])
+                    s.n_generated += 1
+                    # per-token budget enforced at emit: a token that arrived
+                    # late fails retryable and frees the slot
+                    if (s.req.token_budget_s is not None
+                            and now - s.t_last > s.req.token_budget_s):
+                        finished.append((s, "deadline", DeadlineExceeded(
+                            f"{self.name}: token {s.n_generated} arrived "
+                            f"{now - s.t_last:.3f}s after the previous one (per-token budget "
+                            f"{s.req.token_budget_s}s); slot purged")))
+                    else:
+                        self._emit(s, now)
+                        reason = self._stop_reason(s)
+                        every = s.req.snapshot_every
+                        # the cadence's snapshots, and at cadence 1 the first
+                        # token's even if the sequence retires there (the
+                        # prefill handoff)
+                        if every and s.n_generated % every == 0 and (
+                                reason is None or s.n_generated == 1):
+                            snaps.append((s, s.pos, s.last_token, s.n_generated))
+                        if reason is None:
+                            continue
+                        finished.append((s, reason, None))
                     self._slots.release(s.slot)
-                drop = {id(s) for s in active}
-                self._active[:] = [x for x in self._active if id(x) not in drop]
-                self._retired["error"] += len(active)
-            for s in active:
-                s.req._fail(err)
-            return
-        now = time.monotonic()
-        finished = []
-        with self._lock:
-            if self._closed:
-                return
-            self._counts["steps"] += 1
-            self._counts["step_rows"] += len(active)
-            self._step_ms.append((now - t0) * 1e3)
-            drop = set()
-            for s in active:
-                s.req.peak_batch = max(s.req.peak_batch, len(active))
-                s.pos += 1
-                s.last_token = int(nxt[s.slot])
-                s.n_generated += 1
-                # per-token budget enforced at emit: a token that arrived
-                # late fails retryable and frees the slot
-                if (s.req.token_budget_s is not None
-                        and now - s.t_last > s.req.token_budget_s):
-                    finished.append((s, "deadline", DeadlineExceeded(
-                        f"{self.name}: token {s.n_generated} arrived {now - s.t_last:.3f}s "
-                        f"after the previous one (per-token budget {s.req.token_budget_s}s);"
-                        " slot purged")))
-                else:
-                    self._emit(s, now)
-                    reason = self._stop_reason(s)
-                    if reason is None:
-                        continue
-                    finished.append((s, reason, None))
-                self._slots.release(s.slot)
-                drop.add(id(s))
-            if drop:
-                self._active[:] = [x for x in self._active if id(x) not in drop]
+                    drop.add(id(s))
+                if drop:
+                    self._active[:] = [x for x in self._active if id(x) not in drop]
+            # a released slot's rows change only under the exec lock, which
+            # this thread has held since the step, and behind the copy on
+            # the stream; snapshots go out before the retirements (a
+            # finished request takes none, and a handoff's one-token
+            # sequence needs its block)
+            for s, p, last, n in snaps:
+                t1 = time.perf_counter()
+                arrays = self._slots.snapshot(s.slot, p)
+                build = functools.partial(self._build_snapshot, s.req)
+                s.req._push_snapshot(_Snapshot(build, arrays, p, last, n))
+                with self._lock:
+                    self._counts["snapshots"] += 1
+                    self._snap_copy_ms.append((time.perf_counter() - t1) * 1e3)
         for s, reason, err in finished:
             self._notify_retired(s, reason, err)
 
@@ -803,63 +1464,85 @@ class DecodeEngine:
             s.req._finish(reason)
 
     def _fail_all(self, err, dead=None):
-        """Fail every queued, joining and running request with ``err`` and
-        free their slots (close, or a dead scheduler)."""
+        """Fail every queued, joining, resuming and running request with
+        ``err`` and free their slots (close, or a dead scheduler)."""
         with self._cond:
             if dead is not None:
                 self._dead = dead
                 self._closed = True
             pending, self._pending = self._pending, []
+            pending += [e[0] for e in self._pending_resume]
+            self._pending_resume = []
             joining, self._joining = self._joining, []
+            resuming, self._resuming = self._resuming, []
             active, self._active = self._active, []
             for _, slot in joining:
                 self._slots.release(slot)
+            for e in resuming:
+                self._slots.release(e[3])
             for s in active:
                 self._slots.release(s.slot)
             self._cond.notify_all()
-        for r in pending + [r for r, _ in joining] + [s.req for s in active]:
+        for r in (pending + [r for r, _ in joining] + [e[0] for e in resuming]
+                  + [s.req for s in active]):
             r._fail(err)
 
     # -------------------------------------------------------------- lifecycle
     def warmup(self):
-        """Build every program before serving (the reference's ``warmup``):
-        one prefill per prompt bucket (the ladder from ``min_seq_bucket`` to
-        ``max_prompt_len``'s bucket) and the step. On a card each is warmed
-        up and captured here, so no request pays a capture. The step's
+        """Build every program before serving (the reference's ``warmup``)
+        and take the replica's identity (the weights digest, which at 7B
+        copies the weights to the host) so that no stream pays for either:
+        one fill program per chunk start below ``max_prompt_len``, and the
+        step. On a card each is warmed up and captured here. The step's
         warm-up writes padding rows only (token 0 at position 0 in every
-        slot), so it needs an idle engine: no sequence running or joining.
-        Counted nowhere. Returns the prompt buckets."""
-        top = seq_bucket(self.max_prompt_len, self.min_seq_bucket, self.max_seq_len)
-        prompt_buckets, b = [], self.min_seq_bucket
-        while b < top:
-            prompt_buckets.append(b)
-            b <<= 1
-        prompt_buckets.append(top)
+        slot), and a fill's warm-up writes staging, so it needs an idle
+        engine: no sequence running, joining or resuming. Counted nowhere.
+        Returns the fills' ``start + C``."""
+        rungs = list(range(self.page_len, self.max_prompt_len + 1, self.page_len))
         with torch.inference_mode(), self._exec_lock:
             with self._lock:
-                if self._active or self._joining:
+                if self._active or self._joining or self._resuming:
                     raise RuntimeError("warmup() needs an idle engine")
             tokens, pos, feats = self._graphs.inputs(self._step_key)
             for buf in (tokens, pos, *feats):
                 buf.zero_()
-            for pb in prompt_buckets:
-                self._program(("prefill", 1, pb))
+            for r in rungs:
+                self._program(("fill", 1, r))
             self._program(self._step_key)
-        return prompt_buckets
+            self._identity()
+        return rungs
 
     def stats(self):
         """Engine counters (the cmd-5 wire view's ``decode`` entry), in one
-        lock acquisition. ``k1_launches``: K1 launches made inside the
-        engine's prefill and step calls; ``step_rows``: running rows summed
-        over steps (mean occupancy = step_rows / (steps * max_slots));
-        ``step_ms_median``: of the last 4096 steps, host clock. ``programs``:
-        the reference's map, ``"<phase><rows>x<seq>"`` -> builds
-        (``compiles``: captures on a card; ``store_loads`` 0, no artifact
-        store) and, for a graph, ``capture_ms``; ``graph_replays``: replays
-        of every graph; ``graph_pool_bytes``: their shared memory pool."""
+        lock acquisition. ``prefix_fill_steps``: fill replays; ``prefix``:
+        the cache's counters (None when off); ``shared_pages``/
+        ``live_pages``: of the page store; ``snapshots``: snapshots taken;
+        ``resumes``: joins and refusals; ``snapshot_costs``: medians of
+        the scheduler's ms to queue a snapshot's device copy (``copy_ms``,
+        what a snapshot stalls the steps) and of a block's build on its
+        consumer's thread (``encode_ms``: the copy to the host and the
+        encoding) and ``bytes`` (None before the first).
+        ``k1_launches``: K1 launches made inside the engine's calls;
+        ``step_rows``: running rows summed over steps (mean
+        occupancy = step_rows / (steps * max_slots)); ``step_ms_median``:
+        of the last 4096 steps, host clock. ``programs``: the reference's
+        map, ``"<phase><rows>x<seq>"`` -> builds (``compiles``: captures
+        on a card; ``store_loads`` 0, no artifact store) and, for a graph,
+        ``capture_ms``; ``graph_replays``: replays of every graph;
+        ``graph_pool_bytes``: their shared memory pool;
+        ``weights_digest_ms``: the digest's one-time cost (None until
+        taken)."""
+        prefix = self._prefix.stats() if self._prefix is not None else None
+        digest = self._model._digest
         with self._lock:
             c = self._counts
             ms = sorted(self._step_ms)
+            costs = {}
+            cols = [("copy_ms", self._snap_copy_ms)]
+            cols += zip(("encode_ms", "bytes"), zip(*self._snap_encode))
+            for name, col in cols:
+                if col:
+                    costs[name] = sorted(col)[len(col) // 2]
             programs = {}
             for key, n in sorted(self._builds.items()):
                 entry = {"compiles": n, "store_loads": 0}
@@ -880,12 +1563,21 @@ class DecodeEngine:
                 "deadline_expired": c["deadline_expired"],
                 "deadline_late": c["deadline_late"],
                 "retired": {r: self._retired[r] for r in _RETIRE_REASONS},
-                "prefills": c["prefills"],
+                "prefix_fill_steps": c["fill_steps"],
                 "steps": c["steps"],
                 "step_rows": c["step_rows"],
                 "step_ms_median": ms[len(ms) // 2] if ms else None,
                 "k1_launches": c["k1_launches"],
+                "prefix": prefix,
+                "shared_pages": self._pages.shared_pages(),
+                "live_pages": self._pages.live_pages(),
+                "snapshots": c["snapshots"],
+                "resumes": {"ok": c["resumes_ok"], "refused": c["resumes_refused"]},
+                "resume_queue_depth": len(self._pending_resume),
+                "snapshot_costs": costs or None,
+                "weights_digest_ms": None if digest is None else digest[1],
                 "kv_pool_bytes": self._slots.nbytes(),
+                "staging_bytes": self._staging.nbytes(),
                 "programs": programs,
                 "cuda_graphs": self._graphs.capture,
                 "graph_replays": sum(g.replays for g in self._graphs.graphs),
@@ -908,13 +1600,17 @@ class DecodeEngine:
 
     def close(self, timeout=5.0):
         """Stop the scheduler. Queued and running requests fail with
-        EngineClosed (retryable on the wire); new submissions raise it."""
+        EngineClosed (retryable on the wire); new submissions raise it.
+        The prefix cache drops its pages once the scheduler is done."""
         with self._cond:
             already, self._closed = self._closed, True
         if not already:
             self._fail_all(EngineClosed(f"{self.name} is closing; retry elsewhere"))
         if self._scheduler is not threading.current_thread():
             self._scheduler.join(timeout)
+            if self._prefix is not None and not self._scheduler.is_alive():
+                with self._exec_lock:
+                    self._prefix.clear()
 
     def __enter__(self):
         return self

@@ -4,8 +4,9 @@ inference/wire_spec.py.
 
 Commands served: 1 ``infer`` (one-shot; the 0xDD deadline field is
 honoured, the trace and tenant fields are parsed and ignored), 3
-``health``, 5 ``stats`` and 7 ``stop``. Statuses: 0 ok, 1 request error,
-2 retryable (shed by the engine's bounded queue or an expired deadline),
+``health``, 5 ``stats``, 7 ``stop``, 9 ``kv_put`` and 10 ``kv_resume``.
+Statuses: 0 ok, 1 request error, 2 retryable (shed by the engine's
+bounded queue, an expired deadline, or a snapshot this replica refuses),
 3 stream chunk.
 
 A cmd-1 request carrying the 0x5C decode field goes to the attached
@@ -18,10 +19,20 @@ terminal frame with status 0 (the last chunk, possibly empty), or 1/2 on
 error/shed. With bit 63 (one-shot) it is one status-0 reply of the whole
 sequence. A client that vanishes mid-stream cancels its request, so its
 slot frees at once. Bit 61 (speculative) is accepted and ignored, as the
-reference ignores it without a draft model. Bit 62 (prefill handoff) and
-a non-zero snapshot cadence (bits 32-47) answer status 1: kv snapshots
-are not ported. Cmds 3 and 5 carry the engine's health and stats under
-``"decode"``. Reload, drain, metrics and the kv commands answer status 1.
+reference ignores it without a draft model. A snapshot cadence N (bits
+32-47) adds a status-3 kv-snapshot frame (``wire_spec.is_kv_snapshot``)
+every N generated tokens, sent once every token it covers is on the
+wire. Bit 62 (prefill handoff) runs the prompt to its first token and
+replies with exactly one snapshot frame and then the token.
+
+Cmd 9 (``kv_put``) checks a snapshot block against this replica (status
+0 with the header echoed as JSON, 2 on an identity or capacity skew, 1
+on a malformed block); cmd 10 (``kv_resume``) resumes it and replies as
+a decode stream with the tokens after the snapshot (one-shot: the whole
+sequence), or status 2 before any token on a skew. Neither holds the
+engine's locks while it reads or writes the socket. Cmds 3 and 5 carry
+the engine's health and stats under ``"decode"``. Reload, drain and
+metrics answer status 1.
 """
 import json
 import socket
@@ -33,8 +44,9 @@ import numpy as np
 
 from . import wire_spec
 from .batching import DeadlineExceeded, EngineClosed, RetryableError
-from .wire_spec import (CMD_HEALTH, CMD_INFER, CMD_STATS, CMD_STOP, STATUS_ERROR,
-                        STATUS_OK, STATUS_RETRYABLE, STATUS_STREAM, build_reply)
+from .wire_spec import (CMD_HEALTH, CMD_INFER, CMD_KV_PUT, CMD_KV_RESUME, CMD_STATS,
+                        CMD_STOP, STATUS_ERROR, STATUS_OK, STATUS_RETRYABLE, STATUS_STREAM,
+                        build_reply)
 
 # a 4-byte length prefix from a broken client must not trigger an
 # unbounded allocation, and a client that stalls mid-frame must not pin
@@ -182,6 +194,10 @@ class PredictorServer:
                     conn.sendall(build_reply(STATUS_OK, self._health_json().encode()))
                 elif cmd == CMD_STATS:
                     conn.sendall(build_reply(STATUS_OK, self._stats_json().encode()))
+                elif cmd == CMD_KV_PUT:
+                    self._serve_kv_put(conn, body[1:])
+                elif cmd == CMD_KV_RESUME:
+                    self._serve_kv_resume(conn, body[1:])
                 elif cmd != CMD_INFER:
                     conn.sendall(build_reply(STATUS_ERROR))
                 else:
@@ -222,39 +238,69 @@ class PredictorServer:
         if dec is None or not inputs:
             conn.sendall(build_reply(STATUS_ERROR, b"no decode engine attached to this server"))
             return
-        if opts["handoff"] or opts["snapshot_every"]:
-            conn.sendall(build_reply(STATUS_ERROR, b"kv snapshots and the prefill handoff "
-                                     b"(0x5C bits 32-47, 62) are not ported"))
-            return
+        handoff = opts["handoff"]
         try:
             req = dec.submit(inputs[0], features=list(inputs[1:]),
-                             max_new_tokens=opts["max_new_tokens"], token_budget_s=budget,
-                             trace_id=trace_id, speculative=opts["speculative"])
+                             max_new_tokens=1 if handoff else opts["max_new_tokens"],
+                             token_budget_s=budget, trace_id=trace_id,
+                             snapshot_every=1 if handoff else opts["snapshot_every"],
+                             speculative=opts["speculative"])
         except (RetryableError, EngineClosed):
             conn.sendall(build_reply(STATUS_RETRYABLE))
             return
         except Exception:  # noqa: BLE001 - a bad request (shape, dtype, length)
             conn.sendall(build_reply(STATUS_ERROR))
             return
-        if opts["oneshot"]:
-            try:
-                tokens = req.result(timeout=DECODE_STREAM_TIMEOUT)
-            except (RetryableError, EngineClosed, TimeoutError):
-                dec.cancel(req)
-                conn.sendall(build_reply(STATUS_RETRYABLE))
-                return
-            except Exception:  # noqa: BLE001 - the request's own error
-                dec.cancel(req)
-                conn.sendall(build_reply(STATUS_ERROR))
-                return
-            conn.sendall(build_reply(STATUS_OK, wire_spec.encode_arrays([tokens])))
-            return
-        self._stream_tokens(conn, dec, req)
+        if handoff:
+            self._serve_prefill_handoff(conn, dec, req)
+        elif opts["oneshot"]:
+            self._reply_whole(conn, dec, req)
+        else:
+            self._stream_tokens(conn, dec, req, emit_snapshots=bool(opts["snapshot_every"]))
 
-    def _stream_tokens(self, conn, dec, req):
+    def _reply_whole(self, conn, dec, req):
+        """One status-0 reply of the whole sequence (one-shot)."""
+        tokens = self._result(conn, dec, req)
+        if tokens is not None:
+            conn.sendall(build_reply(STATUS_OK, wire_spec.encode_arrays([tokens])))
+
+    def _result(self, conn, dec, req):
+        """The request's whole token array, or None after answering its
+        failure (status 2 retryable, 1 otherwise)."""
+        try:
+            return req.result(timeout=DECODE_STREAM_TIMEOUT)
+        except (RetryableError, EngineClosed, TimeoutError):
+            dec.cancel(req)
+            conn.sendall(build_reply(STATUS_RETRYABLE))
+        except Exception:  # noqa: BLE001 - the request's own error
+            dec.cancel(req)
+            conn.sendall(build_reply(STATUS_ERROR))
+        return None
+
+    def _serve_prefill_handoff(self, conn, dec, req):
+        """The 0x5C bit-62 path, a disaggregated fleet's prefill leg: the
+        request ran with max_new_tokens 1 and cadence 1, so the engine
+        built the n_generated=1 block at the first token. Exactly two
+        frames: one status-3 kv-snapshot frame, then the terminal status-0
+        frame with the token; status 2 if the block is missing."""
+        tokens = self._result(conn, dec, req)
+        if tokens is None:
+            return
+        blob = req.latest_snapshot()
+        if blob is None:
+            conn.sendall(build_reply(STATUS_RETRYABLE))
+            return
+        conn.sendall(build_reply(STATUS_STREAM, blob))
+        conn.sendall(build_reply(STATUS_OK, wire_spec.encode_arrays([tokens])))
+
+    def _stream_tokens(self, conn, dec, req, emit_snapshots=False, sent=0):
         """Drain one decode request onto the wire: a status-3 frame per
-        batch of new tokens, then one terminal frame. A reader that is gone
-        (a failed send) cancels the request, so its slot frees now."""
+        batch of new tokens, then one terminal frame. With
+        ``emit_snapshots`` each new kv-snapshot block goes out as one more
+        status-3 frame once ``sent`` covers its n_generated (``sent``
+        starts at a resumed stream's snapshot position). A reader that is
+        gone (a failed send) cancels the request, so its slot frees now."""
+        pending = None
         try:
             while True:
                 try:
@@ -267,14 +313,73 @@ class PredictorServer:
                     dec.cancel(req)
                     conn.sendall(build_reply(STATUS_ERROR))
                     return
+                sent += len(toks)
                 chunk = wire_spec.encode_arrays([np.asarray(toks, dtype=req.token_dtype)])
                 if done:
                     conn.sendall(build_reply(STATUS_OK, chunk))
                     return
                 conn.sendall(build_reply(STATUS_STREAM, chunk))
+                if emit_snapshots:
+                    got = req.take_snapshot()
+                    if got is not None:
+                        pending = got
+                    if pending is not None and pending[1] <= sent:
+                        conn.sendall(build_reply(STATUS_STREAM, pending[0]))
+                        pending = None
         except (OSError, ConnectionError):
             dec.cancel(req)
             raise
+
+    # ------------------------------------------------------ kv commands
+    def _serve_kv_put(self, conn, payload):
+        """Cmd 9: the snapshot preflight (``DecodeEngine.seed_check``):
+        status 0 echoes the header as JSON, a refusal is status 2, a
+        malformed block status 1."""
+        dec = self._decode_engine
+        if dec is None:
+            conn.sendall(build_reply(STATUS_ERROR, b"no decode engine attached to this server"))
+            return
+        try:
+            header, _ = dec.seed_check(payload)
+        except (RetryableError, EngineClosed) as e:
+            conn.sendall(build_reply(STATUS_RETRYABLE, str(e).encode("utf-8", "replace")))
+            return
+        except Exception as e:  # noqa: BLE001 - malformed block
+            conn.sendall(build_reply(STATUS_ERROR, str(e).encode("utf-8", "replace")))
+            return
+        conn.sendall(build_reply(STATUS_OK, json.dumps(header, sort_keys=True).encode()))
+
+    def _serve_kv_resume(self, conn, payload):
+        """Cmd 10: resume a snapshot on the decode engine and reply as a
+        streaming decode (the tokens after the snapshot), or one-shot (the
+        whole sequence); a refusal is a status-2 terminal before any
+        token."""
+        dec = self._decode_engine
+        if dec is None:
+            conn.sendall(build_reply(STATUS_ERROR, b"no decode engine attached to this server"))
+            return
+        try:
+            header, _, budget, trace_id, opts, end = wire_spec.decode_kv_resume(payload)
+        except Exception:  # noqa: BLE001 - malformed body
+            conn.sendall(build_reply(STATUS_ERROR))
+            return
+        opts = opts or {}
+        try:
+            req = dec.resume(payload[:end], token_budget_s=budget, trace_id=trace_id,
+                             snapshot_every=opts.get("snapshot_every"),
+                             max_new_tokens=opts.get("max_new_tokens"),
+                             speculative=bool(opts.get("speculative")))
+        except (RetryableError, EngineClosed):
+            conn.sendall(build_reply(STATUS_RETRYABLE))
+            return
+        except Exception:  # noqa: BLE001 - an inconsistent block
+            conn.sendall(build_reply(STATUS_ERROR))
+            return
+        if opts.get("oneshot"):
+            self._reply_whole(conn, dec, req)
+        else:
+            self._stream_tokens(conn, dec, req, emit_snapshots=bool(opts.get("snapshot_every")),
+                                sent=int(header["n_generated"]))
 
     def stop(self, drain=True, timeout=DRAIN_TIMEOUT):
         """Stop accepting, let requests mid-processing finish (up to

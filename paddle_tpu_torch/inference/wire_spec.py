@@ -14,10 +14,14 @@ optionally followed by 9-byte marker-tagged fields (``u8 marker |
 8-byte payload``) in any order, each marker at most once; parsing stops
 at the first unknown marker.
 
-Only the tables and codec the one-shot server uses are copied; the
-kv-snapshot codec, the error taxonomy and the implementation
-declarations come with the slices that serve them.
+Copied: the tables, the array and request codec, and the kv-snapshot
+block (``encode_kv_snapshot``, ``decode_kv_snapshot_off``,
+``decode_kv_snapshot_header``, ``decode_kv_resume``): a snapshot
+encodes to the reference's bytes for the same header and arrays. The
+error taxonomy and the implementation declarations come with the slices
+that serve them.
 """
+import json
 import struct
 from collections import namedtuple
 
@@ -244,6 +248,24 @@ DECODE_HANDOFF_BIT = 1 << DECODE_HANDOFF_BIT_SHIFT
 DECODE_SPEC_BIT_SHIFT = 61
 DECODE_SPEC_BIT = 1 << DECODE_SPEC_BIT_SHIFT
 
+#: First payload byte of a kv-snapshot block (and of the status-3
+#: snapshot frames that carry one). A token chunk's first payload byte
+#: is its u8 array count, far below this value, so the two frame
+#: payloads can never be confused.
+KV_FRAME_MAGIC = 0xA7
+
+#: Version of the kv-snapshot block layout + JSON header schema.
+KV_SNAPSHOT_VERSION = 1
+
+#: JSON-header keys every kv-snapshot block must carry. Identity keys
+#: (fingerprint/weights/quant/mesh) gate resume: a mismatch is a
+#: refusal (status 2), never silent wrong tokens. ``fingerprint`` is
+#: the *program* identity; ``weights`` carries the parameter-value
+#: digest separately: two replicas with the same architecture but
+#: different weights must refuse each other's snapshots.
+KV_HEADER_REQUIRED = ("v", "fingerprint", "weights", "quant", "mesh",
+                      "pos", "last_token", "n_generated", "prompt_len")
+
 #: Total wire size of one marker field (marker byte + 8 payload bytes).
 FIELD_SIZE = 9
 
@@ -254,6 +276,12 @@ def encode_arrays(arrays):
     then per-array header + row-major data). Exact-widens f16/bf16 to
     f32; raises TypeError on any other unsupported dtype — never a
     silent cast."""
+    return b"".join(_array_parts(arrays))
+
+
+def _array_parts(arrays):
+    """``encode_arrays``' block as a list of bytes-like parts, so that a
+    caller joins its own prefix and the arrays' data in one copy."""
     out = [struct.pack("<B", len(arrays))]
     for a in arrays:
         a = np.ascontiguousarray(a)
@@ -269,8 +297,8 @@ def encode_arrays(arrays):
                     "f16/bf16 widened to f32)")
         out.append(struct.pack("<BB", code, a.ndim))
         out.append(struct.pack(f"<{a.ndim}q", *a.shape))
-        out.append(a.tobytes())
-    return b"".join(out)
+        out.append(a.reshape(-1).view(np.uint8))  # the array's own bytes, joined once
+    return out
 
 
 def decode_arrays_off(payload):
@@ -318,6 +346,17 @@ def encode_decode_opts(max_new_tokens, oneshot=False, snapshot_every=0,
     return struct.pack("<BQ", DECODE_MARKER, val)
 
 
+def _decode_opts(val):
+    return {
+        "max_new_tokens": int(val & 0xFFFFFFFF) or None,
+        "oneshot": bool(val & DECODE_ONESHOT_BIT),
+        "handoff": bool(val & DECODE_HANDOFF_BIT),
+        "speculative": bool(val & DECODE_SPEC_BIT),
+        "snapshot_every": int((val >> DECODE_SNAPSHOT_EVERY_SHIFT)
+                              & DECODE_SNAPSHOT_EVERY_MASK),
+    }
+
+
 def decode_request(payload):
     """Decode a cmd-1 infer body: arrays plus the optional trailing
     marker-tagged fields (any order). Returns (arrays,
@@ -344,19 +383,102 @@ def decode_request(payload):
             (tenant,) = struct.unpack_from("<Q", payload, off + 1)
         elif marker == DECODE_MARKER and decode_opts is None:
             (val,) = struct.unpack_from("<Q", payload, off + 1)
-            decode_opts = {
-                "max_new_tokens": int(val & 0xFFFFFFFF) or None,
-                "oneshot": bool(val & DECODE_ONESHOT_BIT),
-                "handoff": bool(val & DECODE_HANDOFF_BIT),
-                "speculative": bool(val & DECODE_SPEC_BIT),
-                "snapshot_every": int(
-                    (val >> DECODE_SNAPSHOT_EVERY_SHIFT)
-                    & DECODE_SNAPSHOT_EVERY_MASK),
-            }
+            decode_opts = _decode_opts(val)
         else:
             break
         off += FIELD_SIZE
     return arrays, budget, trace_id, decode_opts
+
+
+# ------------------------------------------------------ kv snapshots
+
+def is_kv_snapshot(payload):
+    """Does this payload start with a kv-snapshot block? (A token
+    chunk's first byte is its u8 array count, never the magic.)"""
+    return len(payload) > 0 and payload[0] == KV_FRAME_MAGIC
+
+
+def encode_kv_snapshot(header, arrays):
+    """Encode one kv-snapshot block: magic + version + length-prefixed
+    JSON header + the standard array block (``[prompt, generated tail,
+    KV buffers..., features...]``). ``header`` must carry every
+    KV_HEADER_REQUIRED key; the version key is stamped here."""
+    hdr = dict(header)
+    hdr["v"] = KV_SNAPSHOT_VERSION
+    missing = [k for k in KV_HEADER_REQUIRED if k not in hdr]
+    if missing:
+        raise ValueError(f"kv-snapshot header missing keys: {missing}")
+    blob = json.dumps(hdr, sort_keys=True, separators=(",", ":")).encode("utf-8")
+    return b"".join([struct.pack("<BHI", KV_FRAME_MAGIC, KV_SNAPSHOT_VERSION, len(blob)),
+                     blob] + _array_parts(arrays))
+
+
+def _snapshot_header(payload, off):
+    """(header dict, offset past it) of the block at ``off``; ValueError
+    on a bad magic, an unknown version or a short/garbled header."""
+    if len(payload) - off < 7:
+        raise ValueError("kv-snapshot block truncated")
+    magic, version, hdr_len = struct.unpack_from("<BHI", payload, off)
+    if magic != KV_FRAME_MAGIC:
+        raise ValueError(f"kv-snapshot magic mismatch: {magic}")
+    if version != KV_SNAPSHOT_VERSION:
+        raise ValueError(f"kv-snapshot version {version} is not {KV_SNAPSHOT_VERSION}")
+    off += 7
+    if len(payload) - off < hdr_len:
+        raise ValueError("kv-snapshot header truncated")
+    try:
+        header = json.loads(bytes(payload[off:off + hdr_len]))
+    except ValueError as e:
+        raise ValueError(f"kv-snapshot header is not JSON: {e}")
+    if not isinstance(header, dict):
+        raise ValueError("kv-snapshot header is not a JSON object")
+    missing = [k for k in KV_HEADER_REQUIRED if k not in header]
+    if missing:
+        raise ValueError(f"kv-snapshot header missing keys: {missing}")
+    return header, off + hdr_len
+
+
+def decode_kv_snapshot_off(payload, off=0):
+    """Decode one kv-snapshot block at ``off``; returns (header dict,
+    arrays, offset past the block). Raises ValueError on a bad magic,
+    an unknown version, or a short/garbled header: a permanent request
+    error, not a refusal."""
+    header, off = _snapshot_header(payload, off)
+    arrays, n = decode_arrays_off(memoryview(payload)[off:])
+    return header, arrays, off + n
+
+
+def decode_kv_snapshot_header(payload):
+    """Header-only parse of a kv-snapshot block (the array block is not
+    touched); the same ValueError behaviour as
+    :func:`decode_kv_snapshot_off`."""
+    return _snapshot_header(payload, 0)[0]
+
+
+def decode_kv_resume(payload):
+    """Decode a cmd kv_resume body: one kv-snapshot block then the
+    optional trailing marker fields (the same loop and stop-at-unknown
+    rule as an infer body). Returns (header, arrays, budget_seconds or
+    None, trace_id or None, decode_opts or None, snapshot_end_offset):
+    ``payload[:end]`` is the raw block."""
+    header, arrays, snap_end = decode_kv_snapshot_off(payload)
+    off = snap_end
+    budget = trace_id = decode_opts = None
+    while len(payload) - off >= FIELD_SIZE:
+        marker = payload[off]
+        if marker == DEADLINE_MARKER and budget is None:
+            (timeout_ms,) = struct.unpack_from("<d", payload, off + 1)
+            budget = max(0.0, float(timeout_ms)) / 1000.0
+        elif marker == TRACE_MARKER and trace_id is None:
+            (tid,) = struct.unpack_from("<Q", payload, off + 1)
+            trace_id = tid or None
+        elif marker == DECODE_MARKER and decode_opts is None:
+            (val,) = struct.unpack_from("<Q", payload, off + 1)
+            decode_opts = _decode_opts(val)
+        else:
+            break
+        off += FIELD_SIZE
+    return header, arrays, budget, trace_id, decode_opts, snap_end
 
 
 def build_request(cmd, payload=b""):

@@ -27,8 +27,10 @@ and top-p through jax.random's own categorical stream
   read back once. On the CPU the same step runs eagerly.
 - ``llama_decode_model``: the same model as a ``DecodeModel`` for the
   continuous-batching engine (inference/decode.py): per-slot K/V pools,
-  per-row positions, K1 at per-row key lengths. Its prefill and step
-  build no tensor from host data, so the engine captures them.
+  per-row positions, K1 at per-row key lengths, and the fixed-shape
+  chunk program ``fill_fn`` (K1 causal over a prefix view of the
+  engine's staging buffer). Its fill and step build no tensor from host
+  data, so the engine captures them.
 
 The reference runs the whole cached loop as one jitted ``lax.scan`` and
 keeps one compiled decode per model and configuration. Here the graph is
@@ -193,6 +195,7 @@ class _LlamaWeights:
 
     def __init__(self, model):
         attn = model.layers[0].self_attn
+        self._named = list(model.named_parameters())
         self.params = _collect_llama_params(model)
         self.nh, self.nkv, self.hd = attn.num_heads, attn.num_kv_heads, attn.head_dim
         self.scale = 1.0 / math.sqrt(self.hd)
@@ -212,6 +215,11 @@ class _LlamaWeights:
             x = x + torch.matmul(F.silu(torch.matmul(h2, lp["gate"]))
                                  * torch.matmul(h2, lp["up"]), lp["down"])
         return x
+
+    def named_tensors(self):
+        """(name, tensor) of the model's parameters in its order (the
+        decode engine's weights digest and fingerprint)."""
+        return list(self._named)
 
     def logits(self, x):
         return torch.matmul(rms_norm(x, self.params["norm"]), self.params["head"])
@@ -353,10 +361,14 @@ def llama_decode_model(model, max_slots, max_seq_len):
     layer, ``[max_slots, kv_heads, max_seq_len, head_dim]`` in the weights'
     dtype (``kv_seq_axis`` 2), owned by the engine.
 
-    - prefill: one prompt ``[1, P_b]`` (padded to its bucket) through the
-      layers with K1 causal over its own K/V at ``k_len`` = the prompt's
-      length; returns the logits at its last token and every layer's K/V
-      ``[1, kv_heads, P_b, head_dim]``.
+    - fill: one chunk ``[1, C]`` at positions ``start..start+C-1`` (a
+      Python int fixed per program) through the layers; each layer writes
+      its K/V rows into the engine's staging buffers ``[1, kv_heads,
+      max_prompt_len, head_dim]`` at ``[start, start+C)`` and attends
+      through K1, causal bottom-right, over the prefix view
+      ``staging[..., :start+C, :]``, read in place by its batch-head
+      stride (``_CachedLlama.forward``'s maths). No logits: the engine's
+      finishing step gives the first token.
     - step: one token for every slot (a step row is a slot). Each row
       writes its K/V at ``(slot, positions[slot])`` of the pools and
       attends through K1 over its own slot, read in place, at ``k_len`` =
@@ -370,19 +382,19 @@ def llama_decode_model(model, max_slots, max_seq_len):
     n_layers = len(w.params["layers"])
     rows = torch.arange(max_slots, device=emb.device)
 
-    def prefill_fn(weights, tokens, lengths):
+    def fill_fn(weights, tokens, start, *staging):
+        end = start + tokens.shape[1]
         x = weights.params["embed"][tokens]
-        cos, sin = _rope_tables(weights.hd, torch.arange(tokens.shape[1], device=x.device),
+        cos, sin = _rope_tables(weights.hd, torch.arange(start, end, device=x.device),
                                 x.dtype)
-        kv = []
 
         def attend(li, q, k, v):
-            kv.extend((k, v))
-            return weights.attention(q, k, v, k_len=lengths)
+            sk, sv = staging[2 * li], staging[2 * li + 1]
+            sk[:, :, start:end] = k
+            sv[:, :, start:end] = v
+            return weights.attention(q, sk[:, :, :end], sv[:, :, :end])
 
-        x = weights.layers(x, cos, sin, attend)
-        last = x[torch.arange(tokens.shape[0], device=x.device), lengths.long() - 1]
-        return (weights.logits(last), *kv)
+        weights.layers(x, cos, sin, attend)
 
     def step_fn(weights, tokens, positions, *pools):
         x = weights.params["embed"][tokens][:, None]
@@ -399,6 +411,6 @@ def llama_decode_model(model, max_slots, max_seq_len):
         return weights.logits(weights.layers(x, cos, sin, attend)[:, 0])
 
     kv_spec = [((w.nkv, w.hd), emb.dtype)] * (2 * n_layers)
-    return DecodeModel(w, prefill_fn, step_fn, kv_spec, vocab_size=emb.shape[0],
+    return DecodeModel(w, fill_fn, step_fn, kv_spec, vocab_size=emb.shape[0],
                        kv_seq_axis=2, device=emb.device, max_slots=max_slots,
                        max_seq_len=max_seq_len)

@@ -4,8 +4,10 @@
 - A torch twin of tests/decode_worker.py's ``toy_decode_model`` (the same
   ``RandomState`` draws, the same maths, the port's model contract: KV in
   per-slot pools written in place by the step) holds the engine against
-  the JAX package's: prefill/step logits within 1e-5 (float32), and the
-  port engine's greedy tokens equal to the JAX ``DecodeEngine``'s.
+  the JAX package's: prefill/step logits within 1e-5 (float32; the
+  prefill is a plain reference here, ``toy_prefill``: the port's engine
+  fills prompts in chunks), and the port engine's greedy tokens equal to
+  the JAX ``DecodeEngine``'s.
 - The reference's engine tests (tests/test_decode.py), mirrored: a
   sequence decoded in a batch emits exactly its solo tokens. "Solo" here
   is the sequence alone in an engine of the same configuration: the port's
@@ -39,7 +41,7 @@ from paddle_tpu.text import generation as jgen
 from paddle_tpu.text import models as jmodels
 from paddle_tpu_torch.convert import load_numpy_state
 from paddle_tpu_torch.inference import batching
-from paddle_tpu_torch.inference.decode import DecodeEngine, DecodeModel, seq_bucket
+from paddle_tpu_torch.inference.decode import DecodeEngine, DecodeModel
 from paddle_tpu_torch.inference.server import PredictorServer
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.text import generation as tgen
@@ -58,13 +60,46 @@ TOL_LOGITS = 1e-5
 
 
 # ---------------------------------------------------------------- the twin
+def _feat_bias(feats):
+    bias = 0.0
+    for f in feats:
+        ff = f.to(torch.float32)
+        bias = bias + ff.reshape(ff.shape[0], -1).mean(dim=-1)
+    return bias * 0.1
+
+
+def _attend(q_scores, mask):
+    scores = torch.where(mask, q_scores, -torch.inf)
+    return torch.where(mask, torch.softmax(scores, dim=-1), 0.0)
+
+
+def toy_prefill(p, tokens, lengths, *feats):
+    """The twin's one-shot prefill, a plain reference for the JAX toy's
+    ``prefill_fn`` (the engine fills in chunks instead): -> (logits at
+    each row's last valid position, k, v)."""
+    E, Wq, Wk, Wv, Wo, U = p
+    emb = E[tokens]
+    q, k, v = emb @ Wq, emb @ Wk, emb @ Wv
+    pos = torch.arange(tokens.shape[1])
+    mask = ((pos[None, :, None] >= pos[None, None, :])
+            & (pos[None, None, :] < lengths[:, None, None]))
+    prob = _attend(torch.einsum("bph,bsh->bps", q, k), mask)
+    h = torch.tanh(torch.einsum("bps,bsh->bph", prob, v) @ Wo + emb)
+    last = h[torch.arange(tokens.shape[0]), lengths.long() - 1]
+    if feats:
+        last = last + _feat_bias(feats)[:, None]
+    return (last @ U, k, v)
+
+
 def torch_toy_model(hidden=HID, vocab=VOCAB, seed=0, feature_spec=(), eos_token_id=None,
                     step_delay=0.0, fail_steps=0):
     """The torch twin of decode_worker.toy_decode_model: one masked
     attention layer over the KV cache, a tanh MLP and the logits, from the
-    same ``RandomState(seed)`` draws. ``step_delay`` slows every step and
-    ``fail_steps`` makes the first steps raise (the reference tests use
-    chaos sites for both)."""
+    same ``RandomState(seed)`` draws, with the port's fixed-shape chunk
+    program ``fill_fn`` (the layer's K/V rows of C tokens written into
+    staging; the toy's rows need no attention). ``step_delay`` slows
+    every step and ``fail_steps`` makes the first steps raise (the
+    reference tests use chaos sites for both)."""
     rng = np.random.RandomState(seed)
 
     def mk(*shape):
@@ -73,32 +108,6 @@ def torch_toy_model(hidden=HID, vocab=VOCAB, seed=0, feature_spec=(), eos_token_
     params = [mk(vocab, hidden), mk(hidden, hidden), mk(hidden, hidden),
               mk(hidden, hidden), mk(hidden, hidden), mk(hidden, vocab)]
     failures = [fail_steps]
-
-    def feat_bias(feats):
-        bias = 0.0
-        for f in feats:
-            ff = f.to(torch.float32)
-            bias = bias + ff.reshape(ff.shape[0], -1).mean(dim=-1)
-        return bias * 0.1
-
-    def attend(q_scores, mask, v):
-        scores = torch.where(mask, q_scores, -torch.inf)
-        prob = torch.where(mask, torch.softmax(scores, dim=-1), 0.0)
-        return prob, v
-
-    def prefill_fn(p, tokens, lengths, *feats):
-        E, Wq, Wk, Wv, Wo, U = p
-        emb = E[tokens]
-        q, k, v = emb @ Wq, emb @ Wk, emb @ Wv
-        pos = torch.arange(tokens.shape[1])
-        mask = ((pos[None, :, None] >= pos[None, None, :])
-                & (pos[None, None, :] < lengths[:, None, None]))
-        prob, _ = attend(torch.einsum("bph,bsh->bps", q, k), mask, v)
-        h = torch.tanh(torch.einsum("bps,bsh->bph", prob, v) @ Wo + emb)
-        last = h[torch.arange(tokens.shape[0]), lengths.long() - 1]
-        if feats:
-            last = last + feat_bias(feats)[:, None]
-        return (last @ U, k, v)
 
     def step_fn(p, tokens, positions, kv_k, kv_v, *feats):
         if step_delay:
@@ -113,13 +122,20 @@ def torch_toy_model(hidden=HID, vocab=VOCAB, seed=0, feature_spec=(), eos_token_
         kv_k[rows, at] = k
         kv_v[rows, at] = v
         mask = torch.arange(kv_k.shape[1])[None, :] <= at[:, None]
-        prob, _ = attend(torch.einsum("bh,bsh->bs", q, kv_k), mask, kv_v)
+        prob = _attend(torch.einsum("bh,bsh->bs", q, kv_k), mask)
         h = torch.tanh(torch.einsum("bs,bsh->bh", prob, kv_v) @ Wo + emb)
         if feats:
-            h = h + feat_bias(feats)[:, None]
+            h = h + _feat_bias(feats)[:, None]
         return h @ U
 
-    return DecodeModel(params, prefill_fn, step_fn,
+    def fill_fn(p, tokens, start, kv_k, kv_v, *feats):
+        E, Wq, Wk, Wv, Wo, U = p
+        emb = E[tokens]
+        end = start + tokens.shape[1]
+        kv_k[:, start:end] = emb @ Wk
+        kv_v[:, start:end] = emb @ Wv
+
+    return DecodeModel(params, fill_fn, step_fn,
                        kv_spec=(((hidden,), np.float32), ((hidden,), np.float32)),
                        vocab_size=vocab, feature_spec=feature_spec,
                        eos_token_id=eos_token_id, device="cpu")
@@ -164,21 +180,13 @@ def jax_engine(jax_model):
 
 
 # ------------------------------------------------------- against the JAX toy
-@pytest.mark.parametrize("n,lo,hi", [(1, 8, 64), (8, 8, 64), (9, 8, 64), (33, 8, 64),
-                                     (64, 8, 64), (100, 8, 256), (3, 16, 32)])
-def test_seq_bucket_matches_the_reference(n, lo, hi):
-    from paddle_tpu.inference.decode import seq_bucket as ref_bucket
-
-    assert seq_bucket(n, lo, hi) == ref_bucket(n, lo, hi)
-
-
 def test_twin_logits_match_the_jax_toy(model, jax_model):
     tokens = np.array([[5, 6, 7, 8, 9, 0, 0, 0], [4, 0, 0, 0, 0, 0, 0, 0]], np.int32)
     lengths = np.array([5, 1], np.int32)
     jp = jax_model.params
     want = [np.asarray(x) for x in jax_model.prefill_fn(jp, tokens, lengths)]
-    got = model.prefill_fn(model.params, torch.from_numpy(tokens).long(),
-                           torch.from_numpy(lengths))
+    got = toy_prefill(model.params, torch.from_numpy(tokens).long(),
+                      torch.from_numpy(lengths))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w, atol=TOL_LOGITS, rtol=0)
     # a step over two rows: the KV of the prefill, each row at its position
@@ -313,22 +321,40 @@ def test_validation(model):
                dict(prompt=np.arange(9, dtype=np.int32)),           # > max_prompt_len
                dict(prompt=np.array([VOCAB], np.int32)),            # outside the vocab
                dict(prompt=PROMPTS[0], max_new_tokens=0),
-               dict(prompt=PROMPTS[0], features=[np.zeros(3)]),     # no feature spec
-               dict(prompt=PROMPTS[0], snapshot_every=4)]           # not ported
+               dict(prompt=PROMPTS[0], features=[np.zeros(3)])]     # no feature spec
         for kw in bad:
             with pytest.raises(ValueError):
                 eng.submit(**kw)
-        # the speculative opt-in is accepted and changes nothing
+        # the speculative opt-in is accepted and changes nothing; a
+        # snapshot cadence changes no token either
         out = eng.generate(PROMPTS[0], max_new_tokens=4, speculative=True, timeout=60)
+        req = eng.submit(PROMPTS[0], max_new_tokens=4, snapshot_every=2)
+        assert req.result(timeout=60).tolist() == out.tolist()
+        assert req.latest_snapshot() is not None
     assert out.tolist() == solo(model, PROMPTS[0], 4).tolist()
 
 
 @pytest.mark.parametrize("option", [dict(quant="w8"), dict(mesh="tp2"), dict(spec_k=4),
-                                    dict(prefix=True), dict(watchdog_interval=0.5),
+                                    dict(prefix_dir="somewhere"), dict(watchdog_interval=0.5),
                                     dict(store="somewhere")])
 def test_unported_engine_options_raise(model, option):
     with pytest.raises(NotImplementedError):
         make_engine(model, **option)
+
+
+@pytest.mark.parametrize("option", [dict(prefix=True), dict(prefix_max_bytes=4096)])
+def test_ported_engine_options_work(model, option):
+    """The prefix cache and its budget, ported: a prompt whose first page
+    is cached hits and emits its cold tokens."""
+    prompt = np.concatenate([LONG[:8], PROMPTS[0]])
+    with make_engine(model, **option) as eng:
+        eng.generate(LONG, max_new_tokens=3, timeout=60)
+        out = eng.generate(prompt, max_new_tokens=6, timeout=60)
+        st = eng.stats()
+    assert st["prefix"]["hits"] == 1 and st["prefix"]["misses"] == 1
+    if "prefix_max_bytes" in option:
+        assert st["prefix"]["max_pages"] == 4096 // (8 * HID * 4 * 2)
+    assert out.tolist() == solo(model, prompt, 6, prefix=False).tolist()
 
 
 def test_engine_device_and_off_values(model):
@@ -345,7 +371,7 @@ def test_engine_device_and_off_values(model):
 def test_decode_model_defaults_to_the_card(model):
     """Like every entry point of the port, a DecodeModel runs on the card
     unless the caller asks for the CPU: with no card it raises."""
-    args = (model.params, model.prefill_fn, model.step_fn, model.kv_spec, VOCAB)
+    args = (model.params, model.fill_fn, model.step_fn, model.kv_spec, VOCAB)
     if torch.cuda.is_available():
         assert DecodeModel(*args).device.type == "cuda"
     else:
@@ -356,17 +382,19 @@ def test_decode_model_defaults_to_the_card(model):
 
 def test_programs_built_once_per_key(model):
     """The reference's program map: one build per (phase, rows, seq) key
-    used, then warmup's whole ladder; a CPU engine runs them eagerly."""
+    used, then warmup's whole ladder; a CPU engine runs them eagerly. The
+    keys are the fills (one per chunk start) and the step."""
+    one = {"compiles": 1, "store_loads": 0}
     with make_engine(model) as eng:
         for p in (PROMPTS[0], LONG, PROMPTS[2]):
             eng.generate(p, max_new_tokens=4, timeout=60)
         st = eng.stats()
-        one = {"compiles": 1, "store_loads": 0}
-        assert st["programs"] == {"prefill1x8": one, "prefill1x16": one, "step4x32": one}
+        assert st["programs"] == {"fill1x8": one, "fill1x16": one, "step4x32": one}
         assert (st["cuda_graphs"], st["graph_replays"], st["graph_pool_bytes"]) == (False, 0, 0)
-        assert eng.warmup() == [8, 16, 32]
-        assert eng.stats()["programs"] == {"prefill1x8": one, "prefill1x16": one,
-                                           "prefill1x32": one, "step4x32": one}
+        assert st["prefix_fill_steps"] == 4
+        assert eng.warmup() == [8, 16, 24, 32]
+        assert eng.stats()["programs"] == {"fill1x8": one, "fill1x16": one, "fill1x24": one,
+                                           "fill1x32": one, "step4x32": one}
 
 
 def test_program_builds_once_under_concurrent_callers(model, monkeypatch):
@@ -379,7 +407,7 @@ def test_program_builds_once_under_concurrent_callers(model, monkeypatch):
             return real(key)
 
         monkeypatch.setattr(eng._graphs, "build", slow_build)
-        key = ("prefill", 1, 16)
+        key = ("fill", 1, 16)
         runs = []
         threads = [threading.Thread(target=lambda: runs.append(eng._program(key)))
                    for _ in range(8)]
@@ -486,7 +514,10 @@ def test_llama_engine_matches_jax_llama_generate(llama):
         got = [r.result(timeout=60) for r in reqs]
         st = eng.stats()
     assert tfa.launches == before and st["k1_launches"] == 0  # CPU: the plain version
-    assert st["prefills"] == len(LLAMA_PROMPTS) and st["active"] == 0
+    # the chunked fill: ceil(P / 8) chunks a prompt, no prefix shared
+    assert st["active"] == 0
+    assert st["prefix_fill_steps"] == sum(-(-p.size // 8) for p in LLAMA_PROMPTS)
+    assert st["prefix"]["hits"] == 0
     for p, g in zip(LLAMA_PROMPTS, got):
         want = jgen.llama_generate(jm, p, max_new_tokens=n)[0, p.size:]
         assert g.tolist() == want.tolist()
@@ -504,7 +535,10 @@ def test_llama_decode_model_shape_contract(llama):
     with DecodeEngine(dm, device="cpu") as eng:
         assert (eng.max_slots, eng.max_seq_len) == (4, 32)
         assert eng._slots.pools[0].shape == (4, attn.num_kv_heads, 32, attn.head_dim)
-        assert eng.warmup() == [8, 16, 32]
+        assert eng._staging.views[0].shape == (1, attn.num_kv_heads, 32, attn.head_dim)
+        assert eng.warmup() == [8, 16, 24, 32]
+    with pytest.raises(ValueError, match="multiple"):
+        DecodeEngine(dm, device="cpu", max_prompt_len=20)
 
 
 def test_rope_tables_take_per_row_positions():
@@ -625,10 +659,29 @@ def test_oneshot_reply_bytes_equal_the_jax_server(server, jax_engine):
 
 
 @pytest.mark.parametrize("opts", [dict(handoff=True), dict(snapshot_every=4)])
-def test_unported_decode_bits_answer_status_1(server, opts):
-    srv, _ = server
-    frames = _stream(srv.port, PROMPTS[0], 4, **opts)
-    assert [f[0] for f in frames] == [ref_spec.STATUS_ERROR]
+def test_decode_bits_handoff_and_cadence_work(model, opts):
+    """Bit 62 answers one kv-snapshot frame, then the first token; a
+    cadence of 4 adds snapshot frames (at the 4th and 8th tokens, each
+    sent between token frames once its tokens are out: 20 ms steps leave
+    tokens to follow). The tokens are the stream's either way."""
+    eng = make_engine(torch_toy_model(step_delay=0.02))
+    srv = PredictorServer(None, decode_engine=eng, own_decode_engine=True)
+    try:
+        frames = _stream(srv.port, PROMPTS[0], 10, **opts)
+    finally:
+        srv.stop()
+    want = solo(model, PROMPTS[0], 10).tolist()
+    snaps = [f for f in frames if ref_spec.is_kv_snapshot(f[1])]
+    tokens = [t for f in frames if not ref_spec.is_kv_snapshot(f[1])
+              for t in ref_spec.decode_arrays(f[1])[0].tolist()]
+    assert all(f[0] == ref_spec.STATUS_STREAM for f in frames[:-1])
+    assert frames[-1][0] == ref_spec.STATUS_OK and snaps
+    n_gen = [ref_spec.decode_kv_snapshot_header(f[1])["n_generated"] for f in snaps]
+    if opts.get("handoff"):
+        assert frames[0] is snaps[0] and len(frames) == 2
+        assert (tokens, n_gen) == (want[:1], [1])
+    else:
+        assert tokens == want and set(n_gen) <= {4, 8}
 
 
 def test_bad_decode_requests_answer_status_1_or_2(server):
@@ -677,5 +730,5 @@ def test_health_and_stats_carry_the_engine(server):
     assert out[ref_spec.CMD_HEALTH]["ok"] and out[ref_spec.CMD_HEALTH]["decode"]["ok"]
     st = out[ref_spec.CMD_STATS]["decode"]
     assert st["max_slots"] == 4 and st["tokens"] >= 3 and st["steps"] >= 3
-    assert {"active", "queue_depth", "prefills", "retired", "shed_count",
+    assert {"active", "queue_depth", "prefix_fill_steps", "retired", "shed_count",
             "deadline_expired", "k1_launches"} <= set(st)

@@ -402,7 +402,7 @@ def test_small_llama_engine_on_the_card_batch_equals_solo(cuda):
     card, its programs captured as CUDA graphs by ``warmup``: sequences
     decoded together give exactly their solo tokens (alone in the same
     engine), the tokens of the same engine run eagerly, the CPU engine's
-    tokens, and one K1 launch per layer in every prefill and step, credited
+    tokens, and one K1 launch per layer in every fill and step, credited
     by the replays."""
     from paddle_tpu_torch.inference.decode import DecodeEngine
     from paddle_tpu_torch.text.generation import llama_decode_model
@@ -416,18 +416,20 @@ def test_small_llama_engine_on_the_card_batch_equals_solo(cuda):
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, 512, (n,)).astype(np.int32) for n in (3, 30, 17, 9, 1)]
     with DecodeEngine(llama_decode_model(gpu, 4, 64), max_prompt_len=32) as eng:
-        assert eng.warmup() == [8, 16, 32]
+        assert eng.warmup() == [8, 16, 24, 32]
         st = eng.stats()
         assert st["cuda_graphs"] and st["graph_pool_bytes"] > 0 and st["graph_replays"] == 0
-        assert set(st["programs"]) == {"prefill1x8", "prefill1x16", "prefill1x32", "step4x64"}
+        assert set(st["programs"]) == {"fill1x8", "fill1x16", "fill1x24", "fill1x32",
+                                       "step4x64"}
         assert all(v["compiles"] == 1 and v["capture_ms"] > 0
                    for v in st["programs"].values())
         before = fa.launches
         reqs = [eng.submit(p, max_new_tokens=7) for p in prompts]
         together = [r.result(timeout=300) for r in reqs]
         st = eng.stats()
-        assert fa.launches - before == 2 * (st["prefills"] + st["steps"]) == st["k1_launches"]
-        assert st["graph_replays"] == st["prefills"] + st["steps"]
+        fills = st["prefix_fill_steps"]
+        assert fa.launches - before == 2 * (fills + st["steps"]) == st["k1_launches"]
+        assert st["graph_replays"] == fills + st["steps"]
         assert all(v["compiles"] == 1 for v in st["programs"].values())
         alone = [eng.generate(p, max_new_tokens=7, timeout=300) for p in prompts]
     with DecodeEngine(llama_decode_model(gpu, 4, 64), max_prompt_len=32,
@@ -529,6 +531,77 @@ def test_a_failed_capture_raises_and_nothing_runs_eagerly(cuda, monkeypatch):
         with pytest.raises(RetryableError):
             req.result(timeout=300)
         st = eng.stats()
-        assert st["steps"] == 0 and st["graph_replays"] == st["prefills"] == 1
+        assert st["steps"] == 0 and st["graph_replays"] == st["prefix_fill_steps"] == 1
         assert "step4x32" not in st["programs"]
         assert eng.health()["free_slots"] == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_chunk_form_over_a_prefix_view(cuda, dtype):
+    """K1's chunk form (the engine's fill): C queries at positions
+    start..start+C-1, causal bottom-right over the first start + C rows of
+    a longer staging buffer, read in place; against mha_reference, and a
+    row keeps its bits when the operand is C rows wider (the rows below
+    it, as the kernel's tile loop stops at each row's diagonal)."""
+    h, c, d, total = 4, 32, 128, 160
+    g = torch.Generator(device="cuda").manual_seed(5)
+    k, v = (torch.randn(h, total, d, device="cuda", generator=g).to(dtype) for _ in range(2))
+    for start in (0, 32, 96):
+        q = torch.randn(h, 2 * c, d, device="cuda", generator=g).to(dtype)
+        end = start + c
+        o, lse = fa._fwd(q[:, :c], k[:, :end], v[:, :end], 0, d ** -0.5, True, 0.0)
+        ro, rlse = fa.mha_reference(q[:, :c], k[:, :end], v[:, :end], 0, d ** -0.5, True)
+        assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+        assert (lse - rlse).abs().max().item() <= 1e-4
+        wide, wlse = fa._fwd(q, k[:, :end + c], v[:, :end + c], 0, d ** -0.5, True, 0.0)
+        assert torch.equal(wide[:, :c], o) and torch.equal(wlse[:, :c], lse)
+
+
+def test_prefix_hit_equals_cold_and_resume_on_the_card(cuda):
+    """A small bf16 Llama engine on the card, programs captured: prompts
+    sharing a 32-token prefix hit and emit exactly their cold tokens (a
+    prefix=False engine of the same configuration); a stream resumed from
+    its snapshot on the other engine emits exactly the unbroken suffix;
+    K1 runs once per layer in every fill and step."""
+    from paddle_tpu_torch.inference import wire_spec
+    from paddle_tpu_torch.inference.decode import DecodeEngine
+    from paddle_tpu_torch.text.generation import llama_decode_model
+
+    model = _small_llama().to(torch.bfloat16).eval()
+    dm = llama_decode_model(model, 4, 96)
+    rng = np.random.RandomState(3)
+    shared = rng.randint(0, 512, 32).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.randint(0, 512, n).astype(np.int32)])
+               for n in (3, 16, 31, 9)]
+    with DecodeEngine(dm, max_prompt_len=64, min_seq_bucket=16, name="hot") as hot, \
+            DecodeEngine(dm, max_prompt_len=64, min_seq_bucket=16, prefix=False,
+                         name="cold") as cold:
+        assert hot.warmup() == cold.warmup() == [16, 32, 48, 64]
+        before = fa.launches
+        hot.generate(prompts[0], max_new_tokens=2, timeout=300)
+        got = [r.result(timeout=300) for r in [hot.submit(p, max_new_tokens=9)
+                                                for p in prompts]]
+        st = hot.stats()
+        assert fa.launches - before == 2 * (st["prefix_fill_steps"] + st["steps"])
+        assert st["prefix"]["hits"] == len(prompts)
+        want = [cold.generate(p, max_new_tokens=9, timeout=300) for p in prompts]
+        assert [g.tolist() for g in got] == [w.tolist() for w in want]
+        req = hot.submit(prompts[2], max_new_tokens=12, snapshot_every=5)
+        toks = req.result(timeout=300).tolist()
+        snap = req.latest_snapshot()
+        n_gen = wire_spec.decode_kv_snapshot_header(snap)["n_generated"]
+        resumed = cold.resume(snap).result(timeout=300).tolist()
+        assert n_gen == 10 and resumed == toks
+        assert all(v["compiles"] == 1 for e in (hot, cold) for v in e.stats()["programs"].values())
+
+
+def test_weights_digest_on_the_card_equals_the_cpu_copy(cuda):
+    """The weights digest of a model on the card equals the digest of the
+    same weights on the CPU (bf16 hashed as its raw words), so a snapshot
+    taken on one resumes on the other's identity check."""
+    from paddle_tpu_torch.text.generation import llama_decode_model
+
+    model = _small_llama().to(torch.bfloat16).eval()
+    on_card = llama_decode_model(model, 2, 32).weights_digest()[0]
+    on_cpu = llama_decode_model(model.to("cpu"), 2, 32).weights_digest()[0]
+    assert on_card == on_cpu
