@@ -121,7 +121,32 @@ Phases, each fatal on failure (exit code 1):
               Snapshot bytes, the scheduler's copy ms and the consumer's
               build ms, resume-to-first-token ms and the weights digest's
               ms are printed
-  9. summary  a {"kernels": [...]} line, then as the last line
+  9. spec     speculative decoding (spec_k 4) in engines of phase 7's
+              configuration (no prefix cache) over phase 7's Llama-2-7B
+              weights, behind PredictorServer on localhost, with two
+              drafts: (a) a self-draft (llama_decode_model over the same
+              model: its own pools and programs, the target's functions at
+              the target's M, so every proposal must be the target's greedy
+              token) and (b) a layer-skip draft (the target's first 2
+              decoder layers, its embedding, norm and head, shared). Each
+              engine is warmed up (fill, step, verify, draft step, draft
+              fill captured once), then serves 24 seeded streams (prompts
+              16-128, 16-64 new) three times: plain, opted (0x5C bit 61)
+              and mixed (every other stream opted, so bursts share verify
+              replays with plain rows). It fails unless every opted and
+              mixed stream equals its plain stream bitwise, both opted
+              windows took bursts and verify replays, the self-draft had
+              no proposal rejected (acceptance exactly 1.0), K1 ran
+              32 x (fills + steps + 4 x verify replays) + draft layers x
+              (draft fills + draft steps) times in every window, no
+              program failed and every breaker stayed closed untripped,
+              and each program was captured once. Printed: tokens/s of
+              each window, acceptance, a verify replay's device ms against
+              4 step replays fed the same columns, a draft step's device
+              ms for each draft, capture ms and the graph pool's bytes
+              before and after the speculative programs, one verify
+              replay profiled (128 K1 records, the idle share)
+ 10. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -1484,11 +1509,13 @@ ENGINE_SLOTS, ENGINE_SEQ, ENGINE_PROMPT = 16, 256, 128
 ENGINE_FIRST, ENGINE_LATER = 16, 8  # streaming clients: all at once, then as the first retire
 
 
-def _decode_call(wire_spec, port, prompt, n, budget_ms=None, oneshot=False, close_after=None):
+def _decode_call(wire_spec, port, prompt, n, budget_ms=None, oneshot=False, close_after=None,
+                 speculative=False):
     """One decode request over the wire: -> (statuses of its frames, the
     token chunks they carried, seconds from the send to the first frame).
-    ``close_after``: hang up after that many frames, mid-stream."""
-    tail = wire_spec.encode_decode_opts(n, oneshot=oneshot)
+    ``close_after``: hang up after that many frames, mid-stream;
+    ``speculative``: opt in (0x5C bit 61)."""
+    tail = wire_spec.encode_decode_opts(n, oneshot=oneshot, speculative=speculative)
     if budget_ms is not None:
         tail = wire_spec.encode_deadline(budget_ms) + tail
     frame = wire_spec.build_request(wire_spec.CMD_INFER,
@@ -2161,6 +2188,243 @@ def phase_reuse(torch, fa, mods, card, eng7):
                 fill_launches=sum(n_layers * won[n]["delta"]["prefix_fill_steps"] for n in won))
 
 
+# ------------------------------------------------------------------ phase 9
+SPEC_K = 4  # tokens a verify replay checks: the last one and 3 proposals
+SPEC_STREAMS, SPEC_FIRST = 24, 16  # a window's streams: 16 at once, 8 as the first retire
+SPEC_SKIP_LAYERS = 2  # the layer-skip draft: the target's first 2 decoder layers
+SPEC_DELTAS = ("prefix_fill_steps", "steps", "tokens", "k1_launches", "graph_replays",
+               "program_failures")
+SPEC_COUNTS = ("iterations", "accepted", "rejected", "verify_steps", "draft_steps",
+               "draft_prefills")
+
+
+def spec_window(torch, fa, engine, port, wire_spec, work, opted):
+    """The streams ``work`` (dicts with prompt and n) over the wire, the
+    first SPEC_FIRST at once and the rest as the first retire, stream i
+    opted in (0x5C bit 61) where ``opted[i]``. CUDA events time the window
+    from the first send to the last terminal frame; K1 is counted from 0
+    over it. -> (tokens per stream, window ms, K1 launches, deltas of the
+    engine's counters and of its ``spec`` counters)."""
+    out, errors = [None] * len(work), []
+    retired = threading.Semaphore(0)
+    gate = threading.Barrier(SPEC_FIRST + 1)
+
+    def client(i):
+        try:
+            if i < SPEC_FIRST:
+                gate.wait()
+            else:
+                retired.acquire()
+            statuses, chunks, _ = _decode_call(wire_spec, port, work[i]["prompt"], work[i]["n"],
+                                               speculative=opted[i])
+            if (statuses[-1] != wire_spec.STATUS_OK
+                    or any(x != wire_spec.STATUS_STREAM for x in statuses[:-1])):
+                errors.append(f"stream {i}: statuses {statuses}")
+            out[i] = np.concatenate(chunks) if chunks else np.zeros(0, np.int32)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"stream {i}: {type(e).__name__}: {e}")
+        finally:
+            retired.release()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(work))]
+    for t in threads:
+        t.start()
+    before = engine.stats()
+    fa.launches = 0  # count the window's launches only
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    gate.wait()
+    start.record()
+    for t in threads:
+        t.join(600)
+        if t.is_alive():
+            fail("a speculative decode client did not finish within 600 s")
+    end.record()
+    end.synchronize()
+    launches = fa.launches
+    after = engine.stats()
+    if errors:
+        fail(f"speculative decode streams failed: {errors[:3]}")
+    bad = [i for i, (w, t) in enumerate(zip(work, out)) if t.size != w["n"]]
+    if bad:
+        fail(f"speculative decode streams {bad} did not carry exactly their max_new_tokens")
+    delta = {k: after[k] - before[k] for k in SPEC_DELTAS}
+    delta.update({k: after["spec"][k] - before["spec"][k] for k in SPEC_COUNTS})
+    return out, start.elapsed_time(end), launches, delta
+
+
+def one_call_device_ms(torch, fn):
+    """The summed durations of the kernels one call of ``fn`` ran, from a
+    torch.profiler window around that call alone (a window over many
+    7B replays loses records), or None where it saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = device_us(prof.key_averages())
+    return us / 1e3 if us else None
+
+
+def spec_replays(torch, engine, n_layers, mean_len, card, verify):
+    """On the idle engine, every row at ``mean_len``: with ``verify``, one
+    verify replay (the k calls of one graph) against k replays of the
+    step's graph fed the verify's columns (by device copies), and one
+    verify replay profiled (n_layers x k K1 records, the idle share); one
+    draft step replay. Each timed by CUDA events over back-to-back calls
+    and by the device time of one call. -> {name: (events ms, device
+    ms)}."""
+    g = engine._graphs
+    out = {}
+    with torch.inference_mode(), engine._exec_lock:
+        v_tok, v_pos, _ = g.inputs(engine._verify_key)
+        s_tok, s_pos, _ = g.inputs(engine._step_key)
+        d_tok, d_pos, _ = engine._draft_graphs.inputs(engine._draft_step_key)
+        v_tok.zero_()
+        v_pos.copy_(mean_len + torch.arange(SPEC_K, dtype=torch.int32, device=v_pos.device))
+        d_tok.zero_()
+        d_pos.fill_(mean_len)
+        run_v = engine._program(engine._verify_key)
+        run_s = engine._program(engine._step_key)
+        run_d = engine._program(engine._draft_step_key)
+
+        def k_steps():
+            for i in range(SPEC_K):
+                s_tok.copy_(v_tok[:, i])
+                s_pos.copy_(v_pos[:, i])
+                run_s()
+
+        fns = {"draft_step": run_d}
+        if verify:
+            fns = {"verify": run_v, "k_steps": k_steps, **fns}
+        for name, fn in fns.items():
+            out[name] = (cuda_ms(torch, fn, iters=5, warmup=1), one_call_device_ms(torch, fn))
+        if verify:
+            v_ms, v_busy, v_kernels, k1 = profile_replay(
+                torch, lambda: run_v().cpu(), f"one verify replay, {ENGINE_SLOTS} rows x "
+                f"{SPEC_K} positions from cache length {mean_len}", n_layers * SPEC_K)
+            idle = f"{100 * (1 - v_busy / v_ms):.1f}%" if v_busy > 0 else "not measured"
+            log(f"[profile] device idle {idle} of a verify replay; {v_kernels} kernels; K1 "
+                f"records {k1} (expected {n_layers * SPEC_K}) | {card}")
+            if k1 != n_layers * SPEC_K:
+                fail(f"a profiled verify replay shows {k1} K1 kernels, not {n_layers * SPEC_K}")
+    return out
+
+
+def phase_spec(torch, fa, mods, card, eng7):
+    """Phase 9 (module docstring) with phase 7's 7B weights."""
+    import gc
+
+    generation, DecodeEngine, PredictorServer, wire_spec = mods
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, dm7 = eng7["model"], eng7["dm"]
+    n_layers = len(model.layers)
+    vocab = model.embed_tokens.weight.shape[0]
+    rng = np.random.RandomState(9)
+    work = [dict(prompt=rng.randint(0, vocab, int(rng.randint(16, ENGINE_PROMPT + 1)))
+                 .astype(np.int32), n=int(rng.randint(16, 65))) for _ in range(SPEC_STREAMS)]
+    mean_len = int(np.mean([w["prompt"].size + w["n"] / 2 for w in work]))
+    drafts = {
+        "self-draft": (generation.llama_decode_model(model, ENGINE_SLOTS, ENGINE_SEQ), n_layers),
+        "layer-skip": (generation.llama_decode_model(
+            generation.llama_layer_skip(model, SPEC_SKIP_LAYERS), ENGINE_SLOTS, ENGINE_SEQ),
+            SPEC_SKIP_LAYERS),
+    }
+    res = dict(launches=0, verify_launches=0, draft_launches=0)
+    for label, (draft, d_layers) in drafts.items():
+        t = time.perf_counter()
+        dm = copy.copy(dm7)  # phase 7's model (its weights digest taken), with a draft
+        dm.draft = draft
+        # no prefix cache: every window fills its prompts cold, so the
+        # windows' tokens/s compare
+        engine = DecodeEngine(dm, max_prompt_len=ENGINE_PROMPT, min_seq_bucket=ENGINE_CHUNK,
+                              max_queue=64, spec_k=SPEC_K, prefix=False, name=f"llama-7b-{label}")
+        with torch.inference_mode():  # the plain programs first: the pool before the rest
+            for key in (("fill", 1, ENGINE_CHUNK), engine._step_key):
+                engine._program(key)
+        pool_plain = engine.stats()["graph_pool_bytes"]
+        engine.warmup()
+        torch.cuda.synchronize()
+        st = engine.stats()
+        log(f"[spec] {label} ({d_layers} layers, weights shared with the target): spec_k "
+            f"{SPEC_K}, draft KV pools {st['draft_kv_pool_bytes'] / 1e9:.3f} GB; captures "
+            + ", ".join(f"{k} {v.get('capture_ms', float('nan')):.1f} ms"
+                        for k, v in st["programs"].items())
+            + f"; graph pool {pool_plain} bytes after the fill and the step, "
+            f"{st['graph_pool_bytes']} with the verify and the draft's programs; engine up in "
+            f"{time.perf_counter() - t:.2f} s | {card}")
+        server = PredictorServer(None, decode_engine=engine, own_decode_engine=True)
+        wins = {}
+        for name, opted in (("plain", [False] * SPEC_STREAMS), ("opted", [True] * SPEC_STREAMS),
+                            ("mixed", [i % 2 == 0 for i in range(SPEC_STREAMS)])):
+            wins[name] = spec_window(torch, fa, engine, server.port, wire_spec, work, opted)
+        plain = wins["plain"][0]
+        for name, (toks, ms, k1, d) in wins.items():
+            same = sum(np.array_equal(a, b) for a, b in zip(toks, plain))
+            want = (n_layers * (d["prefix_fill_steps"] + d["steps"] + SPEC_K * d["verify_steps"])
+                    + d_layers * (d["draft_prefills"] + d["draft_steps"]))
+            checked = d["accepted"] + d["rejected"]
+            acc = d["accepted"] / checked if checked else float("nan")
+            mean_acc = (d["accepted"] / (d["iterations"] * (SPEC_K - 1))
+                        if d["iterations"] else float("nan"))
+            log(f"[spec] {label}, {name} window: {same}/{SPEC_STREAMS} streams bitwise the "
+                f"plain window's; {d['tokens']} tokens in {ms:.1f} ms (CUDA events) = "
+                f"{d['tokens'] / ms * 1e3:.1f} tokens/s; {d['prefix_fill_steps']} fills, "
+                f"{d['steps']} steps, {d['verify_steps']} verify replays, {d['draft_prefills']} "
+                f"draft fills, {d['draft_steps']} draft steps; bursts {d['iterations']}, "
+                f"accepted {d['accepted']}, rejected {d['rejected']}: acceptance {acc:.4f} of "
+                f"the proposals checked, {mean_acc:.4f} a burst (the reference's metric); K1 "
+                f"launches {k1} = {n_layers} x ({d['prefix_fill_steps']} + {d['steps']} + "
+                f"{SPEC_K} x {d['verify_steps']}) + {d_layers} x ({d['draft_prefills']} + "
+                f"{d['draft_steps']}) = {want}, the engine counted {d['k1_launches']}; "
+                f"program failures {d['program_failures']} | {card}")
+            if same != SPEC_STREAMS:
+                fail(f"{label}: a stream of the {name} window differs from its plain tokens")
+            if k1 != want or d["k1_launches"] != want or d["program_failures"]:
+                fail(f"{label}: the {name} window's K1 launches do not match its programs' "
+                     "calls, or a program failed")
+            if name != "plain" and not (d["iterations"] > 0 and d["verify_steps"] > 0):
+                fail(f"{label}: the {name} window took no speculative burst")
+            if name != "plain" and label == "self-draft" and (d["rejected"] or not d["accepted"]):
+                fail("the self-draft's acceptance is not exactly 1.0: the verify or the draft "
+                     "does not compute what the step computes")
+            res["launches"] += k1
+            res["verify_launches"] += n_layers * SPEC_K * d["verify_steps"]
+            res["draft_launches"] += d_layers * (d["draft_prefills"] + d["draft_steps"])
+        # the verify is the target's program, the same in both engines:
+        # timed in the first
+        times = spec_replays(torch, engine, n_layers, mean_len, card,
+                             verify=label == "self-draft")
+        if "verify" in times:
+            (v_ev, v_dev), (s_ev, s_dev) = times["verify"], times["k_steps"]
+            log(f"[spec] the engine idle, every row at cache length {mean_len}: a verify replay "
+                f"({SPEC_K} step calls in one graph) {_fmt(v_dev)} ms device ({v_ev:.3f} ms "
+                f"events) against {SPEC_K} step replays fed the same columns {_fmt(s_dev)} ms "
+                f"device ({s_ev:.3f} events) | {card}")
+        d_ev, d_dev = times["draft_step"]
+        log(f"[spec] {label}: a draft step replay, every row at cache length {mean_len}, "
+            f"{_fmt(d_dev)} ms device ({d_ev:.3f} ms events) | {card}")
+        st = engine.stats()
+        broken = {k: v["breaker"] for k, v in st["programs"].items()
+                  if v.get("breaker", {}).get("state", "closed") != "closed"
+                  or v.get("breaker", {}).get("trips", 0)}
+        if (broken or st["program_failures"] or st["quarantine_shed"]
+                or any(v["compiles"] != 1 for v in st["programs"].values())):
+            fail(f"{label}: a breaker opened or tripped, a program failed or was built twice: "
+                 f"{broken}, {st['program_failures']} failures, programs {st['programs']}")
+        server.stop()
+        del engine, server
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[spec] {label}: its engine's part of the phase took "
+            f"{time.perf_counter() - t:.1f} s")
+    log(f"[spec] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 # ------------------------------------------------------- the chunk sweep
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
@@ -2321,6 +2585,9 @@ def main():
     reuse = phase_reuse(torch, fa, (generation, DecodeEngine, PredictorServer, wire_spec),
                         card, eng)
     took("reuse")
+    spec = phase_spec(torch, fa, (generation, DecodeEngine, PredictorServer, wire_spec), card,
+                      eng)
+    took("spec")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -2374,7 +2641,11 @@ def main():
         dict(name=kernels[0]["name"], route="cuda", source=kernels[0]["source"],
              replaces=kernels[0]["replaces"],
              launches=(serving_launches + train["counts"]["fwd"] + gen["launches"]
-                       + eng["launches"] + reuse["launches"]),
+                       + eng["launches"] + reuse["launches"] + spec["launches"]),
+             # phase 9's: in its verify replays (k a layer each) and in its
+             # drafts' fills and steps
+             spec_verify_launches=spec["verify_launches"],
+             spec_draft_launches=spec["draft_launches"],
              max_abs_err=main["max_abs_err"], **timing(main), bound_ms=main["bound_ms"],
              bound_by=main["bound_by"],
              # K1 at the training shape, [64 * 12, 128, 64] bfloat16

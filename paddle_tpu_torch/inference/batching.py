@@ -13,9 +13,12 @@ absolute deadline: expired requests are dropped before dispatch, and a
 group never waits past the tightest deadline of its members. Padding rows
 are sliced off before anything is returned.
 
-Not yet ported (later slices): the per-bucket circuit breaker, the
-scheduler watchdog, cold-compile threads, the artifact store, meshes and
-the obs metrics. A batch that raises fails only its own group.
+The circuit breaker (:class:`_Breaker`, :class:`BucketQuarantined`) is
+ported and guards every program key of the decode engine
+(inference/decode.py). Not yet ported (later slices): its per-bucket use
+in this engine, the scheduler watchdog, cold-compile threads, the
+artifact store, meshes and the obs metrics. A batch that raises fails
+only its own group.
 """
 import threading
 import time
@@ -35,6 +38,12 @@ class EngineOverloaded(RetryableError):
     """The bounded queue is full: the request was shed."""
 
 
+class BucketQuarantined(RetryableError):
+    """This request's program breaker is open after repeated failures;
+    the program sheds fast while it cools down. Other programs keep
+    serving."""
+
+
 class DeadlineExceeded(RetryableError):
     """The request's deadline passed before its batch dispatched; it was
     dropped without spending compute."""
@@ -42,6 +51,56 @@ class DeadlineExceeded(RetryableError):
 
 class EngineClosed(RuntimeError):
     pass
+
+
+class _Breaker:
+    """Per-program circuit breaker (the reference's ``_Breaker``). All
+    methods are called under the owning engine's lock.
+
+    closed --threshold consecutive failures--> open --cooldown--> half_open
+      ^                                          ^                    |
+      +----------- probe succeeds ---------------+--- probe fails ----+
+    """
+
+    CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
+    __slots__ = ("threshold", "cooldown", "state", "failures", "opened_at", "trips", "shed")
+
+    def __init__(self, threshold, cooldown):
+        self.threshold = threshold
+        self.cooldown = cooldown
+        self.state = self.CLOSED
+        self.failures = 0
+        self.opened_at = 0.0
+        self.trips = 0
+        self.shed = 0
+
+    def allow(self, now):
+        """May a call of this program run now? OPEN past its cooldown
+        admits exactly one probe (HALF_OPEN); another call while the
+        probe is out is refused."""
+        if self.state == self.CLOSED:
+            return True
+        if self.state == self.OPEN and now - self.opened_at >= self.cooldown:
+            self.state = self.HALF_OPEN
+            return True
+        return False
+
+    def record_success(self):
+        self.failures = 0
+        self.state = self.CLOSED
+
+    def record_failure(self, now):
+        self.failures += 1
+        if self.threshold <= 0:
+            return  # disabled: count, never trip
+        if self.state == self.HALF_OPEN or self.failures >= self.threshold:
+            self.state = self.OPEN
+            self.opened_at = now
+            self.trips += 1
+
+    def as_dict(self):
+        return {"state": self.state, "consecutive_failures": self.failures,
+                "trips": self.trips, "shed": self.shed}
 
 
 def bucket_rows(n, max_batch_size):

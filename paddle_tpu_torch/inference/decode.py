@@ -15,6 +15,8 @@ frees and leave the moment they finish::
       each resume: snapshot rows -> a free slot, at its exact position
                                      |
       every slot:  STEP [max_slots] -> one token per running sequence
+               or, with an opted row: DRAFT_STEP [max_slots] until caught
+                   up, then VERIFY [max_slots, k] -> 1..k tokens per row
                                      |       (kv snapshots at a cadence)
       retire on eos / max_new_tokens / max_seq_len / deadline / cancel
 
@@ -114,22 +116,60 @@ identity (``check_snapshot``: a skew raises :class:`SnapshotRefused`,
 wire status 2) and joins the sequence at its exact position with its
 last token as the next step's row.
 
+**Speculative decoding** (the reference's, decode.py :128-138).
+``DecodeModel.draft`` is a cheaper model over the same vocab and
+features (its kv_spec and depth are free); with ``spec_k`` = k >= 2 a
+request that opts in (``speculative=True``, wire 0x5C bit 61) takes
+bursts. The draft has its own pools (draft row i belongs to slot i, so
+it needs no allocator), its own staging and its own programs:
+``("draft_fill", 1, start + C)``, its chunked fill of a sequence's
+prompt rows 0..P-2 at its first burst, and ``("draft_step", max_slots,
+max_seq_len)``. A burst holds the exec lock from the draft's first
+program to the verify's last copy: draft steps catch every opted row up
+to ``pos + k - 2`` (the draft's own finishing step re-feeds the last
+prompt token at P-1, as the target's does, so a draft with the target's
+functions computes exactly the target's rows), their argmaxes from
+``pos`` on being the proposals; then ONE ``("verify", max_slots,
+max_seq_len)`` program runs k unrolled ``step_fn`` calls over the
+target's pools, call i feeding column i of ``tokens [max_slots, k]`` at
+``positions [max_slots, k]`` and writing in place as the step does. Every
+call has the step's M, so call i is bitwise a plain step. An opted row
+feeds ``[last_token, d_1..d_{k-1}]`` at ``pos..pos+k-1``; every other
+running row repeats ``(last_token, pos)`` in all k columns (the rewrite
+is idempotent) and takes column 0's token, so one replay covers every
+slot; free slots are padding. The accept loop emits an opted row's
+tokens up to and including the first that differs from its proposal:
+exactly plain greedy's. Rollback is by pointer: rejected entries sit
+past ``pos`` in the target's pool and past ``draft_pos`` in the draft's,
+and each row writes its position before it attends, so they are
+overwritten before they can be read. In a draft step a row that is not
+catching up repeats its last draft feed ``(token, draft_pos - 1)``, so
+it keeps its draft rows; a row without draft state feeds token 0 at
+position 0. A draft or verify that its breaker refuses, or that raises,
+makes the iteration a plain step: draft trouble costs speed, never a
+request.
+
 **Robustness kept**: the bounded queue (:class:`EngineOverloaded`),
 per-token deadlines (the wire budget bounds the time to the first token
 and every gap after it; a blown budget fails retryable and frees the slot
-at once), cancellation between iterations, and a failed fill,
-restore or step failing its requests retryable with their slots freed.
-There is no fallback: a CUDA engine whose kernel fails to build or
-launch fails the requests in flight, and never drops to the CPU or a
-plain version.
+at once), cancellation between iterations, a failed fill, restore or
+step failing its requests retryable with their slots freed, and a
+circuit breaker per program key (``batching._Breaker``: open after
+``breaker_threshold`` consecutive failures, one probe after
+``breaker_cooldown`` s): a quarantined fill or step sheds its requests
+with :class:`BucketQuarantined` (retryable, wire status 2), a
+quarantined draft or verify falls back to the plain step. There is no
+device fallback: a CUDA engine whose kernel fails to build or launch
+fails the requests in flight, and never drops to the CPU or a plain
+version.
 
 Not ported (ROADMAP Queue 1): the artifact store and the persistent
-prefix tier (``prefix_dir``), breakers, the watchdog and scheduler
-restarts, obs metrics, spans and chaos sites, speculative decoding,
-quantized and meshed serving, and phases (the reference's engine decodes
-greedily, as this one does). Constructor options of those raise
-``NotImplementedError``; the speculative opt-in is accepted and ignored,
-as the reference ignores it without a draft model.
+prefix tier (``prefix_dir``), the watchdog and scheduler restarts, obs
+metrics, spans and chaos sites, quantized and meshed serving, and phases
+(the reference's engine decodes greedily, as this one does). Constructor
+options of those raise ``NotImplementedError``. The port reads no
+environment: ``spec_k``, ``breaker_threshold`` and ``breaker_cooldown``
+default to 0 (off), 3 and 5.0 s, the reference's environment defaults.
 """
 import collections
 import functools
@@ -146,7 +186,8 @@ from ..core.cuda_graph import Graph, pool_bytes
 from ..core.place import resolve_device
 from ..ops import flash_attention
 from . import wire_spec
-from .batching import DeadlineExceeded, EngineClosed, EngineOverloaded, RetryableError
+from .batching import (BucketQuarantined, DeadlineExceeded, EngineClosed, EngineOverloaded,
+                       RetryableError, _Breaker)
 from .prefix_cache import PrefixCache, feature_seed, prefix_hashes
 
 # prompt / token dtypes of the wire spec (codes 1 and 2): streamed chunks
@@ -159,8 +200,7 @@ _RETIRE_REASONS = ("eos", "max_tokens", "max_seq_len", "deadline", "error", "can
 # that ask for nothing (the reference's "off")
 _UNPORTED = {
     "store": (None,), "quant": (None, "f32"), "mesh": (None, "single"),
-    "phase": (None, "both"), "spec_k": (None, 0), "prefix_dir": (None,),
-    "breaker_threshold": (None,), "breaker_cooldown": (None,),
+    "phase": (None, "both"), "prefix_dir": (None,),
     "watchdog_interval": (None, 0, 0.0), "wedge_timeout": (None,),
 }
 
@@ -225,11 +265,15 @@ class DecodeModel:
     where ``params`` live, the card unless the caller asks for the CPU (it
     raises without a card); the engine runs there. ``max_slots`` and
     ``max_seq_len``: the engine shape the functions were built for, if
-    they fix one (an engine given none takes them)."""
+    they fix one (an engine given none takes them). ``draft``: an
+    optional companion DecodeModel for speculative decoding, over the
+    same vocab and feature_spec (its kv_spec, kv_seq_axis and depth may
+    differ), with its own ``fill_fn``/``step_fn`` on the same device;
+    greedy output stays bitwise that of decoding without it."""
 
     def __init__(self, params, fill_fn, step_fn, kv_spec, vocab_size, feature_spec=(),
                  eos_token_id=None, kv_seq_axis=1, device="cuda", max_slots=None,
-                 max_seq_len=None):
+                 max_seq_len=None, draft=None):
         self.params = params
         self.fill_fn = fill_fn
         self.step_fn = step_fn
@@ -243,6 +287,7 @@ class DecodeModel:
         self.device = resolve_device(device)
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
+        self.draft = draft
         self._digest = None  # (weights digest, ms), computed once
         self._digest_lock = threading.Lock()
 
@@ -520,23 +565,27 @@ class _PageStore:
 
 
 class _Graphs:
-    """The engine's programs (the reference's ``_Programs``), keyed
-    ``(phase, rows, seq)``: ``inputs(key)`` gives a program's static input
-    buffers (made once, on the engine's device) and ``build(key)`` its
-    ``run()``, the model's function over them. The step's run returns the
-    argmax ``int32 [rows]`` in a static buffer; a fill's writes its rows
-    into ``staging`` and returns None. With ``capture`` each build is a
-    CUDA graph, warmed up and captured in the shared pool ``pool``
-    (``run`` replays it); without, ``run`` is the function itself."""
+    """The programs of one model (the reference's ``_Programs``), keyed
+    ``(phase, rows, seq)``; a draft's phases carry the ``draft_`` prefix.
+    ``inputs(key)`` gives a program's static input buffers (made once, on
+    the engine's device) and ``build(key)`` its ``run()``, the model's
+    function over them. A step's run returns the argmax ``int32 [rows]``
+    and the verify's ``int32 [rows, spec_k]`` in a static buffer; a
+    fill's writes its rows into ``staging`` and returns None. With a
+    graph memory ``pool`` (the engine's, shared by all its programs, the
+    draft's too: they never replay concurrently) each build is a CUDA
+    graph, warmed up and captured in it (``run`` replays it); with None,
+    ``run`` is the function itself."""
 
-    def __init__(self, model, pools, device, capture, staging, page_len):
+    def __init__(self, model, pools, device, pool, staging, page_len, spec_k=0):
         self._model = model
         self._pools = pools
         self._staging = staging
         self._page_len = page_len
+        self._spec_k = spec_k
         self.device = device
-        self.capture = capture
-        self.pool = torch.cuda.graph_pool_handle() if capture else None
+        self.pool = pool
+        self.capture = pool is not None
         self.pool_bytes = 0
         self.capture_ms = {}  # key -> ms
         self.graphs = []
@@ -544,16 +593,18 @@ class _Graphs:
 
     def inputs(self, key):
         """(tokens int64, positions int32 or None, [feature rows]) of
-        ``key``: the step's tokens and positions ``[rows]``, a fill's
-        tokens ``[1, C]``."""
+        ``key``: the step's tokens and positions ``[rows]``, the verify's
+        ``[rows, spec_k]`` (column i is call i's), a fill's tokens ``[1,
+        C]``."""
         bufs = self._inputs.get(key)
         if bufs is None:
             phase, rows, _ = key
+            phase = phase.replace("draft_", "")
             dev = self.device
-            step = phase == "step"
-            width = () if step else (self._page_len,)
+            width = {"step": (), "verify": (self._spec_k,), "fill": (self._page_len,)}[phase]
             tokens = torch.zeros((rows,) + width, dtype=torch.int64, device=dev)
-            at = torch.zeros(rows, dtype=torch.int32, device=dev) if step else None
+            at = (None if phase == "fill"
+                  else torch.zeros((rows,) + width, dtype=torch.int32, device=dev))
             feats = [torch.zeros((rows,) + tr, dtype=_torch_dtype(dt), device=dev)
                      for tr, dt in self._model.feature_spec]
             bufs = self._inputs[key] = (tokens, at, feats)
@@ -562,7 +613,8 @@ class _Graphs:
     def build(self, key):
         m = self._model
         tokens, at, feats = self.inputs(key)
-        if key[0] == "step":
+        phase = key[0].replace("draft_", "")
+        if phase == "step":
             nxt = torch.zeros(key[1], dtype=torch.int32, device=self.device)
 
             def fn():
@@ -570,6 +622,18 @@ class _Graphs:
                 # greedy on the device (the first maximum, as np.argmax):
                 # only [rows] int32 comes back
                 nxt.copy_(torch.argmax(logits.float(), dim=-1))
+                return nxt
+        elif phase == "verify":
+            nxt = torch.zeros((key[1], self._spec_k), dtype=torch.int32, device=self.device)
+
+            def fn():
+                # the reference's _verify_fn: k unrolled step_fn calls, each
+                # over the kv the earlier ones wrote in place, each on
+                # contiguous [rows] inputs like the step's
+                for i in range(self._spec_k):
+                    logits = m.step_fn(m.params, tokens[:, i].contiguous(),
+                                       at[:, i].contiguous(), *self._pools, *feats)
+                    nxt[:, i].copy_(torch.argmax(logits.float(), dim=-1))
                 return nxt
         else:
             start = key[2] - self._page_len
@@ -603,8 +667,8 @@ class DecodeRequest:
 
     __slots__ = ("prompt", "features", "max_new_tokens", "eos_token_id", "token_budget_s",
                  "trace_id", "token_dtype", "t_enqueue", "peak_batch", "snapshot_every",
-                 "_cond", "_tokens", "_taken", "_done", "_error", "_snap", "_snap_fresh",
-                 "finish_reason", "cancelled")
+                 "speculative", "_cond", "_tokens", "_taken", "_done", "_error", "_snap",
+                 "_snap_fresh", "finish_reason", "cancelled")
 
     def __init__(self, prompt, features, max_new_tokens, eos_token_id, token_budget_s,
                  trace_id, token_dtype):
@@ -618,6 +682,7 @@ class DecodeRequest:
         self.t_enqueue = time.monotonic()
         self.peak_batch = 0  # the most running sequences of any step it was in
         self.snapshot_every = 0
+        self.speculative = False
         self._cond = threading.Condition()
         self._tokens = []
         self._taken = 0
@@ -764,9 +829,14 @@ class _Seq:
     step feeds at ``pos`` (= the KV rows cached). A joiner starts at
     ``pos`` = P-1 with its last prompt token (the finishing step) and
     nothing generated; a resumed one at its snapshot's position, last
-    token and count."""
+    token and count. ``draft_pos``: the draft's rows cached in draft row
+    ``slot`` (the reference's ``draft_pos``), None until the sequence's
+    first speculative burst fills them; rows below it were fed the
+    sequence's real tokens. Draft row i is slot i's, so releasing the
+    slot releases it: the reference's ``_release_seq`` has no draft part
+    here."""
 
-    __slots__ = ("req", "slot", "pos", "last_token", "n_generated", "t_last")
+    __slots__ = ("req", "slot", "pos", "last_token", "n_generated", "t_last", "draft_pos")
 
     def __init__(self, req, slot, state=None, now=None):
         self.req = req
@@ -782,6 +852,7 @@ class _Seq:
             self.last_token = state["last_token"]
             self.n_generated = state["n_generated"]
             self.t_last = now
+        self.draft_pos = None
 
 
 class DecodeEngine:
@@ -797,12 +868,17 @@ class DecodeEngine:
     chunk and the prefix cache's page ``C`` (the reference's smallest
     prompt bucket and page), and ``max_prompt_len`` must be a multiple of
     it. ``prefix``: the prefix cache, on by default; ``prefix_max_bytes``
-    its page budget (256 MiB by default)."""
+    its page budget (256 MiB by default). ``spec_k``: the speculative
+    burst width k; speculation is on (``spec_enabled``) only when the
+    model has a ``draft`` and k >= 2, else quietly off.
+    ``breaker_threshold``/``breaker_cooldown``: every program key's
+    circuit breaker (3 consecutive failures, 5.0 s by default)."""
 
     def __init__(self, model, max_slots=None, max_seq_len=None, max_queue=64,
                  min_seq_bucket=8, max_prompt_len=None, default_max_new_tokens=64,
                  name="decode", device="cuda", cuda_graph=True, prefix=True,
-                 prefix_max_bytes=None, **unported):
+                 prefix_max_bytes=None, spec_k=None, breaker_threshold=None,
+                 breaker_cooldown=None, **unported):
         for key, val in unported.items():
             if key not in _UNPORTED:
                 raise TypeError(f"DecodeEngine got an unexpected keyword argument {key!r}")
@@ -813,10 +889,23 @@ class DecodeEngine:
         if _indexed(model.device) != self.device:
             raise ValueError(f"the model's params live on {model.device}, the engine runs "
                              f"on {self.device}")
+        draft = getattr(model, "draft", None)
+        if draft is not None:
+            if draft.vocab_size != model.vocab_size:
+                raise ValueError(f"draft vocab {draft.vocab_size} != target vocab "
+                                 f"{model.vocab_size}; speculative verify compares argmaxes "
+                                 "over the SAME vocab")
+            if draft.feature_spec != model.feature_spec:
+                raise ValueError("draft feature_spec differs from the target's; both models "
+                                 "consume the request's feature arrays")
+            if _indexed(draft.device) != self.device:
+                raise ValueError(f"the draft's params live on {draft.device}, the engine "
+                                 f"runs on {self.device}")
         for key, val in (("max_slots", max_slots), ("max_seq_len", max_seq_len)):
-            built = getattr(model, key)
-            if val is not None and built is not None and int(val) != int(built):
-                raise ValueError(f"{key}={val}, but the model was built for {built}")
+            for m in (model, draft):
+                built = None if m is None else getattr(m, key)
+                if val is not None and built is not None and int(val) != int(built):
+                    raise ValueError(f"{key}={val}, but the model was built for {built}")
         self._model = model
         self.max_slots = int(max_slots or model.max_slots or 8)
         self.max_seq_len = int(max_seq_len or model.max_seq_len or 256)
@@ -845,15 +934,34 @@ class DecodeEngine:
             self._prefix = PrefixCache(self._pages, max_bytes=prefix_max_bytes,
                                        name=f"{name}-prefix")
         cuda = self.device.type == "cuda"
-        self._graphs = _Graphs(model, self._slots.pools, self.device, cuda and cuda_graph,
-                               self._staging, self.page_len)
+        self.breaker_threshold = int(3 if breaker_threshold is None else breaker_threshold)
+        self.breaker_cooldown = float(5.0 if breaker_cooldown is None else breaker_cooldown)
+        self._breakers = {}  # program key -> _Breaker
+        # speculative decoding: on only with a draft AND k >= 2 (k-1
+        # proposals and the always-correct first position per verify)
+        self._spec_k = int(spec_k or 0)
+        if draft is None or self._spec_k < 2:
+            self._spec_k = 0
+        self.spec_enabled = self._spec_k >= 2
+        pool = torch.cuda.graph_pool_handle() if cuda and cuda_graph else None
+        self._graphs = _Graphs(model, self._slots.pools, self.device, pool, self._staging,
+                               self.page_len, spec_k=self._spec_k)
         self._step_key = ("step", self.max_slots, self.max_seq_len)
-        # host staging of the step's inputs (pinned on a card), copied into
-        # the step program's buffers
-        self._h_tokens = torch.zeros(self.max_slots, dtype=torch.int64, pin_memory=cuda)
-        self._h_pos = torch.zeros(self.max_slots, dtype=torch.int32, pin_memory=cuda)
-        self._h_feats = [torch.zeros((self.max_slots,) + tr, dtype=_torch_dtype(dt),
-                                     pin_memory=cuda) for tr, dt in model.feature_spec]
+        self._verify_key = ("verify", self.max_slots, self.max_seq_len)
+        self._draft_step_key = ("draft_step", self.max_slots, self.max_seq_len)
+        self._draft_slots = self._draft_staging = self._draft_graphs = None
+        if self.spec_enabled:
+            # the draft's own pools (draft row i is slot i's), staging and
+            # programs, in the engine's graph pool
+            self._draft_slots = _KVSlots(self.max_slots, self.max_seq_len, draft.kv_spec,
+                                         draft.kv_seq_axis, self.device)
+            self._draft_staging = _KVStack(draft.kv_spec, draft.kv_seq_axis - 1, 1,
+                                           self.max_prompt_len, self.device)
+            self._draft_graphs = _Graphs(draft, self._draft_slots.pools, self.device, pool,
+                                         self._draft_staging, self.page_len)
+        # host staging of the row programs' inputs (pinned on a card),
+        # per key, copied into the program's buffers
+        self._host_rows = {}
         self._programs = {}  # key -> run
         self._builds = collections.Counter()  # key -> builds (captures on a card)
         self._lock = threading.Lock()
@@ -890,8 +998,9 @@ class DecodeEngine:
         per-token budget (first token and every gap). ``snapshot_every``:
         emit a resumable kv-snapshot block every N generated tokens
         (``DecodeRequest.take_snapshot``; 0 or None: never).
-        ``speculative`` is accepted and ignored (no draft model)."""
-        del speculative
+        ``speculative``: opt in to speculative bursts (tokens bitwise
+        those of plain greedy; a no-op on an engine without
+        ``spec_enabled``)."""
         prompt = np.asarray(prompt)
         if prompt.ndim == 2 and prompt.shape[0] == 1:
             prompt = prompt[0]
@@ -926,6 +1035,7 @@ class DecodeEngine:
         req = DecodeRequest(np.ascontiguousarray(prompt.astype(np.int64)), features,
                             max_new_tokens, eos, token_budget_s, trace_id, token_dtype)
         req.snapshot_every = max(0, int(snapshot_every or 0))
+        req.speculative = bool(speculative)
         with self._cond:
             if self._closed:
                 raise EngineClosed(f"{self.name} is closed")
@@ -1072,8 +1182,8 @@ class DecodeEngine:
         the snapshot's tail included. The sequence joins the running set
         with its last token as the next step's row, so its suffix equals
         the unbroken stream's, bitwise, on an engine of the same
-        configuration."""
-        del speculative
+        configuration. ``speculative`` as in ``submit``; the draft starts
+        empty and catches up at the first burst."""
         header, arrays = self.check_snapshot(snapshot)
         m = self._model
         n_kv = int(header.get("n_kv", len(m.kv_spec)))
@@ -1088,6 +1198,7 @@ class DecodeEngine:
         req = DecodeRequest(np.ascontiguousarray(prompt.astype(np.int64)), feats, max_new, eos,
                             token_budget_s, trace_id, tail.dtype.type)
         req.snapshot_every = max(0, int(snapshot_every or 0))
+        req.speculative = bool(speculative)
         # the snapshot's tail counts as already consumed: result() sees the
         # whole sequence, the stream re-emits nothing
         req._tokens = [int(t) for t in tail]
@@ -1144,7 +1255,7 @@ class DecodeEngine:
                 self._prefill(req, slot)
             self._purge_blown_budgets()
             if self._active:
-                self._step_group()
+                self._decode_step()
 
     def _wait_for_work(self):
         """Park until there is work; pop this iteration's resumes (first:
@@ -1209,6 +1320,10 @@ class DecodeEngine:
             self._notify_retired(s, reason, err)
 
     # ------------------------------------------------------- the paths
+    def _graphs_of(self, key):
+        """The program set of ``key``: the draft's for ``draft_*``."""
+        return self._draft_graphs if key[0].startswith("draft_") else self._graphs
+
     def _program(self, key):
         """The program of ``key``, built once (the reference's
         ``_program``): every build holds the exec lock, so warmup and the
@@ -1223,7 +1338,7 @@ class DecodeEngine:
             with self._lock:
                 run = self._programs.get(key)
             if run is None:
-                run = self._graphs.build(key)
+                run = self._graphs_of(key).build(key)
                 with self._lock:
                     self._programs[key] = run
                     self._builds[key] += 1
@@ -1231,16 +1346,98 @@ class DecodeEngine:
 
     def _call(self, key, fill):
         """Under the exec lock: ``fill`` the inputs of ``key``'s program,
-        build it at first use, run it; K1's launches in the run counted
-        for stats (a replay credits those of its capture)."""
+        build it at first use, run it and read its argmax back (-> numpy,
+        or None for a fill); the outcome goes to the key's breaker, and
+        K1's launches in the run are counted for stats (a replay credits
+        those of its capture)."""
         with self._exec_lock:
-            fill(*self._graphs.inputs(key))
-            run = self._program(key)
             before = flash_attention.launches
             try:
-                return run()
+                fill(*self._graphs_of(key).inputs(key))
+                out = self._program(key)()
+                if out is not None:
+                    out = out.cpu().numpy()
+            except Exception:
+                self._record_breaker(key, ok=False)
+                raise
             finally:
                 self._counts["k1_launches"] += flash_attention.launches - before
+            self._record_breaker(key, ok=True)
+            return out
+
+    def _run_rows(self, key, tokens, positions, active):
+        """Under the exec lock: the row program ``key`` (a step, draft
+        step or verify) over every slot, fed ``tokens``/``positions``
+        (numpy, the program's input shapes) and each running row's
+        features at its slot (a padding row's are zero); -> the argmax
+        (numpy int32)."""
+        host = self._host_rows.get(key)
+        if host is None:
+            tok, at, feats = self._graphs_of(key).inputs(key)
+            host = self._host_rows[key] = [
+                torch.zeros(t.shape, dtype=t.dtype, pin_memory=self.device.type == "cuda")
+                for t in (tok, at, *feats)]
+        h_tok, h_pos, *h_feats = host
+        # every call ends by reading its argmax back, so the copies out of
+        # these buffers are done (a failed call's may still be queued, but
+        # into the same device buffers, ahead of this call's copies)
+        h_tok.numpy()[:] = tokens
+        h_pos.numpy()[:] = positions
+        feats = [h.numpy() for h in h_feats]
+        for f in feats:
+            f[:] = 0
+        for s in active:
+            for f, v in zip(feats, s.req.features):
+                f[s.slot] = v
+
+        def fill(d_tokens, d_pos, d_feats):
+            d_tokens.copy_(h_tok, non_blocking=True)
+            d_pos.copy_(h_pos, non_blocking=True)
+            for d, h in zip(d_feats, h_feats):
+                d.copy_(h, non_blocking=True)
+
+        return self._call(key, fill)
+
+    # ---------------------------------------------------------- breakers
+    def _breaker_locked(self, key):
+        br = self._breakers.get(key)
+        if br is None:
+            br = self._breakers[key] = _Breaker(self.breaker_threshold, self.breaker_cooldown)
+        return br
+
+    def _breaker_probe(self, key):
+        """The breaker's check without shedding, for the draft and the
+        verify: a quarantined program there means "fall back to the plain
+        step", never "fail the requests"."""
+        with self._lock:
+            return self._breaker_locked(key).allow(time.monotonic())
+
+    def _breaker_allows(self, key, n_requests):
+        """The breaker's check for a fill or a step: -> None, or the
+        retryable :class:`BucketQuarantined` the caller fails its
+        ``n_requests`` requests with (counted as shed)."""
+        with self._lock:
+            br = self._breaker_locked(key)
+            if br.allow(time.monotonic()):
+                return None
+            br.shed += n_requests
+            self._counts["quarantine_shed"] += n_requests
+            failures = br.failures
+        return BucketQuarantined(f"{self.name} program {key} is quarantined after {failures} "
+                                 f"consecutive failures; retry after cooldown "
+                                 f"({self.breaker_cooldown}s)")
+
+    def _record_breaker(self, key, ok):
+        now = time.monotonic()
+        with self._lock:
+            if not ok:
+                self._counts["program_failures"] += 1
+            br = self._breakers.get(key)
+            if br is not None:
+                if ok:
+                    br.record_success()
+                else:
+                    br.record_failure(now)
 
     def _admit(self, inflight, entry, err, state=None):
         """After a joiner's prefill or a resume's restore: take ``entry``
@@ -1313,7 +1510,11 @@ class DecodeEngine:
                 for buf, f in zip(feats, req.features):
                     buf.copy_(torch.from_numpy(f[None]))
 
-            self._call(("fill", 1, start + C), fill)
+            key = ("fill", 1, start + C)
+            err = self._breaker_allows(key, 1)
+            if err is not None:
+                raise err
+            self._call(key, fill)
             self._counts["fill_steps"] += 1
         self._slots.copy_from(slot, self._staging, P)
         if hashes:
@@ -1336,47 +1537,62 @@ class DecodeEngine:
             self._pages.drop_page(pid)
         self._counts["prefix_evictions"] += evicted
 
+    def _decode_step(self):
+        """One iteration over the running set (the reference's
+        ``_decode_step``): a speculative burst when a row opted in and
+        may take one, covering every slot; else, or when the draft or the
+        verify cannot run, one plain step."""
+        active = list(self._active)
+        group = [s for s in active if self._spec_ok(s)]
+        if group and self._spec_group(active, group):
+            return
+        self._step_group()
+
+    def _spec_ok(self, s):
+        """May this sequence take a k-token burst now? It opted in, has
+        its first token (the finishing step is a plain row, as the
+        reference's prefill emits it), room for k kv entries, and at
+        least 2 tokens of budget left (a 1-token tail is a plain row)."""
+        return (self.spec_enabled and s.req.speculative and s.n_generated >= 1
+                and s.pos + self._spec_k <= self.max_seq_len
+                and s.req.max_new_tokens - s.n_generated >= 2)
+
+    def _fail_rows(self, active, err):
+        """Fail every sequence of a step that did not run, retryable, and
+        free its slot."""
+        with self._lock:
+            if self._closed:
+                return
+            for s in active:
+                self._slots.release(s.slot)
+            drop = {id(s) for s in active}
+            self._active[:] = [x for x in self._active if id(x) not in drop]
+            self._retired["error"] += len(active)
+        for s in active:
+            s.req._fail(err)
+
     def _step_group(self):
         """One step over every slot: the running sequences' rows and
         padding rows for the free slots; then each row's token, and the
         copies of the kv snapshots its cadence asks for, queued before any
         slot can be reused (the exec lock is held throughout). The blocks
-        are built by their consumers."""
+        are built by their consumers. A quarantined step sheds its rows."""
         active = list(self._active)
-        tokens, pos = self._h_tokens.numpy(), self._h_pos.numpy()
-        feats = [h.numpy() for h in self._h_feats]
-        tokens[:] = 0
-        pos[:] = 0
-        for f in feats:
-            f[:] = 0
+        err = self._breaker_allows(self._step_key, len(active))
+        if err is not None:
+            self._fail_rows(active, err)
+            return
+        tokens = np.zeros(self.max_slots, np.int64)
+        pos = np.zeros(self.max_slots, np.int32)
         for s in active:
             tokens[s.slot] = s.last_token
             pos[s.slot] = s.pos
-            for f, v in zip(feats, s.req.features):
-                f[s.slot] = v
-
-        def fill(d_tokens, d_pos, d_feats):
-            d_tokens.copy_(self._h_tokens, non_blocking=True)
-            d_pos.copy_(self._h_pos, non_blocking=True)
-            for d, h in zip(d_feats, self._h_feats):
-                d.copy_(h, non_blocking=True)
-
         t0 = time.monotonic()
         with self._exec_lock:
             try:
-                nxt = self._call(self._step_key, fill).cpu().numpy()
+                nxt = self._run_rows(self._step_key, tokens, pos, active)
             except Exception as e:  # noqa: BLE001 - fail the whole step batch
-                err = self._retryable(e, "decode step")
-                with self._lock:
-                    if self._closed:
-                        return
-                    for s in active:
-                        self._slots.release(s.slot)
-                    drop = {id(s) for s in active}
-                    self._active[:] = [x for x in self._active if id(x) not in drop]
-                    self._retired["error"] += len(active)
-                for s in active:
-                    s.req._fail(err)
+                self._fail_rows(active, self._retryable(e, "decode step"))
                 return
             now = time.monotonic()
             finished, snaps = [], []
@@ -1386,52 +1602,231 @@ class DecodeEngine:
                 self._counts["steps"] += 1
                 self._counts["step_rows"] += len(active)
                 self._step_ms.append((now - t0) * 1e3)
-                drop = set()
-                for s in active:
-                    s.req.peak_batch = max(s.req.peak_batch, len(active))
-                    s.pos += 1
-                    s.last_token = int(nxt[s.slot])
-                    s.n_generated += 1
-                    # per-token budget enforced at emit: a token that arrived
-                    # late fails retryable and frees the slot
-                    if (s.req.token_budget_s is not None
-                            and now - s.t_last > s.req.token_budget_s):
-                        finished.append((s, "deadline", DeadlineExceeded(
-                            f"{self.name}: token {s.n_generated} arrived "
-                            f"{now - s.t_last:.3f}s after the previous one (per-token budget "
-                            f"{s.req.token_budget_s}s); slot purged")))
-                    else:
-                        self._emit(s, now)
-                        reason = self._stop_reason(s)
-                        every = s.req.snapshot_every
-                        # the cadence's snapshots, and at cadence 1 the first
-                        # token's even if the sequence retires there (the
-                        # prefill handoff)
-                        if every and s.n_generated % every == 0 and (
-                                reason is None or s.n_generated == 1):
-                            snaps.append((s, s.pos, s.last_token, s.n_generated))
-                        if reason is None:
-                            continue
-                        finished.append((s, reason, None))
-                    self._slots.release(s.slot)
-                    drop.add(id(s))
-                if drop:
-                    self._active[:] = [x for x in self._active if id(x) not in drop]
-            # a released slot's rows change only under the exec lock, which
-            # this thread has held since the step, and behind the copy on
-            # the stream; snapshots go out before the retirements (a
-            # finished request takes none, and a handoff's one-token
-            # sequence needs its block)
-            for s, p, last, n in snaps:
-                t1 = time.perf_counter()
-                arrays = self._slots.snapshot(s.slot, p)
-                build = functools.partial(self._build_snapshot, s.req)
-                s.req._push_snapshot(_Snapshot(build, arrays, p, last, n))
-                with self._lock:
-                    self._counts["snapshots"] += 1
-                    self._snap_copy_ms.append((time.perf_counter() - t1) * 1e3)
+                self._apply_rows(active, {}, lambda s: (int(nxt[s.slot]),), now, finished,
+                                 snaps)
+            self._queue_snapshots(snaps)
         for s, reason, err in finished:
             self._notify_retired(s, reason, err)
+
+    def _apply_rows(self, active, proposals, tokens_of, now, finished, snaps):
+        """Under the engine lock: advance every running row by the tokens
+        its program gave (``tokens_of(s)``: one for a plain row, a
+        verify's k columns for a burst row, one with ``proposals``),
+        emit them, collect the retired into ``finished`` and the
+        snapshots their cadence asks for into ``snaps``, and free the
+        retired rows' slots. A plain row follows the step; a burst row
+        follows the reference's accept loop (decode.py :2434-2497):
+        column j is emitted while the token fed at j was the real one, so
+        every emitted token is plain greedy's."""
+        drop = set()
+        for s in active:
+            s.req.peak_batch = max(s.req.peak_batch, len(active))
+            every = s.req.snapshot_every
+            cols = tokens_of(s)
+            if id(s) not in proposals:
+                reason = self._advance(s, cols[0], now, finished)
+                # the cadence's snapshots, and at cadence 1 the first
+                # token's even if the sequence retires there (the prefill
+                # handoff)
+                if (every and s.n_generated % every == 0 and reason != "deadline"
+                        and (reason is None or s.n_generated == 1)):
+                    snaps.append((s, s.pos, s.last_token, s.n_generated))
+                if reason is not None:
+                    drop.add(id(s))
+                continue
+            d = proposals[id(s)]
+            n0, accepted, reason = s.n_generated, 0, None
+            for j, u in enumerate(cols):
+                if j > 0:
+                    accepted += 1
+                reason = self._advance(s, u, now, finished)
+                if reason is not None:
+                    break
+                if j + 1 < len(cols) and d[j] != u:
+                    self._counts["spec_rejected"] += 1
+                    break  # the first rejection ends the burst
+            self._counts["spec_iterations"] += 1
+            self._counts["spec_accepted"] += accepted
+            if reason is not None:
+                drop.add(id(s))
+                continue
+            # rollback by pointer: draft rows past the accepted run were
+            # fed rejected tokens; the next catch-up overwrites them
+            s.draft_pos = min(s.draft_pos, s.pos)
+            if every and s.n_generated // every > n0 // every:
+                snaps.append((s, s.pos, s.last_token, s.n_generated))
+        for s in active:
+            if id(s) in drop:
+                self._slots.release(s.slot)
+        if drop:
+            self._active[:] = [x for x in self._active if id(x) not in drop]
+
+    def _advance(self, s, tok, now, finished):
+        """Under the engine lock: one token for ``s`` (its kv row at
+        ``pos`` was written by the program); -> why it retires now (also
+        appended to ``finished``), or None. The per-token budget is
+        enforced at emit: a token that arrived late is not emitted and
+        fails retryable ("deadline")."""
+        s.pos += 1
+        s.last_token = tok
+        s.n_generated += 1
+        if s.req.token_budget_s is not None and now - s.t_last > s.req.token_budget_s:
+            finished.append((s, "deadline", DeadlineExceeded(
+                f"{self.name}: token {s.n_generated} arrived {now - s.t_last:.3f}s after the "
+                f"previous one (per-token budget {s.req.token_budget_s}s); slot purged")))
+            return "deadline"
+        self._emit(s, now)
+        reason = self._stop_reason(s)
+        if reason is not None:
+            finished.append((s, reason, None))
+        return reason
+
+    def _queue_snapshots(self, snaps):
+        """Under the exec lock, after the program that wrote their rows:
+        queue each snapshot's device copy. A released slot's rows change
+        only under the exec lock and behind the copy on the stream, so
+        snapshots go out before the retirements (a finished request
+        takes none, and a handoff's one-token sequence needs its
+        block)."""
+        for s, p, last, n in snaps:
+            t1 = time.perf_counter()
+            arrays = self._slots.snapshot(s.slot, p)
+            build = functools.partial(self._build_snapshot, s.req)
+            s.req._push_snapshot(_Snapshot(build, arrays, p, last, n))
+            with self._lock:
+                self._counts["snapshots"] += 1
+                self._snap_copy_ms.append((time.perf_counter() - t1) * 1e3)
+
+    # ------------------------------------------------------- speculative
+    def _token_at(self, s, p):
+        """The sequence's real token at position ``p`` (the draft's
+        catch-up feed): the prompt below its length, ``last_token`` at
+        ``pos``, the emitted tokens between."""
+        plen = s.req.prompt.size
+        if p < plen:
+            return int(s.req.prompt[p])
+        if p == s.pos:
+            return int(s.last_token)
+        return int(s.req.tokens_so_far()[p - plen])
+
+    def _spec_group(self, active, group):
+        """One burst for the opted rows ``group`` inside one program over
+        every running row of ``active`` (module docstring), all under the
+        exec lock. -> False when the draft or the verify cannot run (its
+        breaker refuses, or it raises; the failure goes to its key's
+        breaker): nothing was emitted, the draft pointers are rolled back
+        to rows fed real tokens, and the caller takes a plain step."""
+        proposals = {id(s): [] for s in group}
+        with self._exec_lock:
+            nxt = None
+            if (all(s.draft_pos is not None or self._draft_fill(s) for s in group)
+                    and self._propose(active, group, proposals)):
+                nxt = self._verify(active, proposals)
+            if nxt is None:
+                for s in group:
+                    if s.draft_pos is not None:
+                        s.draft_pos = min(s.draft_pos, s.pos)
+                return False
+            now = time.monotonic()
+            finished, snaps = [], []
+            with self._lock:
+                if self._closed:
+                    return True
+                self._counts["verify_steps"] += 1
+                self._apply_rows(active, proposals, lambda s: [int(t) for t in nxt[s.slot]],
+                                 now, finished, snaps)
+            self._queue_snapshots(snaps)
+        for s, reason, err in finished:
+            self._notify_retired(s, reason, err)
+        return True
+
+    def _propose(self, active, group, proposals):
+        """Catch-up and propose: one draft step over every slot per call
+        until every row of ``group`` has draft rows 0..pos+k-2, the
+        argmaxes of its feeds at ``pos`` and later appended to its
+        ``proposals``. -> False when a draft step cannot run."""
+        K = self._spec_k
+
+        def feed(s, p):
+            # the token fed at draft position p: the real one up to pos,
+            # then the draft's own proposals
+            return self._token_at(s, p) if p <= s.pos else proposals[id(s)][p - s.pos - 1]
+
+        while True:
+            todo = {id(s) for s in group if s.draft_pos < s.pos + K - 1}
+            if not todo:
+                return True
+            tokens = np.zeros(self.max_slots, np.int64)
+            pos = np.zeros(self.max_slots, np.int32)
+            for s in active:
+                if s.draft_pos is not None:
+                    # a row not catching up repeats its last feed, so its
+                    # draft rows stay as they are
+                    p = s.draft_pos if id(s) in todo else s.draft_pos - 1
+                    tokens[s.slot], pos[s.slot] = feed(s, p), p
+            if not self._breaker_probe(self._draft_step_key):
+                return False
+            try:
+                nxt = self._run_rows(self._draft_step_key, tokens, pos, active)
+            except Exception:  # noqa: BLE001 - the draft is best effort
+                return False
+            self._counts["draft_steps"] += 1
+            for s in group:
+                if id(s) in todo:
+                    if s.draft_pos >= s.pos:
+                        proposals[id(s)].append(int(nxt[s.slot]))
+                    s.draft_pos += 1
+
+    def _verify(self, active, proposals):
+        """The verify program over every slot: a burst row feeds
+        ``[last_token, proposals]`` at ``pos..pos+k-1``, every other
+        running row ``(last_token, pos)`` in all k columns. -> its argmax
+        ``[max_slots, k]``, or None when it cannot run."""
+        K = self._spec_k
+        tokens = np.zeros((self.max_slots, K), np.int64)
+        pos = np.zeros((self.max_slots, K), np.int32)
+        for s in active:
+            tokens[s.slot] = s.last_token
+            pos[s.slot] = s.pos
+            if id(s) in proposals:
+                tokens[s.slot, 1:] = proposals[id(s)]
+                pos[s.slot] += np.arange(K, dtype=np.int32)
+        if not self._breaker_probe(self._verify_key):
+            return None
+        try:
+            return self._run_rows(self._verify_key, tokens, pos, active)
+        except Exception:  # noqa: BLE001 - fall back, the requests unharmed
+            return None
+
+    def _draft_fill(self, s):
+        """Under the exec lock, at a sequence's first burst: the draft's
+        chunked fill of prompt rows 0..P-2 (its fill programs over the
+        draft's staging), copied into draft row ``slot``; ``draft_pos`` =
+        P-1, so the catch-up's first draft step re-feeds the last prompt
+        token as the target's finishing step did. -> False when a fill
+        cannot run."""
+        P, C = s.req.prompt.size, self.page_len
+        try:
+            for start in range(0, P - 1, C):
+                chunk = s.req.prompt[start:start + C]
+
+                def fill(tokens, _, feats, chunk=chunk):
+                    padded = np.zeros((1, C), np.int64)
+                    padded[0, :chunk.size] = chunk
+                    tokens.copy_(torch.from_numpy(padded))
+                    for buf, f in zip(feats, s.req.features):
+                        buf.copy_(torch.from_numpy(np.array(f[None])))
+
+                key = ("draft_fill", 1, start + C)
+                if not self._breaker_probe(key):
+                    return False
+                self._call(key, fill)
+                self._counts["draft_prefills"] += 1
+            self._draft_slots.copy_from(s.slot, self._draft_staging, P - 1)
+        except Exception:  # noqa: BLE001 - the draft is best effort
+            return False
+        s.draft_pos = P - 1
+        return True
 
     # ----------------------------------------------------------- helpers
     def _emit(self, s, now):
@@ -1493,22 +1888,28 @@ class DecodeEngine:
         and take the replica's identity (the weights digest, which at 7B
         copies the weights to the host) so that no stream pays for either:
         one fill program per chunk start below ``max_prompt_len``, and the
-        step. On a card each is warmed up and captured here. The step's
-        warm-up writes padding rows only (token 0 at position 0 in every
-        slot), and a fill's warm-up writes staging, so it needs an idle
+        step; with ``spec_enabled`` also the verify, the draft's step and
+        its fill programs (the reference's speculative rungs). On a card
+        each is warmed up and captured here. A step's, draft step's or
+        verify's warm-up writes padding rows only (token 0 at position 0
+        in every slot), and a fill's writes staging, so it needs an idle
         engine: no sequence running, joining or resuming. Counted nowhere.
         Returns the fills' ``start + C``."""
         rungs = list(range(self.page_len, self.max_prompt_len + 1, self.page_len))
+        keys = [("fill", 1, r) for r in rungs] + [self._step_key]
+        if self.spec_enabled:
+            keys += [("draft_fill", 1, r) for r in rungs]
+            keys += [self._draft_step_key, self._verify_key]
         with torch.inference_mode(), self._exec_lock:
             with self._lock:
                 if self._active or self._joining or self._resuming:
                     raise RuntimeError("warmup() needs an idle engine")
-            tokens, pos, feats = self._graphs.inputs(self._step_key)
-            for buf in (tokens, pos, *feats):
-                buf.zero_()
-            for r in rungs:
-                self._program(("fill", 1, r))
-            self._program(self._step_key)
+            for key in keys:
+                if key[0] != "fill" and key[0] != "draft_fill":
+                    tokens, pos, feats = self._graphs_of(key).inputs(key)
+                    for buf in (tokens, pos, *feats):
+                        buf.zero_()
+                self._program(key)
             self._identity()
         return rungs
 
@@ -1531,9 +1932,26 @@ class DecodeEngine:
         ``capture_ms``; ``graph_replays``: replays of every graph;
         ``graph_pool_bytes``: their shared memory pool;
         ``weights_digest_ms``: the digest's one-time cost (None until
-        taken)."""
+        taken). ``quarantine_shed``: requests a quarantined fill or step
+        shed; a program's ``breaker``: its breaker's state (the
+        reference's ``as_dict``); ``program_failures`` (the port's): every
+        failure a breaker was told of, which a later success does not
+        reset. ``spec``: the reference's view of
+        speculative decoding; ``iterations``: bursts applied, one per
+        opted row; ``accepted``: proposals accepted; ``rejected`` (the
+        port's): bursts ended by a rejected proposal, so ``accepted /
+        (accepted + rejected)`` is the share of the proposals checked
+        that were accepted (1.0 for a draft that always proposes the
+        target's token); ``verify_steps``:
+        verify replays; ``draft_steps``: draft step replays;
+        ``draft_prefills``: draft fill replays (a chunk each, where the
+        reference counts one-shot draft prefills). ``steps`` counts the
+        plain steps only. The draft's pool holds no pages (its rows come
+        from its own fill), so ``live_pages``/``shared_pages`` are the
+        page store's alone."""
         prefix = self._prefix.stats() if self._prefix is not None else None
         digest = self._model._digest
+        graphs = [g for g in (self._graphs, self._draft_graphs) if g is not None]
         with self._lock:
             c = self._counts
             ms = sorted(self._step_ms)
@@ -1546,8 +1964,11 @@ class DecodeEngine:
             programs = {}
             for key, n in sorted(self._builds.items()):
                 entry = {"compiles": n, "store_loads": 0}
-                if key in self._graphs.capture_ms:
-                    entry["capture_ms"] = self._graphs.capture_ms[key]
+                capture_ms = self._graphs_of(key).capture_ms
+                if key in capture_ms:
+                    entry["capture_ms"] = capture_ms[key]
+                if key in self._breakers:
+                    entry["breaker"] = self._breakers[key].as_dict()
                 programs["%s%dx%d" % key] = entry
             return {
                 "name": self.name,
@@ -1560,6 +1981,8 @@ class DecodeEngine:
                 "requests": c["requests"],
                 "tokens": c["tokens"],
                 "shed_count": c["shed"],
+                "quarantine_shed": c["quarantine_shed"],
+                "program_failures": c["program_failures"],
                 "deadline_expired": c["deadline_expired"],
                 "deadline_late": c["deadline_late"],
                 "retired": {r: self._retired[r] for r in _RETIRE_REASONS},
@@ -1578,10 +2001,22 @@ class DecodeEngine:
                 "weights_digest_ms": None if digest is None else digest[1],
                 "kv_pool_bytes": self._slots.nbytes(),
                 "staging_bytes": self._staging.nbytes(),
+                "draft_kv_pool_bytes": (self._draft_slots.nbytes()
+                                        if self._draft_slots is not None else 0),
+                "spec": {
+                    "enabled": self.spec_enabled,
+                    "k": self._spec_k,
+                    "iterations": c["spec_iterations"],
+                    "accepted": c["spec_accepted"],
+                    "rejected": c["spec_rejected"],
+                    "verify_steps": c["verify_steps"],
+                    "draft_steps": c["draft_steps"],
+                    "draft_prefills": c["draft_prefills"],
+                },
                 "programs": programs,
                 "cuda_graphs": self._graphs.capture,
-                "graph_replays": sum(g.replays for g in self._graphs.graphs),
-                "graph_pool_bytes": self._graphs.pool_bytes,
+                "graph_replays": sum(g.replays for gs in graphs for g in gs.graphs),
+                "graph_pool_bytes": max(gs.pool_bytes for gs in graphs),
             }
 
     def health(self):

@@ -18,8 +18,10 @@ chunked stream: status-3 frames of one token-array chunk each, then one
 terminal frame with status 0 (the last chunk, possibly empty), or 1/2 on
 error/shed. With bit 63 (one-shot) it is one status-0 reply of the whole
 sequence. A client that vanishes mid-stream cancels its request, so its
-slot frees at once. Bit 61 (speculative) is accepted and ignored, as the
-reference ignores it without a draft model. A snapshot cadence N (bits
+slot frees at once. Bit 61 opts the stream into speculative decoding
+(the engine's ``submit(speculative=True)``: bursts on an engine with a
+draft and ``spec_k`` >= 2, plain steps otherwise; the tokens are the
+plain stream's either way). A snapshot cadence N (bits
 32-47) adds a status-3 kv-snapshot frame (``wire_spec.is_kv_snapshot``)
 every N generated tokens, sent once every token it covers is on the
 wire. Bit 62 (prefill handoff) runs the prompt to its first token and

@@ -51,9 +51,10 @@ import torch
 from .. import tensor as pt
 from ..core import random
 from ..core.cuda_graph import Graph
+from ..nn import LayerList
 from ..nn import functional as F
 from ..ops import flash_attention
-from .models import _repeat_kv, _rope_tables, _rotate, rms_norm
+from .models import LlamaModel, _repeat_kv, _rope_tables, _rotate, rms_norm
 
 _F32_MIN = torch.finfo(torch.float32).min
 
@@ -354,7 +355,22 @@ def llama_generate(model, input_ids, max_new_tokens=32, do_sample=False,
     return np.concatenate([ids, new], axis=1)
 
 
-def llama_decode_model(model, max_slots, max_seq_len):
+def llama_layer_skip(model, num_layers):
+    """A ``LlamaModel`` whose decoder layers are ``model``'s first
+    ``num_layers``, with ``model``'s embedding, final norm and head: every
+    tensor shared, nothing copied. A layer-skip draft for speculative
+    decoding (``llama_decode_model(model, ..., draft=llama_decode_model(
+    llama_layer_skip(model, 2), ...))``)."""
+    draft = LlamaModel.__new__(LlamaModel)
+    torch.nn.Module.__init__(draft)
+    draft.embed_tokens = model.embed_tokens
+    draft.layers = LayerList(list(model.layers)[:num_layers])
+    draft.norm = model.norm
+    draft.lm_head = model.lm_head
+    return draft.train(model.training)
+
+
+def llama_decode_model(model, max_slots, max_seq_len, draft=None):
     """A ``DecodeModel`` (inference/decode.py) over a text.models.LlamaModel,
     for the continuous-batching ``DecodeEngine`` with ``max_slots`` slots of
     ``max_seq_len`` positions. Its KV buffers are one K and one V pool a
@@ -374,7 +390,12 @@ def llama_decode_model(model, max_slots, max_seq_len):
       attends through K1 over its own slot, read in place, at ``k_len`` =
       positions + 1: the pools' width and the other rows' lengths never
       enter a row's attention. It is ``_CachedLlama.forward``'s maths with
-      per-row positions (``_LlamaWeights.layers``)."""
+      per-row positions (``_LlamaWeights.layers``).
+
+    ``draft``: a companion ``DecodeModel`` for speculative decoding (say
+    this function over ``llama_layer_skip(model, n)``, or over ``model``
+    itself: a self-draft, whose every proposal is the target's greedy
+    token)."""
     from ..inference.decode import DecodeModel
 
     w = _LlamaWeights(model)
@@ -413,4 +434,4 @@ def llama_decode_model(model, max_slots, max_seq_len):
     kv_spec = [((w.nkv, w.hd), emb.dtype)] * (2 * n_layers)
     return DecodeModel(w, fill_fn, step_fn, kv_spec, vocab_size=emb.shape[0],
                        kv_seq_axis=2, device=emb.device, max_slots=max_slots,
-                       max_seq_len=max_seq_len)
+                       max_seq_len=max_seq_len, draft=draft)

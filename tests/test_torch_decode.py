@@ -92,14 +92,19 @@ def toy_prefill(p, tokens, lengths, *feats):
 
 
 def torch_toy_model(hidden=HID, vocab=VOCAB, seed=0, feature_spec=(), eos_token_id=None,
-                    step_delay=0.0, fail_steps=0):
+                    step_delay=0.0, fail_steps=0, fail_fills=0, anchor=0.0, draft=None):
     """The torch twin of decode_worker.toy_decode_model: one masked
     attention layer over the KV cache, a tanh MLP and the logits, from the
     same ``RandomState(seed)`` draws, with the port's fixed-shape chunk
     program ``fill_fn`` (the layer's K/V rows of C tokens written into
-    staging; the toy's rows need no attention). ``step_delay`` slows
-    every step and ``fail_steps`` makes the first steps raise (the
-    reference tests use chaos sites for both)."""
+    staging; the toy's rows need no attention). ``anchor``: the
+    reference toy's shared token-transition bias (``anchor *
+    A[last_token]`` added to the logits, ``A`` from ``RandomState(777)``
+    whatever the seed or width), which makes two toys mostly agree on the
+    greedy token; ``draft``: a companion twin for speculative decoding.
+    ``step_delay`` slows every step, and ``fail_steps``/``fail_fills``
+    make the first steps/fills raise (the reference tests use chaos sites
+    for these)."""
     rng = np.random.RandomState(seed)
 
     def mk(*shape):
@@ -107,7 +112,11 @@ def torch_toy_model(hidden=HID, vocab=VOCAB, seed=0, feature_spec=(), eos_token_
 
     params = [mk(vocab, hidden), mk(hidden, hidden), mk(hidden, hidden),
               mk(hidden, hidden), mk(hidden, hidden), mk(hidden, vocab)]
-    failures = [fail_steps]
+    if anchor:
+        A = torch.from_numpy((np.random.RandomState(777).randn(vocab, vocab) * 0.5)
+                             .astype(np.float32))
+        params.append(A * float(anchor))
+    failures = [fail_steps, fail_fills]
 
     def step_fn(p, tokens, positions, kv_k, kv_v, *feats):
         if step_delay:
@@ -115,7 +124,7 @@ def torch_toy_model(hidden=HID, vocab=VOCAB, seed=0, feature_spec=(), eos_token_
         if failures[0] > 0:
             failures[0] -= 1
             raise RuntimeError("boom")
-        E, Wq, Wk, Wv, Wo, U = p
+        E, Wq, Wk, Wv, Wo, U = p[:6]
         emb = E[tokens]
         q, k, v = emb @ Wq, emb @ Wk, emb @ Wv
         rows, at = torch.arange(tokens.shape[0]), positions.long()
@@ -126,10 +135,16 @@ def torch_toy_model(hidden=HID, vocab=VOCAB, seed=0, feature_spec=(), eos_token_
         h = torch.tanh(torch.einsum("bs,bsh->bh", prob, kv_v) @ Wo + emb)
         if feats:
             h = h + _feat_bias(feats)[:, None]
-        return h @ U
+        logits = h @ U
+        if anchor:
+            logits = logits + p[6][tokens]
+        return logits
 
     def fill_fn(p, tokens, start, kv_k, kv_v, *feats):
-        E, Wq, Wk, Wv, Wo, U = p
+        if failures[1] > 0:
+            failures[1] -= 1
+            raise RuntimeError("boom")
+        E, Wq, Wk, Wv, Wo, U = p[:6]
         emb = E[tokens]
         end = start + tokens.shape[1]
         kv_k[:, start:end] = emb @ Wk
@@ -138,7 +153,7 @@ def torch_toy_model(hidden=HID, vocab=VOCAB, seed=0, feature_spec=(), eos_token_
     return DecodeModel(params, fill_fn, step_fn,
                        kv_spec=(((hidden,), np.float32), ((hidden,), np.float32)),
                        vocab_size=vocab, feature_spec=feature_spec,
-                       eos_token_id=eos_token_id, device="cpu")
+                       eos_token_id=eos_token_id, device="cpu", draft=draft)
 
 
 def make_engine(model, **kw):
@@ -325,8 +340,8 @@ def test_validation(model):
         for kw in bad:
             with pytest.raises(ValueError):
                 eng.submit(**kw)
-        # the speculative opt-in is accepted and changes nothing; a
-        # snapshot cadence changes no token either
+        # the speculative opt-in changes nothing on an engine without a
+        # draft; a snapshot cadence changes no token either
         out = eng.generate(PROMPTS[0], max_new_tokens=4, speculative=True, timeout=60)
         req = eng.submit(PROMPTS[0], max_new_tokens=4, snapshot_every=2)
         assert req.result(timeout=60).tolist() == out.tolist()
@@ -334,7 +349,7 @@ def test_validation(model):
     assert out.tolist() == solo(model, PROMPTS[0], 4).tolist()
 
 
-@pytest.mark.parametrize("option", [dict(quant="w8"), dict(mesh="tp2"), dict(spec_k=4),
+@pytest.mark.parametrize("option", [dict(quant="w8"), dict(mesh="tp2"),
                                     dict(prefix_dir="somewhere"), dict(watchdog_interval=0.5),
                                     dict(store="somewhere")])
 def test_unported_engine_options_raise(model, option):
@@ -342,16 +357,24 @@ def test_unported_engine_options_raise(model, option):
         make_engine(model, **option)
 
 
-@pytest.mark.parametrize("option", [dict(prefix=True), dict(prefix_max_bytes=4096)])
+@pytest.mark.parametrize("option", [dict(prefix=True), dict(prefix_max_bytes=4096),
+                                    dict(breaker_threshold=2), dict(breaker_cooldown=0.5)])
 def test_ported_engine_options_work(model, option):
     """The prefix cache and its budget, ported: a prompt whose first page
-    is cached hits and emits its cold tokens."""
+    is cached hits and emits its cold tokens. The breakers' options,
+    ported: the engine takes them (the reference's defaults otherwise),
+    and every program used has a closed breaker."""
     prompt = np.concatenate([LONG[:8], PROMPTS[0]])
     with make_engine(model, **option) as eng:
         eng.generate(LONG, max_new_tokens=3, timeout=60)
         out = eng.generate(prompt, max_new_tokens=6, timeout=60)
         st = eng.stats()
+        assert (eng.breaker_threshold, eng.breaker_cooldown) == (
+            option.get("breaker_threshold", 3), option.get("breaker_cooldown", 5.0))
     assert st["prefix"]["hits"] == 1 and st["prefix"]["misses"] == 1
+    assert st["quarantine_shed"] == 0
+    assert all(v["breaker"] == {"state": "closed", "consecutive_failures": 0, "trips": 0,
+                                "shed": 0} for v in st["programs"].values())
     if "prefix_max_bytes" in option:
         assert st["prefix"]["max_pages"] == 4096 // (8 * HID * 4 * 2)
     assert out.tolist() == solo(model, prompt, 6, prefix=False).tolist()
@@ -383,18 +406,21 @@ def test_decode_model_defaults_to_the_card(model):
 def test_programs_built_once_per_key(model):
     """The reference's program map: one build per (phase, rows, seq) key
     used, then warmup's whole ladder; a CPU engine runs them eagerly. The
-    keys are the fills (one per chunk start) and the step."""
+    keys are the fills (one per chunk start) and the step; a program that
+    ran carries its breaker (closed), one only warmed up has none."""
     one = {"compiles": 1, "store_loads": 0}
+    ran = dict(one, breaker={"state": "closed", "consecutive_failures": 0, "trips": 0,
+                             "shed": 0})
     with make_engine(model) as eng:
         for p in (PROMPTS[0], LONG, PROMPTS[2]):
             eng.generate(p, max_new_tokens=4, timeout=60)
         st = eng.stats()
-        assert st["programs"] == {"fill1x8": one, "fill1x16": one, "step4x32": one}
+        assert st["programs"] == {"fill1x8": ran, "fill1x16": ran, "step4x32": ran}
         assert (st["cuda_graphs"], st["graph_replays"], st["graph_pool_bytes"]) == (False, 0, 0)
         assert st["prefix_fill_steps"] == 4
         assert eng.warmup() == [8, 16, 24, 32]
-        assert eng.stats()["programs"] == {"fill1x8": one, "fill1x16": one, "fill1x24": one,
-                                           "fill1x32": one, "step4x32": one}
+        assert eng.stats()["programs"] == {"fill1x8": ran, "fill1x16": ran, "fill1x24": one,
+                                           "fill1x32": one, "step4x32": ran}
 
 
 def test_program_builds_once_under_concurrent_callers(model, monkeypatch):

@@ -605,3 +605,46 @@ def test_weights_digest_on_the_card_equals_the_cpu_copy(cuda):
     on_card = llama_decode_model(model, 2, 32).weights_digest()[0]
     on_cpu = llama_decode_model(model.to("cpu"), 2, 32).weights_digest()[0]
     assert on_card == on_cpu
+
+
+@pytest.mark.parametrize("draft_layers", [2, 1], ids=["self-draft", "layer-skip"])
+def test_speculative_equals_plain_on_the_card(cuda, draft_layers):
+    """A small bf16 Llama engine on the card with ``spec_k=4``, its
+    programs (the verify's k step calls in one graph, the draft's step
+    and fills) captured by ``warmup``: opted streams, decoded beside
+    non-opted ones, give exactly the plain tokens; a self-draft (the
+    target's functions and weights, its own pools and programs) has every
+    proposal accepted, which holds only if each verify call is bitwise the
+    step; K1 runs once per layer in every target call (a verify replay
+    counts k) and every draft call."""
+    from paddle_tpu_torch.inference.decode import DecodeEngine
+    from paddle_tpu_torch.text.generation import llama_decode_model, llama_layer_skip
+
+    model = _small_llama().to(torch.bfloat16).eval()
+    draft = llama_decode_model(llama_layer_skip(model, draft_layers), 4, 96)
+    dm = llama_decode_model(model, 4, 96, draft=draft)
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, 512, n).astype(np.int32) for n in (5, 40, 17, 1, 29, 12)]
+    with DecodeEngine(dm, max_prompt_len=64, min_seq_bucket=16, spec_k=4) as eng:
+        assert eng.spec_enabled and eng.warmup() == [16, 32, 48, 64]
+        assert set(eng.stats()["programs"]) == {
+            "fill1x16", "fill1x32", "fill1x48", "fill1x64", "step4x96", "verify4x96",
+            "draft_step4x96", "draft_fill1x16", "draft_fill1x32", "draft_fill1x48",
+            "draft_fill1x64"}
+        before = fa.launches
+        # each prompt twice, opted once: even ones first, odd ones second
+        reqs = [eng.submit(p, max_new_tokens=20, speculative=(i % 2 == 0) != (i >= 6))
+                for i, p in enumerate(prompts + prompts)]
+        got = [r.result(timeout=300).tolist() for r in reqs]
+        st = eng.stats()
+        sp = st["spec"]
+        assert all(got[i] == got[6 + i] for i in range(6))
+        assert sp["iterations"] > 0 and sp["verify_steps"] > 0
+        if draft_layers == 2:
+            assert sp["rejected"] == 0 and sp["accepted"] > 0
+        want = (2 * (st["prefix_fill_steps"] + st["steps"] + 4 * sp["verify_steps"])
+                + draft_layers * (sp["draft_prefills"] + sp["draft_steps"]))
+        assert fa.launches - before == st["k1_launches"] == want
+        assert all(v["compiles"] == 1 for v in st["programs"].values())
+        assert all(v.get("breaker", {}).get("consecutive_failures", 0) == 0
+                   for v in st["programs"].values())
