@@ -146,7 +146,34 @@ Phases, each fatal on failure (exit code 1):
               ms for each draft, capture ms and the graph pool's bytes
               before and after the speculative programs, one verify
               replay profiled (128 K1 records, the idle share)
- 10. summary  a {"kernels": [...]} line, then as the last line
+ 10. robust   the serving engines' watchdog, restarts, chaos sites and
+              telemetry: an engine of phase 7's configuration over its
+              Llama-2-7B weights (watchdog every 0.05 s, wedge timeout
+              2 s) behind PredictorServer serves 24 seeded streams at once
+              (16 fill the slots, 8 wait in its queue) unbroken, then (a)
+              with serving.decode.loop armed to raise once 16 rows run and
+              (b) with serving.decode.step armed to sleep 3 s: it fails
+              unless every stream in flight ends with status 2 and a prefix
+              of its unbroken tokens, the 8 queued ones and the 16 retried
+              are bitwise the unbroken run's, each fault makes one restart,
+              the wedged thread ends at its next call (stale_unwinds) without
+              a replay, no program is captured again, no breaker trips, no
+              slot leaks and K1 ran 32 x (fill replays + steps); (c) phase
+              7-style traffic with stream 0 traced (0x1D), scraped by cmd 6
+              and by a MetricsServer: the decode, batching and server
+              families present in both, no series from two collectors,
+              paddle_decode_tokens_total and the TTFT count moved by the
+              tokens streamed and the sequences served, the step timer's
+              mean within 25% of the window's CUDA-event median step
+              replay, one serving.decode.token span per token under the
+              traced id and none for the others (printed: the fill timer's
+              mean, tokens/s beside phase 7's); (d) phase 4's BERT-base
+              behind a BatchingEngine: its scheduler killed holding one
+              request, the two queued behind it and the retried one
+              bitwise their replies before the fault; bucket 4 failed to
+              its breaker's threshold (2) answers status 1, 1, then 2
+              (quarantined) while bucket 2 serves; K1 = 12 x batches
+ 11. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -943,7 +970,7 @@ def phase_serving(torch, fa, port_mods):
         time.sleep(0.05)
     log(f"[serving] cmd 3/5/7 answered; worst seq-output err {worst:.3e} "
         f"(tolerance {SEQ_OUT_TOL})")
-    return launches
+    return dict(launches=launches, model=model)
 
 
 def profile_device(torch, fn, label, top=8, groups=None):
@@ -1510,14 +1537,16 @@ ENGINE_FIRST, ENGINE_LATER = 16, 8  # streaming clients: all at once, then as th
 
 
 def _decode_call(wire_spec, port, prompt, n, budget_ms=None, oneshot=False, close_after=None,
-                 speculative=False):
+                 speculative=False, trace_id=None):
     """One decode request over the wire: -> (statuses of its frames, the
     token chunks they carried, seconds from the send to the first frame).
     ``close_after``: hang up after that many frames, mid-stream;
-    ``speculative``: opt in (0x5C bit 61)."""
+    ``speculative``: opt in (0x5C bit 61); ``trace_id``: the 0x1D field."""
     tail = wire_spec.encode_decode_opts(n, oneshot=oneshot, speculative=speculative)
     if budget_ms is not None:
         tail = wire_spec.encode_deadline(budget_ms) + tail
+    if trace_id is not None:
+        tail = wire_spec.encode_trace(trace_id) + tail
     frame = wire_spec.build_request(wire_spec.CMD_INFER,
                                     wire_spec.encode_arrays([prompt]) + tail)
     statuses, chunks, first_s = [], [], None
@@ -1933,24 +1962,32 @@ def _split(wire_spec, frames):
     return frames[-1][0], tokens, snaps
 
 
-def reuse_window(torch, fa, engine, port, wire_spec, work):
+def burst_window(torch, fa, engine, port, wire_spec, work, trace_id=None):
     """Every stream of ``work`` at once through the server at ``port``
-    (the engine queues what its slots cannot hold). The window runs from
-    the first send to the last terminal frame, timed by CUDA events; K1
-    is counted from 0 over it. Returns (per stream: statuses, tokens,
-    seconds to the first frame; the window's numbers and stats deltas)."""
+    (the engine queues what its slots cannot hold); ``trace_id`` tags
+    stream 0 (0x1D). The window runs from the first send to the last
+    terminal frame, timed by CUDA events; K1 is counted from 0 over it.
+    Returns (per stream: terminal status, tokens, seconds to the first
+    frame, the host clock at its first token frame (None without one) and
+    at its end; the window's numbers and stats deltas)."""
     results = [None] * len(work)
     errors = []
     gate = threading.Barrier(len(work) + 1)
 
     def client(i, w):
         try:
-            frame = wire_spec.build_request(wire_spec.CMD_INFER, wire_spec.encode_arrays(
-                [w["prompt"]]) + wire_spec.encode_decode_opts(w["n"]))
+            tail = wire_spec.encode_decode_opts(w["n"])
+            if trace_id is not None and i == 0:
+                tail = wire_spec.encode_trace(trace_id) + tail
+            frame = wire_spec.build_request(wire_spec.CMD_INFER,
+                                            wire_spec.encode_arrays([w["prompt"]]) + tail)
             gate.wait()
-            frames, first_s, _ = _frames(wire_spec, port, frame)
+            t_send = time.perf_counter()  # a local connect takes microseconds
+            frames, first_s, token_s = _frames(wire_spec, port, frame)
             status, tokens, _ = _split(wire_spec, frames)
-            results[i] = dict(status=status, tokens=tokens, first_s=first_s)
+            results[i] = dict(status=status, tokens=tokens, first_s=first_s,
+                              t_first=None if token_s is None else t_send + token_s,
+                              t_end=time.perf_counter())
         except Exception as e:  # noqa: BLE001 - reported below
             errors.append(f"{type(e).__name__}: {e}")
 
@@ -1966,12 +2003,12 @@ def reuse_window(torch, fa, engine, port, wire_spec, work):
     for t in threads:
         t.join(900)
         if t.is_alive():
-            fail("a reuse client did not finish within 900 s")
+            fail("a decode client did not finish within 900 s")
     end.record()
     end.synchronize()
     host_s = time.perf_counter() - t0
     if errors:
-        fail(f"reuse clients failed: {errors[:3]}")
+        fail(f"decode clients failed: {errors[:3]}")
     after = engine.stats()
     delta = {k: after[k] - before[k] for k in ("prefix_fill_steps", "steps", "tokens",
                                                "k1_launches", "graph_replays")}
@@ -2031,7 +2068,7 @@ def phase_reuse(torch, fa, mods, card, eng7):
     work = [stream(int(rng.randint(16, 65))) for _ in range(REUSE_STREAMS)]
     got, won = {}, {}
     for name, eng, srv in (("prefix", hot, servers[0]), ("cold", cold, servers[1])):
-        got[name], won[name] = reuse_window(torch, fa, eng, srv.port, wire_spec, work)
+        got[name], won[name] = burst_window(torch, fa, eng, srv.port, wire_spec, work)
     bad = [i for i, w in enumerate(work) for name in got
            if got[name][i]["status"] != wire_spec.STATUS_OK
            or len(got[name][i]["tokens"]) != w["n"]]
@@ -2425,6 +2462,380 @@ def phase_spec(torch, fa, mods, card, eng7):
     return res
 
 
+# ------------------------------------------------------------------ phase 10
+ROBUST_INTERVAL, ROBUST_WEDGE, ROBUST_DELAY = 0.05, 2.0, 3.0  # watchdog s, wedge s, chaos delay s
+# the first iteration of a fault window holds (below the wedge timeout)
+# while every stream arrives, so the next one joins all it can hold
+ROBUST_HOLD = 0.5
+ROBUST_STREAMS = ENGINE_FIRST + ENGINE_LATER  # 16 fill the slots, 8 wait in the engine's queue
+STEP_TIMER_TOL = 0.25  # the step timer's mean against the CUDA-event median step
+
+
+def check_calls(win, n_layers, label):
+    """K1 ran once per layer in every fill replay and step a
+    ``burst_window`` counted, credited by as many graph replays (a
+    superseded thread makes none). -> the calls."""
+    d = win["delta"]
+    calls = d["prefix_fill_steps"] + d["steps"]
+    want = n_layers * calls
+    if win["launches"] != want or d["k1_launches"] != want or d["graph_replays"] != calls:
+        fail(f"{label}: K1 launches {win['launches']}, engine's count {d['k1_launches']}, "
+             f"graph replays {d['graph_replays']}; expected {n_layers} x {calls} launches "
+             "and one replay per fill and step")
+    return calls
+
+
+def parse_exposition(text):
+    """-> {series: value} of a Prometheus text exposition, failing on a
+    series that appears twice."""
+    series = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, value = line.rsplit(" ", 1)
+        if key in series:
+            fail(f"the exposition repeats the series {key}")
+        series[key] = float(value)
+    return series
+
+
+def robust_faults(torch, fa, engine, port, wire_spec, chaos, work, unbroken, n_layers, label,
+                  site, visit, **fault):
+    """One window of ``work`` with ``fault`` armed at the ``visit``-th
+    visit of ``site`` from now, once 16 rows run: the scheduler's first
+    iteration holds ROBUST_HOLD s at serving.decode.loop (below the wedge
+    timeout) while every stream arrives, its next joins the rest up to 16
+    slots, and 8 wait in the queue. The streams in flight must end with
+    status 2 and a prefix of their unbroken tokens, the queued ones be
+    served whole by the replacement scheduler, and the failed ones,
+    retried, give their unbroken tokens. -> (window numbers, K1
+    launches over both runs)."""
+    st0 = engine.stats()
+    chaos.arm("serving.decode.loop", delay=ROBUST_HOLD, at=chaos.visits("serving.decode.loop") + 1)
+    chaos.arm(site, at=chaos.visits(site) + visit, **fault)
+    res, win = burst_window(torch, fa, engine, port, wire_spec, work)
+    chaos.reset()
+    launches = win["launches"]
+    calls = check_calls(win, n_layers, label)
+    failed = [i for i, r in enumerate(res) if r["status"] == wire_spec.STATUS_RETRYABLE]
+    served = [i for i, r in enumerate(res) if r["status"] == wire_spec.STATUS_OK]
+    prefix_ok = all(res[i]["tokens"] == unbroken[i][:len(res[i]["tokens"])] for i in failed)
+    whole_ok = all(res[i]["tokens"] == unbroken[i] for i in served)
+    # the restart fails the streams in flight at once; the queued ones get
+    # their first token from the replacement (client clock)
+    restart_ms = 1e3 * (min(res[i]["t_first"] for i in served)
+                        - min(res[i]["t_end"] for i in failed)) if failed and served else None
+    retry, rwin = burst_window(torch, fa, engine, port, wire_spec, [work[i] for i in failed])
+    launches += rwin["launches"]
+    calls += check_calls(rwin, n_layers, label + " retry")
+    retried_ok = all(r["status"] == wire_spec.STATUS_OK and r["tokens"] == unbroken[i]
+                     for i, r in zip(failed, retry))
+    st = engine.stats()
+    broken = {k: v.get("breaker") for k, v in st["programs"].items()
+              if v.get("breaker", {}).get("state", "closed") != "closed"
+              or v.get("breaker", {}).get("trips", 0)}
+    log(f"[robust] {label}: {len(failed)} streams in flight ended with status 2 (their tokens "
+        f"a prefix of the unbroken run's: {prefix_ok}), {len(served)} queued ones served by "
+        f"the replacement (bitwise: {whole_ok}), the {len(failed)} retried bitwise: "
+        f"{retried_ok}; scheduler restarts {st['scheduler_restarts'] - st0['scheduler_restarts']}"
+        f", superseded threads unwound {st['stale_unwinds'] - st0['stale_unwinds']}; "
+        f"{calls} fill and step replays, K1 {launches} = {n_layers} x {calls}; captures "
+        f"{st['compiles']} (before {st0['compiles']}), program failures "
+        f"{st['program_failures']}; active {st['active']}, "
+        f"{engine.health()['free_slots']}/{ENGINE_SLOTS} slots free; from the restart (the "
+        f"first status 2) to the first token of a queued stream {restart_ms:.1f} ms; window "
+        f"{win['window_ms']:.1f} ms")
+    if (len(failed) != ENGINE_SLOTS or len(served) != len(work) - ENGINE_SLOTS
+            or not (prefix_ok and whole_ok and retried_ok)):
+        fail(f"{label}: the streams in flight, the queued ones or the retries misbehaved")
+    if (st["scheduler_restarts"] != st0["scheduler_restarts"] + 1
+            or st["programs"] != st0["programs"] or st["compiles"] != st0["compiles"]
+            or broken or st["program_failures"] or st["active"]
+            or engine.health()["free_slots"] != ENGINE_SLOTS):
+        fail(f"{label}: no single restart, a program captured again, a breaker tripped or a "
+             f"slot leaked: {broken}, {st['programs']}")
+    return dict(win, restart_ms=restart_ms), launches
+
+
+def metrics_cost_us(obs, rows=ENGINE_SLOTS, reps=2000):
+    """Host us of the telemetry one decode step of ``rows`` untraced rows
+    records (the step's counter, timer, summary row and occupancy; each
+    row's gap and token), on instruments of the engine's kinds."""
+    M = obs.metrics
+    lat = M.log_buckets(0.0001, 4.0, 10)
+    steps, timer = M.Counter("s_total", labelnames=("phase",)), M.Histogram(
+        "s_seconds", labelnames=("phase",), buckets=lat)
+    tokens, gaps = M.Counter("t_total"), M.Histogram("g_seconds", buckets=lat)
+    occupancy = M.Histogram("o", buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        steps.inc(phase="step")
+        timer.observe(0.01, phase="step")
+        obs.tracing.observe("chip_smoke.metrics_cost", 0.01)
+        occupancy.observe(1.0)
+        for _ in range(rows):
+            gaps.observe(0.01)
+            tokens.inc()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def phase_robust(torch, fa, mods, card, eng7, bert):
+    """Phase 10 (module docstring) with phase 7's 7B weights and phase 4's
+    BERT-base."""
+    import gc
+    import urllib.request
+
+    generation, DecodeEngine, BatchingEngine, PredictorServer, wire_spec, chaos, obs = mods
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, dm7 = eng7["model"], eng7["dm"]
+    n_layers = len(model.layers)
+    vocab = model.embed_tokens.weight.shape[0]
+    rng = np.random.RandomState(10)
+    work = [dict(prompt=rng.randint(0, vocab, int(rng.randint(16, ENGINE_PROMPT + 1)))
+                 .astype(np.int32), n=int(rng.randint(16, 65))) for _ in range(ROBUST_STREAMS)]
+    engine = DecodeEngine(dm7, max_prompt_len=ENGINE_PROMPT, min_seq_bucket=ENGINE_CHUNK,
+                          max_queue=64, watchdog_interval=ROBUST_INTERVAL,
+                          wedge_timeout=ROBUST_WEDGE, name="llama-7b-robust")
+    t = time.perf_counter()
+    engine.warmup()
+    server = PredictorServer(None, decode_engine=engine, own_decode_engine=True)
+    log(f"[robust] Llama-2-7B bf16 engine of phase 7's configuration, watchdog every "
+        f"{ROBUST_INTERVAL} s, wedge timeout {ROBUST_WEDGE} s; warmup {time.perf_counter() - t:.2f}"
+        f" s, programs {sorted(engine.stats()['programs'])}")
+    chaos.reset()
+    launches = 0
+
+    # the unbroken run
+    res, win = burst_window(torch, fa, engine, server.port, wire_spec, work)
+    launches += win["launches"]
+    check_calls(win, n_layers, "unbroken run")
+    if any(r["status"] != wire_spec.STATUS_OK or len(r["tokens"]) != w["n"]
+           for r, w in zip(res, work)):
+        fail("the unbroken run's streams are not whole")
+    unbroken = [r["tokens"] for r in res]
+    log(f"[robust] unbroken run: {ROBUST_STREAMS} streams, {sum(map(len, unbroken))} tokens in "
+        f"{win['window_ms']:.1f} ms")
+
+    # (a) a dead scheduler, (b) a wedged one
+    dead, n = robust_faults(torch, fa, engine, server.port, wire_spec, chaos, work, unbroken,
+                            n_layers, "(a) scheduler killed at serving.decode.loop",
+                         "serving.decode.loop", 3, exc=RuntimeError("chaos: the scheduler dies"))
+    launches += n
+    stale0 = engine.stats()["stale_unwinds"]
+    t_wedge = time.perf_counter()
+    wedged, n = robust_faults(torch, fa, engine, server.port, wire_spec, chaos, work, unbroken,
+                         n_layers, f"(b) step wedged {ROBUST_DELAY} s at serving.decode.step",
+                         "serving.decode.step", 2, delay=ROBUST_DELAY)
+    launches += n
+    t_end = t_wedge + ROBUST_DELAY + 30
+    while engine.stats()["stale_unwinds"] == stale0:
+        if time.perf_counter() > t_end:
+            fail("(b) the superseded scheduler never ended at its next program call")
+        time.sleep(0.01)
+    st = engine.stats()
+    log(f"[robust] (b) the superseded thread woke and ended at its next call's generation check "
+        f"(stale_unwinds {st['stale_unwinds']}), no replay after its generation ended: K1 and "
+        f"replays above match the calls the replacement made")
+    if st["stale_unwinds"] != stale0 + 1 or st["scheduler_restarts"] != 2:
+        fail(f"(b) expected one superseded thread and two restarts in all: {st}")
+    chaos.reset()
+
+    # the BERT-base batching engine behind its own server (alive through
+    # (c), whose scrape holds its families)
+    def run(ids):
+        with torch.inference_mode():
+            return list(bert(torch.from_numpy(np.array(ids)).to("cuda")))
+
+    bengine = BatchingEngine.for_callable(
+        run, max_batch_size=8, max_wait_ms=20.0, max_queue=64, name="bert-robust",
+        breaker_threshold=2, breaker_cooldown=600.0, watchdog_interval=ROBUST_INTERVAL,
+        wedge_timeout=ROBUST_WEDGE)
+    bengine.warmup(signature=[("int32", (128,))])
+    bserver = PredictorServer(run, engine=bengine, own_engine=True)
+    bert_layers = len(bert.encoder.layers)
+    brng = np.random.RandomState(11)
+    bvocab = bert.vocab_size
+    reqs = {"A 1x128": brng.randint(0, bvocab, (1, 128)), "B 2x512": brng.randint(
+        0, bvocab, (2, 512)), "C 3x256": brng.randint(0, bvocab, (3, 256)),
+        "D 4x128": brng.randint(0, bvocab, (4, 128)), "E 2x128": brng.randint(0, bvocab, (2, 128))}
+    reqs = {k: v.astype(np.int32) for k, v in reqs.items()}
+
+    def infer(ids):
+        status, payload = _call(bserver.port, wire_spec.build_request(
+            wire_spec.CMD_INFER, wire_spec.encode_arrays([ids])))
+        return status, (wire_spec.decode_arrays(payload) if status == wire_spec.STATUS_OK
+                        else None)
+
+    def fired_since(st0):
+        return sum(x["batches"] for xs in bengine.stats()["buckets"].values() for x in xs) - sum(
+            x["batches"] for xs in st0["buckets"].values() for x in xs)
+
+    b0 = bengine.stats()
+    fa.launches = 0  # (d)'s path: every batch, counted in two parts around (c)
+    before = {k: infer(v) for k, v in reqs.items()}
+    blaunches = fa.launches
+    if any(s != wire_spec.STATUS_OK for s, _ in before.values()):
+        fail(f"BERT requests before the faults failed: {[s for s, _ in before.values()]}")
+
+    # (c) the decode telemetry over phase 7-style traffic, one stream traced
+    def scrape():
+        status, body = _call(server.port, wire_spec.build_request(wire_spec.CMD_METRICS))
+        if status != wire_spec.STATUS_OK:
+            fail(f"cmd 6 answered status {status}")
+        return body.decode()
+
+    eng_label = f'engine="{engine.name}"'
+    obs.tracing.reset()
+    tid = 0x5EED0A11
+    # the step's and the fill's replays timed by CUDA events over the window
+    keys = {"step": engine._step_key, "fill": ("fill", 1, ENGINE_CHUNK)}
+    real = {p: engine._programs[k] for p, k in keys.items()}
+    events = {p: [] for p in keys}
+
+    def timed(phase):
+        def run():
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = real[phase]()
+            e.record()
+            events[phase].append((s, e))
+            return out
+        return run
+
+    m0 = parse_exposition(scrape())
+    for p, k in keys.items():
+        engine._programs[k] = timed(p)
+    res, win = burst_window(torch, fa, engine, server.port, wire_spec, work, trace_id=tid)
+    for p, k in keys.items():
+        engine._programs[k] = real[p]
+    launches += win["launches"]
+    check_calls(win, n_layers, "(c) telemetry window")
+    text = scrape()
+    m1 = parse_exposition(text)
+    with obs.MetricsServer() as ms:
+        with urllib.request.urlopen(f"http://127.0.0.1:{ms.port}/metrics", timeout=60) as r:
+            http = r.read().decode()
+    parse_exposition(http)
+    types = {line for line in text.splitlines() if line.startswith("# TYPE ")}
+    http_types = {line for line in http.splitlines() if line.startswith("# TYPE ")}
+    seen, dups = set(), set()
+    for f in obs.REGISTRY.collect():  # the families before the exposition merges them
+        for sfx, lab, _ in f.samples:
+            k = (f.name + sfx, tuple(sorted(lab.items())))
+            (dups if k in seen else seen).add(k)
+    dups = sorted(dups)
+
+    def d(name, **labels):
+        lab = ",".join(f'{k}="{v}"' for k, v in sorted(dict(engine=engine.name, **labels)
+                                                       .items()))
+        return m1.get(f"{name}{{{lab}}}", 0.0) - m0.get(f"{name}{{{lab}}}", 0.0)
+
+    streamed = sum(len(r["tokens"]) for r in res)
+    served = sum(1 for r in res if r["status"] == wire_spec.STATUS_OK)
+    step_mean = d("paddle_decode_step_seconds_sum", phase="step") / d(
+        "paddle_decode_step_seconds_count", phase="step")
+    fill_n = d("paddle_decode_step_seconds_count", phase="fill")
+    fill_mean = d("paddle_decode_step_seconds_sum", phase="fill") / fill_n
+    ev_median = {p: float(np.median([s.elapsed_time(e) for s, e in evs])) / 1e3
+                 for p, evs in events.items()}
+    cost_us = metrics_cost_us(obs)
+    token_spans = obs.tracing.finished(name="serving.decode.token")
+    traced = [s for s in token_spans if s["trace_id"] == tid]
+    tps = d("paddle_decode_tokens_total") / win["window_ms"] * 1e3
+    families = ("paddle_decode_tokens_total", "paddle_decode_ttft_seconds",
+                "paddle_decode_intertoken_seconds", "paddle_decode_step_seconds",
+                "paddle_decode_scheduler_restarts_total", "paddle_decode_compiles_total",
+                "paddle_serving_requests_total", "paddle_serving_batch_exec_seconds",
+                "paddle_server_frames_total", "paddle_server_responses_total",
+                "paddle_server_connections_open", "paddle_server_stream_chunks_total")
+    missing = [f for f in families if not any(t.startswith(f"# TYPE {f} ") for t in types)]
+    log(f"[robust] (c) cmd 6 scrape: {len(m1)} series in {len(types)} families (the "
+        f"/metrics scrape: {len(http_types)} families, the same: {types == http_types}), "
+        f"missing {missing}, series repeated across collectors {dups}; the window streamed "
+        f"{streamed} tokens, paddle_decode_tokens_total moved {d('paddle_decode_tokens_total'):.0f}"
+        f"; {served} sequences served, paddle_decode_ttft_seconds_count moved "
+        f"{d('paddle_decode_ttft_seconds_count'):.0f}; restarts in all "
+        f"{m1.get(f'paddle_decode_scheduler_restarts_total{{{eng_label}}}')}")
+    log(f"[robust] (c) paddle_decode_step_seconds{{phase=\"step\"}} mean {1e3 * step_mean:.3f} ms "
+        f"over {d('paddle_decode_step_seconds_count', phase='step'):.0f} steps against the "
+        f"window's CUDA-event median step replay {1e3 * ev_median['step']:.3f} ms "
+        f"({len(events['step'])} steps): ratio {step_mean / ev_median['step']:.3f} (limit 1 +- "
+        f"{STEP_TIMER_TOL}); fill phase mean {1e3 * fill_mean:.3f} ms over {fill_n:.0f} fills "
+        f"against the median fill replay {1e3 * ev_median['fill']:.3f} ms: ratio "
+        f"{fill_mean / ev_median['fill']:.3f} (recorded); the metrics' host cost of a "
+        f"{ENGINE_SLOTS}-row step {cost_us:.1f} us, {cost_us / 10 / step_mean / 1e3:.3f}% of "
+        f"the step timer's mean (recorded); the traced stream's "
+        f"{len(res[0]['tokens'])} tokens gave {len(traced)} serving.decode.token spans under its"
+        f" id, the untraced {len(token_spans) - len(traced)}; {tps:.1f} tokens/s over the window"
+        f" (phase 7's window {eng7['tokens_per_s']:.1f}, recorded, not required) | {card}")
+    if (missing or dups or types != http_types or served != ROBUST_STREAMS
+            or d("paddle_decode_tokens_total") != streamed
+            or d("paddle_decode_ttft_seconds_count") != served
+            or abs(step_mean / ev_median["step"] - 1) > STEP_TIMER_TOL
+            or len(traced) != len(res[0]["tokens"]) or len(token_spans) != len(traced)):
+        fail("(c) the decode telemetry disagrees with the traffic it measured")
+
+    # (d) the BERT engine: its scheduler killed with A in flight and B, C
+    # queued behind it; then bucket 4 failed to its breaker's threshold
+    # and quarantined while bucket 2 keeps serving
+    out = {}
+
+    def send(k):
+        out[k] = infer(reqs[k])
+
+    fa.launches = 0
+    chaos.arm("serving.scheduler.loop", exc=RuntimeError("chaos: the scheduler dies"),
+              at=chaos.visits("serving.scheduler.loop") + 1)
+    threads = [threading.Thread(target=send, args=(k,)) for k in ("A 1x128", "B 2x512",
+                                                                  "C 3x256")]
+    for t in threads:
+        t.start()
+        time.sleep(0.005)  # A first: the group the dying scheduler holds
+    for t in threads:
+        t.join(300)
+    retried = infer(reqs["A 1x128"])
+    chaos.arm("serving.execute.bucket4", exc=RuntimeError("chaos: bucket 4 fails"), times=2,
+              at=chaos.visits("serving.execute.bucket4") + 1)
+    sick = [infer(reqs["D 4x128"])[0] for _ in range(3)]
+    healthy = infer(reqs["E 2x128"])
+    bst, bh = bengine.stats(), bengine.health()
+    fired = fired_since(b0)
+    blaunches += fa.launches
+    same = {k: bool(out[k][0] == wire_spec.STATUS_OK and all(
+        np.array_equal(a, b) for a, b in zip(out[k][1], before[k][1])))
+        for k in ("B 2x512", "C 3x256")}
+    same["A retried"] = bool(retried[0] == wire_spec.STATUS_OK and all(
+        np.array_equal(a, b) for a, b in zip(retried[1], before["A 1x128"][1])))
+    same["E"] = bool(healthy[0] == wire_spec.STATUS_OK and all(
+        np.array_equal(a, b) for a, b in zip(healthy[1], before["E 2x128"][1])))
+    log(f"[robust] (d) BERT-base batching engine: the scheduler killed holding A: statuses "
+        f"{ {k: v[0] for k, v in out.items()} }, bitwise the replies before the fault "
+        f"{same}; restarts {bst['scheduler_restarts']}; bucket 4 failed twice, then "
+        f"statuses {sick} (quarantined buckets {bh['quarantined_buckets']}, shed "
+        f"{bst['quarantine_shed']}); bucket 2 served; K1 {blaunches} = {bert_layers} x {fired} "
+        "batches")
+    if (out["A 1x128"][0] != wire_spec.STATUS_RETRYABLE or not all(same.values())
+            or bst["scheduler_restarts"] != 1 or sick != [wire_spec.STATUS_ERROR] * 2
+            + [wire_spec.STATUS_RETRYABLE] or bh["quarantined_buckets"] != [4]
+            or blaunches != bert_layers * fired):
+        fail("(d) the BERT engine's restart or quarantine misbehaved")
+    launches += blaunches
+    chaos.reset()
+    bserver.stop()
+    server.stop()
+    if not (engine.health()["closed"] and bengine.health()["closed"]):
+        fail("the robust phase's engines did not close")
+    del engine, server, bengine, bserver
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[robust] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, tokens_per_s=tps, step_timer_ratio=step_mean / ev_median[
+        "step"], fill_timer_ratio=fill_mean / ev_median["fill"], metrics_cost_us=cost_us,
+        dead_restart_ms=dead["restart_ms"], wedged_restart_ms=wedged["restart_ms"])
+
+
 # ------------------------------------------------------- the chunk sweep
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
@@ -2470,7 +2881,7 @@ def fill_chunk_sweep(torch, fa, mods, card, chunks):
         hot = DecodeEngine(dm, prefix_max_bytes=REUSE_BUDGET, name=f"sweep-{c}-prefix", **kw)
         hot.warmup()
         srv = PredictorServer(None, decode_engine=hot, own_decode_engine=True)
-        got, w8 = reuse_window(torch, fa, hot, srv.port, wire_spec, shared)
+        got, w8 = burst_window(torch, fa, hot, srv.port, wire_spec, shared)
         if any(r["status"] != wire_spec.STATUS_OK for r in got):
             fail(f"a shared-prefix stream failed at C = {c}")
         cold_s = first_token_alone(hot, cold_probes)
@@ -2526,6 +2937,7 @@ def main():
         from paddle_tpu_torch import nn, optimizer
         from paddle_tpu_torch.core import cuda_build
         from paddle_tpu_torch.core import random as prandom
+        from paddle_tpu_torch import obs
         from paddle_tpu_torch.core.cuda_graph import Graph, pool_bytes
         from paddle_tpu_torch.distributed import spmd
         from paddle_tpu_torch.inference import wire_spec
@@ -2533,6 +2945,7 @@ def main():
         from paddle_tpu_torch.inference.decode import DecodeEngine
         from paddle_tpu_torch.inference.server import PredictorServer
         from paddle_tpu_torch.ops import flash_attention as fa
+        from paddle_tpu_torch.resilience import chaos
         from paddle_tpu_torch.text import generation
         from paddle_tpu_torch.text.models import BertForPretraining, BertModel, LlamaModel
     except ImportError as e:
@@ -2570,8 +2983,8 @@ def main():
     bwd_cases = phase_bwd_kernels(torch, fa)
     phase_dropout_placement(torch, fa)
     took("kernels: K2, K3, dropout")
-    serving_launches = phase_serving(torch, fa, (BertModel, BatchingEngine, PredictorServer,
-                                                 wire_spec))
+    serving = phase_serving(torch, fa, (BertModel, BatchingEngine, PredictorServer,
+                                        wire_spec))
     took("serving")
     train = phase_training(torch, fa, (BertForPretraining, nn, optimizer, spmd, prandom),
                            card)
@@ -2588,6 +3001,9 @@ def main():
     spec = phase_spec(torch, fa, (generation, DecodeEngine, PredictorServer, wire_spec), card,
                       eng)
     took("spec")
+    robust = phase_robust(torch, fa, (generation, DecodeEngine, BatchingEngine, PredictorServer,
+                                      wire_spec, chaos, obs), card, eng, serving["model"])
+    took("robust")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -2640,8 +3056,12 @@ def main():
     line = [
         dict(name=kernels[0]["name"], route="cuda", source=kernels[0]["source"],
              replaces=kernels[0]["replaces"],
-             launches=(serving_launches + train["counts"]["fwd"] + gen["launches"]
-                       + eng["launches"] + reuse["launches"] + spec["launches"]),
+             launches=(serving["launches"] + train["counts"]["fwd"] + gen["launches"]
+                       + eng["launches"] + reuse["launches"] + spec["launches"]
+                       + robust["launches"]),
+             # phase 10's: its 7B windows (faults, retries, telemetry) and
+             # its BERT batches
+             robust_launches=robust["launches"],
              # phase 9's: in its verify replays (k a layer each) and in its
              # drafts' fills and steps
              spec_verify_launches=spec["verify_launches"],

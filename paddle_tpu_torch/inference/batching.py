@@ -13,18 +13,42 @@ absolute deadline: expired requests are dropped before dispatch, and a
 group never waits past the tightest deadline of its members. Padding rows
 are sliced off before anything is returned.
 
-The circuit breaker (:class:`_Breaker`, :class:`BucketQuarantined`) is
-ported and guards every program key of the decode engine
-(inference/decode.py). Not yet ported (later slices): its per-bucket use
-in this engine, the scheduler watchdog, cold-compile threads, the
-artifact store, meshes and the obs metrics. A batch that raises fails
-only its own group.
+**Robustness** (the reference's): a batch that raises fails only its own
+group, and every ``(bucket, signature)`` has a circuit breaker
+(:class:`_Breaker`): ``breaker_threshold`` consecutive failures quarantine
+the bucket, which then sheds its groups with :class:`BucketQuarantined`
+(wire status 2) while the other buckets keep serving, until one probe
+after ``breaker_cooldown`` s succeeds. A watchdog thread (every
+``watchdog_interval`` s; 0 turns it off and a dying scheduler restarts
+itself) restarts a scheduler that died or wedged (heartbeat and the
+oldest waiting request both older than ``wedge_timeout``): the group in
+flight fails with :class:`SchedulerRestarted` (retryable), the queued
+requests are served by the replacement thread, and a superseded thread
+exits without delivering. The port reads no environment: the defaults
+are the reference's environment defaults (3, 5.0 s, 0.5 s, 30.0 s).
+
+**Telemetry**: the engine's counters are obs instruments (const label
+``engine=<name>``), exposed by a collector in ``obs.metrics.REGISTRY``
+until ``close``; ``infer(trace_id=...)`` records the ``serving.request``,
+``serving.queue`` and ``serving.execute`` spans. Chaos sites:
+``serving.submit``, ``serving.scheduler.loop``, ``serving.execute`` and
+``serving.execute.bucket{n}``.
+
+Not ported (ROADMAP Queue 1): cold-compile threads, the artifact store,
+quantized and meshed serving. The port's runner compiles nothing: the
+first batch of a bucket (or its warmup) is counted as its one ``inline``
+compile, as it builds the kernel and grows the allocator.
 """
 import threading
 import time
+import traceback
+import weakref
 
 import numpy as np
 
+from ..obs import metrics as obs_metrics
+from ..obs import tracing as obs_tracing
+from ..resilience import chaos
 from .wire_spec import STATUS_RETRYABLE
 
 
@@ -42,6 +66,12 @@ class BucketQuarantined(RetryableError):
     """This request's program breaker is open after repeated failures;
     the program sheds fast while it cools down. Other programs keep
     serving."""
+
+
+class SchedulerRestarted(RetryableError):
+    """The scheduler died or wedged while this request was in flight; the
+    watchdog restarted it. Its results (if any) were discarded, never
+    delivered, so a retry cannot observe a double answer."""
 
 
 class DeadlineExceeded(RetryableError):
@@ -119,9 +149,9 @@ def _signature(arrays):
 
 class _Request:
     __slots__ = ("inputs", "rows", "sig", "event", "outputs", "error",
-                 "t_enqueue", "min_bucket", "deadline")
+                 "t_enqueue", "min_bucket", "deadline", "trace_id")
 
-    def __init__(self, inputs, rows, sig, min_bucket=1, deadline=None):
+    def __init__(self, inputs, rows, sig, min_bucket=1, deadline=None, trace_id=None):
         self.inputs = inputs
         self.rows = rows
         self.sig = sig
@@ -133,6 +163,7 @@ class _Request:
         # their rows came from a >= 2-row request
         self.min_bucket = min_bucket
         self.deadline = deadline  # absolute time.monotonic(), or None
+        self.trace_id = trace_id
 
     def fail(self, error):
         if not self.event.is_set():
@@ -195,10 +226,14 @@ class BatchingEngine:
     ``max_wait_ms`` fires a partial batch once the oldest pending request
     has waited that long, and ``max_queue`` bounds the pending requests
     (beyond it ``infer`` sheds with EngineOverloaded).
+    ``breaker_threshold``/``breaker_cooldown``: every bucket's circuit
+    breaker; ``watchdog_interval``/``wedge_timeout``: the scheduler's
+    watchdog (module docstring).
     """
 
     def __init__(self, runner, max_batch_size=32, max_wait_ms=2.0,
-                 max_queue=256, name="engine"):
+                 max_queue=256, name="engine", breaker_threshold=None,
+                 breaker_cooldown=None, watchdog_interval=None, wedge_timeout=None):
         if max_batch_size < 1:
             raise ValueError("max_batch_size must be >= 1")
         self._runner = runner
@@ -206,32 +241,118 @@ class BatchingEngine:
         self.max_wait_s = float(max_wait_ms) / 1000.0
         self.max_queue = int(max_queue)
         self.name = name
+        self.breaker_threshold = int(3 if breaker_threshold is None else breaker_threshold)
+        self.breaker_cooldown = float(5.0 if breaker_cooldown is None else breaker_cooldown)
+        self.watchdog_interval = float(0.5 if watchdog_interval is None else watchdog_interval)
+        self.wedge_timeout = float(30.0 if wedge_timeout is None else wedge_timeout)
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._pending = []  # FIFO of _Request
         self._bucket_stats = {}  # (bucket, sig) -> _BucketStats
+        self._breakers = {}  # (bucket, sig) -> _Breaker
+        self._warm = set()  # (bucket, sig) run at least once
         self._declared = []  # bucket row counts from warmup()
-        self._requests = 0
-        self._rows = 0
-        self._shed = 0
-        self._deadline_expired = 0
         self._closed = False
-        self._scheduler = threading.Thread(target=self._scheduler_loop,
+        self._closed_ev = threading.Event()
+        self._init_metrics()
+        # a restart bumps the generation; a superseded scheduler sees it
+        # and exits without delivering
+        self._sched_gen = 0
+        self._heartbeat = time.monotonic()  # bumped every scheduler iteration
+        self._inflight = {}  # gen -> the group popped and not yet answered
+        self._watchdog = None  # before the scheduler starts: its crash path reads it
+        self._scheduler = threading.Thread(target=self._run_scheduler, args=(0,),
                                            name=f"{name}-scheduler", daemon=True)
         self._scheduler.start()
+        if self.watchdog_interval > 0:
+            self._watchdog = threading.Thread(target=self._run_watchdog,
+                                              name=f"{name}-watchdog", daemon=True)
+            self._watchdog.start()
 
     @classmethod
     def for_callable(cls, fn, **kw):
         """Engine over any ``fn(*arrays) -> outputs`` callable."""
         return cls(CallableRunner(fn), **kw)
 
+    # ---------------------------------------------------------- telemetry
+    def _init_metrics(self):
+        """The engine's counters as obs instruments (the reference's
+        families, names, labels and buckets; const label ``engine``, and
+        ``quant``/``mesh`` on the compiles), exposed through a collector
+        in the process registry until ``close``. ``stats`` and ``health``
+        read them under the engine lock."""
+        cl = {"engine": self.name}
+        M = obs_metrics
+        lat = M.log_buckets(0.0001, 4.0, 10)
+        self._m_requests = M.Counter("paddle_serving_requests_total",
+                                     "Requests admitted to the batching engine",
+                                     const_labels=cl)
+        self._m_rows = M.Counter("paddle_serving_rows_total",
+                                 "Input rows admitted to the batching engine", const_labels=cl)
+        self._m_shed = M.Counter("paddle_serving_shed_total",
+                                 "Requests shed (reason: queue_full | quarantine)",
+                                 labelnames=("reason",), const_labels=cl)
+        self._m_deadline = M.Counter(
+            "paddle_serving_deadline_total",
+            "Deadline outcomes (stage: expired = dropped pre-dispatch, zero compute; late = "
+            "expired in flight, compute spent)", labelnames=("stage",), const_labels=cl)
+        self._m_restarts = M.Counter("paddle_serving_scheduler_restarts_total",
+                                     "Watchdog scheduler restarts", const_labels=cl)
+        self._m_compiles = M.Counter(
+            "paddle_serving_compiles_total",
+            "Bucket program materializations (source: inline = the bucket's first run; "
+            "quant: the serving quantization mode; mesh: the serving mesh descriptor)",
+            labelnames=("bucket", "source"),
+            const_labels={**cl, "quant": "f32", "mesh": "single"})
+        self._m_batches = M.Counter("paddle_serving_batches_total", "Batches executed",
+                                    labelnames=("bucket",), const_labels=cl)
+        self._m_batch_rows = M.Counter("paddle_serving_batch_rows_total",
+                                       "Real rows executed per bucket",
+                                       labelnames=("bucket",), const_labels=cl)
+        self._m_padded = M.Counter("paddle_serving_padded_rows_total",
+                                   "Padding rows executed per bucket",
+                                   labelnames=("bucket",), const_labels=cl)
+        self._m_queue_depth = M.Gauge("paddle_serving_queue_depth",
+                                      "Pending requests in the bounded queue", const_labels=cl)
+        self._m_queue_wait = M.Histogram("paddle_serving_queue_wait_seconds",
+                                         "Enqueue-to-dispatch wait per request",
+                                         const_labels=cl, buckets=lat)
+        self._m_occupancy = M.Histogram(
+            "paddle_serving_batch_occupancy", "Real rows / bucket size per executed batch",
+            const_labels=cl, buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+        self._m_exec = M.Histogram("paddle_serving_batch_exec_seconds",
+                                   "Batch execute duration", labelnames=("bucket",),
+                                   const_labels=cl, buckets=lat)
+        self._instruments = [
+            self._m_requests, self._m_rows, self._m_shed, self._m_deadline, self._m_restarts,
+            self._m_compiles, self._m_batches, self._m_batch_rows, self._m_padded,
+            self._m_queue_depth, self._m_queue_wait, self._m_occupancy, self._m_exec]
+        # weakly held: an engine dropped without close() is collected, and
+        # its collector then unregisters itself (it returns None)
+        ref = weakref.ref(self)
+
+        def collector():
+            eng = ref()
+            return eng._collect_families() if eng is not None else None
+
+        self._obs_collector = collector
+        obs_metrics.REGISTRY.register_collector(collector)
+
+    def _collect_families(self):
+        with self._lock:
+            self._m_queue_depth.set(len(self._pending))
+            return [m.collect() for m in self._instruments]
+
     # ------------------------------------------------------------- submit
-    def infer(self, inputs, timeout=None, deadline=None):
+    def infer(self, inputs, timeout=None, deadline=None, trace_id=None):
         """Run one request (arrays sharing dim 0 = rows); returns the list
         of output arrays for those rows. ``timeout`` bounds this caller's
         wait; ``deadline`` (absolute ``time.monotonic()``) is also honoured
         by the scheduler. A request of more than max_batch_size rows is
-        split into chunks that each take a queue slot."""
+        split into chunks that each take a queue slot. ``trace_id``
+        (default: the thread's ambient obs.tracing id) tags the request's
+        ``serving.request``, ``serving.queue`` and ``serving.execute``
+        spans."""
         inputs = [np.ascontiguousarray(a) for a in inputs]
         if not inputs:
             raise ValueError("infer() needs at least one input array")
@@ -242,12 +363,34 @@ class BatchingEngine:
             if a.ndim == 0 or a.shape[0] != rows:
                 raise ValueError("all inputs of one request must share dim 0 "
                                  f"(got {[tuple(x.shape) for x in inputs]})")
-        if deadline is not None and time.monotonic() >= deadline:
-            with self._lock:
-                self._deadline_expired += 1
-            raise DeadlineExceeded(f"{self.name}: deadline passed before submission")
-        if rows <= self.max_batch_size:
-            return self._wait(self._submit([inputs], 1, deadline)[0], timeout)
+        if trace_id is None:
+            trace_id = obs_tracing.current_trace_id()
+        t0 = time.perf_counter()
+        try:
+            if deadline is not None and time.monotonic() >= deadline:
+                self._m_deadline.inc(stage="expired")
+                raise DeadlineExceeded(f"{self.name}: deadline passed before submission")
+            if rows <= self.max_batch_size:
+                out = self._wait(self._submit([inputs], 1, deadline, trace_id)[0], timeout)
+            else:
+                out = self._infer_split(inputs, rows, timeout, deadline, trace_id)
+        except BaseException as e:
+            self._span_request(trace_id, t0, rows, type(e).__name__)
+            raise
+        self._span_request(trace_id, t0, rows, "ok")
+        return out
+
+    def _span_request(self, trace_id, t0, rows, outcome):
+        """The whole request's span for a traced request; the summary
+        table only for an untraced one."""
+        dt = time.perf_counter() - t0
+        if trace_id is not None:
+            obs_tracing.record_span("serving.request", dt, trace_id=trace_id,
+                                    engine=self.name, rows=rows, outcome=outcome)
+        else:
+            obs_tracing.observe("serving.request", dt)
+
+    def _infer_split(self, inputs, rows, timeout, deadline, trace_id):
         n_chunks = -(-rows // self.max_batch_size)
         if n_chunks > self.max_queue:
             # a request that can never fit is a permanent error, not a shed
@@ -256,7 +399,7 @@ class BatchingEngine:
                              f"cap is {self.max_queue}")
         chunks = [[a[lo:lo + self.max_batch_size] for a in inputs]
                   for lo in range(0, rows, self.max_batch_size)]
-        reqs = self._submit(chunks, min(2, self.max_batch_size), deadline)
+        reqs = self._submit(chunks, min(2, self.max_batch_size), deadline, trace_id)
         wait_until = None if timeout is None else time.monotonic() + timeout
         parts = []
         for i, r in enumerate(reqs):
@@ -275,23 +418,24 @@ class BatchingEngine:
                 raise
         return [np.concatenate([p[j] for p in parts]) for j in range(len(parts[0]))]
 
-    def _submit(self, chunks, min_bucket, deadline):
+    def _submit(self, chunks, min_bucket, deadline, trace_id=None):
         """Admit every chunk or none (one queue slot per chunk)."""
+        chaos.hit("serving.submit")
         with self._cond:
             if self._closed:
                 raise EngineClosed(f"{self.name} is closed")
             if len(self._pending) + len(chunks) > self.max_queue:
-                self._shed += 1
+                self._m_shed.inc(reason="queue_full")
                 raise EngineOverloaded(
                     f"{self.name} queue full ({len(self._pending)} pending, cap "
                     f"{self.max_queue}, need {len(chunks)} slots); request shed")
             reqs = []
             for chunk in chunks:
                 rows = int(chunk[0].shape[0])
-                req = _Request(chunk, rows, _signature(chunk), min_bucket, deadline)
+                req = _Request(chunk, rows, _signature(chunk), min_bucket, deadline, trace_id)
                 self._pending.append(req)
-                self._requests += 1
-                self._rows += rows
+                self._m_requests.inc()
+                self._m_rows.inc(rows)
                 reqs.append(req)
             self._cond.notify_all()
         return reqs
@@ -307,6 +451,7 @@ class BatchingEngine:
                 if req in self._pending:
                     self._pending.remove(req)
             if req.deadline is not None and time.monotonic() >= req.deadline:
+                self._m_deadline.inc(stage="late")
                 raise DeadlineExceeded(f"{self.name}: deadline passed while the "
                                        "request was in flight; result discarded")
             raise TimeoutError("engine did not answer within timeout")
@@ -315,33 +460,82 @@ class BatchingEngine:
         return req.outputs
 
     # ---------------------------------------------------------- scheduler
-    def _scheduler_loop(self):
+    def _run_scheduler(self, gen):
+        try:
+            self._scheduler_loop(gen)
+        except Exception:  # noqa: BLE001 - the watchdog owns recovery
+            # die with the group still in _inflight: the restart fails it
+            # retryable and a replacement serves the queue
+            traceback.print_exc()
+            if self._watchdog is None:
+                self._restart_scheduler(gen, "died (watchdog disabled)")
+
+    def _scheduler_loop(self, gen):
         while True:
-            group = self._next_group()
+            # a float store: the watchdog only compares it with a threshold
+            self._heartbeat = time.monotonic()
+            group = self._next_group(gen)
             if group is None:
-                return
-            try:
-                self._run_group(group)
-            except Exception as e:  # noqa: BLE001 - fail this group only
+                return  # closed and drained, or superseded by a restart
+            with self._lock:
+                self._inflight[gen] = group
+            # an exception from here to the hand-off kills this thread with
+            # the group in _inflight: the watchdog fails exactly that group
+            chaos.hit("serving.scheduler.loop")
+            key = (self._group_bucket(group), group[0].sig)
+            with self._lock:
+                br = self._breaker_for(key)
+                allowed = br.allow(time.monotonic())
+                if not allowed:
+                    br.shed += len(group)
+                    self._m_shed.inc(len(group), reason="quarantine")
+            if not allowed:
+                err = BucketQuarantined(
+                    f"{self.name} bucket {key[0]} is quarantined after {br.failures} "
+                    f"consecutive failures; retry after cooldown ({self.breaker_cooldown}s)")
                 for r in group:
-                    r.fail(e)
+                    r.fail(err)
+                with self._lock:
+                    self._inflight.pop(gen, None)
+                continue
+            err = None
+            try:
+                self._run_group(group, gen)
+            except Exception as e:  # noqa: BLE001 - fail this group only
+                err = e
+            with self._lock:
+                # answered either way: a later restart must not fail it
+                # again; a superseded thread's outcome is no news for the
+                # breaker (the restart judged a stranded probe already)
+                self._inflight.pop(gen, None)
+                if self._sched_gen == gen:
+                    if err is None:
+                        br.record_success()
+                    else:
+                        br.record_failure(time.monotonic())
+            if err is not None:
+                for r in group:
+                    r.fail(err)
 
     def _purge_expired_locked(self, now):
         expired = [r for r in self._pending
                    if r.deadline is not None and now >= r.deadline]
         for r in expired:
             self._pending.remove(r)
-            self._deadline_expired += 1
+            self._m_deadline.inc(stage="expired")
             r.fail(DeadlineExceeded(f"{self.name}: deadline passed while queued; "
                                     "request dropped before dispatch"))
 
-    def _next_group(self):
+    def _next_group(self, gen):
         """Block until a same-signature group is ready to fire: either
         max_batch_size rows are pending, the oldest request has waited
         max_wait_ms, or the tightest deadline in the group is about to
-        pass. Returns None once the engine is closed and drained."""
+        pass. Returns None once the engine is closed and drained, or this
+        scheduler's generation is over."""
         with self._cond:
             while True:
+                if self._sched_gen != gen:
+                    return None  # a restart superseded this thread
                 now = time.monotonic()
                 self._purge_expired_locked(now)
                 if not self._pending:
@@ -365,8 +559,14 @@ class BatchingEngine:
                     # dispatch before the tightest deadline, not at it
                     fire_at = min(fire_at, tight - 0.005)
                 if rows >= self.max_batch_size or now >= fire_at or self._closed:
+                    t_pop = time.monotonic()
                     for r in group:
                         self._pending.remove(r)
+                        wait = t_pop - r.t_enqueue
+                        self._m_queue_wait.observe(wait)
+                        if r.trace_id is not None:
+                            obs_tracing.record_span("serving.queue", wait, trace_id=r.trace_id,
+                                                    engine=self.name, rows=r.rows)
                     return group
                 self._cond.wait(fire_at - now)
 
@@ -374,7 +574,7 @@ class BatchingEngine:
         want = max(sum(r.rows for r in group), max(r.min_bucket for r in group))
         return bucket_rows(want, self.max_batch_size)
 
-    def _run_group(self, group):
+    def _run_group(self, group, gen):
         rows = sum(r.rows for r in group)
         sig = group[0].sig
         bucket = self._group_bucket(group)
@@ -385,21 +585,31 @@ class BatchingEngine:
                 parts.append(np.zeros((bucket - rows,) + parts[0].shape[1:],
                                       parts[0].dtype))
             batch.append(np.concatenate(parts) if len(parts) > 1 else parts[0])
+        chaos.hit("serving.execute")
+        chaos.hit(f"serving.execute.bucket{bucket}")
         t0 = time.monotonic()
         outs = self._runner.run(batch)
-        dt_ms = (time.monotonic() - t0) * 1000.0
+        dt = time.monotonic() - t0
+        # one execute per group: each traced request gets a span of it,
+        # untraced traffic only feeds the summary table
+        tids = {r.trace_id for r in group if r.trace_id is not None}
+        for tid in tids:
+            obs_tracing.record_span("serving.execute", dt, trace_id=tid, engine=self.name,
+                                    bucket=bucket, rows=rows)
+        if not tids:
+            obs_tracing.observe("serving.execute", dt)
         for j, o in enumerate(outs):
             if o.ndim == 0 or o.shape[0] != bucket:
                 raise ValueError(
                     f"output {j} has shape {tuple(o.shape)} but the batch has "
                     f"{bucket} rows: every output must keep the batch dim as "
                     "dim 0 so per-request rows can be sliced back")
-        off = 0
-        for r in group:
-            r.outputs = [o[off:off + r.rows] for o in outs]
-            off += r.rows
-            r.event.set()
         with self._lock:
+            if self._sched_gen != gen:
+                # a restart failed this group while it ran: its results go
+                # nowhere (the waiters already hold SchedulerRestarted)
+                return
+            self._count_first_run((bucket, sig))
             st = self._bucket_stats.get((bucket, sig))
             if st is None:
                 st = self._bucket_stats[(bucket, sig)] = _BucketStats()
@@ -407,8 +617,88 @@ class BatchingEngine:
             st.requests += len(group)
             st.rows += rows
             st.padded_rows += bucket - rows
-            st.total_ms += dt_ms
-            st.max_ms = max(st.max_ms, dt_ms)
+            st.total_ms += dt * 1e3
+            st.max_ms = max(st.max_ms, dt * 1e3)
+            bs = str(bucket)
+            self._m_batches.inc(bucket=bs)
+            self._m_batch_rows.inc(rows, bucket=bs)
+            self._m_padded.inc(bucket - rows, bucket=bs)
+            self._m_exec.observe(dt, bucket=bs)
+            self._m_occupancy.observe(rows / bucket)
+        off = 0
+        for r in group:
+            r.outputs = [o[off:off + r.rows] for o in outs]
+            off += r.rows
+            r.event.set()
+
+    def _count_first_run(self, key):
+        """Under the lock: a bucket's first run (warmup or a batch) is its
+        one ``inline`` materialization."""
+        if key not in self._warm:
+            self._warm.add(key)
+            self._m_compiles.inc(bucket=str(key[0]), source="inline")
+
+    def _breaker_for(self, key):
+        """Under the lock: the bucket's breaker, made at first use."""
+        br = self._breakers.get(key)
+        if br is None:
+            br = self._breakers[key] = _Breaker(self.breaker_threshold, self.breaker_cooldown)
+        return br
+
+    # ----------------------------------------------------------- watchdog
+    def _run_watchdog(self):
+        """Restart a dead or wedged scheduler (heartbeat stale AND the
+        oldest waiting request, or the group in flight, stale: a long
+        execute with a fresh queue is no wedge). Makes no device call."""
+        while not self._closed_ev.wait(self.watchdog_interval):
+            with self._lock:
+                if self._closed:
+                    return
+                gen, th, hb = self._sched_gen, self._scheduler, self._heartbeat
+                head = self._pending[0] if self._pending else None
+                group = self._inflight.get(gen)
+            now = time.monotonic()
+            if head is not None:
+                oldest = head.t_enqueue
+            elif group:
+                oldest = min(r.t_enqueue for r in group)
+            else:
+                oldest = None
+            if not th.is_alive():
+                self._restart_scheduler(gen, "died")
+            elif (oldest is not None and now - hb > self.wedge_timeout
+                    and now - oldest > self.wedge_timeout):
+                self._restart_scheduler(gen, "wedged (heartbeat stale)")
+
+    def _restart_scheduler(self, observed_gen, reason):
+        with self._cond:
+            if self._closed or observed_gen != self._sched_gen:
+                return  # already restarted, or closing
+            self._sched_gen += 1
+            gen = self._sched_gen
+            stranded = self._inflight.pop(observed_gen, None)
+            if stranded:
+                # a stranded half-open probe counts as a failed probe (back
+                # to OPEN, fresh cooldown): a breaker left HALF_OPEN would
+                # shed its bucket for ever. A closed one is left alone: a
+                # scheduler death is not the bucket's fault
+                br = self._breakers.get((self._group_bucket(stranded), stranded[0].sig))
+                if br is not None and br.state == _Breaker.HALF_OPEN:
+                    br.record_failure(time.monotonic())
+            self._m_restarts.inc()
+            self._heartbeat = time.monotonic()
+            t = threading.Thread(target=self._run_scheduler, args=(gen,),
+                                 name=f"{self.name}-scheduler-g{gen}", daemon=True)
+            self._scheduler = t
+            # started under the lock: close() never joins an unstarted thread
+            t.start()
+            self._cond.notify_all()  # a superseded thread parked in wait()
+        if stranded:
+            err = SchedulerRestarted(
+                f"{self.name} scheduler {reason} and was restarted; this request's group "
+                "was in flight and its results (if any) were discarded; retry it")
+            for r in stranded:
+                r.fail(err)
 
     # ------------------------------------------------------------- warmup
     def warmup(self, buckets=None, signature=None):
@@ -425,7 +715,10 @@ class BatchingEngine:
             buckets.append(self.max_batch_size)
         buckets = sorted({bucket_rows(int(b), self.max_batch_size) for b in buckets})
         for b in buckets:
-            self._runner.run([np.zeros((b,) + tr, dt) for dt, tr in sig])
+            batch = [np.zeros((b,) + tr, dt) for dt, tr in sig]
+            self._runner.run(batch)
+            with self._lock:
+                self._count_first_run((b, _signature(batch)))
         with self._lock:
             self._declared = buckets
         return buckets
@@ -433,14 +726,19 @@ class BatchingEngine:
     # -------------------------------------------------------------- stats
     def stats(self):
         """Snapshot of the engine counters (the `stats` wire command),
-        taken under one lock acquisition."""
+        taken under one lock acquisition: a view over the obs
+        instruments."""
         with self._lock:
             buckets = {}
             for (bucket, sig), st in sorted(self._bucket_stats.items(),
                                             key=lambda kv: kv[0][0]):
                 d = st.as_dict()
                 d["signature"] = [[dt, list(tr)] for dt, tr in sig]
+                br = self._breakers.get((bucket, sig))
+                if br is not None:
+                    d["breaker"] = br.as_dict()
                 buckets.setdefault(str(bucket), []).append(d)
+            states = [br.state for br in self._breakers.values()]
             return {
                 "name": self.name,
                 "max_batch_size": self.max_batch_size,
@@ -448,35 +746,57 @@ class BatchingEngine:
                 "max_queue": self.max_queue,
                 "declared_buckets": list(self._declared),
                 "queue_depth": len(self._pending),
-                "requests": self._requests,
-                "rows": self._rows,
-                "shed_count": self._shed,
-                "deadline_expired": self._deadline_expired,
+                "requests": int(self._m_requests.value()),
+                "rows": int(self._m_rows.value()),
+                "shed_count": int(self._m_shed.value(reason="queue_full")),
+                "quarantine_shed": int(self._m_shed.value(reason="quarantine")),
+                "deadline_expired": int(self._m_deadline.value(stage="expired")),
+                "deadline_late": int(self._m_deadline.value(stage="late")),
+                "scheduler_restarts": int(self._m_restarts.value()),
+                "breaker": {
+                    "threshold": self.breaker_threshold,
+                    "cooldown_s": self.breaker_cooldown,
+                    "open": states.count(_Breaker.OPEN),
+                    "half_open": states.count(_Breaker.HALF_OPEN),
+                    "trips": sum(br.trips for br in self._breakers.values()),
+                },
+                "compiles": len(self._warm),
                 "buckets": buckets,
             }
 
     def health(self):
         """Liveness snapshot for the `health` wire command."""
+        now = time.monotonic()
         with self._lock:
             alive = self._scheduler.is_alive()
             return {
                 "ok": alive and not self._closed,
                 "closed": self._closed,
                 "scheduler_alive": alive,
+                "heartbeat_age_s": round(now - self._heartbeat, 3),
+                "scheduler_restarts": int(self._m_restarts.value()),
                 "queue_depth": len(self._pending),
+                "quarantined_buckets": sorted(b for (b, _), br in self._breakers.items()
+                                              if br.state != _Breaker.CLOSED),
                 "declared_buckets": list(self._declared),
             }
 
     # -------------------------------------------------------------- close
     def close(self, timeout=5.0):
-        """Stop the scheduler; pending requests still fire (partial
-        batches), new submissions raise EngineClosed."""
+        """Stop the scheduler and the watchdog; pending requests still fire
+        (partial batches), new submissions raise EngineClosed. The
+        engine's metrics leave the registry."""
         with self._cond:
             if self._closed:
                 return
             self._closed = True
+            self._closed_ev.set()
             self._cond.notify_all()
-        self._scheduler.join(timeout)
+            sched = self._scheduler
+        obs_metrics.REGISTRY.unregister_collector(self._obs_collector)
+        sched.join(timeout)
+        if self._watchdog is not None:
+            self._watchdog.join(timeout)
 
     def __enter__(self):
         return self

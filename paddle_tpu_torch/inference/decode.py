@@ -163,13 +163,52 @@ device fallback: a CUDA engine whose kernel fails to build or launch
 fails the requests in flight, and never drops to the CPU or a plain
 version.
 
+**Watchdog and restarts** (the reference's, decode.py :2867-2940). The
+scheduler bumps a heartbeat every iteration; a watchdog thread (every
+``watchdog_interval`` s; 0 turns it off, and a scheduler that dies then
+restarts itself) restarts a scheduler that died, or wedged (its heartbeat
+and the oldest waiting or running request both older than
+``wedge_timeout``). A restart bumps the scheduler generation, fails the
+sequences in flight (running, joining, resuming) with
+:class:`SchedulerRestarted` (retryable) and frees their slots, and starts
+a replacement thread (on the engine's card) that serves the queue with
+the programs already built: nothing is captured again. Slots never hold
+pages by reference (an install copies them), so the sweep frees slots
+only and the prefix cache keeps its pages. A superseded thread ends at
+its next device call: every program call checks the generation under
+the exec lock before it touches a graph's buffers, a pool row or the
+staging, and unwinds (:class:`_Superseded`) instead; every state change
+after a call checks it under the engine lock and is dropped. A program
+that fails stays its breaker's business (a CUDA error is not a scheduler
+death). The chaos sites (resilience/chaos.py) are
+``serving.decode.admit`` (submit), ``.resume``, ``.loop`` (each
+iteration with work), ``.prefill`` (before each fill chunk), ``.step``
+(before a step), ``.snapshot`` (before a snapshot's copy; a failed
+snapshot costs the snapshot, never the stream) and ``.compile`` (before
+a program's capture); ``.prefill`` and ``.step`` are hit outside the
+exec lock, so a wedge there blocks no replacement.
+
+**Telemetry**: the reference's instruments (``_init_metrics``: the
+``paddle_decode_*``, ``paddle_prefix_*`` and ``paddle_spec_*`` families,
+their labels and buckets, const label ``engine=<name>``), exposed by a
+collector in ``obs.metrics.REGISTRY`` until ``close``. Their ``phase``
+label values are the port's program phases (``fill``, ``step``,
+``verify``, ``draft_fill``, ``draft_step``); a build (a capture on a card)
+is an ``inline`` compile. ``paddle_decode_step_seconds`` times each
+program's run on a card by CUDA events (the device's work; the CPU's
+host clock), and ``stats()``'s ``step_ms_median`` the host's whole
+call. TTFT and inter-token gaps are
+stamped at emit. A traced request
+(``trace_id``, wire 0x1D) gets one ``serving.decode.token`` span per
+token and a ``serving.decode.request`` span under its id.
+
 Not ported (ROADMAP Queue 1): the artifact store and the persistent
-prefix tier (``prefix_dir``), the watchdog and scheduler restarts, obs
-metrics, spans and chaos sites, quantized and meshed serving, and phases
+prefix tier (``prefix_dir``), quantized and meshed serving, and phases
 (the reference's engine decodes greedily, as this one does). Constructor
 options of those raise ``NotImplementedError``. The port reads no
-environment: ``spec_k``, ``breaker_threshold`` and ``breaker_cooldown``
-default to 0 (off), 3 and 5.0 s, the reference's environment defaults.
+environment: ``spec_k``, ``breaker_threshold``, ``breaker_cooldown``,
+``watchdog_interval`` and ``wedge_timeout`` default to 0 (off), 3, 5.0 s,
+0.5 s and 30.0 s, the reference's environment defaults.
 """
 import collections
 import functools
@@ -178,16 +217,20 @@ import json
 import threading
 import time
 import traceback
+import weakref
 
 import numpy as np
 import torch
 
 from ..core.cuda_graph import Graph, pool_bytes
 from ..core.place import resolve_device
+from ..obs import metrics as obs_metrics
+from ..obs import tracing as obs_tracing
 from ..ops import flash_attention
+from ..resilience import chaos
 from . import wire_spec
 from .batching import (BucketQuarantined, DeadlineExceeded, EngineClosed, EngineOverloaded,
-                       RetryableError, _Breaker)
+                       RetryableError, SchedulerRestarted, _Breaker)
 from .prefix_cache import PrefixCache, feature_seed, prefix_hashes
 
 # prompt / token dtypes of the wire spec (codes 1 and 2): streamed chunks
@@ -201,12 +244,17 @@ _RETIRE_REASONS = ("eos", "max_tokens", "max_seq_len", "deadline", "error", "can
 _UNPORTED = {
     "store": (None,), "quant": (None, "f32"), "mesh": (None, "single"),
     "phase": (None, "both"), "prefix_dir": (None,),
-    "watchdog_interval": (None, 0, 0.0), "wedge_timeout": (None,),
 }
 
 # the identity a snapshot header carries besides the fingerprint and the
 # weights digest: the port serves neither quantized nor meshed
 _QUANT, _MESH = "f32", "single"
+
+
+class _Superseded(BaseException):
+    """Raised in a scheduler thread whose generation a restart ended, at
+    its next program call: it unwinds past every ``except Exception`` to
+    ``_run_scheduler``, touching nothing on the way."""
 
 
 class SnapshotRefused(RetryableError):
@@ -872,13 +920,18 @@ class DecodeEngine:
     burst width k; speculation is on (``spec_enabled``) only when the
     model has a ``draft`` and k >= 2, else quietly off.
     ``breaker_threshold``/``breaker_cooldown``: every program key's
-    circuit breaker (3 consecutive failures, 5.0 s by default)."""
+    circuit breaker (3 consecutive failures, 5.0 s by default).
+    ``watchdog_interval``/``wedge_timeout``: the scheduler's watchdog
+    (0.5 s and 30.0 s by default; an interval of 0 turns it off). ``name``
+    is the ``engine`` label of its metrics: engines alive together in one
+    process need names of their own."""
 
     def __init__(self, model, max_slots=None, max_seq_len=None, max_queue=64,
                  min_seq_bucket=8, max_prompt_len=None, default_max_new_tokens=64,
                  name="decode", device="cuda", cuda_graph=True, prefix=True,
                  prefix_max_bytes=None, spec_k=None, breaker_threshold=None,
-                 breaker_cooldown=None, **unported):
+                 breaker_cooldown=None, watchdog_interval=None, wedge_timeout=None,
+                 **unported):
         for key, val in unported.items():
             if key not in _UNPORTED:
                 raise TypeError(f"DecodeEngine got an unexpected keyword argument {key!r}")
@@ -936,6 +989,8 @@ class DecodeEngine:
         cuda = self.device.type == "cuda"
         self.breaker_threshold = int(3 if breaker_threshold is None else breaker_threshold)
         self.breaker_cooldown = float(5.0 if breaker_cooldown is None else breaker_cooldown)
+        self.watchdog_interval = float(0.5 if watchdog_interval is None else watchdog_interval)
+        self.wedge_timeout = float(30.0 if wedge_timeout is None else wedge_timeout)
         self._breakers = {}  # program key -> _Breaker
         # speculative decoding: on only with a draft AND k >= 2 (k-1
         # proposals and the always-correct first position per verify)
@@ -977,15 +1032,125 @@ class DecodeEngine:
         self._resuming = []  # (req, kv arrays, state, slot): not yet restored
         self._active = []   # _Seq
         self._closed = False
-        self._dead = None   # the exception that ended the scheduler
+        self._closed_ev = threading.Event()
+        self._dead = None   # the exception that closed the engine (its card failed)
         self._counts = collections.Counter()
-        self._retired = collections.Counter()
         self._step_ms = collections.deque(maxlen=4096)
         self._snap_copy_ms = collections.deque(maxlen=4096)  # the scheduler's share
         self._snap_encode = collections.deque(maxlen=4096)   # (ms, bytes), consumers'
-        self._scheduler = threading.Thread(target=self._run_scheduler,
+        self._init_metrics()
+        # a restart bumps the generation; each scheduler thread keeps its
+        # own in _tls and ends once they differ
+        self._sched_gen = 0
+        self._tls = threading.local()
+        self._heartbeat = time.monotonic()  # bumped every scheduler iteration
+        self._watchdog = None  # before the scheduler starts: its crash path reads it
+        self._scheduler = threading.Thread(target=self._run_scheduler, args=(0,),
                                            name=f"{name}-scheduler", daemon=True)
         self._scheduler.start()
+        if self.watchdog_interval > 0:
+            self._watchdog = threading.Thread(target=self._run_watchdog,
+                                              name=f"{name}-watchdog", daemon=True)
+            self._watchdog.start()
+
+    # ---------------------------------------------------------- telemetry
+    def _init_metrics(self):
+        """The reference's instruments (decode.py :1232-1330: the same
+        family names, label names, const labels and bucket bounds), exposed
+        through a collector in the process registry until ``close``.
+        ``stats`` reads them under the engine lock."""
+        cl = {"engine": self.name}
+        ident = {**cl, "quant": _QUANT, "mesh": _MESH}
+        M = obs_metrics
+        lat = M.log_buckets(0.0001, 4.0, 10)
+        self._m_requests = M.Counter("paddle_decode_requests_total",
+                                     "Decode requests admitted", const_labels=cl)
+        self._m_tokens = M.Counter("paddle_decode_tokens_total", "Tokens generated",
+                                   const_labels=cl)
+        self._m_shed = M.Counter(
+            "paddle_decode_shed_total",
+            "Requests shed (reason: queue_full | quarantine | no_free_slot — the last is the "
+            "kv_put seed preflight)", labelnames=("reason",), const_labels=cl)
+        self._m_retired = M.Counter("paddle_decode_retired_total",
+                                    "Sequences retired, by reason", labelnames=("reason",),
+                                    const_labels=cl)
+        self._m_deadline = M.Counter(
+            "paddle_decode_deadline_total",
+            "Per-token deadline outcomes (stage: expired = purged before joining, zero "
+            "compute; late = blew a per-token budget mid-sequence)",
+            labelnames=("stage",), const_labels=cl)
+        self._m_restarts = M.Counter("paddle_decode_scheduler_restarts_total",
+                                     "Watchdog scheduler restarts", const_labels=cl)
+        self._m_compiles = M.Counter(
+            "paddle_decode_compiles_total",
+            "Program materializations (source: inline = a build, on a card a CUDA graph "
+            "capture; quant: the serving quantization mode; mesh: the serving mesh "
+            "descriptor)", labelnames=("phase", "source"), const_labels=ident)
+        self._m_steps = M.Counter("paddle_decode_steps_total",
+                                  "Model program dispatches, by phase", labelnames=("phase",),
+                                  const_labels=cl)
+        self._m_ttft = M.Histogram("paddle_decode_ttft_seconds",
+                                   "Time from enqueue to a sequence's FIRST token",
+                                   const_labels=cl, buckets=lat)
+        self._m_intertoken = M.Histogram("paddle_decode_intertoken_seconds",
+                                         "Gap between consecutive tokens of one sequence",
+                                         const_labels=cl, buckets=lat)
+        self._m_step_exec = M.Histogram("paddle_decode_step_seconds",
+                                        "Program execute duration, by phase",
+                                        labelnames=("phase",), const_labels=cl, buckets=lat)
+        self._m_occupancy = M.Histogram(
+            "paddle_decode_batch_occupancy", "Active sequences / slot bucket per decode step",
+            const_labels=cl, buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+        self._m_active = M.Gauge("paddle_decode_active_slots",
+                                 "Sequences currently holding a KV slot", const_labels=cl)
+        self._m_queue = M.Gauge("paddle_decode_queue_depth", "Requests waiting for a slot",
+                                const_labels=cl)
+        self._m_prefix_hits = M.Counter(
+            "paddle_prefix_hits_total",
+            "Prefix-cache hits (a joiner installed cached KV pages and skipped prefill over "
+            "them)", const_labels=cl)
+        self._m_prefix_misses = M.Counter(
+            "paddle_prefix_misses_total",
+            "Prefix-cache misses (hashed prompts with no cached boundary)", const_labels=cl)
+        self._m_prefix_evictions = M.Counter(
+            "paddle_prefix_evictions_total",
+            "Prefix-cache entries evicted under the byte budget", const_labels=cl)
+        self._m_shared_pages = M.Gauge(
+            "paddle_decode_shared_pages",
+            "KV pages referenced by more than one owner (slots + prefix-cache entries)",
+            const_labels=cl)
+        self._m_live_pages = M.Gauge("paddle_decode_live_pages",
+                                     "KV pages currently allocated (target + draft pools)",
+                                     const_labels=cl)
+        self._m_spec_accept = M.Histogram(
+            "paddle_spec_accept_ratio",
+            "Accepted draft tokens / proposed (k-1) per speculative verify",
+            const_labels=ident, buckets=(0.0, 0.25, 0.5, 0.75, 1.0))
+        self._instruments = [
+            self._m_requests, self._m_tokens, self._m_shed, self._m_retired, self._m_deadline,
+            self._m_restarts, self._m_compiles, self._m_steps, self._m_ttft,
+            self._m_intertoken, self._m_step_exec, self._m_occupancy, self._m_active,
+            self._m_queue, self._m_prefix_hits, self._m_prefix_misses,
+            self._m_prefix_evictions, self._m_shared_pages, self._m_live_pages,
+            self._m_spec_accept]
+        # weakly held: an engine dropped without close() is collected, and
+        # its collector then unregisters itself (it returns None)
+        ref = weakref.ref(self)
+
+        def collector():
+            eng = ref()
+            return eng._collect_families() if eng is not None else None
+
+        self._obs_collector = collector
+        obs_metrics.REGISTRY.register_collector(collector)
+
+    def _collect_families(self):
+        with self._lock:
+            self._m_queue.set(len(self._pending))
+            self._m_active.set(len(self._active))
+            self._m_shared_pages.set(self._pages.shared_pages())
+            self._m_live_pages.set(self._pages.live_pages())
+            return [m.collect() for m in self._instruments]
 
     # ------------------------------------------------------------ submit
     def submit(self, prompt, max_new_tokens=None, features=(), token_budget_s=None,
@@ -1000,7 +1165,9 @@ class DecodeEngine:
         (``DecodeRequest.take_snapshot``; 0 or None: never).
         ``speculative``: opt in to speculative bursts (tokens bitwise
         those of plain greedy; a no-op on an engine without
-        ``spec_enabled``)."""
+        ``spec_enabled``). ``trace_id`` (default: the thread's ambient
+        obs.tracing id) tags the request's spans."""
+        chaos.hit("serving.decode.admit")
         prompt = np.asarray(prompt)
         if prompt.ndim == 2 and prompt.shape[0] == 1:
             prompt = prompt[0]
@@ -1032,6 +1199,8 @@ class DecodeEngine:
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         eos = self._model.eos_token_id if eos_token_id is None else eos_token_id
+        if trace_id is None:
+            trace_id = obs_tracing.current_trace_id()
         req = DecodeRequest(np.ascontiguousarray(prompt.astype(np.int64)), features,
                             max_new_tokens, eos, token_budget_s, trace_id, token_dtype)
         req.snapshot_every = max(0, int(snapshot_every or 0))
@@ -1040,11 +1209,11 @@ class DecodeEngine:
             if self._closed:
                 raise EngineClosed(f"{self.name} is closed")
             if len(self._pending) >= self.max_queue:
-                self._counts["shed"] += 1
+                self._m_shed.inc(reason="queue_full")
                 raise EngineOverloaded(f"{self.name} decode queue full ({len(self._pending)} "
                                        f"waiting, cap {self.max_queue}); request shed")
             self._pending.append(req)
-            self._counts["requests"] += 1
+            self._m_requests.inc()
             self._cond.notify_all()
         return req
 
@@ -1166,10 +1335,11 @@ class DecodeEngine:
                 raise EngineClosed(f"{self.name} is closed")
             waiting = len(self._pending) + len(self._pending_resume)
             if waiting >= self.max_queue:
-                self._counts["shed"] += 1
+                self._m_shed.inc(reason="queue_full")
                 raise EngineOverloaded(f"{self.name} decode queue full; seed the handoff "
                                        "elsewhere")
             if self._slots.free_count() == 0 and waiting > 0:
+                self._m_shed.inc(reason="no_free_slot")
                 raise EngineOverloaded(f"{self.name} has no free KV slot and {waiting} "
                                        "sequences already waiting; seed the handoff elsewhere")
         return header, arrays
@@ -1184,6 +1354,7 @@ class DecodeEngine:
         the unbroken stream's, bitwise, on an engine of the same
         configuration. ``speculative`` as in ``submit``; the draft starts
         empty and catches up at the first burst."""
+        chaos.hit("serving.decode.resume")
         header, arrays = self.check_snapshot(snapshot)
         m = self._model
         n_kv = int(header.get("n_kv", len(m.kv_spec)))
@@ -1195,6 +1366,8 @@ class DecodeEngine:
         eos = header.get("eos_token_id")
         pos, n_gen = int(header["pos"]), int(header["n_generated"])
         last = int(header["last_token"])
+        if trace_id is None:
+            trace_id = obs_tracing.current_trace_id()
         req = DecodeRequest(np.ascontiguousarray(prompt.astype(np.int64)), feats, max_new, eos,
                             token_budget_s, trace_id, tail.dtype.type)
         req.snapshot_every = max(0, int(snapshot_every or 0))
@@ -1215,7 +1388,7 @@ class DecodeEngine:
         if done is not None:
             with self._lock:
                 self._counts["resumes_ok"] += 1
-                self._retired[done] += 1
+            self._m_retired.inc(reason=done)
             req._finish(done)
             return req
         state = {"pos": pos, "last_token": last, "n_generated": n_gen}
@@ -1223,31 +1396,51 @@ class DecodeEngine:
             if self._closed:
                 raise EngineClosed(f"{self.name} is closed")
             if len(self._pending) + len(self._pending_resume) >= self.max_queue:
-                self._counts["shed"] += 1
+                self._m_shed.inc(reason="queue_full")
                 raise EngineOverloaded(f"{self.name} decode queue full; resume shed")
             self._pending_resume.append((req, kv_arrays, state))
-            self._counts["requests"] += 1
+            self._m_requests.inc()
             self._cond.notify_all()
         return req
 
     # --------------------------------------------------------- scheduler
-    def _run_scheduler(self):
+    def _run_scheduler(self, gen):
+        """One scheduler thread of generation ``gen``, on the engine's
+        card. A card that cannot be selected ends the engine (a restart
+        could not help). A loop that raises leaves its sequences in flight
+        for the watchdog's restart (or restarts itself with no watchdog);
+        a superseded thread unwinds quietly."""
+        self._tls.gen = gen
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+        except Exception as e:  # noqa: BLE001 - the card is gone
+            traceback.print_exc()
+            self._fail_all(RetryableError(f"{self.name}: the decode scheduler cannot select "
+                                          f"{self.device} ({type(e).__name__}: {e}); retry "
+                                          "elsewhere"), dead=e)
+            return
         try:
             with torch.inference_mode():
-                if self.device.type == "cuda":
-                    torch.cuda.set_device(self.device)
                 self._scheduler_loop()
-        except BaseException as e:  # noqa: BLE001 - fail what is in flight
+        except _Superseded:
+            with self._lock:
+                self._counts["stale_unwinds"] += 1
+        except Exception:  # noqa: BLE001 - the watchdog owns recovery
             traceback.print_exc()
-            self._fail_all(RetryableError(f"{self.name}: the decode scheduler died "
-                                          f"({type(e).__name__}: {e}); retry the request"),
-                           dead=e)
+            if self._watchdog is None:
+                self._restart_scheduler(gen, "died (watchdog disabled)")
 
     def _scheduler_loop(self):
         while True:
+            # a float store: the watchdog only compares it with a threshold
+            self._heartbeat = time.monotonic()
             work = self._wait_for_work()
             if work is None:
                 return
+            # from here a raise kills this thread with its resumes and
+            # joiners in flight: the restart fails exactly those
+            chaos.hit("serving.decode.loop")
             resumes, joiners = work
             for entry in resumes:
                 self._restore(*entry)
@@ -1257,18 +1450,35 @@ class DecodeEngine:
             if self._active:
                 self._decode_step()
 
+    def _current_locked(self):
+        """Under the engine lock: may this thread change the engine's
+        state? Not after close, nor in a scheduler a restart superseded
+        (any other thread, as warmup's, has no generation)."""
+        return not self._closed and getattr(self._tls, "gen", self._sched_gen) == self._sched_gen
+
+    def _check_current(self):
+        """Under the exec lock, before a device write: a superseded
+        scheduler unwinds here (_Superseded), before it can touch a
+        graph's static buffers, a pool row or the staging that its
+        replacement uses. A restart bumps the generation without the exec
+        lock, so every write of a superseded thread is ordered before the
+        replacement's first."""
+        gen = getattr(self._tls, "gen", None)
+        if gen is not None and gen != self._sched_gen:
+            raise _Superseded()
+
     def _wait_for_work(self):
         """Park until there is work; pop this iteration's resumes (first:
         they paid their prefill elsewhere) and joiners, each with a slot
-        (bounded by the free slots). None = exit."""
+        (bounded by the free slots). None = exit (closed, or superseded)."""
         with self._cond:
             while True:
+                if not self._current_locked():
+                    return None
                 self._purge_expired_pending_locked(time.monotonic())
                 self._pending[:] = [r for r in self._pending if not r.cancelled]
                 self._pending_resume[:] = [e for e in self._pending_resume
                                            if not e[0].cancelled]
-                if self._closed:
-                    return None
                 if self._active or self._pending or self._pending_resume:
                     break
                 self._cond.wait()
@@ -1290,7 +1500,7 @@ class DecodeEngine:
         for e in expired_resume:
             self._pending_resume.remove(e)
         for r in expired + [e[0] for e in expired_resume]:
-            self._counts["deadline_expired"] += 1
+            self._m_deadline.inc(stage="expired")
             r._fail(DeadlineExceeded(f"{self.name}: per-token budget elapsed before the "
                                      "sequence could join; dropped without compute"))
 
@@ -1300,7 +1510,7 @@ class DecodeEngine:
         now = time.monotonic()
         purged = []
         with self._lock:
-            if self._closed:
+            if not self._current_locked():
                 return
             keep = []
             for s in self._active:
@@ -1324,12 +1534,14 @@ class DecodeEngine:
         """The program set of ``key``: the draft's for ``draft_*``."""
         return self._draft_graphs if key[0].startswith("draft_") else self._graphs
 
-    def _program(self, key):
+    def _program(self, key, trace_id=None):
         """The program of ``key``, built once (the reference's
         ``_program``): every build holds the exec lock, so warmup and the
         scheduler never build one key twice, and a capture never overlaps
         another model call. On a card a build warms the function up over
-        its buffers as they are, then captures it."""
+        its buffers as they are, then captures it; it is counted as an
+        ``inline`` compile, and spanned under ``trace_id`` (the traced
+        request that paid for it) or aggregated."""
         with self._lock:
             run = self._programs.get(key)
         if run is not None:
@@ -1338,65 +1550,106 @@ class DecodeEngine:
             with self._lock:
                 run = self._programs.get(key)
             if run is None:
+                chaos.hit("serving.decode.compile")
+                t0 = time.perf_counter()
                 run = self._graphs_of(key).build(key)
+                dt = time.perf_counter() - t0
+                if trace_id is not None:
+                    obs_tracing.record_span("serving.decode.compile", dt, trace_id=trace_id,
+                                            engine=self.name, phase=key[0], rows=key[1],
+                                            seq=key[2], source="inline")
+                else:
+                    obs_tracing.observe("serving.decode.compile", dt)
                 with self._lock:
                     self._programs[key] = run
                     self._builds[key] += 1
+                self._m_compiles.inc(phase=key[0], source="inline")
         return run
 
-    def _call(self, key, fill):
-        """Under the exec lock: ``fill`` the inputs of ``key``'s program,
-        build it at first use, run it and read its argmax back (-> numpy,
-        or None for a fill); the outcome goes to the key's breaker, and
-        K1's launches in the run are counted for stats (a replay credits
-        those of its capture)."""
-        with self._exec_lock:
-            before = flash_attention.launches
-            try:
-                fill(*self._graphs_of(key).inputs(key))
-                out = self._program(key)()
-                if out is not None:
-                    out = out.cpu().numpy()
-            except Exception:
-                self._record_breaker(key, ok=False)
-                raise
-            finally:
-                self._counts["k1_launches"] += flash_attention.launches - before
-            self._record_breaker(key, ok=True)
-            return out
+    def _call(self, key, fill, trace_id=None, site=None):
+        """One call of ``key``'s program: hit the chaos ``site`` (outside
+        the exec lock), then under the exec lock check this thread's
+        generation, ``fill`` the program's inputs, build it at first use,
+        run it and read its argmax back (-> numpy, or None for a fill).
+        The outcome goes to the key's breaker, the time to
+        ``paddle_decode_step_seconds``, and K1's launches in the run are
+        counted for stats (a replay credits those of its capture). On a
+        card the time is the device's, from CUDA events around the run (a
+        fill, which reads nothing back, waits for its end event): a host
+        clock, or an event before the input copies, would also count the
+        host's waits for the GIL, which the device spends idle. The CPU's
+        calls are synchronous, so there the host clock times them."""
+        cuda = self.device.type == "cuda"
+        try:
+            if site is not None:
+                chaos.hit(site)
+            with self._exec_lock:
+                self._check_current()
+                before = flash_attention.launches
+                t0 = time.perf_counter()
+                try:
+                    fill(*self._graphs_of(key).inputs(key))
+                    run = self._program(key, trace_id)
+                    if cuda:
+                        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                        start.record()
+                    out = run()
+                    if cuda:
+                        end.record()
+                    if out is not None:
+                        out = out.cpu().numpy()
+                    elif cuda:
+                        end.synchronize()
+                finally:
+                    self._counts["k1_launches"] += flash_attention.launches - before
+                host_s = time.perf_counter() - t0
+                dt = start.elapsed_time(end) / 1e3 if cuda else host_s
+        except Exception:
+            self._record_breaker(key, ok=False)
+            raise
+        self._record_breaker(key, ok=True)
+        phase = key[0]
+        self._m_steps.inc(phase=phase)
+        self._m_step_exec.observe(dt, phase=phase)
+        obs_tracing.observe(f"serving.decode.{phase}", dt)
+        if key == self._step_key:
+            with self._lock:
+                self._step_ms.append(host_s * 1e3)
+        return out
 
-    def _run_rows(self, key, tokens, positions, active):
-        """Under the exec lock: the row program ``key`` (a step, draft
-        step or verify) over every slot, fed ``tokens``/``positions``
-        (numpy, the program's input shapes) and each running row's
-        features at its slot (a padding row's are zero); -> the argmax
-        (numpy int32)."""
-        host = self._host_rows.get(key)
-        if host is None:
-            tok, at, feats = self._graphs_of(key).inputs(key)
-            host = self._host_rows[key] = [
-                torch.zeros(t.shape, dtype=t.dtype, pin_memory=self.device.type == "cuda")
-                for t in (tok, at, *feats)]
-        h_tok, h_pos, *h_feats = host
-        # every call ends by reading its argmax back, so the copies out of
-        # these buffers are done (a failed call's may still be queued, but
-        # into the same device buffers, ahead of this call's copies)
-        h_tok.numpy()[:] = tokens
-        h_pos.numpy()[:] = positions
-        feats = [h.numpy() for h in h_feats]
-        for f in feats:
-            f[:] = 0
-        for s in active:
-            for f, v in zip(feats, s.req.features):
-                f[s.slot] = v
+    def _run_rows(self, key, tokens, positions, active, trace_id=None, site=None):
+        """The row program ``key`` (a step, draft step or verify) over
+        every slot, fed ``tokens``/``positions`` (numpy, the program's
+        input shapes) and each running row's features at its slot (a
+        padding row's are zero); -> the argmax (numpy int32). The pinned
+        host staging is written inside the call, after its generation
+        check: every call ends by reading its argmax back, so the copies
+        out of these buffers are done (a failed call's may still be
+        queued, but into the same device buffers, ahead of this call's
+        copies)."""
 
         def fill(d_tokens, d_pos, d_feats):
+            host = self._host_rows.get(key)
+            if host is None:
+                host = self._host_rows[key] = [
+                    torch.zeros(t.shape, dtype=t.dtype,
+                                pin_memory=self.device.type == "cuda")
+                    for t in (d_tokens, d_pos, *d_feats)]
+            h_tok, h_pos, *h_feats = host
+            h_tok.numpy()[:] = tokens
+            h_pos.numpy()[:] = positions
+            feats = [h.numpy() for h in h_feats]
+            for f in feats:
+                f[:] = 0
+            for s in active:
+                for f, v in zip(feats, s.req.features):
+                    f[s.slot] = v
             d_tokens.copy_(h_tok, non_blocking=True)
             d_pos.copy_(h_pos, non_blocking=True)
             for d, h in zip(d_feats, h_feats):
                 d.copy_(h, non_blocking=True)
 
-        return self._call(key, fill)
+        return self._call(key, fill, trace_id, site)
 
     # ---------------------------------------------------------- breakers
     def _breaker_locked(self, key):
@@ -1421,8 +1674,8 @@ class DecodeEngine:
             if br.allow(time.monotonic()):
                 return None
             br.shed += n_requests
-            self._counts["quarantine_shed"] += n_requests
             failures = br.failures
+        self._m_shed.inc(n_requests, reason="quarantine")
         return BucketQuarantined(f"{self.name} program {key} is quarantined after {failures} "
                                  f"consecutive failures; retry after cooldown "
                                  f"({self.breaker_cooldown}s)")
@@ -1443,11 +1696,12 @@ class DecodeEngine:
         """After a joiner's prefill or a resume's restore: take ``entry``
         off the in-flight list named ``inflight`` and join the running
         set, or fail retryable with the slot freed, in one lock
-        acquisition (a close in between fails what is in flight)."""
+        acquisition (a close or a restart in between failed what was in
+        flight and freed its slot already)."""
         req, slot = entry[0], entry[-1]
         with self._lock:
-            if self._closed:
-                return  # close() failed the request and released the slot
+            if not self._current_locked():
+                return
             getattr(self, inflight).remove(entry)
             if err is None:
                 self._active.append(_Seq(req, slot, state, time.monotonic()))
@@ -1455,8 +1709,8 @@ class DecodeEngine:
                     self._counts["resumes_ok"] += 1
             else:
                 self._slots.release(slot)
-                self._retired["error"] += 1
         if err is not None:
+            self._m_retired.inc(reason="error")
             req._fail(err)
 
     def _retryable(self, e, what):
@@ -1468,6 +1722,7 @@ class DecodeEngine:
         err = None
         try:
             with self._exec_lock:
+                self._check_current()
                 self._slots.restore(slot, kv_arrays, state["pos"])
         except Exception as e:  # noqa: BLE001 - fail this resume
             err = self._retryable(e, "resume")
@@ -1479,27 +1734,32 @@ class DecodeEngine:
         first token comes from its row of the next step."""
         err = None
         try:
-            with self._exec_lock:
-                self._fill_chunks(req, slot)
+            self._fill_chunks(req, slot)
         except Exception as e:  # noqa: BLE001 - fail this joiner
             err = self._retryable(e, "prefill")
         self._admit("_joining", (req, slot), err)
 
     def _fill_chunks(self, req, slot):
-        """The chunked fill of one joiner (under the exec lock): hash the
-        prompt at page boundaries, copy the longest cached prefix's pages
-        into staging rows 0..k-1, replay the fill keys from k until row
-        P-1 is covered, copy staging rows 0..P-1 into the slot, and insert
-        every chain boundary, its pages made from staging."""
+        """The chunked fill of one joiner: hash the prompt at page
+        boundaries, copy the longest cached prefix's pages into staging
+        rows 0..k-1, call the fill keys from k until row P-1 is covered
+        (each call takes the exec lock, with the ``serving.decode.prefill``
+        site before it), copy staging rows 0..P-1 into the slot, and insert
+        every chain boundary, its pages made from staging. Only the
+        scheduler fills, and each step here checks the generation under
+        the exec lock first, so the staging is this fill's alone."""
         P, C = req.prompt.size, self.page_len
         hashes, hit = [], None
-        if self._prefix is not None:
-            hashes = prefix_hashes(req.prompt, C, feature_seed(req.features))
-            if hashes:
-                hit = self._prefix.lookup(hashes)
-        k, have = hit if hit is not None else (0, [])
-        if k:
-            self._pages.install(have, self._staging)
+        with self._exec_lock:
+            self._check_current()
+            if self._prefix is not None:
+                hashes = prefix_hashes(req.prompt, C, feature_seed(req.features))
+                if hashes:
+                    hit = self._prefix.lookup(hashes)
+                    (self._m_prefix_misses if hit is None else self._m_prefix_hits).inc()
+            k, have = hit if hit is not None else (0, [])
+            if k:
+                self._pages.install(have, self._staging)
         for start in range(k, P, C):
             chunk = req.prompt[start:start + C]
 
@@ -1514,11 +1774,12 @@ class DecodeEngine:
             err = self._breaker_allows(key, 1)
             if err is not None:
                 raise err
-            self._call(key, fill)
-            self._counts["fill_steps"] += 1
-        self._slots.copy_from(slot, self._staging, P)
-        if hashes:
-            self._publish(hashes, have)
+            self._call(key, fill, req.trace_id, site="serving.decode.prefill")
+        with self._exec_lock:
+            self._check_current()
+            self._slots.copy_from(slot, self._staging, P)
+            if hashes:
+                self._publish(hashes, have)
 
     def _publish(self, hashes, have):
         """Insert every chain boundary of a filled prompt: the hit's pages
@@ -1535,7 +1796,8 @@ class DecodeEngine:
             evicted += self._prefix.insert(hx, n_tok, pages[:n_tok // self.page_len])
         for pid in pages:
             self._pages.drop_page(pid)
-        self._counts["prefix_evictions"] += evicted
+        if evicted:
+            self._m_prefix_evictions.inc(evicted)
 
     def _decode_step(self):
         """One iteration over the running set (the reference's
@@ -1561,22 +1823,23 @@ class DecodeEngine:
         """Fail every sequence of a step that did not run, retryable, and
         free its slot."""
         with self._lock:
-            if self._closed:
-                return
+            if not self._current_locked():
+                return  # a close or a restart failed them and freed their slots
             for s in active:
                 self._slots.release(s.slot)
             drop = {id(s) for s in active}
             self._active[:] = [x for x in self._active if id(x) not in drop]
-            self._retired["error"] += len(active)
+        self._m_retired.inc(len(active), reason="error")
         for s in active:
             s.req._fail(err)
 
     def _step_group(self):
         """One step over every slot: the running sequences' rows and
-        padding rows for the free slots; then each row's token, and the
-        copies of the kv snapshots its cadence asks for, queued before any
-        slot can be reused (the exec lock is held throughout). The blocks
-        are built by their consumers. A quarantined step sheds its rows."""
+        padding rows for the free slots (the ``serving.decode.step`` site
+        before it, outside the exec lock); then, under the exec lock, each
+        row's token and the copies of the kv snapshots its cadence asks
+        for, queued before any slot can be reused. The blocks are built by
+        their consumers. A quarantined step sheds its rows."""
         active = list(self._active)
         err = self._breaker_allows(self._step_key, len(active))
         if err is not None:
@@ -1587,21 +1850,21 @@ class DecodeEngine:
         for s in active:
             tokens[s.slot] = s.last_token
             pos[s.slot] = s.pos
-        t0 = time.monotonic()
+        trace_id = next((s.req.trace_id for s in active if s.req.trace_id is not None), None)
+        try:
+            nxt = self._run_rows(self._step_key, tokens, pos, active, trace_id,
+                                 site="serving.decode.step")
+        except Exception as e:  # noqa: BLE001 - fail the whole step batch
+            self._fail_rows(active, self._retryable(e, "decode step"))
+            return
         with self._exec_lock:
-            try:
-                nxt = self._run_rows(self._step_key, tokens, pos, active)
-            except Exception as e:  # noqa: BLE001 - fail the whole step batch
-                self._fail_rows(active, self._retryable(e, "decode step"))
-                return
             now = time.monotonic()
             finished, snaps = [], []
             with self._lock:
-                if self._closed:
+                if not self._current_locked():
                     return
-                self._counts["steps"] += 1
                 self._counts["step_rows"] += len(active)
-                self._step_ms.append((now - t0) * 1e3)
+                self._m_occupancy.observe(len(active) / self.max_slots)
                 self._apply_rows(active, {}, lambda s: (int(nxt[s.slot]),), now, finished,
                                  snaps)
             self._queue_snapshots(snaps)
@@ -1647,6 +1910,7 @@ class DecodeEngine:
                     break  # the first rejection ends the burst
             self._counts["spec_iterations"] += 1
             self._counts["spec_accepted"] += accepted
+            self._m_spec_accept.observe(accepted / (len(cols) - 1))
             if reason is not None:
                 drop.add(id(s))
                 continue
@@ -1687,10 +1951,16 @@ class DecodeEngine:
         only under the exec lock and behind the copy on the stream, so
         snapshots go out before the retirements (a finished request
         takes none, and a handoff's one-token sequence needs its
-        block)."""
+        block). A snapshot that fails costs that snapshot only: the stream
+        keeps flowing without its resume point."""
         for s, p, last, n in snaps:
             t1 = time.perf_counter()
-            arrays = self._slots.snapshot(s.slot, p)
+            try:
+                chaos.hit("serving.decode.snapshot")
+                arrays = self._slots.snapshot(s.slot, p)
+            except Exception:  # noqa: BLE001 - degraded, never fatal
+                traceback.print_exc()
+                continue
             build = functools.partial(self._build_snapshot, s.req)
             s.req._push_snapshot(_Snapshot(build, arrays, p, last, n))
             with self._lock:
@@ -1730,9 +2000,8 @@ class DecodeEngine:
             now = time.monotonic()
             finished, snaps = [], []
             with self._lock:
-                if self._closed:
+                if not self._current_locked():
                     return True
-                self._counts["verify_steps"] += 1
                 self._apply_rows(active, proposals, lambda s: [int(t) for t in nxt[s.slot]],
                                  now, finished, snaps)
             self._queue_snapshots(snaps)
@@ -1770,7 +2039,6 @@ class DecodeEngine:
                 nxt = self._run_rows(self._draft_step_key, tokens, pos, active)
             except Exception:  # noqa: BLE001 - the draft is best effort
                 return False
-            self._counts["draft_steps"] += 1
             for s in group:
                 if id(s) in todo:
                     if s.draft_pos >= s.pos:
@@ -1793,8 +2061,9 @@ class DecodeEngine:
                 pos[s.slot] += np.arange(K, dtype=np.int32)
         if not self._breaker_probe(self._verify_key):
             return None
+        trace_id = next((s.req.trace_id for s in active if s.req.trace_id is not None), None)
         try:
-            return self._run_rows(self._verify_key, tokens, pos, active)
+            return self._run_rows(self._verify_key, tokens, pos, active, trace_id)
         except Exception:  # noqa: BLE001 - fall back, the requests unharmed
             return None
 
@@ -1821,7 +2090,6 @@ class DecodeEngine:
                 if not self._breaker_probe(key):
                     return False
                 self._call(key, fill)
-                self._counts["draft_prefills"] += 1
             self._draft_slots.copy_from(s.slot, self._draft_staging, P - 1)
         except Exception:  # noqa: BLE001 - the draft is best effort
             return False
@@ -1830,8 +2098,18 @@ class DecodeEngine:
 
     # ----------------------------------------------------------- helpers
     def _emit(self, s, now):
+        """Deliver ``s``'s newest token, stamped at ``now`` (after it
+        reached the host): the first token of a sequence feeds the TTFT
+        histogram (from its enqueue), every later one the inter-token
+        gap; a traced request gets its ``serving.decode.token`` span."""
+        first = s.n_generated == 1
+        gap = now - (s.req.t_enqueue if first else s.t_last)
+        (self._m_ttft if first else self._m_intertoken).observe(gap)
         s.t_last = now
-        self._counts["tokens"] += 1
+        self._m_tokens.inc()
+        if s.req.trace_id is not None:
+            obs_tracing.record_span("serving.decode.token", gap, trace_id=s.req.trace_id,
+                                    engine=self.name, index=s.n_generated - 1, first=first)
         s.req._push(s.last_token)
 
     def _stop_reason(self, s):
@@ -1849,38 +2127,103 @@ class DecodeEngine:
     def _notify_retired(self, s, reason, err=None):
         """Counters and completion for a sequence whose slot the caller
         already released. Runs outside the engine lock."""
-        with self._lock:
-            if reason == "deadline":
-                self._counts["deadline_late"] += 1
-            self._retired[reason] += 1
+        if reason == "deadline":
+            self._m_deadline.inc(stage="late")
+        self._m_retired.inc(reason=reason)
         if err is not None:
             s.req._fail(err)
         else:
             s.req._finish(reason)
+            if s.req.trace_id is not None:
+                obs_tracing.record_span("serving.decode.request",
+                                        time.monotonic() - s.req.t_enqueue,
+                                        trace_id=s.req.trace_id, engine=self.name,
+                                        tokens=s.n_generated, reason=reason)
+
+    def _take_inflight_locked(self):
+        """Under the engine lock: take every joining, resuming and running
+        sequence off the engine and free its slot (slots hold no page, so
+        the prefix cache's refcounts are untouched); -> their requests."""
+        joining, self._joining = self._joining, []
+        resuming, self._resuming = self._resuming, []
+        active, self._active = self._active, []
+        for _, slot in joining:
+            self._slots.release(slot)
+        for e in resuming:
+            self._slots.release(e[3])
+        for s in active:
+            self._slots.release(s.slot)
+        return [r for r, _ in joining] + [e[0] for e in resuming] + [s.req for s in active]
 
     def _fail_all(self, err, dead=None):
         """Fail every queued, joining, resuming and running request with
-        ``err`` and free their slots (close, or a dead scheduler)."""
+        ``err`` and free their slots (close, or a card the scheduler cannot
+        select, ``dead``, which closes the engine)."""
         with self._cond:
             if dead is not None:
                 self._dead = dead
                 self._closed = True
+                self._closed_ev.set()
             pending, self._pending = self._pending, []
             pending += [e[0] for e in self._pending_resume]
             self._pending_resume = []
-            joining, self._joining = self._joining, []
-            resuming, self._resuming = self._resuming, []
-            active, self._active = self._active, []
-            for _, slot in joining:
-                self._slots.release(slot)
-            for e in resuming:
-                self._slots.release(e[3])
-            for s in active:
-                self._slots.release(s.slot)
+            inflight = self._take_inflight_locked()
             self._cond.notify_all()
-        for r in (pending + [r for r, _ in joining] + [e[0] for e in resuming]
-                  + [s.req for s in active]):
+        for r in pending + inflight:
             r._fail(err)
+
+    # ----------------------------------------------------------- watchdog
+    def _run_watchdog(self):
+        """Restart a dead or wedged scheduler (the reference's
+        ``_run_watchdog``): wedged is a heartbeat older than
+        ``wedge_timeout`` while the oldest waiting request, or the
+        stalest running sequence's last token, is older too, so a long
+        legitimate step with fresh work is no wedge. It makes no device
+        call."""
+        while not self._closed_ev.wait(self.watchdog_interval):
+            with self._lock:
+                if self._closed:
+                    return
+                gen, th, hb = self._sched_gen, self._scheduler, self._heartbeat
+                waiting = [r.t_enqueue for r in self._pending[:1]]
+                waiting += [e[0].t_enqueue for e in self._pending_resume[:1]]
+                waiting += [e[0].t_enqueue for e in self._joining + self._resuming]
+                waiting += [s.t_last for s in self._active]
+            now = time.monotonic()
+            if not th.is_alive():
+                self._restart_scheduler(gen, "died")
+            elif (waiting and now - hb > self.wedge_timeout
+                    and now - min(waiting) > self.wedge_timeout):
+                self._restart_scheduler(gen, "wedged (heartbeat stale)")
+
+    def _restart_scheduler(self, observed_gen, reason):
+        """The reference's ``_restart_scheduler``: end generation
+        ``observed_gen``, fail what it held in flight with
+        :class:`SchedulerRestarted` and free their slots, and start a
+        replacement that serves the queue (the queued requests and
+        resumes stay queued)."""
+        with self._cond:
+            if self._closed or observed_gen != self._sched_gen:
+                return  # already restarted, or closing
+            self._sched_gen += 1
+            gen = self._sched_gen
+            stranded = self._take_inflight_locked()
+            self._heartbeat = time.monotonic()
+            t = threading.Thread(target=self._run_scheduler, args=(gen,),
+                                 name=f"{self.name}-scheduler-g{gen}", daemon=True)
+            self._scheduler = t
+            # started under the lock: close() never joins an unstarted thread
+            t.start()
+            self._cond.notify_all()  # a superseded thread parked in wait()
+        self._m_restarts.inc()
+        if stranded:
+            err = SchedulerRestarted(
+                f"{self.name} decode scheduler {reason} and was restarted; this sequence was "
+                "in flight: its tokens so far were delivered but no more will come; retry "
+                "the request")
+            self._m_retired.inc(len(stranded), reason="error")
+            for r in stranded:
+                r._fail(err)
 
     # -------------------------------------------------------------- lifecycle
     def warmup(self):
@@ -1893,8 +2236,8 @@ class DecodeEngine:
         each is warmed up and captured here. A step's, draft step's or
         verify's warm-up writes padding rows only (token 0 at position 0
         in every slot), and a fill's writes staging, so it needs an idle
-        engine: no sequence running, joining or resuming. Counted nowhere.
-        Returns the fills' ``start + C``."""
+        engine: no sequence running, joining or resuming. Counted nowhere
+        but in the compiles. Returns the fills' ``start + C``."""
         rungs = list(range(self.page_len, self.max_prompt_len + 1, self.page_len))
         keys = [("fill", 1, r) for r in rungs] + [self._step_key]
         if self.spec_enabled:
@@ -1932,7 +2275,10 @@ class DecodeEngine:
         ``capture_ms``; ``graph_replays``: replays of every graph;
         ``graph_pool_bytes``: their shared memory pool;
         ``weights_digest_ms``: the digest's one-time cost (None until
-        taken). ``quarantine_shed``: requests a quarantined fill or step
+        taken); ``compiles``: builds (captures on a card), every key's
+        summed; ``scheduler_restarts``: the watchdog's restarts;
+        ``stale_unwinds`` (the port's): superseded scheduler threads that
+        ended at a program call. ``quarantine_shed``: requests a quarantined fill or step
         shed; a program's ``breaker``: its breaker's state (the
         reference's ``as_dict``); ``program_failures`` (the port's): every
         failure a breaker was told of, which a later success does not
@@ -1954,6 +2300,8 @@ class DecodeEngine:
         graphs = [g for g in (self._graphs, self._draft_graphs) if g is not None]
         with self._lock:
             c = self._counts
+            steps = {p: int(self._m_steps.value(phase=p))
+                     for p in ("fill", "step", "verify", "draft_fill", "draft_step")}
             ms = sorted(self._step_ms)
             costs = {}
             cols = [("copy_ms", self._snap_copy_ms)]
@@ -1978,16 +2326,18 @@ class DecodeEngine:
                 "max_queue": self.max_queue,
                 "active": len(self._active),
                 "queue_depth": len(self._pending),
-                "requests": c["requests"],
-                "tokens": c["tokens"],
-                "shed_count": c["shed"],
-                "quarantine_shed": c["quarantine_shed"],
+                "requests": int(self._m_requests.value()),
+                "tokens": int(self._m_tokens.value()),
+                "shed_count": int(self._m_shed.value(reason="queue_full")),
+                "quarantine_shed": int(self._m_shed.value(reason="quarantine")),
                 "program_failures": c["program_failures"],
-                "deadline_expired": c["deadline_expired"],
-                "deadline_late": c["deadline_late"],
-                "retired": {r: self._retired[r] for r in _RETIRE_REASONS},
-                "prefix_fill_steps": c["fill_steps"],
-                "steps": c["steps"],
+                "deadline_expired": int(self._m_deadline.value(stage="expired")),
+                "deadline_late": int(self._m_deadline.value(stage="late")),
+                "scheduler_restarts": int(self._m_restarts.value()),
+                "stale_unwinds": c["stale_unwinds"],
+                "retired": {r: int(self._m_retired.value(reason=r)) for r in _RETIRE_REASONS},
+                "prefix_fill_steps": steps["fill"],
+                "steps": steps["step"],
                 "step_rows": c["step_rows"],
                 "step_ms_median": ms[len(ms) // 2] if ms else None,
                 "k1_launches": c["k1_launches"],
@@ -2009,10 +2359,11 @@ class DecodeEngine:
                     "iterations": c["spec_iterations"],
                     "accepted": c["spec_accepted"],
                     "rejected": c["spec_rejected"],
-                    "verify_steps": c["verify_steps"],
-                    "draft_steps": c["draft_steps"],
-                    "draft_prefills": c["draft_prefills"],
+                    "verify_steps": steps["verify"],
+                    "draft_steps": steps["draft_step"],
+                    "draft_prefills": steps["draft_fill"],
                 },
+                "compiles": sum(self._builds.values()),
                 "programs": programs,
                 "cuda_graphs": self._graphs.capture,
                 "graph_replays": sum(g.replays for gs in graphs for g in gs.graphs),
@@ -2020,12 +2371,17 @@ class DecodeEngine:
             }
 
     def health(self):
+        now = time.monotonic()
         with self._lock:
             alive = self._scheduler.is_alive()
             return {
                 "ok": alive and not self._closed,
                 "closed": self._closed,
                 "scheduler_alive": alive,
+                "heartbeat_age_s": round(now - self._heartbeat, 3),
+                "scheduler_restarts": int(self._m_restarts.value()),
+                "quarantined_programs": sorted("%s%dx%d" % k for k, br in self._breakers.items()
+                                               if br.state != _Breaker.CLOSED),
                 "error": None if self._dead is None else repr(self._dead),
                 "active": len(self._active),
                 "free_slots": self._slots.free_count(),
@@ -2034,16 +2390,22 @@ class DecodeEngine:
             }
 
     def close(self, timeout=5.0):
-        """Stop the scheduler. Queued and running requests fail with
-        EngineClosed (retryable on the wire); new submissions raise it.
-        The prefix cache drops its pages once the scheduler is done."""
+        """Stop the scheduler and the watchdog. Queued and running
+        requests fail with EngineClosed (retryable on the wire); new
+        submissions raise it. The engine's metrics leave the registry, and
+        the prefix cache drops its pages once the scheduler is done."""
         with self._cond:
             already, self._closed = self._closed, True
+            self._closed_ev.set()
+            sched = self._scheduler
+        obs_metrics.REGISTRY.unregister_collector(self._obs_collector)
         if not already:
             self._fail_all(EngineClosed(f"{self.name} is closing; retry elsewhere"))
-        if self._scheduler is not threading.current_thread():
-            self._scheduler.join(timeout)
-            if self._prefix is not None and not self._scheduler.is_alive():
+        if self._watchdog is not None and self._watchdog is not threading.current_thread():
+            self._watchdog.join(timeout)
+        if sched is not threading.current_thread():
+            sched.join(timeout)
+            if self._prefix is not None and not sched.is_alive():
                 with self._exec_lock:
                     self._prefix.clear()
 

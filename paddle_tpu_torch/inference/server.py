@@ -3,8 +3,10 @@ serves a callable over the length-prefixed TCP wire protocol of
 inference/wire_spec.py.
 
 Commands served: 1 ``infer`` (one-shot; the 0xDD deadline field is
-honoured, the trace and tenant fields are parsed and ignored), 3
-``health``, 5 ``stats``, 7 ``stop``, 9 ``kv_put`` and 10 ``kv_resume``.
+honoured, the 0x1D trace id is handed to the engine, the tenant field is
+parsed and ignored), 3 ``health``, 5 ``stats``, 6 ``metrics`` (the
+Prometheus text of ``obs.metrics.REGISTRY``: every live engine's and
+server's families), 7 ``stop``, 9 ``kv_put`` and 10 ``kv_resume``.
 Statuses: 0 ok, 1 request error, 2 retryable (shed by the engine's
 bounded queue, an expired deadline, or a snapshot this replica refuses),
 3 stream chunk.
@@ -33,22 +35,32 @@ on a malformed block); cmd 10 (``kv_resume``) resumes it and replies as
 a decode stream with the tokens after the snapshot (one-shot: the whole
 sequence), or status 2 before any token on a skew. Neither holds the
 engine's locks while it reads or writes the socket. Cmds 3 and 5 carry
-the engine's health and stats under ``"decode"``. Reload, drain and
-metrics answer status 1.
+the engine's health and stats under ``"decode"``. Reload and drain
+answer status 1.
+
+The server's own instruments (the reference's: connections, frames by
+cmd, responses by status, open connections, stream frames; const label
+``port``) are exposed by a collector until ``stop``. A traced request
+(0x1D) gets a ``serving.reply`` span under its id, besides the engines'
+spans.
 """
 import json
 import socket
 import struct
 import threading
 import time
+import weakref
 
 import numpy as np
 
+from ..obs import metrics as obs_metrics
+from ..obs import prometheus as obs_prometheus
+from ..obs import tracing as obs_tracing
 from . import wire_spec
 from .batching import DeadlineExceeded, EngineClosed, RetryableError
-from .wire_spec import (CMD_HEALTH, CMD_INFER, CMD_KV_PUT, CMD_KV_RESUME, CMD_STATS,
-                        CMD_STOP, STATUS_ERROR, STATUS_OK, STATUS_RETRYABLE, STATUS_STREAM,
-                        build_reply)
+from .wire_spec import (CMD_HEALTH, CMD_INFER, CMD_KV_PUT, CMD_KV_RESUME, CMD_METRICS,
+                        CMD_STATS, CMD_STOP, STATUS_ERROR, STATUS_OK, STATUS_RETRYABLE,
+                        STATUS_STREAM, build_reply)
 
 # a 4-byte length prefix from a broken client must not trigger an
 # unbounded allocation, and a client that stalls mid-frame must not pin
@@ -58,6 +70,7 @@ RECV_TIMEOUT = 30.0
 DRAIN_TIMEOUT = 10.0
 # the longest a decode stream waits for its next token
 DECODE_STREAM_TIMEOUT = 300.0
+LISTEN_BACKLOG = 128
 
 
 class BodyTooLarge(ValueError):
@@ -101,13 +114,67 @@ class PredictorServer:
         self._sock = socket.socket()
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
-        self._sock.listen(8)
+        # a backlog above a burst of clients: with the reference's 8, the
+        # connects beyond it wait out a SYN retry (1 s on Linux), so 16
+        # streams sent at once would arrive in two waves
+        self._sock.listen(LISTEN_BACKLOG)
         self.port = self._sock.getsockname()[1]
         self._stop = threading.Event()
         self._conns = {}  # thread -> {"conn": socket, "busy": bool}
         self._conns_lock = threading.Lock()
+        self._init_metrics()
         self._thread = threading.Thread(target=self._serve, daemon=True)
         self._thread.start()
+
+    def _init_metrics(self):
+        """The server's instruments (the reference's ``_init_metrics``),
+        exposed through a collector in the process registry until
+        ``stop``."""
+        cl = {"port": str(self.port)}
+        M = obs_metrics
+        self._m_conns = M.Counter("paddle_server_connections_total",
+                                  "Accepted client connections", const_labels=cl)
+        self._m_frames = M.Counter("paddle_server_frames_total",
+                                   "Request frames received, by wire command",
+                                   labelnames=("cmd",), const_labels=cl)
+        self._m_responses = M.Counter(
+            "paddle_server_responses_total",
+            "cmd-1 infer responses, by wire status (0 ok, 1 error, 2 retryable)",
+            labelnames=("status",), const_labels=cl)
+        self._m_open = M.Gauge("paddle_server_connections_open", "Currently-connected clients",
+                               const_labels=cl)
+        self._m_chunks = M.Counter("paddle_server_stream_chunks_total",
+                                   "Streaming decode reply frames sent (status 3 + terminal)",
+                                   const_labels=cl)
+        instruments = [self._m_conns, self._m_frames, self._m_responses, self._m_open,
+                       self._m_chunks]
+        ref = weakref.ref(self)
+
+        def collector():
+            srv = ref()
+            if srv is None:
+                return None  # a server dropped without stop(): unregister
+            with srv._conns_lock:
+                srv._m_open.set(len(srv._conns))
+            return [m.collect() for m in instruments]
+
+        self._obs_collector = collector
+        obs_metrics.REGISTRY.register_collector(collector)
+
+    def _answer(self, conn, status, payload=b""):
+        """Send a request's terminal reply, counted by status."""
+        self._m_responses.inc(status=str(status))
+        conn.sendall(build_reply(status, payload))
+
+    def _frame(self, conn, status, payload=b""):
+        """Send one frame of a decode stream (status 3, or its terminal)."""
+        self._m_chunks.inc()
+        conn.sendall(build_reply(status, payload))
+
+    def _span_reply(self, trace_id, t0, **attrs):
+        if trace_id is not None:
+            obs_tracing.record_span("serving.reply", time.perf_counter() - t0,
+                                    trace_id=trace_id, port=self.port, **attrs)
 
     def _serve(self):
         while not self._stop.is_set():
@@ -115,6 +182,7 @@ class PredictorServer:
                 conn, _ = self._sock.accept()
             except OSError:
                 return
+            self._m_conns.inc()
             t = threading.Thread(target=self._handle, args=(conn,), daemon=True)
             with self._conns_lock:
                 self._conns[t] = {"conn": conn, "busy": False}
@@ -147,7 +215,7 @@ class PredictorServer:
             "decode": dec,
         })
 
-    def _infer(self, inputs, budget):
+    def _infer(self, inputs, budget, trace_id):
         """One non-streaming cmd-1 request (already parsed); returns the
         encoded output arrays."""
         if budget is not None and budget <= 0.0:
@@ -155,7 +223,7 @@ class PredictorServer:
                                    "request arrived")
         deadline = None if budget is None else time.monotonic() + budget
         if self._engine is not None:
-            outputs = self._engine.infer(inputs, deadline=deadline)
+            outputs = self._engine.infer(inputs, deadline=deadline, trace_id=trace_id)
         else:
             outputs = self._run(*inputs)
             if not isinstance(outputs, (list, tuple)):
@@ -188,6 +256,7 @@ class PredictorServer:
                     conn.sendall(build_reply(STATUS_ERROR))
                     return
                 cmd = body[0]
+                self._m_frames.inc(cmd=str(cmd))
                 if cmd == CMD_STOP:
                     conn.sendall(build_reply(STATUS_OK))
                     threading.Thread(target=self.stop, daemon=True).start()
@@ -196,6 +265,8 @@ class PredictorServer:
                     conn.sendall(build_reply(STATUS_OK, self._health_json().encode()))
                 elif cmd == CMD_STATS:
                     conn.sendall(build_reply(STATUS_OK, self._stats_json().encode()))
+                elif cmd == CMD_METRICS:
+                    conn.sendall(build_reply(STATUS_OK, obs_prometheus.render().encode("utf-8")))
                 elif cmd == CMD_KV_PUT:
                     self._serve_kv_put(conn, body[1:])
                 elif cmd == CMD_KV_RESUME:
@@ -218,19 +289,22 @@ class PredictorServer:
         try:
             inputs, budget, trace_id, decode_opts = wire_spec.decode_request(payload)
         except Exception:  # noqa: BLE001 - malformed body
-            conn.sendall(build_reply(STATUS_ERROR, b"malformed infer body"))
+            self._answer(conn, STATUS_ERROR, b"malformed infer body")
             return
         if decode_opts is not None:
             self._serve_decode(conn, inputs, budget, trace_id, decode_opts)
             return
+        t0 = time.perf_counter()
         try:
-            reply = build_reply(STATUS_OK, self._infer(inputs, budget))
+            status, body = STATUS_OK, self._infer(inputs, budget, trace_id)
         except (RetryableError, EngineClosed):
             # shed, expired deadline, or a request racing stop(): retryable
-            reply = build_reply(STATUS_RETRYABLE)
+            status, body = STATUS_RETRYABLE, b""
         except Exception as e:  # noqa: BLE001 - the request's own error
-            reply = build_reply(STATUS_ERROR, f"{type(e).__name__}: {e}".encode())
-        conn.sendall(reply)
+            status, body = STATUS_ERROR, f"{type(e).__name__}: {e}".encode()
+        self._answer(conn, status, body)
+        if status == STATUS_OK:
+            self._span_reply(trace_id, t0)
 
     # ------------------------------------------------- streaming decode
     def _serve_decode(self, conn, inputs, budget, trace_id, opts):
@@ -238,8 +312,9 @@ class PredictorServer:
         reply as a chunk stream, or as one reply in one-shot mode."""
         dec = self._decode_engine
         if dec is None or not inputs:
-            conn.sendall(build_reply(STATUS_ERROR, b"no decode engine attached to this server"))
+            self._answer(conn, STATUS_ERROR, b"no decode engine attached to this server")
             return
+        t0 = time.perf_counter()
         handoff = opts["handoff"]
         try:
             req = dec.submit(inputs[0], features=list(inputs[1:]),
@@ -248,23 +323,25 @@ class PredictorServer:
                              snapshot_every=1 if handoff else opts["snapshot_every"],
                              speculative=opts["speculative"])
         except (RetryableError, EngineClosed):
-            conn.sendall(build_reply(STATUS_RETRYABLE))
+            self._answer(conn, STATUS_RETRYABLE)
             return
         except Exception:  # noqa: BLE001 - a bad request (shape, dtype, length)
-            conn.sendall(build_reply(STATUS_ERROR))
+            self._answer(conn, STATUS_ERROR)
             return
         if handoff:
-            self._serve_prefill_handoff(conn, dec, req)
+            self._serve_prefill_handoff(conn, dec, req, trace_id, t0)
         elif opts["oneshot"]:
-            self._reply_whole(conn, dec, req)
+            self._reply_whole(conn, dec, req, trace_id, t0)
         else:
-            self._stream_tokens(conn, dec, req, emit_snapshots=bool(opts["snapshot_every"]))
+            self._stream_tokens(conn, dec, req, trace_id, t0,
+                                emit_snapshots=bool(opts["snapshot_every"]))
 
-    def _reply_whole(self, conn, dec, req):
+    def _reply_whole(self, conn, dec, req, trace_id, t0):
         """One status-0 reply of the whole sequence (one-shot)."""
         tokens = self._result(conn, dec, req)
         if tokens is not None:
-            conn.sendall(build_reply(STATUS_OK, wire_spec.encode_arrays([tokens])))
+            self._answer(conn, STATUS_OK, wire_spec.encode_arrays([tokens]))
+            self._span_reply(trace_id, t0, tokens=int(tokens.size))
 
     def _result(self, conn, dec, req):
         """The request's whole token array, or None after answering its
@@ -273,13 +350,13 @@ class PredictorServer:
             return req.result(timeout=DECODE_STREAM_TIMEOUT)
         except (RetryableError, EngineClosed, TimeoutError):
             dec.cancel(req)
-            conn.sendall(build_reply(STATUS_RETRYABLE))
+            self._answer(conn, STATUS_RETRYABLE)
         except Exception:  # noqa: BLE001 - the request's own error
             dec.cancel(req)
-            conn.sendall(build_reply(STATUS_ERROR))
+            self._answer(conn, STATUS_ERROR)
         return None
 
-    def _serve_prefill_handoff(self, conn, dec, req):
+    def _serve_prefill_handoff(self, conn, dec, req, trace_id, t0):
         """The 0x5C bit-62 path, a disaggregated fleet's prefill leg: the
         request ran with max_new_tokens 1 and cadence 1, so the engine
         built the n_generated=1 block at the first token. Exactly two
@@ -290,12 +367,14 @@ class PredictorServer:
             return
         blob = req.latest_snapshot()
         if blob is None:
-            conn.sendall(build_reply(STATUS_RETRYABLE))
+            self._answer(conn, STATUS_RETRYABLE)
             return
-        conn.sendall(build_reply(STATUS_STREAM, blob))
-        conn.sendall(build_reply(STATUS_OK, wire_spec.encode_arrays([tokens])))
+        self._frame(conn, STATUS_STREAM, blob)
+        self._m_responses.inc(status=str(STATUS_OK))
+        self._frame(conn, STATUS_OK, wire_spec.encode_arrays([tokens]))
+        self._span_reply(trace_id, t0, tokens=int(tokens.size))
 
-    def _stream_tokens(self, conn, dec, req, emit_snapshots=False, sent=0):
+    def _stream_tokens(self, conn, dec, req, trace_id, t0, emit_snapshots=False, sent=0):
         """Drain one decode request onto the wire: a status-3 frame per
         batch of new tokens, then one terminal frame. With
         ``emit_snapshots`` each new kv-snapshot block goes out as one more
@@ -309,24 +388,28 @@ class PredictorServer:
                     toks, done = req.next_tokens(timeout=DECODE_STREAM_TIMEOUT)
                 except (RetryableError, EngineClosed, TimeoutError):
                     dec.cancel(req)
-                    conn.sendall(build_reply(STATUS_RETRYABLE))
+                    self._m_responses.inc(status=str(STATUS_RETRYABLE))
+                    self._frame(conn, STATUS_RETRYABLE)
                     return
                 except Exception:  # noqa: BLE001 - the request's own error
                     dec.cancel(req)
-                    conn.sendall(build_reply(STATUS_ERROR))
+                    self._m_responses.inc(status=str(STATUS_ERROR))
+                    self._frame(conn, STATUS_ERROR)
                     return
                 sent += len(toks)
                 chunk = wire_spec.encode_arrays([np.asarray(toks, dtype=req.token_dtype)])
                 if done:
-                    conn.sendall(build_reply(STATUS_OK, chunk))
+                    self._m_responses.inc(status=str(STATUS_OK))
+                    self._frame(conn, STATUS_OK, chunk)
+                    self._span_reply(trace_id, t0, tokens=sent)
                     return
-                conn.sendall(build_reply(STATUS_STREAM, chunk))
+                self._frame(conn, STATUS_STREAM, chunk)
                 if emit_snapshots:
                     got = req.take_snapshot()
                     if got is not None:
                         pending = got
                     if pending is not None and pending[1] <= sent:
-                        conn.sendall(build_reply(STATUS_STREAM, pending[0]))
+                        self._frame(conn, STATUS_STREAM, pending[0])
                         pending = None
         except (OSError, ConnectionError):
             dec.cancel(req)
@@ -339,17 +422,17 @@ class PredictorServer:
         malformed block status 1."""
         dec = self._decode_engine
         if dec is None:
-            conn.sendall(build_reply(STATUS_ERROR, b"no decode engine attached to this server"))
+            self._answer(conn, STATUS_ERROR, b"no decode engine attached to this server")
             return
         try:
             header, _ = dec.seed_check(payload)
         except (RetryableError, EngineClosed) as e:
-            conn.sendall(build_reply(STATUS_RETRYABLE, str(e).encode("utf-8", "replace")))
+            self._answer(conn, STATUS_RETRYABLE, str(e).encode("utf-8", "replace"))
             return
         except Exception as e:  # noqa: BLE001 - malformed block
-            conn.sendall(build_reply(STATUS_ERROR, str(e).encode("utf-8", "replace")))
+            self._answer(conn, STATUS_ERROR, str(e).encode("utf-8", "replace"))
             return
-        conn.sendall(build_reply(STATUS_OK, json.dumps(header, sort_keys=True).encode()))
+        self._answer(conn, STATUS_OK, json.dumps(header, sort_keys=True).encode())
 
     def _serve_kv_resume(self, conn, payload):
         """Cmd 10: resume a snapshot on the decode engine and reply as a
@@ -358,12 +441,13 @@ class PredictorServer:
         token."""
         dec = self._decode_engine
         if dec is None:
-            conn.sendall(build_reply(STATUS_ERROR, b"no decode engine attached to this server"))
+            self._answer(conn, STATUS_ERROR, b"no decode engine attached to this server")
             return
+        t0 = time.perf_counter()
         try:
             header, _, budget, trace_id, opts, end = wire_spec.decode_kv_resume(payload)
         except Exception:  # noqa: BLE001 - malformed body
-            conn.sendall(build_reply(STATUS_ERROR))
+            self._answer(conn, STATUS_ERROR)
             return
         opts = opts or {}
         try:
@@ -372,21 +456,24 @@ class PredictorServer:
                              max_new_tokens=opts.get("max_new_tokens"),
                              speculative=bool(opts.get("speculative")))
         except (RetryableError, EngineClosed):
-            conn.sendall(build_reply(STATUS_RETRYABLE))
+            self._answer(conn, STATUS_RETRYABLE)
             return
         except Exception:  # noqa: BLE001 - an inconsistent block
-            conn.sendall(build_reply(STATUS_ERROR))
+            self._answer(conn, STATUS_ERROR)
             return
         if opts.get("oneshot"):
-            self._reply_whole(conn, dec, req)
+            self._reply_whole(conn, dec, req, trace_id, t0)
         else:
-            self._stream_tokens(conn, dec, req, emit_snapshots=bool(opts.get("snapshot_every")),
+            self._stream_tokens(conn, dec, req, trace_id, t0,
+                                emit_snapshots=bool(opts.get("snapshot_every")),
                                 sent=int(header["n_generated"]))
 
     def stop(self, drain=True, timeout=DRAIN_TIMEOUT):
         """Stop accepting, let requests mid-processing finish (up to
-        ``timeout``), close idle connections, then close an owned engine."""
+        ``timeout``), close idle connections, then close an owned engine.
+        The server's metrics leave the registry."""
         self._stop.set()
+        obs_metrics.REGISTRY.unregister_collector(self._obs_collector)
         try:
             # shutdown before close: close() alone does not wake a thread
             # blocked in accept() on Linux

@@ -329,6 +329,11 @@ def encode_deadline(timeout_ms):
     return struct.pack("<Bd", DEADLINE_MARKER, float(timeout_ms))
 
 
+def encode_trace(trace_id):
+    """The optional trailing trace-id field (marker 0x1D + u64)."""
+    return struct.pack("<BQ", TRACE_MARKER, int(trace_id))
+
+
 def encode_decode_opts(max_new_tokens, oneshot=False, snapshot_every=0,
                        handoff=False, speculative=False):
     """The optional trailing decode field (marker 0x5C + u64: low 32

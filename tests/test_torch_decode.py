@@ -350,7 +350,7 @@ def test_validation(model):
 
 
 @pytest.mark.parametrize("option", [dict(quant="w8"), dict(mesh="tp2"),
-                                    dict(prefix_dir="somewhere"), dict(watchdog_interval=0.5),
+                                    dict(prefix_dir="somewhere"), dict(phase="prefill"),
                                     dict(store="somewhere")])
 def test_unported_engine_options_raise(model, option):
     with pytest.raises(NotImplementedError):

@@ -648,3 +648,87 @@ def test_speculative_equals_plain_on_the_card(cuda, draft_layers):
         assert all(v["compiles"] == 1 for v in st["programs"].values())
         assert all(v.get("breaker", {}).get("consecutive_failures", 0) == 0
                    for v in st["programs"].values())
+
+
+
+def test_restart_on_the_card_keeps_the_programs(cuda):
+    """A small bf16 Llama engine on the card, its programs captured by
+    ``warmup``: the scheduler dies at ``serving.decode.loop`` with streams
+    in flight; they fail retryable with a prefix of their tokens, the
+    replacement thread (on the same card) replays the captured graphs, so
+    no program is built again, and the retried streams equal the unbroken
+    ones bitwise; no slot leaks, and K1 runs once per layer in every
+    replay of the retry."""
+    from paddle_tpu_torch.inference.batching import SchedulerRestarted
+    from paddle_tpu_torch.inference.decode import DecodeEngine
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.text.generation import llama_decode_model
+
+    model = _small_llama().to(torch.bfloat16).eval()
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, 512, n).astype(np.int32) for n in (5, 40, 17, 29)]
+    chaos.reset()
+    try:
+        with DecodeEngine(llama_decode_model(model, 4, 96), max_prompt_len=64,
+                          min_seq_bucket=16, watchdog_interval=0.02, wedge_timeout=5.0,
+                          name="restart-card") as eng:
+            eng.warmup()
+            unbroken = [r.result(timeout=300).tolist()
+                        for r in [eng.submit(p, max_new_tokens=12) for p in prompts]]
+            programs = eng.stats()["programs"]
+            chaos.arm("serving.decode.loop", exc=RuntimeError("die"),
+                      at=chaos.visits("serving.decode.loop") + 3)
+            reqs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+            for r, want in zip(reqs, unbroken):
+                with pytest.raises(SchedulerRestarted):
+                    r.result(timeout=300)
+                assert r.tokens_so_far() == want[:len(r.tokens_so_far())]
+            st0, before = eng.stats(), fa.launches
+            retried = [r.result(timeout=300).tolist()
+                       for r in [eng.submit(p, max_new_tokens=12) for p in prompts]]
+            st, h = eng.stats(), eng.health()
+    finally:
+        chaos.reset()
+    assert retried == unbroken
+    assert st["scheduler_restarts"] == 1 and st["programs"] == programs
+    assert all(v["compiles"] == 1 for v in st["programs"].values())
+    assert h["free_slots"] == 4 and st["active"] == 0 and h["scheduler_alive"]
+    calls = (st["prefix_fill_steps"] - st0["prefix_fill_steps"]) + (st["steps"] - st0["steps"])
+    assert fa.launches - before == 2 * calls
+    assert st["graph_replays"] - st0["graph_replays"] == calls
+
+
+def test_fill_timer_reads_device_time(cuda):
+    """``paddle_decode_step_seconds{phase="fill"}`` reads the device's
+    work: a fill call's time is at least the CUDA-event time of the same
+    fill replayed alone, not the graph's launch."""
+    from paddle_tpu_torch.inference.decode import DecodeEngine
+    from paddle_tpu_torch.text.generation import llama_decode_model
+    from paddle_tpu_torch.text.models import LlamaModel
+
+    cfg = dict(vocab_size=512, hidden_size=1024, num_layers=4, num_heads=8,
+               intermediate_size=2816)
+    model = LlamaModel(**cfg, device="cuda", generator=torch.Generator().manual_seed(1))
+    model = model.to(torch.bfloat16).eval()
+    prompt = np.random.RandomState(7).randint(0, 512, 128).astype(np.int32)
+    with DecodeEngine(llama_decode_model(model, 2, 256), max_prompt_len=128,
+                      min_seq_bucket=128, prefix=False, name="fill-timer") as eng:
+        eng.warmup()
+        for _ in range(5):
+            eng.generate(prompt, max_new_tokens=1, timeout=300)
+        timer = eng._m_step_exec.value(phase="fill")
+        key = ("fill", 1, 128)
+        with torch.inference_mode(), eng._exec_lock:
+            run = eng._program(key)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                start.record()
+                run()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) / 1e3)
+    assert timer["count"] == 5
+    assert timer["sum"] / timer["count"] >= 0.9 * float(np.median(times)) > 0

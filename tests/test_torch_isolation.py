@@ -47,6 +47,16 @@ def test_no_jax_or_jax_package_import(path):
         assert root not in FORBIDDEN, f"{path.relative_to(REPO)} imports {name}"
 
 
+@pytest.mark.parametrize("sub", ["obs", "resilience"])
+def test_telemetry_and_chaos_subpackages_are_checked(sub):
+    """The port keeps its own copies of the reference's stdlib-only obs
+    and chaos modules: both tests above cover them."""
+    names = {p.name for p in _port_files() if p.parent == PKG / sub}
+    want = {"obs": {"__init__.py", "metrics.py", "prometheus.py", "tracing.py", "httpd.py"},
+            "resilience": {"__init__.py", "chaos.py"}}[sub]
+    assert want <= names
+
+
 def test_importing_every_port_module_loads_no_jax():
     mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
                   for p in PKG.rglob("*.py"))

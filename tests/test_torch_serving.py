@@ -157,7 +157,7 @@ def test_health_and_stats_commands(server):
             assert {"batches", "requests", "padded_rows"} <= set(d)
 
 
-@pytest.mark.parametrize("cmd", [ref_spec.CMD_RELOAD, ref_spec.CMD_METRICS,
+@pytest.mark.parametrize("cmd", [ref_spec.CMD_RELOAD, 2,
                                  ref_spec.CMD_DRAIN, ref_spec.CMD_KV_PUT,
                                  ref_spec.CMD_KV_RESUME, 99])
 def test_unserved_commands_answer_status_1(server, cmd):
