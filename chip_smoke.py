@@ -10,7 +10,8 @@ Phases, each fatal on failure (exit code 1):
   2. build    build every CUDA kernel of the main paths from the sources in
               this checkout (one nvcc per source, started together): K1
               flash_attention_fwd, K2 flash_attention_bwd_dq, K3
-              flash_attention_bwd_dkv
+              flash_attention_bwd_dkv, and wq_matmul (quant_matmul, the
+              weight-only dequantizing product of quantized serving)
   3. kernels  hold K1 against mha_reference, and K2/K3 against
               mha_bwd_reference, on the card at the shapes the main paths
               give them and at the other forms they take, each form in
@@ -173,7 +174,37 @@ Phases, each fatal on failure (exit code 1):
               bitwise their replies before the fault; bucket 4 failed to
               its breaker's threshold (2) answers status 1, 1, then 2
               (quarantined) while bucket 2 serves; K1 = 12 x batches
- 11. summary  a {"kernels": [...]} line, then as the last line
+ 11. quant    quantized serving: (a) wq_matmul against its plain version
+              (dequantize, then matmul; 1e-4 of the output's max) at every
+              (M, K, N) of Llama-2-7B's path (M 16 and 128; K x N 4096 x
+              4096, 4096 x 11008, 11008 x 4096, 4096 x 32000), int8 with
+              per-column scales and bf16 weights, a row's bits the same at M
+              = 1, 16 and 128, timed beside the plain version, torch.matmul
+              over the f32 weight (the library yardstick) and its bound;
+              (b) Llama-2-7B in float32 (weights from seed 0, 27 GB; phase
+              10's bf16 weights freed first), engines of phase 7's
+              configuration under quant f32, then w8, then bf16w, one at a
+              time, each behind PredictorServer serving phase 7's 24 streams
+              and extras: streams whole, 3 re-decoded alone bitwise, each
+              program captured once, no breaker tripped, the mode on
+              stats()["quant"] and the compiles' quant label, K1 = 32 x
+              (fill replays + steps), wq_matmul = 225 x step replays + 224 x
+              fill replays (0 under f32); the last prompt token's logits of
+              4 prompts under w8 and bf16w within ACCURACY_BOUNDS[mode]
+              (max|d| / max|f32|) of the f32 model's; a w8 snapshot (a
+              handoff) refused with status 2 by an f32 and the bf16w
+              engine. Printed per mode: tokens/s over the window, the median
+              step and fill replay (CUDA events), a profiled step replay's
+              kernel time and idle share, weight_bytes, the weights
+              digest's ms. (c) phase 4's BERT-base converted in place by
+              quantize_weights (73 Int8Linear) answers phase 4's requests
+              through the BatchingEngine, its sequence output within
+              ACCURACY_BOUNDS["w8"] of phase 4's f32 replies and its pooled
+              output within the reference's documented w8 bound for its
+              depth (2 x 13 / 127), both within TOL_WQ of the same
+              requests through the same model with wq_matmul's plain
+              version in its place, wq_matmul 73 x batches, K1 12 x batches
+ 12. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -278,6 +309,9 @@ def phase_build(torch, cuda_build, fa, kernels):
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 log(f"    {line.strip()}")
     for k in kernels:
+        if "smem" in k:  # a kernel of its own module
+            log(f"[build] {k['lib']} dynamic shared memory per block: {k['smem']()}")
+            continue
         log(f"[build] {k['lib']} dynamic shared memory per block: "
             + ", ".join(f"head_dim {d} {str(dt)[6:]}: {fa.smem_bytes(d, k['lib'], dt)} bytes"
                         for d in fa.HEAD_DIMS for dt in (torch.float32, torch.bfloat16)))
@@ -970,7 +1004,8 @@ def phase_serving(torch, fa, port_mods):
         time.sleep(0.05)
     log(f"[serving] cmd 3/5/7 answered; worst seq-output err {worst:.3e} "
         f"(tolerance {SEQ_OUT_TOL})")
-    return dict(launches=launches, model=model)
+    return dict(launches=launches, model=model,
+                replies=[(ids, outs) for ids, outs, _, _ in sent])
 
 
 def profile_device(torch, fn, label, top=8, groups=None):
@@ -1026,8 +1061,10 @@ KERNEL_GROUPS = (
     ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_", "nvjet")),
     ("int64 elementwise (counter-hash dropout masks)", ("<long",)),
 )
-# a decode step's kernels: the cache writes and layout changes apart
-DECODE_GROUPS = KERNEL_GROUPS[:1] + KERNEL_GROUPS[3:4] + (
+# a decode step's kernels: the cache writes and layout changes apart, and
+# the quantized products (phase 11)
+DECODE_GROUPS = KERNEL_GROUPS[:1] + (
+    ("wq_matmul (w8 / bf16w products)", ("wq_matmul_kernel",)),) + KERNEL_GROUPS[3:4] + (
     ("copies (cache rows, head layouts, RoPE interleave)",
      ("copy", "Copy", "Memcpy", "cat", "Cat")),
 )
@@ -1575,14 +1612,15 @@ def engine_tokens(torch, generation, DecodeEngine, model, device, prompts, n):
 
 
 def serve_window(torch, fa, engine, PredictorServer, wire_spec, base, first=ENGINE_FIRST,
-                 later=ENGINE_LATER):
+                 later=ENGINE_LATER, qmm=None):
     """The engine behind PredictorServer on localhost, serving the streams
     of ``base`` (a list of dicts with prompt and n; the first ``first``
     all at once, the next ``later`` as the first retire) and the three
     extras after them: one hangs up after its 4th chunk, one has a 1 ms
     per-token budget, one is one-shot. The window runs from the first
-    submit to the last terminal frame, timed by CUDA events; K1 is counted
-    from 0 over it. Returns (the streams with statuses, chunks and time to
+    submit to the last terminal frame, timed by CUDA events; K1 (and,
+    given ``qmm``, ops/quant_matmul.py's wq_matmul) is counted from 0
+    over it. Returns (the streams with statuses, chunks and time to
     the first frame, the server, a dict of the window's numbers and stats
     deltas, every DecodeRequest submitted)."""
     work = [dict(prompt=w["prompt"], n=w["n"]) for w in base]
@@ -1625,6 +1663,8 @@ def serve_window(torch, fa, engine, PredictorServer, wire_spec, base, first=ENGI
         t.start()
     before = engine.stats()
     fa.launches = 0  # count the window's launches only
+    if qmm is not None:
+        qmm.launches = 0
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     gate.wait()
     start.record()
@@ -1637,6 +1677,7 @@ def serve_window(torch, fa, engine, PredictorServer, wire_spec, base, first=ENGI
     end.synchronize()
     host_s = time.perf_counter() - t0
     launches = fa.launches
+    wq_launches = None if qmm is None else qmm.launches
     after = engine.stats()
     if errors:
         fail(f"decode clients failed: {errors[:3]}")
@@ -1653,7 +1694,7 @@ def serve_window(torch, fa, engine, PredictorServer, wire_spec, base, first=ENGI
         w["tokens"] = np.concatenate(w["chunks"]) if w["chunks"] else np.zeros(0, np.int32)
     oneshot["tokens"] = oneshot["chunks"][0] if oneshot["chunks"] else None
     window = dict(window_ms=start.elapsed_time(end), host_s=host_s, launches=launches,
-                  delta=delta, stats=st,
+                  wq_launches=wq_launches, delta=delta, stats=st,
                   ttft_ms=1e3 * float(np.median([w["first_s"] for w in work[:n_streams]])))
     return work, server, window, requests
 
@@ -1888,7 +1929,7 @@ def phase_engine(torch, fa, mods, card, gen6):
                 eager_tokens_per_s=etps, bound_tokens_per_s=bound_tps,
                 step_ms=st["step_ms_median"], eager_step_ms=est["step_ms_median"], idle=idle,
                 ttft_ms=win["ttft_ms"], eager_ttft_ms=ewin["ttft_ms"],
-                pool_bytes=st["graph_pool_bytes"], model=model, dm=dm)
+                pool_bytes=st["graph_pool_bytes"], model=model, dm=dm, base=base)
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2836,6 +2877,400 @@ def phase_robust(torch, fa, mods, card, eng7, bert):
         dead_restart_ms=dead["restart_ms"], wedged_restart_ms=wedged["restart_ms"])
 
 
+# ------------------------------------------------------------------ phase 11
+# wq_matmul on Llama-2-7B's path, (K, N): the attention projections, gate
+# and up, down, and the head (the step's only); M is 16 in a step (every
+# slot) and C = 128 in a fill
+QUANT_SHAPES = ((4096, 4096, "wq wk wv wo"), (4096, 11008, "gate up"), (11008, 4096, "down"),
+                (4096, 32000, "head"))
+QUANT_MS = (ENGINE_SLOTS, ENGINE_CHUNK)
+TOL_WQ = 1e-4  # wq_matmul vs its plain version, relative to the output's max |value|
+QUANT_MODE_ORDER = ("f32", "w8", "bf16w")
+QUANT_SOLO = 3  # streams of each window decoded again alone
+QUANT_LOGIT_PROMPTS = 4  # prompts whose finishing logits are held against f32's
+
+
+def wq_bound_ms(m, k, n, wbytes):
+    """Least time of one wq_matmul launch: x and the weights (and int8's
+    scales) read once and the output written once, over the HBM rate; vs
+    2 M K N float32 operations (an FMA a weight and row) over the CUDA
+    cores' peak."""
+    nbytes = 4 * m * k + k * n * wbytes + (4 * n if wbytes == 1 else 0) + 4 * m * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * k * n / PEAK_OPS_PER_S["float32"] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def graph_ms(torch, Graph, fn, calls=20, reps=5):
+    """(CUDA-event ms over back-to-back calls, device ms) of one call of
+    ``fn``. The device ms: ``calls`` calls captured in one CUDA graph
+    (core/cuda_graph.py), replayed ``reps`` times between CUDA events, so
+    no host time sits between the kernels. This late in the run the
+    profiler's windows over such short calls often come back empty, and
+    a graph needs no profiler."""
+    ms = cuda_ms(torch, fn)
+
+    def many():
+        for _ in range(calls):
+            fn()
+
+    graph = Graph(many, torch.device("cuda"))
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return ms, start.elapsed_time(end) / (reps * calls)
+
+
+def phase_quant_kernels(torch, qmm, quantize_array, Graph):
+    """wq_matmul against its plain version (dequantize, then matmul) at
+    every (M, K, N) of the quantized 7B path, int8 (w8) and bf16 (bf16w)
+    weights; a row's bits must be the same in a 1-, a 16- and a 128-row
+    call. Timed beside the plain version and the library yardstick:
+    torch.matmul of x with the weight already dequantized to float32, what
+    the f32 engine pays per product (no single PyTorch call computes the
+    dequantizing product; the port never calls this one with a reduced
+    weight). Device times from CUDA graphs of 20 calls (``graph_ms``)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    results = []
+    log(f"[quant] wq_matmul vs its plain version (tolerance {TOL_WQ} of the output's max "
+        "|value|); times: CUDA events over back-to-back calls / device (events around a CUDA "
+        "graph of 20 calls)")
+    for k, n, names in QUANT_SHAPES:
+        w = torch.randn(k, n, device="cuda", generator=gen) * 0.02
+        x_all = torch.randn(max(QUANT_MS), k, device="cuda", generator=gen)
+        for form in ("w8", "bf16w"):
+            if form == "w8":
+                data, scale = quantize_array(w, channel_axis=1)
+            else:
+                data, scale = w.to(torch.bfloat16), None
+            wdq = qmm.dequantize(data, scale)
+            one = qmm.wq_matmul(x_all[:1], data, scale)
+            outs = {m: qmm.wq_matmul(x_all[:m], data, scale) for m in QUANT_MS}
+            torch.cuda.synchronize()
+            same_bits = bool(torch.equal(one[0], outs[ENGINE_SLOTS][0])
+                             and torch.equal(outs[ENGINE_SLOTS],
+                                             outs[ENGINE_CHUNK][:ENGINE_SLOTS]))
+            for m in QUANT_MS:
+                x = x_all[:m]
+                out = outs[m]
+                ref = qmm.wq_matmul_reference(x, data, scale)
+                abs_err = (out - ref).abs().max().item()
+                rel = abs_err / ref.abs().max().item()
+                ms, dev = graph_ms(torch, Graph, lambda: qmm.wq_matmul(x, data, scale))
+                plain_ms, plain_dev = graph_ms(
+                    torch, Graph, lambda: qmm.wq_matmul_reference(x, data, scale))
+                library_ms, library_dev = graph_ms(torch, Graph, lambda: torch.matmul(x, wdq))
+                bound, bound_by = wq_bound_ms(m, k, n, data.element_size())
+                ok = rel <= TOL_WQ and same_bits and bool(torch.isfinite(out).all())
+                results.append(dict(form=form, m=m, k=k, n=n, names=names,
+                                    max_abs_err=abs_err, rel_err=rel, same_bits_m=same_bits,
+                                    ms=ms, device_ms=dev, plain_ms=plain_ms,
+                                    plain_device_ms=plain_dev, library_ms=library_ms,
+                                    library_device_ms=library_dev, bound_ms=bound,
+                                    bound_by=bound_by, ok=ok))
+                log(f"  {form} M={m} K={k} N={n} ({names}): err {abs_err:.3e} ({rel:.2e} of "
+                    f"max); row bits same at M = 1, {ENGINE_SLOTS}, {ENGINE_CHUNK}: "
+                    f"{same_bits} | kernel {ms:.4f} / {_fmt(dev)} ms{_share(bound, dev)}; "
+                    f"plain {plain_ms:.4f} / {_fmt(plain_dev)} ms; library (torch.matmul, f32 "
+                    f"weight) {library_ms:.4f} / {_fmt(library_dev)} ms; bound {bound:.4f} ms "
+                    f"({bound_by}) {'ok' if ok else 'DISAGREES'}")
+            del wdq, data, scale
+        del w, x_all
+    if any(not r["ok"] for r in results):
+        fail("wq_matmul disagrees with its plain version or changes a row's bits with M")
+    return results
+
+
+def quant_window(torch, fa, qmm, engine, mods, base, n_layers, mode):
+    """One quantized (or f32) 7B engine behind PredictorServer serving
+    phase 7's streams, its step and fill replays timed by CUDA events;
+    the checks of phase 7's (a) and (d), the launches of both kernels, the
+    programs and breakers, and the mode's labels. Returns (the streams,
+    the server, the window, the requests, the events' medians)."""
+    PredictorServer, wire_spec, obs = mods
+    keys = {"step": engine._step_key, "fill": ("fill", 1, ENGINE_CHUNK)}
+    real = {p: engine._programs[key] for p, key in keys.items()}
+    events = {p: [] for p in keys}
+
+    def timed_run(phase):
+        def run():
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = real[phase]()
+            e.record()
+            events[phase].append((s, e))
+            return out
+        return run
+
+    for p, key in keys.items():
+        engine._programs[key] = timed_run(p)
+    work, server, win, requests = serve_window(torch, fa, engine, PredictorServer, wire_spec,
+                                               base, qmm=qmm)
+    for p, key in keys.items():
+        engine._programs[key] = real[p]
+    n_streams = ENGINE_FIRST + ENGINE_LATER
+    hang, tiny, oneshot = work[n_streams:]
+    st, delta = win["stats"], win["delta"]
+    bad = [i for i, w in enumerate(work[:n_streams])
+           if (w["statuses"][-1] != wire_spec.STATUS_OK
+               or any(x != wire_spec.STATUS_STREAM for x in w["statuses"][:-1])
+               or w["tokens"].size != w["n"] or w["tokens"].dtype != np.int32)]
+    fills, steps = delta["prefix_fill_steps"], delta["steps"]
+    want_k1 = n_layers * (fills + steps)
+    per_step, per_fill = 7 * n_layers + 1, 7 * n_layers  # 7 products a layer, the head
+    want_wq = 0 if mode == "f32" else per_step * steps + per_fill * fills
+    broken = {k: v["breaker"] for k, v in st["programs"].items()
+              if v.get("breaker", {}).get("state", "closed") != "closed"
+              or v.get("breaker", {}).get("trips", 0)}
+    line = next((ln for ln in obs.render().splitlines()
+                 if ln.startswith("paddle_decode_compiles_total{")
+                 and f'engine="{engine.name}"' in ln), "")
+    labelled = st["quant"] == mode and f'quant="{mode}"' in line
+    log(f"[quant] {mode}: {n_streams - len(bad)}/{n_streams} streams well formed with exactly "
+        f"their max_new_tokens; one-shot {oneshot['statuses']}, 1 ms budget {tiny['statuses']},"
+        f" hung up after {len(hang['chunks'])} chunk(s); {fills} fill replays, {steps} steps; "
+        f"K1 {win['launches']} (expected {want_k1}), wq_matmul {win['wq_launches']} (expected "
+        f"{want_wq} = {per_step} x {steps} + {per_fill} x {fills}); graph replays "
+        f"{delta['graph_replays']}; programs {st['programs']}; stats quant {st['quant']!r}, "
+        f"the compiles' label {line.split('{')[1].split('}')[0] if line else None}")
+    if (bad or oneshot["statuses"] != [wire_spec.STATUS_OK]
+            or tiny["statuses"] != [wire_spec.STATUS_RETRYABLE] or len(hang["chunks"]) != 4):
+        fail(f"{mode}: decode streams malformed (streams {bad}) or the extras misbehaved")
+    if (win["launches"] != want_k1 or delta["k1_launches"] != want_k1
+            or win["wq_launches"] != want_wq or delta["graph_replays"] != fills + steps
+            or any(v["compiles"] != 1 for v in st["programs"].values())):
+        fail(f"{mode}: the kernels' launches, the replays or the captures do not match the "
+             "engine's fill and step calls")
+    if broken or st["program_failures"] or st["quarantine_shed"] or not labelled:
+        fail(f"{mode}: a breaker tripped ({broken}), a program failed, or the quant mode is "
+             "not on the stats and the metrics")
+    medians = {p: float(np.median([s.elapsed_time(e) for s, e in evs])) for p, evs in
+               events.items()}
+    return work, server, win, requests, medians
+
+
+def phase_quant(torch, fa, qmm, mods, card, eng7, serving):
+    """Phase 11 (module docstring): quantized decode serving of an f32
+    Llama-2-7B, then BERT-base w8 through the batching engine."""
+    import gc
+
+    (LlamaModel, generation, DecodeEngine, BatchingEngine, PredictorServer, wire_spec, obs,
+     quantization, Graph) = mods
+    from paddle_tpu_torch.quantization import post_training
+    from paddle_tpu_torch.quantization.post_training import Int8Linear, _quantize_array
+    from paddle_tpu_torch.quantization.serving import weight_bytes
+
+    t_phase = time.perf_counter()
+    kcases = phase_quant_kernels(torch, qmm, _quantize_array, Graph)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = LlamaModel(device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    model.eval()
+    n_layers = len(model.layers)
+    dm = generation.llama_decode_model(model, ENGINE_SLOTS, ENGINE_SEQ)
+    torch.cuda.synchronize()
+    log(f"[quant] Llama-2-7B float32 (weights from seed 0, {weight_bytes(dm.params) / 1e9:.2f} "
+        f"GB), built in {time.perf_counter() - t:.1f} s; engines of phase 7's configuration "
+        f"({ENGINE_SLOTS} slots x {ENGINE_SEQ}, C = {ENGINE_CHUNK}) one mode at a time, "
+        f"{', then '.join(QUANT_MODE_ORDER)}")
+    base = eng7["base"]
+    n_streams = ENGINE_FIRST + ENGINE_LATER
+    logit_prompts = [w["prompt"] for w in base[:QUANT_LOGIT_PROMPTS]]
+    modes, f32_logits, w8_snap = {}, None, None
+    launches = wq_launches = 0
+    for mode in QUANT_MODE_ORDER:
+        t = time.perf_counter()
+        engine = DecodeEngine(dm, max_prompt_len=ENGINE_PROMPT, min_seq_bucket=ENGINE_CHUNK,
+                              max_queue=64, name=f"llama-7b-{mode}", quant=mode)
+        quantize_s = time.perf_counter() - t
+        t = time.perf_counter()
+        engine.warmup()
+        torch.cuda.synchronize()
+        st0 = engine.stats()
+        wbytes = weight_bytes(engine._model.params)
+        log(f"[quant] {mode}: weights {wbytes / 1e9:.3f} GB (weight_bytes), quantized in "
+            f"{quantize_s:.2f} s; warmup {time.perf_counter() - t:.2f} s (captures "
+            + ", ".join(f"{k} {v['capture_ms']:.1f} ms" for k, v in st0["programs"].items())
+            + f"; the weights digest {st0['weights_digest_ms']:.1f} ms); KV pools "
+            f"{st0['kv_pool_bytes'] / 1e9:.2f} GB ({engine._model.kv_spec[0][1]}); peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        work, server, win, requests, medians = quant_window(
+            torch, fa, qmm, engine, (PredictorServer, wire_spec, obs), base, n_layers, mode)
+        launches += win["launches"]
+        wq_launches += win["wq_launches"]
+        delta, st = win["delta"], win["stats"]
+        # solo = batch: three streams decoded again alone, bitwise
+        for w in work[:n_streams]:
+            req = next(r for r in requests if r.prompt.size == w["prompt"].size
+                       and np.array_equal(r.prompt, w["prompt"]))
+            w["peak_batch"] = req.peak_batch
+        full = [w for w in work[:ENGINE_FIRST] if w["peak_batch"] == ENGINE_SLOTS]
+        if not full:
+            fail(f"{mode}: no first-wave sequence ran in a full batch of {ENGINE_SLOTS}")
+        picks = {"the longest prompt": max(work[:n_streams], key=lambda w: w["prompt"].size),
+                 "joined mid-flight": work[ENGINE_FIRST],
+                 f"ran beside {ENGINE_SLOTS - 1} others": max(full, key=lambda w: w["n"])}
+        solo = {label: bool(np.array_equal(
+            engine.generate(w["prompt"], max_new_tokens=w["n"], timeout=600), w["tokens"]))
+            for label, w in list(picks.items())[:QUANT_SOLO]}
+        log(f"[quant] {mode}: decoded again alone, bitwise the window's tokens: {solo}")
+        if not all(solo.values()):
+            fail(f"{mode}: a sequence decoded alone differs from the same sequence in the batch")
+        # the finishing logits against the f32 engine's (the reference's measure)
+        logits = [generation.llama_prompt_logits(engine._model, p) for p in logit_prompts]
+        rel = None
+        if mode == "f32":
+            f32_logits = logits
+        else:
+            rel = max(((a - b).abs().max() / b.abs().max()).item()
+                      for a, b in zip(logits, f32_logits))
+            bound = quantization.ACCURACY_BOUNDS[mode]
+            log(f"[quant] {mode}: the last prompt token's logits of {len(logits)} prompts "
+                f"against the f32 model's: max|d| / max|f32| = {rel:.3e} (bound {bound})")
+            if not rel < bound:
+                fail(f"{mode}: logits beyond ACCURACY_BOUNDS[{mode!r}] of the f32 model's")
+        # quant skew: a w8 snapshot (the handoff of a 16-token prompt) is
+        # refused with status 2 by the f32 and the bf16w engines
+        if mode == "w8":
+            prompt = base[0]["prompt"][:16]
+            frames, _, _ = _frames(wire_spec, server.port, wire_spec.build_request(
+                wire_spec.CMD_INFER, wire_spec.encode_arrays([prompt])
+                + wire_spec.encode_decode_opts(8, handoff=True)))
+            _, _, snaps = _split(wire_spec, frames)
+            if len(snaps) != 1:
+                fail(f"w8: the handoff gave {len(snaps)} snapshots")
+            w8_snap = snaps[0]
+            f32_engine = DecodeEngine(dm, max_prompt_len=ENGINE_PROMPT,
+                                      min_seq_bucket=ENGINE_CHUNK, name="llama-7b-f32-identity")
+            f32_server = PredictorServer(None, decode_engine=f32_engine,
+                                         own_decode_engine=True)
+            pst, _ = _call(f32_server.port, wire_spec.build_request(wire_spec.CMD_KV_PUT,
+                                                                    w8_snap))
+            f32_server.stop()
+            del f32_engine, f32_server
+            log(f"[quant] a w8 snapshot ({len(w8_snap)} bytes, header quant "
+                f"{wire_spec.decode_kv_snapshot_header(w8_snap)['quant']!r}) put to an f32 "
+                f"engine: status {pst}")
+            if pst != wire_spec.STATUS_RETRYABLE:
+                fail("an f32 engine did not refuse a w8 snapshot with status 2")
+        if mode == "bf16w":
+            pst, _ = _call(server.port, wire_spec.build_request(wire_spec.CMD_KV_PUT, w8_snap))
+            log(f"[quant] the w8 snapshot put to the bf16w engine: status {pst}")
+            if pst != wire_spec.STATUS_RETRYABLE:
+                fail("the bf16w engine did not refuse a w8 snapshot with status 2")
+        # one step replay at the window's mean cache length, profiled
+        mean_len = (sum(sum(w["prompt"].size + i for i in range(w["tokens"].size))
+                        for w in work[:n_streams])
+                    / sum(w["tokens"].size for w in work[:n_streams]))
+        key = engine._step_key
+        with torch.inference_mode(), engine._exec_lock:
+            tokens, pos, _ = engine._graphs.inputs(key)
+            tokens.zero_()
+            pos.fill_(int(mean_len) - 1)
+            run = engine._program(key)
+            step_ms, busy, kernels, k1 = profile_replay(
+                torch, lambda: run().cpu(), f"{mode}: one step replayed, {ENGINE_SLOTS} rows at "
+                f"cache length {int(mean_len)}", n_layers)
+        idle = f"{100 * (1 - busy / step_ms):.1f}%" if busy > 0 else "not measured"
+        tps = delta["tokens"] / win["window_ms"] * 1e3
+        modes[mode] = dict(tokens_per_s=tps, step_ms=medians["step"], fill_ms=medians["fill"],
+                           kernel_ms=busy, idle=idle, weight_bytes=wbytes, logit_rel=rel,
+                           digest_ms=st["weights_digest_ms"], fills=delta["prefix_fill_steps"],
+                           steps=delta["steps"], k1_step=n_layers * delta["steps"],
+                           k1_fill=n_layers * delta["prefix_fill_steps"], kernels=kernels)
+        log(f"[quant] {mode}: {delta['tokens']} tokens in {win['window_ms']:.1f} ms by CUDA "
+            f"events = {tps:.1f} tokens/s; median step replay {medians['step']:.3f} ms, median "
+            f"fill replay {medians['fill']:.3f} ms (CUDA events); a profiled step replay "
+            f"{_fmt(busy)} ms of kernels ({kernels} kernels, K1 records {k1}), device idle "
+            f"{idle}; weights {wbytes} bytes; the weights digest {st['weights_digest_ms']:.1f} "
+            f"ms | {card}")
+        stop_server(server, engine, wire_spec)
+        del engine, server, work, requests
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[quant] {mode}: its engine's part of the phase took {time.perf_counter() - t:.1f} s")
+    del model, dm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # BERT-base, phase 4's weights converted in place, through the batching engine
+    bert, replies = serving["model"], serving["replies"]
+    t = time.perf_counter()
+    _, scales = quantization.quantize_weights(bert)
+    n_int8 = sum(isinstance(m, Int8Linear) for m in bert.modules())
+    bert_layers = len(bert.encoder.layers)
+
+    def run(ids):
+        with torch.inference_mode():
+            return list(bert(torch.from_numpy(np.array(ids)).to("cuda")))
+
+    bengine = BatchingEngine.for_callable(run, max_batch_size=8, max_wait_ms=20.0,
+                                          max_queue=64, name="bert-w8")
+    for seq in (128, 512):
+        bengine.warmup(signature=[("int32", (seq,))])
+    bserver = PredictorServer(run, engine=bengine, own_engine=True)
+    b0 = sum(x["batches"] for xs in bengine.stats()["buckets"].values() for x in xs)
+    fa.launches = qmm.launches = 0
+    served = []
+    for ids, _ in replies:
+        status, payload = _call(bserver.port, wire_spec.build_request(
+            wire_spec.CMD_INFER, wire_spec.encode_arrays([ids])))
+        if status != wire_spec.STATUS_OK:
+            fail(f"BERT w8: a request answered status {status}")
+        served.append(wire_spec.decode_arrays(payload))
+    fired = sum(x["batches"] for xs in bengine.stats()["buckets"].values() for x in xs) - b0
+    bk1, bwq = fa.launches, qmm.launches
+    bserver.stop()
+    # the same requests through the same quantized BERT on the card with
+    # the kernel's plain version in its place: the kernel held at BERT's
+    # shapes (M = rows x seq, K x N of 768 x 768, 768 x 3072, 3072 x 768)
+    # within TOL_WQ of the output's max, and the quantization's own error
+    # against the f32 replies, beside the kernel path's
+    post_training.wq_matmul = qmm.wq_matmul_reference
+    try:
+        plain = [[o.cpu().numpy() for o in run(ids)] for ids, _ in replies]
+    finally:
+        post_training.wq_matmul = qmm.wq_matmul
+    if qmm.launches != bwq:
+        fail("BERT w8: the plain run launched wq_matmul")
+
+    def worst_rel(outs, refs):  # per output (sequence, pooled): max over requests
+        return [max(float(np.abs(o[i] - r[i]).max() / np.abs(r[i]).max())
+                    for o, r in zip(outs, refs)) for i in range(2)]
+
+    f32 = [outs for _, outs in replies]
+    worst, plain_worst, kernel_plain = (worst_rel(served, f32), worst_rel(plain, f32),
+                                        worst_rel(served, plain))
+    # the sequence output is held to ACCURACY_BOUNDS["w8"] (the reference's
+    # bound, measured on its one- and two-layer toys); the pooled output, one
+    # more quantized product and a tanh past 12 quantized layers, to the
+    # reference's documented w8 bound for its depth, 2 x depth / 127
+    # (quantization/serving.py's module docstring); the kernel path to the
+    # plain path within TOL_WQ
+    bounds = (quantization.ACCURACY_BOUNDS["w8"], 2 * (bert_layers + 1) / 127)
+    log(f"[quant] BERT-base w8 ({n_int8} Int8Linear, {len(scales)} scale sets) through the "
+        f"batching engine: {len(replies)} of phase 4's requests in {fired} batches; "
+        f"max|d| / max|f32| against phase 4's f32 replies: sequence output {worst[0]:.3e} "
+        f"(bound ACCURACY_BOUNDS['w8'] {bounds[0]}), pooled output {worst[1]:.3e} (bound 2 x "
+        f"{bert_layers + 1} / 127 = {bounds[1]:.3f}); the plain path's (wq_matmul_reference "
+        f"on the card) {plain_worst[0]:.3e} and {plain_worst[1]:.3e}; the kernel path against "
+        f"the plain path {kernel_plain[0]:.3e} and {kernel_plain[1]:.3e} of max (tolerance "
+        f"{TOL_WQ}); wq_matmul {bwq} = {n_int8} x {fired}, K1 {bk1} = {bert_layers} x "
+        f"{fired}; {time.perf_counter() - t:.1f} s")
+    if (worst[0] >= bounds[0] or worst[1] >= bounds[1] or max(kernel_plain) > TOL_WQ
+            or bwq != n_int8 * fired or bk1 != bert_layers * fired):
+        fail("BERT w8: replies beyond the accuracy bounds, the kernel path off its plain "
+             "version, or the kernels' launches do not match the batches")
+    log(f"[quant] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(kernel_cases=kcases, modes=modes, launches=launches + bk1,
+                wq_launches=wq_launches + bwq, bert_wq_launches=bwq, bert_rel=worst,
+                bert_plain_rel=plain_worst, bert_kernel_plain=kernel_plain)
+
+
 # ------------------------------------------------------- the chunk sweep
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
@@ -2934,7 +3369,7 @@ def main():
     card = phase_card(torch)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from paddle_tpu_torch import nn, optimizer
+        from paddle_tpu_torch import nn, optimizer, quantization
         from paddle_tpu_torch.core import cuda_build
         from paddle_tpu_torch.core import random as prandom
         from paddle_tpu_torch import obs
@@ -2945,6 +3380,7 @@ def main():
         from paddle_tpu_torch.inference.decode import DecodeEngine
         from paddle_tpu_torch.inference.server import PredictorServer
         from paddle_tpu_torch.ops import flash_attention as fa
+        from paddle_tpu_torch.ops import quant_matmul as qmm
         from paddle_tpu_torch.resilience import chaos
         from paddle_tpu_torch.text import generation
         from paddle_tpu_torch.text.models import BertForPretraining, BertModel, LlamaModel
@@ -2960,6 +3396,12 @@ def main():
              source=src + "flash_attention_bwd_dq.cu", replaces=tpu + "435"),
         dict(name="flash_attention_bwd_dkv", lib="flash_attention_bwd_dkv", route="cuda",
              source=src + "flash_attention_bwd_dkv.cu", replaces=tpu + "458"),
+        # no TPU kernel: the reference's dequantize (quantize_decode_model's
+        # unpack), which XLA fuses into the product's read of the weights
+        dict(name="wq_matmul", lib="quant_matmul", route="cuda",
+             source=src + "quant_matmul.cu", replaces="paddle_tpu/quantization/serving.py:218",
+             smem=lambda: ", ".join(f"{str(dt)[6:]} weights {qmm.smem_bytes(dt)} bytes"
+                                    for dt in (torch.int8, torch.bfloat16))),
     ]
     t_phase = [time.perf_counter()]
 
@@ -3004,6 +3446,17 @@ def main():
     robust = phase_robust(torch, fa, (generation, DecodeEngine, BatchingEngine, PredictorServer,
                                       wire_spec, chaos, obs), card, eng, serving["model"])
     took("robust")
+    # phase 10's engines are closed; its (phase 7's) bf16 7B goes before the f32 one comes
+    import gc
+
+    eng.pop("model")
+    eng.pop("dm")
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant = phase_quant(torch, fa, qmm, (LlamaModel, generation, DecodeEngine, BatchingEngine,
+                                         PredictorServer, wire_spec, obs, quantization, Graph),
+                        card, eng, serving)
+    took("quant")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -3033,6 +3486,16 @@ def main():
     eng_fill, reuse_fill = (
         next(r for r in chunk_cases if r["dtype"] == "bfloat16" and r["sq"] == c
              and r["sk"] == ENGINE_PROMPT) for c in (ENGINE_CHUNK, REUSE_CHUNK))
+    # K1's float32 forms at head_dim 128, phase 11's f32 engine's step and
+    # fill, with the launches its window made in each
+    f32_step = next(r for r in length_cases if r["dtype"] == "float32"
+                    and r["name"] == "engine_step")
+    f32_fill = next(r for r in chunk_cases if r["dtype"] == "float32" and r["sq"] == ENGINE_CHUNK
+                    and r["sk"] == ENGINE_PROMPT)
+    # wq_matmul: every (form, M, K, N) of phase 11, the w8 step's gate/up
+    # product as the headline
+    wq_main = next(r for r in quant["kernel_cases"] if r["form"] == "w8"
+                   and r["m"] == ENGINE_SLOTS and r["n"] == 11008)
 
     def timing(r, suffix=""):
         # ms: CUDA events over back-to-back calls; device_ms: the kernels'
@@ -3058,7 +3521,7 @@ def main():
              replaces=kernels[0]["replaces"],
              launches=(serving["launches"] + train["counts"]["fwd"] + gen["launches"]
                        + eng["launches"] + reuse["launches"] + spec["launches"]
-                       + robust["launches"]),
+                       + robust["launches"] + quant["launches"]),
              # phase 10's: its 7B windows (faults, retries, telemetry) and
              # its BERT batches
              robust_launches=robust["launches"],
@@ -3078,13 +3541,29 @@ def main():
              **fields(eng_fill, "engine_fill_bf16_", launches=eng["fill_launches"],
                       same_bits_wider=eng_fill["same_bits_wider"]),
              **fields(reuse_fill, "reuse_fill_bf16_", launches=reuse["fill_launches"],
-                      same_bits_wider=reuse_fill["same_bits_wider"])),
+                      same_bits_wider=reuse_fill["same_bits_wider"]),
+             # phase 11: its quantized windows, the f32 engine's, BERT w8
+             quant_launches=quant["launches"],
+             **fields(f32_step, "engine_step_f32_", launches=quant["modes"]["f32"]["k1_step"],
+                      same_bits_wider=f32_step["same_bits_wider"],
+                      same_bits_other_lengths=f32_step["same_bits_other_lengths"]),
+             **fields(f32_fill, "engine_fill_f32_", launches=quant["modes"]["f32"]["k1_fill"],
+                      same_bits_wider=f32_fill["same_bits_wider"])),
         dict(name=kernels[1]["name"], route="cuda", source=kernels[1]["source"],
              replaces=kernels[1]["replaces"], launches=train["counts"]["bwd_dq"],
              **bwd(bmain, "dq"), **bwd(bf32, "dq", "f32_")),
         dict(name=kernels[2]["name"], route="cuda", source=kernels[2]["source"],
              replaces=kernels[2]["replaces"], launches=train["counts"]["bwd_dkv"],
              **bwd(bmain, "dkv"), **bwd(bf32, "dkv", "f32_")),
+        dict(name=kernels[3]["name"], route="cuda", source=kernels[3]["source"],
+             replaces=kernels[3]["replaces"], launches=quant["wq_launches"],
+             bert_launches=quant["bert_wq_launches"], max_abs_err=wq_main["max_abs_err"],
+             **timing(wq_main), bound_ms=wq_main["bound_ms"], bound_by=wq_main["bound_by"],
+             **{f"{r['form']}_m{r['m']}_k{r['k']}_n{r['n']}_{k}": r[k]
+                for r in quant["kernel_cases"]
+                for k in ("max_abs_err", "rel_err", "same_bits_m", "ms", "device_ms",
+                          "plain_ms", "plain_device_ms", "library_ms", "library_device_ms",
+                          "bound_ms", "bound_by")}),
     ]
     log(card)
     log(json.dumps({"kernels": line}))

@@ -6,6 +6,12 @@ layouts are the same in both packages) and copies it into ``module``'s
 parameters. It is a checked copy: a missing or unexpected name, a shape
 or a dtype that differs raises, and nothing is copied.
 
+Buffers travel too: a name in ``state`` that is one of ``module``'s
+buffers (an ``Int8Linear``'s int8 ``qweight``, its ``w_scale`` and
+``act_scale``) is copied into it under the same checks. Arrays keep their
+dtypes: int8, float32 and bfloat16 (ml_dtypes' numpy bfloat16, which torch
+cannot read directly, travels as its raw 16-bit words).
+
 A tied parameter (one Parameter reachable under several names, as
 ``BertForPretraining``'s decoder weight is the word embedding) is listed
 once by ``named_parameters()``, under its first name, in both packages,
@@ -29,11 +35,29 @@ def _aliases(module):
     return out
 
 
+def _numpy_dtype_name(dt):
+    """numpy's name of the torch dtype ``dt`` ("bfloat16" for bf16, which
+    torch cannot hand to numpy)."""
+    if dt == torch.bfloat16:
+        return "bfloat16"
+    return torch.empty((), dtype=dt).numpy().dtype.name
+
+
+def _to_tensor(arr):
+    """A writable torch copy of ``arr``; a bfloat16 array through its raw
+    16-bit words."""
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def load_numpy_state(module, state):
     params = dict(module.named_parameters())
+    buffers = {n: b for n, b in module.named_buffers() if n in state}
     aliases = _aliases(module)
     missing = sorted(set(params) - set(state))
-    unexpected = sorted(set(state) - set(params) - set(aliases))
+    unexpected = sorted(set(state) - set(params) - set(buffers) - set(aliases))
     if missing or unexpected:
         raise KeyError(f"parameter names differ: missing {missing}, "
                        f"unexpected {unexpected}")
@@ -41,16 +65,17 @@ def load_numpy_state(module, state):
         if alias in state and not np.array_equal(state[alias], state[name]):
             raise ValueError(f"{alias} is tied to {name} but the state gives it "
                              "another value")
-    for name, p in params.items():
+    targets = {**params, **buffers}
+    for name, p in targets.items():
         arr = state[name]
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {tuple(arr.shape)} does not match "
                              f"the parameter's {tuple(p.shape)}")
-        want = torch.empty((), dtype=p.dtype).numpy().dtype
-        if np.dtype(arr.dtype) != want:
+        want = _numpy_dtype_name(p.dtype)
+        if np.dtype(arr.dtype).name != want:
             raise TypeError(f"{name}: dtype {arr.dtype} does not match the "
                             f"parameter's {want}")
     with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(torch.from_numpy(np.array(state[name])))  # a writable copy
+        for name, p in targets.items():
+            p.copy_(_to_tensor(state[name]))
     return module

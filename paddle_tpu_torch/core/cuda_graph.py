@@ -11,27 +11,30 @@ work: the kernels' libraries are built and loaded, and K1 opts into its
 shared memory, all host calls that a capture must not see), then captures
 it. A capture that fails raises; nothing falls back to the eager run.
 
-The kernels' launch counters (``ops/flash_attention.py``) are Python
-integers, which a replay never reaches: each ``Graph`` takes back the
-counts its capture's Python made (nothing ran), and credits them again at
-every replay, so a count stays the number of kernels that ran.
+The kernels' launch counters (``ops/flash_attention.py``,
+``ops/quant_matmul.py``) are Python integers, which a replay never
+reaches: each ``Graph`` takes back the counts its capture's Python made
+(nothing ran), and credits them again at every replay, so a count stays
+the number of kernels that ran.
 """
 import time
 
 import torch
 
-from ..ops import flash_attention
+from ..ops import flash_attention, quant_matmul
 
-_COUNTERS = ("launches", "dq_launches", "dkv_launches")
+# (module, counter): K1, K2, K3, wq_matmul
+_COUNTERS = ((flash_attention, "launches"), (flash_attention, "dq_launches"),
+             (flash_attention, "dkv_launches"), (quant_matmul, "launches"))
 
 
 def _counts():
-    return tuple(getattr(flash_attention, name) for name in _COUNTERS)
+    return tuple(getattr(mod, name) for mod, name in _COUNTERS)
 
 
 def _credit(counts):
-    for name, n in zip(_COUNTERS, counts):
-        setattr(flash_attention, name, getattr(flash_attention, name) + n)
+    for (mod, name), n in zip(_COUNTERS, counts):
+        setattr(mod, name, getattr(mod, name) + n)
 
 
 class Graph:
@@ -41,7 +44,7 @@ class Graph:
     returns what the captured call returned, in the same tensors every
     time. ``pool``: a ``torch.cuda.graph_pool_handle()`` to share with
     other graphs that never replay concurrently, or None for a pool of its
-    own. ``launches``: the (K1, K2, K3) launches one replay makes;
+    own. ``launches``: the (K1, K2, K3, wq_matmul) launches one replay makes;
     ``capture_ms``: host time of the capture and its instantiation."""
 
     def __init__(self, fn, device, pool=None):

@@ -34,8 +34,13 @@ until ``close``; ``infer(trace_id=...)`` records the ``serving.request``,
 ``serving.submit``, ``serving.scheduler.loop``, ``serving.execute`` and
 ``serving.execute.bucket{n}``.
 
+The ``quant`` label (compiles, ``stats``) is "f32": the reference reads
+the served layer's ``_quant_mode``, which only ``jit.save(quant=)`` sets,
+so a layer quantized in place (``quantization.quantize_weights``) serves
+as "f32" there too.
+
 Not ported (ROADMAP Queue 1): cold-compile threads, the artifact store,
-quantized and meshed serving. The port's runner compiles nothing: the
+meshed serving. The port's runner compiles nothing: the
 first batch of a bucket (or its warmup) is counted as its one ``inline``
 compile, as it builds the kernel and grows the allocator.
 """
@@ -741,6 +746,7 @@ class BatchingEngine:
             states = [br.state for br in self._breakers.values()]
             return {
                 "name": self.name,
+                "quant": "f32",
                 "max_batch_size": self.max_batch_size,
                 "max_wait_ms": round(self.max_wait_s * 1000.0, 3),
                 "max_queue": self.max_queue,

@@ -202,11 +202,23 @@ stamped at emit. A traced request
 (``trace_id``, wire 0x1D) gets one ``serving.decode.token`` span per
 token and a ``serving.decode.request`` span under its id.
 
+**Quantized serving** (the reference's, decode.py :1061-1095):
+``DecodeEngine(quant="w8" | "bf16w")`` serves an f32 model through
+``quantization.quantize_decode_model``; a model that
+already carries a mode must match, and a draft without a mode of its own
+follows the target's. The mode is the ``quant`` const label, the
+``stats()["quant"]`` and the snapshot header's ``quant``; it changes the
+model's fingerprint and its weights digest (taken over the reduced
+params). Llama's programs run every product through the dequantizing
+kernel (ops/quant_matmul.py), one M per program as before, so solo =
+batch and hit = cold hold per mode.
+
 Not ported (ROADMAP Queue 1): the artifact store and the persistent
-prefix tier (``prefix_dir``), quantized and meshed serving, and phases
-(the reference's engine decodes greedily, as this one does). Constructor
-options of those raise ``NotImplementedError``. The port reads no
-environment: ``spec_k``, ``breaker_threshold``, ``breaker_cooldown``,
+prefix tier (``prefix_dir``), meshed serving, and phases (the reference's
+engine decodes greedily, as this one does). Constructor options of those
+raise ``NotImplementedError``. The port reads no environment: ``quant``
+defaults to f32 (the reference's ``PADDLE_TPU_SERVING_QUANT`` is not
+read), and ``spec_k``, ``breaker_threshold``, ``breaker_cooldown``,
 ``watchdog_interval`` and ``wedge_timeout`` default to 0 (off), 3, 5.0 s,
 0.5 s and 30.0 s, the reference's environment defaults.
 """
@@ -242,13 +254,13 @@ _RETIRE_REASONS = ("eos", "max_tokens", "max_seq_len", "deadline", "error", "can
 # options of the reference's engine that are not ported, and the values
 # that ask for nothing (the reference's "off")
 _UNPORTED = {
-    "store": (None,), "quant": (None, "f32"), "mesh": (None, "single"),
-    "phase": (None, "both"), "prefix_dir": (None,),
+    "store": (None,), "mesh": (None, "single"), "phase": (None, "both"),
+    "prefix_dir": (None,),
 }
 
-# the identity a snapshot header carries besides the fingerprint and the
-# weights digest: the port serves neither quantized nor meshed
-_QUANT, _MESH = "f32", "single"
+# the mesh a snapshot header carries besides the fingerprint, the weights
+# digest and the quant mode: the port serves on one card
+_MESH = "single"
 
 
 class _Superseded(BaseException):
@@ -317,11 +329,13 @@ class DecodeModel:
     optional companion DecodeModel for speculative decoding, over the
     same vocab and feature_spec (its kv_spec, kv_seq_axis and depth may
     differ), with its own ``fill_fn``/``step_fn`` on the same device;
-    greedy output stays bitwise that of decoding without it."""
+    greedy output stays bitwise that of decoding without it. ``quant``:
+    the serving quantization mode the params and functions were built
+    under (``quantization.quantize_decode_model`` sets it; None = f32)."""
 
     def __init__(self, params, fill_fn, step_fn, kv_spec, vocab_size, feature_spec=(),
                  eos_token_id=None, kv_seq_axis=1, device="cuda", max_slots=None,
-                 max_seq_len=None, draft=None):
+                 max_seq_len=None, draft=None, quant=None):
         self.params = params
         self.fill_fn = fill_fn
         self.step_fn = step_fn
@@ -336,6 +350,7 @@ class DecodeModel:
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.draft = draft
+        self.quant = quant
         self._digest = None  # (weights digest, ms), computed once
         self._digest_lock = threading.Lock()
 
@@ -343,7 +358,9 @@ class DecodeModel:
         """-> (hex digest, ms it took): the reference's recipe
         (``_Programs._weights_digest``), sha256 over every param's dtype
         string, shape string and bytes, in param order (bf16 as its raw
-        2-byte words), so equal weights give the JAX engine's digest.
+        2-byte words), so equal weights give the JAX engine's digest; a
+        quantized model's over its reduced params in the reference's
+        flat order.
         Computed once per model: a 7B model copies its 13.5 GB to the host
         for it, which is why an engine's ``warmup`` takes it."""
         with self._digest_lock:
@@ -364,7 +381,8 @@ class DecodeModel:
         """The model's program identity for snapshot headers: sha256 of a
         canonical description (the params' class and the functions'
         names, kv_spec, feature_spec, vocab, kv_seq_axis, the param names,
-        shapes and dtypes, and the engine's chunk ``page_len``). The
+        shapes and dtypes, the quant mode, and the engine's chunk
+        ``page_len``). The
         reference hashes its step program's exported module instead; the
         port has no such module, and two engines of one description run
         the same torch code, so this names the same thing. Weight values
@@ -380,6 +398,8 @@ class DecodeModel:
                        for n, p in _named_params(self.params)],
             "page_len": int(page_len),
         }
+        if self.quant is not None:
+            desc["quant"] = self.quant
         return hashlib.sha256(json.dumps(desc, sort_keys=True).encode()).hexdigest()
 
 
@@ -924,14 +944,17 @@ class DecodeEngine:
     ``watchdog_interval``/``wedge_timeout``: the scheduler's watchdog
     (0.5 s and 30.0 s by default; an interval of 0 turns it off). ``name``
     is the ``engine`` label of its metrics: engines alive together in one
-    process need names of their own."""
+    process need names of their own. ``quant``: serve an f32 model under a
+    quantization mode, "w8" or "bf16w" ("f32" or None: as it is, the
+    default); a model that already carries a mode must be asked for that
+    mode."""
 
     def __init__(self, model, max_slots=None, max_seq_len=None, max_queue=64,
                  min_seq_bucket=8, max_prompt_len=None, default_max_new_tokens=64,
                  name="decode", device="cuda", cuda_graph=True, prefix=True,
                  prefix_max_bytes=None, spec_k=None, breaker_threshold=None,
                  breaker_cooldown=None, watchdog_interval=None, wedge_timeout=None,
-                 **unported):
+                 quant=None, **unported):
         for key, val in unported.items():
             if key not in _UNPORTED:
                 raise TypeError(f"DecodeEngine got an unexpected keyword argument {key!r}")
@@ -942,7 +965,23 @@ class DecodeEngine:
         if _indexed(model.device) != self.device:
             raise ValueError(f"the model's params live on {model.device}, the engine runs "
                              f"on {self.device}")
+        # the reference's order: take the draft before the target is
+        # wrapped (a quantized model is a new DecodeModel without it); the
+        # draft follows the target's mode unless it carries its own
         draft = getattr(model, "draft", None)
+        model_quant = getattr(model, "quant", None)
+        if quant is not None and quant != (model_quant or "f32"):
+            if model_quant is not None:
+                raise ValueError(f"model is quantized as {model_quant!r} but the engine was "
+                                 f"asked to serve {quant!r}")
+            if quant != "f32":
+                from ..quantization.serving import quantize_decode_model
+
+                model = quantize_decode_model(model, quant)
+                if draft is not None and getattr(draft, "quant", None) is None:
+                    draft = quantize_decode_model(draft, quant)
+                model.draft = draft
+        self.quant = getattr(model, "quant", None) or "f32"
         if draft is not None:
             if draft.vocab_size != model.vocab_size:
                 raise ValueError(f"draft vocab {draft.vocab_size} != target vocab "
@@ -1060,7 +1099,7 @@ class DecodeEngine:
         through a collector in the process registry until ``close``.
         ``stats`` reads them under the engine lock."""
         cl = {"engine": self.name}
-        ident = {**cl, "quant": _QUANT, "mesh": _MESH}
+        ident = {**cl, "quant": self.quant, "mesh": _MESH}
         M = obs_metrics
         lat = M.log_buckets(0.0001, 4.0, 10)
         self._m_requests = M.Counter("paddle_decode_requests_total",
@@ -1249,7 +1288,7 @@ class DecodeEngine:
         t0 = time.perf_counter()
         fp, wd = self._identity()
         header = {
-            "fingerprint": fp, "weights": wd, "quant": _QUANT, "mesh": _MESH,
+            "fingerprint": fp, "weights": wd, "quant": self.quant, "mesh": _MESH,
             "pos": int(pos), "last_token": int(last_token), "n_generated": int(n_generated),
             "prompt_len": int(req.prompt.size), "max_new_tokens": int(req.max_new_tokens),
             "eos_token_id": req.eos_token_id, "n_kv": len(self._model.kv_spec),
@@ -1301,8 +1340,8 @@ class DecodeEngine:
         if header["weights"] != wd:
             self._refuse("weights digest mismatch: same architecture, different parameter "
                          "values; a foreign KV cache would decode garbage")
-        if header["quant"] != _QUANT:
-            self._refuse(f"quant mode {header['quant']!r} != {_QUANT!r}")
+        if header["quant"] != self.quant:
+            self._refuse(f"quant mode {header['quant']!r} != {self.quant!r}")
         if header["mesh"] != _MESH:
             self._refuse(f"mesh {header['mesh']!r} != {_MESH!r}")
         if n_kv != len(m.kv_spec):
@@ -2320,6 +2359,7 @@ class DecodeEngine:
                 programs["%s%dx%d" % key] = entry
             return {
                 "name": self.name,
+                "quant": self.quant,
                 "device": str(self.device),
                 "max_slots": self.max_slots,
                 "max_seq_len": self.max_seq_len,

@@ -61,7 +61,12 @@ class MultiHeadAttention(torch.nn.Module):
     def forward(self, query, key=None, value=None, attn_mask=None):
         key = query if key is None else key
         value = key if value is None else value
-        if key is query and value is key:
+        # fused only over plain Linears: a quantized projection (an
+        # Int8Linear of quantization.quantize_weights) has no f32 weight
+        # to concatenate and runs its own product (the reference's fused
+        # path reads .weight and fails there)
+        if key is query and value is key and all(
+                type(p) is Linear for p in (self.q_proj, self.k_proj, self.v_proj)):
             q, k, v = self._fused_qkv(query)
         else:
             q, k, v = self.q_proj(query), self.k_proj(key), self.v_proj(value)

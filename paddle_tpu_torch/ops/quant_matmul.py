@@ -1,0 +1,157 @@
+"""Weight-only dequantizing matrix product: a hand-written CUDA kernel for
+Hopper, ``csrc/quant_matmul.cu``.
+
+``wq_matmul(x, w, scale)`` computes ``x @ (w -> f32 * scale)`` in f32 for
+the two weight forms of quantized serving (quantization/serving.py):
+
+- w8: ``w`` int8 ``[K, N]`` with a per-output-column f32 ``scale [N]``;
+- bf16w: ``w`` bf16 ``[K, N]``, no scale.
+
+The reference dequantizes and multiplies in plain jnp
+(paddle_tpu/quantization/serving.py ``quantize_decode_model``'s
+``unpack``, :213-222; post_training.py ``Int8Linear.forward``, :48-52),
+and XLA fuses the dequantize into the product's read of the weights. The
+kernel is the port's counterpart of that fusion: it reads the reduced
+weights once and never writes an f32 copy of them. ``wq_matmul_reference``
+is its plain version (dequantize, then ``torch.matmul``): CPU tensors take
+it; CUDA tensors launch the kernel or raise, never a fallback. The kernel
+sums every output in an order fixed by K alone, so a row's bits do not
+depend on how many rows a call has (the decode engine's solo = batch).
+
+``QuantWeight`` holds one reduced weight, and ``wmatmul(x, w)`` is the one
+product the port's decoder maths goes through: a ``QuantWeight`` goes to
+``wq_matmul``, a plain tensor to ``torch.matmul``. The library is built at
+first use (core/cuda_build.py), never at import.
+"""
+import ctypes
+
+import torch
+
+from ..core import cuda_build
+
+#: launches of the kernel in this process; reset it to count a run. A CUDA
+#: graph's replay credits the launches its capture recorded
+#: (core/cuda_graph.py)
+launches = 0
+
+_WDTYPE = {torch.int8: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load("quant_matmul")
+        lib.quant_matmul.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                                     + [ctypes.c_void_p])
+        lib.quant_matmul.restype = ctypes.c_int
+        lib.quant_matmul_error_string.argtypes = [ctypes.c_int]
+        lib.quant_matmul_error_string.restype = ctypes.c_char_p
+        lib.quant_matmul_smem_bytes.argtypes = [ctypes.c_int]
+        lib.quant_matmul_smem_bytes.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def smem_bytes(dtype):
+    """Dynamic shared memory one block takes for weights of ``dtype``."""
+    return _library().quant_matmul_smem_bytes(_WDTYPE[dtype])
+
+
+def dequantize(w, scale=None):
+    """``w`` as f32, times ``scale`` per output column (the last axis)
+    where given: the reference's ``q.astype(f32) * s``, one IEEE product
+    per element."""
+    wf = w.float()
+    return wf if scale is None else wf * scale
+
+
+def wq_matmul_reference(x, w, scale=None):
+    """Plain PyTorch version of the kernel: dequantize, then
+    ``torch.matmul`` in f32."""
+    return torch.matmul(x.float(), dequantize(w, scale))
+
+
+def _check(x, w, scale):
+    if w.dim() != 2 or w.dtype not in _WDTYPE:
+        raise TypeError(f"wq_matmul takes a 2-d int8 or bfloat16 weight, got "
+                        f"{w.dtype} {tuple(w.shape)}")
+    if (scale is None) != (w.dtype == torch.bfloat16):
+        raise ValueError("wq_matmul: an int8 weight needs its scale, a bfloat16 one takes none")
+    if x.dtype != torch.float32 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"wq_matmul: x {x.dtype} {tuple(x.shape)} does not take a "
+                         f"[{w.shape[0]}, {w.shape[1]}] weight (float32 x, last axis K)")
+    if scale is not None and (scale.dtype != torch.float32 or tuple(scale.shape) != (w.shape[1],)):
+        raise ValueError(f"wq_matmul: scale {scale.dtype} {tuple(scale.shape)} is not "
+                         f"float32 [{w.shape[1]}]")
+    tensors = (x, w) if scale is None else (x, w, scale)
+    if not all(t.is_cuda for t in tensors) or any(t.device != x.device for t in tensors):
+        raise ValueError("wq_matmul: x, w and scale must lie on one card")
+    k, n = w.shape
+    if k % 4 or n % (16 if w.dtype == torch.int8 else 8):
+        raise ValueError(f"wq_matmul kernel takes K % 4 == 0 and N % 16 (int8) or N % 8 "
+                         f"(bfloat16) == 0, got K {k}, N {n}")
+
+
+def wq_matmul(x, w, scale=None):
+    """x [..., K] float32 @ (w [K, N] -> float32, times ``scale [N]`` for
+    int8) -> [..., N] float32. CUDA tensors launch the kernel; CPU tensors
+    run ``wq_matmul_reference``."""
+    global launches
+    if not x.is_cuda:
+        return wq_matmul_reference(x, w, scale)
+    _check(x, w, scale)
+    k, n = w.shape
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k).contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    w = w.contiguous()
+    if scale is not None:
+        scale = scale.contiguous()
+    out = torch.empty((x2.shape[0], n), dtype=torch.float32, device=x.device)
+    if x2.shape[0] == 0:
+        return out.reshape(*lead, n)
+    lib = _library()
+    err = lib.quant_matmul(x2.data_ptr(), w.data_ptr(),
+                           None if scale is None else scale.data_ptr(), out.data_ptr(),
+                           x2.shape[0], n, k, _WDTYPE[w.dtype],
+                           torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        msg = lib.quant_matmul_error_string(err).decode()
+        raise RuntimeError(f"quant_matmul launch failed: {msg} (cudaError {err})")
+    launches += 1
+    return out.reshape(*lead, n)
+
+
+class QuantWeight:
+    """One reduced-precision ``[K, N]`` weight of quantized serving: int8
+    ``data`` with its f32 per-column ``scale`` (w8), or bf16 ``data`` and
+    no scale (bf16w). ``matmul(x)`` is ``wq_matmul``; ``rows(idx)``
+    dequantizes only the rows ``idx`` (an embedding's gather: the same bits
+    as dequantize-then-gather); ``tensors(name)`` gives its (name, tensor)
+    pairs in the reference's flat order (data, then scale)."""
+
+    def __init__(self, data, scale=None):
+        self.data = data
+        self.scale = scale
+
+    def matmul(self, x):
+        return wq_matmul(x, self.data, self.scale)
+
+    def rows(self, idx):
+        return dequantize(self.data[idx], self.scale)
+
+    def tensors(self, name):
+        if self.scale is None:
+            return [(name, self.data)]
+        return [(name, self.data), (name + ".scale", self.scale)]
+
+
+def wmatmul(x, w):
+    """``x @ w`` for a weight of any serving mode: a ``QuantWeight`` goes
+    to ``wq_matmul`` (the kernel on the card), a plain tensor to
+    ``torch.matmul``."""
+    if isinstance(w, QuantWeight):
+        return w.matmul(x)
+    return torch.matmul(x, w)

@@ -41,8 +41,12 @@ per-model cache is matched in its tokens, not in its mechanism.
 collected weights on purpose, as the reference's cached loop does beside
 its ``LlamaDecoderLayer``, and both cached paths (``_CachedLlama`` and
 the engine's model) run it: a rounding change in ``text/models.py`` must
-be made there too (the parity tests hold them against each other).
+be made there too (the parity tests hold them against each other). Every
+product goes through ``wmatmul`` (ops/quant_matmul.py): a quantized
+serving weight to the hand-written dequantizing kernel on the card, a
+plain one to ``torch.matmul``.
 """
+import copy
 import math
 
 import numpy as np
@@ -54,6 +58,8 @@ from ..core.cuda_graph import Graph
 from ..nn import LayerList
 from ..nn import functional as F
 from ..ops import flash_attention
+from ..ops.quant_matmul import QuantWeight, wmatmul
+from ..quantization.post_training import _quantize_array
 from .models import LlamaModel, _repeat_kv, _rope_tables, _rotate, rms_norm
 
 _F32_MIN = torch.finfo(torch.float32).min
@@ -192,7 +198,13 @@ class _LlamaWeights:
     ``attend(layer, q, k, v)`` (q [B, heads, T, D], k/v [B, kv_heads, T,
     D], rotated); ``logits`` applies the final norm and the head. The cached
     generate and the decode engine's model share it, so both round where
-    ``rms_norm`` and ``_rotate`` round."""
+    ``rms_norm`` and ``_rotate`` round.
+
+    ``dtype`` is the compute dtype (the model's parameters'), which the
+    activations and a KV cache take. ``quantized(mode)`` gives the same
+    maths over the weights in a quantized serving mode: every product goes
+    through ``wmatmul`` and the embedding through ``embed``, so a
+    quantized matrix is read where it lies and never copied to f32."""
 
     def __init__(self, model):
         attn = model.layers[0].self_attn
@@ -200,21 +212,65 @@ class _LlamaWeights:
         self.params = _collect_llama_params(model)
         self.nh, self.nkv, self.hd = attn.num_heads, attn.num_kv_heads, attn.head_dim
         self.scale = 1.0 / math.sqrt(self.hd)
+        self.dtype = self.params["embed"].dtype
+        self.device = self.params["embed"].device
+
+    def quantized(self, quant):
+        """These weights in serving mode ``quant`` ("w8" or "bf16w"), as
+        quantization/serving.py's ``quantize_decode_model`` converts a flat
+        param list: w8 makes every float32 matrix a ``QuantWeight`` of int8
+        and per-output-column scales (quantized on the weights' device),
+        bf16w casts every float32 parameter to bf16 (matrices as
+        ``QuantWeight``s; a bf16 norm weight is upcast by type promotion
+        in ``rms_norm``'s product, exactly); everything else stays. The
+        computation stays float32. ``named_tensors`` then lists the
+        reduced tensors in the model's parameter order, a w8 matrix as its
+        int8 weight and its scale: the reference's flat order."""
+        out = copy.copy(self)
+        conv = {}
+        named = []
+        for name, param in self._named:
+            p = param.detach()
+            if p.dtype != torch.float32:
+                entry = p
+            elif quant == "bf16w":
+                entry = p.to(torch.bfloat16)
+                if entry.dim() >= 2:
+                    entry = QuantWeight(entry)
+            elif p.dim() >= 2:
+                entry = QuantWeight(*_quantize_array(p, channel_axis=p.dim() - 1))
+            else:
+                entry = p
+            conv[id(param)] = entry
+            named += entry.tensors(name) if isinstance(entry, QuantWeight) else [(name, entry)]
+        out._named = named
+        out.params = {k: conv[id(v)] for k, v in self.params.items() if k != "layers"}
+        out.params["layers"] = [{k: conv[id(v)] for k, v in lp.items()}
+                                for lp in self.params["layers"]]
+        return out
+
+    def embed(self, tokens):
+        """The embedding rows of ``tokens`` in the compute dtype; a
+        quantized table dequantizes only the rows it gathers."""
+        emb = self.params["embed"]
+        if isinstance(emb, QuantWeight):
+            return emb.rows(tokens)
+        return emb[tokens]
 
     def layers(self, x, cos, sin, attend):
         b, t, _ = x.shape
         nh, nkv, hd = self.nh, self.nkv, self.hd
         for li, lp in enumerate(self.params["layers"]):
             h = rms_norm(x, lp["ln1"])
-            q = torch.matmul(h, lp["wq"]).reshape(b, t, nh, hd).transpose(1, 2)
-            k = torch.matmul(h, lp["wk"]).reshape(b, t, nkv, hd).transpose(1, 2)
-            v = torch.matmul(h, lp["wv"]).reshape(b, t, nkv, hd).transpose(1, 2)
+            q = wmatmul(h, lp["wq"]).reshape(b, t, nh, hd).transpose(1, 2)
+            k = wmatmul(h, lp["wk"]).reshape(b, t, nkv, hd).transpose(1, 2)
+            v = wmatmul(h, lp["wv"]).reshape(b, t, nkv, hd).transpose(1, 2)
             q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
             out = attend(li, q, k, v)
-            x = x + torch.matmul(out.transpose(1, 2).reshape(b, t, nh * hd), lp["wo"])
+            x = x + wmatmul(out.transpose(1, 2).reshape(b, t, nh * hd), lp["wo"])
             h2 = rms_norm(x, lp["ln2"])
-            x = x + torch.matmul(F.silu(torch.matmul(h2, lp["gate"]))
-                                 * torch.matmul(h2, lp["up"]), lp["down"])
+            x = x + wmatmul(F.silu(wmatmul(h2, lp["gate"])) * wmatmul(h2, lp["up"]),
+                            lp["down"])
         return x
 
     def named_tensors(self):
@@ -223,7 +279,7 @@ class _LlamaWeights:
         return list(self._named)
 
     def logits(self, x):
-        return torch.matmul(rms_norm(x, self.params["norm"]), self.params["head"])
+        return wmatmul(rms_norm(x, self.params["norm"]), self.params["head"])
 
     def attention(self, q, k, v, k_len=None):
         """K1 (causal, bottom-right) of q over k/v, GQA heads repeated."""
@@ -245,12 +301,11 @@ class _CachedLlama(_LlamaWeights):
 
     def __init__(self, model, batch, t0, max_new_tokens, sampling=None, seed=0):
         super().__init__(model)
-        emb = self.params["embed"]
-        dev = emb.device
-        # the cache dtype follows the params (bf16 weights -> bf16 cache)
+        dev = self.device
+        # the cache dtype is the compute dtype (bf16 weights -> bf16 cache)
         shape = (len(self.params["layers"]), batch, self.nkv, t0 + max_new_tokens, self.hd)
-        self.k = torch.zeros(shape, dtype=emb.dtype, device=dev)
-        self.v = torch.zeros(shape, dtype=emb.dtype, device=dev)
+        self.k = torch.zeros(shape, dtype=self.dtype, device=dev)
+        self.v = torch.zeros(shape, dtype=self.dtype, device=dev)
         self.sampling = dict(sampling or {})
         self.tokens = torch.zeros((batch, max(max_new_tokens, 1)), dtype=torch.int64,
                                   device=dev)
@@ -265,7 +320,7 @@ class _CachedLlama(_LlamaWeights):
         start..start+t-1 through every layer, their K/V rows written into
         the cache, K1 causal over its first start + t rows."""
         n_valid = start + token_ids.shape[1]
-        x = self.params["embed"][token_ids.long()]
+        x = self.embed(token_ids.long())
         positions = torch.arange(start, n_valid, device=x.device)
         cos, sin = _rope_tables(self.hd, positions, x.dtype)
 
@@ -296,7 +351,7 @@ class _CachedLlama(_LlamaWeights):
         ``key, sub = split(key)`` (the reference's :295), goes to
         ``tokens[:, index]``; then pos, k_len and index advance. Builds
         no tensor from host data."""
-        x = self.params["embed"][self.tok][:, None]
+        x = self.embed(self.tok)[:, None]
         cos, sin = _rope_tables(self.hd, self.pos, x.dtype)
 
         def attend(li, q, k, v):
@@ -355,6 +410,21 @@ def llama_generate(model, input_ids, max_new_tokens=32, do_sample=False,
     return np.concatenate([ids, new], axis=1)
 
 
+def llama_prompt_logits(decode_model, prompt):
+    """float32 logits [vocab] after ``prompt`` under the weights of a
+    ``llama_decode_model`` in any serving mode: one causal forward over the
+    prompt through its decoder maths (K1 causal over the prompt's own K and
+    V), the last row's logits. What the engine's finishing step computes
+    for the prompt, up to the products' summation order."""
+    w = decode_model.params
+    ids = torch.as_tensor(np.asarray(prompt), device=w.device).long().reshape(1, -1)
+    with torch.inference_mode():
+        x = w.embed(ids)
+        cos, sin = _rope_tables(w.hd, torch.arange(ids.shape[1], device=w.device), x.dtype)
+        h = w.layers(x, cos, sin, lambda li, q, k, v: w.attention(q, k, v))
+        return w.logits(h[:, -1])[0].float()
+
+
 def llama_layer_skip(model, num_layers):
     """A ``LlamaModel`` whose decoder layers are ``model``'s first
     ``num_layers``, with ``model``'s embedding, final norm and head: every
@@ -399,13 +469,12 @@ def llama_decode_model(model, max_slots, max_seq_len, draft=None):
     from ..inference.decode import DecodeModel
 
     w = _LlamaWeights(model)
-    emb = w.params["embed"]
     n_layers = len(w.params["layers"])
-    rows = torch.arange(max_slots, device=emb.device)
+    rows = torch.arange(max_slots, device=w.device)
 
     def fill_fn(weights, tokens, start, *staging):
         end = start + tokens.shape[1]
-        x = weights.params["embed"][tokens]
+        x = weights.embed(tokens)
         cos, sin = _rope_tables(weights.hd, torch.arange(start, end, device=x.device),
                                 x.dtype)
 
@@ -418,7 +487,7 @@ def llama_decode_model(model, max_slots, max_seq_len, draft=None):
         weights.layers(x, cos, sin, attend)
 
     def step_fn(weights, tokens, positions, *pools):
-        x = weights.params["embed"][tokens][:, None]
+        x = weights.embed(tokens)[:, None]
         cos, sin = _rope_tables(weights.hd, positions[:, None], x.dtype)
         at = positions.long()
         k_len = positions + 1
@@ -431,7 +500,7 @@ def llama_decode_model(model, max_slots, max_seq_len, draft=None):
 
         return weights.logits(weights.layers(x, cos, sin, attend)[:, 0])
 
-    kv_spec = [((w.nkv, w.hd), emb.dtype)] * (2 * n_layers)
-    return DecodeModel(w, fill_fn, step_fn, kv_spec, vocab_size=emb.shape[0],
-                       kv_seq_axis=2, device=emb.device, max_slots=max_slots,
+    kv_spec = [((w.nkv, w.hd), w.dtype)] * (2 * n_layers)
+    return DecodeModel(w, fill_fn, step_fn, kv_spec, vocab_size=w.params["embed"].shape[0],
+                       kv_seq_axis=2, device=w.device, max_slots=max_slots,
                        max_seq_len=max_seq_len, draft=draft)

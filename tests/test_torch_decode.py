@@ -349,7 +349,7 @@ def test_validation(model):
     assert out.tolist() == solo(model, PROMPTS[0], 4).tolist()
 
 
-@pytest.mark.parametrize("option", [dict(quant="w8"), dict(mesh="tp2"),
+@pytest.mark.parametrize("option", [dict(mesh="fsdp2xtp2"), dict(mesh="tp2"),
                                     dict(prefix_dir="somewhere"), dict(phase="prefill"),
                                     dict(store="somewhere")])
 def test_unported_engine_options_raise(model, option):

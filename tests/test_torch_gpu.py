@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: flash_attention_fwd (K1) against
 ``mha_reference``, flash_attention_bwd_dq/_dkv (K2/K3) against
-``mha_bwd_reference``, their refusals, the BERT forward, a training step
-and Llama's cached decode through them, and the decode paths captured as
-CUDA graphs against their eager runs. Needs a CUDA card (marker ``gpu``; skipped without one).
+``mha_bwd_reference``, wq_matmul (quantized serving's dequantizing
+product) against ``wq_matmul_reference``, their refusals, the BERT
+forward, a training step and Llama's cached decode through them, the
+decode paths captured as CUDA graphs against their eager runs, and a
+quantized Llama engine's solo = batch. Needs a CUDA card (marker ``gpu``; skipped without one).
 This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -483,7 +485,7 @@ def test_replay_credits_the_captured_launches(cuda):
     before = fa.launches
     graph = Graph(fn, q.device)
     assert fa.launches == before + 1  # the warm-up ran; the capture ran nothing
-    assert graph.launches == (1, 0, 0) and graph.capture_ms > 0
+    assert graph.launches == (1, 0, 0, 0) and graph.capture_ms > 0
     assert pool_bytes(graph.pool()) > 0
     out.zero_()
     for _ in range(3):
@@ -732,3 +734,103 @@ def test_fill_timer_reads_device_time(cuda):
                 times.append(start.elapsed_time(end) / 1e3)
     assert timer["count"] == 5
     assert timer["sum"] / timer["count"] >= 0.9 * float(np.median(times)) > 0
+
+
+# ------------------------------------------------ wq_matmul (quantized serving)
+def _wq_operands(m, k, n, form, seed=0):
+    from paddle_tpu_torch.quantization.post_training import _quantize_array
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(k, n, device="cuda", generator=g) * 0.02
+    x = torch.randn(m, k, device="cuda", generator=g)
+    if form == "w8":
+        return (x,) + _quantize_array(w, channel_axis=1)
+    return x, w.to(torch.bfloat16), None
+
+
+@pytest.mark.parametrize("form", ["w8", "bf16w"])
+@pytest.mark.parametrize("m,k,n", [(5, 64, 48), (1, 300, 16), (37, 260, 112),
+                                   (16, 4096, 4096), (128, 4096, 11008), (16, 11008, 4096),
+                                   (16, 4096, 32000)])
+def test_wq_matmul_matches_plain_version(cuda, form, m, k, n):
+    from paddle_tpu_torch.ops import quant_matmul as qmm
+
+    x, w, s = _wq_operands(m, k, n, form)
+    before = qmm.launches
+    out = qmm.wq_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert qmm.launches == before + 1 and out.shape == (m, n) and out.dtype == torch.float32
+    ref = qmm.wq_matmul_reference(x, w, s)
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("form", ["w8", "bf16w"])
+def test_wq_matmul_row_bits_do_not_depend_on_m(cuda, form):
+    """A row's sum order is fixed by K alone: its bits are the same in a
+    1-, 16-, 37- and 128-row call (the decode engine's solo = batch)."""
+    from paddle_tpu_torch.ops import quant_matmul as qmm
+
+    x, w, s = _wq_operands(128, 4096, 1024, form, seed=1)
+    full = qmm.wq_matmul(x, w, s)
+    for m in (1, 16, 37):
+        assert torch.equal(qmm.wq_matmul(x[:m], w, s), full[:m])
+    assert torch.equal(qmm.wq_matmul(x[7:8], w, s)[0], full[7])
+
+
+def test_wq_matmul_refuses_what_it_does_not_take(cuda):
+    from paddle_tpu_torch.ops import quant_matmul as qmm
+
+    x, w, s = _wq_operands(4, 64, 48, "w8")
+    with pytest.raises(ValueError, match="scale"):
+        qmm.wq_matmul(x, w, None)
+    with pytest.raises(TypeError):
+        qmm.wq_matmul(x, w.to(torch.float16), None)
+    with pytest.raises(ValueError, match="N % 16"):
+        qmm.wq_matmul(x, w[:, :40].contiguous(), s[:40].contiguous())
+    with pytest.raises(ValueError, match="card"):
+        qmm.wq_matmul(x, w.cpu(), s.cpu())
+    with pytest.raises(ValueError):
+        qmm.wq_matmul(x.double(), w, s)
+
+
+@pytest.mark.parametrize("mode", ["w8", "bf16w"])
+def test_quantized_llama_engine_on_the_card_batch_equals_solo(cuda, mode):
+    """A small float32 Llama served under ``quant=mode`` on the card, its
+    programs captured: sequences decoded together give their solo tokens,
+    the eager engine's and the CPU engine's of the same mode; every step
+    replay makes 7 wq_matmul launches a layer and one for the head, every
+    fill replay 7 a layer, credited by the replays; no weight is held in
+    float32 by the quantized model."""
+    from paddle_tpu_torch.inference.decode import DecodeEngine
+    from paddle_tpu_torch.ops import quant_matmul as qmm
+    from paddle_tpu_torch.text.generation import llama_decode_model
+    from paddle_tpu_torch.text.models import LlamaModel
+
+    gpu = _small_llama().eval()
+    cpu = LlamaModel(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
+                     intermediate_size=512, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, 512, (n,)).astype(np.int32) for n in (3, 30, 17, 9, 1)]
+    with DecodeEngine(llama_decode_model(gpu, 4, 64), max_prompt_len=32, quant=mode,
+                      name=f"q-{mode}") as eng:
+        eng.warmup()
+        matrices = [t for n, t in eng._model.params.named_tensors() if t.dim() == 2]
+        assert matrices and all(t.dtype != torch.float32 for t in matrices)
+        before = qmm.launches
+        reqs = [eng.submit(p, max_new_tokens=7) for p in prompts]
+        together = [r.result(timeout=300) for r in reqs]
+        st = eng.stats()
+        assert st["quant"] == mode
+        assert qmm.launches - before == 15 * st["steps"] + 14 * st["prefix_fill_steps"]
+        assert all(v["compiles"] == 1 for v in st["programs"].values())
+        alone = [eng.generate(p, max_new_tokens=7, timeout=300) for p in prompts]
+    with DecodeEngine(llama_decode_model(gpu, 4, 64), max_prompt_len=32, quant=mode,
+                      cuda_graph=False, name=f"q-{mode}-eager") as eng:
+        eager = [r.result(timeout=300) for r in [eng.submit(p, max_new_tokens=7)
+                                                  for p in prompts]]
+    with DecodeEngine(llama_decode_model(cpu, 4, 64), device="cpu", max_prompt_len=32,
+                      quant=mode, name=f"q-{mode}-cpu") as eng:
+        on_cpu = [eng.generate(p, max_new_tokens=7, timeout=300) for p in prompts]
+    for t, a, e, c in zip(together, alone, eager, on_cpu):
+        assert t.tolist() == a.tolist() == e.tolist() == c.tolist()

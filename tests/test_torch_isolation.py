@@ -47,14 +47,28 @@ def test_no_jax_or_jax_package_import(path):
         assert root not in FORBIDDEN, f"{path.relative_to(REPO)} imports {name}"
 
 
-@pytest.mark.parametrize("sub", ["obs", "resilience"])
+@pytest.mark.parametrize("sub", ["obs", "resilience", "quantization"])
 def test_telemetry_and_chaos_subpackages_are_checked(sub):
     """The port keeps its own copies of the reference's stdlib-only obs
-    and chaos modules: both tests above cover them."""
+    and chaos modules, and of its quantization modules: both tests above
+    and below cover them."""
     names = {p.name for p in _port_files() if p.parent == PKG / sub}
     want = {"obs": {"__init__.py", "metrics.py", "prometheus.py", "tracing.py", "httpd.py"},
-            "resilience": {"__init__.py", "chaos.py"}}[sub]
+            "resilience": {"__init__.py", "chaos.py"},
+            "quantization": {"__init__.py", "post_training.py", "serving.py"}}[sub]
     assert want <= names
+
+
+def test_quant_kernel_module_is_checked_and_builds_nothing_at_import():
+    """ops/quant_matmul.py (the dequantizing kernel's wrapper) is one of
+    the files checked above, its CUDA source ships beside the others, and
+    importing it (with the quantization package) builds nothing."""
+    from paddle_tpu_torch import quantization  # noqa: F401
+    from paddle_tpu_torch.ops import quant_matmul
+
+    assert PKG / "ops" / "quant_matmul.py" in _port_files()
+    assert (PKG / "csrc" / "quant_matmul.cu").is_file()
+    assert quant_matmul._lib is None
 
 
 def test_importing_every_port_module_loads_no_jax():

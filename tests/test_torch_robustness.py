@@ -44,9 +44,11 @@ from test_torch_spec import prompt_with, spec_model
 
 torch.set_num_threads(1)
 
-# fast watchdogs, their wedge timeout above any legitimate stall of a
-# loaded CPU; every wedge below sleeps twice as long
-FAST = dict(watchdog_interval=0.02, wedge_timeout=1.0)
+# fast watchdogs, their wedge timeout well above any program call of these
+# small models on a loaded CPU; every wedge below sleeps WEDGE_S, well above
+# the timeout, so that the watchdog's restart always comes first
+FAST = dict(watchdog_interval=0.02, wedge_timeout=2.5)
+WEDGE_S = 6.0
 
 
 def wait_until(cond, timeout=30.0):
@@ -181,11 +183,11 @@ def test_batching_wedge_restarts_and_drops_the_late_result():
     try:
         eng.warmup(signature=[("float32", (2,))])
         x = np.ones((2, 2), np.float32)
-        chaos.arm("serving.execute.bucket2", delay=2.0)
+        chaos.arm("serving.execute.bucket2", delay=WEDGE_S)
         t0 = time.monotonic()
         with pytest.raises(batching.SchedulerRestarted):
-            eng.infer([x], timeout=10)
-        assert time.monotonic() - t0 < 1.9, "the watchdog missed the wedge"
+            eng.infer([x], timeout=20)
+        assert time.monotonic() - t0 < WEDGE_S - 0.1, "the watchdog missed the wedge"
         assert eng.infer([x * 3], timeout=10)[0].tobytes() == (x * 3).tobytes()
         # the superseded thread wakes, drops its result and ends
         wait_until(lambda: not any(t.name == f"{eng.name}-scheduler" and t.is_alive()
@@ -259,7 +261,8 @@ def test_wedged_decode_scheduler_is_restarted():
     with make_engine(model, max_slots=1, **FAST) as eng:
         eng.generate(PROMPTS[0], max_new_tokens=2, timeout=60)
         steps = eng.stats()["steps"]
-        chaos.arm("serving.decode.step", delay=2.0, at=chaos.visits("serving.decode.step") + 3)
+        chaos.arm("serving.decode.step", delay=WEDGE_S,
+                  at=chaos.visits("serving.decode.step") + 3)
         a = eng.submit(PROMPTS[0], max_new_tokens=6)
         wait_tokens(a, 2)
         b = eng.submit(PROMPTS[1], max_new_tokens=6)  # queued behind a's slot
@@ -295,7 +298,7 @@ def test_restart_sweep_keeps_the_prefix_cache_pages(site):
         if site == "serving.decode.loop":
             chaos.arm(site, exc=RuntimeError("die"), at=chaos.visits(site) + 2)
         else:
-            chaos.arm(site, delay=2.0, at=chaos.visits(site) + 2)
+            chaos.arm(site, delay=WEDGE_S, at=chaos.visits(site) + 2)
         got = _results([eng.submit(p, max_new_tokens=6) for p in prompts])
         if site == "serving.decode.prefill":  # it wakes before its second chunk
             wait_until(lambda: eng.stats()["stale_unwinds"] == 1)
@@ -315,16 +318,20 @@ def test_restart_mid_speculative_burst_keeps_plain_greedy():
     """The draft's step wedges inside a burst (the exec lock held): the
     watchdog restarts the scheduler, the opted streams fail, and the
     superseded thread ends at its next program call; the retried streams,
-    opted again, equal plain greedy."""
+    opted again, equal plain greedy. The wedge is the first draft step
+    after a burst was applied, chosen by the scheduler's own thread: a
+    burst gives at most k tokens, so every stream is still running then
+    (armed from the test's thread, a loaded CPU could let every stream
+    finish first)."""
     model = spec_model()
     plain = [solo(model, p, 10, prefix=False).tolist() for p in PROMPTS]
     draft_step = model.draft.step_fn
-    wedge = threading.Event()
+    wedged = []
 
     def slow_draft_step(*args):
-        if wedge.is_set():
-            wedge.clear()
-            time.sleep(2.0)
+        if not wedged and eng.stats()["spec"]["iterations"] > 0:
+            wedged.append(True)
+            time.sleep(WEDGE_S)
         return draft_step(*args)
 
     model.draft.step_fn = slow_draft_step
@@ -332,12 +339,10 @@ def test_restart_mid_speculative_burst_keeps_plain_greedy():
         with make_engine(model, spec_k=4, prefix=False, **FAST) as eng:
             eng.warmup()
             reqs = [eng.submit(p, max_new_tokens=10, speculative=True) for p in PROMPTS]
-            wait_tokens(reqs[0], 1)
-            wedge.set()
             got = _results(reqs)
             wait_until(lambda: eng.stats()["stale_unwinds"] == 1)
             st = eng.stats()
-            assert st["scheduler_restarts"] == 1 and st["stale_unwinds"] == 1
+            assert wedged and st["scheduler_restarts"] == 1 and st["stale_unwinds"] == 1
             assert st["spec"]["iterations"] > 0 and None in got
             retried = [eng.generate(p, max_new_tokens=10, speculative=True,
                                     timeout=60).tolist() for p in PROMPTS]
