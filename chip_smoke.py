@@ -179,8 +179,11 @@ Phases, each fatal on failure (exit code 1):
               (M, K, N) of Llama-2-7B's path (M 16 and 128; K x N 4096 x
               4096, 4096 x 11008, 11008 x 4096, 4096 x 32000), int8 with
               per-column scales and bf16 weights, a row's bits the same at M
-              = 1, 16 and 128, timed beside the plain version, torch.matmul
-              over the f32 weight (the library yardstick) and its bound;
+              = 1, 16, 37 and 128, timed beside the plain version,
+              torch.matmul over the f32 weight (the library yardstick), its
+              bound (an f32-accurate product: the three bf16 tensor-core
+              passes vs the bytes) and the f32 CUDA cores' bound beside it;
+              the kernel's shared memory and each shape's split count;
               (b) Llama-2-7B in float32 (weights from seed 0, 27 GB; phase
               10's bf16 weights freed first), engines of phase 7's
               configuration under quant f32, then w8, then bf16w, one at a
@@ -2884,20 +2887,28 @@ def phase_robust(torch, fa, mods, card, eng7, bert):
 QUANT_SHAPES = ((4096, 4096, "wq wk wv wo"), (4096, 11008, "gate up"), (11008, 4096, "down"),
                 (4096, 32000, "head"))
 QUANT_MS = (ENGINE_SLOTS, ENGINE_CHUNK)
+QUANT_BITS_MS = (1, ENGINE_SLOTS, 37, ENGINE_CHUNK)  # a row's bits held the same at these M
 TOL_WQ = 1e-4  # wq_matmul vs its plain version, relative to the output's max |value|
 QUANT_MODE_ORDER = ("f32", "w8", "bf16w")
 QUANT_SOLO = 3  # streams of each window decoded again alone
 QUANT_LOGIT_PROMPTS = 4  # prompts whose finishing logits are held against f32's
 
 
-def wq_bound_ms(m, k, n, wbytes):
+def wq_bound_ms(m, k, n, wbytes, unit="tensor"):
     """Least time of one wq_matmul launch: x and the weights (and int8's
     scales) read once and the output written once, over the HBM rate; vs
-    2 M K N float32 operations (an FMA a weight and row) over the CUDA
-    cores' peak."""
+    the operations of an f32-accurate product over their unit's peak. On
+    the tensor cores (``unit="tensor"``, the kernel's) that is three bf16
+    passes, 3 x 2 M K N (x split exactly into three bf16 pieces, each
+    times exact bf16 weights); on the f32 CUDA cores (``"cuda_core"``, the
+    bound of the kernel before its redesign) 2 M K N, an FMA a weight and
+    row."""
     nbytes = 4 * m * k + k * n * wbytes + (4 * n if wbytes == 1 else 0) + 4 * m * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * m * k * n / PEAK_OPS_PER_S["float32"] * 1e3
+    if unit == "tensor":
+        t_ops = 3 * 2 * m * k * n / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    else:
+        t_ops = 2 * m * k * n / PEAK_OPS_PER_S["float32"] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -2928,8 +2939,9 @@ def graph_ms(torch, Graph, fn, calls=20, reps=5):
 def phase_quant_kernels(torch, qmm, quantize_array, Graph):
     """wq_matmul against its plain version (dequantize, then matmul) at
     every (M, K, N) of the quantized 7B path, int8 (w8) and bf16 (bf16w)
-    weights; a row's bits must be the same in a 1-, a 16- and a 128-row
-    call. Timed beside the plain version and the library yardstick:
+    weights; a row's bits must be the same in a 1-, 16-, 37- and 128-row
+    call, and the built kernel's split count that of ``qmm.splits``. Timed
+    beside the plain version and the library yardstick:
     torch.matmul of x with the weight already dequantized to float32, what
     the f32 engine pays per product (no single PyTorch call computes the
     dequantizing product; the port never calls this one with a reduced
@@ -2939,21 +2951,27 @@ def phase_quant_kernels(torch, qmm, quantize_array, Graph):
     log(f"[quant] wq_matmul vs its plain version (tolerance {TOL_WQ} of the output's max "
         "|value|); times: CUDA events over back-to-back calls / device (events around a CUDA "
         "graph of 20 calls)")
+    log(f"[quant] dynamic shared memory per block: int8 weights "
+        f"{qmm.smem_bytes(torch.int8)} bytes, bf16 {qmm.smem_bytes(torch.bfloat16)} bytes")
     for k, n, names in QUANT_SHAPES:
+        splits = qmm.kernel_splits(k, n)
+        log(f"[quant] K={k} N={n}: {splits} splits (a cluster of {splits} blocks per "
+            f"{qmm.NT}-column tile; twin {qmm.splits(k, n)}), "
+            f"{-(-n // qmm.NT) * splits} blocks at M <= 16")
+        if splits != qmm.splits(k, n):
+            fail(f"wq_matmul's split count at K={k} N={n} is not its twin's")
         w = torch.randn(k, n, device="cuda", generator=gen) * 0.02
-        x_all = torch.randn(max(QUANT_MS), k, device="cuda", generator=gen)
+        x_all = torch.randn(max(QUANT_BITS_MS), k, device="cuda", generator=gen)
         for form in ("w8", "bf16w"):
             if form == "w8":
                 data, scale = quantize_array(w, channel_axis=1)
             else:
                 data, scale = w.to(torch.bfloat16), None
             wdq = qmm.dequantize(data, scale)
-            one = qmm.wq_matmul(x_all[:1], data, scale)
-            outs = {m: qmm.wq_matmul(x_all[:m], data, scale) for m in QUANT_MS}
+            outs = {m: qmm.wq_matmul(x_all[:m], data, scale) for m in QUANT_BITS_MS}
             torch.cuda.synchronize()
-            same_bits = bool(torch.equal(one[0], outs[ENGINE_SLOTS][0])
-                             and torch.equal(outs[ENGINE_SLOTS],
-                                             outs[ENGINE_CHUNK][:ENGINE_SLOTS]))
+            widest = outs[max(QUANT_BITS_MS)]
+            same_bits = all(torch.equal(o, widest[:m]) for m, o in outs.items())
             for m in QUANT_MS:
                 x = x_all[:m]
                 out = outs[m]
@@ -2965,19 +2983,22 @@ def phase_quant_kernels(torch, qmm, quantize_array, Graph):
                     torch, Graph, lambda: qmm.wq_matmul_reference(x, data, scale))
                 library_ms, library_dev = graph_ms(torch, Graph, lambda: torch.matmul(x, wdq))
                 bound, bound_by = wq_bound_ms(m, k, n, data.element_size())
+                core_bound, core_by = wq_bound_ms(m, k, n, data.element_size(), "cuda_core")
                 ok = rel <= TOL_WQ and same_bits and bool(torch.isfinite(out).all())
-                results.append(dict(form=form, m=m, k=k, n=n, names=names,
+                results.append(dict(form=form, m=m, k=k, n=n, names=names, splits=splits,
                                     max_abs_err=abs_err, rel_err=rel, same_bits_m=same_bits,
                                     ms=ms, device_ms=dev, plain_ms=plain_ms,
                                     plain_device_ms=plain_dev, library_ms=library_ms,
                                     library_device_ms=library_dev, bound_ms=bound,
-                                    bound_by=bound_by, ok=ok))
+                                    bound_by=bound_by, cuda_core_bound=core_bound,
+                                    cuda_core_bound_by=core_by, ok=ok))
                 log(f"  {form} M={m} K={k} N={n} ({names}): err {abs_err:.3e} ({rel:.2e} of "
-                    f"max); row bits same at M = 1, {ENGINE_SLOTS}, {ENGINE_CHUNK}: "
+                    f"max); row bits same at M = {', '.join(map(str, QUANT_BITS_MS))}: "
                     f"{same_bits} | kernel {ms:.4f} / {_fmt(dev)} ms{_share(bound, dev)}; "
                     f"plain {plain_ms:.4f} / {_fmt(plain_dev)} ms; library (torch.matmul, f32 "
                     f"weight) {library_ms:.4f} / {_fmt(library_dev)} ms; bound {bound:.4f} ms "
-                    f"({bound_by}) {'ok' if ok else 'DISAGREES'}")
+                    f"({bound_by}; cuda_core_bound {core_bound:.4f} ms, {core_by}) "
+                    f"{'ok' if ok else 'DISAGREES'}")
             del wdq, data, scale
         del w, x_all
     if any(not r["ok"] for r in results):
@@ -3559,11 +3580,12 @@ def main():
              replaces=kernels[3]["replaces"], launches=quant["wq_launches"],
              bert_launches=quant["bert_wq_launches"], max_abs_err=wq_main["max_abs_err"],
              **timing(wq_main), bound_ms=wq_main["bound_ms"], bound_by=wq_main["bound_by"],
+             cuda_core_bound=wq_main["cuda_core_bound"],
              **{f"{r['form']}_m{r['m']}_k{r['k']}_n{r['n']}_{k}": r[k]
                 for r in quant["kernel_cases"]
                 for k in ("max_abs_err", "rel_err", "same_bits_m", "ms", "device_ms",
                           "plain_ms", "plain_device_ms", "library_ms", "library_device_ms",
-                          "bound_ms", "bound_by")}),
+                          "bound_ms", "bound_by", "cuda_core_bound", "splits")}),
     ]
     log(card)
     log(json.dumps({"kernels": line}))

@@ -7,121 +7,248 @@
 // dequantizes and multiplies in plain jnp, and XLA fuses the dequantize
 // into the product's read of the weights. This kernel is the port's
 // counterpart of that fusion. Two weight forms:
-//   w8    int8 weights with one f32 scale per output column, each weight
-//         dequantized as float(q) * scale[n] (one IEEE product, the
-//         reference's `q.astype(f32) * s`);
-//   bf16w bf16 weights widened to f32 (exact), no scale.
-// Accumulation is f32 FMA on the CUDA cores (no TF32, which would change
-// the reference's f32 arithmetic).
+//   w8    int8 weights with one f32 scale per output column;
+//   bf16w bf16 weights, no scale.
 //
-// What bounds it on an H100: at the decode step's M = 16 rows the work is
-// 16 FMAs per weight read, so the f32 CUDA cores (67 TFLOP/s) bound it
-// below the bytes of int8 weights (3.35 TB/s) and about level with bf16;
-// at a fill's M = 128 the operations bound every form. So the design
-// spends few instructions beside the FMAs: every weight is dequantized
-// once per block and used for 16 rows, every x value staged in shared
-// memory is used for 8 columns, and int8 becomes f32 without a conversion
-// instruction (a byte permute into the mantissa of 2^23 + 128 + q, then
-// one exact subtraction).
+// The product runs on the bf16 tensor cores (mma.sync m16n8k16, f32
+// accumulators) and keeps f32 accuracy, with no TF32:
+//   - every weight is exact in bf16: an int8 q has at most 8 significant
+//     bits, and a bf16w weight is bf16 already;
+//   - x is split exactly into three bf16 pieces, hi = bf16_rn(x),
+//     r = x - hi, mid = bf16_rn(r), lo = bf16_rn(r - mid). r and r - mid
+//     are exact f32 differences: x has 24 significant bits, hi takes the
+//     top 8, |r| is at most half an ulp of hi and so fits in 16 bits, mid
+//     takes 8 of those and r - mid has at most 8 left, so lo is r - mid
+//     exactly and hi + mid + lo == x (for |x| in [2^-103, bf16's largest],
+//     where no piece is subnormal or overflows; ops/quant_matmul.py
+//     `split_bf16` is the torch twin, held bitwise by the CPU tests);
+//   - each piece times a weight is exact in the MMA's f32 product, so only
+//     the accumulation rounds: per k-step of 16 the three passes add to one
+//     accumulator, smallest piece first (lo, mid, hi);
+//   - the w8 scale is applied in the epilogue, out = (sum of x q) * s,
+//     where the reference rounds q * s per element first: the two differ
+//     by about an ulp of each product, far inside the 1e-4 (of the
+//     output's max) tolerance the kernel is held to.
 //
-// Layout: one block of 128 threads per tile of 16 rows x 32 columns
-// (grid: row tiles x column tiles, so neighbouring blocks share their
-// weight tile in L2). Thread (cg, s) owns 8 columns (cg = tid % 4) of all
-// 16 rows, 128 f32 accumulators, over k slice s (tid / 4, 32 slices): in
-// every chunk of 256 k, slice s takes k = 8s .. 8s + 7 in order. Chunks of
-// x rows (16 x 256 f32) and of the weight tile (256 x 32) are staged into
-// shared memory by 16-byte cp.async in a two-stage ring, the next chunk's
-// copy overlapping this chunk's products; the weight tile's slices are
-// skewed by one row so that the lanes of a load read distinct banks.
-// Ragged edges (rows past M, columns past N, k past K) are zero-filled in
-// shared memory and never stored. The 32 slice partials of each output are
-// then summed through shared memory in slice order, 0 to 31, with no
-// atomics. So the order of every output's sum is fixed by K alone: a
-// row's bits do not depend on M, on the other rows, or on the launch.
+// What bounds it on an H100: the least time for an f32-accurate product
+// is max(bytes / 3.35 TB/s, 3 x 2 M K N / 989 TFLOP/s). At the decode
+// step's M = 16 that is the weights' bytes at every shape of the path; at
+// a fill's M = 128 the three passes' tensor-core operations. The weights
+// never leave their [K, N] layout: int8 or bf16 tiles are staged as they
+// lie and transposed by ldmatrix.trans on the way into registers.
+//
+// Layout: a block of 4 warps owns 32 rows of x (MT) by 128 columns (NT,
+// 32 a warp) over one split of K. The operands are swapped (out^T =
+// w^T x^T): the weight columns ride the MMA's 16-row side and the x rows
+// its 8-wide side, four n8 tiles. The K loop is compiled twice, with the
+// upper two tiles and without, and a block that holds no row past its
+// first 16 (every block at M <= 16) runs the one without: no loads, split
+// or MMAs for rows that are all past M. Chunks of 64 k of the weight tile
+// are staged by 16-byte cp.async in a ring (4 stages of int8, 3 of bf16,
+// so that three blocks fit on an SM), zero-filled past N and K. x runs
+// two chunks ahead in registers (zero past M and K) and each chunk is
+// split once into its three bf16 pieces in shared memory (double-
+// buffered), read by every warp. Tiles are XOR-swizzled by row in 16-byte
+// chunks so that ldmatrix reads distinct banks. int8 weights come into
+// registers as 2 x 2 byte blocks (ldmatrix.trans of byte pairs) and are
+// widened to bf16 pairs without a conversion instruction: q's low 7 bits
+// go into the mantissa of 128 and one exact bf16x2 subtraction of 128 or
+// 256 (by q's sign bit) leaves q.
+//
+// Split-K: K is cut into S splits, S a function of (K, N) only (`splits`
+// below: enough blocks for two on each SM at M <= 32, at most 8 and at
+// least 4 chunks a split). The S blocks of one output tile form a thread
+// block cluster; each leaves its partial in its shared memory and the
+// cluster sums them in split order, 0 to S - 1, through distributed shared
+// memory, with no global scratch and no atomics. So the order of every
+// output's sum (k-steps, passes, splits) is fixed by K and N: no tile
+// size or split count depends on M, the two compiled K loops run the same
+// MMAs in the same order on every row below M (the one without the upper
+// tiles skips only rows past M, never stored), and an MMA's output depends
+// only on its own row and column, so a row's bits do not depend on how
+// many rows a call has or where in a tile the row lies.
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
 #include "flash_attention_sm90.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int ROWS = 16;            // x rows per block
-constexpr int COLS = 8;             // columns per thread
-constexpr int CG = 4;               // column groups per block
-constexpr int NT = CG * COLS;       // 32 columns per block
-constexpr int SLICES = THREADS / CG;  // 32 k slices
-constexpr int U = 8;                // k per slice per chunk
-constexpr int KC = SLICES * U;      // 256 k per chunk
+constexpr int MT = 32;               // x rows per block: four n8 tiles of the MMA
+constexpr int NT = 128;              // weight columns per block, 32 a warp
+constexpr int KC = 64;               // k per chunk (one stage of the weight ring)
+constexpr int MAX_SPLITS = 8;        // the portable cluster size
+constexpr int TARGET_BLOCKS = 264;   // two blocks on each of the H100's 132 SMs at M <= 32
+constexpr int MIN_SPLIT_CHUNKS = 4;  // a split takes at least 4 chunks (256 k)
+constexpr int RED_STRIDE = NT + 4;   // floats per row of the partial tile
+constexpr int X_ITEMS = MT * KC / 4 / THREADS;  // float4s of an x chunk per thread
+constexpr int HALVES = MT / 16;                 // 16-row halves of the block's x rows
+constexpr int PIECE_BYTES = MT * KC * 2;        // one piece of an x chunk, [MT][KC] bf16
+constexpr int PIECES_BYTES = 3 * PIECE_BYTES;   // lo, mid, hi of one chunk
+
+// the split count of a (K, N) product
+int splits(int K, int N) {
+  const int chunks = (K + KC - 1) / KC, tiles = (N + NT - 1) / NT;
+  int s = (TARGET_BLOCKS + tiles - 1) / tiles;
+  s = s < MAX_SPLITS ? s : MAX_SPLITS;
+  const int by_k = chunks / MIN_SPLIT_CHUNKS;
+  s = s < by_k ? s : by_k;
+  return s > 1 ? s : 1;
+}
 
 // WB: bytes of one weight (1 int8, 2 bf16)
 template <int WB>
 struct Layout {
-  static constexpr int ROW_BYTES = NT * WB;                  // one k row of the tile
-  static constexpr int SLICE_BYTES = (U + 1) * ROW_BYTES;    // U rows + one row of skew
-  static constexpr int X_BYTES = ROWS * KC * 4;              // x chunk [ROWS][KC] f32
-  static constexpr int W_BYTES = SLICES * SLICE_BYTES;
-  static constexpr int STAGE_BYTES = X_BYTES + W_BYTES;
-  static constexpr int RED_BYTES = SLICES * ROWS * NT * 4;   // partials [SLICES][ROWS][NT]
-  static constexpr int bytes =
-      2 * STAGE_BYTES > RED_BYTES ? 2 * STAGE_BYTES : RED_BYTES;
+  static constexpr int STAGES = WB == 1 ? 4 : 3;             // the weight ring
+  static constexpr int ROW_BYTES = NT * WB;                  // one k row of the weight tile
+  static constexpr int W_BYTES = KC * ROW_BYTES;             // weight chunk [KC][NT]
+  static constexpr int RED_BYTES = MT * RED_STRIDE * 4;      // the block's partial, f32
+  static_assert(RED_BYTES <= STAGES * W_BYTES, "the partial reuses the ring");
+  static constexpr int bytes = STAGES * W_BYTES + 2 * PIECES_BYTES;
 };
 
-// chunk c of x's row tile and of the weight tile into one stage
+// 16-byte chunk c of row r of a tile, XOR-swizzled by the row's low 3 bits
+__device__ __forceinline__ int swz(int r, int c) { return (c ^ (r & 7)) << 4; }
+
+// weight chunk k0 .. k0 + KC of the block's columns into one stage: KC rows
+// of ROW_BYTES in 16-byte chunks (N * WB % 16 == 0, so a chunk is all in
+// range or all out), zero-filled past N and K
 template <int WB>
-__device__ __forceinline__ void stage_chunk(unsigned char* stage, const float* x,
-                                            const unsigned char* w, int M, int N, int K,
-                                            int row0, int n0, int k0, int tid) {
+__device__ __forceinline__ void stage_weights(unsigned char* ws, const unsigned char* w, int N,
+                                              int K, int n0, int k0, int tid) {
   using L = Layout<WB>;
-  float* xs = reinterpret_cast<float*>(stage);
-  unsigned char* ws = stage + L::X_BYTES;
-  // x: ROWS x KC / 4 pieces of 16 bytes (K % 4 == 0, so a piece is all in
-  // range or all out)
-  constexpr int X_PIECES = ROWS * KC / 4;
+  constexpr int CPR = L::ROW_BYTES / 16;
 #pragma unroll
-  for (int i = 0; i < X_PIECES / THREADS; ++i) {
+  for (int i = 0; i < KC * CPR / THREADS; ++i) {
     const int p = tid + i * THREADS;
-    const int r = p / (KC / 4), j = p % (KC / 4);
-    const int row = row0 + r, k = k0 + 4 * j;
-    const bool ok = row < M && k < K;
-    fa::cp_async16(xs + r * KC + 4 * j, ok ? x + (size_t)row * K + k : x, ok);
-  }
-  // weights: KC rows of ROW_BYTES, 16 bytes a piece (N * WB % 16 == 0)
-  constexpr int PPR = L::ROW_BYTES / 16;
-  constexpr int W_PIECES = KC * PPR;
-#pragma unroll
-  for (int i = 0; i < W_PIECES / THREADS; ++i) {
-    const int p = tid + i * THREADS;
-    const int kr = p / PPR, j = p % PPR;
-    const int k = k0 + kr;
-    const int col = n0 + j * (16 / WB);
+    const int kr = p / CPR, c = p % CPR;
+    const int k = k0 + kr, col = n0 + c * (16 / WB);
     const bool ok = k < K && col < N;
-    unsigned char* dst = ws + (kr / U) * L::SLICE_BYTES + (kr % U) * L::ROW_BYTES + 16 * j;
-    fa::cp_async16(dst, ok ? w + ((size_t)k * N + col) * WB : w, ok);
+    fa::cp_async16(ws + kr * L::ROW_BYTES + swz(kr, c),
+                   ok ? w + ((size_t)k * N + col) * WB : w, ok);
   }
 }
 
-// 8 int8 weights -> f32, each float(q) * scale exactly: the byte q ^ 0x80
-// = q + 128 goes into the low mantissa bits of 2^23 (0x4B000000), and
-// subtracting 2^23 + 128 leaves q (both steps exact)
-__device__ __forceinline__ void dequant_w8(const unsigned char* p, const float (&sc)[COLS],
-                                           float (&w)[COLS]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const uint32_t lo = v.x ^ 0x80808080u, hi = v.y ^ 0x80808080u;
+// x chunk k0 .. k0 + KC of the block's rows into registers, X_ITEMS runs of
+// 4 k a thread; zero past M and K (K % 4 == 0, so a run is all in or out)
+__device__ __forceinline__ void load_x(float4 (&v)[X_ITEMS], const float* x, int M, int K,
+                                       int m0, int k0, int tid, bool upper) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float a = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7440 + i));
-    const float b = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7440 + i));
-    w[i] = __fmul_rn(__fsub_rn(a, 8388736.0f), sc[i]);
-    w[4 + i] = __fmul_rn(__fsub_rn(b, 8388736.0f), sc[4 + i]);
+  for (int i = 0; i < X_ITEMS; ++i) {
+    if (i >= X_ITEMS / HALVES && !upper) break;  // rows 16..31 are past M
+    const int p = tid + i * THREADS;
+    const int row = m0 + p / (KC / 4), k = k0 + 4 * (p % (KC / 4));
+    v[i] = row < M && k < K ? *reinterpret_cast<const float4*>(x + (size_t)row * K + k)
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
 
-// 8 bf16 weights -> f32 (exact: the bf16 bits are the f32's upper half)
-__device__ __forceinline__ void dequant_bf16(const unsigned char* p, float (&w)[COLS]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+// the exact split of two x values, as bf16 pairs (the first value in the
+// low half): hi = bf16_rn(x), mid = bf16_rn(x - hi), lo = bf16_rn(x - hi -
+// mid); a bf16 pair's halves widen to f32 exactly by shifting
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                           uint32_t& lo) {
+  hi = fa::pack_bf16(x0, x1);
+  const float r0 = __fsub_rn(x0, __uint_as_float(hi << 16));
+  const float r1 = __fsub_rn(x1, __uint_as_float(hi & 0xFFFF0000u));
+  mid = fa::pack_bf16(r0, r1);
+  lo = fa::pack_bf16(__fsub_rn(r0, __uint_as_float(mid << 16)),
+                     __fsub_rn(r1, __uint_as_float(mid & 0xFFFF0000u)));
+}
+
+// the x chunk held in registers -> its pieces lo, mid, hi [MT][KC] bf16 in
+// shared memory, 16-byte chunks swizzled by row for ldmatrix
+__device__ __forceinline__ void split_x(const float4 (&v)[X_ITEMS], unsigned char* pieces,
+                                        int tid, bool upper) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    w[2 * i] = __uint_as_float(u[i] << 16);
-    w[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+  for (int i = 0; i < X_ITEMS; ++i) {
+    if (i >= X_ITEMS / HALVES && !upper) break;  // rows 16..31: no MMA reads them
+    const int p = tid + i * THREADS;
+    const int m = p / (KC / 4), q = p % (KC / 4);
+    uint32_t hi[2], mid[2], lo[2];
+    split_pair(v[i].x, v[i].y, hi[0], mid[0], lo[0]);
+    split_pair(v[i].z, v[i].w, hi[1], mid[1], lo[1]);
+    const int off = m * KC * 2 + swz(m, q >> 1) + (q & 1) * 8;
+    *reinterpret_cast<uint2*>(pieces + off) = make_uint2(lo[0], lo[1]);
+    *reinterpret_cast<uint2*>(pieces + PIECE_BYTES + off) = make_uint2(mid[0], mid[1]);
+    *reinterpret_cast<uint2*>(pieces + 2 * PIECE_BYTES + off) = make_uint2(hi[0], hi[1]);
+  }
+}
+
+// the int8 q in the low bytes of u's two 16-bit lanes -> a bf16 pair:
+// with v = q's low 7 bits and b7 its sign bit, 0x4300 | v is the bf16 of
+// 128 + v and 0x4300 | b7 << 7 that of 128 + 128 b7, and their difference
+// is v - 128 b7 = q, exact in a bf16x2 subtraction
+__device__ __forceinline__ uint32_t widen_pair(uint32_t u) {
+  const uint32_t t = (u & 0x007F007Fu) | 0x43004300u, c = (u & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&t),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// the warp's two A fragments (weight columns 32 w .. 32 w + 31, k-step kk
+// of the staged chunk), bf16 in the m16n8k16 layout; see `col_of` for the
+// columns their rows stand for
+template <int WB>
+__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const unsigned char* ws, int kk,
+                                       int warp, int lane) {
+  using L = Layout<WB>;
+  const int i = lane >> 3, r = lane & 7;
+  if constexpr (WB == 1) {
+    // one ldmatrix.x4.trans of byte pairs: matrix i covers k rows
+    // 16 kk + 8 (i & 1) + 0..7 and columns 32 w + 16 (i >> 1) + 0..15; lane
+    // (g, t) gets q[k 2t, 2t + 1][n 2g, 2g + 1] of each
+    const int k = 16 * kk + 8 * (i & 1) + r;
+    uint32_t v[4];
+    fa::ldmatrix_x4_trans(v, ws + k * L::ROW_BYTES + swz(k, 2 * warp + (i >> 1)));
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const uint32_t u0 = v[2 * f], u1 = v[2 * f + 1];
+      a[f][0] = widen_pair(u0);       // bytes 0, 2: row g, column 2g, k 2t, 2t + 1
+      a[f][1] = widen_pair(u0 >> 8);  // bytes 1, 3: row g + 8, column 2g + 1
+      a[f][2] = widen_pair(u1);       // k 2t + 8, 2t + 9
+      a[f][3] = widen_pair(u1 >> 8);
+    }
+  } else {
+    // one ldmatrix.x4.trans a fragment: matrix i covers k rows
+    // 16 kk + 8 (i >> 1) + 0..7 and columns 32 w + 16 f + 8 (i & 1) + 0..7
+    const int k = 16 * kk + 8 * (i >> 1) + r;
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+      fa::ldmatrix_x4_trans(a[f], ws + k * L::ROW_BYTES + swz(k, 4 * warp + 2 * f + (i & 1)));
+  }
+}
+
+// the column (within the warp's 32) of C fragment f's row g (c0, c1) and
+// row g + 8 (c2, c3)
+template <int WB>
+__device__ __forceinline__ int col_of(int f, int g, bool upper) {
+  if constexpr (WB == 1) return 16 * f + 2 * g + (upper ? 1 : 0);
+  return 16 * f + g + (upper ? 8 : 0);
+}
+
+// one piece's k-step: both A fragments times the n8 tiles of x rows; the
+// upper pair of tiles (rows 16..31 of the block) only where it holds a row
+// below M
+__device__ __forceinline__ void mma_piece(float (&acc)[2][2 * HALVES][4],
+                                          const uint32_t (&a)[2][4], const unsigned char* piece,
+                                          int kk, int lane, bool upper) {
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h) {
+    if (h == 1 && !upper) break;
+    // matrix i: x rows 16 h + 8 (i >> 1) + 0..7, k 16 kk + 8 (i & 1) + 0..7;
+    // b[2j], b[2j + 1] are n8 tile 2 h + j's two k halves
+    const int i = lane >> 3, m = 16 * h + (lane & 7) + 8 * (i >> 1);
+    uint32_t b[4];
+    fa::ldmatrix_x4(b, piece + m * KC * 2 + swz(m, 2 * kk + (i & 1)));
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) fa::mma_bf16(acc[f][2 * h + j], a[f], b[2 * j], b[2 * j + 1]);
   }
 }
 
@@ -132,76 +259,107 @@ __global__ void __launch_bounds__(THREADS)
                      int K) {
   constexpr int WB = sizeof(W);
   using L = Layout<WB>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int cg = tid % CG, s = tid / CG;
-  const int row0 = blockIdx.x * ROWS, n0 = blockIdx.y * NT;
-  const int col0 = n0 + cg * COLS;
-
-  float sc[COLS];
-#pragma unroll
-  for (int c = 0; c < COLS; ++c)
-    sc[c] = (scale != nullptr && col0 + c < N) ? scale[col0 + c] : 1.0f;
-  float acc[ROWS][COLS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[r][c] = 0.0f;
-
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.block_rank(), nsplit = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.y * NT, m0 = blockIdx.z * MT;
   const int chunks = (K + KC - 1) / KC;
-  stage_chunk<WB>(smem, x, w, M, N, K, row0, n0, 0, tid);
-  fa::cp_async_commit();
-  for (int ch = 0; ch < chunks; ++ch) {
-    if (ch + 1 < chunks)
-      stage_chunk<WB>(smem + ((ch + 1) & 1) * L::STAGE_BYTES, x, w, M, N, K, row0, n0,
-                      (ch + 1) * KC, tid);
-    fa::cp_async_commit();
-    fa::cp_async_wait<1>();  // chunk ch has landed
-    __syncthreads();
-    const unsigned char* stage = smem + (ch & 1) * L::STAGE_BYTES;
-    const float* xs = reinterpret_cast<const float*>(stage) + s * U;
-    const unsigned char* ws = stage + L::X_BYTES + s * L::SLICE_BYTES + cg * COLS * WB;
-#pragma unroll
-    for (int q = 0; q < U / 4; ++q) {
-      // four k: their weights dequantized once, then one float4 of x a row
-      float wv[4][COLS];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if constexpr (WB == 1)
-          dequant_w8(ws + (4 * q + kk) * L::ROW_BYTES, sc, wv[kk]);
-        else
-          dequant_bf16(ws + (4 * q + kk) * L::ROW_BYTES, wv[kk]);
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + r * KC + 4 * q);
-        const float xk[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int c = 0; c < COLS; ++c) acc[r][c] = __fmaf_rn(xk[kk], wv[kk][c], acc[r][c]);
-      }
-    }
-    __syncthreads();  // this stage is read before chunk ch + 2 refills it
-  }
-  fa::cp_async_wait<0>();
+  const int c0 = split * chunks / nsplit, nch = (split + 1) * chunks / nsplit - c0;
+  unsigned char* pieces = smem + STAGES * L::W_BYTES;  // two buffers of PIECES_BYTES
+  const int rows = M - m0 < MT ? M - m0 : MT;  // x rows of this block below M
 
-  // the slices' partials, summed in slice order
-  float* red = reinterpret_cast<float*>(smem);
+  float acc[2][2 * HALVES][4];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    float4* dst = reinterpret_cast<float4*>(red + (s * ROWS + r) * NT + cg * COLS);
-    dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+  for (int f = 0; f < 2; ++f)
+#pragma unroll
+    for (int j = 0; j < 2 * HALVES; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[f][j][e] = 0.0f;
+
+  // the K loop, compiled twice: with the upper n8 tiles and without
+  auto k_loop = [&](auto has_upper) {
+    constexpr bool upper = decltype(has_upper)::value;
+    // the weight ring runs STAGES - 1 chunks ahead. x runs two chunks ahead
+    // in registers (xa, xb in turn): chunk ch + 1, loaded during chunk
+    // ch - 1, is split into the other pieces buffer after chunk ch's MMAs
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nch) stage_weights<WB>(smem + s * L::W_BYTES, w, N, K, n0, (c0 + s) * KC, tid);
+      fa::cp_async_commit();
+    }
+    float4 xa[X_ITEMS], xb[X_ITEMS];
+    load_x(xa, x, M, K, m0, c0 * KC, tid, upper);
+    split_x(xa, pieces, tid, upper);
+    if (nch > 1) load_x(xa, x, M, K, m0, (c0 + 1) * KC, tid, upper);
+    // one chunk: its MMAs, x of chunk ch + 2 loaded into xn, chunk ch + 1's
+    // (in xs) split
+    auto chunk = [&](int ch, float4 (&xs)[X_ITEMS], float4 (&xn)[X_ITEMS]) {
+      fa::cp_async_wait<STAGES - 2>();  // weight chunk ch has landed
+      // for every thread; so have chunk ch's pieces, and chunk ch - 1's stage
+      // and pieces are free
+      __syncthreads();
+      const int next = ch + STAGES - 1;
+      if (next < nch)
+        stage_weights<WB>(smem + (next % STAGES) * L::W_BYTES, w, N, K, n0, (c0 + next) * KC,
+                          tid);
+      fa::cp_async_commit();
+      if (ch + 2 < nch) load_x(xn, x, M, K, m0, (c0 + ch + 2) * KC, tid, upper);
+      const unsigned char* ws = smem + (ch % STAGES) * L::W_BYTES;
+      const unsigned char* pc = pieces + (ch & 1) * PIECES_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t a[2][4];
+        load_a<WB>(a, ws, kk, warp, lane);
+        mma_piece(acc, a, pc, kk, lane, upper);                       // lo
+        mma_piece(acc, a, pc + PIECE_BYTES, kk, lane, upper);      // mid
+        mma_piece(acc, a, pc + 2 * PIECE_BYTES, kk, lane, upper);  // hi
+      }
+      if (ch + 1 < nch) split_x(xs, pieces + ((ch + 1) & 1) * PIECES_BYTES, tid, upper);
+    };
+    for (int ch = 0; ch < nch; ch += 2) {
+      chunk(ch, xa, xb);
+      if (ch + 1 < nch) chunk(ch + 1, xb, xa);
+    }
+  };
+  if (rows > 16)
+    k_loop(std::true_type{});
+  else
+    k_loop(std::false_type{});
+  fa::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring, which now holds the partial
+
+  // the block's partial, [MT][RED_STRIDE] f32: C fragment (f, j) of lane
+  // (g, t) holds x rows 8 j + 2 t, + 1 of its columns
+  float* red = reinterpret_cast<float*>(smem);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int f = 0; f < 2; ++f)
+#pragma unroll
+    for (int j = 0; j < 2 * HALVES; ++j) {
+      const int m = 8 * j + 2 * t;
+      const int na = 32 * warp + col_of<WB>(f, g, false), nb = 32 * warp + col_of<WB>(f, g, true);
+      red[m * RED_STRIDE + na] = acc[f][j][0];
+      red[(m + 1) * RED_STRIDE + na] = acc[f][j][1];
+      red[m * RED_STRIDE + nb] = acc[f][j][2];
+      red[(m + 1) * RED_STRIDE + nb] = acc[f][j][3];
+    }
+  cluster.sync();  // every split's partial is in its block's shared memory
+
+  // the cluster's blocks share the tile's outputs; each output is the sum
+  // of the splits' partials in split order, times its column's scale
+  for (int e = split * THREADS + tid; e < rows * NT; e += nsplit * THREADS) {
+    const int m = e / NT, n = e % NT;
+    const int off = m * RED_STRIDE + n;
+    float v = cluster.map_shared_rank(red, 0)[off];
+    for (int s = 1; s < nsplit; ++s) v = __fadd_rn(v, cluster.map_shared_rank(red, s)[off]);
+    if (n0 + n < N) {
+      if (scale != nullptr) v = __fmul_rn(v, scale[n0 + n]);
+      out[(size_t)(m0 + m) * N + n0 + n] = v;
+    }
   }
-  __syncthreads();
-  for (int o = tid; o < ROWS * NT; o += THREADS) {
-    const int r = o / NT, n = o % NT;
-    float v = red[r * NT + n];
-#pragma unroll 8
-    for (int sl = 1; sl < SLICES; ++sl) v = __fadd_rn(v, red[(sl * ROWS + r) * NT + n]);
-    if (row0 + r < M && n0 + n < N) out[(size_t)(row0 + r) * N + n0 + n] = v;
-  }
+  cluster.sync();  // no block leaves while another still reads its partial
 }
 
 template <typename W>
@@ -210,12 +368,23 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* out, i
   constexpr size_t smem = Layout<sizeof(W)>::bytes;
   auto kern = wq_matmul_kernel<W>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);  // above 48 KB a block has to opt in
-  const dim3 grid((M + ROWS - 1) / ROWS, (N + NT - 1) / NT);
-  kern<<<grid, THREADS, smem, stream>>>(static_cast<const float*>(x),
-                                        static_cast<const unsigned char*>(w),
-                                        static_cast<const float*>(scale),
-                                        static_cast<float*>(out), M, N, K);
-  return cudaGetLastError();
+  const int s = splits(K, N);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(s, (N + NT - 1) / NT, (M + MT - 1) / MT);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = s;  // a cluster is one output tile's splits
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, static_cast<const float*>(x),
+                            static_cast<const unsigned char*>(w),
+                            static_cast<const float*>(scale), static_cast<float*>(out), M, N,
+                            K);
 }
 
 }  // namespace
@@ -230,7 +399,8 @@ extern "C" {
 int quant_matmul(const void* x, const void* w, const void* scale, void* out, int M, int N,
                  int K, int wdtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || N < 1 || K < 1 || K % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (M < 1 || N < 1 || K < 1 || K % 4 != 0 || (M + MT - 1) / MT > 65535)
+    return (int)cudaErrorInvalidValue;
   if (wdtype == 0 && N % 16 == 0 && scale != nullptr)
     return launch<unsigned char>(x, w, scale, out, M, N, K, st);
   if (wdtype == 1 && N % 8 == 0 && scale == nullptr)
@@ -244,6 +414,9 @@ int quant_matmul_smem_bytes(int wdtype) {
   if (wdtype == 1) return (int)Layout<2>::bytes;
   return -1;
 }
+
+// the split count (blocks of one output tile's cluster) of a K x N product
+int quant_matmul_splits(int K, int N) { return splits(K, N); }
 
 const char* quant_matmul_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -12,11 +12,27 @@ The reference dequantizes and multiplies in plain jnp
 ``unpack``, :213-222; post_training.py ``Int8Linear.forward``, :48-52),
 and XLA fuses the dequantize into the product's read of the weights. The
 kernel is the port's counterpart of that fusion: it reads the reduced
-weights once and never writes an f32 copy of them. ``wq_matmul_reference``
-is its plain version (dequantize, then ``torch.matmul``): CPU tensors take
-it; CUDA tensors launch the kernel or raise, never a fallback. The kernel
-sums every output in an order fixed by K alone, so a row's bits do not
-depend on how many rows a call has (the decode engine's solo = batch).
+weights once, in their ``[K, N]`` layout, and never writes an f32 copy of
+them. ``wq_matmul_reference`` is its plain version (dequantize, then
+``torch.matmul``): CPU tensors take it; CUDA tensors launch the kernel or
+raise, never a fallback.
+
+The kernel runs on the bf16 tensor cores and keeps f32 accuracy (no
+TF32). Every weight is exact in bf16 (an int8 q has at most 8 significant
+bits), and x is split exactly into three bf16 pieces by ``split_bf16``
+(hi = bf16(x), then the rest twice more; hi + mid + lo == x), so each
+piece-times-weight product is exact and only the accumulation rounds. The
+w8 scale is applied once to each output's sum, ``(sum of x q) * s``, where
+the reference rounds ``q * s`` per element: about an ulp of each product
+apart, far inside the 1e-4 of the output's max the kernel is held to.
+What bounds it on an H100: the weights' bytes at the decode step's
+M = 16, the three passes' tensor-core operations at a fill's M = 128.
+
+K is cut into ``splits(K, N)`` parts summed in a fixed order, a function
+of K and N only: the order of every output's sum (k-steps, the three
+passes, the splits) never depends on M, so a row's bits do not depend on
+how many rows a call has (the decode engine's solo = batch, the prefix
+cache's hit = cold).
 
 ``QuantWeight`` holds one reduced weight, and ``wmatmul(x, w)`` is the one
 product the port's decoder maths goes through: a ``QuantWeight`` goes to
@@ -37,6 +53,11 @@ launches = 0
 _WDTYPE = {torch.int8: 0, torch.bfloat16: 1}
 _lib = None
 
+# the kernel's tiling (csrc/quant_matmul.cu): weight columns and k of one
+# block's tile and chunk, and what decides the split count
+NT, KC = 128, 64
+MAX_SPLITS, TARGET_BLOCKS, MIN_SPLIT_CHUNKS = 8, 264, 4
+
 
 def _library():
     global _lib
@@ -49,6 +70,8 @@ def _library():
         lib.quant_matmul_error_string.restype = ctypes.c_char_p
         lib.quant_matmul_smem_bytes.argtypes = [ctypes.c_int]
         lib.quant_matmul_smem_bytes.restype = ctypes.c_int
+        lib.quant_matmul_splits.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.quant_matmul_splits.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -56,6 +79,33 @@ def _library():
 def smem_bytes(dtype):
     """Dynamic shared memory one block takes for weights of ``dtype``."""
     return _library().quant_matmul_smem_bytes(_WDTYPE[dtype])
+
+
+def kernel_splits(k, n):
+    """The split count the built kernel uses for a ``k x n`` product."""
+    return _library().quant_matmul_splits(k, n)
+
+
+def splits(k, n):
+    """How many parts the kernel cuts K into for a ``k x n`` product (the
+    twin of ``splits`` in csrc/quant_matmul.cu): enough blocks for two on
+    each of an H100's 132 SMs at M <= 32, at most 8 (a portable thread
+    block cluster) and at least 4 chunks of ``KC`` a part. A function of
+    K and N only, never of M."""
+    chunks, tiles = -(-k // KC), -(-n // NT)
+    return max(1, min(-(-TARGET_BLOCKS // tiles), MAX_SPLITS, chunks // MIN_SPLIT_CHUNKS))
+
+
+def split_bf16(x):
+    """float32 ``x`` -> its exact bf16 pieces ``(hi, mid, lo)``, the
+    kernel's split (csrc/quant_matmul.cu): hi = bf16(x), r = x - hi,
+    mid = bf16(r), lo = bf16(r - mid), each rounding to nearest even. x's
+    24 significant bits go 8 + 8 + 8 into the pieces, so
+    hi + mid + lo == x for finite |x| in [2^-103, bf16's largest]."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
 
 
 def dequantize(w, scale=None):

@@ -751,8 +751,13 @@ def _wq_operands(m, k, n, form, seed=0):
 @pytest.mark.parametrize("form", ["w8", "bf16w"])
 @pytest.mark.parametrize("m,k,n", [(5, 64, 48), (1, 300, 16), (37, 260, 112),
                                    (16, 4096, 4096), (128, 4096, 11008), (16, 11008, 4096),
-                                   (16, 4096, 32000)])
+                                   (16, 4096, 32000), (1, 768, 768), (4096, 768, 3072),
+                                   (4096, 3072, 768), (37, 11008, 208), (128, 3072, 1040),
+                                   (5, 4096, 11008)])
 def test_wq_matmul_matches_plain_version(cuda, form, m, k, n):
+    """Every 7B and BERT shape of the path, ragged N tiles (208, 1040: a
+    tile of 80 or 16 columns past the last full 128) and ragged K (260,
+    300: a chunk of 4 or 44 past the last full 64)."""
     from paddle_tpu_torch.ops import quant_matmul as qmm
 
     x, w, s = _wq_operands(m, k, n, form)
@@ -765,16 +770,42 @@ def test_wq_matmul_matches_plain_version(cuda, form, m, k, n):
 
 
 @pytest.mark.parametrize("form", ["w8", "bf16w"])
-def test_wq_matmul_row_bits_do_not_depend_on_m(cuda, form):
-    """A row's sum order is fixed by K alone: its bits are the same in a
-    1-, 16-, 37- and 128-row call (the decode engine's solo = batch)."""
+@pytest.mark.parametrize("scale", [1e30, 1e-30])
+def test_wq_matmul_split_is_exact_at_extreme_scales(cuda, form, scale):
+    """x at 1e30 and 1e-30: the three bf16 pieces still sum to x, so the
+    kernel stays within 1e-4 of its plain version's max."""
     from paddle_tpu_torch.ops import quant_matmul as qmm
 
-    x, w, s = _wq_operands(128, 4096, 1024, form, seed=1)
+    x, w, s = _wq_operands(16, 4096, 1024, form, seed=2)
+    x = x * scale
+    out = qmm.wq_matmul(x, w, s)
+    ref = qmm.wq_matmul_reference(x, w, s)
+    assert torch.isfinite(out).all()
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+
+
+def test_wq_matmul_split_count_is_its_twin(cuda):
+    from paddle_tpu_torch.ops import quant_matmul as qmm
+
+    for k in (64, 260, 768, 3072, 4096, 11008):
+        for n in (16, 208, 768, 3072, 4096, 11008, 32000):
+            assert qmm.kernel_splits(k, n) == qmm.splits(k, n), (k, n)
+
+
+@pytest.mark.parametrize("form", ["w8", "bf16w"])
+@pytest.mark.parametrize("k,n", [(4096, 1024), (768, 3072), (11008, 208)])
+def test_wq_matmul_row_bits_do_not_depend_on_m(cuda, form, k, n):
+    """A row's sum order is fixed by K and N alone: its bits are the same
+    in a 1-, 5-, 16-, 37-, 128- and 4096-row call (the decode engine's
+    solo = batch)."""
+    from paddle_tpu_torch.ops import quant_matmul as qmm
+
+    x, w, s = _wq_operands(4096, k, n, form, seed=1)
     full = qmm.wq_matmul(x, w, s)
-    for m in (1, 16, 37):
+    for m in (1, 5, 16, 37, 128):
         assert torch.equal(qmm.wq_matmul(x[:m], w, s), full[:m])
     assert torch.equal(qmm.wq_matmul(x[7:8], w, s)[0], full[7])
+    assert torch.equal(qmm.wq_matmul(x[4000:4037], w, s), full[4000:4037])
 
 
 def test_wq_matmul_refuses_what_it_does_not_take(cuda):

@@ -120,6 +120,110 @@ def test_plain_version_and_wmatmul():
     assert [n for n, _ in qw.tensors("m")] == ["m", "m.scale"]
 
 
+# ------------------------------------- the kernel's exact split and sum order
+TOL_WQ = 1e-4  # wq_matmul against its plain version, relative to the output's max
+
+
+def _bf16_rne_bits(x):
+    """numpy reference of float32 -> bf16 rounding to nearest even, as the
+    f32 bit pattern with the low half cleared (finite inputs)."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32)
+
+
+def _split_inputs():
+    rng = np.random.RandomState(12)
+    act = (rng.randn(4096) * rng.choice([1e-3, 0.1, 1.0, 30.0], 4096)).astype(np.float32)
+    # at 1e+-30 (the split is exact for |x| in [2^-103, bf16's largest])
+    sign = rng.choice([-1.0, 1.0], (2, 512))
+    huge = (sign[0] * rng.uniform(1.0, 10.0, 512) * 1e30).astype(np.float32)
+    tiny = (sign[1] * rng.uniform(1.0, 10.0, 512) * 1e-30).astype(np.float32)
+    # near ties: the bits below hi's (and below mid's) half-way points
+    top = rng.randint(0x3C000000, 0x42000000, 1024).astype(np.uint32) & 0xFFFF0000
+    top |= rng.randint(0, 2, 1024).astype(np.uint32) << 31
+    low = np.array([0x8000, 0x7FFF, 0x8001, 0x18000, 0x0080, 0x007F, 0x0081, 0x8080,
+                    0x7F80, 0x80FF, 0x0000, 0xFFFF], np.uint32)
+    ties = (top[:, None] | low[None, :]).ravel().view(np.float32)
+    return np.concatenate([act, huge, tiny, ties, np.float32([0.0, -0.0, 1.0, -2.5])])
+
+
+def test_split_bf16_is_exact():
+    """hi + mid + lo == x bitwise at activation scale, at 1e+-30 and at
+    bf16 rounding ties, each piece rounded to nearest even (the device's
+    cvt.rn) from what the one before left."""
+    x = _split_inputs()
+    hi, mid, lo = tqm.split_bf16(torch.from_numpy(x))
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    h, m, lw = (t.float().numpy().astype(np.float64) for t in (hi, mid, lo))
+    assert np.array_equal(h + m + lw, x.astype(np.float64))
+    assert np.array_equal(hi.float().numpy().view(np.uint32), _bf16_rne_bits(x))
+    r = (x.astype(np.float64) - h).astype(np.float32)
+    assert np.array_equal(r.astype(np.float64), x.astype(np.float64) - h)  # exact in f32
+    assert np.array_equal(mid.float().numpy().view(np.uint32), _bf16_rne_bits(r))
+    # lo is what is left, exactly: the three pieces carry 8 + 8 + 8 bits
+    assert np.array_equal(lw, r.astype(np.float64) - m)
+
+
+def _emulate_wq_matmul(x, w, scale):
+    """The kernel's arithmetic on the CPU: x split by ``split_bf16``; K cut
+    into ``splits(K, N)`` ranges of whole ``KC`` chunks; within a range,
+    per k-step of 16, the passes lo, mid and hi each add their 16 exact
+    products to one f32 accumulator with one rounding (the MMA's); the
+    ranges' partials summed in split order, then times the scale."""
+    k, n = w.shape
+    wd = w.double()
+    pieces = [p.double() for p in reversed(tqm.split_bf16(x))]  # lo, mid, hi
+    chunks, s = -(-k // tqm.KC), tqm.splits(k, n)
+    out = None
+    for i in range(s):
+        acc = torch.zeros(x.shape[0], n, dtype=torch.float32)
+        for k0 in range(i * chunks // s * tqm.KC, min(k, (i + 1) * chunks // s * tqm.KC), 16):
+            for p in pieces:
+                acc = (acc.double() + p[:, k0:k0 + 16] @ wd[k0:k0 + 16]).float()
+        out = acc if out is None else out + acc
+    return out if scale is None else out * scale
+
+
+@pytest.mark.parametrize("form", MODES)
+def test_three_pass_emulation_matches_the_plain_version(form):
+    """The kernel's split and sum order, emulated, within TOL_WQ of the
+    plain version (dequantize, then matmul) and of the JAX reference's
+    ``q.astype(f32) * s`` product, at the 7B down projection's K."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(7)
+    m, k, n = 16, 11008, 256
+    x = rng.randn(m, k).astype(np.float32)
+    w = (rng.randn(k, n) * 0.02).astype(np.float32)
+    if form == "w8":
+        q, s = tpt._quantize_array(torch.from_numpy(w), channel_axis=1)
+        rq, rs = ref_pt._quantize_array(w, channel_axis=1)
+        jax_ref = np.asarray(jnp.matmul(x, jnp.asarray(rq).astype(jnp.float32) * rs))
+    else:
+        q, s = torch.from_numpy(w).to(torch.bfloat16), None
+        jax_ref = np.asarray(jnp.matmul(x, jnp.asarray(_np(q)).astype(jnp.float32)))
+    got = _emulate_wq_matmul(torch.from_numpy(x), q.float(), s)
+    ref = tqm.wq_matmul_reference(torch.from_numpy(x), q, s)
+    assert tqm.splits(k, n) > 1  # the emulation crosses split boundaries
+    assert _rel(got, ref) <= TOL_WQ and _rel(got, jax_ref) <= TOL_WQ
+
+
+def test_split_count_depends_on_k_and_n_only():
+    """The twin of the kernel's split count: enough blocks at the decode
+    step's shapes, at most MAX_SPLITS, at least MIN_SPLIT_CHUNKS chunks a
+    split, and never a function of M (it takes none)."""
+    import inspect
+
+    assert list(inspect.signature(tqm.splits).parameters) == ["k", "n"]
+    for k in (64, 260, 768, 3072, 4096, 11008):
+        for n in (16, 208, 768, 3072, 4096, 11008, 32000):
+            s, chunks = tqm.splits(k, n), -(-k // tqm.KC)
+            assert 1 <= s <= tqm.MAX_SPLITS
+            assert s == 1 or chunks // s >= tqm.MIN_SPLIT_CHUNKS
+    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)):
+        assert tqm.splits(k, n) * -(-n // tqm.NT) >= 250
+
+
 # ------------------------------------------------------ Int8Linear, PTQ
 class _JaxMLP(jnn.Layer):
     def __init__(self):
