@@ -207,7 +207,30 @@ Phases, each fatal on failure (exit code 1):
               depth (2 x 13 / 127), both within TOL_WQ of the same
               requests through the same model with wq_matmul's plain
               version in its place, wq_matmul 73 x batches, K1 12 x batches
- 12. summary  a {"kernels": [...]} line, then as the last line
+ 12. translation  Transformer-base (nn.Transformer's defaults: 6 + 6
+              layers, d_model 512, 8 heads, FFN 2048; float32, weights from
+              seed 0) with a 37,000-token embedding tied to the output
+              projection and sinusoidal positions, translating by
+              BeamSearchDecoder + dynamic_decode (beam 4, at most source +
+              50 steps) through TranslationCell, whose states are the
+              decoder's per-layer MHA caches as tuples of tensors: (a) 2
+              sentences of 64 seeded tokens, the card's beams (tokens and
+              parents of every step) equal to the same weights' CPU run,
+              each sentence whole or up to a step where the CPU's beam-th
+              and beam+1-th candidates are within 1e-4, final scores within
+              1e-4 relative; (b) sentence 0's best beam decoded step by step
+              through the caches (K1 at one query) against one
+              teacher-forced forward under the causal mask (the masked
+              path), within 1e-4 of each row's max |logit|; (c) K1 launched
+              6 (the encoder) + 12 x steps; (d) 4 padded sentences of 40-64
+              tokens under src_mask/memory_mask: K1 only in the decoder's
+              self-attention, 6 x steps; (e) 16 sentences x 64 tokens:
+              sentences/s, generated tokens/s, the encoder's ms, the steps'
+              ms (CUDA events as each step starts) beside their least time
+              (weights, caches read, the concat and the reorder's copies),
+              the decode profiled by kernel group (K1, products, concat,
+              reorder, selection) and its idle share
+ 13. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -432,6 +455,16 @@ LLAMA_FORMS = [
 ]
 
 
+# the forms Transformer-base's translation (phase 12) gives K1, float32 on
+# its path: a decode step's single query over the self-attention cache
+# (1..114 rows after the concat) and the cross-attention's static cache (64
+# source rows), 16 sentences x beam 4 x 8 heads of 64; and the encoder's
+# self-attention over 16 sentences of 64 tokens
+TRANSLATION_FORMS = [dict(b=64, h=8, sq=1, sk=sk, d=64, causal=False, p=0.0)
+                     for sk in (1, 37, 64, 114)] + [
+    dict(b=16, h=8, sq=64, sk=64, d=64, causal=False, p=0.0)]
+
+
 def library_reason(c):
     """Why no single PyTorch call computes this case, or None."""
     if c["causal"] and c["sq"] not in (1, c["sk"]):
@@ -451,8 +484,8 @@ def phase_kernels(torch, fa):
     ([batch*12, seq, 64], float32 and bfloat16), at the shape training
     gives it ([64*12, 128, 64] bfloat16, with and without dropout) and at
     the other forms the kernel takes (causal, cross lengths, fully masked
-    rows, ragged tiles, dropout, head_dim 128, single-query decode), each
-    in both dtypes. The library yardstick is one scaled_dot_product_attention
+    rows, ragged tiles, dropout, head_dim 128, single-query decode, Llama's
+    prefill, translation's TRANSLATION_FORMS), each in both dtypes. The library yardstick is one scaled_dot_product_attention
     call (with dropout_p where the case drops, whose RNG differs)."""
     F = torch.nn.functional
     cases = []
@@ -467,7 +500,7 @@ def phase_kernels(torch, fa):
         dict(b=64, h=12, sq=128, sk=128, d=64, dtype="bfloat16", causal=False, p=0.1),
     ]
     forms = FORMS + [dict(b=8, h=1, sq=1, sk=257, d=128, causal=True, p=0.0)]  # decode
-    forms += LLAMA_FORMS
+    forms += LLAMA_FORMS + TRANSLATION_FORMS
     cases += [dict(f, dtype=dt) for f in forms for dt in ("float32", "bfloat16")]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
@@ -1011,11 +1044,12 @@ def phase_serving(torch, fa, port_mods):
                 replies=[(ids, outs) for ids, outs, _, _ in sent])
 
 
-def profile_device(torch, fn, label, top=8, groups=None):
+def profile_device(torch, fn, label, top=8, groups=None, records=None):
     """Where one call of ``fn`` spends its device time: its CUDA-event time,
     then the same call traced with torch.profiler (kernel device time by
     name, the top 8, and by ``groups``, KERNEL_GROUPS by default). Returns
-    (events ms, kernel ms, kernels launched, {group: (ms, kernels)})."""
+    (events ms, kernel ms, kernels launched, {group: (ms, kernels)}); each
+    kernel's (ms, count, full name) is appended to ``records`` if given."""
     from torch.profiler import ProfilerActivity, profile
 
     ms = cuda_ms(torch, fn, iters=1, warmup=0)
@@ -1032,6 +1066,8 @@ def profile_device(torch, fn, label, top=8, groups=None):
         if t > 0:
             kernels.append((t / 1e3, ev.count, ev.key))
     busy = sum(t for t, _, _ in kernels)
+    if records is not None:
+        records.extend(kernels)
     log(f"[profile] {label}: {ms:.3f} ms (CUDA events); kernels {busy:.3f} ms in the "
         "traced call"
         + ("" if kernels else " (the profiler saw no device time: not measured)"))
@@ -3292,6 +3328,372 @@ def phase_quant(torch, fa, qmm, mods, card, eng7, serving):
                 bert_plain_rel=plain_worst, bert_kernel_plain=kernel_plain)
 
 
+# ----------------------------------------------------------------- phase 12
+# Transformer-base (Vaswani et al. 2017, "Attention Is All You Need",
+# Table 3 "base": nn.Transformer's defaults) translating by beam search:
+# the WMT14 en-de shared BPE vocabulary of 37,000 tokens (§5.1), tied
+# embedding and output projection scaled by sqrt(d_model) (§3.4),
+# sinusoidal positions (§3.5), beam 4, at most source + 50 tokens (§6.1)
+MT_VOCAB, MT_SRC, MT_BEAM, MT_EXTRA = 37000, 64, 4, 50
+MT_BOS, MT_EOS, MT_PAD = 0, 1, 2  # source tokens are drawn from 3..vocab-1
+MT_BATCH = 16  # the throughput run: 16 sentences x 64 tokens
+MT_TIE = 1e-4  # (a): a near-tie, two neighbours of a step's beam + 1 best CPU candidates
+TOL_MT_SCORE = 1e-4  # (a): final scores, card vs CPU, relative
+TOL_MT_INCR = 1e-4  # (b): incremental vs full logits, of the row's max |logit|
+# a translation step's kernels: the flash kernel, the products, the cache
+# concat, the state reorder and the beam selection apart
+MT_GROUPS = KERNEL_GROUPS[:1] + KERNEL_GROUPS[3:4] + (
+    # torch.cat: the self-attention K/V caches, and the fused QKV weight
+    ("concat (K/V caches; the fused QKV weight)", ("CatArrayBatchedCopy", "cat_", "Cat")),
+    # index_select's kernel, which embedding lookups run too (a step's one)
+    ("state reorder (index_select), embedding rows", ("vectorized_gather_kernel",
+                                                      "indexSelect", "index_select")),
+    ("beam selection (topk)", ("topk", "TopK", "Topk", "sort", "Sort", "radix")),
+)
+
+
+def sinusoid_table(n, d):
+    """[n, d] float32 sinusoidal positions: sin on the even channels, cos
+    on the odd ones, at wavelengths 10000^(i / d)."""
+    angle = np.arange(n)[:, None] / np.power(10000.0, np.arange(0, d, 2)[None, :] / d)
+    table = np.zeros((n, d), np.float32)
+    table[:, 0::2] = np.sin(angle)
+    table[:, 1::2] = np.cos(angle)
+    return table
+
+
+class TranslationCell:
+    """A Transformer decoder as a beam-search cell, the kind of cell
+    Paddle's translation examples define: [rows] token ids in, the
+    decoder's output at that position out. Its states are one ((k, v),
+    (static_k, static_v)) tuple of tensors per layer (dynamic_decode maps
+    tensors, not objects), rebuilt here into MultiHeadAttention's Cache
+    and StaticCache. A step's position is its incremental cache's length;
+    the token embedding is scaled by sqrt(d_model) and the position added.
+    ``memory_mask`` (or None) is already tiled to the rows."""
+
+    def __init__(self, decoder, embed, pos, memory_mask=None):
+        self.decoder = decoder
+        self.embed = embed
+        self.pos = pos
+        self.memory_mask = memory_mask
+        attn = decoder.layers[0].self_attn
+        self.mha = type(attn)
+        self.scale = attn.embed_dim ** 0.5
+
+    def __call__(self, ids, states):
+        t = states[0][0][0].shape[2]
+        x = self.embed(ids[:, None]) * self.scale + self.pos[t]
+        caches = [(self.mha.Cache(*inc), self.mha.StaticCache(*st)) for inc, st in states]
+        out, new = self.decoder(x, None, None, self.memory_mask, caches)
+        return out[:, -1], tuple(((c.k, c.v), (s.k, s.v)) for c, s in new)
+
+
+def translation_states(decoder, memory):
+    """The decoder's initial states over ``memory`` as tuples of tensors."""
+    return tuple(((c.k, c.v), (s.k, s.v)) for c, s in decoder.gen_cache(memory))
+
+
+def encode(model, embed, pos, src, src_mask=None):
+    """The encoder's memory of source ids [B, S]."""
+    x = embed(src) * (model.d_model ** 0.5) + pos[:src.shape[1]]
+    return model.encoder(x, src_mask)
+
+
+def translate(nn, model, embed, pos, src, src_mask=None, beam=MT_BEAM, max_steps=None,
+              on_step=None, output_fn=None):
+    """Beam search over source ids [B, S] (``src_mask`` [B, 1, 1, S], true
+    where a token is real): (BeamSearchOutput, final states, lengths).
+    ``on_step(ids)`` runs before each decoder step; ``output_fn`` maps the
+    decoder's output to logits (the tied embedding's product by default)."""
+    memory = encode(model, embed, pos, src, src_mask)
+    mmask = None if src_mask is None else src_mask.repeat_interleave(beam, dim=0)
+    cell = TranslationCell(model.decoder, embed, pos, mmask)
+    dec = nn.BeamSearchDecoder(cell, MT_BOS, MT_EOS, beam,
+                               output_fn=output_fn or (lambda h: h @ embed.weight.T))
+    if on_step is not None:
+        step = dec._step
+
+        def _step(ids, states):
+            on_step(ids)
+            return step(ids, states)
+        dec._step = _step
+    return nn.dynamic_decode(dec, inits=translation_states(model.decoder, memory),
+                             max_step_num=max_steps or src.shape[1] + MT_EXTRA,
+                             return_length=True)
+
+
+def replay_selection(torch, decode_mod, logits, batch, beam, end_token):
+    """dynamic_decode's selection replayed over recorded logits (one [B *
+    beam, V] tensor a step, on the CPU): (tokens, parents [T, B, beam],
+    gaps [T, B]). A step's gap is the least relative distance between two
+    neighbours among its beam + 1 best candidates: the beam-th and the
+    beam+1-th decide what is kept, and two inside the beam its order (a
+    swap there renumbers the beams)."""
+    scores = torch.full((batch, beam), -1e9)
+    scores[:, 0] = 0.0
+    finished = torch.zeros((batch, beam), dtype=torch.bool)
+    toks, pars, gaps = [], [], []
+    for lg in logits:
+        v = lg.shape[-1]
+        logp = (lg - decode_mod._logsumexp(lg)).reshape(batch, beam, v)
+        eos_only = torch.full((v,), -1e9)
+        eos_only[end_token] = 0.0
+        logp = torch.where(finished[:, :, None], eos_only, logp)
+        vals, top = torch.topk((scores[:, :, None] + logp).reshape(batch, beam * v), beam + 1,
+                               dim=1)
+        gaps.append(((vals[:, :-1] - vals[:, 1:]).abs() / vals[:, :-1].abs()).amin(dim=1))
+        scores, top = vals[:, :beam], top[:, :beam]
+        parents, tokens = top // v, top % v
+        finished = torch.gather(finished, 1, parents) | (tokens == end_token)
+        toks.append(tokens)
+        pars.append(parents)
+    return torch.stack(toks), torch.stack(pars), torch.stack(gaps)
+
+
+def raw_tokens(torch, fed, final):
+    """Each step's own tokens [T, B, beam]: the ids fed to steps 1..T-1
+    (``fed``, one [B * beam] tensor a step from step 0) and the last
+    step's, which gather_tree leaves in place (``final`` [T, B, beam])."""
+    b, beam = final.shape[1], final.shape[2]
+    return torch.stack([f.reshape(b, beam) for f in fed[1:]] + [final[-1]])
+
+
+def mt_step_cost(rows, t, src, layers, d, ffn, vocab):
+    """(bytes, operations) of one float32 decode step at cache length t:
+    the step's weights (self-attention q/k/v/out, cross-attention q/out,
+    the FFN, the norms; the tied projection) read once, the K/V caches
+    read by attention (t rows self, src rows cross), the concat (t - 1
+    rows read, t written) and the reorder (every cache read and written);
+    operations: 2 per weight a row, 4 * d per attention pair."""
+    w = layers * (6 * d * d + 2 * d * ffn + 13 * d + ffn) + vocab * d
+    cache = layers * 2 * rows * d * 4
+    nbytes = (4 * w + cache * (t + src) + cache * (2 * t - 1) + 2 * cache * (t + src)
+              + 4 * rows * (d + vocab))
+    ops = 2 * rows * w + 4 * rows * layers * d * (t + src)
+    return nbytes, ops
+
+
+def phase_translation(torch, fa, nn, card):
+    """Phase 12 (module docstring): Transformer-base translating by beam
+    search, float32, weights from seed 0."""
+    from paddle_tpu_torch.nn import decode as decode_mod
+
+    t_phase = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    rng = np.random.RandomState(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = time.perf_counter()
+    model = nn.Transformer(device="cuda", generator=gen).eval()
+    # each layer its own weights (the stacks start as copies of one layer)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 2:
+                p.normal_(0.0, (2.0 / sum(p.shape)) ** 0.5, generator=gen)
+    embed = nn.Embedding(MT_VOCAB, model.d_model, device="cuda", generator=gen).eval()
+    with torch.no_grad():
+        embed.weight.normal_(0.0, model.d_model ** -0.5, generator=gen)
+    layers, d = model.decoder.num_layers, model.d_model
+    heads, ffn = model.nhead, model.decoder.layers[0].linear1.weight.shape[1]
+    pos_np = sinusoid_table(2 * (MT_SRC + MT_EXTRA), d)
+    pos = torch.from_numpy(pos_np).cuda()
+    n_params = sum(p.numel() for p in model.parameters()) + embed.weight.numel()
+    max_steps = MT_SRC + MT_EXTRA
+    log(f"[translation] Transformer-base: {model.encoder.num_layers} + {layers} layers, "
+        f"d_model {d}, {heads} heads, FFN {ffn}, vocab {MT_VOCAB} tied, {n_params} parameters "
+        f"(float32, seed 0), built in {time.perf_counter() - t:.1f} s; beam {MT_BEAM}, at most "
+        f"{max_steps} steps")
+
+    def src_ids(n, lengths=None):
+        ids = rng.randint(3, MT_VOCAB, (n, MT_SRC))
+        if lengths is not None:
+            ids[np.arange(MT_SRC)[None, :] >= np.asarray(lengths)[:, None]] = MT_PAD
+        return torch.from_numpy(ids)
+
+    # (a) the card against the CPU at full width and depth; (c) its launches
+    t = time.perf_counter()
+    src = src_ids(2)
+    fed = []
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        fa.launches = 0
+        out, _, lens = translate(nn, model, embed, pos, src.cuda(),
+                                 on_step=lambda ids: fed.append(ids.cpu()))
+        torch.cuda.synchronize()
+        k1 = fa.launches
+    card_s = time.perf_counter() - t
+    steps = out.parent_ids.shape[0]
+    card_final = out.predicted_ids.transpose(0, 1).cpu()  # [T, B, beam]
+    card_tokens = raw_tokens(torch, fed, card_final)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu_embed = copy.deepcopy(embed).to("cpu")
+    cpu_logits = []
+
+    def record(h):
+        lg = h @ cpu_embed.weight.T
+        cpu_logits.append(lg)
+        return lg
+    t = time.perf_counter()
+    with torch.inference_mode():
+        cout, _, clens = translate(nn, cpu_model, cpu_embed, pos.cpu(), src, output_fn=record)
+    cpu_s = time.perf_counter() - t
+    tokens, parents, gaps = replay_selection(torch, decode_mod, cpu_logits, 2, MT_BEAM, MT_EOS)
+    if not (torch.equal(parents, cout.parent_ids)
+            and torch.equal(nn.functional.gather_tree(tokens, parents),
+                            cout.predicted_ids.transpose(0, 1))):
+        fail("translation (a): the replayed selection does not give the CPU run's beams")
+    # a sentence is held whole, or up to its first near-tie of the CPU's
+    # candidates (its steps from there on may differ, and so may the
+    # number of steps, which ends when every beam has finished); where
+    # the runs agree throughout, their final scores are held too
+    whole = steps == tokens.shape[0]
+    worst_score, excused, agree, whole_rows = 0.0, [], True, 0
+    for b in range(2):
+        near = (gaps[:, b] < MT_TIE).nonzero()
+        k = int(near[0]) if len(near) else None
+        n = min(tokens.shape[0] if k is None else k, steps, tokens.shape[0])
+        agree = agree and torch.equal(card_tokens[:n, b], tokens[:n, b]) and torch.equal(
+            out.parent_ids[:n, b].cpu(), parents[:n, b])
+        same = whole and torch.equal(card_tokens[:, b], tokens[:, b]) and torch.equal(
+            out.parent_ids[:, b].cpu(), parents[:, b])
+        if same:
+            whole_rows += 1
+            rel = ((out.scores[b].cpu() - cout.scores[b]).abs()
+                   / cout.scores[b].abs()).max().item()
+            worst_score = max(worst_score, rel)
+            agree = agree and rel <= TOL_MT_SCORE
+        if k is None:
+            agree = agree and same
+        else:
+            excused.append((b, k, gaps[k, b].item()))
+    log(f"[translation] (a) 2 x {MT_SRC} tokens, beam {MT_BEAM}: {steps} steps on the card "
+        f"({card_s:.2f} s) and {tokens.shape[0]} on the CPU ({cpu_s:.2f} s); tokens and parents "
+        f"equal {agree}; near-ties (sentence, step, gap: two neighbours among the CPU's "
+        f"{MT_BEAM + 1} best candidates within {MT_TIE}): "
+        f"{excused or 'none'}; {whole_rows} of 2 sentences equal at every step, their final "
+        f"scores max rel err {worst_score:.3e} (tolerance {TOL_MT_SCORE}); lengths "
+        f"{lens.tolist()} | {card}")
+    if not agree or not torch.isfinite(out.scores).all():
+        fail("translation (a): the card's beams disagree with the CPU's")
+    want = layers + 2 * layers * steps
+    log(f"[translation] (c) K1 launches {k1} (want {layers} encoder + {2 * layers} x {steps} "
+        f"steps = {want})")
+    if k1 != want:
+        fail("translation (c): K1 was not launched once per unmasked attention")
+
+    # (b) incremental = full for sentence 0's best beam
+    y = out.predicted_ids[0, :, 0]
+    with torch.inference_mode():
+        memory = encode(model, embed, pos, src[:1].cuda())
+        cell = TranslationCell(model.decoder, embed, pos)
+        states = translation_states(model.decoder, memory)
+        ids = torch.full((1,), MT_BOS, dtype=torch.int64, device="cuda")
+        fa.launches = 0
+        incr = []
+        for i in range(steps):
+            h, states = cell(ids, states)
+            incr.append(h @ embed.weight.T)
+            ids = y[i:i + 1]
+        incr_k1 = fa.launches
+        incr = torch.cat(incr)
+        tgt_ids = torch.cat([torch.full((1,), MT_BOS, device="cuda", dtype=torch.int64),
+                             y[:-1]])[None]
+        tgt = embed(tgt_ids) * (d ** 0.5) + pos[:steps]
+        mask = nn.Transformer.generate_square_subsequent_mask(steps, device="cuda")
+        full = model.decoder(tgt, memory, mask)[0] @ embed.weight.T
+    incr_err = ((incr - full).abs().amax(-1) / full.abs().amax(-1)).max().item()
+    log(f"[translation] (b) sentence 0's best beam, {steps} steps: incremental (K1, {incr_k1} "
+        f"launches) vs one teacher-forced forward under the causal mask: max err / row max "
+        f"|logit| {incr_err:.3e} (tolerance {TOL_MT_INCR})")
+    if incr_err > TOL_MT_INCR or incr_k1 != 2 * layers * steps:
+        fail("translation (b): incremental decoding disagrees with the full forward")
+
+    # (d) a padded batch: the encoder and cross-attention masked, the
+    # decoder's self-attention through K1
+    lengths = rng.randint(40, MT_SRC + 1, 4)
+    lengths[0] = MT_SRC
+    psrc = src_ids(4, lengths).cuda()
+    keep = (torch.arange(MT_SRC, device="cuda")[None, :]
+            < torch.from_numpy(lengths).cuda()[:, None])[:, None, None, :]
+    with torch.inference_mode():
+        fa.launches = 0
+        pout, _, plens = translate(nn, model, embed, pos, psrc, keep)
+        torch.cuda.synchronize()
+        pk1 = fa.launches
+    psteps = pout.parent_ids.shape[0]
+    pok = (tuple(pout.predicted_ids.shape) == (4, psteps, MT_BEAM) and psteps <= max_steps
+           and bool(torch.isfinite(pout.scores).all()) and pk1 == layers * psteps)
+    log(f"[translation] (d) padded batch, lengths {lengths.tolist()}: {psteps} steps, lengths "
+        f"out {plens[:, 0].tolist()}; K1 launches {pk1} (want {layers} x {psteps}: none in the "
+        "masked encoder and cross-attention)")
+    if not pok:
+        fail("translation (d): the padded batch did not decode through the expected paths")
+
+    # (e) throughput at 16 sentences x 64 tokens, beam 4; step times by
+    # CUDA events recorded as each step starts
+    src = src_ids(MT_BATCH).cuda()
+    with torch.inference_mode():
+        translate(nn, model, embed, pos, src, max_steps=4)  # warm
+        enc_ms = cuda_ms(torch, lambda: encode(model, embed, pos, src), iters=10)
+        events = []
+
+        def mark(_ids):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        torch.cuda.synchronize()
+        fa.launches = 0
+        t = time.perf_counter()
+        tout, _, tlens = translate(nn, model, embed, pos, src, on_step=mark)
+        mark(None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        tk1 = fa.launches
+    tsteps = tout.parent_ids.shape[0]
+    # spans between step starts; the last one also holds the backtrack
+    # (gather_tree) after the loop
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    decode_ms = events[0].elapsed_time(events[-1])
+    rows = MT_BATCH * MT_BEAM
+    cost = [mt_step_cost(rows, i + 1, MT_SRC, layers, d, ffn, MT_VOCAB)
+            for i in range(tsteps)]
+    b_bytes = sum(c[0] for c in cost) / HBM_BYTES_PER_S * 1e3
+    b_ops = sum(c[1] for c in cost) / PEAK_OPS_PER_S["float32"] * 1e3
+    bound, bound_by = (b_ops, "operations") if b_ops > b_bytes else (b_bytes, "bytes")
+    gen_tokens = int(tlens[:, 0].sum())
+    log(f"[translation] (e) {MT_BATCH} sentences x {MT_SRC} tokens, beam {MT_BEAM}: "
+        f"{tsteps} steps in {wall:.3f} s: {MT_BATCH / wall:.2f} sentences/s, {gen_tokens / wall:.1f} "
+        f"generated tokens/s (the best beams' lengths, {gen_tokens} tokens; "
+        f"{rows * tsteps / wall:.1f} beam-tokens/s); encoder {enc_ms:.3f} ms (CUDA events); "
+        f"decode {decode_ms:.3f} ms, a step {decode_ms / tsteps:.3f} ms on average (first "
+        f"{step_ms[0]:.3f}, middle {step_ms[tsteps // 2]:.3f}, second last {step_ms[-2]:.3f}, "
+        f"last with the backtrack {step_ms[-1]:.3f} ms; CUDA events); the steps' least time {bound:.3f} ms ({bound_by}; bytes {b_bytes:.3f}, "
+        f"operations {b_ops:.3f}) = {100 * bound / decode_ms:.1f}% of it; K1 launches {tk1} | "
+        f"{card}")
+    if tk1 != layers + 2 * layers * tsteps or not torch.isfinite(tout.scores).all():
+        fail("translation (e): the throughput run's K1 launches or scores are off")
+    records = []
+    with torch.inference_mode():
+        ms, busy, kernels, groups = profile_device(
+            torch, lambda: translate(nn, model, embed, pos, src), "the 16 x 64 translation "
+            f"(encoder and {tsteps} steps)", top=12, groups=MT_GROUPS, records=records)
+    idle = 1.0 - busy / ms if ms else None
+    for t_ms, n, name in sorted(r for r in records if "CatArray" in r[2]):
+        log(f"    [concat] {t_ms:8.3f} ms x{n:<5d} {name[:200]}")
+    log(f"[translation] a mean step's kernels: {busy / tsteps:.3f} ms in {kernels / tsteps:.1f} "
+        "kernels; " + "; ".join(f"{g} {v[0] / tsteps:.3f} ms" for g, v in
+                                sorted(groups.items(), key=lambda kv: -kv[1][0]))
+        + f"; device idle {100 * idle:.1f}% of the translation's {ms:.3f} ms (CUDA events) | "
+        f"{card}")
+    del cpu_model, cpu_embed
+    log(f"[translation] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=k1 + incr_k1 + pk1 + tk1, steps=tsteps, enc_ms=enc_ms,
+                decode_ms=decode_ms, step_ms=decode_ms / tsteps, sentences_per_s=MT_BATCH / wall,
+                tokens_per_s=gen_tokens / wall, bound_ms=bound, bound_by=bound_by, idle=idle,
+                groups={g: v[0] / tsteps for g, v in groups.items()}, score_err=worst_score,
+                incr_err=incr_err)
+
+
 # ------------------------------------------------------- the chunk sweep
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
@@ -3478,6 +3880,8 @@ def main():
                                          PredictorServer, wire_spec, obs, quantization, Graph),
                         card, eng, serving)
     took("quant")
+    mt = phase_translation(torch, fa, nn, card)
+    took("translation")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -3517,6 +3921,13 @@ def main():
     # product as the headline
     wq_main = next(r for r in quant["kernel_cases"] if r["form"] == "w8"
                    and r["m"] == ENGINE_SLOTS and r["n"] == 11008)
+    # K1's float32 forms in phase 12's translation: the encoder's, a
+    # decode step's cross-attention (64 source rows) and its self-attention
+    # at the first, a middle and the last cache length of the 114 steps
+    mt_forms = {f"mt_{name}_f32_": next(r for r in cases if r["dtype"] == "float32"
+                                        and r["h"] == 8 and r["sq"] == sq and r["sk"] == sk)
+                for name, sq, sk in (("encoder", 64, 64), ("cross", 1, 64), ("self_sk1", 1, 1),
+                                     ("self_sk37", 1, 37), ("self_sk114", 1, 114))}
 
     def timing(r, suffix=""):
         # ms: CUDA events over back-to-back calls; device_ms: the kernels'
@@ -3542,7 +3953,7 @@ def main():
              replaces=kernels[0]["replaces"],
              launches=(serving["launches"] + train["counts"]["fwd"] + gen["launches"]
                        + eng["launches"] + reuse["launches"] + spec["launches"]
-                       + robust["launches"] + quant["launches"]),
+                       + robust["launches"] + quant["launches"] + mt["launches"]),
              # phase 10's: its 7B windows (faults, retries, telemetry) and
              # its BERT batches
              robust_launches=robust["launches"],
@@ -3569,7 +3980,10 @@ def main():
                       same_bits_wider=f32_step["same_bits_wider"],
                       same_bits_other_lengths=f32_step["same_bits_other_lengths"]),
              **fields(f32_fill, "engine_fill_f32_", launches=quant["modes"]["f32"]["k1_fill"],
-                      same_bits_wider=f32_fill["same_bits_wider"])),
+                      same_bits_wider=f32_fill["same_bits_wider"]),
+             # phase 12: its four runs' launches (encoders, 12 a step)
+             mt_launches=mt["launches"],
+             **{k: v for prefix, r in mt_forms.items() for k, v in fields(r, prefix).items()}),
         dict(name=kernels[1]["name"], route="cuda", source=kernels[1]["source"],
              replaces=kernels[1]["replaces"], launches=train["counts"]["bwd_dq"],
              **bwd(bmain, "dq"), **bwd(bf32, "dq", "f32_")),

@@ -1,6 +1,9 @@
 """Layers and functional ops of the port (counterpart of paddle_tpu.nn)."""
 from . import functional  # noqa: F401
 from .clip import ClipGradByGlobalNorm  # noqa: F401
-from .layers import (Dropout, Embedding, LayerList, LayerNorm, Linear,  # noqa: F401
-                     MultiHeadAttention, Transformer, TransformerEncoder,
-                     TransformerEncoderLayer)
+from .decode import BeamSearchDecoder, dynamic_decode  # noqa: F401
+from .layers import (BiRNN, Dropout, Embedding, GRU, GRUCell, LSTM,  # noqa: F401
+                     LSTMCell, LayerList, LayerNorm, Linear, MultiHeadAttention,
+                     RNN, RNNCellBase, SimpleRNN, SimpleRNNCell, Transformer,
+                     TransformerDecoder, TransformerDecoderLayer,
+                     TransformerEncoder, TransformerEncoderLayer)

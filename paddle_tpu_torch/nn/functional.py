@@ -1,7 +1,7 @@
-"""The functional ops of the BERT and Llama/GPT paths (counterpart of
-the matching entries of paddle_tpu/nn/functional.py). Each casts its
-inputs as the active auto_cast does for the reference op of the same
-name (amp/auto_cast.py)."""
+"""The functional ops of the BERT, Llama/GPT and seq2seq paths
+(counterpart of the matching entries of paddle_tpu/nn/functional.py).
+Each casts its inputs as the active auto_cast does for the reference op
+of the same name (amp/auto_cast.py)."""
 import math
 
 import torch
@@ -140,3 +140,16 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     return attn_ops.scaled_dot_product_attention(
         q, k, v, attn_mask=attn_mask, dropout_p=dropout_p,
         is_causal=is_causal, training=training)
+
+
+def gather_tree(ids, parents):
+    """Beam-search backtrack: ``ids`` and ``parents`` [T, B, beam]
+    (integers); returns [T, B, beam] where each final beam's whole
+    sequence is found by following its parent pointers back from step
+    T - 1, on the tensors' device."""
+    idx = torch.arange(ids.shape[2], device=ids.device).expand(ids.shape[1], -1)
+    out = torch.empty_like(ids)
+    for t in range(ids.shape[0] - 1, -1, -1):
+        out[t] = torch.gather(ids[t], 1, idx)
+        idx = torch.gather(parents[t], 1, idx).long()
+    return out

@@ -1,9 +1,9 @@
-"""The default initializers of Linear, Embedding, LayerNorm and RMSNorm
-(counterpart of paddle_tpu/nn/initializer.py). A draw takes the device of
-its ``torch.Generator``: by default the CPU, then the weights move to the
-target device, so a seed gives the same weights on every device; a CUDA
-generator draws on the card, so a 7B model never passes through host
-memory."""
+"""The default initializers of Linear, Embedding, LayerNorm, RMSNorm and
+the RNNs (counterpart of paddle_tpu/nn/initializer.py). A draw takes the
+device of its ``torch.Generator``: by default the CPU, then the weights
+move to the target device, so a seed gives the same weights on every
+device; a CUDA generator draws on the card, so a 7B model never passes
+through host memory."""
 import math
 
 import torch
@@ -34,6 +34,17 @@ class Normal:
         gen = generator or random_core.default_generator()
         x = torch.randn(tuple(shape), generator=gen, device=gen.device)
         return x.mul_(self.std).add_(self.mean)
+
+
+class Uniform:
+    def __init__(self, low=-1.0, high=1.0):
+        self.low = low
+        self.high = high
+
+    def __call__(self, shape, generator=None):
+        gen = generator or random_core.default_generator()
+        x = torch.rand(tuple(shape), generator=gen, device=gen.device)
+        return x.mul_(self.high - self.low).add_(self.low)
 
 
 class XavierNormal:

@@ -3,12 +3,15 @@
 ``mha_bwd_reference``, wq_matmul (quantized serving's dequantizing
 product) against ``wq_matmul_reference``, their refusals, the BERT
 forward, a training step and Llama's cached decode through them, the
-decode paths captured as CUDA graphs against their eager runs, and a
-quantized Llama engine's solo = batch. Needs a CUDA card (marker ``gpu``; skipped without one).
+decode paths captured as CUDA graphs against their eager runs, a
+quantized Llama engine's solo = batch, and K1's translation forms with a
+small beam search against the CPU. Needs a CUDA card (marker ``gpu``; skipped without one).
 This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -865,3 +868,52 @@ def test_quantized_llama_engine_on_the_card_batch_equals_solo(cuda, mode):
         on_cpu = [eng.generate(p, max_new_tokens=7, timeout=300) for p in prompts]
     for t, a, e, c in zip(together, alone, eager, on_cpu):
         assert t.tolist() == a.tolist() == e.tolist() == c.tolist()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,sq,sk", [(512, 1, 1), (512, 1, 37), (512, 1, 64), (512, 1, 114),
+                                      (128, 64, 64)])
+def test_k1_translation_forms(cuda, dtype, bh, sq, sk):
+    """K1's forms on Transformer-base's translation path, head_dim 64, no
+    mask: a decode step's single query over the self-attention cache
+    (1..114 rows after the concat) or the cross-attention's 64 source
+    rows, and the encoder's [16 * 8, 64, 64]; K/V made by torch.cat and
+    reordered by index_select as the decode step makes them."""
+    q, k, v = _qkv(bh, sq, sk, 64, dtype, seed=sk)
+    order = torch.randperm(bh, device="cuda")
+    k, v = (torch.cat([t[:, :0], t], dim=1).index_select(0, order) for t in (k, v))
+    before = fa.launches
+    o, lse = fa._fwd(q, k, v, 0, 0.125, False, 0.0)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ro, rlse = fa.mha_reference(q, k, v, 0, 0.125, False, 0.0)
+    assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - rlse).abs().max().item() <= 1e-4
+
+
+def test_small_translation_on_the_card_matches_the_cpu(cuda):
+    """chip_smoke.translate at d_model 64, one head of 64, float32: the
+    card's beams equal the CPU run of the same weights, K1 launched once
+    per attention (none is masked)."""
+    import chip_smoke
+    from paddle_tpu_torch import nn as tnn
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    gpu = tnn.Transformer(64, 1, 2, 2, 128, device="cuda", generator=gen).eval()
+    emb = tnn.Embedding(50, 64, device="cuda", generator=gen).eval()
+    with torch.no_grad():
+        emb.weight.mul_(0.125)
+    cpu, cemb = (m.to("cpu") for m in (copy.deepcopy(gpu), copy.deepcopy(emb)))
+    pos = torch.from_numpy(chip_smoke.sinusoid_table(64, 64))
+    src = torch.from_numpy(np.random.RandomState(2).randint(3, 50, (2, 10)))
+    before = fa.launches
+    with torch.inference_mode():
+        out, _, lens = chip_smoke.translate(tnn, gpu, emb, pos.cuda(), src.cuda(), beam=3,
+                                            max_steps=12)
+        steps = out.parent_ids.shape[0]
+        assert fa.launches == before + 2 + 2 * 2 * steps
+        cout, _, clens = chip_smoke.translate(tnn, cpu, cemb, pos, src, beam=3, max_steps=12)
+    assert torch.equal(out.predicted_ids.cpu(), cout.predicted_ids)
+    assert torch.equal(out.parent_ids.cpu(), cout.parent_ids)
+    assert torch.equal(lens.cpu(), clens)
+    assert ((out.scores.cpu() - cout.scores).abs() / cout.scores.abs()).max().item() <= 1e-4
