@@ -28,7 +28,10 @@ Phases, each fatal on failure (exit code 1):
               fill: 64 queries of head_dim 128 over 32 heads, causal over
               the first 64 or 128 rows of a longer staging buffer, read
               in place), whose rows keep their bits when the operand is 64
-              rows wider
+              rows wider; the training forms of phases 13 and 14
+              (TRAIN_FORMS: causal head_dim 128 at seq 2048, and 48 or 64
+              queries over 64 keys with dropout 0.1), K1, K2 and K3; the
+              dropout placement at Sq != Sk too
   4. serving  full-width BERT-base (random weights from a seed, float32)
               behind PredictorServer + BatchingEngine on localhost: 1-, 2-
               and 3-row requests at seq 128 and 512, then a burst of 8
@@ -230,7 +233,40 @@ Phases, each fatal on failure (exit code 1):
               (weights, caches read, the concat and the reorder's copies),
               the decode profiled by kernel group (K1, products, concat,
               reorder, selection) and its idle share
- 13. summary  a {"kernels": [...]} line, then as the last line
+ 13. lm training  Llama-374M pretraining at bench.py's shape (run_llama:
+              LLAMA_374M = vocab 32000, hidden 1024, 24 layers, 8 heads of
+              128, FFN 2816; seq 2048, batch 8, O1 bf16, AdamW(3e-4, weight
+              decay 0.1, ClipGradByGlobalNorm(1.0)), the mean NLL of seeded
+              random labels; weights from seed 0) through build_train_step,
+              the causal attention through K1 forward and K2/K3 backward at
+              [64, 2048, 128]: (a) full width at depth 2, one O0 float32
+              step of batch 1 on the card and on the CPU from the same
+              weights, batch and key, held to phase 5's bounds; (b) 3
+              warm-up and 20 O1 steps at batch 8 on one batch, the loss
+              finite and falling; (c) K1, K2 and K3 each launched 24 times
+              a step; (d) one recompute=True step against the plain step
+              on (b)'s state: the loss bitwise equal, the gradients within
+              1e-5 of their max, K1 twice a layer, each step's peak memory;
+              (e) one O1 step profiled (kernels by group, the idle share).
+              Printed: the step's ms (median of the timed steps 2-20),
+              tokens/s, the share of the dense bf16 peak by bench.py's
+              FLOP count, peak memory
+ 14. mt training  Transformer-base (phase 12's model, translation_model)
+              trained on the paper's recipe: teacher forcing, label
+              smoothing 0.1 (label_smooth over one_hot, soft-label cross
+              entropy), Adam(0.9, 0.98, 1e-9) under NoamDecay(512, 4000)
+              started at its peak (last_epoch 3999), dropout 0.1
+              everywhere, attention included: (a) one O0 float32 step of 4
+              pairs on the card and on the CPU, held to phase 5's bounds;
+              (b) 20 O1 steps of 64 pairs of 64 source and 48 target
+              tokens, the scheduler stepped after each, the loss finite and
+              falling and every step's rate NoamDecay's; (c) K1, K2 and K3
+              each launched 12 times a step (the encoder's self-attention
+              at [512, 64, 64] and the cross-attention at [512, 48, 64
+              keys, 64], with dropout; the decoder's masked self-attention
+              takes the plain softmax); (d) one O1 step profiled. Printed:
+              step ms, source + target tokens/s, peak memory
+ 15. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -244,6 +280,7 @@ It imports nothing of JAX or the JAX package. Run from a directory that
 holds only this file it fails at the import of paddle_tpu_torch.
 """
 import copy
+import gc
 import json
 import os
 import socket
@@ -274,7 +311,6 @@ TOL_GRAD = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL_STEP_LOSS = 1e-4
 TOL_STEP_GRAD = 1e-3
 LR = 1e-4
-TOL_STEP_PARAM = 2.5 * LR
 
 
 def log(msg=""):
@@ -465,6 +501,20 @@ TRANSLATION_FORMS = [dict(b=64, h=8, sq=1, sk=sk, d=64, causal=False, p=0.0)
     dict(b=16, h=8, sq=64, sk=64, d=64, causal=False, p=0.0)]
 
 
+# the training forms of this slice, each in float32 and bfloat16 (the main
+# paths run the first form's bf16 under O1 and the O0 parity steps' f32):
+# Llama-374M pretraining (phase 13), 8 heads of head_dim 128 at seq 2048,
+# causal, at batch 8 and at the parity step's batch 1; Transformer-base
+# training (phase 14) at 64 pairs x 8 heads of 64 with attention dropout
+# 0.1, the encoder's self-attention over 64 source tokens and the
+# cross-attention from 48 target tokens to them (Sq != Sk)
+LM_TRAIN_FORMS = [dict(b=b, h=8, sq=2048, sk=2048, d=128, causal=True, p=0.0)
+                  for b in (8, 1)]
+MT_TRAIN_FORMS = [dict(b=64, h=8, sq=sq, sk=64, d=64, causal=False, p=0.1)
+                  for sq in (64, 48)]
+TRAIN_FORMS = LM_TRAIN_FORMS + MT_TRAIN_FORMS
+
+
 def library_reason(c):
     """Why no single PyTorch call computes this case, or None."""
     if c["causal"] and c["sq"] not in (1, c["sk"]):
@@ -485,7 +535,8 @@ def phase_kernels(torch, fa):
     gives it ([64*12, 128, 64] bfloat16, with and without dropout) and at
     the other forms the kernel takes (causal, cross lengths, fully masked
     rows, ragged tiles, dropout, head_dim 128, single-query decode, Llama's
-    prefill, translation's TRANSLATION_FORMS), each in both dtypes. The library yardstick is one scaled_dot_product_attention
+    prefill, translation's TRANSLATION_FORMS, the training paths'
+    TRAIN_FORMS), each in both dtypes. The library yardstick is one scaled_dot_product_attention
     call (with dropout_p where the case drops, whose RNG differs)."""
     F = torch.nn.functional
     cases = []
@@ -500,7 +551,7 @@ def phase_kernels(torch, fa):
         dict(b=64, h=12, sq=128, sk=128, d=64, dtype="bfloat16", causal=False, p=0.1),
     ]
     forms = FORMS + [dict(b=8, h=1, sq=1, sk=257, d=128, causal=True, p=0.0)]  # decode
-    forms += LLAMA_FORMS + TRANSLATION_FORMS
+    forms += LLAMA_FORMS + TRANSLATION_FORMS + TRAIN_FORMS
     cases += [dict(f, dtype=dt) for f in forms for dt in ("float32", "bfloat16")]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
@@ -762,7 +813,8 @@ def _rel_err(torch, got, want):
 def phase_bwd_kernels(torch, fa):
     """K2 and K3 against mha_bwd_reference at the shape BERT-base training
     gives them ([batch 64 * 12 heads, 128, 64], bfloat16 under O1, and
-    float32) and at the other forms they take, each in both dtypes. The
+    float32), at the training forms of phases 13 and 14 (TRAIN_FORMS) and
+    at the other forms they take, each in both dtypes. The
     library yardstick is one torch.autograd.grad through
     scaled_dot_product_attention (with dropout_p where the case drops; it
     computes dQ, dK and dV together, as does the plain version)."""
@@ -771,7 +823,8 @@ def phase_bwd_kernels(torch, fa):
              for dt in ("bfloat16", "float32")]
     cases.append(dict(b=64, h=12, sq=128, sk=128, d=64, dtype="bfloat16", causal=False,
                       p=0.1))
-    cases += [dict(f, dtype=dt) for f in FORMS for dt in ("float32", "bfloat16")]
+    cases += [dict(f, dtype=dt) for f in FORMS + TRAIN_FORMS
+              for dt in ("float32", "bfloat16")]
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = []
     log("[bwd kernels] flash_attention_bwd_dq (K2) / _dkv (K3) vs mha_bwd_reference "
@@ -846,34 +899,42 @@ def phase_bwd_kernels(torch, fa):
 def phase_dropout_placement(torch, fa):
     """The dropout mask lands exactly where ``_keep_mask`` keeps: with q =
     k = 0 every p is 1/sk, so with V = I (sk = d) K1's O is non-zero
-    exactly at the kept (row, col); with dO = I (sq = d) K3's dV is
-    non-zero exactly at the transposed mask. For K2, q = 0, K = V = I,
-    dO = ones, O = 0 (delta = 0) and LSE = log d give P = 1/d, dS =
-    P * keep / (1 - p) and dQ = scale * dS, non-zero exactly where kept. A
-    tolerance on values alone could miss a mask placed one element off."""
+    exactly at the kept (row, col); with dO = I (its first min(sq, d)
+    columns) K3's dV is non-zero exactly at the transposed mask there. For
+    K2, q = 0, K = V = I, dO = ones, O = 0 (delta = 0) and LSE = log sk
+    give P = 1/sk, dS = P * keep / (1 - p) and dQ = scale * dS, non-zero
+    exactly where kept. Each head_dim at sq = sk = d, and the
+    cross-attention's Sq != Sk form of phase 14 (48 queries over 64 keys,
+    d = 64): the hash is indexed by sk there. A tolerance on values alone
+    could miss a mask placed one element off."""
     p, seed = 0.3, 2024
-    for d in fa.HEAD_DIMS:
+    for d, sq in [(d, d) for d in fa.HEAD_DIMS] + [(64, 48)]:
+        sk = d
         for dt in (torch.float32, torch.bfloat16):
             bh = 6
-            zeros = torch.zeros(bh, d, d, device="cuda", dtype=dt)
+            q0 = torch.zeros(bh, sq, d, device="cuda", dtype=dt)
+            k0 = torch.zeros(bh, sk, d, device="cuda", dtype=dt)
             eye = torch.eye(d, device="cuda", dtype=dt).expand(bh, d, d).contiguous()
-            o, lse = fa._fwd(zeros, zeros, eye, seed, d ** -0.5, False, p)
-            _, _, dv = fa._bwd(zeros, zeros, eye, o, lse, eye, seed, d ** -0.5, False, p)
-            ones = torch.ones_like(zeros)
-            lse_d = torch.full((bh, d, 1), float(np.log(d)), device="cuda")
-            dq, _, _ = fa._bwd(zeros, eye, eye, zeros, lse_d, ones, seed, d ** -0.5, False, p)
+            do_eye = eye[:, :sq].contiguous()
+            o, lse = fa._fwd(q0, k0, eye, seed, d ** -0.5, False, p)
+            _, _, dv = fa._bwd(q0, k0, eye, o, lse, do_eye, seed, d ** -0.5, False, p)
+            ones = torch.ones_like(q0)
+            lse_d = torch.full((bh, sq, 1), float(np.log(sk)), device="cuda")
+            dq, _, _ = fa._bwd(q0, eye, eye, q0, lse_d, ones, seed, d ** -0.5, False, p)
             torch.cuda.synchronize()
-            idx = torch.arange(d, device="cuda")
-            keep = fa._dropout_keep(seed, bh, idx[:, None], idx[None, :], d, p)
+            keep = fa._dropout_keep(seed, bh, torch.arange(sq, device="cuda")[:, None],
+                                    torch.arange(sk, device="cuda")[None, :], sk, p)
             o_ok = torch.equal(o != 0, keep)
             dq_ok = torch.equal(dq != 0, keep)
-            dv_ok = torch.equal(dv != 0, keep.transpose(1, 2))
+            dv_ok = (torch.equal(dv[:, :, :sq] != 0, keep.transpose(1, 2))
+                     and not bool(dv[:, :, sq:].any()))
             kept = keep.float().mean().item()
-            log(f"[dropout placement] d={d} {str(dt)[6:]} p={p}: K1 O non-zero exactly "
-                f"where kept {o_ok}, K2 dQ exactly where kept {dq_ok}, K3 dV at the "
+            log(f"[dropout placement] sq={sq} sk={sk} d={d} {str(dt)[6:]} p={p}: K1 O non-zero "
+                f"exactly where kept {o_ok}, K2 dQ exactly where kept {dq_ok}, K3 dV at the "
                 f"transposed mask {dv_ok} (kept share {kept:.3f})")
             if not (o_ok and dq_ok and dv_ok):
-                fail(f"dropout placement differs from _keep_mask (d={d}, {dt})")
+                fail(f"dropout placement differs from _keep_mask (sq={sq}, sk={sk}, d={d}, "
+                     f"{dt})")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1115,18 +1176,189 @@ def profile_forward(torch, run, ids):
     profile_device(torch, lambda: run(ids), f"forward of {ids.shape[0]} x {ids.shape[1]}")
 
 
+# --------------------------------------------- training: phases 5, 13 and 14
+# a gradient that is 0 but for rounding (the key projection's bias:
+# softmax ignores a per-row constant) is held to this share of the model's
+# largest gradient, as tests/test_torch_seq2seq.py holds it
+TOL_ZERO_GRAD = 1e-5
+# a ReLU gate that the card's and the CPU's runs set apart is a rounding
+# flip when its pre-activation is within this share of the layer's largest
+RELU_FLIP = 1e-6
+
+
+def parity_step(torch, fa, build, model, make_batch, key, lr, label, zero_grads=(),
+                record=None, exempt=None):
+    """One O0 float32 step of ``build(model)`` on the card and of the same
+    weights on the CPU, from the same batch and key, held to phase 5's
+    bounds: loss TOL_STEP_LOSS relative, every first moment / (1 - 0.9)
+    (the clipped gradients) within TOL_STEP_GRAD of its max, every updated
+    parameter within 2.5 * lr. Gradients named by a suffix in
+    ``zero_grads`` are held to TOL_ZERO_GRAD of the model's largest
+    gradient instead. ``record(model)`` names the modules whose outputs
+    both runs keep: ``outputs[device][name]`` lists a module's outputs, one
+    per call, and ``outputs[device][name + ".grad"]`` their gradients.
+    ``exempt(outputs, the CPU batch)`` returns ({parameter: (index, parts)},
+    failures) for the gradient elements that a rounding-level discontinuity
+    explains: where ``parts`` is None those elements are left out of the
+    gradient check; else ``parts[device]`` is the share of them that the
+    discontinuity reaches, taken off each run's gradient at ``index``
+    before the check (in the gradient's units: the step must not clip).
+    Returns the card's kernel launches (K1, K2, K3) and the card's and the
+    CPU's seconds."""
+    cpu_model = copy.deepcopy(model).to("cpu")
+    res, outputs = {}, {}
+
+    def keep(kept, name, out):
+        outs = kept.setdefault(name, [])
+        grads = kept.setdefault(name + ".grad", [])
+        outs.append(out.detach().cpu())
+        grads.append(None)
+        if out.requires_grad:
+            i = len(grads) - 1
+            out.register_hook(lambda g: grads.__setitem__(i, g.detach().cpu()))
+
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        kept = outputs[dev] = {}
+        hooks = [mod.register_forward_hook(
+            lambda mod, args, out, name=name: keep(kept, name, out))
+            for name, mod in (record(m) if record else ())]
+        step, init = build(m)
+        params, state = init()
+        x, y = make_batch(dev)
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        t = time.perf_counter()
+        loss, params, state = step(params, state, x, y, key=key)
+        loss = float(loss)  # a readback: the step has finished
+        secs = time.perf_counter() - t
+        counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        for h in hooks:
+            h.remove()
+        res[dev] = (loss, {n: (st[0] / (1 - 0.9)).cpu() for n, st in state.items()},
+                    {n: p.cpu() for n, p in params.items()}, secs, counts)
+        del step, init, params, state
+    (gl, gg, gp, gs, counts), (cl, cg, cp, cs, _) = res["cuda"], res["cpu"]
+    skip, bad = exempt(outputs, x) if exempt else ({}, [])
+    loss_err = abs(gl - cl) / abs(cl)
+    model_max = max(g.abs().max().item() for g in cg.values())
+    grad_err = {}
+    for n in cg:
+        a, b = gg[n].clone(), cg[n].clone()
+        if n in skip:
+            index, parts = skip[n]
+            if parts is None:
+                a[index] = b[index] = 0.0
+            else:
+                a[index] -= parts["cuda"]
+                b[index] -= parts["cpu"]
+        scale = model_max if n.endswith(tuple(zero_grads)) else b.abs().max().item()
+        tol = TOL_ZERO_GRAD if n.endswith(tuple(zero_grads)) else TOL_STEP_GRAD
+        grad_err[n] = ((a - b).abs().max().item() / max(scale, 1e-30), tol)
+    worst = max(grad_err, key=lambda n: grad_err[n][0] / grad_err[n][1])
+    param_err = max((gp[n] - cp[n]).abs().max().item() for n in cp)
+    log(f"[{label}] (a) O0 parity step: loss card {gl:.6f} cpu {cl:.6f} (rel err "
+        f"{loss_err:.2e}, tolerance {TOL_STEP_LOSS}); clipped gradients of {len(cg)} tensors, "
+        f"worst {grad_err[worst][0]:.2e} ({worst}; tolerance {grad_err[worst][1]} of its "
+        f"{'model' if grad_err[worst][1] == TOL_ZERO_GRAD else 'own'} max); updated "
+        f"parameters max abs err {param_err:.3e} (tolerance 2.5 lr = {2.5 * lr:.2e}); card "
+        f"{gs:.2f} s, cpu {cs:.2f} s (first step, allocation included); launches K1/K2/K3 "
+        f"{counts}")
+    bad += [] if loss_err <= TOL_STEP_LOSS and np.isfinite(gl) else ["loss"]
+    bad += [f"grad {n}" for n, (e, tol) in grad_err.items() if not e <= tol]
+    bad += [] if param_err <= 2.5 * lr else ["updated parameters"]
+    if bad:
+        fail(f"{label} (a): the card's O0 step disagrees with the CPU's: {', '.join(bad)}")
+    return counts, gs, cs
+
+
+def ffn_and_embedding(m):
+    """What ``relu_flip_exemption`` reads from a translation_model's runs:
+    each FFN's pre-activation (``linear1``) and the embedding's lookups."""
+    return [(n, mod) for n, mod in m.named_modules() if n.endswith(".linear1")] + [
+        ("embed", m.embed)]
+
+
+def relu_flip_exemption(torch, model, label):
+    """``parity_step``'s ``exempt`` for a translation_model (recorded by
+    ``ffn_and_embedding``). The FFN's ReLU is not smooth: where the two
+    runs' roundings put a pre-activation of ~1e-7 on either side of 0, the
+    gate passes its gradient on one run only. Such a flip is exempt when it
+    is at the rounding's scale (RELU_FLIP of the layer's largest): the
+    unit's column of linear1's weight gradient and its bias are left out,
+    and so is the lookup side of the tied embedding's rows of the tokens
+    at the flipped positions (their input gradient passes through the gate
+    undiluted): each run's lookup gradient there, its embedding outputs'
+    gradients summed by token, is taken off its own gradient, so the
+    output projection's share of those rows is still held to the bound."""
+    vocab, d_model = model.embed.weight.shape
+
+    def exempt(outputs, x):
+        skip, bad, found = {}, [], []
+        rows = []
+        for name, outs in outputs["cpu"].items():
+            if not name.endswith(".linear1"):
+                continue
+            (h_cpu,), (h_card,) = outs, outputs["cuda"][name]
+            flip = (h_card > 0) != (h_cpu > 0)
+            if not flip.any():
+                continue
+            size = (torch.maximum(h_card.abs(), h_cpu.abs())[flip].max()
+                    / h_cpu.abs().max()).item()
+            b, t, u = flip.nonzero(as_tuple=True)
+            units = sorted(set(u.tolist()))
+            found.append(f"{name} units {units} at |h| {size:.1e} of its max")
+            if size > RELU_FLIP:
+                bad.append(f"ReLU gates of {name} set apart at |h| {size:.1e} of its max")
+            skip[name + ".weight"] = ((slice(None), units), None)
+            skip[name + ".bias"] = ((units,), None)
+            off = 0 if ".encoder." in name else model.src_len
+            rows += x[b, off + t].tolist()
+        rows = torch.tensor(sorted(set(rows)), dtype=torch.long)
+        if len(rows):
+            # the embedding's calls: the source's ids, then the decoder's
+            ids = (x[:, :model.src_len], x[:, model.src_len:])
+            parts = {}
+            for dev, kept in outputs.items():
+                lookup = torch.zeros(vocab, d_model, dtype=torch.float64)
+                for i, g in zip(ids, kept["embed.grad"]):
+                    lookup.index_add_(0, i.reshape(-1).long(), g.reshape(-1, d_model).double())
+                parts[dev] = lookup[rows].float()
+            skip["embed.weight"] = ((rows,), parts)
+        log(f"[{label}] (a) ReLU gates the card and the CPU set apart: "
+            f"{'; '.join(found) or 'none'} (a rounding flip when |h| <= {RELU_FLIP} of the "
+            f"layer's max); the embedding rows of {len(rows)} tokens held without their "
+            "lookup side")
+        return skip, bad
+
+    return exempt
+
+
+def train_steps(torch, step, params, state, x, y, keys, after=None):
+    """One step per key, each timed on the host clock to a synchronize;
+    ``after()`` runs after each step. Returns (params, state, losses as
+    floats, seconds)."""
+    losses, secs = [], []
+    for key in keys:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, params, state = step(params, state, x, y, key=key)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(loss)
+        if after is not None:
+            after()
+    return params, state, [float(v) for v in losses], secs
+
+
+def _median(v):
+    return sorted(v)[len(v) // 2]
+
+
+def _fmt_pct(share):
+    return "not measured" if share is None else f"{100 * share:.1f}%"
+
+
 # ------------------------------------------------------------------ phase 5
 TRAIN_SEQ, TRAIN_PRED, O1_BATCH, O1_STEPS = 128, 20, 64, 20
-# tensors whose clipped gradients the parity step compares
-WATCH = ("inner.bert.embeddings.word_embeddings.weight",
-         "inner.bert.encoder.layers.0.self_attn.q_proj.weight",
-         "inner.bert.encoder.layers.0.self_attn.k_proj.weight",
-         "inner.bert.encoder.layers.0.self_attn.v_proj.weight",
-         "inner.bert.encoder.layers.11.linear1.weight",
-         "inner.bert.encoder.layers.11.linear2.weight",
-         "inner.cls.decoder_bias")
-
-
 def phase_training(torch, fa, mods, card):
     BertForPretraining, nn, optimizer, spmd, prandom = mods
     torch.set_num_threads(os.cpu_count() or 1)
@@ -1169,66 +1401,30 @@ def phase_training(torch, fa, mods, card):
                                device="cuda", generator=torch.Generator().manual_seed(0))
     n_layers = len(model.bert.encoder.layers)
     vocab = model.bert.vocab_size
-    cpu_model = copy.deepcopy(model).to("cpu")
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[training] BertForPretraining: {n_layers} layers, hidden "
         f"{model.bert.hidden_size}, vocab {vocab}, {n_params} parameters (decoder tied "
         f"to the word embeddings), built in {time.perf_counter() - t0:.1f} s")
 
-    fa.launches = fa.dq_launches = fa.dkv_launches = 0  # count the main path only
-    steps_on_card = 0
-
-    # (a) one O0 float32 step on the card and on the CPU
-    x, y = batch(4, vocab)
-    res = {}
-    for dev, m in (("cuda", model), ("cpu", cpu_model)):
-        step, init = build(m, "O0")
-        params, state = init()
-        t = time.perf_counter()
-        loss, params, state = step(params, state, x.to(dev), y.to(dev),
-                                   key=prandom.PRNGKey(0))
-        loss = float(loss)  # a readback: the step has finished
-        secs = time.perf_counter() - t
-        steps_on_card += dev == "cuda"
-        res[dev] = (loss, {n: (state[n][0] / (1 - 0.9)).cpu() for n in WATCH},
-                    {n: p.cpu() for n, p in params.items()}, secs)
-    (gl, gg, gp, gs), (cl, cg, cp, cs) = res["cuda"], res["cpu"]
-    loss_err = abs(gl - cl) / abs(cl)
-    log(f"[training] O0 parity step, batch 4: loss card {gl:.6f} cpu {cl:.6f} "
-        f"(rel err {loss_err:.2e}, tolerance {TOL_STEP_LOSS}); card {gs:.2f} s, cpu "
-        f"{cs:.2f} s (first step, allocation included)")
-    bad = [] if loss_err <= TOL_STEP_LOSS and np.isfinite(gl) else ["loss"]
-    for n in WATCH:
-        err = _rel_err(torch, gg[n], cg[n])
-        ok = err <= TOL_STEP_GRAD
-        bad += [] if ok else [f"grad {n}"]
-        log(f"  clipped grad {n}: rel err {err:.2e} (max |g| "
-            f"{cg[n].abs().max().item():.3e}) {'ok' if ok else 'DISAGREES'}")
-    worst = max((gp[n] - cp[n]).abs().max().item() for n in cp)
-    bad += [] if worst <= TOL_STEP_PARAM else ["updated parameters"]
-    log(f"  updated parameters ({len(cp)} tensors): max abs err {worst:.3e} "
-        f"(tolerance {TOL_STEP_PARAM:.1e} = 2.5 lr)")
-    if bad:
-        fail(f"the card's training step disagrees with the CPU's: {', '.join(bad)}")
-    del cpu_model, res, gg, gp, cg, cp
+    # (a) one O0 float32 step on the card and on the CPU, every gradient
+    # held (the key projections' biases, zero but for rounding, to the
+    # model's largest)
+    a_counts, _, _ = parity_step(
+        torch, fa, lambda m: build(m, "O0"), model,
+        lambda dev: tuple(t.to(dev) for t in batch(4, vocab)), prandom.PRNGKey(0), LR,
+        "training", zero_grads=("k_proj.bias",))
 
     # (b) O1 bf16 steps on one batch, a fresh key per step
     step, init = build(model, "O1")
     params, state = init()
     x, y = (t.to("cuda") for t in batch(O1_BATCH, vocab))
     torch.cuda.reset_peak_memory_stats()
-    losses, secs = [], []
-    for i in range(O1_STEPS):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        loss, params, state = step(params, state, x, y,
-                                   key=prandom.fold_in(prandom.PRNGKey(0), i))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t)
-        losses.append(loss)
-    steps_on_card += O1_STEPS
-    losses = [float(v) for v in losses]
-    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0  # count the main path only
+    params, state, losses, secs = train_steps(
+        torch, step, params, state, x, y,
+        [prandom.fold_in(prandom.PRNGKey(0), i) for i in range(O1_STEPS)])
+    steps_on_card = 1 + O1_STEPS
+    steady = _median(secs[1:])
     tokens = O1_BATCH * TRAIN_SEQ
     log(f"[training] O1 bf16, batch {O1_BATCH} x seq {TRAIN_SEQ}: loss "
         + " ".join(f"{v:.4f}" for v in losses))
@@ -1242,7 +1438,8 @@ def phase_training(torch, fa, mods, card):
         fail(f"O1 training loss did not fall over {O1_STEPS} steps: {losses}")
 
     # (c) every step on the card ran K1, K2 and K3 once per encoder layer
-    counts = dict(fwd=fa.launches, bwd_dq=fa.dq_launches, bwd_dkv=fa.dkv_launches)
+    counts = dict(fwd=fa.launches + a_counts[0], bwd_dq=fa.dq_launches + a_counts[1],
+                  bwd_dkv=fa.dkv_launches + a_counts[2])
     want = n_layers * steps_on_card
     log(f"[training] launches over {steps_on_card} steps on the card: "
         + ", ".join(f"{k} {v}" for k, v in counts.items()) + f" (expected {want} each)")
@@ -1257,7 +1454,7 @@ def phase_training(torch, fa, mods, card):
     step_ms, busy_ms, _, _ = profile_device(torch, one_step,
                                       f"O1 training step, batch {O1_BATCH} x {TRAIN_SEQ}",
                                       top=16)
-    idle = (f"{100 * (1 - busy_ms / step_ms):.1f}%" if busy_ms > 0 else "not measured")
+    idle = _fmt_pct(1 - busy_ms / step_ms if busy_ms > 0 else None)
     log(f"[profile] device idle {idle} of an O1 step (kernel time summed over the "
         "traced step against the CUDA-event time of the step before it)")
     return dict(counts=counts, steps=steps_on_card, step_ms=steady * 1e3,
@@ -3394,6 +3591,66 @@ def translation_states(decoder, memory):
     return tuple(((c.k, c.v), (s.k, s.v)) for c, s in decoder.gen_cache(memory))
 
 
+MT_POSITIONS = 2 * (MT_SRC + MT_EXTRA)  # rows of the sinusoid table
+
+
+def translation_model(torch, nn, device, generator=None, vocab=MT_VOCAB, src_len=MT_SRC,
+                      max_len=MT_POSITIONS, **cfg):
+    """Transformer-base for translation, shared by phase 12 (beam search)
+    and phase 14 (training): ``nn.Transformer(**cfg)`` (its defaults are
+    the base model), a ``vocab``-token embedding scaled by sqrt(d_model) on
+    the way in (§3.4) and tied to the output projection, sinusoidal
+    positions (§3.5, ``sinusoid_table``) and dropout ``cfg["dropout"]``
+    (0.1) on their sum (§5.4). Weights from ``generator``: each 2-D weight
+    of the stacks normal(0, sqrt(2 / (fan_in + fan_out))), so each layer
+    has its own (the stacks start as copies of one layer), the embedding
+    normal(0, d_model^-0.5). ``forward(packed)`` trains by teacher forcing:
+    ``packed`` [B, src_len + T] holds the source ids, then the decoder's T
+    input ids; it returns the logits [B, T, vocab]. ``.transformer``,
+    ``.embed`` and ``.pos(device)`` are what ``translate`` takes."""
+    from paddle_tpu_torch import tensor as pt
+
+    class TranslationModel(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.transformer = nn.Transformer(**cfg, device=device, generator=generator)
+            with torch.no_grad():
+                for p in self.transformer.parameters():
+                    if p.dim() == 2:
+                        p.normal_(0.0, (2.0 / sum(p.shape)) ** 0.5, generator=generator)
+            d = self.transformer.d_model
+            self.embed = nn.Embedding(vocab, d, device=device, generator=generator)
+            with torch.no_grad():
+                self.embed.weight.normal_(0.0, d ** -0.5, generator=generator)
+            self.scale = d ** 0.5
+            self.src_len = src_len
+            self.dropout = cfg.get("dropout", 0.1)
+            # the positions are no parameter and no buffer (the training
+            # step takes no buffers): one copy per device, made at first use
+            self.table = sinusoid_table(max_len, d)
+            self._pos = {}
+
+        def pos(self, device):
+            key = str(torch.device(device))
+            if key not in self._pos:
+                self._pos[key] = torch.from_numpy(self.table).to(device)
+            return self._pos[key]
+
+        def inputs(self, ids):
+            x = self.embed(ids) * self.scale + self.pos(ids.device)[:ids.shape[1]]
+            return nn.functional.dropout(x, self.dropout, training=self.training)
+
+        def forward(self, packed):
+            src, tgt = packed[:, :self.src_len], packed[:, self.src_len:]
+            memory = self.transformer.encoder(self.inputs(src))
+            mask = nn.Transformer.generate_square_subsequent_mask(tgt.shape[1],
+                                                                  device=tgt.device)
+            out = self.transformer.decoder(self.inputs(tgt), memory, mask)
+            return pt.matmul(out, self.embed.weight, transpose_y=True)
+
+    return TranslationModel()
+
+
 def encode(model, embed, pos, src, src_mask=None):
     """The encoder's memory of source ids [B, S]."""
     x = embed(src) * (model.d_model ** 0.5) + pos[:src.shape[1]]
@@ -3484,19 +3741,10 @@ def phase_translation(torch, fa, nn, card):
     rng = np.random.RandomState(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t = time.perf_counter()
-    model = nn.Transformer(device="cuda", generator=gen).eval()
-    # each layer its own weights (the stacks start as copies of one layer)
-    with torch.no_grad():
-        for p in model.parameters():
-            if p.dim() == 2:
-                p.normal_(0.0, (2.0 / sum(p.shape)) ** 0.5, generator=gen)
-    embed = nn.Embedding(MT_VOCAB, model.d_model, device="cuda", generator=gen).eval()
-    with torch.no_grad():
-        embed.weight.normal_(0.0, model.d_model ** -0.5, generator=gen)
+    tm = translation_model(torch, nn, "cuda", gen).eval()
+    model, embed, pos = tm.transformer, tm.embed, tm.pos("cuda")
     layers, d = model.decoder.num_layers, model.d_model
     heads, ffn = model.nhead, model.decoder.layers[0].linear1.weight.shape[1]
-    pos_np = sinusoid_table(2 * (MT_SRC + MT_EXTRA), d)
-    pos = torch.from_numpy(pos_np).cuda()
     n_params = sum(p.numel() for p in model.parameters()) + embed.weight.numel()
     max_steps = MT_SRC + MT_EXTRA
     log(f"[translation] Transformer-base: {model.encoder.num_layers} + {layers} layers, "
@@ -3694,6 +3942,321 @@ def phase_translation(torch, fa, nn, card):
                 incr_err=incr_err)
 
 
+# ----------------------------------------------------------- phases 13 and 14
+# Llama-374M pretraining at bench.py's shape (run_llama, bench.py:676-795):
+# LLAMA_374M (bench.py:192) = vocab 32000, hidden 1024, 24 layers, 8 heads of
+# head_dim 128, FFN 2816; seq 2048, batch 8 (the first candidate of its
+# sweep), O1 bf16, AdamW(3e-4, weight decay 0.1, ClipGradByGlobalNorm(1.0)),
+# the mean NLL of seeded random labels (bench.py:712-715), one batch
+LM_CFG = dict(vocab_size=32000, hidden_size=1024, num_layers=24, num_heads=8,
+              intermediate_size=2816)
+LM_SEQ, LM_BATCH, LM_LR, LM_WD = 2048, 8, 3e-4, 0.1
+LM_WARMUP, LM_STEPS = 3, 20
+LM_PARITY_LAYERS = 2  # (a): full width at depth 2, batch 1
+TOL_RECOMPUTE_GRAD = 1e-5  # (d): recompute vs not, of each gradient's max
+TRAIN_GROUPS = KERNEL_GROUPS + (
+    ("casts and copies", ("copy_kernel", "Copy", "Memcpy", "cat_", "Cat")),)
+
+
+def bench_flops_per_token(n_params, vocab, hidden, layers, seq):
+    """bench.py run_llama's count (bench.py:764-772): forward = 2 x the
+    matmul parameters (all but the embedding) + causal attention, 4 * seq *
+    hidden * layers / 2; forward + backward = 3 x that."""
+    matmul_params = n_params - vocab * hidden
+    return 3.0 * (2.0 * matmul_params + 4.0 * seq * hidden * layers * 0.5)
+
+
+def phase_lm_training(torch, fa, mods, card):
+    """Phase 13 (module docstring): Llama-374M pretraining."""
+    LlamaModel, nn, optimizer, spmd, prandom = mods
+    t_phase = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    vocab = LM_CFG["vocab_size"]
+
+    def loss_fn(logits, labels):
+        # bench.py's loss: the mean NLL of the labels
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.take_along_dim(logp, labels[..., None].long(), dim=-1).mean()
+
+    def make_batch(b):
+        def on(dev):
+            rng = np.random.RandomState(0)  # bench.py's ids, then labels
+            ids = rng.randint(0, vocab, (b, LM_SEQ)).astype(np.int32)
+            labels = rng.randint(0, vocab, (b, LM_SEQ)).astype(np.int32)
+            return torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev)
+        return on
+
+    def build(model, amp_level="O0", **kw):
+        opt = optimizer.AdamW(LM_LR, parameters=model.parameters(), weight_decay=LM_WD,
+                              grad_clip=nn.ClipGradByGlobalNorm(1.0))
+        return spmd.build_train_step(model, loss_fn, opt, amp_level=amp_level, **kw)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # (a) full width at depth 2, one O0 float32 step, card against CPU
+    small = LlamaModel(**dict(LM_CFG, num_layers=LM_PARITY_LAYERS), max_seq_len=LM_SEQ,
+                       device="cuda", generator=gen)
+    a_counts, _, _ = parity_step(torch, fa, build, small, make_batch(1), prandom.PRNGKey(0),
+                                 LM_LR, "lm training")
+    if a_counts != (LM_PARITY_LAYERS,) * 3:
+        fail(f"lm training (a): K1/K2/K3 launches {a_counts}, want {LM_PARITY_LAYERS} each")
+    del small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) bench.py's run: 3 warm-up and 20 O1 steps at batch 8 x 2048
+    t = time.perf_counter()
+    model = LlamaModel(**LM_CFG, max_seq_len=LM_SEQ, device="cuda", generator=gen)
+    n_layers = len(model.layers)
+    n_params = sum(p.numel() for p in model.parameters())
+    fpt = bench_flops_per_token(n_params, vocab, LM_CFG["hidden_size"], n_layers, LM_SEQ)
+    tokens = LM_BATCH * LM_SEQ
+    least_ms = fpt * tokens / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    log(f"[lm training] Llama-374M: {n_layers} layers, hidden {LM_CFG['hidden_size']}, "
+        f"{LM_CFG['num_heads']} heads, FFN {LM_CFG['intermediate_size']}, vocab {vocab}, "
+        f"{n_params} parameters (seed 0), built in {time.perf_counter() - t:.1f} s; "
+        f"{fpt / 1e9:.3f} GFLOP a token by bench.py's count, a step's least time "
+        f"{least_ms:.2f} ms at the dense bf16 peak")
+    step, init = build(model, "O1")
+    params, state = init()
+    x, y = make_batch(LM_BATCH)("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0  # count the main path only
+    keys = ([prandom.fold_in(prandom.PRNGKey(0), i) for i in range(LM_WARMUP)]
+            + [prandom.fold_in(prandom.PRNGKey(0), 100 + i) for i in range(LM_STEPS)])
+    params, state, losses, secs = train_steps(torch, step, params, state, x, y, keys)
+    counts = dict(fwd=fa.launches, bwd_dq=fa.dq_launches, bwd_dkv=fa.dkv_launches)
+    peak = torch.cuda.max_memory_allocated()
+    steady = _median(secs[LM_WARMUP + 1:])
+    log(f"[lm training] (b) O1 bf16, batch {LM_BATCH} x seq {LM_SEQ}: loss "
+        + " ".join(f"{v:.4f}" for v in losses))
+    log(f"[lm training] (b) O1 step (median of timed steps 2-{LM_STEPS}, host clock to "
+        f"synchronize): {steady * 1e3:.2f} ms, {tokens / steady:.0f} tokens/s, "
+        f"{100 * least_ms / (steady * 1e3):.1f}% of the dense bf16 peak by bench.py's count; "
+        f"first step {secs[0] * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB | {card}")
+    if not all(np.isfinite(losses)):
+        fail(f"lm training (b): the loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"lm training (b): the loss did not fall over {len(losses)} steps: {losses}")
+
+    # (c) every step ran K1, K2 and K3 once per layer
+    want = n_layers * len(keys)
+    log(f"[lm training] (c) launches over {len(keys)} steps: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items()) + f" (want {want} each)")
+    if any(v != want for v in counts.values()):
+        fail(f"lm training (c): kernel launches {counts} != {n_layers} x {len(keys)} steps")
+
+    # (d) recompute=True against the plain step on (b)'s state, undonated
+    plain_step, _ = build(model, "O1", donate=False)
+    rc_step, _ = build(model, "O1", donate=False, recompute=True)
+    key = prandom.PRNGKey(777)
+    out, rc_counts = {}, None
+    for name, fn in (("plain", plain_step), ("recompute", rc_step)):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        loss, _, new_state = fn(params, state, x, y, key=key)
+        torch.cuda.synchronize()
+        rc_counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        out[name] = (loss, {n: st[0] for n, st in new_state.items()},
+                     torch.cuda.max_memory_allocated(), resident, rc_counts)
+        del new_state
+    (lp, mp, pk_p, res_p, _), (lrc, mr, pk_r, res_r, rc_counts) = out["plain"], out["recompute"]
+    same_loss = torch.equal(lp, lrc)
+    worst = 0.0
+    for n, m_old in ((n, st[0]) for n, st in state.items()):
+        g = (mp[n] - 0.9 * m_old) / (1 - 0.9)
+        worst = max(worst, ((mp[n] - mr[n]).abs().max() / (1 - 0.9)
+                            / g.abs().max().clamp_min(1e-30)).item())
+    log(f"[lm training] (d) recompute=True vs the plain step on (b)'s state: loss "
+        f"{float(lp):.6f} / {float(lrc):.6f} bitwise equal {same_loss}; gradients worst rel err "
+        f"{worst:.2e} (tolerance {TOL_RECOMPUTE_GRAD}); K1/K2/K3 launches {rc_counts} (want "
+        f"{2 * n_layers}, {n_layers}, {n_layers}); the step's peak above resident memory: plain "
+        f"{(pk_p - res_p) / 2**30:.2f} GiB, recompute {(pk_r - res_r) / 2**30:.2f} GiB "
+        f"(absolute {pk_p / 2**30:.2f} / {pk_r / 2**30:.2f} GiB) | {card}")
+    if not same_loss or worst > TOL_RECOMPUTE_GRAD or rc_counts != (2 * n_layers, n_layers,
+                                                                    n_layers):
+        fail("lm training (d): the recomputed step differs from the plain one")
+    del out, mp, mr
+
+    # (e) where an O1 step's device time goes
+    def one_step():
+        nonlocal params, state
+        _, params, state = step(params, state, x, y, key=prandom.PRNGKey(999))
+
+    ms, busy, kernels, groups = profile_device(
+        torch, one_step, f"Llama-374M O1 step, batch {LM_BATCH} x {LM_SEQ}", top=16,
+        groups=TRAIN_GROUPS)
+    idle = 1.0 - busy / ms if busy else None
+    log(f"[lm training] (e) device idle {_fmt_pct(idle)} of a profiled O1 step ({ms:.2f} ms "
+        f"by CUDA events, {busy:.2f} ms of kernels, {kernels} kernels); the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del model, step, init, params, state, plain_step, rc_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts=counts, steps=len(keys), parity_counts=a_counts, rc_counts=rc_counts,
+                step_ms=steady * 1e3, tokens_per_s=tokens / steady, least_ms=least_ms,
+                mfu=least_ms / (steady * 1e3), losses=losses, peak_bytes=peak,
+                step_peak_plain=pk_p - res_p, step_peak_recompute=pk_r - res_r, idle=idle,
+                groups={g: v[0] for g, v in groups.items()}, recompute_grad_err=worst)
+
+
+# Transformer-base translation training ("Attention Is All You Need"
+# §5.3-5.4): phase 12's model (translation_model) trained by teacher forcing
+# with label smoothing 0.1, Adam(0.9, 0.98, 1e-9) under NoamDecay(d_model,
+# 4000), dropout 0.1 everywhere; 64 pairs of 64 source and 48 target tokens
+# a step (about one GPU's share of the paper's 25k-token batches). The
+# scheduler starts at last_epoch 3999, so the steps run at its peak rate
+MT_TRAIN_PAIRS, MT_TRAIN_TGT, MT_TRAIN_STEPS, MT_PARITY_PAIRS = 64, 48, 20, 4
+MT_SMOOTH, MT_NOAM_WARMUP = 0.1, 4000
+
+
+def noam_rate(d_model, warmup, step):
+    """NoamDecay's rate at ``step``, from the paper's formula (§5.3)."""
+    step = max(step, 1)
+    return d_model ** -0.5 * min(step ** -0.5, step * warmup ** -1.5)
+
+
+def phase_mt_training(torch, fa, mods, card):
+    """Phase 14 (module docstring): Transformer-base translation training."""
+    nn, optimizer, spmd, prandom = mods
+    F = nn.functional
+    t_phase = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+
+    def loss_fn(logits, labels):
+        soft = F.label_smooth(F.one_hot(labels, MT_VOCAB), epsilon=MT_SMOOTH)
+        return F.cross_entropy(logits, soft, soft_label=True)
+
+    def make_batch(n):
+        def on(dev):
+            rng = np.random.RandomState(1)
+            src = rng.randint(3, MT_VOCAB, (n, MT_SRC))
+            tgt = rng.randint(3, MT_VOCAB, (n, MT_TRAIN_TGT))
+            # teacher forcing: the decoder reads BOS and the target but its last token
+            dec_in = np.concatenate([np.full((n, 1), MT_BOS), tgt[:, :-1]], 1)
+            packed = np.concatenate([src, dec_in], 1).astype(np.int32)
+            return (torch.from_numpy(packed).to(dev),
+                    torch.from_numpy(tgt.astype(np.int32)).to(dev))
+        return on
+
+    def noam():
+        return optimizer.lr.NoamDecay(d_model, MT_NOAM_WARMUP,
+                                      last_epoch=MT_NOAM_WARMUP - 1)
+
+    def build(model):
+        opt = optimizer.Adam(noam(), beta1=0.9, beta2=0.98, epsilon=1e-9,
+                             parameters=model.parameters())
+        return spmd.build_train_step(model, loss_fn, opt)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = time.perf_counter()
+    model = translation_model(torch, nn, "cuda", gen)
+    d_model = model.transformer.d_model
+    layers = model.transformer.encoder.num_layers + model.transformer.decoder.num_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    peak_rate = noam_rate(d_model, MT_NOAM_WARMUP, MT_NOAM_WARMUP)
+    log(f"[mt training] Transformer-base: {n_params} parameters (the embedding tied to the "
+        f"output projection; seed 0), built in {time.perf_counter() - t:.1f} s; label "
+        f"smoothing {MT_SMOOTH}, Adam(0.9, 0.98, 1e-9) under NoamDecay({d_model}, "
+        f"{MT_NOAM_WARMUP}) from step {MT_NOAM_WARMUP}: rate {peak_rate:.4e}; dropout "
+        f"{model.dropout}")
+
+    # (a) one O0 float32 step of 4 pairs, card against CPU, dropout and all,
+    # with the ReLU gates the two runs' roundings set apart exempt
+    # (relu_flip_exemption)
+    a_counts, _, _ = parity_step(torch, fa, build, model, make_batch(MT_PARITY_PAIRS),
+                                 prandom.PRNGKey(0), peak_rate, "mt training",
+                                 zero_grads=("k_proj.bias",), record=ffn_and_embedding,
+                                 exempt=relu_flip_exemption(torch, model, "mt training"))
+    if a_counts != (layers,) * 3:
+        fail(f"mt training (a): K1/K2/K3 launches {a_counts}, want {layers} each (the "
+             "encoder's self-attention and the cross-attention)")
+
+    # (b) 20 O1 steps of 64 pairs, the scheduler stepped after each; the
+    # rate a step takes (the optimizer's) is held to the paper's formula
+    sched = noam()
+    opt = optimizer.Adam(sched, beta1=0.9, beta2=0.98, epsilon=1e-9,
+                         parameters=model.parameters())
+    step, init = spmd.build_train_step(model, loss_fn, opt, amp_level="O1")
+    opt_rates, want_rates = [], []
+
+    def after():
+        sched.step()
+        opt_rates.append(opt.get_lr())
+        want_rates.append(noam_rate(d_model, MT_NOAM_WARMUP, sched.last_epoch))
+
+    opt_rates.append(opt.get_lr())
+    want_rates.append(noam_rate(d_model, MT_NOAM_WARMUP, sched.last_epoch))
+    params, state = init()
+    x, y = make_batch(MT_TRAIN_PAIRS)("cuda")
+    keys = [prandom.fold_in(prandom.PRNGKey(0), i) for i in range(MT_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0  # count the main path only
+    fa.form_launches.clear()
+    params, state, losses, secs = train_steps(torch, step, params, state, x, y, keys, after)
+    counts = dict(fwd=fa.launches, bwd_dq=fa.dq_launches, bwd_dkv=fa.dkv_launches)
+    # the same launches by form: the encoder's self-attention (Sq = Sk =
+    # source) and the cross-attention (Sq = target, Sk = source)
+    forms = {form: {key: fa.form_launches.get((kernel, sq, MT_SRC), 0)
+                    for key, kernel in (("fwd", "fwd"), ("bwd_dq", "dq"), ("bwd_dkv", "dkv"))}
+             for form, sq in (("encoder", MT_SRC), ("cross", MT_TRAIN_TGT))}
+    peak = torch.cuda.max_memory_allocated()
+    steady = _median(secs[1:])
+    tokens = MT_TRAIN_PAIRS * (MT_SRC + MT_TRAIN_TGT)
+    log(f"[mt training] (b) O1 bf16, {MT_TRAIN_PAIRS} pairs x ({MT_SRC} + {MT_TRAIN_TGT}) "
+        "tokens: loss " + " ".join(f"{v:.4f}" for v in losses))
+    log(f"[mt training] (b) rates: first {opt_rates[0]:.6e}, last {opt_rates[-1]:.6e}, each "
+        f"the scheduler's and the paper's formula's: {opt_rates == want_rates}; O1 step "
+        f"(median of steps 2-{MT_TRAIN_STEPS}, host clock to synchronize) {steady * 1e3:.2f} "
+        f"ms, {tokens / steady:.0f} source + target tokens/s; first step "
+        f"{secs[0] * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB | {card}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"mt training (b): the loss is not finite or did not fall: {losses}")
+    if opt_rates != want_rates:
+        fail("mt training (b): the steps' rates are not NoamDecay's")
+
+    # (c) K1, K2, K3 once per unmasked attention a step: the encoder's
+    # self-attention and the decoder's cross-attention (its self-attention
+    # carries the causal mask and takes the plain softmax)
+    want = layers * MT_TRAIN_STEPS
+    bh, head_dim = MT_TRAIN_PAIRS * model.transformer.nhead, d_model // model.transformer.nhead
+    want_form = dict(encoder=model.transformer.encoder.num_layers * MT_TRAIN_STEPS,
+                     cross=model.transformer.decoder.num_layers * MT_TRAIN_STEPS)
+    log(f"[mt training] (c) launches over {MT_TRAIN_STEPS} steps: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items()) + f" (want {want} each); by "
+        f"form: encoder [{bh}, {MT_SRC}, {head_dim}] {forms['encoder']} (want "
+        f"{want_form['encoder']} each), cross [{bh}, {MT_TRAIN_TGT}, {MT_SRC} keys, "
+        f"{head_dim}] {forms['cross']} (want {want_form['cross']} each)")
+    if any(v != want for v in counts.values()) or any(
+            v != want_form[form] for form, c in forms.items() for v in c.values()):
+        fail(f"mt training (c): kernel launches {counts}, by form {forms}; want {want} each, "
+             f"{want_form} by form")
+
+    # (d) where an O1 step's device time goes
+    def one_step():
+        nonlocal params, state
+        _, params, state = step(params, state, x, y, key=prandom.PRNGKey(999))
+
+    ms, busy, kernels, groups = profile_device(
+        torch, one_step, f"Transformer-base O1 step, {MT_TRAIN_PAIRS} pairs", top=16,
+        groups=TRAIN_GROUPS)
+    idle = 1.0 - busy / ms if busy else None
+    log(f"[mt training] (d) device idle {_fmt_pct(idle)} of a profiled O1 step ({ms:.2f} ms "
+        f"by CUDA events, {busy:.2f} ms of kernels, {kernels} kernels); the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del model, step, init, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts=counts, forms=forms, steps=MT_TRAIN_STEPS, parity_counts=a_counts,
+                step_ms=steady * 1e3, tokens_per_s=tokens / steady, losses=losses,
+                rates=opt_rates, peak_bytes=peak, idle=idle,
+                groups={g: v[0] for g, v in groups.items()})
+
+
 # ------------------------------------------------------- the chunk sweep
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
@@ -3870,8 +4433,6 @@ def main():
                                       wire_spec, chaos, obs), card, eng, serving["model"])
     took("robust")
     # phase 10's engines are closed; its (phase 7's) bf16 7B goes before the f32 one comes
-    import gc
-
     eng.pop("model")
     eng.pop("dm")
     gc.collect()
@@ -3882,6 +4443,13 @@ def main():
     took("quant")
     mt = phase_translation(torch, fa, nn, card)
     took("translation")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[memory] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before training")
+    lm = phase_lm_training(torch, fa, (LlamaModel, nn, optimizer, spmd, prandom), card)
+    took("lm training")
+    mtt = phase_mt_training(torch, fa, (nn, optimizer, spmd, prandom), card)
+    took("mt training")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -3929,6 +4497,26 @@ def main():
                 for name, sq, sk in (("encoder", 64, 64), ("cross", 1, 64), ("self_sk1", 1, 1),
                                      ("self_sk37", 1, 37), ("self_sk114", 1, 114))}
 
+    # this slice's training forms (phases 13 and 14): K1-K3 at Llama-374M's
+    # [8 * 8, 2048, 128] bf16 causal (O1) and its parity step's [1 * 8, 2048,
+    # 128] float32, and at Transformer-base's [64 * 8, 64, 64] (encoder) and
+    # [64 * 8, 48, 64 keys, 64] (cross-attention) bf16 with dropout 0.1
+    def train_form(rows, b, sq, dt):
+        return next(r for r in rows if r["h"] == 8 and r["b"] == b and r["sq"] == sq
+                    and r["sk"] == (2048 if sq == 2048 else 64) and r["dtype"] == dt
+                    and r["d"] == (128 if sq == 2048 else 64))
+    lm_o1, lm_o0, mt_enc, mt_cross = (
+        (train_form(cases, b, sq, dt), train_form(bwd_cases, b, sq, dt))
+        for b, sq, dt in ((8, 2048, "bfloat16"), (1, 2048, "float32"), (64, 64, "bfloat16"),
+                          (64, 48, "bfloat16")))
+    # launches of each form on the main paths: phase 13's O1 steps (and its
+    # recompute step's K1 twice) and parity step; phase 14's O1 steps (one
+    # encoder and one cross call a layer each) and parity step (float32)
+    lm_launch = dict(fwd=lm["counts"]["fwd"] + lm["rc_counts"][0],
+                     bwd_dq=lm["counts"]["bwd_dq"] + lm["rc_counts"][1],
+                     bwd_dkv=lm["counts"]["bwd_dkv"] + lm["rc_counts"][2])
+    mt_form = mtt["forms"]  # phase 14's O1 launches by form, counted by the wrapper
+
     def timing(r, suffix=""):
         # ms: CUDA events over back-to-back calls; device_ms: the kernels'
         # own durations from the profiler (what the table in PERF.md uses)
@@ -3953,7 +4541,9 @@ def main():
              replaces=kernels[0]["replaces"],
              launches=(serving["launches"] + train["counts"]["fwd"] + gen["launches"]
                        + eng["launches"] + reuse["launches"] + spec["launches"]
-                       + robust["launches"] + quant["launches"] + mt["launches"]),
+                       + robust["launches"] + quant["launches"] + mt["launches"]
+                       + lm_launch["fwd"] + lm["parity_counts"][0] + mtt["counts"]["fwd"]
+                       + mtt["parity_counts"][0]),
              # phase 10's: its 7B windows (faults, retries, telemetry) and
              # its BERT batches
              robust_launches=robust["launches"],
@@ -3983,13 +4573,26 @@ def main():
                       same_bits_wider=f32_fill["same_bits_wider"]),
              # phase 12: its four runs' launches (encoders, 12 a step)
              mt_launches=mt["launches"],
-             **{k: v for prefix, r in mt_forms.items() for k, v in fields(r, prefix).items()}),
-        dict(name=kernels[1]["name"], route="cuda", source=kernels[1]["source"],
-             replaces=kernels[1]["replaces"], launches=train["counts"]["bwd_dq"],
-             **bwd(bmain, "dq"), **bwd(bf32, "dq", "f32_")),
-        dict(name=kernels[2]["name"], route="cuda", source=kernels[2]["source"],
-             replaces=kernels[2]["replaces"], launches=train["counts"]["bwd_dkv"],
-             **bwd(bmain, "dkv"), **bwd(bf32, "dkv", "f32_")),
+             **{k: v for prefix, r in mt_forms.items() for k, v in fields(r, prefix).items()},
+             # phases 13 and 14: the training forms
+             **fields(lm_o1[0], "lm_train_bf16_", launches=lm_launch["fwd"]),
+             **fields(lm_o0[0], "lm_parity_f32_", launches=lm["parity_counts"][0]),
+             **fields(mt_enc[0], "mt_train_encoder_bf16_", launches=mt_form["encoder"]["fwd"]),
+             **fields(mt_cross[0], "mt_train_cross_bf16_", launches=mt_form["cross"]["fwd"])),
+        *(dict(name=kernels[i]["name"], route="cuda", source=kernels[i]["source"],
+               replaces=kernels[i]["replaces"],
+               launches=(train["counts"][key] + lm_launch[key] + lm["parity_counts"][i]
+                         + mtt["counts"][key] + mtt["parity_counts"][i]),
+               bert_launches=train["counts"][key],
+               **bwd(bmain, which), **bwd(bf32, which, "f32_"),
+               **bwd(lm_o1[1], which, "lm_train_bf16_"), lm_train_bf16_launches=lm_launch[key],
+               **bwd(lm_o0[1], which, "lm_parity_f32_"),
+               lm_parity_f32_launches=lm["parity_counts"][i],
+               **bwd(mt_enc[1], which, "mt_train_encoder_bf16_"),
+               mt_train_encoder_bf16_launches=mt_form["encoder"][key],
+               **bwd(mt_cross[1], which, "mt_train_cross_bf16_"),
+               mt_train_cross_bf16_launches=mt_form["cross"][key])
+          for i, key, which in ((1, "bwd_dq", "dq"), (2, "bwd_dkv", "dkv"))),
         dict(name=kernels[3]["name"], route="cuda", source=kernels[3]["source"],
              replaces=kernels[3]["replaces"], launches=quant["wq_launches"],
              bert_launches=quant["bert_wq_launches"], max_abs_err=wq_main["max_abs_err"],

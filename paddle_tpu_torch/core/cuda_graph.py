@@ -12,7 +12,7 @@ shared memory, all host calls that a capture must not see), then captures
 it. A capture that fails raises; nothing falls back to the eager run.
 
 The kernels' launch counters (``ops/flash_attention.py``,
-``ops/quant_matmul.py``) are Python integers, which a replay never
+``ops/quant_matmul.py``) are Python integers and dicts, which a replay never
 reaches: each ``Graph`` takes back the counts its capture's Python made
 (nothing ran), and credits them again at every replay, so a count stays
 the number of kernels that ran.
@@ -29,12 +29,16 @@ _COUNTERS = ((flash_attention, "launches"), (flash_attention, "dq_launches"),
 
 
 def _counts():
-    return tuple(getattr(mod, name) for mod, name in _COUNTERS)
+    return (tuple(getattr(mod, name) for mod, name in _COUNTERS),
+            dict(flash_attention.form_launches))
 
 
-def _credit(counts):
-    for (mod, name), n in zip(_COUNTERS, counts):
-        setattr(mod, name, getattr(mod, name) + n)
+def _credit(counts, sign=1):
+    totals, forms = counts
+    for (mod, name), n in zip(_COUNTERS, totals):
+        setattr(mod, name, getattr(mod, name) + sign * n)
+    for key, n in forms.items():
+        flash_attention.form_launches[key] = flash_attention.form_launches.get(key, 0) + sign * n
 
 
 class Graph:
@@ -45,6 +49,7 @@ class Graph:
     time. ``pool``: a ``torch.cuda.graph_pool_handle()`` to share with
     other graphs that never replay concurrently, or None for a pool of its
     own. ``launches``: the (K1, K2, K3, wq_matmul) launches one replay makes;
+    ``form_launches``: K1-K3's of them by form (``flash_attention.form_launches``);
     ``capture_ms``: host time of the capture and its instantiation."""
 
     def __init__(self, fn, device, pool=None):
@@ -64,10 +69,13 @@ class Graph:
                 with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
                     self.outputs = fn()
             finally:
-                made = tuple(a - b for a, b in zip(_counts(), before))
-                _credit(tuple(-n for n in made))
+                (totals, forms), (totals0, forms0) = _counts(), before
+                made = (tuple(a - b for a, b in zip(totals, totals0)),
+                        {k: n - forms0.get(k, 0) for k, n in forms.items()
+                         if n != forms0.get(k, 0)})
+                _credit(made, sign=-1)
             self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.launches = made
+        self.launches, self.form_launches = made
         self.replays = 0
 
     def pool(self):
@@ -77,7 +85,7 @@ class Graph:
         with torch.cuda.device(self.device):
             self.graph.replay()
         self.replays += 1
-        _credit(self.launches)
+        _credit((self.launches, self.form_launches))
         return self.outputs
 
 

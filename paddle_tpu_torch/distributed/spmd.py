@@ -19,23 +19,42 @@ written into the given params and state tensors in place, which saves a
 copy of both on the device; the returned dictionaries are the ones passed
 in. With ``donate=False`` the inputs are left as they were.
 
+The optimizer's hypers are read once, for no parameter, as in the
+reference (spmd.py:238): an L1 regularizer adds ``l1 * sign(p)`` to every
+gradient before ``_update``; a parameter's own ``regularizer``,
+``optimize_attr`` and AdamW's ``apply_decay_param_fun`` act only in the
+eager ``Optimizer.step()``. With ``lr=None`` a step takes
+``optimizer.get_lr()``, a scheduler's current rate, as a float32 scalar;
+stepping the scheduler between steps is the caller's.
+
+``recompute=True`` is the reference's ``jax.checkpoint`` around the whole
+loss function (spmd.py:235-236): ``torch.utils.checkpoint.checkpoint``
+(non-reentrant) around the forward and loss, with ``rng_guard(key)``
+entered inside it, so the backward runs the forward again and its dropout
+draws the same keys. It saves no peak memory (the recomputed forward's
+activations are all alive at once again) and runs the forward twice.
+
 Options of the reference that this port does not implement yet raise
-NotImplementedError; none is ignored.
+NotImplementedError (a mesh, ZeRO sharding, fp16 all-reduce, DGC, a
+strategy, offload, ``bad_step_guard``, layers with buffers, and fp16
+mixed precision, which needs the loss scaler and an fp16 form of the
+flash kernels); none is ignored.
 """
 import contextlib
 
 import torch
+import torch.utils.checkpoint
 
 from ..amp.auto_cast import auto_cast
 from ..core import random as random_core
 
 
-def _unsupported(mesh, recompute, shard_optimizer, sharding_stage, fp16_allreduce,
+def _unsupported(mesh, shard_optimizer, sharding_stage, fp16_allreduce,
                  dgc_configs, strategy, offload, bad_step_guard):
     found = []
     if mesh is not None and getattr(mesh, "size", None) != 1:
         found.append("a mesh of more than one device")
-    for flag, name in ((recompute, "recompute"), (shard_optimizer, "shard_optimizer"),
+    for flag, name in ((shard_optimizer, "shard_optimizer"),
                        (sharding_stage, f"sharding_stage={sharding_stage}"),
                        (fp16_allreduce, "fp16_allreduce"), (offload, "offload"),
                        (bad_step_guard, "bad_step_guard")):
@@ -55,7 +74,7 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
                      bad_step_guard=False):
     """One-device training step for ``layer``; ``loss_fn(model_out, y)``
     returns a scalar tensor. See the module docstring."""
-    found = _unsupported(mesh, recompute, shard_optimizer, sharding_stage, fp16_allreduce,
+    found = _unsupported(mesh, shard_optimizer, sharding_stage, fp16_allreduce,
                          dgc_configs, strategy, offload, bad_step_guard)
     if found:
         raise NotImplementedError(
@@ -63,13 +82,18 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
             "training step runs on one device)")
     if amp_level not in ("O0", "O1", "O2"):
         raise ValueError(f"amp_level must be 'O0'|'O1'|'O2', got {amp_level!r}")
+    if amp_level != "O0" and amp_dtype not in ("bfloat16", "bf16"):
+        raise NotImplementedError(
+            f"build_train_step: amp_dtype={amp_dtype!r} not ported yet (fp16 needs the "
+            "loss scaler, amp/grad_scaler.py, and an fp16 form of the flash kernels)")
     if any(True for _ in layer.buffers()):
         raise NotImplementedError("build_train_step: layers with buffers (BatchNorm "
                                   "statistics) are not ported yet")
     amp_enabled = amp_level in ("O1", "O2")
     names = [n for n, _ in layer.named_parameters()]
     hypers = optimizer._hypers()
-    opt_update = type(optimizer)._update
+    l1_coeff = type(optimizer)._take_l1(hypers)
+    update_one = type(optimizer)._update_one
     grad_clip = optimizer._grad_clip
 
     def init_fn():
@@ -86,6 +110,13 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
             out = torch.func.functional_call(layer, leaves, (x,))
             return loss_fn(out, y)
 
+    if recompute:
+        plain_forward_loss = forward_loss
+
+        def forward_loss(leaves, x, y, key):
+            return torch.utils.checkpoint.checkpoint(plain_forward_loss, leaves, x, y, key,
+                                                     use_reentrant=False)
+
     def step_fn(params, opt_state, x, y, key=None, lr=None):
         if key is None:
             key = random_core.PRNGKey(0)
@@ -99,19 +130,23 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
         if grad_clip is not None:
             grads = grad_clip.clip_arrays(grads)
         new_params, new_state = {}, {}
+        lr_t = {}  # one float32 scalar per device
         with torch.no_grad():
             for n, g in zip(names, grads):
                 p = params[n]
-                lr_t = (lr.to(device=p.device, dtype=torch.float32)
+                if p.device not in lr_t:
+                    lr_t[p.device] = (
+                        lr.to(device=p.device, dtype=torch.float32)
                         if isinstance(lr, torch.Tensor)
                         else torch.full((), float(lr), dtype=torch.float32, device=p.device))
-                out = opt_update(p, g.to(p.dtype), lr_t, *opt_state[n], **hypers)
+                new_p, new_st = update_one(p, g.to(p.dtype), lr_t[p.device], opt_state[n],
+                                           hypers, l1_coeff)
                 if donate:
-                    for old, new in zip((p, *opt_state[n]), out):
+                    for old, new in zip((p, *opt_state[n]), (new_p, *new_st)):
                         old.copy_(new)
                     new_params[n], new_state[n] = p, opt_state[n]
                 else:
-                    new_params[n], new_state[n] = out[0], tuple(out[1:])
+                    new_params[n], new_state[n] = new_p, new_st
         return loss.detach(), new_params, new_state
 
     return step_fn, init_fn

@@ -133,6 +133,25 @@ def cross_entropy(input, label, weight=None, ignore_index=-100, reduction="mean"
     return _reduce_loss(loss, reduction)
 
 
+def one_hot(x, num_classes, name=None):
+    """float32 [..., num_classes] one-hot rows of integer ids ``x``; an id
+    outside [0, num_classes) gives a row of zeros, as ``jax.nn.one_hot``
+    in the reference (paddle_tpu/nn/functional.py:189)."""
+    classes = torch.arange(int(num_classes), device=x.device)
+    return (x.long()[..., None] == classes).to(torch.float32)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    """(1 - epsilon) * label + epsilon * prior, the prior uniform (1 / the
+    last axis's size) unless ``prior_dist`` is given (paddle_tpu/nn/
+    functional.py:195)."""
+    (label, prior_dist) = cast_inputs("label_smooth", label, prior_dist)
+    eps = float(epsilon)
+    if prior_dist is None:
+        return (1 - eps) * label + eps / label.shape[-1]
+    return (1 - eps) * label + eps * prior_dist
+
+
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  is_causal=False, training=True):
     """Layout [batch, heads, seq, head_dim]; unmasked calls run the flash

@@ -40,6 +40,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+#: the same launches by form: (kernel "fwd" | "dq" | "dkv", sq, sk) -> count;
+#: clear it to count a run (a graph's replay credits it too)
+form_launches = {}
+
+
+def _count_form(kernel, sq, sk):
+    key = (kernel, sq, sk)
+    form_launches[key] = form_launches.get(key, 0) + 1
 
 # library -> (number of pointer arguments of its launch function, the
 # arguments it takes after the four dimensions: K1 takes K/V's batch-head
@@ -295,6 +303,7 @@ def _fwd(q, k, v, seed, scale, causal, dropout_p, k_len=None, heads=1):
             o.data_ptr(), lse.data_ptr(), bh, sq, sk, d, k_stride, k_len_ptr, int(heads),
             *_kernel_args(seed, scale, causal, dropout_p, q.dtype, q.device))
     launches += 1
+    _count_form("fwd", sq, sk)
     return o, lse
 
 
@@ -328,9 +337,11 @@ def _bwd(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
             delta.data_ptr())
     _launch("flash_attention_bwd_dq", *ptrs, dq.data_ptr(), bh, sq, sk, d, *args)
     dq_launches += 1
+    _count_form("dq", sq, sk)
     _launch("flash_attention_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d,
             *args)
     dkv_launches += 1
+    _count_form("dkv", sq, sk)
     return dq, dk, dv
 
 

@@ -8,6 +8,7 @@ import torch
 
 from .. import nn
 from .. import tensor as pt
+from ..amp.auto_cast import cast_inputs
 from ..core.place import resolve_device
 from ..nn import functional as F
 from ..nn import initializer as I
@@ -204,7 +205,7 @@ class RMSNorm(torch.nn.Module):
         self.eps = eps
 
     def forward(self, x):
-        return rms_norm(x, self.weight, eps=self.eps)
+        return rms_norm(*cast_inputs("rms_norm", x, self.weight), eps=self.eps)
 
 
 def rms_norm(x, w, *, eps=1e-6):
@@ -245,6 +246,15 @@ def _rope(x, base=10000.0, positions=None):
     return _rotate(x, *_rope_tables(x.shape[-1], positions, x.dtype, base))
 
 
+def _promoted(*ts):
+    """The tensors in their promoted dtype, as jnp promotes the operands of
+    one op (bf16 with float32 -> float32)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
 def _repeat_kv(x, rep):
     """GQA: each K/V head serves ``rep`` query heads in a row (the
     reference's ``jnp.repeat`` on the head axis)."""
@@ -268,16 +278,22 @@ class LlamaAttention(torch.nn.Module):
     def forward(self, x):
         b, t, _ = x.shape
         nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
-        q = torch.matmul(x, self.q_proj.weight).reshape(b, t, nh, hd).transpose(1, 2)
-        k = torch.matmul(x, self.k_proj.weight).reshape(b, t, nkv, hd).transpose(1, 2)
-        v = torch.matmul(x, self.v_proj.weight).reshape(b, t, nkv, hd).transpose(1, 2)
+        # the reference's ops "llama_qkv_rope" and "llama_attn_out": cast as
+        # auto_cast casts them (under O1 not at all), their products in the
+        # promoted dtype as jnp promotes (bf16 with float32 -> float32)
+        x, wq, wk, wv = _promoted(*cast_inputs("llama_qkv_rope", x, self.q_proj.weight,
+                                                self.k_proj.weight, self.v_proj.weight))
+        q = torch.matmul(x, wq).reshape(b, t, nh, hd).transpose(1, 2)
+        k = torch.matmul(x, wk).reshape(b, t, nkv, hd).transpose(1, 2)
+        v = torch.matmul(x, wv).reshape(b, t, nkv, hd).transpose(1, 2)
         cos, sin = _rope_tables(hd, torch.arange(t, device=x.device), x.dtype)
         q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
         k, v = _repeat_kv(k, nh // nkv), _repeat_kv(v, nh // nkv)
         # causal attention through the dispatching sdpa: K1 on the card
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                              training=self.training)
-        return torch.matmul(out.transpose(1, 2).reshape(b, t, nh * hd), self.o_proj.weight)
+        out, wo = _promoted(*cast_inputs("llama_attn_out", out, self.o_proj.weight))
+        return torch.matmul(out.transpose(1, 2).reshape(b, t, nh * hd), wo)
 
 
 class LlamaMLP(torch.nn.Module):

@@ -4,8 +4,10 @@
 product) against ``wq_matmul_reference``, their refusals, the BERT
 forward, a training step and Llama's cached decode through them, the
 decode paths captured as CUDA graphs against their eager runs, a
-quantized Llama engine's solo = batch, and K1's translation forms with a
-small beam search against the CPU. Needs a CUDA card (marker ``gpu``; skipped without one).
+quantized Llama engine's solo = batch, K1's translation forms with a
+small beam search against the CPU, and K1-K3 at the training forms with a
+small Llama and Transformer step against the CPU. Needs a CUDA card
+(marker ``gpu``; skipped without one).
 This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -917,3 +919,155 @@ def test_small_translation_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(out.parent_ids.cpu(), cout.parent_ids)
     assert torch.equal(lens.cpu(), clens)
     assert ((out.scores.cpu() - cout.scores).abs() / cout.scores.abs()).max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,sq,sk,d,causal,p", [
+    (64, 2048, 2048, 128, True, 0.0),  # Llama-374M pretraining, batch 8 x 8 heads
+    (8, 2048, 2048, 128, True, 0.0),   # its parity step, batch 1
+    (512, 64, 64, 64, False, 0.1),     # Transformer-base training: the encoder
+    (512, 48, 64, 64, False, 0.1),     # its cross-attention, Sq != Sk
+])
+def test_training_forms_match_plain_version(cuda, dtype, bh, sq, sk, d, causal, p):
+    """K1, K2 and K3 at the forms the two training paths give them (causal
+    head_dim 128 at seq 2048; a partial 48-row q tile with the dropout
+    hash indexed by 64 keys) against their plain versions."""
+    q, k, v = _qkv(bh, sq, sk, d, dtype, seed=11)
+    do = torch.randn(bh, sq, d, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(12)).to(dtype)
+    o, lse = fa._fwd(q, k, v, 31, d ** -0.5, causal, p)
+    ro, rlse = fa.mha_reference(q, k, v, 31, d ** -0.5, causal, p)
+    assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    got = fa._bwd(q, k, v, o, lse, do, 31, d ** -0.5, causal, p)
+    want = fa.mha_bwd_reference(q, k, v, o, lse, do, 31, d ** -0.5, causal, p)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dropout_lands_where_the_hash_keeps_at_sq_ne_sk(cuda, dtype):
+    """The cross-attention's form, 48 queries over 64 keys (d = 64): as
+    test_dropout_lands_exactly_where_the_hash_keeps, with dO = the first
+    48 rows of I (K3's dV then shows the transposed mask in its first 48
+    columns and zeros after)."""
+    bh, sq, d, p, seed = 6, 48, 64, 0.3, 2025
+    q0 = torch.zeros(bh, sq, d, device="cuda", dtype=dtype)
+    k0 = torch.zeros(bh, d, d, device="cuda", dtype=dtype)
+    eye = torch.eye(d, device="cuda", dtype=dtype).expand(bh, d, d).contiguous()
+    o, lse = fa._fwd(q0, k0, eye, seed, d ** -0.5, False, p)
+    _, _, dv = fa._bwd(q0, k0, eye, o, lse, eye[:, :sq].contiguous(), seed, d ** -0.5,
+                       False, p)
+    lse_d = torch.full((bh, sq, 1), float(np.log(d)), device="cuda")
+    dq, _, _ = fa._bwd(q0, eye, eye, q0, lse_d, torch.ones_like(q0), seed, d ** -0.5, False, p)
+    keep = fa._dropout_keep(seed, bh, torch.arange(sq, device="cuda")[:, None],
+                            torch.arange(d, device="cuda")[None, :], d, p)
+    assert torch.equal(o != 0, keep)
+    assert torch.equal(dq != 0, keep)
+    assert torch.equal(dv[:, :, :sq] != 0, keep.transpose(1, 2))
+    assert not dv[:, :, sq:].any()
+
+
+def _step_on(dev, model, loss_fn, opt_fn, x, y, key, **kw):
+    from paddle_tpu_torch.distributed import spmd
+
+    step, init = spmd.build_train_step(model, loss_fn, opt_fn(model), **kw)
+    params, state = init()
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    loss, params, state = step(params, state, x.to(dev), y.to(dev), key=key)
+    launched = tuple(a - b for a, b in zip((fa.launches, fa.dq_launches, fa.dkv_launches),
+                                           before))
+    return loss, params, state, launched
+
+
+def _clipped_grads(state, b1=0.9):
+    """The gradients one Adam/AdamW step took, clip included: its first
+    moments / (1 - beta1)."""
+    return {n: (st[0] / (1 - b1)).cpu() for n, st in state.items()}
+
+
+def _assert_grads_close(got, want, tol, zero=()):
+    """Each gradient within ``tol`` of its own max; those named by a suffix
+    in ``zero`` (0 but for rounding: the key projection's bias, which
+    softmax ignores) within 1e-5 of the model's largest gradient."""
+    model_max = max(g.abs().max().item() for g in want.values())
+    for n in want:
+        scale, t = ((model_max, 1e-5) if n.endswith(zero)
+                    else (max(want[n].abs().max().item(), 1e-30), tol))
+        assert (got[n] - want[n]).abs().max().item() <= t * scale, n
+
+
+def test_small_llama_train_step_on_the_card_matches_the_cpu_and_recomputes(cuda):
+    """One O0 step of a small Llama (2 heads of head_dim 128, causal, seq
+    256) on the card and on the CPU: loss within 1e-4 relative, the clipped
+    gradients (AdamW's first moments) within 1e-3 of each tensor's max,
+    parameters within 2.5 * lr; on the card ``recompute=True`` gives the
+    same loss bits, gradients within 1e-5 of their max, parameters within
+    1e-6 and K1 twice a layer."""
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.text.models import LlamaModel
+
+    cfg = dict(vocab_size=300, hidden_size=256, num_layers=2, num_heads=2,
+               intermediate_size=512)
+    gpu = LlamaModel(**cfg, device="cuda", generator=torch.Generator().manual_seed(6))
+    cpu = copy.deepcopy(gpu).to("cpu")
+
+    def loss_fn(logits, y):
+        return -torch.log_softmax(logits.float(), -1).gather(-1, y[..., None].long()).mean()
+
+    def opt_fn(m):
+        return optimizer.AdamW(1e-3, parameters=m.parameters(), weight_decay=0.1,
+                                grad_clip=nn.ClipGradByGlobalNorm(1.0))
+
+    rng = np.random.RandomState(3)
+    x, y = (torch.from_numpy(rng.randint(0, 300, (2, 256))) for _ in range(2))
+    key = prandom.PRNGKey(1)
+    gl, gp, gs, glaunch = _step_on("cuda", gpu, loss_fn, opt_fn, x, y, key)
+    cl, cp, cs, _ = _step_on("cpu", cpu, loss_fn, opt_fn, x, y, key)
+    rl, rp, rs, rlaunch = _step_on("cuda", gpu, loss_fn, opt_fn, x, y, key, recompute=True)
+    assert glaunch == (2, 2, 2) and rlaunch == (4, 2, 2)
+    assert abs(float(gl) - float(cl)) <= 1e-4 * abs(float(cl))
+    assert torch.equal(gl, rl)
+    _assert_grads_close(_clipped_grads(gs), _clipped_grads(cs), 1e-3)
+    _assert_grads_close(_clipped_grads(rs), _clipped_grads(gs), 1e-5)
+    for n in cp:
+        assert (gp[n].cpu() - cp[n]).abs().max().item() <= 2.5e-3, n
+        assert (gp[n] - rp[n]).abs().max().item() <= 1e-6, n
+
+
+def test_small_translation_train_step_on_the_card_matches_the_cpu(cuda):
+    """One O0 step of chip_smoke.translation_model at d_model 64 (one head
+    of 64, dropout 0.1 everywhere, 10 source and 7 target tokens) with
+    label smoothing under NoamDecay: the card's loss within 1e-4 relative
+    of the CPU's, the gradients (Adam's first moments) within 1e-3 of each
+    tensor's max, parameters within 2.5 * lr, K1-K3 at every unmasked
+    attention (the encoder's and the cross-attention's)."""
+    import chip_smoke
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.core import random as prandom
+
+    gpu = chip_smoke.translation_model(torch, nn, "cuda", torch.Generator(
+        device="cuda").manual_seed(7), vocab=50, src_len=10, d_model=64, nhead=1,
+        num_encoder_layers=2, num_decoder_layers=2, dim_feedforward=128)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    F = nn.functional
+
+    def loss_fn(logits, y):
+        return F.cross_entropy(logits, F.label_smooth(F.one_hot(y, 50)), soft_label=True)
+
+    def opt_fn(m):
+        return optimizer.Adam(optimizer.lr.NoamDecay(64, 4000, last_epoch=3999), beta1=0.9,
+                              beta2=0.98, epsilon=1e-9, parameters=m.parameters())
+
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randint(3, 50, (3, 17)))
+    y = torch.from_numpy(rng.randint(3, 50, (3, 7)))
+    gl, gp, gs, glaunch = _step_on("cuda", gpu, loss_fn, opt_fn, x, y, prandom.PRNGKey(2))
+    cl, cp, cs, _ = _step_on("cpu", cpu, loss_fn, opt_fn, x, y, prandom.PRNGKey(2))
+    assert glaunch == (4, 4, 4)
+    assert abs(float(gl) - float(cl)) <= 1e-4 * abs(float(cl))
+    _assert_grads_close(_clipped_grads(gs), _clipped_grads(cs), 1e-3, zero=("k_proj.bias",))
+    lr = 64 ** -0.5 * 4000 ** -0.5
+    for n in cp:
+        assert (gp[n].cpu() - cp[n]).abs().max().item() <= 2.5 * lr, n

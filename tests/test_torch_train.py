@@ -138,13 +138,15 @@ def test_eager_step_matches_reference_apply():
 
 
 def test_optimizer_refuses_what_is_not_ported():
+    """Schedulers and regularizer objects are ported (tests/test_torch_optim.py);
+    what the reference accepts and never applies raises."""
     p = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(NotImplementedError, match="schedulers"):
-        topt.AdamW(learning_rate=lambda: 0.1, parameters=p)
-    with pytest.raises(NotImplementedError, match="regularizer"):
-        topt.Adam(parameters=p, weight_decay=object())
+    with pytest.raises(NotImplementedError, match="lr_ratio"):
+        topt.AdamW(parameters=p, lr_ratio=lambda p: 0.5)
+    with pytest.raises(NotImplementedError, match="weight_decay"):
+        topt.AdamW(parameters=p, weight_decay=object())
     with pytest.raises(NotImplementedError):
-        topt.AdamW(parameters=p, apply_decay_param_fun=lambda n: True)
+        tnn.clip_grad_norm_(p, 1.0, error_if_nonfinite=True)
 
 
 # ------------------------------------------------------------------ amp
@@ -417,7 +419,7 @@ def test_train_step_takes_the_reference_keys_and_donates():
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(recompute=True), dict(shard_optimizer=True),
+    dict(mesh=object()), dict(amp_level="O1", amp_dtype="float16"), dict(shard_optimizer=True),
     dict(sharding_stage=2), dict(fp16_allreduce=True), dict(dgc_configs={}),
     dict(strategy=object()), dict(offload=True), dict(bad_step_guard=True)])
 def test_unported_train_step_options_raise(option):
