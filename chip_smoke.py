@@ -266,7 +266,30 @@ Phases, each fatal on failure (exit code 1):
               keys, 64], with dropout; the decoder's masked self-attention
               takes the plain softmax); (d) one O1 step profiled. Printed:
               step ms, source + target tokens/s, peak memory
- 15. summary  a {"kernels": [...]} line, then as the last line
+ 15. dygraph  BERT-base pretraining in dygraph through the eager Tensor
+              API, written as a Paddle user writes it (import
+              paddle_tpu_torch as paddle; set_device("gpu"), to_tensor,
+              amp.auto_cast, loss.backward(), opt.step(), opt.clear_grad(),
+              loss.numpy()), phase 5's model, loss, AdamW and batches: (a)
+              one O0 float32 step at depth 2, batch 4, dropout 0.1, on the
+              card and on the CPU from the same weights and seed, held to
+              phase 5's bounds; (b) the same step with dropout 0 against
+              phase 5's build_train_step from the same weights and batch,
+              held to the same bounds, whether bitwise printed; (c) 20 O1
+              bf16 steps at full depth on phase 5's batch of 64 x 128 with
+              dropout 0.1, the loss finite and falling, K1, K2 and K3 each
+              launched 12 times a step (the counters and form_launches);
+              printed the step ms (median of steps 2-20), tokens/s, phase
+              5's build_train_step step ms of this run beside it, one step
+              profiled (kernel groups, kernel count, idle share); (d) under
+              paddle.no_grad(), phase 4's serving batch ([8, 512], float32)
+              through model(paddle.to_tensor(ids)), bitwise phase 4's direct
+              call; (e) every paddle.* op case of tests/test_torch_api_cases.py
+              on the card against the CPU (dtypes equal; integer, bool,
+              index, creation and manipulation results bitwise; float results
+              at the CPU tests' tolerances), one double grad and one PyLayer
+              backward within 1e-5 of their max
+ 16. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -1080,7 +1103,11 @@ def phase_serving(torch, fa, port_mods):
         f"bitwise equal to their direct calls {sum(same)}/{len(same)} (recorded, not "
         "required)")
 
-    profile_forward(torch, run, np.stack([b[0] for b in burst]))
+    # the serving batch (the burst's 8 rows at seq 512) and its direct call,
+    # which phase 15 (d) holds the Tensor API's call to
+    serving_batch = np.stack([b[0] for b in burst])
+    batch_out = tuple(t.cpu().numpy() for t in run(serving_batch))
+    profile_forward(torch, run, serving_batch)
 
     status, body = _call(server.port, wire_spec.build_request(wire_spec.CMD_HEALTH))
     if status != wire_spec.STATUS_OK or not json.loads(body)["ok"]:
@@ -1102,7 +1129,8 @@ def phase_serving(torch, fa, port_mods):
     log(f"[serving] cmd 3/5/7 answered; worst seq-output err {worst:.3e} "
         f"(tolerance {SEQ_OUT_TOL})")
     return dict(launches=launches, model=model,
-                replies=[(ids, outs) for ids, outs, _, _ in sent])
+                replies=[(ids, outs) for ids, outs, _, _ in sent], batch=serving_batch,
+                batch_out=batch_out)
 
 
 def profile_device(torch, fn, label, top=8, groups=None, records=None):
@@ -1359,9 +1387,14 @@ def _fmt_pct(share):
 
 # ------------------------------------------------------------------ phase 5
 TRAIN_SEQ, TRAIN_PRED, O1_BATCH, O1_STEPS = 128, 20, 64, 20
-def phase_training(torch, fa, mods, card):
-    BertForPretraining, nn, optimizer, spmd, prandom = mods
-    torch.set_num_threads(os.cpu_count() or 1)
+
+
+def bert_pretraining_parts(torch, nn, optimizer, spmd):
+    """bench.py's BERT-base pretraining pieces (phases 5 and 15): ``batch(b,
+    vocab)`` -> (the packed [ids | masked positions] int32 input, the
+    labels), ``build(model, amp_level)`` -> build_train_step's (step,
+    init) over the TrainWrapper with AdamW(LR, weight decay 0.01,
+    ClipGradByGlobalNorm(1.0))."""
 
     class TrainWrapper(torch.nn.Module):
         """bench.py's wrapper: one packed [B, S + P] int32 input, split
@@ -1395,6 +1428,14 @@ def phase_training(torch, fa, mods, card):
         opt = optimizer.AdamW(LR, parameters=wrapper.parameters(), weight_decay=0.01,
                               grad_clip=nn.ClipGradByGlobalNorm(1.0))
         return spmd.build_train_step(wrapper, loss_fn, opt, amp_level=amp_level)
+
+    return batch, build
+
+
+def phase_training(torch, fa, mods, card):
+    BertForPretraining, nn, optimizer, spmd, prandom = mods
+    torch.set_num_threads(os.cpu_count() or 1)
+    batch, build = bert_pretraining_parts(torch, nn, optimizer, spmd)
 
     t0 = time.perf_counter()
     model = BertForPretraining(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
@@ -3608,7 +3649,7 @@ def translation_model(torch, nn, device, generator=None, vocab=MT_VOCAB, src_len
     ``packed`` [B, src_len + T] holds the source ids, then the decoder's T
     input ids; it returns the logits [B, T, vocab]. ``.transformer``,
     ``.embed`` and ``.pos(device)`` are what ``translate`` takes."""
-    from paddle_tpu_torch import tensor as pt
+    from paddle_tpu_torch.ops import torch_ops as pt
 
     class TranslationModel(torch.nn.Module):
         def __init__(self):
@@ -4257,6 +4298,292 @@ def phase_mt_training(torch, fa, mods, card):
                 groups={g: v[0] for g, v in groups.items()})
 
 
+# ------------------------------------------------------------------ phase 15
+DYG_DEPTH = 2  # (a) and (b): BERT-base width at depth 2
+TOL_DYG_AUTOGRAD = 1e-5  # (e): double grad and PyLayer, card vs CPU, of the max
+
+
+def dygraph_mlm_loss(paddle, logits, labels):
+    """bench.py's loss (phase 5's) as a Paddle user writes it: the mean
+    NLL of the labels at the masked positions, in float32."""
+    logits = logits.astype("float32")
+    logp = logits - paddle.logsumexp(logits, axis=-1, keepdim=True)
+    return -paddle.take_along_axis(logp, labels.unsqueeze(-1), axis=-1).mean()
+
+
+def dygraph_step(paddle, model, opt, batch, amp):
+    """One eager step: forward under auto_cast (O1 bf16 when ``amp``),
+    loss.backward(), opt.step(), opt.clear_grad(). Returns the loss."""
+    ids, pos, labels = batch
+    with paddle.amp.auto_cast(enable=amp, level="O1", dtype="bfloat16"):
+        mlm_logits, _ = model(ids, masked_positions=pos)
+        loss = dygraph_mlm_loss(paddle, mlm_logits, labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def dygraph_batch(paddle, packed, labels):
+    """phase 5's packed batch as the Tensors a user hands the model."""
+    packed = packed.numpy()
+    return (paddle.to_tensor(packed[:, :TRAIN_SEQ]), paddle.to_tensor(packed[:, TRAIN_SEQ:]),
+            paddle.to_tensor(labels.numpy()))
+
+
+def dygraph_optimizer(paddle, model):
+    return paddle.optimizer.AdamW(LR, parameters=model.parameters(), weight_decay=0.01,
+                                  grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+
+
+def first_moments(opt, model):
+    """AdamW's first moment / (1 - 0.9) of every parameter the step
+    updated: after one step, its clipped gradient."""
+    return {n: (opt._accumulators[id(p)][0] / (1 - 0.9)).cpu()
+            for n, p in model.named_parameters() if id(p) in opt._accumulators}
+
+
+def hold_step(label, got, want, zero_grads=("k_proj.bias",)):
+    """Phase 5's bounds on two runs of one step, each (loss, {name: clipped
+    gradient}, {name: updated parameter}): loss TOL_STEP_LOSS relative,
+    each gradient within TOL_STEP_GRAD of its max (those named by a suffix
+    in ``zero_grads``, zero but for rounding, within TOL_ZERO_GRAD of the
+    model's largest), each parameter within 2.5 * lr. Returns the failures
+    and whether the two runs are bitwise equal."""
+    (gl, gg, gp), (wl, wg, wp) = got, want
+    bad = []
+    loss_err = abs(gl - wl) / abs(wl)
+    if not (loss_err <= TOL_STEP_LOSS and np.isfinite(gl)):
+        bad.append("loss")
+    if set(gg) != set(wg):
+        bad.append(f"updated parameters {sorted(set(gg) ^ set(wg))}")
+    model_max = max(g.abs().max().item() for g in wg.values())
+    share = {}  # each gradient's error as a share of its bound
+    for n in set(gg) & set(wg):
+        zero = n.endswith(tuple(zero_grads))
+        scale = model_max if zero else wg[n].abs().max().item()
+        err = (gg[n] - wg[n]).abs().max().item() / max(scale, 1e-30)
+        share[n] = err / (TOL_ZERO_GRAD if zero else TOL_STEP_GRAD)
+        if not share[n] <= 1.0:
+            bad.append(f"grad {n}")
+    worst = max(share, key=share.get)
+    param_err = max((gp[n] - wp[n]).abs().max().item() for n in wp)
+    if not param_err <= 2.5 * LR:
+        bad.append("updated parameters")
+    bitwise = (gl == wl and all(np.array_equal(gp[n].numpy(), wp[n].numpy()) for n in wp))
+    log(f"[dygraph] {label}: loss {gl:.6f} vs {wl:.6f} (rel err {loss_err:.2e}, tolerance "
+        f"{TOL_STEP_LOSS}); clipped gradients of {len(wg)} tensors, the worst at "
+        f"{share[worst]:.2e} of its bound ({worst}); updated parameters max abs err {param_err:.3e} "
+        f"(tolerance 2.5 lr = {2.5 * LR:.2e}); bitwise equal: {bitwise}")
+    return bad, bitwise
+
+
+def phase_dygraph(torch, fa, mods, card, train, serving):
+    """Phase 15: BERT-base dygraph pretraining through the eager Tensor API
+    (import paddle_tpu_torch as paddle), its loss.backward() through K1-K3."""
+    paddle, BertForPretraining, BertModel, nn, optimizer, spmd = mods
+    from paddle_tpu_torch.core import place as pplace
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    batch, build = bert_pretraining_parts(torch, nn, optimizer, spmd)
+    bert_kw = dict(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+    failures = []
+
+    def launches():
+        return (fa.launches, fa.dq_launches, fa.dkv_launches)
+
+    # (a) one O0 float32 step at depth 2, card against CPU, dropout 0.1 on
+    # the same key stream
+    model = BertForPretraining(num_hidden_layers=DYG_DEPTH, **bert_kw, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    vocab = model.bert.vocab_size
+    cpu_model = copy.deepcopy(model).to("cpu")
+    runs, a_counts, secs = {}, None, {}
+    for dev, m in (("gpu", model), ("cpu", cpu_model)):
+        paddle.set_device(dev)
+        opt = dygraph_optimizer(paddle, m)
+        data = dygraph_batch(paddle, *batch(4, vocab))
+        paddle.seed(0)
+        before = launches()
+        t = time.perf_counter()
+        loss = float(dygraph_step(paddle, m, opt, data, amp=False).numpy())
+        secs[dev] = time.perf_counter() - t
+        if dev == "gpu":
+            a_counts = tuple(x - y for x, y in zip(launches(), before))
+        runs[dev] = (loss, first_moments(opt, m),
+                     {n: p.detach().cpu() for n, p in m.named_parameters()})
+    paddle.set_device("gpu")
+    bad, _ = hold_step(f"(a) O0 step at depth {DYG_DEPTH}, batch 4, dropout 0.1: card vs CPU",
+                       runs["gpu"], runs["cpu"])
+    log(f"[dygraph] (a) card {secs['gpu']:.2f} s, cpu {secs['cpu']:.2f} s (first step); "
+        f"launches K1/K2/K3 {a_counts}")
+    failures += [f"(a) {b}" for b in bad]
+    if a_counts != (DYG_DEPTH,) * 3:
+        failures.append(f"(a) launches {a_counts} != {DYG_DEPTH} each")
+    del model, cpu_model, runs, opt
+
+    # (b) the same step against phase 5's build_train_step, dropout 0
+    eager = BertForPretraining(num_hidden_layers=DYG_DEPTH, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    functional = copy.deepcopy(eager)
+    packed, labels = batch(4, vocab)
+    opt = dygraph_optimizer(paddle, eager)
+    before = launches()
+    loss = float(dygraph_step(paddle, eager, opt, dygraph_batch(paddle, packed, labels),
+                              amp=False).numpy())
+    got = (loss, first_moments(opt, eager),
+           {n: p.detach().cpu() for n, p in eager.named_parameters()})
+    step, init = build(functional, "O0")
+    params, state = init()
+    floss, params, state = step(params, state, packed.cuda(), labels.cuda())
+    b_counts = tuple(x - y for x, y in zip(launches(), before))
+    strip = len("inner.")
+    # the eager step leaves a parameter without a gradient (the NSP head and
+    # the pooler: the loss does not reach them) as it was; the training step
+    # gives it a zero gradient and AdamW's decay moves it by lr * 0.01 * p
+    want = (float(floss), {n[strip:]: (st[0] / (1 - 0.9)).cpu() for n, st in state.items()
+                           if n[strip:] in got[1]},
+            {n[strip:]: p.cpu() for n, p in params.items()})
+    unreached = [n for n, st in state.items() if n[strip:] not in got[1]]
+    if any(state[n][0].abs().max().item() != 0 for n in unreached):
+        failures.append("(b) a parameter the eager step left has a gradient in the training step")
+    bad, b_bitwise = hold_step("(b) O0 dygraph step vs build_train_step, dropout 0", got, want)
+    failures += [f"(b) {b}" for b in bad]
+    if b_counts != (2 * DYG_DEPTH,) * 3:
+        failures.append(f"(b) launches {b_counts} != {2 * DYG_DEPTH} each")
+    del eager, functional, params, state, step, init, opt
+
+    # (c) O1 bf16 steps at full depth on phase 5's batch of 64 x 128
+    model = BertForPretraining(**bert_kw, device="cuda", generator=torch.Generator().manual_seed(0))
+    n_layers = len(model.bert.encoder.layers)
+    opt = dygraph_optimizer(paddle, model)
+    data = dygraph_batch(paddle, *batch(O1_BATCH, vocab))
+    paddle.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0  # count the main path only
+    fa.form_launches.clear()
+    losses, step_secs = [], []
+    for _ in range(O1_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = dygraph_step(paddle, model, opt, data, amp=True)
+        torch.cuda.synchronize()
+        step_secs.append(time.perf_counter() - t)
+        losses.append(float(loss.numpy()))
+    counts = dict(fwd=fa.launches, bwd_dq=fa.dq_launches, bwd_dkv=fa.dkv_launches)
+    forms = {k: fa.form_launches.get((k, TRAIN_SEQ, TRAIN_SEQ), 0) for k in ("fwd", "dq", "dkv")}
+    want_n = n_layers * O1_STEPS
+    steady = _median(step_secs[1:])
+    tokens = O1_BATCH * TRAIN_SEQ
+    log(f"[dygraph] (c) O1 bf16, batch {O1_BATCH} x seq {TRAIN_SEQ}, dropout 0.1: loss "
+        + " ".join(f"{v:.4f}" for v in losses))
+    log(f"[dygraph] (c) O1 dygraph step (median of steps 2-{O1_STEPS}, host clock to "
+        f"synchronize): {steady * 1e3:.2f} ms, {tokens / steady:.0f} tokens/s; phase 5's "
+        f"build_train_step step in this run {train['step_ms']:.2f} ms "
+        f"({train['tokens_per_s']:.0f} tokens/s); first step {step_secs[0] * 1e3:.1f} ms; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+    log(f"[dygraph] (c) launches over {O1_STEPS} steps: " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()) + f"; by form (kernel, {TRAIN_SEQ}, "
+        f"{TRAIN_SEQ}): {forms} (expected {want_n} each)")
+    if not all(np.isfinite(losses)):
+        failures.append(f"(c) loss not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        failures.append(f"(c) loss did not fall over {O1_STEPS} steps: {losses}")
+    if any(v != want_n for v in list(counts.values()) + list(forms.values())):
+        failures.append(f"(c) launches {counts} / {forms} != {n_layers} x {O1_STEPS}")
+
+    def one_step():
+        dygraph_step(paddle, model, opt, data, amp=True)
+
+    step_ms, busy_ms, n_kernels, _ = profile_device(
+        torch, one_step, f"O1 dygraph step, batch {O1_BATCH} x {TRAIN_SEQ}", top=16)
+    idle = 1 - busy_ms / step_ms if busy_ms > 0 else None
+    log(f"[profile] device idle {_fmt_pct(idle)} of an O1 dygraph step, {n_kernels} kernels "
+        "(kernel time summed over the traced step against the CUDA-event time of the step "
+        "before it)")
+    del model, opt, data
+
+    # (d) inference: phase 4's serving batch through the Tensor API, bitwise
+    # phase 4's direct call of the same weights
+    bert = BertModel(device="cuda", generator=torch.Generator().manual_seed(0)).eval()
+    before = fa.launches
+    with paddle.no_grad():
+        seq, pooled = bert(paddle.to_tensor(serving["batch"]))
+    d_launches = fa.launches - before
+    same = [np.array_equal(seq.numpy(), serving["batch_out"][0]),
+            np.array_equal(pooled.numpy(), serving["batch_out"][1])]
+    log(f"[dygraph] (d) model(paddle.to_tensor(ids)) under paddle.no_grad(), batch "
+        f"{list(serving['batch'].shape)} float32: {type(seq).__name__} {seq.shape}, bitwise "
+        f"phase 4's direct call: sequence {same[0]}, pooled {same[1]}; K1 launches {d_launches}")
+    if not all(same) or d_launches != len(bert.encoder.layers):
+        failures.append("(d) the Tensor API's call is not bitwise phase 4's direct call")
+    del bert, seq, pooled
+
+    # (e) every paddle.* op of the port on the card against the CPU, with
+    # tests/test_torch_api_cases.py's cases and tolerances
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_api_cases as cases
+
+    def on(dev):
+        def run(case, seed):
+            paddle.set_device(dev)
+            return cases._run(paddle, case, seed)
+
+        return run
+
+    t = time.perf_counter()
+    op_bad = []
+    for name in sorted(cases.ALL):
+        try:
+            cases.check(name, cases.ALL[name], on("gpu"), on("cpu"))
+        except Exception as e:  # noqa: BLE001 - every op's failure is listed
+            op_bad.append(f"{name}: {str(e).splitlines()[0][:160]}")
+    paddle.set_device("gpu")
+
+    def autograd_run(dev):
+        paddle.set_device(dev)
+        x = paddle.to_tensor(np.array([[0.3, -1.2], [2.0, 0.5]], np.float32), stop_gradient=False)
+        (g1,) = paddle.grad(paddle.tanh(x).sum(), x, create_graph=True)
+        (g2,) = paddle.grad((g1 ** 2).sum(), x)
+
+        class Cube(paddle.autograd.PyLayer):
+            @staticmethod
+            def forward(ctx, v):
+                ctx.save_for_backward(v)
+                return v * v * v
+
+            @staticmethod
+            def backward(ctx, grad):
+                (v,) = ctx.saved_tensor()
+                return grad * 3 * v * v
+
+        y = paddle.to_tensor(np.array([2.0, -1.5, 0.5], np.float32), stop_gradient=False)
+        Cube.apply(y).sum().backward()
+        return [g1.numpy(), g2.numpy(), y.grad.numpy()]
+
+    for label, a, b in zip(("double grad g1", "double grad g2", "PyLayer backward"),
+                           autograd_run("gpu"), autograd_run("cpu")):
+        err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        if not err <= TOL_DYG_AUTOGRAD:
+            op_bad.append(f"{label}: {err:.2e} of its max > {TOL_DYG_AUTOGRAD}")
+    paddle.set_device("gpu")
+    log(f"[dygraph] (e) {len(cases.ALL)} paddle.* op cases and the double grad and PyLayer "
+        f"backward, card vs CPU: {len(cases.ALL) + 3 - len(op_bad)} held, {len(op_bad)} "
+        f"failed ({time.perf_counter() - t:.1f} s)")
+    for line in op_bad:
+        log(f"  {line}")
+    failures += [f"(e) {b}" for b in op_bad]
+    pplace._CURRENT = pplace.CUDAPlace(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        fail("dygraph: " + "; ".join(failures))
+    return dict(counts=counts, forms=forms, extra=tuple(a + b for a, b in zip(a_counts, b_counts)),
+                step_ms=steady * 1e3, tokens_per_s=tokens / steady, losses=losses,
+                idle=idle, kernels=n_kernels, b_bitwise=b_bitwise)
+
+
 # ------------------------------------------------------- the chunk sweep
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
@@ -4370,6 +4697,7 @@ def main():
         from paddle_tpu_torch.resilience import chaos
         from paddle_tpu_torch.text import generation
         from paddle_tpu_torch.text.models import BertForPretraining, BertModel, LlamaModel
+        import paddle_tpu_torch as paddle
     except ImportError as e:
         fail(f"the port is not importable from this directory: {e}")
 
@@ -4450,6 +4778,11 @@ def main():
     took("lm training")
     mtt = phase_mt_training(torch, fa, (nn, optimizer, spmd, prandom), card)
     took("mt training")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dyg = phase_dygraph(torch, fa, (paddle, BertForPretraining, BertModel, nn, optimizer, spmd),
+                        card, train, serving)
+    took("dygraph")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -4543,7 +4876,10 @@ def main():
                        + eng["launches"] + reuse["launches"] + spec["launches"]
                        + robust["launches"] + quant["launches"] + mt["launches"]
                        + lm_launch["fwd"] + lm["parity_counts"][0] + mtt["counts"]["fwd"]
-                       + mtt["parity_counts"][0]),
+                       + mtt["parity_counts"][0] + dyg["counts"]["fwd"] + dyg["extra"][0]),
+             # phase 15's: its O1 dygraph steps (its (a) and (b) steps are in
+             # launches above)
+             dygraph_launches=dyg["counts"]["fwd"],
              # phase 10's: its 7B windows (faults, retries, telemetry) and
              # its BERT batches
              robust_launches=robust["launches"],
@@ -4582,8 +4918,9 @@ def main():
         *(dict(name=kernels[i]["name"], route="cuda", source=kernels[i]["source"],
                replaces=kernels[i]["replaces"],
                launches=(train["counts"][key] + lm_launch[key] + lm["parity_counts"][i]
-                         + mtt["counts"][key] + mtt["parity_counts"][i]),
-               bert_launches=train["counts"][key],
+                         + mtt["counts"][key] + mtt["parity_counts"][i] + dyg["counts"][key]
+                         + dyg["extra"][i]),
+               bert_launches=train["counts"][key], dygraph_launches=dyg["counts"][key],
                **bwd(bmain, which), **bwd(bf32, which, "f32_"),
                **bwd(lm_o1[1], which, "lm_train_bf16_"), lm_train_bf16_launches=lm_launch[key],
                **bwd(lm_o0[1], which, "lm_parity_f32_"),

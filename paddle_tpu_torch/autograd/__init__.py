@@ -1,0 +1,5 @@
+"""paddle.autograd (counterpart of paddle_tpu/autograd): ``backward``,
+``grad``, ``no_grad``, ``PyLayer`` and ``PyLayerContext``."""
+from ..core.dispatch import no_grad  # noqa: F401
+from ..core.tape import backward, grad  # noqa: F401
+from .py_layer import PyLayer, PyLayerContext  # noqa: F401

@@ -52,6 +52,16 @@ def _to_tensor(arr):
     return torch.from_numpy(arr)
 
 
+def _check(name, arr, p):
+    if tuple(arr.shape) != tuple(p.shape):
+        raise ValueError(f"{name}: shape {tuple(arr.shape)} does not match "
+                         f"the parameter's {tuple(p.shape)}")
+    want = _numpy_dtype_name(p.dtype)
+    if np.dtype(arr.dtype).name != want:
+        raise TypeError(f"{name}: dtype {arr.dtype} does not match the "
+                        f"parameter's {want}")
+
+
 def load_numpy_state(module, state):
     params = dict(module.named_parameters())
     buffers = {n: b for n, b in module.named_buffers() if n in state}
@@ -67,15 +77,23 @@ def load_numpy_state(module, state):
                              "another value")
     targets = {**params, **buffers}
     for name, p in targets.items():
-        arr = state[name]
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: shape {tuple(arr.shape)} does not match "
-                             f"the parameter's {tuple(p.shape)}")
-        want = _numpy_dtype_name(p.dtype)
-        if np.dtype(arr.dtype).name != want:
-            raise TypeError(f"{name}: dtype {arr.dtype} does not match the "
-                            f"parameter's {want}")
+        _check(name, state[name], p)
     with torch.no_grad():
         for name, p in targets.items():
             p.copy_(_to_tensor(state[name]))
     return module
+
+
+def load_state_dict(layer, state):
+    """Load a JAX ``Layer.state_dict()`` (numpy arrays) by structured name
+    (see the module docstring)."""
+    own = layer.state_dict()
+    missing = sorted(set(own) - set(state))
+    unexpected = sorted(set(state) - set(own))
+    if missing or unexpected:
+        raise KeyError(f"state_dict names differ: missing {missing}, "
+                       f"unexpected {unexpected}")
+    for name, t in own.items():
+        _check(name, state[name], t)
+    layer.set_state_dict(state)
+    return layer

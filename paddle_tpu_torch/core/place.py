@@ -2,7 +2,10 @@
 
 The port runs on the CUDA card unless the caller asks for the CPU:
 ``resolve_device()`` defaults to ``"cuda"`` and raises when no card is
-present. It never moves to the CPU on its own.
+present, and the current place of ``set_device``/``get_device`` (what
+``to_tensor``, the creation ops and ``Layer.create_parameter`` use) is
+``gpu:0`` until ``set_device`` says otherwise. It never moves to the CPU
+on its own.
 """
 import torch
 
@@ -12,6 +15,15 @@ class Place:
 
     def __init__(self, device_id=0):
         self.device_id = int(device_id)
+
+    def get_device_id(self):
+        return self.device_id
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.device_id == other.device_id
+
+    def __hash__(self):
+        return hash((self._kind, self.device_id))
 
     def __repr__(self):
         return f"Place({self._kind}:{self.device_id})"
@@ -31,7 +43,11 @@ class CPUPlace(Place):
 
 
 class CUDAPlace(Place):
-    _kind = "cuda"
+    _kind = "gpu"
+
+
+class CUDAPinnedPlace(CPUPlace):
+    pass
 
 
 def resolve_device(device="cuda"):
@@ -58,3 +74,69 @@ def resolve_device(device="cuda"):
         raise ValueError(f"{device!r}: only {torch.cuda.device_count()} "
                          "CUDA device(s) present")
     return dev
+
+
+def place_of(device):
+    """The Place of a torch.device."""
+    if device.type == "cpu":
+        return CPUPlace()
+    return CUDAPlace(device.index or 0)
+
+
+_CURRENT = CUDAPlace(0)
+
+
+def set_device(device):
+    """paddle.set_device("gpu") / "gpu:1" / "cpu" / a Place. A CUDA place
+    raises without a card."""
+    global _CURRENT
+    if isinstance(device, Place):
+        place = device
+    else:
+        name = str(device).lower()
+        idx = 0
+        if ":" in name:
+            name, idx_s = name.split(":")
+            idx = int(idx_s)
+        if name == "cpu":
+            place = CPUPlace()
+        elif name in ("gpu", "cuda"):
+            place = CUDAPlace(idx)
+        else:
+            raise ValueError(f"unknown device {device!r}: the port runs on 'gpu' or 'cpu'")
+    place.torch_device()  # raises for a card that is not there
+    _CURRENT = place
+    return place
+
+
+def current_place():
+    return _CURRENT
+
+
+def current_device():
+    """The torch.device of the current place (raises for the card when no
+    card is present)."""
+    return _CURRENT.torch_device()
+
+
+def get_device():
+    p = _CURRENT
+    return "cpu" if isinstance(p, CPUPlace) else f"gpu:{p.device_id}"
+
+
+def is_compiled_with_cuda():
+    return torch.version.cuda is not None
+
+
+def is_compiled_with_xpu():
+    return False
+
+
+def is_compiled_with_tpu():
+    return False
+
+
+def device_count():
+    """CUDA cards present (the reference counts the current platform's
+    devices)."""
+    return torch.cuda.device_count()

@@ -248,3 +248,115 @@ def categorical(key, logits):
     (the Gumbel-max trick): the first maximum of logits + gumbel noise.
     int64 indices."""
     return torch.argmax(gumbel(key, logits.shape, logits.device) + logits, dim=-1)
+
+
+# ---------------------------------------------------------------- more of
+# jax.random's samplers, as jax computes them (the ``paddle.*`` random ops)
+
+_SQRT2_F32 = float(np.float32(np.sqrt(2)))
+
+
+def normal(key, shape, device="cuda"):
+    """jax.random.normal in float32: sqrt(2) * erfinv(u), u uniform in
+    (-1, 1). ``torch.erfinv`` is not XLA's polynomial, so a value may
+    differ from jax's by a few ulp (tests/test_torch_tensor_api.py)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return torch.erfinv(uniform(key, shape, lo, 1.0, device)) * _SQRT2_F32
+
+
+def exponential(key, shape, device="cuda"):
+    """jax.random.exponential in float32: -log1p(-u)."""
+    return -torch.log1p(-uniform(key, shape, 0.0, 1.0, device))
+
+
+def bernoulli(key, p):
+    """jax.random.bernoulli: uniform(key, p.shape) < p (float32 ``p``)."""
+    return uniform(key, tuple(p.shape), 0.0, 1.0, p.device) < p
+
+
+def randint(key, shape, minval, maxval, device="cuda"):
+    """jax.random.randint in int32: two words of bits per element (keys
+    split from ``key``), each reduced modulo the span and combined in
+    uint32 arithmetic as jax combines them."""
+    i32_max = 2**31 - 1
+    out_of_range = maxval > i32_max
+    minval = min(max(int(minval), -2**31), i32_max)
+    maxval = min(max(int(maxval), -2**31), i32_max)
+    k1, k2 = split(key)
+    higher = random_bits(k1, shape, device)
+    lower = random_bits(k2, shape, device)
+    span = (maxval - minval) & U32
+    if maxval <= minval:
+        span = 1
+    if out_of_range and maxval > minval:
+        span = (span + 1) & U32
+    if span == 0:  # a span of 2**32 wraps to 0: the remainders do nothing
+        offset = (mul32(higher, 0) + lower) & U32
+    else:
+        mult = (2**16 % span) * (2**16 % span) % span
+        offset = ((mul32(higher % span, mult) + lower % span) & U32) % span
+    val = (minval + offset + 2**31) % 2**32 - 2**31
+    return val.to(torch.int32)
+
+
+def permutation(key, n, device="cuda"):
+    """jax.random.permutation of arange(n): rounds of a stable sort keyed
+    by 32 random bits, as many rounds as jax's heuristic asks."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int32, device=resolve_device(device))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,), x.device), stable=True).indices
+        x = x[order]
+    return x
+
+
+def _poisson_knuth(key, lam):
+    k = torch.zeros(lam.shape, dtype=torch.int32, device=lam.device)
+    log_prod = torch.zeros(lam.shape, dtype=torch.float32, device=lam.device)
+    rng = key
+    while bool((log_prod > -lam).any()):
+        rng, sub = split(rng)
+        k = torch.where(log_prod > -lam, k + 1, k)
+        log_prod = log_prod + torch.log(uniform(sub, tuple(lam.shape), 0.0, 1.0, lam.device))
+    return k - 1
+
+
+def _poisson_rejection(key, lam):
+    log_lam = torch.log(lam)
+    b = 0.931 + 2.53 * torch.sqrt(lam)
+    a = -0.059 + 0.02483 * b
+    inv_alpha = 1.1239 + 1.1328 / (b - 3.4)
+    v_r = 0.9277 - 3.6224 / (b - 2)
+    shape = tuple(lam.shape)
+    k_out = torch.full(shape, -1.0, dtype=torch.float32, device=lam.device)
+    accepted = torch.zeros(shape, dtype=torch.bool, device=lam.device)
+    while not bool(accepted.all()):
+        key, sub0, sub1 = split(key, 3)
+        u = uniform(sub0, shape, 0.0, 1.0, lam.device) - 0.5
+        v = uniform(sub1, shape, 0.0, 1.0, lam.device)
+        u_shifted = 0.5 - torch.abs(u)
+        k = torch.floor((2 * a / u_shifted + b) * u + lam + 0.43)
+        s = torch.log(v * inv_alpha / (a / (u_shifted * u_shifted) + b))
+        t = -lam + k * log_lam - torch.lgamma(k + 1)
+        accept1 = (u_shifted >= 0.07) & (v <= v_r)
+        reject = (k < 0) | ((u_shifted < 0.013) & (v > u_shifted))
+        accept = accept1 | (~reject & (s <= t))
+        k_out = torch.where(accept, k, k_out)
+        accepted |= accept
+    return k_out.to(torch.int32)
+
+
+def poisson(key, lam):
+    """jax.random.poisson in int32 for float32 rates ``lam``: Knuth's method
+    below 10, Hormann's transformed rejection from 10, both from the same
+    key (the rejection loop runs only where a rate needs it: jax computes
+    both and selects, and the selection alone reads it)."""
+    lam = lam.to(torch.float32)
+    use_knuth = torch.isnan(lam) | (lam < 10)
+    result = _poisson_knuth(key, torch.where(use_knuth, lam, torch.zeros_like(lam)))
+    if not bool(use_knuth.all()):
+        rejection = _poisson_rejection(key, torch.where(use_knuth, torch.full_like(lam, 1e5),
+                                                        lam))
+        result = torch.where(use_knuth, result, rejection)
+    return torch.where(lam == 0, torch.zeros_like(result), result)

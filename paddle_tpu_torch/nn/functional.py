@@ -6,7 +6,7 @@ import math
 
 import torch
 
-from .. import tensor as pt
+from ..ops import torch_ops as pt
 from ..amp.auto_cast import cast_inputs
 from ..core import random as random_core
 from ..ops import attention as attn_ops

@@ -9,6 +9,7 @@ import math
 import torch
 
 from ..core import random as random_core
+from ..core.tensor import Parameter
 
 
 def _fans(shape):
@@ -54,4 +55,4 @@ class XavierNormal:
 
 
 def create_parameter(shape, initializer, device, generator=None):
-    return torch.nn.Parameter(initializer(shape, generator).to(device))
+    return Parameter(initializer(shape, generator).to(device))

@@ -4,9 +4,10 @@ import torch
 from ...core.place import resolve_device
 from .. import functional as F
 from .. import initializer as I
+from ..layer import Layer
 
 
-class Linear(torch.nn.Module):
+class Linear(Layer):
     """y = x W + b, with ``weight`` [in, out] as in Paddle. With
     ``bias_attr=False`` there is no bias parameter at all."""
 
@@ -28,7 +29,7 @@ class Linear(torch.nn.Module):
         return f"in={self._in_features}, out={self._out_features}"
 
 
-class Embedding(torch.nn.Module):
+class Embedding(Layer):
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None, *,
                  device="cuda", generator=None):
         super().__init__()
@@ -44,7 +45,7 @@ class Embedding(torch.nn.Module):
         return F.embedding(x, self.weight, padding_idx=self._padding_idx)
 
 
-class Dropout(torch.nn.Module):
+class Dropout(Layer):
     def __init__(self, p=0.5):
         super().__init__()
         self.p = p

@@ -1,12 +1,12 @@
 """Normalisation layers (counterpart of paddle_tpu/nn/layers/norm.py)."""
-import torch
 
 from ...core.place import resolve_device
 from .. import functional as F
 from .. import initializer as I
+from ..layer import Layer
 
 
-class LayerNorm(torch.nn.Module):
+class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-5, *, device="cuda"):
         super().__init__()
         dev = resolve_device(device)

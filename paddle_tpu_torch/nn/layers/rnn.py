@@ -22,6 +22,7 @@ import torch
 from ...amp.auto_cast import cast_inputs
 from ...core.place import resolve_device
 from .. import initializer as I
+from ..layer import Layer
 
 _GATES = {"LSTM": 4, "GRU": 3, "RNN_TANH": 1, "RNN_RELU": 1}
 
@@ -64,7 +65,7 @@ def _gru_step(x, h, wi, wh, bi, bh):
     return (1 - z) * n + z * h
 
 
-class RNNCellBase(torch.nn.Module):
+class RNNCellBase(Layer):
     def get_initial_states(self, batch_ref, shape=None, dtype=None, init_value=0.0,
                            batch_dim_idx=0):
         """[batch, hidden_size] filled with ``init_value`` (float32 unless
@@ -147,7 +148,7 @@ class GRUCell(RNNCellBase):
         return (self.hidden_size,)
 
 
-class RNN(torch.nn.Module):
+class RNN(Layer):
     """Runs ``cell`` over the time axis (axis 1, or 0 when
     ``time_major``), backwards when ``is_reverse``. Returns (outputs
     stacked on the time axis, final states)."""
@@ -173,7 +174,7 @@ class RNN(torch.nn.Module):
         return torch.stack(outs, dim=time_axis), states
 
 
-class BiRNN(torch.nn.Module):
+class BiRNN(Layer):
     """``cell_fw`` forwards and ``cell_bw`` backwards over the same
     inputs; outputs concatenated on the last axis, states (fw, bw)."""
 
@@ -189,7 +190,7 @@ class BiRNN(torch.nn.Module):
         return torch.cat(cast_inputs("concat", out_fw, out_bw), dim=-1), (fw_states, bw_states)
 
 
-class _RNNBase(torch.nn.Module):
+class _RNNBase(Layer):
     """Multi-layer, optionally bidirectional RNN over [batch, time, in]
     ([time, batch, in] when ``time_major``). Layer k's weights are
     ``weight_ih_l{k}``, ``weight_hh_l{k}``, ``bias_ih_l{k}``,

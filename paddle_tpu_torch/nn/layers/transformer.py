@@ -10,13 +10,14 @@ import copy
 
 import torch
 
-from ... import tensor as pt
+from ...ops import torch_ops as pt
 from ...amp.auto_cast import cast_inputs
 from ...core.place import resolve_device
 from .. import functional as F
 from .common import Dropout, Linear
 from .container import LayerList
 from .norm import LayerNorm
+from ..layer import Layer
 
 
 def _convert_attention_mask(attn_mask, dtype=torch.float32):
@@ -29,7 +30,7 @@ def _convert_attention_mask(attn_mask, dtype=torch.float32):
     return torch.where(attn_mask.to(torch.bool), zero, -1e9)
 
 
-class MultiHeadAttention(torch.nn.Module):
+class MultiHeadAttention(Layer):
     """Multi-head attention over [batch, seq, embed_dim] inputs.
 
     ``forward(query, key, value, attn_mask, cache)``: with ``cache`` a
@@ -143,7 +144,7 @@ class MultiHeadAttention(torch.nn.Module):
         return out if len(outs) == 1 else tuple(outs)
 
 
-class TransformerEncoderLayer(torch.nn.Module):
+class TransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, *, bias_attr=None, device="cuda", generator=None):
@@ -187,7 +188,7 @@ class TransformerEncoderLayer(torch.nn.Module):
         return self.self_attn.gen_cache(src)
 
 
-class TransformerEncoder(torch.nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` independent deep copies of ``encoder_layer``."""
 
     def __init__(self, encoder_layer, num_layers, norm=None):
@@ -214,7 +215,7 @@ class TransformerEncoder(torch.nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(torch.nn.Module):
+class TransformerDecoderLayer(Layer):
     """Self-attention, cross-attention over ``memory``, feed-forward. With
     ``cache`` = (incremental ``Cache``, ``StaticCache``) it decodes one
     step and returns ``(out, (grown Cache, StaticCache))``; under the
@@ -282,7 +283,7 @@ class TransformerDecoderLayer(torch.nn.Module):
         return incremental, static
 
 
-class TransformerDecoder(torch.nn.Module):
+class TransformerDecoder(Layer):
     """``num_layers`` independent deep copies of ``decoder_layer``."""
 
     def __init__(self, decoder_layer, num_layers, norm=None):
@@ -314,7 +315,7 @@ class TransformerDecoder(torch.nn.Module):
         return caches
 
 
-class Transformer(torch.nn.Module):
+class Transformer(Layer):
     """Encoder-decoder Transformer; the defaults are the base model of
     "Attention Is All You Need" (6 + 6 layers, d_model 512, 8 heads, FFN
     2048, dropout 0.1). Under ``normalize_before`` each stack ends in a

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from .. import tensor as pt
+from . import torch_ops as pt
 from ..amp.auto_cast import cast_inputs
 from ..core import random as random_core
 from . import flash_attention

@@ -1,10 +1,12 @@
-"""The tensor ops of the BERT path (counterpart of the matching entries of
-paddle_tpu/tensor/math.py and manipulation.py). Each casts its inputs as
-the active auto_cast does for the reference op of the same name."""
+"""The tensor ops the port's modules call on plain torch tensors
+(counterparts of the matching entries of paddle_tpu/tensor/math.py and
+manipulation.py). Each casts its inputs as the active auto_cast does for
+the reference op of the same name. The ``paddle.*`` namespace
+(paddle_tpu_torch/tensor/) is the user-facing one, on Tensors."""
 import numpy as np
 import torch
 
-from .amp.auto_cast import cast_inputs
+from ..amp.auto_cast import cast_inputs
 
 
 def add(x, y):

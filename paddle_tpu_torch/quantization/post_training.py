@@ -25,6 +25,7 @@ import torch
 
 from .. import nn
 from ..ops.quant_matmul import wq_matmul
+from ..nn.layer import Layer
 
 # the reference's QAT wrappers (quantization/imperative.py): they own their
 # inner layer's quantization, so the walk leaves them alone
@@ -40,7 +41,7 @@ def _quant_act(x, scale):
     return torch.clamp(torch.round(x / s), -127.0, 127.0) * s
 
 
-class Int8Linear(torch.nn.Module):
+class Int8Linear(Layer):
     """Weight-only int8 linear: buffers ``qweight`` int8 [in, out] and
     ``w_scale`` f32 [out] (``act_scale``, a scalar, or None), and the
     layer's ``bias``. ``forward`` runs ``wq_matmul``; with ``act_scale`` the
@@ -150,7 +151,7 @@ class PostTrainingQuantization:
 
             return hook
 
-        device = next(self._model.parameters()).device
+        device = next(iter(self._model.parameters())).device
         for name, sub in self._model.named_modules():
             if name and isinstance(sub, nn.Linear):
                 handles.append(sub.register_forward_pre_hook(make_hook(name)))

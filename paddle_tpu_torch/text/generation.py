@@ -52,7 +52,7 @@ import math
 import numpy as np
 import torch
 
-from .. import tensor as pt
+from ..ops import torch_ops as pt
 from ..core import random
 from ..core.cuda_graph import Graph
 from ..nn import LayerList
@@ -125,7 +125,7 @@ def _prompt(input_ids):
 
 
 def _device(model):
-    return next(model.parameters()).device
+    return next(iter(model.parameters())).device
 
 
 def generate(model, input_ids, max_new_tokens=32, max_length=None,

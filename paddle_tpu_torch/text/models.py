@@ -7,14 +7,16 @@ does."""
 import torch
 
 from .. import nn
-from .. import tensor as pt
+from ..ops import torch_ops as pt
 from ..amp.auto_cast import cast_inputs
 from ..core.place import resolve_device
+from ..core.tensor import boundary
 from ..nn import functional as F
 from ..nn import initializer as I
+from ..nn.layer import Layer
 
 
-class BertEmbeddings(torch.nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, vocab_size, hidden_size, max_position_embeddings=512,
                  type_vocab_size=2, hidden_dropout_prob=0.1, *, device="cuda",
                  generator=None):
@@ -39,7 +41,7 @@ class BertEmbeddings(torch.nn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class BertPooler(torch.nn.Module):
+class BertPooler(Layer):
     def __init__(self, hidden_size, *, device="cuda", generator=None):
         super().__init__()
         self.dense = nn.Linear(hidden_size, hidden_size, device=device,
@@ -49,7 +51,7 @@ class BertPooler(torch.nn.Module):
         return F.tanh(self.dense(hidden_states[:, 0]))
 
 
-class BertModel(torch.nn.Module):
+class BertModel(Layer):
     """BERT-base by default (12 layers, hidden 768, 12 heads, FFN 3072).
     ``forward`` returns (sequence_output, pooled) with the pooler, else
     the sequence output."""
@@ -84,7 +86,7 @@ class BertModel(torch.nn.Module):
         return seq
 
 
-class BertLMPredictionHead(torch.nn.Module):
+class BertLMPredictionHead(Layer):
     """Masked-LM head: transform, GELU, LayerNorm, then logits against the
     word embeddings (``decoder_weight`` is that very Parameter, tied)."""
 
@@ -104,7 +106,7 @@ class BertLMPredictionHead(torch.nn.Module):
                       self.decoder_bias)
 
 
-class BertForPretraining(torch.nn.Module):
+class BertForPretraining(Layer):
     """MLM + NSP heads over a BertModel (the BERT pretraining benchmark
     model). ``named_parameters()`` lists the tied decoder weight once,
     under ``bert.embeddings.word_embeddings.weight``, as the reference
@@ -132,17 +134,18 @@ class BertForPretraining(torch.nn.Module):
         return self.cls(seq), self.nsp(pooled)
 
 
+@boundary
 def bert_pretraining_loss(mlm_logits, nsp_logits, mlm_labels, nsp_labels,
                           ignore_index=-100):
     """Masked-LM + NSP loss (the reference's BertPretrainingCriterion
-    semantics)."""
+    semantics); on Tensors it returns a Tensor."""
     mlm_loss = F.cross_entropy(mlm_logits, mlm_labels, ignore_index=ignore_index,
                                reduction="mean", axis=-1)
     nsp_loss = F.cross_entropy(nsp_logits, nsp_labels, reduction="mean")
     return pt.add(mlm_loss, nsp_loss)
 
 
-class GPTDecoderLayer(torch.nn.Module):
+class GPTDecoderLayer(Layer):
     def __init__(self, hidden_size, num_heads, intermediate_size, dropout=0.0,
                  act="gelu", *, device="cuda", generator=None):
         super().__init__()
@@ -163,7 +166,7 @@ class GPTDecoderLayer(torch.nn.Module):
         return pt.add(x, self.dropout(self.fc2(getattr(F, self.act)(self.fc1(h)))))
 
 
-class GPTModel(torch.nn.Module):
+class GPTModel(Layer):
     """Pre-norm causal decoder (GPT-2 style); the head is ``wte`` used
     transposed."""
 
@@ -197,7 +200,7 @@ class GPTModel(torch.nn.Module):
         return _generate(self, input_ids, **kwargs)
 
 
-class RMSNorm(torch.nn.Module):
+class RMSNorm(Layer):
     def __init__(self, hidden_size, eps=1e-6, *, device="cuda"):
         super().__init__()
         self.weight = I.create_parameter([hidden_size], I.Constant(1.0),
@@ -261,7 +264,7 @@ def _repeat_kv(x, rep):
     return x if rep == 1 else x.repeat_interleave(rep, dim=1)
 
 
-class LlamaAttention(torch.nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, hidden_size, num_heads, num_kv_heads=None, *, device="cuda",
                  generator=None):
         super().__init__()
@@ -296,7 +299,7 @@ class LlamaAttention(torch.nn.Module):
         return torch.matmul(out.transpose(1, 2).reshape(b, t, nh * hd), wo)
 
 
-class LlamaMLP(torch.nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, hidden_size, intermediate_size, *, device="cuda", generator=None):
         super().__init__()
         kw = dict(bias_attr=False, device=resolve_device(device), generator=generator)
@@ -308,7 +311,7 @@ class LlamaMLP(torch.nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-class LlamaDecoderLayer(torch.nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, hidden_size, num_heads, intermediate_size, num_kv_heads=None, *,
                  device="cuda", generator=None):
         super().__init__()
@@ -324,7 +327,7 @@ class LlamaDecoderLayer(torch.nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
-class LlamaModel(torch.nn.Module):
+class LlamaModel(Layer):
     """Llama-2 architecture, 7B by default (vocab 32000, hidden 4096, 32
     layers, 32 heads, FFN 11008); shrink it by the keyword arguments.
     ``forward`` returns the logits [B, T, vocab]. ``generate`` runs the

@@ -1071,3 +1071,26 @@ def test_small_translation_train_step_on_the_card_matches_the_cpu(cuda):
     lr = 64 ** -0.5 * 4000 ** -0.5
     for n in cp:
         assert (gp[n].cpu() - cp[n]).abs().max().item() <= 2.5 * lr, n
+
+
+def test_tensor_api_on_the_card(cuda):
+    """The eager Tensor API on the card: to_tensor, an op and backward run
+    there (the default place is the card) and agree with the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place
+
+    x = np.random.RandomState(0).standard_normal((4, 5)).astype(np.float32)
+    res = {}
+    prev = place._CURRENT
+    try:
+        for dev in ("gpu", "cpu"):
+            paddle.set_device(dev)
+            t = paddle.to_tensor(x, stop_gradient=False)
+            y = paddle.matmul(paddle.tanh(t), t, transpose_y=True)
+            y.sum().backward()
+            assert t.place == (paddle.CUDAPlace(0) if dev == "gpu" else paddle.CPUPlace())
+            res[dev] = (y.numpy(), t.grad.numpy())
+    finally:
+        place._CURRENT = prev
+    for a, b in zip(res["gpu"], res["cpu"]):
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()

@@ -1,5 +1,6 @@
 """The port stands alone: nothing in paddle_tpu_torch/ or chip_smoke.py
-imports jax or the JAX package, and its entry points run on the card
+(or the op cases it runs, tests/test_torch_api_cases.py) imports jax or
+the JAX package, and its entry points run on the card
 unless the caller asks for the CPU."""
 import ast
 import os
@@ -23,7 +24,10 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # chip_smoke.py runs tests/test_torch_api_cases.py's op cases on the
+    # card, where there is no jax
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                        REPO / "tests" / "test_torch_api_cases.py"]
 
 
 def _imported_roots(path):
@@ -119,3 +123,38 @@ def test_explicit_cpu_works():
     assert seq.device.type == "cpu" and tuple(pooled.shape) == (1, 8)
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+_TENSOR_API = """
+import numpy as np
+import paddle_tpu_torch as paddle
+x = np.arange(6, dtype=np.float32).reshape(2, 3)
+for fn in (lambda: paddle.to_tensor(x), lambda: paddle.zeros([2]), lambda: paddle.randn([2]),
+           lambda: paddle.create_parameter([2], "float32"), lambda: paddle.set_device("gpu")):
+    try:
+        fn()
+    except RuntimeError as e:
+        assert "no CUDA card" in str(e), e
+    else:
+        raise AssertionError("ran without a card and without the CPU asked for")
+assert paddle.get_device() == "gpu:0"
+t = paddle.to_tensor(x, place=paddle.CPUPlace())
+assert t.place == paddle.CPUPlace() and t.shape == [2, 3]
+paddle.set_device("cpu")
+assert paddle.get_device() == "cpu"
+y = paddle.to_tensor(x, stop_gradient=False)
+(paddle.tanh(y) * 2).sum().backward()
+assert y.grad.place == paddle.CPUPlace() and paddle.zeros([2]).place == paddle.CPUPlace()
+print("ok")
+"""
+
+
+def test_to_tensor_needs_a_card_unless_the_cpu_is_asked_for(no_card):
+    """The Tensor API's entry points (to_tensor, the creation and random
+    ops, create_parameter, set_device("gpu")) raise without a card; they
+    run on the CPU after set_device("cpu") or with place=CPUPlace(). A
+    fresh interpreter, so no other test's set_device is seen."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _TENSOR_API], cwd=str(REPO), env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
