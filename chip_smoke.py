@@ -289,7 +289,32 @@ Phases, each fatal on failure (exit code 1):
               index, creation and manipulation results bitwise; float results
               at the CPU tests' tolerances), one double grad and one PyLayer
               backward within 1e-5 of their max
- 16. summary  a {"kernels": [...]} line, then as the last line
+ 16. vision   the layer zoo's conv path (conv, BatchNorm, pooling: cuDNN
+              and ATen kernels, none of the port's own; K1-K3 and wq_matmul
+              are not on it): (a) bench.py's smoke model, resnet18(10
+              classes) at 32 x 32, batch 4, Momentum(0.1, 0.9, weight decay
+              1e-4): one O0 float32 build_train_step step on the card and on
+              the CPU from the same weights, held to phase 5's bounds (each
+              velocity, the gradient plus the decay, within 1e-3 of its
+              max), the BatchNorm running statistics within 1e-4 of their
+              max and an eval() forward after the step within 1e-3; (b)
+              bench.py's run_resnet50: ResNet-50 at 224 x 224, 1000
+              classes, O1 bf16 through build_train_step with bench.py's
+              loss, random images and labels from RandomState(0), the batch
+              found as bench.py finds it (512, then down its candidates on
+              an out-of-memory error), 3 warmup and 20 timed steps, the loss
+              finite; printed: the batch, images/s, the median step, the
+              share of the dense bf16 peak (3 x the forward's conv and
+              linear FLOPs), peak memory, one step profiled (kernels, idle
+              share, kernel time by group, the update's span); (c) the same
+              step in dygraph (to_tensor, amp.auto_cast, loss.backward(),
+              opt.step(), opt.clear_grad()) at (b)'s batch for 10 steps,
+              its median step beside (b)'s, and one O0 dygraph step at (a)'s
+              size held to (a)'s bounds against (a)'s build_train_step step
+              on the card; (d) eval() float32 forwards, card vs CPU within
+              1e-3 of the max: LeNet at 28 x 28 batch 4, mobilenet_v2 and
+              vgg11 at 224 x 224 batch 2
+ 17. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -439,7 +464,7 @@ def device_us(events, calls=1):
     the calls' records, and the sum would read low."""
     total = 0.0
     for ev in events:
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
+        if "CUDA" not in str(getattr(ev, "device_type", "")) or ev.key in ANNOTATIONS:
             continue
         if getattr(ev, "count", calls) % calls:
             return None
@@ -1133,12 +1158,14 @@ def phase_serving(torch, fa, port_mods):
                 batch_out=batch_out)
 
 
-def profile_device(torch, fn, label, top=8, groups=None, records=None):
+def profile_device(torch, fn, label, top=8, groups=None, records=None, spans=None):
     """Where one call of ``fn`` spends its device time: its CUDA-event time,
     then the same call traced with torch.profiler (kernel device time by
     name, the top 8, and by ``groups``, KERNEL_GROUPS by default). Returns
     (events ms, kernel ms, kernels launched, {group: (ms, kernels)}); each
-    kernel's (ms, count, full name) is appended to ``records`` if given."""
+    kernel's (ms, count, full name) is appended to ``records`` if given,
+    and each key of ``spans`` (a record_function's name) gets the device
+    time of the kernels launched inside that range (None: not seen)."""
     from torch.profiler import ProfilerActivity, profile
 
     ms = cuda_ms(torch, fn, iters=1, warmup=0)
@@ -1147,7 +1174,8 @@ def profile_device(torch, fn, label, top=8, groups=None, records=None):
         torch.cuda.synchronize()
     kernels = []
     for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
+        # a record_function range shows on the device track as well: not a kernel
+        if "CUDA" not in str(getattr(ev, "device_type", "")) or ev.key in ANNOTATIONS:
             continue
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
@@ -1172,6 +1200,12 @@ def profile_device(torch, fn, label, top=8, groups=None, records=None):
     for group, (t, n) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
         log(f"    [group] {t:8.3f} ms {100 * t / max(busy, 1e-9):5.1f}% x{n:<5d} {group}")
     launched = sum(n for _, n, _ in kernels)
+    for name in spans or ():
+        ev = next((e for e in prof.key_averages() if e.key == name
+                   and "CUDA" not in str(getattr(e, "device_type", ""))), None)
+        t = None if ev is None else getattr(ev, "device_time_total",
+                                            getattr(ev, "cuda_time_total", 0.0))
+        spans[name] = t / 1e3 if t else None
     # what the host spent handing work to the card
     calls = [(ev.key, ev.count, ev.self_cpu_time_total / 1e3) for ev in prof.key_averages()
              if ev.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
@@ -1181,6 +1215,8 @@ def profile_device(torch, fn, label, top=8, groups=None, records=None):
     return ms, busy, launched, sums
 
 
+# the port's record_function ranges (distributed/spmd.py): spans, not kernels
+ANNOTATIONS = ("build_train_step.update",)
 # kernel-name fragments -> the layer of the port that launched them
 KERNEL_GROUPS = (
     ("K1 flash_attention_fwd", ("fwd_f32_kernel", "fwd_bf16_kernel")),
@@ -4584,6 +4620,339 @@ def phase_dygraph(torch, fa, mods, card, train, serving):
                 idle=idle, kernels=n_kernels, b_bitwise=b_bitwise)
 
 
+# ------------------------------------------------------------------ phase 16
+VIS_LR, VIS_MOMENTUM, VIS_DECAY = 0.1, 0.9, 1e-4  # bench.py's Momentum
+VIS_SMOKE = dict(batch=4, hw=32, classes=10)  # bench.py's smoke config
+RESNET_HW, RESNET_CLASSES = 224, 1000
+BATCH_CANDIDATES = (512, 256, 128, 64, 32)  # bench.py's, tried in order on OOM
+RESNET_WARMUP, RESNET_STEPS, RESNET_DYG_STEPS = 3, 20, 10
+TOL_BN_STATS = 1e-4  # running statistics, card vs CPU, of their max
+TOL_VIS_EVAL = 1e-3  # eval() forwards, card vs CPU, of the output's max
+# kernel-name fragments of the conv path, by the layer that launched them
+VISION_GROUPS = (
+    ("layout transposes (cuDNN's NCHW <-> NHWC)", ("nchwToNhwc", "nhwcToNchw", "ranspose")),
+    ("convolutions and the classifier's GEMM (cuDNN, cuBLAS)",
+     ("conv", "Conv", "fprop", "dgrad", "wgrad", "implicit", "xmma", "cudnn", "cutlass",
+      "sm90_", "sm80_", "gemm", "nvjet")),
+    ("BatchNorm (ATen's batch_norm kernels)", ("batch_norm", "bn_fw", "bn_bw", "welford")),
+    ("pooling (max pool, adaptive average pool)", ("pool", "Pool")),
+)
+UPDATE_SPAN = ANNOTATIONS[0]
+
+
+def vision_loss(torch, logits, labels):
+    """bench.py's run_resnet50 loss: log-softmax in float32, the mean of
+    minus the picked label's log-probability."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.take_along_dim(logp, labels[..., None].long(), dim=-1).mean()
+
+
+def vision_data(torch, batch, hw, classes, seed=0):
+    """bench.py's random images ([0, 1), NCHW float32) and int32 labels."""
+    rng = np.random.RandomState(seed)
+    images = rng.rand(batch, 3, hw, hw).astype(np.float32)
+    labels = rng.randint(0, classes, (batch,)).astype(np.int32)
+    return torch.from_numpy(images), torch.from_numpy(labels)
+
+
+def vision_step(torch, mods, model, amp_level="O0"):
+    """build_train_step's (step, init) over ``model`` with bench.py's loss
+    and Momentum."""
+    optimizer, spmd = mods
+    opt = optimizer.Momentum(VIS_LR, momentum=VIS_MOMENTUM, parameters=model.parameters(),
+                             weight_decay=VIS_DECAY)
+    return spmd.build_train_step(model, lambda out, y: vision_loss(torch, out, y), opt,
+                                 amp_level=amp_level)
+
+
+def conv_linear_flops(torch, model, x):
+    """2 x multiply-adds of one forward's convolutions and linear layers,
+    from the shapes a forward hook sees."""
+    total = [0]
+
+    def count(mod, args, out):
+        if hasattr(mod, "_kernel_size"):  # a conv: out * (in / groups) * k
+            k = 1
+            for s in mod._kernel_size:
+                k *= s
+            total[0] += 2 * out.numel() * (mod._in_channels // mod._groups) * k
+        else:  # a Linear
+            total[0] += 2 * out.numel() * mod.weight.shape[0]
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if type(m).__name__ in ("Conv2D", "Linear")]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def hold_vision_step(label, got, want):
+    """(a)'s bounds on two runs of one step, each (loss, {name: velocity},
+    {name: updated parameter}, {name: buffer}, eval output): loss
+    TOL_STEP_LOSS relative, each velocity within TOL_STEP_GRAD of its max,
+    each parameter within 2.5 * lr, each running statistic within
+    TOL_BN_STATS of its max, the eval forward within TOL_VIS_EVAL."""
+    (gl, gv, gp, gb, ge), (wl, wv, wp, wb, we) = got, want
+    bad = []
+    loss_err = abs(gl - wl) / abs(wl)
+    if not (loss_err <= TOL_STEP_LOSS and np.isfinite(gl)):
+        bad.append("loss")
+
+    def worst(g, w):
+        errs = {n: (g[n] - w[n]).abs().max().item() / max(w[n].abs().max().item(), 1e-30)
+                for n in w}
+        n = max(errs, key=errs.get)
+        return n, errs[n]
+
+    vn, verr = worst(gv, wv)
+    bn, berr = worst(gb, wb)
+    perr = max((gp[n] - wp[n]).abs().max().item() for n in wp)
+    eerr = (ge - we).abs().max().item() / we.abs().max().item()
+    bad += [] if set(gv) == set(wv) and verr <= TOL_STEP_GRAD else [f"velocity {vn}"]
+    bad += [] if perr <= 2.5 * VIS_LR else ["updated parameters"]
+    bad += [] if set(gb) == set(wb) and berr <= TOL_BN_STATS else [f"running statistic {bn}"]
+    bad += [] if eerr <= TOL_VIS_EVAL else ["eval forward"]
+    log(f"[vision] {label}: loss {gl:.6f} vs {wl:.6f} (rel err {loss_err:.2e}, tolerance "
+        f"{TOL_STEP_LOSS}); velocities of {len(wv)} parameters, worst {verr:.2e} of its max "
+        f"({vn}; tolerance {TOL_STEP_GRAD}); updated parameters max abs err {perr:.3e} "
+        f"(tolerance 2.5 lr = {2.5 * VIS_LR}); running statistics of {len(wb)} buffers, worst "
+        f"{berr:.2e} of its max ({bn}; tolerance {TOL_BN_STATS}); eval forward after the "
+        f"step {eerr:.2e} of its max (tolerance {TOL_VIS_EVAL})")
+    return bad
+
+
+def vision_run(torch, model, step_and_state, x, y):
+    """One O0 step (``step_and_state()`` -> (loss, {name: velocity}, {name:
+    parameter}) after it), then the model's buffers and an eval forward with
+    the updated parameters; all on the CPU for comparing."""
+    loss, velocity, params = step_and_state()
+    buffers = {n: b.detach().cpu().clone() for n, b in model.named_buffers()}
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(params[n])
+        model.eval()
+        out = model(x).detach().cpu()
+    model.train()
+    return (float(loss), {n: v.detach().cpu() for n, v in velocity.items()},
+            {n: p.detach().cpu() for n, p in params.items()}, buffers, out)
+
+
+def built_step(torch, mods, model, x, y):
+    """(a)'s build_train_step step of ``model`` as ``vision_run`` takes it."""
+    def run():
+        step, init = vision_step(torch, mods, model)
+        params, state = init()
+        loss, params, state = step(params, state, x, y)
+        return loss, {n: st[0] for n, st in state.items()}, params
+
+    return run
+
+
+def dygraph_vision_step(paddle, model, opt, x, y, amp):
+    """One eager step: the forward under auto_cast (O1 bf16 when ``amp``),
+    bench.py's loss, loss.backward(), opt.step(), opt.clear_grad()."""
+    with paddle.amp.auto_cast(enable=amp, level="O1", dtype="bfloat16"):
+        logits = model(x)
+        logp = paddle.nn.functional.log_softmax(logits.astype("float32"), axis=-1)
+        loss = -paddle.take_along_axis(logp, y.unsqueeze(-1), axis=-1).mean()
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def vision_optimizer(paddle, model):
+    return paddle.optimizer.Momentum(VIS_LR, momentum=VIS_MOMENTUM,
+                                     parameters=model.parameters(), weight_decay=VIS_DECAY)
+
+
+def _is_oom(torch, e):
+    return isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e)
+
+
+def phase_vision(torch, mods, card):
+    """Phase 16: the layer zoo's conv path (see the module docstring)."""
+    paddle, vision, optimizer, spmd = mods
+    from paddle_tpu_torch.core import place as pplace
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    paddle.set_device("gpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures = []
+    smods = (optimizer, spmd)
+
+    # (a) bench.py's smoke model: one O0 step, card against CPU
+    t0 = time.perf_counter()
+    sb, hw, classes = VIS_SMOKE["batch"], VIS_SMOKE["hw"], VIS_SMOKE["classes"]
+    paddle.seed(0)
+    model = vision.models.resnet18(num_classes=classes)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    x, y = vision_data(torch, sb, hw, classes)
+    runs = {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        xd, yd = x.to(dev), y.to(dev)
+        runs[dev] = vision_run(torch, m, built_step(torch, smods, m, xd, yd), xd, yd)
+    failures += [f"(a) {b}" for b in hold_vision_step(
+        f"(a) resnet18({classes} classes) at {hw} x {hw}, batch {sb}, O0 float32 step: card "
+        "vs CPU", runs["cuda"], runs["cpu"])]
+    a_secs = time.perf_counter() - t0
+
+    # (c), first part: the same step in dygraph on the card, from (a)'s start
+    paddle.seed(0)
+    eager = vision.models.resnet18(num_classes=classes)
+    opt = vision_optimizer(paddle, eager)
+
+    def eager_run():
+        loss = dygraph_vision_step(paddle, eager, opt, paddle.to_tensor(x.numpy()),
+                                   paddle.to_tensor(y.numpy()), amp=False)
+        return (loss, {n: opt._accumulators[id(p)][0] for n, p in eager.named_parameters()},
+                dict(eager.named_parameters()))
+
+    dyg_run = vision_run(torch, eager, eager_run, x.cuda(), y.cuda())
+    failures += [f"(c) O0 {b}" for b in hold_vision_step(
+        "(c) the same O0 step in dygraph vs (a)'s build_train_step step, on the card",
+        dyg_run, runs["cuda"])]
+    del model, cpu_model, eager, opt, runs, dyg_run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) bench.py's run_resnet50
+    paddle.seed(0)
+    model = vision.models.resnet50()
+    model.train()
+    n_params = sum(p.numel() for p in model.parameters())
+    probe = torch.zeros(1, 3, RESNET_HW, RESNET_HW, device="cuda")
+    flops_per_image = 3 * conv_linear_flops(torch, model, probe)
+    model.train()
+    del probe
+    step, init = vision_step(torch, smods, model, amp_level="O1")
+    result = None
+    for batch in BATCH_CANDIDATES:
+        params = state = images = labels = None
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            params, state = init()
+            images, labels = (t.cuda() for t in vision_data(torch, batch, RESNET_HW,
+                                                           RESNET_CLASSES))
+            t = time.perf_counter()
+            for i in range(RESNET_WARMUP):
+                loss, params, state = step(params, state, images, labels)
+            warm = float(loss)
+            warm_s = time.perf_counter() - t
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(RESNET_STEPS + 1)]
+            losses = []
+            t = time.perf_counter()
+            marks[0].record()
+            for i in range(RESNET_STEPS):
+                loss, params, state = step(params, state, images, labels)
+                marks[i + 1].record()
+                losses.append(loss)
+            losses = [float(v) for v in losses]  # readbacks: the window has ended
+            window = time.perf_counter() - t
+            result = dict(batch=batch, warm=warm, warm_s=warm_s, window=window, losses=losses,
+                          steps_ms=[a.elapsed_time(b) for a, b in zip(marks, marks[1:])],
+                          peak=torch.cuda.max_memory_allocated())
+            break
+        except Exception as e:  # noqa: BLE001 - an OOM moves down the candidates
+            if not _is_oom(torch, e) or batch == BATCH_CANDIDATES[-1]:
+                raise
+            log(f"[vision] (b) batch {batch}: out of memory "
+                f"({str(e).splitlines()[0][:120]}); trying a smaller batch")
+            del e
+            params = state = images = labels = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    batch = result["batch"]
+    step_ms = _median(result["steps_ms"])
+    images_per_s = batch * RESNET_STEPS / result["window"]
+    peak_share = flops_per_image * batch / (step_ms / 1e3) / PEAK_OPS_PER_S["bfloat16"]
+    log(f"[vision] (b) ResNet-50 ({n_params} parameters) at {RESNET_HW} x {RESNET_HW}, "
+        f"{RESNET_CLASSES} classes, O1 bf16 through build_train_step, batch {batch} (bench.py's "
+        f"candidates {list(BATCH_CANDIDATES)}): warmup {RESNET_WARMUP} steps {result['warm_s']:.1f} s "
+        f"(loss {result['warm']:.4f}); {RESNET_STEPS} timed steps, loss "
+        + " ".join(f"{v:.4f}" for v in result["losses"]))
+    log(f"[vision] (b) {images_per_s:.1f} images/s over the {RESNET_STEPS}-step window (host "
+        f"clock to the last loss's readback, bench.py's measure); median step {step_ms:.2f} ms "
+        f"(CUDA events between steps); {flops_per_image / 3 / 1e9:.3f} GFLOP a forward per image "
+        f"(conv and linear), x3 a step: {_fmt_pct(peak_share)} of the dense bf16 peak "
+        f"(989 TFLOP/s); peak memory {result['peak'] / 2**30:.2f} GiB | {card}")
+    if not all(np.isfinite(result["losses"])):
+        failures.append(f"(b) loss not finite: {result['losses']}")
+
+    def one_step():
+        nonlocal params, state
+        _, params, state = step(params, state, images, labels)
+
+    spans = {UPDATE_SPAN: None}
+    prof_ms, busy_ms, n_kernels, sums = profile_device(
+        torch, one_step, f"ResNet-50 O1 step, batch {batch}", top=12, groups=VISION_GROUPS,
+        spans=spans)
+    idle = 1 - busy_ms / prof_ms if busy_ms > 0 else None
+    upd = spans[UPDATE_SPAN]
+    log(f"[profile] device idle {_fmt_pct(idle)} of a ResNet-50 O1 step, {n_kernels} kernels; "
+        f"the Momentum update's kernels (the {UPDATE_SPAN} range): "
+        + ("not measured" if upd is None else f"{upd:.3f} ms, {100 * upd / busy_ms:.1f}% of "
+           "the kernel time, within the elementwise group above"))
+    del params, state, step, init, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the same ResNet-50 step in dygraph at (b)'s batch
+    paddle.seed(0)
+    model = vision.models.resnet50()
+    opt = vision_optimizer(paddle, model)
+    xi, yi = (paddle.to_tensor(t.numpy()) for t in vision_data(torch, batch, RESNET_HW,
+                                                                RESNET_CLASSES))
+    torch.cuda.reset_peak_memory_stats()
+    dyg_losses, dyg_ms = [], []
+    for _ in range(RESNET_DYG_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = dygraph_vision_step(paddle, model, opt, xi, yi, amp=True)
+        dyg_losses.append(float(loss.numpy()))
+        dyg_ms.append((time.perf_counter() - t) * 1e3)
+    dyg_step = _median(dyg_ms[1:])
+    log(f"[vision] (c) ResNet-50 O1 dygraph step at batch {batch} (median of steps 2-"
+        f"{RESNET_DYG_STEPS}, host clock to the loss's readback): {dyg_step:.2f} ms, "
+        f"{batch / dyg_step * 1e3:.1f} images/s; (b)'s build_train_step step {step_ms:.2f} ms; "
+        f"loss " + " ".join(f"{v:.4f}" for v in dyg_losses) + f"; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not all(np.isfinite(dyg_losses)):
+        failures.append(f"(c) dygraph loss not finite: {dyg_losses}")
+    del model, opt, xi, yi, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) eval() forwards, card against CPU
+    fwd = {}
+    for name, ctor, shape in (("LeNet", lambda: vision.models.LeNet(), (4, 1, 28, 28)),
+                              ("mobilenet_v2", vision.models.mobilenet_v2, (2, 3, 224, 224)),
+                              ("vgg11", vision.models.vgg11, (2, 3, 224, 224))):
+        paddle.seed(0)
+        m = ctor().eval()
+        cpu_m = copy.deepcopy(m).to("cpu")
+        xin = torch.from_numpy(np.random.RandomState(1).rand(*shape).astype(np.float32))
+        with torch.no_grad():
+            got, want = m(xin.cuda()).cpu(), cpu_m(xin)
+        fwd[name] = (got - want).abs().max().item() / want.abs().max().item()
+        if not fwd[name] <= TOL_VIS_EVAL:
+            failures.append(f"(d) {name} forward {fwd[name]:.2e} of its max")
+        del m, cpu_m
+    log("[vision] (d) eval() float32 forwards, card vs CPU (tolerance "
+        f"{TOL_VIS_EVAL} of the max): " + ", ".join(f"{k} {v:.2e}" for k, v in fwd.items()))
+    pplace._CURRENT = pplace.CUDAPlace(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        fail("vision: " + "; ".join(failures))
+    return dict(batch=batch, images_per_s=images_per_s, step_ms=step_ms,
+                peak_share=peak_share, idle=idle, kernels=n_kernels, a_secs=a_secs,
+                dygraph_step_ms=dyg_step)
+
+
 # ------------------------------------------------------- the chunk sweep
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
@@ -4698,6 +5067,7 @@ def main():
         from paddle_tpu_torch.text import generation
         from paddle_tpu_torch.text.models import BertForPretraining, BertModel, LlamaModel
         import paddle_tpu_torch as paddle
+        from paddle_tpu_torch import vision
     except ImportError as e:
         fail(f"the port is not importable from this directory: {e}")
 
@@ -4783,6 +5153,8 @@ def main():
     dyg = phase_dygraph(torch, fa, (paddle, BertForPretraining, BertModel, nn, optimizer, spmd),
                         card, train, serving)
     took("dygraph")
+    phase_vision(torch, (paddle, vision, optimizer, spmd), card)
+    took("vision")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives

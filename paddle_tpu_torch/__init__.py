@@ -3,7 +3,7 @@
 It imports torch and numpy, never jax and nothing of paddle_tpu. Usage
 mirrors paddle (``import paddle_tpu_torch as paddle``): dygraph on the
 card by default, ``paddle.set_device("cpu")`` for the CPU. The packages
-the port has not reached yet (jit, static, io, vision, hapi, distributed
+the port has not reached yet (jit, static, io, hapi, distributed
 fleet, ...) are absent rather than stubbed.
 """
 
@@ -45,19 +45,25 @@ from . import tensor  # noqa: F401,E402
 
 from . import amp  # noqa: F401,E402
 from . import autograd  # noqa: F401,E402
+from . import framework  # noqa: F401,E402
 from . import nn  # noqa: F401,E402
 from . import optimizer  # noqa: F401,E402
+from . import vision  # noqa: F401,E402
+from .framework import ParamAttr  # noqa: F401,E402
 from .nn.layer import Layer  # noqa: F401,E402
 
 
 def get_rng_state():
-    """The key stream's state (its current key)."""
+    """The key stream's state (its current key) and the state of the
+    initializers' generator: one Generator feeds both in the reference."""
     from .core import random as _random
 
-    return [_random._KEY_GENERATOR.get_state()]
+    return [_random._KEY_GENERATOR.get_state(), _random._GLOBAL_GENERATOR.get_state()]
 
 
 def set_rng_state(state_list):
     from .core import random as _random
 
     _random._KEY_GENERATOR.set_state(state_list[0])
+    if len(state_list) > 1:
+        _random._GLOBAL_GENERATOR.set_state(state_list[1])

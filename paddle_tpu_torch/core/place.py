@@ -52,8 +52,11 @@ class CUDAPinnedPlace(CPUPlace):
 
 def resolve_device(device="cuda"):
     """A ``torch.device`` from a Paddle or torch spelling ("gpu", "gpu:1",
-    "cuda", "cpu", a Place or a torch.device). Raises RuntimeError for a
-    CUDA device when no card is present, ValueError for anything else."""
+    "cuda", "cpu", a Place or a torch.device); None is the current place
+    (``set_device``'s). Raises RuntimeError for a CUDA device when no card
+    is present, ValueError for anything else."""
+    if device is None:
+        return current_device()
     if isinstance(device, Place):
         return device.torch_device()
     if isinstance(device, str):

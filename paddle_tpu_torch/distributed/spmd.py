@@ -27,22 +27,32 @@ eager ``Optimizer.step()``. With ``lr=None`` a step takes
 ``optimizer.get_lr()``, a scheduler's current rate, as a float32 scalar;
 stepping the scheduler between steps is the caller's.
 
+A layer's buffers (BatchNorm's running statistics) thread through the
+step as the reference threads them (spmd.py:192-231, 413-448): each step
+reads the layer's buffers as they are then (so buffers loaded onto the
+layer between steps are picked up), runs the forward on copies of them,
+which the forward updates in place, and writes the copies' new values
+back onto the layer after the step, so ``state_dict()`` and ``eval()``
+see them.
+
 ``recompute=True`` is the reference's ``jax.checkpoint`` around the whole
 loss function (spmd.py:235-236): ``torch.utils.checkpoint.checkpoint``
 (non-reentrant) around the forward and loss, with ``rng_guard(key)``
 entered inside it, so the backward runs the forward again and its dropout
-draws the same keys. It saves no peak memory (the recomputed forward's
+draws the same keys; the recomputed forward updates copies of its own,
+which are dropped, so the buffers move once a step, bitwise as in a
+plain step. It saves no peak memory (the recomputed forward's
 activations are all alive at once again) and runs the forward twice.
 
 Options of the reference that this port does not implement yet raise
 NotImplementedError (a mesh, ZeRO sharding, fp16 all-reduce, DGC, a
-strategy, offload, ``bad_step_guard``, layers with buffers, and fp16
-mixed precision, which needs the loss scaler and an fp16 form of the
+strategy, offload, ``bad_step_guard``, and fp16 mixed precision, which needs the loss scaler and an fp16 form of the
 flash kernels); none is ignored.
 """
 import contextlib
 
 import torch
+import torch.profiler
 import torch.utils.checkpoint
 
 from ..amp.auto_cast import auto_cast
@@ -86,9 +96,6 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
         raise NotImplementedError(
             f"build_train_step: amp_dtype={amp_dtype!r} not ported yet (fp16 needs the "
             "loss scaler, amp/grad_scaler.py, and an fp16 form of the flash kernels)")
-    if any(True for _ in layer.buffers()):
-        raise NotImplementedError("build_train_step: layers with buffers (BatchNorm "
-                                  "statistics) are not ported yet")
     amp_enabled = amp_level in ("O1", "O2")
     names = [n for n, _ in layer.named_parameters()]
     hypers = optimizer._hypers()
@@ -101,21 +108,22 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
         opt_state = {n: optimizer._init_state(params[n]) for n in names}
         return params, opt_state
 
-    def forward_loss(leaves, x, y, key):
+    def forward_loss(leaves, buffers, x, y, key):
+        work = {n: b.clone() for n, b in buffers.items()}  # the forward updates these
         with contextlib.ExitStack() as stack:
             stack.enter_context(random_core.rng_guard(key))
             if amp_enabled:
                 stack.enter_context(auto_cast(enable=True, level=amp_level,
                                               dtype=amp_dtype))
-            out = torch.func.functional_call(layer, leaves, (x,))
-            return loss_fn(out, y)
+            out = torch.func.functional_call(layer, {**leaves, **work}, (x,))
+            return loss_fn(out, y), work
 
     if recompute:
         plain_forward_loss = forward_loss
 
-        def forward_loss(leaves, x, y, key):
-            return torch.utils.checkpoint.checkpoint(plain_forward_loss, leaves, x, y, key,
-                                                     use_reentrant=False)
+        def forward_loss(leaves, buffers, x, y, key):
+            return torch.utils.checkpoint.checkpoint(plain_forward_loss, leaves, buffers, x,
+                                                     y, key, use_reentrant=False)
 
     def step_fn(params, opt_state, x, y, key=None, lr=None):
         if key is None:
@@ -123,7 +131,8 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
         if lr is None:
             lr = optimizer.get_lr()
         leaves = {n: params[n].detach().requires_grad_(True) for n in names}
-        loss = forward_loss(leaves, x, y, key)
+        buffers = dict(layer.named_buffers())
+        loss, new_buffers = forward_loss(leaves, buffers, x, y, key)
         grads = torch.autograd.grad(loss, [leaves[n] for n in names], allow_unused=True)
         grads = [torch.zeros_like(leaves[n]) if g is None else g
                  for n, g in zip(names, grads)]
@@ -131,7 +140,11 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
             grads = grad_clip.clip_arrays(grads)
         new_params, new_state = {}, {}
         lr_t = {}  # one float32 scalar per device
-        with torch.no_grad():
+        # the update's range is named for a profiler to read (its cost when
+        # no profiler runs: one host call)
+        with torch.no_grad(), torch.profiler.record_function("build_train_step.update"):
+            for n, b in new_buffers.items():
+                buffers[n].copy_(b)
             for n, g in zip(names, grads):
                 p = params[n]
                 if p.device not in lr_t:

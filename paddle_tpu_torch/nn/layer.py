@@ -20,7 +20,6 @@ writes (its ``forward`` defined outside the port) gets its arguments as
 given, so Paddle code in it runs on Tensors. Forward hooks see Tensors.
 """
 import collections
-import types
 
 import numpy as np
 import torch
@@ -28,6 +27,7 @@ import torch
 from ..core import dtype as dtype_mod
 from ..core import place as place_mod
 from ..core.tensor import Parameter, has_tensor, plain_all, wrap_all
+from ..framework.param_attr import ParamAttr
 from . import initializer as init_mod
 
 _LAYER_COUNTERS = collections.defaultdict(int)
@@ -64,30 +64,28 @@ class Layer(torch.nn.Module):
 
     # ------------------------------------------------------------ params
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
-                         default_initializer=None):
-        """A Parameter on the current place: ``attr`` (a ParamAttr-like
-        object with ``name``, ``initializer``, ``learning_rate``,
-        ``regularizer``, ``trainable``, ``need_clip``; a string names it;
-        False: no parameter) or the defaults, Constant(0) for a bias and
-        XavierNormal otherwise."""
+                         default_initializer=None, *, device=None, generator=None):
+        """A Parameter made as ``attr`` says (a ParamAttr, a name, an
+        initializer, or False for no parameter: ``ParamAttr._to_attr``).
+        Its initializer is the attr's, else ``default_initializer``, else
+        ``set_global_initializer``'s, else Constant(0) for a bias and
+        XavierNormal otherwise. It lies on ``device``, the current place
+        when None, and draws from ``generator`` (the port's: a seeded
+        ``torch.Generator``; ``paddle.seed``'s when None)."""
+        attr = ParamAttr._to_attr(attr)
         if attr is False:
             return None
-        if isinstance(attr, str):
-            attr = types.SimpleNamespace(name=attr)
-
-        def get(key, default=None):  # None: no attr, every default
-            return getattr(attr, key, default)
-
-        init = get("initializer") or default_initializer or (
-            init_mod.Constant(0.0) if is_bias else init_mod.XavierNormal())
+        init = (attr.initializer or default_initializer
+                or init_mod.global_initializer(is_bias)
+                or (init_mod.Constant(0.0) if is_bias else init_mod.XavierNormal()))
         d = dtype_mod.convert_dtype(dtype or self._dtype)
-        value = init(tuple(int(s) for s in shape)).to(device=place_mod.current_device(),
-                                                      dtype=d)
-        p = Parameter(value, trainable=get("trainable", True), name=get("name"))
-        p.optimize_attr["learning_rate"] = get("learning_rate", 1.0)
-        if get("regularizer") is not None:
-            p.regularizer = get("regularizer")
-        if get("need_clip", True) is False:
+        value = init(tuple(int(s) for s in shape), generator).to(
+            device=place_mod.resolve_device(device), dtype=d)
+        p = Parameter(value, trainable=attr.trainable, name=attr.name)
+        p.optimize_attr["learning_rate"] = attr.learning_rate
+        if attr.regularizer is not None:
+            p.regularizer = attr.regularizer
+        if attr.need_clip is False:
             p.need_clip = False
         if p.name is None:
             p.name = f"{self._full_name}.w_{len(self._parameters)}"

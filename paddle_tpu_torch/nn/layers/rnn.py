@@ -20,26 +20,27 @@ import math
 import torch
 
 from ...amp.auto_cast import cast_inputs
-from ...core.place import resolve_device
 from .. import initializer as I
 from ..layer import Layer
 
 _GATES = {"LSTM": 4, "GRU": 3, "RNN_TANH": 1, "RNN_RELU": 1}
 
 
-def _create_weights(module, gates, hidden_size, input_size, suffix, device, generator):
+def _create_weights(module, gates, hidden_size, input_size, suffix, attrs, device,
+                    generator):
     """weight_ih [gates*H, in], weight_hh [gates*H, H], bias_ih and
-    bias_hh [gates*H], each uniform in +-1/sqrt(H), registered under their
-    names plus ``suffix``."""
-    dev = resolve_device(device)
+    bias_hh [gates*H], each uniform in +-1/sqrt(H) unless its attr (of
+    ``attrs``, in that order) says otherwise, registered under their names
+    plus ``suffix``."""
     std = 1.0 / math.sqrt(hidden_size)
     init = I.Uniform(-std, std)
-    for name, shape in (("weight_ih", [gates * hidden_size, input_size]),
-                        ("weight_hh", [gates * hidden_size, hidden_size]),
-                        ("bias_ih", [gates * hidden_size]),
-                        ("bias_hh", [gates * hidden_size])):
-        module.register_parameter(name + suffix,
-                                  I.create_parameter(shape, init, dev, generator))
+    for (name, shape), attr in zip((("weight_ih", [gates * hidden_size, input_size]),
+                                    ("weight_hh", [gates * hidden_size, hidden_size]),
+                                    ("bias_ih", [gates * hidden_size]),
+                                    ("bias_hh", [gates * hidden_size])), attrs):
+        module.add_parameter(name + suffix, module.create_parameter(
+            shape, attr=attr, is_bias=name.startswith("bias"), default_initializer=init,
+            device=device, generator=generator))
 
 
 def _simple_step(x, h, wi, wh, bi, bh, activation):
@@ -84,13 +85,16 @@ class SimpleRNNCell(RNNCellBase):
     """h' = act(x W_ih^T + b_ih + h W_hh^T + b_hh), act tanh or relu.
     Returns (h', h')."""
 
-    def __init__(self, input_size, hidden_size, activation="tanh", *, device="cuda",
-                 generator=None):
+    def __init__(self, input_size, hidden_size, activation="tanh", weight_ih_attr=None,
+                 weight_hh_attr=None, bias_ih_attr=None, bias_hh_attr=None, name=None, *,
+                 device=None, generator=None):
         super().__init__()
         self.input_size = input_size
         self.hidden_size = hidden_size
         self.activation = activation
-        _create_weights(self, 1, hidden_size, input_size, "", device, generator)
+        _create_weights(self, 1, hidden_size, input_size, "",
+                        (weight_ih_attr, weight_hh_attr, bias_ih_attr, bias_hh_attr), device,
+                        generator)
 
     def forward(self, inputs, states=None):
         if states is None:
@@ -108,11 +112,15 @@ class LSTMCell(RNNCellBase):
     """Gates i, f, g, o; c' = f c + i g, h' = o tanh(c'). ``states`` is
     (h, c); returns (h', (h', c'))."""
 
-    def __init__(self, input_size, hidden_size, *, device="cuda", generator=None):
+    def __init__(self, input_size, hidden_size, weight_ih_attr=None, weight_hh_attr=None,
+                 bias_ih_attr=None, bias_hh_attr=None, name=None, *, device=None,
+                 generator=None):
         super().__init__()
         self.input_size = input_size
         self.hidden_size = hidden_size
-        _create_weights(self, 4, hidden_size, input_size, "", device, generator)
+        _create_weights(self, 4, hidden_size, input_size, "",
+                        (weight_ih_attr, weight_hh_attr, bias_ih_attr, bias_hh_attr), device,
+                        generator)
 
     def forward(self, inputs, states=None):
         if states is None:
@@ -131,11 +139,15 @@ class LSTMCell(RNNCellBase):
 class GRUCell(RNNCellBase):
     """Gates r, z, n; h' = (1 - z) n + z h. Returns (h', h')."""
 
-    def __init__(self, input_size, hidden_size, *, device="cuda", generator=None):
+    def __init__(self, input_size, hidden_size, weight_ih_attr=None, weight_hh_attr=None,
+                 bias_ih_attr=None, bias_hh_attr=None, name=None, *, device=None,
+                 generator=None):
         super().__init__()
         self.input_size = input_size
         self.hidden_size = hidden_size
-        _create_weights(self, 3, hidden_size, input_size, "", device, generator)
+        _create_weights(self, 3, hidden_size, input_size, "",
+                        (weight_ih_attr, weight_hh_attr, bias_ih_attr, bias_hh_attr), device,
+                        generator)
 
     def forward(self, inputs, states=None):
         if states is None:
@@ -201,8 +213,11 @@ class _RNNBase(Layer):
     MODE = "LSTM"
 
     def __init__(self, input_size, hidden_size, num_layers=1, direction="forward",
-                 time_major=False, dropout=0.0, *, device="cuda", generator=None):
+                 time_major=False, dropout=0.0, weight_ih_attr=None, weight_hh_attr=None,
+                 bias_ih_attr=None, bias_hh_attr=None, name=None, *, device=None,
+                 generator=None):
         super().__init__()
+        attrs = (weight_ih_attr, weight_hh_attr, bias_ih_attr, bias_hh_attr)
         self.mode = self.MODE
         self.input_size = input_size
         self.hidden_size = hidden_size
@@ -215,7 +230,7 @@ class _RNNBase(Layer):
             for d in range(ndir):
                 in_size = input_size if layer == 0 else hidden_size * ndir
                 _create_weights(self, _GATES[self.mode], hidden_size, in_size,
-                                self._suffix(layer, d), device, generator)
+                                self._suffix(layer, d), attrs, device, generator)
 
     @staticmethod
     def _suffix(layer, d):

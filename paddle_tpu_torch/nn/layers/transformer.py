@@ -53,7 +53,8 @@ class MultiHeadAttention(Layer):
             self.v = v
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None, vdim=None,
-                 need_weights=False, *, bias_attr=None, device="cuda", generator=None):
+                 need_weights=False, weight_attr=None, bias_attr=None, *, device=None,
+                 generator=None):
         super().__init__()
         self.embed_dim = embed_dim
         self.kdim = kdim or embed_dim
@@ -65,7 +66,8 @@ class MultiHeadAttention(Layer):
         if self.head_dim * num_heads != embed_dim:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
-        kw = dict(bias_attr=bias_attr, device=device, generator=generator)
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr, device=device,
+                  generator=generator)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
         self.k_proj = Linear(self.kdim, embed_dim, **kw)
         self.v_proj = Linear(self.vdim, embed_dim, **kw)
@@ -147,11 +149,13 @@ class MultiHeadAttention(Layer):
 class TransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, *, bias_attr=None, device="cuda", generator=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None, *, device=None,
+                 generator=None):
         super().__init__()
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
-        kw = dict(bias_attr=bias_attr, device=device, generator=generator)
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr, device=device,
+                  generator=generator)
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout, **kw)
         self.linear1 = Linear(d_model, dim_feedforward, **kw)
@@ -223,11 +227,13 @@ class TransformerDecoderLayer(Layer):
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, *, bias_attr=None, device="cuda", generator=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None, *, device=None,
+                 generator=None):
         super().__init__()
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
-        kw = dict(bias_attr=bias_attr, device=device, generator=generator)
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr, device=device,
+                  generator=generator)
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout, **kw)
         self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout, **kw)
@@ -324,12 +330,13 @@ class Transformer(Layer):
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, *, bias_attr=None, custom_encoder=None,
-                 custom_decoder=None, device="cuda", generator=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None, *, device=None, generator=None):
         super().__init__()
         args = (d_model, nhead, dim_feedforward, dropout, activation, attn_dropout,
                 act_dropout, normalize_before)
-        kw = dict(bias_attr=bias_attr, device=device, generator=generator)
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr, device=device,
+                  generator=generator)
         if custom_encoder is not None:
             self.encoder = custom_encoder
         else:
@@ -350,7 +357,7 @@ class Transformer(Layer):
         return self.decoder(tgt, memory, tgt_mask, memory_mask)
 
     @staticmethod
-    def generate_square_subsequent_mask(length, *, device="cuda"):
+    def generate_square_subsequent_mask(length, *, device=None):
         """[length, length] float32 additive mask: 0 on and below the
         diagonal, -inf above it."""
         dev = resolve_device(device)

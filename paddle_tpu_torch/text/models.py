@@ -18,7 +18,7 @@ from ..nn.layer import Layer
 
 class BertEmbeddings(Layer):
     def __init__(self, vocab_size, hidden_size, max_position_embeddings=512,
-                 type_vocab_size=2, hidden_dropout_prob=0.1, *, device="cuda",
+                 type_vocab_size=2, hidden_dropout_prob=0.1, *, device=None,
                  generator=None):
         super().__init__()
         kw = dict(device=device, generator=generator)
@@ -42,7 +42,7 @@ class BertEmbeddings(Layer):
 
 
 class BertPooler(Layer):
-    def __init__(self, hidden_size, *, device="cuda", generator=None):
+    def __init__(self, hidden_size, *, device=None, generator=None):
         super().__init__()
         self.dense = nn.Linear(hidden_size, hidden_size, device=device,
                                generator=generator)
@@ -60,8 +60,10 @@ class BertModel(Layer):
                  num_attention_heads=12, intermediate_size=3072,
                  hidden_act="gelu", hidden_dropout_prob=0.1,
                  attention_probs_dropout_prob=0.1, max_position_embeddings=512,
-                 type_vocab_size=2, with_pool=True, *, device="cuda",
-                 generator=None):
+                 type_vocab_size=2, initializer_range=0.02, pad_token_id=0, with_pool=True,
+                 *, device=None, generator=None):
+        """``initializer_range`` and ``pad_token_id`` are accepted and unused,
+        as in the reference."""
         super().__init__()
         device = resolve_device(device)
         kw = dict(device=device, generator=generator)
@@ -91,7 +93,7 @@ class BertLMPredictionHead(Layer):
     word embeddings (``decoder_weight`` is that very Parameter, tied)."""
 
     def __init__(self, hidden_size, vocab_size, embedding_weights=None, *,
-                 device="cuda", generator=None):
+                 device=None, generator=None):
         super().__init__()
         dev = resolve_device(device)
         self.transform = nn.Linear(hidden_size, hidden_size, device=dev,
@@ -112,7 +114,7 @@ class BertForPretraining(Layer):
     under ``bert.embeddings.word_embeddings.weight``, as the reference
     does."""
 
-    def __init__(self, bert=None, *, device="cuda", generator=None, **bert_kwargs):
+    def __init__(self, bert=None, *, device=None, generator=None, **bert_kwargs):
         super().__init__()
         if bert is None:
             bert = BertModel(**bert_kwargs, device=device, generator=generator)
@@ -147,7 +149,7 @@ def bert_pretraining_loss(mlm_logits, nsp_logits, mlm_labels, nsp_labels,
 
 class GPTDecoderLayer(Layer):
     def __init__(self, hidden_size, num_heads, intermediate_size, dropout=0.0,
-                 act="gelu", *, device="cuda", generator=None):
+                 act="gelu", *, device=None, generator=None):
         super().__init__()
         dev = resolve_device(device)
         kw = dict(device=dev, generator=generator)
@@ -172,7 +174,7 @@ class GPTModel(Layer):
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=None, max_seq_len=1024,
-                 dropout=0.0, *, device="cuda", generator=None):
+                 dropout=0.0, *, device=None, generator=None):
         super().__init__()
         dev = resolve_device(device)
         kw = dict(device=dev, generator=generator)
@@ -201,10 +203,11 @@ class GPTModel(Layer):
 
 
 class RMSNorm(Layer):
-    def __init__(self, hidden_size, eps=1e-6, *, device="cuda"):
+    def __init__(self, hidden_size, eps=1e-6, *, device=None):
         super().__init__()
-        self.weight = I.create_parameter([hidden_size], I.Constant(1.0),
-                                         resolve_device(device))
+        self.weight = self.create_parameter([hidden_size],
+                                            default_initializer=I.Constant(1.0),
+                                            device=device)
         self.eps = eps
 
     def forward(self, x):
@@ -265,7 +268,7 @@ def _repeat_kv(x, rep):
 
 
 class LlamaAttention(Layer):
-    def __init__(self, hidden_size, num_heads, num_kv_heads=None, *, device="cuda",
+    def __init__(self, hidden_size, num_heads, num_kv_heads=None, *, device=None,
                  generator=None):
         super().__init__()
         kw = dict(bias_attr=False, device=resolve_device(device), generator=generator)
@@ -300,7 +303,7 @@ class LlamaAttention(Layer):
 
 
 class LlamaMLP(Layer):
-    def __init__(self, hidden_size, intermediate_size, *, device="cuda", generator=None):
+    def __init__(self, hidden_size, intermediate_size, *, device=None, generator=None):
         super().__init__()
         kw = dict(bias_attr=False, device=resolve_device(device), generator=generator)
         self.gate_proj = nn.Linear(hidden_size, intermediate_size, **kw)
@@ -313,7 +316,7 @@ class LlamaMLP(Layer):
 
 class LlamaDecoderLayer(Layer):
     def __init__(self, hidden_size, num_heads, intermediate_size, num_kv_heads=None, *,
-                 device="cuda", generator=None):
+                 device=None, generator=None):
         super().__init__()
         dev = resolve_device(device)
         kw = dict(device=dev, generator=generator)
@@ -337,7 +340,7 @@ class LlamaModel(Layer):
 
     def __init__(self, vocab_size=32000, hidden_size=4096, num_layers=32,
                  num_heads=32, intermediate_size=11008, num_kv_heads=None,
-                 max_seq_len=4096, tensor_parallel=False, *, device="cuda",
+                 max_seq_len=4096, tensor_parallel=False, *, device=None,
                  generator=None):
         super().__init__()
         if tensor_parallel:

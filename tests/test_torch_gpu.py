@@ -6,7 +6,9 @@ forward, a training step and Llama's cached decode through them, the
 decode paths captured as CUDA graphs against their eager runs, a
 quantized Llama engine's solo = batch, K1's translation forms with a
 small beam search against the CPU, and K1-K3 at the training forms with a
-small Llama and Transformer step against the CPU. Needs a CUDA card
+small Llama and Transformer step against the CPU, and the conv path (an
+f32 conv IEEE with cuDNN's TF32 flag on, BatchNorm's running statistics
+against the CPU, a bf16 conv under O1 against f32). Needs a CUDA card
 (marker ``gpu``; skipped without one).
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -1094,3 +1096,80 @@ def test_tensor_api_on_the_card(cuda):
         place._CURRENT = prev
     for a, b in zip(res["gpu"], res["cpu"]):
         assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+
+
+# ------------------------------------------------------- the conv path
+def test_f32_conv_is_ieee_with_tf32_on(cuda):
+    """A float32 convolution of the port is IEEE float32 whatever cuDNN's
+    TF32 flag says (set to True here, globally), forward and backward:
+    within 1e-5 of a float64 convolution on the CPU; the flag is as the
+    caller left it afterwards."""
+    from paddle_tpu_torch.nn import functional as F
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn(8, 64, 28, 28, generator=g)
+        w = torch.randn(128, 64, 3, 3, generator=g) * 0.05
+        xc, wc = x.cuda().requires_grad_(), w.cuda().requires_grad_()
+        y = F.conv2d(xc, wc, stride=2, padding=1)
+        gy = torch.randn(y.shape, generator=g)
+        y.backward(gy.cuda())
+        assert torch.backends.cudnn.allow_tf32
+        x64, w64 = x.double().requires_grad_(), w.double().requires_grad_()
+        y64 = torch.nn.functional.conv2d(x64, w64, stride=2, padding=1)
+        y64.backward(gy.double())
+        for got, want in ((y, y64), (xc.grad, x64.grad), (wc.grad, w64.grad)):
+            err = (got.detach().cpu().double() - want.detach()).abs().max()
+            assert err <= 1e-5 * want.abs().max(), float(err)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_batchnorm_statistics_on_the_card_equal_the_cpu(cuda):
+    """Three training calls of a BatchNorm2D: the running mean and (biased)
+    variance on the card within 1e-5 of the CPU's."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place as pplace
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        prev = pplace._CURRENT
+        paddle.set_device("gpu" if dev == "cuda" else "cpu")
+        try:
+            bn = paddle.nn.BatchNorm2D(16)
+        finally:
+            pplace._CURRENT = prev
+        xs = [torch.randn(8, 16, 14, 14, generator=torch.Generator().manual_seed(i)) * 3 + 1
+              for i in range(3)]
+        for x in xs:
+            bn(x.to(dev))
+        runs[dev] = (bn._mean.cpu(), bn._variance.cpu())
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_bf16_conv_under_o1_matches_f32(cuda):
+    """Under auto_cast O1 a conv runs in bfloat16 (conv2d is on the white
+    list) and the BatchNorm after it in float32 (batch_norm_train on the
+    black list): the pair within 2e-2 of its float32 run's max."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 32, 28, 28, generator=g).cuda()
+    w = (torch.randn(64, 32, 3, 3, generator=g) * 0.05).cuda()
+    gamma, beta = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+
+    def run(level):
+        with amp.auto_cast(enable=level == "O1", level="O1"):
+            y = F.conv2d(x, w, padding=1)
+            z = F.batch_norm(y, None, None, gamma, beta, training=True)
+        return y, z
+
+    (y1, z1), (y0, z0) = run("O1"), run("O0")
+    assert y1.dtype == torch.bfloat16 and z1.dtype == torch.float32
+    for got, want in ((y1, y0), (z1, z0)):
+        err = (got.float() - want).abs().max()
+        assert err <= 2e-2 * want.abs().max(), float(err)

@@ -158,3 +158,35 @@ def test_to_tensor_needs_a_card_unless_the_cpu_is_asked_for(no_card):
     r = subprocess.run([sys.executable, "-c", _TENSOR_API], cwd=str(REPO), env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
+
+
+_LAYERS = """
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch.text.models import BertModel
+assert paddle.get_device() == "gpu:0"
+nn = paddle.nn
+for fn in (lambda: nn.Linear(3, 3), lambda: nn.Conv2D(2, 2, 3), lambda: nn.BatchNorm2D(2),
+           lambda: nn.LSTM(2, 2), lambda: nn.MultiHeadAttention(4, 2),
+           lambda: paddle.vision.models.resnet18(), lambda: paddle.vision.models.LeNet(),
+           lambda: BertModel(vocab_size=8, hidden_size=8, num_hidden_layers=1,
+                             num_attention_heads=2, intermediate_size=8)):
+    try:
+        fn()
+    except RuntimeError as e:
+        assert "no CUDA card" in str(e), e
+    else:
+        raise AssertionError("a layer was built without a card and without the CPU asked for")
+paddle.set_device("cpu")
+assert nn.Conv2D(2, 2, 3).weight.device.type == "cpu"
+print("ok")
+"""
+
+
+def test_layers_default_to_the_card(no_card):
+    """Every layer, the vision models included, builds on the current place,
+    which is the card until set_device says otherwise: without a card they
+    raise. A fresh interpreter."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _LAYERS], cwd=str(REPO), env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]

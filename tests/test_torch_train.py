@@ -434,9 +434,14 @@ def test_train_step_amp_level_and_buffers_are_checked():
     opt = topt.AdamW(parameters=m.parameters())
     with pytest.raises(ValueError):
         tspmd.build_train_step(m, lambda out, y: out.sum(), opt, amp_level="O3")
-    m.register_buffer("stat", torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="buffers"):
-        tspmd.build_train_step(m, lambda out, y: out.sum(), opt)
+    # a layer with buffers now builds: they thread through the step and are
+    # written back onto the layer (tests/test_torch_vision.py holds them
+    # against the reference on a ResNet)
+    m.register_buffer("stat", torch.arange(2.0))
+    step, init = tspmd.build_train_step(m, lambda out, y: out.sum(), opt)
+    params, state = init()
+    step(params, state, torch.ones(1, 2), None)
+    assert torch.equal(m.stat, torch.arange(2.0))
 
 
 # ------------------------------------------------------------------ cuda_build
