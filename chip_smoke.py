@@ -314,7 +314,49 @@ Phases, each fatal on failure (exit code 1):
               on the card; (d) eval() float32 forwards, card vs CPU within
               1e-3 of the max: LeNet at 28 x 28 batch 4, mobilenet_v2 and
               vgg11 at 224 x 224 batch 2
- 17. summary  a {"kernels": [...]} line, then as the last line
+ 17. data     the data path and the high-level API, after phase 16 and at
+              its batch (none of the port's kernels but wq_matmul, once,
+              in (d)(iii)'s classifier): (a) BASELINE config 1, LeNet
+              through paddle.Model (Adam 1e-3, CrossEntropyLoss, Accuracy),
+              fit one epoch of the synthetic MNIST train split (8,192
+              images) at batch 64, shuffled from numpy seed 0, 2 workers, on
+              the card and on the CPU from the same weights: the batches
+              bitwise equal (a digest of each), the first 20 step losses
+              within 1e-4 relative, evaluate's acc on the test split > 0.9
+              on both; printed the ms a step and the share of the loop
+              waiting in next(loader); (b) on (a)'s model: paddle.save then
+              paddle.load of its state dict bitwise; Model.save into a fresh
+              Model's load: evaluate equal and Adam's accumulators bitwise;
+              fit(save_dir, epochs=2) against a fit stopped by SIGTERM
+              (resilience.chaos) at step 10 of epoch 2 and then
+              fit(resume=True) (each epoch's order from its own numpy seed):
+              the marker written and then cleared, no final snapshot after
+              the stop, every parameter within 1e-6 of its max of the
+              uninterrupted run (bitwise printed; cuDNN is not bitwise run
+              to run, the CPU test holds it bitwise); (c) phase 16 (b)'s
+              ResNet-50 O1 step fed by paddle.io.DataLoader: 2,048 uint8
+              224 x 224 x 3 images from RandomState(0) (index modulo 2,048,
+              23 batches long), RandomHorizontalFlip + Normalize (ImageNet's
+              mean and std) in min(8, cores) workers, shuffle, drop_last,
+              prefetch_factor 2; 3 + 20 steps, the loss finite, the first
+              batch bitwise a single-process loader's and on the card;
+              printed images/s and the median step beside phase 16 (b)'s,
+              the share of the window waiting in next(loader), the bytes
+              of a batch; (d)(i) ImperativeQuantAware().quantize(LeNet()):
+              one float32 step card vs CPU at phase 5's bounds, its
+              act_scale buffers within 1e-6 relative, then Model.fit one
+              epoch of (a)'s data, acc > 0.9; (ii) quantize(resnet50()) O1
+              through build_train_step, 3 + 10 steps on two batches in
+              turn at the first of bench.py's candidates (from phase 16's
+              batch down) that fits: the loss finite, every act_scale
+              (halved before the timed steps) written by them, images/s
+              printed;
+              (iii) quantize_weights(resnet50()): every conv an Int8Conv2D
+              and the classifier an Int8Linear, an eval() float32 forward
+              at batch 8 card vs CPU within 1e-3 of the max; printed the
+              gap to the float model's logits (no bound: random weights)
+              and weight_bytes against the float model's
+ 18. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -4953,6 +4995,536 @@ def phase_vision(torch, mods, card):
                 dygraph_step_ms=dyg_step)
 
 
+# ------------------------------------------------------------------ phase 17
+DATA_BATCH, DATA_WORKERS = 64, 2  # (a): BASELINE config 1's fit
+DATA_LR = 1e-3
+DATA_PARITY_STEPS = 20  # (a): the first step losses held card vs CPU
+DATA_KILL_STEP = 10  # (b): SIGTERM at this step of epoch 2 (1-based)
+DATA_IMAGES = 2048  # (c): distinct uint8 images held in memory
+IMAGENET_MEAN, IMAGENET_STD = [123.675, 116.28, 103.53], [58.395, 57.12, 57.375]
+QAT_WARMUP, QAT_STEPS = 3, 10
+TOL_DATA_LOSS = 1e-4  # (a): each of the first 20 step losses, card vs CPU, relative
+TOL_DATA_RESUME = 1e-6  # (b): resumed vs uninterrupted, of each parameter's max
+TOL_ACT_SCALE = 1e-6  # (d)(i): act_scale, card vs CPU, relative
+TOL_INT8_EVAL = 1e-3  # (d)(iii): the int8 ResNet-50's eval forward, card vs CPU
+
+
+def data_classes(paddle):
+    """The Callback, Model and DataLoader subclasses phase 17 measures
+    through (a user's extensions of the high-level API)."""
+    import hashlib
+
+    class StepLog(paddle.callbacks.Callback):
+        def __init__(self, seed_epochs=None):
+            super().__init__()
+            self.losses, self.times, self.seed_epochs = [], [], seed_epochs
+
+        def on_epoch_begin(self, epoch, logs=None):
+            if self.seed_epochs is not None:  # each epoch's order from its own seed
+                np.random.seed(self.seed_epochs + epoch)
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            self.times.append(time.perf_counter())
+
+    class DigestModel(paddle.Model):
+        """Records a digest of every batch train_batch is given."""
+
+        digests = None
+
+        def train_batch(self, inputs, labels=None, update=True):
+            if self.digests is not None:
+                h = hashlib.sha256()
+                for t in list(inputs) + list(labels or []):
+                    h.update(np.ascontiguousarray(t.numpy()).tobytes())
+                self.digests.append(h.hexdigest())
+            return super().train_batch(inputs, labels, update)
+
+    class TimedLoader(paddle.io.DataLoader):
+        """Adds the seconds spent in next() and the loop's seconds."""
+
+        wait_s = loop_s = 0.0
+        batches = 0
+
+        def __iter__(self):
+            it = super().__iter__()
+            t_loop = time.perf_counter()
+            try:
+                while True:
+                    t = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    self.wait_s += time.perf_counter() - t
+                    self.batches += 1
+                    yield batch
+            finally:
+                self.loop_s += time.perf_counter() - t_loop
+                it.close()
+
+    return StepLog, DigestModel, TimedLoader
+
+
+def lenet_model(paddle, net, cls=None):
+    model = (cls or paddle.Model)(net)
+    model.prepare(paddle.optimizer.Adam(DATA_LR, parameters=net.parameters()),
+                  paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    return model
+
+
+def lenet_fit(paddle, classes, net, train, test, place):
+    """(a)'s fit of ``net`` on ``place``: one epoch of ``train`` at batch 64,
+    shuffled from numpy seed 0, through 2 workers; then ``evaluate``."""
+    StepLog, DigestModel, TimedLoader = classes
+    paddle.set_device(place)
+    model = lenet_model(paddle, net, DigestModel)
+    model.digests = []
+    loader = TimedLoader(train, batch_size=DATA_BATCH, shuffle=True, num_workers=DATA_WORKERS)
+    logger = StepLog()
+    np.random.seed(0)
+    model.fit(loader, epochs=1, verbose=0, callbacks=[logger])
+    ev = model.evaluate(test, batch_size=256, verbose=0)
+    return dict(model=model, digests=model.digests, losses=logger.losses, eval=ev,
+                step_ms=1e3 * loader.loop_s / loader.batches,
+                wait=loader.wait_s / loader.loop_s, steps=loader.batches)
+
+
+def resume_run(paddle, classes, chaos, start, train, save_dir, kill_at=None, resume=False):
+    """(b): LeNet from ``start`` fit 2 epochs with ``save_dir`` (each epoch's
+    order from its own numpy seed); SIGTERM through chaos at train step
+    ``kill_at`` when given. Returns the parameters after the fit."""
+    import signal
+
+    StepLog = classes[0]
+    net = paddle.vision.models.LeNet()
+    net.set_state_dict(start)
+    model = lenet_model(paddle, net)
+    if kill_at is not None:
+        chaos.arm("train.step", signum=signal.SIGTERM, at=chaos.visits("train.step") + kill_at)
+    try:
+        model.fit(train, batch_size=DATA_BATCH, epochs=2, shuffle=True,
+                  num_workers=DATA_WORKERS, verbose=0, save_dir=save_dir, resume=resume,
+                  callbacks=[StepLog(seed_epochs=1000)])
+    finally:
+        chaos.reset()
+    return {n: p.detach().clone() for n, p in net.named_parameters()}
+
+
+class ImageNetLike:
+    """(c)'s dataset: DATA_IMAGES uint8 HWC 224 x 224 x 3 images and 1000
+    labels from RandomState(0), index modulo DATA_IMAGES over ``length``
+    samples; the sample is ``transform(image)``. (Made a ``paddle.io.Dataset``
+    in ``phase_data``.)"""
+
+    def __init__(self, length, transform):
+        rng = np.random.RandomState(0)
+        self.images = rng.randint(0, 256, (DATA_IMAGES, RESNET_HW, RESNET_HW, 3), dtype=np.uint8)
+        self.labels = rng.randint(0, RESNET_CLASSES, DATA_IMAGES).astype(np.int64)
+        self.length, self.transform = length, transform
+
+    def __getitem__(self, i):
+        j = i % DATA_IMAGES
+        return self.transform(self.images[j]), self.labels[j]
+
+    def __len__(self):
+        return self.length
+
+
+def first_batch_alone(paddle, ds, batch, seed):
+    """The first batch of a worker DataLoader (shuffle, drop_last, numpy
+    seed ``seed``) made by a single-process loader: the parent's draws (the
+    workers' seed, then the permutation), then worker 0's generator seeded
+    as the worker seeds it, over that batch's indices."""
+    np.random.seed(seed)
+    wseed = np.random.randint(0, 2 ** 31)
+    indices = next(iter(paddle.io.BatchSampler(ds, shuffle=True, batch_size=batch,
+                                               drop_last=True)))
+    np.random.seed(wseed)
+    alone = paddle.io.DataLoader(ds, batch_sampler=paddle.io.BatchSampler(
+        sampler=indices, batch_size=batch), use_buffer_reader=False)
+    return next(iter(alone))
+
+
+def quant_codes(torch, net):
+    """Forward pre-hooks that record, for each QAT layer of ``net``, the
+    integer codes its input takes on the grid of the scale the layer uses
+    (a train step: the larger of the updated act_scale and the live
+    abs-max). -> (codes by layer name, hook handles)."""
+    codes, handles = {}, []
+    for name, m in net.named_sublayers():
+        if hasattr(m, "act_scale") and hasattr(m, "inner"):
+            def hook(layer, inputs, name=name):
+                x = torch.Tensor.as_subclass(inputs[0], torch.Tensor).detach().float()
+                cur = x.abs().amax()
+                prev = layer.act_scale
+                new = torch.where(prev > 0, 0.9 * prev + 0.1 * cur, cur)
+                s = torch.maximum(new, cur) * float(np.float32(1) / np.float32(127))
+                codes[name] = torch.clamp(torch.round(x / s), -127, 127).cpu()
+            handles.append(m.register_forward_pre_hook(hook))
+    return codes, handles
+
+
+def hold_qat_step(torch, paddle, qnet, x, y):
+    """(d)(i): one float32 eager step of the QAT LeNet on the card and on the
+    CPU from the same weights and batch -> (failures, errors, act_scale
+    count, flips by layer). Phase 5's bounds, but a layer whose quantized
+    input took another code on the card than on the CPU somewhere (a flip:
+    the two sides' rounding of x / s fell either side of a half) moves its
+    own weight's gradient by up to one quantum, 1/127 of its input's
+    abs-max; that gradient is held to 1/127 + 1e-3 of its max instead."""
+    cpu_net = copy.deepcopy(qnet).to("cpu")
+    runs = {}
+    for dev, net in (("cuda", qnet), ("cpu", cpu_net)):
+        paddle.set_device("gpu" if dev == "cuda" else "cpu")
+        opt = paddle.optimizer.Adam(DATA_LR, parameters=net.parameters())
+        codes, handles = quant_codes(torch, net)
+        loss = paddle.nn.functional.cross_entropy(net(paddle.to_tensor(x)), paddle.to_tensor(y))
+        for h in handles:
+            h.remove()
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone() for n, p in net.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        runs[dev] = (float(loss), grads,
+                     {n: p.detach().cpu() for n, p in net.named_parameters()},
+                     {n: b.detach().cpu() for n, b in net.named_buffers()
+                      if n.endswith("act_scale")}, codes)
+    paddle.set_device("gpu")
+    (gl, gg, gp, gs, gc_), (wl, wg, wp, ws, wc) = runs["cuda"], runs["cpu"]
+    flips = {n: int((gc_[n] != wc[n]).sum()) for n in wc}
+    grad_errs = {n: (gg[n] - wg[n]).abs().max().item() / max(wg[n].abs().max().item(), 1e-30)
+                 for n in wg}
+    flipped = {f"{n}.inner.weight" for n, k in flips.items() if k}
+    worst = max((n for n in grad_errs if n not in flipped), key=grad_errs.get)
+    errs = dict(loss=abs(gl - wl) / abs(wl), grad=grad_errs[worst], grad_name=worst,
+                flipped_grad=max([grad_errs[n] for n in flipped] or [0.0]),
+                param=max((gp[n] - wp[n]).abs().max().item() for n in wp),
+                act_scale=max(abs(gs[n].item() - ws[n].item()) / ws[n].item() for n in ws))
+    bad = [k for k, tol in (("loss", TOL_STEP_LOSS), ("grad", TOL_STEP_GRAD),
+                            ("flipped_grad", 1 / 127 + TOL_STEP_GRAD),
+                            ("param", 2.5 * DATA_LR), ("act_scale", TOL_ACT_SCALE))
+           if not errs[k] <= tol]
+    if not ws or min(v.item() for v in ws.values()) <= 0:
+        bad.append("act_scale not calibrated")
+    return bad, errs, len(ws), flips
+
+
+def model_bytes(model):
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def phase_data(torch, mods, card, vis):
+    """Phase 17: the data path and the high-level API (see the module
+    docstring). ``vis`` is phase 16's result (its batch, images/s, step)."""
+    import shutil
+    import tempfile
+
+    paddle, spmd, qmm, chaos = mods
+    from paddle_tpu_torch.core import place as pplace
+    from paddle_tpu_torch.quantization import (ImperativeQuantAware, Int8Conv2D, Int8Linear,
+                                               QuantedConv2D, QuantedLinear, quantize_weights)
+
+    failures = []
+    classes = data_classes(paddle)
+    smods = (paddle.optimizer, spmd)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    paddle.set_device("gpu")
+    mnist = paddle.vision.datasets
+    train, test = mnist.MNIST(mode="train"), mnist.MNIST(mode="test")
+
+    # (a) LeNet through paddle.Model, card and CPU from the same weights
+    t0 = time.perf_counter()
+    paddle.seed(0)
+    net = paddle.vision.models.LeNet()
+    start = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    cpu_net = copy.deepcopy(net).to("cpu")
+    card_fit = lenet_fit(paddle, classes, net, train, test, "gpu")
+    cpu_fit = lenet_fit(paddle, classes, cpu_net, train, test, "cpu")
+    paddle.set_device("gpu")
+    same_batches = card_fit["digests"] == cpu_fit["digests"]
+    loss_errs = [abs(g - w) / abs(w) for g, w in zip(card_fit["losses"][:DATA_PARITY_STEPS],
+                                                     cpu_fit["losses"][:DATA_PARITY_STEPS])]
+    log(f"[data] (a) LeNet through Model.fit (Adam {DATA_LR}, CrossEntropyLoss, Accuracy), one "
+        f"epoch of the synthetic MNIST train split ({len(train)} images) at batch {DATA_BATCH}, "
+        f"shuffle, {DATA_WORKERS} workers: {card_fit['steps']} steps; batches card vs CPU "
+        f"{'bitwise equal' if same_batches else 'DIFFERENT'} ({len(card_fit['digests'])} "
+        f"digests); the first {DATA_PARITY_STEPS} losses' worst relative gap "
+        f"{max(loss_errs):.2e} (tolerance {TOL_DATA_LOSS}); evaluate on the test split "
+        f"({len(test)}): card acc {card_fit['eval']['acc']:.4f} loss "
+        f"{card_fit['eval']['loss']:.4f}, CPU acc {cpu_fit['eval']['acc']:.4f}")
+    log(f"[data] (a) card: {card_fit['step_ms']:.3f} ms a step (host clock over the loop, the "
+        f"loss read back each step), {_fmt_pct(card_fit['wait'])} of the loop waiting in "
+        f"next(loader); CPU {cpu_fit['step_ms']:.3f} ms | {card}")
+    if not same_batches:
+        failures.append("(a) the card's batches differ from the CPU's")
+    if len(loss_errs) < DATA_PARITY_STEPS or not max(loss_errs) <= TOL_DATA_LOSS:
+        failures.append(f"(a) step losses card vs CPU {max(loss_errs):.2e}")
+    for name, run in (("card", card_fit), ("CPU", cpu_fit)):
+        if not run["eval"]["acc"] > 0.9:
+            failures.append(f"(a) {name} acc {run['eval']['acc']}")
+    a_secs = time.perf_counter() - t0
+
+    # (b) save, load and resume on (a)'s model
+    t0 = time.perf_counter()
+    model = card_fit["model"]
+    state = net.state_dict()
+    paddle.save(state, os.path.join(tmp, "lenet.pdparams"))
+    back = paddle.load(os.path.join(tmp, "lenet.pdparams"))
+    same_state = set(back) == set(state) and all(
+        back[k].dtype == state[k].dtype and torch.equal(back[k].cpu(), state[k].cpu())
+        for k in state)
+    model.save(os.path.join(tmp, "ck"))
+    paddle.seed(123)
+    fresh_net = paddle.vision.models.LeNet()
+    fresh = lenet_model(paddle, fresh_net)
+    fresh.load(os.path.join(tmp, "ck"))
+    fresh_eval = fresh.evaluate(test, batch_size=256, verbose=0)
+    old_opt, new_opt = model._optimizer, fresh._optimizer
+    same_acc = all(all(torch.equal(a, b) for a, b in zip(old_opt._accumulators[id(p)],
+                                                         new_opt._accumulators[id(q)]))
+                   for p, q in zip(old_opt._params, new_opt._params))
+    # cuDNN's default backward algorithms may sum in another order run to
+    # run; the three fits take its deterministic ones, so that resume is
+    # compared with resume and not with the algorithm's order
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        uninterrupted = resume_run(paddle, classes, chaos, start, train, os.path.join(tmp, "a"))
+        steps = len(train) // DATA_BATCH + (len(train) % DATA_BATCH > 0)
+        resume_run(paddle, classes, chaos, start, train, os.path.join(tmp, "b"),
+                   kill_at=steps + DATA_KILL_STEP)
+        marker = paddle.resilience.read_resume_marker(os.path.join(tmp, "b"))
+        final_absent = not os.path.exists(os.path.join(tmp, "b", "final.pdparams"))
+        resumed = resume_run(paddle, classes, chaos, start, train, os.path.join(tmp, "b"),
+                             resume=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    cleared = paddle.resilience.read_resume_marker(os.path.join(tmp, "b")) is None
+    resume_err = max((resumed[n] - uninterrupted[n]).abs().max().item()
+                     / uninterrupted[n].abs().max().item() for n in uninterrupted)
+    resume_bitwise = all(torch.equal(resumed[n], uninterrupted[n]) for n in uninterrupted)
+    log(f"[data] (b) paddle.save/load of the state dict: {len(state)} tensors "
+        f"{'bitwise' if same_state else 'DIFFERENT'}; Model.save -> a fresh Model.load: "
+        f"evaluate {'equal' if fresh_eval == card_fit['eval'] else 'DIFFERENT'} "
+        f"({fresh_eval['acc']:.4f}), Adam's accumulators {'bitwise' if same_acc else 'DIFFERENT'}; "
+        f"fit(save_dir, epochs=2) vs SIGTERM (chaos, train step {steps + DATA_KILL_STEP}, epoch "
+        f"2) then fit(resume=True), cuDNN's deterministic algorithms: marker {marker}, no final "
+        f"snapshot "
+        f"{final_absent}, marker cleared after the resume {cleared}; parameters' worst gap "
+        f"{resume_err:.2e} of their max (tolerance {TOL_DATA_RESUME}), bitwise {resume_bitwise}")
+    if not (same_state and same_acc and fresh_eval == card_fit["eval"]):
+        failures.append("(b) save/load not bitwise")
+    if not (marker and marker.get("step") == 1 and final_absent and cleared):
+        failures.append(f"(b) preemption marker {marker}, final absent {final_absent}, "
+                        f"cleared {cleared}")
+    if not resume_err <= TOL_DATA_RESUME:
+        failures.append(f"(b) resumed parameters {resume_err:.2e} of their max")
+    b_secs = time.perf_counter() - t0
+    del model, fresh, fresh_net, cpu_net, card_fit, cpu_fit
+    gc.collect()
+
+    # (c) phase 16 (b)'s ResNet-50 O1 step fed by a worker DataLoader
+    t0 = time.perf_counter()
+    T = paddle.vision.transforms
+    batch = vis["batch"]
+    workers = min(8, os.cpu_count() or 1)
+    Dataset = type("ImageNetLike", (ImageNetLike, paddle.io.Dataset), {})
+    ds = Dataset(batch * (RESNET_WARMUP + RESNET_STEPS), T.Compose([
+        T.RandomHorizontalFlip(), T.Normalize(mean=IMAGENET_MEAN, std=IMAGENET_STD)]))
+    loader = paddle.io.DataLoader(ds, batch_size=batch, shuffle=True, drop_last=True,
+                                  num_workers=workers, prefetch_factor=2)
+    paddle.seed(0)
+    model = paddle.vision.models.resnet50()
+    model.train()
+    step, init = vision_step(torch, smods, model, amp_level="O1")
+    params, state = init()
+    np.random.seed(0)
+    it = iter(loader)
+    waits, losses = [], []
+    t_window = None
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(RESNET_STEPS + 1)]
+    for i in range(RESNET_WARMUP + RESNET_STEPS):
+        if i == RESNET_WARMUP:
+            torch.cuda.synchronize()
+            t_window = time.perf_counter()
+            marks[0].record()
+        t = time.perf_counter()
+        x, y = (torch.Tensor.as_subclass(v, torch.Tensor) for v in next(it))
+        if i >= RESNET_WARMUP:
+            waits.append(time.perf_counter() - t)
+        if i == 0:
+            first = (x.clone(), y.clone())
+            batch_bytes = x.numel() * x.element_size() + y.numel() * y.element_size()
+            on_card = x.is_cuda and y.is_cuda
+        loss, params, state = step(params, state, x, y)
+        if i >= RESNET_WARMUP:
+            marks[i - RESNET_WARMUP + 1].record()
+            losses.append(loss)
+    losses = [float(v) for v in losses]
+    window = time.perf_counter() - t_window
+    host = it.timings()
+    it.close()
+    del it, loader
+    steps_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    alone = first_batch_alone(paddle, ds, batch, 0)
+    first_equal = all(torch.equal(a, b.to(a.device)) for a, b in zip(first, alone))
+    images_per_s = batch * RESNET_STEPS / window
+    wait_share = sum(waits) / window
+    log(f"[data] (c) ResNet-50 O1 through build_train_step fed by paddle.io.DataLoader "
+        f"({DATA_IMAGES} uint8 224 x 224 x 3 images, RandomHorizontalFlip + Normalize in "
+        f"{workers} workers, shuffle, drop_last, prefetch_factor 2), batch {batch}: "
+        f"{images_per_s:.1f} images/s over {RESNET_STEPS} steps, median step "
+        f"{_median(steps_ms):.2f} ms (CUDA events); phase 16 (b), one resident batch, in this "
+        f"run: {vis['images_per_s']:.1f} images/s, {vis['step_ms']:.2f} ms; the loop waits in "
+        f"next(loader) {_fmt_pct(wait_share)} of the window; a batch {batch_bytes / 1e6:.1f} MB "
+        f"(float32 CHW + labels) on the card {on_card}; the parent's seconds a batch receiving "
+        f"from the workers' queue {host['recv_s'] / (RESNET_WARMUP + RESNET_STEPS):.3f} and "
+        f"placing (pin, copy calls) {host['place_s'] / (RESNET_WARMUP + RESNET_STEPS):.3f}; loss "
+        + " ".join(f"{v:.4f}" for v in losses) + f"; the first batch "
+        f"{'bitwise' if first_equal else 'DIFFERENT from'} a single-process loader's | {card}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"(c) loss not finite: {losses}")
+    if not (first_equal and on_card):
+        failures.append("(c) the first batch is not the single-process loader's on the card")
+    c_secs = time.perf_counter() - t0
+    del params, state, step, init, model, first, alone, x, y, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d)(i) QAT LeNet: one step card vs CPU, then Model.fit one epoch
+    t0 = time.perf_counter()
+    paddle.seed(0)
+    qnet = ImperativeQuantAware().quantize(paddle.vision.models.LeNet())
+    xs = np.stack([train[i][0] for i in range(DATA_BATCH)])
+    ys = np.stack([train[i][1] for i in range(DATA_BATCH)])
+    bad, errs, n_scales, flips = hold_qat_step(torch, paddle, qnet, xs, ys)
+    failures += [f"(d)(i) step {b}" for b in bad]
+    paddle.set_device("gpu")
+    qmodel = lenet_model(paddle, qnet)
+    np.random.seed(0)
+    qmodel.fit(train, batch_size=DATA_BATCH, epochs=1, shuffle=True, num_workers=DATA_WORKERS,
+               verbose=0)
+    qeval = qmodel.evaluate(test, batch_size=256, verbose=0)
+    log(f"[data] (d)(i) ImperativeQuantAware().quantize(LeNet()): one float32 step card vs CPU: "
+        f"loss {errs['loss']:.2e} relative (tolerance {TOL_STEP_LOSS}), gradients {errs['grad']:.2e} "
+        f"of their max ({errs['grad_name']}; {TOL_STEP_GRAD}); quantization flips (input codes "
+        f"card != CPU) by layer {flips}, the flipped layers' weight gradients "
+        f"{errs['flipped_grad']:.2e} (1/127 + {TOL_STEP_GRAD}); parameters {errs['param']:.2e} "
+        f"(2.5 lr), {n_scales} "
+        f"act_scale buffers {errs['act_scale']:.2e} relative ({TOL_ACT_SCALE}); Model.fit one "
+        f"epoch: evaluate acc {qeval['acc']:.4f} loss {qeval['loss']:.4f}")
+    if not qeval["acc"] > 0.9:
+        failures.append(f"(d)(i) QAT acc {qeval['acc']}")
+    del qnet, qmodel
+
+    # (d)(ii) QAT ResNet-50, O1 through build_train_step
+    paddle.seed(0)
+    model = ImperativeQuantAware().quantize(paddle.vision.models.resnet50())
+    model.train()
+    quanted = [m for m in model.modules() if isinstance(m, (QuantedConv2D, QuantedLinear))]
+    step, init = vision_step(torch, smods, model, amp_level="O1")
+    result = None
+    for qbatch in [b for b in BATCH_CANDIDATES if b <= batch]:
+        params = state = data = None
+        try:
+            for m in quanted:
+                m.act_scale.zero_()
+            params, state = init()
+            # two batches in turn, so the first conv's input (the images)
+            # moves its act_scale too
+            data = [[t.cuda() for t in vision_data(torch, qbatch, RESNET_HW, RESNET_CLASSES,
+                                                   seed=k)] for k in range(2)]
+            for i in range(QAT_WARMUP):
+                loss, params, state = step(params, state, *data[i % 2])
+            # halve every act_scale: each timed step's forward must write it
+            # back toward its input's abs-max (a layer whose input keeps one
+            # abs-max, the images, sits at that value otherwise)
+            for m in quanted:
+                m.act_scale.mul_(0.5)
+            before = [m.act_scale.item() for m in quanted]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            qlosses = []
+            for i in range(QAT_STEPS):
+                loss, params, state = step(params, state, *data[(QAT_WARMUP + i) % 2])
+                qlosses.append(loss)
+            qlosses = [float(v) for v in qlosses]
+            qwindow = time.perf_counter() - t
+            after = [m.act_scale.item() for m in quanted]
+            result = dict(batch=qbatch, losses=qlosses, window=qwindow, before=before,
+                          after=after)
+            break
+        except Exception as e:  # noqa: BLE001 - an OOM moves down the candidates
+            if not _is_oom(torch, e) or qbatch == BATCH_CANDIDATES[-1]:
+                raise
+            log(f"[data] (d)(ii) batch {qbatch}: out of memory; trying a smaller batch")
+            del e
+            params = state = data = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    updated = sum(a > 0 and a != b for a, b in zip(result["after"], result["before"]))
+    qips = result["batch"] * QAT_STEPS / result["window"]
+    log(f"[data] (d)(ii) QAT ResNet-50 ({len(quanted)} quantized layers) O1 through "
+        f"build_train_step, batch {result['batch']}, two batches in turn: {QAT_WARMUP} + "
+        f"{QAT_STEPS} steps, loss "
+        + " ".join(f"{v:.4f}" for v in result["losses"])
+        + f"; {qips:.1f} images/s (phase 16 (b): {vis['images_per_s']:.1f}); act_scale, halved "
+        f"before the timed steps, written by them: {updated} of {len(quanted)} | {card}")
+    if not all(np.isfinite(result["losses"])):
+        failures.append(f"(d)(ii) loss not finite: {result['losses']}")
+    if updated != len(quanted):
+        failures.append(f"(d)(ii) {len(quanted) - updated} act_scale buffers not updated")
+    del params, state, step, init, model, quanted, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d)(iii) quantize_weights(resnet50()): Int8Conv2D + Int8Linear, eval f32
+    paddle.seed(0)
+    fmodel = paddle.vision.models.resnet50().eval()
+    xin = torch.from_numpy(np.random.RandomState(1).rand(8, 3, RESNET_HW, RESNET_HW)
+                           .astype(np.float32))
+    with torch.no_grad():
+        float_out = fmodel(xin.cuda()).cpu()
+    float_bytes = model_bytes(fmodel)
+    qm, _ = quantize_weights(fmodel)
+    n_conv = sum(isinstance(m, Int8Conv2D) for m in qm.modules())
+    n_lin = sum(isinstance(m, Int8Linear) for m in qm.modules())
+    left = [n for n, m in qm.named_modules() if type(m).__name__ in ("Conv2D", "Linear")]
+    cpu_qm = copy.deepcopy(qm).to("cpu")
+    wq0 = qmm.launches
+    with torch.no_grad():
+        got = qm(xin.cuda()).cpu()
+        want = cpu_qm(xin)
+    wq_launches = qmm.launches - wq0
+    int8_err = (got - want).abs().max().item() / want.abs().max().item()
+    gap = (got - float_out).abs().max().item() / float_out.abs().max().item()
+    q_bytes = model_bytes(qm)
+    log(f"[data] (d)(iii) quantize_weights(resnet50()): {n_conv} Int8Conv2D, {n_lin} Int8Linear, "
+        f"float layers left {left}; eval() float32 forward at batch 8, 224 x 224: card vs CPU "
+        f"{int8_err:.2e} of the max (tolerance {TOL_INT8_EVAL}); gap to the float model's logits "
+        f"{gap:.2e} of their max (random weights, no bound); weight_bytes {q_bytes} vs float "
+        f"{float_bytes} ({q_bytes / float_bytes:.3f}x); the classifier's wq_matmul launches "
+        f"{wq_launches}")
+    if n_lin != 1 or left or not n_conv:
+        failures.append(f"(d)(iii) {n_conv} Int8Conv2D, {n_lin} Int8Linear, left {left}")
+    if not int8_err <= TOL_INT8_EVAL:
+        failures.append(f"(d)(iii) int8 forward card vs CPU {int8_err:.2e}")
+    d_secs = time.perf_counter() - t0
+    del fmodel, qm, cpu_qm
+    pplace._CURRENT = pplace.CUDAPlace(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[data] parts: (a) {a_secs:.1f} s, (b) {b_secs:.1f} s, (c) {c_secs:.1f} s, (d) "
+        f"{d_secs:.1f} s")
+    if failures:
+        fail("data: " + "; ".join(failures))
+    return dict(wq_launches=wq_launches, images_per_s=images_per_s, wait=wait_share,
+                qat_images_per_s=qips, recv_s=host["recv_s"], place_s=host["place_s"])
+
+
 # ------------------------------------------------------- the chunk sweep
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
@@ -5153,8 +5725,10 @@ def main():
     dyg = phase_dygraph(torch, fa, (paddle, BertForPretraining, BertModel, nn, optimizer, spmd),
                         card, train, serving)
     took("dygraph")
-    phase_vision(torch, (paddle, vision, optimizer, spmd), card)
+    vis = phase_vision(torch, (paddle, vision, optimizer, spmd), card)
     took("vision")
+    data = phase_data(torch, (paddle, spmd, qmm, chaos), card, vis)
+    took("data")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -5303,8 +5877,11 @@ def main():
                mt_train_cross_bf16_launches=mt_form["cross"][key])
           for i, key, which in ((1, "bwd_dq", "dq"), (2, "bwd_dkv", "dkv"))),
         dict(name=kernels[3]["name"], route="cuda", source=kernels[3]["source"],
-             replaces=kernels[3]["replaces"], launches=quant["wq_launches"],
-             bert_launches=quant["bert_wq_launches"], max_abs_err=wq_main["max_abs_err"],
+             replaces=kernels[3]["replaces"],
+             launches=quant["wq_launches"] + data["wq_launches"],
+             bert_launches=quant["bert_wq_launches"],
+             # phase 17 (d)(iii): the int8 ResNet-50's classifier (an Int8Linear)
+             data_launches=data["wq_launches"], max_abs_err=wq_main["max_abs_err"],
              **timing(wq_main), bound_ms=wq_main["bound_ms"], bound_by=wq_main["bound_by"],
              cuda_core_bound=wq_main["cuda_core_bound"],
              **{f"{r['form']}_m{r['m']}_k{r['k']}_n{r['n']}_{k}": r[k]

@@ -3,8 +3,8 @@
 It imports torch and numpy, never jax and nothing of paddle_tpu. Usage
 mirrors paddle (``import paddle_tpu_torch as paddle``): dygraph on the
 card by default, ``paddle.set_device("cpu")`` for the CPU. The packages
-the port has not reached yet (jit, static, io, hapi, distributed
-fleet, ...) are absent rather than stubbed.
+the port has not reached yet (jit, static, onnx, incubate, fluid, ...)
+are absent rather than stubbed.
 """
 
 __version__ = "0.1.0"
@@ -48,8 +48,20 @@ from . import autograd  # noqa: F401,E402
 from . import framework  # noqa: F401,E402
 from . import nn  # noqa: F401,E402
 from . import optimizer  # noqa: F401,E402
+from . import metric  # noqa: F401,E402
+from . import io  # noqa: F401,E402
 from . import vision  # noqa: F401,E402
-from .framework import ParamAttr  # noqa: F401,E402
+from . import distributed  # noqa: F401,E402
+from . import hapi  # noqa: F401,E402
+from . import text  # noqa: F401,E402
+from . import dataset  # noqa: F401,E402
+from . import inference  # noqa: F401,E402
+from . import quantization  # noqa: F401,E402
+from . import regularizer  # noqa: F401,E402
+from . import obs  # noqa: F401,E402
+from . import resilience  # noqa: F401,E402
+from .hapi import Model, callbacks, flops, summary  # noqa: F401,E402
+from .framework import ParamAttr, in_dygraph_mode, load, save  # noqa: F401,E402
 from .nn.layer import Layer  # noqa: F401,E402
 
 
@@ -67,3 +79,49 @@ def set_rng_state(state_list):
     _random._KEY_GENERATOR.set_state(state_list[0])
     if len(state_list) > 1:
         _random._GLOBAL_GENERATOR.set_state(state_list[1])
+
+
+def batch(reader, batch_size, drop_last=False):
+    """Wrap a sample reader into a batch reader (the reference's
+    paddle.batch)."""
+
+    def batch_reader():
+        buf = []
+        for sample in reader():
+            buf.append(sample)
+            if len(buf) == batch_size:
+                yield buf
+                buf = []
+        if buf and not drop_last:
+            yield buf
+
+    return batch_reader
+
+
+# ------------------------------------------------- top-level API parity
+from .core.tensor import Tensor as VarBase  # noqa: F401,E402 (legacy alias)
+import torch as _torch  # noqa: E402
+
+dtype = _torch.dtype  # paddle.dtype: the type of Tensor.dtype values
+
+
+def in_dynamic_mode():
+    """The port has no static mode: always True."""
+    return True
+
+
+def get_cudnn_version():
+    return _torch.backends.cudnn.version() if is_compiled_with_cuda() else None
+
+
+def is_compiled_with_npu():
+    return False
+
+
+def get_cuda_rng_state():
+    """The generators' state (the reference's alias of get_rng_state)."""
+    return get_rng_state()
+
+
+def set_cuda_rng_state(state_list):
+    set_rng_state(state_list)

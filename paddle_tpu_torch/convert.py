@@ -7,10 +7,14 @@ parameters. It is a checked copy: a missing or unexpected name, a shape
 or a dtype that differs raises, and nothing is copied.
 
 Buffers travel too: a name in ``state`` that is one of ``module``'s
-buffers (an ``Int8Linear``'s int8 ``qweight``, its ``w_scale`` and
-``act_scale``) is copied into it under the same checks. Arrays keep their
-dtypes: int8, float32 and bfloat16 (ml_dtypes' numpy bfloat16, which torch
-cannot read directly, travels as its raw 16-bit words).
+buffers (an ``Int8Linear``'s or ``Int8Conv2D``'s int8 ``qweight``, its
+``w_scale`` and ``act_scale``; a QAT wrapper's ``act_scale``, its layer's
+parameters under ``inner.*``; BatchNorm's running statistics) is copied
+into it under the same checks. Arrays keep their dtypes: int8, float32 and
+bfloat16 (ml_dtypes' numpy bfloat16, which torch cannot read directly,
+travels as its raw 16-bit words). The values may be numpy arrays or
+anything numpy can read (the JAX package's Tensors and arrays, as its
+``state_dict()`` gives them).
 
 A tied parameter (one Parameter reachable under several names, as
 ``BertForPretraining``'s decoder weight is the word embedding) is listed
@@ -62,7 +66,12 @@ def _check(name, arr, p):
                         f"parameter's {want}")
 
 
+def _arrays(state):
+    return {k: np.asarray(getattr(v, "_value", v)) for k, v in state.items()}
+
+
 def load_numpy_state(module, state):
+    state = _arrays(state)
     params = dict(module.named_parameters())
     buffers = {n: b for n, b in module.named_buffers() if n in state}
     aliases = _aliases(module)
@@ -87,6 +96,7 @@ def load_numpy_state(module, state):
 def load_state_dict(layer, state):
     """Load a JAX ``Layer.state_dict()`` (numpy arrays) by structured name
     (see the module docstring)."""
+    state = _arrays(state)
     own = layer.state_dict()
     missing = sorted(set(own) - set(state))
     unexpected = sorted(set(state) - set(own))

@@ -77,3 +77,14 @@ def enforce_shape(shape, expected, message=""):
         raise InvalidArgumentError(
             f"shape mismatch: got {tuple(shape)}, expected {tuple(expected)}. {message}"
         )
+
+
+def reject_unread(where, **knobs):
+    """Raise NotImplementedError for the knobs, given as ``name=(value,
+    default)``, whose value is not their default: the reference accepts
+    them and never reads them, so the port refuses a value it would
+    silently ignore."""
+    bad = [name for name, (value, default) in knobs.items() if value != default]
+    if bad:
+        raise NotImplementedError(f"{where}: {', '.join(bad)} accepted and never read by the "
+                                  "reference; leave at the default")

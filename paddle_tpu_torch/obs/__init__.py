@@ -1,8 +1,9 @@
 """Telemetry of the port (counterpart of paddle_tpu/obs): the metrics
 registry, span tracing and the Prometheus exposition, served on the wire
-(cmd 6) and over HTTP (:class:`httpd.MetricsServer`). Standard library
-only. The reference's goodput accountant and compile ledger are not
-ported yet (ROADMAP Queue 1)::
+(cmd 6) and over HTTP (:class:`httpd.MetricsServer`), and the training
+half of the goodput accountant (:mod:`goodput`). Standard library only.
+The reference's ``ServingGoodput`` and compile ledger are not ported yet
+(ROADMAP Queue 1)::
 
     from paddle_tpu_torch import obs
 
@@ -13,7 +14,7 @@ ported yet (ROADMAP Queue 1)::
     with obs.tracing.span("myapp.handler", trace_id=obs.new_trace_id()):
         ...                           # lands in the shared span table
 """
-from . import httpd, metrics, prometheus, tracing  # noqa: F401
+from . import goodput, httpd, metrics, prometheus, tracing  # noqa: F401
 from .httpd import MetricsServer  # noqa: F401
 from .metrics import (REGISTRY, Counter, Gauge, Histogram,  # noqa: F401
                       Registry, counter, gauge, histogram, log_buckets)
@@ -21,7 +22,7 @@ from .prometheus import render  # noqa: F401
 from .tracing import new_trace_id, span, start_span  # noqa: F401
 
 __all__ = [
-    "metrics", "prometheus", "tracing", "httpd", "MetricsServer",
+    "goodput", "metrics", "prometheus", "tracing", "httpd", "MetricsServer",
     "REGISTRY", "Registry", "Counter", "Gauge", "Histogram",
     "counter", "gauge", "histogram", "log_buckets", "render",
     "new_trace_id", "span", "start_span",

@@ -1173,3 +1173,67 @@ def test_bf16_conv_under_o1_matches_f32(cuda):
     for got, want in ((y1, y0), (z1, z0)):
         err = (got.float() - want).abs().max()
         assert err <= 2e-2 * want.abs().max(), float(err)
+
+
+# ---------------------------------------------------- the data path, int8 conv
+class _Squares:
+    """A map-style dataset of host arrays: (float32 [3], int64 label)."""
+
+    def __getitem__(self, i):
+        return np.full(3, i, np.float32), np.int64(i % 5)
+
+    def __len__(self):
+        return 24
+
+
+def test_worker_loader_after_the_card_yields_card_batches(cuda):
+    """A 2-worker DataLoader iterated after the parent has allocated on the
+    card: the forked workers never touch CUDA, and every batch reaches the
+    card (the parent's pinned, asynchronous copy), bitwise the
+    single-process loader's (in order: the workers draw their seeds from
+    numpy's generator before the sampler's permutation, so a shuffled order
+    differs)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place as pplace
+
+    paddle.set_device("gpu")
+    ds = type("Squares", (_Squares, paddle.io.Dataset), {})()
+    held = torch.ones(1024, device="cuda")  # the parent's context exists
+    try:
+        got = {}
+        for workers in (2, 0):
+            got[workers] = list(paddle.io.DataLoader(ds, batch_size=4, num_workers=workers))
+        assert len(got[2]) == 6
+        for (x, y), (x0, y0) in zip(got[2], got[0]):
+            assert x.is_cuda and y.is_cuda and y.dtype == torch.int32
+            assert torch.equal(x, x0) and torch.equal(y, y0)
+        assert held.sum().item() == 1024
+    finally:
+        pplace._CURRENT = pplace.CUDAPlace(0)
+
+
+def test_int8_conv2d_runs_on_the_card(cuda):
+    """Int8Conv2D (quantize_weights over a conv net) on CUDA tensors runs
+    on the card, within 1e-5 of its max of the same layer on the CPU; the
+    QAT conv too."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.quantization import (ImperativeQuantAware, Int8Conv2D,
+                                               quantize_weights)
+
+    from paddle_tpu_torch.core import place as pplace
+
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    net = paddle.nn.Sequential(paddle.nn.Conv2D(3, 8, 3, padding=1), paddle.nn.ReLU(),
+                               paddle.nn.Conv2D(8, 4, 3, stride=2))
+    pplace._CURRENT = pplace.CUDAPlace(0)
+    qat = ImperativeQuantAware().quantize(copy.deepcopy(net))
+    quantize_weights(net)
+    assert isinstance(net[0], Int8Conv2D) and net[0].qweight.is_cuda
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 3, 16, 16).astype(np.float32))
+    for m in (net, qat.eval()):
+        cpu = copy.deepcopy(m).to("cpu")
+        with torch.no_grad():
+            got, want = m(x.cuda()), cpu(x)
+        assert got.is_cuda
+        assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()

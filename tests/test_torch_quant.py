@@ -342,8 +342,20 @@ def test_quantize_weights_refuses_a_conv_and_skips_qat_wrappers():
     m = torch.nn.Sequential(QuantedLinear(), tnn.Linear(4, 8, device="cpu"))
     _, stats = quantize_weights(m)
     assert sorted(stats) == ["1"] and isinstance(m[0].inner, tnn.Linear)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not one of the port's layers"):
         quantize_weights(torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3)))
+    from paddle_tpu_torch.core import place as tplace
+    from paddle_tpu_torch.quantization import Int8Conv2D
+
+    prev = tplace._CURRENT
+    tplace._CURRENT = tplace.CPUPlace()
+    try:
+        convs = torch.nn.Sequential(tnn.Conv2D(3, 4, 3), tnn.Conv1D(2, 2, 3))
+    finally:
+        tplace._CURRENT = prev
+    _, stats = quantize_weights(convs)  # the port's Conv2D converts, as in the reference
+    assert sorted(stats) == ["0"] and isinstance(convs[0], Int8Conv2D)
+    assert isinstance(convs[1], tnn.Conv1D)
 
 
 def test_bert_quantized_matches_the_reference():
