@@ -356,7 +356,33 @@ Phases, each fatal on failure (exit code 1):
               at batch 8 card vs CPU within 1e-3 of the max; printed the
               gap to the float model's logits (no bound: random weights)
               and weight_bytes against the float model's
- 18. summary  a {"kernels": [...]} line, then as the last line
+ 18. deploy   the deployment path on phase 4's BERT-base (float32, seed 0):
+              (a) paddle.jit.save at InputSpec([None, 512], "int32") on the
+              card, inference.create_predictor(Config(path)): Predictor.run
+              of 1, 2 and 8 rows within 1e-3 of the CPU and bitwise the
+              eager model's call on the same slabs, K1 12 a slab counted
+              through the loaded program; a save made on the CPU loaded
+              onto the card; (b) serve_model(dynamic_batching=True,
+              max_batch_size=8) at slabs of 2 and of 8 rows: phase 4's 1-,
+              2- and 3-row requests, the 8-client burst, a 2-row and a 3-row
+              request together; every >= 2-row and solo 1-row reply bitwise
+              Predictor.run of its rows (n/n printed), K1 12 a program call,
+              each slab's window timed; (c) seed-1 weights saved and swapped
+              in by cmd 4 while 8 clients send 2-row requests: no reply
+              failed or dropped, each bitwise the p1 or the p2
+              Predictor.run, the reload's load and warm seconds; (d) cmd 8:
+              health draining, a new request answered status 2;
+              jit.save(quant="w8") served by serve_model(quant="w8"): its
+              replies within ACCURACY_BOUNDS["w8"] of the f32 ones,
+              wq_matmul 73 a program call; an f32 save refused under w8 at
+              load and by cmd 4; (e) to_static: a BERT-base O0 float32 step
+              at depth 2 against the dygraph step (phase 5's bounds), 20 O1
+              steps at 64 x 128 with K1-K3 12 each a step through the
+              captured program and the step's ms beside phase 15's,
+              resnet18's O0 step against dygraph with TF32 on globally
+              (phase 16 (a)'s bounds), ResNet-50 O1 at phase 16 (b)'s batch
+              (images/s beside phase 16's); the phase's seconds
+ 19. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -5526,6 +5552,441 @@ def phase_data(torch, mods, card, vis):
 
 
 # ------------------------------------------------------- the chunk sweep
+# ------------------------------------------------------------------ phase 18
+DEPLOY_SEQ = 512  # phase 4's long requests; the saved spec is [None, 512]
+DEPLOY_BATCH = 8  # serve_model(max_batch_size=8), phase 4's engine
+DEPLOY_SLABS = (2, DEPLOY_BATCH)  # the row counts the program is run at, compared
+DEPLOY_ROWS = (1, 2, 8)  # (a): Predictor.run held against the CPU and the eager call
+RELOAD_CLIENTS = 8  # (c): clients sending while cmd 4 swaps the model
+RELOAD_AFTER_S = 1.0  # (c): the clients keep sending this long after the swap
+TS_RESNET_STEPS = 10  # (e): to_static ResNet-50 O1 steps (phase 16 (c)'s count)
+DEPLOY_TIMED = 5  # (a): turns of (direct, loaded, Predictor.run, twice each)
+
+
+def _served(port, wire_spec, ids):
+    """One cmd-1 request -> (status, outputs or None, ms)."""
+    frame = wire_spec.build_request(wire_spec.CMD_INFER, wire_spec.encode_arrays([ids]))
+    t = time.perf_counter()
+    status, payload = _call(port, frame)
+    ms = (time.perf_counter() - t) * 1e3
+    return status, (wire_spec.decode_arrays(payload) if status == 0 else None), ms
+
+
+def _bitwise(a, b):
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def deploy_traffic(fa, srv, wire_spec, rng, vocab):
+    """(b)'s traffic on ``srv``: phase 4's 1-, 2- and 3-row requests, the
+    8-client burst of 1-row requests, a 2-row and a 3-row request together.
+    Returns (requests [(ids, outputs, ms, label, held)], the window's
+    seconds, K1 launches, program calls): ``held`` marks the requests the
+    contract covers (>= 2 rows, or a 1-row request alone)."""
+    sent = []
+    k1_before = fa.launches
+    t0 = time.perf_counter()
+    for rows in (1, 2, 3):
+        ids = rng.randint(0, vocab, (rows, DEPLOY_SEQ)).astype(np.int32)
+        status, outs, ms = _served(srv.port, wire_spec, ids)
+        if status != 0:
+            fail(f"deploy: a {rows}-row request answered status {status}")
+        sent.append((ids, outs, ms, f"{rows} row(s)", True))
+    groups = [[rng.randint(0, vocab, (1, DEPLOY_SEQ)).astype(np.int32)
+               for _ in range(DEPLOY_BATCH)],
+              [rng.randint(0, vocab, (n, DEPLOY_SEQ)).astype(np.int32) for n in (2, 3)]]
+    for g, (group, label, held) in enumerate(((groups[0], "burst 1-row", False),
+                                              (groups[1], "coalesced", True))):
+        got = [None] * len(group)
+        gate = threading.Barrier(len(group))
+
+        def client(i, group=group, got=got, gate=gate):
+            gate.wait()
+            got[i] = _served(srv.port, wire_spec, group[i])
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(group))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        for ids, (status, outs, ms) in zip(group, got):
+            if status != 0:
+                fail(f"deploy: a {label} request answered status {status}")
+            sent.append((ids, outs, ms, f"{label} {ids.shape[0]}-row", held))
+    window = time.perf_counter() - t0
+    stats = srv._engine.stats()
+    slab = srv._engine._runner._layer._slab_rows
+    calls = sum(d["batches"] * -(-int(b) // slab) for b, ds in stats["buckets"].items()
+                for d in ds)
+    return sent, window, fa.launches - k1_before, calls
+
+
+def phase_deploy(torch, fa, qmm, mods, card, dyg, vis):
+    """Phase 18: to_static, jit.save/load, the Predictor and serve_model on
+    the card (see the module docstring)."""
+    (paddle, jit, inference, serve_model, InputSpec, BertForPretraining, BertModel, nn,
+     optimizer, vision, wire_spec, accuracy_bounds) = mods
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.core import place as pplace
+
+    t_phase = time.perf_counter()
+    paddle.set_device("gpu")
+    torch.set_num_threads(os.cpu_count() or 1)
+    failures = []
+    start = (fa.launches, fa.dq_launches, fa.dkv_launches, qmm.launches)
+    tmp = tempfile.mkdtemp(prefix="paddle_tpu_torch_deploy_")
+    p1, p2, p_cpu, p_w8 = (os.path.join(tmp, n) for n in ("p1", "p2", "cpu", "w8"))
+    spec = [InputSpec([None, DEPLOY_SEQ], "int32")]
+    # phase 4's BERT-base from its seed, float32 (phase 11 (c) quantized
+    # phase 4's own model in place)
+    model = BertModel(device="cuda", generator=torch.Generator().manual_seed(0)).eval()
+    n_layers = len(model.encoder.layers)
+    vocab = model.vocab_size
+    rng = np.random.RandomState(18)
+    try:
+        # (a) save on the card, load through the Predictor
+        t = time.perf_counter()
+        jit.save(model, p1, input_spec=spec)
+        save_s = time.perf_counter() - t
+        meta = json.load(open(p1 + ".pdmeta.json"))
+        if meta["quant"] is not None or not meta["polymorphic"]:
+            failures.append(f"(a) the save's meta {meta}")
+        t = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(p1))
+        load_s = time.perf_counter() - t
+        log(f"[deploy] (a) jit.save of BERT-base on the card {save_s:.1f} s (format "
+            f"{meta['format']}, polymorphic {meta['polymorphic']}, {os.path.getsize(p1 + '.pdmodel')} "
+            f"program bytes, {os.path.getsize(p1 + '.pdiparams')} weight bytes); "
+            f"create_predictor {load_s:.1f} s; slab {pred._layer._slab_rows} rows")
+        cpu_model = copy.deepcopy(model).to("cpu")
+        a_rows = {}
+        for rows in DEPLOY_ROWS:
+            ids = rng.randint(0, vocab, (rows, DEPLOY_SEQ)).astype(np.int32)
+            before = fa.launches
+            outs = pred.run([ids])
+            k1 = fa.launches - before
+            slab = pred._layer._slab_rows
+            with torch.no_grad():
+                ref = [t.numpy() for t in cpu_model(torch.from_numpy(ids))]
+                # the eager model on the same slabs (zero rows after the last)
+                padded = np.zeros((-(-rows // slab) * slab, DEPLOY_SEQ), np.int32)
+                padded[:rows] = ids
+                parts = [model(torch.from_numpy(padded[lo:lo + slab]).cuda())
+                         for lo in range(0, len(padded), slab)]
+                eager = [torch.cat([p[j] for p in parts])[:rows].cpu().numpy()
+                         for j in range(len(parts[0]))]
+            err = max(float(np.abs(o - r).max()) for o, r in zip(outs, ref))
+            same = _bitwise(outs, eager)
+            want_k1 = n_layers * -(-rows // slab)
+            a_rows[rows] = (err, same, k1)
+            log(f"[deploy] (a) Predictor.run of {rows} row(s): max abs err vs the CPU {err:.3e} "
+                f"(tolerance {SEQ_OUT_TOL}); bitwise the eager call at the slab: {same}; K1 "
+                f"launches {k1} (expected {want_k1})")
+            if not (err <= SEQ_OUT_TOL and all(np.isfinite(o).all() for o in outs)):
+                failures.append(f"(a) {rows} rows: {err:.3e} from the CPU")
+            if not same:
+                failures.append(f"(a) {rows} rows not bitwise the eager call at the slab")
+            if k1 != want_k1:
+                failures.append(f"(a) {rows} rows: K1 {k1} != {want_k1}")
+        # phase 4's direct call of 8 rows against the loaded program's, in
+        # turns (direct, loaded, loaded, direct), each synchronized
+        ids8 = torch.from_numpy(rng.randint(0, vocab, (8, DEPLOY_SEQ)).astype(np.int32)).cuda()
+        times = {"direct": [], "loaded": [], "Predictor.run": []}
+        runs = {"direct": lambda: model(ids8), "loaded": lambda: pred._layer.run_slabs([ids8]),
+                "Predictor.run": lambda: pred.run([ids8.cpu().numpy()])}
+        with torch.no_grad():
+            for _ in range(DEPLOY_TIMED):
+                for name in ("direct", "loaded", "Predictor.run", "Predictor.run", "loaded",
+                             "direct"):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    runs[name]()
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t) * 1e3)
+        a_ms = {k: _median(v) for k, v in times.items()}
+        log(f"[deploy] (a) 8 rows at seq {DEPLOY_SEQ}, median of {2 * DEPLOY_TIMED} in turns "
+            f"(host clock to synchronize): direct call {a_ms['direct']:.2f} ms, the loaded "
+            f"program {a_ms['loaded']:.2f} ms, Predictor.run (host copies included) "
+            f"{a_ms['Predictor.run']:.2f} ms | {card}")
+        # a save made on the CPU, loaded onto the card
+        t = time.perf_counter()
+        jit.save(cpu_model, p_cpu, input_spec=spec)
+        cpu_save_s = time.perf_counter() - t
+        moved = jit.load(p_cpu)
+        ids = rng.randint(0, vocab, (2, DEPLOY_SEQ)).astype(np.int32)
+        before = fa.launches
+        with torch.no_grad():
+            got = [o.cpu().numpy() for o in moved(torch.from_numpy(ids).cuda())]
+            ref = [t.numpy() for t in cpu_model(torch.from_numpy(ids))]
+        k1 = fa.launches - before
+        err = max(float(np.abs(o - r).max()) for o, r in zip(got, ref))
+        same = _bitwise(got, pred.run([ids]))
+        log(f"[deploy] (a) a save made on the CPU ({cpu_save_s:.1f} s) loaded onto the card "
+            f"({moved.device}): 2 rows, max abs err vs the CPU {err:.3e}, bitwise the card "
+            f"save's Predictor.run: {same}, K1 launches {k1}")
+        if not (err <= SEQ_OUT_TOL and k1 == n_layers * -(-2 // moved._slab_rows)):
+            failures.append(f"(a) the CPU save on the card: err {err:.3e}, K1 {k1}")
+        del moved, cpu_model
+
+        # (b) serve_model under load, at each slab: every >= 2-row and solo
+        # 1-row request bitwise Predictor.run of its rows
+        b_runs = {}
+        for slab in DEPLOY_SLABS:
+            srv = serve_model(p1, dynamic_batching=True, max_batch_size=DEPLOY_BATCH,
+                              max_wait_ms=20.0, max_queue=64, slab_rows=slab)
+            pred._layer.set_slab_rows(slab)
+            sent, window, k1, calls = deploy_traffic(fa, srv, wire_spec, rng, vocab)
+            held = [(ids, outs) for ids, outs, _, _, h in sent if h]
+            same = sum(_bitwise(outs, pred.run([ids])) for ids, outs in held)
+            burst_same = sum(_bitwise(outs, pred.run([ids]))
+                             for ids, outs, _, _, h in sent if not h)
+            ms = [m for _, _, m, _, _ in sent]
+            b_runs[slab] = dict(window=window, same=same, n=len(held), k1=k1, calls=calls,
+                                ms=ms)
+            log(f"[deploy] (b) slab {slab}: {len(sent)} requests in {window:.3f} s, request ms "
+                f"median {_median(ms):.1f} / max {max(ms):.1f}; {calls} program calls, K1 "
+                f"launches {k1} (expected {n_layers * calls}); bitwise Predictor.run: "
+                f"{same}/{len(held)} (>= 2 rows and solo 1-row), burst 1-row "
+                f"{burst_same}/{DEPLOY_BATCH} (the contract's exemption, recorded)")
+            if same != len(held):
+                failures.append(f"(b) slab {slab}: {same}/{len(held)} bitwise")
+            if k1 != n_layers * calls:
+                failures.append(f"(b) slab {slab}: K1 {k1} != {n_layers} x {calls}")
+            srv.stop()
+        cheaper = min(DEPLOY_SLABS, key=lambda s: b_runs[s]["window"])
+        log(f"[deploy] (b) the cheaper slab at this traffic: {cheaper} rows ("
+            + ", ".join(f"slab {s}: {b_runs[s]['window']:.3f} s" for s in DEPLOY_SLABS)
+            + f"; the default, jit/save_load.py DEFAULT_SLAB_ROWS, is "
+              f"{jit.save_load.DEFAULT_SLAB_ROWS}) | {card}")
+        pred._layer.set_slab_rows(jit.save_load.DEFAULT_SLAB_ROWS)
+
+        # (c) hot reload under load: seed-1 weights to p2, cmd 4 while 8
+        # clients send; every reply bitwise one model's Predictor.run
+        other = BertModel(device="cuda", generator=torch.Generator().manual_seed(1)).eval()
+        jit.save(other, p2, input_spec=spec)
+        del other
+        pred2 = inference.create_predictor(inference.Config(p2))
+        srv = serve_model(p1, dynamic_batching=True, max_batch_size=DEPLOY_BATCH,
+                          max_wait_ms=20.0, max_queue=64)
+        work = [rng.randint(0, vocab, (2, DEPLOY_SEQ)).astype(np.int32)
+                for _ in range(RELOAD_CLIENTS)]
+        want = [(pred.run([ids]), pred2.run([ids])) for ids in work]
+        stop = threading.Event()
+        tally = [dict(p1=0, p2=0, mixed=0, failed=0) for _ in work]
+
+        def sender(i):
+            while not stop.is_set():
+                try:
+                    status, outs, _ = _served(srv.port, wire_spec, work[i])
+                except OSError:
+                    status, outs = -1, None
+                if status != 0:
+                    tally[i]["failed"] += 1
+                elif _bitwise(outs, want[i][0]):
+                    tally[i]["p1"] += 1
+                elif _bitwise(outs, want[i][1]):
+                    tally[i]["p2"] += 1
+                else:
+                    tally[i]["mixed"] += 1
+
+        threads = [threading.Thread(target=sender, args=(i,)) for i in range(len(work))]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        t = time.perf_counter()
+        status, body = _call(srv.port, wire_spec.build_request(wire_spec.CMD_RELOAD,
+                                                               p2.encode()))
+        reload_s = time.perf_counter() - t
+        time.sleep(RELOAD_AFTER_S)
+        stop.set()
+        for t in threads:
+            t.join(300)
+        total = {k: sum(d[k] for d in tally) for k in tally[0]}
+        info = json.loads(body) if status == 0 else body[:200]
+        log(f"[deploy] (c) cmd 4 to p2 under {RELOAD_CLIENTS} clients: status {status}, {info}; "
+            f"{reload_s:.2f} s (load {srv.last_reload_s['load']:.2f} s, warm "
+            f"{srv.last_reload_s['warm']:.2f} s); replies p1 {total['p1']}, p2 {total['p2']}, "
+            f"mixed {total['mixed']}, failed or dropped {total['failed']}")
+        if status != 0 or total["failed"] or total["mixed"] or not total["p1"] or not total["p2"]:
+            failures.append(f"(c) reload: status {status}, replies {total}")
+
+        # (d) drain: health reports it and no new request is admitted
+        status, body = _call(srv.port, wire_spec.build_request(wire_spec.CMD_DRAIN))
+        health = json.loads(body)
+        late, _, _ = _served(srv.port, wire_spec, work[0])
+        log(f"[deploy] (d) cmd 8: status {status}, draining {health['draining']}, accepting "
+            f"{health['accepting']}; a new request then answered status {late}")
+        if status != 0 or not health["draining"] or health["accepting"] or late != 2:
+            failures.append(f"(d) drain: status {status}, health {health}, new request {late}")
+        srv.stop()
+        del pred2
+
+        # (d) w8: jit.save(quant="w8") -> serve_model(quant="w8")
+        w8_model = copy.deepcopy(model)
+        jit.save(w8_model, p_w8, input_spec=spec, quant="w8")
+        del w8_model
+        try:
+            serve_model(p1, quant="w8", dynamic_batching=True)
+            refused_load = False
+        except ValueError:
+            refused_load = True
+        srv = serve_model(p_w8, quant="w8", dynamic_batching=True, max_batch_size=DEPLOY_BATCH,
+                          max_wait_ms=20.0, max_queue=64)
+        w8_reqs = [rng.randint(0, vocab, (rows, DEPLOY_SEQ)).astype(np.int32)
+                   for rows in (1, 2, 3)]
+        f32_outs = [pred.run([ids]) for ids in w8_reqs]
+        k1_before, wq_before = fa.launches, qmm.launches
+        errs, calls = [], 0
+        for ids, f32 in zip(w8_reqs, f32_outs):
+            rows = ids.shape[0]
+            status, outs, _ = _served(srv.port, wire_spec, ids)
+            if status != 0:
+                failures.append(f"(d) w8 {rows} rows: status {status}")
+                continue
+            errs.append(float(np.abs(outs[0] - f32[0]).max() / np.abs(f32[0]).max()))
+            calls += -(-rows // srv._engine._runner._layer._slab_rows)
+        k1, wq = fa.launches - k1_before, qmm.launches - wq_before
+        status, body = _call(srv.port, wire_spec.build_request(wire_spec.CMD_RELOAD,
+                                                               p1.encode()))
+        after, _, _ = _served(srv.port, wire_spec, rng.randint(0, vocab, (2, DEPLOY_SEQ))
+                              .astype(np.int32))
+        log(f"[deploy] (d) w8 save served under quant='w8': sequence output vs f32 "
+            + ", ".join(f"{e:.3e}" for e in errs) + f" of its max (bound "
+            f"{accuracy_bounds['w8']}); {calls} program calls, wq_matmul {wq} launches "
+            f"(expected {73 * calls}), K1 {k1}; serve_model(f32 save, quant='w8') refused: "
+            f"{refused_load}; cmd 4 to the f32 save answered status {status} "
+            f"({body[:90]!r}), then a request status {after}")
+        if not errs or max(errs) > accuracy_bounds["w8"]:
+            failures.append(f"(d) w8 error {errs}")
+        if wq != 73 * calls or k1 != n_layers * calls:
+            failures.append(f"(d) w8 launches wq {wq}, K1 {k1} for {calls} calls")
+        if not refused_load or status != wire_spec.STATUS_ERROR or after != 0:
+            failures.append("(d) an f32 save was not refused where w8 is declared")
+        srv.stop()
+        d_wq = wq
+        del pred
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a_b_s = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) to_static: BERT-base O0 against dygraph, 20 O1 steps; resnet18 O0
+    # against dygraph (TF32 on globally); ResNet-50 O1 at phase 16 (b)'s batch
+    batch, _ = bert_pretraining_parts(torch, nn, optimizer, None)
+    eager = BertForPretraining(num_hidden_layers=DYG_DEPTH, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    static = jit.to_static(copy.deepcopy(eager))
+    packed, labels = batch(4, eager.bert.vocab_size)
+    runs = {}
+    for name, m in (("static", static), ("eager", eager)):
+        opt = dygraph_optimizer(paddle, m)
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        loss = float(dygraph_step(paddle, m, opt, dygraph_batch(paddle, packed, labels),
+                                  amp=False).numpy())
+        counts = tuple(x - y for x, y in zip((fa.launches, fa.dq_launches, fa.dkv_launches),
+                                             before))
+        runs[name] = ((loss, first_moments(opt, m),
+                       {n: p.detach().cpu() for n, p in m.named_parameters()}), counts)
+    bad, bitwise = hold_step(f"(e) to_static O0 step at depth {DYG_DEPTH}, batch 4, dropout 0, "
+                             "vs the dygraph step", runs["static"][0], runs["eager"][0])
+    log(f"[deploy] (e) launches K1/K2/K3 through the captured program {runs['static'][1]}")
+    failures += [f"(e) BERT O0 {b}" for b in bad]
+    if runs["static"][1] != (DYG_DEPTH,) * 3:
+        failures.append(f"(e) BERT O0 launches {runs['static'][1]}")
+    del eager, static, runs, opt
+
+    model = jit.to_static(BertForPretraining(hidden_dropout_prob=0.1,
+                                             attention_probs_dropout_prob=0.1, device="cuda",
+                                             generator=torch.Generator().manual_seed(0)))
+    n_layers = len(model.bert.encoder.layers)
+    opt = dygraph_optimizer(paddle, model)
+    data = dygraph_batch(paddle, *batch(O1_BATCH, model.bert.vocab_size))
+    paddle.seed(0)
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    losses, secs = [], []
+    for _ in range(O1_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = dygraph_step(paddle, model, opt, data, amp=True)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(float(loss.numpy()))
+    ts_counts = tuple(x - y for x, y in zip((fa.launches, fa.dq_launches, fa.dkv_launches),
+                                            before))
+    ts_ms = _median(secs[1:]) * 1e3
+    log(f"[deploy] (e) to_static O1 bf16 BERT-base, batch {O1_BATCH} x {TRAIN_SEQ}, dropout "
+        f"0.1: loss " + " ".join(f"{v:.4f}" for v in losses))
+    log(f"[deploy] (e) to_static O1 step (median of steps 2-{O1_STEPS}): {ts_ms:.2f} ms, "
+        f"{O1_BATCH * TRAIN_SEQ / ts_ms * 1e3:.0f} tokens/s; phase 15's dygraph step in this "
+        f"run {dyg['step_ms']:.2f} ms; the first step (the capture) {secs[0]:.1f} s; "
+        f"launches K1/K2/K3 {ts_counts} (expected {n_layers * O1_STEPS} each) | {card}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"(e) to_static O1 loss {losses}")
+    if ts_counts != (n_layers * O1_STEPS,) * 3:
+        failures.append(f"(e) to_static O1 launches {ts_counts}")
+    del model, opt, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.allow_tf32 = True  # the captured convolutions keep their IEEE op
+    sb, hw, classes = VIS_SMOKE["batch"], VIS_SMOKE["hw"], VIS_SMOKE["classes"]
+    paddle.seed(0)
+    eager = vision.models.resnet18(num_classes=classes)
+    static = jit.to_static(copy.deepcopy(eager))
+    x, y = vision_data(torch, sb, hw, classes)
+    vruns = {}
+    for name, m in (("static", static), ("eager", eager)):
+        opt = vision_optimizer(paddle, m)
+
+        def run(m=m, opt=opt):
+            loss = dygraph_vision_step(paddle, m, opt, paddle.to_tensor(x.numpy()),
+                                       paddle.to_tensor(y.numpy()), amp=False)
+            return (loss, {n: opt._accumulators[id(p)][0] for n, p in m.named_parameters()},
+                    dict(m.named_parameters()))
+
+        vruns[name] = vision_run(torch, m, run, x.cuda(), y.cuda())
+    failures += [f"(e) resnet18 {b}" for b in hold_vision_step(
+        "(e) resnet18 O0 step through to_static vs dygraph, on the card, TF32 on globally",
+        vruns["static"], vruns["eager"])]
+    del eager, static, vruns, opt
+
+    vbatch = vis["batch"]
+    paddle.seed(0)
+    model = jit.to_static(vision.models.resnet50())
+    opt = vision_optimizer(paddle, model)
+    xi, yi = (paddle.to_tensor(t.numpy()) for t in vision_data(torch, vbatch, RESNET_HW,
+                                                                RESNET_CLASSES))
+    r_losses, r_ms = [], []
+    for _ in range(TS_RESNET_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = dygraph_vision_step(paddle, model, opt, xi, yi, amp=True)
+        r_losses.append(float(loss.numpy()))
+        r_ms.append((time.perf_counter() - t) * 1e3)
+    r_step = _median(r_ms[1:])
+    log(f"[deploy] (e) to_static ResNet-50 O1 at batch {vbatch} (median of steps 2-"
+        f"{TS_RESNET_STEPS}, host clock to the loss's readback): {r_step:.2f} ms, "
+        f"{vbatch / r_step * 1e3:.1f} images/s; phase 16 (b) {vis['images_per_s']:.1f} "
+        f"images/s, (c) dygraph {vbatch / vis['dygraph_step_ms'] * 1e3:.1f} images/s; loss "
+        + " ".join(f"{v:.4f}" for v in r_losses) + f" | {card}")
+    if not all(np.isfinite(r_losses)):
+        failures.append(f"(e) to_static ResNet-50 loss {r_losses}")
+    del model, opt, xi, yi
+    pplace._CURRENT = pplace.CUDAPlace(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[deploy] the phase took {time.perf_counter() - t_phase:.1f} s ((a)-(d) "
+        f"{a_b_s:.1f} s)")
+    if failures:
+        fail("deploy: " + "; ".join(failures))
+    end = (fa.launches, fa.dq_launches, fa.dkv_launches, qmm.launches)
+    return dict(k1=a_rows, a_ms=a_ms, b=b_runs, ts_counts=ts_counts, ts_ms=ts_ms, d_wq=d_wq,
+                launches=tuple(e - b for e, b in zip(end, start)))
+
+
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
     the 7B engine. Llama-2-7B bf16 (phase 7's weights, 16 slots x 256,
@@ -5639,7 +6100,10 @@ def main():
         from paddle_tpu_torch.text import generation
         from paddle_tpu_torch.text.models import BertForPretraining, BertModel, LlamaModel
         import paddle_tpu_torch as paddle
-        from paddle_tpu_torch import vision
+        from paddle_tpu_torch import inference, jit, vision
+        from paddle_tpu_torch.inference.server import serve_model
+        from paddle_tpu_torch.quantization.serving import ACCURACY_BOUNDS
+        from paddle_tpu_torch.static import InputSpec
     except ImportError as e:
         fail(f"the port is not importable from this directory: {e}")
 
@@ -5729,6 +6193,11 @@ def main():
     took("vision")
     data = phase_data(torch, (paddle, spmd, qmm, chaos), card, vis)
     took("data")
+    deploy = phase_deploy(torch, fa, qmm, (paddle, jit, inference, serve_model, InputSpec,
+                                           BertForPretraining, BertModel, nn, optimizer, vision,
+                                           wire_spec, ACCURACY_BOUNDS),
+                          card, dyg, vis)
+    took("deploy")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -5822,7 +6291,11 @@ def main():
                        + eng["launches"] + reuse["launches"] + spec["launches"]
                        + robust["launches"] + quant["launches"] + mt["launches"]
                        + lm_launch["fwd"] + lm["parity_counts"][0] + mtt["counts"]["fwd"]
-                       + mtt["parity_counts"][0] + dyg["counts"]["fwd"] + dyg["extra"][0]),
+                       + mtt["parity_counts"][0] + dyg["counts"]["fwd"] + dyg["extra"][0]
+                       + deploy["launches"][0]),
+             # phase 18's: through the loaded programs (Predictor.run, the
+             # servers, the w8 save) and the to_static steps' captured ones
+             deploy_launches=deploy["launches"][0],
              # phase 15's: its O1 dygraph steps (its (a) and (b) steps are in
              # launches above)
              dygraph_launches=dyg["counts"]["fwd"],
@@ -5865,7 +6338,9 @@ def main():
                replaces=kernels[i]["replaces"],
                launches=(train["counts"][key] + lm_launch[key] + lm["parity_counts"][i]
                          + mtt["counts"][key] + mtt["parity_counts"][i] + dyg["counts"][key]
-                         + dyg["extra"][i]),
+                         + dyg["extra"][i] + deploy["launches"][i]),
+               # phase 18's: the to_static steps, through K1's registered autograd
+               deploy_launches=deploy["launches"][i],
                bert_launches=train["counts"][key], dygraph_launches=dyg["counts"][key],
                **bwd(bmain, which), **bwd(bf32, which, "f32_"),
                **bwd(lm_o1[1], which, "lm_train_bf16_"), lm_train_bf16_launches=lm_launch[key],
@@ -5878,7 +6353,9 @@ def main():
           for i, key, which in ((1, "bwd_dq", "dq"), (2, "bwd_dkv", "dkv"))),
         dict(name=kernels[3]["name"], route="cuda", source=kernels[3]["source"],
              replaces=kernels[3]["replaces"],
-             launches=quant["wq_launches"] + data["wq_launches"],
+             launches=quant["wq_launches"] + data["wq_launches"] + deploy["launches"][3],
+             # phase 18 (d): the w8 save's program, 73 a program call
+             deploy_launches=deploy["launches"][3],
              bert_launches=quant["bert_wq_launches"],
              # phase 17 (d)(iii): the int8 ResNet-50's classifier (an Int8Linear)
              data_launches=data["wq_launches"], max_abs_err=wq_main["max_abs_err"],

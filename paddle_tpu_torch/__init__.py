@@ -3,8 +3,9 @@
 It imports torch and numpy, never jax and nothing of paddle_tpu. Usage
 mirrors paddle (``import paddle_tpu_torch as paddle``): dygraph on the
 card by default, ``paddle.set_device("cpu")`` for the CPU. The packages
-the port has not reached yet (jit, static, onnx, incubate, fluid, ...)
-are absent rather than stubbed.
+the port has not reached yet (onnx, incubate, fluid, ...)
+are absent rather than stubbed. ``static`` holds ``InputSpec`` only; its
+Program/Executor facade is a later slice.
 """
 
 __version__ = "0.1.0"
@@ -56,6 +57,9 @@ from . import hapi  # noqa: F401,E402
 from . import text  # noqa: F401,E402
 from . import dataset  # noqa: F401,E402
 from . import inference  # noqa: F401,E402
+from . import jit  # noqa: F401,E402
+from . import serialize  # noqa: F401,E402
+from . import static  # noqa: F401,E402
 from . import quantization  # noqa: F401,E402
 from . import regularizer  # noqa: F401,E402
 from . import obs  # noqa: F401,E402

@@ -131,6 +131,8 @@ _KEY_GENERATOR = Generator(0)
 
 # (key, [counter]) supplied by a guarded scope (a training step)
 _RNG_SCOPE = contextvars.ContextVar("rng_scope", default=None)
+# (table, [counter]) inside a captured program (key_table_guard)
+_KEY_TABLE = contextvars.ContextVar("key_table", default=None)
 
 
 def seed(s):
@@ -157,8 +159,31 @@ def rng_guard(key):
         _RNG_SCOPE.reset(token)
 
 
+@contextlib.contextmanager
+def key_table_guard(table):
+    """Inside a program being captured: the n-th random op gets row n of
+    ``table`` (an int64 [rows, 2] tensor, the program's runtime input) as
+    its key, two int64 scalar tensors, so the keys are fed at each run and
+    not baked into the program. Yields a one-item list holding how many
+    keys were taken; past the table's rows the keys repeat row 0 and the
+    caller captures again with a larger table."""
+    counter = [0]
+    token = _KEY_TABLE.set((table, counter))
+    try:
+        yield counter
+    finally:
+        _KEY_TABLE.reset(token)
+
+
 def next_key():
     """A fresh key for one random op."""
+    table = _KEY_TABLE.get()
+    if table is not None:
+        rows, counter = table
+        i = counter[0]
+        counter[0] += 1
+        row = rows[i if i < rows.shape[0] else 0]
+        return (row[0], row[1])
     scope = _RNG_SCOPE.get()
     if scope is not None:
         key, counter = scope

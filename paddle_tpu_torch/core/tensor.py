@@ -26,7 +26,14 @@ detach in place) ``stop_gradient = True`` marks the tensor, and every
 stops there. ``numpy()`` of a bfloat16 tensor is its exact float32 upcast
 (torch cannot hand bfloat16 to numpy, and the card's machine has no
 ml_dtypes).
+
+While ``torch.export`` traces a program (``capture_scope``: jit.save and
+to_static), the tracer's tensors cannot become ``Tensor``s: ``wrap``
+leaves them plain, so the ``paddle.*`` functions run on them as on torch
+tensors.
 """
+import contextlib
+import contextvars
 import copy
 import functools
 
@@ -68,9 +75,28 @@ def plain(x):
     return x
 
 
+_CAPTURING = contextvars.ContextVar("capturing", default=False)
+
+
+def capturing():
+    """Whether this thread is inside ``capture_scope``."""
+    return _CAPTURING.get()
+
+
+@contextlib.contextmanager
+def capture_scope():
+    """The span of a ``torch.export`` trace of a port program."""
+    token = _CAPTURING.set(True)
+    try:
+        yield
+    finally:
+        _CAPTURING.reset(token)
+
+
 def wrap(x):
-    """A torch tensor as a Tensor (itself when it is one)."""
-    if isinstance(x, _base) and type(x) is not Tensor:
+    """A torch tensor as a Tensor (itself when it is one; a tensor being
+    traced stays plain)."""
+    if isinstance(x, _base) and type(x) is not Tensor and not _CAPTURING.get():
         return x.as_subclass(Tensor)
     return x
 

@@ -34,15 +34,29 @@ until ``close``; ``infer(trace_id=...)`` records the ``serving.request``,
 ``serving.submit``, ``serving.scheduler.loop``, ``serving.execute`` and
 ``serving.execute.bucket{n}``.
 
-The ``quant`` label (compiles, ``stats``) is "f32": the reference reads
-the served layer's ``_quant_mode``, which only ``jit.save(quant=)`` sets,
-so a layer quantized in place (``quantization.quantize_weights``) serves
-as "f32" there too.
+The ``quant`` label (compiles, ``stats``) is the served layer's
+``_quant_mode`` (``jit.save(quant=)`` sets it), else "f32", as in the
+reference: a layer quantized in place (``quantization.quantize_weights``)
+behind ``for_callable`` serves as "f32" there too.
+
+``for_layer`` serves a ``jit.load``-ed, batch-polymorphic
+``TranslatedLayer`` (``AotLayerRunner``: dim 0 of every input symbolic,
+the rest concrete). **Determinism contract** (the reference's,
+paddle_tpu/inference/batching.py:88-99): a request of >= 2 rows served
+through the engine is bitwise ``Predictor.run`` of the same rows, and so
+is a solo 1-row request. On the card cuBLAS picks its GEMM per M, so a
+batch of 8 rows and a direct call of 2 round differently; the layer
+therefore runs every batch, and ``Predictor.run`` every direct call, in
+slabs of one row count (``TranslatedLayer.run_slabs``, the last slab
+padded): a row's bits in a GEMM depend on (M, N, K), not on its position,
+K1 keeps a row's bits beside any neighbours and LayerNorm is per row. A
+1-row tail chunk of a split request pads to bucket 2, as in the
+reference.
 
 Not ported (ROADMAP Queue 1): cold-compile threads, the artifact store,
-meshed serving. The port's runner compiles nothing: the
-first batch of a bucket (or its warmup) is counted as its one ``inline``
-compile, as it builds the kernel and grows the allocator.
+meshed serving. The port's runners compile nothing: the first batch of a
+bucket (or its warmup) is counted as its one ``inline`` compile, as it
+builds the kernels and grows the allocator.
 """
 import threading
 import time
@@ -216,6 +230,52 @@ class CallableRunner:
                 for o in out]
 
 
+class AotLayerRunner:
+    """Execute batches of a ``jit.load``-ed ``TranslatedLayer`` (the
+    reference's ``AotLayerRunner``): its program must be batch-polymorphic
+    in dim 0 of every input and concrete elsewhere. The weights stay on
+    the layer's device, shared by every bucket; each batch runs the
+    layer's slabs (the module docstring's contract)."""
+
+    def __init__(self, layer):
+        self._layer = layer
+        self.quant_mode = getattr(layer, "_quant_mode", None)
+        specs = getattr(layer, "_input_specs", None) or []
+        if not specs:
+            raise ValueError("layer has no input specs; was it jit-saved?")
+        if not getattr(layer, "_polymorphic", False):
+            raise ValueError(
+                "dynamic batching needs a batch-polymorphic saved model: re-save with "
+                "paddle.jit.save(..., input_spec=[InputSpec([None, ...], dtype)]) so dim 0 "
+                "exports as a symbolic size (BatchingEngine.for_callable is the fallback "
+                "for fixed-shape models)")
+        self._trailing, self._dtypes = [], []
+        for shape, dtype in specs:
+            if shape and shape[0] is not None:
+                raise ValueError(f"input spec {shape} has a concrete dim 0; every input must "
+                                 "be batch-polymorphic for bucket batching")
+            if any(d is None for d in shape[1:]):
+                raise ValueError(
+                    f"input spec {shape} has a symbolic non-batch dim; the batching engine "
+                    "buckets dim 0 only: re-save with concrete trailing dims (or pad/bucket "
+                    "those dims client-side before submitting)")
+            self._trailing.append(tuple(int(d) for d in shape[1:]))
+            self._dtypes.append(np.dtype(dtype))
+
+    def default_signature(self):
+        """The saved model's batch signature (for warmup)."""
+        return tuple((dt.str, tr) for dt, tr in zip(self._dtypes, self._trailing))
+
+    def run(self, batch_arrays):
+        import torch
+
+        dev = self._layer.device
+        # a request decoded off the wire is a read-only view: copied once
+        outs = self._layer.run_slabs([torch.from_numpy(a if a.flags.writeable else a.copy())
+                                      .to(dev) for a in batch_arrays])
+        return [o.cpu().numpy() for o in outs]
+
+
 class BatchingEngine:
     """Shared dynamic-batching front end for a served model.
 
@@ -279,6 +339,17 @@ class BatchingEngine:
         """Engine over any ``fn(*arrays) -> outputs`` callable."""
         return cls(CallableRunner(fn), **kw)
 
+    @classmethod
+    def for_layer(cls, layer, **kw):
+        """Engine over a ``jit.load``-ed batch-polymorphic TranslatedLayer
+        (``AotLayerRunner``)."""
+        return cls(AotLayerRunner(layer), **kw)
+
+    @property
+    def quant(self):
+        """The served layer's quant mode, "f32" for none."""
+        return getattr(self._runner, "quant_mode", None) or "f32"
+
     # ---------------------------------------------------------- telemetry
     def _init_metrics(self):
         """The engine's counters as obs instruments (the reference's
@@ -308,7 +379,7 @@ class BatchingEngine:
             "Bucket program materializations (source: inline = the bucket's first run; "
             "quant: the serving quantization mode; mesh: the serving mesh descriptor)",
             labelnames=("bucket", "source"),
-            const_labels={**cl, "quant": "f32", "mesh": "single"})
+            const_labels={**cl, "quant": self.quant, "mesh": "single"})
         self._m_batches = M.Counter("paddle_serving_batches_total", "Batches executed",
                                     labelnames=("bucket",), const_labels=cl)
         self._m_batch_rows = M.Counter("paddle_serving_batch_rows_total",
@@ -710,8 +781,12 @@ class BatchingEngine:
         """Run a zero batch through each bucket (default: every power of
         two up to max_batch_size) so no request pays a first-call cost
         (for the CUDA path: the kernel build and the allocator's growth).
-        ``signature`` is ``[(dtype, trailing_shape), ...]``. Returns the
-        declared bucket list."""
+        ``signature`` is ``[(dtype, trailing_shape), ...]`` (default: a
+        loaded layer's saved signature). Returns the declared bucket
+        list."""
+        if signature is None:
+            default = getattr(self._runner, "default_signature", None)
+            signature = default() if default is not None else None
         if signature is None:
             raise ValueError("warmup needs signature=[(dtype, trailing_shape), ...]")
         sig = [(np.dtype(dt), tuple(tr)) for dt, tr in signature]
@@ -727,6 +802,11 @@ class BatchingEngine:
         with self._lock:
             self._declared = buckets
         return buckets
+
+    def declared_buckets(self):
+        """The bucket sizes the last ``warmup`` declared."""
+        with self._lock:
+            return list(self._declared)
 
     # -------------------------------------------------------------- stats
     def stats(self):
@@ -746,7 +826,7 @@ class BatchingEngine:
             states = [br.state for br in self._breakers.values()]
             return {
                 "name": self.name,
-                "quant": "f32",
+                "quant": self.quant,
                 "max_batch_size": self.max_batch_size,
                 "max_wait_ms": round(self.max_wait_s * 1000.0, 3),
                 "max_queue": self.max_queue,
@@ -767,6 +847,10 @@ class BatchingEngine:
                     "trips": sum(br.trips for br in self._breakers.values()),
                 },
                 "compiles": len(self._warm),
+                # no artifact store and one card (ROADMAP Queue 1): the
+                # reference's keys, at what they read here
+                "store_loads": 0,
+                "mesh": "single",
                 "buckets": buckets,
             }
 
@@ -785,6 +869,9 @@ class BatchingEngine:
                 "quarantined_buckets": sorted(b for (b, _), br in self._breakers.items()
                                               if br.state != _Breaker.CLOSED),
                 "declared_buckets": list(self._declared),
+                "cold_compiles_inflight": 0,
+                "artifact_store": None,
+                "mesh": "single",
             }
 
     # -------------------------------------------------------------- close

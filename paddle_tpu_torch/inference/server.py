@@ -35,8 +35,26 @@ on a malformed block); cmd 10 (``kv_resume``) resumes it and replies as
 a decode stream with the tokens after the snapshot (one-shot: the whole
 sequence), or status 2 before any token on a skew. Neither holds the
 engine's locks while it reads or writes the socket. Cmds 3 and 5 carry
-the engine's health and stats under ``"decode"``. Reload and drain
-answer status 1.
+the engine's health and stats under ``"decode"``.
+
+Cmd 4 (``reload``, optional UTF-8 model prefix; empty = the same) hot-swaps
+the served model on a server made by ``serve_model``: the new model loads
+and warms (the old engine's declared buckets) to the side while requests
+keep flowing, the (run, engine) pair swaps under the backend lock, then
+the old engine closes, which drains its in-flight batches; a handler that
+raced the swap retries once on the new engine. The reply is the
+reference's JSON (``reloaded``, ``prefix``, ``warm_buckets``,
+``reloads``), or status 1 with the error (a bare server has no loader).
+Cmd 8 (``drain``, optional f64 seconds; negative re-opens) announces a
+drain: health reports ``draining``, ``accepting`` false and
+``draining_deadline_s``, and the reply is the health JSON. Unlike the
+reference, which keeps serving new requests while it drains, the port
+then admits no new cmd-1 request: each answers status 2 (retryable: go to
+another replica) while the requests already admitted finish. Health's
+fields are the reference's (``ok``, ``phase``, ``decode``, ``draining``,
+``accepting``, ``draining_deadline_s``, ``connections``, ``reloads``,
+``engine``); stats carry ``phase``. The replica phase is "both" (the
+disaggregated pools are ROADMAP Queue 4).
 
 The server's own instruments (the reference's: connections, frames by
 cmd, responses by status, open connections, stream frames; const label
@@ -58,9 +76,9 @@ from ..obs import prometheus as obs_prometheus
 from ..obs import tracing as obs_tracing
 from . import wire_spec
 from .batching import DeadlineExceeded, EngineClosed, RetryableError
-from .wire_spec import (CMD_HEALTH, CMD_INFER, CMD_KV_PUT, CMD_KV_RESUME, CMD_METRICS,
-                        CMD_STATS, CMD_STOP, STATUS_ERROR, STATUS_OK, STATUS_RETRYABLE,
-                        STATUS_STREAM, build_reply)
+from .wire_spec import (CMD_DRAIN, CMD_HEALTH, CMD_INFER, CMD_KV_PUT, CMD_KV_RESUME,
+                        CMD_METRICS, CMD_RELOAD, CMD_STATS, CMD_STOP, STATUS_ERROR, STATUS_OK,
+                        STATUS_RETRYABLE, STATUS_STREAM, build_reply)
 
 # a 4-byte length prefix from a broken client must not trigger an
 # unbounded allocation, and a client that stalls mid-frame must not pin
@@ -75,6 +93,10 @@ LISTEN_BACKLOG = 128
 
 class BodyTooLarge(ValueError):
     pass
+
+
+class Draining(RetryableError):
+    """The server announced a drain (cmd 8) and admits no new request."""
 
 
 def _read_all(sock, n, limit=None):
@@ -99,14 +121,30 @@ class PredictorServer:
     returns its counters. ``own_engine=True`` closes the engine on stop.
     With ``decode_engine`` (an inference.decode.DecodeEngine) cmd-1
     requests carrying the 0x5C field are decoded there and streamed back;
-    ``own_decode_engine=True`` closes it on stop."""
+    ``own_decode_engine=True`` closes it on stop. With ``loader`` (a
+    callable ``prefix -> (run_fn, engine_or_None)``, supplied by
+    ``serve_model``) cmd 4 hot-swaps the served model (module
+    docstring)."""
 
     def __init__(self, run_fn, port=0, host="127.0.0.1", max_body=MAX_BODY_BYTES,
                  recv_timeout=RECV_TIMEOUT, engine=None, own_engine=False,
-                 decode_engine=None, own_decode_engine=False):
+                 decode_engine=None, own_decode_engine=False, loader=None, prefix=None):
         self._run = run_fn
         self._engine = engine
         self._own_engine = own_engine and engine is not None
+        self.phase = "both"
+        self._loader = loader
+        self._prefix = prefix
+        self._backend_lock = threading.Lock()  # guards the (run, engine) swap
+        self._reload_lock = threading.Lock()  # one reload at a time
+        self._reload_count = 0
+        self.last_reload_s = None
+        # drain announcement (cmd 8 / begin_drain / stop), under _conns_lock
+        self._accepting = True
+        self._draining_deadline = None  # monotonic, or None
+        # an obs.httpd.MetricsServer attached by serve_model(metrics_port=);
+        # stop() closes it
+        self.metrics_server = None
         self._decode_engine = decode_engine
         self._own_decode_engine = own_decode_engine and decode_engine is not None
         self._max_body = max_body
@@ -146,8 +184,10 @@ class PredictorServer:
         self._m_chunks = M.Counter("paddle_server_stream_chunks_total",
                                    "Streaming decode reply frames sent (status 3 + terminal)",
                                    const_labels=cl)
-        instruments = [self._m_conns, self._m_frames, self._m_responses, self._m_open,
-                       self._m_chunks]
+        self._m_reloads = M.Counter("paddle_server_reloads_total", "Hot model reloads",
+                                    const_labels=cl)
+        instruments = [self._m_conns, self._m_frames, self._m_responses, self._m_reloads,
+                       self._m_open, self._m_chunks]
         ref = weakref.ref(self)
 
         def collector():
@@ -194,26 +234,99 @@ class PredictorServer:
             if ent is not None:
                 ent["busy"] = busy
 
+    def _backend(self):
+        with self._backend_lock:
+            return self._run, self._engine
+
     def _stats_json(self):
-        stats = {"engine": None} if self._engine is None else dict(self._engine.stats())
+        _, engine = self._backend()
+        stats = {"engine": None} if engine is None else dict(engine.stats())
+        stats["phase"] = self.phase
         if self._decode_engine is not None:
             stats["decode"] = self._decode_engine.stats()
         return json.dumps(stats)
 
     def _health_json(self):
-        eng = self._engine.health() if self._engine is not None else None
+        _, engine = self._backend()
+        eng = engine.health() if engine is not None else None
         dec = self._decode_engine.health() if self._decode_engine is not None else None
         with self._conns_lock:
             conns = len(self._conns)
-        stopping = self._stop.is_set()
+            accepting = self._accepting and not self._stop.is_set()
+            dl = self._draining_deadline
+        draining = not accepting
         return json.dumps({
-            "ok": (not stopping and (eng is None or eng["ok"])
-                   and (dec is None or dec["ok"])),
-            "accepting": not stopping,
-            "connections": conns,
-            "engine": eng,
+            "ok": not draining and (eng is None or eng["ok"]) and (dec is None or dec["ok"]),
+            "phase": self.phase,
             "decode": dec,
+            "draining": draining,
+            "accepting": accepting,
+            "draining_deadline_s": (None if (accepting or dl is None)
+                                    else round(max(0.0, dl - time.monotonic()), 3)),
+            "connections": conns,
+            "reloads": self._reload_count,
+            "engine": eng,
         })
+
+    def accepting(self):
+        """Whether new requests are admitted (no drain announced)."""
+        with self._conns_lock:
+            return self._accepting and not self._stop.is_set()
+
+    def begin_drain(self, deadline_s=None):
+        """Announce a drain (cmd 8): health flips to accepting false and new
+        requests answer status 2 while the admitted ones finish.
+        ``deadline_s`` is advisory (``draining_deadline_s``); a negative
+        value cancels the drain."""
+        with self._conns_lock:
+            if deadline_s is not None and deadline_s < 0:
+                self._accepting = True
+                self._draining_deadline = None
+            else:
+                self._accepting = False
+                self._draining_deadline = (None if deadline_s is None
+                                           else time.monotonic() + float(deadline_s))
+
+    def reload(self, prefix=None):
+        """Atomic hot swap (cmd 4; module docstring). Returns the reply's
+        dict."""
+        if self._loader is None:
+            raise RuntimeError("this server has no model loader; hot reload needs a server "
+                               "constructed by serve_model(...) (a bare PredictorServer "
+                               "wraps an opaque callable)")
+        with self._reload_lock:
+            if self._stop.is_set():
+                raise RuntimeError("server is stopping; reload refused")
+            new_prefix = prefix or self._prefix
+            old_engine = self._backend()[1]
+            t0 = time.perf_counter()
+            new_run, new_engine = self._loader(new_prefix)
+            t1 = time.perf_counter()
+            warmed = []
+            try:
+                if new_engine is not None:
+                    declared = old_engine.declared_buckets() if old_engine is not None else None
+                    warmed = new_engine.warmup(declared or None)
+                # host seconds of the last reload's load and warmup
+                self.last_reload_s = {"load": t1 - t0, "warm": time.perf_counter() - t1}
+                with self._backend_lock:
+                    if self._stop.is_set():
+                        raise RuntimeError("server stopped during reload; new model discarded")
+                    old_engine, old_owned = self._engine, self._own_engine
+                    self._run, self._engine = new_run, new_engine
+                    self._own_engine = new_engine is not None
+                    self._prefix = new_prefix
+                    self._reload_count += 1
+                    self._m_reloads.inc()
+            except BaseException:
+                # a failed load or warmup must not leak the new engine's threads
+                if new_engine is not None:
+                    new_engine.close()
+                raise
+            if old_engine is not None and old_owned:
+                old_engine.close()  # drains: its pending groups still fire
+            return {"reloaded": True, "prefix": new_prefix, "warm_buckets": list(warmed),
+                    "reloads": self._reload_count}
 
     def _infer(self, inputs, budget, trace_id):
         """One non-streaming cmd-1 request (already parsed); returns the
@@ -221,15 +334,25 @@ class PredictorServer:
         if budget is not None and budget <= 0.0:
             raise DeadlineExceeded("the client's budget was spent before the "
                                    "request arrived")
+        if not self.accepting():
+            raise Draining("the server is draining; send the request to another replica")
         deadline = None if budget is None else time.monotonic() + budget
-        if self._engine is not None:
-            outputs = self._engine.infer(inputs, deadline=deadline, trace_id=trace_id)
-        else:
-            outputs = self._run(*inputs)
-            if not isinstance(outputs, (list, tuple)):
-                outputs = [outputs]
-            outputs = [o.detach().cpu().numpy() if hasattr(o, "detach") else o
-                       for o in outputs]
+        for attempt in (0, 1):
+            run, engine = self._backend()
+            try:
+                if engine is not None:
+                    outputs = engine.infer(inputs, deadline=deadline, trace_id=trace_id)
+                else:
+                    outputs = run(*inputs)
+                break
+            except EngineClosed:
+                # hot-swapped between the snapshot and the submit: once more
+                # on the new backend, so a reload drops no request
+                if attempt:
+                    raise
+        if not isinstance(outputs, (list, tuple)):
+            outputs = [outputs]
+        outputs = [o.detach().cpu().numpy() if hasattr(o, "detach") else o for o in outputs]
         return wire_spec.encode_arrays(outputs)
 
     def _handle(self, conn):
@@ -267,6 +390,18 @@ class PredictorServer:
                     conn.sendall(build_reply(STATUS_OK, self._stats_json().encode()))
                 elif cmd == CMD_METRICS:
                     conn.sendall(build_reply(STATUS_OK, obs_prometheus.render().encode("utf-8")))
+                elif cmd == CMD_RELOAD:
+                    prefix = body[1:].decode("utf-8", errors="replace")
+                    try:
+                        info = self.reload(prefix or None)
+                        conn.sendall(build_reply(STATUS_OK, json.dumps(info).encode()))
+                    except Exception as e:  # noqa: BLE001 - the reload's error
+                        conn.sendall(build_reply(STATUS_ERROR,
+                                                 str(e).encode("utf-8", errors="replace")))
+                elif cmd == CMD_DRAIN:
+                    deadline_s = struct.unpack("<d", body[1:9])[0] if len(body) >= 9 else None
+                    self.begin_drain(deadline_s)
+                    conn.sendall(build_reply(STATUS_OK, self._health_json().encode()))
                 elif cmd == CMD_KV_PUT:
                     self._serve_kv_put(conn, body[1:])
                 elif cmd == CMD_KV_RESUME:
@@ -472,8 +607,12 @@ class PredictorServer:
         """Stop accepting, let requests mid-processing finish (up to
         ``timeout``), close idle connections, then close an owned engine.
         The server's metrics leave the registry."""
+        self.begin_drain(timeout if drain else 0.0)
         self._stop.set()
         obs_metrics.REGISTRY.unregister_collector(self._obs_collector)
+        if self.metrics_server is not None:
+            self.metrics_server.close()
+            self.metrics_server = None
         try:
             # shutdown before close: close() alone does not wake a thread
             # blocked in accept() on Linux
@@ -497,7 +636,92 @@ class PredictorServer:
                 pass
             c.close()
         self._thread.join(timeout)
-        if self._own_engine:
-            self._engine.close()
+        with self._backend_lock:
+            engine = self._engine if self._own_engine else None
+        if engine is not None:
+            engine.close()
         if self._own_decode_engine:
             self._decode_engine.close()
+
+
+def serve_model(path_prefix, port=0, dynamic_batching=False, max_batch_size=32,
+                max_wait_ms=2.0, max_queue=256, warmup=True, metrics_port=None, quant=None,
+                mesh=None, phase=None, slab_rows=None, device=None, **engine_kwargs):
+    """Load a ``jit.save``-ed model and serve it (the reference's
+    ``serve_model``). With ``dynamic_batching=True`` (a batch-polymorphic
+    save) all connections share one ``BatchingEngine.for_layer`` whose
+    buckets are warmed up front; ``engine_kwargs`` pass to it.
+    ``metrics_port`` also serves the Prometheus text on
+    ``http://host:metrics_port/metrics``.
+
+    ``quant`` (default: the environment's ``PADDLE_TPU_SERVING_QUANT``, read
+    here once) declares the mode this replica must serve: the loaded save's
+    recorded mode is checked at load and at every reload (cmd 4), so an f32
+    save is refused where w8 is declared. ``mesh`` other than "single"
+    and ``phase`` other than "both" raise (sharded and disaggregated
+    serving are ROADMAP Queues 4-5). ``slab_rows``: the row count the
+    program runs at (jit/save_load.py); ``device``: where it runs (default:
+    the current place). The returned server answers cmd 4 (reload) and
+    cmd 8 (drain)."""
+    import os
+
+    from ..jit import load as jit_load
+    from ..quantization.serving import check_mode
+
+    if quant is None:
+        quant = os.environ.get("PADDLE_TPU_SERVING_QUANT") or None
+    if quant not in (None, "f32"):
+        check_mode(quant)
+    if mesh not in (None, "single"):
+        raise NotImplementedError(f"serve_model(mesh={mesh!r}): the port serves on one card "
+                                  "(mesh 'single'; sharded serving is ROADMAP Queue 1)")
+    if phase not in (None, "both"):
+        raise NotImplementedError(f"serve_model(phase={phase!r}): disaggregated prefill/decode "
+                                  "pools are ROADMAP Queue 4; the port's replicas serve both")
+
+    def loader(prefix):
+        layer = jit_load(prefix, device=device, slab_rows=slab_rows)
+        if quant is not None:
+            have = getattr(layer, "_quant_mode", None) or "f32"
+            if have != quant:
+                raise ValueError(
+                    f"{prefix}: saved quant mode {have!r} does not match the declared serving "
+                    f"mode {quant!r} (PADDLE_TPU_SERVING_QUANT / serve_model(quant=)); re-save "
+                    "with jit.save(..., quant=...) or fix the deployment knob")
+        recorded = getattr(layer, "_serving_mesh", None)
+        if recorded not in (None, "single"):
+            raise ValueError(f"{prefix}: saved for serving mesh {recorded!r}; the port serves "
+                             "on one card")
+
+        def run(*arrays):
+            out = layer(*arrays)
+            return out if isinstance(out, (list, tuple)) else [out]
+
+        engine = None
+        if dynamic_batching:
+            from .batching import BatchingEngine
+
+            engine = BatchingEngine.for_layer(layer, max_batch_size=max_batch_size,
+                                              max_wait_ms=max_wait_ms, max_queue=max_queue,
+                                              **engine_kwargs)
+        return run, engine
+
+    run, engine = loader(path_prefix)
+    try:
+        if engine is not None and warmup:
+            engine.warmup()
+        server = PredictorServer(run, port=port, engine=engine, own_engine=engine is not None,
+                                 loader=loader, prefix=path_prefix)
+    except BaseException:
+        if engine is not None:
+            engine.close()
+        raise
+    if metrics_port is not None:
+        from ..obs.httpd import MetricsServer
+
+        try:
+            server.metrics_server = MetricsServer(metrics_port)
+        except BaseException:
+            server.stop(drain=False)
+            raise
+    return server

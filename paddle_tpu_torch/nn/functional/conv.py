@@ -9,10 +9,12 @@ pads both sides alike. Channels-last inputs (``data_format`` NLC, NHWC,
 NDHWC) are convolved as channels-first views. A float32 convolution is
 IEEE float32 on the card, forward and backward, whatever
 ``torch.backends.cudnn.allow_tf32`` says: the flag is cleared around the
-port's own calls only (``_Conv``), as the port's float32 products are
-full float32 already.
+port's own calls only (the ``ieee_convolution`` custom op and its
+backward, which a captured program keeps), as the port's float32
+products are full float32 already.
 """
 import contextlib
+from typing import List, Tuple
 
 import torch
 
@@ -62,31 +64,67 @@ def _ieee_f32(t):
         yield
 
 
-class _Conv(torch.autograd.Function):
-    """ATen's convolution, forward and backward each under ``_ieee_f32``."""
+@torch.library.custom_op("paddle_tpu_torch::ieee_convolution", mutates_args=())
+def _ieee_convolution(x: torch.Tensor, w: torch.Tensor, stride: List[int], padding: List[int],
+                      dilation: List[int], transposed: bool, output_padding: List[int],
+                      groups: int) -> torch.Tensor:
+    """ATen's convolution under ``_ieee_f32``, as a custom op: a program
+    captured by torch.export (to_static, jit.save) keeps the cleared TF32
+    flag, which a Python context manager around an inlined call would
+    not."""
+    with _ieee_f32(x):
+        return torch.ops.aten.convolution(x, w, None, stride, padding, dilation, transposed,
+                                          output_padding, groups)
 
-    @staticmethod
-    def forward(ctx, x, w, stride, padding, dilation, transposed, output_padding, groups):
-        ctx.save_for_backward(x, w)
-        ctx.conf = (stride, padding, dilation, transposed, output_padding, groups)
-        with _ieee_f32(x):
-            return torch.ops.aten.convolution(x, w, None, stride, padding, dilation,
-                                              transposed, output_padding, groups)
 
-    @staticmethod
-    def backward(ctx, grad):
-        x, w = ctx.saved_tensors
-        stride, padding, dilation, transposed, output_padding, groups = ctx.conf
-        with _ieee_f32(x):
-            gx, gw, _ = torch.ops.aten.convolution_backward(
-                grad.contiguous(), x, w, None, stride, padding, dilation, transposed,
-                output_padding, groups, (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
-        return gx, gw, None, None, None, None, None, None
+@_ieee_convolution.register_fake
+def _(x, w, stride, padding, dilation, transposed, output_padding, groups):
+    return torch.ops.aten.convolution(x, w, None, stride, padding, dilation, transposed,
+                                      output_padding, groups)
+
+
+@torch.library.custom_op("paddle_tpu_torch::ieee_convolution_backward", mutates_args=())
+def _ieee_convolution_backward(grad: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                               stride: List[int], padding: List[int], dilation: List[int],
+                               transposed: bool, output_padding: List[int], groups: int,
+                               mask: List[bool]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The input and weight gradients under ``_ieee_f32``; one not asked
+    for (``mask``) comes back empty."""
+    with _ieee_f32(x):
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            grad.contiguous(), x, w, None, stride, padding, dilation, transposed,
+            output_padding, groups, (mask[0], mask[1], False))
+    return (gx if mask[0] else x.new_empty(0)), (gw if mask[1] else w.new_empty(0))
+
+
+@_ieee_convolution_backward.register_fake
+def _(grad, x, w, stride, padding, dilation, transposed, output_padding, groups, mask):
+    gx, gw, _ = torch.ops.aten.convolution_backward(
+        grad.contiguous(), x, w, None, stride, padding, dilation, transposed, output_padding,
+        groups, (mask[0], mask[1], False))
+    return (gx if mask[0] else x.new_empty(0)), (gw if mask[1] else w.new_empty(0))
+
+
+def _conv_setup(ctx, inputs, output):
+    x, w = inputs[0], inputs[1]
+    ctx.save_for_backward(x, w)
+    ctx.conf = tuple(inputs[2:])
+
+
+def _conv_backward(ctx, grad):
+    x, w = ctx.saved_tensors
+    mask = [bool(ctx.needs_input_grad[0]), bool(ctx.needs_input_grad[1])]
+    gx, gw = _ieee_convolution_backward(grad, x, w, *ctx.conf, mask)
+    return ((gx if mask[0] else None), (gw if mask[1] else None),
+            None, None, None, None, None, None)
+
+
+_ieee_convolution.register_autograd(_conv_backward, setup_context=_conv_setup)
 
 
 def _conv(x, w, stride, padding, dilation, transposed, output_padding, groups):
-    return _Conv.apply(x, w, list(stride), list(padding), list(dilation), transposed,
-                       list(output_padding), int(groups))
+    return _ieee_convolution(x, w, list(stride), list(padding), list(dilation),
+                             bool(transposed), list(output_padding), int(groups))
 
 
 def _chan_first(data_format):

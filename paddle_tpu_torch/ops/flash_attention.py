@@ -14,8 +14,10 @@ Three kernels, as in the JAX package:
   nothing is accumulated with atomics and the gradients are the same run
   to run.
 
-``_FlashAttention`` (the reference's ``_flash`` custom_vjp) ties them
-together for autograd. CPU tensors run the plain PyTorch versions beside
+``flash_attention_fwd`` and ``flash_attention_bwd`` are the two as
+``torch.library`` custom ops (K1's gradient registered on it: the
+reference's ``_flash`` custom_vjp), which ``mha`` and every captured
+program (jit.save, to_static) call. CPU tensors run the plain PyTorch versions beside
 the kernels (``mha_reference``, ``mha_bwd_reference``); CUDA tensors
 launch the kernels or raise: a tensor the kernels do not take, a failed
 build or a failed launch is an error, never a fallback. The kernels are
@@ -23,8 +25,12 @@ built at first use (core/cuda_build.py), never at import.
 """
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
+# a custom op's first call imports torch._dynamo (~2 s): import it with the
+# ops, so that cost is never a serving loop's first step
+import torch._dynamo  # noqa: F401
 
 from ..core import cuda_build
 from ..core.random import U32, fmix32, keep_thresh_u32, mul32
@@ -345,23 +351,73 @@ def _bwd(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The reference's ``_flash`` custom_vjp: K1 forward saving
-    (q, k, v, o, lse, seed), K2 + K3 backward."""
+# The kernels as torch.library custom ops: a fake (meta) implementation
+# gives their output shapes without launching, so torch.export can capture
+# a model that runs them (jit.save, to_static) and a captured program still
+# calls the real implementation, which launches and counts. K1's gradient
+# is registered on its op (K2 + K3 through the backward op), so a captured
+# training step differentiates through the kernels too.
 
-    @staticmethod
-    def forward(ctx, q, k, v, seed, scale, causal, dropout_p):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = _fwd(q, k, v, seed, scale, causal, dropout_p)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.cfg = (seed, scale, causal, dropout_p)
-        return o
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        seed: Optional[torch.Tensor], scale: float, causal: bool,
+                        dropout_p: float, k_len: Optional[torch.Tensor] = None,
+                        heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as an op: ``_fwd`` on [bh, sq, d] tensors -> (O, LSE). ``seed``:
+    the dropout seed as an int64 scalar tensor on the host (a captured
+    training step feeds it from its key table), or None for 0."""
+    args = (q, k, v, 0 if seed is None else int(seed), scale, causal, dropout_p)
+    return _fwd(*args) if k_len is None else _fwd(*args, k_len=k_len, heads=heads)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _bwd(q, k, v, o, lse, do.to(q.dtype), *ctx.cfg)
-        return dq, dk, dv, None, None, None, None
+
+@flash_attention_fwd.register_fake
+def _(q, k, v, seed, scale, causal, dropout_p, k_len=None, heads=1):
+    bh, sq, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((bh, sq, 1), dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, seed: Optional[torch.Tensor],
+                        scale: float, causal: bool,
+                        dropout_p: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 then K3 as an op: ``_bwd`` -> (dQ, dK, dV)."""
+    return _bwd(q, k, v, o, lse, do.to(q.dtype), 0 if seed is None else int(seed), scale,
+                causal, dropout_p)
+
+
+@flash_attention_bwd.register_fake
+def _(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, seed, scale, causal, dropout_p, k_len, _ = inputs
+    ctx.k_len = k_len is not None
+    ctx.save_for_backward(q, k, v, output[0], output[1], seed)
+    ctx.cfg = (scale, causal, dropout_p)
+
+
+def _fwd_backward(ctx, do, _dlse):
+    """The reference's ``_flash`` custom_vjp backward: K2 + K3 from the
+    saved (q, k, v, o, lse, seed); LSE's gradient is not taken."""
+    if ctx.k_len:
+        raise NotImplementedError("k_len is a forward-only form of the kernel")
+    q, k, v, o, lse, seed = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, seed, *ctx.cfg)
+    return dq, dk, dv, None, None, None, None, None, None
+
+
+flash_attention_fwd.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+def _seed_tensor(seed):
+    """The dropout seed as the op takes it: None for no seed, a tensor as
+    it is (a captured key word), an int as an int64 host scalar."""
+    if seed is None or isinstance(seed, torch.Tensor):
+        return seed
+    return torch.tensor(int(seed), dtype=torch.int64)
 
 
 def mha(q, k, v, *, scale=None, causal=False, dropout_p=0.0, seed=None,
@@ -384,14 +440,14 @@ def mha(q, k, v, *, scale=None, causal=False, dropout_p=0.0, seed=None,
     sk = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    seed = 0 if seed is None else int(seed)
-    args = (q.reshape(b * h, sq, d), k.reshape(b * h, sk, d), v.reshape(b * h, sk, d),
-            seed, float(scale), bool(causal), float(dropout_p))
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if k_len is not None:
-            raise NotImplementedError("k_len is a forward-only form of the kernel")
-        o = _FlashAttention.apply(*args)
-    else:
-        o, _ = _fwd(*args) if k_len is None else _fwd(*args, k_len=k_len, heads=h)
+    if k_len is not None:
+        if q.requires_grad or k.requires_grad or v.requires_grad:
+            if torch.is_grad_enabled():
+                raise NotImplementedError("k_len is a forward-only form of the kernel")
+        if not isinstance(k_len, torch.Tensor):
+            k_len = torch.as_tensor(k_len)
+    o, _ = flash_attention_fwd(q.reshape(b * h, sq, d), k.reshape(b * h, sk, d),
+                               v.reshape(b * h, sk, d), _seed_tensor(seed), float(scale),
+                               bool(causal), float(dropout_p), k_len, h if k_len is not None else 1)
     o = o.reshape(b, h, sq, d)
     return o[0] if squeeze else o

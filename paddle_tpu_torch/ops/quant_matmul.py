@@ -40,6 +40,7 @@ product the port's decoder maths goes through: a ``QuantWeight`` goes to
 first use (core/cuda_build.py), never at import.
 """
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -143,10 +144,28 @@ def _check(x, w, scale):
                          f"(bfloat16) == 0, got K {k}, N {n}")
 
 
+@torch.library.custom_op("paddle_tpu_torch::wq_matmul", mutates_args=())
+def _wq_matmul_op(x: torch.Tensor, w: torch.Tensor,
+                  scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """The kernel as a torch.library custom op (its fake below gives the
+    output's shape without launching), so a program captured by
+    torch.export (jit.save of a w8 model) calls it, launches and counts."""
+    return _wq_matmul(x, w, scale)
+
+
+@_wq_matmul_op.register_fake
+def _(x, w, scale):
+    return x.new_empty(tuple(x.shape[:-1]) + (w.shape[1],), dtype=torch.float32)
+
+
 def wq_matmul(x, w, scale=None):
     """x [..., K] float32 @ (w [K, N] -> float32, times ``scale [N]`` for
-    int8) -> [..., N] float32. CUDA tensors launch the kernel; CPU tensors
-    run ``wq_matmul_reference``."""
+    int8) -> [..., N] float32, through the custom op. CUDA tensors launch
+    the kernel; CPU tensors run ``wq_matmul_reference``."""
+    return _wq_matmul_op(x, w, scale)
+
+
+def _wq_matmul(x, w, scale):
     global launches
     if not x.is_cuda:
         return wq_matmul_reference(x, w, scale)

@@ -21,8 +21,7 @@ BatchNorm's); in eval mode it is frozen, and an uncalibrated (zero) scale
 falls back to the live abs-max. Weights take per-output-channel abs-max
 scales: axis 1 of a Linear's [in, out], axis 0 of a conv's OIHW.
 
-``save_quantized_model`` needs ``jit.save``, which is not ported yet: it
-raises NotImplementedError (ROADMAP Queue 1, item 3).
+``save_quantized_model`` writes the model with ``jit.save`` in eval mode.
 """
 import torch
 
@@ -155,5 +154,8 @@ class ImperativeQuantAware:
         return model
 
     def save_quantized_model(self, model, path, input_spec=None):
-        raise NotImplementedError("save_quantized_model needs jit.save, which is not ported "
-                                  "yet (ROADMAP Queue 1, item 3)")
+        """``jit.save`` the model in eval mode (reference: imperative.py:136)."""
+        from .. import jit
+
+        model.eval()
+        jit.save(model, path, input_spec=input_spec)

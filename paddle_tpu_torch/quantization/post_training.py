@@ -21,8 +21,8 @@ the weight lies, so a model on the card is quantized on the card.
 ``quantize_weights`` leaves the QAT wrappers of ``imperative.py`` alone
 (by class name, as the reference skips its ``_QuantedBase``) and refuses
 torch's own convolution modules, which are not the port's layers.
-``save_quantized_model`` needs ``jit.save`` and raises
-NotImplementedError.
+``save_quantized_model`` writes the quantized model with ``jit.save``
+(its recorded mode: w8, or w8a8 with activation scales).
 """
 import numpy as np
 import torch
@@ -248,5 +248,10 @@ class PostTrainingQuantization:
         return dict(getattr(self, "_weight_scales", {}))
 
     def save_quantized_model(self, path, input_spec=None):
-        raise NotImplementedError("save_quantized_model needs jit.save, which is not ported "
-                                  "yet (ROADMAP Queue 1, item 3)")
+        """Quantize (if not yet) and ``jit.save`` the model (reference:
+        post_training.py:218)."""
+        from .. import jit
+
+        model = getattr(self, "_quantized", None) or self.quantize()
+        model.eval()
+        jit.save(model, path, input_spec=input_spec)

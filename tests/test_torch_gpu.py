@@ -1237,3 +1237,72 @@ def test_int8_conv2d_runs_on_the_card(cuda):
             got, want = m(x.cuda()), cpu(x)
         assert got.is_cuda
         assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+_DEPLOY_CFG = dict(vocab_size=512, hidden_size=256, num_hidden_layers=2, num_attention_heads=4,
+                   intermediate_size=512)
+
+
+def test_a_save_made_on_the_cpu_runs_on_the_card(cuda, tmp_path):
+    """jit.save on the CPU, jit.load on the card (move_to_device_pass): the
+    loaded program launches K1 and agrees with the CPU run."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.static import InputSpec
+
+    cpu = BertModel(**_DEPLOY_CFG, device="cpu", generator=torch.Generator().manual_seed(2)).eval()
+    path = str(tmp_path / "cpu_save")
+    jit.save(cpu, path, input_spec=[InputSpec([None, 128], "int32")])
+    loaded = jit.load(path, device="cuda")
+    assert loaded.device.type == "cuda"
+    ids = np.random.RandomState(1).randint(0, 512, (3, 128)).astype(np.int32)
+    before = fa.launches
+    got = loaded(ids)
+    assert fa.launches == before + _DEPLOY_CFG["num_hidden_layers"]
+    with torch.no_grad():
+        want = cpu(torch.from_numpy(ids))
+    for g, w in zip(got, want):
+        assert g.is_cuda and (g.cpu() - w).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("slab", [2, 8])
+def test_coalesced_requests_are_bitwise_predictor_run_on_the_card(cuda, tmp_path, slab):
+    """The contract of inference/batching.py on the card: a 2-row and a
+    3-row request coalesced into one batch, and a solo 1-row request, are
+    bitwise Predictor.run of the same rows, the program run in slabs."""
+    import threading
+
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.inference.batching import BatchingEngine
+    from paddle_tpu_torch.static import InputSpec
+
+    model = BertModel(**_DEPLOY_CFG, device="cuda",
+                      generator=torch.Generator().manual_seed(3)).eval()
+    path = str(tmp_path / "bert")
+    jit.save(model, path, input_spec=[InputSpec([None, 128], "int32")])
+    cfg = inference.Config(path)
+    cfg.set_slab_rows(slab)
+    pred = inference.create_predictor(cfg)
+    eng = BatchingEngine.for_layer(jit.load(path, slab_rows=slab), max_batch_size=8,
+                                   max_wait_ms=50.0)
+    eng.warmup()
+    rng = np.random.RandomState(4)
+    reqs = [rng.randint(0, 512, (n, 128)).astype(np.int32) for n in (2, 3)]
+    got = [None, None]
+    gate = threading.Barrier(2)
+
+    def client(i):
+        gate.wait()
+        got[i] = eng.infer([reqs[i]], timeout=120)
+
+    try:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        solo = rng.randint(0, 512, (1, 128)).astype(np.int32)
+        for ids, outs in list(zip(reqs, got)) + [(solo, eng.infer([solo], timeout=120))]:
+            want = pred.run([ids])
+            assert all(np.array_equal(a, b) for a, b in zip(outs, want)), ids.shape
+    finally:
+        eng.close()

@@ -51,16 +51,52 @@ def test_no_jax_or_jax_package_import(path):
         assert root not in FORBIDDEN, f"{path.relative_to(REPO)} imports {name}"
 
 
-@pytest.mark.parametrize("sub", ["obs", "resilience", "quantization"])
+@pytest.mark.parametrize("sub", ["obs", "resilience", "quantization", "jit", "static",
+                                 "serialize", "inference", "framework"])
 def test_telemetry_and_chaos_subpackages_are_checked(sub):
     """The port keeps its own copies of the reference's stdlib-only obs
-    and chaos modules, and of its quantization modules: both tests above
-    and below cover them."""
+    and chaos modules, of its quantization modules, and of the deployment
+    path (jit, static, serialize, inference, framework's op_version): both
+    tests above and below cover them."""
     names = {p.name for p in _port_files() if p.parent == PKG / sub}
     want = {"obs": {"__init__.py", "metrics.py", "prometheus.py", "tracing.py", "httpd.py"},
             "resilience": {"__init__.py", "chaos.py"},
-            "quantization": {"__init__.py", "post_training.py", "serving.py"}}[sub]
+            "quantization": {"__init__.py", "post_training.py", "serving.py"},
+            "jit": {"__init__.py", "dy2static.py", "save_load.py", "static_function.py",
+                    "translator.py"},
+            "static": {"__init__.py", "input_spec.py"},
+            "serialize": {"__init__.py", "export.py"},
+            "inference": {"__init__.py", "batching.py", "config.py", "predictor.py",
+                          "server.py"},
+            "framework": {"__init__.py", "op_version.py"}}[sub]
     assert want <= names
+
+
+_LOAD = """
+import sys
+import numpy as np
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch import inference, jit
+from paddle_tpu_torch.static import InputSpec
+paddle.set_device("cpu")
+net = paddle.nn.Linear(4, 2)
+jit.save(net, sys.argv[1], input_spec=[InputSpec([None, 4], "float32")])
+cfg = inference.Config(sys.argv[1])
+cfg.disable_gpu()
+out = inference.create_predictor(cfg).run([np.ones((3, 4), np.float32)])[0]
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+assert out.shape == (3, 2) and not bad, bad
+print("ok")
+"""
+
+
+def test_loading_a_pdmodel_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """A save and its load through the Predictor, in a fresh interpreter:
+    neither jax nor paddle_tpu is imported."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _LOAD, str(tmp_path / "model")], cwd=str(REPO),
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
 
 
 def test_quant_kernel_module_is_checked_and_builds_nothing_at_import():
