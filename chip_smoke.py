@@ -382,7 +382,34 @@ Phases, each fatal on failure (exit code 1):
               resnet18's O0 step against dygraph with TF32 on globally
               (phase 16 (a)'s bounds), ResNet-50 O1 at phase 16 (b)'s batch
               (images/s beside phase 16's); the phase's seconds
- 19. summary  a {"kernels": [...]} line, then as the last line
+ 19. static   the static-graph facade, paddle.fluid and ONNX export: (a)
+              fluid's classic script (fluid.layers.fc on [None, 3], SGD
+              0.1, 25 exe.run on RandomState(0) data) on the card, the
+              CPU run's weights carried by static.save/static.load: the
+              losses within 1e-5 of the CPU's, falling 10x; (b) a BERT-base
+              classifier program (phase 5's O0 shape: batch 4 x 128, depth
+              2, float32, dropout 0, Linear(768, 2) on the pooled output,
+              AdamW with ClipGradByGlobalNorm), one Executor.run step on the
+              card and on the CPU from the same weights (copied by
+              position), held to phase 5's bounds, K1-K3 2 each; (c) the
+              same program at full depth at 64 x 128, 3 + 20 Executor.run
+              steps on one batch: the loss finite and falling, K1, K2 and K3
+              12 each a step, the median step, one step profiled (kernels
+              by group, idle share), peak memory, and the same model's
+              float32 build_train_step step, 5 each in alternating pairs;
+              (d) save_inference_model of (c)'s clone(for_test=True), then
+              create_predictor(Config(path)): Predictor.run within 1e-3 of
+              Executor.run of the clone, K1 12 a call, the save and load
+              seconds; (e) ResNet-50 as a static program (float32,
+              Momentum(0.1, 0.9, weight decay 1e-4) as bench.py's
+              run_resnet50), the first of bench.py's batches from 512 that
+              fits, 3 + 10 steps, the loss finite; images/s, peak memory;
+              (f) paddle.onnx.export on the card of BERT-base (eval, seed
+              0) at [2, 128] and ResNet-50 at batch 2: the bytes parsed and
+              run by onnx.run within 1e-3 of the live card forward's max for
+              every output, K1 12 in the BERT forward; the export seconds,
+              node count and file size; (g) the phase's seconds
+ 20. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -5987,6 +6014,377 @@ def phase_deploy(torch, fa, qmm, mods, card, dyg, vis):
                 launches=tuple(e - b for e, b in zip(end, start)))
 
 
+# ------------------------------------------------------------------ phase 19
+STATIC_WARMUP, STATIC_STEPS = 3, 20  # (c): Executor.run steps of BERT-base, 64 x 128
+STATIC_PAIRS = 5  # (c): build_train_step beside it, 5 steps each in alternating pairs
+STATIC_RESNET_WARMUP, STATIC_RESNET_STEPS = 3, 10  # (e)
+FLUID_STEPS = 25  # (a): the classic fluid script's exe.run calls
+# (a): the fc weight's start, the JAX package's seed-0 XavierNormal draw,
+# as its tests/test_fluid_compat.py script starts (tests/test_torch_fluid.py
+# holds these against paddle_tpu's own draw)
+FLUID_W0 = (-1.7270770072937012, -1.4394434690475464, 0.14534172415733337)
+TOL_FLUID = 1e-5  # (a): the card's losses against the CPU's
+TOL_ONNX = 1e-3  # (f): onnx.run of the file against the live card forward, of its max
+ONNX_BERT_SHAPE, ONNX_RESNET_BATCH = (2, 128), 2
+
+
+def fluid_classic(paddle, fluid, place):
+    """tests/test_torch_fluid.py's script: fc on [None, 3], SGD 0.1 ->
+    (program, startup, loss)."""
+    paddle.set_device(place)
+    paddle.enable_static()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [None, 3])
+        y = fluid.layers.data("y", [None, 1])
+        pred = fluid.layers.fc(x, 1)
+        loss = fluid.layers.reduce_mean(fluid.layers.square(pred - y))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    paddle.disable_static()
+    return main, startup, loss
+
+
+def static_bert(torch, paddle, BertModel, place, depth, batch):
+    """A static BERT-base classifier: ids [batch, TRAIN_SEQ], the pooled
+    output through Linear(768, 2), cross entropy, AdamW(LR, weight decay
+    0.01, ClipGradByGlobalNorm(1.0)); dropout 0; weights from seed 0 ->
+    (program, ids, logits, loss, the modules)."""
+    paddle.set_device(place)
+    paddle.seed(0)
+    paddle.enable_static()
+    main = paddle.static.Program()
+    with paddle.static.program_guard(main, paddle.static.Program()):
+        ids = paddle.static.data("ids", [batch, TRAIN_SEQ], "int64")
+        label = paddle.static.data("label", [batch], "int64")
+        bert = BertModel(num_hidden_layers=depth, hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0,
+                         generator=torch.Generator().manual_seed(0))
+        head = paddle.nn.Linear(bert.hidden_size, 2)
+        logits = head(bert(ids)[1])
+        loss = paddle.nn.functional.cross_entropy(logits, label)
+        paddle.optimizer.AdamW(LR, weight_decay=0.01,
+                               grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0)).minimize(loss)
+    paddle.disable_static()
+    return main, ids, logits, loss, (bert, head)
+
+
+def static_bert_feed(vocab, batch, seed=19):
+    rng = np.random.RandomState(seed)
+    return {"ids": rng.randint(0, vocab, (batch, TRAIN_SEQ)).astype(np.int64),
+            "label": rng.randint(0, 2, (batch,)).astype(np.int64)}
+
+
+def static_resnet(paddle, vision, batch):
+    """ResNet-50 (1000 classes) as a static program at ``batch`` x 224 x
+    224, float32, Momentum as bench.py's run_resnet50 sets it."""
+    paddle.seed(0)
+    paddle.enable_static()
+    main = paddle.static.Program()
+    try:
+        with paddle.static.program_guard(main, paddle.static.Program()):
+            image = paddle.static.data("image", [batch, 3, RESNET_HW, RESNET_HW])
+            label = paddle.static.data("label", [batch], "int64")
+            loss = paddle.nn.functional.cross_entropy(vision.models.resnet50()(image), label)
+            paddle.optimizer.Momentum(VIS_LR, momentum=VIS_MOMENTUM,
+                                      weight_decay=VIS_DECAY).minimize(loss)
+    finally:
+        paddle.disable_static()
+    return main, loss
+
+
+def onnx_check(torch, fa, onnx, InputSpec, model, feeds, label, card):
+    """Export ``model`` (eval) on the card, parse the bytes, run them with
+    the numpy runner and hold every output to the live card forward's
+    (within TOL_ONNX of its max) -> (errors, K1 launches of the forward,
+    export s, nodes, bytes)."""
+    t = time.perf_counter()
+    blob = onnx.export_bytes(model, [InputSpec(list(v.shape), str(v.dtype), k)
+                                     for k, v in feeds.items()])
+    export_s = time.perf_counter() - t
+    parsed = onnx.load(blob)
+    got = onnx.run(parsed, feeds)
+    before = fa.launches
+    with torch.no_grad():
+        out = model(*[torch.from_numpy(v).cuda() for v in feeds.values()])
+    k1 = fa.launches - before
+    outs = out if isinstance(out, (tuple, list)) else [out]
+    errs = [float(np.abs(g - w.cpu().numpy()).max() / np.abs(w.cpu().numpy()).max())
+            for g, w in zip(got, outs)]
+    nodes = len(parsed["graph"]["nodes"])
+    log(f"[static] (f) onnx.export of {label} on the card {export_s:.1f} s: {nodes} nodes, "
+        f"{len(blob)} bytes; onnx.run of the file vs the card forward, of its max: "
+        + ", ".join(f"{e:.3e}" for e in errs) + f" (tolerance {TOL_ONNX}); K1 in the forward "
+        f"{k1} | {card}")
+    return errs, k1, export_s, nodes, len(blob)
+
+
+def phase_static(torch, fa, mods, card, vis):
+    """Phase 19: the static-graph facade, paddle.fluid and ONNX export on
+    the card (see the module docstring)."""
+    paddle, BertModel, vision, inference, onnx, InputSpec, spmd, optimizer, nn = mods
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.core import place as pplace
+
+    t_phase = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    failures = []
+    start = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    tmp = tempfile.mkdtemp(prefix="paddle_tpu_torch_static_")
+    fluid = paddle.fluid
+    try:
+        # (a) fluid's classic script from the reference's seed-0 start, the
+        # CPU's weights carried by static.save/static.load (its two
+        # parameters have distinct names)
+        rng = np.random.RandomState(0)
+        xs = rng.rand(16, 3).astype(np.float32)
+        ys = xs @ rng.rand(3, 1).astype(np.float32)
+        hist = {}
+        for place in ("cpu", "gpu"):
+            paddle.seed(0)
+            main, startup, loss = fluid_classic(paddle, fluid, place)
+            if place == "cpu":
+                w, b = main.all_parameters()
+                w.set_value(np.asarray(FLUID_W0, np.float32).reshape(3, 1))
+                b.set_value(np.zeros(1, np.float32))
+                paddle.static.save(main, os.path.join(tmp, "fluid"))
+            else:
+                paddle.static.load(main, os.path.join(tmp, "fluid"))
+            exe = fluid.Executor(fluid.CUDAPlace(0) if place == "gpu" else fluid.CPUPlace())
+            exe.run(startup)
+            hist[place] = [float(np.asarray(exe.run(main, feed={"x": xs, "y": ys},
+                                                    fetch_list=[loss])[0]).mean())
+                           for _ in range(FLUID_STEPS)]
+        err = max(abs(a - b) for a, b in zip(hist["gpu"], hist["cpu"]))
+        log(f"[static] (a) fluid's classic script, {FLUID_STEPS} exe.run on the card: loss "
+            f"{hist['gpu'][0]:.6f} -> {hist['gpu'][-1]:.6f}; max |card - CPU| {err:.2e} "
+            f"(tolerance {TOL_FLUID})")
+        if not err <= TOL_FLUID:
+            failures.append(f"(a) fluid losses {err:.2e} from the CPU")
+        if not hist["gpu"][-1] < hist["gpu"][0] / 10:
+            failures.append(f"(a) fluid loss did not fall 10x: {hist['gpu']}")
+
+        # (b) BERT-base at depth 2, batch 4: one Executor.run step, card vs
+        # CPU. static.save keeps one array per name and the deep-copied
+        # encoder layers share their names, so the CPU program's weights
+        # cross by position (convert.set_by_position)
+        progs = {p: static_bert(torch, paddle, BertModel, p, DYG_DEPTH, 4)
+                 for p in ("cpu", "gpu")}
+        convert.set_by_position(progs["gpu"][0],
+                                [t.numpy() for t in progs["cpu"][0].all_parameters()])
+        feed = static_bert_feed(progs["gpu"][4][0].vocab_size, 4)
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        step_loss = {p: float(paddle.static.Executor().run(
+            progs[p][0], feed=feed, fetch_list=[progs[p][3]])[0]) for p in ("gpu", "cpu")}
+        b_counts = tuple(x - y for x, y in zip((fa.launches, fa.dq_launches, fa.dkv_launches),
+                                               before))
+        loss_err = abs(step_loss["gpu"] - step_loss["cpu"]) / abs(step_loss["cpu"])
+        param_err = max(float(np.abs(a.numpy() - b.numpy()).max()) for a, b in zip(
+            progs["gpu"][0].all_parameters(), progs["cpu"][0].all_parameters()))
+        log(f"[static] (b) BERT-base depth {DYG_DEPTH}, batch 4, one Executor.run step: loss "
+            f"card {step_loss['gpu']:.6f} CPU {step_loss['cpu']:.6f} (rel {loss_err:.2e}, "
+            f"tolerance {TOL_STEP_LOSS}); {len(progs['gpu'][0].all_parameters())} parameters, "
+            f"max abs err {param_err:.3e} (tolerance 2.5 lr = {2.5 * LR:.2e}); K1/K2/K3 "
+            f"{b_counts}")
+        if not (loss_err <= TOL_STEP_LOSS and param_err <= 2.5 * LR):
+            failures.append(f"(b) step: loss {loss_err:.2e}, parameters {param_err:.3e}")
+        if b_counts != (DYG_DEPTH,) * 3:
+            failures.append(f"(b) launches {b_counts}")
+        del progs
+        paddle.set_device("gpu")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) full BERT-base at 64 x 128: 3 + 20 Executor.run steps on one batch
+        t = time.perf_counter()
+        main, ids, logits, loss, (bert, head) = static_bert(torch, paddle, BertModel, "gpu",
+                                                            12, O1_BATCH)
+        build_s = time.perf_counter() - t
+        n_layers = len(bert.encoder.layers)
+        feed = static_bert_feed(bert.vocab_size, O1_BATCH)
+        exe = paddle.static.Executor(paddle.CUDAPlace(0))
+        torch.cuda.reset_peak_memory_stats()
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        losses, secs = [], []
+        for _ in range(STATIC_WARMUP + STATIC_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = exe.run(main, feed=feed, fetch_list=[loss])[0]
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            losses.append(float(out))
+        c_counts = tuple(x - y for x, y in zip((fa.launches, fa.dq_launches, fa.dkv_launches),
+                                               before))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_ms = _median(secs[STATIC_WARMUP:]) * 1e3
+        n_steps = STATIC_WARMUP + STATIC_STEPS
+        log(f"[static] (c) BERT-base program: {len(main.ops)} recorded calls, "
+            f"{len(main.all_parameters())} parameters, built in {build_s:.1f} s; f32, batch "
+            f"{O1_BATCH} x {TRAIN_SEQ}, loss " + " ".join(f"{v:.4f}" for v in losses))
+        log(f"[static] (c) Executor.run step (median of the {STATIC_STEPS} after "
+            f"{STATIC_WARMUP} warm-up, host clock to synchronize): {step_ms:.2f} ms, "
+            f"{O1_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} tokens/s; peak memory {peak:.2f} GiB; "
+            f"K1/K2/K3 {c_counts} over {n_steps} steps (expected {n_layers} a step) | {card}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            failures.append(f"(c) loss {losses}")
+        if c_counts != (n_layers * n_steps,) * 3:
+            failures.append(f"(c) launches {c_counts}")
+
+        def static_step():
+            exe.run(main, feed=feed, fetch_list=[loss])
+
+        ev_ms, busy_ms, _, _ = profile_device(torch, static_step,
+                                              f"Executor.run step, f32, {O1_BATCH} x {TRAIN_SEQ}",
+                                              top=12, groups=TRAIN_GROUPS)
+        idle = _fmt_pct(1 - busy_ms / ev_ms if busy_ms > 0 else None)
+        log(f"[profile] device idle {idle} of an Executor.run step")
+
+        # the same model's float32 build_train_step step, in alternating pairs
+        class Classifier(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.bert, self.head = bert, head
+
+            def forward(self, x):
+                return self.head(self.bert(x)[1])
+
+        wrapper = Classifier()
+        opt = optimizer.AdamW(LR, parameters=wrapper.parameters(), weight_decay=0.01,
+                              grad_clip=nn.ClipGradByGlobalNorm(1.0))
+        bstep, binit = spmd.build_train_step(
+            wrapper, lambda out, y: torch.nn.functional.cross_entropy(out, y.long()), opt,
+            amp_level="O0")
+        params, state = binit()
+        xb = torch.from_numpy(feed["ids"].astype(np.int32)).cuda()
+        yb = torch.from_numpy(feed["label"]).cuda()
+        for _ in range(2):
+            _, params, state = bstep(params, state, xb, yb)
+        times = {"static": [], "build_train_step": []}
+        runs = {"static": static_step,
+                "build_train_step": lambda: bstep(params, state, xb, yb)}
+        for i in range(2 * STATIC_PAIRS):
+            for name in (("static", "build_train_step") if i % 2 == 0
+                         else ("build_train_step", "static")):
+                if len(times[name]) == STATIC_PAIRS:
+                    continue
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                runs[name]()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) * 1e3)
+        s_ms, b_ms = _median(times["static"]), _median(times["build_train_step"])
+        log(f"[static] (c) in alternating pairs, {STATIC_PAIRS} each (ms): Executor.run "
+            + " ".join(f"{v:.2f}" for v in times["static"]) + "; build_train_step "
+            + " ".join(f"{v:.2f}" for v in times["build_train_step"])
+            + f"; medians {s_ms:.2f} / {b_ms:.2f} ({s_ms / b_ms:.2f}x) | {card}")
+        del params, state, bstep, wrapper, opt
+
+        # (d) the test clone saved by save_inference_model, served by a Predictor
+        test = main.clone(for_test=True)
+        want = exe.run(test, feed={"ids": feed["ids"]}, fetch_list=[logits])[0]
+        path = os.path.join(tmp, "bert_static")
+        t = time.perf_counter()
+        paddle.static.save_inference_model(path, [ids], [logits], exe, program=test)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(path))
+        load_s = time.perf_counter() - t
+        before = fa.launches
+        got = pred.run([feed["ids"].astype(np.int32)])[0]
+        d_k1 = fa.launches - before
+        d_err = float(np.abs(got - want).max())
+        log(f"[static] (d) save_inference_model of the test clone {save_s:.1f} s "
+            f"({os.path.getsize(path + '.pdmodel')} program bytes), create_predictor "
+            f"{load_s:.1f} s; Predictor.run of {O1_BATCH} rows vs Executor.run of the clone: "
+            f"max abs err {d_err:.3e} (tolerance {SEQ_OUT_TOL}); K1 {d_k1} (expected "
+            f"{n_layers})")
+        if not d_err <= SEQ_OUT_TOL:
+            failures.append(f"(d) Predictor.run {d_err:.3e} from Executor.run")
+        if d_k1 != n_layers:
+            failures.append(f"(d) K1 {d_k1} a Predictor.run")
+        del main, test, pred, bert, head, exe
+        gc.collect()
+        torch.cuda.empty_cache()
+        a_d_s = time.perf_counter() - t_phase
+
+        # (e) ResNet-50 as a static program, bench.py's batch candidates
+        t_e = time.perf_counter()
+        rn = None
+        for batch in BATCH_CANDIDATES:
+            main = rloss = None
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                main, rloss = static_resnet(paddle, vision, batch)
+                images, labels = vision_data(torch, batch, RESNET_HW, RESNET_CLASSES)
+                rfeed = {"image": images.numpy(), "label": labels.numpy().astype(np.int64)}
+                exe = paddle.static.Executor()
+                r_losses, r_ms = [], []
+                for _ in range(STATIC_RESNET_WARMUP + STATIC_RESNET_STEPS):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    r_losses.append(float(exe.run(main, feed=rfeed, fetch_list=[rloss])[0]))
+                    r_ms.append((time.perf_counter() - t) * 1e3)
+                rn = dict(batch=batch, losses=r_losses,
+                          step_ms=_median(r_ms[STATIC_RESNET_WARMUP:]),
+                          peak=torch.cuda.max_memory_allocated() / 2**30)
+                break
+            except Exception as e:  # noqa: BLE001 - an OOM moves down the candidates
+                if not _is_oom(torch, e) or batch == BATCH_CANDIDATES[-1]:
+                    raise
+                log(f"[static] (e) batch {batch}: out of memory "
+                    f"({str(e).splitlines()[0][:120]}); trying a smaller batch")
+            finally:
+                del main, rloss
+                gc.collect()
+                torch.cuda.empty_cache()
+        log(f"[static] (e) ResNet-50 static program, f32, batch {rn['batch']} (the first of "
+            f"{list(BATCH_CANDIDATES)} that fits; phase 16's O1 batch {vis['batch']}): "
+            f"{rn['step_ms']:.2f} ms a step (median of {STATIC_RESNET_STEPS} after "
+            f"{STATIC_RESNET_WARMUP}, host clock), {rn['batch'] / rn['step_ms'] * 1e3:.1f} "
+            f"images/s; peak memory {rn['peak']:.2f} GiB; loss "
+            + " ".join(f"{v:.4f}" for v in rn["losses"]) + f"; {time.perf_counter() - t_e:.1f} "
+            f"s | {card}")
+        if not all(np.isfinite(rn["losses"])):
+            failures.append(f"(e) ResNet-50 loss {rn['losses']}")
+
+        # (f) ONNX export on the card: BERT-base at [2, 128], ResNet-50 at batch 2
+        paddle.set_device("gpu")
+        rng = np.random.RandomState(20)
+        bert = BertModel(device="cuda", generator=torch.Generator().manual_seed(0)).eval()
+        f_bert = onnx_check(torch, fa, onnx, InputSpec, bert,
+                            {"ids": rng.randint(0, bert.vocab_size, ONNX_BERT_SHAPE)
+                             .astype(np.int32)}, f"BERT-base {list(ONNX_BERT_SHAPE)}", card)
+        del bert
+        paddle.seed(0)
+        resnet = vision.models.resnet50().eval()
+        f_resnet = onnx_check(torch, fa, onnx, InputSpec, resnet,
+                              {"image": rng.rand(ONNX_RESNET_BATCH, 3, RESNET_HW, RESNET_HW)
+                               .astype(np.float32)}, f"ResNet-50 batch {ONNX_RESNET_BATCH}",
+                              card)
+        del resnet
+        for name, (errs, k1, *_), want_k1 in (("BERT-base", f_bert, 12),
+                                              ("ResNet-50", f_resnet, 0)):
+            if not errs or max(errs) > TOL_ONNX:
+                failures.append(f"(f) {name} onnx.run errors {errs}")
+            if k1 != want_k1:
+                failures.append(f"(f) {name} forward K1 {k1} != {want_k1}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        paddle.disable_static()
+        pplace._CURRENT = pplace.CUDAPlace(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[static] (g) the phase took {time.perf_counter() - t_phase:.1f} s ((a)-(d) "
+        f"{a_d_s:.1f} s)")
+    if failures:
+        fail("static: " + "; ".join(failures))
+    end = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    return dict(step_ms=step_ms, bts_ms=b_ms, counts=c_counts, d_k1=d_k1, resnet=rn,
+                onnx=(f_bert, f_resnet), launches=tuple(e - b for e, b in zip(end, start)))
+
+
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
     the 7B engine. Llama-2-7B bf16 (phase 7's weights, 16 slots x 256,
@@ -6104,6 +6502,7 @@ def main():
         from paddle_tpu_torch.inference.server import serve_model
         from paddle_tpu_torch.quantization.serving import ACCURACY_BOUNDS
         from paddle_tpu_torch.static import InputSpec
+        from paddle_tpu_torch import onnx as ponnx
     except ImportError as e:
         fail(f"the port is not importable from this directory: {e}")
 
@@ -6198,6 +6597,9 @@ def main():
                                            wire_spec, ACCURACY_BOUNDS),
                           card, dyg, vis)
     took("deploy")
+    static = phase_static(torch, fa, (paddle, BertModel, vision, inference, ponnx, InputSpec,
+                                      spmd, optimizer, nn), card, vis)
+    took("static")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -6292,7 +6694,11 @@ def main():
                        + robust["launches"] + quant["launches"] + mt["launches"]
                        + lm_launch["fwd"] + lm["parity_counts"][0] + mtt["counts"]["fwd"]
                        + mtt["parity_counts"][0] + dyg["counts"]["fwd"] + dyg["extra"][0]
-                       + deploy["launches"][0]),
+                       + deploy["launches"][0] + static["launches"][0]),
+             # phase 19's: the static programs' builds and Executor.run
+             # steps, the saved program's Predictor.run, the ONNX check's
+             # live forward
+             static_launches=static["launches"][0],
              # phase 18's: through the loaded programs (Predictor.run, the
              # servers, the w8 save) and the to_static steps' captured ones
              deploy_launches=deploy["launches"][0],
@@ -6338,7 +6744,9 @@ def main():
                replaces=kernels[i]["replaces"],
                launches=(train["counts"][key] + lm_launch[key] + lm["parity_counts"][i]
                          + mtt["counts"][key] + mtt["parity_counts"][i] + dyg["counts"][key]
-                         + dyg["extra"][i] + deploy["launches"][i]),
+                         + dyg["extra"][i] + deploy["launches"][i] + static["launches"][i]),
+               # phase 19's: the static programs' Executor.run steps
+               static_launches=static["launches"][i],
                # phase 18's: the to_static steps, through K1's registered autograd
                deploy_launches=deploy["launches"][i],
                bert_launches=train["counts"][key], dygraph_launches=dyg["counts"][key],

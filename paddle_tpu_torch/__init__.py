@@ -60,6 +60,8 @@ from . import inference  # noqa: F401,E402
 from . import jit  # noqa: F401,E402
 from . import serialize  # noqa: F401,E402
 from . import static  # noqa: F401,E402
+from . import fluid  # noqa: F401,E402
+from . import onnx  # noqa: F401,E402
 from . import quantization  # noqa: F401,E402
 from . import regularizer  # noqa: F401,E402
 from . import obs  # noqa: F401,E402
@@ -109,9 +111,16 @@ import torch as _torch  # noqa: E402
 dtype = _torch.dtype  # paddle.dtype: the type of Tensor.dtype values
 
 
-def in_dynamic_mode():
-    """The port has no static mode: always True."""
-    return True
+from .jit import disable_static, enable_static, in_dynamic_mode  # noqa: F401,E402
+
+
+def enable_dygraph(place=None):
+    """Legacy alias (reference: fluid/dygraph/base.py enable_dygraph)."""
+    disable_static()
+
+
+def disable_dygraph():
+    enable_static()
 
 
 def get_cudnn_version():

@@ -35,6 +35,11 @@ AMP_BLACK_LIST = {
 
 _AMP_STATE = contextvars.ContextVar("amp_state", default=None)
 
+#: above 0 while ``cast_inputs`` casts: a Program being recorded takes
+#: these casts as aliases (static/program.py), as the reference records an
+#: op's inputs before its auto_cast hook casts them
+_CASTING = [0]
+
 
 class _AmpState:
     def __init__(self, enable, dtype, level, custom_white, custom_black):
@@ -67,8 +72,12 @@ def cast_inputs(name, *tensors):
     tgt = target_dtype(name)
     if tgt is None:
         return tensors
-    return tuple(t.to(tgt) if isinstance(t, torch.Tensor) and t.is_floating_point()
-                 and t.dtype != tgt else t for t in tensors)
+    _CASTING[0] += 1
+    try:
+        return tuple(t.to(tgt) if isinstance(t, torch.Tensor) and t.is_floating_point()
+                     and t.dtype != tgt else t for t in tensors)
+    finally:
+        _CASTING[0] -= 1
 
 
 @contextlib.contextmanager

@@ -107,3 +107,33 @@ def load_state_dict(layer, state):
         _check(name, state[name], t)
     layer.set_state_dict(state)
     return layer
+
+
+def program_state_by_position(program, state):
+    """Weights for ``program`` by position, checked: ``state`` is a
+    sequence of arrays in another program's ``all_parameters()`` order
+    (recording order, the same in both packages for one model), or a
+    ``{name: ndarray}`` of a ``static.save`` in that order. Returns
+    ``[(parameter, array)]``; ``set_by_position`` writes them. The counts
+    and every shape must agree. A name-keyed state is not enough for a
+    model whose layers are deep copies (``TransformerEncoder``'s): the
+    copies share their parameters' names, so ``static.save`` (the
+    reference's format) keeps one array per name."""
+    arrays = list(state.values()) if isinstance(state, dict) else list(state)
+    mine = program.all_parameters()
+    if len(mine) != len(arrays):
+        raise ValueError(f"program has {len(mine)} parameters, the state {len(arrays)}")
+    out = []
+    for i, (p, arr) in enumerate(zip(mine, arrays)):
+        arr = np.asarray(arr)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"parameter {i}: {arr.shape} does not fit {tuple(p.shape)}")
+        out.append((p, arr))
+    return out
+
+
+def set_by_position(program, state):
+    """Copy ``program_state_by_position(program, state)`` into the
+    program's parameters."""
+    for p, arr in program_state_by_position(program, state):
+        p.set_value(arr)

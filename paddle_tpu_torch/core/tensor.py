@@ -65,13 +65,22 @@ def _np_to_torch(arr, dtype):
     return t.to(dtype)
 
 
+#: called as ``hook(x, alias)`` after each ``as_subclass`` of ``plain`` and
+#: ``wrap`` while a static Program records (``as_subclass`` does not reach
+#: a TorchFunctionMode; static/program.py)
+ALIAS_HOOK = [None]
+
+
 def plain(x):
     """The plain torch tensor of a Tensor (detached where it is marked
     ``stop_gradient``); anything else unchanged."""
     if type(x) is Tensor:
         if x.__dict__.get("_stop"):
             return _base.detach(x)
-        return x.as_subclass(_base)
+        out = x.as_subclass(_base)
+        if ALIAS_HOOK[0] is not None:
+            ALIAS_HOOK[0](x, out)
+        return out
     return x
 
 
@@ -97,7 +106,10 @@ def wrap(x):
     """A torch tensor as a Tensor (itself when it is one; a tensor being
     traced stays plain)."""
     if isinstance(x, _base) and type(x) is not Tensor and not _CAPTURING.get():
-        return x.as_subclass(Tensor)
+        out = x.as_subclass(Tensor)
+        if ALIAS_HOOK[0] is not None:
+            ALIAS_HOOK[0](x, out)
+        return out
     return x
 
 

@@ -134,5 +134,8 @@ CUDAPlace = place_mod.CUDAPlace
 
 
 def in_dygraph_mode():
-    """The port has no static mode: always True."""
-    return True
+    """False after ``paddle.enable_static()``: the one flag that
+    ``paddle.in_dynamic_mode`` reads (jit/__init__.py)."""
+    from ..jit import in_dynamic_mode
+
+    return in_dynamic_mode()

@@ -164,8 +164,17 @@ class Optimizer:
     clear_gradients = clear_grad
 
     def minimize(self, loss, startup_program=None, parameters=None, no_grad_set=None):
-        """Eager: ``loss.backward()`` then ``step()``. The static-graph
-        program of the reference is not ported."""
+        """Eager: ``loss.backward()`` then ``step()``. Under static mode it
+        attaches ``(self, loss)`` to the recording program, whose
+        ``Executor.run`` is then one training step (static/program.py)."""
+        from ..jit import in_dynamic_mode
+
+        if not in_dynamic_mode():
+            from ..static import program as prog_mod
+
+            prog = prog_mod.recording_program() or prog_mod.default_main_program()
+            prog.train_attach = (self, loss)
+            return [], []
         loss.backward()
         self.step()
         return [], []

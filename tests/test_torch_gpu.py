@@ -1306,3 +1306,46 @@ def test_coalesced_requests_are_bitwise_predictor_run_on_the_card(cuda, tmp_path
             assert all(np.array_equal(a, b) for a, b in zip(outs, want)), ids.shape
     finally:
         eng.close()
+
+
+def test_static_bert_program_on_the_card_matches_the_cpu(cuda):
+    """A static BERT program (Program, Executor, the static AdamW step)
+    built on the card and on the CPU from the same weights: one
+    Executor.run each, the losses within 1e-4 and the updated parameters
+    within 2.5 x lr; on the card the step launches K1, K2 and K3 once per
+    layer, through the recorded custom op."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.core import place
+
+    cfg = dict(_DEPLOY_CFG, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    rng = np.random.RandomState(5)
+    feed = {"ids": rng.randint(0, 512, (4, 128)).astype(np.int64),
+            "label": rng.randint(0, 2, (4,)).astype(np.int64)}
+    prev = place._CURRENT
+    progs = []
+    try:
+        for dev in ("cpu", "cuda"):
+            paddle.set_device(dev)
+            paddle.enable_static()
+            main = paddle.static.Program()
+            with paddle.static.program_guard(main, paddle.static.Program()):
+                ids = paddle.static.data("ids", [4, 128], "int64")
+                lab = paddle.static.data("label", [4], "int64")
+                _, pooled = BertModel(**cfg, generator=torch.Generator().manual_seed(6))(ids)
+                loss = paddle.nn.functional.cross_entropy(paddle.nn.Linear(256, 2)(pooled), lab)
+                paddle.optimizer.AdamW(1e-3, grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0)
+                                       ).minimize(loss)
+            paddle.disable_static()
+            progs.append((main, loss))
+        convert.set_by_position(progs[1][0], [p.numpy() for p in progs[0][0].all_parameters()])
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        out = [paddle.static.Executor().run(m, feed=feed, fetch_list=[lo])[0] for m, lo in progs]
+        after = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    finally:
+        paddle.disable_static()
+        place._CURRENT = prev
+    assert [a - b for a, b in zip(after, before)] == [cfg["num_hidden_layers"]] * 3
+    assert abs(float(out[0]) - float(out[1])) <= 1e-4
+    for a, b in zip(progs[0][0].all_parameters(), progs[1][0].all_parameters()):
+        assert np.abs(a.numpy() - b.numpy()).max() <= 2.5e-3

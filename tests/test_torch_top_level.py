@@ -6,9 +6,7 @@ import paddle_tpu_torch as tp
 
 # names later slices bring (ROADMAP Queue 1)
 LATER = {
-    "enable_static", "disable_static", "enable_dygraph", "disable_dygraph",
-    "onnx", "fluid", "incubate", "utils", "distribution", "hub", "analysis",
-    "DataParallel",
+    "incubate", "utils", "distribution", "hub", "analysis", "DataParallel",
 }
 # the reference's JAX internals and its places for other devices
 NEVER = {"jax", "jnp", "native", "apply_op", "dispatch", "in_trace", "TPUPlace", "XPUPlace",
@@ -29,7 +27,32 @@ def test_the_new_names_are_the_ports_own():
     assert tp.save is tp.framework.save and tp.load is tp.framework.load
     assert tp.callbacks is tp.hapi.callbacks and tp.flops is tp.hapi.flops
     for name in ("io", "metric", "hapi", "dataset", "quantization", "text", "regularizer",
-                 "inference", "obs", "resilience", "distributed", "jit", "static", "serialize"):
+                 "inference", "obs", "resilience", "distributed", "jit", "static", "serialize",
+                 "fluid", "onnx"):
         assert getattr(tp, name).__name__ == f"paddle_tpu_torch.{name}"
     assert tp.in_dygraph_mode() and tp.in_dynamic_mode()
     assert tp.VarBase is tp.Tensor and tp.is_compiled_with_npu() is False
+
+
+def test_static_mode_is_one_flag_as_in_the_reference():
+    """paddle.in_dynamic_mode, paddle.jit.in_dynamic_mode and
+    framework.in_dygraph_mode read one flag, which enable_static,
+    disable_static, enable_dygraph and disable_dygraph set, in both
+    packages alike at every point of the sequence."""
+
+    def state(p):
+        return (p.in_dynamic_mode(), p.jit.in_dynamic_mode(), p.framework.in_dygraph_mode(),
+                p.in_dygraph_mode())
+
+    try:
+        for step in ("enable_static", "disable_static", "disable_dygraph", "enable_dygraph",
+                     "enable_static", "enable_static", "enable_dygraph", "disable_static"):
+            getattr(jp, step)()
+            getattr(tp, step)()
+            want = state(jp)
+            assert state(tp) == want, step
+            assert len(set(want)) == 1
+            assert want[0] == (step in ("disable_static", "enable_dygraph"))
+    finally:
+        jp.disable_static()
+        tp.disable_static()
