@@ -409,7 +409,50 @@ Phases, each fatal on failure (exit code 1):
               run by onnx.run within 1e-3 of the live card forward's max for
               every output, K1 12 in the BERT forward; the export seconds,
               node count and file size; (g) the phase's seconds
- 20. summary  a {"kernels": [...]} line, then as the last line
+ 20. fleet    the fleet tier, after the parent released its earlier models
+              (gc, empty_cache, mem_get_info printed); (b)'s replica
+              processes start first, beside (a): (a) three serve_model
+              replicas of phase 18's seed-0 BERT-base save (float32, [None,
+              512], max_batch_size 8, slab 8), processes started together
+              by subprocess_spawner, behind Fleet (Autoscaler 3..3, supervisor
+              tick 0.2 s; router max_inflight 8, 4 tries, backoff 0.01-0.2
+              s: bench.py run_fleet's layout) under run_fleet's two tenants
+              (noisy: weight 1, queue 8, 16 connections; polite: weight 4,
+              queue 64, 4 connections, a 1500 ms wire deadline), client
+              threads in closed loop on 1-row seq-512 requests: a healthy
+              round of 4 s, then a chaos round of 8 s in which one replica
+              is SIGKILLed mid-storm; every reply status 0 and bitwise the
+              parent's Predictor.run of its rows at slab 8, or status 2;
+              the polite p99 inside its deadline in both rounds; the killed
+              replica respawned and routable again (its seconds printed);
+              the serving-goodput ratio chaos / healthy; K1 12 a program
+              call in every replica (their cmd-5 stats); then
+              rolling_reload to the seed-1 save under 8 clients, every
+              reply bitwise the seed-0 or the seed-1 Predictor.run, none
+              failed; (b) Llama-2-7B bf16 (seed 0, phase 7's engine: 16
+              slots x 256, chunk 128) in three `--decode-replica`
+              processes started together under Fleet(pools: prefill 1,
+              decode 2) with a shared persistent prefix tier, free memory
+              printed before and after: 6 streams (16-128-token prompts, 48
+              new tokens) each bitwise the same prompt sent plainly to one
+              decode replica, taken before any chaos (and one prompt alone
+              on each replica, bitwise), handed off (handoffs ok, none
+              failed, no snapshot frame leaked); 4 streams of 96 tokens with
+              the decode replica whose engine holds most of them (cmd-3
+              health) SIGKILLed once every stream holds 12 tokens (each
+              then past its handoff), each one unbroken status-0 stream
+              bitwise the unbroken one through kv_resume
+              (paddle_decode_resumes_total counted); the supervisor's
+              respawn, whose first request, the 128-token prompt seen
+              before, hits the persistent tier and is bitwise the cold
+              stream; K1 32 a fill and a step in every live replica; the
+              prefill replica SIGKILLed and 3 new streams degraded to
+              colocated serving (counted), bitwise; the router's live
+              snapshot count 0 after each round. Printed beside the card:
+              time to first token and inter-token p50/p99, the handoff's
+              and the resume's ms, respawn to routable, the goodput ratio,
+              the phase's seconds
+ 21. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -419,6 +462,11 @@ Each phase's seconds are printed as "[time]" lines.
 instead builds the kernels and measures the 7B engine at each fill chunk
 (fill_chunk_sweep): the numbers the chunks above were chosen by.
 
+    python3 chip_smoke.py --decode-replica PORTFILE PHASE PREFIX_DIR
+
+is one of phase 20 (b)'s replica processes (decode_replica), which the
+phase starts itself.
+
 It imports nothing of JAX or the JAX package. Run from a directory that
 holds only this file it fails at the import of paddle_tpu_torch.
 """
@@ -426,6 +474,7 @@ import copy
 import gc
 import json
 import os
+import signal
 import socket
 import struct
 import subprocess
@@ -461,7 +510,9 @@ def log(msg=""):
 
 
 def fail(msg):
+    # on both streams: a caller that keeps only the end of one still reads why
     print(f"CHIP_SMOKE FAILED: {msg}", flush=True)
+    print(f"CHIP_SMOKE FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -5647,14 +5698,12 @@ def deploy_traffic(fa, srv, wire_spec, rng, vocab):
     return sent, window, fa.launches - k1_before, calls
 
 
-def phase_deploy(torch, fa, qmm, mods, card, dyg, vis):
+def phase_deploy(torch, fa, qmm, mods, card, dyg, vis, tmp):
     """Phase 18: to_static, jit.save/load, the Predictor and serve_model on
-    the card (see the module docstring)."""
+    the card (see the module docstring). Its seed-0 and seed-1 saves stay in
+    ``tmp`` for phase 20 (``saves`` of the result); the caller removes it."""
     (paddle, jit, inference, serve_model, InputSpec, BertForPretraining, BertModel, nn,
      optimizer, vision, wire_spec, accuracy_bounds) = mods
-    import shutil
-    import tempfile
-
     from paddle_tpu_torch.core import place as pplace
 
     t_phase = time.perf_counter()
@@ -5662,7 +5711,6 @@ def phase_deploy(torch, fa, qmm, mods, card, dyg, vis):
     torch.set_num_threads(os.cpu_count() or 1)
     failures = []
     start = (fa.launches, fa.dq_launches, fa.dkv_launches, qmm.launches)
-    tmp = tempfile.mkdtemp(prefix="paddle_tpu_torch_deploy_")
     p1, p2, p_cpu, p_w8 = (os.path.join(tmp, n) for n in ("p1", "p2", "cpu", "w8"))
     spec = [InputSpec([None, DEPLOY_SEQ], "int32")]
     # phase 4's BERT-base from its seed, float32 (phase 11 (c) quantized
@@ -5894,7 +5942,10 @@ def phase_deploy(torch, fa, qmm, mods, card, dyg, vis):
         d_wq = wq
         del pred
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for p in (p_cpu, p_w8):
+            for ext in (".pdmodel", ".pdiparams", ".pdmeta.json"):
+                if os.path.exists(p + ext):
+                    os.remove(p + ext)
     a_b_s = time.perf_counter() - t_phase
     gc.collect()
     torch.cuda.empty_cache()
@@ -6011,7 +6062,8 @@ def phase_deploy(torch, fa, qmm, mods, card, dyg, vis):
         fail("deploy: " + "; ".join(failures))
     end = (fa.launches, fa.dq_launches, fa.dkv_launches, qmm.launches)
     return dict(k1=a_rows, a_ms=a_ms, b=b_runs, ts_counts=ts_counts, ts_ms=ts_ms, d_wq=d_wq,
-                launches=tuple(e - b for e, b in zip(end, start)))
+                launches=tuple(e - b for e, b in zip(end, start)), saves=(p1, p2),
+                vocab=vocab)
 
 
 # ------------------------------------------------------------------ phase 19
@@ -6385,6 +6437,682 @@ def phase_static(torch, fa, mods, card, vis):
                 onnx=(f_bert, f_resnet), launches=tuple(e - b for e, b in zip(end, start)))
 
 
+# ------------------------------------------------------------------ phase 20
+# (a): bench.py run_fleet's layout (:1641-1676): three replicas, a
+# supervisor tick of 0.2 s, a gate of 8, 4 tries a request; two tenants
+FLEET_REPLICAS = 3
+FLEET_HEALTHY_S, FLEET_CHAOS_S = 4.0, 8.0  # the rounds' seconds
+FLEET_NOISY, FLEET_POLITE = 16, 4  # closed-loop connections per tenant
+FLEET_DEADLINE_MS = 1500.0  # the polite tenant's wire deadline
+FLEET_KILL_AFTER = 50  # chaos round: grants before the SIGKILL (then 0.5 s more)
+FLEET_RELOAD_CLIENTS = 8  # the rolling reload's clients
+# (b): phase 7's engine (16 slots x 256, one fill chunk of 128) in three
+# replica processes, one prefill and two decode
+DISAGG_STREAMS, DISAGG_NEW = 6, 48  # the handed-off streams (one prompt of 128 tokens)
+# the kill round: new tokens; the kill once every stream holds this many
+# (each then relays from a decode replica: none is still in its handoff)
+DISAGG_KILL_NEW, DISAGG_KILL_AT = 96, 12
+DISAGG_DEGRADED = 3  # streams sent once the prefill pool is gone
+DISAGG_CADENCE = 16  # the router's snapshot cadence: a 7B block is ~134-190 MB
+DISAGG_MAX_BODY = 1 << 30  # the replicas' frame cap, phase 8's (a snapshot is one frame)
+DISAGG_PREFIX_BYTES = 1 << 30  # prefix_max_bytes: the persistent tier keeps 128-row blocks
+
+
+def llama_7b_bf16(torch, models, seed=0):
+    """Llama-2-7B at full width and depth in bfloat16, weights drawn on the
+    card from ``seed``: the embedding, norm and head first, then each decoder
+    layer converted as it is drawn, so a process never holds the float32
+    model (three replicas build at once in 80 GB). The same seed gives the
+    same weights in every process."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    model = models.LlamaModel(num_layers=0, device="cuda", generator=g).to(torch.bfloat16)
+    for _ in range(32):
+        model.layers.append(models.LlamaDecoderLayer(4096, 32, 11008, device="cuda",
+                                                     generator=g).to(torch.bfloat16))
+    return model.eval()
+
+
+def decode_replica(argv):
+    """``chip_smoke.py --decode-replica PORTFILE PHASE PREFIX_DIR``: one
+    Llama-2-7B decode replica of phase 20 (b): phase 7's engine (16 slots x
+    256, chunk 128) with ``phase`` and the persistent prefix tier at
+    ``prefix_dir``, seed-0 weights (llama_7b_bf16), warmed up, served by
+    PredictorServer; the port is written to PORTFILE atomically once it
+    serves, and it serves until cmd 7. It needs the card and the kernels
+    the parent built (a missing one is built under cuda_build's file lock,
+    never raced)."""
+    if len(argv) != 3:
+        fail("usage: chip_smoke.py --decode-replica PORTFILE PHASE PREFIX_DIR")
+    portfile, phase, prefix_dir = argv
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("a decode replica needs a CUDA card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch.inference.decode import DecodeEngine
+    from paddle_tpu_torch.inference.server import PredictorServer
+    from paddle_tpu_torch.text import generation, models
+
+    t0 = time.perf_counter()
+    model = llama_7b_bf16(torch, models)
+    dm = generation.llama_decode_model(model, ENGINE_SLOTS, ENGINE_SEQ)
+    engine = DecodeEngine(dm, max_prompt_len=ENGINE_PROMPT, min_seq_bucket=ENGINE_CHUNK,
+                          max_queue=64, name=f"llama-7b-{phase}", phase=phase,
+                          prefix_dir=prefix_dir, prefix_max_bytes=DISAGG_PREFIX_BYTES)
+    engine.warmup()
+    srv = PredictorServer(None, decode_engine=engine, own_decode_engine=True,
+                          max_body=DISAGG_MAX_BODY)
+    with open(portfile + ".tmp", "w") as f:
+        f.write(str(srv.port))
+    os.replace(portfile + ".tmp", portfile)
+    log(f"[replica] {phase} on port {srv.port}, up in {time.perf_counter() - t0:.1f} s")
+    srv._thread.join()  # serve until the stop command (cmd 7)
+
+
+def _stats(wire_spec, port):
+    status, body = _call(port, wire_spec.build_request(wire_spec.CMD_STATS))
+    if status != 0:
+        raise RuntimeError(f"cmd 5 answered status {status}")
+    return json.loads(body)
+
+
+def _pct(v, q):
+    return float(np.percentile(np.asarray(v), q)) if v else float("nan")
+
+
+def fleet_storm(fl, plan, seconds, during=None):
+    """(a)'s round: one closed-loop client thread per (tenant, frame,
+    expected reply payload) in ``plan`` against the router for ``seconds``.
+    -> {tenant: {"lat": [s of each status-0 reply], "shed": n, "bad": [...]}};
+    a reply that is not status 0 with the expected bytes or status 2 is bad,
+    and so is a dropped connection (the router never drops a client)."""
+    stop_at = time.monotonic() + seconds
+    out, lock = {}, threading.Lock()
+
+    def client(tenant, frame, want):
+        lat, shed, bad = [], 0, []
+        try:
+            with socket.create_connection(("127.0.0.1", fl.port), timeout=120) as s:
+                while time.monotonic() < stop_at:
+                    t = time.perf_counter()
+                    s.sendall(frame)
+                    (blen,) = struct.unpack("<I", _recv(s, 4))
+                    body = _recv(s, blen)
+                    if body[0] == 0 and body[1:] == want:
+                        lat.append(time.perf_counter() - t)
+                    elif body[0] == 2:
+                        shed += 1
+                    else:
+                        bad.append(f"status {body[0]}" if body[0] else "wrong bytes")
+        except OSError as e:
+            bad.append(f"connection: {e!r}")
+        with lock:
+            d = out.setdefault(tenant, {"lat": [], "shed": 0, "bad": []})
+            d["lat"] += lat
+            d["shed"] += shed
+            d["bad"] += bad
+
+    threads = [threading.Thread(target=client, args=p) for p in plan]
+    for t in threads:
+        t.start()
+    if during is not None:
+        during()
+    for t in threads:
+        t.join(seconds + 300)
+    return out
+
+
+def spawned_at_once(spawn, rids):
+    """A spawn_fn over ``spawn`` whose first replicas, ``rids``, are spawned
+    at once (a thread each) and handed out as the Fleet asks for them; any
+    other rid is spawned when asked. ``leftovers()`` stops what no Fleet
+    took (a Fleet that failed to start)."""
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(len(rids))
+    futs = {rid: pool.submit(spawn, rid) for rid in rids}
+    pool.shutdown(wait=False)
+
+    def fn(rid, *phase):
+        fut = futs.pop(rid, None)
+        return fut.result() if fut is not None else spawn(rid, *phase)
+
+    def leftovers():
+        for fut in futs.values():
+            try:
+                fut.result().stop(timeout=10.0)
+            except Exception:  # noqa: BLE001 - a spawn that failed left nothing
+                pass
+        futs.clear()
+
+    fn.leftovers = leftovers
+    return fn
+
+
+def fleet_bert(torch, mods, card, deploy):
+    """Phase 20 (a): the one-shot fleet over phase 18's BERT-base saves."""
+    inference, fleet_mod, router_mod, wire_spec, goodput = mods
+    p1, p2 = deploy["saves"]
+    preds = []
+    for p in (p1, p2):
+        cfg = inference.Config(p)
+        cfg.set_slab_rows(DEPLOY_BATCH)
+        preds.append(inference.create_predictor(cfg))
+    rng = np.random.RandomState(20)
+    inputs = [rng.randint(0, deploy["vocab"], (1, DEPLOY_SEQ)).astype(np.int32)
+              for _ in range(FLEET_NOISY + FLEET_POLITE)]
+    # the replies each replica owes, as bytes: Predictor.run of the rows on
+    # the same slab, in this process, for each save
+    want = [[wire_spec.encode_arrays(pr.run([ids])) for ids in inputs] for pr in preds]
+    tenants = [router_mod.TenantPolicy("noisy", weight=1.0, max_queue=8),
+               router_mod.TenantPolicy("polite", weight=4.0, max_queue=64,
+                                       slo_ms=FLEET_DEADLINE_MS)]
+    spawn = fleet_mod.subprocess_spawner(p1, max_batch_size=DEPLOY_BATCH, max_wait_ms=2.0,
+                                         slab_rows=DEPLOY_BATCH, spawn_timeout=300)
+    t = time.perf_counter()
+    # the Fleet takes its replicas one after another; their processes are
+    # started together (subprocess_spawner's spawn, a thread each), and a
+    # respawn calls the spawner itself
+    at_once = spawned_at_once(spawn, [f"replica-{i}" for i in range(FLEET_REPLICAS)])
+    try:
+        fl = fleet_mod.Fleet(at_once, replicas=FLEET_REPLICAS, tenants=tenants,
+                             autoscaler=fleet_mod.Autoscaler(min_replicas=FLEET_REPLICAS,
+                                                             max_replicas=FLEET_REPLICAS),
+                             supervise_interval=0.2,
+                             router_kwargs={"max_inflight": 8, "retry_attempts": 4,
+                                            "retry_base": 0.01, "retry_max": 0.2})
+    finally:
+        at_once.leftovers()
+    spawn_s = time.perf_counter() - t
+    failures, res = [], {}
+    try:
+        free, _ = torch.cuda.mem_get_info()
+        log(f"[fleet] (a) {FLEET_REPLICAS} serve_model replicas of phase 18's BERT-base save "
+            f"(float32, [None, {DEPLOY_SEQ}], max_batch_size {DEPLOY_BATCH}, slab "
+            f"{DEPLOY_BATCH}) started together by subprocess_spawner and serving in "
+            f"{spawn_s:.1f} s (the 7B replicas of (b) starting beside them); free device "
+            f"memory {free / 2**30:.2f} GiB")
+        tid = {n: router_mod.tenant_id(n) for n in ("noisy", "polite")}
+        plan = []
+        for i, ids in enumerate(inputs):
+            tenant = "noisy" if i < FLEET_NOISY else "polite"
+            tail = wire_spec.encode_tenant(tid[tenant])
+            if tenant == "polite":
+                tail = wire_spec.encode_deadline(FLEET_DEADLINE_MS) + tail
+            frame = wire_spec.build_request(wire_spec.CMD_INFER,
+                                            wire_spec.encode_arrays([ids]) + tail)
+            plan.append((tenant, frame, want[0][i]))
+        time.sleep(max(0.5, fl.registry.heartbeat_interval * 3))  # heartbeats settle
+
+        def granted():
+            return sum(t["granted"] for t in fl.router.gate.stats().values())
+
+        rounds = {}
+        for label, seconds in (("healthy", FLEET_HEALTHY_S), ("chaos", FLEET_CHAOS_S)):
+            goodput.SERVING_LEDGER.reset()
+            killed = {}
+            during = None
+            if label == "chaos":
+                base = granted()
+
+                def killer():
+                    t_end = time.monotonic() + seconds
+                    while time.monotonic() < t_end and granted() - base < FLEET_KILL_AFTER:
+                        time.sleep(0.02)
+                    time.sleep(0.5)  # mid-storm
+                    rid, h = sorted(fl.handles().items())[0]
+                    killed.update(rid=rid, t=time.monotonic())
+                    os.kill(h.pid, signal.SIGKILL)
+                    while not (fl.respawns >= 1 and len(fl.registry.routable())
+                               == FLEET_REPLICAS):
+                        if time.monotonic() - killed["t"] > 300:
+                            return
+                        time.sleep(0.02)
+                    killed["routable_s"] = time.monotonic() - killed["t"]
+
+                watcher = threading.Thread(target=killer)
+                during = watcher.start
+            got = fleet_storm(fl, plan, seconds, during)
+            if label == "chaos":
+                watcher.join(320)
+            rep = goodput.SERVING_LEDGER.report()
+            rounds[label] = dict(got=got, goodput=rep["goodput"], killed=killed, ledger=rep)
+            for tenant in ("noisy", "polite"):
+                g = got[tenant]
+                log(f"[fleet] (a) {label} round {seconds:.0f} s, {tenant}: {len(g['lat'])} "
+                    f"replies bitwise Predictor.run, {g['shed']} status 2, {len(g['bad'])} "
+                    f"bad; p50 {_pct(g['lat'], 50) * 1e3:.1f} ms, p99 "
+                    f"{_pct(g['lat'], 99) * 1e3:.1f} ms | {card}")
+                if g["bad"]:
+                    failures.append(f"(a) {label} {tenant}: {g['bad'][:3]}")
+                if not g["lat"]:
+                    failures.append(f"(a) {label} {tenant}: no reply")
+            p99 = _pct(got["polite"]["lat"], 99) * 1e3
+            if not p99 <= FLEET_DEADLINE_MS:
+                failures.append(f"(a) {label}: polite p99 {p99:.1f} ms over its deadline")
+        kill = rounds["chaos"]["killed"]
+        ratio = (rounds["chaos"]["goodput"] / rounds["healthy"]["goodput"]
+                 if rounds["healthy"]["goodput"] else 0.0)
+        log(f"[fleet] (a) SIGKILL of {kill.get('rid')} mid-storm: respawned and routable "
+            f"again {kill.get('routable_s', float('nan')):.2f} s after the kill "
+            f"(respawns {fl.respawns}); serving goodput healthy "
+            f"{rounds['healthy']['goodput']:.4f}, chaos {rounds['chaos']['goodput']:.4f}, "
+            f"ratio {ratio:.4f} | {card}")
+        if "routable_s" not in kill:
+            failures.append(f"(a) the killed replica was not routable again: {kill}")
+        # K1, 12 a program call, in every replica (the respawned one too)
+        k1s = {}
+        for rid, h in sorted(fl.handles().items()):
+            st = _stats(wire_spec, h.port)
+            ds = [d for b in st["buckets"].values() for d in b]
+            calls = sum(d["program_calls"] or 0 for d in ds)
+            k1 = sum(d["k1_launches"] or 0 for d in ds)
+            k1s[rid] = (k1, calls)
+        log("[fleet] (a) K1 launches / program calls per replica (cmd-5 stats): "
+            + ", ".join(f"{r} {k} / {c}" for r, (k, c) in k1s.items()))
+        if any(k != 12 * c for k, c in k1s.values()) or not any(c for _, c in k1s.values()):
+            failures.append(f"(a) K1 per program call {k1s}")
+        res.update(spawn_s=spawn_s, rounds={k: {t: dict(n=len(v["got"][t]["lat"]),
+                                                      shed=v["got"][t]["shed"],
+                                                      p99_ms=_pct(v["got"][t]["lat"], 99) * 1e3)
+                                                  for t in ("noisy", "polite")}
+                                              for k, v in rounds.items()},
+                   ratio=ratio, respawn_s=kill.get("routable_s"),
+                   k1=sum(k for k, _ in k1s.values()))
+
+        # the rolling reload to the seed-1 save under FLEET_RELOAD_CLIENTS
+        # clients: every reply one save's Predictor.run, none failed
+        stop = threading.Event()
+        tally = [dict(p1=0, p2=0, other=0) for _ in range(FLEET_RELOAD_CLIENTS)]
+
+        def sender(i):
+            frame = wire_spec.build_request(wire_spec.CMD_INFER,
+                                            wire_spec.encode_arrays([inputs[i]]))
+            try:
+                with socket.create_connection(("127.0.0.1", fl.port), timeout=300) as s:
+                    while not stop.is_set():
+                        s.sendall(frame)
+                        (blen,) = struct.unpack("<I", _recv(s, 4))
+                        body = _recv(s, blen)
+                        key = ("p1" if body[0] == 0 and body[1:] == want[0][i] else
+                               "p2" if body[0] == 0 and body[1:] == want[1][i] else "other")
+                        tally[i][key] += 1
+            except OSError:
+                tally[i]["other"] += 1
+
+        k1_before = res["k1"]
+        threads = [threading.Thread(target=sender, args=(i,))
+                   for i in range(FLEET_RELOAD_CLIENTS)]
+        for th in threads:
+            th.start()
+        time.sleep(0.5)
+        t = time.perf_counter()
+        reloads = fl.rolling_reload(p2, drain_deadline=60.0)
+        reload_s = time.perf_counter() - t
+        time.sleep(1.0)
+        stop.set()
+        for th in threads:
+            th.join(300)
+        total = {k: sum(d[k] for d in tally) for k in tally[0]}
+        after = [_call(fl.port, wire_spec.build_request(
+            wire_spec.CMD_INFER, wire_spec.encode_arrays([inputs[i]]))) for i in range(3)]
+        on_p2 = sum(st == 0 and body == want[1][i] for i, (st, body) in enumerate(after))
+        log(f"[fleet] (a) rolling_reload to the seed-1 save under {FLEET_RELOAD_CLIENTS} "
+            f"clients: {reload_s:.1f} s, statuses "
+            f"{sorted(r['status'] for r in reloads.values())}; replies seed 0 {total['p1']}, "
+            f"seed 1 {total['p2']}, failed, dropped or other {total['other']}; after it "
+            f"{on_p2}/3 requests bitwise the seed-1 Predictor.run | {card}")
+        if (total["other"] or not total["p1"] or not total["p2"] or on_p2 != 3
+                or any(r["status"] != 0 for r in reloads.values())):
+            failures.append(f"(a) rolling reload: {total}, after {on_p2}/3")
+        # the reload swapped each replica's engine: its counts start again
+        k1s = {}
+        for rid, h in sorted(fl.handles().items()):
+            ds = [d for b in _stats(wire_spec, h.port)["buckets"].values() for d in b]
+            k1s[rid] = (sum(d["k1_launches"] or 0 for d in ds),
+                        sum(d["program_calls"] or 0 for d in ds))
+        log("[fleet] (a) after the reload, K1 launches / program calls per replica: "
+            + ", ".join(f"{r} {k} / {c}" for r, (k, c) in k1s.items()))
+        if any(k != 12 * c for k, c in k1s.values()) or not any(c for _, c in k1s.values()):
+            failures.append(f"(a) K1 per program call after the reload {k1s}")
+        res["k1"] = k1_before + sum(k for k, _ in k1s.values())
+        res["reload_s"] = reload_s
+    finally:
+        fl.close()
+        del preds
+    return res, failures
+
+
+def disagg_spawner(torch, tmp, prefix_dir, phases):
+    """Phase 20 (b)'s spawn_fn: ``--decode-replica`` processes of this file.
+    The first replica of each phase in ``phases`` is launched at once, all
+    together (the Fleet takes them in its order); later calls (a respawn)
+    launch a fresh one. Each process's output goes to a file under ``tmp``."""
+    from paddle_tpu_torch.inference import fleet as fleet_mod
+
+    me = os.path.abspath(__file__)
+    launched = []  # [phase, proc, portfile, taken]
+
+    def launch(phase):
+        n = len(launched)
+        portfile = os.path.join(tmp, f"replica-{n}.port")
+        out = open(os.path.join(tmp, f"replica-{n}-{phase}.log"), "w")
+        proc = subprocess.Popen([sys.executable, me, "--decode-replica", portfile, phase,
+                                 prefix_dir], stdout=out, stderr=subprocess.STDOUT)
+        out.close()
+        launched.append([phase, proc, portfile, False])
+        return launched[-1]
+
+    t_launch = time.time()
+    for phase in phases:
+        launch(phase)
+
+    def up_s():
+        """Seconds from the launch to the last pre-launched port file."""
+        stamps = [os.path.getmtime(e[2]) for e in launched[:len(phases)]
+                  if os.path.exists(e[2])]
+        return max(stamps) - t_launch if stamps else float("nan")
+
+    def spawn(rid, phase):
+        entry = next((e for e in launched if e[0] == phase and not e[3]), None) or launch(phase)
+        entry[3] = True
+        port = fleet_mod.wait_portfile(entry[2], entry[1], rid, 600)
+        return fleet_mod.ReplicaHandle(rid, "127.0.0.1", port, proc=entry[1])
+
+    def reap():
+        for _, proc, _, _ in launched:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+    spawn.reap = reap
+    spawn.up_s = up_s
+    spawn.logs = lambda: sorted(os.path.join(tmp, n) for n in os.listdir(tmp)
+                                if n.endswith(".log"))
+    return spawn
+
+
+def disagg_streams(wire_spec, port, work, kill_at=None):
+    """Each ``(prompt, n)`` of ``work`` as one decode stream to ``port``,
+    all at once, a thread each -> per stream (status, tokens, snapshot
+    frames, [seconds of each token frame from the send]). ``kill_at``:
+    ``(k, hook)``: the hook runs once, in the stream that is the last to
+    hold k tokens, so that every stream is past its first k."""
+    out = [None] * len(work)
+    fired = threading.Lock()
+    state = {"reached": 0}
+
+    def one(i, prompt, n):
+        frame = wire_spec.build_request(wire_spec.CMD_INFER, wire_spec.encode_arrays([prompt])
+                                        + wire_spec.encode_decode_opts(n))
+        tokens, times, snaps, counted = [], [], 0, False
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=900) as s:
+                t0 = time.perf_counter()
+                s.sendall(frame)
+                while True:
+                    (blen,) = struct.unpack("<I", _recv(s, 4))
+                    body = _recv(s, blen)
+                    if len(body) > 1 and wire_spec.is_kv_snapshot(body[1:]):
+                        snaps += 1
+                    elif len(body) > 1:
+                        chunk = wire_spec.decode_arrays(body[1:])[0]
+                        tokens += [int(t) for t in chunk]
+                        times += [time.perf_counter() - t0] * int(chunk.size)
+                    if kill_at is not None and len(tokens) >= kill_at[0] and not counted:
+                        counted = True
+                        with fired:
+                            state["reached"] += 1
+                            go = state["reached"] == len(work)
+                        if go:
+                            kill_at[1]()
+                    if body[0] != wire_spec.STATUS_STREAM:
+                        out[i] = (body[0], tokens, snaps, times)
+                        return
+        except OSError as e:
+            out[i] = (f"connection: {e!r}", tokens, snaps, times)
+
+    threads = [threading.Thread(target=one, args=(i, p, n)) for i, (p, n) in enumerate(work)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    return out
+
+
+def fleet_llama(torch, mods, card, spawn, free0):
+    """Phase 20 (b): disaggregated decode over Llama-2-7B replicas, whose
+    processes ``spawn`` (disagg_spawner) started at the phase's start;
+    ``free0``: the free device memory before them."""
+    inference, fleet_mod, router_mod, wire_spec, goodput = mods
+    from paddle_tpu_torch.inference.registry import ReplicaRegistry
+
+    failures, res = [], {}
+    rng = np.random.RandomState(21)
+    vocab = 32000
+    # prompts 16-128 tokens, one of exactly 128 (a full page: the persistent tier's)
+    lens = [ENGINE_PROMPT] + [int(n) for n in rng.randint(ENGINE_PROMPT // 8, ENGINE_PROMPT,
+                                                          DISAGG_STREAMS - 1)]
+    prompts = [rng.randint(0, vocab, (n,)).astype(np.int32) for n in lens]
+    t = time.perf_counter()
+    fl = None
+    try:
+        fl = fleet_mod.Fleet(spawn, supervise=False, pools={
+            "prefill": {"replicas": 1, "autoscaler": fleet_mod.Autoscaler(1, 1)},
+            "decode": {"replicas": 2, "autoscaler": fleet_mod.Autoscaler(2, 2)}},
+            registry=ReplicaRegistry(heartbeat_interval=0.1),
+            router_kwargs=dict(snapshot_every=DISAGG_CADENCE, backend_timeout=300.0,
+                               handoff_timeout=120.0, max_body=DISAGG_MAX_BODY))
+        spawn_s = time.perf_counter() - t
+        free1, _ = torch.cuda.mem_get_info()
+        log(f"[fleet] (b) Llama-2-7B bf16 (seed 0, phase 7's engine: {ENGINE_SLOTS} slots x "
+            f"{ENGINE_SEQ}, chunk {ENGINE_CHUNK}), pools {fl.pools()}, three replica "
+            f"processes started together at the phase's start ({spawn.up_s():.1f} s to the "
+            f"last port; {spawn_s:.1f} s more wait here); free device memory "
+            f"{free0 / 2**30:.2f} GiB before the spawns, {free1 / 2**30:.2f} GiB with them "
+            f"up")
+        hs = fl.handles()
+
+        def port_of(rid):
+            return fl.handles()[rid].port
+
+        # the reference: each prompt's stream sent plainly to one decode
+        # replica, before any chaos; one prompt solo to each replica
+        work = [(p, DISAGG_NEW) for p in prompts]
+        ref = disagg_streams(wire_spec, port_of("decode-0"), work)
+        if any(r[0] != 0 or len(r[1]) != DISAGG_NEW for r in ref):
+            fail(f"fleet (b): the plain reference streams {[(r[0], len(r[1])) for r in ref]}")
+        ref_tokens = [r[1] for r in ref]
+        solo = {rid: disagg_streams(wire_spec, h.port, [(prompts[1], DISAGG_NEW)])[0][1]
+                for rid, h in sorted(hs.items())}
+        same = sum(v == ref_tokens[1] for v in solo.values())
+        log(f"[fleet] (b) one prompt alone on each replica: {same}/3 streams bitwise the "
+            f"decode-0 reference")
+        if same != 3:
+            failures.append(f"(b) the replicas disagree alone: {solo}")
+
+        # the handoff round: every stream through the router, prefill pool
+        # then decode pool
+        before = {k: v for k, v in handoff_counts(router_mod).items()}
+        t = time.perf_counter()
+        got = disagg_streams(wire_spec, fl.port, work)
+        window = time.perf_counter() - t
+        moved = {k: v - before[k] for k, v in handoff_counts(router_mod).items()}
+        ok = sum(g[0] == 0 and g[1] == r for g, r in zip(got, ref_tokens))
+        ttft = [g[3][0] for g in got if g[3]]
+        gaps = [b - a for g in got for a, b in zip(g[3], g[3][1:]) if b > a]
+        handoff_ms = moved["handoff_sum"] / max(1, moved["handoff_count"]) * 1e3
+        log(f"[fleet] (b) {len(work)} streams handed off through the router in {window:.2f} "
+            f"s: {ok}/{len(work)} status 0 and bitwise the plain stream; snapshot frames seen "
+            f"by the clients {sum(g[2] for g in got)}; handoffs ok {moved['ok']}, retried "
+            f"{moved['retried']}, degraded {moved['degraded']}, failed {moved['failed']}; "
+            f"time to first token p50 {_pct(ttft, 50) * 1e3:.1f} / p99 "
+            f"{_pct(ttft, 99) * 1e3:.1f} ms; inter-token gaps p50 {_pct(gaps, 50) * 1e3:.2f} "
+            f"/ p99 {_pct(gaps, 99) * 1e3:.2f} ms; handoff (prefill snapshot held to decode "
+            f"replica accepted) mean {handoff_ms:.1f} ms | {card}")
+        if ok != len(work) or moved["ok"] + moved["retried"] < 1 or moved["failed"] \
+                or any(g[2] for g in got):
+            failures.append(f"(b) handoff round: {ok}/{len(work)}, {moved}")
+        live = [_settled(fl.router)]
+        res.update(handoff_ok=moved["ok"] + moved["retried"], ttft_ms=_pct(ttft, 50) * 1e3,
+                   ttft_p99_ms=_pct(ttft, 99) * 1e3, itl_p50_ms=_pct(gaps, 50) * 1e3,
+                   itl_p99_ms=_pct(gaps, 99) * 1e3, handoff_ms=handoff_ms)
+
+        # a decode replica SIGKILLed mid-stream: its streams finish on the
+        # other through kv_resume, one unbroken status-0 stream each
+        kill_work = [(p, DISAGG_KILL_NEW) for p in prompts[:4]]
+        kill_ref = disagg_streams(wire_spec, port_of("decode-1"), kill_work)
+        killed = {}
+
+        def kill_decode():
+            # every stream is past its handoff: the decode replica whose
+            # engine holds the most of them (its cmd-3 health) dies
+            active = {rid: json.loads(_call(fl.handles()[rid].port, wire_spec.build_request(
+                wire_spec.CMD_HEALTH))[1])["decode"]["active"] for rid in ("decode-0", "decode-1")}
+            rid = max(active, key=active.get)
+            killed.update(rid=rid, active=active[rid], t=time.monotonic())
+            os.kill(fl.handles()[rid].pid, signal.SIGKILL)
+
+        k1_pre = {}
+        for rid, h in fl.handles().items():
+            st = _stats(wire_spec, h.port)["decode"]
+            k1_pre[rid] = (st["k1_launches"], st["prefix_fill_steps"] + st["steps"])
+        before = handoff_counts(router_mod)
+        got = disagg_streams(wire_spec, fl.port, kill_work, kill_at=(DISAGG_KILL_AT,
+                                                                     kill_decode))
+        moved = {k: v - before[k] for k, v in handoff_counts(router_mod).items()}
+        ok = sum(g[0] == 0 and g[1] == r[1] for g, r in zip(got, kill_ref))
+        resume_ms = moved["resume_sum"] / max(1, moved["resume_count"]) * 1e3
+        log(f"[fleet] (b) SIGKILL of {killed.get('rid')} ({killed.get('active')} streams active "
+            f"in its engine) once every stream held {DISAGG_KILL_AT} tokens: {ok}/"
+            f"{len(kill_work)} streams status 0 and bitwise the unbroken stream (no token "
+            f"duplicated or lost); paddle_decode_resumes_total ok {moved['resume_ok']}, refused "
+            f"{moved['resume_refused']}, no_snapshot {moved['resume_none']}; resume (replica "
+            f"death to the first resumed frame) mean {resume_ms:.1f} ms | {card}")
+        if not killed or ok != len(kill_work) or moved["resume_ok"] < 1:
+            failures.append(f"(b) kill round: {ok}/{len(kill_work)}, {moved}, {killed}")
+        live.append(_settled(fl.router))
+        res.update(resume_ms=resume_ms, resumes=moved["resume_ok"])
+
+        # respawn (the supervisor's tick), then its first request: a
+        # prompt seen before, from the persistent prefix tier
+        t = time.monotonic()
+        tick = fl.supervise_once()
+        new = [r for r in fl.pools()["decode"] if r not in hs]
+        respawn_s = time.monotonic() - killed.get("t", t)
+        routable = len(fl.registry.routable("decode"))
+        got = disagg_streams(wire_spec, port_of(new[0]), [(prompts[0], DISAGG_NEW)])[0] \
+            if new else (None, [], 0, [])
+        pst = _stats(wire_spec, port_of(new[0]))["decode"]["prefix"] if new else {}
+        log(f"[fleet] (b) supervise_once: {tick['dead']} dead, respawned {new}, routable "
+            f"decode replicas {routable}; respawn to routable {respawn_s:.1f} s after the kill "
+            f"(the tick itself {time.monotonic() - t:.1f} s); its first request, the "
+            f"{ENGINE_PROMPT}-token prompt seen before: status {got[0]}, bitwise the cold "
+            f"stream {got[1] == ref_tokens[0]}, persistent-tier hits "
+            f"{pst.get('store_hits')}, refused {pst.get('store_refused')} | {card}")
+        if not new or routable != 2 or got[0] != 0 or got[1] != ref_tokens[0] \
+                or not pst.get("store_hits"):
+            failures.append(f"(b) respawn: {new}, routable {routable}, {got[0]}, {pst}")
+        res.update(respawn_s=respawn_s, store_hits=pst.get("store_hits"))
+
+        # K1: 32 a fill and a step in every live replica
+        k1s = {}
+        for rid, h in sorted(fl.handles().items()):
+            st = _stats(wire_spec, h.port)["decode"]
+            k1s[rid] = (st["k1_launches"], st["prefix_fill_steps"] + st["steps"])
+        log("[fleet] (b) K1 launches / (fill replays + steps) per live replica (cmd-5 "
+            "stats): " + ", ".join(f"{r} {k} / {c}" for r, (k, c) in k1s.items()))
+        if any(k != 32 * c or not c for k, c in k1s.values()):
+            failures.append(f"(b) K1 {k1s}")
+        res["k1"] = sum(k for k, _ in k1s.values()) + k1_pre.get(killed.get("rid"), (0,))[0]
+
+        # the prefill pool SIGKILLed: new streams degrade to colocated
+        # serving on the decode pool, counted, with the same tokens
+        pre = fl.pools()["prefill"][0]
+        os.kill(fl.handles()[pre].pid, signal.SIGKILL)
+        fl.handles()[pre].proc.wait(60)
+        before = handoff_counts(router_mod)
+        deg_work = [(p, DISAGG_NEW) for p in prompts[1:1 + DISAGG_DEGRADED]]
+        got = disagg_streams(wire_spec, fl.port, deg_work)
+        moved = {k: v - before[k] for k, v in handoff_counts(router_mod).items()}
+        ok = sum(g[0] == 0 and g[1] == r for g, r in zip(got, ref_tokens[1:]))
+        log(f"[fleet] (b) prefill pool SIGKILLed: {ok}/{len(deg_work)} new streams status 0 "
+            f"and bitwise the plain stream; paddle_handoff_total degraded "
+            f"{moved['degraded']}, failed {moved['failed']}")
+        if ok != len(deg_work) or moved["degraded"] < len(deg_work) or moved["failed"]:
+            failures.append(f"(b) degraded: {ok}/{len(deg_work)}, {moved}")
+        live.append(_settled(fl.router))
+        log(f"[fleet] (b) the router's live kv snapshots after the handoff, kill and "
+            f"degraded rounds: {live}")
+        if any(live):
+            failures.append(f"(b) live snapshots {live}")
+    finally:
+        if fl is not None:
+            fl.close()
+    return res, failures
+
+
+def _settled(router, timeout=10.0):
+    """The router's live kv snapshots once its relays have finished (a
+    relay drops its snapshot just after the terminal frame went out)."""
+    deadline = time.monotonic() + timeout
+    while router.live_snapshots() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return router.live_snapshots()
+
+
+def handoff_counts(router_mod):
+    """The router's handoff and resume counters (this process's registry)."""
+    M = router_mod
+    h, r = M._M_HANDOFF_SECONDS.value(), M._M_RESUME_SECONDS.value()
+    return dict(ok=M._M_HANDOFF.value(outcome="ok"), retried=M._M_HANDOFF.value(outcome="retried"),
+                degraded=M._M_HANDOFF.value(outcome="degraded"),
+                failed=M._M_HANDOFF.value(outcome="failed"), handoff_sum=h["sum"],
+                handoff_count=h["count"], resume_ok=M._M_RESUMES.value(outcome="ok"),
+                resume_refused=M._M_RESUMES.value(outcome="refused"),
+                resume_none=M._M_RESUMES.value(outcome="no_snapshot"), resume_sum=r["sum"],
+                resume_count=r["count"])
+
+
+def phase_fleet(torch, mods, card, deploy):
+    """Phase 20: the fleet tier on the card (see the module docstring)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[fleet] the parent's earlier models released: {free / 2**30:.2f} GiB free of "
+        f"{total / 2**30:.2f} GiB, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    import shutil
+    import tempfile
+
+    # (b)'s three 7B replica processes start now, beside (a): each takes
+    # ~45 s (the 13.5 GB weights digest 15-20 s of it), and (a)'s replicas
+    # and traffic leave the memory and the card room for them
+    tmp = tempfile.mkdtemp(prefix="paddle_tpu_torch_fleet_")
+    spawn7 = disagg_spawner(torch, tmp, os.path.join(tmp, "prefix"),
+                            ("prefill", "decode", "decode"))
+    try:
+        a, fa_ = fleet_bert(torch, mods, card, deploy)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_a = time.perf_counter() - t_phase
+        b, fb = fleet_llama(torch, mods, card, spawn7, free)
+    except BaseException:
+        for path in spawn7.logs():
+            with open(path) as f:
+                log(f"[fleet] {os.path.basename(path)}: ...{f.read()[-1500:]}")
+        raise
+    finally:
+        spawn7.reap()
+        shutil.rmtree(tmp, ignore_errors=True)
+    failures = fa_ + fb
+    log(f"[fleet] the phase took {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s) "
+        f"| {card}")
+    if failures:
+        fail("fleet: " + "; ".join(failures))
+    return dict(a=a, b=b, launches=a["k1"] + b["k1"])
+
+
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
     the 7B engine. Llama-2-7B bf16 (phase 7's weights, 16 slots x 256,
@@ -6470,9 +7198,12 @@ def fill_chunk_sweep(torch, fa, mods, card, chunks):
 # ------------------------------------------------------------------ main
 def main():
     sweep = None
+    if len(sys.argv) > 1 and sys.argv[1] == "--decode-replica":
+        return decode_replica(sys.argv[2:])
     if len(sys.argv) > 1:
         if len(sys.argv) != 3 or sys.argv[1] != "--fill-sweep":
-            fail("usage: chip_smoke.py [--fill-sweep C1,C2,...]")
+            fail("usage: chip_smoke.py [--fill-sweep C1,C2,... | --decode-replica PORTFILE "
+                 "PHASE PREFIX_DIR]")
         sweep = [int(c) for c in sys.argv[2].split(",")]
     try:
         import torch
@@ -6488,6 +7219,8 @@ def main():
         from paddle_tpu_torch import obs
         from paddle_tpu_torch.core.cuda_graph import Graph, pool_bytes
         from paddle_tpu_torch.distributed import spmd
+        from paddle_tpu_torch.inference import fleet as fleet_mod
+        from paddle_tpu_torch.inference import router as router_mod
         from paddle_tpu_torch.inference import wire_spec
         from paddle_tpu_torch.inference.batching import BatchingEngine
         from paddle_tpu_torch.inference.decode import DecodeEngine
@@ -6503,6 +7236,7 @@ def main():
         from paddle_tpu_torch.quantization.serving import ACCURACY_BOUNDS
         from paddle_tpu_torch.static import InputSpec
         from paddle_tpu_torch import onnx as ponnx
+        from paddle_tpu_torch.obs import goodput
     except ImportError as e:
         fail(f"the port is not importable from this directory: {e}")
 
@@ -6592,14 +7326,24 @@ def main():
     took("vision")
     data = phase_data(torch, (paddle, spmd, qmm, chaos), card, vis)
     took("data")
-    deploy = phase_deploy(torch, fa, qmm, (paddle, jit, inference, serve_model, InputSpec,
-                                           BertForPretraining, BertModel, nn, optimizer, vision,
-                                           wire_spec, ACCURACY_BOUNDS),
-                          card, dyg, vis)
-    took("deploy")
-    static = phase_static(torch, fa, (paddle, BertModel, vision, inference, ponnx, InputSpec,
-                                      spmd, optimizer, nn), card, vis)
-    took("static")
+    import shutil
+    import tempfile
+
+    saves = tempfile.mkdtemp(prefix="paddle_tpu_torch_deploy_")
+    try:
+        deploy = phase_deploy(torch, fa, qmm, (paddle, jit, inference, serve_model, InputSpec,
+                                               BertForPretraining, BertModel, nn, optimizer,
+                                               vision, wire_spec, ACCURACY_BOUNDS),
+                              card, dyg, vis, saves)
+        took("deploy")
+        static = phase_static(torch, fa, (paddle, BertModel, vision, inference, ponnx,
+                                          InputSpec, spmd, optimizer, nn), card, vis)
+        took("static")
+        fleet = phase_fleet(torch, (inference, fleet_mod, router_mod, wire_spec, goodput),
+                            card, deploy)
+        took("fleet")
+    finally:
+        shutil.rmtree(saves, ignore_errors=True)
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -6694,7 +7438,11 @@ def main():
                        + robust["launches"] + quant["launches"] + mt["launches"]
                        + lm_launch["fwd"] + lm["parity_counts"][0] + mtt["counts"]["fwd"]
                        + mtt["parity_counts"][0] + dyg["counts"]["fwd"] + dyg["extra"][0]
-                       + deploy["launches"][0] + static["launches"][0]),
+                       + deploy["launches"][0] + static["launches"][0] + fleet["launches"]),
+             # phase 20's: in its replica processes, from their cmd-5 stats
+             # (the BERT replicas' batches, 12 a program call; the 7B
+             # replicas' fills and steps, 32 each)
+             fleet_launches=fleet["launches"],
              # phase 19's: the static programs' builds and Executor.run
              # steps, the saved program's Predictor.run, the ONNX check's
              # live forward

@@ -9,6 +9,7 @@ edited source or shared header never loads a stale library. Nothing here runs at
 every module on a machine without ``nvcc``.
 """
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -80,8 +81,18 @@ def _target(name):
 def build(names):
     """Compile every named source that is not built yet, all ``nvcc``
     processes started together. Raises RuntimeError with the compiler's
-    output when any of them fails."""
+    output when any of them fails. Processes that share the checkout
+    (a fleet's replicas) build under one file lock: the first builds,
+    the others wait for it and then find the libraries built."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    if all(os.path.exists(_target(name)[1]) for name in names):
+        return
+    with open(os.path.join(BUILD_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        _build_locked(names)
+
+
+def _build_locked(names):
     procs = {}
     for name in names:
         src, out = _target(name)

@@ -7,8 +7,10 @@ Models are ``paddle.jit.save`` programs (``torch.export``); the predictor
 loads one onto its device and runs it with inputs and outputs on the
 device (ZeroCopyRun). ``serve_model`` serves one over the wire protocol
 of ``wire_spec`` (server.py), with dynamic batching, hot reload (cmd 4)
-and drain (cmd 8). The fleet tier (router, registry, autoscaler) and
-sharded serving are later slices (ROADMAP Queues 1 and 4).
+and drain (cmd 8). The fleet tier (``Fleet``, ``FleetRouter``,
+``ReplicaRegistry``, ``Autoscaler``; fleet.py, router.py, registry.py)
+puts replicas behind one router; sharded serving is a later slice
+(ROADMAP Queue 1).
 """
 from .config import Config, PlaceType, PrecisionType
 from .predictor import Predictor, Tensor as PredictorTensor, create_predictor
@@ -28,11 +30,17 @@ class DataType:
 __all__ = [
     "Config", "DataType", "Predictor", "PredictorTensor", "Tensor", "create_predictor",
     "PrecisionType", "PlaceType", "serve_model",
+    # the fleet tier (lazy: importing the package starts no thread)
+    "Fleet", "FleetRouter", "ReplicaRegistry", "TenantPolicy", "Autoscaler",
+    "subprocess_spawner", "tenant_id",
     "DecodeEngine", "DecodeModel", "DecodeRequest",
 ]
 
 _HOMES = {"DecodeEngine": "decode", "DecodeModel": "decode", "DecodeRequest": "decode",
-          "serve_model": "server"}
+          "serve_model": "server", "Fleet": "fleet", "Autoscaler": "fleet",
+          "subprocess_spawner": "fleet", "ReplicaHandle": "fleet", "FleetRouter": "router",
+          "TenantPolicy": "router", "FairGate": "router", "tenant_id": "router",
+          "ReplicaRegistry": "registry"}
 
 
 def __getattr__(name):

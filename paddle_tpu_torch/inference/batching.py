@@ -53,10 +53,12 @@ K1 keeps a row's bits beside any neighbours and LayerNorm is per row. A
 1-row tail chunk of a split request pads to bucket 2, as in the
 reference.
 
-Not ported (ROADMAP Queue 1): cold-compile threads, the artifact store,
-meshed serving. The port's runners compile nothing: the first batch of a
-bucket (or its warmup) is counted as its one ``inline`` compile, as it
-builds the kernels and grows the allocator.
+Not ported: cold-compile threads and meshed serving (ROADMAP Queue 1),
+and the artifact store of compiled programs (``for_layer``'s
+``artifact_store`` raises; ROADMAP Queue 3 (b)). The port's runners
+compile nothing: the first batch of a bucket (or its warmup) is counted
+as its one ``inline`` compile, as it builds the kernels and grows the
+allocator.
 """
 import threading
 import time
@@ -192,7 +194,7 @@ class _Request:
 
 class _BucketStats:
     __slots__ = ("batches", "requests", "rows", "padded_rows", "total_ms",
-                 "max_ms")
+                 "max_ms", "program_calls", "k1_launches")
 
     def __init__(self):
         self.batches = 0
@@ -201,6 +203,11 @@ class _BucketStats:
         self.padded_rows = 0
         self.total_ms = 0.0
         self.max_ms = 0.0
+        # the port's: a loaded layer's program calls (slabs) and the K1
+        # launches made in them, over the bucket's batches (None for a
+        # runner that does not count them, a callable's)
+        self.program_calls = None
+        self.k1_launches = None
 
     def as_dict(self):
         return {
@@ -211,6 +218,8 @@ class _BucketStats:
             "total_ms": round(self.total_ms, 3),
             "avg_ms": round(self.total_ms / self.batches, 3) if self.batches else 0.0,
             "max_ms": round(self.max_ms, 3),
+            "program_calls": self.program_calls,
+            "k1_launches": self.k1_launches,
         }
 
 
@@ -240,6 +249,10 @@ class AotLayerRunner:
     def __init__(self, layer):
         self._layer = layer
         self.quant_mode = getattr(layer, "_quant_mode", None)
+        # the port's counters (stats' "program_calls", "k1_launches"): the
+        # layer's program calls (slabs) and the K1 launches made in them
+        self.program_calls = 0
+        self.k1_launches = 0
         specs = getattr(layer, "_input_specs", None) or []
         if not specs:
             raise ValueError("layer has no input specs; was it jit-saved?")
@@ -269,10 +282,15 @@ class AotLayerRunner:
     def run(self, batch_arrays):
         import torch
 
+        from ..ops import flash_attention
+
         dev = self._layer.device
+        before = flash_attention.launches
         # a request decoded off the wire is a read-only view: copied once
         outs = self._layer.run_slabs([torch.from_numpy(a if a.flags.writeable else a.copy())
                                       .to(dev) for a in batch_arrays])
+        self.k1_launches += flash_attention.launches - before
+        self.program_calls += -(-int(batch_arrays[0].shape[0]) // self._layer._slab_rows)
         return [o.cpu().numpy() for o in outs]
 
 
@@ -340,9 +358,19 @@ class BatchingEngine:
         return cls(CallableRunner(fn), **kw)
 
     @classmethod
-    def for_layer(cls, layer, **kw):
+    def for_layer(cls, layer, artifact_store=None, **kw):
         """Engine over a ``jit.load``-ed batch-polymorphic TranslatedLayer
-        (``AotLayerRunner``)."""
+        (``AotLayerRunner``). ``artifact_store`` (the reference's store of
+        each bucket's compiled program) is not ported and raises: the
+        loaded layer is already one ``torch.export`` program with no
+        per-bucket compile to keep, and the port's engine programs are
+        CUDA graphs, which have no serialized form across processes
+        (ROADMAP Queue 3 (b))."""
+        if artifact_store is not None:
+            raise NotImplementedError(
+                "BatchingEngine.for_layer(artifact_store=...): a loaded layer is one "
+                "torch.export program with no per-bucket compile for a store to keep, and "
+                "CUDA graphs have no serialized form across processes (ROADMAP Queue 3 (b))")
         return cls(AotLayerRunner(layer), **kw)
 
     @property
@@ -663,6 +691,9 @@ class BatchingEngine:
             batch.append(np.concatenate(parts) if len(parts) > 1 else parts[0])
         chaos.hit("serving.execute")
         chaos.hit(f"serving.execute.bucket{bucket}")
+        counted = getattr(self._runner, "k1_launches", None) is not None
+        if counted:
+            calls0, k1_0 = self._runner.program_calls, self._runner.k1_launches
         t0 = time.monotonic()
         outs = self._runner.run(batch)
         dt = time.monotonic() - t0
@@ -695,6 +726,9 @@ class BatchingEngine:
             st.padded_rows += bucket - rows
             st.total_ms += dt * 1e3
             st.max_ms = max(st.max_ms, dt * 1e3)
+            if counted:
+                st.program_calls = (st.program_calls or 0) + self._runner.program_calls - calls0
+                st.k1_launches = (st.k1_launches or 0) + self._runner.k1_launches - k1_0
             bs = str(bucket)
             self._m_batches.inc(bucket=bs)
             self._m_batch_rows.inc(rows, bucket=bs)

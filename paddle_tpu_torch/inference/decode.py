@@ -213,16 +213,46 @@ params). Llama's programs run every product through the dequantizing
 kernel (ops/quant_matmul.py), one M per program as before, so solo =
 batch and hit = cold hold per mode.
 
-Not ported (ROADMAP Queue 1): the artifact store and the persistent
-prefix tier (``prefix_dir``), meshed serving, and phases (the reference's
-engine decodes greedily, as this one does). Constructor options of those
-raise ``NotImplementedError``. The port reads no environment: ``quant``
-defaults to f32 (the reference's ``PADDLE_TPU_SERVING_QUANT`` is not
-read), and ``spec_k``, ``breaker_threshold``, ``breaker_cooldown``,
-``watchdog_interval`` and ``wedge_timeout`` default to 0 (off), 3, 5.0 s,
-0.5 s and 30.0 s, the reference's environment defaults.
+**Phase** (the reference's, decode.py :1128-1140): ``phase`` ("prefill",
+"decode" or "both", the default) is the engine's pool in a
+disaggregated fleet, a placement attribute reported in ``health`` and
+``stats`` for the router (inference/registry.py). It shapes ``warmup``
+as the reference's shapes its ladder: a "decode" engine's prompt rungs
+are the smallest only (one fill, the chunk ending at C: its sequences
+arrive as snapshots that paid their fill elsewhere), and a "prefill"
+engine's step rungs reach the prompt bucket (the port has one step
+program, at ``max_seq_len``, which does). Every phase still serves
+every request kind, so a fleet whose other pool is gone degrades to
+colocated serving on it; a rung not warmed is built at its first use.
+The name is the reference's twice over: the program keys' first field
+(``fill``, ``step``, ``verify``, ...) and the metrics' ``phase`` label
+are the programs' phases, and ``self.phase`` is the engine's pool.
+
+**The persistent prefix tier** (``prefix_dir``, the reference's
+``PADDLE_TPU_PREFIX_DIR``; inference/prefix_cache.py): a prompt that
+misses the memory tier looks its chain up in the store (file IO, on the
+scheduler without the exec lock); a block that passes the identity
+check becomes pages, is inserted as a memory entry and is installed
+into staging like a memory hit, so hit = cold holds for it too. A fill
+publishes its longest boundary once: under the exec lock the staging
+rows are copied on the device (bf16 widened to f32, exactly), and the
+block is brought to the host, encoded and written after it.
+
+Not ported: the engines' artifact store of compiled programs (``store``
+raises ``NotImplementedError``: the port's programs are CUDA graphs,
+which have no serialized form across processes; ROADMAP Queue 3 (b))
+and meshed serving (``mesh`` other than "single"; ROADMAP Queue 1). The
+reference's engine decodes greedily, as this one does. The port reads no
+environment: ``quant`` defaults to f32 (the reference's
+``PADDLE_TPU_SERVING_QUANT`` is not read), ``phase`` to "both" (its
+``PADDLE_TPU_DECODE_PHASE``), ``prefix_dir`` to none (its
+``PADDLE_TPU_PREFIX_DIR``), and ``spec_k``, ``breaker_threshold``,
+``breaker_cooldown``, ``watchdog_interval`` and ``wedge_timeout`` default
+to 0 (off), 3, 5.0 s, 0.5 s and 30.0 s, the reference's environment
+defaults.
 """
 import collections
+import concurrent.futures
 import functools
 import hashlib
 import json
@@ -253,9 +283,12 @@ _RETIRE_REASONS = ("eos", "max_tokens", "max_seq_len", "deadline", "error", "can
 
 # options of the reference's engine that are not ported, and the values
 # that ask for nothing (the reference's "off")
-_UNPORTED = {
-    "store": (None,), "mesh": (None, "single"), "phase": (None, "both"),
-    "prefix_dir": (None,),
+_UNPORTED = {"store": (None,), "mesh": (None, "single")}
+_UNPORTED_WHY = {
+    "store": "the engines' artifact store keeps compiled programs, and the port's programs "
+             "are CUDA graphs, which have no serialized form across processes; the store's "
+             "user in the port is the persistent prefix tier (prefix_dir) (ROADMAP Queue 3 (b))",
+    "mesh": "not ported yet (ROADMAP Queue 1)",
 }
 
 # the mesh a snapshot header carries besides the fingerprint, the weights
@@ -362,18 +395,29 @@ class DecodeModel:
         quantized model's over its reduced params in the reference's
         flat order.
         Computed once per model: a 7B model copies its 13.5 GB to the host
-        for it, which is why an engine's ``warmup`` takes it."""
+        for it, which is why an engine's ``warmup`` takes it. The next
+        param's copy to the host runs on a thread while this one hashes
+        (both release the GIL), so the digest costs about the hashing."""
+        def host(p):
+            t = p.detach().contiguous()
+            head = _dtype_name(t.dtype).encode(), str(tuple(t.shape)).encode()
+            if t.dtype in (torch.bfloat16, torch.float16):
+                t = t.view(torch.int16)
+            return head, t.cpu().numpy()
+
         with self._digest_lock:
             if self._digest is None:
                 t0 = time.perf_counter()
                 h = hashlib.sha256()
-                for _, p in _named_params(self.params):
-                    t = p.detach().contiguous()
-                    h.update(_dtype_name(t.dtype).encode())
-                    h.update(str(tuple(t.shape)).encode())
-                    if t.dtype in (torch.bfloat16, torch.float16):
-                        t = t.view(torch.int16)
-                    h.update(t.cpu().numpy())
+                params = [p for _, p in _named_params(self.params)]
+                with concurrent.futures.ThreadPoolExecutor(1) as copier:
+                    nxt = copier.submit(host, params[0]) if params else None
+                    for i in range(len(params)):
+                        head, data = nxt.result()
+                        if i + 1 < len(params):
+                            nxt = copier.submit(host, params[i + 1])
+                        for part in (*head, data):
+                            h.update(part)
                 self._digest = (h.hexdigest(), (time.perf_counter() - t0) * 1e3)
             return self._digest
 
@@ -436,6 +480,44 @@ class _KVStack:
     def nbytes(self):
         return sum(t.numel() * t.element_size() for _, t in self.groups)
 
+    def snapshot(self, b, length, device, n_entries):
+        """Copy rows 0..length-1 of batch row ``b``, on the device, into
+        the reference's snapshot layout ``[length, *trailing]`` per
+        kv_spec entry and its wire dtype (bf16 widened to f32, exactly):
+        one copy kernel a group, queued on the current stream behind the
+        writes before it, so the caller waits for nothing and allocates no
+        host memory. -> ``arrays()``, which brings the copies to the host
+        on a stream of its own (later work does not queue behind it) and
+        gives one numpy array per kv_spec entry, on the thread that calls
+        it."""
+        outs = []
+        for rows in self.rows(b, 0, length):
+            rows = rows.movedim(self.ax + 1, 1)  # [n_entries, length, *trailing]
+            wire = torch.float32 if rows.dtype in (torch.float16, torch.bfloat16) else rows.dtype
+            out = torch.empty(rows.shape, dtype=wire, device=rows.device)
+            out.copy_(rows)
+            outs.append(out)
+        done = None
+        if device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+
+        def arrays():
+            hosts = outs
+            if done is not None:
+                side = torch.cuda.Stream(device=device)
+                side.wait_event(done)
+                with torch.cuda.stream(side):
+                    hosts = [o.cpu() for o in outs]
+            out = [None] * n_entries
+            for (idx, _), host in zip(self.groups, hosts):
+                rows = host.numpy()
+                for j, i in enumerate(idx):
+                    out[i] = rows[j]
+            return out
+
+        return arrays
+
 
 class _KVSlots:
     """Per-slot KV storage on the device: one pool per kv_spec entry,
@@ -477,42 +559,10 @@ class _KVSlots:
 
     def snapshot(self, slot, length):
         """Copy the slot's first ``length`` rows, on the device, into the
-        reference's ``_KVSlots.snapshot`` layout ``[length, *trailing]``
-        per kv_spec entry and its wire dtype (bf16 widened to f32,
-        exactly): one copy kernel a group, queued on the current stream
-        behind the step, so the caller waits for nothing and allocates
-        no host memory. The slot stays live and may be reused at once:
-        later writes queue behind the copies. -> ``arrays()``, which
-        brings the copies to the host on a stream of its own (the steps
-        do not queue behind it) and gives one numpy array per kv_spec
-        entry, on the thread that builds the snapshot block."""
-        outs = []
-        for rows in self._stack.rows(slot, 0, length):
-            rows = rows.movedim(self.ax + 1, 1)  # [n_entries, length, *trailing]
-            wire = torch.float32 if rows.dtype in (torch.float16, torch.bfloat16) else rows.dtype
-            out = torch.empty(rows.shape, dtype=wire, device=rows.device)
-            out.copy_(rows)
-            outs.append(out)
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
-
-        def arrays():
-            hosts = outs
-            if done is not None:
-                side = torch.cuda.Stream(device=self.device)
-                side.wait_event(done)
-                with torch.cuda.stream(side):
-                    hosts = [o.cpu() for o in outs]
-            out = [None] * len(self.kv_spec)
-            for (idx, _), host in zip(self._stack.groups, hosts):
-                rows = host.numpy()
-                for j, i in enumerate(idx):
-                    out[i] = rows[j]
-            return out
-
-        return arrays
+        reference's ``_KVSlots.snapshot`` layout (``_KVStack.snapshot``).
+        The slot stays live and may be reused at once: later writes queue
+        behind the copies."""
+        return self._stack.snapshot(slot, length, self.device, len(self.kv_spec))
 
     def restore(self, slot, kv_arrays, length):
         """Install a snapshot's first ``length`` rows (host arrays
@@ -622,10 +672,28 @@ class _PageStore:
     def publish(self, staging, first, n):
         """``n`` fresh pages (refcount 1, the caller's) holding rows
         ``[first*page_len, (first+n)*page_len)`` of ``staging``; -> ids."""
+        return self._write(n, staging.rows(0, first * self.page_len, n * self.page_len))
+
+    def pages_from_arrays(self, kv_arrays, length):
+        """Fresh pages (refcount 1, the caller's) holding the first
+        ``length`` rows of host arrays in the snapshot layout ``[>= length,
+        *trailing]``, one per kv_spec entry, in their wire dtype (the
+        persistent prefix tier's blocks); ``length`` a multiple of the
+        page. -> ids."""
+        srcs = []
+        for idx, t in self._store.groups:
+            host = np.stack([np.asarray(kv_arrays[i])[:length] for i in idx])
+            src = torch.from_numpy(host).to(device=t.device, dtype=t.dtype)
+            srcs.append(src.movedim(1, self.ax + 1))
+        return self._write(length // self.page_len, srcs)
+
+    def _write(self, n, srcs):
+        """``n`` fresh pages holding ``srcs``, per group a tensor of
+        ``n * page_len`` rows at the pool's sequence axis; -> ids."""
         pages = [self._page_alloc() for _ in range(n)]
         index = self._index(pages)
         ax, pl = self.ax, self.page_len
-        for (_, t), src in zip(self._store.groups, staging.rows(0, first * pl, n * pl)):
+        for (_, t), src in zip(self._store.groups, srcs):
             shape = list(src.shape)
             shape[ax + 1:ax + 2] = [n, pl]
             t.index_copy_(1, index, src.reshape(shape).movedim(ax + 1, 1))
@@ -954,13 +1022,12 @@ class DecodeEngine:
                  name="decode", device="cuda", cuda_graph=True, prefix=True,
                  prefix_max_bytes=None, spec_k=None, breaker_threshold=None,
                  breaker_cooldown=None, watchdog_interval=None, wedge_timeout=None,
-                 quant=None, **unported):
+                 quant=None, phase=None, prefix_dir=None, **unported):
         for key, val in unported.items():
             if key not in _UNPORTED:
                 raise TypeError(f"DecodeEngine got an unexpected keyword argument {key!r}")
             if val not in _UNPORTED[key]:
-                raise NotImplementedError(f"DecodeEngine({key}={val!r}): not ported yet "
-                                          "(ROADMAP Queue 1)")
+                raise NotImplementedError(f"DecodeEngine({key}={val!r}): {_UNPORTED_WHY[key]}")
         self.device = _indexed(resolve_device(device))
         if _indexed(model.device) != self.device:
             raise ValueError(f"the model's params live on {model.device}, the engine runs "
@@ -1006,6 +1073,12 @@ class DecodeEngine:
         self.max_prompt_len = int(max_prompt_len or self.max_seq_len)
         self.default_max_new_tokens = int(default_max_new_tokens)
         self.name = name
+        phase = "both" if phase is None else phase
+        if phase not in wire_spec.REPLICA_PHASES:
+            raise ValueError(f"unknown engine phase {phase!r} (expected one of "
+                             f"{wire_spec.REPLICA_PHASES})")
+        self.phase = phase
+        self._declared = []  # program keys warmup() built
         if self.max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         if self.max_prompt_len > self.max_seq_len:
@@ -1024,7 +1097,8 @@ class DecodeEngine:
         self._prefix = None
         if prefix:
             self._prefix = PrefixCache(self._pages, max_bytes=prefix_max_bytes,
-                                       name=f"{name}-prefix")
+                                       store_dir=prefix_dir, name=f"{name}-prefix",
+                                       identity_fn=self._prefix_identity)
         cuda = self.device.type == "cuda"
         self.breaker_threshold = int(3 if breaker_threshold is None else breaker_threshold)
         self.breaker_cooldown = float(5.0 if breaker_cooldown is None else breaker_cooldown)
@@ -1278,6 +1352,12 @@ class DecodeEngine:
             if self._fingerprint is None:
                 self._fingerprint = self._model.fingerprint(self.page_len)
         return self._fingerprint, self._model.weights_digest()[0]
+
+    def _prefix_identity(self):
+        """The identity of the persistent prefix tier's keys and headers:
+        the fields a snapshot's resume compares."""
+        fp, wd = self._identity()
+        return {"fingerprint": fp, "weights": wd, "quant": self.quant, "mesh": _MESH}
 
     def _build_snapshot(self, req, arrays, pos, last_token, n_generated):
         """Encode one kv-snapshot block (the reference's header and array
@@ -1796,6 +1876,14 @@ class DecodeEngine:
                 if hashes:
                     hit = self._prefix.lookup(hashes)
                     (self._m_prefix_misses if hit is None else self._m_prefix_hits).inc()
+        # the persistent tier on a memory miss: file IO without the lock
+        load = (self._prefix.load_store(hashes, req.prompt)
+                if hashes and hit is None else None)
+        with self._exec_lock:
+            self._check_current()
+            if load is not None:
+                hx, n_tok, kv_arrays = load
+                hit = (n_tok, self._prefix.install_arrays(hx, n_tok, kv_arrays))
             k, have = hit if hit is not None else (0, [])
             if k:
                 self._pages.install(have, self._staging)
@@ -1814,16 +1902,27 @@ class DecodeEngine:
             if err is not None:
                 raise err
             self._call(key, fill, req.trace_id, site="serving.decode.prefill")
+        block = None
         with self._exec_lock:
             self._check_current()
             self._slots.copy_from(slot, self._staging, P)
             if hashes:
-                self._publish(hashes, have)
+                block = self._publish(hashes, have)
+        if block is not None:
+            n_tok, hx, arrays = block
+            try:
+                self._prefix.publish(hx, n_tok, req.prompt, arrays())
+            except Exception:  # noqa: BLE001 - publishing is best-effort
+                pass
 
     def _publish(self, hashes, have):
         """Insert every chain boundary of a filled prompt: the hit's pages
         for the rows it covered, fresh pages from staging for the rest
-        (one boundary's pages are a prefix of the next's)."""
+        (one boundary's pages are a prefix of the next's). With a
+        persistent tier that lacks the longest boundary, -> ``(n_tokens,
+        hash, arrays)``: its staging rows copied on the device (queued;
+        ``arrays()`` brings them to the host), for ``publish`` after the
+        exec lock; else None."""
         n_full = hashes[-1][0] // self.page_len
         for pid in have:  # held while the inserts may evict their entry
             self._pages.retain_page(pid)
@@ -1837,6 +1936,10 @@ class DecodeEngine:
             self._pages.drop_page(pid)
         if evicted:
             self._m_prefix_evictions.inc(evicted)
+        n_tok, hx = hashes[-1]
+        if self._prefix.needs_publish(hx):
+            return n_tok, hx, self._staging.snapshot(0, n_tok, self.device, len(self._model.kv_spec))
+        return None
 
     def _decode_step(self):
         """One iteration over the running set (the reference's
@@ -2276,11 +2379,22 @@ class DecodeEngine:
         verify's warm-up writes padding rows only (token 0 at position 0
         in every slot), and a fill's writes staging, so it needs an idle
         engine: no sequence running, joining or resuming. Counted nowhere
-        but in the compiles. Returns the fills' ``start + C``."""
+        but in the compiles. The engine's ``phase`` narrows the prompt
+        rungs as the reference's narrows its ladder: a "decode" engine
+        builds the first fill only (its sequences arrive as snapshots; a
+        degraded fleet's prompt builds the rest at first use), a "prefill"
+        or "both" engine every fill; the step, whose one program covers
+        every position, is built in every phase. Returns the fills'
+        ``start + C``; ``declared_buckets()`` the keys built."""
         rungs = list(range(self.page_len, self.max_prompt_len + 1, self.page_len))
+        if self.phase == "decode":
+            rungs = rungs[:1]
         keys = [("fill", 1, r) for r in rungs] + [self._step_key]
         if self.spec_enabled:
-            keys += [("draft_fill", 1, r) for r in rungs]
+            # the draft's fills stay whole in every phase, as the
+            # reference's draft_prefill ladder does
+            keys += [("draft_fill", 1, r) for r in
+                     range(self.page_len, self.max_prompt_len + 1, self.page_len)]
             keys += [self._draft_step_key, self._verify_key]
         with torch.inference_mode(), self._exec_lock:
             with self._lock:
@@ -2293,7 +2407,15 @@ class DecodeEngine:
                         buf.zero_()
                 self._program(key)
             self._identity()
+        with self._lock:
+            self._declared = sorted(set(keys))
         return rungs
+
+    def declared_buckets(self):
+        """The program keys the last ``warmup`` built (the reference's
+        declared ladder)."""
+        with self._lock:
+            return list(self._declared)
 
     def stats(self):
         """Engine counters (the cmd-5 wire view's ``decode`` entry), in one
@@ -2359,6 +2481,7 @@ class DecodeEngine:
                 programs["%s%dx%d" % key] = entry
             return {
                 "name": self.name,
+                "phase": self.phase,
                 "quant": self.quant,
                 "device": str(self.device),
                 "max_slots": self.max_slots,
@@ -2404,6 +2527,7 @@ class DecodeEngine:
                     "draft_prefills": steps["draft_fill"],
                 },
                 "compiles": sum(self._builds.values()),
+                "declared_programs": len(self._declared),
                 "programs": programs,
                 "cuda_graphs": self._graphs.capture,
                 "graph_replays": sum(g.replays for gs in graphs for g in gs.graphs),
@@ -2412,11 +2536,13 @@ class DecodeEngine:
 
     def health(self):
         now = time.monotonic()
+        entries = self._prefix.stats()["entries"] if self._prefix is not None else 0
         with self._lock:
             alive = self._scheduler.is_alive()
             return {
                 "ok": alive and not self._closed,
                 "closed": self._closed,
+                "phase": self.phase,
                 "scheduler_alive": alive,
                 "heartbeat_age_s": round(now - self._heartbeat, 3),
                 "scheduler_restarts": int(self._m_restarts.value()),
@@ -2426,6 +2552,10 @@ class DecodeEngine:
                 "active": len(self._active),
                 "free_slots": self._slots.free_count(),
                 "queue_depth": len(self._pending),
+                "declared_programs": len(self._declared),
+                "mesh": _MESH,
+                "prefix_entries": entries,
+                "spec_enabled": self.spec_enabled,
                 "device": str(self.device),
             }
 

@@ -53,8 +53,12 @@ then admits no new cmd-1 request: each answers status 2 (retryable: go to
 another replica) while the requests already admitted finish. Health's
 fields are the reference's (``ok``, ``phase``, ``decode``, ``draining``,
 ``accepting``, ``draining_deadline_s``, ``connections``, ``reloads``,
-``engine``); stats carry ``phase``. The replica phase is "both" (the
-disaggregated pools are ROADMAP Queue 4).
+``engine``); stats carry ``phase``. ``phase`` ("prefill", "decode" or
+"both", the default; an attached decode engine's own phase when none is
+given) is the replica's pool in a disaggregated fleet
+(inference/fleet.py): placement only, every phase serves every command.
+A fleet router (inference/router.py) meets the refusing drain by
+retrying the status-2 reply on another replica.
 
 The server's own instruments (the reference's: connections, frames by
 cmd, responses by status, open connections, stream frames; const label
@@ -124,15 +128,21 @@ class PredictorServer:
     ``own_decode_engine=True`` closes it on stop. With ``loader`` (a
     callable ``prefix -> (run_fn, engine_or_None)``, supplied by
     ``serve_model``) cmd 4 hot-swaps the served model (module
-    docstring)."""
+    docstring). ``phase``: the replica's pool (module docstring)."""
 
     def __init__(self, run_fn, port=0, host="127.0.0.1", max_body=MAX_BODY_BYTES,
                  recv_timeout=RECV_TIMEOUT, engine=None, own_engine=False,
-                 decode_engine=None, own_decode_engine=False, loader=None, prefix=None):
+                 decode_engine=None, own_decode_engine=False, loader=None, prefix=None,
+                 phase=None):
         self._run = run_fn
         self._engine = engine
         self._own_engine = own_engine and engine is not None
-        self.phase = "both"
+        if phase is None:
+            phase = getattr(decode_engine, "phase", None) or "both"
+        if phase not in wire_spec.REPLICA_PHASES:
+            raise ValueError(f"unknown replica phase {phase!r} (expected one of "
+                             f"{wire_spec.REPLICA_PHASES})")
+        self.phase = phase
         self._loader = loader
         self._prefix = prefix
         self._backend_lock = threading.Lock()  # guards the (run, engine) swap
@@ -658,8 +668,10 @@ def serve_model(path_prefix, port=0, dynamic_batching=False, max_batch_size=32,
     here once) declares the mode this replica must serve: the loaded save's
     recorded mode is checked at load and at every reload (cmd 4), so an f32
     save is refused where w8 is declared. ``mesh`` other than "single"
-    and ``phase`` other than "both" raise (sharded and disaggregated
-    serving are ROADMAP Queues 4-5). ``slab_rows``: the row count the
+    raises (sharded serving is ROADMAP Queue 1). ``phase`` ("prefill" |
+    "decode" | "both", the default) declares the replica's pool in a
+    disaggregated fleet, reported in health and stats; placement only.
+    ``slab_rows``: the row count the
     program runs at (jit/save_load.py); ``device``: where it runs (default:
     the current place). The returned server answers cmd 4 (reload) and
     cmd 8 (drain)."""
@@ -675,9 +687,9 @@ def serve_model(path_prefix, port=0, dynamic_batching=False, max_batch_size=32,
     if mesh not in (None, "single"):
         raise NotImplementedError(f"serve_model(mesh={mesh!r}): the port serves on one card "
                                   "(mesh 'single'; sharded serving is ROADMAP Queue 1)")
-    if phase not in (None, "both"):
-        raise NotImplementedError(f"serve_model(phase={phase!r}): disaggregated prefill/decode "
-                                  "pools are ROADMAP Queue 4; the port's replicas serve both")
+    if phase not in (None,) + wire_spec.REPLICA_PHASES:
+        raise ValueError(f"unknown replica phase {phase!r} (expected one of "
+                         f"{wire_spec.REPLICA_PHASES})")
 
     def loader(prefix):
         layer = jit_load(prefix, device=device, slab_rows=slab_rows)
@@ -711,7 +723,7 @@ def serve_model(path_prefix, port=0, dynamic_batching=False, max_batch_size=32,
         if engine is not None and warmup:
             engine.warmup()
         server = PredictorServer(run, port=port, engine=engine, own_engine=engine is not None,
-                                 loader=loader, prefix=path_prefix)
+                                 loader=loader, prefix=path_prefix, phase=phase)
     except BaseException:
         if engine is not None:
             engine.close()

@@ -14,7 +14,9 @@ optionally followed by 9-byte marker-tagged fields (``u8 marker |
 8-byte payload``) in any order, each marker at most once; parsing stops
 at the first unknown marker.
 
-Copied: the tables, the array and request codec, and the kv-snapshot
+Copied: the tables (with ``REPLICA_PHASES``, the pools of a
+disaggregated fleet), the array and request codec (with
+``encode_tenant``, the fleet router's admission field), and the kv-snapshot
 block (``encode_kv_snapshot``, ``decode_kv_snapshot_off``,
 ``decode_kv_snapshot_header``, ``decode_kv_resume``): a snapshot
 encodes to the reference's bytes for the same header and arrays. The
@@ -248,6 +250,15 @@ DECODE_HANDOFF_BIT = 1 << DECODE_HANDOFF_BIT_SHIFT
 DECODE_SPEC_BIT_SHIFT = 61
 DECODE_SPEC_BIT = 1 << DECODE_SPEC_BIT_SHIFT
 
+#: Replica phases a server may declare in its cmd-3 health body (and
+#: echo in cmd-5 stats): a `prefill` replica is placed for prompt
+#: ingestion (large prompt buckets), a `decode` replica for token
+#: generation (many KV slots), `both` serves colocated. Phase is a
+#: PLACEMENT attribute: every phase still serves every command, so a
+#: fleet whose other pool collapsed can degrade to colocated serving
+#: on the survivors instead of failing requests.
+REPLICA_PHASES = ("prefill", "decode", "both")
+
 #: First payload byte of a kv-snapshot block (and of the status-3
 #: snapshot frames that carry one). A token chunk's first payload byte
 #: is its u8 array count, far below this value, so the two frame
@@ -332,6 +343,11 @@ def encode_deadline(timeout_ms):
 def encode_trace(trace_id):
     """The optional trailing trace-id field (marker 0x1D + u64)."""
     return struct.pack("<BQ", TRACE_MARKER, int(trace_id))
+
+
+def encode_tenant(tenant_id):
+    """The optional trailing tenant-id field (marker 0x7E + u64)."""
+    return struct.pack("<BQ", TENANT_MARKER, int(tenant_id))
 
 
 def encode_decode_opts(max_new_tokens, oneshot=False, snapshot_every=0,

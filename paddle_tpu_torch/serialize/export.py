@@ -13,6 +13,11 @@ export.py): ``torch.export`` programs, where the reference speaks
   and needs no canonical form.
 - ``model_fingerprint``: sha256 over the serialized bytes with the quant
   mode folded in, exactly as the reference hashes.
+- ``runtime_version``: the runtime an artifact is tied to, the port's
+  triple ``torch-<ver>/cuda-<ver>/<device>`` (``sm_90`` on an H100,
+  ``cpu`` without a card) where the reference names jax, jaxlib and its
+  backend. It is part of the artifact store's key, so an artifact of
+  another runtime is a clean miss.
 
 The programs call the port's kernels as ``torch.library`` custom ops
 (``paddle_tpu_torch::flash_attention_fwd``, ``::flash_attention_bwd``,
@@ -56,3 +61,23 @@ def model_fingerprint(module_bytes, quant=None):
     if quant is not None and quant != "f32":
         h.update(b"\x00quant:" + str(quant).encode("utf-8"))
     return h.hexdigest()
+
+
+def runtime_version(device=None):
+    """The runtime an artifact is tied to, as one stable string:
+    ``torch-<ver>/cuda-<ver>/<device>``, the device ``sm_<major><minor>``
+    of the current card (or of ``device``, a torch device on a card) or
+    ``cpu``. Part of the artifact-store key, so artifacts written by a
+    different runtime are never found (a miss, not a corruption)."""
+    import torch
+
+    cuda = torch.version.cuda or "none"
+    dev = torch.device(device) if device is not None else None
+    if dev is not None and dev.type != "cuda":
+        where = "cpu"
+    elif torch.cuda.is_available():
+        major, minor = torch.cuda.get_device_capability(dev)
+        where = f"sm_{major}{minor}"
+    else:
+        where = "cpu"
+    return f"torch-{torch.__version__}/cuda-{cuda}/{where}"

@@ -350,20 +350,23 @@ def test_validation(model):
 
 
 @pytest.mark.parametrize("option", [dict(mesh="fsdp2xtp2"), dict(mesh="tp2"),
-                                    dict(prefix_dir="somewhere"), dict(phase="prefill"),
                                     dict(store="somewhere")])
 def test_unported_engine_options_raise(model, option):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_engine(model, **option)
 
 
 @pytest.mark.parametrize("option", [dict(prefix=True), dict(prefix_max_bytes=4096),
-                                    dict(breaker_threshold=2), dict(breaker_cooldown=0.5)])
-def test_ported_engine_options_work(model, option):
+                                    dict(breaker_threshold=2), dict(breaker_cooldown=0.5),
+                                    dict(phase="prefill"), dict(prefix_dir="<tmp>")])
+def test_ported_engine_options_work(model, option, tmp_path):
     """The prefix cache and its budget, ported: a prompt whose first page
     is cached hits and emits its cold tokens. The breakers' options,
     ported: the engine takes them (the reference's defaults otherwise),
-    and every program used has a closed breaker."""
+    and every program used has a closed breaker. ``phase`` and the
+    persistent tier's ``prefix_dir`` change neither."""
+    if option.get("prefix_dir"):
+        option = dict(prefix_dir=str(tmp_path))
     prompt = np.concatenate([LONG[:8], PROMPTS[0]])
     with make_engine(model, **option) as eng:
         eng.generate(LONG, max_new_tokens=3, timeout=60)

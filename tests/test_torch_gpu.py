@@ -1349,3 +1349,58 @@ def test_static_bert_program_on_the_card_matches_the_cpu(cuda):
     assert abs(float(out[0]) - float(out[1])) <= 1e-4
     for a, b in zip(progs[0][0].all_parameters(), progs[1][0].all_parameters()):
         assert np.abs(a.numpy() - b.numpy()).max() <= 2.5e-3
+
+
+def test_router_in_front_of_two_card_replicas_is_bitwise(cuda, tmp_path):
+    """Two serve_model replicas on the card, each its own process
+    (subprocess_spawner), behind the fleet router: every reply is bitwise
+    Predictor.run of its rows in this process, and a SIGKILLed replica is
+    routed around (status 0 or 2, never 1) and respawned."""
+    import signal
+    import socket
+    import struct
+
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.inference import fleet, wire_spec
+    from paddle_tpu_torch.inference.registry import ReplicaRegistry
+    from paddle_tpu_torch.inference.server import _read_all
+    from paddle_tpu_torch.static import InputSpec
+
+    model = BertModel(**_DEPLOY_CFG, device="cuda",
+                      generator=torch.Generator().manual_seed(5)).eval()
+    path = str(tmp_path / "bert")
+    jit.save(model, path, input_spec=[InputSpec([None, 128], "int32")])
+    cfg = inference.Config(path)
+    cfg.set_slab_rows(8)
+    pred = inference.create_predictor(cfg)
+
+    def request(port, ids):
+        frame = wire_spec.build_request(wire_spec.CMD_INFER, wire_spec.encode_arrays([ids]))
+        with socket.create_connection(("127.0.0.1", port), timeout=120) as s:
+            s.sendall(frame)
+            (blen,) = struct.unpack("<I", _read_all(s, 4))
+            return _read_all(s, blen)
+
+    spawn = fleet.subprocess_spawner(path, max_batch_size=8, slab_rows=8)
+    f = fleet.Fleet(spawn, replicas=2, supervise=False,
+                    registry=ReplicaRegistry(heartbeat_interval=0.05),
+                    autoscaler=fleet.Autoscaler(min_replicas=2, max_replicas=2),
+                    router_kwargs=dict(retry_base=0.01, retry_max=0.05))
+    try:
+        rng = np.random.RandomState(6)
+        for n in (1, 2, 3, 1):
+            ids = rng.randint(0, 512, (n, 128)).astype(np.int32)
+            body = request(f.port, ids)
+            assert body[0] == 0
+            got = wire_spec.decode_arrays(body[1:])
+            assert all(np.array_equal(a, b) for a, b in zip(got, pred.run([ids])))
+        victim = sorted(f.handles())[0]
+        f.handles()[victim].proc.send_signal(signal.SIGKILL)
+        f.handles()[victim].proc.wait(60)
+        assert all(request(f.port, ids)[0] in (0, 2) for _ in range(3))
+        assert f.supervise_once()["dead"] == 1
+        body = request(f.port, ids)
+        assert body[0] == 0 and all(np.array_equal(a, b) for a, b in zip(
+            wire_spec.decode_arrays(body[1:]), pred.run([ids])))
+    finally:
+        f.close()

@@ -65,9 +65,10 @@ def test_telemetry_and_chaos_subpackages_are_checked(sub):
             "jit": {"__init__.py", "dy2static.py", "save_load.py", "static_function.py",
                     "translator.py"},
             "static": {"__init__.py", "input_spec.py"},
-            "serialize": {"__init__.py", "export.py"},
+            "serialize": {"__init__.py", "export.py", "artifact_store.py"},
             "inference": {"__init__.py", "batching.py", "config.py", "predictor.py",
-                          "server.py"},
+                          "server.py", "prefix_cache.py", "registry.py", "router.py",
+                          "fleet.py"},
             "framework": {"__init__.py", "op_version.py"}}[sub]
     assert want <= names
 

@@ -308,5 +308,11 @@ def test_cmd6_and_wire_trace_ids(clean_spans):
     finally:
         srv.stop()
     # stop() closed both engines and the server: their families are gone
-    assert "paddle_decode_" not in obs.render() and "paddle_server_" not in obs.render()
+    # (the fleet router's paddle_decode_resume* families are module-level,
+    # as in the reference, and stay once inference/router.py is imported)
+    text = obs.render()
+    assert not any(line.startswith(("paddle_decode_", "# TYPE paddle_decode_"))
+                   and "resume" not in line for line in text.splitlines())
+    assert "paddle_server_" not in text
+    assert 'engine="obs-decode"' not in text and 'engine="obs-batch"' not in text
     assert batch.health()["closed"] and dec.health()["closed"]

@@ -194,7 +194,7 @@ class _Refs:
             del self.rc[pid]
 
 
-def test_prefix_cache_stats_equal_the_reference(clean_env):
+def test_prefix_cache_stats_equal_the_reference(clean_env, tmp_path):
     """One seeded sequence of lookups and inserts (chains sharing pages,
     duplicates, evictions under a 12-page budget) through both memory
     tiers: the same answers, stats and page references after every op."""
@@ -223,8 +223,8 @@ def test_prefix_cache_stats_equal_the_reference(clean_env):
     assert (st["store_hits"], st["store_refused"], st["persistent"]) == (0, 0, False)
     ours.clear()
     assert ours_refs.rc == {}
-    with pytest.raises(NotImplementedError):
-        pc.PrefixCache(ours_refs, store_dir="somewhere")
+    tiered = pc.PrefixCache(ours_refs, store_dir=str(tmp_path))
+    assert tiered.stats()["persistent"] and tiered.needs_publish("0" * 64)
 
 
 @pytest.mark.parametrize("seq_axis,trailing", [(1, (3,)), (2, (2, 4))])
@@ -366,6 +366,68 @@ def test_hit_vs_cold_bitwise(model):
         # a hit fills only its suffix: 3 chunks cold, 1 a hit
         assert st["prefix_fill_steps"] == 3 + 1 + 1
         assert st["live_pages"] == 2 and st["shared_pages"] == 1
+
+
+# ------------------------------------------------------ the persistent tier
+def test_persistent_tier_second_engine_hits_bitwise_the_cold(model, tmp_path):
+    """An engine fills a prompt and publishes its longest boundary to its
+    ``prefix_dir``; a second engine (a respawned replica) on the same
+    directory misses its memory tier, loads the block, fills only the
+    suffix and emits exactly the cold tokens; the block is the
+    reference's format, its KV rows those of the cold fill."""
+    p = prompt_with(SUFFIXES[1])
+    with make_engine(model, prefix=False) as cold:
+        want = cold.generate(p, max_new_tokens=6, timeout=60).tolist()
+    with make_engine(model, prefix_dir=str(tmp_path), name="tier-a") as first:
+        assert first.generate(p, max_new_tokens=6, timeout=60).tolist() == want
+        st = first.stats()["prefix"]
+        assert st["persistent"] and st["store_hits"] == 0
+    blocks = [n for n in sorted(tmp_path.iterdir()) if n.name.startswith("art-")]
+    assert len(blocks) == 1
+    blob = (blocks[0] / "program.jaxexport").read_bytes()
+    header, arrays, _ = ref_spec.decode_kv_snapshot_off(blob)  # the reference reads it
+    assert header["pos"] == 16 and header["page_len"] == PAGE
+    assert arrays[0].tolist() == PREFIX.tolist() and arrays[1].size == 0
+    with make_engine(model, prefix_dir=str(tmp_path), name="tier-b") as second:
+        assert second.generate(p, max_new_tokens=6, timeout=60).tolist() == want
+        st = second.stats()
+        assert st["prefix"]["store_hits"] == 1 and st["prefix"]["misses"] == 1
+        assert st["prefix_fill_steps"] == 1  # the suffix's chunk only
+        # the loaded block became a memory entry: a third prompt hits in memory
+        assert second.generate(prompt_with(SUFFIXES[2]), max_new_tokens=4,
+                               timeout=60).size == 4
+        assert second.stats()["prefix"]["hits"] == 1
+
+
+def test_persistent_tier_skewed_identity_misses_cleanly(model, tmp_path):
+    """Other weights are another key (a clean miss, nothing refused); a
+    block under this replica's key whose tokens do not match is refused
+    (counted) and never installed: the stream is the cold one."""
+    p = prompt_with(SUFFIXES[0])
+    with make_engine(model, prefix_dir=str(tmp_path), name="skew-a") as first:
+        first.generate(p, max_new_tokens=4, timeout=60)
+    other = torch_toy_model(seed=1)
+    with make_engine(other, prefix=False) as cold:
+        want = cold.generate(p, max_new_tokens=4, timeout=60).tolist()
+    with make_engine(other, prefix_dir=str(tmp_path), name="skew-b") as eng:
+        assert eng.generate(p, max_new_tokens=4, timeout=60).tolist() == want
+        st = eng.stats()["prefix"]
+        assert (st["store_hits"], st["store_refused"]) == (0, 0)
+    # forge: this model's key, another prompt's block
+    with make_engine(model, prefix_dir=str(tmp_path / "forged"), name="skew-c") as eng:
+        cache = eng._prefix
+        hashes = pc.prefix_hashes(p, PAGE, pc.feature_seed(()))
+        n_tok, hx = hashes[-1]
+        wrong = np.array(p[:n_tok], np.int32)
+        wrong[0] += 1
+        kv = [np.zeros((n_tok, HID), np.float32)] * 2
+        cache._published.discard(hx)
+        assert cache.publish(hx, n_tok, wrong, kv)  # published under hx's key
+        with make_engine(model, prefix=False) as cold:
+            want = cold.generate(p, max_new_tokens=4, timeout=60).tolist()
+        assert eng.generate(p, max_new_tokens=4, timeout=60).tolist() == want
+        st = eng.stats()["prefix"]
+        assert st["store_refused"] >= 1 and st["store_hits"] == 0
 
 
 def test_concurrent_shared_prefix_bitwise(model):

@@ -234,7 +234,13 @@ def test_direct_serving_and_the_unserved_knobs(bert_saves):
         srv.stop()
     with pytest.raises(NotImplementedError, match="mesh"):
         serve_model(p1, mesh="tp2")
-    with pytest.raises(NotImplementedError, match="prefill"):
-        serve_model(p1, phase="prefill")
+    srv = serve_model(p1, phase="prefill")  # a pool of a disaggregated fleet
+    try:
+        health = json.loads(_call(srv.port, ws.build_request(ws.CMD_HEALTH))[1])
+        assert health["phase"] == "prefill" and health["accepting"]
+    finally:
+        srv.stop()
+    with pytest.raises(ValueError, match="phase"):
+        serve_model(p1, phase="prefil")
     with pytest.raises(FileNotFoundError):
         serve_model("/nowhere/model")
