@@ -15,7 +15,8 @@ Phases, each fatal on failure (exit code 1):
   3. kernels  hold K1 against mha_reference, and K2/K3 against
               mha_bwd_reference, on the card at the shapes the main paths
               give them and at the other forms they take, each form in
-              float32 and bfloat16; check that dropout lands exactly where
+              float32 and bfloat16 (FORMS and TRAIN_FORMS in float16 too,
+              phase 21 (a)); check that dropout lands exactly where
               the counter hash keeps (K1's O, K2's dQ, K3's dV); time
               kernel, plain version and the nearest PyTorch call (a
               yardstick only: the port never calls it) both by CUDA events
@@ -452,7 +453,34 @@ Phases, each fatal on failure (exit code 1):
               time to first token and inter-token p50/p99, the handoff's
               and the resume's ms, respawn to routable, the goodput ratio,
               the phase's seconds
- 21. summary  a {"kernels": [...]} line, then as the last line
+ 21. safety   training safety and precision: (a) is part of phase 3 (the
+              float16 forms of K1-K3 at FORMS, TRAIN_FORMS and BERT-base's
+              fp16 training shape, [64 * 12, 128, 64] with and without
+              dropout, held at the bf16 tolerances, the dropout placement
+              in fp16 too); (b) BERT-base fp16 O1 dygraph with
+              GradScaler(init_loss_scaling 2^15, the reference's defaults):
+              a depth-2 step at batch 4 x 128 on the card and on the CPU
+              from the same weights (the scaler's skips before the taken
+              step equal; then test_torch_train.py's O1 bounds), then 3 +
+              20 full-depth steps at 64 x 128 on one batch: the loss finite
+              and falling, K1-K3 12 times a step in their fp16 form
+              (form_launches), the scale after each step, the steps
+              skipped, the median step beside phase 15's bf16 step; (c) an
+              inf injected into the loss under a scaler with a
+              BadStepMonitor attached: skipped, parameters bitwise, the
+              scale halved, counted bad; build_train_step(O1, float16,
+              bad_step_guard=True) at depth 2 (batch 4, a loss weighted per
+              position, so a batch can carry a NaN): a NaN batch gives bad
+              with params and opt_state (donated) bitwise unchanged; a
+              BadStepMonitor(threshold 3) over a CheckpointManager: three
+              NaN batches -> ROLLBACK, restore() gives the saved params
+              bitwise, and 5 more steps lower the loss; (d) Llama-374M at
+              phase 13's O1 bf16 step, 3 + 5 steps resident and with
+              offload=True from the same weights: losses and final params
+              bitwise equal, every non-scalar state tensor pinned on the
+              host; step ms and peak memory of both; (e) the phase's
+              launches and seconds
+ 22. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -488,14 +516,15 @@ import numpy as np
 # sheet): the bound of a kernel is the larger of bytes / HBM rate and
 # operations / the peak rate of the unit its dtype runs on
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 
 SEQ_OUT_TOL = 1e-3  # served sequence output vs the CPU run, float32
-TOL_O = {"float32": 1e-4, "bfloat16": 2e-2}
+TOL_O = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
 TOL_LSE = 1e-4
 # K2/K3 gradients vs mha_bwd_reference, relative to the gradient's max
-# magnitude (the kernels round dS and P to bf16 at the same points)
-TOL_GRAD = {"float32": 1e-4, "bfloat16": 2e-2}
+# magnitude (the kernels round dS and P to bf16 or fp16 at the same points;
+# fp16 is held at bf16's bound)
+TOL_GRAD = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
 # training parity step, card vs CPU, float32 (GEMM sums in another order):
 # loss relative; clipped gradients relative to each tensor's max
 # magnitude; updated parameters absolute, 2.5 * lr because AdamW's first
@@ -570,7 +599,8 @@ def phase_build(torch, cuda_build, fa, kernels):
             continue
         log(f"[build] {k['lib']} dynamic shared memory per block: "
             + ", ".join(f"head_dim {d} {str(dt)[6:]}: {fa.smem_bytes(d, k['lib'], dt)} bytes"
-                        for d in fa.HEAD_DIMS for dt in (torch.float32, torch.bfloat16)))
+                        for d in fa.HEAD_DIMS
+                        for dt in (torch.float32, torch.bfloat16, torch.float16)))
 
 
 # ------------------------------------------------------------------ phase 3
@@ -590,7 +620,7 @@ def attention_bound_ms(bh, sq, sk, d, dtype, causal, kernel="fwd"):
     operations (QK^T, PV). bwd_dq reads q, k, v, dO, LSE, delta and writes
     dQ; 6 * pairs * d (S, dP, dQ). bwd_dkv reads the same and writes dK,
     dV; 8 * pairs * d (S, dP, dV, dK)."""
-    elem = 2 if dtype == "bfloat16" else 4
+    elem = 4 if dtype == "float32" else 2
     tensors, floats, per_pair = {
         "fwd": ((2 * sq + 2 * sk), sq, 4),
         "bwd_dq": ((3 * sq + 2 * sk), 2 * sq, 6),
@@ -665,7 +695,8 @@ def _share(bound_ms, dev_ms):
 
 
 # the forms the kernels take besides the main paths' shapes, each run in
-# float32 and in bfloat16 (the bf16 forms are separate kernels)
+# float32 and in bfloat16 (the bf16 forms are separate kernels), and with
+# TRAIN_FORMS in float16 (phase 21 (a): the fp16 forms)
 FORMS = [
     dict(b=2, h=12, sq=512, sk=512, d=64, causal=True, p=0.0),
     dict(b=2, h=12, sq=200, sk=512, d=64, causal=True, p=0.0),
@@ -708,6 +739,12 @@ MT_TRAIN_FORMS = [dict(b=64, h=8, sq=sq, sk=64, d=64, causal=False, p=0.1)
                   for sq in (64, 48)]
 TRAIN_FORMS = LM_TRAIN_FORMS + MT_TRAIN_FORMS
 
+# the float16 forms phase 21 (b) runs: BERT-base O1 fp16 training at batch 64
+# x seq 128, 12 heads of 64, with attention dropout 0.1 and (for phase 21
+# (c)'s dropout-free comparisons) without
+F16_CASES = [dict(b=64, h=12, sq=128, sk=128, d=64, dtype="float16", causal=False, p=p)
+             for p in (0.1, 0.0)]
+
 
 def library_reason(c):
     """Why no single PyTorch call computes this case, or None."""
@@ -747,10 +784,12 @@ def phase_kernels(torch, fa):
     forms = FORMS + [dict(b=8, h=1, sq=1, sk=257, d=128, causal=True, p=0.0)]  # decode
     forms += LLAMA_FORMS + TRANSLATION_FORMS + TRAIN_FORMS
     cases += [dict(f, dtype=dt) for f in forms for dt in ("float32", "bfloat16")]
+    cases += F16_CASES + [dict(f, dtype="float16") for f in FORMS + TRAIN_FORMS]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
     log("[kernels] flash_attention_fwd vs mha_reference "
-        f"(tolerance O {TOL_O['float32']} f32 / {TOL_O['bfloat16']} bf16, LSE {TOL_LSE}); "
+        f"(tolerance O {TOL_O['float32']} f32 / {TOL_O['bfloat16']} bf16 / "
+        f"{TOL_O['float16']} fp16, LSE {TOL_LSE}); "
         "times: CUDA events / device (profiler)")
     for c in cases:
         bh = c["b"] * c["h"]
@@ -826,7 +865,7 @@ def length_bound_ms(h, sq, sk, d, dtype, causal, k_lens):
     batch rows of ``h`` heads: q, O and LSE of every row and only each
     row's k_len valid K/V rows (the rows past a length are never read),
     over the HBM rate; vs 4 * d operations a computed pair over the peak."""
-    elem = 2 if dtype == "bfloat16" else 4
+    elem = 4 if dtype == "float32" else 2
     b = len(k_lens)
     nbytes = b * h * (2 * sq * d * elem + sq * 4) + 2 * h * sum(k_lens) * d * elem
     ops = 4 * d * h * sum(length_pairs(sq, sk, n, causal) for n in k_lens)
@@ -1019,10 +1058,12 @@ def phase_bwd_kernels(torch, fa):
                       p=0.1))
     cases += [dict(f, dtype=dt) for f in FORMS + TRAIN_FORMS
               for dt in ("float32", "bfloat16")]
+    cases += F16_CASES + [dict(f, dtype="float16") for f in FORMS + TRAIN_FORMS]
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = []
     log("[bwd kernels] flash_attention_bwd_dq (K2) / _dkv (K3) vs mha_bwd_reference "
-        f"(tolerance {TOL_GRAD['float32']} f32 / {TOL_GRAD['bfloat16']} bf16 of the "
+        f"(tolerance {TOL_GRAD['float32']} f32 / {TOL_GRAD['bfloat16']} bf16 / "
+        f"{TOL_GRAD['float16']} fp16 of the "
         "gradient's max magnitude); times: CUDA events / device (profiler)")
     for c in cases:
         bh = c["b"] * c["h"]
@@ -1104,7 +1145,7 @@ def phase_dropout_placement(torch, fa):
     p, seed = 0.3, 2024
     for d, sq in [(d, d) for d in fa.HEAD_DIMS] + [(64, 48)]:
         sk = d
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
             bh = 6
             q0 = torch.zeros(bh, sq, d, device="cuda", dtype=dt)
             k0 = torch.zeros(bh, sk, d, device="cuda", dtype=dt)
@@ -1261,11 +1302,14 @@ def phase_serving(torch, fa, port_mods):
             fail(f"served output for {label} disagrees with the CPU run "
                  f"(max abs err {err} > {SEQ_OUT_TOL})")
 
-    # recorded, not required: the reference's contract rests on XLA's CPU
-    # programs being row-stable across batch sizes >= 2; on the card cuBLAS
-    # picks its GEMM kernels per M (here 8 x 128 coalesced rows against 2 x
-    # 128 and 3 x 128). Coalesced 1-row requests are the contract's own
-    # exemption and are not compared
+    # recorded, not required (a documented exemption, ROADMAP Queue 3 (b)):
+    # the reference's contract rests on XLA's CPU programs being row-stable
+    # across batch sizes >= 2; on the card cuBLAS picks its GEMM kernels per
+    # M (here 8 x 128 coalesced rows against 2 x 128 and 3 x 128), and the
+    # engine cannot fix the M of the caller's direct call. The CPU holds it
+    # bitwise (tests/test_torch_serving.py); a loaded program holds it on
+    # the card by slabs (phase 18). Coalesced 1-row requests are the
+    # contract's own exemption and are not compared
     same = []
     for ids, (seq_out, _) in zip(pair, pair_out):
         (direct, _) = run(ids)
@@ -1365,9 +1409,9 @@ def profile_device(torch, fn, label, top=8, groups=None, records=None, spans=Non
 ANNOTATIONS = ("build_train_step.update",)
 # kernel-name fragments -> the layer of the port that launched them
 KERNEL_GROUPS = (
-    ("K1 flash_attention_fwd", ("fwd_f32_kernel", "fwd_bf16_kernel")),
-    ("K2 flash_attention_bwd_dq", ("dq_f32_kernel", "dq_bf16_kernel")),
-    ("K3 flash_attention_bwd_dkv", ("dkv_f32_kernel", "dkv_bf16_kernel")),
+    ("K1 flash_attention_fwd", ("fwd_f32_kernel", "fwd_b16_kernel")),
+    ("K2 flash_attention_bwd_dq", ("dq_f32_kernel", "dq_b16_kernel")),
+    ("K3 flash_attention_bwd_dkv", ("dkv_f32_kernel", "dkv_b16_kernel")),
     ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_", "nvjet")),
     ("int64 elementwise (counter-hash dropout masks)", ("<long",)),
 )
@@ -1574,9 +1618,10 @@ TRAIN_SEQ, TRAIN_PRED, O1_BATCH, O1_STEPS = 128, 20, 64, 20
 def bert_pretraining_parts(torch, nn, optimizer, spmd):
     """bench.py's BERT-base pretraining pieces (phases 5 and 15): ``batch(b,
     vocab)`` -> (the packed [ids | masked positions] int32 input, the
-    labels), ``build(model, amp_level)`` -> build_train_step's (step,
-    init) over the TrainWrapper with AdamW(LR, weight decay 0.01,
-    ClipGradByGlobalNorm(1.0))."""
+    labels), ``build(model, amp_level, loss=bench.py's loss, **kw)`` ->
+    build_train_step's (step, init) over the TrainWrapper with AdamW(LR,
+    weight decay 0.01, ClipGradByGlobalNorm(1.0)); ``kw`` goes to
+    build_train_step."""
 
     class TrainWrapper(torch.nn.Module):
         """bench.py's wrapper: one packed [B, S + P] int32 input, split
@@ -1605,11 +1650,11 @@ def bert_pretraining_parts(torch, nn, optimizer, spmd):
         labels = rng.randint(0, vocab, (b, TRAIN_PRED)).astype(np.int32)
         return torch.from_numpy(np.concatenate([ids, pos], 1)), torch.from_numpy(labels)
 
-    def build(model, amp_level):
+    def build(model, amp_level, loss=loss_fn, **kw):
         wrapper = TrainWrapper(model, TRAIN_SEQ)
         opt = optimizer.AdamW(LR, parameters=wrapper.parameters(), weight_decay=0.01,
                               grad_clip=nn.ClipGradByGlobalNorm(1.0))
-        return spmd.build_train_step(wrapper, loss_fn, opt, amp_level=amp_level)
+        return spmd.build_train_step(wrapper, loss, opt, amp_level=amp_level, **kw)
 
     return batch, build
 
@@ -4189,11 +4234,11 @@ def bench_flops_per_token(n_params, vocab, hidden, layers, seq):
     return 3.0 * (2.0 * matmul_params + 4.0 * seq * hidden * layers * 0.5)
 
 
-def phase_lm_training(torch, fa, mods, card):
-    """Phase 13 (module docstring): Llama-374M pretraining."""
-    LlamaModel, nn, optimizer, spmd, prandom = mods
-    t_phase = time.perf_counter()
-    torch.set_num_threads(os.cpu_count() or 1)
+def lm_parts(torch, nn, optimizer, spmd):
+    """bench.py's run_llama pieces (phases 13 and 21): ``make_batch(b)(dev)``
+    -> (ids, labels) int32 [b, LM_SEQ] from RandomState(0), ``build(model,
+    amp_level, **kw)`` -> build_train_step's (step, init) with AdamW(LM_LR,
+    weight decay LM_WD, ClipGradByGlobalNorm(1.0)) on the mean NLL."""
     vocab = LM_CFG["vocab_size"]
 
     def loss_fn(logits, labels):
@@ -4214,6 +4259,16 @@ def phase_lm_training(torch, fa, mods, card):
                               grad_clip=nn.ClipGradByGlobalNorm(1.0))
         return spmd.build_train_step(model, loss_fn, opt, amp_level=amp_level, **kw)
 
+    return make_batch, build
+
+
+def phase_lm_training(torch, fa, mods, card):
+    """Phase 13 (module docstring): Llama-374M pretraining."""
+    LlamaModel, nn, optimizer, spmd, prandom = mods
+    t_phase = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    vocab = LM_CFG["vocab_size"]
+    make_batch, build = lm_parts(torch, nn, optimizer, spmd)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     # (a) full width at depth 2, one O0 float32 step, card against CPU
@@ -4424,7 +4479,7 @@ def phase_mt_training(torch, fa, mods, card):
     counts = dict(fwd=fa.launches, bwd_dq=fa.dq_launches, bwd_dkv=fa.dkv_launches)
     # the same launches by form: the encoder's self-attention (Sq = Sk =
     # source) and the cross-attention (Sq = target, Sk = source)
-    forms = {form: {key: fa.form_launches.get((kernel, sq, MT_SRC), 0)
+    forms = {form: {key: fa.form_launches.get((kernel, sq, MT_SRC, "bfloat16"), 0)
                     for key, kernel in (("fwd", "fwd"), ("bwd_dq", "dq"), ("bwd_dkv", "dkv"))}
              for form, sq in (("encoder", MT_SRC), ("cross", MT_TRAIN_TGT))}
     peak = torch.cuda.max_memory_allocated()
@@ -4525,17 +4580,18 @@ def first_moments(opt, model):
             for n, p in model.named_parameters() if id(p) in opt._accumulators}
 
 
-def hold_step(label, got, want, zero_grads=("k_proj.bias",)):
+def hold_step(label, got, want, zero_grads=("k_proj.bias",), tol_loss=TOL_STEP_LOSS,
+              tol_grad=TOL_STEP_GRAD, tol_zero=TOL_ZERO_GRAD):
     """Phase 5's bounds on two runs of one step, each (loss, {name: clipped
-    gradient}, {name: updated parameter}): loss TOL_STEP_LOSS relative,
-    each gradient within TOL_STEP_GRAD of its max (those named by a suffix
-    in ``zero_grads``, zero but for rounding, within TOL_ZERO_GRAD of the
+    gradient}, {name: updated parameter}): loss ``tol_loss`` relative,
+    each gradient within ``tol_grad`` of its max (those named by a suffix
+    in ``zero_grads``, zero but for rounding, within ``tol_zero`` of the
     model's largest), each parameter within 2.5 * lr. Returns the failures
     and whether the two runs are bitwise equal."""
     (gl, gg, gp), (wl, wg, wp) = got, want
     bad = []
     loss_err = abs(gl - wl) / abs(wl)
-    if not (loss_err <= TOL_STEP_LOSS and np.isfinite(gl)):
+    if not (loss_err <= tol_loss and np.isfinite(gl)):
         bad.append("loss")
     if set(gg) != set(wg):
         bad.append(f"updated parameters {sorted(set(gg) ^ set(wg))}")
@@ -4545,7 +4601,7 @@ def hold_step(label, got, want, zero_grads=("k_proj.bias",)):
         zero = n.endswith(tuple(zero_grads))
         scale = model_max if zero else wg[n].abs().max().item()
         err = (gg[n] - wg[n]).abs().max().item() / max(scale, 1e-30)
-        share[n] = err / (TOL_ZERO_GRAD if zero else TOL_STEP_GRAD)
+        share[n] = err / (tol_zero if zero else tol_grad)
         if not share[n] <= 1.0:
             bad.append(f"grad {n}")
     worst = max(share, key=share.get)
@@ -4554,7 +4610,7 @@ def hold_step(label, got, want, zero_grads=("k_proj.bias",)):
         bad.append("updated parameters")
     bitwise = (gl == wl and all(np.array_equal(gp[n].numpy(), wp[n].numpy()) for n in wp))
     log(f"[dygraph] {label}: loss {gl:.6f} vs {wl:.6f} (rel err {loss_err:.2e}, tolerance "
-        f"{TOL_STEP_LOSS}); clipped gradients of {len(wg)} tensors, the worst at "
+        f"{tol_loss}); clipped gradients of {len(wg)} tensors, the worst at "
         f"{share[worst]:.2e} of its bound ({worst}); updated parameters max abs err {param_err:.3e} "
         f"(tolerance 2.5 lr = {2.5 * LR:.2e}); bitwise equal: {bitwise}")
     return bad, bitwise
@@ -4654,7 +4710,8 @@ def phase_dygraph(torch, fa, mods, card, train, serving):
         step_secs.append(time.perf_counter() - t)
         losses.append(float(loss.numpy()))
     counts = dict(fwd=fa.launches, bwd_dq=fa.dq_launches, bwd_dkv=fa.dkv_launches)
-    forms = {k: fa.form_launches.get((k, TRAIN_SEQ, TRAIN_SEQ), 0) for k in ("fwd", "dq", "dkv")}
+    forms = {k: fa.form_launches.get((k, TRAIN_SEQ, TRAIN_SEQ, "bfloat16"), 0)
+             for k in ("fwd", "dq", "dkv")}
     want_n = n_layers * O1_STEPS
     steady = _median(step_secs[1:])
     tokens = O1_BATCH * TRAIN_SEQ
@@ -7113,6 +7170,286 @@ def phase_fleet(torch, mods, card, deploy):
     return dict(a=a, b=b, launches=a["k1"] + b["k1"])
 
 
+# ------------------------------------------------------------------ phase 21
+F16_WARMUP, F16_STEPS = 3, 20  # (b): BERT-base fp16 O1 dygraph steps on phase 5's batch
+F16_INIT_SCALE = 2.0 ** 15  # GradScaler's default init_loss_scaling (the reference's)
+F16_PARITY_TRIES = 16  # (b): scaler steps tried until the parity step is taken (scale >= 0.5)
+# (b) the depth-2 fp16 O1 step, card vs CPU (the CPU runs K1-K3's plain
+# versions and its own fp16 GEMMs, which round at other points): test_torch_
+# train.py's O1 bounds, loss 2e-3 relative and clipped gradients within 5e-2
+# of each tensor's max (the key biases' within 5e-2 of the model's largest),
+# updated parameters within 2.5 lr
+TOL_F16_LOSS, TOL_F16_GRAD = 2e-3, 5e-2
+GUARD_DEPTH, GUARD_BATCH, GUARD_AFTER = 2, 4, 5  # (c): BERT-base width at depth 2; good steps
+OFFLOAD_WARMUP, OFFLOAD_STEPS = 3, 5  # (d): Llama-374M steps, resident and offloaded
+
+
+def f16_dygraph_step(paddle, model, opt, scaler, batch, inject=None):
+    """One fp16 O1 eager step with dynamic loss scaling: the forward under
+    auto_cast(O1, float16), scaler.scale(loss).backward(), scaler.step(opt)
+    (the reference's step unscales, skips on a non-finite gradient and runs
+    update() itself), opt.clear_grad(). ``inject`` multiplies the loss
+    before it is scaled (an inf makes the loss and every gradient it
+    reaches non-finite). Returns the loss."""
+    ids, pos, labels = batch
+    with paddle.amp.auto_cast(enable=True, level="O1", dtype="float16"):
+        mlm_logits, _ = model(ids, masked_positions=pos)
+        loss = dygraph_mlm_loss(paddle, mlm_logits, labels)
+    scaled = scaler.scale(loss if inject is None else loss * inject)
+    scaled.backward()
+    scaler.step(opt)
+    opt.clear_grad()
+    return loss
+
+
+def phase_safety(torch, fa, mods, card, dyg, lm):
+    """Phase 21 (module docstring): the fp16 forms on the training path,
+    the loss scaler, the bad-step guard with rollback, optimizer-state
+    offload."""
+    (paddle, BertForPretraining, LlamaModel, nn, optimizer, spmd, prandom, resilience) = mods
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    batch, build = bert_pretraining_parts(torch, nn, optimizer, spmd)
+    bert_kw = dict(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+    failures = []
+    first = (fa.launches, fa.dq_launches, fa.dkv_launches)
+
+    # (b) BERT-base fp16 O1 dygraph with GradScaler: first a depth-2 step at
+    # batch 4, card against CPU from the same weights and key stream (the
+    # scaler's skips until the step is taken held equal too)
+    model = BertForPretraining(num_hidden_layers=DYG_DEPTH, **bert_kw, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    vocab = model.bert.vocab_size
+    cpu_model = copy.deepcopy(model).to("cpu")
+    runs, skips, secs = {}, {}, {}
+    for dev, m in (("gpu", model), ("cpu", cpu_model)):
+        paddle.set_device(dev)
+        opt = dygraph_optimizer(paddle, m)
+        scaler = paddle.amp.GradScaler(init_loss_scaling=F16_INIT_SCALE)
+        data = dygraph_batch(paddle, *batch(4, vocab))
+        paddle.seed(0)
+        skips[dev] = []
+        t = time.perf_counter()
+        for _ in range(F16_PARITY_TRIES):
+            loss = float(f16_dygraph_step(paddle, m, opt, scaler, data).numpy())
+            if opt._accumulators:  # the optimizer stepped: the step was taken
+                break
+            skips[dev].append(scaler._scale)
+        secs[dev] = time.perf_counter() - t
+        runs[dev] = (loss, first_moments(opt, m),
+                     {n: p.detach().cpu() for n, p in m.named_parameters()})
+    paddle.set_device("gpu")
+    log(f"[safety] (b) depth-{DYG_DEPTH} fp16 O1 dygraph step at batch 4, dropout 0.1, "
+        f"GradScaler(init_loss_scaling=2^15): skips before the taken step card {len(skips['gpu'])} "
+        f"(scales after them {skips['gpu']}), cpu {len(skips['cpu'])}; card {secs['gpu']:.2f} s, "
+        f"cpu {secs['cpu']:.2f} s")
+    if skips["gpu"] != skips["cpu"] or not runs["gpu"][1]:
+        failures.append(f"(b) the scaler's skips differ card {skips['gpu']} / cpu "
+                        f"{skips['cpu']}, or no step was taken")
+    else:
+        bad, _ = hold_step(f"(b) fp16 O1 step at depth {DYG_DEPTH}: card vs CPU", runs["gpu"],
+                           runs["cpu"], tol_loss=TOL_F16_LOSS, tol_grad=TOL_F16_GRAD,
+                           tol_zero=TOL_F16_GRAD)
+        failures += [f"(b) parity {b}" for b in bad]
+    del model, cpu_model, runs, opt, scaler, data
+
+    # full depth at phase 5's batch of 64 x 128: 3 warm-up and 20 timed steps
+    model = BertForPretraining(**bert_kw, device="cuda", generator=torch.Generator().manual_seed(0))
+    n_layers = len(model.bert.encoder.layers)
+    opt = dygraph_optimizer(paddle, model)
+    scaler = paddle.amp.GradScaler(init_loss_scaling=F16_INIT_SCALE)
+    data = dygraph_batch(paddle, *batch(O1_BATCH, vocab))
+    paddle.seed(0)
+    scales, losses, step_secs, skipped = [], [], [], 0
+    for i in range(F16_WARMUP + F16_STEPS):
+        if i == F16_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+            fa.form_launches.clear()
+        before = scaler.state_dict()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = f16_dygraph_step(paddle, model, opt, scaler, data)
+        torch.cuda.synchronize()
+        step_secs.append(time.perf_counter() - t)
+        losses.append(float(loss.numpy()))
+        scales.append(scaler._scale)
+        skipped += scaler._scale < before["scale"]
+    forms = {k: fa.form_launches.get((k, TRAIN_SEQ, TRAIN_SEQ, "float16"), 0)
+             for k in ("fwd", "dq", "dkv")}
+    want_n = n_layers * F16_STEPS
+    steady = _median(step_secs[F16_WARMUP:])
+    tokens = O1_BATCH * TRAIN_SEQ
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[safety] (b) fp16 O1 dygraph, batch {O1_BATCH} x seq {TRAIN_SEQ}, dropout 0.1, "
+        f"{F16_WARMUP} + {F16_STEPS} steps: loss " + " ".join(f"{v:.4f}" for v in losses))
+    log(f"[safety] (b) the scale after each step: {scales}; steps skipped {skipped} (each "
+        "halves the scale)")
+    log(f"[safety] (b) fp16 O1 dygraph step (median of the {F16_STEPS} timed steps, host clock "
+        f"to synchronize): {steady * 1e3:.2f} ms, {tokens / steady:.0f} tokens/s; phase 15's "
+        f"bf16 O1 dygraph step in this run {dyg['step_ms']:.2f} ms; peak memory "
+        f"{peak / 2**30:.2f} GiB | {card}")
+    log(f"[safety] (b) fp16 launches by form (kernel, {TRAIN_SEQ}, {TRAIN_SEQ}, float16) over "
+        f"the {F16_STEPS} timed steps: {forms} (expected {want_n} each)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"(b) the loss is not finite or did not fall: {losses}")
+    if any(v != want_n for v in forms.values()):
+        failures.append(f"(b) fp16 launches {forms} != {n_layers} x {F16_STEPS}")
+
+    # (c, last part) the scaler with a monitor attached: an inf multiplied
+    # into the loss skips the step, leaves the parameters bitwise, halves the
+    # scale and counts as bad
+    mon = scaler.attach_bad_step_monitor(resilience.BadStepMonitor(threshold=3))
+    snap = {n: p.detach().clone() for n, p in model.named_parameters()}
+    scale0 = scaler._scale
+    f16_dygraph_step(paddle, model, opt, scaler, data, inject=float("inf"))
+    same = all(torch.equal(p.detach(), snap[n]) for n, p in model.named_parameters())
+    log(f"[safety] (c) GradScaler + BadStepMonitor, inf injected into the loss: parameters "
+        f"bitwise unchanged {same}, scale {scale0} -> {scaler._scale}, monitor total_bad "
+        f"{mon.total_bad}, consecutive {mon.consecutive}")
+    if not (same and scaler._scale == scale0 / 2 and mon.total_bad == 1):
+        failures.append("(c) the scaler's injected inf did not skip, halve and count")
+    del model, opt, scaler, data, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) build_train_step(O1, float16, bad_step_guard=True) at depth 2: the
+    # loss takes per-position weights from the batch, so a batch can carry a
+    # NaN (the ids are integers)
+    def weighted_loss(mlm_logits, target):
+        labels, weight = target
+        logp = torch.log_softmax(mlm_logits.float(), dim=-1)
+        nll = -torch.take_along_dim(logp, labels[..., None].long(), dim=-1)[..., 0]
+        return (nll * weight).sum() / weight.sum()
+
+    model = BertForPretraining(num_hidden_layers=GUARD_DEPTH, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0, device="cuda",
+                               generator=torch.Generator().manual_seed(1))
+    step, init = build(model, "O1", loss=weighted_loss, amp_dtype="float16",
+                       bad_step_guard=True)
+    params, state = init()
+    packed, labels = (t.cuda() for t in batch(GUARD_BATCH, vocab))
+    ones = torch.ones(labels.shape, device=labels.device)
+    poisoned = ones.clone()
+    poisoned[0, 0] = float("nan")
+    keys = iter(prandom.fold_in(prandom.PRNGKey(21), i) for i in range(64))
+    loss, params, state, bad = step(params, state, packed, (labels, ones), key=next(keys))
+    snap_p = {n: p.clone() for n, p in params.items()}
+    snap_s = {n: tuple(a.clone() for a in st) for n, st in state.items()}
+    given = (params, state)
+    loss_bad, params, state, bad = step(params, state, packed, (labels, poisoned), key=next(keys))
+    kept = (all(torch.equal(params[n], snap_p[n]) and torch.equal(given[0][n], snap_p[n])
+                for n in snap_p)
+            and all(torch.equal(a, b) for n in snap_s for a, b in zip(state[n], snap_s[n])))
+    log(f"[safety] (c) guarded fp16 O1 step at depth {GUARD_DEPTH}, batch {GUARD_BATCH}: a good "
+        f"step's loss {float(loss):.4f}; a NaN batch: loss {float(loss_bad)}, bad {bool(bad)}, "
+        f"params and opt_state (donated) bitwise unchanged {kept}")
+    if not (bool(bad) and kept):
+        failures.append("(c) the NaN batch was not a no-op")
+    tmp = tempfile.mkdtemp(prefix="paddle_tpu_torch_safety_")
+    try:
+        mgr = resilience.CheckpointManager(tmp, keep=2)
+        t = time.perf_counter()
+        mgr.save({"params": params, "opt": {n: list(st) for n, st in state.items()}}, 1)
+        save_s = time.perf_counter() - t
+        saved = {n: p.detach().cpu() for n, p in params.items()}
+        mon = resilience.BadStepMonitor(threshold=3, manager=mgr)
+        actions = []
+        for _ in range(3):
+            _, params, state, bad = step(params, state, packed, (labels, poisoned),
+                                         key=next(keys))
+            actions.append(mon.record(bool(bad)))
+        t = time.perf_counter()
+        restored, at = mon.restore()
+        restore_s = time.perf_counter() - t
+        params = {n: torch.as_tensor(np.asarray(v)).cuda() for n, v in restored["params"].items()}
+        state = {n: tuple(torch.as_tensor(np.asarray(a)).cuda() for a in st)
+                 for n, st in restored["opt"].items()}
+        back = all(torch.equal(params[n].cpu(), saved[n]) for n in saved)
+        after = []
+        for _ in range(GUARD_AFTER):
+            loss, params, state, bad = step(params, state, packed, (labels, ones), key=next(keys))
+            after.append((float(loss), bool(bad)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[safety] (c) BadStepMonitor(threshold=3, CheckpointManager): three NaN batches -> "
+        f"{actions}; restore() -> step {at}, params bitwise the saved step's {back} (save "
+        f"{save_s:.2f} s, restore {restore_s:.2f} s, the state {sum(v.numel() for v in saved.values()) * 12 / 2**20:.0f} MiB "
+        f"with AdamW's moments); then {GUARD_AFTER} steps: loss "
+        + " ".join(f"{v:.4f}" for v, _ in after))
+    if actions != [resilience.badstep.SKIP, resilience.badstep.SKIP,
+                   resilience.badstep.ROLLBACK] or at != 1 or not back:
+        failures.append(f"(c) the rollback did not restore the saved step: {actions}, {at}")
+    if any(b for _, b in after) or not after[-1][0] < after[0][0]:
+        failures.append(f"(c) training after the rollback: {after}")
+    del model, step, init, params, state, restored, saved, given, snap_p, snap_s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) Llama-374M at bench.py's run_llama shape (phase 13's O1 bf16 step):
+    # offload=True beside the resident step from the same weights
+    make_batch, lm_build = lm_parts(torch, nn, optimizer, spmd)
+    x, y = make_batch(LM_BATCH)("cuda")
+    lkeys = ([prandom.fold_in(prandom.PRNGKey(0), i) for i in range(OFFLOAD_WARMUP)]
+             + [prandom.fold_in(prandom.PRNGKey(0), 100 + i) for i in range(OFFLOAD_STEPS)])
+    base = LlamaModel(**LM_CFG, max_seq_len=LM_SEQ, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    lm_layers = len(base.layers)
+    out = {}
+    for offload in (False, True):
+        m = copy.deepcopy(base)
+        step, init = lm_build(m, "O1", offload=offload)
+        params, state = init()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, state, losses, secs = train_steps(torch, step, params, state, x, y, lkeys)
+        peak = torch.cuda.max_memory_allocated()
+        pinned = all(a.device.type == "cpu" and a.is_pinned()
+                     for st in state.values() for a in st if a.dim()) if offload else None
+        out[offload] = dict(losses=losses, ms=_median(secs[OFFLOAD_WARMUP:]) * 1e3, peak=peak,
+                            resident=resident, pinned=pinned,
+                            params={n: p.cpu() for n, p in params.items()},
+                            state_bytes=sum(a.numel() * a.element_size()
+                                            for st in state.values() for a in st if a.dim()))
+        del m, step, init, params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    del base
+    r, o = out[False], out[True]
+    same = r["losses"] == o["losses"] and all(torch.equal(r["params"][n], o["params"][n])
+                                              for n in r["params"])
+    log(f"[safety] (d) Llama-374M O1 bf16, batch {LM_BATCH} x {LM_SEQ}, {OFFLOAD_WARMUP} + "
+        f"{OFFLOAD_STEPS} steps: resident loss " + " ".join(f"{v:.4f}" for v in r["losses"]))
+    log(f"[safety] (d) offload=True: losses and final params bitwise the resident run's {same}; "
+        f"every non-scalar state tensor pinned on the host {o['pinned']} "
+        f"({o['state_bytes'] / 2**30:.2f} GiB); step (median of the timed steps, host clock to "
+        f"synchronize) resident {r['ms']:.2f} ms, offload {o['ms']:.2f} ms (phase 13's O1 step "
+        f"in this run {lm['step_ms']:.2f} ms); peak memory "
+        f"resident {r['peak'] / 2**30:.2f} GiB, offload {o['peak'] / 2**30:.2f} GiB (drop "
+        f"{(r['peak'] - o['peak']) / 2**30:.2f} GiB); allocated before the steps "
+        f"{r['resident'] / 2**30:.2f} / {o['resident'] / 2**30:.2f} GiB | {card}")
+    if not same or not o["pinned"]:
+        failures.append("(d) the offloaded run differs from the resident one, or its state "
+                        "is not pinned on the host")
+    if not all(np.isfinite(r["losses"])) or not r["losses"][-1] < r["losses"][0]:
+        failures.append(f"(d) the loss is not finite or did not fall: {r['losses']}")
+    launches = tuple(a - b for a, b in zip((fa.launches, fa.dq_launches, fa.dkv_launches), first))
+    log(f"[safety] (e) K1/K2/K3 launches over the phase {launches} (of them fp16 (b)'s "
+        f"{forms}, Llama's bf16 {lm_layers} x {2 * len(lkeys)} each); the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        fail("safety: " + "; ".join(failures))
+    return dict(launches=launches, forms=forms, step_ms=steady * 1e3, skipped=skipped,
+                scales=scales, losses=losses, offload_ms=o["ms"], resident_ms=r["ms"],
+                offload_peak=o["peak"], resident_peak=r["peak"])
+
+
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
     the 7B engine. Llama-2-7B bf16 (phase 7's weights, 16 slots x 256,
@@ -7237,6 +7574,7 @@ def main():
         from paddle_tpu_torch.static import InputSpec
         from paddle_tpu_torch import onnx as ponnx
         from paddle_tpu_torch.obs import goodput
+        from paddle_tpu_torch import resilience
     except ImportError as e:
         fail(f"the port is not importable from this directory: {e}")
 
@@ -7344,6 +7682,11 @@ def main():
         took("fleet")
     finally:
         shutil.rmtree(saves, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    safety = phase_safety(torch, fa, (paddle, BertForPretraining, LlamaModel, nn, optimizer, spmd,
+                                      prandom, resilience), card, dyg, lm)
+    took("safety")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -7410,6 +7753,11 @@ def main():
                      bwd_dq=lm["counts"]["bwd_dq"] + lm["rc_counts"][1],
                      bwd_dkv=lm["counts"]["bwd_dkv"] + lm["rc_counts"][2])
     mt_form = mtt["forms"]  # phase 14's O1 launches by form, counted by the wrapper
+    # this slice's fp16 forms: K1-K3 at BERT-base's fp16 O1 training shape,
+    # [64 * 12, 128, 64] with dropout 0.1 (phase 21 (b)), with the launches
+    # its timed steps made in that form
+    f16_fwd, f16_bwd = (next(r for r in rows if r["dtype"] == "float16" and r["b"] == 64
+                             and r["h"] == 12 and r["p"] == 0.1) for rows in (cases, bwd_cases))
 
     def timing(r, suffix=""):
         # ms: CUDA events over back-to-back calls; device_ms: the kernels'
@@ -7438,7 +7786,10 @@ def main():
                        + robust["launches"] + quant["launches"] + mt["launches"]
                        + lm_launch["fwd"] + lm["parity_counts"][0] + mtt["counts"]["fwd"]
                        + mtt["parity_counts"][0] + dyg["counts"]["fwd"] + dyg["extra"][0]
-                       + deploy["launches"][0] + static["launches"][0] + fleet["launches"]),
+                       + deploy["launches"][0] + static["launches"][0] + fleet["launches"]
+                       + safety["launches"][0]),
+             # phase 21's: its fp16 dygraph steps, guarded steps and Llama steps
+             safety_launches=safety["launches"][0],
              # phase 20's: in its replica processes, from their cmd-5 stats
              # (the BERT replicas' batches, 12 a program call; the 7B
              # replicas' fills and steps, 32 each)
@@ -7487,12 +7838,15 @@ def main():
              **fields(lm_o1[0], "lm_train_bf16_", launches=lm_launch["fwd"]),
              **fields(lm_o0[0], "lm_parity_f32_", launches=lm["parity_counts"][0]),
              **fields(mt_enc[0], "mt_train_encoder_bf16_", launches=mt_form["encoder"]["fwd"]),
-             **fields(mt_cross[0], "mt_train_cross_bf16_", launches=mt_form["cross"]["fwd"])),
+             **fields(mt_cross[0], "mt_train_cross_bf16_", launches=mt_form["cross"]["fwd"]),
+             **fields(f16_fwd, "bert_train_f16_", launches=safety["forms"]["fwd"])),
         *(dict(name=kernels[i]["name"], route="cuda", source=kernels[i]["source"],
                replaces=kernels[i]["replaces"],
                launches=(train["counts"][key] + lm_launch[key] + lm["parity_counts"][i]
                          + mtt["counts"][key] + mtt["parity_counts"][i] + dyg["counts"][key]
-                         + dyg["extra"][i] + deploy["launches"][i] + static["launches"][i]),
+                         + dyg["extra"][i] + deploy["launches"][i] + static["launches"][i]
+                         + safety["launches"][i]),
+               safety_launches=safety["launches"][i],
                # phase 19's: the static programs' Executor.run steps
                static_launches=static["launches"][i],
                # phase 18's: the to_static steps, through K1's registered autograd
@@ -7505,7 +7859,9 @@ def main():
                **bwd(mt_enc[1], which, "mt_train_encoder_bf16_"),
                mt_train_encoder_bf16_launches=mt_form["encoder"][key],
                **bwd(mt_cross[1], which, "mt_train_cross_bf16_"),
-               mt_train_cross_bf16_launches=mt_form["cross"][key])
+               mt_train_cross_bf16_launches=mt_form["cross"][key],
+               **bwd(f16_bwd, which, "bert_train_f16_"),
+               bert_train_f16_launches=safety["forms"][which])
           for i, key, which in ((1, "bwd_dq", "dq"), (2, "bwd_dkv", "dkv"))),
         dict(name=kernels[3]["name"], route="cuda", source=kernels[3]["source"],
              replaces=kernels[3]["replaces"],

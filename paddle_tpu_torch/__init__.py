@@ -3,7 +3,7 @@
 It imports torch and numpy, never jax and nothing of paddle_tpu. Usage
 mirrors paddle (``import paddle_tpu_torch as paddle``): dygraph on the
 card by default, ``paddle.set_device("cpu")`` for the CPU. The packages
-the port has not reached yet (onnx, incubate, fluid, ...)
+the port has not reached yet (utils, distribution, hub, ...)
 are absent rather than stubbed. ``static`` holds ``InputSpec`` only; its
 Program/Executor facade is a later slice.
 """
@@ -54,6 +54,7 @@ from . import io  # noqa: F401,E402
 from . import vision  # noqa: F401,E402
 from . import distributed  # noqa: F401,E402
 from . import hapi  # noqa: F401,E402
+from . import incubate  # noqa: F401,E402
 from . import text  # noqa: F401,E402
 from . import dataset  # noqa: F401,E402
 from . import inference  # noqa: F401,E402

@@ -38,6 +38,11 @@
 // ldmatrix.trans. Rows are padded by 8 elements so ldmatrix is free of bank
 // conflicts. P's e^x is fa::fast_exp (one ex2.approx).
 //
+// float16 is the same template (`dkv_b16_kernel<T, D>`) with T = __half:
+// mma.sync's f16 product, P_drop and dS rounded to fp16 by
+// __floats2half2_rn, dK/dV cast at the end; a value past 65504 becomes inf
+// as the plain version's cast makes it, and the loss scaler skips that step.
+//
 // f32 (`dkv_f32_kernel`) runs on the CUDA cores, register-blocked as K1's
 // f32 form (csrc/flash_attention_f32.cuh): 128 threads; q tiles of 32 rows,
 // so each thread owns 4 key rows (ty + 16 i) x 4 q columns (tx + 8 j) of
@@ -215,7 +220,7 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-struct Bf16Layout {
+struct B16Layout {
   static constexpr int THREADS = D / 64 * 128;  // 4 warps per 64 dK/dV columns
   static constexpr int LD = D + 8;              // row stride in bf16 (16-byte rows, 4-bank skew)
   // K, V rows; 2 stages x (Q, dO) rows; 2 stages x (LSE, delta)
@@ -223,23 +228,23 @@ struct Bf16Layout {
       (2 * (size_t)BK * LD + 4 * (size_t)BQ * LD) * 2 + 4 * (size_t)BQ * sizeof(float);
 };
 
-template <int D>
-__global__ void __launch_bounds__(Bf16Layout<D>::THREADS)
-dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int sq, int sk,
-                float scale, int causal, int dropout, uint32_t seed, uint32_t keep_thresh,
-                float inv_keep) {
+template <typename T, int D>
+__global__ void __launch_bounds__(B16Layout<D>::THREADS)
+dkv_b16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dk, T* __restrict__ dv, int sq, int sk,
+               float scale, int causal, int dropout, uint32_t seed, uint32_t keep_thresh,
+               float inv_keep) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int NTHREADS = Bf16Layout<D>::THREADS;
-  constexpr int LD = Bf16Layout<D>::LD;
+  constexpr int NTHREADS = B16Layout<D>::THREADS;
+  constexpr int LD = B16Layout<D>::LD;
   constexpr int KSTEPS = D / 16;  // k steps of K Q^T and V dO^T
   constexpr int DT = 64 / 8;      // n8 tiles of this warp's 64 dK/dV columns
   constexpr int CH = D / 8;       // 16-byte chunks per row
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][LD]
-  __nv_bfloat16* Vs = Ks + BK * LD;                                 // [BK][LD]
-  __nv_bfloat16* ring = Vs + BK * LD;  // 2 stages x (Q [BQ][LD], dO [BQ][LD])
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [BK][LD]
+  T* Vs = Ks + BK * LD;                                 // [BK][LD]
+  T* ring = Vs + BK * LD;  // 2 stages x (Q [BQ][LD], dO [BQ][LD])
   float* stats = reinterpret_cast<float*>(ring + 4 * BQ * LD);  // 2 stages x (LSE, delta)
 
   const int bh = blockIdx.x;
@@ -251,8 +256,8 @@ dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   const int kw = (warp & 3) * 16;   // this warp's key rows within the tile
   const int c0 = (warp >> 2) * 64;  // this warp's first dK/dV column
   const int key_lo = k0 + kw + (lane >> 2);  // C-fragment rows: key_lo, key_lo + 8
-  const __nv_bfloat16* qg = q + (size_t)bh * sq * D;
-  const __nv_bfloat16* dog = dout + (size_t)bh * sq * D;
+  const T* qg = q + (size_t)bh * sq * D;
+  const T* dog = dout + (size_t)bh * sq * D;
   const float* lseg = lse + (size_t)bh * sq;
   const float* deltag = delta + (size_t)bh * sq;
   const size_t kbase = (size_t)bh * sk * D;
@@ -280,8 +285,8 @@ dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     first_qt = lo <= 0 ? 0 : lo / BQ;
   }
   auto load_q = [&](int qt) {
-    __nv_bfloat16* Qs = ring + (qt & 1) * 2 * BQ * LD;
-    __nv_bfloat16* dOs = Qs + BQ * LD;
+    T* Qs = ring + (qt & 1) * 2 * BQ * LD;
+    T* dOs = Qs + BQ * LD;
     float* st = stats + (qt & 1) * 2 * BQ;
     const int q0 = qt * BQ;
     for (int i = tid; i < BQ * CH; i += NTHREADS) {
@@ -325,8 +330,8 @@ dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
         fa::ldmatrix_x4(vf[ks], &Vs[(kw + lm_r) * LD + ks * 16 + lm_c]);
       }
     }
-    const __nv_bfloat16* Qs = ring + (qt & 1) * 2 * BQ * LD;
-    const __nv_bfloat16* dOs = Qs + BQ * LD;
+    const T* Qs = ring + (qt & 1) * 2 * BQ * LD;
+    const T* dOs = Qs + BQ * LD;
     const float* lse_s = stats + (qt & 1) * 2 * BQ;
     const float* delta_s = lse_s + BQ;
     const int q0 = qt * BQ;
@@ -341,11 +346,11 @@ dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       for (int ks = 0; ks < KSTEPS; ++ks) {
         uint32_t b[4];
         fa::ldmatrix_x4(b, &Qs[(qc + lb_r) * LD + ks * 16 + lb_c]);
-        fa::mma_bf16(st[0], kf[ks], b[0], b[1]);
-        fa::mma_bf16(st[1], kf[ks], b[2], b[3]);
+        fa::mma16<T>(st[0], kf[ks], b[0], b[1]);
+        fa::mma16<T>(st[1], kf[ks], b[2], b[3]);
         fa::ldmatrix_x4(b, &dOs[(qc + lb_r) * LD + ks * 16 + lb_c]);
-        fa::mma_bf16(dpt[0], vf[ks], b[0], b[1]);
-        fa::mma_bf16(dpt[1], vf[ks], b[2], b[3]);
+        fa::mma16<T>(dpt[0], vf[ks], b[0], b[1]);
+        fa::mma16<T>(dpt[1], vf[ks], b[2], b[3]);
       }
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
@@ -366,26 +371,26 @@ dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
           st[nt][e] = pd;                         // P_drop^T
           dpt[nt][e] = p * (dpv - delta_s[ql]);  // dS^T
         }
-      // rounded to bf16 (dO's and Q's dtype), the C fragments of the two
+      // rounded to T (dO's and Q's dtype), the C fragments of the two
       // n8 tiles are the A fragment over these 16 q columns
       uint32_t pa[4], sa[4];
-      pa[0] = fa::pack_bf16(st[0][0], st[0][1]);
-      pa[1] = fa::pack_bf16(st[0][2], st[0][3]);
-      pa[2] = fa::pack_bf16(st[1][0], st[1][1]);
-      pa[3] = fa::pack_bf16(st[1][2], st[1][3]);
-      sa[0] = fa::pack_bf16(dpt[0][0], dpt[0][1]);
-      sa[1] = fa::pack_bf16(dpt[0][2], dpt[0][3]);
-      sa[2] = fa::pack_bf16(dpt[1][0], dpt[1][1]);
-      sa[3] = fa::pack_bf16(dpt[1][2], dpt[1][3]);
+      pa[0] = fa::pack16<T>(st[0][0], st[0][1]);
+      pa[1] = fa::pack16<T>(st[0][2], st[0][3]);
+      pa[2] = fa::pack16<T>(st[1][0], st[1][1]);
+      pa[3] = fa::pack16<T>(st[1][2], st[1][3]);
+      sa[0] = fa::pack16<T>(dpt[0][0], dpt[0][1]);
+      sa[1] = fa::pack16<T>(dpt[0][2], dpt[0][3]);
+      sa[2] = fa::pack16<T>(dpt[1][0], dpt[1][1]);
+      sa[3] = fa::pack16<T>(dpt[1][2], dpt[1][3]);
 #pragma unroll
       for (int np = 0; np < DT / 2; ++np) {
         uint32_t b[4];
         fa::ldmatrix_x4_trans(b, &dOs[(qc + lm_r) * LD + c0 + np * 16 + lm_c]);
-        fa::mma_bf16(dva[2 * np], pa, b[0], b[1]);
-        fa::mma_bf16(dva[2 * np + 1], pa, b[2], b[3]);
+        fa::mma16<T>(dva[2 * np], pa, b[0], b[1]);
+        fa::mma16<T>(dva[2 * np + 1], pa, b[2], b[3]);
         fa::ldmatrix_x4_trans(b, &Qs[(qc + lm_r) * LD + c0 + np * 16 + lm_c]);
-        fa::mma_bf16(dka[2 * np], sa, b[0], b[1]);
-        fa::mma_bf16(dka[2 * np + 1], sa, b[2], b[3]);
+        fa::mma16<T>(dka[2 * np], sa, b[0], b[1]);
+        fa::mma16<T>(dka[2 * np + 1], sa, b[2], b[3]);
       }
     }
     __syncthreads();  // this stage is read before it is refilled
@@ -401,8 +406,8 @@ dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       uint32_t* dvrow = reinterpret_cast<uint32_t*>(dv + g);
 #pragma unroll
       for (int n = 0; n < DT; ++n) {
-        dkrow[n * 4] = fa::pack_bf16(dka[n][2 * h] * scale, dka[n][2 * h + 1] * scale);
-        dvrow[n * 4] = fa::pack_bf16(dva[n][2 * h], dva[n][2 * h + 1]);
+        dkrow[n * 4] = fa::pack16<T>(dka[n][2 * h] * scale, dka[n][2 * h + 1] * scale);
+        dvrow[n * 4] = fa::pack16<T>(dva[n][2 * h], dva[n][2 * h + 1]);
       }
     }
   }
@@ -425,20 +430,19 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                        const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
-                        int sk, float scale, int causal, int dropout, uint32_t seed,
-                        uint32_t keep_thresh, float inv_keep, cudaStream_t stream) {
-  constexpr size_t smem = Bf16Layout<D>::bytes;
-  auto kern = dkv_bf16_kernel<D>;
+template <typename T, int D>
+cudaError_t launch_b16(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
+                       int sk, float scale, int causal, int dropout, uint32_t seed,
+                       uint32_t keep_thresh, float inv_keep, cudaStream_t stream) {
+  constexpr size_t smem = B16Layout<D>::bytes;
+  auto kern = dkv_b16_kernel<T, D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);
   const dim3 grid(bh, (sk + BK - 1) / BK);
-  using bf = __nv_bfloat16;
-  kern<<<grid, Bf16Layout<D>::THREADS, smem, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf*>(dk), static_cast<bf*>(dv), sq, sk,
+  kern<<<grid, B16Layout<D>::THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
       scale, causal, dropout, seed, keep_thresh, inv_keep);
   return cudaGetLastError();
 }
@@ -448,7 +452,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 extern "C" {
 
 // q/dout [bh, sq, d], k/v/dk/dv [bh, sk, d] contiguous in one dtype (0 =
-// float32, 1 = bfloat16; bf16 pointers 16-byte aligned); lse and delta
+// float32, 1 = bfloat16, 2 = float16; 16-bit pointers 16-byte aligned); lse and delta
 // [bh, sq] float32. Returns the cudaError_t of the launch (0 = success);
 // cudaErrorInvalidValue for a head_dim or dtype this kernel does not take.
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -464,21 +468,28 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const v
     return launch_f32<128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal,
                            dropout, seed, keep_thresh, inv_keep, st);
   if (dtype == 1 && d == 64)
-    return launch_bf16<64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal,
+    return launch_b16<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal,
                            dropout, seed, keep_thresh, inv_keep, st);
   if (dtype == 1 && d == 128)
-    return launch_bf16<128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal,
+    return launch_b16<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal,
+                            dropout, seed, keep_thresh, inv_keep, st);
+  if (dtype == 2 && d == 64)
+    return launch_b16<__half, 64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal,
+                           dropout, seed, keep_thresh, inv_keep, st);
+  if (dtype == 2 && d == 128)
+    return launch_b16<__half, 128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal,
                             dropout, seed, keep_thresh, inv_keep, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // dynamic shared memory of one block for head_dim d and dtype (0 = float32,
-// 1 = bfloat16), or -1
+// 1 = bfloat16, 2 = float16), or -1
 int flash_attention_bwd_dkv_smem_bytes(int d, int dtype) {
   if (dtype == 0 && d == 64) return (int)F32Layout<64>::bytes;
   if (dtype == 0 && d == 128) return (int)F32Layout<128>::bytes;
-  if (dtype == 1 && d == 64) return (int)Bf16Layout<64>::bytes;
-  if (dtype == 1 && d == 128) return (int)Bf16Layout<128>::bytes;
+  // the bf16 and fp16 forms stage the same 2-byte tiles
+  if ((dtype == 1 || dtype == 2) && d == 64) return (int)B16Layout<64>::bytes;
+  if ((dtype == 1 || dtype == 2) && d == 128) return (int)B16Layout<128>::bytes;
   return -1;
 }
 

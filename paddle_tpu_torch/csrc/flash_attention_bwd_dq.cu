@@ -34,6 +34,12 @@
 // K's rows by ldmatrix.trans. Nothing passes through shared memory but the
 // K/V tiles. LSE and delta of a lane's two rows live in registers.
 //
+// float16 is the same template (`dq_b16_kernel<T, D>`) with T = __half:
+// mma.sync's f16 product, dS rounded to fp16 (Q's dtype) by
+// __floats2half2_rn and dQ cast at the end. Where dO is large (a loss scaled
+// by 2^15), dS or dQ may pass 65504 and become inf, as the plain version's
+// cast does: the loss scaler then skips the step; nothing is clamped.
+//
 // f32 (`dq_f32_kernel`) runs on the CUDA cores, register-blocked as K1's f32
 // form: each thread owns 4 q rows (ty + 16 i) x 8 keys (tx + 8 j) of S and
 // dP and the same 4 rows x D/8 columns (tx * 4 + 32 g, as float4) of dQ;
@@ -64,7 +70,7 @@ struct F32Layout {
 
 // bf16: Q, dO rows; 2 stages x (K, V) rows
 template <int D>
-struct Bf16Layout {
+struct B16Layout {
   static constexpr int LD = D + 8;  // row stride in bf16 (16-byte rows, 4-bank skew)
   static constexpr size_t bytes = (2 * (size_t)BQ * LD + 4 * (size_t)BK * LD) * 2;
 };
@@ -185,24 +191,24 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   fa::store_rows<D>(dq + (size_t)bh * sq * D, acc, scale, q0, sq, ty, tx);
 }
 
-// ------------------------------------------------------------------ bf16
+// ------------------------------------------------------------ bf16, fp16
 // four blocks per SM at head_dim 64 (55 KB of shared memory each); two at
 // head_dim 128 (104 KB)
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, D == 64 ? 4 : 2)
-dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               __nv_bfloat16* __restrict__ dq, int sq, int sk, float scale, int causal,
-               int dropout, uint32_t seed, uint32_t keep_thresh, float inv_keep) {
+dq_b16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              T* __restrict__ dq, int sq, int sk, float scale, int causal,
+              int dropout, uint32_t seed, uint32_t keep_thresh, float inv_keep) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LD = Bf16Layout<D>::LD;
+  constexpr int LD = B16Layout<D>::LD;
   constexpr int KSTEPS = D / 16;  // k steps of Q K^T and dO V^T
   constexpr int DT = D / 8;       // n8 tiles of dQ
   constexpr int CH = D / 8;       // 16-byte chunks per row
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LD]
-  __nv_bfloat16* dOs = Qs + BQ * LD;                                // [BQ][LD]
-  __nv_bfloat16* KVs = dOs + BQ * LD;  // 2 stages x (K [BK][LD], V [BK][LD])
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
+  T* dOs = Qs + BQ * LD;                                // [BQ][LD]
+  T* KVs = dOs + BQ * LD;  // 2 stages x (K [BK][LD], V [BK][LD])
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * BQ;
@@ -211,10 +217,10 @@ dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   const int lane = tid & 31;
   const int t = lane & 3;
   const int row_lo = q0 + warp * 16 + (lane >> 2);  // C-fragment rows: row_lo, row_lo + 8
-  const __nv_bfloat16* qg = q + (size_t)bh * sq * D;
-  const __nv_bfloat16* dog = dout + (size_t)bh * sq * D;
-  const __nv_bfloat16* kg = k + (size_t)bh * sk * D;
-  const __nv_bfloat16* vg = v + (size_t)bh * sk * D;
+  const T* qg = q + (size_t)bh * sq * D;
+  const T* dog = dout + (size_t)bh * sq * D;
+  const T* kg = k + (size_t)bh * sk * D;
+  const T* vg = v + (size_t)bh * sk * D;
   const int n_kt = fa::k_tiles<BQ, BK>(q0, sq, sk, causal);
   // ldmatrix row/column of this lane inside a 16 x 16 block
   const int lm_r = (lane & 7) + ((lane >> 3) & 1) * 8;  // A / trans-B order
@@ -230,8 +236,8 @@ dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     fa::cp_async16(&dOs[r * LD + c], ok ? dog + g : dog, ok);
   }
   auto load_kv = [&](int kt) {
-    __nv_bfloat16* Ks = KVs + (kt & 1) * 2 * BK * LD;
-    __nv_bfloat16* Vs = Ks + BK * LD;
+    T* Ks = KVs + (kt & 1) * 2 * BK * LD;
+    T* Vs = Ks + BK * LD;
     const int k0 = kt * BK;
     for (int i = tid; i < BK * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 8;
@@ -276,8 +282,8 @@ dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         fa::ldmatrix_x4(dof[ks], &dOs[(warp * 16 + lm_r) * LD + ks * 16 + lm_c]);
       }
     }
-    const __nv_bfloat16* Ks = KVs + (kt & 1) * 2 * BK * LD;
-    const __nv_bfloat16* Vs = Ks + BK * LD;
+    const T* Ks = KVs + (kt & 1) * 2 * BK * LD;
+    const T* Vs = Ks + BK * LD;
     const int k0 = kt * BK;
 
 #pragma unroll 1
@@ -290,11 +296,11 @@ dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
       for (int ks = 0; ks < KSTEPS; ++ks) {
         uint32_t b[4];
         fa::ldmatrix_x4(b, &Ks[(kc + lb_r) * LD + ks * 16 + lb_c]);
-        fa::mma_bf16(s[0], qf[ks], b[0], b[1]);
-        fa::mma_bf16(s[1], qf[ks], b[2], b[3]);
+        fa::mma16<T>(s[0], qf[ks], b[0], b[1]);
+        fa::mma16<T>(s[1], qf[ks], b[2], b[3]);
         fa::ldmatrix_x4(b, &Vs[(kc + lb_r) * LD + ks * 16 + lb_c]);
-        fa::mma_bf16(dp[0], dof[ks], b[0], b[1]);
-        fa::mma_bf16(dp[1], dof[ks], b[2], b[3]);
+        fa::mma16<T>(dp[0], dof[ks], b[0], b[1]);
+        fa::mma16<T>(dp[1], dof[ks], b[2], b[3]);
       }
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
@@ -312,19 +318,19 @@ dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
           }
           s[nt][e] = ds;
         }
-      // dS rounded to bf16 (Q's dtype): the C fragments of the two n8
+      // dS rounded to T (Q's dtype): the C fragments of the two n8
       // tiles are the A fragment over these 16 keys
       uint32_t a[4];
-      a[0] = fa::pack_bf16(s[0][0], s[0][1]);
-      a[1] = fa::pack_bf16(s[0][2], s[0][3]);
-      a[2] = fa::pack_bf16(s[1][0], s[1][1]);
-      a[3] = fa::pack_bf16(s[1][2], s[1][3]);
+      a[0] = fa::pack16<T>(s[0][0], s[0][1]);
+      a[1] = fa::pack16<T>(s[0][2], s[0][3]);
+      a[2] = fa::pack16<T>(s[1][0], s[1][1]);
+      a[3] = fa::pack16<T>(s[1][2], s[1][3]);
 #pragma unroll
       for (int np = 0; np < DT / 2; ++np) {
         uint32_t b[4];
         fa::ldmatrix_x4_trans(b, &Ks[(kc + lm_r) * LD + np * 16 + lm_c]);
-        fa::mma_bf16(acc[2 * np], a, b[0], b[1]);
-        fa::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        fa::mma16<T>(acc[2 * np], a, b[0], b[1]);
+        fa::mma16<T>(acc[2 * np + 1], a, b[2], b[3]);
       }
     }
     __syncthreads();  // this stage's K/V are read before they are refilled
@@ -338,7 +344,7 @@ dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
       uint32_t* drow = reinterpret_cast<uint32_t*>(dq + ((size_t)bh * sq + row) * D + 2 * t);
 #pragma unroll
       for (int n = 0; n < DT; ++n)
-        drow[n * 4] = fa::pack_bf16(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+        drow[n * 4] = fa::pack16<T>(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
     }
   }
 }
@@ -360,20 +366,19 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                        const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
-                        float scale, int causal, int dropout, uint32_t seed,
-                        uint32_t keep_thresh, float inv_keep, cudaStream_t stream) {
-  constexpr size_t smem = Bf16Layout<D>::bytes;
-  auto kern = dq_bf16_kernel<D>;
+template <typename T, int D>
+cudaError_t launch_b16(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
+                       float scale, int causal, int dropout, uint32_t seed,
+                       uint32_t keep_thresh, float inv_keep, cudaStream_t stream) {
+  constexpr size_t smem = B16Layout<D>::bytes;
+  auto kern = dq_b16_kernel<T, D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);
   const dim3 grid(bh, (sq + BQ - 1) / BQ);
-  using bf = __nv_bfloat16;
   kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf*>(dq), sq, sk, scale, causal, dropout,
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), sq, sk, scale, causal, dropout,
       seed, keep_thresh, inv_keep);
   return cudaGetLastError();
 }
@@ -383,7 +388,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 extern "C" {
 
 // q/dout/dq [bh, sq, d], k/v [bh, sk, d] contiguous and 16-byte aligned in
-// one dtype (0 = float32, 1 = bfloat16); lse and delta [bh, sq] float32.
+// one dtype (0 = float32, 1 = bfloat16, 2 = float16); lse and delta [bh, sq]
+// float32.
 // Returns the cudaError_t of the launch (0 = success); cudaErrorInvalidValue
 // for a head_dim or dtype this kernel does not take.
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -399,21 +405,28 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
     return launch_f32<128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal, dropout,
                            seed, keep_thresh, inv_keep, st);
   if (dtype == 1 && d == 64)
-    return launch_bf16<64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal, dropout,
+    return launch_b16<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal, dropout,
                            seed, keep_thresh, inv_keep, st);
   if (dtype == 1 && d == 128)
-    return launch_bf16<128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal,
+    return launch_b16<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal,
+                            dropout, seed, keep_thresh, inv_keep, st);
+  if (dtype == 2 && d == 64)
+    return launch_b16<__half, 64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal, dropout,
+                           seed, keep_thresh, inv_keep, st);
+  if (dtype == 2 && d == 128)
+    return launch_b16<__half, 128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal,
                             dropout, seed, keep_thresh, inv_keep, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // dynamic shared memory of one block for head_dim d and dtype (0 = float32,
-// 1 = bfloat16), or -1
+// 1 = bfloat16, 2 = float16), or -1
 int flash_attention_bwd_dq_smem_bytes(int d, int dtype) {
   if (dtype == 0 && d == 64) return (int)F32Layout<64>::bytes;
   if (dtype == 0 && d == 128) return (int)F32Layout<128>::bytes;
-  if (dtype == 1 && d == 64) return (int)Bf16Layout<64>::bytes;
-  if (dtype == 1 && d == 128) return (int)Bf16Layout<128>::bytes;
+  // the bf16 and fp16 forms stage the same 2-byte tiles
+  if ((dtype == 1 || dtype == 2) && d == 64) return (int)B16Layout<64>::bytes;
+  if ((dtype == 1 || dtype == 2) && d == 128) return (int)B16Layout<128>::bytes;
   return -1;
 }
 

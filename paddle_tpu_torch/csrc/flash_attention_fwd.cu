@@ -38,6 +38,13 @@
 // memory, rows padded by 8 elements so ldmatrix reads are free of bank
 // conflicts.
 //
+// float16 is the same template (`fwd_b16_kernel<T, D>`) with T = __half:
+// mma.sync's f16 product and P rounded to fp16 (V's dtype) by
+// __floats2half2_rn, at the same points as bf16 (S and the softmax in f32,
+// O cast at the end, LSE f32). fp16 keeps 10 mantissa bits against bf16's
+// 7 but overflows past 65504; P <= 1 after the max is taken, so only O can
+// overflow, where its f32 value does. Its bound is the bf16 form's: bytes.
+//
 // f32 runs on the CUDA cores, register-blocked (the products are
 // csrc/flash_attention_f32.cuh's): each thread owns 4 q rows
 // (ty + 16 i) x 8 keys (tx + 8 j) of S and the same 4 rows x D/8 columns
@@ -70,7 +77,7 @@ struct F32Layout {
 };
 
 template <int D>
-struct Bf16Layout {
+struct B16Layout {
   static constexpr int LD = D + 8;  // row stride in bf16 (16-byte rows, 4-bank skew)
   static constexpr size_t bytes = ((size_t)BQ * LD + 4 * (size_t)BK * LD) * 2;
 };
@@ -209,24 +216,24 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------------ bf16
+// ------------------------------------------------------------ bf16, fp16
 // three blocks per SM at head_dim 64 (ptxas otherwise picks 128
 // registers there and spills); head_dim 128 needs ~200 registers
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, D == 64 ? 3 : 1)
-fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                float* __restrict__ lse, int sq, int sk, long long kv_stride,
-                const int* __restrict__ k_len, int heads, float scale, int causal, int dropout,
-                uint32_t seed, uint32_t keep_thresh, float inv_keep) {
+fwd_b16_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ o,
+               float* __restrict__ lse, int sq, int sk, long long kv_stride,
+               const int* __restrict__ k_len, int heads, float scale, int causal, int dropout,
+               uint32_t seed, uint32_t keep_thresh, float inv_keep) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LD = Bf16Layout<D>::LD;
+  constexpr int LD = B16Layout<D>::LD;
   constexpr int KSTEPS = D / 16;  // k steps of Q K^T
   constexpr int NT = BK / 8;      // n8 tiles of S
   constexpr int DT = D / 8;       // n8 tiles of O
   constexpr int CH = D / 8;       // 16-byte chunks per row
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LD]
-  __nv_bfloat16* KVs = Qs + BQ * LD;  // 2 stages x (K [BK][LD], V [BK][LD])
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
+  T* KVs = Qs + BQ * LD;  // 2 stages x (K [BK][LD], V [BK][LD])
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * BQ;
@@ -235,9 +242,9 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   const int lane = tid & 31;
   const int t = lane & 3;
   const int row_lo = q0 + warp * 16 + (lane >> 2);  // C-fragment rows: row_lo, row_lo + 8
-  const __nv_bfloat16* qg = q + (size_t)bh * sq * D;
-  const __nv_bfloat16* kg = k + (size_t)bh * kv_stride;
-  const __nv_bfloat16* vg = v + (size_t)bh * kv_stride;
+  const T* qg = q + (size_t)bh * sq * D;
+  const T* kg = k + (size_t)bh * kv_stride;
+  const T* vg = v + (size_t)bh * kv_stride;
   const int offset = sk - sq;
   // keys at or past kl are masked, never loaded, and end the tile loop
   const int kl = fa::row_keys(k_len, bh, heads, sk);
@@ -254,8 +261,8 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     fa::cp_async16(&Qs[r * LD + c], ok ? qg + (size_t)(q0 + r) * D + c : qg, ok);
   }
   auto load_kv = [&](int kt) {
-    __nv_bfloat16* Ks = KVs + (kt & 1) * 2 * BK * LD;
-    __nv_bfloat16* Vs = Ks + BK * LD;
+    T* Ks = KVs + (kt & 1) * 2 * BK * LD;
+    T* Vs = Ks + BK * LD;
     const int k0 = kt * BK;
     for (int i = tid; i < BK * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 8;
@@ -293,8 +300,8 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       for (int ks = 0; ks < KSTEPS; ++ks)
         fa::ldmatrix_x4(qf[ks], &Qs[(warp * 16 + lm_r) * LD + ks * 16 + lm_c]);
     }
-    const __nv_bfloat16* Ks = KVs + (kt & 1) * 2 * BK * LD;
-    const __nv_bfloat16* Vs = Ks + BK * LD;
+    const T* Ks = KVs + (kt & 1) * 2 * BK * LD;
+    const T* Vs = Ks + BK * LD;
     const int k0 = kt * BK;
 
     float s[NT][4];
@@ -306,8 +313,8 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
         fa::ldmatrix_x4(b, &Ks[(np * 16 + lb_r) * LD + ks * 16 + lb_c]);
-        fa::mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-        fa::mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+        fa::mma16<T>(s[2 * np], qf[ks], b[0], b[1]);
+        fa::mma16<T>(s[2 * np + 1], qf[ks], b[2], b[3]);
       }
     }
 
@@ -345,15 +352,15 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
         }
         s[nt][e] = p;
       }
-    // P rounded to bf16: the C fragments of S tiles 2j, 2j+1 are the A
+    // P rounded to T (V's dtype): the C fragments of S tiles 2j, 2j+1 are the A
     // fragment of keys 16j..16j+15
     uint32_t pf[NT / 2][4];
 #pragma unroll
     for (int j = 0; j < NT / 2; ++j) {
-      pf[j][0] = fa::pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pf[j][1] = fa::pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pf[j][2] = fa::pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pf[j][3] = fa::pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+      pf[j][0] = fa::pack16<T>(s[2 * j][0], s[2 * j][1]);
+      pf[j][1] = fa::pack16<T>(s[2 * j][2], s[2 * j][3]);
+      pf[j][2] = fa::pack16<T>(s[2 * j + 1][0], s[2 * j + 1][1]);
+      pf[j][3] = fa::pack16<T>(s[2 * j + 1][2], s[2 * j + 1][3]);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -375,8 +382,8 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       for (int np = 0; np < DT / 2; ++np) {
         uint32_t b[4];
         fa::ldmatrix_x4_trans(b, &Vs[(j * 16 + lm_r) * LD + np * 16 + lm_c]);
-        fa::mma_bf16(oacc[2 * np], pf[j], b[0], b[1]);
-        fa::mma_bf16(oacc[2 * np + 1], pf[j], b[2], b[3]);
+        fa::mma16<T>(oacc[2 * np], pf[j], b[0], b[1]);
+        fa::mma16<T>(oacc[2 * np + 1], pf[j], b[2], b[3]);
       }
     }
     __syncthreads();  // this stage's K/V are read before they are refilled
@@ -391,7 +398,7 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       uint32_t* orow = reinterpret_cast<uint32_t*>(o + ((size_t)bh * sq + row) * D + 2 * t);
 #pragma unroll
       for (int n = 0; n < DT; ++n)
-        orow[n * 4] = fa::pack_bf16(oacc[n][2 * h] / ll, oacc[n][2 * h + 1] / ll);
+        orow[n * 4] = fa::pack16<T>(oacc[n][2 * h] / ll, oacc[n][2 * h + 1] / ll);
       if (t == 0) lse[(size_t)bh * sq + row] = m[h] + logf(ll);
     }
   }
@@ -413,18 +420,18 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, voi
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                        int sq, int sk, long long kv_stride, const int* k_len, int heads,
-                        float scale, int causal, int dropout, uint32_t seed, uint32_t keep_thresh,
-                        float inv_keep, cudaStream_t stream) {
-  constexpr size_t smem = Bf16Layout<D>::bytes;
-  auto kern = fwd_bf16_kernel<D>;
+template <typename T, int D>
+cudaError_t launch_b16(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                       int sq, int sk, long long kv_stride, const int* k_len, int heads,
+                       float scale, int causal, int dropout, uint32_t seed, uint32_t keep_thresh,
+                       float inv_keep, cudaStream_t stream) {
+  constexpr size_t smem = B16Layout<D>::bytes;
+  auto kern = fwd_b16_kernel<T, D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);
   const dim3 grid(bh, (sq + BQ - 1) / BQ);
   kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), sq, sk, kv_stride, k_len, heads, scale, causal, dropout, seed,
       keep_thresh, inv_keep);
   return cudaGetLastError();
@@ -441,7 +448,7 @@ extern "C" {
 // device int32 [bh / heads] of per-batch-row key lengths: keys j >=
 // k_len[bh / heads] are masked, never read, and end the tile loop, so a
 // row's O and LSE do not depend on sk beyond its length (the causal
-// offset stays sk - sq). dtype 0 = float32, 1 = bfloat16; o [bh, sq, d]
+// offset stays sk - sq). dtype 0 = float32, 1 = bfloat16, 2 = float16; o [bh, sq, d]
 // in the input dtype, lse [bh, sq] float32. Returns the cudaError_t of
 // the launch (0 = success); cudaErrorInvalidValue for a head_dim or dtype
 // this kernel does not take.
@@ -456,19 +463,22 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
       keep_thresh, inv_keep, st
   if (dtype == 0 && d == 64) return launch_f32<64>(FA_FWD_ARGS);
   if (dtype == 0 && d == 128) return launch_f32<128>(FA_FWD_ARGS);
-  if (dtype == 1 && d == 64) return launch_bf16<64>(FA_FWD_ARGS);
-  if (dtype == 1 && d == 128) return launch_bf16<128>(FA_FWD_ARGS);
+  if (dtype == 1 && d == 64) return launch_b16<__nv_bfloat16, 64>(FA_FWD_ARGS);
+  if (dtype == 1 && d == 128) return launch_b16<__nv_bfloat16, 128>(FA_FWD_ARGS);
+  if (dtype == 2 && d == 64) return launch_b16<__half, 64>(FA_FWD_ARGS);
+  if (dtype == 2 && d == 128) return launch_b16<__half, 128>(FA_FWD_ARGS);
 #undef FA_FWD_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 // dynamic shared memory of one block for head_dim d and dtype (0 = float32,
-// 1 = bfloat16), or -1
+// 1 = bfloat16, 2 = float16), or -1
 int flash_attention_fwd_smem_bytes(int d, int dtype) {
   if (dtype == 0 && d == 64) return (int)F32Layout<64>::bytes;
   if (dtype == 0 && d == 128) return (int)F32Layout<128>::bytes;
-  if (dtype == 1 && d == 64) return (int)Bf16Layout<64>::bytes;
-  if (dtype == 1 && d == 128) return (int)Bf16Layout<128>::bytes;
+  // the bf16 and fp16 forms stage the same 2-byte tiles
+  if ((dtype == 1 || dtype == 2) && d == 64) return (int)B16Layout<64>::bytes;
+  if ((dtype == 1 || dtype == 2) && d == 128) return (int)B16Layout<128>::bytes;
   return -1;
 }
 

@@ -1,18 +1,22 @@
 // Hopper building blocks of the redesigned flash-attention kernels (K1
 // forward, K2 dQ, K3 dK/dV): 16- and 4-byte cp.async staging into shared
-// memory, ldmatrix fragment loads and the m16n8k16 bf16 tensor-core product
-// with f32 accumulators, as inline PTX for sm_90a.
+// memory, ldmatrix fragment loads and the m16n8k16 bf16 and fp16
+// tensor-core products with f32 accumulators, as inline PTX for sm_90a.
+// ``mma16<T>`` and ``pack16<T>`` pick the product and the rounding of the
+// element type T (__nv_bfloat16 or __half), so one kernel template serves
+// both 16-bit forms; their fragment layouts are the same.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..),
 //                           a2 = (g, 2t + 8..), a3 = (g + 8, 2t + 8..)
 //   B (16 x 8, k x n):      b0 = (k 2t..2t+1, n g), b1 = (k 2t + 8.., n g)
 //   C (16 x 8, f32):        c0, c1 = (g, 2t..2t+1), c2, c3 = (g + 8, 2t..)
-// so a C fragment of two neighbouring n8 tiles, rounded to bf16 and packed
+// so a C fragment of two neighbouring n8 tiles, rounded to bf16 (or fp16) and packed
 // in pairs, is the A fragment of the next product over those 16 columns.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,6 +80,48 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d += a * b on the tensor cores: fp16 inputs, f32 accumulators
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to fp16 (round to nearest even; past 65504 they
+// become inf, as torch's cast does), lo in the low half
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the product and the rounding of the 16-bit element type T
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16<__nv_bfloat16>(float (&d)[4], const uint32_t (&a)[4],
+                                                     uint32_t b0, uint32_t b1) {
+  mma_bf16(d, a, b0, b1);
+}
+template <>
+__device__ __forceinline__ void mma16<__half>(float (&d)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  mma_f16(d, a, b0, b1);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack16<__nv_bfloat16>(float lo, float hi) {
+  return pack_bf16(lo, hi);
+}
+template <>
+__device__ __forceinline__ uint32_t pack16<__half>(float lo, float hi) {
+  return pack_f16(lo, hi);
 }
 
 // e^x as one ex2.approx of x * log2(e) (__expf): at most 2 + 1.16 |x| ulp

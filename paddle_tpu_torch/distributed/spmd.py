@@ -44,10 +44,31 @@ which are dropped, so the buffers move once a step, bitwise as in a
 plain step. It saves no peak memory (the recomputed forward's
 activations are all alive at once again) and runs the forward twice.
 
+``amp_dtype="float16"`` runs the forward under ``auto_cast(dtype=
+"float16")`` (the flash kernels' fp16 form) with float32 master weights.
+As in the reference (spmd.py:200-236), the step scales no loss: dynamic
+loss scaling is ``amp.GradScaler``'s, on the eager path.
+
+``bad_step_guard=True`` (reference spmd.py:344-356): a step whose loss or
+(clipped) gradients hold a NaN or an Inf keeps the old params, optimizer
+state and buffers, chosen by ``torch.where`` on the device before any
+value is written back, so ``donate=True`` never writes a bad step into
+the given tensors; the step returns ``(loss, params, opt_state, bad)``,
+``bad`` a 0-d bool tensor on the device.
+
+``offload=True`` (the reference's ``_bounce``, spmd.py:418-448): every
+optimizer-state tensor that is not a scalar lives in pinned host memory
+between steps (``init_fn`` puts it there). A step runs the forward and
+backward first, then copies each parameter's state to the card, updates,
+and copies it back (``non_blocking``, on the current stream), so the card
+holds one parameter's state at a time; the step synchronizes its stream
+before it returns, so the host tensors are complete when the caller reads
+them. The bits are the resident step's. On the CPU the host is the
+device and the state stays where it is.
+
 Options of the reference that this port does not implement yet raise
 NotImplementedError (a mesh, ZeRO sharding, fp16 all-reduce, DGC, a
-strategy, offload, ``bad_step_guard``, and fp16 mixed precision, which needs the loss scaler and an fp16 form of the
-flash kernels); none is ignored.
+strategy); none is ignored.
 """
 import contextlib
 
@@ -57,17 +78,17 @@ import torch.utils.checkpoint
 
 from ..amp.auto_cast import auto_cast
 from ..core import random as random_core
+from ..resilience.badstep import tree_nonfinite
 
 
 def _unsupported(mesh, shard_optimizer, sharding_stage, fp16_allreduce,
-                 dgc_configs, strategy, offload, bad_step_guard):
+                 dgc_configs, strategy):
     found = []
     if mesh is not None and getattr(mesh, "size", None) != 1:
         found.append("a mesh of more than one device")
     for flag, name in ((shard_optimizer, "shard_optimizer"),
                        (sharding_stage, f"sharding_stage={sharding_stage}"),
-                       (fp16_allreduce, "fp16_allreduce"), (offload, "offload"),
-                       (bad_step_guard, "bad_step_guard")):
+                       (fp16_allreduce, "fp16_allreduce")):
         if flag:
             found.append(name)
     if dgc_configs is not None:
@@ -75,6 +96,15 @@ def _unsupported(mesh, shard_optimizer, sharding_stage, fp16_allreduce,
     if strategy is not None:
         found.append("strategy")
     return found
+
+
+def _to_host(t):
+    """An optimizer-state tensor as offload keeps it: a non-scalar CUDA
+    tensor copied into pinned host memory (asynchronously, on the current
+    stream); a scalar, or a tensor already on the host, as it is."""
+    if t.dim() == 0 or not t.is_cuda:
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
 
 
 def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
@@ -85,17 +115,13 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
     """One-device training step for ``layer``; ``loss_fn(model_out, y)``
     returns a scalar tensor. See the module docstring."""
     found = _unsupported(mesh, shard_optimizer, sharding_stage, fp16_allreduce,
-                         dgc_configs, strategy, offload, bad_step_guard)
+                         dgc_configs, strategy)
     if found:
         raise NotImplementedError(
             f"build_train_step: {', '.join(found)} not ported yet (the port's "
             "training step runs on one device)")
     if amp_level not in ("O0", "O1", "O2"):
         raise ValueError(f"amp_level must be 'O0'|'O1'|'O2', got {amp_level!r}")
-    if amp_level != "O0" and amp_dtype not in ("bfloat16", "bf16"):
-        raise NotImplementedError(
-            f"build_train_step: amp_dtype={amp_dtype!r} not ported yet (fp16 needs the "
-            "loss scaler, amp/grad_scaler.py, and an fp16 form of the flash kernels)")
     amp_enabled = amp_level in ("O1", "O2")
     names = [n for n, _ in layer.named_parameters()]
     hypers = optimizer._hypers()
@@ -106,7 +132,15 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
     def init_fn():
         params = {n: p.detach().clone() for n, p in layer.named_parameters()}
         opt_state = {n: optimizer._init_state(params[n]) for n in names}
+        if offload:
+            opt_state = {n: tuple(_to_host(a) for a in st) for n, st in opt_state.items()}
+            _sync(params)
         return params, opt_state
+
+    def _sync(params):
+        # the host copies are complete before anyone reads them
+        for dev in {p.device for p in params.values() if p.is_cuda}:
+            torch.cuda.current_stream(dev).synchronize()
 
     def forward_loss(leaves, buffers, x, y, key):
         work = {n: b.clone() for n, b in buffers.items()}  # the forward updates these
@@ -138,13 +172,19 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
                  for n, g in zip(names, grads)]
         if grad_clip is not None:
             grads = grad_clip.clip_arrays(grads)
+        bad = None
+        if bad_step_guard:
+            # the loss and the clipped gradients, as the reference checks
+            # them; decided on the device, before anything is written
+            with torch.no_grad():
+                bad = tree_nonfinite(loss.detach()) | tree_nonfinite(grads)
         new_params, new_state = {}, {}
         lr_t = {}  # one float32 scalar per device
         # the update's range is named for a profiler to read (its cost when
         # no profiler runs: one host call)
         with torch.no_grad(), torch.profiler.record_function("build_train_step.update"):
             for n, b in new_buffers.items():
-                buffers[n].copy_(b)
+                buffers[n].copy_(b if bad is None else torch.where(bad, buffers[n], b))
             for n, g in zip(names, grads):
                 p = params[n]
                 if p.device not in lr_t:
@@ -152,14 +192,25 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
                         lr.to(device=p.device, dtype=torch.float32)
                         if isinstance(lr, torch.Tensor)
                         else torch.full((), float(lr), dtype=torch.float32, device=p.device))
-                new_p, new_st = update_one(p, g.to(p.dtype), lr_t[p.device], opt_state[n],
-                                           hypers, l1_coeff)
+                state = opt_state[n]
+                if offload:  # this parameter's state onto the card for its update
+                    state = tuple(a.to(p.device, non_blocking=True) for a in state)
+                new_p, new_st = update_one(p, g.to(p.dtype), lr_t[p.device], state, hypers,
+                                           l1_coeff)
+                if bad is not None:
+                    new_p = torch.where(bad, p, new_p)
+                    new_st = tuple(torch.where(bad, o, w) for o, w in zip(state, new_st))
                 if donate:
                     for old, new in zip((p, *opt_state[n]), (new_p, *new_st)):
-                        old.copy_(new)
+                        old.copy_(new, non_blocking=offload)
                     new_params[n], new_state[n] = p, opt_state[n]
                 else:
-                    new_params[n], new_state[n] = new_p, new_st
+                    new_params[n] = new_p
+                    new_state[n] = tuple(_to_host(a) for a in new_st) if offload else new_st
+        if offload:
+            _sync(params)
+        if bad_step_guard:
+            return loss.detach(), new_params, new_state, bad
         return loss.detach(), new_params, new_state
 
     return step_fn, init_fn

@@ -14,6 +14,10 @@ Three kernels, as in the JAX package:
   nothing is accumulated with atomics and the gradients are the same run
   to run.
 
+Each kernel has three forms: float32 (CUDA cores), bfloat16 and float16
+(one tensor-core template instantiated for each 16-bit type), chosen by
+q's dtype, as the reference's kernels work in their inputs' dtype.
+
 ``flash_attention_fwd`` and ``flash_attention_bwd`` are the two as
 ``torch.library`` custom ops (K1's gradient registered on it: the
 reference's ``_flash`` custom_vjp), which ``mha`` and every captured
@@ -38,7 +42,7 @@ from ..core.random import U32, fmix32, keep_thresh_u32, mul32
 NEG_INF = -1e30
 
 HEAD_DIMS = (64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: launches in this process of K1 (``_fwd``), K2 and K3 (``_bwd``); reset
 #: them to count a run. A CUDA graph's replay runs no Python, so each replay
@@ -46,13 +50,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 dq_launches = 0
 dkv_launches = 0
-#: the same launches by form: (kernel "fwd" | "dq" | "dkv", sq, sk) -> count;
-#: clear it to count a run (a graph's replay credits it too)
+#: the same launches by form: (kernel "fwd" | "dq" | "dkv", sq, sk, dtype
+#: "float32" | "bfloat16" | "float16") -> count; clear it to count a run (a
+#: graph's replay credits it too)
 form_launches = {}
 
 
-def _count_form(kernel, sq, sk):
-    key = (kernel, sq, sk)
+def _count_form(kernel, sq, sk, dtype):
+    key = (kernel, sq, sk, str(dtype)[6:])
     form_launches[key] = form_launches.get(key, 0) + 1
 
 # library -> (number of pointer arguments of its launch function, the
@@ -78,8 +83,8 @@ def _library(name):
         lib_error = getattr(lib, name + "_error_string")
         lib_error.argtypes, lib_error.restype = [ctypes.c_int], ctypes.c_char_p
         lib_smem = getattr(lib, name + "_smem_bytes")
-        # (head_dim, dtype code): each library's f32 and bf16 forms are
-        # separate kernels with their own shared memory
+        # (head_dim, dtype code): each library's f32 form and its 16-bit
+        # forms are separate kernels with their own shared memory
         lib_smem.argtypes = [ctypes.c_int, ctypes.c_int]
         lib_smem.restype = ctypes.c_int
         _libs[name] = lib
@@ -217,7 +222,7 @@ def _check(q, k, v, *more):
     if any(t.device != q.device for t in (k, v, *more)):
         raise ValueError("flash attention: q, k and v are on different cards")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
-        raise TypeError("flash attention kernel takes float32 or bfloat16 "
+        raise TypeError("flash attention kernel takes float32, bfloat16 or float16 "
                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"flash attention kernel takes head_dim in {HEAD_DIMS}, "
@@ -309,7 +314,7 @@ def _fwd(q, k, v, seed, scale, causal, dropout_p, k_len=None, heads=1):
             o.data_ptr(), lse.data_ptr(), bh, sq, sk, d, k_stride, k_len_ptr, int(heads),
             *_kernel_args(seed, scale, causal, dropout_p, q.dtype, q.device))
     launches += 1
-    _count_form("fwd", sq, sk)
+    _count_form("fwd", sq, sk, q.dtype)
     return o, lse
 
 
@@ -343,11 +348,11 @@ def _bwd(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
             delta.data_ptr())
     _launch("flash_attention_bwd_dq", *ptrs, dq.data_ptr(), bh, sq, sk, d, *args)
     dq_launches += 1
-    _count_form("dq", sq, sk)
+    _count_form("dq", sq, sk, q.dtype)
     _launch("flash_attention_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d,
             *args)
     dkv_launches += 1
-    _count_form("dkv", sq, sk)
+    _count_form("dkv", sq, sk, q.dtype)
     return dq, dk, dv
 
 

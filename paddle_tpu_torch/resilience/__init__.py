@@ -1,16 +1,22 @@
 """The fault-tolerant runtime of the port (counterpart of
-paddle_tpu/resilience): :mod:`chaos` (deterministic fault injection), the
-atomic file primitives of :mod:`checkpoint`, :mod:`preemption` (SIGTERM
-to a resumable stop at a boundary) and :mod:`retry` (backoff with jitter
-and a deadline). ``CheckpointManager``, ``badstep`` and ``elastic`` are not
-ported yet (ROADMAP Queue 1)."""
+paddle_tpu/resilience): :mod:`chaos` (deterministic fault injection),
+:mod:`checkpoint` (atomic, self-verifying checkpoints with retention and
+a verified load with fallback: ``CheckpointManager``), :mod:`badstep` (the
+NaN/Inf step guard and the consecutive-bad-step rollback policy:
+``BadStepMonitor``), :mod:`preemption` (SIGTERM to a resumable stop at a
+boundary) and :mod:`retry` (backoff with jitter and a deadline).
+``elastic`` (pod-scale consensus over several hosts) is not ported yet
+(ROADMAP Queue 1)."""
 from . import chaos  # noqa: F401
 from . import preemption  # noqa: F401
+from .badstep import BadStepMonitor, guard_step, select_tree, tree_nonfinite  # noqa: F401
 from .checkpoint import (  # noqa: F401
     CheckpointCorrupt,
+    CheckpointManager,
     atomic_write_bytes,
     atomic_write_json,
     file_sha256,
+    leaf_checksums,
 )
 from .preemption import (  # noqa: F401
     EXIT_CODE as PREEMPTED_EXIT_CODE,

@@ -7,10 +7,11 @@ kernels; tests/test_torch_gpu.py holds the kernels themselves against them
 on the card. Inputs come from a numpy seed and go through both.
 Tolerances: forward 2e-4 in float32 (as tests/test_pallas_kernels.py),
 2e-2 in bfloat16 (P is rounded to bf16 before the PV product at different
-points: per tile in the JAX kernel, once in the plain version); backward
-1e-5 abs in float32 against the JAX ``_bwd`` (the same formulas, summed in
-another order) and 2e-2 abs in bfloat16; 1e-5 abs against torch autograd
-of ``mha_reference`` in float32.
+points: per tile in the JAX kernel, once in the plain version) and 2e-3 in
+float16 (the same rounding points, with three more mantissa bits);
+backward 1e-5 abs in float32 against the JAX ``_bwd`` (the same formulas,
+summed in another order), 2e-2 abs in bfloat16 and 2e-3 abs in float16;
+1e-5 abs against torch autograd of ``mha_reference`` in float32.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,9 +24,9 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 
 torch.set_num_threads(1)
 
-TOL = {"float32": 2e-4, "bfloat16": 2e-2}
-JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 2e-4, "bfloat16": 2e-2, "float16": 2e-3}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def _inputs(bh, sq, sk, d, seed=0):
@@ -122,6 +123,17 @@ def test_bf16_inputs(causal):
     _assert_close(j, t, "bfloat16")
 
 
+@pytest.mark.parametrize("bh,sq,sk,d,causal,dropout_p", [
+    (2, 64, 64, 64, False, 0.0), (2, 64, 64, 64, True, 0.0), (2, 32, 96, 128, True, 0.0),
+    (2, 96, 32, 64, True, 0.0), (3, 64, 64, 64, False, 0.1), (2, 100, 77, 64, False, 0.0)])
+def test_fp16_inputs(bh, sq, sk, d, causal, dropout_p):
+    """The float16 form (K1's dtype code 2) against the Pallas kernel run
+    in float16: P rounded to fp16 before P V, O in fp16, LSE f32."""
+    q, k, v = _inputs(bh, sq, sk, d, seed=2)
+    j, t = _both_fwd(q, k, v, causal=causal, dropout_p=dropout_p, seed=5, dtype="float16")
+    _assert_close(j, t, "float16")
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_mha_3d_form(causal):
     q, k, v = _inputs(4, 32, 48, 16, seed=3)
@@ -208,6 +220,48 @@ def test_bwd_reference_matches_pallas_bwd(bh, sq, sk, d, causal, dropout_p, seed
         assert np.all(t[0][:, :sq - sk] == 0.0)
 
 
+@pytest.mark.parametrize("sq,sk,d,causal,dropout_p", [
+    (64, 64, 64, False, 0.1), (64, 64, 64, True, 0.0), (32, 96, 128, True, 0.0),
+    (96, 32, 64, True, 0.1)])
+def test_bwd_reference_matches_pallas_bwd_fp16(sq, sk, d, causal, dropout_p):
+    """dS and P_dropped rounded to fp16 at the Pallas kernel's points."""
+    j, t = _both_bwd(2, sq, sk, d, causal=causal, dropout_p=dropout_p, seed=3,
+                     dtype="float16")
+    for a, b in zip(j, t):
+        np.testing.assert_allclose(b, a, rtol=0, atol=TOL["float16"])
+
+
+def test_fp16_overflow_lands_where_the_pallas_kernel_overflows():
+    """Under a large loss scale dO is large: a dS element past 65504
+    rounds to inf in fp16 (here V ~ 16 and dO ~ 2^11, so dP reaches ~1e5).
+    The plain version (what K2/K3 compute) gives a non-finite value only
+    where the Pallas kernel does, and agrees with it elsewhere relative to
+    the gradient's finite max."""
+    rng = np.random.RandomState(12)
+    bh, sq, sk, d = 2, 64, 64, 64
+    q, k, v = (rng.randn(bh, n, d).astype(np.float32) for n in (sq, sk, sk))
+    v = v * 16
+    do = (rng.randn(bh, sq, d) * 2.0 ** 11).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+    seed2d = jnp.asarray(0, jnp.int32).reshape(1, 1)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.float16) for x in (q, k, v, do))
+    o, lse = fa._fwd(jq, jk, jv, seed2d, scale, False, 64, 64, 0.0)
+    jg = fa._bwd(scale, False, 64, 64, 0.0, (jq, jk, jv, o, lse, seed2d), jdo)
+    tg = tfa._bwd(*(torch.from_numpy(x).half() for x in (q, k, v)),
+                  torch.from_numpy(np.array(o, np.float32)).half(),
+                  torch.from_numpy(np.array(lse)), torch.from_numpy(do).half(), 0, scale,
+                  False, 0.0)
+    saw_inf = False
+    for a, b in zip(jg, tg):
+        a, b = np.asarray(a, np.float32), b.float().numpy()
+        saw_inf |= bool(np.isinf(a).any())
+        assert not (~np.isfinite(b) & np.isfinite(a)).any()
+        fin = np.isfinite(a) & np.isfinite(b)
+        np.testing.assert_allclose(b[fin], a[fin], rtol=0,
+                                   atol=TOL["float16"] * np.abs(a[fin]).max())
+    assert saw_inf  # the scale does overflow somewhere
+
+
 @pytest.mark.parametrize("causal,dropout_p", [(False, 0.1), (True, 0.0)])
 def test_bwd_reference_matches_pallas_bwd_bf16(causal, dropout_p):
     j, t = _both_bwd(2, 64, 64, 64, causal=causal, dropout_p=dropout_p, seed=3,
@@ -242,7 +296,7 @@ def test_function_gradients_match_autograd_of_the_plain_forward(sq, sk, causal,
 
 
 @pytest.mark.parametrize("d", tfa.HEAD_DIMS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_dq_dropout_placement_premise(d, dtype):
     """The construction of the card's K2 dropout-placement check, held
     through the plain version: q = 0, K = V = I, dO = ones, O = 0 (so
@@ -281,7 +335,7 @@ def test_function_saves_nothing_without_grad_and_launches_nothing_on_cpu():
 
 
 @pytest.mark.parametrize("sq,n", [(1, 40), (40, 40)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_mha_on_a_prefix_view_of_a_longer_cache(sq, n, dtype):
     """The cached decode's form: K and V are the first n rows of a longer
     [B, H, total, D] buffer, causal with sq = 1 (one decode step) and
@@ -323,3 +377,19 @@ def test_kv_operand_passes_cache_views_through():
     # one head: its stride does not matter
     t, stride = tfa._kv_operand(buf[:1, :20])
     assert t.data_ptr() == buf.data_ptr() and stride == 20 * 64
+
+
+def test_fp16_is_a_form_of_the_kernels():
+    """float16 q/k/v map to the kernels' dtype code 2 (a CUDA tensor
+    launches the fp16 form, never a fallback); a CPU fp16 tensor runs the
+    plain version and counts no launch, by form or in total."""
+    assert tfa._DTYPE_CODES[torch.float16] == 2
+    forms = dict(tfa.form_launches)
+    before = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    q = torch.randn(1, 2, 16, 64, dtype=torch.float16, requires_grad=True)
+    out = tfa.mha(q, q, q, causal=True)
+    assert out.dtype == torch.float16
+    out.float().sum().backward()
+    assert q.grad.dtype == torch.float16 and torch.isfinite(q.grad).all()
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == before
+    assert tfa.form_launches == forms

@@ -27,7 +27,7 @@ pytestmark = pytest.mark.gpu
 
 torch.set_num_threads(1)
 
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 
 
 @pytest.fixture
@@ -44,8 +44,8 @@ def _qkv(bh, sq, sk, d, dtype, seed=0):
             for n in (sq, sk, sk)]
 
 
-# the forms of K1 and of the backward, each run in both dtypes: the f32
-# and bf16 forms are separate kernels
+# the forms of K1 and of the backward, each run in every dtype: the f32
+# form and the 16-bit forms (bf16, fp16: one template) are separate kernels
 FORMS = [
     (8, 100, 77, 64, False, 0.0),    # ragged lengths
     (8, 77, 300, 128, True, 0.0),    # causal, sq < sk
@@ -54,7 +54,7 @@ FORMS = [
     (8, 256, 256, 64, True, 0.2),    # dropout
     (8, 256, 256, 128, False, 0.1),  # head_dim 128
 ]
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 @pytest.mark.parametrize("bh,sq,sk,d,causal,p,dtype", [
@@ -77,8 +77,8 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(2, 16, 16, 32, torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
         fa._fwd(q, k, v, 0, 0.2, False, 0.0)
-    q, k, v = _qkv(2, 16, 16, 64, torch.float16)
-    with pytest.raises(TypeError):
+    q, k, v = _qkv(2, 16, 16, 64, torch.float64)
+    with pytest.raises(TypeError, match="float16"):
         fa._fwd(q, k, v, 0, 0.125, False, 0.0)
     q, k, v = _qkv(2, 16, 16, 64, torch.float32)
     q.requires_grad_(True)
@@ -195,6 +195,10 @@ def test_shared_memory_of_the_redesigned_kernels(cuda):
     assert sizes["flash_attention_bwd_dkv", 64, torch.float32] == 61696
     assert sizes["flash_attention_bwd_dkv", 128, torch.float32] == 110848
     assert all(0 < b <= 232448 for b in sizes.values())
+    # the fp16 forms stage the same 2-byte tiles as the bf16 forms
+    for name in fa._LIBS:
+        for d in fa.HEAD_DIMS:
+            assert sizes[name, d, torch.float16] == sizes[name, d, torch.bfloat16]
     # three blocks of K2's and K3's f32 forms share an SM's 228 KB (each
     # block also reserves 1 KB)
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
@@ -1404,3 +1408,49 @@ def test_router_in_front_of_two_card_replicas_is_bitwise(cuda, tmp_path):
             wire_spec.decode_arrays(body[1:]), pred.run([ids])))
     finally:
         f.close()
+
+
+def test_fp16_bert_step_launches_the_fp16_forms_and_offload_is_bitwise(cuda):
+    """A small BERT's O1 float16 build_train_step on the card: K1-K3 each
+    launched once a layer in their fp16 form (form_launches), the loss
+    finite; then offload=True against the resident step from the same
+    weights, bitwise, every non-scalar state tensor pinned on the host."""
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.distributed import spmd
+    from paddle_tpu_torch.text.models import BertForPretraining
+
+    cfg = dict(vocab_size=1024, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+               intermediate_size=256, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    model = BertForPretraining(**cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+
+    def loss_fn(logits, labels):
+        logp = torch.log_softmax(logits[0].float(), dim=-1)
+        return -torch.take_along_dim(logp, labels[..., None].long(), dim=-1).mean()
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randint(0, 1024, (4, 128)).astype(np.int32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 1024, (4, 128)).astype(np.int32)).cuda()
+    runs = {}
+    for offload in (False, True):
+        m = copy.deepcopy(model)
+        opt = optimizer.AdamW(1e-3, parameters=m.parameters(),
+                              grad_clip=nn.ClipGradByGlobalNorm(1.0))
+        step, init = spmd.build_train_step(m, loss_fn, opt, amp_level="O1",
+                                           amp_dtype="float16", offload=offload)
+        params, state = init()
+        fa.form_launches.clear()
+        losses = []
+        for _ in range(3):
+            loss, params, state = step(params, state, x, y)
+            losses.append(float(loss))
+        assert all(np.isfinite(losses))
+        for kernel in ("fwd", "dq", "dkv"):
+            assert fa.form_launches.get((kernel, 128, 128, "float16"), 0) == 3 * 2
+        runs[offload] = (losses, params, state)
+    (l0, p0, s0), (l1, p1, s1) = runs[False], runs[True]
+    assert l0 == l1 and all(torch.equal(p0[n], p1[n]) for n in p0)
+    for n in s0:
+        for a, b in zip(s0[n], s1[n]):
+            assert torch.equal(a.cpu(), b.cpu())
+            if b.dim():
+                assert b.device.type == "cpu" and b.is_pinned()

@@ -1,6 +1,7 @@
 """chip_smoke.py's yardsticks, checked on the CPU: the least time each
 attention kernel could take at the main paths' shapes (the bounds PERF.md
 quotes) and the device time it reads from a profiler window."""
+import pathlib
 from types import SimpleNamespace
 
 import pytest
@@ -12,6 +13,8 @@ import chip_smoke
 @pytest.mark.parametrize("kernel,bh,s,dtype,want_ms,want_by", [
     # K1 at the training shape (O1, batch 64 x 12 heads, seq 128)
     ("fwd", 768, 128, "bfloat16", 0.0151, "bytes"),
+    # the fp16 form moves the same bytes
+    ("fwd", 768, 128, "float16", 0.0151, "bytes"),
     # K2 and K3 at the same shape, and in float32 (the O0 step's form)
     ("bwd_dq", 768, 128, "bfloat16", 0.0190, "bytes"),
     ("bwd_dkv", 768, 128, "bfloat16", 0.0228, "bytes"),
@@ -122,3 +125,17 @@ def test_device_time_refuses_a_window_that_lost_records():
     host = SimpleNamespace(key="cudaLaunchKernel", device_type="DeviceType.CPU",
                            self_device_time_total=0.0, count=13)
     assert chip_smoke.device_us([ev(20, 800.0), host], calls=20) == 800.0
+
+
+@pytest.mark.parametrize("group,source", zip(
+    range(3), ("flash_attention_fwd.cu", "flash_attention_bwd_dq.cu",
+               "flash_attention_bwd_dkv.cu")))
+def test_profile_groups_name_the_kernels_of_the_sources(group, source):
+    """A profile counts K1-K3 by fragments of their kernels' names: each
+    fragment must name a kernel function of its source, or a profiled
+    replay counts no launch of it."""
+    text = (pathlib.Path(chip_smoke.__file__).parent / "paddle_tpu_torch" / "csrc"
+            / source).read_text()
+    _, fragments = chip_smoke.KERNEL_GROUPS[group]
+    for fragment in fragments:
+        assert f"{fragment}(" in text and f"__global__" in text, fragment

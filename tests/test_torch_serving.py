@@ -142,6 +142,46 @@ def test_concurrent_one_row_requests_coalesce(server, bert):
     assert total(after, "padded_rows") >= total(before, "padded_rows")
 
 
+def test_coalesced_multi_row_requests_are_bitwise_their_direct_calls(server, bert):
+    """The reference's determinism contract (paddle_tpu/inference/
+    batching.py:88-99) for requests of >= 2 rows, held for the callable
+    engine on the CPU: a 2-row and a 3-row request coalesced into one
+    batch (bucket 8, padded) give exactly the bits of the callable's
+    direct call on each request alone. (On the card the engine cannot fix
+    the M of the caller's direct call, whose cuBLAS kernel may differ: the
+    loaded-program path holds the contract by slabs instead.)"""
+    _, engine = server
+    run, _ = bert
+    reqs = [_ids(2, 300), _ids(3, 301)]
+    before = engine.stats()
+    replies = [None, None]
+    barrier = threading.Barrier(2)
+
+    def client(i):
+        barrier.wait()
+        replies[i] = engine.infer([reqs[i]], timeout=60)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+        assert not t.is_alive()
+    after = engine.stats()
+
+    def total(stats, key):
+        return sum(d[key] for ds in stats["buckets"].values() for d in ds)
+
+    assert total(after, "requests") - total(before, "requests") == 2
+    assert total(after, "batches") - total(before, "batches") == 1  # coalesced
+    for ids, got in zip(reqs, replies):
+        want = [o.numpy() for o in run(ids)]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+
+
 def test_health_and_stats_commands(server):
     srv, _ = server
     status, body = _call(srv.port, ref_spec.build_request(ref_spec.CMD_HEALTH))

@@ -22,6 +22,7 @@ Tolerances, each with its reason:
   torch), updated parameters within 2.5 * lr. O2 (every op but the black
   list in bf16) is held to the O1 tolerances.
 """
+import copy
 import importlib
 
 import jax
@@ -345,6 +346,18 @@ def _opt(mod, model):
 @pytest.mark.parametrize("amp_level,tol_loss,tol_grad,floor_grad", [
     ("O0", 1e-5, 1e-4, 1e-8), ("O1", 2e-3, 5e-2, 1e-5), ("O2", 2e-3, 5e-2, 1e-5)])
 def test_train_step_matches_jax(monkeypatch, amp_level, tol_loss, tol_grad, floor_grad):
+    _hold_step_against_jax(monkeypatch, amp_level, "bfloat16", tol_loss, tol_grad, floor_grad)
+
+
+def test_fp16_o1_train_step_matches_jax(monkeypatch):
+    """amp_dtype="float16": the forward under auto_cast(float16) (the flash
+    kernels' fp16 form; their Pallas kernels in fp16 on the JAX side), f32
+    master weights and no loss scale in the step, as the reference's. Held
+    to the O1 tolerances: fp16 keeps three more mantissa bits than bf16."""
+    _hold_step_against_jax(monkeypatch, "O1", "float16", 2e-3, 5e-2, 1e-5)
+
+
+def _hold_step_against_jax(monkeypatch, amp_level, amp_dtype, tol_loss, tol_grad, floor_grad):
     monkeypatch.setattr(jattention, "_use_pallas", lambda: True)
     paddle.set_flags({"pallas_attention_min_seq": 0})
     try:
@@ -355,9 +368,9 @@ def test_train_step_matches_jax(monkeypatch, amp_level, tol_loss, tol_grad, floo
         load_numpy_state(tw, state)
         jstep, jinit = jspmd.build_train_step(
             jw, _jax_loss, _opt(jopt, jw), mesh=topology.build_mesh(dp=1, devices=jax.devices()[:1]),
-            amp_level=amp_level)
+            amp_level=amp_level, amp_dtype=amp_dtype)
         tstep, tinit = tspmd.build_train_step(tw, _torch_loss, _opt(topt, tw),
-                                              amp_level=amp_level)
+                                              amp_level=amp_level, amp_dtype=amp_dtype)
         x, y = _batch()
         jp, js = jinit()
         tp, ts = tinit()
@@ -419,14 +432,76 @@ def test_train_step_takes_the_reference_keys_and_donates():
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(amp_level="O1", amp_dtype="float16"), dict(shard_optimizer=True),
-    dict(sharding_stage=2), dict(fp16_allreduce=True), dict(dgc_configs={}),
-    dict(strategy=object()), dict(offload=True), dict(bad_step_guard=True)])
+    dict(mesh=object()), dict(shard_optimizer=True), dict(sharding_stage=2),
+    dict(fp16_allreduce=True), dict(dgc_configs={}), dict(strategy=object())])
 def test_unported_train_step_options_raise(option):
     m = tnn.Linear(2, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         tspmd.build_train_step(m, lambda out, y: out.sum(), topt.AdamW(parameters=m.parameters()),
                                **option)
+
+
+@pytest.mark.parametrize("donate", [True, False])
+def test_offload_step_is_bitwise_the_resident_step(donate):
+    """offload=True: the optimizer state a step leaves is the resident
+    step's, bitwise, over three steps of AdamW with a clip (an MLP: the
+    CPU's embedding backward adds across threads in no fixed order, so
+    two resident BERT runs already differ in their last bits); on the CPU
+    the host is the device, so the state stays on the CPU (not pinned:
+    pinning needs a card), and the scalar step count stays a scalar."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(8, 16).astype(np.float32))
+    y = torch.from_numpy(rng.randn(8, 4).astype(np.float32))
+    runs = {}
+    mlp0 = tnn.Sequential(tnn.Linear(16, 32, device="cpu"), tnn.GELU(),
+                          tnn.Linear(32, 4, device="cpu"))
+    for offload in (False, True):
+        mlp = copy.deepcopy(mlp0)
+        step, init = tspmd.build_train_step(mlp, lambda out, t: ((out - t) ** 2).mean(),
+                                            _opt(topt, mlp), offload=offload, donate=donate)
+        params, state = init()
+        losses = []
+        for _ in range(3):
+            loss, params, state = step(params, state, x, y)
+            losses.append(float(loss))
+        runs[offload] = (losses, params, state)
+    (l0, p0, s0), (l1, p1, s1) = runs[False], runs[True]
+    assert l0 == l1 and l0[-1] < l0[0]
+    assert all(torch.equal(p0[n], p1[n]) for n in p0)
+    for n in s0:
+        assert len(s0[n]) == len(s1[n]) == 3
+        for a, b in zip(s0[n], s1[n]):
+            assert torch.equal(a, b) and b.device.type == "cpu" and not b.is_pinned()
+        assert s1[n][2].dim() == 0
+
+
+def test_fp16_step_runs_the_forward_in_fp16_and_keeps_f32_masters():
+    """amp_dtype="float16" is no longer refused: the step's linear and
+    attention inputs are float16 (flash attention's fp16 form on the card),
+    the master weights and their optimizer state float32."""
+    tw = _TorchWrapper(BertForPretraining(**dict(SMOKE, num_hidden_layers=1), device="cpu"),
+                       SEQ)
+    seen = []
+    from paddle_tpu_torch.ops import flash_attention as tfa
+
+    orig = tfa.mha_reference
+
+    def spy(q, *a, **k):
+        seen.append(q.dtype)
+        return orig(q, *a, **k)
+
+    tfa.mha_reference = spy
+    try:
+        step, init = tspmd.build_train_step(tw, _torch_loss, _opt(topt, tw), amp_level="O1",
+                                            amp_dtype="float16")
+        params, state = init()
+        x, y = _batch()
+        loss, params, state = step(params, state, torch.from_numpy(x), torch.from_numpy(y))
+    finally:
+        tfa.mha_reference = orig
+    assert seen == [torch.float16] and np.isfinite(float(loss))
+    assert all(p.dtype == torch.float32 for p in params.values())
+    assert all(a.dtype == torch.float32 for st in state.values() for a in st)
 
 
 def test_train_step_amp_level_and_buffers_are_checked():
