@@ -480,7 +480,32 @@ Phases, each fatal on failure (exit code 1):
               bitwise equal, every non-scalar state tensor pinned on the
               host; step ms and peak memory of both; (e) the phase's
               launches and seconds
- 22. summary  a {"kernels": [...]} line, then as the last line
+ 22. leaves   the detection ops, DCN, the flat-list quantized model and
+              the small leaves, each card vs the port's CPU run of the same
+              call: (a) YOLOv3's three heads (yolov3_darknet53_270e_coco at
+              608, batch 8: 22,743 boxes x 80 classes an image) through
+              yolo_box on the card (boxes, scores 1e-5), then every image's
+              multiclass_nms (its config) and matrix_nms (ppyolo's) on the
+              host: the kept rows the CPU run's, a row kept by one run only
+              exempted only within 1e-5 of a threshold or tie, under 1% of
+              the rows; (b) Faster R-CNN FPN at 800 x 1333, batch 2: 1,000
+              proposals an image through collect_fpn_proposals,
+              distribute_fpn_proposals (bitwise) and roi_align per level
+              with boxes_num, [2000, 256, 7, 7] at 1e-5, the four maps'
+              gradients at 1e-4 of each max; (c) DeformConv2D(512, 512, 3)
+              v2 and v1 at [8, 512, 19, 19]: forward 1e-4, the gradients to
+              x, offset, mask, weight and bias 1e-3 of each max, once
+              through static.nn.deform_conv2d in a Program; (d) a depth-2
+              Llama-2-7B-width model as a flat param list, quantized w8
+              and bf16w, 16 streams of 64 + 32 tokens: tokens bitwise
+              _LlamaWeights.quantized's, wq_matmul 14 a fill and 15 a step,
+              prompt logits within ACCURACY_BOUNDS of f32's, no f32 weight
+              copy (the graphs' pool and the window's peak); (e) the
+              distributions from one key, hessian, a CUDA dlpack round
+              trip, run_check, a g++ custom op with its _grad on CUDA
+              tensors, a profiler window naming its step. Printed beside
+              the card: each part's ms and the phase's seconds
+ 23. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -495,12 +520,17 @@ instead builds the kernels and measures the 7B engine at each fill chunk
 is one of phase 20 (b)'s replica processes (decode_replica), which the
 phase starts itself.
 
+    python3 chip_smoke.py --leaves
+
+builds the kernels and runs phase 22 alone.
+
 It imports nothing of JAX or the JAX package. Run from a directory that
 holds only this file it fails at the import of paddle_tpu_torch.
 """
 import copy
 import gc
 import json
+import multiprocessing as mp
 import os
 import signal
 import socket
@@ -509,6 +539,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -3582,7 +3613,6 @@ def phase_quant(torch, fa, qmm, mods, card, eng7, serving):
 
     (LlamaModel, generation, DecodeEngine, BatchingEngine, PredictorServer, wire_spec, obs,
      quantization, Graph) = mods
-    from paddle_tpu_torch.quantization import post_training
     from paddle_tpu_torch.quantization.post_training import Int8Linear, _quantize_array
     from paddle_tpu_torch.quantization.serving import weight_bytes
 
@@ -3752,11 +3782,12 @@ def phase_quant(torch, fa, qmm, mods, card, eng7, serving):
     # shapes (M = rows x seq, K x N of 768 x 768, 768 x 3072, 3072 x 768)
     # within TOL_WQ of the output's max, and the quantization's own error
     # against the f32 replies, beside the kernel path's
-    post_training.wq_matmul = qmm.wq_matmul_reference
+    kernel_path = qmm.wq_matmul
+    qmm.wq_matmul = qmm.wq_matmul_reference  # what QuantWeight.matmul (Int8Linear) calls
     try:
         plain = [[o.cpu().numpy() for o in run(ids)] for ids, _ in replies]
     finally:
-        post_training.wq_matmul = qmm.wq_matmul
+        qmm.wq_matmul = kernel_path
     if qmm.launches != bwq:
         fail("BERT w8: the plain run launched wq_matmul")
 
@@ -7450,6 +7481,673 @@ def phase_safety(torch, fa, mods, card, dyg, lm):
                 offload_peak=o["peak"], resident_peak=r["peak"])
 
 
+# ------------------------------------------------------------------ phase 22
+# (a): yolov3_darknet53_270e_coco (PaddleDetection) at a 608 input, batch 8:
+# its three heads (grid, downsample, COCO's anchors of the head)
+YOLO_BATCH, YOLO_INPUT, YOLO_CLASSES = 8, 608, 80
+YOLO_HEADS = ((19, 32, (116, 90, 156, 198, 373, 326)),
+              (38, 16, (30, 61, 62, 45, 59, 119)),
+              (76, 8, (10, 13, 16, 30, 33, 23)))
+YOLO_CONF = 0.01
+# the configs' post-processing: yolov3's MultiClassNMS, ppyolo_r50vd_dcn_1x_coco's MatrixNMS
+MULTICLASS_NMS = dict(score_threshold=0.01, nms_top_k=1000, keep_top_k=100, nms_threshold=0.45,
+                      background_label=-1)
+MATRIX_NMS = dict(score_threshold=0.01, post_threshold=0.01, nms_top_k=-1, keep_top_k=100,
+                  use_gaussian=False, gaussian_sigma=2.0, background_label=-1, normalized=False)
+LEAF_TIE = 1e-5  # (a): a score or IoU this close (relative) to a threshold or another is a tie
+LEAF_EXEMPT = 0.01  # (a): exempted rows must stay under this share of the kept rows
+TOL_DET = 1e-5  # (a): boxes and scores, card vs CPU, relative to the max
+# (b): faster_rcnn_r50_fpn_1x_coco at 800 x 1333 (padded to 800 x 1344), batch 2
+FPN_BATCH, FPN_CHANNELS, FPN_IMAGE = 2, 256, (800, 1333)
+FPN_SHAPES = ((200, 336), (100, 168), (50, 84), (25, 42))  # P2-P5
+FPN_RPN_LEVELS, FPN_RPN_PER_LEVEL, FPN_POST_NMS = 5, 1000, 1000  # RPN's P2-P6 proposals
+TOL_ROI_FWD, TOL_ROI_GRAD = 1e-5, 1e-4
+# (c): ResNet50-vd-DCN's stage-5 3 x 3 conv (PP-YOLO) at a 608 input, batch 8
+DCN_BATCH, DCN_CHANNELS, DCN_HW = 8, 512, 19
+TOL_DCN_FWD, TOL_DCN_GRAD = 1e-4, 1e-3
+# (d): a flat-list DecodeModel of Llama-2-7B's width at depth 2
+FLAT_DEPTH, FLAT_STREAMS, FLAT_PROMPT, FLAT_NEW = 2, 16, 64, 32
+# an f32 copy of the smallest matrix (4096 x 4096) is 64 MiB: neither the window's peak
+# growth nor the flat list's graph pool over _LlamaWeights.quantized's may reach it
+FLAT_PEAK_SLACK = 64 << 20
+LEAF_CARD = "cuda"  # where phase 22 runs the card's side (a CPU rehearsal sets "cpu")
+# (e)
+TOL_HESSIAN = 1e-4
+TOL_NORMAL_SAMPLE = 1e-6  # torch.erfinv on the card and on the CPU, relative to the max
+CPP_OP_SRC = r"""
+#include <cstdint>
+extern "C" void cube(const float* x, float* y, int64_t n) { for (int64_t i = 0; i < n; ++i) y[i] = x[i] * x[i] * x[i]; }
+extern "C" void cube_grad(const float* x, const float* dy, float* dx, int64_t n) { for (int64_t i = 0; i < n; ++i) dx[i] = 3.f * x[i] * x[i] * dy[i]; }
+"""
+
+
+def leaf_timed(torch, fn, iters=10):
+    """(CUDA-event ms, device ms) of one call of ``fn``: ``timed``'s, with
+    a one-call profiler window where its window lost records."""
+    ms, dev = timed(torch, fn, iters=iters)
+    return ms, dev if dev is not None else one_call_device_ms(torch, fn)
+
+
+def yolo_inputs(rng):
+    """The three heads' outputs [8, 3 * (80 + 5), g, g] from seed 0: box
+    logits N(0, 1), objectness N(-4, 2), class logits N(-6, 2), so that
+    about 2% of the (box, class) scores pass 0.01, as a trained head's."""
+    heads = []
+    for g, _, _ in YOLO_HEADS:
+        x = rng.standard_normal((YOLO_BATCH, 3, YOLO_CLASSES + 5, g, g), dtype=np.float32)
+        x[:, :, 4] = -4 + 2 * x[:, :, 4]
+        x[:, :, 5:] = -6 + 2 * x[:, :, 5:]
+        heads.append(x.reshape(YOLO_BATCH, -1, g, g))
+    return heads
+
+
+def yolo_decode(torch, ops, heads, dev):
+    """yolo_box on each head (the image size 608 x 608) -> boxes [8, 22743,
+    4], scores [8, 22743, 80] on ``dev``."""
+    size = torch.full((YOLO_BATCH, 2), YOLO_INPUT, dtype=torch.int32, device=dev)
+    outs = [ops.yolo_box(x, size, anchors, YOLO_CLASSES, YOLO_CONF, ds)
+            for x, (_, ds, anchors) in zip(heads, YOLO_HEADS)]
+    return torch.cat([b for b, _ in outs], 1), torch.cat([s for _, s in outs], 1)
+
+
+def _ties(v, refs, tol=LEAF_TIE):
+    refs = np.asarray(refs, np.float64)
+    return bool(np.any(np.abs(refs - v) <= tol * np.maximum(np.abs(refs), abs(v))))
+
+
+def _iou_row(box, boxes):
+    """IoU of one box with each of ``boxes``, as the greedy NMS computes it."""
+    ix = np.clip(np.minimum(box[2], boxes[:, 2]) - np.maximum(box[0], boxes[:, 0]), 0, None)
+    iy = np.clip(np.minimum(box[3], boxes[:, 3]) - np.maximum(box[1], boxes[:, 1]), 0, None)
+    inter = ix * iy
+    area = (box[2] - box[0]) * (box[3] - box[1])
+    areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    return inter / (area + areas - inter + 1e-12)
+
+
+def hold_nms(label, runs, scores_cpu, boxes_cpu, thresholds, iou_thr):
+    """Card vs CPU rows of one image's NMS: ``runs`` = {"card": (rows,
+    index), "cpu": (rows, index)}. Rows kept by both agree at TOL_DET;
+    a row kept by one run only is exempt when its score (or decayed
+    score) lies within LEAF_TIE of a threshold or of another score, or its
+    IoU with a box the CPU kept in its class within LEAF_TIE of
+    ``iou_thr`` (greedy NMS; None for matrix NMS, whose decay is
+    continuous in the IoU). -> (rows, matched rel error, exempt count);
+    fails on an unexempted difference."""
+    keyed = {}
+    for run, (rows, index) in runs.items():
+        keyed[run] = {(int(r[0]), int(i)): r for r, i in zip(rows, index)}
+        if len(keyed[run]) != len(rows) or np.any(np.diff(rows[:, 1]) > 0):
+            fail(f"{label}: the {run} run's rows are not distinct or not by score")
+    card, cpu = keyed["card"], keyed["cpu"]
+    both = sorted(set(card) & set(cpu))
+    err = 0.0
+    if both:
+        a = np.stack([card[k] for k in both]).astype(np.float64)
+        b = np.stack([cpu[k] for k in both]).astype(np.float64)
+        err = float(np.max(np.abs(a[:, 1:] - b[:, 1:])) / max(np.max(np.abs(b[:, 1:])), 1e-30))
+    flat = decayed = None
+    exempt = 0
+    for key in set(card) ^ set(cpu):
+        c, i = key
+        row = card.get(key, cpu.get(key))
+        raw = float(scores_cpu[c, i])
+        if flat is None:
+            flat = np.sort(scores_cpu.reshape(-1))
+            decayed = np.array([r[1] for r in list(card.values()) + list(cpu.values())],
+                               np.float64)
+        lo, hi = np.searchsorted(flat, [raw * (1 - 2 * LEAF_TIE), raw * (1 + 2 * LEAF_TIE)])
+        close = np.abs(decayed - row[1]) <= LEAF_TIE * abs(float(row[1]))
+        tied = (hi - lo) > 1 or int(close.sum()) > 1
+        near = any(_ties(v, [t]) for v in (raw, float(row[1])) for t in thresholds)
+        kept = np.array([cpu[k][2:] for k in cpu if k[0] == c and k != key])
+        overlap = (iou_thr is not None and len(kept) > 0
+                   and _ties(iou_thr, _iou_row(boxes_cpu[i], kept)))
+        if not (tied or near or overlap):
+            fail(f"{label}: class {c} box {i} (score {raw}) kept by one run only, and no "
+                 "threshold or tie lies within 1e-5 of it")
+        exempt += 1
+    if err > TOL_DET:
+        fail(f"{label}: rows kept by both runs differ by {err:.3g} of the max (> {TOL_DET})")
+    return len(cpu), err, exempt
+
+
+def nms_image(job):
+    """One image's multiclass_nms rows and matrix_nms rows and index, from
+    host arrays (boxes [N, 4], scores [C, N]): a pool worker's job."""
+    from paddle_tpu_torch.vision import ops
+
+    boxes, scores = job
+    mx, index = ops.matrix_nms(boxes, scores, return_index=True, **MATRIX_NMS)
+    return (ops.multiclass_nms(boxes, scores, **MULTICLASS_NMS).numpy(), mx.numpy(),
+            index.numpy())
+
+
+def box_index(boxes):
+    """Row box -> its index among an image's boxes (a kept row carries
+    its box's four floats as they were)."""
+    return {b.tobytes(): i for i, b in enumerate(boxes)}
+
+
+def leaves_yolo(torch, ops, card):
+    """(a) yolo_box on the card, then per image multiclass_nms and
+    matrix_nms on the host, held against the port's CPU run."""
+    rng = np.random.default_rng(0)
+    heads = yolo_inputs(rng)
+    dev_heads = [torch.from_numpy(h).to(LEAF_CARD) for h in heads]
+    boxes, scores = yolo_decode(torch, ops, dev_heads, LEAF_CARD)
+    ms, dev_ms = leaf_timed(torch, lambda: yolo_decode(torch, ops, dev_heads, LEAF_CARD))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hb, hs = boxes.cpu().numpy(), scores.cpu().numpy()
+    cross_ms = (time.perf_counter() - t) * 1e3
+    cb, cs = (a.numpy() for a in yolo_decode(torch, ops, [torch.from_numpy(h) for h in heads],
+                                             "cpu"))
+    n_box = cb.shape[1]
+    err_b = float(np.max(np.abs(hb - cb)) / np.max(np.abs(cb)))
+    err_s = float(np.max(np.abs(hs - cs)) / np.max(np.abs(cs)))
+    passing = float((cs > MULTICLASS_NMS["score_threshold"]).mean())
+    log(f"[leaves] (a) yolo_box x 3 heads on [8, 255, 19|38|76, ...]: {n_box} boxes x "
+        f"{YOLO_CLASSES} classes an image; {passing:.2%} of the scores pass 0.01; card vs CPU "
+        f"boxes {err_b:.3g}, scores {err_s:.3g} of the max (tolerance {TOL_DET}); device "
+        f"{_fmt(dev_ms)} ms ({ms:.3f} ms CUDA events) for the batch; the host crossing of "
+        f"boxes and scores ({(hb.nbytes + hs.nbytes) / 2**20:.1f} MiB) {cross_ms:.2f} ms "
+        f"[{card}]")
+    if n_box != sum(3 * g * g for g, _, _ in YOLO_HEADS) or err_b > TOL_DET or err_s > TOL_DET:
+        fail("(a): yolo_box's boxes or scores on the card disagree with the CPU's")
+    # one image's NMS on the card's tensors, timed (its host crossing
+    # included); then every image's, card-run and CPU-run arrays alike, in
+    # a pool of worker processes (the host work of 16 calls; a worker
+    # touches no card)
+    t = time.perf_counter()
+    first_mc = ops.multiclass_nms(boxes[0], scores[0].T, **MULTICLASS_NMS).cpu().numpy()
+    mc_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    first_mx = ops.matrix_nms(boxes[0], scores[0].T, return_index=True, **MATRIX_NMS)
+    mx_ms = (time.perf_counter() - t) * 1e3
+    jobs = [(b[i], s[i].T.copy()) for b, s in ((hb, hs), (cb, cs)) for i in range(YOLO_BATCH)]
+    t = time.perf_counter()
+    with mp.get_context("spawn").Pool(min(len(jobs), os.cpu_count() or 1)) as pool:
+        results = pool.map(nms_image, jobs)
+    pool_s = time.perf_counter() - t
+    if not (np.array_equal(first_mc, results[0][0])
+            and np.array_equal(first_mx[0].cpu().numpy(), results[0][1])):
+        fail("(a): image 0's NMS on the card's tensors differs from its host arrays'")
+    totals = {"multiclass": [0, 0, 0.0], "matrix": [0, 0, 0.0]}
+    for i in range(YOLO_BATCH):
+        card_r, cpu_r = results[i], results[YOLO_BATCH + i]
+        runs = {"multiclass": {}, "matrix": {}}
+        for run, r, host_boxes in (("card", card_r, hb[i]), ("cpu", cpu_r, cb[i])):
+            where = box_index(host_boxes)
+            runs["multiclass"][run] = (r[0], [where[row[2:].tobytes()] for row in r[0]])
+            runs["matrix"][run] = (r[1], r[2])
+        for name, thr, iou_thr in (
+                ("multiclass", (MULTICLASS_NMS["score_threshold"],),
+                 MULTICLASS_NMS["nms_threshold"]),
+                ("matrix", (MATRIX_NMS["score_threshold"], MATRIX_NMS["post_threshold"]), None)):
+            n, err, ex = hold_nms(f"(a) image {i} {name}_nms", runs[name], cs[i].T, cb[i], thr,
+                                  iou_thr)
+            totals[name][0] += n
+            totals[name][1] += ex
+            totals[name][2] = max(totals[name][2], err)
+    per_image = {"multiclass": mc_ms, "matrix": mx_ms}
+    for name, (n, ex, err) in totals.items():
+        log(f"[leaves] (a) {name}_nms: {n} rows kept over {YOLO_BATCH} images, the same rows "
+            f"as the CPU run's but {ex} exempted near a threshold or tie ({LEAF_EXEMPT:.0%} "
+            f"allowed), values within {err:.3g} of the max; {per_image[name]:.1f} ms an image "
+            f"on the host (image 0, its inputs' crossing from the card included) [{card}]")
+        if n == 0 or ex >= LEAF_EXEMPT * n:
+            fail(f"(a): {name}_nms kept no row or exempted {ex} of {n}")
+    log(f"[leaves] (a) the {len(jobs)} NMS images (card and CPU runs) in {pool_s:.1f} s over "
+        f"a pool of {min(len(jobs), os.cpu_count() or 1)} processes")
+    return dict(yolo_ms=dev_ms, cross_ms=cross_ms, nms_ms=per_image)
+
+
+def fpn_inputs(rng):
+    """P2-P5 [2, 256, h, w] and each image's RPN proposals (5 levels x
+    1000, sizes log-uniform over 16-512 px, aspect 1:2-2:1, clipped to the
+    image) with their scores, from seed 0."""
+    maps = [rng.standard_normal((FPN_BATCH, FPN_CHANNELS, h, w), dtype=np.float32)
+            for h, w in FPN_SHAPES]
+    props = []
+    ih, iw = FPN_IMAGE
+    for _ in range(FPN_BATCH):
+        rois, scores = [], []
+        for _ in range(FPN_RPN_LEVELS):
+            n = FPN_RPN_PER_LEVEL
+            side = np.exp(rng.uniform(np.log(16), np.log(512), n))
+            ar = np.exp(rng.uniform(np.log(0.5), np.log(2.0), n))
+            cx, cy = rng.uniform(0, iw, n), rng.uniform(0, ih, n)
+            w, h = side * np.sqrt(ar), side / np.sqrt(ar)
+            box = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], 1)
+            box = np.clip(box, 0, [iw - 1, ih - 1, iw - 1, ih - 1]).astype(np.float32)
+            rois.append(box)
+            scores.append(rng.uniform(0, 1, n).astype(np.float32))
+        props.append((rois, scores))
+    return maps, props
+
+
+def fpn_rois(torch, ops, props, dev):
+    """collect_fpn_proposals per image (post_nms_top_n 1000), the images'
+    RoIs concatenated, then distribute_fpn_proposals (P2-P5, refer level 4
+    at scale 224) -> (RoIs per level, restore index, boxes_num per level)."""
+    per_image = [ops.collect_fpn_proposals([torch.from_numpy(r).to(dev) for r in rois],
+                                           [torch.from_numpy(s).to(dev) for s in scores],
+                                           2, 6, FPN_POST_NMS)
+                 for rois, scores in props]
+    rois = torch.cat(per_image)
+    multi, restore = ops.distribute_fpn_proposals(rois, 2, 5, 4, 224)
+    order = np.argsort(restore.cpu().numpy(), kind="stable")
+    starts = np.cumsum([0] + [len(m) for m in multi])
+    image = np.repeat(np.arange(FPN_BATCH), [len(r) for r in per_image])
+    nums = [np.bincount(image[order[a:b]], minlength=FPN_BATCH).tolist()
+            for a, b in zip(starts[:-1], starts[1:])]
+    return multi, restore, nums
+
+
+def fpn_forward(torch, ops, maps, multi, restore, nums):
+    outs = [ops.roi_align(m, r, n, 7, spatial_scale=1.0 / 2 ** (lvl + 2), aligned=True)
+            for lvl, (m, r, n) in enumerate(zip(maps, multi, nums))]
+    return torch.cat(outs)[restore]
+
+
+def leaves_fpn(torch, ops, card):
+    """(b) collect -> distribute -> roi_align per level at Faster R-CNN FPN's
+    shapes, forward and the gradient to the four maps, card vs CPU."""
+    rng = np.random.default_rng(1)
+    maps, props = fpn_inputs(rng)
+    runs = {}
+    for dev in (LEAF_CARD, "cpu"):
+        multi, restore, nums = fpn_rois(torch, ops, props, dev)
+        x = [torch.from_numpy(m).to(dev).requires_grad_() for m in maps]
+        out = fpn_forward(torch, ops, x, multi, restore, nums)
+        if dev == LEAF_CARD:
+            g = torch.from_numpy(rng.standard_normal(tuple(out.shape), dtype=np.float32))
+        (out * g.to(dev)).sum().backward()
+        runs[dev] = dict(multi=[m.cpu().numpy() for m in multi], restore=restore.cpu().numpy(),
+                         nums=nums, out=out.detach().cpu(), grads=[t.grad.cpu() for t in x],
+                         x=x, g=g.to(dev), lists=(multi, restore))
+    a, b = runs[LEAF_CARD], runs["cpu"]
+    same_levels = (all(np.array_equal(p, q) for p, q in zip(a["multi"], b["multi"]))
+                   and np.array_equal(a["restore"], b["restore"]) and a["nums"] == b["nums"])
+    fwd = _rel_err(torch, a["out"], b["out"])
+    grads = [_rel_err(torch, p, q) for p, q in zip(a["grads"], b["grads"])]
+    x, g = a["x"], a["g"]
+    multi, restore = a["lists"]
+
+    def forward():
+        return fpn_forward(torch, ops, x, multi, restore, a["nums"])
+
+    def step():
+        for t in x:
+            t.grad = None
+        (forward() * g).sum().backward()
+
+    fwd_ms, fwd_dev = leaf_timed(torch, forward)
+    step_ms = cuda_ms(torch, step, iters=5, warmup=1)
+    step_dev = one_call_device_ms(torch, step)
+    log(f"[leaves] (b) FPN RoIAlign: RoIs per level {[len(m) for m in a['multi']]} "
+        f"(boxes_num {a['nums']}), out {tuple(a['out'].shape)}; level assignment and restore "
+        f"index {'bitwise' if same_levels else 'DIFFERENT'}; forward {fwd:.3g} of the max "
+        f"(tolerance {TOL_ROI_FWD}), the maps' gradients "
+        + ", ".join(f"{e:.3g}" for e in grads) + f" of each max (tolerance {TOL_ROI_GRAD}); "
+        f"forward {_fmt(fwd_dev)} ms device ({fwd_ms:.3f} ms CUDA events), forward + "
+        f"backward {_fmt(step_dev)} ms device ({step_ms:.3f} ms CUDA events) [{card}]")
+    if (not same_levels or tuple(a["out"].shape) != (FPN_BATCH * FPN_POST_NMS, FPN_CHANNELS, 7, 7)
+            or fwd > TOL_ROI_FWD or max(grads) > TOL_ROI_GRAD):
+        fail("(b): FPN RoIAlign on the card disagrees with the CPU run")
+    return dict(fwd_ms=fwd_dev, step_ms=step_dev)
+
+
+def dcn_inputs(rng):
+    x = rng.standard_normal((DCN_BATCH, DCN_CHANNELS, DCN_HW, DCN_HW), dtype=np.float32)
+    off = rng.uniform(-2, 2, (DCN_BATCH, 18, DCN_HW, DCN_HW)).astype(np.float32)
+    mask = rng.uniform(0, 1, (DCN_BATCH, 9, DCN_HW, DCN_HW)).astype(np.float32)
+    w = (rng.standard_normal((DCN_CHANNELS, DCN_CHANNELS, 3, 3), dtype=np.float32)
+         / np.float32(np.sqrt(DCN_CHANNELS * 9)))
+    b = rng.standard_normal(DCN_CHANNELS, dtype=np.float32) * np.float32(0.1)
+    return x, off, mask, w, b
+
+
+def leaves_dcn(torch, ops, paddle, card):
+    """(c) DeformConv2D(512, 512, 3, padding=1) v2 and v1 at PP-YOLO's
+    stage-5 width: forward and the gradients to x, offset, mask and the
+    weight, card vs CPU; once through static.nn.deform_conv2d in a
+    Program."""
+    from paddle_tpu_torch import convert
+
+    rng = np.random.default_rng(2)
+    arrays = dcn_inputs(rng)
+    layer = ops.DeformConv2D(DCN_CHANNELS, DCN_CHANNELS, 3, padding=1)
+    convert.load_numpy_state(layer, {"weight": arrays[3], "bias": arrays[4]})
+    g = rng.standard_normal((DCN_BATCH, DCN_CHANNELS, DCN_HW, DCN_HW), dtype=np.float32)
+    result = {}
+    for version in ("v2", "v1"):
+        runs = {}
+        for dev in (LEAF_CARD, "cpu"):
+            t = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrays]
+            mask = t[2] if version == "v2" else None
+            y = ops.deform_conv2d(t[0], t[1], t[3], t[4], padding=1, mask=mask)
+            (y * torch.from_numpy(g).to(dev)).sum().backward()
+            runs[dev] = (y.detach().cpu(), [a.grad.cpu() if a.grad is not None else None
+                                           for a in t], t)
+        (yc, gc, t), (yh, gh, _) = runs[LEAF_CARD], runs["cpu"]
+        fwd = _rel_err(torch, yc, yh)
+        names = ("x", "offset", "mask", "weight", "bias")
+        grads = {n: _rel_err(torch, p, q) for n, p, q in zip(names, gc, gh) if q is not None}
+        mask = t[2] if version == "v2" else None
+
+        def forward():
+            return ops.deform_conv2d(t[0], t[1], t[3], t[4], padding=1, mask=mask)
+
+        def step():
+            for a in t:
+                a.grad = None
+            forward().sum().backward()
+
+        fwd_ms, fwd_dev = leaf_timed(torch, forward)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step_ms = cuda_ms(torch, step, iters=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated() - base
+        step_dev = one_call_device_ms(torch, step)
+        log(f"[leaves] (c) DCN{version} [8, 512, 19, 19] 3 x 3: forward {fwd:.3g} of the max "
+            f"(tolerance {TOL_DCN_FWD}); gradients "
+            + ", ".join(f"{n} {e:.3g}" for n, e in grads.items())
+            + f" of each max (tolerance {TOL_DCN_GRAD}); forward {_fmt(fwd_dev)} ms device "
+            f"({fwd_ms:.3f} ms CUDA events), forward + backward {_fmt(step_dev)} ms device "
+            f"({step_ms:.3f} ms CUDA events); peak memory "
+            f"of a step {peak / 2**20:.0f} MiB over its inputs [{card}]")
+        if fwd > TOL_DCN_FWD or max(grads.values()) > TOL_DCN_GRAD or len(grads) != (
+                5 if version == "v2" else 4):
+            fail(f"(c): DCN{version} on the card disagrees with the CPU run")
+        result[version] = dict(fwd_ms=fwd_dev, step_ms=step_dev, peak_mib=peak / 2**20)
+    # the layer, and static.nn.deform_conv2d in a Program with the same weights
+    x, off, mask = (torch.from_numpy(a).to(LEAF_CARD) for a in arrays[:3])
+    with torch.no_grad():
+        want = layer(x, off, mask)
+    paddle.enable_static()
+    try:
+        prog = paddle.static.Program()
+        with paddle.static.program_guard(prog, paddle.static.Program()):
+            d = [paddle.static.data(n, list(a.shape)) for n, a in zip(
+                ("x", "offset", "mask"), arrays[:3])]
+            y = paddle.static.nn.deform_conv2d(d[0], d[1], d[2], DCN_CHANNELS, 3, padding=1)
+    finally:
+        paddle.disable_static()
+    convert.set_by_position(prog, [arrays[3], arrays[4]])
+    got, = paddle.static.Executor().run(prog, feed=dict(zip(("x", "offset", "mask"),
+                                                            arrays[:3])), fetch_list=[y])
+    static_err = _rel_err(torch, torch.from_numpy(np.asarray(got)), want.cpu())
+    log(f"[leaves] (c) static.nn.deform_conv2d in a Program on the card vs DeformConv2D: "
+        f"{static_err:.3g} of the max")
+    if static_err > TOL_DCN_FWD:
+        fail("(c): static.nn.deform_conv2d disagrees with DeformConv2D")
+    result.update(layer=layer, inputs=(x, off, mask))
+    return result
+
+
+def flat_llama(generation, model, slots, seq_len):
+    """A DecodeModel over a flat param list: ``model``'s parameters in its
+    (the reference's) order, and fill/step functions that take the list,
+    view it as ``_LlamaWeights`` and run llama_decode_model's functions
+    (whose products call wmatmul) -> (flat DecodeModel, llama_decode_model,
+    view)."""
+    from paddle_tpu_torch.inference.decode import DecodeModel
+
+    llama = generation.llama_decode_model(model, slots, seq_len)
+    w = llama.params
+    names = [n for n, _ in model.named_parameters()]
+    where = {id(p): k for k, p in model.named_parameters()}
+    top = {k: where[id(v)] for k, v in w.params.items() if k != "layers"}
+    per_layer = [{k: where[id(v)] for k, v in lp.items()} for lp in w.params["layers"]]
+
+    def view(plist):
+        by_name = dict(zip(names, plist))
+        out = copy.copy(w)
+        out.params = {k: by_name[n] for k, n in top.items()}
+        out.params["layers"] = [{k: by_name[n] for k, n in lp.items()} for lp in per_layer]
+        return out
+
+    def fill_fn(plist, tokens, start, *staging):
+        return llama.fill_fn(view(plist), tokens, start, *staging)
+
+    def step_fn(plist, tokens, positions, *pools):
+        return llama.step_fn(view(plist), tokens, positions, *pools)
+
+    flat = DecodeModel([p.detach() for p in model.parameters()], fill_fn, step_fn,
+                       llama.kv_spec, vocab_size=llama.vocab_size, kv_seq_axis=2,
+                       device=llama.device, max_slots=slots, max_seq_len=seq_len)
+    return flat, llama, view
+
+
+def flat_window(torch, fa, qmm, engine, prompts):
+    """Serve ``prompts`` through ``engine`` (warmed up): tokens, the
+    launches of K1 and wq_matmul, the engine's fills and steps, the step
+    replays' median ms (CUDA events), tokens/s, the peak memory over the
+    window's start."""
+    key = engine._step_key
+    real = engine._programs[key]
+    events = []
+
+    def timed_step():
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = real()
+        e.record()
+        events.append((s, e))
+        return out
+
+    engine._programs[key] = timed_step
+    st0 = engine.stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fa.launches = qmm.launches = 0
+    t = time.perf_counter()
+    reqs = [engine.submit(p, max_new_tokens=FLAT_NEW) for p in prompts]
+    toks = [r.result(timeout=600) for r in reqs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    k1, wq = fa.launches, qmm.launches
+    engine._programs[key] = real
+    st1 = engine.stats()
+    fills = st1["prefix_fill_steps"] - st0["prefix_fill_steps"]
+    steps = st1["steps"] - st0["steps"]
+    return dict(tokens=toks, k1=k1, wq=wq, fills=fills, steps=steps,
+                step_ms=float(np.median([s.elapsed_time(e) for s, e in events])),
+                tokens_per_s=sum(len(x) for x in toks) / wall,
+                peak=torch.cuda.max_memory_allocated() - base)
+
+
+def leaves_flat_list(torch, fa, qmm, mods, card):
+    """(d) a depth-2 Llama-2-7B-width flat-list DecodeModel quantized w8 and
+    bf16w, 16 streams of 64 + 32 tokens, against llama_decode_model's
+    weights quantized in the same mode."""
+    LlamaModel, generation, DecodeEngine, quantization = mods
+    from paddle_tpu_torch.quantization.serving import ACCURACY_BOUNDS, _flat_params, weight_bytes
+
+    model = LlamaModel(num_layers=FLAT_DEPTH, device=LEAF_CARD,
+                       generator=torch.Generator(device=LEAF_CARD).manual_seed(0)).eval()
+    flat, llama, view = flat_llama(generation, model, FLAT_STREAMS, FLAT_PROMPT + FLAT_NEW)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, llama.vocab_size, FLAT_PROMPT).astype(np.int32)
+               for _ in range(FLAT_STREAMS)]
+    f32_logits = generation.llama_prompt_logits(llama, prompts[0])
+    out = dict(wq_launches=0, k1_launches=0, modes={})
+    per_fill, per_step = 7 * FLAT_DEPTH, 7 * FLAT_DEPTH + 1  # 7 products a layer, the head
+    for mode in ("w8", "bf16w"):
+        qflat = quantization.quantize_decode_model(flat, mode)
+        logits = generation.llama_prompt_logits(
+            types.SimpleNamespace(params=view(_flat_params(flat.params, mode)[2](qflat.params))),
+            prompts[0])
+        rel = float((logits - f32_logits).abs().max() / f32_logits.abs().max())
+        wins = {}
+        for form, dm in (("flat list", qflat), ("_LlamaWeights.quantized", llama)):
+            with DecodeEngine(dm, max_prompt_len=FLAT_PROMPT, min_seq_bucket=FLAT_PROMPT,
+                              max_queue=64, name=f"leaves-{mode}-{len(wins)}",
+                              quant=mode, prefix=False, device=LEAF_CARD) as eng:
+                eng.warmup()
+                wins[form] = flat_window(torch, fa, qmm, eng, prompts)
+                wins[form]["bytes"] = weight_bytes(eng._model.params)
+                wins[form]["pool"] = eng.stats()["graph_pool_bytes"]
+        a, b = wins["flat list"], wins["_LlamaWeights.quantized"]
+        bitwise = all(np.array_equal(x, y) for x, y in zip(a["tokens"], b["tokens"]))
+        want_wq = per_fill * a["fills"] + per_step * a["steps"]
+        log(f"[leaves] (d) {mode}: weight_bytes {a['bytes'] / 1e9:.3f} GB (flat list) vs "
+            f"{b['bytes'] / 1e9:.3f} GB; {FLAT_STREAMS} streams x {FLAT_PROMPT} + {FLAT_NEW}: "
+            f"tokens {'bitwise' if bitwise else 'DIFFERENT from'} _LlamaWeights.quantized's; "
+            f"{a['fills']} fills, {a['steps']} steps; wq_matmul {a['wq']} launches (expected "
+            f"{want_wq} = {per_fill} x fills + {per_step} x steps), K1 {a['k1']}; prompt "
+            f"logits {rel:.3g} of f32's max (bound {ACCURACY_BOUNDS[mode]}); the graphs' pool "
+            f"{a['pool'] / 2**20:.1f} MiB ({b['pool'] / 2**20:.1f} MiB), peak memory over the "
+            f"window's start {a['peak'] / 2**20:.1f} MiB (an f32 copy of one 4096 x 4096 matrix "
+            f"is 64 MiB); {a['tokens_per_s']:.1f} tokens/s, step {a['step_ms']:.3f} ms "
+            f"(_LlamaWeights.quantized: {b['tokens_per_s']:.1f} tokens/s, step "
+            f"{b['step_ms']:.3f} ms) [{card}]")
+        if (not bitwise or a["wq"] != want_wq or b["wq"] != per_fill * b["fills"]
+                + per_step * b["steps"] or a["k1"] != FLAT_DEPTH * (a["fills"] + a["steps"])
+                or not 0 < rel < ACCURACY_BOUNDS[mode] or a["peak"] >= FLAT_PEAK_SLACK
+                or a["pool"] >= b["pool"] + FLAT_PEAK_SLACK or a["bytes"] != b["bytes"]):
+            fail(f"(d) {mode}: the flat-list model's tokens, launches, accuracy or memory "
+                 "disagree")
+        out["wq_launches"] += a["wq"]
+        out["k1_launches"] += a["k1"]
+        out["modes"][mode] = dict(tokens_per_s=a["tokens_per_s"], step_ms=a["step_ms"],
+                                  weight_bytes=a["bytes"], wq=a["wq"])
+    return out
+
+
+def leaves_small(torch, mods, card, dcn):
+    """(e) the distributions, hessian, dlpack, run_check, a g++ custom op
+    and a profiler window, each on the card against the CPU."""
+    import shutil
+    import tempfile
+
+    paddle, utils, distribution, incubate_autograd = mods
+    t = time.perf_counter()
+    samples = {}
+    for dev in (LEAF_CARD, "cpu"):
+        paddle.seed(0)
+        lo = torch.zeros(4, device=dev)
+        samples[dev] = [
+            distribution.Uniform(lo, lo + 3.0).sample((256,)),
+            distribution.Normal(lo + 1.0, lo + 2.0).sample((256,)),
+            distribution.Categorical(torch.arange(12.0, device=dev).reshape(2, 6) / 4).sample(
+                (512,))]
+    u, n, c = ((x.numpy(), y.numpy()) for x, y in zip(samples[LEAF_CARD], samples["cpu"]))
+    normal_err = float(np.max(np.abs(n[0] - n[1])) / np.max(np.abs(n[1])))
+    same_draws = np.array_equal(*u) and np.array_equal(*c)
+    dist_ok = same_draws and normal_err <= TOL_NORMAL_SAMPLE
+    dist_ms = (time.perf_counter() - t) * 1e3
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(4)
+    w1, w2, xv = (rng.standard_normal(s, dtype=np.float32) * np.float32(0.5)
+                  for s in ((6, 8), (8, 1), (16, 6)))
+    hess = {}
+    for dev in (LEAF_CARD, "cpu"):
+        place = paddle.CPUPlace() if dev == "cpu" else paddle.CUDAPlace(0)
+        xt, a, b = (paddle.to_tensor(v, place=place) for v in (xv, w1, w2))
+
+        def loss(a, b):
+            return (paddle.tanh(paddle.matmul(xt, a)).matmul(b) ** 2).mean()
+
+        hess[dev] = incubate_autograd.hessian(loss, [a, b])
+    herr = max(_rel_err(torch, hess[LEAF_CARD][i][j].cpu(), hess["cpu"][i][j])
+               for i in range(2) for j in range(2))
+    hess_ms = (time.perf_counter() - t) * 1e3
+
+    src = torch.arange(1 << 20, dtype=torch.float32, device=LEAF_CARD)
+    back = utils.dlpack.from_dlpack(utils.dlpack.to_dlpack(src))
+    dl_ok = back.data_ptr() == src.data_ptr() and back.device == src.device
+
+    t = time.perf_counter()
+    utils.run_check()
+    check_ms = (time.perf_counter() - t) * 1e3
+
+    tmp = tempfile.mkdtemp(prefix="paddle_tpu_torch_leaves_")
+    try:
+        path = os.path.join(tmp, "cube.cc")
+        with open(path, "w") as f:
+            f.write(CPP_OP_SRC)
+        t = time.perf_counter()
+        mod = utils.cpp_extension.load("leaves_cube", [path],
+                                       build_directory=os.path.join(tmp, "build"))
+        build_ms = (time.perf_counter() - t) * 1e3
+        xg = torch.linspace(-2, 2, 1 << 20, device=LEAF_CARD).requires_grad_()
+        y = mod.cube(xg)
+        y.backward(torch.ones_like(y))
+        xr = xg.detach().clone().requires_grad_()
+        (xr * xr * xr).backward(torch.ones_like(xr))
+        cpp_err = max(_rel_err(torch, y.detach(), (xr * xr * xr).detach()),
+                      _rel_err(torch, xg.grad, xr.grad))
+        cpp_ms = cuda_ms(torch, lambda: mod.cube(xg.detach()), iters=5, warmup=1)
+        torch_ms = cuda_ms(torch, lambda: xg.detach() ** 3, iters=5, warmup=1)
+
+        layer, (x, off, mask) = dcn["layer"], dcn["inputs"]
+        utils.profiler.reset_summary()
+        with utils.profiler.Profiler():
+            with utils.profiler.profiler(profile_path=tmp):
+                with utils.profiler.RecordEvent("deform_step"):
+                    with torch.no_grad():
+                        layer(x, off, mask)
+        rows = {r["name"]: r for r in utils.profiler.summary(printer=None)}
+        ops_rows = utils.profiler.op_summary_from_trace(tmp, top=3)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[leaves] (e) Uniform/Categorical samples card vs CPU "
+        f"{'bitwise' if same_draws else 'DIFFERENT'}, Normal "
+        f"{normal_err:.3g} of the max (tolerance {TOL_NORMAL_SAMPLE}), {dist_ms:.1f} ms; "
+        f"hessian of an MLP loss card vs CPU {herr:.3g} (tolerance {TOL_HESSIAN}), "
+        f"{hess_ms:.1f} ms; dlpack round trip of a CUDA tensor "
+        f"{'the same data_ptr' if dl_ok else 'COPIED'}; run_check on the card {check_ms:.1f} "
+        f"ms; cpp_extension g++ build {build_ms:.0f} ms, cube and its _grad on 2^20 CUDA "
+        f"floats vs torch {cpp_err:.3g}, {cpp_ms:.3f} ms a call through the host vs "
+        f"{torch_ms:.3f} ms for x ** 3 on the card; profiler summary "
+        f"{sorted(rows)}, the window's top device ops "
+        + ", ".join(f"{r['name'][:40]} {r['total_ms']:.3f} ms" for r in ops_rows)
+        + f" [{card}]")
+    if (not dist_ok or herr > TOL_HESSIAN or not dl_ok or cpp_err > 1e-6
+            or rows.get("deform_step", {}).get("calls") != 1 or not ops_rows):
+        fail("(e): a small leaf on the card disagrees with the CPU or its contract")
+    return dict(cpp_ms=cpp_ms, torch_ms=torch_ms, check_ms=check_ms)
+
+
+def phase_leaves(torch, fa, qmm, mods, card):
+    """Phase 22 (module docstring): the detection ops, DCN, the flat-list
+    quantized DecodeModel and the small leaves on the card."""
+    (paddle, ops, LlamaModel, generation, DecodeEngine, quantization, utils, distribution,
+     incubate_autograd) = mods
+    t0 = time.perf_counter()
+    paddle.set_device("gpu" if LEAF_CARD == "cuda" else "cpu")
+    times = {}
+    t = time.perf_counter()
+    yolo = leaves_yolo(torch, ops, card)
+    times["a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fpn = leaves_fpn(torch, ops, card)
+    times["b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    dcn = leaves_dcn(torch, ops, paddle, card)
+    times["c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    flat = leaves_flat_list(torch, fa, qmm, (LlamaModel, generation, DecodeEngine, quantization),
+                            card)
+    times["d"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    small = leaves_small(torch, (paddle, utils, distribution, incubate_autograd), card, dcn)
+    times["e"] = time.perf_counter() - t
+    log(f"[leaves] phase 22: " + ", ".join(f"({k}) {v:.1f} s" for k, v in times.items())
+        + f", {time.perf_counter() - t0:.1f} s in all [{card}]")
+    return dict(wq_launches=flat["wq_launches"], k1_launches=flat["k1_launches"], yolo=yolo,
+                fpn=fpn, dcn={k: dcn[k] for k in ("v1", "v2")}, flat=flat["modes"],
+                small=small)
+
+
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
     the 7B engine. Llama-2-7B bf16 (phase 7's weights, 16 slots x 256,
@@ -7535,12 +8233,13 @@ def fill_chunk_sweep(torch, fa, mods, card, chunks):
 # ------------------------------------------------------------------ main
 def main():
     sweep = None
+    leaves_alone = sys.argv[1:] == ["--leaves"]
     if len(sys.argv) > 1 and sys.argv[1] == "--decode-replica":
         return decode_replica(sys.argv[2:])
-    if len(sys.argv) > 1:
+    if len(sys.argv) > 1 and not leaves_alone:
         if len(sys.argv) != 3 or sys.argv[1] != "--fill-sweep":
-            fail("usage: chip_smoke.py [--fill-sweep C1,C2,... | --decode-replica PORTFILE "
-                 "PHASE PREFIX_DIR]")
+            fail("usage: chip_smoke.py [--fill-sweep C1,C2,... | --leaves | --decode-replica "
+                 "PORTFILE PHASE PREFIX_DIR]")
         sweep = [int(c) for c in sys.argv[2].split(",")]
     try:
         import torch
@@ -7575,6 +8274,9 @@ def main():
         from paddle_tpu_torch import onnx as ponnx
         from paddle_tpu_torch.obs import goodput
         from paddle_tpu_torch import resilience
+        from paddle_tpu_torch import distribution, utils
+        from paddle_tpu_torch.incubate import autograd as incubate_autograd
+        from paddle_tpu_torch.vision import ops as vision_ops
     except ImportError as e:
         fail(f"the port is not importable from this directory: {e}")
 
@@ -7603,6 +8305,12 @@ def main():
 
     phase_build(torch, cuda_build, fa, kernels)
     took("build")
+    leaves_mods = (paddle, vision_ops, LlamaModel, generation, DecodeEngine, quantization, utils,
+                   distribution, incubate_autograd)
+    if leaves_alone:
+        phase_leaves(torch, fa, qmm, leaves_mods, card)
+        took("leaves")
+        return
     if sweep:
         fill_chunk_sweep(torch, fa, (LlamaModel, generation, DecodeEngine, PredictorServer,
                                      wire_spec), card, sweep)
@@ -7687,6 +8395,10 @@ def main():
     safety = phase_safety(torch, fa, (paddle, BertForPretraining, LlamaModel, nn, optimizer, spmd,
                                       prandom, resilience), card, dyg, lm)
     took("safety")
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaves = phase_leaves(torch, fa, qmm, leaves_mods, card)
+    took("leaves")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -7787,7 +8499,10 @@ def main():
                        + lm_launch["fwd"] + lm["parity_counts"][0] + mtt["counts"]["fwd"]
                        + mtt["parity_counts"][0] + dyg["counts"]["fwd"] + dyg["extra"][0]
                        + deploy["launches"][0] + static["launches"][0] + fleet["launches"]
-                       + safety["launches"][0]),
+                       + safety["launches"][0] + leaves["k1_launches"]),
+             # phase 22's: the flat-list quantized 7B-width model's fills and
+             # steps (float32, head_dim 128)
+             leaves_launches=leaves["k1_launches"],
              # phase 21's: its fp16 dygraph steps, guarded steps and Llama steps
              safety_launches=safety["launches"][0],
              # phase 20's: in its replica processes, from their cmd-5 stats
@@ -7865,7 +8580,10 @@ def main():
           for i, key, which in ((1, "bwd_dq", "dq"), (2, "bwd_dkv", "dkv"))),
         dict(name=kernels[3]["name"], route="cuda", source=kernels[3]["source"],
              replaces=kernels[3]["replaces"],
-             launches=quant["wq_launches"] + data["wq_launches"] + deploy["launches"][3],
+             launches=(quant["wq_launches"] + data["wq_launches"] + deploy["launches"][3]
+                       + leaves["wq_launches"]),
+             # phase 22 (d): the flat-list model's products, w8 and bf16w
+             leaves_launches=leaves["wq_launches"],
              # phase 18 (d): the w8 save's program, 73 a program call
              deploy_launches=deploy["launches"][3],
              bert_launches=quant["bert_wq_launches"],

@@ -3,9 +3,8 @@
 It imports torch and numpy, never jax and nothing of paddle_tpu. Usage
 mirrors paddle (``import paddle_tpu_torch as paddle``): dygraph on the
 card by default, ``paddle.set_device("cpu")`` for the CPU. The packages
-the port has not reached yet (utils, distribution, hub, ...)
-are absent rather than stubbed. ``static`` holds ``InputSpec`` only; its
-Program/Executor facade is a later slice.
+the port has not reached yet (analysis, DataParallel) are absent rather
+than stubbed.
 """
 
 __version__ = "0.1.0"
@@ -67,6 +66,9 @@ from . import quantization  # noqa: F401,E402
 from . import regularizer  # noqa: F401,E402
 from . import obs  # noqa: F401,E402
 from . import resilience  # noqa: F401,E402
+from . import utils  # noqa: F401,E402
+from . import distribution  # noqa: F401,E402
+from . import hub  # noqa: F401,E402
 from .hapi import Model, callbacks, flops, summary  # noqa: F401,E402
 from .framework import ParamAttr, in_dygraph_mode, load, save  # noqa: F401,E402
 from .nn.layer import Layer  # noqa: F401,E402

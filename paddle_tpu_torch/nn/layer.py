@@ -6,7 +6,8 @@
 and ``named_parameters``, ``sublayers`` and ``named_sublayers``,
 ``state_dict``/``set_state_dict`` with the reference's structured names (a
 tied parameter once, under its first name; non-persistable buffers left
-out), ``register_forward_pre_hook``/``register_forward_post_hook``,
+out), ``register_forward_pre_hook``/``register_forward_post_hook`` (each
+returns a ``HookRemoveHelper``),
 ``to``/``astype`` with Paddle's spellings, ``clear_gradients``,
 ``full_name``. Every module of the port derives from it. torch's
 ``load_state_dict`` takes either structure.
@@ -32,6 +33,21 @@ from . import initializer as init_mod
 
 _LAYER_COUNTERS = collections.defaultdict(int)
 _PORT = __name__.split(".")[0] + "."
+
+
+class HookRemoveHelper:
+    """What a forward hook's registration returns: ``remove()`` takes the
+    hook out of the layer's hook table ``hooks`` (and of the ``extra``
+    tables torch keeps beside it for the same key)."""
+
+    def __init__(self, hooks, key, extra=()):
+        self._hooks = hooks
+        self._key = key
+        self._extra = tuple(extra)
+
+    def remove(self):
+        for table in (self._hooks, *self._extra):
+            table.pop(self._key, None)
 
 
 class Layer(torch.nn.Module):
@@ -191,14 +207,19 @@ class Layer(torch.nn.Module):
             out = hook(layer, wrap_all(inputs))
             return None if out is None else plain_all(out) if layer._plain_forward else out
 
-        return super().register_forward_pre_hook(run, **kwargs)
+        handle = super().register_forward_pre_hook(run, **kwargs)
+        return HookRemoveHelper(self._forward_pre_hooks, handle.id,
+                                (self._forward_pre_hooks_with_kwargs,))
 
     def register_forward_post_hook(self, hook):
         def run(layer, inputs, outputs):
             out = hook(layer, wrap_all(inputs), wrap_all(outputs))
             return None if out is None else plain_all(out) if layer._plain_forward else out
 
-        return self.register_forward_hook(run)
+        handle = self.register_forward_hook(run)
+        return HookRemoveHelper(self._forward_hooks, handle.id,
+                                (self._forward_hooks_with_kwargs,
+                                 self._forward_hooks_always_called))
 
     # ------------------------------------------------------------ conversion
     def to(self, *args, **kwargs):

@@ -179,6 +179,13 @@ def summary_rows():
                 for n, (c, tot, mx, mn) in _agg.items()]
 
 
+def reset_summary():
+    """Clear the aggregation table (the profiler's ``reset_summary``); the
+    finished-span buffer survives."""
+    with _lock:
+        _agg.clear()
+
+
 def reset():
     """Clear both the aggregation table and the finished-span buffer."""
     with _lock:

@@ -196,16 +196,31 @@ def _wq_matmul(x, w, scale):
 class QuantWeight:
     """One reduced-precision ``[K, N]`` weight of quantized serving: int8
     ``data`` with its f32 per-column ``scale`` (w8), or bf16 ``data`` and
-    no scale (bf16w). ``matmul(x)`` is ``wq_matmul``; ``rows(idx)``
+    no scale (bf16w). ``matmul(x)`` is ``wq_matmul`` (on the card a K or N
+    the kernel does not take is padded with zero rows and columns for the
+    call, as ``Int8Linear`` pads, and the output sliced back); ``rows(idx)``
     dequantizes only the rows ``idx`` (an embedding's gather: the same bits
     as dequantize-then-gather); ``tensors(name)`` gives its (name, tensor)
-    pairs in the reference's flat order (data, then scale)."""
+    pairs in the reference's flat order (data, then scale).
+
+    It stands in for the f32 matrix in code written for one: ``x @ w``,
+    ``torch.matmul(x, w)`` (so the port's ``F.linear``) and ``wmatmul``
+    run ``matmul``, ``w[idx]`` runs ``rows``; any other torch function
+    given one raises a TypeError naming QuantWeight, so no use of the
+    weight can fall back to a dequantized copy."""
 
     def __init__(self, data, scale=None):
         self.data = data
         self.scale = scale
 
     def matmul(self, x):
+        k, n = self.data.shape
+        pad_k, pad_n = -k % 4, -n % (16 if self.data.dtype == torch.int8 else 8)
+        if x.is_cuda and (pad_k or pad_n):
+            w = torch.nn.functional.pad(self.data, (0, pad_n, 0, pad_k))
+            scale = (None if self.scale is None
+                     else torch.nn.functional.pad(self.scale, (0, pad_n), value=1.0))
+            return wq_matmul(torch.nn.functional.pad(x, (0, pad_k)), w, scale)[..., :n]
         return wq_matmul(x, self.data, self.scale)
 
     def rows(self, idx):
@@ -215,6 +230,22 @@ class QuantWeight:
         if self.scale is None:
             return [(name, self.data)]
         return [(name, self.data), (name + ".scale", self.scale)]
+
+    def __getitem__(self, idx):
+        return self.rows(idx)
+
+    def __rmatmul__(self, x):
+        return self.matmul(x)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if (func in _MATMULS and len(args) == 2 and not kwargs
+                and isinstance(args[1], QuantWeight) and isinstance(args[0], torch.Tensor)):
+            return args[1].matmul(args[0])
+        return NotImplemented
+
+
+_MATMULS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
 
 
 def wmatmul(x, w):

@@ -29,11 +29,9 @@ import torch
 
 from .. import nn
 from ..nn import functional as F
-from ..ops.quant_matmul import wq_matmul
+from ..ops.quant_matmul import QuantWeight
 from ..nn.layer import Layer
 
-# the shapes wq_matmul's kernel takes for an int8 weight [K, N]
-_KERNEL_K, _KERNEL_N = 4, 16
 # the QAT wrappers (quantization/imperative.py): they own their inner
 # layer's quantization, so the walk leaves them alone
 _QAT_WRAPPERS = ("QuantedLinear", "QuantedConv2D")
@@ -71,15 +69,7 @@ class Int8Linear(Layer):
     def forward(self, x):
         if self.act_scale is not None:
             x = _quant_act(x, self.act_scale)
-        k, n = self.qweight.shape
-        pad_k, pad_n = -k % _KERNEL_K, -n % _KERNEL_N
-        if x.is_cuda and (pad_k or pad_n):
-            # the kernel takes K % 4 and N % 16: zero rows and columns, sliced off
-            w = torch.nn.functional.pad(self.qweight, (0, pad_n, 0, pad_k))
-            scale = torch.nn.functional.pad(self.w_scale, (0, pad_n), value=1.0)
-            y = wq_matmul(torch.nn.functional.pad(x, (0, pad_k)), w, scale)[..., :n]
-        else:
-            y = wq_matmul(x, self.qweight, self.w_scale)
+        y = QuantWeight(self.qweight, self.w_scale).matmul(x)
         return y if self.bias is None else y + self.bias
 
 

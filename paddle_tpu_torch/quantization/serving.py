@@ -14,10 +14,13 @@ stays float32. The reference dequantizes into f32 and lets XLA fuse that
 into each product's read of the weights; the port's Llama decode runs its
 products through the hand-written dequantizing kernel
 (ops/quant_matmul.py ``wq_matmul``) instead, so no f32 copy of a weight
-is ever written. A generic ``DecodeModel`` (a flat param list) is wrapped
-as the reference wraps it: its functions get the params dequantized to
-f32 on every call, the plain path, which only a model on the CPU takes
-(on the card it would write an f32 copy of every weight at every step).
+is ever written. A generic ``DecodeModel`` (a flat param list) holds the
+reference's reduced flat list, and its functions are wrapped. On the CPU
+the wrapper is the reference's: the params dequantized to f32 on every
+call. On the card it hands the functions each quantized matrix as a
+``QuantWeight``, which ``x @ w``, ``torch.matmul`` and ``w[idx]`` run
+through ``wq_matmul`` and a gather of the rows, and which any other use
+refuses (a TypeError): the card never writes an f32 copy of a weight.
 
 ``ACCURACY_BOUNDS`` are the reference's documented per-mode bounds on
 ``max|logits - logits_f32| / max|logits_f32|``. Greedy decode under a mode
@@ -29,6 +32,8 @@ the ``.pdmeta.json`` sidecar); its in-place half is here and returns the
 sidecar's meta.
 """
 import torch
+
+from ..ops.quant_matmul import QuantWeight
 
 QUANT_MODES = ("w8", "w8a8", "bf16w")
 
@@ -118,8 +123,11 @@ def _w8_plan(params):
 
 def _flat_params(params, quant):
     """A flat param list in ``quant`` -> (the reduced list, its ``unpack``
-    back to f32), the reference's: bf16w casts every float32 param to bf16;
-    w8 replaces each float32 matrix by two entries, int8 and scales."""
+    back to f32, its ``weights`` form), the reference's: bf16w casts every
+    float32 param to bf16; w8 replaces each float32 matrix by two entries,
+    int8 and scales. ``weights`` gives the list the functions see on the
+    card: each reduced matrix a ``QuantWeight``, a bf16w vector upcast to
+    f32 (as ``unpack``), everything else as it is."""
     if quant == "bf16w":
         reduced = [torch.as_tensor(p).to(torch.bfloat16)
                    if torch.as_tensor(p).dtype == torch.float32 else p for p in params]
@@ -127,24 +135,34 @@ def _flat_params(params, quant):
         def unpack(param_list):
             return [p.float() if p.dtype == torch.bfloat16 else p for p in param_list]
 
-        return reduced, unpack
+        def weights(param_list):
+            return [QuantWeight(p) if p.dtype == torch.bfloat16 and p.dim() >= 2
+                    else p.float() if p.dtype == torch.bfloat16 else p for p in param_list]
+
+        return reduced, unpack, weights
     reduced, layout = [], []  # "w8" takes two flat entries, "raw" one
     for entry in _w8_plan(params):
         reduced.extend(entry[1:])
         layout.append(entry[0])
 
-    def unpack(param_list):
+    def regroup(param_list, matrix):
         out, i = [], 0
         for kind in layout:
             if kind == "w8":
-                out.append(param_list[i].float() * param_list[i + 1])
+                out.append(matrix(param_list[i], param_list[i + 1]))
                 i += 2
             else:
                 out.append(param_list[i])
                 i += 1
         return out
 
-    return reduced, unpack
+    def unpack(param_list):
+        return regroup(param_list, lambda q, s: q.float() * s)
+
+    def weights(param_list):
+        return regroup(param_list, QuantWeight)
+
+    return reduced, unpack, weights
 
 
 def quantize_decode_model(model, quant):
@@ -158,10 +176,11 @@ def quantize_decode_model(model, quant):
     same weights in the mode, under the same fill and step functions,
     whose products then run the dequantizing kernel. A flat param list is
     the reference's: w8 makes each float32 matrix an (int8, f32 scale)
-    pair of entries, bf16w casts every float32 param to bf16, and the
-    functions are wrapped to get the params dequantized to f32 per call:
-    the plain path, on the CPU only (a flat-list model on the card raises
-    NotImplementedError)."""
+    pair of entries, bf16w casts every float32 param to bf16. Its
+    functions are wrapped: on the CPU they get the params dequantized to
+    f32 per call (the reference's plain path); on the card they get each
+    reduced matrix as a ``QuantWeight`` (the module docstring), and params
+    off the card raise RuntimeError."""
     from ..inference.decode import DecodeModel
 
     quant = check_mode(quant)
@@ -176,16 +195,16 @@ def quantize_decode_model(model, quant):
         new_params = model.params.quantized(quant)
         fill_fn, step_fn = model.fill_fn, model.step_fn
     else:
-        if torch.device(model.device).type != "cpu":
-            raise NotImplementedError(
-                f"quant={quant!r} over a flat param list on {model.device}: not ported (it "
-                "would dequantize every weight at every step); on the card only "
-                "llama_decode_model's weights run quantized, through wq_matmul")
-        new_params, unpack = _flat_params(model.params, quant)
+        new_params, unpack, weights = _flat_params(model.params, quant)
+        on_card = torch.device(model.device).type == "cuda"
+        view = weights if on_card else unpack
 
         def wrap(fn):
             def quantized_fn(param_list, *args):
-                return fn(unpack(param_list), *args)
+                if on_card and not all(p.is_cuda for p in param_list):
+                    raise RuntimeError(f"a {quant} flat-list model on {model.device} was given "
+                                       "params off the card")
+                return fn(view(param_list), *args)
 
             quantized_fn.__qualname__ = f"{quant}({getattr(fn, '__qualname__', 'fn')})"
             return quantized_fn

@@ -232,11 +232,21 @@ def crf_decoding(potentials, transition_params=None, lengths=None, **kw):
 def deform_conv2d(x, offset, mask, num_filters, filter_size, stride=1, padding=0, dilation=1,
                   groups=1, deformable_groups=1, im2col_step=1, weight_attr=None,
                   bias_attr=None, name=None):
-    """reference: static/nn/common.py:168 deform_conv2d over
-    vision.ops.deform_conv2d, which the port has not reached."""
-    raise NotImplementedError(
-        "static.nn.deform_conv2d needs vision/ops.py deform_conv2d, not ported yet "
-        "(ROADMAP Queue 1 item 2)")
+    """reference: static/nn/common.py:168 deform_conv2d: v1 (``mask`` None)
+    or v2, its weight [num_filters, C / groups, kh, kw] (and bias) made on
+    the current place, the op ``vision.ops.deform_conv2d`` (no im2col
+    scratch, so ``im2col_step`` is moot)."""
+    from ..tensor import creation
+    from ..vision.ops import deform_conv2d as _dc
+
+    ks = filter_size if isinstance(filter_size, (list, tuple)) else (filter_size, filter_size)
+    w = creation.create_parameter([num_filters, x.shape[1] // groups, ks[0], ks[1]], "float32",
+                                  attr=weight_attr)
+    b = None
+    if bias_attr is not False:
+        b = creation.create_parameter([num_filters], "float32", attr=bias_attr, is_bias=True)
+    return _dc(x, offset, w, bias=b, stride=stride, padding=padding, dilation=dilation,
+               deformable_groups=deformable_groups, groups=groups, mask=mask)
 
 
 def multi_box_head(*args, **kwargs):

@@ -1454,3 +1454,137 @@ def test_fp16_bert_step_launches_the_fp16_forms_and_offload_is_bitwise(cuda):
             assert torch.equal(a.cpu(), b.cpu())
             if b.dim():
                 assert b.device.type == "cpu" and b.is_pinned()
+
+
+def test_detection_ops_and_deform_conv_on_the_card_match_the_cpu(cuda):
+    """yolo_box, roi_align with boxes_num and deform_conv2d (v2) on the
+    card against the same calls on the CPU (forward 1e-5 / 1e-4 of the
+    max, gradients 1e-3 of each max); the host NMS of the card's tensors
+    equals that of the CPU's on the same arrays."""
+    from paddle_tpu_torch.vision import ops
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 3 * 9, 6, 6), dtype=np.float32) * 2
+    size = np.full((2, 2), 96, np.int32)
+    outs = {d: ops.yolo_box(torch.from_numpy(x).to(d), torch.from_numpy(size).to(d),
+                            [10, 13, 16, 30, 33, 23], 4, 0.2, 16) for d in ("cuda", "cpu")}
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert ((got.cpu() - want).abs().max() / want.abs().max()).item() <= 1e-5
+    b, s = outs["cpu"][0][0], outs["cpu"][1][0].T.contiguous()
+    want = ops.multiclass_nms(b, s, score_threshold=0.05, nms_threshold=0.4)
+    got = ops.multiclass_nms(b.cuda(), s.cuda(), score_threshold=0.05, nms_threshold=0.4)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    fmap = rng.standard_normal((2, 4, 12, 12), dtype=np.float32)
+    rois = np.array([[1, 1, 9, 7], [0, 2, 30, 40], [5, 5, 6, 6]], np.float32)
+    res = {}
+    for d in ("cuda", "cpu"):
+        xm = torch.from_numpy(fmap).to(d).requires_grad_()
+        out = ops.roi_align(xm, torch.from_numpy(rois).to(d), [1, 2], 3, spatial_scale=0.25)
+        out.square().sum().backward()
+        res[d] = (out.detach().cpu(), xm.grad.cpu())
+    assert ((res["cuda"][0] - res["cpu"][0]).abs().max() / res["cpu"][0].abs().max()) <= 1e-5
+    assert ((res["cuda"][1] - res["cpu"][1]).abs().max() / res["cpu"][1].abs().max()) <= 1e-3
+    arrays = [rng.standard_normal((2, 8, 7, 7), dtype=np.float32),
+              rng.uniform(-2, 2, (2, 2 * 2 * 9, 7, 7)).astype(np.float32),
+              rng.standard_normal((6, 4, 3, 3), dtype=np.float32),
+              rng.uniform(0, 1, (2, 2 * 9, 7, 7)).astype(np.float32)]
+    res = {}
+    for d in ("cuda", "cpu"):
+        t = [torch.from_numpy(a).to(d).requires_grad_() for a in arrays]
+        y = ops.deform_conv2d(t[0], t[1], t[2], padding=1, deformable_groups=2, groups=2,
+                              mask=t[3])
+        y.square().sum().backward()
+        res[d] = [y.detach().cpu()] + [a.grad.cpu() for a in t]
+    for i, (got, want) in enumerate(zip(res["cuda"], res["cpu"])):
+        assert ((got - want).abs().max() / want.abs().max()).item() <= (1e-4 if i == 0 else 1e-3)
+
+
+def test_flat_list_quantized_model_on_the_card_runs_wq_matmul(cuda):
+    """A flat-list DecodeModel on the card, quantized w8 and bf16w: its
+    functions get QuantWeights, every product launches wq_matmul (one a
+    fill, three a step in this toy), and its greedy tokens equal the same
+    model's quantized on the CPU (dequantize, then matmul)."""
+    from paddle_tpu_torch.inference.decode import DecodeEngine, DecodeModel
+    from paddle_tpu_torch.ops import quant_matmul as qmm
+    from paddle_tpu_torch.quantization import quantize_decode_model
+
+    hid, vocab = 64, 96
+    rng = np.random.RandomState(0)
+    params = [torch.from_numpy((rng.randn(*s) * 0.5).astype(np.float32)).cuda()
+              for s in ((vocab, hid), (hid, hid), (hid, hid), (hid, vocab))]
+
+    def step_fn(p, tokens, positions, kv):
+        E, Wk, Wo, U = p
+        emb = E[tokens]
+        kv[torch.arange(tokens.shape[0], device=tokens.device), positions.long()] = emb @ Wk
+        h = torch.tanh(kv.sum(1) @ Wo + emb)
+        return h @ U
+
+    def fill_fn(p, tokens, start, kv):
+        kv[:, start:start + tokens.shape[1]] = p[0][tokens] @ p[1]
+
+    model = DecodeModel(params, fill_fn, step_fn, kv_spec=(((hid,), np.float32),),
+                        vocab_size=vocab, device="cuda")
+    prompt = np.array([3, 1, 4, 1, 5, 9, 2, 6], np.int32)
+    for mode in ("w8", "bf16w"):
+        qm = quantize_decode_model(model, mode)
+        with DecodeEngine(qm, max_slots=4, max_seq_len=32, min_seq_bucket=8,
+                          prefix=False, name=f"gpu-flat-{mode}") as eng:
+            eng.warmup()
+            st0 = eng.stats()
+            qmm.launches = 0
+            out = eng.generate(prompt, max_new_tokens=6, timeout=120)
+            st1 = eng.stats()
+        fills = st1["prefix_fill_steps"] - st0["prefix_fill_steps"]
+        steps = st1["steps"] - st0["steps"]
+        assert qmm.launches == 1 * fills + 3 * steps  # Wk per fill; Wk, Wo, U per step
+        plain = quantize_decode_model(DecodeModel(
+            [p.cpu() for p in params], fill_fn, step_fn, kv_spec=(((hid,), np.float32),),
+            vocab_size=vocab, device="cpu"), mode)
+        with DecodeEngine(plain, max_slots=4, max_seq_len=32, min_seq_bucket=8, prefix=False,
+                          device="cpu", name=f"cpu-flat-{mode}") as eng:
+            want = eng.generate(prompt, max_new_tokens=6, timeout=120)
+        assert out.tolist() == want.tolist()
+
+
+def test_small_leaves_on_the_card(cuda, tmp_path):
+    """dlpack keeps a CUDA tensor's memory; the distributions sample on the
+    card what they sample on the CPU from one key (Uniform bitwise, Normal
+    1e-6); incubate.autograd.hessian card vs CPU 1e-4; a g++ custom op's
+    forward and backward on CUDA tensors; run_check on the card."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distribution, utils
+    from paddle_tpu_torch.incubate import autograd
+
+    src = torch.arange(16.0, device="cuda")
+    back = utils.dlpack.from_dlpack(utils.dlpack.to_dlpack(src))
+    assert back.is_cuda and back.data_ptr() == src.data_ptr()
+    draws = {}
+    for d in ("cuda", "cpu"):
+        paddle.seed(3)
+        z = torch.zeros(5, device=d)
+        draws[d] = (distribution.Uniform(z, z + 2).sample((64,)).numpy(),
+                    distribution.Normal(z, z + 1).sample((64,)).numpy())
+    assert np.array_equal(draws["cuda"][0], draws["cpu"][0])
+    assert np.abs(draws["cuda"][1] - draws["cpu"][1]).max() <= 1e-6 * np.abs(draws["cpu"][1]).max()
+    w = np.random.RandomState(1).randn(4, 3).astype(np.float32)
+    hs = {}
+    for d in ("cuda", "cpu"):
+        t = torch.from_numpy(w).to(d)
+        hs[d] = autograd.hessian(lambda a: (paddle.tanh(a) ** 3).sum(), paddle.to_tensor(
+            t, place=paddle.CPUPlace() if d == "cpu" else paddle.CUDAPlace(0)))
+    assert (hs["cuda"].cpu() - hs["cpu"]).abs().max() <= 1e-4 * hs["cpu"].abs().max()
+    src_file = tmp_path / "sq.cc"
+    src_file.write_text('#include <cstdint>\nextern "C" void sq(const float* x, float* y, '
+                        'int64_t n) { for (int64_t i = 0; i < n; ++i) y[i] = x[i] * x[i]; }\n'
+                        'extern "C" void sq_grad(const float* x, const float* dy, float* dx, '
+                        'int64_t n) { for (int64_t i = 0; i < n; ++i) dx[i] = 2.f * x[i] * '
+                        'dy[i]; }\n')
+    mod = utils.cpp_extension.load("gpu_sq", [str(src_file)],
+                                   build_directory=str(tmp_path / "b"))
+    x = torch.linspace(-1, 1, 1000, device="cuda").requires_grad_()
+    y = mod.sq(x)
+    y.sum().backward()
+    assert y.is_cuda and torch.equal(y, x.detach() * x.detach())
+    assert torch.equal(x.grad, 2 * x.detach())
+    utils.run_check()

@@ -14,7 +14,9 @@ engine's ``quant``) against the JAX package's, on the CPU.
   the JAX ones, the weights digest the JAX engine's, engine tokens the JAX
   engine's, solo = batch (the reference's ``TestQuantDecode``); the mode
   knob (the engine reads no environment), the mismatch error, the w8a8
-  rejection, and the refusal of a flat-list model on the card.
+  rejection; a flat-list model on the card takes its ``QuantWeight`` form
+  (held on the CPU against the reference's dequantized f32), and raises
+  when its params are off the card.
 - A 2-layer Llama at head_dim 128 (7B's): the w8 and bf16w engines give
   the JAX ``llama_generate``'s tokens over the same dequantized weights,
   their prompt logits within 1e-5 relative of the JAX forward's and
@@ -523,17 +525,67 @@ def test_engine_quant_knobs(monkeypatch):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_flat_list_model_on_the_card_is_refused(mode):
-    """A flat-list ``DecodeModel`` quantizes only on the CPU: its wrapped
-    functions dequantize every param at every call (the plain path), which
-    on the card would write an f32 copy of the model per step. One marked
-    as on the card raises; Llama's weights are the card's quantized path."""
+def test_flat_list_model_on_the_card_is_refused(mode, monkeypatch):
+    """A flat-list ``DecodeModel`` marked for the card quantizes into the
+    reference's reduced list (bitwise the CPU model's) and wraps its
+    functions to hand them each reduced matrix as a ``QuantWeight``; with
+    no card here (the model's device is taken as given), its params are
+    off the card and the wrapped function raises on use rather than fall
+    back to the f32 path."""
+    from paddle_tpu_torch.inference import decode as tdecode
+
+    monkeypatch.setattr(tdecode, "resolve_device", torch.device)
     model = torch_toy_model()
     model.device = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="flat param list"):
-        quantize_decode_model(model, mode)
-    model.device = torch.device("cpu")
-    assert quantize_decode_model(model, mode).quant == mode
+    qm = quantize_decode_model(model, mode)
+    assert qm.quant == mode and qm.step_fn.__qualname__.startswith(mode)
+    cpu = quantize_decode_model(torch_toy_model(), mode)
+    assert all(torch.equal(a, b) for a, b in zip(qm.params, cpu.params))
+    kv = torch.zeros(1, 8, HID)
+    with pytest.raises(RuntimeError, match="off the card"):
+        qm.step_fn(qm.params, torch.tensor([1]), torch.tensor([0]), kv, kv.clone())
+    _, _, weights = tserving._flat_params(torch_toy_model().params, mode)
+    form = weights(cpu.params)
+    assert [type(w).__name__ for w in form] == ["QuantWeight"] * 6
+    assert all(w.data.shape == p.shape for w, p in zip(form, torch_toy_model().params))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_flat_list_quant_weight_form_on_the_cpu(mode):
+    """The card's form of a flat-list model, run on the CPU: the toy twin's
+    own step over the QuantWeights gives the logits of the reference's
+    dequantized f32 path (the JAX toy's step over its ``unpack``ed params)
+    within 1e-6 of their max (the same maths; XLA's products round apart),
+    bitwise the port's CPU wrapper (dequantize-then-matmul is what
+    ``wq_matmul``'s plain version does), and within ``ACCURACY_BOUNDS`` of
+    the f32 model's; a use other than a product or a row gather raises a
+    TypeError naming QuantWeight."""
+    toy = torch_toy_model()
+    qm = quantize_decode_model(toy, mode)
+    _, _, weights = tserving._flat_params(toy.params, mode)
+    rng = np.random.RandomState(3)
+    tokens = torch.from_numpy(rng.randint(0, VOCAB, (4,)).astype(np.int64))
+    positions = torch.tensor([0, 3, 5, 7])
+    kv = [torch.from_numpy(rng.randn(4, 16, HID).astype(np.float32)) for _ in range(2)]
+
+    def step(fn, params):
+        k, v = (t.clone() for t in kv)
+        return fn(params, tokens, positions, k, v).numpy()
+
+    got = step(toy.step_fn, weights(qm.params))
+    np.testing.assert_array_equal(got, step(qm.step_fn, qm.params))
+    f32 = step(toy.step_fn, toy.params)
+    jm = ref_serving.quantize_decode_model(toy_decode_model(hidden=HID, vocab=VOCAB, seed=0),
+                                           mode)
+    import jax.numpy as jnp
+
+    jl = np.asarray(jm.step_fn(jm.params, jnp.asarray(tokens.numpy(), jnp.int32),
+                               jnp.asarray(positions.numpy(), jnp.int32),
+                               *[jnp.asarray(t.numpy()) for t in kv])[0])
+    assert _rel(got, jl) <= TOL_LAYER
+    assert 0 < _rel(got, f32) < ACCURACY_BOUNDS[mode]
+    with pytest.raises(TypeError, match="QuantWeight"):
+        torch.einsum("bh,hk->bk", kv[0][:, 0], weights(qm.params)[1])
 
 
 def test_draft_follows_the_target_mode():

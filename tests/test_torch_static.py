@@ -295,11 +295,6 @@ def test_builders_that_raise(paddle):
         paddle.static.nn.conv2d_transpose(x, 2, 2, data_format="NHWC")
 
 
-def test_deform_conv2d_names_its_missing_module():
-    with pytest.raises(NotImplementedError, match="vision/ops.py"):
-        tp.static.nn.deform_conv2d(None, None, None, 4, 3)
-
-
 def test_crf_decoding_reads_the_run_shapes():
     """[-1, -1, N] placeholders: the decode is one recorded call, so it
     reads the fed shape (reference: test_static_compat.py)."""

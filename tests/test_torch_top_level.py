@@ -6,7 +6,7 @@ import paddle_tpu_torch as tp
 
 # names later slices bring (ROADMAP Queue 1)
 LATER = {
-    "utils", "distribution", "hub", "analysis", "DataParallel",
+    "analysis", "DataParallel",
 }
 # the reference's JAX internals and its places for other devices
 NEVER = {"jax", "jnp", "native", "apply_op", "dispatch", "in_trace", "TPUPlace", "XPUPlace",
@@ -28,7 +28,7 @@ def test_the_new_names_are_the_ports_own():
     assert tp.callbacks is tp.hapi.callbacks and tp.flops is tp.hapi.flops
     for name in ("io", "metric", "hapi", "dataset", "quantization", "text", "regularizer",
                  "inference", "obs", "resilience", "distributed", "jit", "static", "serialize",
-                 "fluid", "onnx", "incubate"):
+                 "fluid", "onnx", "incubate", "utils", "distribution", "hub"):
         assert getattr(tp, name).__name__ == f"paddle_tpu_torch.{name}"
     assert tp.in_dygraph_mode() and tp.in_dynamic_mode()
     assert tp.VarBase is tp.Tensor and tp.is_compiled_with_npu() is False
