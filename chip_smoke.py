@@ -58,20 +58,21 @@ Phases, each fatal on failure (exit code 1):
               the CPU's teacher-forced logits), and in float32 a sampled
               call (temperature 0.8, top-k 50, top-p 0.9, seed 0) whose
               tokens may differ from the CPU's only at a near-tie (1e-4) of
-              the CPU's perturbed scores; (b) at full width and depth in
-              bfloat16 (weights drawn on the card), bench.py's decode
+              the CPU's perturbed scores; (b) at full width, depth 16
+              (LLAMA_LAYERS, as phases 7-10), in bfloat16 (weights drawn
+              on the card), bench.py's decode
               shape, 16 prompts x 128 tokens and 128 new tokens: greedy
               tokens bitwise equal to the same call with the steps run
-              eagerly, K1 launched exactly 32 x 128 times (the replays
+              eagerly, K1 launched exactly depth x 128 times (the replays
               credit theirs), every chosen token within 3e-2 of the row's
               max |logit| of the top logit of one full forward over the
               output; the sampled call, graphed and eager, bitwise equal;
-              (c) the generic full-width path, 4 tokens at batch 2, 32 x 4
-              launches; (d) prefill ms; the decode loop eager (its first
+              (c) the generic full-width path, 4 tokens at batch 2, depth x
+              4 launches; (d) prefill ms; the decode loop eager (its first
               31 steps only, to keep the script inside its time) and
               graphed (all 126 replays), tokens/s over each whole window
               beside the two-term bound, median step, capture ms and the
-              graph pool's bytes; one replay profiled (32 K1 records, the
+              graph pool's bytes; one replay profiled (depth K1 records, the
               idle share)
   7. engine   the continuous-batching decode engine, filling each prompt
               in one chunk of 128 (its traffic shares no prefix, and a
@@ -79,7 +80,7 @@ Phases, each fatal on failure (exit code 1):
               fewest fills win; `--fill-sweep`): (e) full width,
               depth 2, float32, the same 4 requests through the engine on
               the card and on the CPU (tokens equal, or a near-tie of the
-              CPU's logits), then phase 8's (a); then Llama-2-7B bf16 at full width and depth
+              CPU's logits), then phase 8's (a); then Llama-2-7B bf16 at full width, depth 16
               (weights drawn on the card), 16 slots x 256 positions, behind
               PredictorServer on localhost: 24 streams (16 at once, 8 more
               as the first retire; prompts 16-128, 16-96 new tokens, seeded),
@@ -89,7 +90,7 @@ Phases, each fatal on failure (exit code 1):
               ends in status 2 and every slot is free after; (b) four
               sequences decoded again alone give the same tokens, bitwise;
               (c) every token lies within 3e-2 of the row's max |logit| of
-              the top logit of a full forward; (d) K1 ran 32 x (fill
+              the top logit of a full forward; (d) K1 ran depth x (fill
               replays + steps) times, credited by as many graph replays,
               and warmup captured each program once. Then tokens/s over the
               whole window beside the two-term bound, time to the first
@@ -188,15 +189,17 @@ Phases, each fatal on failure (exit code 1):
               bound (an f32-accurate product: the three bf16 tensor-core
               passes vs the bytes) and the f32 CUDA cores' bound beside it;
               the kernel's shared memory and each shape's split count;
-              (b) Llama-2-7B in float32 (weights from seed 0, 27 GB; phase
-              10's bf16 weights freed first), engines of phase 7's
+              (b) Llama-2-7B's width at depth 16 (QUANT_LAYERS) in
+              float32 (weights from seed 0, 14 GB; phase 10's
+              bf16 weights freed first), engines of phase 7's
               configuration under quant f32, then w8, then bf16w, one at a
               time, each behind PredictorServer serving phase 7's 24 streams
               and extras: streams whole, 3 re-decoded alone bitwise, each
               program captured once, no breaker tripped, the mode on
-              stats()["quant"] and the compiles' quant label, K1 = 32 x
-              (fill replays + steps), wq_matmul = 225 x step replays + 224 x
-              fill replays (0 under f32); the last prompt token's logits of
+              stats()["quant"] and the compiles' quant label, K1 = depth x
+              (fill replays + steps), wq_matmul = (7 x depth + 1) x step
+              replays + 7 x depth x fill replays (0 under f32); the last
+              prompt token's logits of
               4 prompts under w8 and bf16w within ACCURACY_BOUNDS[mode]
               (max|d| / max|f32|) of the f32 model's; a w8 snapshot (a
               handoff) refused with status 2 by an f32 and the bf16w
@@ -430,8 +433,9 @@ Phases, each fatal on failure (exit code 1):
               call in every replica (their cmd-5 stats); then
               rolling_reload to the seed-1 save under 8 clients, every
               reply bitwise the seed-0 or the seed-1 Predictor.run, none
-              failed; (b) Llama-2-7B bf16 (seed 0, phase 7's engine: 16
-              slots x 256, chunk 128) in three `--decode-replica`
+              failed; (b) Llama-2-7B's width at depth 8
+              (FLEET_LLAMA_LAYERS), bf16 (seed 0, phase 7's engine: 16 slots x
+              256, chunk 128) in three `--decode-replica`
               processes started together under Fleet(pools: prefill 1,
               decode 2) with a shared persistent prefix tier, free memory
               printed before and after: 6 streams (16-128-token prompts, 48
@@ -459,7 +463,7 @@ Phases, each fatal on failure (exit code 1):
               dropout, held at the bf16 tolerances, the dropout placement
               in fp16 too); (b) BERT-base fp16 O1 dygraph with
               GradScaler(init_loss_scaling 2^15, the reference's defaults):
-              a depth-2 step at batch 4 x 128 on the card and on the CPU
+              a depth-1 step at batch 2 x 128 on the card and on the CPU
               from the same weights (the scaler's skips before the taken
               step equal; then test_torch_train.py's O1 bounds), then 3 +
               20 full-depth steps at 64 x 128 on one batch: the loss finite
@@ -486,7 +490,9 @@ Phases, each fatal on failure (exit code 1):
               608, batch 8: 22,743 boxes x 80 classes an image) through
               yolo_box on the card (boxes, scores 1e-5), then every image's
               multiclass_nms (its config) and matrix_nms (ppyolo's) on the
-              host: the kept rows the CPU run's, a row kept by one run only
+              host (a forkserver pool of worker processes, the port
+              imported once): the kept rows the CPU run's, a row kept by
+              one run only
               exempted only within 1e-5 of a threshold or tie, under 1% of
               the rows; (b) Faster R-CNN FPN at 800 x 1333, batch 2: 1,000
               proposals an image through collect_fpn_proposals,
@@ -505,7 +511,36 @@ Phases, each fatal on failure (exit code 1):
               trip, run_check, a g++ custom op with its _grad on CUDA
               tensors, a profiler window naming its step. Printed beside
               the card: each part's ms and the phase's seconds
- 23. summary  a {"kernels": [...]} line, then as the last line
+ 23. dp       data-parallel BERT-base (phase 5's config, global batch 64 x
+              128) by two ranks of the port's launcher sharing the card
+              over gloo (--gpus 0,0 --backend gloo; NCCL refuses two ranks
+              on one device), each its half through build_train_step(mesh=
+              build_mesh(dp=2)): (a) 3 O0 f32 steps with dropout 0.1
+              against the one-device step at 64 x 128 in this process
+              (losses 1e-4, step-1 gradients 1e-3 of max, parameters 2.5
+              lr), the ranks' parameters bitwise each step, K1-K3 12 a step
+              a rank in the f32 form; (b) 20 O1 bf16 steps: the loss falls;
+              each rank's step ms (CUDA events), the gradient all-reduce's
+              ms (its profiler range on rank 0), rank 0's idle share, peak
+              memory a rank, beside the one-rank O1 step at 64 x 128;
+              (c) fleet.init, distributed_model, distributed_optimizer, 3
+              dygraph O0 steps at dropout 0: the global loss 1e-4 of this
+              process's full-batch run; (d) every ReduceOp of all_reduce,
+              broadcast, all_gather, reduce, scatter, all_to_all,
+              alltoall_single, barrier, send/recv and the p2p Transport
+              with two tags on CUDA tensors, bitwise numpy, outputs on
+              cuda:0; (e) a one-rank nccl group in this process: the same
+              collectives and DataParallel.apply_collective_grads the
+              identity, then destroyed; (f) the pods are one
+              launch_elastic(max_restarts=1): PADDLE_TPU_CHAOS kills rank 1
+              of the first at its second train.step of a 2-layer model at
+              full width (the ranks' first work), the watcher tears that
+              pod down and raises, and the restarted pod trains the model
+              through, its losses bitwise the killed pod's first step and
+              an unbroken run of the model at the pod's end; K1-K3 with
+              bh_offset at a rank's [32 * 12, 128, 64] (f32, bf16) against
+              their plain versions and the global call's rows, timed
+ 24. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -522,7 +557,12 @@ phase starts itself.
 
     python3 chip_smoke.py --leaves
 
-builds the kernels and runs phase 22 alone.
+builds the kernels and runs phase 22 alone, and
+
+    python3 chip_smoke.py --dp
+
+phase 23 alone; ``--dp-rank OUT`` is one of its ranks, which the phase
+starts through the port's launcher.
 
 It imports nothing of JAX or the JAX package. Run from a directory that
 holds only this file it fails at the import of paddle_tpu_torch.
@@ -1437,7 +1477,8 @@ def profile_device(torch, fn, label, top=8, groups=None, records=None, spans=Non
 
 
 # the port's record_function ranges (distributed/spmd.py): spans, not kernels
-ANNOTATIONS = ("build_train_step.update",)
+ANNOTATIONS = ("build_train_step.update", "build_train_step.grad_allreduce",
+               "DataParallel.apply_collective_grads")
 # kernel-name fragments -> the layer of the port that launched them
 KERNEL_GROUPS = (
     ("K1 flash_attention_fwd", ("fwd_f32_kernel", "fwd_b16_kernel")),
@@ -1762,6 +1803,10 @@ def phase_training(torch, fa, mods, card):
 
 # ------------------------------------------------------------------ phase 6
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 16, 128, 128  # bench.py's decode shape
+# phases 6-10's model: Llama-2-7B's width at this depth (the full 32 layers,
+# drawn twice in float32 and digested by each engine, kept the script near
+# its 1,200 s limit on slower hosts)
+LLAMA_LAYERS = 16
 GEN_EAGER_STEPS = 31  # the timed eager loop's steps (the graphed loop runs all)
 # depth-2 prefill logits, card vs CPU: float32 max abs; bfloat16 relative
 # to the row's max |logit|
@@ -1933,10 +1978,11 @@ def phase_generation(torch, fa, mods, card):
     del model, cpu_model
     torch.cuda.empty_cache()
 
-    # (b) Llama-2-7B at full width and depth, bfloat16
+    # (b) Llama-2-7B at full width, LLAMA_LAYERS deep, bfloat16
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    model = LlamaModel(device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    model = LlamaModel(num_layers=LLAMA_LAYERS, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
     model.to(torch.bfloat16).eval()
     torch.cuda.synchronize()
     n_layers = len(model.layers)
@@ -2283,9 +2329,10 @@ def phase_engine(torch, fa, mods, card, gen6):
     del model, cpu_model
     torch.cuda.empty_cache()
 
-    # Llama-2-7B at full width and depth, bfloat16, behind PredictorServer
+    # Llama-2-7B at full width, LLAMA_LAYERS deep, bfloat16, behind PredictorServer
     torch.cuda.reset_peak_memory_stats()
-    model = LlamaModel(device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    model = LlamaModel(num_layers=LLAMA_LAYERS, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
     model.to(torch.bfloat16).eval()
     n_layers = len(model.layers)
     n_params = sum(p.numel() for p in model.parameters())
@@ -3424,6 +3471,9 @@ TOL_WQ = 1e-4  # wq_matmul vs its plain version, relative to the output's max |v
 QUANT_MODE_ORDER = ("f32", "w8", "bf16w")
 QUANT_SOLO = 3  # streams of each window decoded again alone
 QUANT_LOGIT_PROMPTS = 4  # prompts whose finishing logits are held against f32's
+# (b)'s model: Llama-2-7B's width at this depth (at the full 32 layers its
+# three weights digests alone took 51 s of the script's 1,200 s)
+QUANT_LAYERS = 16
 
 
 def wq_bound_ms(m, k, n, wbytes, unit="tensor"):
@@ -3620,12 +3670,14 @@ def phase_quant(torch, fa, qmm, mods, card, eng7, serving):
     kcases = phase_quant_kernels(torch, qmm, _quantize_array, Graph)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    model = LlamaModel(device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    model = LlamaModel(num_layers=QUANT_LAYERS, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
     model.eval()
     n_layers = len(model.layers)
     dm = generation.llama_decode_model(model, ENGINE_SLOTS, ENGINE_SEQ)
     torch.cuda.synchronize()
-    log(f"[quant] Llama-2-7B float32 (weights from seed 0, {weight_bytes(dm.params) / 1e9:.2f} "
+    log(f"[quant] Llama-2-7B's width at depth {n_layers}, float32 (weights from seed 0, "
+        f"{weight_bytes(dm.params) / 1e9:.2f} "
         f"GB), built in {time.perf_counter() - t:.1f} s; engines of phase 7's configuration "
         f"({ENGINE_SLOTS} slots x {ENGINE_SEQ}, C = {ENGINE_CHUNK}) one mode at a time, "
         f"{', then '.join(QUANT_MODE_ORDER)}")
@@ -6544,17 +6596,21 @@ DISAGG_DEGRADED = 3  # streams sent once the prefill pool is gone
 DISAGG_CADENCE = 16  # the router's snapshot cadence: a 7B block is ~134-190 MB
 DISAGG_MAX_BODY = 1 << 30  # the replicas' frame cap, phase 8's (a snapshot is one frame)
 DISAGG_PREFIX_BYTES = 1 << 30  # prefix_max_bytes: the persistent tier keeps 128-row blocks
+# (b)'s replicas: Llama-2-7B's width at this depth (at the full 32 layers a
+# replica's respawn, its weights digest most of what is not imports, took
+# 34-64 s of the script's 1,200 s)
+FLEET_LLAMA_LAYERS = 8
 
 
-def llama_7b_bf16(torch, models, seed=0):
-    """Llama-2-7B at full width and depth in bfloat16, weights drawn on the
-    card from ``seed``: the embedding, norm and head first, then each decoder
-    layer converted as it is drawn, so a process never holds the float32
-    model (three replicas build at once in 80 GB). The same seed gives the
-    same weights in every process."""
+def llama_7b_bf16(torch, models, seed=0, layers=FLEET_LLAMA_LAYERS):
+    """Llama-2-7B at full width in bfloat16, ``layers`` deep, weights drawn
+    on the card from ``seed``: the embedding, norm and head first, then each
+    decoder layer converted as it is drawn, so a process never holds the
+    float32 model (three full-depth replicas build at once in 80 GB). The
+    same seed gives the same weights in every process."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     model = models.LlamaModel(num_layers=0, device="cuda", generator=g).to(torch.bfloat16)
-    for _ in range(32):
+    for _ in range(layers):
         model.layers.append(models.LlamaDecoderLayer(4096, 32, 11008, device="cuda",
                                                      generator=g).to(torch.bfloat16))
     return model.eval()
@@ -6993,7 +7049,8 @@ def fleet_llama(torch, mods, card, spawn, free0):
                                handoff_timeout=120.0, max_body=DISAGG_MAX_BODY))
         spawn_s = time.perf_counter() - t
         free1, _ = torch.cuda.mem_get_info()
-        log(f"[fleet] (b) Llama-2-7B bf16 (seed 0, phase 7's engine: {ENGINE_SLOTS} slots x "
+        log(f"[fleet] (b) Llama-2-7B's width at depth {FLEET_LLAMA_LAYERS}, bf16 (seed 0, "
+            f"phase 7's engine: {ENGINE_SLOTS} slots x "
             f"{ENGINE_SEQ}, chunk {ENGINE_CHUNK}), pools {fl.pools()}, three replica "
             f"processes started together at the phase's start ({spawn.up_s():.1f} s to the "
             f"last port; {spawn_s:.1f} s more wait here); free device memory "
@@ -7103,14 +7160,14 @@ def fleet_llama(torch, mods, card, spawn, free0):
             failures.append(f"(b) respawn: {new}, routable {routable}, {got[0]}, {pst}")
         res.update(respawn_s=respawn_s, store_hits=pst.get("store_hits"))
 
-        # K1: 32 a fill and a step in every live replica
+        # K1: one a layer a fill and a step in every live replica
         k1s = {}
         for rid, h in sorted(fl.handles().items()):
             st = _stats(wire_spec, h.port)["decode"]
             k1s[rid] = (st["k1_launches"], st["prefix_fill_steps"] + st["steps"])
         log("[fleet] (b) K1 launches / (fill replays + steps) per live replica (cmd-5 "
             "stats): " + ", ".join(f"{r} {k} / {c}" for r, (k, c) in k1s.items()))
-        if any(k != 32 * c or not c for k, c in k1s.values()):
+        if any(k != FLEET_LLAMA_LAYERS * c or not c for k, c in k1s.values()):
             failures.append(f"(b) K1 {k1s}")
         res["k1"] = sum(k for k, _ in k1s.values()) + k1_pre.get(killed.get("rid"), (0,))[0]
 
@@ -7205,6 +7262,10 @@ def phase_fleet(torch, mods, card, deploy):
 F16_WARMUP, F16_STEPS = 3, 20  # (b): BERT-base fp16 O1 dygraph steps on phase 5's batch
 F16_INIT_SCALE = 2.0 ** 15  # GradScaler's default init_loss_scaling (the reference's)
 F16_PARITY_TRIES = 16  # (b): scaler steps tried until the parity step is taken (scale >= 0.5)
+# (b)'s card-vs-CPU step: BERT-base width at depth 1, batch 2 x 128 (at
+# depth 2, batch 4 the CPU's fp16 GEMMs took 33-67 s of the script's 1,200 s)
+F16_PARITY_DEPTH = 1
+F16_PARITY_BATCH = 2
 # (b) the depth-2 fp16 O1 step, card vs CPU (the CPU runs K1-K3's plain
 # versions and its own fp16 GEMMs, which round at other points): test_torch_
 # train.py's O1 bounds, loss 2e-3 relative and clipped gradients within 5e-2
@@ -7248,10 +7309,10 @@ def phase_safety(torch, fa, mods, card, dyg, lm):
     failures = []
     first = (fa.launches, fa.dq_launches, fa.dkv_launches)
 
-    # (b) BERT-base fp16 O1 dygraph with GradScaler: first a depth-2 step at
-    # batch 4, card against CPU from the same weights and key stream (the
+    # (b) BERT-base fp16 O1 dygraph with GradScaler: first a depth-1 step at
+    # batch 2, card against CPU from the same weights and key stream (the
     # scaler's skips until the step is taken held equal too)
-    model = BertForPretraining(num_hidden_layers=DYG_DEPTH, **bert_kw, device="cuda",
+    model = BertForPretraining(num_hidden_layers=F16_PARITY_DEPTH, **bert_kw, device="cuda",
                                generator=torch.Generator().manual_seed(0))
     vocab = model.bert.vocab_size
     cpu_model = copy.deepcopy(model).to("cpu")
@@ -7260,7 +7321,7 @@ def phase_safety(torch, fa, mods, card, dyg, lm):
         paddle.set_device(dev)
         opt = dygraph_optimizer(paddle, m)
         scaler = paddle.amp.GradScaler(init_loss_scaling=F16_INIT_SCALE)
-        data = dygraph_batch(paddle, *batch(4, vocab))
+        data = dygraph_batch(paddle, *batch(F16_PARITY_BATCH, vocab))
         paddle.seed(0)
         skips[dev] = []
         t = time.perf_counter()
@@ -7273,7 +7334,8 @@ def phase_safety(torch, fa, mods, card, dyg, lm):
         runs[dev] = (loss, first_moments(opt, m),
                      {n: p.detach().cpu() for n, p in m.named_parameters()})
     paddle.set_device("gpu")
-    log(f"[safety] (b) depth-{DYG_DEPTH} fp16 O1 dygraph step at batch 4, dropout 0.1, "
+    log(f"[safety] (b) depth-{F16_PARITY_DEPTH} fp16 O1 dygraph step at batch "
+        f"{F16_PARITY_BATCH}, dropout 0.1, "
         f"GradScaler(init_loss_scaling=2^15): skips before the taken step card {len(skips['gpu'])} "
         f"(scales after them {skips['gpu']}), cpu {len(skips['cpu'])}; card {secs['gpu']:.2f} s, "
         f"cpu {secs['cpu']:.2f} s")
@@ -7281,9 +7343,9 @@ def phase_safety(torch, fa, mods, card, dyg, lm):
         failures.append(f"(b) the scaler's skips differ card {skips['gpu']} / cpu "
                         f"{skips['cpu']}, or no step was taken")
     else:
-        bad, _ = hold_step(f"(b) fp16 O1 step at depth {DYG_DEPTH}: card vs CPU", runs["gpu"],
-                           runs["cpu"], tol_loss=TOL_F16_LOSS, tol_grad=TOL_F16_GRAD,
-                           tol_zero=TOL_F16_GRAD)
+        bad, _ = hold_step(f"(b) fp16 O1 step at depth {F16_PARITY_DEPTH}: card vs CPU",
+                           runs["gpu"], runs["cpu"], tol_loss=TOL_F16_LOSS,
+                           tol_grad=TOL_F16_GRAD, tol_zero=TOL_F16_GRAD)
         failures += [f"(b) parity {b}" for b in bad]
     del model, cpu_model, runs, opt, scaler, data
 
@@ -7612,6 +7674,19 @@ def hold_nms(label, runs, scores_cpu, boxes_cpu, thresholds, iou_thr):
     return len(cpu), err, exempt
 
 
+NMS_PRELOAD = ["paddle_tpu_torch.vision.ops"]
+
+
+def start_nms_server():
+    """Start phase 22's forkserver (a fresh interpreter importing the port
+    once, ~20 s on the card's host) so that its import overlaps earlier
+    phases; phase 22's pool forks its workers from it, then stops it."""
+    from multiprocessing import forkserver
+
+    forkserver.set_forkserver_preload(NMS_PRELOAD)
+    forkserver.ensure_running()
+
+
 def nms_image(job):
     """One image's multiclass_nms rows and matrix_nms rows and index, from
     host arrays (boxes [N, 4], scores [C, N]): a pool worker's job."""
@@ -7667,8 +7742,18 @@ def leaves_yolo(torch, ops, card):
     mx_ms = (time.perf_counter() - t) * 1e3
     jobs = [(b[i], s[i].T.copy()) for b, s in ((hb, hs), (cb, cs)) for i in range(YOLO_BATCH)]
     t = time.perf_counter()
-    with mp.get_context("spawn").Pool(min(len(jobs), os.cpu_count() or 1)) as pool:
+    # a forkserver pool: the server process imports the port once and forks
+    # the workers from that clean state (spawned workers each imported it:
+    # ~35 s of 41 on the card's 8-core host; a fork of this process would
+    # copy its CUDA context and its OpenMP threads' state); a full run
+    # started the server after the build (start_nms_server)
+    start_nms_server()
+    ctx = mp.get_context("forkserver")
+    with ctx.Pool(min(len(jobs), os.cpu_count() or 1)) as pool:
         results = pool.map(nms_image, jobs)
+    from multiprocessing import forkserver
+
+    forkserver._forkserver._stop()  # the server has no other user
     pool_s = time.perf_counter() - t
     if not (np.array_equal(first_mc, results[0][0])
             and np.array_equal(first_mx[0].cpu().numpy(), results[0][1])):
@@ -8148,6 +8233,711 @@ def phase_leaves(torch, fa, qmm, mods, card):
                 small=small)
 
 
+# ------------------------------------------------------------------ phase 23
+# BERT-base pretraining (phase 5's config) by two ranks of the port's
+# launcher sharing the card over gloo: each rank its half of the global
+# 64 x 128 batch. (a) O0 f32 steps against the one-device step, (b) timed
+# O1 bf16 steps, (c) the fleet's eager path, (d) the collectives on CUDA
+# tensors, (f) the fault paths on a 2-layer model of BERT-base's width.
+DP_RANKS, DP_O0_STEPS, DP_O1_STEPS, DP_EAGER_STEPS = 2, 3, 20, 3
+DP_FAULT_LAYERS, DP_FAULT_BATCH, DP_FAULT_STEPS = 2, 8, 3
+DP_ONE_RANK_O1_STEPS = 10
+DP_KILL = "site=train.step,signum=9,at=2,rank=1"
+
+
+def dp_values(torch, rank, shape=(3, 5)):
+    """Rank r's operand of (d): distinct values, exact in float32."""
+    return torch.arange(int(np.prod(shape)), dtype=torch.float32).reshape(shape) * (rank + 2) \
+        - 5 * rank
+
+
+def dp_collectives(torch, dist, p2p, rank, world):
+    """(d): every op over the two ranks on CUDA tensors; each result held
+    bitwise against numpy on the host and each output's device. Returns
+    the failures."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    xs = [dp_values(torch, r).numpy() for r in range(world)]
+    x = dp_values(torch, rank).to(dev)
+    bad, got = [], {}
+
+    def hold(name, out, want):
+        if out.device != dev:
+            bad.append(f"{name} left the card ({out.device})")
+        elif not np.array_equal(out.cpu().numpy(), want):
+            bad.append(f"{name} differs from numpy")
+        got[name] = out
+
+    ops = {"sum": xs[0] + xs[1], "max": np.maximum(*xs), "min": np.minimum(*xs),
+           "prod": xs[0] * xs[1], "avg": (xs[0] + xs[1]) / np.float32(2)}
+    for op, want in ops.items():
+        hold(f"all_reduce {op}", dist.all_reduce(x.clone(), op), want)
+    hold("broadcast", dist.broadcast(x.clone(), src=1), xs[1])
+    for i, t in enumerate(dist.all_gather([], x)):
+        hold(f"all_gather[{i}]", t, xs[i])
+    t = x.clone()
+    dist.reduce(t, dst=0)
+    if rank == 0:
+        hold("reduce", t, xs[0] + xs[1])
+    t = torch.zeros(2, device=dev)
+    dist.scatter(t, [torch.full((2,), 10.0 * i + 1, device=dev) for i in range(world)]
+                 if rank == 0 else None, src=0)
+    hold("scatter", t, np.full(2, 10.0 * rank + 1, np.float32))
+    outs = dist.all_to_all([], [torch.full((2,), 100.0 * rank + j, device=dev)
+                                for j in range(world)])
+    for i, t in enumerate(outs):
+        hold(f"all_to_all[{i}]", t, np.full(2, 100.0 * i + rank, np.float32))
+    t = torch.zeros(4, 3, device=dev)
+    src = [np.arange(12, dtype=np.float32).reshape(4, 3) + 100 * r for r in range(world)]
+    dist.alltoall_single(t, torch.from_numpy(src[rank]).to(dev))
+    hold("alltoall_single", t, np.concatenate([s[2 * rank:2 * rank + 2] for s in src]))
+    dist.barrier()
+    if rank == 0:
+        dist.send(x * 3, dst=1)
+    else:
+        t = torch.zeros_like(x)
+        dist.recv(t, src=0)
+        hold("send/recv", t, xs[0] * 3)
+    tr = p2p.get_transport()  # the p2p transport, two tags on one edge
+    if rank == 0:
+        tr.send("dp", 1, (x * 7).cpu().numpy(), tag=1)
+        tr.send("dp", 1, (x * 8).cpu().numpy(), tag=2)
+    else:
+        hold("p2p tag 2", torch.from_numpy(tr.recv("dp", 0, tag=2, timeout=60)).to(dev),
+             xs[0] * 8)
+        hold("p2p tag 1", torch.from_numpy(tr.recv("dp", 0, tag=1, timeout=60)).to(dev),
+             xs[0] * 7)
+    dist.barrier()
+    return bad, sorted(got)
+
+
+def param_digest(torch, params):
+    """Two int64 sums over each parameter's 32-bit words (plain and
+    position-weighted): equal digests on two ranks say their parameters
+    are equal bit for bit (a sum that collides by chance aside)."""
+    out = []
+    for p in params.values():
+        w = p.detach().reshape(-1).view(torch.int32).long()
+        out.append(torch.stack([w.sum(), (w * torch.arange(1, w.numel() + 1,
+                                                           device=w.device)).sum()]))
+    return torch.stack(out)
+
+
+def dp_rank(argv):
+    """``chip_smoke.py --dp-rank OUT``: one rank of phase 23, started by the
+    port's launcher (launch_elastic). It calls chaos.arm_from_env() once
+    (after ``CHIP_SMOKE_FAULT_ONCE``'s marker for this rank exists, with
+    the fault spec taken out: a restarted pod is not killed again) and
+    chaos.hit("train.step") before each step of the fault model, which it
+    trains first; then (d), (a), (b), (c) and the fault model once more.
+    Writes rank{r}.json (and rank 0's step-1 tensors) to OUT."""
+    if len(argv) != 1:
+        fail("usage: chip_smoke.py --dp-rank OUT")
+    out = argv[0]
+    t_launch = float(os.environ["CHIP_SMOKE_DP_T0"])
+    started = {"interpreter": time.time() - t_launch}
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch import nn, optimizer
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.distributed import fleet, p2p, spmd, topology
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.text.models import BertForPretraining
+
+    started["imports"] = time.time() - t_launch
+    env = dict(os.environ)
+    once = env.get("CHIP_SMOKE_FAULT_ONCE")
+    rank = int(env["PADDLE_TRAINER_ID"])
+    if once:
+        marker = f"{once}.{rank}"
+        if os.path.exists(marker):
+            env.pop("PADDLE_TPU_CHAOS", None)
+        else:
+            open(marker, "w").close()
+    armed = chaos.arm_from_env(env)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    world = dist.get_world_size()
+    mesh = topology.build_mesh(dp=world)
+    started["init_parallel_env"] = time.time() - t_launch
+    batch, build = bert_pretraining_parts(torch, nn, optimizer, spmd)
+    res = dict(rank=rank, world=world, backend=torch.distributed.get_backend(),
+               device=str(torch.device("cuda", torch.cuda.current_device())),
+               armed=[f.site for f in armed], started=started)
+
+    def local(b, vocab):
+        x, y = batch(b, vocab)
+        n = b // world
+        return x[rank * n:(rank + 1) * n].cuda(), y[rank * n:(rank + 1) * n].cuda()
+
+    def fault_run(progress=None):
+        # the 2-layer model of BERT-base's width, dp O0 steps, the chaos
+        # site before each; rank 0 appends each loss to ``progress`` (a
+        # pod killed mid-run leaves its steps there)
+        model = BertForPretraining(num_hidden_layers=DP_FAULT_LAYERS, hidden_dropout_prob=0.1,
+                                   attention_probs_dropout_prob=0.1, device="cuda",
+                                   generator=torch.Generator().manual_seed(1))
+        step, init = build(model, "O0", mesh=mesh)
+        params, state = init()
+        x, y = local(DP_FAULT_BATCH, model.bert.vocab_size)
+        losses = []
+        for i in range(DP_FAULT_STEPS):
+            chaos.hit("train.step")
+            loss, params, state = step(params, state, x, y,
+                                       key=prandom.fold_in(prandom.PRNGKey(3), i))
+            losses.append(float(loss))
+            if progress and rank == 0:
+                with open(progress, "a") as f:
+                    f.write(f"{os.getpid()} {i} {losses[-1]!r}\n")
+        return losses
+
+    # (f) first: the first pod's rank 1 dies at its second step here; the
+    # restarted pod trains the fault model through, then does the rest
+    t0 = time.perf_counter()
+    res["fault_losses"] = fault_run(os.path.join(out, "fault_progress.txt"))
+    res["fault_seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    res["collectives_bad"], res["collectives"] = dp_collectives(torch, dist, p2p, rank, world)
+    res["d_s"] = time.perf_counter() - t0
+    model = BertForPretraining(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+                               device="cuda", generator=torch.Generator().manual_seed(0))
+    started["model"] = time.time() - t_launch
+    n_layers = len(model.bert.encoder.layers)
+    vocab = model.bert.vocab_size
+    x, y = local(O1_BATCH, vocab)
+    keys = [prandom.fold_in(prandom.PRNGKey(0), i) for i in range(DP_O1_STEPS)]
+
+    # (a) O0 float32 over the dp mesh, every launch counted by form
+    t0 = time.perf_counter()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.form_launches.clear()
+    step, init = build(model, "O0", mesh=mesh)
+    params, state = init()
+    losses, digests = [], []
+    for i in range(DP_O0_STEPS):
+        loss, params, state = step(params, state, x, y, key=keys[i])
+        losses.append(float(loss))
+        digests.append(param_digest(torch, params))
+        if i == 0 and rank == 0:
+            torch.save(dict(grads={n: (st[0] / (1 - 0.9)).cpu() for n, st in state.items()},
+                            params={n: p.cpu() for n, p in params.items()}),
+                       os.path.join(out, "rank0_step1.pt"))
+    digests = torch.stack(digests)
+    other = dist.all_gather([], digests)
+    res["a"] = dict(losses=losses, bitwise=[bool(torch.equal(other[0][i], other[1][i]))
+                                            for i in range(DP_O0_STEPS)],
+                    forms={" ".join(map(str, k)): v for k, v in fa.form_launches.items()},
+                    counts=[fa.launches, fa.dq_launches, fa.dkv_launches], n_layers=n_layers,
+                    vocab=vocab, seconds=time.perf_counter() - t0)
+    counts = list(res["a"]["counts"])
+    del step, init, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) O1 bfloat16 steps over the dp mesh, each timed by CUDA events;
+    # rank 0 traces one more (the all-reduce's range and the idle share)
+    t0 = time.perf_counter()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.form_launches.clear()
+    step, init = build(model, "O1", mesh=mesh)
+    params, state = init()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(DP_O1_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, params, state = step(params, state, x, y, key=keys[i])
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    b_forms = {" ".join(map(str, k)): v for k, v in fa.form_launches.items()}
+    b_counts = [fa.launches, fa.dq_launches, fa.dkv_launches]
+    peak = torch.cuda.max_memory_allocated()
+
+    def traced():
+        nonlocal params, state
+        _, params, state = step(params, state, x, y, key=prandom.PRNGKey(999))
+
+    prof = {}
+    if rank == 0:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            traced()
+            end.record()
+            end.synchronize()
+        ev_ms = start.elapsed_time(end)
+        busy = sum((getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+                   for e in p.key_averages()
+                   if "CUDA" in str(getattr(e, "device_type", "")) and e.key not in ANNOTATIONS)
+        rng = next((e for e in p.key_averages() if e.key == "build_train_step.grad_allreduce"
+                    and "CUDA" not in str(getattr(e, "device_type", ""))), None)
+        prof = dict(step_ms=ev_ms, busy_ms=busy,
+                    allreduce_ms=None if rng is None else rng.cpu_time_total / 1e3 / rng.count)
+    else:
+        traced()
+    res["b"] = dict(losses=losses, ms=ms, peak_bytes=peak, forms=b_forms, counts=b_counts,
+                    seconds=time.perf_counter() - t0, **prof)
+    counts = [a + b for a, b in zip(counts, b_counts)]
+    del step, init, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the fleet's eager path: DataParallel through fleet, O0, dropout 0
+    t0 = time.perf_counter()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    paddle.set_device("gpu")
+    eager = BertForPretraining(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                               device="cuda", generator=torch.Generator().manual_seed(0))
+    fleet.init(is_collective=True)
+    dp_model = fleet.distributed_model(eager)
+    opt = fleet.distributed_optimizer(dygraph_optimizer(paddle, eager))
+    ids, pos, labels = dygraph_batch(paddle, *(t.cpu() for t in (x, y)))
+    eager_losses = []
+    for _ in range(DP_EAGER_STEPS):
+        mlm_logits, _ = dp_model(ids, masked_positions=pos)
+        loss = dygraph_mlm_loss(paddle, mlm_logits, labels)
+        loss.backward()
+        dp_model.apply_collective_grads()
+        opt.step()
+        opt.clear_grad()
+        both = dist.all_gather([], torch.tensor([float(loss)], device="cuda"))
+        eager_losses.append(float(torch.cat(both).mean()))
+    res["c"] = dict(losses=eager_losses, counts=[fa.launches, fa.dq_launches, fa.dkv_launches],
+                    worker_num=fleet.worker_num(), worker_index=fleet.worker_index(),
+                    mode=fleet.get_hybrid_communicate_group().get_parallel_mode(),
+                    seconds=time.perf_counter() - t0)
+    counts = [a + b for a, b in zip(counts, res["c"]["counts"])]
+    del dp_model, eager, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f)'s fault model again, a run no fault touched
+    res["unbroken_losses"] = fault_run()
+    res["counts"] = counts
+    dist.barrier()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def dp_kernel_cases(torch, fa):
+    """K1-K3 at a rank's [32 * 12, 128, 64] with dropout 0.1 and bh_offset
+    384 (rank 1), float32 and bfloat16: against the plain versions at the
+    same offset, the rank's rows of the global call bitwise, and timed
+    beside their bound and the library's call (a one-call profiler window
+    where a 20-call window lost records: late in the script they do)."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    b, h, s, d, p = O1_BATCH // DP_RANKS, 12, TRAIN_SEQ, 64, 0.1
+    bh, off, scale = b * h, b * h, 64 ** -0.5
+    rows = []
+    for dt in ("float32", "bfloat16"):
+        tdt = getattr(torch, dt)
+        q, k, v, do = (torch.randn(2 * bh, s, d, device="cuda", generator=gen).to(tdt)
+                       for _ in range(4))
+        go, glse = fa._fwd(q, k, v, 1234, scale, False, p)
+        ggrads = fa._bwd(q, k, v, go, glse, do, 1234, scale, False, p)
+        ql, kl, vl, dol = (t[bh:].contiguous() for t in (q, k, v, do))
+        o, lse = fa._fwd(ql, kl, vl, 1234, scale, False, p, bh_offset=off)
+        grads = fa._bwd(ql, kl, vl, o, lse, dol, 1234, scale, False, p, bh_offset=off)
+        torch.cuda.synchronize()
+        slice_ok = (torch.equal(o, go[bh:]) and torch.equal(lse, glse[bh:])
+                    and all(torch.equal(a, g[bh:]) for a, g in zip(grads, ggrads)))
+        ro, rlse = fa.mha_reference(ql, kl, vl, 1234, scale, False, p, bh_offset=off)
+        want = fa.mha_bwd_reference(ql, kl, vl, o, lse, dol, 1234, scale, False, p,
+                                    bh_offset=off)
+        err_o = (o.float() - ro.float()).abs().max().item()
+        err_lse = (lse - rlse).abs().max().item()
+        errs = [_rel_err(torch, g, w) for g, w in zip(grads, want)]
+        abs_errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(grads, want)]
+        ms, dev = leaf_timed(torch, lambda: fa._fwd(ql, kl, vl, 1234, scale, False, p,
+                                               bh_offset=off))
+        plain_ms, plain_dev = leaf_timed(torch, lambda: fa.mha_reference(
+            ql, kl, vl, 1234, scale, False, p, bh_offset=off), iters=5)
+        q4, k4, v4 = (t.view(b, h, s, d) for t in (ql, kl, vl))
+        lib_ms, lib_dev = leaf_timed(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, dropout_p=p, scale=scale))
+        delta = (dol.float() * o.float()).sum(-1).contiguous()
+        ptrs = [t.data_ptr() for t in (ql, kl, vl, dol, lse.view(bh, s), delta)]
+        dq, dk, dv = torch.empty_like(ql), torch.empty_like(kl), torch.empty_like(vl)
+        kargs = fa._kernel_args(1234, scale, False, p, ql.dtype, ql.device, off)
+        dims = (bh, s, s, d)
+        ms_dq, dev_dq = leaf_timed(torch, lambda: fa._launch("flash_attention_bwd_dq", *ptrs,
+                                                        dq.data_ptr(), *dims, *kargs))
+        ms_dkv, dev_dkv = leaf_timed(torch, lambda: fa._launch(
+            "flash_attention_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, *kargs))
+        bplain_ms, bplain_dev = leaf_timed(torch, lambda: fa.mha_bwd_reference(
+            ql, kl, vl, o, lse, dol, 1234, scale, False, p, bh_offset=off), iters=5)
+        q4g, k4g, v4g = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
+        out4 = F.scaled_dot_product_attention(q4g, k4g, v4g, dropout_p=p, scale=scale)
+        blib_ms, blib_dev = leaf_timed(torch, lambda: torch.autograd.grad(
+            out4, (q4g, k4g, v4g), dol.view_as(out4), retain_graph=True))
+        bound = attention_bound_ms(bh, s, s, d, dt, False)
+        bound_dq = attention_bound_ms(bh, s, s, d, dt, False, "bwd_dq")
+        bound_dkv = attention_bound_ms(bh, s, s, d, dt, False, "bwd_dkv")
+        ok = (slice_ok and err_o <= TOL_O[dt] and err_lse <= TOL_LSE
+              and max(errs) <= TOL_GRAD[dt])
+        rows.append(dict(dtype=dt, b=b, h=h, sq=s, sk=s, d=d, p=p, bh_offset=off,
+                         slice_bitwise=slice_ok, max_abs_err=err_o, max_lse_err=err_lse,
+                         ms=ms, device_ms=dev, plain_ms=plain_ms, plain_device_ms=plain_dev,
+                         library_ms=lib_ms, library_device_ms=lib_dev, bound_ms=bound[0],
+                         bound_by=bound[1], err_dq=errs[0], err_dk=errs[1], err_dv=errs[2],
+                         abs_err_dq=abs_errs[0], abs_err_dkv=max(abs_errs[1:]), ms_dq=ms_dq,
+                         device_ms_dq=dev_dq, ms_dkv=ms_dkv, device_ms_dkv=dev_dkv,
+                         bwd_plain_ms=bplain_ms, bwd_plain_device_ms=bplain_dev,
+                         bwd_library_ms=blib_ms, bwd_library_device_ms=blib_dev,
+                         bound_dq=bound_dq, bound_dkv=bound_dkv, ok=ok))
+        log(f"  [dp kernels] [{b} * {h}, {s}, {d}] {dt} p={p} bh_offset={off}: the global "
+            f"call's rows bitwise {slice_ok}; O err {err_o:.3e} LSE err {err_lse:.3e} dq "
+            f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} | K1 {ms:.4f} / {_fmt(dev)} ms"
+            f"{_share(bound[0], dev)} (bound {bound[0]:.4f} {bound[1]}), plain {plain_ms:.4f}"
+            f" / {_fmt(plain_dev)}, library {lib_ms:.4f} / {_fmt(lib_dev)} | K2 {ms_dq:.4f} / "
+            f"{_fmt(dev_dq)} ms (bound {bound_dq[0]:.4f} {bound_dq[1]}"
+            f"{_share(bound_dq[0], dev_dq)}) K3 {ms_dkv:.4f} / {_fmt(dev_dkv)} ms (bound "
+            f"{bound_dkv[0]:.4f} {bound_dkv[1]}{_share(bound_dkv[0], dev_dkv)}), plain "
+            f"{bplain_ms:.4f} / {_fmt(bplain_dev)}, library {blib_ms:.4f} / "
+            f"{_fmt(blib_dev)} ms {'ok' if ok else 'DISAGREES'}")
+    if not all(r["ok"] for r in rows):
+        fail("phase 23: K1-K3 with bh_offset disagree with their plain versions or with the "
+             "global call's rows")
+    return rows
+
+
+def dp_launch(launch_mod, out):
+    """This file's --dp-rank ranks (two on card 0 over gloo) through the
+    port's launch_elastic(max_restarts=1), with PADDLE_TPU_CHAOS killing
+    rank 1 at its second train.step in the first pod only. Returns (what
+    launch_elastic returned or the error it raised, the errors its pods'
+    watchers raised (seen through launch_collective), seconds)."""
+    # CHIP_SMOKE_DP_T0: the ranks report their start-up against it
+    env = dict(CHIP_SMOKE_DP_T0=repr(time.time()), PADDLE_TPU_CHAOS=DP_KILL,
+               CHIP_SMOKE_FAULT_ONCE=os.path.join(out, "fault_once"))
+    grace = os.environ.get("PADDLE_TPU_ELASTIC_EXIT_GRACE")
+    os.environ["PADDLE_TPU_ELASTIC_EXIT_GRACE"] = "5"
+    raised, real = [], launch_mod.launch_collective
+
+    def watched(*args, **kw):
+        try:
+            return real(*args, **kw)
+        except RuntimeError as e:
+            raised.append(e)
+            raise
+
+    launch_mod.launch_collective = watched
+    t = time.perf_counter()
+    try:
+        got = launch_mod.launch_elastic(
+            os.path.abspath(__file__), ["--dp-rank", out], nproc_per_node=DP_RANKS,
+            max_restarts=1, gpus=",".join(["0"] * DP_RANKS), backend="gloo", extra_env=env,
+            log_dir=os.path.join(out, "logs"))
+    except RuntimeError as e:
+        got = e
+    finally:
+        launch_mod.launch_collective = real
+        if grace is None:
+            os.environ.pop("PADDLE_TPU_ELASTIC_EXIT_GRACE", None)
+        else:
+            os.environ["PADDLE_TPU_ELASTIC_EXIT_GRACE"] = grace
+    return got, raised, time.perf_counter() - t
+
+
+def dp_logs(out, tail=3000):
+    logs = os.path.join(out, "logs")
+    text = ""
+    for name in sorted(os.listdir(logs)) if os.path.isdir(logs) else ():
+        with open(os.path.join(logs, name), errors="replace") as f:
+            text += f"--- {name} ---\n" + f.read()[-tail:]
+    return text
+
+
+def phase_dp(torch, fa, mods, card, one_rank_ms=None):
+    """Phase 23 (module docstring). ``one_rank_ms``: phase 5's O1 step at
+    64 x 128 in this run, printed beside (b)'s; None measures it here."""
+    (BertForPretraining, nn, optimizer, spmd, prandom, paddle, pdist, launch_mod, parallel,
+     topology) = mods
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    times = {}
+    out = tempfile.mkdtemp(prefix="paddle_tpu_torch_dp_")
+    # the pods start first: their ranks spend their first ~20 s importing
+    # (the host), while this process times the kernels and runs the
+    # one-device references on the card; it waits for them after
+    pods = {}
+    launcher = threading.Thread(target=lambda: pods.update(
+        zip(("res", "raised", "secs"), dp_launch(launch_mod, out))), daemon=True)
+    launcher.start()
+    cases = dp_kernel_cases(torch, fa)
+    batch, build = bert_pretraining_parts(torch, nn, optimizer, spmd)
+    keys = [prandom.fold_in(prandom.PRNGKey(0), i) for i in range(DP_O1_STEPS)]
+
+    # the one-device runs the ranks are held against: (a)'s O0 steps at
+    # the global batch, the one-rank O1 step beside (b)'s, (c)'s dygraph
+    t = time.perf_counter()
+    model = BertForPretraining(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+                               device="cuda", generator=torch.Generator().manual_seed(0))
+    x, y = (a.cuda() for a in batch(O1_BATCH, model.bert.vocab_size))
+    step, init = build(model, "O0")
+    params, state = init()
+    one = dict(losses=[])
+    for i in range(DP_O0_STEPS):
+        loss, params, state = step(params, state, x, y, key=keys[i])
+        one["losses"].append(float(loss))
+        if i == 0:
+            one["grads"] = {n: (st[0] / (1 - 0.9)).cpu() for n, st in state.items()}
+            one["params"] = {n: p.cpu() for n, p in params.items()}
+    del step, init, params, state
+    if one_rank_ms is None:
+        step, init = build(model, "O1")
+        params, state = init()
+        one_ms = []
+        for i in range(DP_ONE_RANK_O1_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, params, state = step(params, state, x, y, key=keys[i])
+            end.record()
+            end.synchronize()
+            one_ms.append(start.elapsed_time(end))
+        one_rank_ms = _median(one_ms[1:])
+        del step, init, params, state
+    del model
+    paddle.set_device("gpu")
+    eager = BertForPretraining(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                               device="cuda", generator=torch.Generator().manual_seed(0))
+    opt = dygraph_optimizer(paddle, eager)
+    one["eager"] = [float(dygraph_step(paddle, eager, opt, dygraph_batch(paddle, x.cpu(),
+                                                                         y.cpu()), False))
+                    for _ in range(DP_EAGER_STEPS)]
+    del eager, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    times["one device"] = time.perf_counter() - t
+
+    try:
+        # the pods: the first killed by chaos in (f)'s fault model, the
+        # restarted one through (f), (d), (a), (b), (c) and (f) unbroken
+        launcher.join()
+        res, raised, secs = pods["res"], pods["raised"], pods["secs"]
+        times["pods"] = secs
+        if isinstance(res, Exception) or res != 0:
+            fail(f"phase 23: the two-rank pods failed: {res}\n{dp_logs(out)}")
+        ranks = [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(DP_RANKS)]
+        got = torch.load(os.path.join(out, "rank0_step1.pt"))
+        bad = []
+        for r in ranks:
+            bad += [f"rank {r['rank']}: {b}" for b in r["collectives_bad"]]
+            if (r["backend"], r["world"], r["device"]) != ("gloo", DP_RANKS, "cuda:0"):
+                bad.append(f"rank {r['rank']} ran {r['backend']} x {r['world']} on "
+                           f"{r['device']}")
+        log(f"[dp] the restarted pod's ranks' start-up, s after the first pod's launch: "
+            + "; ".join(f"rank {r['rank']} " + ", ".join(f"{k} {v:.1f}"
+                                                          for k, v in r["started"].items())
+                        for r in ranks))
+        log(f"[dp] pods of {DP_RANKS} ranks on card 0 over gloo ({secs:.1f} s, both): (d) "
+            f"{len(ranks[0]['collectives'])} collective results a rank bitwise numpy and on "
+            f"cuda:0: {'ok' if not bad else bad} ({ranks[0]['d_s']:.2f} s) [{card}]")
+
+        # (a) the mesh step against the one-device step
+        n_layers = ranks[0]["a"]["n_layers"]
+        loss_err = max(abs(a - b) / abs(b) for r in ranks
+                       for a, b in zip(r["a"]["losses"], one["losses"]))
+        model_max = max(g.abs().max().item() for g in one["grads"].values())
+        grad_err = {}
+        for n, w in one["grads"].items():
+            zero = n.endswith("k_proj.bias")
+            scale = model_max if zero else w.abs().max().item()
+            grad_err[n] = ((got["grads"][n] - w).abs().max().item() / max(scale, 1e-30),
+                           TOL_ZERO_GRAD if zero else TOL_STEP_GRAD)
+        worst = max(grad_err, key=lambda n: grad_err[n][0] / grad_err[n][1])
+        param_err = max((got["params"][n] - w).abs().max().item()
+                        for n, w in one["params"].items())
+        forms = {f"{k} 128 128 float32": n_layers * DP_O0_STEPS for k in ("fwd", "dq", "dkv")}
+        log(f"[dp] (a) O0 f32 dropout 0.1, {DP_O0_STEPS} steps, each rank {O1_BATCH // DP_RANKS}"
+            f" x {TRAIN_SEQ} vs one device at {O1_BATCH} x {TRAIN_SEQ}: losses "
+            + " / ".join(f"rank {r['rank']} " + " ".join(f"{v:.6f}" for v in r["a"]["losses"])
+                         for r in ranks)
+            + " one device " + " ".join(f"{v:.6f}" for v in one["losses"])
+            + f" (worst rel err {loss_err:.2e}, tolerance {TOL_STEP_LOSS}); step-1 clipped "
+            f"gradients worst {grad_err[worst][0]:.2e} ({worst}; tolerance "
+            f"{grad_err[worst][1]}); step-1 parameters max abs err {param_err:.3e} (tolerance "
+            f"{2.5 * LR:.2e}); the ranks' parameters bitwise after each step "
+            f"{ranks[0]['a']['bitwise']}; launches by form rank 0 {ranks[0]['a']['forms']} "
+            f"rank 1 {ranks[1]['a']['forms']} (expected {n_layers * DP_O0_STEPS} each) "
+            f"[{card}]")
+        if not loss_err <= TOL_STEP_LOSS:
+            bad.append("(a) losses")
+        bad += [f"(a) grad {n}" for n, (e, tol) in grad_err.items() if not e <= tol]
+        if not param_err <= 2.5 * LR:
+            bad.append("(a) step-1 parameters")
+        if not all(all(r["a"]["bitwise"]) for r in ranks):
+            bad.append("(a) the ranks' parameters differ")
+        if any(r["a"]["forms"] != forms for r in ranks):
+            bad.append("(a) launches by form")
+
+        # (b) the timed O1 steps
+        b0 = ranks[0]["b"]
+        steady = [_median(r["b"]["ms"][1:]) for r in ranks]
+        one_rank = one_rank_ms
+        idle = (1 - b0["busy_ms"] / b0["step_ms"]) if b0.get("busy_ms") else None
+        tokens = O1_BATCH * TRAIN_SEQ
+        log(f"[dp] (b) O1 bf16, {DP_O1_STEPS} steps: losses rank 0 "
+            + " ".join(f"{v:.4f}" for v in b0["losses"]))
+        log(f"[dp] (b) step (median of steps 2-{DP_O1_STEPS}, CUDA events): rank 0 "
+            f"{steady[0]:.2f} ms, rank 1 {steady[1]:.2f} ms = {tokens / max(steady) * 1e3:.0f} "
+            f"tokens/s over the pod; gradient all-reduce (gloo, {sum(g.numel() for g in one['grads'].values()) * 4 / 1e6:.0f} MB of "
+            f"f32) {_fmt(b0.get('allreduce_ms'))} ms a step (rank 0's traced step, the range's "
+            f"host time); rank 0's kernels {_fmt(b0.get('busy_ms'))} ms of its "
+            f"{_fmt(b0.get('step_ms'))} ms traced step: idle {_fmt_pct(idle)} (the other "
+            f"rank's kernels share the card); peak memory rank 0 "
+            f"{ranks[0]['b']['peak_bytes'] / 2**30:.2f} GiB, rank 1 "
+            f"{ranks[1]['b']['peak_bytes'] / 2**30:.2f} GiB; one rank at {O1_BATCH} x "
+            f"{TRAIN_SEQ}: {one_rank:.2f} ms [{card}]")
+        if not all(np.isfinite(b0["losses"])) or not b0["losses"][-1] < b0["losses"][0]:
+            bad.append("(b) the O1 loss did not fall")
+        forms_b = {f"{k} 128 128 bfloat16": n_layers * DP_O1_STEPS for k in ("fwd", "dq", "dkv")}
+        if any(r["b"]["forms"] != forms_b for r in ranks):
+            bad.append(f"(b) launches by form {[r['b']['forms'] for r in ranks]}")
+
+        # (c) the fleet's eager path against the one-process dygraph run
+        c0 = ranks[0]["c"]
+        c_err = max(abs(a - b) / abs(b) for r in ranks
+                    for a, b in zip(r["c"]["losses"], one["eager"]))
+        log(f"[dp] (c) fleet eager O0, dropout 0, {DP_EAGER_STEPS} steps: global losses "
+            + " ".join(f"{v:.6f}" for v in c0["losses"]) + " one process "
+            + " ".join(f"{v:.6f}" for v in one["eager"])
+            + f" (worst rel err {c_err:.2e}, tolerance {TOL_STEP_LOSS}); worker_num "
+            f"{c0['worker_num']}, mode {c0['mode']}; launches K1/K2/K3 {c0['counts']} "
+            f"({c0['seconds']:.1f} s) [{card}]")
+        if not c_err <= TOL_STEP_LOSS or c0["mode"] != "data" or c0["worker_num"] != DP_RANKS:
+            bad.append("(c) the fleet's eager path")
+        if bad:
+            fail(f"phase 23: {'; '.join(bad)}")
+        dp_counts = [sum(r["counts"][i] for r in ranks) for i in range(3)]
+
+        # (e) the nccl route: a one-rank group in this process
+        t = time.perf_counter()
+        os.environ.update(PADDLE_COORDINATOR=f"127.0.0.1:{launch_mod.find_free_port()}",
+                          PADDLE_TRAINERS_NUM="1", PADDLE_TRAINER_ID="0")
+        try:
+            parallel.init_parallel_env(backend="nccl")
+            nccl_bad = []
+            xe = torch.arange(15.0, device="cuda").reshape(3, 5)
+            for op in ("sum", "max", "min", "prod", "avg"):
+                if not torch.equal(pdist.all_reduce(xe.clone(), op), xe):
+                    nccl_bad.append(f"all_reduce {op}")
+            for name, o in (("broadcast", pdist.broadcast(xe.clone())),
+                            ("all_gather", pdist.all_gather([], xe)[0]),
+                            ("reduce", pdist.reduce(xe.clone())),
+                            ("alltoall_single", pdist.alltoall_single(torch.empty_like(xe), xe)),
+                            ("psum", pdist.psum(xe, "dp"))):
+                if not torch.equal(o, xe) or o.device != xe.device:
+                    nccl_bad.append(name)
+            lin = nn.Linear(5, 4, device="cuda")
+            ddp = pdist.DataParallel(lin)
+            ddp(xe).sum().backward()
+            before = lin.weight.grad.clone()
+            ddp.apply_collective_grads()
+            if not torch.equal(lin.weight.grad, before):
+                nccl_bad.append("DataParallel.apply_collective_grads")
+            backend = torch.distributed.get_backend()
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+            parallel._STORE = None
+            topology.set_global_mesh(None)
+            for k in ("PADDLE_COORDINATOR", "PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID"):
+                os.environ.pop(k, None)
+        times["e"] = time.perf_counter() - t
+        log(f"[dp] (e) a one-rank {backend} group: every ReduceOp, broadcast, all_gather, "
+            f"reduce, alltoall_single, psum and DataParallel.apply_collective_grads the "
+            f"identity bitwise: {'ok' if not nccl_bad else nccl_bad}; destroyed "
+            f"({times['e']:.1f} s) [{card}]")
+        if nccl_bad or backend != "nccl":
+            fail(f"phase 23 (e): the nccl route: {nccl_bad or backend}")
+
+        # (f) the fault paths: the first pod's watcher raised once; the
+        # restarted pod's fault-model losses are bitwise an unbroken run's,
+        # and its first step's the killed pod's
+        restarted, unbroken = ranks[0]["fault_losses"], ranks[0]["unbroken_losses"]
+        with open(os.path.join(out, "fault_progress.txt")) as f:
+            progress = [line.split() for line in f]
+        pids = list(dict.fromkeys(p for p, _, _ in progress))
+        killed = [float(v) for p, _, v in progress if p == pids[0]]
+        logs = sorted(os.listdir(os.path.join(out, "logs")))
+        log(f"[dp] (f) PADDLE_TPU_CHAOS={DP_KILL}: the first pod's watcher raised "
+            f"{[str(e) for e in raised]} after its step(s) " + " ".join(f"{v:.6f}" for v in killed)
+            + f"; launch_elastic(max_restarts=1) restarted the pod (worker logs {logs}): "
+            "losses " + " ".join(f"{v:.6f}" for v in restarted) + " vs the unbroken run's "
+            + " ".join(f"{v:.6f}" for v in unbroken)
+            + f": bitwise {restarted == unbroken}, the killed pod's first step bitwise "
+            f"{killed[:1] == restarted[:1]} [{card}]")
+        if (len(raised) != 1 or len(pids) != 2 or restarted != unbroken or not killed
+                or killed != restarted[:len(killed)] or len(killed) >= DP_FAULT_STEPS
+                or not any(n.endswith(".r1") for n in logs)):
+            fail("phase 23 (f): no single teardown, no restart, or the restarted pod's losses "
+                 "are not the unbroken run's (and the killed pod's) bits")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    times["phase"] = time.perf_counter() - t_phase
+    log(f"[dp] phase 23: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+        + f"; rank 0's restarted pod: (f) {ranks[0]['fault_seconds']:.1f} (d) "
+        f"{ranks[0]['d_s']:.1f} (a) {ranks[0]['a']['seconds']:.1f} (b) "
+        f"{ranks[0]['b']['seconds']:.1f} (c) {ranks[0]['c']['seconds']:.1f} s [{card}]")
+    return dict(counts=dp_counts, cases=cases, step_ms=steady, one_rank_ms=one_rank,
+                allreduce_ms=b0.get("allreduce_ms"), idle=idle)
+
+
+def stop_children(grace=5.0):
+    """End the processes this one started that are still alive at the end,
+    each logged with its command line: the script leaves none running.
+    multiprocessing's resource tracker is left to exit with this process
+    (it unlinks what it tracks when its pipe closes). Returns their pids."""
+    me = str(os.getpid())
+    kids = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[1] != me:
+                    continue
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except (OSError, IndexError):
+            continue
+        if "multiprocessing.resource_tracker" in cmd:
+            continue
+        kids.append(int(pid))
+        log(f"[cleanup] pid {pid} still running at the end: {cmd[:200]}")
+        try:
+            os.kill(int(pid), signal.SIGTERM)
+        except OSError:
+            pass
+    deadline = time.time() + grace
+    for pid in kids:
+        try:
+            while not os.waitpid(pid, os.WNOHANG)[0]:
+                if time.time() > deadline:
+                    os.kill(pid, signal.SIGKILL)
+                    os.waitpid(pid, 0)
+                    break
+                time.sleep(0.1)
+        except OSError:
+            pass
+    return kids
+
+
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
     """``--fill-sweep C1,C2,...``: what the fill's chunk C costs and buys
     the 7B engine. Llama-2-7B bf16 (phase 7's weights, 16 slots x 256,
@@ -8234,12 +9024,15 @@ def fill_chunk_sweep(torch, fa, mods, card, chunks):
 def main():
     sweep = None
     leaves_alone = sys.argv[1:] == ["--leaves"]
+    dp_alone = sys.argv[1:] == ["--dp"]
     if len(sys.argv) > 1 and sys.argv[1] == "--decode-replica":
         return decode_replica(sys.argv[2:])
-    if len(sys.argv) > 1 and not leaves_alone:
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":
+        return dp_rank(sys.argv[2:])
+    if len(sys.argv) > 1 and not (leaves_alone or dp_alone):
         if len(sys.argv) != 3 or sys.argv[1] != "--fill-sweep":
-            fail("usage: chip_smoke.py [--fill-sweep C1,C2,... | --leaves | --decode-replica "
-                 "PORTFILE PHASE PREFIX_DIR]")
+            fail("usage: chip_smoke.py [--fill-sweep C1,C2,... | --leaves | --dp | "
+                 "--decode-replica PORTFILE PHASE PREFIX_DIR | --dp-rank OUT]")
         sweep = [int(c) for c in sys.argv[2].split(",")]
     try:
         import torch
@@ -8277,6 +9070,8 @@ def main():
         from paddle_tpu_torch import distribution, utils
         from paddle_tpu_torch.incubate import autograd as incubate_autograd
         from paddle_tpu_torch.vision import ops as vision_ops
+        import paddle_tpu_torch.distributed as pdist
+        from paddle_tpu_torch.distributed import launch_mod, parallel, topology
     except ImportError as e:
         fail(f"the port is not importable from this directory: {e}")
 
@@ -8305,11 +9100,21 @@ def main():
 
     phase_build(torch, cuda_build, fa, kernels)
     took("build")
+    if not (dp_alone or sweep):
+        start_nms_server()  # its import overlaps the phases before 22
     leaves_mods = (paddle, vision_ops, LlamaModel, generation, DecodeEngine, quantization, utils,
                    distribution, incubate_autograd)
+    dp_mods = (BertForPretraining, nn, optimizer, spmd, prandom, paddle, pdist, launch_mod,
+               parallel, topology)
     if leaves_alone:
         phase_leaves(torch, fa, qmm, leaves_mods, card)
         took("leaves")
+        stop_children()
+        return
+    if dp_alone:
+        phase_dp(torch, fa, dp_mods, card)
+        took("dp")
+        stop_children()
         return
     if sweep:
         fill_chunk_sweep(torch, fa, (LlamaModel, generation, DecodeEngine, PredictorServer,
@@ -8399,6 +9204,10 @@ def main():
     torch.cuda.empty_cache()
     leaves = phase_leaves(torch, fa, qmm, leaves_mods, card)
     took("leaves")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp = phase_dp(torch, fa, dp_mods, card, one_rank_ms=train["step_ms"])
+    took("dp")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -8499,7 +9308,9 @@ def main():
                        + lm_launch["fwd"] + lm["parity_counts"][0] + mtt["counts"]["fwd"]
                        + mtt["parity_counts"][0] + dyg["counts"]["fwd"] + dyg["extra"][0]
                        + deploy["launches"][0] + static["launches"][0] + fleet["launches"]
-                       + safety["launches"][0] + leaves["k1_launches"]),
+                       + safety["launches"][0] + leaves["k1_launches"] + dp["counts"][0]),
+             # phase 23's: both ranks' (a) O0, (b) O1 and (c) eager steps
+             dp_launches=dp["counts"][0],
              # phase 22's: the flat-list quantized 7B-width model's fills and
              # steps (float32, head_dim 128)
              leaves_launches=leaves["k1_launches"],
@@ -8554,13 +9365,27 @@ def main():
              **fields(lm_o0[0], "lm_parity_f32_", launches=lm["parity_counts"][0]),
              **fields(mt_enc[0], "mt_train_encoder_bf16_", launches=mt_form["encoder"]["fwd"]),
              **fields(mt_cross[0], "mt_train_cross_bf16_", launches=mt_form["cross"]["fwd"]),
-             **fields(f16_fwd, "bert_train_f16_", launches=safety["forms"]["fwd"])),
+             **fields(f16_fwd, "bert_train_f16_", launches=safety["forms"]["fwd"]),
+             # phase 23: a rank's [32 * 12, 128, 64] with dropout 0.1 and
+             # bh_offset 384, float32 (O0) and bfloat16 (O1)
+             **{k: v for r in dp["cases"] for k, v in fields(
+                 r, f"dp_{r['dtype']}_", bh_offset=r["bh_offset"],
+                 slice_bitwise=r["slice_bitwise"]).items()}),
         *(dict(name=kernels[i]["name"], route="cuda", source=kernels[i]["source"],
                replaces=kernels[i]["replaces"],
                launches=(train["counts"][key] + lm_launch[key] + lm["parity_counts"][i]
                          + mtt["counts"][key] + mtt["parity_counts"][i] + dyg["counts"][key]
                          + dyg["extra"][i] + deploy["launches"][i] + static["launches"][i]
-                         + safety["launches"][i]),
+                         + safety["launches"][i] + dp["counts"][i]),
+               dp_launches=dp["counts"][i],
+               # phase 23: a rank's [32 * 12, 128, 64] with dropout 0.1 and
+               # bh_offset 384, float32 and bfloat16
+               **{f"dp_{r['dtype']}_{k}": v for r in dp["cases"] for k, v in dict(
+                   max_abs_err=r["abs_err_" + which], ms=r["ms_" + which],
+                   device_ms=r["device_ms_" + which], plain_ms=r["bwd_plain_ms"],
+                   plain_device_ms=r["bwd_plain_device_ms"], library_ms=r["bwd_library_ms"],
+                   library_device_ms=r["bwd_library_device_ms"],
+                   bound_ms=r["bound_" + which][0], bound_by=r["bound_" + which][1]).items()},
                safety_launches=safety["launches"][i],
                # phase 19's: the static programs' Executor.run steps
                static_launches=static["launches"][i],
@@ -8597,6 +9422,7 @@ def main():
                           "plain_ms", "plain_device_ms", "library_ms", "library_device_ms",
                           "bound_ms", "bound_by", "cuda_core_bound", "splits")}),
     ]
+    stop_children()
     log(card)
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

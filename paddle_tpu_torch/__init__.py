@@ -3,8 +3,7 @@
 It imports torch and numpy, never jax and nothing of paddle_tpu. Usage
 mirrors paddle (``import paddle_tpu_torch as paddle``): dygraph on the
 card by default, ``paddle.set_device("cpu")`` for the CPU. The packages
-the port has not reached yet (analysis, DataParallel) are absent rather
-than stubbed.
+the port has not reached yet (analysis) are absent rather than stubbed.
 """
 
 __version__ = "0.1.0"
@@ -52,6 +51,7 @@ from . import metric  # noqa: F401,E402
 from . import io  # noqa: F401,E402
 from . import vision  # noqa: F401,E402
 from . import distributed  # noqa: F401,E402
+from .distributed.parallel import DataParallel  # noqa: F401,E402
 from . import hapi  # noqa: F401,E402
 from . import incubate  # noqa: F401,E402
 from . import text  # noqa: F401,E402

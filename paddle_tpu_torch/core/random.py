@@ -133,6 +133,8 @@ _KEY_GENERATOR = Generator(0)
 _RNG_SCOPE = contextvars.ContextVar("rng_scope", default=None)
 # (table, [counter]) inside a captured program (key_table_guard)
 _KEY_TABLE = contextvars.ContextVar("key_table", default=None)
+# (rank, local batch) inside a data-parallel step (dp_shard_guard)
+_DP_SHARD = contextvars.ContextVar("dp_shard", default=None)
 
 
 def seed(s):
@@ -173,6 +175,39 @@ def key_table_guard(table):
         yield counter
     finally:
         _KEY_TABLE.reset(token)
+
+
+@contextlib.contextmanager
+def dp_shard_guard(rank, local_batch):
+    """Inside a data-parallel training step: this process holds rows
+    ``[rank * local_batch, (rank + 1) * local_batch)`` of the global batch.
+    The reference's mesh step is one program over the global batch, so its
+    dropout masks are the global ones; inside this guard
+    ``fast_keep_mask`` and the flash kernels draw this rank's slice of
+    them (``dp_offset``). Rank 0 of any guard draws what no guard draws."""
+    token = _DP_SHARD.set((int(rank), int(local_batch)))
+    try:
+        yield
+    finally:
+        _DP_SHARD.reset(token)
+
+
+def dp_offset(shape, per_row):
+    """The offset of this rank's slice of a global tensor whose leading
+    axis is the batch: ``rank * local_batch * per_row`` (``per_row``: the
+    elements, or batch-heads, one batch row holds), or 0 outside
+    ``dp_shard_guard``. Raises where the leading axis is not the local
+    batch: the mask drawn there would not be the global one."""
+    shard = _DP_SHARD.get()
+    if shard is None:
+        return 0
+    rank, local_batch = shard
+    if len(shape) == 0 or int(shape[0]) != local_batch:
+        raise ValueError(
+            f"dropout under a data-parallel step on a tensor of shape {tuple(shape)}: its "
+            f"leading axis is not the local batch ({local_batch}), so this rank's mask "
+            "would not be its slice of the global one")
+    return rank * local_batch * int(per_row)
 
 
 def next_key():
@@ -224,7 +259,9 @@ def fast_keep_mask(key, keep_prob, shape, device="cuda"):
     constant, each key word folded in by its own mix round, then fmix32,
     compared against the keep threshold. Built on ``device`` (the card
     unless the caller asks for the CPU) in int64 tensor math; bitwise the
-    reference's mask for the same key and shape."""
+    reference's mask for the same key and shape. Inside ``dp_shard_guard``
+    the flat index starts at this rank's offset in the global tensor, so
+    the ranks' masks concatenate to the global mask."""
     device = resolve_device(device)
     shape = tuple(int(s) for s in shape)
     n = 1
@@ -232,7 +269,9 @@ def fast_keep_mask(key, keep_prob, shape, device="cuda"):
         n *= s
     if n == 0:
         return torch.zeros(shape, dtype=torch.bool, device=device)
-    h = mul32(torch.arange(n, dtype=torch.int64, device=device), 0x9E3779B1)
+    first = dp_offset(shape, n // shape[0]) if shape else 0
+    idx = torch.arange(first, first + n, dtype=torch.int64, device=device) & U32
+    h = mul32(idx, 0x9E3779B1)
     for w in key_data(key):
         h = mul32(h ^ w, 0x85EBCA6B)
         h = h ^ (h >> 13)

@@ -88,7 +88,8 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, int sq, int sk, float scale,
-               int causal, int dropout, uint32_t seed, uint32_t keep_thresh, float inv_keep) {
+               int causal, int dropout, uint32_t seed, uint32_t keep_thresh, float inv_keep,
+               int bh_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int NTHREADS = F32Layout<D>::THREADS;
   constexpr int QT = F32Layout<D>::QT;
@@ -153,7 +154,7 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (first_qt < n_qt) load_rows(dOs, dog, first_qt * QT, QT, sq);
   fa::cp_async_commit();
 
-  const uint32_t bseed = fa::batch_seed(seed, bh);
+  const uint32_t bseed = fa::batch_seed(seed, bh + bh_offset);
   float dka[4][D / 8], dva[4][D / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -235,7 +236,7 @@ dkv_b16_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const float* __restrict__ lse, const float* __restrict__ delta,
                T* __restrict__ dk, T* __restrict__ dv, int sq, int sk,
                float scale, int causal, int dropout, uint32_t seed, uint32_t keep_thresh,
-               float inv_keep) {
+               float inv_keep, int bh_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int NTHREADS = B16Layout<D>::THREADS;
   constexpr int LD = B16Layout<D>::LD;
@@ -306,7 +307,7 @@ dkv_b16_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (first_qt < n_qt) load_q(first_qt);
   fa::cp_async_commit();
 
-  const uint32_t bseed = fa::batch_seed(seed, bh);
+  const uint32_t bseed = fa::batch_seed(seed, bh + bh_offset);
   uint32_t kf[KSTEPS][4], vf[KSTEPS][4];
   float dka[DT][4], dva[DT][4];
 #pragma unroll
@@ -417,7 +418,7 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
                        int sk, float scale, int causal, int dropout, uint32_t seed,
-                       uint32_t keep_thresh, float inv_keep, cudaStream_t stream) {
+                       uint32_t keep_thresh, float inv_keep, int bh_offset, cudaStream_t stream) {
   constexpr size_t smem = F32Layout<D>::bytes;
   auto kern = dkv_f32_kernel<D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);  // above 48 KB a block has to opt in
@@ -426,7 +427,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), sq,
-      sk, scale, causal, dropout, seed, keep_thresh, inv_keep);
+      sk, scale, causal, dropout, seed, keep_thresh, inv_keep, bh_offset);
   return cudaGetLastError();
 }
 
@@ -434,7 +435,7 @@ template <typename T, int D>
 cudaError_t launch_b16(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
                        int sk, float scale, int causal, int dropout, uint32_t seed,
-                       uint32_t keep_thresh, float inv_keep, cudaStream_t stream) {
+                       uint32_t keep_thresh, float inv_keep, int bh_offset, cudaStream_t stream) {
   constexpr size_t smem = B16Layout<D>::bytes;
   auto kern = dkv_b16_kernel<T, D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);
@@ -443,7 +444,7 @@ cudaError_t launch_b16(const void* q, const void* k, const void* v, const void* 
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
-      scale, causal, dropout, seed, keep_thresh, inv_keep);
+      scale, causal, dropout, seed, keep_thresh, inv_keep, bh_offset);
   return cudaGetLastError();
 }
 
@@ -453,32 +454,33 @@ extern "C" {
 
 // q/dout [bh, sq, d], k/v/dk/dv [bh, sk, d] contiguous in one dtype (0 =
 // float32, 1 = bfloat16, 2 = float16; 16-bit pointers 16-byte aligned); lse and delta
-// [bh, sq] float32. Returns the cudaError_t of the launch (0 = success);
-// cudaErrorInvalidValue for a head_dim or dtype this kernel does not take.
+// [bh, sq] float32. bh_offset: as in flash_attention_fwd. Returns the
+// cudaError_t of the launch (0 = success); cudaErrorInvalidValue for a
+// head_dim or dtype this kernel does not take.
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dk, void* dv, int bh,
                             int sq, int sk, int d, float scale, int causal, int dropout,
                             unsigned int seed, unsigned int keep_thresh, float inv_keep,
-                            int dtype, void* stream) {
+                            int bh_offset, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64)
     return launch_f32<64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal,
-                          dropout, seed, keep_thresh, inv_keep, st);
+                          dropout, seed, keep_thresh, inv_keep, bh_offset, st);
   if (dtype == 0 && d == 128)
     return launch_f32<128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal,
-                           dropout, seed, keep_thresh, inv_keep, st);
+                           dropout, seed, keep_thresh, inv_keep, bh_offset, st);
   if (dtype == 1 && d == 64)
     return launch_b16<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal,
-                           dropout, seed, keep_thresh, inv_keep, st);
+                           dropout, seed, keep_thresh, inv_keep, bh_offset, st);
   if (dtype == 1 && d == 128)
     return launch_b16<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal,
-                            dropout, seed, keep_thresh, inv_keep, st);
+                            dropout, seed, keep_thresh, inv_keep, bh_offset, st);
   if (dtype == 2 && d == 64)
     return launch_b16<__half, 64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal,
-                           dropout, seed, keep_thresh, inv_keep, st);
+                           dropout, seed, keep_thresh, inv_keep, bh_offset, st);
   if (dtype == 2 && d == 128)
     return launch_b16<__half, 128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale, causal,
-                            dropout, seed, keep_thresh, inv_keep, st);
+                            dropout, seed, keep_thresh, inv_keep, bh_offset, st);
   return (int)cudaErrorInvalidValue;
 }
 

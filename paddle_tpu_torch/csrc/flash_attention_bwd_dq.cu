@@ -89,7 +89,7 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dq, int sq, int sk, float scale, int causal, int dropout,
-              uint32_t seed, uint32_t keep_thresh, float inv_keep) {
+              uint32_t seed, uint32_t keep_thresh, float inv_keep, int bh_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int RPT = 4;       // q rows per thread
   constexpr int CPT = 8;       // S / dP keys per thread
@@ -137,7 +137,7 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (n_kt > 0) load_rows(Vs, vg, 0, BK, sk);
   fa::cp_async_commit();
 
-  const uint32_t bseed = fa::batch_seed(seed, bh);
+  const uint32_t bseed = fa::batch_seed(seed, bh + bh_offset);
   float acc[RPT][D / 8];
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
@@ -200,7 +200,7 @@ dq_b16_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int sq, int sk, float scale, int causal,
-              int dropout, uint32_t seed, uint32_t keep_thresh, float inv_keep) {
+              int dropout, uint32_t seed, uint32_t keep_thresh, float inv_keep, int bh_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = B16Layout<D>::LD;
   constexpr int KSTEPS = D / 16;  // k steps of Q K^T and dO V^T
@@ -250,7 +250,7 @@ dq_b16_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (n_kt > 0) load_kv(0);
   fa::cp_async_commit();
 
-  const uint32_t bseed = fa::batch_seed(seed, bh);
+  const uint32_t bseed = fa::batch_seed(seed, bh + bh_offset);
   // LSE, delta and the key limit of rows row_lo + 8 h
   float lse_r[2], delta_r[2];
   int lim[2];
@@ -353,7 +353,7 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
                        float scale, int causal, int dropout, uint32_t seed, uint32_t keep_thresh,
-                       float inv_keep, cudaStream_t stream) {
+                       float inv_keep, int bh_offset, cudaStream_t stream) {
   constexpr size_t smem = F32Layout<D>::bytes;
   auto kern = dq_f32_kernel<D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);  // above 48 KB a block has to opt in
@@ -362,7 +362,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dq), sq, sk, scale, causal, dropout,
-      seed, keep_thresh, inv_keep);
+      seed, keep_thresh, inv_keep, bh_offset);
   return cudaGetLastError();
 }
 
@@ -370,7 +370,7 @@ template <typename T, int D>
 cudaError_t launch_b16(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
                        float scale, int causal, int dropout, uint32_t seed,
-                       uint32_t keep_thresh, float inv_keep, cudaStream_t stream) {
+                       uint32_t keep_thresh, float inv_keep, int bh_offset, cudaStream_t stream) {
   constexpr size_t smem = B16Layout<D>::bytes;
   auto kern = dq_b16_kernel<T, D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);
@@ -379,7 +379,7 @@ cudaError_t launch_b16(const void* q, const void* k, const void* v, const void* 
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dq), sq, sk, scale, causal, dropout,
-      seed, keep_thresh, inv_keep);
+      seed, keep_thresh, inv_keep, bh_offset);
   return cudaGetLastError();
 }
 
@@ -389,33 +389,33 @@ extern "C" {
 
 // q/dout/dq [bh, sq, d], k/v [bh, sk, d] contiguous and 16-byte aligned in
 // one dtype (0 = float32, 1 = bfloat16, 2 = float16); lse and delta [bh, sq]
-// float32.
+// float32. bh_offset: as in flash_attention_fwd.
 // Returns the cudaError_t of the launch (0 = success); cudaErrorInvalidValue
 // for a head_dim or dtype this kernel does not take.
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int bh, int sq,
                            int sk, int d, float scale, int causal, int dropout,
                            unsigned int seed, unsigned int keep_thresh, float inv_keep,
-                           int dtype, void* stream) {
+                           int bh_offset, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64)
     return launch_f32<64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal, dropout,
-                          seed, keep_thresh, inv_keep, st);
+                          seed, keep_thresh, inv_keep, bh_offset, st);
   if (dtype == 0 && d == 128)
     return launch_f32<128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal, dropout,
-                           seed, keep_thresh, inv_keep, st);
+                           seed, keep_thresh, inv_keep, bh_offset, st);
   if (dtype == 1 && d == 64)
     return launch_b16<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal, dropout,
-                           seed, keep_thresh, inv_keep, st);
+                           seed, keep_thresh, inv_keep, bh_offset, st);
   if (dtype == 1 && d == 128)
     return launch_b16<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal,
-                            dropout, seed, keep_thresh, inv_keep, st);
+                            dropout, seed, keep_thresh, inv_keep, bh_offset, st);
   if (dtype == 2 && d == 64)
     return launch_b16<__half, 64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal, dropout,
-                           seed, keep_thresh, inv_keep, st);
+                           seed, keep_thresh, inv_keep, bh_offset, st);
   if (dtype == 2 && d == 128)
     return launch_b16<__half, 128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal,
-                            dropout, seed, keep_thresh, inv_keep, st);
+                            dropout, seed, keep_thresh, inv_keep, bh_offset, st);
   return (int)cudaErrorInvalidValue;
 }
 

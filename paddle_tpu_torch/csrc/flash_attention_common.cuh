@@ -22,7 +22,8 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// the batch-head index folded into the seed by its own hash round
+// the batch-head index folded into the seed by its own hash round (the
+// index in the global batch: a data-parallel rank passes bh + its offset)
 __device__ __forceinline__ uint32_t batch_seed(uint32_t seed, int bh) {
   uint32_t b = seed ^ ((uint32_t)bh * 0x85EBCA6Bu);
   b ^= b >> 13;

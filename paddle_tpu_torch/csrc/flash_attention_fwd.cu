@@ -89,7 +89,7 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                int sq, int sk, long long kv_stride, const int* __restrict__ k_len, int heads,
                float scale, int causal, int dropout, uint32_t seed, uint32_t keep_thresh,
-               float inv_keep) {
+               float inv_keep, int bh_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int RPT = 4;       // q rows per thread
   constexpr int LD = F32Layout<D>::LD;
@@ -132,7 +132,7 @@ fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (n_kt > 0) load_rows(Vs, vg, 0, BK, kl);
   fa::cp_async_commit();
 
-  const uint32_t bseed = fa::batch_seed(seed, bh);
+  const uint32_t bseed = fa::batch_seed(seed, bh + bh_offset);
   float m[RPT], l[RPT], acc[RPT][D / 8];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
@@ -225,7 +225,7 @@ fwd_b16_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o,
                float* __restrict__ lse, int sq, int sk, long long kv_stride,
                const int* __restrict__ k_len, int heads, float scale, int causal, int dropout,
-               uint32_t seed, uint32_t keep_thresh, float inv_keep) {
+               uint32_t seed, uint32_t keep_thresh, float inv_keep, int bh_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = B16Layout<D>::LD;
   constexpr int KSTEPS = D / 16;  // k steps of Q K^T
@@ -275,7 +275,7 @@ fwd_b16_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (n_kt > 0) load_kv(0);
   fa::cp_async_commit();
 
-  const uint32_t bseed = fa::batch_seed(seed, bh);
+  const uint32_t bseed = fa::batch_seed(seed, bh + bh_offset);
   uint32_t qf[KSTEPS][4];
   float oacc[DT][4];
 #pragma unroll
@@ -408,7 +408,7 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                        int sq, int sk, long long kv_stride, const int* k_len, int heads,
                        float scale, int causal, int dropout, uint32_t seed, uint32_t keep_thresh,
-                       float inv_keep, cudaStream_t stream) {
+                       float inv_keep, int bh_offset, cudaStream_t stream) {
   constexpr size_t smem = F32Layout<D>::bytes;
   auto kern = fwd_f32_kernel<D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);  // above 48 KB a block has to opt in
@@ -416,7 +416,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, voi
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), static_cast<float*>(lse), sq, sk, kv_stride, k_len, heads, scale,
-      causal, dropout, seed, keep_thresh, inv_keep);
+      causal, dropout, seed, keep_thresh, inv_keep, bh_offset);
   return cudaGetLastError();
 }
 
@@ -424,7 +424,7 @@ template <typename T, int D>
 cudaError_t launch_b16(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                        int sq, int sk, long long kv_stride, const int* k_len, int heads,
                        float scale, int causal, int dropout, uint32_t seed, uint32_t keep_thresh,
-                       float inv_keep, cudaStream_t stream) {
+                       float inv_keep, int bh_offset, cudaStream_t stream) {
   constexpr size_t smem = B16Layout<D>::bytes;
   auto kern = fwd_b16_kernel<T, D>;
   FA_OPT_IN_SMEM_ONCE(kern, smem);
@@ -433,7 +433,7 @@ cudaError_t launch_b16(const void* q, const void* k, const void* v, void* o, voi
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), sq, sk, kv_stride, k_len, heads, scale, causal, dropout, seed,
-      keep_thresh, inv_keep);
+      keep_thresh, inv_keep, bh_offset);
   return cudaGetLastError();
 }
 
@@ -449,18 +449,21 @@ extern "C" {
 // k_len[bh / heads] are masked, never read, and end the tile loop, so a
 // row's O and LSE do not depend on sk beyond its length (the causal
 // offset stays sk - sq). dtype 0 = float32, 1 = bfloat16, 2 = float16; o [bh, sq, d]
-// in the input dtype, lse [bh, sq] float32. Returns the cudaError_t of
+// in the input dtype, lse [bh, sq] float32. bh_offset is added to the
+// batch-head index the dropout hash takes (a data-parallel rank's first
+// batch-head in the global batch; 0 otherwise). Returns the cudaError_t of
 // the launch (0 = success); cudaErrorInvalidValue for a head_dim or dtype
 // this kernel does not take.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                         int bh, int sq, int sk, int d, long long kv_stride, const int* k_len,
                         int heads, float scale, int causal, int dropout, unsigned int seed,
-                        unsigned int keep_thresh, float inv_keep, int dtype, void* stream) {
+                        unsigned int keep_thresh, float inv_keep, int bh_offset, int dtype,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k_len != nullptr && heads < 1) return (int)cudaErrorInvalidValue;
 #define FA_FWD_ARGS                                                                      \
   q, k, v, o, lse, bh, sq, sk, kv_stride, k_len, heads, scale, causal, dropout, seed, \
-      keep_thresh, inv_keep, st
+      keep_thresh, inv_keep, bh_offset, st
   if (dtype == 0 && d == 64) return launch_f32<64>(FA_FWD_ARGS);
   if (dtype == 0 && d == 128) return launch_f32<128>(FA_FWD_ARGS);
   if (dtype == 1 && d == 64) return launch_b16<__nv_bfloat16, 64>(FA_FWD_ARGS);

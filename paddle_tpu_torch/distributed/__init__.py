@@ -1,2 +1,34 @@
-"""The port's training step (counterpart of paddle_tpu.distributed; one
-device only so far)."""
+"""paddle.distributed (counterpart of paddle_tpu/distributed/; reference:
+python/paddle/distributed/): the process topology, the collectives,
+init_parallel_env with DataParallel, point-to-point transport, the
+launcher, the training step over a data-parallel mesh and the collective
+half of the fleet facade.
+
+The JAX package's names that later slices bring are absent here (see
+tests/test_torch_top_level.py): the model-parallel layers
+(``meta_parallel``, ``split``'s layers), the pipeline, ZeRO sharding
+(``sharding``), the parameter server (``ps``, the fleet ``dataset``/
+``data_generator``, ``InMemoryDataset``, ``QueueDataset``,
+``CountFilterEntry``, ``ProbabilityEntry``), ``checkpoint`` and
+``ring_attention``.
+"""
+from .parallel import (  # noqa: F401
+    init_parallel_env, get_rank, get_world_size, ParallelEnv, DataParallel, spawn,
+)
+from .collective import (  # noqa: F401
+    all_reduce, all_gather, broadcast, reduce, scatter, barrier, send, recv,
+    all_to_all, alltoall_single, split, new_group, is_initialized, ReduceOp,
+    Group, get_rank_in, psum, pmean, pmax, all_gather_spmd, ppermute,
+    all_to_all_spmd,
+)
+from . import topology  # noqa: F401
+from .topology import (  # noqa: F401
+    HybridCommunicateGroup, CommunicateTopology, build_mesh, get_global_mesh,
+    set_global_mesh,
+)
+from . import fleet  # noqa: F401
+from . import spmd  # noqa: F401
+from .spmd import build_train_step, shard_batch  # noqa: F401
+# paddle.distributed.launch is a MODULE (python -m entry point), as in
+# the reference; the programmatic API lives in launch_mod
+from . import launch  # noqa: F401

@@ -1,5 +1,6 @@
-"""The training step (counterpart of ``build_train_step`` in
-paddle_tpu/distributed/spmd.py), single-device subset.
+"""The training step (counterpart of ``build_train_step`` and
+``shard_batch`` in paddle_tpu/distributed/spmd.py), on one device or over
+a data-parallel mesh.
 
 ``build_train_step(layer, loss_fn, optimizer, ...)`` returns
 ``(step_fn, init_fn)`` as the reference does: ``init_fn()`` gives
@@ -66,36 +67,89 @@ before it returns, so the host tensors are complete when the caller reads
 them. The bits are the resident step's. On the CPU the host is the
 device and the state stays where it is.
 
+``mesh`` (default: the global mesh, which ``init_parallel_env`` makes dp
+over every rank of the job; one rank outside a job): with a "dp" axis
+of N > 1 ranks the step is the reference's global program over N ranks
+(spmd.py:139-187, 460-479). Each rank passes its local batch
+(``shard_batch``), rows ``[r * B, (r + 1) * B)`` of the global one; it
+takes the gradients of its local mean loss, then one coalesced
+all-reduce mean over the dp group (``collective.coalesced_mean``, the
+loss riding in the same buffer) gives every rank the global batch's
+gradients and loss (mean losses over equal local batches average to the
+global mean); the grad clip, the bad-step check and ``_update_one``
+then see the global gradients, so every rank keeps or drops the same
+step and holds bitwise the same parameters. The dropout masks are the
+global program's: the forward runs under ``dp_shard_guard``, so
+``fast_keep_mask`` and the flash kernels (``bh_offset``) draw this rank's
+slice of the global mask. The all-reduce is a profiler range,
+``build_train_step.grad_allreduce``. Against the one-device step on the
+global batch the only difference is the sums' order.
+
+``strategy`` (a fleet DistributedStrategy) maps ``amp`` (O1, or O2 with
+``amp_configs.use_pure_fp16``), ``recompute`` and
+``sharding_configs.offload`` as the reference does (spmd.py:139-187).
+
 Options of the reference that this port does not implement yet raise
-NotImplementedError (a mesh, ZeRO sharding, fp16 all-reduce, DGC, a
-strategy); none is ignored.
+NotImplementedError naming the slice that brings them: ZeRO sharding
+(``shard_optimizer``, ``sharding_stage``, ``strategy.sharding``),
+``fp16_allreduce``, DGC, localsgd and adaptive localsgd (meshed
+training), and a mesh axis other than dp of more than one rank (model
+parallel); none is ignored. A layer with buffers (BatchNorm's running
+statistics) refuses a dp mesh: its batch statistics would be the rank's,
+not the global batch's.
 """
 import contextlib
 
+import numpy as np
 import torch
 import torch.profiler
 import torch.utils.checkpoint
 
 from ..amp.auto_cast import auto_cast
+from ..core import place
 from ..core import random as random_core
 from ..resilience.badstep import tree_nonfinite
+from . import collective, topology
+
+_MESHED = "the meshed-training slice (build_fsdp_train_step, ZeRO 1-3, comm_opt.py)"
+_MODEL_PARALLEL = "the model-parallel slice (meta_parallel)"
 
 
-def _unsupported(mesh, shard_optimizer, sharding_stage, fp16_allreduce,
-                 dgc_configs, strategy):
+def _unsupported(mesh, shard_optimizer, sharding_stage, fp16_allreduce, dgc_configs,
+                 strategy):
+    """The options given that the port does not implement yet, each with
+    the slice that brings it."""
     found = []
-    if mesh is not None and getattr(mesh, "size", None) != 1:
-        found.append("a mesh of more than one device")
+    if strategy is not None:
+        for knob in ("sharding", "fp16_allreduce", "dgc", "localsgd", "adaptive_localsgd"):
+            if getattr(strategy, knob):
+                found.append(f"strategy.{knob} ({_MESHED})")
     for flag, name in ((shard_optimizer, "shard_optimizer"),
                        (sharding_stage, f"sharding_stage={sharding_stage}"),
-                       (fp16_allreduce, "fp16_allreduce")):
+                       (fp16_allreduce, "fp16_allreduce"), (dgc_configs is not None, "dgc_configs")):
         if flag:
-            found.append(name)
-    if dgc_configs is not None:
-        found.append("dgc_configs")
-    if strategy is not None:
-        found.append("strategy")
+            found.append(f"{name} ({_MESHED})")
+    for axis, n in mesh.shape.items():
+        if axis != "dp" and n > 1:
+            found.append(f"a mesh axis {axis} of {n} ranks ({_MODEL_PARALLEL})")
     return found
+
+
+def param_sharding_spec(layer, mesh):
+    """Per-parameter placement over ``mesh`` (reference spmd.py:99): the
+    parameter's ``mp_spec`` where a tensor-parallel layer attached one,
+    else None (replicated, every rank holds it whole)."""
+    return {name: getattr(p, "mp_spec", None) for name, p in layer.named_parameters()}
+
+
+def shard_batch(batch, mesh=None, axis=None):
+    """This rank's part of the global batch, on its device (reference
+    spmd.py:460-479: each process passes its LOCAL batch, rows [r * B,
+    (r + 1) * B) of the global one, which the step treats as such). A
+    tensor stays where it is; an array goes to the current place."""
+    if isinstance(batch, torch.Tensor):
+        return batch
+    return torch.as_tensor(np.asarray(batch), device=place.current_device())
 
 
 def _to_host(t):
@@ -112,14 +166,30 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
                      amp_level="O0", amp_dtype="bfloat16", fp16_allreduce=False,
                      dgc_configs=None, strategy=None, offload=False,
                      bad_step_guard=False):
-    """One-device training step for ``layer``; ``loss_fn(model_out, y)``
-    returns a scalar tensor. See the module docstring."""
+    """The training step for ``layer`` on one device or over ``mesh``'s
+    dp axis; ``loss_fn(model_out, y)`` returns a scalar tensor, a mean
+    over the batch. See the module docstring."""
+    mesh = mesh or topology.get_global_mesh()
     found = _unsupported(mesh, shard_optimizer, sharding_stage, fp16_allreduce,
                          dgc_configs, strategy)
     if found:
-        raise NotImplementedError(
-            f"build_train_step: {', '.join(found)} not ported yet (the port's "
-            "training step runs on one device)")
+        raise NotImplementedError(f"build_train_step: {'; '.join(found)} not ported yet")
+    if strategy is not None:
+        if strategy.amp and amp_level == "O0":
+            amp_level = "O2" if strategy.amp_configs.get("use_pure_fp16") else "O1"
+        recompute = recompute or strategy.recompute
+        offload = offload or bool(strategy.sharding_configs.get("offload"))
+    dp_size = mesh.shape.get("dp", 1)
+    dp_rank = mesh.rank_in("dp")
+    dp_group = collective.Group(axis="dp", process_group=mesh.group("dp"))
+    if dp_size > 1:
+        if mesh.group("dp") is None:
+            raise RuntimeError(f"build_train_step: {mesh} has {dp_size} dp ranks but this "
+                               "process has no group over them (call init_parallel_env)")
+        if list(layer.named_buffers()):
+            raise NotImplementedError(
+                "build_train_step: a layer with buffers over a dp mesh (its batch statistics "
+                f"would be the rank's, not the global batch's) is not ported yet ({_MESHED})")
     if amp_level not in ("O0", "O1", "O2"):
         raise ValueError(f"amp_level must be 'O0'|'O1'|'O2', got {amp_level!r}")
     amp_enabled = amp_level in ("O1", "O2")
@@ -146,6 +216,8 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
         work = {n: b.clone() for n, b in buffers.items()}  # the forward updates these
         with contextlib.ExitStack() as stack:
             stack.enter_context(random_core.rng_guard(key))
+            if dp_size > 1:  # this rank's slice of the global dropout masks
+                stack.enter_context(random_core.dp_shard_guard(dp_rank, x.shape[0]))
             if amp_enabled:
                 stack.enter_context(auto_cast(enable=True, level=amp_level,
                                               dtype=amp_dtype))
@@ -170,6 +242,14 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
         grads = torch.autograd.grad(loss, [leaves[n] for n in names], allow_unused=True)
         grads = [torch.zeros_like(leaves[n]) if g is None else g
                  for n, g in zip(names, grads)]
+        loss = loss.detach()
+        if dp_size > 1:
+            # the global batch's loss and gradients on every rank
+            with torch.profiler.record_function("build_train_step.grad_allreduce"):
+                grads = [g.contiguous() for g in grads]
+                loss = loss.float().reshape(1)
+                collective.coalesced_mean([loss, *grads], dp_group)
+                loss = loss.reshape(())
         if grad_clip is not None:
             grads = grad_clip.clip_arrays(grads)
         bad = None
@@ -177,7 +257,7 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
             # the loss and the clipped gradients, as the reference checks
             # them; decided on the device, before anything is written
             with torch.no_grad():
-                bad = tree_nonfinite(loss.detach()) | tree_nonfinite(grads)
+                bad = tree_nonfinite(loss) | tree_nonfinite(grads)
         new_params, new_state = {}, {}
         lr_t = {}  # one float32 scalar per device
         # the update's range is named for a profiler to read (its cost when
@@ -210,7 +290,7 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
         if offload:
             _sync(params)
         if bad_step_guard:
-            return loss.detach(), new_params, new_state, bad
-        return loss.detach(), new_params, new_state
+            return loss, new_params, new_state, bad
+        return loss, new_params, new_state
 
     return step_fn, init_fn

@@ -6,20 +6,11 @@ import functools
 import numpy as np
 
 from ..core.tensor import to_tensor
+from ..distributed.parallel import DataParallel  # noqa: F401
 from ..jit import TracedLayer  # noqa: F401
 from ..nn.layer import Layer  # noqa: F401
 from ..nn.layers.common import Embedding, Linear  # noqa: F401
 from ..nn.layers.container import LayerList, Sequential  # noqa: F401
-
-
-class DataParallel:
-    """reference: dygraph/parallel.py DataParallel over
-    distributed/parallel.py, not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "fluid.dygraph.DataParallel needs distributed/parallel.py, not ported yet "
-            "(ROADMAP Queue 1 item 5)")
 
 
 @contextlib.contextmanager

@@ -89,8 +89,9 @@ class BatchSampler(Sampler):
 class DistributedBatchSampler(BatchSampler):
     """Rank-sharded batch sampler: rank ``rank`` of ``num_replicas`` takes
     every ``num_replicas``-th index of the (padded, per-epoch shuffled)
-    order. The port runs on one device, so a world of 1 and rank 0 unless
-    ``num_replicas``/``rank`` are given."""
+    order. ``num_replicas``/``rank`` not given are the job's world size and
+    this process's rank (``distributed.get_world_size``/``get_rank``; 1 and
+    0 outside a job), as in the reference."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
@@ -98,8 +99,11 @@ class DistributedBatchSampler(BatchSampler):
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
-        num_replicas = 1 if num_replicas is None else num_replicas
-        rank = 0 if rank is None else rank
+        if num_replicas is None or rank is None:
+            from ..distributed import get_rank, get_world_size
+
+            num_replicas = num_replicas if num_replicas is not None else get_world_size()
+            rank = rank if rank is not None else get_rank()
         self.nranks = num_replicas
         self.local_rank = rank
         self.epoch = 0

@@ -37,7 +37,7 @@ import torch
 import torch._dynamo  # noqa: F401
 
 from ..core import cuda_build
-from ..core.random import U32, fmix32, keep_thresh_u32, mul32
+from ..core.random import U32, dp_offset, fmix32, keep_thresh_u32, mul32
 
 NEG_INF = -1e30
 
@@ -78,7 +78,7 @@ def _library(name):
         fn.argtypes = (
             [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + extra
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
-               ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+               ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib_error = getattr(lib, name + "_error_string")
         lib_error.argtypes, lib_error.restype = [ctypes.c_int], ctypes.c_char_p
@@ -143,18 +143,20 @@ def _row_lengths(k_len, bh, heads, device):
     return lens.repeat_interleave(heads)
 
 
-def _dropout_keep(seed, bh, rows, cols, sk, dropout_p):
-    b = torch.arange(bh, device=rows.device)[:, None, None]
+def _dropout_keep(seed, bh, rows, cols, sk, dropout_p, bh_offset=0):
+    # batch-head i hashes as bh_offset + i: its index in the global batch
+    b = torch.arange(bh_offset, bh_offset + bh, device=rows.device)[:, None, None] & U32
     return _keep_mask(seed, b, rows, cols, sk, keep_thresh_u32(1.0 - dropout_p))
 
 
 def mha_reference(q, k, v, seed=0, scale=None, causal=False, dropout_p=0.0, k_len=None,
-                  heads=1):
+                  heads=1, bh_offset=0):
     """Plain PyTorch version of K1 on [bh, seq, d] tensors: the whole
     softmax at once, with the kernel's NEG_INF masks, its max(l, 1e-30)
     clamp and its hash dropout (l sums the undropped p). ``k_len`` (int
     [bh / heads], or None) masks each batch row's keys at or past its
-    length, as K1's length form does.
+    length, as K1's length form does. ``bh_offset`` is added to each
+    batch-head's index before the dropout hash, as in the kernels.
     Returns (O in q's dtype, LSE [bh, sq, 1] float32)."""
     bh, sq, d = q.shape
     sk = k.shape[1]
@@ -175,7 +177,7 @@ def mha_reference(q, k, v, seed=0, scale=None, causal=False, dropout_p=0.0, k_le
         p = torch.where(s == NEG_INF, 0.0, p)
     l = p.sum(dim=-1, keepdim=True)
     if dropout_p > 0.0:
-        keep = _dropout_keep(seed, bh, rows, cols, sk, dropout_p)
+        keep = _dropout_keep(seed, bh, rows, cols, sk, dropout_p, bh_offset)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_p)), 0.0)
     o = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float())
     l = l.clamp_min(1e-30)
@@ -183,7 +185,7 @@ def mha_reference(q, k, v, seed=0, scale=None, causal=False, dropout_p=0.0, k_le
 
 
 def mha_bwd_reference(q, k, v, o, lse, do, seed=0, scale=None, causal=False,
-                      dropout_p=0.0):
+                      dropout_p=0.0, bh_offset=0):
     """Plain PyTorch version of K2 and K3 on [bh, seq, d] tensors: the
     kernels' formulas over the whole [sq, sk] at once, from the saved LSE
     ([bh, sq, 1] f32). P = exp(S - LSE) with NEG_INF masking (zeroed where
@@ -204,7 +206,7 @@ def mha_bwd_reference(q, k, v, o, lse, do, seed=0, scale=None, causal=False,
     dp = torch.einsum("bqd,bkd->bqk", do32, v.float())
     p_d = p
     if dropout_p > 0.0:
-        keep = _dropout_keep(seed, bh, rows, cols, sk, dropout_p)
+        keep = _dropout_keep(seed, bh, rows, cols, sk, dropout_p, bh_offset)
         inv = 1.0 / (1.0 - dropout_p)
         p_d = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
@@ -270,23 +272,27 @@ def _check_lengths(k_len, dropout_p):
         raise ValueError("per-row key lengths (k_len) take no dropout")
 
 
-def _kernel_args(seed, scale, causal, dropout_p, dtype, device):
+def _kernel_args(seed, scale, causal, dropout_p, dtype, device, bh_offset=0):
+    if not 0 <= bh_offset < 2**31:
+        raise ValueError(f"flash attention: bh_offset {bh_offset} is not in [0, 2**31)")
     return (float(scale), int(bool(causal)), int(dropout_p > 0.0), int(seed) & U32,
-            keep_thresh_u32(1.0 - dropout_p), 1.0 / (1.0 - dropout_p),
+            keep_thresh_u32(1.0 - dropout_p), 1.0 / (1.0 - dropout_p), int(bh_offset),
             _DTYPE_CODES[dtype], torch.cuda.current_stream(device).cuda_stream)
 
 
-def _fwd(q, k, v, seed, scale, causal, dropout_p, k_len=None, heads=1):
+def _fwd(q, k, v, seed, scale, causal, dropout_p, k_len=None, heads=1, bh_offset=0):
     """q [bh, sq, d], k/v [bh, sk, d] -> (O [bh, sq, d], LSE [bh, sq, 1] f32).
     CUDA tensors launch K1; CPU tensors run ``mha_reference``. K and V may
     be prefix views of a longer buffer (``_kv_operand``). ``k_len``: None,
     or int32 [bh / heads] key lengths per batch row, read by K1 from
-    device memory (a row sees keys < its length)."""
+    device memory (a row sees keys < its length). ``bh_offset``: the first
+    batch-head's index in the global batch, which the dropout hash takes
+    (a data-parallel rank's slice; 0 otherwise)."""
     global launches
     _check_dropout(dropout_p)
     _check_lengths(k_len, dropout_p)
     if not q.is_cuda:
-        return mha_reference(q, k, v, seed, scale, causal, dropout_p, k_len, heads)
+        return mha_reference(q, k, v, seed, scale, causal, dropout_p, k_len, heads, bh_offset)
     _check(q, k, v)
     k_len_ptr = None
     if k_len is not None:
@@ -312,20 +318,21 @@ def _fwd(q, k, v, seed, scale, causal, dropout_p, k_len=None, heads=1):
         return o, lse
     _launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), bh, sq, sk, d, k_stride, k_len_ptr, int(heads),
-            *_kernel_args(seed, scale, causal, dropout_p, q.dtype, q.device))
+            *_kernel_args(seed, scale, causal, dropout_p, q.dtype, q.device, bh_offset))
     launches += 1
     _count_form("fwd", sq, sk, q.dtype)
     return o, lse
 
 
-def _bwd(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
+def _bwd(q, k, v, o, lse, do, seed, scale, causal, dropout_p, bh_offset=0):
     """Gradients of ``_fwd`` from its saved O and LSE: (dQ, dK, dV) in the
     inputs' dtypes. CUDA tensors launch K2 and K3; CPU tensors run
-    ``mha_bwd_reference``."""
+    ``mha_bwd_reference``. ``bh_offset``: as in ``_fwd``."""
     global dq_launches, dkv_launches
     _check_dropout(dropout_p)
     if not q.is_cuda:
-        return mha_bwd_reference(q, k, v, o, lse, do, seed, scale, causal, dropout_p)
+        return mha_bwd_reference(q, k, v, o, lse, do, seed, scale, causal, dropout_p,
+                                 bh_offset)
     _check(q, k, v, o, lse, do)
     if do.dtype != q.dtype or o.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError(f"flash attention backward: dO {do.dtype} and O {o.dtype} must "
@@ -343,7 +350,7 @@ def _bwd(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    args = _kernel_args(seed, scale, causal, dropout_p, q.dtype, q.device)
+    args = _kernel_args(seed, scale, causal, dropout_p, q.dtype, q.device, bh_offset)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr())
     _launch("flash_attention_bwd_dq", *ptrs, dq.data_ptr(), bh, sq, sk, d, *args)
@@ -367,16 +374,20 @@ def _bwd(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         seed: Optional[torch.Tensor], scale: float, causal: bool,
                         dropout_p: float, k_len: Optional[torch.Tensor] = None,
-                        heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                        heads: int = 1, bh_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 as an op: ``_fwd`` on [bh, sq, d] tensors -> (O, LSE). ``seed``:
     the dropout seed as an int64 scalar tensor on the host (a captured
-    training step feeds it from its key table), or None for 0."""
+    training step feeds it from its key table), or None for 0.
+    ``bh_offset`` defaults to 0, so a program saved before it existed
+    loads and runs as it did."""
     args = (q, k, v, 0 if seed is None else int(seed), scale, causal, dropout_p)
-    return _fwd(*args) if k_len is None else _fwd(*args, k_len=k_len, heads=heads)
+    if k_len is None:
+        return _fwd(*args, bh_offset=bh_offset)
+    return _fwd(*args, k_len=k_len, heads=heads, bh_offset=bh_offset)
 
 
 @flash_attention_fwd.register_fake
-def _(q, k, v, seed, scale, causal, dropout_p, k_len=None, heads=1):
+def _(q, k, v, seed, scale, causal, dropout_p, k_len=None, heads=1, bh_offset=0):
     bh, sq, _ = q.shape
     return (q.new_empty(q.shape),
             q.new_empty((bh, sq, 1), dtype=torch.float32))
@@ -386,22 +397,23 @@ def _(q, k, v, seed, scale, causal, dropout_p, k_len=None, heads=1):
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, seed: Optional[torch.Tensor],
                         scale: float, causal: bool,
-                        dropout_p: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        dropout_p: float,
+                        bh_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2 then K3 as an op: ``_bwd`` -> (dQ, dK, dV)."""
     return _bwd(q, k, v, o, lse, do.to(q.dtype), 0 if seed is None else int(seed), scale,
-                causal, dropout_p)
+                causal, dropout_p, bh_offset)
 
 
 @flash_attention_bwd.register_fake
-def _(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
+def _(q, k, v, o, lse, do, seed, scale, causal, dropout_p, bh_offset=0):
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
 def _fwd_setup(ctx, inputs, output):
-    q, k, v, seed, scale, causal, dropout_p, k_len, _ = inputs
+    q, k, v, seed, scale, causal, dropout_p, k_len, _, bh_offset = inputs
     ctx.k_len = k_len is not None
     ctx.save_for_backward(q, k, v, output[0], output[1], seed)
-    ctx.cfg = (scale, causal, dropout_p)
+    ctx.cfg = (scale, causal, dropout_p, bh_offset)
 
 
 def _fwd_backward(ctx, do, _dlse):
@@ -411,7 +423,7 @@ def _fwd_backward(ctx, do, _dlse):
         raise NotImplementedError("k_len is a forward-only form of the kernel")
     q, k, v, o, lse, seed = ctx.saved_tensors
     dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, seed, *ctx.cfg)
-    return dq, dk, dv, None, None, None, None, None, None
+    return dq, dk, dv, None, None, None, None, None, None, None
 
 
 flash_attention_fwd.register_autograd(_fwd_backward, setup_context=_fwd_setup)
@@ -433,8 +445,11 @@ def mha(q, k, v, *, scale=None, causal=False, dropout_p=0.0, seed=None,
 
     ``dropout_p > 0`` drops attention probabilities inside the kernels with
     the counter-hash mask keyed by ``seed`` (an int; same seed -> same
-    mask). ``k_len`` (int32 [batch] on q's device, forward only, no
-    dropout): batch row b sees only its keys j < k_len[b]. ``block_q``/
+    mask). Inside a data-parallel step (``core.random.dp_shard_guard``) the
+    mask is this rank's slice of the global batch's: K1-K3 take
+    ``bh_offset`` = rank * local batch * heads. ``k_len`` (int32 [batch] on
+    q's device, forward only, no dropout): batch row b sees only its keys
+    j < k_len[b]. ``block_q``/
     ``block_k`` are kept for signature parity with the JAX package: the
     CUDA kernels choose their own tiles."""
     del block_q, block_k
@@ -451,8 +466,10 @@ def mha(q, k, v, *, scale=None, causal=False, dropout_p=0.0, seed=None,
                 raise NotImplementedError("k_len is a forward-only form of the kernel")
         if not isinstance(k_len, torch.Tensor):
             k_len = torch.as_tensor(k_len)
+    bh_offset = dp_offset((b,), h) if dropout_p > 0.0 else 0
     o, _ = flash_attention_fwd(q.reshape(b * h, sq, d), k.reshape(b * h, sk, d),
                                v.reshape(b * h, sk, d), _seed_tensor(seed), float(scale),
-                               bool(causal), float(dropout_p), k_len, h if k_len is not None else 1)
+                               bool(causal), float(dropout_p), k_len,
+                               h if k_len is not None else 1, bh_offset)
     o = o.reshape(b, h, sq, d)
     return o[0] if squeeze else o

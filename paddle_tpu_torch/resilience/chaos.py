@@ -160,6 +160,57 @@ hit = monkey.hit
 poison = monkey.poison
 
 
+_EXC_WHITELIST = ("RuntimeError", "OSError", "IOError", "ValueError",
+                  "TimeoutError", "ConnectionError")
+
+
+def arm_from_env(env=None):
+    """Arm faults described in the ``PADDLE_TPU_CHAOS`` env var — how a
+    launcher (the port's ``launch_collective``/``launch_elastic``, whose
+    rank loops call it once) injects deterministic faults into SUBPROCESS
+    trainers it cannot reach with ``chaos.arm`` directly (the JAX
+    package's ``arm_from_env``, the same grammar).
+
+    Spec: ``;``-separated faults, each ``,``-separated ``k=v`` pairs::
+
+        PADDLE_TPU_CHAOS="site=train.step,signum=15,at=6,rank=1;site=io,exc=OSError"
+
+    Keys: ``site`` (required), ``at``, ``times``, ``signum``, ``delay``,
+    ``nan=1``, ``exc=<builtin exception name>``, and ``rank=<n>`` which
+    arms the fault only when PADDLE_TRAINER_ID matches — one spec
+    string fans out to a whole pod with per-rank targeting. Returns the
+    list of armed Faults (empty when the var is unset)."""
+    env = os.environ if env is None else env
+    spec = env.get("PADDLE_TPU_CHAOS", "")
+    my_rank = env.get("PADDLE_TRAINER_ID")
+    armed = []
+    for part in (p.strip() for p in spec.split(";")):
+        if not part:
+            continue
+        kv = dict(item.split("=", 1) for item in part.split(","))
+        if "site" not in kv:
+            raise ValueError(f"PADDLE_TPU_CHAOS fault without site: {part!r}")
+        if "rank" in kv and my_rank is not None \
+                and int(kv["rank"]) != int(my_rank):
+            continue
+        kwargs = {"at": int(kv.get("at", 1)),
+                  "times": int(kv.get("times", 1)),
+                  "delay": float(kv.get("delay", 0.0)),
+                  "nan": kv.get("nan") in ("1", "true")}
+        if "signum" in kv:
+            kwargs["signum"] = int(kv["signum"])
+        if "exc" in kv:
+            name = kv["exc"]
+            if name not in _EXC_WHITELIST:
+                raise ValueError(f"PADDLE_TPU_CHAOS exc {name!r} not in "
+                                 f"{_EXC_WHITELIST}")
+            import builtins
+
+            kwargs["exc"] = getattr(builtins, name)
+        armed.append(arm(kv["site"], **kwargs))
+    return armed
+
+
 class fault:
     """Context manager: arm a fault for the `with` body, disarm after.
 

@@ -149,8 +149,18 @@ def test_dygraph_guard_to_variable_and_no_grad():
     x = tp.to_tensor(np.ones(2, np.float32))
     x.stop_gradient = False
     assert f(x).stop_gradient
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        fluid.dygraph.DataParallel(fluid.dygraph.Linear(2, 2))
+    # fluid.dygraph.DataParallel is the port's distributed DataParallel; in
+    # one process its forward is the layer's and its gradients stay as they are
+    assert fluid.dygraph.DataParallel is tp.DataParallel is tp.distributed.DataParallel
+    inner = fluid.dygraph.Linear(2, 2)
+    dp = fluid.dygraph.DataParallel(inner)
+    y = tp.to_tensor(np.ones((3, 2), np.float32))
+    out = dp(y)
+    np.testing.assert_array_equal(out.numpy(), inner(y).numpy())
+    out.sum().backward()
+    before = inner.weight.grad.numpy().copy()
+    dp.apply_collective_grads()
+    np.testing.assert_array_equal(inner.weight.grad.numpy(), before)
 
 
 def test_core_probes_and_io():

@@ -14,6 +14,7 @@ This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import contextlib
 import copy
 
 import numpy as np
@@ -1588,3 +1589,84 @@ def test_small_leaves_on_the_card(cuda, tmp_path):
     assert y.is_cuda and torch.equal(y, x.detach() * x.detach())
     assert torch.equal(x.grad, 2 * x.detach())
     utils.run_check()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bh_offset_forms_are_slices_of_the_global_call(cuda, dtype):
+    """K1-K3 at a rank's rows with bh_offset = r * rows are bitwise the
+    rows of the global call at offset 0 (BERT's [b * 12, 128, 64] with
+    dropout 0.1, two ranks)."""
+    bh, sq, d, p, world = 4 * 12, 128, 64, 0.1, 2
+    q, k, v = _qkv(bh, sq, sq, d, dtype, seed=5)
+    do = _qkv(bh, sq, sq, d, dtype, seed=6)[0]
+    o, lse = fa._fwd(q, k, v, 1234, d ** -0.5, False, p)
+    grads = fa._bwd(q, k, v, o, lse, do, 1234, d ** -0.5, False, p)
+    local = bh // world
+    for r in range(world):
+        s = slice(r * local, (r + 1) * local)
+        ol, lsel = fa._fwd(q[s], k[s], v[s], 1234, d ** -0.5, False, p, bh_offset=r * local)
+        assert torch.equal(ol, o[s]) and torch.equal(lsel, lse[s])
+        gl = fa._bwd(q[s], k[s], v[s], ol, lsel, do[s], 1234, d ** -0.5, False, p,
+                     bh_offset=r * local)
+        for a, b in zip(gl, grads):
+            assert torch.equal(a, b[s])
+    # rank 1's slice without its offset draws rank 0's masks: another result
+    o1, _ = fa._fwd(q[local:], k[local:], v[local:], 1234, d ** -0.5, False, p)
+    assert not torch.equal(o1, o[local:])
+
+
+@contextlib.contextmanager
+def _one_rank_job(backend, port):
+    import os
+
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch.distributed import parallel, topology
+
+    os.environ.update(PADDLE_COORDINATOR=f"127.0.0.1:{port}", PADDLE_TRAINERS_NUM="1",
+                      PADDLE_TRAINER_ID="0")
+    try:
+        parallel.init_parallel_env(backend=backend)
+        yield tdist
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        parallel._STORE = None
+        topology.set_global_mesh(None)
+        for k in ("PADDLE_COORDINATOR", "PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID"):
+            os.environ.pop(k, None)
+
+
+def test_gloo_all_reduce_of_a_cuda_tensor_stays_on_the_card(cuda):
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed.launch_mod import find_free_port
+
+    with _one_rank_job("gloo", find_free_port()) as tdist:
+        x = torch.arange(6.0, device="cuda")
+        for op in ("sum", "max", "avg"):
+            out = pdist.all_reduce(x.clone(), op)
+            assert out.device.type == "cuda" and torch.equal(out, x)
+        t = torch.zeros(2, device="cuda")
+        pdist.scatter(t, [torch.ones(2, device="cuda")], src=0)  # staged through the host
+        assert t.device.type == "cuda" and torch.equal(t, torch.ones(2, device="cuda"))
+        assert tdist.get_backend() == "gloo"
+
+
+def test_nccl_one_rank_group_holds_the_identity(cuda):
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.launch_mod import find_free_port
+
+    with _one_rank_job("nccl", find_free_port()) as tdist:
+        assert tdist.get_backend() == "nccl"
+        x = torch.arange(6.0, device="cuda").reshape(2, 3)
+        for op in ("sum", "max", "min", "prod", "avg"):
+            assert torch.equal(pdist.all_reduce(x.clone(), op), x)
+        assert torch.equal(pdist.broadcast(x.clone()), x)
+        assert torch.equal(pdist.all_gather([], x)[0], x)
+        model = nn.Linear(3, 2, device="cuda")
+        ddp = pdist.DataParallel(model)
+        ddp(x).sum().backward()
+        before = model.weight.grad.clone()
+        ddp.apply_collective_grads()
+        assert torch.equal(model.weight.grad, before)

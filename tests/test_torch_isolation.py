@@ -52,12 +52,15 @@ def test_no_jax_or_jax_package_import(path):
 
 
 @pytest.mark.parametrize("sub", ["obs", "resilience", "quantization", "jit", "static",
-                                 "serialize", "inference", "framework"])
+                                 "serialize", "inference", "framework", "distributed",
+                                 "distributed/fleet", "distributed/fleet/utils"])
 def test_telemetry_and_chaos_subpackages_are_checked(sub):
     """The port keeps its own copies of the reference's stdlib-only obs
-    and chaos modules, of its quantization modules, and of the deployment
-    path (jit, static, serialize, inference, framework's op_version): both
-    tests above and below cover them."""
+    and chaos modules, of its quantization modules, of the deployment
+    path (jit, static, serialize, inference, framework's op_version) and
+    of the collective tier of distributed (its p2p transport, launcher,
+    fleet strategy and role makers among them): both tests above and below
+    cover them."""
     names = {p.name for p in _port_files() if p.parent == PKG / sub}
     want = {"obs": {"__init__.py", "metrics.py", "prometheus.py", "tracing.py", "httpd.py"},
             "resilience": {"__init__.py", "chaos.py"},
@@ -69,7 +72,13 @@ def test_telemetry_and_chaos_subpackages_are_checked(sub):
             "inference": {"__init__.py", "batching.py", "config.py", "predictor.py",
                           "server.py", "prefix_cache.py", "registry.py", "router.py",
                           "fleet.py"},
-            "framework": {"__init__.py", "op_version.py"}}[sub]
+            "framework": {"__init__.py", "op_version.py"},
+            "distributed": {"__init__.py", "collective.py", "launch.py", "launch_mod.py",
+                            "p2p.py", "parallel.py", "spmd.py", "topology.py"},
+            "distributed/fleet": {"__init__.py", "distributed_strategy.py", "fleet_base.py",
+                                  "launch.py", "metrics.py", "role_maker.py", "util.py"},
+            "distributed/fleet/utils": {"__init__.py", "fs.py", "hybrid_parallel_util.py",
+                                        "recompute.py"}}[sub]
     assert want <= names
 
 

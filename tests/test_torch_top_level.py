@@ -1,12 +1,14 @@
 """The port binds at its top level what the JAX package binds
 (paddle_tpu/__init__.py), less an explicit list: what later slices bring,
 and the reference's own JAX internals and non-CUDA places."""
+import types
+
 import paddle_tpu as jp
 import paddle_tpu_torch as tp
 
 # names later slices bring (ROADMAP Queue 1)
 LATER = {
-    "analysis", "DataParallel",
+    "analysis",
 }
 # the reference's JAX internals and its places for other devices
 NEVER = {"jax", "jnp", "native", "apply_op", "dispatch", "in_trace", "TPUPlace", "XPUPlace",
@@ -56,3 +58,36 @@ def test_static_mode_is_one_flag_as_in_the_reference():
     finally:
         jp.disable_static()
         tp.disable_static()
+
+
+# paddle.distributed's and fleet's names later slices bring: the model-
+# parallel layers and pipeline (meta_parallel), ZeRO sharding, the
+# parameter server's datasets, entries and data generators, ring attention
+DIST_LATER = {"CountFilterEntry", "InMemoryDataset", "ProbabilityEntry", "QueueDataset",
+              "ring_attention"}
+FLEET_LATER = {"ColumnParallelLinear", "DatasetBase", "InMemoryDataset", "LayerDesc",
+               "MultiSlotDataGenerator", "MultiSlotStringDataGenerator", "PipelineLayer",
+               "QueueDataset", "RowParallelLinear", "SharedLayerDesc", "VocabParallelEmbedding",
+               "get_rng_state_tracker"}
+# the submodules the reference's __init__ imports that later slices bring
+MODULES_LATER = {"paddle_tpu.distributed": {"entry_attr", "meta_parallel", "sharding"},
+                 "paddle_tpu.distributed.fleet": {"data_generator", "dataset"}}
+
+
+def _names(mod):
+    """Public names that are not submodules (which other imports add)."""
+    return {n for n in _public(mod) if not isinstance(getattr(mod, n), types.ModuleType)}
+
+
+def test_distributed_and_fleet_names_match_the_reference():
+    for jm, tm, later in ((jp.distributed, tp.distributed, DIST_LATER),
+                          (jp.distributed.fleet, tp.distributed.fleet, FLEET_LATER),
+                          (jp.distributed.fleet.utils, tp.distributed.fleet.utils, set())):
+        assert _names(jm) - _names(tm) == later, sorted((_names(jm) - _names(tm)) ^ later)
+        assert _names(tm) <= _names(jm), sorted(_names(tm) - _names(jm))
+        for sub in MODULES_LATER.get(jm.__name__, ()):
+            assert hasattr(jm, sub) and not hasattr(tm, sub), sub
+    for sub in ("topology", "collective", "parallel", "spmd", "fleet", "launch"):
+        assert getattr(tp.distributed, sub).__name__ == f"paddle_tpu_torch.distributed.{sub}"
+    assert tp.DataParallel is tp.distributed.DataParallel
+    assert tp.distributed.fleet.distributed_model.__module__.startswith("paddle_tpu_torch.")

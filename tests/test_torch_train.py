@@ -48,6 +48,7 @@ from paddle_tpu_torch.convert import load_numpy_state
 from paddle_tpu_torch.core import cuda_build
 from paddle_tpu_torch.core import random as trandom
 from paddle_tpu_torch.distributed import spmd as tspmd
+from paddle_tpu_torch.distributed import topology as ttopology
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.text.models import BertForPretraining, bert_pretraining_loss
 
@@ -431,14 +432,32 @@ def test_train_step_takes_the_reference_keys_and_donates():
     assert not torch.equal(ref, before["inner.cls.decoder_bias"])
 
 
-@pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(shard_optimizer=True), dict(sharding_stage=2),
-    dict(fp16_allreduce=True), dict(dgc_configs={}), dict(strategy=object())])
-def test_unported_train_step_options_raise(option):
+def _strategy(**knobs):
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+
+    s = DistributedStrategy()
+    for k, v in knobs.items():
+        setattr(s, k, v)
+    return s
+
+
+# a data-parallel mesh and a strategy's amp/recompute are ported; a model-
+# parallel axis, ZeRO, fp16 all-reduce, DGC and localsgd still raise, each
+# naming the slice that brings it
+@pytest.mark.parametrize("option,slice_name", [
+    (lambda: dict(mesh=ttopology.Mesh((1, 1, 1, 1, 1, 2))), "model-parallel"),
+    (lambda: dict(shard_optimizer=True), "meshed-training"),
+    (lambda: dict(sharding_stage=2), "meshed-training"),
+    (lambda: dict(fp16_allreduce=True), "meshed-training"),
+    (lambda: dict(dgc_configs={}), "meshed-training"),
+    (lambda: dict(strategy=_strategy(localsgd=True)), "meshed-training")],
+    ids=[f"option{i}" for i in range(6)])
+def test_unported_train_step_options_raise(option, slice_name):
     m = tnn.Linear(2, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported") as e:
         tspmd.build_train_step(m, lambda out, y: out.sum(), topt.AdamW(parameters=m.parameters()),
-                               **option)
+                               **option())
+    assert f"the {slice_name} slice" in str(e.value)
 
 
 @pytest.mark.parametrize("donate", [True, False])
