@@ -189,7 +189,7 @@ Phases, each fatal on failure (exit code 1):
               bound (an f32-accurate product: the three bf16 tensor-core
               passes vs the bytes) and the f32 CUDA cores' bound beside it;
               the kernel's shared memory and each shape's split count;
-              (b) Llama-2-7B's width at depth 16 (QUANT_LAYERS) in
+              (b) Llama-2-7B's width at depth 8 (QUANT_LAYERS) in
               float32 (weights from seed 0, 14 GB; phase 10's
               bf16 weights freed first), engines of phase 7's
               configuration under quant f32, then w8, then bf16w, one at a
@@ -519,7 +519,7 @@ Phases, each fatal on failure (exit code 1):
               against the one-device step at 64 x 128 in this process
               (losses 1e-4, step-1 gradients 1e-3 of max, parameters 2.5
               lr), the ranks' parameters bitwise each step, K1-K3 12 a step
-              a rank in the f32 form; (b) 20 O1 bf16 steps: the loss falls;
+              a rank in the f32 form; (b) 8 O1 bf16 steps: the loss falls;
               each rank's step ms (CUDA events), the gradient all-reduce's
               ms (its profiler range on rank 0), rank 0's idle share, peak
               memory a rank, beside the one-rank O1 step at 64 x 128;
@@ -540,7 +540,41 @@ Phases, each fatal on failure (exit code 1):
               an unbroken run of the model at the pod's end; K1-K3 with
               bh_offset at a rank's [32 * 12, 128, 64] (f32, bf16) against
               their plain versions and the global call's rows, timed
- 24. summary  a {"kernels": [...]} line, then as the last line
+ 24. meshed   meshed training, run by phase 23's restarted pod after its
+              phase-23 work (no second pod), on phase 23's BERT-base and
+              each rank's 32 x 128: (a) build_train_step(sharding_stage=0..3)
+              on build_mesh(dp=1, sharding=2), 3 O0 f32 steps each with
+              AdamW and ClipGradByGlobalNorm(1.0): losses 1e-4 and the
+              gathered parameters 2.5 lr of phase 23's one-device run at
+              64 x 128, stage 1 bitwise stage 0, the ranks' gathered
+              parameters bitwise, a rank's optimizer state <= 0.51 of the
+              whole and stage 3's parameters at rest too, peak memory a rank
+              beside stage 0's; (b) build_fsdp_train_step over a
+              BERT-base-width Sequential (the embeddings, 12 x
+              TransformerEncoderLayer(768, 12, 3072), a head from 20
+              positions a row to the 30,522 words), 3 O0 steps: losses 1e-4
+              and parameters 2.5 lr of the same function by one process
+              here, at most one gathered trunk layer alive (counted by the
+              gather), the peak below stage 0's; (c) build_mesh(dp=2):
+              fp16_allreduce, 3 O0 steps, losses 1e-3 of the f32 exchange's
+              (DGC at sparsity 0, which sends each gradient whole), the
+              all-reduce's float16 bytes; DGC at sparsity 0.999, 6 O1 steps,
+              the loss falls; in both the ranks' parameters bitwise each
+              step and their (u, v) not; dgc_sparsify on the card bitwise
+              its CPU run; (d) LocalSGD (k_steps 2) and adaptive LocalSGD
+              (init_k_steps 2, begin_step 2), 6 O1 steps each: the replicas
+              bitwise exactly after each sync, the loss falls, k printed;
+              (e) ResNet-50 over the mesh, 2 x 16 images at 224, SGD at
+              1e-4, 3 O0 steps in float32 (the first step's loss 1e-4 and
+              running statistics 1e-4 of the one-device run at 32 images;
+              the later steps printed: ResNet-50's f32 gradients are noise
+              at a step's scale, meshed_resnet_step) and in float64 (every
+              step's loss, statistics and update 1e-6); (f)
+              group_sharded_parallel('os_g') with DataParallel, phase 23
+              (c)'s 3 dygraph steps: the parameters bitwise (c)'s, the
+              accumulators <= 0.51 of the whole a rank. Every mode's K1-K3
+              launches a rank held by form and its step ms a rank printed
+ 25. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -561,8 +595,8 @@ builds the kernels and runs phase 22 alone, and
 
     python3 chip_smoke.py --dp
 
-phase 23 alone; ``--dp-rank OUT`` is one of its ranks, which the phase
-starts through the port's launcher.
+phases 23 and 24 alone; ``--dp-rank OUT`` is one of their ranks, which
+phase 23 starts through the port's launcher.
 
 It imports nothing of JAX or the JAX package. Run from a directory that
 holds only this file it fails at the import of paddle_tpu_torch.
@@ -3472,8 +3506,9 @@ QUANT_MODE_ORDER = ("f32", "w8", "bf16w")
 QUANT_SOLO = 3  # streams of each window decoded again alone
 QUANT_LOGIT_PROMPTS = 4  # prompts whose finishing logits are held against f32's
 # (b)'s model: Llama-2-7B's width at this depth (at the full 32 layers its
-# three weights digests alone took 51 s of the script's 1,200 s)
-QUANT_LAYERS = 16
+# three weights digests alone took 51 s of the script's 1,200 s; 16 until
+# phase 24 came)
+QUANT_LAYERS = 8
 
 
 def wq_bound_ms(m, k, n, wbytes, unit="tensor"):
@@ -8239,7 +8274,7 @@ def phase_leaves(torch, fa, qmm, mods, card):
 # 64 x 128 batch. (a) O0 f32 steps against the one-device step, (b) timed
 # O1 bf16 steps, (c) the fleet's eager path, (d) the collectives on CUDA
 # tensors, (f) the fault paths on a 2-layer model of BERT-base's width.
-DP_RANKS, DP_O0_STEPS, DP_O1_STEPS, DP_EAGER_STEPS = 2, 3, 20, 3
+DP_RANKS, DP_O0_STEPS, DP_O1_STEPS, DP_EAGER_STEPS = 2, 3, 8, 3
 DP_FAULT_LAYERS, DP_FAULT_BATCH, DP_FAULT_STEPS = 2, 8, 3
 DP_ONE_RANK_O1_STEPS = 10
 DP_KILL = "site=train.step,signum=9,at=2,rank=1"
@@ -8342,10 +8377,11 @@ def dp_rank(argv):
     import paddle_tpu_torch as paddle
     import paddle_tpu_torch.distributed as dist
     from paddle_tpu_torch.core import random as prandom
-    from paddle_tpu_torch.distributed import fleet, p2p, spmd, topology
+    from paddle_tpu_torch import vision
+    from paddle_tpu_torch.distributed import collective, fleet, p2p, sharding, spmd, topology
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.resilience import chaos
-    from paddle_tpu_torch.text.models import BertForPretraining
+    from paddle_tpu_torch.text.models import BertEmbeddings, BertForPretraining
 
     started["imports"] = time.time() - t_launch
     env = dict(os.environ)
@@ -8515,6 +8551,7 @@ def dp_rank(argv):
     res["c"] = dict(losses=eager_losses, counts=[fa.launches, fa.dq_launches, fa.dkv_launches],
                     worker_num=fleet.worker_num(), worker_index=fleet.worker_index(),
                     mode=fleet.get_hybrid_communicate_group().get_parallel_mode(),
+                    digest=param_digest(torch, dict(eager.named_parameters())).tolist(),
                     seconds=time.perf_counter() - t0)
     counts = [a + b for a, b in zip(counts, res["c"]["counts"])]
     del dp_model, eager, opt
@@ -8524,6 +8561,13 @@ def dp_rank(argv):
     # (f)'s fault model again, a run no fault touched
     res["unbroken_losses"] = fault_run()
     res["counts"] = counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 24 in the same pod
+    res["meshed"] = meshed_rank(
+        torch, (nn, optimizer, paddle, dist, spmd, topology, collective, sharding, fleet, fa,
+                vision, BertEmbeddings, BertForPretraining),
+        rank, out, model, x, y, keys, build, res["c"]["digest"])
     dist.barrier()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -8663,7 +8707,7 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None):
     """Phase 23 (module docstring). ``one_rank_ms``: phase 5's O1 step at
     64 x 128 in this run, printed beside (b)'s; None measures it here."""
     (BertForPretraining, nn, optimizer, spmd, prandom, paddle, pdist, launch_mod, parallel,
-     topology) = mods
+     topology, vision, BertEmbeddings) = mods
     import shutil
     import tempfile
 
@@ -8679,7 +8723,8 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None):
     launcher.start()
     cases = dp_kernel_cases(torch, fa)
     batch, build = bert_pretraining_parts(torch, nn, optimizer, spmd)
-    keys = [prandom.fold_in(prandom.PRNGKey(0), i) for i in range(DP_O1_STEPS)]
+    keys = [prandom.fold_in(prandom.PRNGKey(0), i)
+            for i in range(max(DP_O1_STEPS, DP_ONE_RANK_O1_STEPS))]
 
     # the one-device runs the ranks are held against: (a)'s O0 steps at
     # the global batch, the one-rank O1 step beside (b)'s, (c)'s dygraph
@@ -8696,6 +8741,7 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None):
         if i == 0:
             one["grads"] = {n: (st[0] / (1 - 0.9)).cpu() for n, st in state.items()}
             one["params"] = {n: p.cpu() for n, p in params.items()}
+    one["final"] = {n: p.cpu() for n, p in params.items()}  # phase 24 (a)'s reference
     del step, init, params, state
     if one_rank_ms is None:
         step, init = build(model, "O1")
@@ -8723,6 +8769,10 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None):
     gc.collect()
     torch.cuda.empty_cache()
     times["one device"] = time.perf_counter() - t
+    t = time.perf_counter()
+    refs = meshed_references(torch, (nn, optimizer, paddle, spmd, topology, vision,
+                                     BertEmbeddings, batch), keys)
+    times["phase 24's one device"] = time.perf_counter() - t
 
     try:
         # the pods: the first killed by chaos in (f)'s fault model, the
@@ -8887,6 +8937,7 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None):
                 or not any(n.endswith(".r1") for n in logs)):
             fail("phase 23 (f): no single teardown, no restart, or the restarted pod's losses "
                  "are not the unbroken run's (and the killed pod's) bits")
+        meshed = phase_meshed(torch, ranks, out, one, refs, card, n_layers)
     finally:
         shutil.rmtree(out, ignore_errors=True)
     times["phase"] = time.perf_counter() - t_phase
@@ -8895,7 +8946,542 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None):
         f"{ranks[0]['d_s']:.1f} (a) {ranks[0]['a']['seconds']:.1f} (b) "
         f"{ranks[0]['b']['seconds']:.1f} (c) {ranks[0]['c']['seconds']:.1f} s [{card}]")
     return dict(counts=dp_counts, cases=cases, step_ms=steady, one_rank_ms=one_rank,
-                allreduce_ms=b0.get("allreduce_ms"), idle=idle)
+                allreduce_ms=b0.get("allreduce_ms"), idle=idle, meshed=meshed)
+
+
+# ------------------------------------------------------------------ phase 24
+# Meshed training, run by phase 23's two ranks after their phase-23 work
+# (one pod: a second one costs ~20 s of imports on the card's host), on
+# phase 23's BERT-base and local 32 x 128 batch: (a) ZeRO stages 0-3 on
+# build_mesh(dp=1, sharding=2), (b) build_fsdp_train_step over a
+# BERT-base-width Sequential, (c) the fp16 all-reduce and DGC and (d)
+# LocalSGD and adaptive LocalSGD on build_mesh(dp=2), (e) ResNet-50's
+# BatchNorm over the mesh, (f) group_sharded_parallel's eager ZeRO.
+MESHED_STEPS, MESHED_DGC_STEPS, MESHED_LOCAL_STEPS = 3, 6, 6
+MESHED_DGC_SPARSITY = 0.999
+MESHED_SHARE = 0.51  # (a), (f): a rank's state (and stage 3's params at rest) of the whole
+MESHED_RESNET_IMAGES = 32  # (e): 2 x 16 at RESNET_HW
+TOL_MESHED_F16 = 1e-3  # (c): the fp16 exchange's losses against the f32 one's, relative
+TOL_MESHED_F64 = 1e-6  # (e): float64's losses, statistics and updates against one device
+MESHED_ZERO = ("zero0", "zero1", "zero2", "zero3")
+# (b)'s model at BERT-base's widths
+FSDP_BERT = dict(vocab=30522, hidden=768, heads=12, ffn=3072, layers=12)
+
+
+def fsdp_bert(torch, nn, BertEmbeddings, seed=4):
+    """(b)'s model: BERT-base's embeddings as the pre layer, 12 x
+    TransformerEncoderLayer(768, 12, 3072, gelu, dropout 0.1) as the trunk,
+    and a post layer that projects the first TRAIN_PRED positions of a row
+    to the 30,522-word vocabulary (FSDP_BERT); weights from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    f = FSDP_BERT
+
+    class Head(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.proj = nn.Linear(f["hidden"], f["vocab"], device="cuda", generator=gen)
+
+        def forward(self, h):
+            return self.proj(h[:, :TRAIN_PRED])
+
+    return nn.Sequential(
+        BertEmbeddings(f["vocab"], f["hidden"], device="cuda", generator=gen),
+        *[nn.TransformerEncoderLayer(f["hidden"], f["heads"], f["ffn"], dropout=0.1,
+                                     activation="gelu", device="cuda", generator=gen)
+          for _ in range(f["layers"])],
+        Head())
+
+
+def meshed_resnet_step(torch, optimizer, spmd, model):
+    """(e)'s build_train_step over ResNet-50: bench.py's loss, SGD at LR.
+
+    ResNet-50's float32 gradients at its initial weights are noise at the
+    scale of a step: two correct float32 forms of its BatchNorm (ATen's,
+    and the two-pass one of the global statistics), in one process on the
+    CPU, each differ from float64 by up to ~20% of a conv weight's largest
+    gradient, and a float32 mesh step against one device gives a second
+    loss 5e-5 apart and a third 1.8e-3 apart even at SGD 1e-4 (AdamW's
+    signs, bench.py's Momentum at 0.1: worse). In float64 the mesh step's
+    gradients are the one-device step's to 5e-12. So (e) holds float32's
+    first step (its loss and the running statistics it leaves: the
+    forward, where the global statistics act) and three float64 steps
+    (forward and backward), each against one device."""
+    opt = optimizer.SGD(LR, parameters=model.parameters())
+    return spmd.build_train_step(model, lambda out, y: vision_loss(torch, out, y), opt)
+
+
+def meshed_resnet(torch, paddle, vision, optimizer, spmd, x, y, steps, dtype):
+    """``steps`` of ResNet-50 (seed 0) in ``dtype`` on ``x``: the losses,
+    the parameters before and after them and the running statistics
+    after the first and the last, on the host."""
+    paddle.seed(0)
+    model = torch.nn.Module.to(vision.models.resnet50(), dtype)  # (a Layer's ``to`` is Paddle's)
+    model.train()
+    first = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    step, init = meshed_resnet_step(torch, optimizer, spmd, model)
+    params, state = init()
+    losses, ms = [], []
+    for i in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, params, state = step(params, state, x.to(dtype), y)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        if i == 0:
+            buffers1 = {n: b.cpu() for n, b in model.named_buffers()}
+    return dict(losses=losses, ms=ms, start=first, params={n: p.cpu() for n, p in params.items()},
+                buffers1=buffers1, buffers={n: b.cpu() for n, b in model.named_buffers()})
+
+
+def tree_bytes(tree):
+    """Bytes of the tensors of a {name: tensor or tuple of tensors} tree."""
+    return sum(t.numel() * t.element_size() for v in tree.values()
+               for t in (v if isinstance(v, tuple) else (v,)))
+
+
+def gather_whole(collective, params, dims, group):
+    """The whole parameters of a step whose ``dims[name]`` says where each
+    is split over ``group`` (None: whole already)."""
+    split = [n for n, p in params.items() if dims.get(n) is not None]
+    whole = dict(params)
+    for n, t in zip(split, collective.coalesced_all_gather(
+            [params[n] for n in split], [dims[n] for n in split], group)):
+        whole[n] = t
+    return whole
+
+
+def meshed_rank(torch, mods, rank, out, model, x, y, keys, build, eager_digest):
+    """Phase 24's modes in one of phase 23's ranks. Returns {mode: what
+    the parent checks}; rank 0 saves the whole parameters of (a)'s stages
+    1-3, (b) and (e) (and (e)'s buffers) to OUT for it."""
+    (nn, optimizer, paddle, pdist, spmd, topology, collective, sharding, fleet, fa, vision,
+     BertEmbeddings, BertForPretraining) = mods
+    res = {}
+
+    def counted(name, run):
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        fa.form_launches.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        got.update(counts=[fa.launches, fa.dq_launches, fa.dkv_launches],
+                   forms={" ".join(map(str, k)): v for k, v in fa.form_launches.items()},
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   seconds=time.perf_counter() - t0)
+        res[name] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def steps(step, params, state, n, xs, ys, digest=None):
+        """``n`` steps, each timed by CUDA events; the losses, the ms, the
+        ranks' digests (``digest(params, state)``) all-gathered each step."""
+        got = dict(losses=[], ms=[], digests=[])
+        for i in range(n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, params, state = step(params, state, xs, ys, key=keys[i])
+            end.record()
+            end.synchronize()
+            got["ms"].append(start.elapsed_time(end))
+            got["losses"].append(float(loss))
+            if digest is not None:
+                mine = digest(params, state)
+                got["digests"].append([d.tolist() for d in pdist.all_gather([], mine)])
+        return got, params, state
+
+    def same(digests):
+        return [bool(d[0] == d[1]) for d in digests]
+
+    # (a) ZeRO 0-3 on build_mesh(dp=1, sharding=2): the ranks' whole
+    # parameters bitwise each step, stage 1 bitwise stage 0
+    mesh_z = topology.build_mesh(dp=1, sharding=2)
+    group_z = spmd.DataGroup(mesh_z).group
+    for stage in range(4):
+        def run(stage=stage):
+            step, init = build(model, "O0", mesh=mesh_z, sharding_stage=stage)
+            params, state = init()
+            sizes = [tree_bytes(params), tree_bytes(state)]
+            at_rest = step.zero_dims if stage == 3 else {}  # stage 3 keeps the blocks
+
+            def digest(params, state):
+                return param_digest(torch, gather_whole(collective, params, at_rest, group_z))
+            got, params, state = steps(step, params, state, MESHED_STEPS, x, y, digest)
+            if stage >= 1:
+                whole = gather_whole(collective, params, at_rest, group_z)
+                if rank == 0:
+                    torch.save({n: p.cpu() for n, p in whole.items()},
+                               os.path.join(out, f"zero{stage}.pt"))
+                del whole
+            got.update(bytes=sizes, ranks_bitwise=same(got["digests"]),
+                       mine=[d[rank] for d in got["digests"]], sharded=sum(
+                           d is not None for d in step.zero_dims.values()))
+            return got
+        counted(f"zero{stage}", run)
+    res["zero1"]["stage0_bitwise"] = res["zero1"]["mine"] == res["zero0"]["mine"]
+
+    # (b) FSDP over the BERT-base-width Sequential, one gathered trunk
+    # layer at a time (recompute)
+    def run_fsdp():
+        fmodel = fsdp_bert(torch, nn, BertEmbeddings)
+        opt = optimizer.AdamW(LR, parameters=fmodel.parameters(), weight_decay=0.01,
+                              grad_clip=nn.ClipGradByGlobalNorm(1.0))
+        step, init = spmd.build_fsdp_train_step(
+            fmodel, lambda out, t: vision_loss(torch, out, t), opt,
+            mesh=topology.build_mesh(dp=2))
+        params, state = init()
+        group = spmd.DataGroup(topology.build_mesh(dp=2)).group
+        xf = x[:, :TRAIN_SEQ].contiguous()
+        got = dict(losses=[], ms=[], peaks=[])
+        for i in range(MESHED_STEPS):
+            step.tracker.reset()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, params, state = step(params, state, xf, y, key=keys[i])
+            end.record()
+            end.synchronize()
+            got["ms"].append(start.elapsed_time(end))
+            got["losses"].append(float(loss))
+            got["peaks"].append(step.tracker.peak)
+        got["alive_after"] = step.tracker.alive
+        got["gathers"] = step.tracker.gathers
+        whole = gather_whole(collective, params, step.shard_dims, group)
+        if rank == 0:
+            torch.save({n: p.cpu() for n, p in whole.items()}, os.path.join(out, "fsdp.pt"))
+        got["bytes"] = [tree_bytes(params), tree_bytes(state)]
+        return got
+    counted("fsdp", run_fsdp)
+
+    # (c) fp16 all-reduce, the f32 exchange it is held against (DGC at
+    # sparsity 0 sends every gradient whole), DGC at 0.999; the ranks'
+    # parameters bitwise each step, their (u, v) not
+    mesh_d = topology.build_mesh(dp=2)
+    for name, amp, n, kw in (("fp16", "O0", MESHED_STEPS, dict(fp16_allreduce=True)),
+                             ("f32_local", "O0", MESHED_STEPS, dict(dgc_configs={
+                                 "sparsity": [0.0]})),
+                             ("dgc", "O1", MESHED_DGC_STEPS, dict(dgc_configs={
+                                 "sparsity": [MESHED_DGC_SPARSITY]}))):
+        def run(amp=amp, n=n, kw=kw):
+            step, init = build(model, amp, mesh=mesh_d, **kw)
+            params, state = init()
+            got, params, state = steps(step, params, state, n, x, y,
+                                       lambda p, s: param_digest(torch, p))
+            got.update(ranks_bitwise=same(got["digests"]), comm_bytes=dict(step.comm_stats))
+            if "__comm__" in state:
+                uv = param_digest(torch, {f"{k}/{i}": t for k, pair in state["__comm__"].items()
+                                          for i, t in enumerate(pair)})
+                both = pdist.all_gather([], uv)
+                got["uv_differ"] = not torch.equal(both[0], both[1])
+            return got
+        counted(name, run)
+    if rank == 0:  # dgc_sparsify on the card against its CPU run, bitwise
+        from paddle_tpu_torch.distributed import comm_opt
+
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        g, u, v = (torch.randn(FSDP_BERT["vocab"], FSDP_BERT["hidden"], device="cuda",
+                               generator=gen) for _ in range(3))
+        on_card = comm_opt.dgc_sparsify(g, u, v, 0.9, MESHED_DGC_SPARSITY)
+        on_cpu = comm_opt.dgc_sparsify(g.cpu(), u.cpu(), v.cpu(), 0.9, MESHED_DGC_SPARSITY)
+        res["dgc"]["sparsify_bitwise"] = all(torch.equal(a.cpu(), b)
+                                             for a, b in zip(on_card, on_cpu))
+        del g, u, v, on_card, on_cpu
+
+    # (d) LocalSGD (k_steps 2) and adaptive LocalSGD (init_k_steps 2,
+    # begin_step 2), O1: the replicas' digests each step, and adaptive's
+    # k and last sync step
+    for name, knobs in (("localsgd", dict(localsgd=True, localsgd_configs={"k_steps": 2})),
+                        ("adaptive", dict(adaptive_localsgd=True, adaptive_localsgd_configs={
+                            "init_k_steps": 2, "begin_step": 2}))):
+        def run(knobs=knobs, name=name):
+            s = fleet.DistributedStrategy()
+            for k, v in knobs.items():
+                setattr(s, k, v)
+            step, init = build(model, "O1", mesh=mesh_d, strategy=s)
+            params, state = init()
+            ks, lasts = [], []
+
+            def digest(p, st):
+                if name == "adaptive":
+                    ks.append(int(step.comm_state["comm"]["k"]))
+                    lasts.append(int(step.comm_state["comm"]["last"]))
+                return param_digest(torch, p)
+            got, params, state = steps(step, params, state, MESHED_LOCAL_STEPS, x, y, digest)
+            got.update(ranks_bitwise=same(got["digests"]), k=ks, last=lasts)
+            return got
+        counted(name, run)
+
+    # (e) ResNet-50 over the mesh (the global mesh: dp over both ranks),
+    # BatchNorm on the global batch's statistics
+    def run_resnet():
+        xr, yr = vision_data(torch, MESHED_RESNET_IMAGES, RESNET_HW, RESNET_CLASSES)
+        b = MESHED_RESNET_IMAGES // 2
+        xr, yr = xr[rank * b:(rank + 1) * b].cuda(), yr[rank * b:(rank + 1) * b].cuda()
+        got = {}
+        for dtype in (torch.float32, torch.float64):
+            run = meshed_resnet(torch, paddle, vision, optimizer, spmd, xr, yr, MESHED_STEPS,
+                                dtype)
+            digests = pdist.all_gather([], param_digest(torch, run["params"]))
+            tag = str(dtype)[6:]
+            got[tag] = dict(losses=run["losses"], ms=run["ms"],
+                            ranks_bitwise=torch.equal(digests[0], digests[1]))
+            if rank == 0:
+                torch.save({k: run[k] for k in ("params", "buffers", "buffers1")},
+                           os.path.join(out, f"resnet_{tag}.pt"))
+        got["ms"] = got["float32"]["ms"]
+        return got
+    counted("resnet", run_resnet)
+
+    # (f) group_sharded_parallel('os_g') under eager DataParallel: phase
+    # 23 (c)'s three dygraph steps, the parameters bitwise its
+    def run_eager():
+        paddle.set_device("gpu")
+        eager = BertForPretraining(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                                   device="cuda", generator=torch.Generator().manual_seed(0))
+        ddp = pdist.DataParallel(eager)
+        opt = dygraph_optimizer(paddle, eager)
+        ddp, opt, _ = sharding.group_sharded_parallel(ddp, opt, level="os_g")
+        ids, pos, labels = dygraph_batch(paddle, x.cpu(), y.cpu())
+        got = dict(losses=[], ms=[])
+        for _ in range(DP_EAGER_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            mlm_logits, _ = ddp(ids, masked_positions=pos)
+            loss = dygraph_mlm_loss(paddle, mlm_logits, labels)
+            loss.backward()
+            ddp.apply_collective_grads()
+            opt.step()
+            opt.clear_grad()
+            end.record()
+            end.synchronize()
+            got["ms"].append(start.elapsed_time(end))
+            got["losses"].append(float(loss))
+        named = dict(eager.named_parameters())
+        got["bitwise_unsharded"] = param_digest(torch, named).tolist() == eager_digest
+        held = sum(a.numel() * a.element_size() for st in opt._accumulators.values() for a in st)
+        whole = sum((p.numel() if a.dim() else 1) * a.element_size() for p in named.values()
+                    for a in opt._accumulators.get(id(p), ()))
+        got["acc_bytes"] = [held, whole]
+        return got
+    counted("eager", run_eager)
+    return res
+
+
+def meshed_references(torch, mods, keys):
+    """The one-device runs phase 24 holds the ranks against, made in the
+    parent while the pods run: (b)'s model by one process at 64 x 128,
+    (e)'s ResNet-50 at 32 images. (a)'s is phase 23's one-device run."""
+    nn, optimizer, paddle, spmd, topology, vision, BertEmbeddings, batch = mods
+    refs = {}
+    x, y = (a.cuda() for a in batch(O1_BATCH, FSDP_BERT["vocab"]))
+    fmodel = fsdp_bert(torch, nn, BertEmbeddings)
+    opt = optimizer.AdamW(LR, parameters=fmodel.parameters(), weight_decay=0.01,
+                          grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    step, init = spmd.build_fsdp_train_step(fmodel, lambda out, t: vision_loss(torch, out, t),
+                                            opt, mesh=topology.Mesh((1,) * 6))
+    params, state = init()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(MESHED_STEPS):
+        loss, params, state = step(params, state, x[:, :TRAIN_SEQ].contiguous(), y, key=keys[i])
+        losses.append(float(loss))
+    refs["fsdp"] = dict(losses=losses, params={n: p.cpu() for n, p in params.items()},
+                        peak_bytes=torch.cuda.max_memory_allocated())
+    del fmodel, opt, step, init, params, state
+    xr, yr = (a.cuda() for a in vision_data(torch, MESHED_RESNET_IMAGES, RESNET_HW,
+                                             RESNET_CLASSES))
+    refs["resnet"] = {str(dtype)[6:]: meshed_resnet(torch, paddle, vision, optimizer, spmd, xr,
+                                                    yr, MESHED_STEPS, dtype)
+                      for dtype in (torch.float32, torch.float64)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _worst_abs(got, want):
+    return max((got[n].float() - w.float()).abs().max().item() for n, w in want.items())
+
+
+def phase_meshed(torch, ranks, out, one, refs, card, n_layers):
+    """Phase 24's checks on what the ranks wrote (module docstring)."""
+    t0 = time.perf_counter()
+    bad = []
+    r0 = ranks[0]["meshed"]
+    f32 = {f"{k} 128 128 float32": n_layers * MESHED_STEPS for k in ("fwd", "dq", "dkv")}
+    bf16 = {f"{k} 128 128 bfloat16": n_layers * MESHED_DGC_STEPS for k in ("fwd", "dq", "dkv")}
+    expect = {m: f32 for m in (*MESHED_ZERO, "fp16", "f32_local", "eager")}
+    fsdp = {k: v * FSDP_BERT["layers"] // n_layers for k, v in f32.items()}
+    fsdp["fwd 128 128 float32"] *= 2  # recompute: each layer's forward again in the backward
+    expect.update(dgc=bf16, localsgd=bf16, adaptive=bf16, resnet={}, fsdp=fsdp)
+    for mode, forms in expect.items():
+        for r in ranks:
+            if r["meshed"][mode]["forms"] != forms:
+                bad.append(f"{mode}: rank {r['rank']} launched {r['meshed'][mode]['forms']}, "
+                           f"expected {forms}")
+
+    def rel(a, b):
+        return max(abs(u - v) / abs(v) for u, v in zip(a, b))
+
+    def ms(mode):
+        return " / ".join(f"{_median(r['meshed'][mode]['ms']):.1f}" for r in ranks)
+
+    # (a)
+    s0 = r0["zero0"]
+    for stage, mode in enumerate(MESHED_ZERO):
+        m = [r["meshed"][mode] for r in ranks]
+        loss_err = max(rel(g["losses"], one["losses"]) for g in m)
+        perr = _worst_abs(torch.load(os.path.join(out, f"zero{max(stage, 1)}.pt")), one["final"])
+        state_share = max(g["bytes"][1] / s0["bytes"][1] for g in m)
+        param_share = max(g["bytes"][0] / s0["bytes"][0] for g in m)
+        log(f"[meshed] (a) ZeRO stage {stage} on dp=1 x sharding=2, O0 f32, {MESHED_STEPS} "
+            f"steps a rank at 32 x {TRAIN_SEQ}: losses " + " ".join(f"{v:.6f}" for v in m[0]["losses"])
+            + f" (worst rel err vs one device {loss_err:.2e}, tolerance {TOL_STEP_LOSS}); "
+            f"parameters max abs err {perr:.3e} (tolerance {2.5 * LR:.2e}); the ranks bitwise "
+            f"{m[0]['ranks_bitwise']}" + (f"; bitwise stage 0 {m[0]['stage0_bitwise']}"
+                                          if stage == 1 else "")
+            + f"; {m[0]['sharded']} of the tensors sharded; state {state_share:.3f} and params "
+            f"at rest {param_share:.3f} of stage 0's a rank; peak "
+            + " / ".join(f"{g['peak_bytes'] / 2**30:.2f}" for g in m) + " GiB (stage 0 "
+            + " / ".join(f"{r['meshed']['zero0']['peak_bytes'] / 2**30:.2f}" for r in ranks)
+            + f"); step ms a rank {ms(mode)}; K1/K2/K3 a rank {m[0]['counts']} [{card}]")
+        if not loss_err <= TOL_STEP_LOSS or not perr <= 2.5 * LR:
+            bad.append(f"(a) stage {stage} against one device")
+        if not all(all(g["ranks_bitwise"]) for g in m):
+            bad.append(f"(a) stage {stage}: the ranks' parameters differ")
+        if stage >= 1 and not state_share <= MESHED_SHARE:
+            bad.append(f"(a) stage {stage}: state {state_share:.3f} of the whole")
+        if stage == 3 and not param_share <= MESHED_SHARE:
+            bad.append(f"(a) stage 3: params at rest {param_share:.3f} of the whole")
+    if not all(r["meshed"]["zero1"]["stage0_bitwise"] for r in ranks):
+        bad.append("(a) stage 1 is not bitwise stage 0")
+
+    # (b)
+    m = [r["meshed"]["fsdp"] for r in ranks]
+    ref = refs["fsdp"]
+    loss_err = max(rel(g["losses"], ref["losses"]) for g in m)
+    perr = _worst_abs(torch.load(os.path.join(out, "fsdp.pt")), ref["params"])
+    log(f"[meshed] (b) build_fsdp_train_step, BERT-base width (embeddings, 12 encoder layers, a "
+        f"{TRAIN_PRED}-position vocabulary head), O0 f32, recompute: losses "
+        + " ".join(f"{v:.6f}" for v in m[0]["losses"]) + f" (worst rel err vs one process "
+        f"{loss_err:.2e}); parameters max abs err {perr:.3e} (tolerance {2.5 * LR:.2e}); gathered "
+        f"trunk layers alive at most {[g['peaks'] for g in m]} a step, {m[0]['alive_after']} "
+        f"after, {m[0]['gathers']} gathers in the last step; peak "
+        + " / ".join(f"{g['peak_bytes'] / 2**30:.2f}" for g in m) + f" GiB a rank (ZeRO stage "
+        f"0's " + " / ".join(f"{r['meshed']['zero0']['peak_bytes'] / 2**30:.2f}" for r in ranks)
+        + f"; one process at 64 x 128 {ref['peak_bytes'] / 2**30:.2f}); step ms a rank "
+        f"{ms('fsdp')}; K1/K2/K3 a rank {m[0]['counts']} [{card}]")
+    if not loss_err <= TOL_STEP_LOSS or not perr <= 2.5 * LR:
+        bad.append("(b) against one process")
+    if any(max(g["peaks"]) != 1 or g["alive_after"] != 0 for g in m):
+        bad.append("(b) more than one gathered trunk layer alive")
+    if not all(g["peak_bytes"] < r["meshed"]["zero0"]["peak_bytes"]
+               for g, r in zip(m, ranks)):
+        bad.append("(b) the rank's peak is not below stage 0's")
+
+    # (c)
+    fp16, f32l, dgc = ([r["meshed"][k] for r in ranks] for k in ("fp16", "f32_local", "dgc"))
+    f16_err = rel(fp16[0]["losses"], f32l[0]["losses"])
+    n_params = sum(p.numel() for p in one["final"].values())
+    log(f"[meshed] (c) fp16 all-reduce, O0, {MESHED_STEPS} steps: losses "
+        + " ".join(f"{v:.6f}" for v in fp16[0]["losses"]) + " vs the f32 exchange's "
+        + " ".join(f"{v:.6f}" for v in f32l[0]["losses"]) + f" (worst rel err {f16_err:.2e}, "
+        f"tolerance {TOL_MESHED_F16}) and the global mesh step's (phase 23 (a)) "
+        + " ".join(f"{v:.6f}" for v in one["losses"]) + f"; all-reduced bytes a step "
+        f"{fp16[0]['comm_bytes']} ({n_params:,} parameters); step ms a rank {ms('fp16')} (f32 "
+        f"exchange {ms('f32_local')}); the ranks bitwise {fp16[0]['ranks_bitwise']} [{card}]")
+    log(f"[meshed] (c) DGC sparsity {MESHED_DGC_SPARSITY}, O1, {MESHED_DGC_STEPS} steps: "
+        "losses " + " ".join(f"{v:.4f}" for v in dgc[0]["losses"]) + f"; the ranks' parameters "
+        f"bitwise {dgc[0]['ranks_bitwise']}, their (u, v) differ {dgc[0]['uv_differ']}; "
+        f"dgc_sparsify on the card bitwise its CPU run {dgc[0].get('sparsify_bitwise')}; "
+        f"step ms a rank {ms('dgc')} [{card}]")
+    if not f16_err <= TOL_MESHED_F16:
+        bad.append("(c) fp16 losses")
+    if (fp16[0]["comm_bytes"].get("float16") != 2 * n_params
+            or set(fp16[0]["comm_bytes"]) != {"float16", "float32"}):
+        bad.append(f"(c) the fp16 all-reduce moved {fp16[0]['comm_bytes']}")
+    for mode, m in (("fp16", fp16), ("f32_local", f32l), ("dgc", dgc)):
+        if not all(all(g["ranks_bitwise"]) for g in m):
+            bad.append(f"(c) {mode}: the ranks' parameters differ")
+    if not all(g["uv_differ"] for g in dgc) or not dgc[0].get("sparsify_bitwise"):
+        bad.append("(c) DGC's (u, v) or dgc_sparsify")
+    if not dgc[0]["losses"][-1] < dgc[0]["losses"][0]:
+        bad.append("(c) the DGC loss did not fall")
+
+    # (d)
+    for mode in ("localsgd", "adaptive"):
+        m = r0[mode]
+        synced = ([i % 2 == 1 for i in range(MESHED_LOCAL_STEPS)] if mode == "localsgd"
+                  else [last == i + 1 for i, last in enumerate(m["last"])])
+        log(f"[meshed] (d) {mode}, O1, {MESHED_LOCAL_STEPS} steps: losses "
+            + " ".join(f"{v:.4f}" for v in m["losses"]) + f"; synced {synced}, the replicas "
+            f"bitwise {m['ranks_bitwise']}" + (f"; k {m['k']}, last sync {m['last']}"
+                                               if mode == "adaptive" else "")
+            + f"; step ms a rank {ms(mode)} [{card}]")
+        if m["ranks_bitwise"] != synced or not any(synced) or all(synced):
+            bad.append(f"(d) {mode}: the replicas are not equal exactly after each sync")
+        if not m["losses"][-1] < m["losses"][0]:
+            bad.append(f"(d) {mode}: the loss did not fall")
+
+    # (e)
+    def stats_err(got, want):
+        return max((got[n] - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                   for n, w in want.items())
+
+    for tag in ("float32", "float64"):
+        m = [r["meshed"]["resnet"][tag] for r in ranks]
+        ref = refs["resnet"][tag]
+        got = torch.load(os.path.join(out, f"resnet_{tag}.pt"))
+        errs = [max(abs(g["losses"][i] - ref["losses"][i]) / abs(ref["losses"][i]) for g in m)
+                for i in range(MESHED_STEPS)]
+        stat1, stat = stats_err(got["buffers1"], ref["buffers1"]), stats_err(got["buffers"],
+                                                                             ref["buffers"])
+        perr = _worst_abs(got["params"], ref["params"])
+        upd = max(((got["params"][n] - w).abs().max()
+                   / (w - ref["start"][n]).abs().max().clamp_min(1e-300)).item()
+                  for n, w in ref["params"].items())
+        if tag == "float32":  # the first step: the forward's loss and statistics
+            ok = errs[0] <= TOL_STEP_LOSS and stat1 <= TOL_BN_STATS
+            held = (f"held: step 1's loss ({TOL_STEP_LOSS}) and running statistics "
+                    f"({TOL_BN_STATS} of their max)")
+        else:  # every step, forward and backward
+            ok = (max(errs) <= TOL_MESHED_F64 and stat <= TOL_MESHED_F64
+                  and upd <= TOL_MESHED_F64 and perr <= 2.5 * LR)
+            held = f"held: all, to {TOL_MESHED_F64} (parameters to 2.5 lr too)"
+        log(f"[meshed] (e) ResNet-50 over the mesh, 2 x {MESHED_RESNET_IMAGES // 2} images at "
+            f"{RESNET_HW}, O0 {tag}, SGD at {LR}, {MESHED_STEPS} steps: losses "
+            + " ".join(f"{v:.6f}" for v in m[0]["losses"]) + " (rel err vs one device at "
+            f"{MESHED_RESNET_IMAGES}: " + " ".join(f"{e:.2e}" for e in errs) + "); running "
+            f"statistics after step 1 {stat1:.2e}, after step {MESHED_STEPS} {stat:.2e} of their "
+            f"max; parameters max abs err {perr:.3e}, the updates' worst {upd:.2e} of their "
+            f"max; {held}; the ranks bitwise {[g['ranks_bitwise'] for g in m]}; step ms a rank "
+            + " / ".join(f"{_median(g['ms']):.1f}" for g in m) + f" [{card}]")
+        if not ok:
+            bad.append(f"(e) {tag} against one device")
+        if not all(g["ranks_bitwise"] for g in m):
+            bad.append(f"(e) {tag}: the ranks' parameters differ")
+
+    # (f)
+    m = [r["meshed"]["eager"] for r in ranks]
+    share = max(g["acc_bytes"][0] / g["acc_bytes"][1] for g in m)
+    log(f"[meshed] (f) group_sharded_parallel('os_g') with DataParallel, {DP_EAGER_STEPS} "
+        f"dygraph O0 steps at dropout 0: losses " + " ".join(f"{v:.6f}" for v in m[0]["losses"])
+        + f"; parameters bitwise the unsharded run's (phase 23 (c)) "
+        f"{[g['bitwise_unsharded'] for g in m]}; accumulators {share:.3f} of the whole a rank; "
+        f"step ms a rank {ms('eager')} [{card}]")
+    if not all(g["bitwise_unsharded"] for g in m) or not share <= MESHED_SHARE:
+        bad.append("(f) the eager ZeRO step")
+    if bad:
+        fail(f"phase 24: {'; '.join(bad)}")
+    counts = [sum(r["meshed"][mode]["counts"][i] for r in ranks for mode in expect)
+              for i in range(3)]
+    secs = {mode: max(r["meshed"][mode]["seconds"] for r in ranks) for mode in expect}
+    log(f"[meshed] phase 24: the ranks' modes " + ", ".join(f"{k} {v:.1f}"
+                                                             for k, v in secs.items())
+        + f" s ({sum(secs.values()):.1f} s), the checks {time.perf_counter() - t0:.1f} s; "
+        f"K1/K2/K3 over both ranks {counts} [{card}]")
+    return dict(counts=counts, seconds=sum(secs.values()) + time.perf_counter() - t0)
 
 
 def stop_children(grace=5.0):
@@ -9058,7 +9644,8 @@ def main():
         from paddle_tpu_torch.ops import quant_matmul as qmm
         from paddle_tpu_torch.resilience import chaos
         from paddle_tpu_torch.text import generation
-        from paddle_tpu_torch.text.models import BertForPretraining, BertModel, LlamaModel
+        from paddle_tpu_torch.text.models import (BertEmbeddings, BertForPretraining, BertModel,
+                                                  LlamaModel)
         import paddle_tpu_torch as paddle
         from paddle_tpu_torch import inference, jit, vision
         from paddle_tpu_torch.inference.server import serve_model
@@ -9105,7 +9692,7 @@ def main():
     leaves_mods = (paddle, vision_ops, LlamaModel, generation, DecodeEngine, quantization, utils,
                    distribution, incubate_autograd)
     dp_mods = (BertForPretraining, nn, optimizer, spmd, prandom, paddle, pdist, launch_mod,
-               parallel, topology)
+               parallel, topology, vision, BertEmbeddings)
     if leaves_alone:
         phase_leaves(torch, fa, qmm, leaves_mods, card)
         took("leaves")
@@ -9308,9 +9895,12 @@ def main():
                        + lm_launch["fwd"] + lm["parity_counts"][0] + mtt["counts"]["fwd"]
                        + mtt["parity_counts"][0] + dyg["counts"]["fwd"] + dyg["extra"][0]
                        + deploy["launches"][0] + static["launches"][0] + fleet["launches"]
-                       + safety["launches"][0] + leaves["k1_launches"] + dp["counts"][0]),
+                       + safety["launches"][0] + leaves["k1_launches"] + dp["counts"][0]
+                       + dp["meshed"]["counts"][0]),
              # phase 23's: both ranks' (a) O0, (b) O1 and (c) eager steps
              dp_launches=dp["counts"][0],
+             # phase 24's: both ranks' every mode (FSDP's recompute twice a layer)
+             meshed_launches=dp["meshed"]["counts"][0],
              # phase 22's: the flat-list quantized 7B-width model's fills and
              # steps (float32, head_dim 128)
              leaves_launches=leaves["k1_launches"],
@@ -9376,8 +9966,9 @@ def main():
                launches=(train["counts"][key] + lm_launch[key] + lm["parity_counts"][i]
                          + mtt["counts"][key] + mtt["parity_counts"][i] + dyg["counts"][key]
                          + dyg["extra"][i] + deploy["launches"][i] + static["launches"][i]
-                         + safety["launches"][i] + dp["counts"][i]),
-               dp_launches=dp["counts"][i],
+                         + safety["launches"][i] + dp["counts"][i]
+                         + dp["meshed"]["counts"][i]),
+               dp_launches=dp["counts"][i], meshed_launches=dp["meshed"]["counts"][i],
                # phase 23: a rank's [32 * 12, 128, 64] with dropout 0.1 and
                # bh_offset 384, float32 and bfloat16
                **{f"dp_{r['dtype']}_{k}": v for r in dp["cases"] for k, v in dict(

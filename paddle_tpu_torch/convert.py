@@ -26,6 +26,8 @@ first name, since a tie cannot hold two values.
 import numpy as np
 import torch
 
+_LAYOUTS = ("zero", "fsdp", "rows")
+
 
 def _aliases(module):
     """{other name: first name} for every tied parameter of ``module``."""
@@ -137,3 +139,55 @@ def set_by_position(program, state):
     program's parameters."""
     for p, arr in program_state_by_position(program, state):
         p.set_value(arr)
+
+
+def _layout_dim(name, shape, world, layout):
+    """The dimension ``layout`` splits an array of ``shape`` on, or None."""
+    from .distributed.spmd import zero_dim
+
+    if layout not in _LAYOUTS:
+        raise ValueError(f"layout must be one of {_LAYOUTS}, got {layout!r}")
+    if layout == "fsdp":
+        return zero_dim(shape, world, start=1) if name.startswith("trunk.") else None
+    return zero_dim(shape, world)
+
+
+def _walk(fn, tree, *others, name=""):
+    """``fn(name, leaf, *other leaves)`` over a nested dict/tuple/list,
+    ``name`` the nearest dictionary key."""
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v, *(o[k] for o in others), name=k) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_walk(fn, v, *(o[i] for o in others), name=name)
+                          for i, v in enumerate(tree))
+    return fn(name, tree, *others)
+
+
+def to_rank_state(state, rank, world, layout="zero"):
+    """Rank ``rank``'s part of a global state (see the module docstring),
+    as numpy arrays."""
+    def one(name, a):
+        a = np.asarray(getattr(a, "_value", a))
+        if layout == "rows":
+            return a[rank]
+        d = _layout_dim(name, a.shape, world, layout)
+        if d is None:
+            return a
+        k = a.shape[d] // world
+        return np.take(a, np.arange(rank * k, (rank + 1) * k), axis=d)
+    return _walk(one, state)
+
+
+def from_rank_states(states, like, layout="zero"):
+    """The global state from every rank's part (``states``, in rank
+    order), the inverse of ``to_rank_state``; ``like`` gives the
+    structure and the global shapes."""
+    world = len(states)
+
+    def one(name, ref, *parts):
+        parts = [np.asarray(p) for p in parts]
+        if layout == "rows":
+            return np.stack(parts)
+        d = _layout_dim(name, np.shape(getattr(ref, "_value", ref)), world, layout)
+        return parts[0] if d is None else np.concatenate(parts, axis=d)
+    return _walk(one, like, *states)

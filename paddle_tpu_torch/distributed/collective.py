@@ -21,6 +21,17 @@ its card. NCCL takes every op on the card as it is. The in-graph names
 of the reference (``psum``, ``pmean``, ``pmax``, ``all_gather_spmd``,
 ``ppermute``, ``all_to_all_spmd``) are the same collectives over the
 named axis, returning new tensors.
+
+The training steps' own helpers (spmd.py, comm_opt.py, sharding.py):
+``coalesced_mean`` (one all-reduce mean per dtype), ``shard`` (a rank's
+block of a tensor along a dimension), ``coalesced_reduce_scatter`` (the
+group's mean, of which each rank keeps its blocks: NCCL's
+``reduce_scatter_tensor``; over gloo, which has no CUDA reduce-scatter,
+one all-reduce and the rank's part, on purpose),
+``coalesced_all_gather`` (each rank's blocks joined whole again) and
+``AllReduceSum`` (a sum over the group that autograd differentiates:
+batch norm's global statistics). A group there may stand for a tuple of
+axes (the data axes, "dp" and "sharding" combined).
 """
 import contextlib
 import itertools
@@ -220,6 +231,98 @@ def coalesced_mean(tensors, group=None):
             t.copy_(flat[off:off + t.numel()].view_as(t))
             off += t.numel()
     return tensors
+
+
+def shard(t, dim, rank, n):
+    """Rank ``rank``'s block of ``t`` split in ``n`` along ``dim`` (a view;
+    ``t`` whole where ``dim`` is None)."""
+    if dim is None:
+        return t
+    k = t.shape[dim] // n
+    return t.narrow(dim, rank * k, k)
+
+
+def _bucketed(items):
+    """{(dtype, device): [index, ...]} over tensors-bearing items."""
+    buckets = {}
+    for i, t in enumerate(items):
+        buckets.setdefault((t.dtype, t.device), []).append(i)
+    return buckets.values()
+
+
+def coalesced_reduce_scatter(tensors, dims, group=None):
+    """The group's mean of each tensor, of which this rank keeps its block
+    along ``dims[i]`` (an int; ``shard``): returns the blocks, new tensors. One
+    collective per (dtype, device) over a buffer laid out as rank 0's
+    blocks of every tensor, then rank 1's, and so on. Over NCCL it is
+    ``reduce_scatter_tensor``; gloo has no CUDA reduce-scatter, so there
+    it is one all-reduce of the whole buffer and the rank's part of it, on
+    purpose. Either way a block is summed, then divided by the group's
+    size: with two ranks it is bitwise the rank's block of
+    ``coalesced_mean``. One rank: the tensors as they are."""
+    pg, n, me = _pg(group)
+    if pg is None:
+        return list(tensors)
+    out = [None] * len(tensors)
+    for idx in _bucketed(tensors):
+        parts = [shard(tensors[i], dims[i], 0, n) for i in idx]
+        m = sum(p.numel() for p in parts)
+        flat = torch.cat([shard(tensors[i], dims[i], r, n).reshape(-1)
+                          for r in range(n) for i in idx])
+        if dist.get_backend(pg) == "nccl":
+            mine = torch.empty(m, dtype=flat.dtype, device=flat.device)
+            dist.reduce_scatter_tensor(mine, flat, dist.ReduceOp.SUM, group=pg)
+        else:
+            dist.all_reduce(flat, dist.ReduceOp.SUM, group=pg)
+            mine = flat[me * m:(me + 1) * m].clone()
+        del flat
+        mine.div_(n)
+        off = 0
+        for i, p in zip(idx, parts):
+            out[i] = mine[off:off + p.numel()].view(p.shape)
+            off += p.numel()
+    return out
+
+
+def coalesced_all_gather(blocks, dims, group=None):
+    """The inverse of ``coalesced_reduce_scatter``'s split: each rank gives
+    its block of every tensor, and each tensor comes back whole, its ranks'
+    blocks joined along ``dims[i]``, in new tensors. One all-gather per
+    (dtype, device). One rank: the blocks as they are."""
+    pg, n, _ = _pg(group)
+    if pg is None:
+        return list(blocks)
+    out = [None] * len(blocks)
+    for idx in _bucketed(blocks):
+        flat = torch.cat([blocks[i].reshape(-1) for i in idx])
+        m = flat.numel()
+        whole = torch.empty(n * m, dtype=flat.dtype, device=flat.device)
+        if dist.get_backend(pg) == "nccl":
+            dist.all_gather_into_tensor(whole, flat, group=pg)
+        else:
+            dist.all_gather(list(whole.chunk(n)), flat, group=pg)
+        off = 0
+        for i in idx:
+            b = blocks[i]
+            pieces = [whole[r * m + off:r * m + off + b.numel()].view(b.shape) for r in range(n)]
+            out[i] = torch.cat(pieces, dim=dims[i])
+            off += b.numel()
+    return out
+
+
+class AllReduceSum(torch.autograd.Function):
+    """A differentiable sum over the group: the forward all-reduces its
+    input, the backward the incoming gradient (each rank's loss reads the
+    sum, so each rank's input reaches every rank's loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.clone(), ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ReduceOp.SUM, ctx.group), None
 
 
 def barrier(group=None):

@@ -12,6 +12,13 @@ collectives of ``collective.py`` run over. An axis of size 1 needs no
 group; an axis whose one comm list is the whole job uses the default
 group. A process that is not in a job is a one-rank mesh, as the
 reference's ``build_mesh(dp=len(jax.devices()))`` is on one chip.
+
+The batch and the ZeRO state are sharded over the data axes combined
+(``data_axes``: "dp" and "sharding", the reference's ``P(("dp",
+"sharding"))``). ``group``, ``axis_size`` and ``rank_in`` take such a
+tuple of axes too: its group is this rank's comm list over both, and its
+index is ``dp_idx * sharding + sharding_idx``, the position of this
+rank's block in a dimension the reference shards over the pair.
 """
 import numpy as np
 import torch.distributed as dist
@@ -49,26 +56,50 @@ class Mesh:
             return
         for i, axis in enumerate(self.axis_names):
             lists = [row.tolist() for row in np.moveaxis(self.ranks, i, -1).reshape(-1, dims[i])]
-            if len(lists) == 1 and lists[0] == list(range(world)):
-                self._groups[axis] = dist.group.WORLD  # the whole job: the default group
-            elif dims[i] > 1:
-                for ranks in lists:
-                    # every rank takes part in every new_group, in one order
-                    pg = dist.new_group(ranks)
-                    if me in ranks:
-                        self._groups[axis] = pg
+            self._make_groups(axis, lists, dims[i], world, me)
+        dp, sh = (self.axis_names.index(a) for a in ("dp", "sharding"))
+        if dims[dp] > 1 and dims[sh] > 1:
+            # the data axes combined: the ranks that share every other
+            # coordinate, ordered by (dp, sharding)
+            rest = [i for i in range(len(dims)) if i not in (dp, sh)]
+            n = dims[dp] * dims[sh]
+            lists = [row.tolist() for row in
+                     np.transpose(self.ranks, rest + [dp, sh]).reshape(-1, n)]
+            self._make_groups(("dp", "sharding"), lists, n, world, me)
 
-    def group(self, axis):
-        return self._groups.get(axis)
+    def _make_groups(self, key, lists, n, world, me):
+        if len(lists) == 1 and lists[0] == list(range(world)):
+            self._groups[key] = dist.group.WORLD  # the whole job: the default group
+        elif n > 1:
+            for ranks in lists:
+                # every rank takes part in every new_group, in one order
+                pg = dist.new_group(ranks)
+                if me in ranks:
+                    self._groups[key] = pg
 
-    def axis_size(self, axis):
-        return self.shape.get(axis, 1)
+    def group(self, axes):
+        """The process group of this rank's comm list along ``axes``, an
+        axis name or a tuple of them (of which the axes of size 1 are
+        dropped); None where that is one rank."""
+        if isinstance(axes, str):
+            return self._groups.get(axes)
+        live = tuple(a for a in axes if self.shape.get(a, 1) > 1)
+        return self._groups.get(live[0] if len(live) == 1 else live) if live else None
 
-    def rank_in(self, axis):
-        """This rank's position along ``axis`` (0 outside the mesh)."""
-        if self.coord is None or axis not in self.axis_names:
+    def axis_size(self, axes):
+        return int(np.prod([self.shape.get(a, 1) for a in
+                            ((axes,) if isinstance(axes, str) else axes)]))
+
+    def rank_in(self, axes):
+        """This rank's index along ``axes`` (an axis or a tuple of them,
+        row-major over the tuple; 0 outside the mesh)."""
+        if self.coord is None:
             return 0
-        return self.coord[self.axis_names.index(axis)]
+        index = 0
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            if a in self.axis_names:
+                index = index * self.shape[a] + self.coord[self.axis_names.index(a)]
+        return index
 
     def __repr__(self):
         return f"Mesh({', '.join(f'{a}={n}' for a, n in self.shape.items() if n > 1) or 'one rank'})"

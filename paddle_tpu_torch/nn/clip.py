@@ -4,7 +4,12 @@
 ``clip_grad_norm_`` and ``clip_by_norm``. An optimizer calls a clip's
 ``clip_arrays`` on its gradients; ``clip((param, grad) pairs)`` is the
 dygraph form, which leaves a parameter with ``need_clip = False`` and a
-missing gradient as they are."""
+missing gradient as they are.
+
+``clip_arrays(grads, sum_sq=...)`` clips gradients that are blocks of
+the whole ones (ZeRO's sharded gradients, distributed/spmd.py): the
+norms read ``sum_sq(per-gradient sums of squares)``, which returns the
+whole gradients' sums (the blocks' sums added over the ranks)."""
 import torch
 
 
@@ -21,7 +26,7 @@ class ClipGradBase:
             out[i] = (out[i][0], g)
         return out
 
-    def clip_arrays(self, grads):
+    def clip_arrays(self, grads, sum_sq=None):
         raise NotImplementedError
 
 
@@ -32,7 +37,7 @@ class ClipGradByValue(ClipGradBase):
         self.max = float(max)
         self.min = float(min) if min is not None else -float(max)
 
-    def clip_arrays(self, grads):
+    def clip_arrays(self, grads, sum_sq=None):
         return [None if g is None else torch.clamp(g, self.min, self.max) for g in grads]
 
 
@@ -43,13 +48,18 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
-    def clip_arrays(self, grads):
+    def clip_arrays(self, grads, sum_sq=None):
+        sums = [None if g is None else torch.sum(torch.square(g)) for g in grads]
+        if sum_sq is not None:
+            live = [i for i, t in enumerate(sums) if t is not None]
+            for i, t in zip(live, sum_sq([sums[i] for i in live])):
+                sums[i] = t
         out = []
-        for g in grads:
+        for g, sq in zip(grads, sums):
             if g is None:
                 out.append(None)
                 continue
-            n = torch.sqrt(torch.sum(torch.square(g)))
+            n = torch.sqrt(sq)
             out.append(torch.where(n > self.clip_norm,
                                    g * (self.clip_norm / torch.clamp_min(n, 1e-12)), g))
         return out
@@ -62,10 +72,11 @@ class ClipGradByGlobalNorm(ClipGradBase):
     def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = float(clip_norm)
 
-    def clip_arrays(self, grads):
+    def clip_arrays(self, grads, sum_sq=None):
         if all(g is None for g in grads):
             return list(grads)
-        sq = sum(torch.sum(torch.square(g.float())) for g in grads if g is not None)
+        sums = [torch.sum(torch.square(g.float())) for g in grads if g is not None]
+        sq = sum(sums if sum_sq is None else sum_sq(sums))
         gnorm = torch.sqrt(sq)
         scale = self.clip_norm / torch.clamp_min(gnorm, self.clip_norm)
         return [None if g is None else (g * scale).to(g.dtype) for g in grads]

@@ -9,10 +9,49 @@ is the other way round, and its running variance is the unbiased one).
 The batch variance is read back from the kernel's saved inverse standard
 deviation. Under auto_cast its inputs are float32 (``batch_norm_train``
 and ``batch_norm_infer`` are on the black list).
+
+Inside ``global_batch_stats(sum_fn, ranks)`` (the training step over a
+data mesh, distributed/spmd.py) each rank holds an equal part of the
+global batch, and training-mode batch norm takes the global batch's
+statistics, as the reference's one program over the mesh does: mean =
+``sum_fn(sum x) / n``, var = ``sum_fn(sum (x - mean)**2) / n`` (jnp.var's
+two passes) over the ``n`` rows of all ``ranks`` ranks, ``sum_fn`` a sum
+over the ranks that the backward differentiates through; then the
+reference's ``(x - mean) * rsqrt(var + eps) * w + b`` and its running
+update.
 """
+import contextlib
+import contextvars
+
 import torch
 
 from ...amp.auto_cast import cast_inputs
+
+# (sum over the ranks, number of ranks) inside global_batch_stats
+_GLOBAL_STATS = contextvars.ContextVar("global_batch_stats", default=None)
+
+
+@contextlib.contextmanager
+def global_batch_stats(sum_fn, ranks):
+    """Training-mode batch norm takes the statistics of the batch of all
+    ``ranks`` ranks (module docstring)."""
+    token = _GLOBAL_STATS.set((sum_fn, int(ranks)))
+    try:
+        yield
+    finally:
+        _GLOBAL_STATS.reset(token)
+
+
+def _global_batch_norm(xc, weight, bias, epsilon, sum_fn, ranks):
+    """[N, C, ...] -> (y, mean, var) over the global batch."""
+    dims = [0] + list(range(2, xc.dim()))
+    shape = (1, -1) + (1,) * (xc.dim() - 2)
+    n = (xc.numel() // xc.shape[1]) * ranks
+    mean = sum_fn(xc.sum(dims)) / n
+    d = xc - mean.reshape(shape)
+    var = sum_fn(torch.square(d).sum(dims)) / n
+    y = d * torch.rsqrt(var.reshape(shape) + epsilon)
+    return _affine(y, weight, bias), mean, var
 
 
 def _channel_axis(x, data_format):
@@ -33,12 +72,19 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None, training=Fa
         return y.movedim(1, ax) if ax != 1 else y
     x, weight, bias = cast_inputs("batch_norm_train", x, weight, bias)
     xc = x.movedim(ax, 1) if ax != 1 else x
-    y, mean, invstd = torch.native_batch_norm(xc, weight, bias, None, None, True, 0.0,
-                                              float(epsilon))
+    sync = _GLOBAL_STATS.get()
+    if sync is not None:
+        y, mean, var = _global_batch_norm(xc, weight, bias, float(epsilon), *sync)
+        var = var.detach()
+    else:
+        y, mean, invstd = torch.native_batch_norm(xc, weight, bias, None, None, True, 0.0,
+                                                  float(epsilon))
+        var = None
     if running_mean is not None:
         m = float(momentum)
         with torch.no_grad():
-            var = invstd.detach().pow(-2) - float(epsilon)
+            if var is None:
+                var = invstd.detach().pow(-2) - float(epsilon)
             running_mean.mul_(m).add_((1 - m) * mean.detach().to(running_mean.dtype))
             running_var.mul_(m).add_((1 - m) * var.to(running_var.dtype))
     return y.movedim(1, ax) if ax != 1 else y

@@ -116,6 +116,14 @@ class Optimizer:
         out = cls._update(p, g, lr, *state, **hypers)
         return out[0], tuple(out[1:])
 
+    @classmethod
+    def _elementwise(cls, hypers):
+        """Whether ``_update`` acts on each element alone, so that the
+        update of a block of a parameter is that block of the update
+        (what ZeRO's sharded state needs); false where it takes a norm
+        over the whole parameter."""
+        return True
+
     @staticmethod
     def _take_l1(hypers):
         """Pop the L1 coefficient (key ``l1_reg``, not ``l1``: Ftrl's own
@@ -129,21 +137,25 @@ class Optimizer:
             raise ValueError("this optimizer was built without a `parameters` list")
         return self._parameter_list
 
-    def _apply(self, params, grads, lr, ratios=True):
+    def _apply(self, params, grads, lr, ratios=True, views=None):
         """One ``_update`` per parameter, in place: the parameter's own
         hypers, its L1 term and (``ratios``, the eager step's) its
-        ``optimize_attr`` learning-rate ratio."""
-        for p, g in zip(params, grads):
+        ``optimize_attr`` learning-rate ratio. ``views[i]``: the part of
+        ``params[i]`` to update (a ZeRO rank's block, which ``grads[i]``
+        and the parameter's accumulators then hold), else all of it."""
+        for i, (p, g) in enumerate(zip(params, grads)):
+            target = p if views is None else views[i]
             ratio = (getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
                      if ratios else 1.0)
             state = self._accumulators.get(id(p))
             if state is None:
-                state = self._init_state(p)
+                state = self._init_state(target)
             hypers = self._hypers(p)
             l1 = self._take_l1(hypers)
             lr_t = torch.full((), lr, dtype=torch.float32, device=p.device) * ratio
-            new_p, self._accumulators[id(p)] = self._update_one(p, g, lr_t, state, hypers, l1)
-            p.copy_(new_p)
+            new_p, self._accumulators[id(p)] = self._update_one(target, g, lr_t, state, hypers,
+                                                                l1)
+            target.copy_(new_p)
 
     @torch.no_grad()
     def step(self):
@@ -290,6 +302,10 @@ class Momentum(Optimizer):
 
     def _init_state(self, p):
         return (torch.zeros_like(p),)
+
+    @classmethod
+    def _elementwise(cls, hypers):
+        return not hypers.get("lars")
 
     @staticmethod
     def _update(p, g, lr, velocity, *, mu=0.9, nesterov=False, l2=0.0, lars=False,
@@ -525,6 +541,10 @@ class Lamb(Optimizer):
         h.update(b1=self._beta1, b2=self._beta2, eps=self._epsilon, wd=wd)
         h["l2"] = 0.0
         return h
+
+    @classmethod
+    def _elementwise(cls, hypers):
+        return False  # the trust ratio's norms
 
     def _init_state(self, p):
         return (torch.zeros_like(p), torch.zeros_like(p),

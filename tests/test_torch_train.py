@@ -432,26 +432,12 @@ def test_train_step_takes_the_reference_keys_and_donates():
     assert not torch.equal(ref, before["inner.cls.decoder_bias"])
 
 
-def _strategy(**knobs):
-    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
-
-    s = DistributedStrategy()
-    for k, v in knobs.items():
-        setattr(s, k, v)
-    return s
-
-
-# a data-parallel mesh and a strategy's amp/recompute are ported; a model-
-# parallel axis, ZeRO, fp16 all-reduce, DGC and localsgd still raise, each
+# a data mesh with ZeRO, fp16 all-reduce, DGC and localsgd is ported
+# (tests/test_torch_dist_meshed.py); a model-parallel axis still raises,
 # naming the slice that brings it
 @pytest.mark.parametrize("option,slice_name", [
-    (lambda: dict(mesh=ttopology.Mesh((1, 1, 1, 1, 1, 2))), "model-parallel"),
-    (lambda: dict(shard_optimizer=True), "meshed-training"),
-    (lambda: dict(sharding_stage=2), "meshed-training"),
-    (lambda: dict(fp16_allreduce=True), "meshed-training"),
-    (lambda: dict(dgc_configs={}), "meshed-training"),
-    (lambda: dict(strategy=_strategy(localsgd=True)), "meshed-training")],
-    ids=[f"option{i}" for i in range(6)])
+    (lambda: dict(mesh=ttopology.Mesh((1, 1, 1, 1, 1, 2))), "model-parallel")],
+    ids=["option0"])
 def test_unported_train_step_options_raise(option, slice_name):
     m = tnn.Linear(2, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported") as e:

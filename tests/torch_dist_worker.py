@@ -36,24 +36,26 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANK_TIMEOUT = 120  # seconds a spawned run may take before its test fails
 
 
-def run_ranks(mode, out, *args, nproc=2, timeout=RANK_TIMEOUT, transient_retries=2):
-    """Start ``nproc`` ranks of ``mode`` through the port's launcher (gloo,
-    the CPU) in a session of their own, wait at most ``timeout`` seconds
-    (then kill the whole session), and return the launcher's exit code
-    and output with the ranks' logs. A run whose log shows gloo's
-    transient TCP framing abort (launch_mod._TRANSIENT_RE) is started again
-    up to ``transient_retries`` times, as the reference's tests pass
+def run_ranks(mode, out, *args, nproc=2, timeout=RANK_TIMEOUT, transient_retries=2,
+              worker=__file__):
+    """Start ``nproc`` ranks of ``mode`` of ``worker`` (this file by
+    default) through the port's launcher (gloo, the CPU) in a session of
+    their own, wait at most ``timeout`` seconds (then kill the whole
+    session), and return the launcher's exit code and output with the
+    ranks' logs. A run whose log shows gloo's transient TCP framing abort
+    (launch_mod._TRANSIENT_RE) is started again up to
+    ``transient_retries`` times, as the reference's tests pass
     ``transient_retries=2`` to its launcher."""
     from paddle_tpu_torch.distributed.launch_mod import _TRANSIENT_RE
 
     for _ in range(transient_retries + 1):
-        rc, text = _run_ranks_once(mode, out, args, nproc, timeout)
+        rc, text = _run_ranks_once(mode, out, args, nproc, timeout, worker)
         if rc == 0 or not _TRANSIENT_RE.search(text):
             break
     return rc, text
 
 
-def _run_ranks_once(mode, out, args, nproc, timeout):
+def _run_ranks_once(mode, out, args, nproc, timeout, worker):
     import shutil
     import signal
     import subprocess
@@ -62,7 +64,7 @@ def _run_ranks_once(mode, out, args, nproc, timeout):
 
     logs = os.path.join(out, "logs")
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch", "--nproc_per_node",
-           str(nproc), "--backend", "gloo", "--log_dir", logs, os.path.abspath(__file__), mode,
+           str(nproc), "--backend", "gloo", "--log_dir", logs, os.path.abspath(worker), mode,
            str(out), *map(str, args)]
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.Popen(cmd, cwd=REPO, env=env, start_new_session=True,
