@@ -58,7 +58,7 @@ Phases, each fatal on failure (exit code 1):
               the CPU's teacher-forced logits), and in float32 a sampled
               call (temperature 0.8, top-k 50, top-p 0.9, seed 0) whose
               tokens may differ from the CPU's only at a near-tie (1e-4) of
-              the CPU's perturbed scores; (b) at full width, depth 16
+              the CPU's perturbed scores; (b) at full width, depth 8
               (LLAMA_LAYERS, as phases 7-10), in bfloat16 (weights drawn
               on the card), bench.py's decode
               shape, 16 prompts x 128 tokens and 128 new tokens: greedy
@@ -80,7 +80,7 @@ Phases, each fatal on failure (exit code 1):
               fewest fills win; `--fill-sweep`): (e) full width,
               depth 2, float32, the same 4 requests through the engine on
               the card and on the CPU (tokens equal, or a near-tie of the
-              CPU's logits), then phase 8's (a); then Llama-2-7B bf16 at full width, depth 16
+              CPU's logits), then phase 8's (a); then Llama-2-7B bf16 at full width, depth 8
               (weights drawn on the card), 16 slots x 256 positions, behind
               PredictorServer on localhost: 24 streams (16 at once, 8 more
               as the first retire; prompts 16-128, 16-96 new tokens, seeded),
@@ -574,7 +574,38 @@ Phases, each fatal on failure (exit code 1):
               (c)'s 3 dygraph steps: the parameters bitwise (c)'s, the
               accumulators <= 0.51 of the whole a rank. Every mode's K1-K3
               launches a rank held by form and its step ms a rank printed
- 25. summary  a {"kernels": [...]} line, then as the last line
+ 25. model parallel  in phase 23's two ranks after phase 24's modes,
+              Llama-374M's width (bench.py:192: vocab 32000, hidden 1024,
+              8 heads of 128, FFN 2816) at depth 4 (MP_CFG, a cut), random
+              weights from a seed, the one-device references computed in
+              this process on the card: (a) LlamaModel(tensor_parallel=True)
+              through build_train_step over build_mesh(mp=2), AdamW 1e-4
+              with ClipGradByGlobalNorm(1.0), 3 O0 float32 steps at 2 x 512:
+              losses within rtol 2e-4 / atol 2e-5 of the one-device step,
+              the gathered parameters within 2.5 lr, the RMSNorm weights
+              bitwise on both ranks, a rank's stamped bytes 0.50 of the
+              whole, K1-K3 4 launches a step each at 4 heads a rank, and
+              one SGD step (lr 1e4, no clip) from the same weights, whose
+              update is lr times the gradient: within 1e-3 of each tensor's
+              one-device gradient's max; (b) fleet's pipe mode (pp_degree
+              2, accumulate_steps 4): a PipelineLayer (the embedding, the
+              decoder layers, the norm and head) through
+              distributed_model(...).train_batch, 3 O0 steps at 4 x 512
+              and one SGD step: losses, state_dict and gradient against
+              the sequential one-device path (the same bounds), the loss
+              bitwise on both ranks, schedule_stats and each rank's ms in
+              recv; (c) ring_attention over build_mesh(sp=2) at [2, 8,
+              2048, 128] causal, 1024 positions a rank, forward and
+              backward in float32 and bfloat16: the ranks' O and dQ/dK/dV
+              joined against the one-device K1-K3 on the whole sequence
+              (float32 1e-5, bfloat16 2e-2 of the max) and against the plain
+              fold on the card; rank 0 runs one block (its diagonal, K1-K3
+              causal), rank 1 two (and its earlier block unmasked), as the
+              wrapper counts them by mask; the ring's ms a call, each
+              hop's ms through the host. K1-K3 are timed first at the
+              forms (a)-(c) give them. Every mode's launches held by form
+              and mask, its step ms a rank printed
+ 26. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -583,6 +614,11 @@ Each phase's seconds are printed as "[time]" lines.
 
 instead builds the kernels and measures the 7B engine at each fill chunk
 (fill_chunk_sweep): the numbers the chunks above were chosen by.
+
+    python3 chip_smoke.py --depth-sweep 8,16,8
+
+runs phase 5's BERT and then phases 6-10 at each Llama-2-7B depth in turn
+on one host (depth_sweep): the seconds LLAMA_LAYERS was chosen by.
 
     python3 chip_smoke.py --decode-replica PORTFILE PHASE PREFIX_DIR
 
@@ -595,12 +631,13 @@ builds the kernels and runs phase 22 alone, and
 
     python3 chip_smoke.py --dp
 
-phases 23 and 24 alone; ``--dp-rank OUT`` is one of their ranks, which
+phases 23-25 alone; ``--dp-rank OUT`` is one of their ranks, which
 phase 23 starts through the port's launcher.
 
 It imports nothing of JAX or the JAX package. Run from a directory that
 holds only this file it fails at the import of paddle_tpu_torch.
 """
+import atexit
 import copy
 import gc
 import json
@@ -1840,7 +1877,7 @@ GEN_BATCH, GEN_PROMPT, GEN_NEW = 16, 128, 128  # bench.py's decode shape
 # phases 6-10's model: Llama-2-7B's width at this depth (the full 32 layers,
 # drawn twice in float32 and digested by each engine, kept the script near
 # its 1,200 s limit on slower hosts)
-LLAMA_LAYERS = 16
+LLAMA_LAYERS = 8  # was 32, then 16: the script's time (--depth-sweep)
 GEN_EAGER_STEPS = 31  # the timed eager loop's steps (the graphed loop runs all)
 # depth-2 prefill logits, card vs CPU: float32 max abs; bfloat16 relative
 # to the row's max |logit|
@@ -7297,10 +7334,11 @@ def phase_fleet(torch, mods, card, deploy):
 F16_WARMUP, F16_STEPS = 3, 20  # (b): BERT-base fp16 O1 dygraph steps on phase 5's batch
 F16_INIT_SCALE = 2.0 ** 15  # GradScaler's default init_loss_scaling (the reference's)
 F16_PARITY_TRIES = 16  # (b): scaler steps tried until the parity step is taken (scale >= 0.5)
-# (b)'s card-vs-CPU step: BERT-base width at depth 1, batch 2 x 128 (at
-# depth 2, batch 4 the CPU's fp16 GEMMs took 33-67 s of the script's 1,200 s)
+# (b)'s card-vs-CPU step: BERT-base width at depth 1, batch 1 x 128 (at
+# depth 2, batch 4 the CPU's fp16 GEMMs took 33-67 s of the script's 1,200 s;
+# at depth 1, batch 2, 21.75 s)
 F16_PARITY_DEPTH = 1
-F16_PARITY_BATCH = 2
+F16_PARITY_BATCH = 1
 # (b) the depth-2 fp16 O1 step, card vs CPU (the CPU runs K1-K3's plain
 # versions and its own fp16 GEMMs, which round at other points): test_torch_
 # train.py's O1 bounds, loss 2e-3 relative and clipped gradients within 5e-2
@@ -8277,6 +8315,10 @@ def phase_leaves(torch, fa, qmm, mods, card):
 DP_RANKS, DP_O0_STEPS, DP_O1_STEPS, DP_EAGER_STEPS = 2, 3, 8, 3
 DP_FAULT_LAYERS, DP_FAULT_BATCH, DP_FAULT_STEPS = 2, 8, 3
 DP_ONE_RANK_O1_STEPS = 10
+# the share of the card the parent may hold while the pods run beside
+# phases 18-22 (57 of 79 GiB: phase 19 (e)'s batch 256 peaks at 38-39 GiB,
+# phase 21's at 39.3; each rank at 6.7 allocated)
+DP_PARENT_SHARE = 0.72
 DP_KILL = "site=train.step,signum=9,at=2,rank=1"
 
 
@@ -8381,7 +8423,9 @@ def dp_rank(argv):
     from paddle_tpu_torch.distributed import collective, fleet, p2p, sharding, spmd, topology
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.resilience import chaos
-    from paddle_tpu_torch.text.models import BertEmbeddings, BertForPretraining
+    from paddle_tpu_torch.text.models import BertEmbeddings, BertForPretraining, LlamaModel
+    from paddle_tpu_torch.distributed.meta_parallel import PipelineLayer
+    from paddle_tpu_torch.ops import ring_attention as ra
 
     started["imports"] = time.time() - t_launch
     env = dict(os.environ)
@@ -8568,6 +8612,13 @@ def dp_rank(argv):
         torch, (nn, optimizer, paddle, dist, spmd, topology, collective, sharding, fleet, fa,
                 vision, BertEmbeddings, BertForPretraining),
         rank, out, model, x, y, keys, build, res["c"]["digest"])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 25 in the same pod
+    res["model_parallel"] = mp_rank(
+        torch, (LlamaModel, PipelineLayer, nn, optimizer, spmd, topology, fleet, dist, prandom,
+                fa, ra), rank, out)
     dist.barrier()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -8703,25 +8754,50 @@ def dp_logs(out, tail=3000):
     return text
 
 
-def phase_dp(torch, fa, mods, card, one_rank_ms=None):
-    """Phase 23 (module docstring). ``one_rank_ms``: phase 5's O1 step at
-    64 x 128 in this run, printed beside (b)'s; None measures it here."""
-    (BertForPretraining, nn, optimizer, spmd, prandom, paddle, pdist, launch_mod, parallel,
-     topology, vision, BertEmbeddings) = mods
-    import shutil
+def dp_start(torch, fa, launch_mod):
+    """Start phase 23: the pods of phases 23-25 (dp_launch, in a thread),
+    then K1-K3 at the ranks' forms (dp_kernel_cases, mp_kernel_cases)
+    timed while the ranks spend their first ~20 s importing on the host.
+    main() calls it before phase 18, so the ranks' work (gloo traffic
+    through the host, a few ms of kernels a step) runs beside phases
+    18-19 instead of after phase 22; phase_dp waits for them. Returns
+    what phase_dp takes as ``started``."""
     import tempfile
 
-    t_phase = time.perf_counter()
-    times = {}
+    t = time.perf_counter()
     out = tempfile.mkdtemp(prefix="paddle_tpu_torch_dp_")
-    # the pods start first: their ranks spend their first ~20 s importing
-    # (the host), while this process times the kernels and runs the
-    # one-device references on the card; it waits for them after
     pods = {}
     launcher = threading.Thread(target=lambda: pods.update(
         zip(("res", "raised", "secs"), dp_launch(launch_mod, out))), daemon=True)
     launcher.start()
     cases = dp_kernel_cases(torch, fa)
+    t_mp = time.perf_counter()
+    mp_cases = mp_kernel_cases(torch, fa)
+    times = {"phase 25's kernels": time.perf_counter() - t_mp,
+             "start": time.perf_counter() - t}
+    log(f"[dp] the pods of phases 23-25 started, K1-K3 at their forms timed "
+        f"({times['start']:.1f} s); the ranks run beside the next phases")
+    return dict(out=out, pods=pods, launcher=launcher, cases=cases, mp_cases=mp_cases,
+                times=times)
+
+
+def phase_dp(torch, fa, mods, card, one_rank_ms=None, started=None):
+    """Phase 23 (module docstring). ``one_rank_ms``: phase 5's O1 step at
+    64 x 128 in this run, printed beside (b)'s; None measures it here.
+    ``started``: what dp_start returned earlier in the run; None starts
+    the pods here."""
+    (BertForPretraining, nn, optimizer, spmd, prandom, paddle, pdist, launch_mod, parallel,
+     topology, vision, BertEmbeddings, LlamaModel) = mods
+    from paddle_tpu_torch.distributed.meta_parallel import PipelineLayer, PipelineParallel
+    import shutil
+
+    t_phase = time.perf_counter()
+    if started is None:
+        started = dp_start(torch, fa, launch_mod)
+    out, pods, launcher = started["out"], started["pods"], started["launcher"]
+    cases, mp_cases, times = started["cases"], started["mp_cases"], dict(started["times"])
+    # the ranks ran beside the phases since dp_start; this process runs the
+    # one-device references on the card, then waits for the pods
     batch, build = bert_pretraining_parts(torch, nn, optimizer, spmd)
     keys = [prandom.fold_in(prandom.PRNGKey(0), i)
             for i in range(max(DP_O1_STEPS, DP_ONE_RANK_O1_STEPS))]
@@ -8773,11 +8849,17 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None):
     refs = meshed_references(torch, (nn, optimizer, paddle, spmd, topology, vision,
                                      BertEmbeddings, batch), keys)
     times["phase 24's one device"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mp_refs = mp_references(torch, (LlamaModel, PipelineLayer, PipelineParallel, nn, optimizer,
+                                    spmd, prandom, fa))
+    times["phase 25's one device"] = time.perf_counter() - t
 
     try:
         # the pods: the first killed by chaos in (f)'s fault model, the
         # restarted one through (f), (d), (a), (b), (c) and (f) unbroken
+        t = time.perf_counter()
         launcher.join()
+        times["waited for the pods"] = time.perf_counter() - t
         res, raised, secs = pods["res"], pods["raised"], pods["secs"]
         times["pods"] = secs
         if isinstance(res, Exception) or res != 0:
@@ -8938,6 +9020,7 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None):
             fail("phase 23 (f): no single teardown, no restart, or the restarted pod's losses "
                  "are not the unbroken run's (and the killed pod's) bits")
         meshed = phase_meshed(torch, ranks, out, one, refs, card, n_layers)
+        model_parallel = phase_model_parallel(torch, ranks, out, mp_refs, mp_cases, card)
     finally:
         shutil.rmtree(out, ignore_errors=True)
     times["phase"] = time.perf_counter() - t_phase
@@ -8946,7 +9029,8 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None):
         f"{ranks[0]['d_s']:.1f} (a) {ranks[0]['a']['seconds']:.1f} (b) "
         f"{ranks[0]['b']['seconds']:.1f} (c) {ranks[0]['c']['seconds']:.1f} s [{card}]")
     return dict(counts=dp_counts, cases=cases, step_ms=steady, one_rank_ms=one_rank,
-                allreduce_ms=b0.get("allreduce_ms"), idle=idle, meshed=meshed)
+                allreduce_ms=b0.get("allreduce_ms"), idle=idle, meshed=meshed,
+                model_parallel=model_parallel)
 
 
 # ------------------------------------------------------------------ phase 24
@@ -9484,6 +9568,483 @@ def phase_meshed(torch, ranks, out, one, refs, card, n_layers):
     return dict(counts=counts, seconds=sum(secs.values()) + time.perf_counter() - t0)
 
 
+# ------------------------------------------------------------------ phase 25
+# Model parallel, run by phase 23's two ranks after phase 24's modes (the
+# same pod), with Llama-374M's width (bench.py:192) at MP_CFG's depth: (a)
+# tensor parallel over build_mesh(mp=2), (b) fleet's pipe mode over pp=2,
+# (c) ring attention over build_mesh(sp=2). The one-device references are
+# computed in this process while the pods run.
+MP_CFG = dict(vocab_size=32000, hidden_size=1024, num_layers=4, num_heads=8,
+              intermediate_size=2816, max_seq_len=512)
+MP_SEQ, MP_TP_BATCH, MP_PP_BATCH, MP_MICRO, MP_STEPS = 512, 2, 4, 4, 3
+MP_RING = (2, 8, 2048, 128)  # (c): the global [B, H, S, D], causal
+MP_RING_CALLS = 3
+MP_RTOL, MP_ATOL = 2e-4, 2e-5  # the reference's own mp/pp tolerance (test_llama_hybrid.py)
+# (a) and (b) also take one SGD step (no clip) from the same weights: its
+# update is lr times the gradient, which AdamW's step (m / sqrt(v), clipped
+# by the global norm) does not scale with; held per tensor relative to the
+# one-device gradient's max, as phases 5 and 23 hold theirs. lr 1e4 makes
+# the update outweigh the weights' rounding: the embedding's gradient is at
+# most ~1e-4 beside weights up to ~5 (drawn with std 1), so at lr 1 the
+# weights' ulp alone reads up to ~7e-3 of it
+MP_SGD_LR = 1e4
+TOL_RING = {"float32": 1e-5, "bfloat16": TOL_O["bfloat16"]}
+
+
+def mp_llama(torch, LlamaModel, tensor_parallel):
+    return LlamaModel(**MP_CFG, tensor_parallel=tensor_parallel, device="cuda",
+                      generator=torch.Generator().manual_seed(25))
+
+
+def mp_batch(torch, b):
+    g = torch.Generator().manual_seed(250 + b)
+    return tuple(torch.randint(0, MP_CFG["vocab_size"], (b, MP_SEQ), generator=g).cuda()
+                 for _ in range(2))
+
+
+def mp_loss(torch, logits, labels):
+    return torch.nn.functional.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                                             labels.reshape(-1).long())
+
+
+def mp_pipe_model(torch, LlamaModel, PipelineLayer, nn):
+    """A PipelineLayer of (a)'s plain model: the embedding, the decoder
+    layers, the norm and head."""
+    m = mp_llama(torch, LlamaModel, False)
+    return PipelineLayer([m.embed_tokens, *m.layers, nn.Sequential(m.norm, m.lm_head)],
+                         num_stages=2, loss_fn=lambda out, y: mp_loss(torch, out, y))
+
+
+def mp_strategy(fleet):
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"pp_degree": 2}
+    strategy.pipeline_configs = {"accumulate_steps": MP_MICRO}
+    return strategy
+
+
+def mp_ring_data(torch):
+    g = torch.Generator(device="cuda").manual_seed(26)
+    return [torch.randn(MP_RING, device="cuda", generator=g) for _ in range(4)]  # q k v dO
+
+
+def mp_kernel_cases(torch, fa):
+    """K1-K3 at the forms phase 25 gives them: (a)'s head group ([2 * 4,
+    512, 512, 128] causal float32: 4 heads a rank), (b)'s stage
+    ([1 * 8, 512, 512, 128] causal float32: a microbatch), and (c)'s ring
+    blocks ([2 * 8, 1024, 1024, 128], the causal diagonal and an unmasked
+    earlier block, float32 and bfloat16): against their plain versions,
+    timed beside their bound and sdpa's time."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    forms = [("tp", 2, 4, 512, True, "float32"), ("pp", 1, 8, 512, True, "float32")]
+    forms += [(f"ring_{n}", 2, 8, 1024, c, dt) for dt in ("float32", "bfloat16")
+              for n, c in (("diag", True), ("block", False))]
+    rows = []
+    for name, b, h, s, causal, dt in forms:
+        d, scale = 128, 128 ** -0.5
+        bh = b * h
+        q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(getattr(torch, dt))
+                       for _ in range(4))
+        o, lse = fa._fwd(q, k, v, 0, scale, causal, 0.0)
+        grads = fa._bwd(q, k, v, o, lse, do, 0, scale, causal, 0.0)
+        ro, rlse = fa.mha_reference(q, k, v, 0, scale, causal, 0.0)
+        want = fa.mha_bwd_reference(q, k, v, o, lse, do, 0, scale, causal, 0.0)
+        err_o = (o.float() - ro.float()).abs().max().item()
+        err_lse = (lse - rlse).abs().max().item()
+        errs = [_rel_err(torch, g, w) for g, w in zip(grads, want)]
+        abs_errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(grads, want)]
+        ms, dev = leaf_timed(torch, lambda: fa._fwd(q, k, v, 0, scale, causal, 0.0))
+        plain_ms, plain_dev = leaf_timed(torch, lambda: fa.mha_reference(
+            q, k, v, 0, scale, causal, 0.0), iters=3)
+        q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
+        lib_ms, lib_dev = leaf_timed(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal, scale=scale))
+        delta = (do.float() * o.float()).sum(-1).contiguous()
+        ptrs = [t.data_ptr() for t in (q, k, v, do, lse.view(bh, s), delta)]
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        kargs = fa._kernel_args(0, scale, causal, 0.0, q.dtype, q.device)
+        dims = (bh, s, s, d)
+        ms_dq, dev_dq = leaf_timed(torch, lambda: fa._launch("flash_attention_bwd_dq", *ptrs,
+                                                             dq.data_ptr(), *dims, *kargs))
+        ms_dkv, dev_dkv = leaf_timed(torch, lambda: fa._launch(
+            "flash_attention_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, *kargs))
+        bplain_ms, bplain_dev = leaf_timed(torch, lambda: fa.mha_bwd_reference(
+            q, k, v, o, lse, do, 0, scale, causal, 0.0), iters=3)
+        q4g, k4g, v4g = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
+        out4 = F.scaled_dot_product_attention(q4g, k4g, v4g, is_causal=causal, scale=scale)
+        blib_ms, blib_dev = leaf_timed(torch, lambda: torch.autograd.grad(
+            out4, (q4g, k4g, v4g), do.view_as(out4), retain_graph=True))
+        del out4, q4g, k4g, v4g
+        bound = attention_bound_ms(bh, s, s, d, dt, causal)
+        bound_dq = attention_bound_ms(bh, s, s, d, dt, causal, "bwd_dq")
+        bound_dkv = attention_bound_ms(bh, s, s, d, dt, causal, "bwd_dkv")
+        ok = err_o <= TOL_O[dt] and err_lse <= TOL_LSE and max(errs) <= TOL_GRAD[dt]
+        rows.append(dict(name=name, dtype=dt, b=b, h=h, sq=s, sk=s, d=d, causal=causal,
+                         max_abs_err=err_o, max_lse_err=err_lse, ms=ms, device_ms=dev,
+                         plain_ms=plain_ms, plain_device_ms=plain_dev, library_ms=lib_ms,
+                         library_device_ms=lib_dev, bound_ms=bound[0], bound_by=bound[1],
+                         err_dq=errs[0], err_dk=errs[1], err_dv=errs[2],
+                         abs_err_dq=abs_errs[0], abs_err_dkv=max(abs_errs[1:]), ms_dq=ms_dq,
+                         device_ms_dq=dev_dq, ms_dkv=ms_dkv, device_ms_dkv=dev_dkv,
+                         bwd_plain_ms=bplain_ms, bwd_plain_device_ms=bplain_dev,
+                         bwd_library_ms=blib_ms, bwd_library_device_ms=blib_dev,
+                         bound_dq=bound_dq, bound_dkv=bound_dkv, ok=ok))
+        log(f"  [mp kernels] {name} [{b} * {h}, {s}, {d}] {dt} causal={causal}: O err "
+            f"{err_o:.3e} LSE err {err_lse:.3e} dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+            f"{errs[2]:.3e} | K1 {ms:.4f} / {_fmt(dev)} ms{_share(bound[0], dev)} (bound "
+            f"{bound[0]:.4f} {bound[1]}), plain {plain_ms:.4f} / {_fmt(plain_dev)}, sdpa "
+            f"{lib_ms:.4f} / {_fmt(lib_dev)} | K2 {ms_dq:.4f} / {_fmt(dev_dq)} ms (bound "
+            f"{bound_dq[0]:.4f} {bound_dq[1]}{_share(bound_dq[0], dev_dq)}) K3 {ms_dkv:.4f} / "
+            f"{_fmt(dev_dkv)} ms (bound {bound_dkv[0]:.4f} {bound_dkv[1]}"
+            f"{_share(bound_dkv[0], dev_dkv)}), plain {bplain_ms:.4f} / {_fmt(bplain_dev)}, "
+            f"sdpa {blib_ms:.4f} / {_fmt(blib_dev)} ms {'ok' if ok else 'DISAGREES'}")
+        del q, k, v, do, o, lse, grads, ro, rlse, want, dq, dk, dv, q4, k4, v4
+    torch.cuda.empty_cache()
+    if not all(r["ok"] for r in rows):
+        fail("phase 25: K1-K3 disagree with their plain versions at phase 25's forms")
+    return rows
+
+
+def mp_rank(torch, mods, rank, out):
+    """Phase 25's modes in one of phase 23's ranks. Returns {mode: what the
+    parent checks}; rank 0 saves (a)'s gathered parameters, (b)'s
+    state_dict and (c)'s joined outputs' halves for it (each rank its own
+    half of (c))."""
+    (LlamaModel, PipelineLayer, nn, optimizer, spmd, topology, fleet, dist, prandom, fa,
+     ra) = mods
+    res = {}
+
+    def counted(name, run):
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        fa.mask_launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        # by form and mask: the ring's causal diagonal and unmasked blocks
+        got.update(counts=[fa.launches, fa.dq_launches, fa.dkv_launches],
+                   masks={" ".join(map(str, k)): v for k, v in fa.mask_launches.items()},
+                   seconds=time.perf_counter() - t0)
+        res[name] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def event_ms(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = fn()
+        end.record()
+        end.synchronize()
+        return got, start.elapsed_time(end)
+
+    def run_tp():
+        mesh = topology.build_mesh(mp=2)
+        model = mp_llama(torch, LlamaModel, True)
+        opt = optimizer.AdamW(LR, parameters=model.parameters(), weight_decay=0.01,
+                              grad_clip=nn.ClipGradByGlobalNorm(1.0))
+        step, init = spmd.build_train_step(model, lambda o, t: mp_loss(torch, o, t), opt,
+                                           mesh=mesh)
+        params, state = init()
+        x, y = mp_batch(torch, MP_TP_BATCH)
+        got = dict(losses=[], ms=[])
+        for i in range(MP_STEPS):
+            (loss, params, state), ms = event_ms(lambda: step(
+                params, state, x, y, key=prandom.fold_in(prandom.PRNGKey(0), i)))
+            got["losses"].append(float(loss))
+            got["ms"].append(ms)
+        stamped = [n for n in params if step.mp_dims[n] is not None]
+        held = sum(params[n].numel() * params[n].element_size() for n in stamped)
+        whole = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                    if n in stamped)
+        got["share"] = held / whole
+        group = dist.Group(axis="mp", process_group=mesh.group("mp"))
+        both = dist.all_gather([], torch.cat([params[n].reshape(-1) for n in params
+                                              if n not in stamped]), group)
+        got["norm_bitwise"] = bool(torch.equal(both[0], both[1]))
+
+        def gathered(params, step):
+            return {n: (p if step.mp_dims[n] is None else torch.cat(
+                dist.all_gather([], p.contiguous(), group), dim=step.mp_dims[n])).cpu()
+                for n, p in params.items()}
+        whole = gathered(params, step)
+        del model, opt, step, init, params, state
+        model = mp_llama(torch, LlamaModel, True)
+        step, init = spmd.build_train_step(
+            model, lambda o, t: mp_loss(torch, o, t),
+            optimizer.SGD(MP_SGD_LR, parameters=model.parameters()), mesh=mesh)
+        params, state = init()
+        _, params, _ = step(params, state, x, y, key=prandom.fold_in(prandom.PRNGKey(0), 0))
+        sgd = gathered(params, step)
+        if rank == 0:
+            torch.save(whole, os.path.join(out, "mp_a.pt"))
+            torch.save(sgd, os.path.join(out, "mp_a_sgd.pt"))
+        return got
+    counted("tp", run_tp)
+
+    def run_pp():
+        fleet.init(is_collective=True, strategy=mp_strategy(fleet))
+        model = mp_pipe_model(torch, LlamaModel, PipelineLayer, nn)
+        pp_model = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(optimizer.AdamW(
+            LR, parameters=model.parameters(), weight_decay=0.01,
+            grad_clip=nn.ClipGradByGlobalNorm(1.0)))
+        x, y = mp_batch(torch, MP_PP_BATCH)
+        got = dict(losses=[], ms=[], recv_ms=[], wrapper=type(pp_model).__name__)
+        for _ in range(MP_STEPS):
+            loss, ms = event_ms(lambda: pp_model.train_batch((x, y), opt))
+            got["losses"].append(float(loss))
+            got["ms"].append(ms)
+            got["recv_ms"].append(pp_model._spmd["step"].recv_seconds[-1] * 1e3)
+        got["schedule"] = pp_model._spmd["step"].schedule
+        both = dist.all_gather([], torch.tensor(got["losses"], dtype=torch.float64,
+                                                device="cuda"), "pp")
+        got["loss_bitwise"] = bool(torch.equal(both[0], both[1]))
+        state = {n: p.detach().cpu() for n, p in pp_model.state_dict().items()}
+        del model, pp_model, opt
+        model = mp_pipe_model(torch, LlamaModel, PipelineLayer, nn)
+        pp_model = fleet.distributed_model(model)
+        pp_model.train_batch((x, y), fleet.distributed_optimizer(
+            optimizer.SGD(MP_SGD_LR, parameters=model.parameters())))
+        sgd = {n: p.detach().cpu() for n, p in pp_model.state_dict().items()}
+        if rank == 0:
+            torch.save(state, os.path.join(out, "mp_b.pt"))
+            torch.save(sgd, os.path.join(out, "mp_b_sgd.pt"))
+        topology.set_global_mesh(topology.build_mesh(dp=2))
+        return got
+    counted("pp", run_pp)
+
+    def run_ring():
+        mesh = topology.build_mesh(sp=2)
+        s = MP_RING[2] // 2
+        q, k, v, do = (t[:, :, rank * s:(rank + 1) * s].contiguous()
+                       for t in mp_ring_data(torch))
+        got = {}
+        for dt in ("float32", "bfloat16"):
+            tdt = getattr(torch, dt)
+            leaves = [t.to(tdt).requires_grad_(True) for t in (q, k, v)]
+            ms, hops = [], []
+            for _ in range(MP_RING_CALLS):
+                ra.hop_seconds.clear()
+
+                def call():
+                    o = ra.ring_attention(*leaves, mesh=mesh, causal=True)
+                    return (o, *torch.autograd.grad(o, leaves, do.to(tdt)))
+                outs, t = event_ms(call)
+                ms.append(t)
+                hops.append([h * 1e3 for h in ra.hop_seconds])
+            plain_leaves = [t.detach().requires_grad_(True) for t in leaves]
+            po = ra.ring_attention_reference(*plain_leaves, mesh=mesh, causal=True)
+            plain = (po, *torch.autograd.grad(po, plain_leaves, do.to(tdt)))
+            plain_err = max(_rel_err(torch, a, b) for a, b in zip(outs, plain))
+            torch.save([a.detach().cpu() for a in outs], os.path.join(out, f"mp_c_{dt}_{rank}.pt"))
+            got[dt] = dict(ms=ms, hops_ms=hops, plain_err=plain_err)
+        return got
+    counted("ring", run_ring)
+    return res
+
+
+def mp_references(torch, mods):
+    """The one-device runs phase 25 holds the ranks against, made in this
+    process while the pods run: (a)'s plain Llama through build_train_step,
+    (b)'s PipelineLayer through PipelineParallel's sequential path (a mesh
+    without pp), (c)'s K1-K3 on the whole sequence."""
+    LlamaModel, PipelineLayer, PipelineParallel, nn, optimizer, spmd, prandom, fa = mods
+    refs = {}
+    model = mp_llama(torch, LlamaModel, False)
+    opt = optimizer.AdamW(LR, parameters=model.parameters(), weight_decay=0.01,
+                          grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    step, init = spmd.build_train_step(model, lambda o, t: mp_loss(torch, o, t), opt)
+    params, state = init()
+    x, y = mp_batch(torch, MP_TP_BATCH)
+    losses = []
+    for i in range(MP_STEPS):
+        loss, params, state = step(params, state, x, y,
+                                   key=prandom.fold_in(prandom.PRNGKey(0), i))
+        losses.append(float(loss))
+    refs["tp"] = dict(losses=losses, params={n: p.cpu() for n, p in params.items()})
+    del model, opt, step, init, params, state
+    model = mp_llama(torch, LlamaModel, False)
+    step, init = spmd.build_train_step(model, lambda o, t: mp_loss(torch, o, t),
+                                       optimizer.SGD(MP_SGD_LR, parameters=model.parameters()))
+    params, state = init()
+    before = {n: p.cpu() for n, p in params.items()}
+    _, params, _ = step(params, state, x, y, key=prandom.fold_in(prandom.PRNGKey(0), 0))
+    refs["tp"]["sgd"] = (before, {n: p.cpu() for n, p in params.items()})
+    del model, step, init, params, state
+    model = mp_pipe_model(torch, LlamaModel, PipelineLayer, nn)
+
+    class Strategy:
+        pipeline_configs = {"accumulate_steps": MP_MICRO}
+        amp = False
+    seq = PipelineParallel(model, strategy=Strategy())
+    opt = optimizer.AdamW(LR, parameters=model.parameters(), weight_decay=0.01,
+                          grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    x, y = mp_batch(torch, MP_PP_BATCH)
+    losses = [float(seq.train_batch((x, y), opt)) for _ in range(MP_STEPS)]
+    refs["pp"] = dict(losses=losses, state={n: p.detach().cpu()
+                                            for n, p in seq.state_dict().items()})
+    del model, seq, opt
+    model = mp_pipe_model(torch, LlamaModel, PipelineLayer, nn)
+    seq = PipelineParallel(model, strategy=Strategy())
+    before = {n: p.detach().cpu() for n, p in seq.state_dict().items()}
+    seq.train_batch((x, y), optimizer.SGD(MP_SGD_LR, parameters=model.parameters()))
+    refs["pp"]["sgd"] = (before, {n: p.detach().cpu() for n, p in seq.state_dict().items()})
+    del model, seq
+    q, k, v, do = (t.flatten(0, 1) for t in mp_ring_data(torch))
+    refs["ring"] = {}
+    for dt in ("float32", "bfloat16"):
+        args = [t.to(getattr(torch, dt)) for t in (q, k, v)]
+        scale = MP_RING[3] ** -0.5
+        o, lse = fa._fwd(*args, 0, scale, True, 0.0)
+        grads = fa._bwd(*args, o, lse, do.to(args[0].dtype), 0, scale, True, 0.0)
+        refs["ring"][dt] = [t.view(MP_RING).cpu() for t in (o, *grads)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def phase_model_parallel(torch, ranks, out, refs, cases, card):
+    """Phase 25's checks on what the ranks wrote (module docstring)."""
+    t0 = time.perf_counter()
+    bad = []
+    m = [r["model_parallel"] for r in ranks]
+    layers, heads = MP_CFG["num_layers"], MP_CFG["num_heads"]
+    kernels = ("fwd", "dq", "dkv")
+    # each mode's AdamW steps and its SGD step
+    expect_tp = {f"{k} {MP_SEQ} {MP_SEQ} float32 True": layers * (MP_STEPS + 1)
+                 for k in kernels}
+    expect_pp = {f"{k} {MP_SEQ} {MP_SEQ} float32 True": layers // 2 * MP_MICRO * (MP_STEPS + 1)
+                 for k in kernels}
+    half = MP_RING[2] // 2
+    for rank, g in enumerate(m):
+        # each rank's own diagonal causal, rank 1's earlier block unmasked
+        expect_ring = {f"{k} {half} {half} {dt} {c}": n * MP_RING_CALLS
+                       for k in kernels for dt in ("float32", "bfloat16")
+                       for c, n in ((True, 1), (False, rank)) if n}
+        for mode, want in (("tp", expect_tp), ("pp", expect_pp), ("ring", expect_ring)):
+            if g[mode]["masks"] != want:
+                bad.append(f"{mode}: rank {rank} launched {g[mode]['masks']}, expected {want}")
+
+    def close(got, want):
+        return all(abs(a - b) <= MP_ATOL + MP_RTOL * abs(b) for a, b in zip(got, want))
+
+    def sgd_err(name, ref):
+        # the SGD step's gradient (p0 - p1) / lr against one device's, each
+        # tensor relative to the one-device gradient's max: the worst, and
+        # its tensor
+        got, (p0, p1) = torch.load(os.path.join(out, name)), ref["sgd"]
+        if set(got) != set(p1):
+            return float("inf"), "the names differ"
+        return max((((got[n].float() - w.float()).abs().max()
+                     / (p0[n].float() - w.float()).abs().max().clamp_min(1e-30)).item(), n)
+                   for n, w in p1.items())
+
+    # (a)
+    ref = refs["tp"]
+    got = torch.load(os.path.join(out, "mp_a.pt"))
+    perr = _worst_abs(got, ref["params"])
+    gerr, gname = sgd_err("mp_a_sgd.pt", ref)
+    share = [g["tp"]["share"] for g in m]
+    log(f"[model parallel] (a) LlamaModel(tensor_parallel=True), Llama-374M width at depth "
+        f"{layers}, build_mesh(mp=2) ({heads // 2} heads a rank), {MP_STEPS} O0 f32 AdamW steps "
+        f"at {MP_TP_BATCH} x {MP_SEQ}: losses " + " / ".join(
+            f"rank {i} " + " ".join(f"{v:.6f}" for v in g["tp"]["losses"]) for i, g in enumerate(m))
+        + " one device " + " ".join(f"{v:.6f}" for v in ref["losses"])
+        + f" (rtol {MP_RTOL}, atol {MP_ATOL}); gathered parameters max abs err {perr:.3e} "
+        f"(tolerance {2.5 * LR:.1e}); one SGD step's gradient {gerr:.3e} of each tensor's max "
+        f"(tolerance {TOL_STEP_GRAD:.0e}; worst {gname}); RMSNorm weights bitwise on both ranks "
+        f"{[g['tp']['norm_bitwise'] for g in m]}; a rank's stamped bytes {share} of the whole; "
+        f"K1/K2/K3 {[g['tp']['counts'] for g in m]}; step ms a rank (CUDA events) "
+        + " / ".join(" ".join(f"{v:.1f}" for v in g["tp"]["ms"]) for g in m) + f" [{card}]")
+    if not all(close(g["tp"]["losses"], ref["losses"]) for g in m):
+        bad.append("(a) losses")
+    if not perr <= 2.5 * LR:
+        bad.append("(a) parameters")
+    if not gerr <= TOL_STEP_GRAD:
+        bad.append("(a) the SGD step's gradient")
+    if not all(g["tp"]["norm_bitwise"] for g in m) or any(abs(v - 0.5) > 1e-9 for v in share):
+        bad.append("(a) the replicated parameters differ, or a rank holds other than half")
+
+    # (b)
+    ref = refs["pp"]
+    got = torch.load(os.path.join(out, "mp_b.pt"))
+    perr = _worst_abs(got, ref["state"])
+    gerr, gname = sgd_err("mp_b_sgd.pt", ref)
+    sched = m[0]["pp"]["schedule"]
+    log(f"[model parallel] (b) fleet pipe mode ({m[0]['pp']['wrapper']}, pp_degree 2, "
+        f"accumulate_steps {MP_MICRO}), {layers // 2} decoder layers a stage, {MP_STEPS} O0 f32 "
+        f"AdamW steps at {MP_PP_BATCH} x {MP_SEQ}: losses " + " / ".join(
+            f"rank {i} " + " ".join(f"{v:.6f}" for v in g["pp"]["losses"]) for i, g in enumerate(m))
+        + " sequential one device " + " ".join(f"{v:.6f}" for v in ref["losses"])
+        + f"; bitwise on both ranks {[g['pp']['loss_bitwise'] for g in m]}; state_dict max abs "
+        f"err {perr:.3e} (tolerance {2.5 * LR:.1e}); one SGD step's gradient {gerr:.3e} of each "
+        f"tensor's max (tolerance {TOL_STEP_GRAD:.0e}; worst {gname}); schedule {sched}; ms in recv a step "
+        + " / ".join(" ".join(f"{v:.1f}" for v in g["pp"]["recv_ms"]) for g in m)
+        + "; step ms a rank (CUDA events) "
+        + " / ".join(" ".join(f"{v:.1f}" for v in g["pp"]["ms"]) for g in m) + f" [{card}]")
+    if not all(close(g["pp"]["losses"], ref["losses"]) for g in m):
+        bad.append("(b) losses")
+    if not perr <= 2.5 * LR or set(got) != set(ref["state"]):
+        bad.append("(b) parameters")
+    if not gerr <= TOL_STEP_GRAD:
+        bad.append("(b) the SGD step's gradient")
+    if not all(g["pp"]["loss_bitwise"] for g in m) or abs(sched["bubble_fraction"] - 0.2) > 1e-12:
+        bad.append("(b) the loss differs between the ranks, or the schedule")
+
+    # (c)
+    for dt in ("float32", "bfloat16"):
+        parts = [torch.load(os.path.join(out, f"mp_c_{dt}_{r}.pt")) for r in range(len(ranks))]
+        errs = []
+        for i, want in enumerate(refs["ring"][dt]):
+            joined = torch.cat([p[i] for p in parts], dim=2).float()
+            w = want.float()
+            if dt == "float32":
+                errs.append(((joined - w).abs() - TOL_RING[dt] * w.abs()).max().item())
+            else:
+                errs.append((joined - w).abs().max().item() / w.abs().max().item())
+        hops = [h for g in m for call in g["ring"][dt]["hops_ms"][1:] for h in call]
+        tol = TOL_RING[dt]
+        held = (f"|err| - {tol} |ref| within {tol}" if dt == "float32"
+                else f"within {tol} of the max")
+        plain = ", ".join(f"{g['ring'][dt]['plain_err']:.2e}" for g in m)
+        log(f"[model parallel] (c) ring_attention over build_mesh(sp=2), {list(MP_RING)} causal, "
+            f"{MP_RING[2] // 2} positions a rank, {dt}: O, dQ, dK, dV joined vs one-device K1-K3 "
+            f"on the whole " + " ".join(f"{e:.2e}" for e in errs)
+            + f" ({held}); vs the plain fold on the card {plain} of the max; a call (forward + "
+            f"backward) ms " + " / ".join(
+                " ".join(f"{v:.1f}" for v in g["ring"][dt]["ms"]) for g in m)
+            + f"; a hop through the host ms median {_median(hops):.2f} max {max(hops):.2f} "
+            f"({len(hops) // max(1, 2 * (MP_RING_CALLS - 1))} hops a call a rank); launches "
+            f"over {MP_RING_CALLS} calls by kernel and mask (causal) " + " / ".join(
+                f"rank {i} " + ", ".join(f"{k.split()[0]} {k.split()[-1]} {n}"
+                                         for k, n in g["ring"]["masks"].items() if dt in k)
+                for i, g in enumerate(m)) + f" [{card}]")
+        if not max(errs) <= tol:
+            bad.append(f"(c) {dt} against the one-device kernels")
+        if not all(g["ring"][dt]["plain_err"] <= TOL_GRAD[dt] for g in m):
+            bad.append(f"(c) {dt} against the plain fold")
+    if bad:
+        fail(f"phase 25: {'; '.join(bad)}")
+    counts = [sum(g[mode]["counts"][i] for g in m for mode in ("tp", "pp", "ring"))
+              for i in range(3)]
+    secs = {mode: max(g[mode]["seconds"] for g in m) for mode in ("tp", "pp", "ring")}
+    log(f"[model parallel] phase 25: the ranks' modes " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()) + f" s ({sum(secs.values()):.1f} s), the checks "
+        f"{time.perf_counter() - t0:.1f} s; K1/K2/K3 over both ranks {counts} [{card}]")
+    forms = {mode: [sum(g[mode]["counts"][i] for g in m) for i in range(3)]
+             for mode in ("tp", "pp")}
+    # (c)'s launches by block form, as the wrapper counted them by mask
+    ring_forms = {f"ring_{b}_{dt}": [0, 0, 0] for b in ("diag", "block")
+                  for dt in ("float32", "bfloat16")}
+    for g in m:
+        for key, n in g["ring"]["masks"].items():
+            kernel, _, _, dt, causal = key.split()
+            ring_forms[f"ring_{'diag' if causal == 'True' else 'block'}_{dt}"][
+                kernels.index(kernel)] += n
+    return dict(counts=counts, cases=cases, forms=dict(forms, **ring_forms),
+                seconds=sum(secs.values()) + time.perf_counter() - t0)
+
+
 def stop_children(grace=5.0):
     """End the processes this one started that are still alive at the end,
     each logged with its command line: the script leaves none running.
@@ -9522,6 +10083,32 @@ def stop_children(grace=5.0):
         except OSError:
             pass
     return kids
+
+
+def depth_sweep(torch, fa, mods, card, depths):
+    """``--depth-sweep D1,D2,...``: phases 6-10 (generation, the engine,
+    reuse, speculation, faults) at each depth of the 7B in turn, every
+    check held, in one process on one host; their seconds at each depth
+    in one JSON line at the end."""
+    global LLAMA_LAYERS
+
+    serving_mods, gen_mods, eng_mods, robust_mods = mods
+    bert = phase_serving(torch, fa, serving_mods)["model"]
+    rows = []
+    for depth in depths:
+        LLAMA_LAYERS = depth
+        t0 = time.perf_counter()
+        gen = phase_generation(torch, fa, gen_mods, card)
+        eng = phase_engine(torch, fa, eng_mods, card, gen)
+        phase_reuse(torch, fa, eng_mods[1:], card, eng)
+        phase_spec(torch, fa, eng_mods[1:], card, eng)
+        phase_robust(torch, fa, robust_mods, card, eng, bert)
+        rows.append(dict(depth=depth, seconds=time.perf_counter() - t0))
+        log(f"[depth sweep] phases 6-10 at depth {depth}: {rows[-1]['seconds']:.1f} s [{card}]")
+        del gen, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(json.dumps({"depth_sweep": rows, "card": card}))
 
 
 def fill_chunk_sweep(torch, fa, mods, card, chunks):
@@ -9616,10 +10203,14 @@ def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":
         return dp_rank(sys.argv[2:])
     if len(sys.argv) > 1 and not (leaves_alone or dp_alone):
-        if len(sys.argv) != 3 or sys.argv[1] != "--fill-sweep":
-            fail("usage: chip_smoke.py [--fill-sweep C1,C2,... | --leaves | --dp | "
+        if len(sys.argv) != 3 or sys.argv[1] not in ("--fill-sweep", "--depth-sweep"):
+            fail("usage: chip_smoke.py [--fill-sweep C1,C2,... | --depth-sweep D1,D2,... | "
+                 "--leaves | --dp | "
                  "--decode-replica PORTFILE PHASE PREFIX_DIR | --dp-rank OUT]")
         sweep = [int(c) for c in sys.argv[2].split(",")]
+    # a failed check ends the run through sys.exit: the processes it started
+    # (the pods of phases 23-25, replicas, the NMS forkserver) end with it
+    atexit.register(stop_children)
     try:
         import torch
     except ImportError as e:
@@ -9692,7 +10283,7 @@ def main():
     leaves_mods = (paddle, vision_ops, LlamaModel, generation, DecodeEngine, quantization, utils,
                    distribution, incubate_autograd)
     dp_mods = (BertForPretraining, nn, optimizer, spmd, prandom, paddle, pdist, launch_mod,
-               parallel, topology, vision, BertEmbeddings)
+               parallel, topology, vision, BertEmbeddings, LlamaModel)
     if leaves_alone:
         phase_leaves(torch, fa, qmm, leaves_mods, card)
         took("leaves")
@@ -9701,6 +10292,16 @@ def main():
     if dp_alone:
         phase_dp(torch, fa, dp_mods, card)
         took("dp")
+        stop_children()
+        return
+    if sweep and sys.argv[1] == "--depth-sweep":
+        depth_sweep(torch, fa, (
+            (BertModel, BatchingEngine, PredictorServer, wire_spec),
+            (LlamaModel, generation, prandom, Graph, pool_bytes),
+            (LlamaModel, generation, DecodeEngine, PredictorServer, wire_spec),
+            (generation, DecodeEngine, BatchingEngine, PredictorServer, wire_spec, chaos, obs)),
+            card, sweep)
+        took("depth sweep")
         stop_children()
         return
     if sweep:
@@ -9767,6 +10368,16 @@ def main():
     import shutil
     import tempfile
 
+    # phases 23-25's pods start here and run beside phases 18-19 (and 20's
+    # start when a slow host stretches them); phase_dp collects them
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_started = dp_start(torch, fa, launch_mod)
+    # while the ranks run, this process may fill at most DP_PARENT_SHARE of
+    # the card: phase 19 (e)'s batch probe grows until an allocation fails,
+    # and a rank allocating at that moment would fail with it
+    torch.cuda.set_per_process_memory_fraction(DP_PARENT_SHARE)
+    took("dp start")
     saves = tempfile.mkdtemp(prefix="paddle_tpu_torch_deploy_")
     try:
         deploy = phase_deploy(torch, fa, qmm, (paddle, jit, inference, serve_model, InputSpec,
@@ -9793,7 +10404,8 @@ def main():
     took("leaves")
     gc.collect()
     torch.cuda.empty_cache()
-    dp = phase_dp(torch, fa, dp_mods, card, one_rank_ms=train["step_ms"])
+    torch.cuda.set_per_process_memory_fraction(1.0)
+    dp = phase_dp(torch, fa, dp_mods, card, one_rank_ms=train["step_ms"], started=dp_started)
     took("dp")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
@@ -9866,6 +10478,11 @@ def main():
     # its timed steps made in that form
     f16_fwd, f16_bwd = (next(r for r in rows if r["dtype"] == "float16" and r["b"] == 64
                              and r["h"] == 12 and r["p"] == 0.1) for rows in (cases, bwd_cases))
+    # phase 25's forms and the launches its modes made in each
+    mpar = dp["model_parallel"]
+
+    def mp_form(r):
+        return r["name"] if r["name"] in ("tp", "pp") else f"{r['name']}_{r['dtype']}"
 
     def timing(r, suffix=""):
         # ms: CUDA events over back-to-back calls; device_ms: the kernels'
@@ -9896,11 +10513,14 @@ def main():
                        + mtt["parity_counts"][0] + dyg["counts"]["fwd"] + dyg["extra"][0]
                        + deploy["launches"][0] + static["launches"][0] + fleet["launches"]
                        + safety["launches"][0] + leaves["k1_launches"] + dp["counts"][0]
-                       + dp["meshed"]["counts"][0]),
+                       + dp["meshed"]["counts"][0] + mpar["counts"][0]),
              # phase 23's: both ranks' (a) O0, (b) O1 and (c) eager steps
              dp_launches=dp["counts"][0],
              # phase 24's: both ranks' every mode (FSDP's recompute twice a layer)
              meshed_launches=dp["meshed"]["counts"][0],
+             # phase 25's: both ranks' (a) tensor-parallel, (b) pipeline and
+             # (c) ring calls
+             model_parallel_launches=mpar["counts"][0],
              # phase 22's: the flat-list quantized 7B-width model's fills and
              # steps (float32, head_dim 128)
              leaves_launches=leaves["k1_launches"],
@@ -9960,15 +10580,29 @@ def main():
              # bh_offset 384, float32 (O0) and bfloat16 (O1)
              **{k: v for r in dp["cases"] for k, v in fields(
                  r, f"dp_{r['dtype']}_", bh_offset=r["bh_offset"],
-                 slice_bitwise=r["slice_bitwise"]).items()}),
+                 slice_bitwise=r["slice_bitwise"]).items()},
+             # phase 25: (a)'s head group, (b)'s stage, (c)'s ring blocks,
+             # each with the launches of its mode in that form
+             **{k: v for r in mpar["cases"] for k, v in fields(
+                 r, f"mp_{r['name']}_{r['dtype']}_",
+                 launches=mpar["forms"][mp_form(r)][0]).items()}),
         *(dict(name=kernels[i]["name"], route="cuda", source=kernels[i]["source"],
                replaces=kernels[i]["replaces"],
                launches=(train["counts"][key] + lm_launch[key] + lm["parity_counts"][i]
                          + mtt["counts"][key] + mtt["parity_counts"][i] + dyg["counts"][key]
                          + dyg["extra"][i] + deploy["launches"][i] + static["launches"][i]
                          + safety["launches"][i] + dp["counts"][i]
-                         + dp["meshed"]["counts"][i]),
+                         + dp["meshed"]["counts"][i] + mpar["counts"][i]),
                dp_launches=dp["counts"][i], meshed_launches=dp["meshed"]["counts"][i],
+               model_parallel_launches=mpar["counts"][i],
+               **{f"mp_{r['name']}_{r['dtype']}_{k}": v for r in mpar["cases"] for k, v in dict(
+                   max_abs_err=r["abs_err_" + which], ms=r["ms_" + which],
+                   device_ms=r["device_ms_" + which], plain_ms=r["bwd_plain_ms"],
+                   plain_device_ms=r["bwd_plain_device_ms"], library_ms=r["bwd_library_ms"],
+                   library_device_ms=r["bwd_library_device_ms"],
+                   bound_ms=r["bound_" + which][0], bound_by=r["bound_" + which][1]).items()},
+               **{f"mp_{r['name']}_{r['dtype']}_launches": mpar["forms"][mp_form(r)][i]
+                  for r in mpar["cases"]},
                # phase 23: a rank's [32 * 12, 128, 64] with dropout 0.1 and
                # bh_offset 384, float32 and bfloat16
                **{f"dp_{r['dtype']}_{k}": v for r in dp["cases"] for k, v in dict(
@@ -10014,6 +10648,7 @@ def main():
                           "bound_ms", "bound_by", "cuda_core_bound", "splits")}),
     ]
     stop_children()
+    atexit.unregister(stop_children)
     log(card)
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

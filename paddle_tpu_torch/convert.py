@@ -26,7 +26,7 @@ first name, since a tie cannot hold two values.
 import numpy as np
 import torch
 
-_LAYOUTS = ("zero", "fsdp", "rows")
+_LAYOUTS = ("zero", "fsdp", "rows", "mp", "pp")
 
 
 def _aliases(module):
@@ -141,7 +141,7 @@ def set_by_position(program, state):
         p.set_value(arr)
 
 
-def _layout_dim(name, shape, world, layout):
+def _layout_dim(name, shape, world, layout, dims):
     """The dimension ``layout`` splits an array of ``shape`` on, or None."""
     from .distributed.spmd import zero_dim
 
@@ -149,7 +149,12 @@ def _layout_dim(name, shape, world, layout):
         raise ValueError(f"layout must be one of {_LAYOUTS}, got {layout!r}")
     if layout == "fsdp":
         return zero_dim(shape, world, start=1) if name.startswith("trunk.") else None
-    return zero_dim(shape, world)
+    if layout == "mp":
+        d = (dims or {}).get(name)
+        return d if d is not None and d < len(shape) else None
+    if layout == "pp":
+        return 0 if name.startswith("stages.") and len(shape) else None
+    return zero_dim(shape, world, start=2 if name.startswith("stages.") else 0)
 
 
 def _walk(fn, tree, *others, name=""):
@@ -163,14 +168,34 @@ def _walk(fn, tree, *others, name=""):
     return fn(name, tree, *others)
 
 
-def to_rank_state(state, rank, world, layout="zero"):
-    """Rank ``rank``'s part of a global state (see the module docstring),
-    as numpy arrays."""
+def to_rank_state(state, rank, world, layout="zero", dims=None):
+    """Rank ``rank``'s part (of ``world`` ranks) of a global state of the
+    JAX package (parameters or optimizer state, keyed by parameter name),
+    as numpy arrays, in the layout a rank of the port holds:
+
+    - "zero": ZeRO's block over the data ranks, on the first dimension
+      ``world`` divides (from 2 for a pipeline's ``stages.*``), else whole;
+    - "fsdp": ``build_fsdp_train_step``'s ``trunk.*`` on the first
+      per-layer dimension ``world`` divides;
+    - "rows": row ``rank`` (a per-rank stack such as LocalSGD's);
+    - "mp": the block on the dimension ``dims[name]`` (a step's
+      ``mp_dims``: the ``mp_spec`` dimension), else whole;
+    - "pp": stage ``rank``'s ``[1, lps, ...]`` of a ``stages.*`` array
+      ``[S, lps, ...]``, else whole.
+
+    ``layout`` may be a tuple of them, applied in order, with ``rank`` and
+    ``world`` tuples alike: ``("pp", "mp", "zero")`` cuts the stage, then
+    its mp block, then ZeRO's block of that."""
+    if isinstance(layout, tuple):
+        for r, w, lay in zip(rank, world, layout):
+            state = to_rank_state(state, r, w, lay, dims)
+        return state
+
     def one(name, a):
         a = np.asarray(getattr(a, "_value", a))
         if layout == "rows":
             return a[rank]
-        d = _layout_dim(name, a.shape, world, layout)
+        d = _layout_dim(name, a.shape, world, layout, dims)
         if d is None:
             return a
         k = a.shape[d] // world
@@ -178,16 +203,24 @@ def to_rank_state(state, rank, world, layout="zero"):
     return _walk(one, state)
 
 
-def from_rank_states(states, like, layout="zero"):
+def from_rank_states(states, like, layout="zero", dims=None):
     """The global state from every rank's part (``states``, in rank
     order), the inverse of ``to_rank_state``; ``like`` gives the
-    structure and the global shapes."""
+    structure and the global shapes. For a tuple ``layout``, ``states``
+    nests in the same order (``states[i][j]``: rank i of the first layout,
+    rank j of the second)."""
     world = len(states)
+    if isinstance(layout, tuple):
+        if len(layout) == 1:
+            return from_rank_states(states, like, layout[0], dims)
+        inner = to_rank_state(like, 0, world, layout[0], dims)
+        return from_rank_states([from_rank_states(s, inner, layout[1:], dims) for s in states],
+                                like, layout[0], dims)
 
     def one(name, ref, *parts):
         parts = [np.asarray(p) for p in parts]
         if layout == "rows":
             return np.stack(parts)
-        d = _layout_dim(name, np.shape(getattr(ref, "_value", ref)), world, layout)
+        d = _layout_dim(name, np.shape(getattr(ref, "_value", ref)), world, layout, dims)
         return parts[0] if d is None else np.concatenate(parts, axis=d)
     return _walk(one, like, *states)

@@ -26,19 +26,23 @@ from ..ops import flash_attention, quant_matmul
 # (module, counter): K1, K2, K3, wq_matmul
 _COUNTERS = ((flash_attention, "launches"), (flash_attention, "dq_launches"),
              (flash_attention, "dkv_launches"), (quant_matmul, "launches"))
+# K1-K3's launches by form, and by form and mask
+_FORMS = ("form_launches", "mask_launches")
 
 
 def _counts():
     return (tuple(getattr(mod, name) for mod, name in _COUNTERS),
-            dict(flash_attention.form_launches))
+            tuple(dict(getattr(flash_attention, name)) for name in _FORMS))
 
 
 def _credit(counts, sign=1):
     totals, forms = counts
     for (mod, name), n in zip(_COUNTERS, totals):
         setattr(mod, name, getattr(mod, name) + sign * n)
-    for key, n in forms.items():
-        flash_attention.form_launches[key] = flash_attention.form_launches.get(key, 0) + sign * n
+    for name, made in zip(_FORMS, forms):
+        held = getattr(flash_attention, name)
+        for key, n in made.items():
+            held[key] = held.get(key, 0) + sign * n
 
 
 class Graph:
@@ -49,7 +53,8 @@ class Graph:
     time. ``pool``: a ``torch.cuda.graph_pool_handle()`` to share with
     other graphs that never replay concurrently, or None for a pool of its
     own. ``launches``: the (K1, K2, K3, wq_matmul) launches one replay makes;
-    ``form_launches``: K1-K3's of them by form (``flash_attention.form_launches``);
+    ``form_launches``: K1-K3's of them by form, and by form and mask
+    (``flash_attention.form_launches``, ``mask_launches``);
     ``capture_ms``: host time of the capture and its instantiation."""
 
     def __init__(self, fn, device, pool=None):
@@ -71,8 +76,8 @@ class Graph:
             finally:
                 (totals, forms), (totals0, forms0) = _counts(), before
                 made = (tuple(a - b for a, b in zip(totals, totals0)),
-                        {k: n - forms0.get(k, 0) for k, n in forms.items()
-                         if n != forms0.get(k, 0)})
+                        tuple({k: n - f0.get(k, 0) for k, n in f.items() if n != f0.get(k, 0)}
+                              for f, f0 in zip(forms, forms0)))
                 _credit(made, sign=-1)
             self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.launches, self.form_launches = made

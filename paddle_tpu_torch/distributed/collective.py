@@ -22,8 +22,9 @@ of the reference (``psum``, ``pmean``, ``pmax``, ``all_gather_spmd``,
 ``ppermute``, ``all_to_all_spmd``) are the same collectives over the
 named axis, returning new tensors.
 
-The training steps' own helpers (spmd.py, comm_opt.py, sharding.py):
-``coalesced_mean`` (one all-reduce mean per dtype), ``shard`` (a rank's
+The training steps' own helpers (spmd.py, comm_opt.py, sharding.py,
+pipeline.py): ``coalesced_mean`` (one all-reduce mean per dtype),
+``coalesced_sum`` (the same sum undivided), ``shard`` (a rank's
 block of a tensor along a dimension), ``coalesced_reduce_scatter`` (the
 group's mean, of which each rank keeps its blocks: NCCL's
 ``reduce_scatter_tensor``; over gloo, which has no CUDA reduce-scatter,
@@ -105,10 +106,12 @@ def _global(pg, rank):
 
 
 @contextlib.contextmanager
-def _staged(op, pg, *tensors):
+def _staged(op, pg, *tensors, inputs=0):
     """Yield the tensors the op runs on: over a gloo group, for an op gloo
     runs on the host only, CPU copies of the CUDA ones, copied back into
-    the originals when the op is done; else the tensors themselves."""
+    the originals when the op is done (all but the first ``inputs``, which
+    the op only reads: an input is never written, so autograd's saved
+    tensors keep their version); else the tensors themselves."""
     host = (any(t.is_cuda for t in tensors) and op in _GLOO_HOST_OPS
             and dist.get_backend(pg) == "gloo")
     if not host:
@@ -116,7 +119,7 @@ def _staged(op, pg, *tensors):
         return
     copies = tuple(t.cpu() if t.is_cuda else t for t in tensors)
     yield copies
-    for t, c in zip(tensors, copies):
+    for t, c in list(zip(tensors, copies))[inputs:]:
         if c is not t:
             t.copy_(c)
 
@@ -205,7 +208,7 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
         raise ValueError(f"scatter needs {n} tensors on its source, got "
                          f"{0 if tensor_list is None else len(tensor_list)}")
     parts = list(tensor_list) if me == src else []
-    with _staged("scatter", pg, tensor, *parts) as (t, *ps):
+    with _staged("scatter", pg, *parts, tensor, inputs=len(parts)) as (*ps, t):
         dist.scatter(t, [p.contiguous() for p in ps] if me == src else None,
                      src=_global(pg, src), group=pg)
     return tensor
@@ -216,6 +219,16 @@ def coalesced_mean(tensors, group=None):
     (dtype, device): the tensors are packed into one flat buffer, summed
     over the group and divided by its size (the reference's mean over
     processes; with two ranks (a + b) / 2 bitwise). One rank: nothing."""
+    return _coalesced_reduce(tensors, group, mean=True)
+
+
+def coalesced_sum(tensors, group=None):
+    """``coalesced_mean`` without the division: each tensor summed over the
+    group in place."""
+    return _coalesced_reduce(tensors, group, mean=False)
+
+
+def _coalesced_reduce(tensors, group, mean):
     pg, n, _ = _pg(group)
     if pg is None:
         return tensors
@@ -225,7 +238,8 @@ def coalesced_mean(tensors, group=None):
     for ts in buckets.values():
         flat = torch.cat([t.reshape(-1) for t in ts])
         dist.all_reduce(flat, dist.ReduceOp.SUM, group=pg)
-        flat.div_(n)
+        if mean:
+            flat.div_(n)
         off = 0
         for t in ts:
             t.copy_(flat[off:off + t.numel()].view_as(t))
@@ -342,7 +356,7 @@ def all_to_all(out_tensor_list, in_tensor_list, group=None, sync_op=True):
         out_tensor_list.extend(t.clone() for t in in_tensor_list)
         return out_tensor_list
     outs = [torch.empty_like(t) for t in in_tensor_list]
-    with _staged("all_to_all", pg, *in_tensor_list, *outs) as staged:
+    with _staged("all_to_all", pg, *in_tensor_list, *outs, inputs=n) as staged:
         ins, os_ = list(staged[:n]), list(staged[n:])
         # gloo has no all_to_all: each rank scatters its list, in turn
         if dist.get_backend(pg) == "gloo":
@@ -373,7 +387,7 @@ def send(tensor, dst=0, group=None, sync_op=True):
     pg, _, _ = _pg(group)
     if pg is None:
         raise RuntimeError("send needs a peer: this process is the group's one rank")
-    with _staged("send", pg, tensor) as (t,):
+    with _staged("send", pg, tensor, inputs=1) as (t,):
         dist.send(t.contiguous(), _global(pg, dst), group=pg)
     return tensor
 
@@ -388,12 +402,43 @@ def recv(tensor, src=0, group=None, sync_op=True):
     return tensor
 
 
+_SPLIT_LAYERS = {}
+
+
 def split(x, size, operation, axis=0, num_partitions=1, gather_out=True, weight_attr=None,
           bias_attr=None, name=None):
-    """reference: collective.py:1021, tensor-parallel layers over 'mp'."""
-    raise NotImplementedError(
-        "distributed.split builds tensor-parallel layers: not ported yet (the model-parallel "
-        "slice, meta_parallel)")
+    """reference: collective.py:1021 paddle.distributed.split — build and
+    apply a tensor-parallel fc or embedding over 'mp'
+    (``meta_parallel.mp_layers``). operation "linear": axis 0 shards the
+    input dimension (RowParallelLinear), axis 1 the output dimension
+    (ColumnParallelLinear, ``gather_out``); "embedding": the vocabulary
+    (VocabParallelEmbedding). A named layer is cached by ``name``, so
+    repeated calls reuse its weights; an anonymous one is built anew, on
+    ``x``'s device. Its weights are whole, as the reference's; inside a
+    tensor-parallel scope they are the rank's blocks."""
+    from .meta_parallel import ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding
+
+    layer = _SPLIT_LAYERS.get(name) if name else None
+    if layer is None:
+        dev = x.device if isinstance(x, torch.Tensor) else None
+        if operation == "linear":
+            in_f, out_f = size
+            if axis == 1:
+                layer = ColumnParallelLinear(in_f, out_f, has_bias=bias_attr is not False,
+                                             gather_output=gather_out, device=dev)
+            elif axis == 0:
+                layer = RowParallelLinear(in_f, out_f, has_bias=bias_attr is not False,
+                                          input_is_parallel=False, device=dev)
+            else:
+                raise ValueError(f"linear split axis must be 0 or 1, got {axis}")
+        elif operation == "embedding":
+            vocab, dim = size
+            layer = VocabParallelEmbedding(vocab, dim, device=dev)
+        else:
+            raise ValueError(f"unknown split operation {operation!r}")
+        if name:
+            _SPLIT_LAYERS[name] = layer
+    return layer(x)
 
 
 # ------------------------------------------------ the reference's in-graph names
@@ -422,7 +467,7 @@ def ppermute(x, axis, perm):
     out = torch.zeros_like(x)
     if pg is None:
         return x.clone() if (0, 0) in [tuple(p) for p in perm] else out
-    with _staged("send", pg, x.contiguous(), out) as (xs, os_):
+    with _staged("send", pg, x.contiguous(), out, inputs=1) as (xs, os_):
         ops = []
         for src, dst in perm:
             if src == me:

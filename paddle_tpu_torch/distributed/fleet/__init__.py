@@ -4,9 +4,9 @@ fleet/: fleet_base.py Fleet facade, base/distributed_strategy.py over
 framework/distributed_strategy.proto:146-193).
 
 The JAX package's parameter-server names (``data_generator``,
-``dataset``, its datasets) and model-parallel names (the meta_parallel
-layers, ``get_rng_state_tracker``) are absent: later slices bring them.
-The PS runtime's functions are here and raise NotImplementedError.
+``dataset``, its datasets) are absent: a later slice brings them. The PS
+runtime's functions are here and raise NotImplementedError. The
+model-parallel layers come from ``distributed.meta_parallel``.
 """
 from .distributed_strategy import DistributedStrategy  # noqa: F401
 from . import metrics  # noqa: F401
@@ -22,6 +22,11 @@ from . import utils  # noqa: F401
 from .role_maker import (  # noqa: F401
     Role, RoleMakerBase, PaddleCloudRoleMaker, UserDefinedRoleMaker,
 )
+from ..meta_parallel import (  # noqa: F401
+    VocabParallelEmbedding, ColumnParallelLinear, RowParallelLinear,
+    PipelineLayer, LayerDesc, SharedLayerDesc,
+)
+from ..meta_parallel.mp_layers import get_rng_state_tracker  # noqa: F401
 
 
 def set_ps_tables(table_configs):

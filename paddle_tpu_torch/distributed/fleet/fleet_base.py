@@ -5,13 +5,14 @@ minimize:1161).
 
 ``fleet.init`` builds the hybrid topology from
 ``strategy.hybrid_configs`` (dp over every rank when they ask for one
-rank), ``distributed_model`` wraps a model in ``DataParallel`` for the
-data mode, and ``distributed_optimizer`` returns the
+rank), ``distributed_model`` wraps a model by the parallel mode
+(``PipelineParallel`` for the pipe mode or ``strategy.pipeline``,
+``ModelParallel`` for the model and hybrid modes, ``DataParallel``
+otherwise), and ``distributed_optimizer`` returns the
 ``HybridParallelOptimizer`` with gradient merge. The parameter-server
 runtime (``set_ps_tables``, ``init_server``, ``run_server``,
-``stop_server``, ``init_worker``, ``ps_client``, ``stop_worker``) and the
-pipe and model modes of ``distributed_model`` raise NotImplementedError
-naming the slice that brings them.
+``stop_server``, ``init_worker``, ``ps_client``, ``stop_worker``) raises
+NotImplementedError naming the slice that brings it.
 """
 from ...optimizer import Optimizer
 from .. import topology as topo_mod
@@ -19,7 +20,6 @@ from ..parallel import ParallelEnv, get_rank, get_world_size
 from .distributed_strategy import DistributedStrategy
 
 _PS = "the parameter-server slice (distributed/ps)"
-_MODEL_PARALLEL = "the model-parallel slice (meta_parallel)"
 
 
 class Fleet:
@@ -121,15 +121,16 @@ class Fleet:
     # --- model/optimizer wrapping ---
     def distributed_model(self, model):
         """reference: fleet_base.py distributed_model — picks the wrapper by
-        parallel mode: DataParallel for the data (and single) mode."""
+        parallel mode."""
         mode = self._hcg.get_parallel_mode() if self._hcg else "data"
         if mode == "pipe" or (self._strategy and self._strategy.pipeline):
-            raise NotImplementedError(
-                f"fleet.distributed_model: the pipe mode is not ported yet ({_MODEL_PARALLEL})")
+            from ..meta_parallel import PipelineParallel
+
+            return PipelineParallel(model, self._hcg, self._strategy)
         if mode in ("model", "hybrid"):
-            raise NotImplementedError(
-                f"fleet.distributed_model: the {mode} mode is not ported yet "
-                f"({_MODEL_PARALLEL})")
+            from ..meta_parallel import ModelParallel
+
+            return ModelParallel(model, self._hcg, self._strategy)
         from ..parallel import DataParallel
 
         return DataParallel(model)

@@ -133,12 +133,29 @@ dgc, localsgd with recompute, dgc, fp16_allreduce, sharding or offload.
 ``build_fsdp_train_step`` (reference spmd.py:482-651) is ZeRO-3 over a
 homogeneous trunk gathered one layer at a time; see its docstring.
 
+Tensor parallelism (reference spmd.py:73, :258-266): over a mesh with an
+"mp" axis of more than one rank, each parameter whose ``mp_spec`` shards a
+dimension over "mp" (a layer of ``meta_parallel.mp_layers``, or
+``LlamaModel(tensor_parallel=True)``) is held as the rank's block on that
+dimension (``mesh.rank_in("mp")``): ``init_fn`` and each step give the
+block, the others stay whole. The forward runs inside
+``mp_layers.tensor_parallel(mesh)``, where the stamped layers run their
+Megatron collectives over the mp group. The gradients are averaged over
+the data axes only; a norm clip adds the blocks' sums of squares over the
+mp ranks, and the bad-step flag is the same on every rank. ZeRO composes
+as the reference's ``has_mp`` says: an mp parameter keeps its mp layout at
+every stage (its gradient all-reduced, never reduce-scattered; never
+sharded at rest), and at stages 1-3 its optimizer state is sharded on
+the first dimension of the rank's block that the data ranks divide. The
+local-gradient modes refuse mp, as the reference's do.
+
 ``strategy`` (a fleet DistributedStrategy) maps ``amp`` (O1, or O2 with
 ``amp_configs.use_pure_fp16``), ``recompute``, ``fp16_allreduce``,
 ``dgc``, ``sharding`` and ``sharding_configs.offload`` as the reference
-does (spmd.py:139-187). A mesh axis other than dp and sharding of more
-than one rank (model parallel) raises NotImplementedError naming the
-slice that brings it.
+does (spmd.py:139-187). A "pp" or "sp" axis of more than one rank raises
+NotImplementedError (the pipeline's axes: ``pipeline.
+build_pipeline_train_step``, as in the reference, whose
+``build_train_step`` has no pipeline), and so does "ep" (the MoE slice's).
 """
 import contextlib
 import weakref
@@ -154,8 +171,11 @@ from ..core import random as random_core
 from ..nn.functional import norm as norm_fn
 from ..resilience.badstep import tree_nonfinite
 from . import collective, topology
+from .meta_parallel import mp_layers
 
-_MODEL_PARALLEL = "the model-parallel slice (meta_parallel)"
+_REFUSED_AXES = {"pp": "the pipeline's axis: use pipeline.build_pipeline_train_step",
+                 "sp": "the pipeline's axis: use pipeline.build_pipeline_train_step",
+                 "ep": "expert parallelism is the MoE slice's, not ported yet"}
 
 
 def param_sharding_spec(layer, mesh):
@@ -227,22 +247,38 @@ class DataGroup:
         """``clip_arrays``' ``sum_sq`` for gradients of which those at
         positions ``sharded`` are blocks: their sums of squares are added
         over the ranks (one all-reduce), the others' kept."""
-        def reduce(sums):
-            if not sharded:
-                return sums
-            both = collective.all_reduce(torch.stack([sums[i] for i in sharded]),
-                                         collective.ReduceOp.SUM, self.group)
-            out = list(sums)
-            for j, i in enumerate(sharded):
-                out[i] = both[j]
-            return out
-        return reduce
+        return sum_sq_over({self.group: sharded})
 
     def any(self, flag):
-        """A 0-d bool that is true on every rank where it is on one."""
-        t = collective.all_reduce(flag.to(torch.int32).reshape(1), collective.ReduceOp.MAX,
-                                  self.group)
-        return t.reshape(()).bool()
+        return any_over(flag, self.group)
+
+
+def any_over(flag, group):
+    """A 0-d bool that is true on every rank of ``group`` where it is on
+    one."""
+    t = collective.all_reduce(flag.to(torch.int32).reshape(1), collective.ReduceOp.MAX, group)
+    return t.reshape(()).bool()
+
+
+def sum_sq_over(blocks):
+    """``clip_arrays``' ``sum_sq`` for gradients that are blocks over
+    groups: ``blocks`` maps a collectives' group to the positions of the
+    gradients split over it, whose sums of squares are added over its
+    ranks (one all-reduce a group); the others' are kept. None when no
+    gradient is a block."""
+    blocks = {g: list(ix) for g, ix in blocks.items() if g is not None and ix}
+    if not blocks:
+        return None
+
+    def reduce(sums):
+        out = list(sums)
+        for group, ix in blocks.items():
+            both = collective.all_reduce(torch.stack([out[i] for i in ix]),
+                                         collective.ReduceOp.SUM, group)
+            for j, i in enumerate(ix):
+                out[i] = both[j]
+        return out
+    return reduce
 
 
 def _lr_tensor(lr, device):
@@ -255,7 +291,8 @@ def _check_blocks(optimizer, hypers, dims, what):
     if any(d is not None for d in dims.values()) and not type(optimizer)._elementwise(hypers):
         raise NotImplementedError(
             f"{what}: {type(optimizer).__name__}'s update reads the whole parameter's norm (its "
-            "trust ratio), so a rank cannot update its block alone; ZeRO with it is not ported")
+            "trust ratio), so a rank cannot update its block alone; ZeRO or tensor parallelism "
+            "with it is not ported")
 
 
 def _init_blocks(optimizer, params, dims, data):
@@ -340,11 +377,10 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
     from . import comm_opt
 
     mesh = mesh or topology.get_global_mesh()
-    model_axes = [f"a mesh axis {a} of {n} ranks" for a, n in mesh.shape.items()
-                  if a not in ("dp", "sharding") and n > 1]
-    if model_axes:
-        raise NotImplementedError(f"build_train_step: {'; '.join(model_axes)} not ported yet "
-                                  f"({_MODEL_PARALLEL})")
+    refused = [f"a mesh axis {a} of {n} ranks ({_REFUSED_AXES[a]})"
+               for a, n in mesh.shape.items() if a in _REFUSED_AXES and n > 1]
+    if refused:
+        raise NotImplementedError(f"build_train_step: {'; '.join(refused)}")
     if strategy is not None:
         if strategy.adaptive_localsgd or strategy.localsgd:
             _refuse_localsgd_mixes(strategy, recompute, fp16_allreduce, dgc_configs, offload,
@@ -375,8 +411,17 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
     if offload and dgc_configs is not None:
         raise NotImplementedError("offload does not compose with dgc")
     data = DataGroup(mesh)
+    tp = topology.AxisGroup(mesh) if mesh.axis_size("mp") > 1 else None
+    named = dict(layer.named_parameters())
+    # the dimension each parameter is split on over "mp" (None: whole)
+    mpd = {n: mp_layers.mp_dim(getattr(p, "mp_spec", None)) if tp is not None else None
+           for n, p in named.items()}
+    mp_names = [n for n in named if mpd[n] is not None]
     use_local = fp16_allreduce or dgc_configs is not None
     dgc = None
+    if use_local and mp_names:
+        raise NotImplementedError("dgc/fp16_allreduce compose with data parallelism only "
+                                  "(reference dgc_optimizer.py has the same constraint)")
     if use_local:
         if sharding_stage >= 2:
             raise NotImplementedError(
@@ -388,28 +433,36 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
     if amp_level not in ("O0", "O1", "O2"):
         raise ValueError(f"amp_level must be 'O0'|'O1'|'O2', got {amp_level!r}")
     amp_enabled = amp_level in ("O1", "O2")
-    named = dict(layer.named_parameters())
     names = list(named)
     hypers = optimizer._hypers()
     l1_coeff = type(optimizer)._take_l1(hypers)
     update_one = type(optimizer)._update_one
     grad_clip = optimizer._grad_clip
-    dims = {n: zero_dim(tuple(p.shape), data.n) if sharding_stage >= 1 else None
+
+    def mp_block(t, n):
+        return t if mpd[n] is None else tp.block(t, mpd[n])
+
+    # ZeRO's dimension of each parameter's (mp) block, for its state
+    dims = {n: zero_dim(tuple(mp_block(p, n).shape), data.n) if sharding_stage >= 1 else None
             for n, p in named.items()}
-    _check_blocks(optimizer, hypers, dims, "build_train_step")
+    _check_blocks(optimizer, hypers, {**dims, **{n: mpd[n] for n in mp_names}},
+                  "build_train_step")
     sharded = [n for n in names if dims[n] is not None]
-    grads_sharded = sharding_stage >= 2 and bool(sharded)
-    params_sharded = sharding_stage >= 3 and bool(sharded)
+    # an mp parameter keeps its mp layout: its gradient is all-reduced and
+    # it is whole (its mp block) at rest, whatever the stage
+    scattered = [n for n in sharded if mpd[n] is None] if sharding_stage >= 2 else []
+    at_rest = scattered if sharding_stage >= 3 else []
+    gathered = [n for n in sharded if n not in at_rest]
     comm_stats = {}
 
     def block(t, n):
         return collective.shard(t, dims[n], data.rank, data.n)
 
     def init_fn():
-        params = {n: p.detach().clone() for n, p in named.items()}
+        params = {n: mp_block(p.detach(), n).clone() for n, p in named.items()}
         opt_state = _init_blocks(optimizer, params, dims, data)
-        if params_sharded:
-            params = {n: block(p, n).clone() for n, p in params.items()}
+        if at_rest:
+            params = {n: block(p, n).clone() if n in at_rest else p for n, p in params.items()}
         if offload:
             opt_state = {n: tuple(_to_host(a) for a in st) for n, st in opt_state.items()}
             _sync(params.values())
@@ -429,6 +482,7 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
             if amp_enabled:
                 stack.enter_context(auto_cast(enable=True, level=amp_level,
                                               dtype=amp_dtype))
+            stack.enter_context(mp_layers.tensor_parallel(mesh))
             out = torch.func.functional_call(layer, {**leaves, **work}, (x,))
             return loss_fn(out, y), work
 
@@ -445,9 +499,9 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
         if lr is None:
             lr = optimizer.get_lr()
         whole = dict(params)
-        if params_sharded:  # ZeRO-3: the whole parameters for this step only
-            for n, t in zip(sharded, collective.coalesced_all_gather(
-                    [params[n] for n in sharded], [dims[n] for n in sharded], data.group)):
+        if at_rest:  # ZeRO-3: the whole parameters for this step only
+            for n, t in zip(at_rest, collective.coalesced_all_gather(
+                    [params[n] for n in at_rest], [dims[n] for n in at_rest], data.group)):
                 whole[n] = t
         leaves = {n: whole[n].detach().requires_grad_(True) for n in names}
         del whole
@@ -469,19 +523,20 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
                         grads, loss, new_buffers, opt_state.get("__comm__"), data.group,
                         fp16_allreduce, dgc, comm_stats)
                 else:
-                    rest = [n for n in names if dims[n] is None or not grads_sharded]
+                    rest = [n for n in names if n not in scattered]
                     for n in rest:
                         grads[n] = grads[n].contiguous()
                     collective.coalesced_mean([loss, *(grads[n] for n in rest)], data.group)
-                    if grads_sharded:
-                        for n, g in zip(sharded, collective.coalesced_reduce_scatter(
-                                [grads[n] for n in sharded], [dims[n] for n in sharded],
+                    if scattered:
+                        for n, g in zip(scattered, collective.coalesced_reduce_scatter(
+                                [grads[n] for n in scattered], [dims[n] for n in scattered],
                                 data.group)):
                             grads[n] = g
                 loss = loss.reshape(())
         if grad_clip is not None:
-            sum_sq = (data.sum_sq([names.index(n) for n in sharded]) if grads_sharded
-                      else None)
+            sum_sq = sum_sq_over({data.group: [names.index(n) for n in scattered],
+                                  None if tp is None else tp.group:
+                                  [names.index(n) for n in mp_names]})
             grads = dict(zip(names, grad_clip.clip_arrays([grads[n] for n in names],
                                                           sum_sq=sum_sq)))
         bad = None
@@ -490,24 +545,27 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
             # them; decided on the device, before anything is written
             with torch.no_grad():
                 bad = tree_nonfinite(loss) | tree_nonfinite(list(grads.values()))
-                if grads_sharded:
+                if scattered:
                     bad = data.any(bad)
+                if mp_names:
+                    bad = any_over(bad, tp.group)
         # the update's range is named for a profiler to read (its cost when
         # no profiler runs: one host call)
         with torch.no_grad(), torch.profiler.record_function("build_train_step.update"):
             for n, b in new_buffers.items():
                 buffers[n].copy_(b if bad is None else torch.where(bad, buffers[n], b))
-            blocks = {n: p if params_sharded or dims[n] is None else block(p, n)
+            blocks = {n: p if n in at_rest or dims[n] is None else block(p, n)
                       for n, p in params.items()}
-            if not grads_sharded:
-                grads = {n: block(g, n) if dims[n] is not None else g for n, g in grads.items()}
+            grads = {n: block(g, n) if dims[n] is not None and n not in scattered else g
+                     for n, g in grads.items()}
             parts, new_state = _update_all(names, opt_state, grads, lr, blocks, hypers,
                                            update_one, l1_coeff, donate, offload, bad)
             new_params = dict(parts)
-            if sharded and not params_sharded:
-                # ZeRO 1-2: every rank's blocks make the whole parameters
-                for n, t in zip(sharded, collective.coalesced_all_gather(
-                        [parts[n] for n in sharded], [dims[n] for n in sharded], data.group)):
+            if gathered:
+                # ZeRO 1-2 (and an mp parameter's block at any stage):
+                # every rank's blocks make the whole parameters
+                for n, t in zip(gathered, collective.coalesced_all_gather(
+                        [parts[n] for n in gathered], [dims[n] for n in gathered], data.group)):
                     if donate:
                         params[n].copy_(t)
                         new_params[n] = params[n]
@@ -532,6 +590,7 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
 
     step_fn.comm_stats = comm_stats  # the local-gradient modes' last exchange, bytes by dtype
     step_fn.zero_dims = dims
+    step_fn.mp_dims = mpd
     return step_fn, init_fn
 
 

@@ -19,6 +19,9 @@ The batch and the ZeRO state are sharded over the data axes combined
 tuple of axes too: its group is this rank's comm list over both, and its
 index is ``dp_idx * sharding + sharding_idx``, the position of this
 rank's block in a dimension the reference shards over the pair.
+``AxisGroup`` is one axis as this rank sees it (its index, the axis's
+size, the collectives' group), which the mp layers, the pipeline and
+the ring take their blocks and collectives from.
 """
 import numpy as np
 import torch.distributed as dist
@@ -103,6 +106,32 @@ class Mesh:
 
     def __repr__(self):
         return f"Mesh({', '.join(f'{a}={n}' for a, n in self.shape.items() if n > 1) or 'one rank'})"
+
+
+class AxisGroup:
+    """A mesh axis ("mp" by default) as this rank sees it: ``n`` ranks,
+    this rank's ``rank`` (``mesh.rank_in(axis)``, never the hcg's
+    model-parallel rank) and the collectives' ``group`` (None for one
+    rank)."""
+
+    def __init__(self, mesh, axis="mp"):
+        self.n = mesh.axis_size(axis)
+        self.rank = mesh.rank_in(axis)
+        self.group = None
+        if self.n > 1:
+            pg = mesh.group(axis)
+            if pg is None:
+                raise RuntimeError(f"{mesh} has {self.n} {axis} ranks but this process has no "
+                                   "group over them (call init_parallel_env)")
+            from . import collective
+
+            self.group = collective.Group(axis=axis, process_group=pg)
+
+    def block(self, t, dim):
+        """This rank's block of ``t`` along ``dim``."""
+        from . import collective
+
+        return collective.shard(t, dim, self.rank, self.n)
 
 
 def build_mesh(dp=1, mp=1, pp=1, sharding=1, sp=1, ep=1, devices=None):

@@ -54,11 +54,16 @@ dkv_launches = 0
 #: "float32" | "bfloat16" | "float16") -> count; clear it to count a run (a
 #: graph's replay credits it too)
 form_launches = {}
+#: the same launches by form and mask: (kernel, sq, sk, dtype, causal) ->
+#: count; cleared and credited as ``form_launches``
+mask_launches = {}
 
 
-def _count_form(kernel, sq, sk, dtype):
+def _count_form(kernel, sq, sk, dtype, causal):
     key = (kernel, sq, sk, str(dtype)[6:])
     form_launches[key] = form_launches.get(key, 0) + 1
+    key += (bool(causal),)
+    mask_launches[key] = mask_launches.get(key, 0) + 1
 
 # library -> (number of pointer arguments of its launch function, the
 # arguments it takes after the four dimensions: K1 takes K/V's batch-head
@@ -320,7 +325,7 @@ def _fwd(q, k, v, seed, scale, causal, dropout_p, k_len=None, heads=1, bh_offset
             o.data_ptr(), lse.data_ptr(), bh, sq, sk, d, k_stride, k_len_ptr, int(heads),
             *_kernel_args(seed, scale, causal, dropout_p, q.dtype, q.device, bh_offset))
     launches += 1
-    _count_form("fwd", sq, sk, q.dtype)
+    _count_form("fwd", sq, sk, q.dtype, causal)
     return o, lse
 
 
@@ -355,11 +360,11 @@ def _bwd(q, k, v, o, lse, do, seed, scale, causal, dropout_p, bh_offset=0):
             delta.data_ptr())
     _launch("flash_attention_bwd_dq", *ptrs, dq.data_ptr(), bh, sq, sk, d, *args)
     dq_launches += 1
-    _count_form("dq", sq, sk, q.dtype)
+    _count_form("dq", sq, sk, q.dtype, causal)
     _launch("flash_attention_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d,
             *args)
     dkv_launches += 1
-    _count_form("dkv", sq, sk, q.dtype)
+    _count_form("dkv", sq, sk, q.dtype, causal)
     return dq, dk, dv
 
 

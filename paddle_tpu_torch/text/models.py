@@ -14,6 +14,7 @@ from ..core.tensor import boundary
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.layer import Layer
+from ..distributed.meta_parallel import mp_layers as mpl
 
 
 class BertEmbeddings(Layer):
@@ -267,7 +268,15 @@ def _repeat_kv(x, rep):
     return x if rep == 1 else x.repeat_interleave(rep, dim=1)
 
 
+def _tp_group(layer):
+    """The active mp group where ``layer`` was stamped tensor-parallel
+    and a tensor-parallel scope is open, else None."""
+    return mpl.mp_group() if layer._tensor_parallel else None
+
+
 class LlamaAttention(Layer):
+    _tensor_parallel = False
+
     def __init__(self, hidden_size, num_heads, num_kv_heads=None, *, device=None,
                  generator=None):
         super().__init__()
@@ -284,25 +293,47 @@ class LlamaAttention(Layer):
     def forward(self, x):
         b, t, _ = x.shape
         nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        wq, wk, wv = self.q_proj.weight, self.k_proj.weight, self.v_proj.weight
+        tp = _tp_group(self)
+        if tp is not None:
+            # the rank's heads: q's column block; K/V's block where mp
+            # divides the KV heads, else the whole projections (a KV head
+            # is split over ranks), of which the rank's queries take theirs
+            if nh % tp.n:
+                raise ValueError(f"tensor parallel: {tp.n} mp ranks do not divide {nh} heads")
+            x = mpl.CopyToMP.apply(x, tp)
+            gather_kv = nkv % tp.n != 0
+            if gather_kv:
+                wk = mpl.GatherWeight.apply(wk, 1, tp)
+                wv = mpl.GatherWeight.apply(wv, 1, tp)
+            else:
+                nkv //= tp.n
+            nh //= tp.n
         # the reference's ops "llama_qkv_rope" and "llama_attn_out": cast as
         # auto_cast casts them (under O1 not at all), their products in the
         # promoted dtype as jnp promotes (bf16 with float32 -> float32)
-        x, wq, wk, wv = _promoted(*cast_inputs("llama_qkv_rope", x, self.q_proj.weight,
-                                                self.k_proj.weight, self.v_proj.weight))
+        x, wq, wk, wv = _promoted(*cast_inputs("llama_qkv_rope", x, wq, wk, wv))
         q = torch.matmul(x, wq).reshape(b, t, nh, hd).transpose(1, 2)
         k = torch.matmul(x, wk).reshape(b, t, nkv, hd).transpose(1, 2)
         v = torch.matmul(x, wv).reshape(b, t, nkv, hd).transpose(1, 2)
         cos, sin = _rope_tables(hd, torch.arange(t, device=x.device), x.dtype)
         q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
-        k, v = _repeat_kv(k, nh // nkv), _repeat_kv(v, nh // nkv)
+        if tp is not None and gather_kv:
+            rep = self.num_heads // self.num_kv_heads
+            k, v = (_repeat_kv(a, rep).narrow(1, tp.rank * nh, nh) for a in (k, v))
+        else:
+            k, v = _repeat_kv(k, nh // nkv), _repeat_kv(v, nh // nkv)
         # causal attention through the dispatching sdpa: K1 on the card
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                              training=self.training)
         out, wo = _promoted(*cast_inputs("llama_attn_out", out, self.o_proj.weight))
-        return torch.matmul(out.transpose(1, 2).reshape(b, t, nh * hd), wo)
+        out = torch.matmul(out.transpose(1, 2).reshape(b, t, nh * hd), wo)
+        return out if tp is None else mpl.ReduceFromMP.apply(out, tp)
 
 
 class LlamaMLP(Layer):
+    _tensor_parallel = False
+
     def __init__(self, hidden_size, intermediate_size, *, device=None, generator=None):
         super().__init__()
         kw = dict(bias_attr=False, device=resolve_device(device), generator=generator)
@@ -311,7 +342,11 @@ class LlamaMLP(Layer):
         self.down_proj = nn.Linear(intermediate_size, hidden_size, **kw)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        tp = _tp_group(self)
+        if tp is not None:
+            x = mpl.CopyToMP.apply(x, tp)
+        y = self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return y if tp is None else mpl.ReduceFromMP.apply(y, tp)
 
 
 class LlamaDecoderLayer(Layer):
@@ -335,17 +370,24 @@ class LlamaModel(Layer):
     layers, 32 heads, FFN 11008); shrink it by the keyword arguments.
     ``forward`` returns the logits [B, T, vocab]. ``generate`` runs the
     KV-cached decode, greedy or sampled (text/generation.py).
-    ``tensor_parallel=True`` (the reference's Megatron-style shardings) is
-    not ported yet."""
+
+    ``tensor_parallel=True`` stamps the reference's Megatron specs
+    (models.py:332-343): q, k, v, gate and up column-parallel, o and down
+    row-parallel, the embedding vocab-parallel and ``lm_head``
+    column-parallel over the vocabulary. Outside a tensor-parallel scope
+    the model is the plain one; inside a step over a mesh with mp > 1
+    (``distributed.meta_parallel.mp_layers``) each rank holds its blocks,
+    attends with its heads and runs the Megatron collectives; the logits
+    are gathered whole for the loss, as the reference's ``loss_fn`` sees
+    them."""
+
+    _tensor_parallel = False
 
     def __init__(self, vocab_size=32000, hidden_size=4096, num_layers=32,
                  num_heads=32, intermediate_size=11008, num_kv_heads=None,
                  max_seq_len=4096, tensor_parallel=False, *, device=None,
                  generator=None):
         super().__init__()
-        if tensor_parallel:
-            raise NotImplementedError("tensor_parallel: the port's distributed "
-                                      "stack is a later slice")
         dev = resolve_device(device)
         kw = dict(device=dev, generator=generator)
         self.embed_tokens = nn.Embedding(vocab_size, hidden_size, **kw)
@@ -354,12 +396,35 @@ class LlamaModel(Layer):
             for _ in range(num_layers)])
         self.norm = RMSNorm(hidden_size, device=dev)
         self.lm_head = nn.Linear(hidden_size, vocab_size, bias_attr=False, **kw)
+        if tensor_parallel:
+            self._stamp_tensor_parallel()
+
+    def _stamp_tensor_parallel(self, axis="mp"):
+        self.embed_tokens.weight.mp_spec = (axis, None)  # vocab-parallel
+        self.lm_head.weight.mp_spec = (None, axis)
+        for layer in self.layers:
+            attn, mlp = layer.self_attn, layer.mlp
+            for col in (attn.q_proj, attn.k_proj, attn.v_proj, mlp.gate_proj, mlp.up_proj):
+                col.weight.mp_spec = (None, axis)  # shard heads / ffn
+            for row in (attn.o_proj, mlp.down_proj):
+                row.weight.mp_spec = (axis, None)  # summed over the ranks
+            attn._tensor_parallel = mlp._tensor_parallel = True
+        self._tensor_parallel = True
 
     def forward(self, input_ids):
-        x = self.embed_tokens(input_ids)
+        tp = _tp_group(self)
+        if tp is None:
+            x = self.embed_tokens(input_ids)
+        else:
+            (w,) = cast_inputs("embedding", self.embed_tokens.weight)
+            x = mpl.vocab_parallel_lookup(input_ids, w, tp)
         for layer in self.layers:
             x = layer(x)
-        return self.lm_head(self.norm(x))
+        if tp is None:
+            return self.lm_head(self.norm(x))
+        h = mpl.CopyToMP.apply(self.norm(x), tp)
+        logits = F.linear(h, self.lm_head.weight)
+        return mpl.GatherFromMP.apply(logits, logits.dim() - 1, tp)
 
     def generate(self, input_ids, use_cache=True, **kwargs):
         """KV-cached decode by default; ``eos_token_id``, ``max_length`` or

@@ -176,8 +176,10 @@ def test_one_process_mesh_and_collectives_are_the_identity():
     assert torch.equal(tcol.ppermute(x, "dp", [(0, 0)]), x)
     assert tdist.get_rank() == 0 and tdist.get_world_size() == 1
     assert tdist.get_rank_in() == 0
-    with pytest.raises(NotImplementedError, match="model-parallel slice"):
-        tdist.split(x, (3, 4), "linear")
+    # one rank: split's layer is the plain one (a named layer is cached)
+    out = tdist.split(x, (3, 4), "linear", axis=1, name="one_rank_split")
+    layer = tcol._SPLIT_LAYERS.pop("one_rank_split")
+    torch.testing.assert_close(out, x @ layer.weight + layer.bias)
     with pytest.raises(RuntimeError, match="one rank"):
         tdist.send(x, dst=1)
 

@@ -395,8 +395,9 @@ def test_gradient_merge_and_the_unported_modes_as_the_reference():
     strategy = tfleet.DistributedStrategy()
     strategy.pipeline = True
     tfleet.init(is_collective=True, strategy=strategy)
-    with pytest.raises(NotImplementedError, match="model-parallel slice"):
-        tfleet.distributed_model(tnn.Linear(2, 2, device="cpu"))
+    # the pipe mode wraps in PipelineParallel, as the reference's
+    pp_model = tfleet.distributed_model(tnn.Linear(2, 2, device="cpu"))
+    assert type(pp_model).__name__ == "PipelineParallel"
     tfleet.init(is_collective=True)
     assert isinstance(tfleet.distributed_model(tnn.Linear(2, 2, device="cpu")),
                       tdist.DataParallel)

@@ -177,5 +177,28 @@ def test_initializer_draws_on_the_generator_device():
 
 
 def test_tensor_parallel_raises():
-    with pytest.raises(NotImplementedError):
-        tmodels.LlamaModel(**CFG, tensor_parallel=True, device="cpu")
+    """``tensor_parallel=True`` stamps the reference's mp specs, and outside
+    a tensor-parallel scope the stamped model is the plain one: its logits
+    are the reference's stamped model's. A step over an mp mesh needs the
+    mp ranks' process group, so in one process outside a job it raises
+    (tests/test_torch_dist_model_parallel.py trains it over gloo ranks)."""
+    from paddle_tpu_torch.distributed import spmd as tspmd, topology as ttopology
+    from paddle_tpu_torch import optimizer as topt
+
+    paddle.seed(3)
+    jm = jmodels.LlamaModel(**CFG, num_kv_heads=1, tensor_parallel=True)
+    tm = _carry(jm, tmodels.LlamaModel(**CFG, num_kv_heads=1, tensor_parallel=True,
+                                       device="cpu"))
+    for n, p in jm.named_parameters():
+        spec = getattr(p, "mp_spec", None)
+        assert getattr(dict(tm.named_parameters())[n], "mp_spec", None) == \
+            (None if spec is None else tuple(spec)), n
+    ids = np.random.RandomState(1).randint(0, CFG["vocab_size"], (2, 9)).astype(np.int32)
+    want = np.asarray(jm(paddle.to_tensor(ids)).numpy())
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL_F32)
+    with pytest.raises(RuntimeError, match="no group"):
+        tspmd.build_train_step(tm, lambda out, y: out.sum(),
+                               topt.AdamW(parameters=tm.parameters()),
+                               mesh=ttopology.Mesh((1,) * 5 + (2,)))

@@ -60,17 +60,13 @@ def test_static_mode_is_one_flag_as_in_the_reference():
         tp.disable_static()
 
 
-# paddle.distributed's and fleet's names later slices bring: the model-
-# parallel layers and pipeline (meta_parallel), the parameter server's
-# datasets, entries and data generators, ring attention
-DIST_LATER = {"CountFilterEntry", "InMemoryDataset", "ProbabilityEntry", "QueueDataset",
-              "ring_attention"}
-FLEET_LATER = {"ColumnParallelLinear", "DatasetBase", "InMemoryDataset", "LayerDesc",
-               "MultiSlotDataGenerator", "MultiSlotStringDataGenerator", "PipelineLayer",
-               "QueueDataset", "RowParallelLinear", "SharedLayerDesc", "VocabParallelEmbedding",
-               "get_rng_state_tracker"}
+# paddle.distributed's and fleet's names later slices bring: the parameter
+# server's datasets, entries and data generators
+DIST_LATER = {"CountFilterEntry", "InMemoryDataset", "ProbabilityEntry", "QueueDataset"}
+FLEET_LATER = {"DatasetBase", "InMemoryDataset", "MultiSlotDataGenerator",
+               "MultiSlotStringDataGenerator", "QueueDataset"}
 # the submodules the reference's __init__ imports that later slices bring
-MODULES_LATER = {"paddle_tpu.distributed": {"entry_attr", "meta_parallel"},
+MODULES_LATER = {"paddle_tpu.distributed": {"entry_attr"},
                  "paddle_tpu.distributed.fleet": {"data_generator", "dataset"}}
 
 
@@ -88,7 +84,7 @@ def test_distributed_and_fleet_names_match_the_reference():
         for sub in MODULES_LATER.get(jm.__name__, ()):
             assert hasattr(jm, sub) and not hasattr(tm, sub), sub
     for sub in ("topology", "collective", "parallel", "spmd", "fleet", "launch", "sharding",
-                "comm_opt"):
+                "comm_opt", "meta_parallel"):
         assert getattr(tp.distributed, sub).__name__ == f"paddle_tpu_torch.distributed.{sub}"
     assert tp.DataParallel is tp.distributed.DataParallel
     assert tp.distributed.fleet.distributed_model.__module__.startswith("paddle_tpu_torch.")

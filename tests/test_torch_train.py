@@ -432,11 +432,12 @@ def test_train_step_takes_the_reference_keys_and_donates():
     assert not torch.equal(ref, before["inner.cls.decoder_bias"])
 
 
-# a data mesh with ZeRO, fp16 all-reduce, DGC and localsgd is ported
-# (tests/test_torch_dist_meshed.py); a model-parallel axis still raises,
-# naming the slice that brings it
+# a data mesh with ZeRO, fp16 all-reduce, DGC and localsgd, and an mp axis
+# are ported (tests/test_torch_dist_meshed.py,
+# tests/test_torch_dist_model_parallel.py); an ep axis still raises, naming
+# the slice that brings it
 @pytest.mark.parametrize("option,slice_name", [
-    (lambda: dict(mesh=ttopology.Mesh((1, 1, 1, 1, 1, 2))), "model-parallel")],
+    (lambda: dict(mesh=ttopology.Mesh((1, 1, 1, 1, 2, 1))), "MoE")],
     ids=["option0"])
 def test_unported_train_step_options_raise(option, slice_name):
     m = tnn.Linear(2, 2, device="cpu")
