@@ -605,7 +605,36 @@ Phases, each fatal on failure (exit code 1):
               hop's ms through the host. K1-K3 are timed first at the
               forms (a)-(c) give them. Every mode's launches held by form
               and mask, its step ms a rank printed
- 26. summary  a {"kernels": [...]} line, then as the last line
+ 26. state and experts  in phase 23's two ranks after phase 25's
+              modes, and in this process: (a) phase 24 (a)'s ZeRO-1 and
+              ZeRO-2 BERT-base steps and phase 25's mp=2 and pp=2 Llama
+              steps each save their state through
+              MultiProcessShardedManager before their last step
+              (distributed/checkpoint.py, the host-sharded format); this
+              process verifies each manifest, holds each rank's shard to
+              a digest of its blocks, restores the checkpoint onto one
+              device bitwise the ranks' blocks gathered by
+              convert.from_rank_states, and takes the last step there
+              (losses and parameters within phase 24's / 25's bounds; the
+              pp stages [2, 2, ...] onto a pp=1 pipeline's [1, 4, ...]);
+              (b) the restarted pod ends under a non-blocking elastic
+              client (resilience/elastic.py): rank 1 sends itself SIGTERM
+              at its third step of (c)'s capacity blocks over ep=2, both
+              ranks agree on one step, save it through the manager (the
+              client's barriers) and exit 143; launch_elastic raises
+              PodPreempted without relaunching; the checkpoint restores
+              onto one device bitwise; the consensus latency and each
+              rank's save seconds printed; (c) two x + MoELayer(x) blocks
+              at Switch-Base-8's expert widths (768, 3072, 8 experts,
+              top_k 2, capacity factor 1.25: capacity mode) on 32 x 128
+              tokens: f32 forward + backward on the card against the CPU
+              (1e-4 of each tensor's max), its ms and peak memory; the two
+              ranks over build_mesh(ep=2) in capacity and alltoall mode,
+              2 Adam steps: losses 1e-4 of the one-device step, the
+              gathered parameters 2.5 lr, a rank holding half the
+              experts. No kernel of the port runs in the experts (plain
+              products, as the reference leaves them to XLA)
+ 27. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -631,7 +660,7 @@ builds the kernels and runs phase 22 alone, and
 
     python3 chip_smoke.py --dp
 
-phases 23-25 alone; ``--dp-rank OUT`` is one of their ranks, which
+phases 23-26 alone; ``--dp-rank OUT`` is one of their ranks, which
 phase 23 starts through the port's launcher.
 
 It imports nothing of JAX or the JAX package. Run from a directory that
@@ -8405,8 +8434,10 @@ def dp_rank(argv):
     (after ``CHIP_SMOKE_FAULT_ONCE``'s marker for this rank exists, with
     the fault spec taken out: a restarted pod is not killed again) and
     chaos.hit("train.step") before each step of the fault model, which it
-    trains first; then (d), (a), (b), (c) and the fault model once more.
-    Writes rank{r}.json (and rank 0's step-1 tensors) to OUT."""
+    trains first; then (d), (a), (b), (c) and the fault model once more,
+    phases 24 and 25, and phase 26 (c). Writes rank{r}.json (and rank 0's
+    step-1 tensors) to OUT, then ends with phase 26 (b)'s consensus exit
+    (143)."""
     if len(argv) != 1:
         fail("usage: chip_smoke.py --dp-rank OUT")
     out = argv[0]
@@ -8422,9 +8453,10 @@ def dp_rank(argv):
     from paddle_tpu_torch import vision
     from paddle_tpu_torch.distributed import collective, fleet, p2p, sharding, spmd, topology
     from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.resilience import chaos, elastic, preemption
     from paddle_tpu_torch.text.models import BertEmbeddings, BertForPretraining, LlamaModel
     from paddle_tpu_torch.distributed.meta_parallel import PipelineLayer
+    from paddle_tpu_torch.incubate.moe import MoELayer
     from paddle_tpu_torch.ops import ring_attention as ra
 
     started["imports"] = time.time() - t_launch
@@ -8619,9 +8651,17 @@ def dp_rank(argv):
     res["model_parallel"] = mp_rank(
         torch, (LlamaModel, PipelineLayer, nn, optimizer, spmd, topology, fleet, dist, prandom,
                 fa, ra), rank, out)
+    # phase 26 in the same pod: (c), then (b), which ends the pod with the
+    # consensus exit 143
+    t0 = time.perf_counter()
+    res["state_experts"] = se_rank(torch, (nn, optimizer, spmd, topology, dist, MoELayer), rank,
+                                   out)
+    res["state_experts"]["seconds"] = time.perf_counter() - t0
     dist.barrier()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
+    se_elastic(torch, (nn, optimizer, spmd, topology, dist, MoELayer, chaos, elastic, preemption),
+               rank, out)
 
 
 def dp_kernel_cases(torch, fa):
@@ -8711,8 +8751,9 @@ def dp_launch(launch_mod, out):
     """This file's --dp-rank ranks (two on card 0 over gloo) through the
     port's launch_elastic(max_restarts=1), with PADDLE_TPU_CHAOS killing
     rank 1 at its second train.step in the first pod only. Returns (what
-    launch_elastic returned or the error it raised, the errors its pods'
-    watchers raised (seen through launch_collective), seconds)."""
+    launch_elastic returned or the error it raised: PodPreempted, the
+    restarted pod ending in phase 26 (b)'s consensus exit; the errors its
+    pods' watchers raised (seen through launch_collective), seconds)."""
     # CHIP_SMOKE_DP_T0: the ranks report their start-up against it
     env = dict(CHIP_SMOKE_DP_T0=repr(time.time()), PADDLE_TPU_CHAOS=DP_KILL,
                CHIP_SMOKE_FAULT_ONCE=os.path.join(out, "fault_once"))
@@ -8755,7 +8796,7 @@ def dp_logs(out, tail=3000):
 
 
 def dp_start(torch, fa, launch_mod):
-    """Start phase 23: the pods of phases 23-25 (dp_launch, in a thread),
+    """Start phase 23: the pods of phases 23-26 (dp_launch, in a thread),
     then K1-K3 at the ranks' forms (dp_kernel_cases, mp_kernel_cases)
     timed while the ranks spend their first ~20 s importing on the host.
     main() calls it before phase 18, so the ranks' work (gloo traffic
@@ -8775,7 +8816,7 @@ def dp_start(torch, fa, launch_mod):
     mp_cases = mp_kernel_cases(torch, fa)
     times = {"phase 25's kernels": time.perf_counter() - t_mp,
              "start": time.perf_counter() - t}
-    log(f"[dp] the pods of phases 23-25 started, K1-K3 at their forms timed "
+    log(f"[dp] the pods of phases 23-26 started, K1-K3 at their forms timed "
         f"({times['start']:.1f} s); the ranks run beside the next phases")
     return dict(out=out, pods=pods, launcher=launcher, cases=cases, mp_cases=mp_cases,
                 times=times)
@@ -8788,7 +8829,10 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None, started=None):
     the pods here."""
     (BertForPretraining, nn, optimizer, spmd, prandom, paddle, pdist, launch_mod, parallel,
      topology, vision, BertEmbeddings, LlamaModel) = mods
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import checkpoint, pipeline
     from paddle_tpu_torch.distributed.meta_parallel import PipelineLayer, PipelineParallel
+    from paddle_tpu_torch.incubate.moe import MoELayer
     import shutil
 
     t_phase = time.perf_counter()
@@ -8853,6 +8897,9 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None, started=None):
     mp_refs = mp_references(torch, (LlamaModel, PipelineLayer, PipelineParallel, nn, optimizer,
                                     spmd, prandom, fa))
     times["phase 25's one device"] = time.perf_counter() - t
+    t = time.perf_counter()
+    se_refs = se_references(torch, (nn, optimizer, spmd, topology, MoELayer), card)
+    times["phase 26's one device"] = time.perf_counter() - t
 
     try:
         # the pods: the first killed by chaos in (f)'s fault model, the
@@ -8862,8 +8909,10 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None, started=None):
         times["waited for the pods"] = time.perf_counter() - t
         res, raised, secs = pods["res"], pods["raised"], pods["secs"]
         times["pods"] = secs
-        if isinstance(res, Exception) or res != 0:
+        # the restarted pod ends with phase 26 (b)'s consensus exit
+        if not isinstance(res, launch_mod.PodPreempted):
             fail(f"phase 23: the two-rank pods failed: {res}\n{dp_logs(out)}")
+        raised = [e for e in raised if not isinstance(e, launch_mod.PodPreempted)]
         ranks = [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(DP_RANKS)]
         got = torch.load(os.path.join(out, "rank0_step1.pt"))
         bad = []
@@ -9021,6 +9070,13 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None, started=None):
                  "are not the unbroken run's (and the killed pod's) bits")
         meshed = phase_meshed(torch, ranks, out, one, refs, card, n_layers)
         model_parallel = phase_model_parallel(torch, ranks, out, mp_refs, mp_cases, card)
+        state_experts = phase_state_experts(
+            torch, (nn, optimizer, spmd, topology, prandom, checkpoint, convert, pipeline,
+                    LlamaModel, PipelineLayer, MoELayer, launch_mod),
+            ranks, out, se_refs, res, card,
+            (lambda: BertForPretraining(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+                                        device="cuda", generator=torch.Generator().manual_seed(0)),
+             build, x, y, keys))
     finally:
         shutil.rmtree(out, ignore_errors=True)
     times["phase"] = time.perf_counter() - t_phase
@@ -9030,7 +9086,7 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None, started=None):
         f"{ranks[0]['b']['seconds']:.1f} (c) {ranks[0]['c']['seconds']:.1f} s [{card}]")
     return dict(counts=dp_counts, cases=cases, step_ms=steady, one_rank_ms=one_rank,
                 allreduce_ms=b0.get("allreduce_ms"), idle=idle, meshed=meshed,
-                model_parallel=model_parallel)
+                model_parallel=model_parallel, state_experts=state_experts)
 
 
 # ------------------------------------------------------------------ phase 24
@@ -9160,11 +9216,14 @@ def meshed_rank(torch, mods, rank, out, model, x, y, keys, build, eager_digest):
         gc.collect()
         torch.cuda.empty_cache()
 
-    def steps(step, params, state, n, xs, ys, digest=None):
+    def steps(step, params, state, n, xs, ys, digest=None, save=None):
         """``n`` steps, each timed by CUDA events; the losses, the ms, the
-        ranks' digests (``digest(params, state)``) all-gathered each step."""
+        ranks' digests (``digest(params, state)``) all-gathered each step;
+        ``save``: (tag, k), phase 26 (a)'s checkpoint of the state k steps in."""
         got = dict(losses=[], ms=[], digests=[])
         for i in range(n):
+            if save is not None and i == save[1]:
+                got["ckpt"] = se_save(torch, out, save[0], step, params, state, i, rank)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             loss, params, state = step(params, state, xs, ys, key=keys[i])
@@ -9193,7 +9252,9 @@ def meshed_rank(torch, mods, rank, out, model, x, y, keys, build, eager_digest):
 
             def digest(params, state):
                 return param_digest(torch, gather_whole(collective, params, at_rest, group_z))
-            got, params, state = steps(step, params, state, MESHED_STEPS, x, y, digest)
+            # phase 26 (a): stages 1 and 2 save their state before the last step
+            save = (f"zero{stage}", MESHED_STEPS - 1) if stage in (1, 2) else None
+            got, params, state = steps(step, params, state, MESHED_STEPS, x, y, digest, save)
             if stage >= 1:
                 whole = gather_whole(collective, params, at_rest, group_z)
                 if rank == 0:
@@ -9748,6 +9809,9 @@ def mp_rank(torch, mods, rank, out):
         x, y = mp_batch(torch, MP_TP_BATCH)
         got = dict(losses=[], ms=[])
         for i in range(MP_STEPS):
+            if i == MP_STEPS - 1:  # phase 26 (a): the state before the last step
+                got["ckpt"] = dict(se_save(torch, out, "tp", step, params, state, i, rank),
+                                   dims=step.mp_dims)
             (loss, params, state), ms = event_ms(lambda: step(
                 params, state, x, y, key=prandom.fold_in(prandom.PRNGKey(0), i)))
             got["losses"].append(float(loss))
@@ -9790,7 +9854,11 @@ def mp_rank(torch, mods, rank, out):
             grad_clip=nn.ClipGradByGlobalNorm(1.0)))
         x, y = mp_batch(torch, MP_PP_BATCH)
         got = dict(losses=[], ms=[], recv_ms=[], wrapper=type(pp_model).__name__)
-        for _ in range(MP_STEPS):
+        for i in range(MP_STEPS):
+            if i == MP_STEPS - 1:  # phase 26 (a): the state before the last step
+                ctx = pp_model._spmd
+                got["ckpt"] = se_save(torch, out, "pp", ctx["step"], ctx["params"], ctx["state"],
+                                      i, rank)
             loss, ms = event_ms(lambda: pp_model.train_batch((x, y), opt))
             got["losses"].append(float(loss))
             got["ms"].append(ms)
@@ -10045,6 +10113,508 @@ def phase_model_parallel(torch, ranks, out, refs, cases, card):
                 seconds=sum(secs.values()) + time.perf_counter() - t0)
 
 
+# ------------------------------------------------------------------ phase 26
+# State, elastic and experts, in phase 23's two ranks after phase 25's modes
+# (the same pod) and in this process. (a) Phase 24's ZeRO-1 and ZeRO-2
+# BERT-base steps and phase 25's mp=2 and pp=2 Llama steps each save one
+# checkpoint through MultiProcessShardedManager after their next-to-last
+# step; this process restores each onto one device and takes the last step
+# there. (b) At the end of the pod, rank 1 sends itself SIGTERM mid-run:
+# both ranks reach the elastic consensus, save that step and exit 143.
+# (c) Two pre-norm-free x + moe(x) blocks at Switch-Base-8's expert widths
+# (Fedus et al. 2021: d_model 768, d_ff 3072, 8 experts; the reference's
+# top_k 2 and capacity_factor 1.25, so capacity mode) on 32 x 128 tokens.
+SE_MOE = dict(hidden=768, ffn=3072, experts=8, top_k=2, cf=1.25)
+SE_BATCH, SE_SEQ, SE_BLOCKS, SE_STEPS, SE_LR = 32, 128, 2, 2, 1e-3
+SE_TOL_CARD = 1e-4  # (c): card vs CPU, of each tensor's max
+SE_SIGTERM_AT = 3  # (b): rank 1's SIGTERM, at its third step
+SE_ELASTIC_STEPS = 40  # (b): the steps a rank takes at most before consensus
+SE_CKPTS = ("zero1", "zero2", "tp", "pp")  # (a)
+
+
+def se_model(torch, nn, MoELayer, mode, device="cuda"):
+    """(c)'s two x + moe(x) blocks, weights from a seed."""
+
+    class Blocks(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator().manual_seed(26)
+            self.blocks = nn.LayerList([
+                MoELayer(SE_MOE["hidden"], SE_MOE["ffn"], num_experts=SE_MOE["experts"],
+                         top_k=SE_MOE["top_k"], dispatch_mode=mode,
+                         capacity_factor=SE_MOE["cf"], device=device, generator=g)
+                for _ in range(SE_BLOCKS)])
+
+        def forward(self, x):
+            for block in self.blocks:
+                x = x + block(x)
+            return x
+    return Blocks()
+
+
+def se_batch(torch, device="cuda"):
+    g = torch.Generator().manual_seed(260)
+    shape = (SE_BATCH, SE_SEQ, SE_MOE["hidden"])
+    return torch.randn(shape, generator=g).to(device), torch.randn(shape, generator=g).to(device)
+
+
+def se_loss(out, y):
+    return ((out - y) ** 2).mean()
+
+
+def se_save(torch, out, tag, step_fn, params, state, step, rank, world=DP_RANKS):
+    """(a): this rank's blocks of a step's state through
+    MultiProcessShardedManager (OUT/ckpt-TAG) as checkpoint ``step``.
+    Returns what the parent checks: the seconds, a digest of the blocks
+    (param_digest over the leaves in their order), the step's layout."""
+    from paddle_tpu_torch.distributed import checkpoint
+    from paddle_tpu_torch.resilience.checkpoint import flatten_tree
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = checkpoint.place({"params": params, "opt_state": state}, step_fn.layout)
+    checkpoint.sharded_checkpoint_manager(os.path.join(out, f"ckpt-{tag}"), rank=rank,
+                                          world=world).save(placed, step)
+    secs = time.perf_counter() - t0
+    blocks = {p: (l.data if isinstance(l, checkpoint.Shard) else l)
+              for p, l in flatten_tree(placed).items()}
+    return dict(step=step, seconds=secs, digest=param_digest(torch, blocks).tolist(),
+                bytes=sum(t.numel() * t.element_size() for t in blocks.values()))
+
+
+def se_rank(torch, mods, rank, out):
+    """(c) in one of phase 23's ranks: the blocks over build_mesh(ep=2) in
+    capacity and alltoall mode, Adam, SE_STEPS steps on the whole batch
+    (ep splits the experts, not the batch); rank 0 saves the gathered
+    parameters for the parent."""
+    nn, optimizer, spmd, topology, dist, MoELayer = mods
+    mesh = topology.build_mesh(ep=DP_RANKS)
+    group = dist.Group(axis="ep", process_group=mesh.group("ep"))
+    x, y = se_batch(torch)
+    res = {}
+    for mode in ("capacity", "alltoall"):
+        model = se_model(torch, nn, MoELayer, mode)
+        step, init = spmd.build_train_step(
+            model, se_loss, optimizer.Adam(SE_LR, parameters=model.parameters()), mesh=mesh)
+        params, state = init()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got = dict(losses=[], ms=[])
+        for _ in range(SE_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, params, state = step(params, state, x, y)
+            end.record()
+            end.synchronize()
+            got["ms"].append(start.elapsed_time(end))
+            got["losses"].append(float(loss))
+        got["peak_bytes"] = torch.cuda.max_memory_allocated()
+        experts = [n for n in params if step.ep_dims[n] is not None]
+        got["share"] = (sum(params[n].numel() for n in experts)
+                        / sum(p.numel() for n, p in model.named_parameters() if n in experts))
+        whole = {n: (p if step.ep_dims[n] is None else torch.cat(
+            dist.all_gather([], p.contiguous(), group), dim=step.ep_dims[n])).cpu()
+            for n, p in params.items()}
+        if rank == 0:
+            torch.save(whole, os.path.join(out, f"se_{mode}.pt"))
+        res[mode] = got
+        del model, step, init, params, state, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def se_elastic(torch, mods, rank, out):
+    """(b), the last thing the restarted pod's ranks do: (c)'s capacity
+    blocks over ep=2 under a non-blocking elastic client; rank 1's
+    chaos site sends it SIGTERM at its SE_SIGTERM_AT-th step; the ranks
+    propose, agree, save the agreed step through MultiProcessShardedManager
+    (the client's barriers) and exit 143 (PreemptedExit). Writes
+    OUT/elastic{rank}.json first."""
+    (nn, optimizer, spmd, topology, dist, MoELayer, chaos, elastic, preemption) = mods
+    t_start = time.perf_counter()
+    mesh = topology.build_mesh(ep=DP_RANKS)
+    model = se_model(torch, nn, MoELayer, "capacity")
+    step_fn, init = spmd.build_train_step(
+        model, se_loss, optimizer.Adam(SE_LR, parameters=model.parameters()), mesh=mesh)
+    params, state = init()
+    x, y = se_batch(torch)
+    handler = preemption.get_preemption_handler()
+    handler.install(signals=(signal.SIGTERM,))
+    client = elastic.init_from_env(handler=handler, block=False)
+    if rank == 1:
+        chaos.arm("elastic.step", signum=signal.SIGTERM, at=SE_SIGTERM_AT)
+    got = dict(losses=[], t_signal=None, t_consensus=None, target=None)
+    for i in range(1, SE_ELASTIC_STEPS + 1):
+        t0 = time.perf_counter()
+        chaos.hit("elastic.step")
+        if handler.requested and got["t_signal"] is None:
+            got["t_signal"] = time.time()
+        loss, params, state = step_fn(params, state, x, y)
+        got["losses"].append(float(loss))
+        client.note_step(i, time.perf_counter() - t0)
+        target = client.check_boundary(i)
+        if target is not None and got["t_consensus"] is None:
+            got.update(t_consensus=time.time(), target=target)
+        if target is not None and i >= target:
+            got.update(se_save(torch, out, "elastic", step_fn, params, state, i, rank),
+                       ep_dims=step_fn.ep_dims, run_s=time.perf_counter() - t_start)
+            client.saved(i)
+            if rank == 0:
+                # the coordinator lives in this process: keep it until every
+                # rank is past its publish barrier (said "saved"); a rank
+                # polling a vanished coordinator waits out dead_timeout
+                deadline = time.monotonic() + 30
+                while (len(client.status().get("saved", {})) < DP_RANKS
+                       and time.monotonic() < deadline):
+                    time.sleep(0.02)
+            with open(os.path.join(out, f"elastic{rank}.json"), "w") as f:
+                json.dump(got, f)
+            client.close()
+            raise preemption.PreemptedExit(step=i)
+    client.close()
+    fail(f"phase 26 (b): rank {rank} saw no consensus in {SE_ELASTIC_STEPS} steps")
+
+
+def se_references(torch, mods, card):
+    """(c) in this process, while the pods run: the blocks' f32 forward
+    and backward on the card against the CPU (each tensor within
+    SE_TOL_CARD of its max), timed, with its peak memory; and the
+    one-device steps the ranks' ep=2 steps are held against."""
+    nn, optimizer, spmd, topology, MoELayer = mods
+    t0 = time.perf_counter()
+    res = {}
+    cpu = se_model(torch, nn, MoELayer, "capacity", device="cpu")
+    card_model = se_model(torch, nn, MoELayer, "capacity")
+    xc, yc = se_batch(torch, "cpu")
+
+    def fwd_bwd(model, x, y):
+        for p in model.parameters():
+            p.grad = None
+        out = model(x)
+        loss = se_loss(out, y) + sum(b.aux_loss for b in model.blocks)
+        loss.backward()
+        return [out.detach()] + [p.grad for p in model.parameters()]
+    t = time.perf_counter()
+    want = fwd_bwd(cpu, xc, yc)
+    cpu_s = time.perf_counter() - t
+    x, y = xc.cuda(), yc.cuda()
+    fwd_bwd(card_model, x, y)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = fwd_bwd(card_model, x, y)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() - base
+    errs = [_rel_err(torch, g.cpu(), w) for g, w in zip(got, want)]
+    dev = device_ms(torch, lambda: fwd_bwd(card_model, x, y), iters=3, warmup=0)
+    res["card"] = dict(ms=ms, device_ms=dev, peak_bytes=peak, errs=errs, cpu_s=cpu_s,
+                       names=["out"] + [n for n, _ in cpu.named_parameters()])
+    del cpu, card_model, got, want
+    # the one-device steps: alltoall's token groups come from the global
+    # mesh's ep axis, as in the reference's global program
+    one = topology.Mesh((1,) * 6)
+    saved = topology._GLOBAL_MESH
+    res["steps"] = {}
+    for mode in ("capacity", "alltoall"):
+        topology.set_global_mesh(topology.Mesh((1, 1, 1, 1, DP_RANKS, 1)))
+        try:
+            model = se_model(torch, nn, MoELayer, mode)
+            step, init = spmd.build_train_step(
+                model, se_loss, optimizer.Adam(SE_LR, parameters=model.parameters()), mesh=one)
+            params, state = init()
+            losses = []
+            for _ in range(SE_STEPS):
+                loss, params, state = step(params, state, x, y)
+                losses.append(float(loss))
+        finally:
+            topology.set_global_mesh(saved)
+        res["steps"][mode] = dict(losses=losses, params={n: p.cpu() for n, p in params.items()})
+        del model, step, init, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def se_file_blocks(ckpt, rank):
+    """{leaf: array} of one rank's shard directory of a checkpoint, in its
+    index's (the rank's flatten) order."""
+    d = os.path.join(ckpt, f"shard-{rank:05d}")
+    with open(os.path.join(d, "index.json")) as f:
+        index = json.load(f)
+    with np.load(os.path.join(d, "data.npz")) as blobs:
+        return {e["leaf"]: blobs[e["key"]] for e in index["entries"]}
+
+
+def se_tree(leaves):
+    """{"params": {name: x}, "opt_state": {name: (x, ...)}} of flattened
+    "params.<name>" / "opt_state.<name>.<i>" leaves."""
+    tree = {"params": {}, "opt_state": {}}
+    for path, a in leaves.items():
+        part, _, rest = path.partition(".")
+        if part == "params":
+            tree["params"][rest] = a
+        elif part == "opt_state":
+            name, _, i = rest.rpartition(".")
+            tree["opt_state"].setdefault(name, {})[int(i)] = a
+    tree["opt_state"] = {n: tuple(d[i] for i in sorted(d)) for n, d in tree["opt_state"].items()}
+    return tree
+
+
+def se_restore(torch, mods, out, tag, infos, kinds, dims, like):
+    """(a)/(b) for one checkpoint: verify its manifest; each rank's shard
+    holds the rank's blocks (their digest); convert.from_rank_states of
+    the ranks' blocks (``kinds``: each part's layout, None where every
+    rank holds it whole) is bitwise what load_host_sharded restores; the
+    restored leaves take the shapes of ``like`` (one device's
+    {"params", "opt_state"}; a pipeline's stages differ in shape, not in
+    size). Returns (the restored state on the card, what to print, what
+    failed)."""
+    checkpoint, convert = mods
+    step = infos[0]["step"]
+    root = os.path.join(out, f"ckpt-{tag}")
+    ckpt = os.path.join(root, f"ckpt-{step}")
+    bad = []
+    t0 = time.perf_counter()
+    checkpoint.MultiProcessShardedManager(root, rank=0, world=DP_RANKS).verify(ckpt)
+    files = [se_file_blocks(ckpt, r) for r in range(DP_RANKS)]
+    for r, f in enumerate(files):
+        mine = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in f.items()}
+        if param_digest(torch, mine).tolist() != infos[r]["digest"]:
+            bad.append(f"rank {r}'s shard is not its blocks")
+        del mine
+    trees = [se_tree(f) for f in files]
+    with open(os.path.join(ckpt, checkpoint.HOST_SHARDS_NAME)) as f:
+        meta = json.load(f)["leaves"]
+    # the global shapes (convert reads a leaf's .shape, np.empty's is free)
+    assembled = se_tree({p: np.empty(spec["shape"], np.uint8) for p, spec in meta.items()})
+    gathered = {}
+    for part in ("params", "opt_state"):
+        if kinds[part] is None:
+            if not all(trees_equal(t[part], trees[0][part]) for t in trees[1:]):
+                bad.append(f"{part}: the ranks' whole copies differ")
+            gathered[part] = trees[0][part]
+        else:
+            gathered[part] = convert.from_rank_states([t[part] for t in trees], assembled[part],
+                                                      kinds[part], dims)
+
+    def empty(a, t):  # the global array's shape, the device leaf's dtype
+        return torch.empty(a.shape, dtype=t.dtype, device=t.device)
+    template = {"params": {n: empty(a, like["params"][n])
+                           for n, a in assembled["params"].items()},
+                "opt_state": {n: tuple(empty(a, t) for a, t in zip(v, like["opt_state"][n]))
+                              for n, v in assembled["opt_state"].items()}}
+    got = checkpoint.load_host_sharded(ckpt, template)
+    host = {"params": {n: t.cpu().numpy() for n, t in got["params"].items()},
+            "opt_state": {n: tuple(t.cpu().numpy() for t in v)
+                          for n, v in got["opt_state"].items()}}
+    if not trees_equal(host, gathered):
+        bad.append("the restored state is not the ranks' state gathered")
+    restored = {"params": {n: t.reshape(like["params"][n].shape)
+                           for n, t in got["params"].items()},
+                "opt_state": {n: tuple(t.reshape(w.shape) for t, w in zip(v, like["opt_state"][n]))
+                              for n, v in got["opt_state"].items()}}
+    size = sum(os.path.getsize(os.path.join(dp, fn)) for dp, _, fns in os.walk(ckpt)
+               for fn in fns)
+    return restored, dict(step=step, seconds=time.perf_counter() - t0, bytes=size), bad
+
+
+def trees_equal(a, b):
+    """Two trees of arrays equal bit for bit."""
+    if isinstance(b, dict):
+        return set(a) == set(b) and all(trees_equal(a[k], b[k]) for k in b)
+    if isinstance(b, (tuple, list)):
+        return len(a) == len(b) and all(trees_equal(x, y) for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def phase_state_experts(torch, mods, ranks, out, refs, pod_exit, card, bert):
+    """Phase 26's checks on what the ranks wrote (see its constants).
+    ``bert``: phase 23's (a BERT-base maker, build, x, y, keys) in this
+    process, the one-device step the ZeRO checkpoints are restored onto;
+    ``pod_exit``: what launch_elastic raised for the restarted pod."""
+    (nn, optimizer, spmd, topology, prandom, checkpoint, convert, pipe, LlamaModel,
+     PipelineLayer, MoELayer, launch_mod) = mods
+    t_phase = time.perf_counter()
+    bad = []
+    make_bert, build, x, y, keys = bert
+    model = make_bert()
+
+    def one_device(step_fn, init):
+        params, state = init()
+        return step_fn, dict(params=params, opt_state=state)
+
+    # (a) ZeRO-1 and ZeRO-2 (phase 24 (a), build_mesh(dp=1, sharding=2)):
+    # params whole on both ranks, the optimizer state in blocks; restored
+    # and the last step taken on one device at the global batch
+    printed = []
+    for tag in ("zero1", "zero2"):
+        infos = [r["meshed"][tag]["ckpt"] for r in ranks]
+        step_fn, like = one_device(*build(model, "O0"))
+        state, info, why = se_restore(torch, (checkpoint, convert), out, tag, infos,
+                                      {"params": None, "opt_state": "zero"}, None, like)
+        loss, params, _ = step_fn(state["params"], state["opt_state"], x, y,
+                                  key=keys[MESHED_STEPS - 1])
+        want_loss = ranks[0]["meshed"][tag]["losses"][MESHED_STEPS - 1]
+        whole = torch.load(os.path.join(out, f"{tag}.pt"))
+        loss_err = abs(float(loss) - want_loss) / abs(want_loss)
+        param_err = max((params[n].cpu() - w).abs().max().item() for n, w in whole.items())
+        printed.append(f"{tag} step {info['step']} {info['bytes'] / 2**30:.2f} GiB: saved in "
+                       + " / ".join(f"{i['seconds']:.1f}" for i in infos) + " s a rank, "
+                       f"restored {info['seconds']:.1f} s; the last step on one device: loss "
+                       f"{float(loss):.6f} vs the ranks' {want_loss:.6f} (rel err {loss_err:.2e}, "
+                       f"tolerance {TOL_STEP_LOSS}), parameters max abs err {param_err:.3e} "
+                       f"(tolerance {2.5 * LR:.2e})")
+        bad += [f"(a) {tag}: {w}" for w in why]
+        if not loss_err <= TOL_STEP_LOSS or not param_err <= 2.5 * LR:
+            bad.append(f"(a) {tag}: the step from the restored state")
+        del step_fn, like, state, params, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+
+    # phase 25 (a): LlamaModel(tensor_parallel=True) over mp=2, restored onto
+    # the plain model's one-device step
+    mp = [r["model_parallel"] for r in ranks]
+    infos = [g["tp"]["ckpt"] for g in mp]
+    llama = mp_llama(torch, LlamaModel, False)
+    step_fn, like = one_device(*spmd.build_train_step(
+        llama, lambda o, t: mp_loss(torch, o, t), optimizer.AdamW(
+            LR, parameters=llama.parameters(), weight_decay=0.01,
+            grad_clip=nn.ClipGradByGlobalNorm(1.0))))
+    dims = infos[0]["dims"]
+    state, info, why = se_restore(torch, (checkpoint, convert), out, "tp", infos,
+                                  {"params": "mp", "opt_state": "mp"}, dims, like)
+    xt, yt = mp_batch(torch, MP_TP_BATCH)
+    loss, params, _ = step_fn(state["params"], state["opt_state"], xt, yt,
+                              key=prandom.fold_in(prandom.PRNGKey(0), MP_STEPS - 1))
+    want_loss = mp[0]["tp"]["losses"][MP_STEPS - 1]
+    whole = torch.load(os.path.join(out, "mp_a.pt"))
+    param_err = max((params[n].cpu() - w).abs().max().item() for n, w in whole.items())
+    tp_ok = abs(float(loss) - want_loss) <= MP_ATOL + MP_RTOL * abs(want_loss)
+    printed.append(f"tp step {info['step']} {info['bytes'] / 2**30:.2f} GiB: saved in "
+                   + " / ".join(f"{i['seconds']:.1f}" for i in infos) + f" s a rank, restored "
+                   f"{info['seconds']:.1f} s; the last step on one device: loss "
+                   f"{float(loss):.6f} vs the ranks' {want_loss:.6f} (rtol {MP_RTOL}, atol "
+                   f"{MP_ATOL}), parameters max abs err {param_err:.3e} (tolerance "
+                   f"{2.5 * LR:.2e})")
+    bad += [f"(a) tp: {w}" for w in why]
+    if not tp_ok or not param_err <= 2.5 * LR:
+        bad.append("(a) tp: the step from the restored state")
+    del llama, step_fn, like, state, params, whole
+
+    # phase 25 (b): fleet's pipe mode at pp=2; its stages [2, 2, ...] go onto
+    # a one-device pipeline's [1, 4, ...] and take the last step there
+    infos = [g["pp"]["ckpt"] for g in mp]
+    pmodel = mp_pipe_model(torch, LlamaModel, PipelineLayer, nn)
+    pre, trunk, post = pipe.split_pre_trunk_post(list(pmodel.run_functions), 1)
+    step_fn, like = one_device(*pipe.build_pipeline_train_step(
+        pre, trunk, post, pmodel._loss_fn, optimizer.AdamW(
+            LR, parameters=pmodel.parameters(), weight_decay=0.01,
+            grad_clip=nn.ClipGradByGlobalNorm(1.0)), mesh=topology.Mesh((1,) * 6),
+        num_micro=MP_MICRO))
+    state, info, why = se_restore(torch, (checkpoint, convert), out, "pp", infos,
+                                  {"params": "pp", "opt_state": "pp"}, None, like)
+    xp, yp = mp_batch(torch, MP_PP_BATCH)
+    loss, _, _ = step_fn(state["params"], state["opt_state"], xp, yp,
+                         key=prandom.PRNGKey(MP_STEPS), lr=LR)
+    want_loss = mp[0]["pp"]["losses"][MP_STEPS - 1]
+    pp_ok = abs(float(loss) - want_loss) <= MP_ATOL + MP_RTOL * abs(want_loss)
+    printed.append(f"pp step {info['step']} {info['bytes'] / 2**30:.2f} GiB: saved in "
+                   + " / ".join(f"{i['seconds']:.1f}" for i in infos) + f" s a rank, restored "
+                   f"{info['seconds']:.1f} s; the last step on one pp=1 device: loss "
+                   f"{float(loss):.6f} vs the ranks' {want_loss:.6f} (rtol {MP_RTOL}, atol "
+                   f"{MP_ATOL})")
+    bad += [f"(a) pp: {w}" for w in why]
+    if not pp_ok:
+        bad.append("(a) pp: the step from the restored state")
+    del pmodel, pre, trunk, post, step_fn, like, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in printed:
+        log(f"[state] (a) MultiProcessShardedManager {line} [{card}]")
+
+    # (b) the elastic consensus at the end of the pod
+    el = [json.load(open(os.path.join(out, f"elastic{r}.json"))) for r in range(DP_RANKS)]
+    codes = getattr(pod_exit, "codes", None)
+    agreed = {e["step"] for e in el}
+    t_signal = el[1]["t_signal"]
+    latency = (max(e["t_consensus"] for e in el) - t_signal
+               if t_signal is not None and all(e["t_consensus"] for e in el) else None)
+    smodel = se_model(torch, nn, MoELayer, "capacity")
+    step_fn, like = one_device(*spmd.build_train_step(
+        smodel, se_loss, optimizer.Adam(SE_LR, parameters=smodel.parameters()),
+        mesh=topology.Mesh((1,) * 6)))
+    state, info, why = se_restore(torch, (checkpoint, convert), out, "elastic", el,
+                                  {"params": "ep", "opt_state": "ep"}, el[0]["ep_dims"], like)
+    log(f"[state] (b) rank 1's SIGTERM at its step {SE_SIGTERM_AT}: the ranks agreed on step "
+        f"{sorted(agreed)} (each saw the consensus {[e['target'] for e in el]}), consensus "
+        f"latency {_fmt(None if latency is None else latency * 1e3)} ms after the signal, the "
+        "save " + " / ".join(f"{e['seconds']:.2f}" for e in el) + " s a rank "
+        f"({info['bytes'] / 2**20:.0f} MiB), exit codes {codes} (launch_elastic raised "
+        f"{type(pod_exit).__name__}, no relaunch); restored onto one device bitwise the ranks' "
+        f"blocks gathered: {'ok' if not why else why} ({info['seconds']:.1f} s) [{card}]")
+    if (not isinstance(pod_exit, launch_mod.PodPreempted) or set(codes.values()) != {143}
+            or len(agreed) != 1 or latency is None or min(agreed) < SE_SIGTERM_AT):
+        bad.append(f"(b) the consensus exit: codes {codes}, steps {agreed}, latency {latency}")
+    bad += [f"(b): {w}" for w in why]
+    del smodel, step_fn, like, state
+
+    # (c) the experts: card against the CPU, then the ep=2 steps against
+    # the one-device steps
+    c = refs["card"]
+    worst = max(range(len(c["errs"])), key=lambda i: c["errs"][i])
+    tokens = SE_BATCH * SE_SEQ
+    log(f"[state] (c) {SE_BLOCKS} x + MoE(x) blocks at Switch-Base-8's widths ({SE_MOE}), "
+        f"capacity mode, {SE_BATCH} x {SE_SEQ} tokens, f32 forward + backward: card vs CPU "
+        f"worst {c['errs'][worst]:.2e} of the max ({c['names'][worst]}; tolerance "
+        f"{SE_TOL_CARD}); card {_median(c['ms']):.2f} ms (CUDA events, median of "
+        f"{len(c['ms'])}; {tokens / _median(c['ms']) * 1e3:.0f} tokens/s), device ms "
+        f"{_fmt(c['device_ms'])} (a profiler window of 3), peak "
+        f"{c['peak_bytes'] / 2**30:.2f} GiB over the weights; the CPU {c['cpu_s']:.1f} s "
+        f"[{card}]")
+    if not max(c["errs"]) <= SE_TOL_CARD:
+        bad.append("(c) card vs CPU")
+    se = [r["state_experts"] for r in ranks]
+    for mode in ("capacity", "alltoall"):
+        want = refs["steps"][mode]
+        loss_err = max(abs(a - b) / abs(b) for s in se
+                       for a, b in zip(s[mode]["losses"], want["losses"]))
+        whole = torch.load(os.path.join(out, f"se_{mode}.pt"))
+        param_err = max((whole[n] - w).abs().max().item() for n, w in want["params"].items())
+        log(f"[state] (c) {mode} over ep=2, Adam {SE_LR}, {SE_STEPS} steps: losses "
+            + " / ".join(" ".join(f"{v:.6f}" for v in s[mode]["losses"]) for s in se)
+            + " one device " + " ".join(f"{v:.6f}" for v in want["losses"])
+            + f" (worst rel err {loss_err:.2e}, tolerance {TOL_STEP_LOSS}); parameters "
+            f"gathered max abs err {param_err:.3e} (tolerance {2.5 * SE_LR:.1e}); a rank's "
+            f"experts {se[0][mode]['share']:.2f} of them; step "
+            + " / ".join(f"{_median(s[mode]['ms']):.1f}" for s in se) + " ms, peak "
+            + " / ".join(f"{s[mode]['peak_bytes'] / 2**30:.2f}" for s in se)
+            + f" GiB a rank (gloo through the host) [{card}]")
+        if not loss_err <= TOL_STEP_LOSS or not param_err <= 2.5 * SE_LR:
+            bad.append(f"(c) {mode} over ep=2")
+        if abs(se[0][mode]["share"] - 0.5) > 1e-9:
+            bad.append(f"(c) {mode}: a rank holds {se[0][mode]['share']} of the experts")
+    if bad:
+        fail(f"phase 26: {'; '.join(bad)}")
+    secs = time.perf_counter() - t_phase
+    saves = [sum(r["meshed"][t]["ckpt"]["seconds"] for t in ("zero1", "zero2"))
+             + sum(g[t]["ckpt"]["seconds"] for t in ("tp", "pp")) for r, g in zip(ranks, mp)]
+    log(f"[state] phase 26 in the ranks: (a)'s saves " + " / ".join(f"{v:.1f}" for v in saves)
+        + " s, (c) " + " / ".join(f"{s['seconds']:.1f}" for s in se) + " s, (b) "
+        + " / ".join(f"{e['run_s']:.1f}" for e in el) + f" s a rank; here the checks {secs:.1f} "
+        f"s, the references {refs['seconds']:.1f} s [{card}]")
+    return dict(seconds=secs + refs["seconds"], latency=latency,
+                save_s=[e["seconds"] for e in el])
+
+
 def stop_children(grace=5.0):
     """End the processes this one started that are still alive at the end,
     each logged with its command line: the script leaves none running.
@@ -10209,7 +10779,7 @@ def main():
                  "--decode-replica PORTFILE PHASE PREFIX_DIR | --dp-rank OUT]")
         sweep = [int(c) for c in sys.argv[2].split(",")]
     # a failed check ends the run through sys.exit: the processes it started
-    # (the pods of phases 23-25, replicas, the NMS forkserver) end with it
+    # (the pods of phases 23-26, replicas, the NMS forkserver) end with it
     atexit.register(stop_children)
     try:
         import torch
@@ -10368,7 +10938,7 @@ def main():
     import shutil
     import tempfile
 
-    # phases 23-25's pods start here and run beside phases 18-19 (and 20's
+    # phases 23-26's pods start here and run beside phases 18-19 (and 20's
     # start when a slow host stretches them); phase_dp collects them
     gc.collect()
     torch.cuda.empty_cache()

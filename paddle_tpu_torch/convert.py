@@ -26,7 +26,7 @@ first name, since a tie cannot hold two values.
 import numpy as np
 import torch
 
-_LAYOUTS = ("zero", "fsdp", "rows", "mp", "pp")
+_LAYOUTS = ("zero", "fsdp", "rows", "mp", "ep", "pp")
 
 
 def _aliases(module):
@@ -149,7 +149,7 @@ def _layout_dim(name, shape, world, layout, dims):
         raise ValueError(f"layout must be one of {_LAYOUTS}, got {layout!r}")
     if layout == "fsdp":
         return zero_dim(shape, world, start=1) if name.startswith("trunk.") else None
-    if layout == "mp":
+    if layout in ("mp", "ep"):
         d = (dims or {}).get(name)
         return d if d is not None and d < len(shape) else None
     if layout == "pp":
@@ -180,6 +180,9 @@ def to_rank_state(state, rank, world, layout="zero", dims=None):
     - "rows": row ``rank`` (a per-rank stack such as LocalSGD's);
     - "mp": the block on the dimension ``dims[name]`` (a step's
       ``mp_dims``: the ``mp_spec`` dimension), else whole;
+    - "ep": the same over the ep ranks (``dims``: a step's ``ep_dims``;
+      an ``incubate.moe.MoELayer``'s experts on dimension 0, or 2 behind
+      a pipeline's [stage, layer] dims);
     - "pp": stage ``rank``'s ``[1, lps, ...]`` of a ``stages.*`` array
       ``[S, lps, ...]``, else whole.
 

@@ -37,6 +37,7 @@ import torch
 
 from ..amp.auto_cast import auto_cast
 from ..core import random as random_core
+from ..nn import aux_loss
 from . import collective, topology
 from .spmd import DataGroup, _gradients, _lr_tensor, _update_all
 
@@ -143,7 +144,13 @@ def build_localsgd_train_step(layer, loss_fn, optimizer, mesh=None, k_steps=4, a
             if amp_enabled:
                 stack.enter_context(auto_cast(enable=True, level=amp_level, dtype=amp_dtype))
             work = {n: b.clone() for n, b in buffers0.items()}
-            return loss_fn(torch.func.functional_call(layer, {**leaves, **work}, (x,)), y)
+            # the forward's aux losses join the objective (reference
+            # comm_opt.py:188)
+            auxes = stack.enter_context(aux_loss.collect_aux_losses())
+            aux_loss.clear_direct_aux_losses(layer)
+            out = torch.func.functional_call(layer, {**leaves, **work}, (x,))
+            aux_loss.sweep_direct_aux_losses(layer, auxes)
+            return loss_fn(out, y) + aux_loss.total_aux_loss(auxes)
 
     counter = {"i": 0, "comm": None}
 

@@ -337,7 +337,12 @@ def launch_elastic(script, args=(), nproc_per_node=1, nnodes=1,
     Single-node only unless ``master_fn`` is given: each attempt needs a
     NEW coordinator that every node agrees on, so multi-node callers must
     supply ``master_fn(attempt) -> "host:port"`` (an external
-    rendezvous); without it nnodes>1 raises."""
+    rendezvous); without it nnodes>1 raises.
+
+    A pod that exits through the preemption consensus raises
+    :class:`PodPreempted` at once: its checkpoint is the one to resume
+    from, and a relaunch would only train past the preemption (the JAX
+    package's ``launch_elastic`` relaunches it as a failure)."""
     if nnodes > 1 and master_fn is None:
         raise ValueError(
             "launch_elastic with nnodes>1 needs master_fn(attempt) so all "
@@ -350,6 +355,8 @@ def launch_elastic(script, args=(), nproc_per_node=1, nnodes=1,
                                      node_rank, master=master,
                                      log_dir=log_dir, extra_env=extra_env,
                                      gpus=gpus, backend=backend)
+        except PodPreempted:
+            raise  # a consensus exit: the caller resumes, nothing is retried
         except RuntimeError as e:
             last_err = e
             print(f"[elastic] pod failed (attempt {attempt + 1}/"

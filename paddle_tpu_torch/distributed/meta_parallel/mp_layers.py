@@ -77,12 +77,12 @@ def mp_group():
     return _TP.get()
 
 
-def mp_dim(spec):
-    """The dimension an ``mp_spec`` shards over "mp", or None."""
+def mp_dim(spec, axis="mp"):
+    """The dimension an ``mp_spec`` shards over ``axis``, or None."""
     if spec is None:
         return None
-    return next((d for d, a in enumerate(spec) if a == "mp"
-                 or (isinstance(a, tuple) and "mp" in a)), None)
+    return next((d for d, a in enumerate(spec) if a == axis
+                 or (isinstance(a, tuple) and axis in a)), None)
 
 
 def _all_gather(t, dim, tp):

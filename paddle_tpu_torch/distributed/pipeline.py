@@ -50,7 +50,22 @@ mp blocks behind the [stage, layer] dims, and the stage runs inside
 rank's slice (the slice's gradient all-gathered), the outputs are
 all-gathered before the post layers, the stage interior rings its
 attention through ``ring_attention_in_shard_map``, and the trunk's
-gradients are summed over sp. An "ep" axis raises (the MoE slice).
+gradients are summed over sp. An "ep" axis runs inside each stage too
+(the reference's auto axis of the pp ``shard_map``): the trunk's expert
+parameters (``mp_spec`` "ep", ``incubate.moe.MoELayer``) are the rank's ep
+blocks behind the [stage, layer] dims, and the stage runs inside
+``expert_parallel.expert_parallel(mesh)`` on its local microbatch.
+
+Aux losses (an MoE layer's load balancing) are dropped in every layer
+application, pre, stage and post, as the reference's per-stage applies
+drop them (``nn.aux_loss.drop_aux_losses``); ``build_fsdp_train_step``
+shares ``functional_apply`` and drops them too.
+
+Lamb's and LARS' trust ratio reads the norms of the reference's global
+arrays (a ``stages.*`` array is every stage's layers stacked): a block's
+sums of squares are added over pp, mp, ep and the data ranks that split
+it (``spmd.block_sum_sq``). ``step_fn.layout`` records each leaf's cuts
+(``spmd.build_train_step``'s contract).
 
 ``step_fn.schedule`` is ``schedule_stats(S, M)``. The layer helpers
 ``functional_apply`` and ``split_pre_trunk_post`` are shared with
@@ -65,8 +80,9 @@ import torch.utils.checkpoint
 
 from ..amp.auto_cast import auto_cast
 from ..core import random as random_core
+from ..nn import aux_loss
 from ..ops import ring_attention as ring_ops
-from . import collective, topology
+from . import collective, expert_parallel, topology
 from .meta_parallel import mp_layers
 
 
@@ -76,6 +92,7 @@ def functional_apply(layer, params, x, key, amp=None):
     (level, dtype) to run it under ``auto_cast``, or None."""
     with contextlib.ExitStack() as stack:
         stack.enter_context(random_core.rng_guard(key))
+        stack.enter_context(aux_loss.drop_aux_losses())
         if amp is not None:
             stack.enter_context(auto_cast(enable=True, level=amp[0], dtype=amp[1]))
         return torch.func.functional_call(layer, params, (x,))
@@ -130,7 +147,7 @@ def build_pipeline_train_step(pre_layers, trunk_layers, post_layers, loss_fn, op
                               amp_level="O0", amp_dtype="bfloat16"):
     """A pipeline-parallel training step; see the module docstring.
     ``loss_fn(out, y)`` returns a scalar tensor, a mean over the batch."""
-    from .spmd import DataGroup, _check_blocks, _init_blocks, _update_all, sum_sq_over, zero_dim
+    from .spmd import DataGroup, _init_blocks, _update_all, block_sum_sq, sum_sq_over, zero_dim
 
     if amp_level not in ("O0", "O1", "O2"):
         raise ValueError(f"amp_level must be 'O0'|'O1'|'O2', got {amp_level!r}")
@@ -140,9 +157,6 @@ def build_pipeline_train_step(pre_layers, trunk_layers, post_layers, loss_fn, op
     amp_dt = _AMP_DTYPES[amp_dtype]
     amp = (amp_level, amp_dtype) if amp_enabled else None
     mesh = mesh or topology.get_global_mesh()
-    if mesh.axis_size("ep") > 1:
-        raise NotImplementedError("build_pipeline_train_step: an ep axis (expert parallelism) "
-                                  "is the MoE slice's, not ported yet")
     num_stages = mesh.axis_size("pp")
     n_trunk = len(trunk_layers)
     if n_trunk % num_stages != 0:
@@ -155,11 +169,16 @@ def build_pipeline_train_step(pre_layers, trunk_layers, post_layers, loss_fn, op
     pp = topology.AxisGroup(mesh, "pp") if num_stages > 1 else None
     sp = topology.AxisGroup(mesh, "sp") if mesh.axis_size("sp") > 1 else None
     tp = topology.AxisGroup(mesh) if mesh.axis_size("mp") > 1 else None
+    ep = topology.AxisGroup(mesh, "ep") if mesh.axis_size("ep") > 1 else None
     data = DataGroup(mesh)
     template = trunk_layers[0]
     trunk_names = [n for n, _ in template.named_parameters()]
-    # the trunk parameters' mp dimension within one layer (None: whole)
+    # the trunk parameters' mp and ep dimensions within one layer (None:
+    # whole)
     trunk_mpd = {n: (mp_layers.mp_dim(getattr(p, "mp_spec", None)) if tp is not None else None)
+                 for n, p in template.named_parameters()}
+    trunk_epd = {n: (mp_layers.mp_dim(getattr(p, "mp_spec", None), "ep")
+                     if ep is not None and trunk_mpd[n] is None else None)
                  for n, p in template.named_parameters()}
 
     def own(layer):
@@ -173,12 +192,15 @@ def build_pipeline_train_step(pre_layers, trunk_layers, post_layers, loss_fn, op
         t = torch.stack([own(l)[n] for l in mine])[None]  # [1, lps, ...]
         if trunk_mpd[n] is not None:
             t = tp.block(t, 2 + trunk_mpd[n])
+        if trunk_epd[n] is not None:
+            t = ep.block(t, 2 + trunk_epd[n])
         whole0[f"stages.{n}"] = t
     for i, l in enumerate(post_layers):
         whole0.update({f"post.{i}.{n}": a for n, a in own(l).items()})
     names = list(whole0)
     stage_names = [f"stages.{n}" for n in trunk_names]
     mp_names = [f"stages.{n}" for n in trunk_names if trunk_mpd[n] is not None]
+    ep_names = [f"stages.{n}" for n in trunk_names if trunk_epd[n] is not None]
     edge_names = [n for n in names if not n.startswith("stages.")]
     # ZeRO-1's dimension of each parameter's block: from 2 for a stage's
     # (behind the [stage, layer] dims)
@@ -189,8 +211,23 @@ def build_pipeline_train_step(pre_layers, trunk_layers, post_layers, loss_fn, op
     l1_coeff = type(optimizer)._take_l1(hypers)
     update_one = type(optimizer)._update_one
     grad_clip = optimizer._grad_clip
-    _check_blocks(optimizer, hypers, {**dims, **{n: 0 for n in mp_names}},
-                  "build_pipeline_train_step")
+    # each leaf's cuts of the reference's global array, outer first
+    model_cuts = {n: () for n in names}
+    for n in trunk_names:
+        model_cuts[f"stages.{n}"] = (((0, stage, num_stages),)
+                                     + (((2 + trunk_mpd[n], tp.rank, tp.n),)
+                                        if trunk_mpd[n] is not None else ())
+                                     + (((2 + trunk_epd[n], ep.rank, ep.n),)
+                                        if trunk_epd[n] is not None else ()))
+    layout = {"params": model_cuts,
+              "opt_state": {n: model_cuts[n] + (((dims[n], data.rank, data.n),)
+                                                if dims[n] is not None else ())
+                            for n in names}}
+    update_sum_sq = None if type(optimizer)._elementwise(hypers) else {
+        n: block_sum_sq([pp.group if pp is not None and n in stage_names else None,
+                         tp.group if n in mp_names else None,
+                         ep.group if n in ep_names else None,
+                         data.group if dims[n] is not None else None]) for n in names}
     carry_spec = {}  # (x shape, x dtype) -> (microbatch shape, dtype)
     recv_seconds = []
 
@@ -212,6 +249,7 @@ def build_pipeline_train_step(pre_layers, trunk_layers, post_layers, loss_fn, op
         h = x
         with contextlib.ExitStack() as stack:
             stack.enter_context(mp_layers.tensor_parallel(mesh))
+            stack.enter_context(expert_parallel.expert_parallel(mesh))
             if sp is not None:
                 stack.enter_context(ring_ops.shard_scope(mesh))
             for j in range(lps):
@@ -368,14 +406,16 @@ def build_pipeline_train_step(pre_layers, trunk_layers, post_layers, loss_fn, op
             idx = {n: i for i, n in enumerate(names)}
             sum_sq = sum_sq_over({None if pp is None else pp.group:
                                   [idx[n] for n in stage_names],
-                                  None if tp is None else tp.group: [idx[n] for n in mp_names]})
+                                  None if tp is None else tp.group: [idx[n] for n in mp_names],
+                                  None if ep is None else ep.group: [idx[n] for n in ep_names]})
             grads = dict(zip(names, grad_clip.clip_arrays([grads[n] for n in names],
                                                           sum_sq=sum_sq)))
         with torch.no_grad(), torch.profiler.record_function("pipeline.update"):
             blocks = {n: block(p, n) for n, p in params.items()}
             grads = {n: block(g, n) for n, g in grads.items()}
             parts, new_state = _update_all(names, opt_state, grads, lr, blocks, hypers,
-                                           update_one, l1_coeff, donate, False, None)
+                                           update_one, l1_coeff, donate, False, None,
+                                           update_sum_sq)
             new_params = dict(parts)
             if sharded:  # ZeRO-1: every data rank's blocks make the whole
                 for n, t in zip(sharded, collective.coalesced_all_gather(
@@ -392,5 +432,8 @@ def build_pipeline_train_step(pre_layers, trunk_layers, post_layers, loss_fn, op
     step_fn.zero_dims = dims
     step_fn.mp_dims = {f"stages.{n}": (None if d is None else 2 + d)
                        for n, d in trunk_mpd.items()}
+    step_fn.ep_dims = {f"stages.{n}": (None if d is None else 2 + d)
+                       for n, d in trunk_epd.items()}
     step_fn.stage = stage
+    step_fn.layout = layout
     return step_fn, init_fn

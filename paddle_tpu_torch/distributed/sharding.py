@@ -13,7 +13,7 @@ import torch
 
 from .. import framework
 from . import collective, topology
-from .spmd import DataGroup, _check_blocks, zero_dim
+from .spmd import DataGroup, block_sum_sq, zero_dim
 
 LEVEL_TO_STAGE = {"os": 1, "os_g": 2, "p_g_os": 3}
 
@@ -78,8 +78,6 @@ def group_sharded_parallel(model, optimizer, level="os", scaler=None, group=None
             return
         data = _data()
         dims = [zero_dim(tuple(p.shape), data.n) for p in params]
-        _check_blocks(optimizer, optimizer._hypers(), dict(enumerate(dims)),
-                      "group_sharded_parallel")
         grads = [p.grad for p in params]
         if optimizer._grad_clip is not None:
             grads = optimizer._grad_clip.clip_arrays(grads)
@@ -94,7 +92,9 @@ def group_sharded_parallel(model, optimizer, level="os", scaler=None, group=None
                     for a in state)
         optimizer._apply(params, [collective.shard(g, d, data.rank, data.n)
                                   for g, d in zip(grads, dims)], optimizer.get_lr(),
-                         views=views)
+                         views=views,
+                         sum_sq=[block_sum_sq([data.group if d is not None else None])
+                                 for d in dims])
         live = [i for i, d in enumerate(dims) if d is not None]
         wholes = collective.coalesced_all_gather([views[i] for i in live],
                                                  [dims[i] for i in live], data.group)

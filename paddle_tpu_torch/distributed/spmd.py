@@ -103,10 +103,12 @@ replicated (every rank updates it whole).
 - Stage 1: each rank keeps only its block of each non-scalar optimizer
   state tensor. After the all-reduce it updates its block of the
   parameter with ``_update_one``, which acts on each element alone
-  (``Optimizer._elementwise``; Lamb and LARS, whose trust ratio reads the
-  whole parameter's norm, raise), so a block's update is bitwise that
-  block of the whole update; then it all-gathers the parameter
-  (``collective.coalesced_all_gather``). Bitwise the stage-0 step.
+  (``Optimizer._elementwise``), so a block's update is bitwise that block
+  of the whole update; Lamb's and LARS' trust ratio reads the whole
+  parameter's norms, whose sums of squares the rank adds over the group
+  (``block_sum_sq``, as the clip's ``sum_sq_over``). Then it all-gathers
+  the parameter (``collective.coalesced_all_gather``). Bitwise the
+  stage-0 step (Lamb and LARS: to the sums' order).
 - Stage 2: the sharded parameters' gradients are reduce-scattered
   (``collective.coalesced_reduce_scatter``) instead of all-reduced; a
   clip that reads a norm adds the blocks' sums of squares over the ranks
@@ -155,7 +157,25 @@ local-gradient modes refuse mp, as the reference's do.
 does (spmd.py:139-187). A "pp" or "sp" axis of more than one rank raises
 NotImplementedError (the pipeline's axes: ``pipeline.
 build_pipeline_train_step``, as in the reference, whose
-``build_train_step`` has no pipeline), and so does "ep" (the MoE slice's).
+``build_train_step`` has no pipeline).
+
+Expert parallelism: over an "ep" axis of more than one rank, a parameter
+whose ``mp_spec`` names "ep" (``incubate.moe.MoELayer``'s stacked experts)
+is held as the rank's block on that dimension, as an mp parameter is
+(``step_fn.ep_dims``); the batch is not split over ep. The forward runs
+inside ``expert_parallel.expert_parallel(mesh, data)``, where the MoE
+layers run their experts over the ep group (``incubate/moe.py``). ZeRO,
+the clip and the bad-step flag treat an ep block as they treat an mp one.
+
+The aux losses a forward emits through ``nn.aux_loss.emit_aux_loss`` (or
+assigns to a layer's ``aux_loss``) are added to the loss, as in the
+reference (spmd.py:211-225); the layer's ``aux_loss`` is None after a
+step.
+
+``step_fn.layout`` records the cuts of the global arrays a rank holds:
+``{"params": {name: cuts}, "opt_state": {name: cuts}}``, each cut a
+``(dimension, rank, ranks)`` outer first (a scalar state tensor is
+whole); ``distributed.checkpoint`` writes a rank's blocks by it.
 """
 import contextlib
 import weakref
@@ -168,14 +188,14 @@ import torch.utils.checkpoint
 from ..amp.auto_cast import auto_cast
 from ..core import place
 from ..core import random as random_core
+from ..nn import aux_loss
 from ..nn.functional import norm as norm_fn
 from ..resilience.badstep import tree_nonfinite
-from . import collective, topology
+from . import collective, expert_parallel, topology
 from .meta_parallel import mp_layers
 
 _REFUSED_AXES = {"pp": "the pipeline's axis: use pipeline.build_pipeline_train_step",
-                 "sp": "the pipeline's axis: use pipeline.build_pipeline_train_step",
-                 "ep": "expert parallelism is the MoE slice's, not ported yet"}
+                 "sp": "the pipeline's axis: use pipeline.build_pipeline_train_step"}
 
 
 def param_sharding_spec(layer, mesh):
@@ -287,12 +307,23 @@ def _lr_tensor(lr, device):
     return torch.full((), float(lr), dtype=torch.float32, device=device)
 
 
-def _check_blocks(optimizer, hypers, dims, what):
-    if any(d is not None for d in dims.values()) and not type(optimizer)._elementwise(hypers):
-        raise NotImplementedError(
-            f"{what}: {type(optimizer).__name__}'s update reads the whole parameter's norm (its "
-            "trust ratio), so a rank cannot update its block alone; ZeRO or tensor parallelism "
-            "with it is not ported")
+def block_sum_sq(groups):
+    """``Optimizer._update_one``'s ``sum_sq`` for a parameter block split
+    over ``groups`` (collectives' groups, None for a group of one rank):
+    each tensor's sum of squares over the block, added over every group's
+    ranks, so Lamb's and LARS' trust ratio reads the whole parameter's
+    norms, as the reference's global arrays give them. None when the
+    block is the whole parameter."""
+    groups = [g for g in groups if g is not None]
+    if not groups:
+        return None
+
+    def sum_sq(*tensors):
+        sums = torch.stack([torch.sum(torch.square(t)) for t in tensors])
+        for g in groups:
+            sums = collective.all_reduce(sums, collective.ReduceOp.SUM, g)
+        return list(sums)
+    return sum_sq
 
 
 def _init_blocks(optimizer, params, dims, data):
@@ -314,12 +345,13 @@ def _init_blocks(optimizer, params, dims, data):
 
 
 def _update_all(names, opt_state, grads, lr, blocks, hypers, update_one, l1_coeff, donate,
-                offload, bad):
+                offload, bad, sum_sq=None):
     """Every parameter's ``_update_one``: ``blocks[n]`` is the part of a
     parameter to update (its ZeRO block, or the whole), ``grads[n]``
-    and ``opt_state[n]`` are that part's. Returns {name: new part}, {name:
-    new state}; with ``donate`` the parts and state are written in place
-    (and returned)."""
+    and ``opt_state[n]`` are that part's, ``sum_sq[n]`` its
+    ``block_sum_sq`` (None for all: every part is whole). Returns {name:
+    new part}, {name: new state}; with ``donate`` the parts and state are
+    written in place (and returned)."""
     new_parts, new_state = {}, {}
     lr_t = {}  # one float32 scalar per device
     for n in names:
@@ -330,7 +362,7 @@ def _update_all(names, opt_state, grads, lr, blocks, hypers, update_one, l1_coef
         if offload:  # this parameter's state onto the card for its update
             state = tuple(a.to(target.device, non_blocking=True) for a in state)
         new_p, new_st = update_one(target, grads[n].to(target.dtype), lr_t[target.device],
-                                   state, hypers, l1_coeff)
+                                   state, hypers, l1_coeff, None if sum_sq is None else sum_sq[n])
         if bad is not None:
             new_p = torch.where(bad, target, new_p)
             new_st = tuple(torch.where(bad, o, w) for o, w in zip(state, new_st))
@@ -412,14 +444,19 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
         raise NotImplementedError("offload does not compose with dgc")
     data = DataGroup(mesh)
     tp = topology.AxisGroup(mesh) if mesh.axis_size("mp") > 1 else None
+    ep = topology.AxisGroup(mesh, "ep") if mesh.axis_size("ep") > 1 else None
     named = dict(layer.named_parameters())
-    # the dimension each parameter is split on over "mp" (None: whole)
+    # the dimension each parameter is split on over "mp" and over "ep"
+    # (None: whole)
     mpd = {n: mp_layers.mp_dim(getattr(p, "mp_spec", None)) if tp is not None else None
            for n, p in named.items()}
+    epd = {n: mp_layers.mp_dim(getattr(p, "mp_spec", None), "ep") if ep is not None else None
+           for n, p in named.items()}
     mp_names = [n for n in named if mpd[n] is not None]
+    ep_names = [n for n in named if epd[n] is not None]
     use_local = fp16_allreduce or dgc_configs is not None
     dgc = None
-    if use_local and mp_names:
+    if use_local and (mp_names or ep_names):
         raise NotImplementedError("dgc/fp16_allreduce compose with data parallelism only "
                                   "(reference dgc_optimizer.py has the same constraint)")
     if use_local:
@@ -440,20 +477,34 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
     grad_clip = optimizer._grad_clip
 
     def mp_block(t, n):
-        return t if mpd[n] is None else tp.block(t, mpd[n])
+        if mpd[n] is not None:
+            return tp.block(t, mpd[n])
+        return t if epd[n] is None else ep.block(t, epd[n])
 
-    # ZeRO's dimension of each parameter's (mp) block, for its state
+    # ZeRO's dimension of each parameter's (mp or ep) block, for its state
     dims = {n: zero_dim(tuple(mp_block(p, n).shape), data.n) if sharding_stage >= 1 else None
             for n, p in named.items()}
-    _check_blocks(optimizer, hypers, {**dims, **{n: mpd[n] for n in mp_names}},
-                  "build_train_step")
     sharded = [n for n in names if dims[n] is not None]
-    # an mp parameter keeps its mp layout: its gradient is all-reduced and
-    # it is whole (its mp block) at rest, whatever the stage
-    scattered = [n for n in sharded if mpd[n] is None] if sharding_stage >= 2 else []
+    # an mp or ep parameter keeps its layout: its gradient is all-reduced
+    # and it is whole (its mp or ep block) at rest, whatever the stage
+    scattered = ([n for n in sharded if mpd[n] is None and epd[n] is None]
+                 if sharding_stage >= 2 else [])
     at_rest = scattered if sharding_stage >= 3 else []
     gathered = [n for n in sharded if n not in at_rest]
     comm_stats = {}
+    # the cuts of each parameter's global array a rank holds, outer first:
+    # (dimension, rank, ranks)
+    model_cuts = {n: ([(mpd[n], tp.rank, tp.n)] if mpd[n] is not None else [])
+                  + ([(epd[n], ep.rank, ep.n)] if epd[n] is not None else []) for n in names}
+    zero_cut = {n: [(dims[n], data.rank, data.n)] if dims[n] is not None else [] for n in names}
+    layout = {"params": {n: tuple(model_cuts[n] + (zero_cut[n] if n in at_rest else []))
+                         for n in names},
+              "opt_state": {n: tuple(model_cuts[n] + zero_cut[n]) for n in names}}
+    # Lamb's and LARS' norms over a block: added over its groups
+    update_sum_sq = None if type(optimizer)._elementwise(hypers) else {
+        n: block_sum_sq([tp.group if mpd[n] is not None else None,
+                         ep.group if epd[n] is not None else None,
+                         data.group if dims[n] is not None else None]) for n in names}
 
     def block(t, n):
         return collective.shard(t, dims[n], data.rank, data.n)
@@ -474,7 +525,8 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
         work = {n: b.clone() for n, b in buffers.items()}  # the forward updates these
         with contextlib.ExitStack() as stack:
             stack.enter_context(random_core.rng_guard(key))
-            if data.n > 1 and not use_local:
+            global_program = data.n > 1 and not use_local
+            if global_program:
                 # the global program: this rank's slice of the global
                 # dropout masks, the global batch's statistics
                 stack.enter_context(random_core.dp_shard_guard(data.rank, x.shape[0]))
@@ -483,8 +535,15 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
                 stack.enter_context(auto_cast(enable=True, level=amp_level,
                                               dtype=amp_dtype))
             stack.enter_context(mp_layers.tensor_parallel(mesh))
+            stack.enter_context(expert_parallel.expert_parallel(
+                mesh, data if global_program else None))
+            # the aux losses the forward emits (MoE load balancing) join
+            # the objective (reference spmd.py:211-225)
+            auxes = stack.enter_context(aux_loss.collect_aux_losses())
+            aux_loss.clear_direct_aux_losses(layer)
             out = torch.func.functional_call(layer, {**leaves, **work}, (x,))
-            return loss_fn(out, y), work
+            aux_loss.sweep_direct_aux_losses(layer, auxes)
+            return loss_fn(out, y) + aux_loss.total_aux_loss(auxes), work
 
     if recompute:
         plain_forward_loss = forward_loss
@@ -536,7 +595,9 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
         if grad_clip is not None:
             sum_sq = sum_sq_over({data.group: [names.index(n) for n in scattered],
                                   None if tp is None else tp.group:
-                                  [names.index(n) for n in mp_names]})
+                                  [names.index(n) for n in mp_names],
+                                  None if ep is None else ep.group:
+                                  [names.index(n) for n in ep_names]})
             grads = dict(zip(names, grad_clip.clip_arrays([grads[n] for n in names],
                                                           sum_sq=sum_sq)))
         bad = None
@@ -549,6 +610,8 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
                     bad = data.any(bad)
                 if mp_names:
                     bad = any_over(bad, tp.group)
+                if ep_names:
+                    bad = any_over(bad, ep.group)
         # the update's range is named for a profiler to read (its cost when
         # no profiler runs: one host call)
         with torch.no_grad(), torch.profiler.record_function("build_train_step.update"):
@@ -559,10 +622,11 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
             grads = {n: block(g, n) if dims[n] is not None and n not in scattered else g
                      for n, g in grads.items()}
             parts, new_state = _update_all(names, opt_state, grads, lr, blocks, hypers,
-                                           update_one, l1_coeff, donate, offload, bad)
+                                           update_one, l1_coeff, donate, offload, bad,
+                                           update_sum_sq)
             new_params = dict(parts)
             if gathered:
-                # ZeRO 1-2 (and an mp parameter's block at any stage):
+                # ZeRO 1-2 (and an mp or ep parameter's block at any stage):
                 # every rank's blocks make the whole parameters
                 for n, t in zip(gathered, collective.coalesced_all_gather(
                         [parts[n] for n in gathered], [dims[n] for n in gathered], data.group)):
@@ -591,6 +655,8 @@ def build_train_step(layer, loss_fn, optimizer, mesh=None, recompute=False,
     step_fn.comm_stats = comm_stats  # the local-gradient modes' last exchange, bytes by dtype
     step_fn.zero_dims = dims
     step_fn.mp_dims = mpd
+    step_fn.ep_dims = epd
+    step_fn.layout = layout
     return step_fn, init_fn
 
 
@@ -703,7 +769,8 @@ def build_fsdp_train_step(layers, loss_fn, optimizer, mesh=None, recompute=True,
     l1_coeff = type(optimizer)._take_l1(hypers)
     update_one = type(optimizer)._update_one
     grad_clip = optimizer._grad_clip
-    _check_blocks(optimizer, hypers, dims, "build_fsdp_train_step")
+    update_sum_sq = None if type(optimizer)._elementwise(hypers) else {
+        n: block_sum_sq([data.group if dims[n] is not None else None]) for n in names}
     tracker = GatherTracker()
 
     def block(t, n):
@@ -770,9 +837,12 @@ def build_fsdp_train_step(layers, loss_fn, optimizer, mesh=None, recompute=True,
                                                           sum_sq=sum_sq)))
         with torch.no_grad():
             new_params, new_state = _update_all(names, opt_state, grads, lr, params, hypers,
-                                                update_one, l1_coeff, donate, False, None)
+                                                update_one, l1_coeff, donate, False, None,
+                                                update_sum_sq)
         return loss, new_params, new_state
 
     step_fn.tracker = tracker
     step_fn.shard_dims = dims
+    cuts = {n: ((dims[n], data.rank, data.n),) if dims[n] is not None else () for n in names}
+    step_fn.layout = {"params": cuts, "opt_state": cuts}
     return step_fn, init_fn

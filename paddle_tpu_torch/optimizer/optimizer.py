@@ -40,6 +40,12 @@ def _is_l1(reg):
     return type(reg).__name__.startswith("L1")
 
 
+def local_sum_sq(*tensors):
+    """The sum of squares of each tensor (``_update_one``'s ``sum_sq`` for
+    a whole parameter)."""
+    return [torch.sum(torch.square(t)) for t in tensors]
+
+
 class Optimizer:
     _hyper_defaults = {}
 
@@ -106,22 +112,32 @@ class Optimizer:
         return h
 
     @classmethod
-    def _update_one(cls, p, g, lr, state, hypers, l1):
+    def _update_one(cls, p, g, lr, state, hypers, l1, sum_sq=None):
         """One parameter's update as every path applies it (the eager
         step, ``apply_gradients_arrays``, ``build_train_step``): the L1
         term ``g + l1 * sign(p)`` (reference spmd.py:239, :337-338), then
-        ``_update``. Returns (new parameter, new state tuple)."""
+        ``_update``. Returns (new parameter, new state tuple).
+
+        ``sum_sq(*tensors)`` -> one 0-d sum of squares per tensor: how an
+        update that reads a norm of the whole parameter (Lamb's and LARS'
+        trust ratio; ``_elementwise`` false) sums the squares of ``p`` and
+        of its update when ``p`` is a block of it (a ZeRO, mp, ep or pp
+        block: the blocks' sums added over their ranks). None: ``p`` is
+        the whole parameter."""
         if l1:
             g = g + l1 * torch.sign(p)
-        out = cls._update(p, g, lr, *state, **hypers)
+        if sum_sq is not None and not cls._elementwise(hypers):
+            out = cls._update(p, g, lr, *state, sum_sq=sum_sq, **hypers)
+        else:
+            out = cls._update(p, g, lr, *state, **hypers)
         return out[0], tuple(out[1:])
 
     @classmethod
     def _elementwise(cls, hypers):
         """Whether ``_update`` acts on each element alone, so that the
-        update of a block of a parameter is that block of the update
-        (what ZeRO's sharded state needs); false where it takes a norm
-        over the whole parameter."""
+        update of a block of a parameter is that block of the update;
+        false where it takes a norm over the whole parameter (it then
+        takes ``sum_sq``, see ``_update_one``)."""
         return True
 
     @staticmethod
@@ -137,12 +153,13 @@ class Optimizer:
             raise ValueError("this optimizer was built without a `parameters` list")
         return self._parameter_list
 
-    def _apply(self, params, grads, lr, ratios=True, views=None):
+    def _apply(self, params, grads, lr, ratios=True, views=None, sum_sq=None):
         """One ``_update`` per parameter, in place: the parameter's own
         hypers, its L1 term and (``ratios``, the eager step's) its
         ``optimize_attr`` learning-rate ratio. ``views[i]``: the part of
         ``params[i]`` to update (a ZeRO rank's block, which ``grads[i]``
-        and the parameter's accumulators then hold), else all of it."""
+        and the parameter's accumulators then hold), else all of it;
+        ``sum_sq[i]``: that block's ``sum_sq`` (``_update_one``)."""
         for i, (p, g) in enumerate(zip(params, grads)):
             target = p if views is None else views[i]
             ratio = (getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
@@ -153,8 +170,8 @@ class Optimizer:
             hypers = self._hypers(p)
             l1 = self._take_l1(hypers)
             lr_t = torch.full((), lr, dtype=torch.float32, device=p.device) * ratio
-            new_p, self._accumulators[id(p)] = self._update_one(target, g, lr_t, state, hypers,
-                                                                l1)
+            new_p, self._accumulators[id(p)] = self._update_one(
+                target, g, lr_t, state, hypers, l1, None if sum_sq is None else sum_sq[i])
             target.copy_(new_p)
 
     @torch.no_grad()
@@ -309,14 +326,15 @@ class Momentum(Optimizer):
 
     @staticmethod
     def _update(p, g, lr, velocity, *, mu=0.9, nesterov=False, l2=0.0, lars=False,
-                lars_coeff=0.001, lars_wd=0.0005):
+                lars_coeff=0.001, lars_wd=0.0005, sum_sq=None):
         g = g.to(p.dtype)
         lr = lr.to(p.dtype)
         if lars:
             # the lr-scaled step enters the velocity, so past momentum
             # keeps the trust ratio it was accumulated with
-            p_norm = torch.sqrt(torch.sum(torch.square(p)))
-            g_norm = torch.sqrt(torch.sum(torch.square(g)))
+            p_sq, g_sq = (sum_sq or local_sum_sq)(p, g)
+            p_norm = torch.sqrt(p_sq)
+            g_norm = torch.sqrt(g_sq)
             local_lr = torch.where(
                 (p_norm > 0) & (g_norm > 0),
                 lr * lars_coeff * p_norm / (g_norm + lars_wd * p_norm + 1e-12),
@@ -551,7 +569,8 @@ class Lamb(Optimizer):
                 torch.zeros((), dtype=torch.float32, device=p.device))
 
     @staticmethod
-    def _update(p, g, lr, m, v, t, *, b1=0.9, b2=0.999, eps=1e-6, wd=0.01, l2=0.0):
+    def _update(p, g, lr, m, v, t, *, b1=0.9, b2=0.999, eps=1e-6, wd=0.01, l2=0.0,
+                sum_sq=None):
         g = g.to(p.dtype)
         t_new = t + 1
         m_new = b1 * m + (1 - b1) * g
@@ -559,8 +578,9 @@ class Lamb(Optimizer):
         mhat = m_new / (1 - b1 ** t_new).to(p.dtype)
         vhat = v_new / (1 - b2 ** t_new).to(p.dtype)
         r = mhat / (torch.sqrt(vhat) + eps) + wd * p
-        p_norm = torch.sqrt(torch.sum(torch.square(p)))
-        r_norm = torch.sqrt(torch.sum(torch.square(r)))
+        p_sq, r_sq = (sum_sq or local_sum_sq)(p, r)
+        p_norm = torch.sqrt(p_sq)
+        r_norm = torch.sqrt(r_sq)
         trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm, 1.0)
         return p - lr.to(p.dtype) * trust * r, m_new, v_new, t_new
 

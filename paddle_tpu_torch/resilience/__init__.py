@@ -4,10 +4,12 @@ paddle_tpu/resilience): :mod:`chaos` (deterministic fault injection),
 a verified load with fallback: ``CheckpointManager``), :mod:`badstep` (the
 NaN/Inf step guard and the consecutive-bad-step rollback policy:
 ``BadStepMonitor``), :mod:`preemption` (SIGTERM to a resumable stop at a
-boundary) and :mod:`retry` (backoff with jitter and a deadline).
-``elastic`` (pod-scale consensus over several hosts) is not ported yet
-(ROADMAP Queue 1)."""
+boundary), :mod:`retry` (backoff with jitter and a deadline) and
+:mod:`elastic` (pod-scale preemption consensus, straggler detection and
+dead-host recovery over a small TCP coordinator:
+``elastic.init_from_env``)."""
 from . import chaos  # noqa: F401
+from . import elastic  # noqa: F401
 from . import preemption  # noqa: F401
 from .badstep import BadStepMonitor, guard_step, select_tree, tree_nonfinite  # noqa: F401
 from .checkpoint import (  # noqa: F401
@@ -17,6 +19,12 @@ from .checkpoint import (  # noqa: F401
     atomic_write_json,
     file_sha256,
     leaf_checksums,
+)
+from .elastic import (  # noqa: F401
+    CoordinatorLost,
+    ElasticClient,
+    ElasticCoordinator,
+    LocalElastic,
 )
 from .preemption import (  # noqa: F401
     EXIT_CODE as PREEMPTED_EXIT_CODE,

@@ -432,19 +432,19 @@ def test_train_step_takes_the_reference_keys_and_donates():
     assert not torch.equal(ref, before["inner.cls.decoder_bias"])
 
 
-# a data mesh with ZeRO, fp16 all-reduce, DGC and localsgd, and an mp axis
-# are ported (tests/test_torch_dist_meshed.py,
-# tests/test_torch_dist_model_parallel.py); an ep axis still raises, naming
-# the slice that brings it
-@pytest.mark.parametrize("option,slice_name", [
-    (lambda: dict(mesh=ttopology.Mesh((1, 1, 1, 1, 2, 1))), "MoE")],
+# a data mesh with ZeRO, fp16 all-reduce, DGC and localsgd, an mp axis and
+# an ep axis are ported (tests/test_torch_dist_meshed.py,
+# tests/test_torch_dist_model_parallel.py, tests/test_torch_moe.py); a pp
+# axis raises, as in the reference, naming the step that takes it
+@pytest.mark.parametrize("option,step_name", [
+    (lambda: dict(mesh=ttopology.Mesh((1, 2, 1, 1, 1, 1))), "build_pipeline_train_step")],
     ids=["option0"])
-def test_unported_train_step_options_raise(option, slice_name):
+def test_unported_train_step_options_raise(option, step_name):
     m = tnn.Linear(2, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported") as e:
+    with pytest.raises(NotImplementedError, match="the pipeline's axis") as e:
         tspmd.build_train_step(m, lambda out, y: out.sum(), topt.AdamW(parameters=m.parameters()),
                                **option())
-    assert f"the {slice_name} slice" in str(e.value)
+    assert step_name in str(e.value)
 
 
 @pytest.mark.parametrize("donate", [True, False])
