@@ -634,7 +634,31 @@ Phases, each fatal on failure (exit code 1):
               gathered parameters 2.5 lr, a rank holding half the
               experts. No kernel of the port runs in the experts (plain
               products, as the reference leaves them to XLA)
- 27. summary  a {"kernels": [...]} line, then as the last line
+ 27. meshed serving  (inference/sharding.py; every shard of (a) and
+              (b) on card 0 through mesh_devices=["cuda:0"] * n, so the
+              times hold bits and bytes, not cross-card latency): (a)
+              phase 18's seed-0 BERT-base save served by serve_model on
+              the wire under "single", "tp2" and "fsdp2xtp2": replies
+              within SHARDED_FLOAT_TOL of the single engine's (bitwise
+              printed), 12 K1 launches a batch, the mesh in cmd-3/5, the
+              compile ledger's bucket events tagged with the mesh, the
+              per-shard weight bytes against the model's, the card's peak
+              memory and a full batch's ms on the wire; (b) phase 7's
+              Llama-2-7B-width bf16 weights (depth LLAMA_LAYERS, no new
+              init) in a tp2 DecodeEngine, captured: four prompts decoded
+              together equal each decoded alone bitwise, and the single
+              mesh's tokens or a near-tie (2e-2 of the logits' max, the
+              bf16 TIE) where they part; every stream teacher-forced on
+              the single mesh's tokens through both meshes' weights, tp2's
+              logits within 2e-2 of the single mesh's max at each of the
+              4 x 32 positions and its top token the single mesh's or a
+              near-tie; K1 = depth x (fill replays + steps); a step
+              replay's device ms beside the single mesh's; (c) in phase
+              23's two ranks after phase 25: a BERT-base save under tp2
+              over the rank backing (each rank its own blocks, the
+              products' all_gathers over gloo, eagerly), rank 0's replies
+              within SHARDED_FLOAT_TOL of its single engine's
+ 28. summary  a {"kernels": [...]} line, then as the last line
               {"ok": true, "device": {"platform": "gpu", ...}}
 
 Each phase's seconds are printed as "[time]" lines.
@@ -660,8 +684,13 @@ builds the kernels and runs phase 22 alone, and
 
     python3 chip_smoke.py --dp
 
-phases 23-26 alone; ``--dp-rank OUT`` is one of their ranks, which
-phase 23 starts through the port's launcher.
+phases 23-26 (and 27 (c)) alone; ``--dp-rank OUT`` is one of their
+ranks, which phase 23 starts through the port's launcher.
+
+    python3 chip_smoke.py --meshed-serving
+
+builds K1 and runs phase 27 (a) and (b) alone, over a seed-0 BERT-base
+save and a seed-0 Llama-2-7B-width bf16 model of its own.
 
 It imports nothing of JAX or the JAX package. Run from a directory that
 holds only this file it fails at the import of paddle_tpu_torch.
@@ -8435,7 +8464,7 @@ def dp_rank(argv):
     the fault spec taken out: a restarted pod is not killed again) and
     chaos.hit("train.step") before each step of the fault model, which it
     trains first; then (d), (a), (b), (c) and the fault model once more,
-    phases 24 and 25, and phase 26 (c). Writes rank{r}.json (and rank 0's
+    phases 24 and 25, phase 27 (c) and phase 26 (c). Writes rank{r}.json (and rank 0's
     step-1 tensors) to OUT, then ends with phase 26 (b)'s consensus exit
     (143)."""
     if len(argv) != 1:
@@ -8458,6 +8487,11 @@ def dp_rank(argv):
     from paddle_tpu_torch.distributed.meta_parallel import PipelineLayer
     from paddle_tpu_torch.incubate.moe import MoELayer
     from paddle_tpu_torch.ops import ring_attention as ra
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import sharding as psharding
+    from paddle_tpu_torch.inference.batching import BatchingEngine
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.text.models import BertModel
 
     started["imports"] = time.time() - t_launch
     env = dict(os.environ)
@@ -8651,6 +8685,11 @@ def dp_rank(argv):
     res["model_parallel"] = mp_rank(
         torch, (LlamaModel, PipelineLayer, nn, optimizer, spmd, topology, fleet, dist, prandom,
                 fa, ra), rank, out)
+    # phase 27 (c) in the same pod
+    res["meshed_serving"] = ms_rank(torch, (BertModel, jit, InputSpec, BatchingEngine, psharding,
+                                            dist, fa), rank, out)
+    gc.collect()
+    torch.cuda.empty_cache()
     # phase 26 in the same pod: (c), then (b), which ends the pod with the
     # consensus exit 143
     t0 = time.perf_counter()
@@ -9077,6 +9116,7 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None, started=None):
             (lambda: BertForPretraining(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
                                         device="cuda", generator=torch.Generator().manual_seed(0)),
              build, x, y, keys))
+        meshed_serving = ms_ranks_check(ranks, card)
     finally:
         shutil.rmtree(out, ignore_errors=True)
     times["phase"] = time.perf_counter() - t_phase
@@ -9086,7 +9126,8 @@ def phase_dp(torch, fa, mods, card, one_rank_ms=None, started=None):
         f"{ranks[0]['b']['seconds']:.1f} (c) {ranks[0]['c']['seconds']:.1f} s [{card}]")
     return dict(counts=dp_counts, cases=cases, step_ms=steady, one_rank_ms=one_rank,
                 allreduce_ms=b0.get("allreduce_ms"), idle=idle, meshed=meshed,
-                model_parallel=model_parallel, state_experts=state_experts)
+                model_parallel=model_parallel, state_experts=state_experts,
+                meshed_serving=meshed_serving)
 
 
 # ------------------------------------------------------------------ phase 24
@@ -10615,6 +10656,351 @@ def phase_state_experts(torch, mods, ranks, out, refs, pod_exit, card, bert):
                 save_s=[e["seconds"] for e in el])
 
 
+# ------------------------------------------------------------------ phase 27
+# Meshed serving (inference/sharding.py). (a) and (b) put every shard on
+# card 0 (mesh_devices=["cuda:0"] * n): the card holds the blocks of every
+# shard, so the times below hold bits and bytes, not cross-card latency.
+MS_MESHES = ("tp2", "fsdp2xtp2")  # (a)
+MS_ROWS = (2, 8, 5)  # (a): the requests held against the single engine's
+MS_TIMED = 5  # (a): full-batch requests timed on the wire, each mesh
+MS_PROMPTS, MS_NEW = 4, 32  # (b): prompts decoded together, then alone
+# (b): where two meshes' greedy bf16 tokens part, the gap between their
+# logits, of the row's max |logit|: phase 6's bf16 near-tie
+MS_NEAR_TIE = TIE["bfloat16"]
+MS_RANK_ROWS = (2, 1)  # (c): a rank's requests (bucket 2 and 1)
+MS_RANK_BATCH = 2  # (c): the rank engines' max_batch_size
+MS_CARD = "cuda:0"  # the device every shard of (a) and (b) lives on (a CPU rehearsal: "cpu")
+
+
+def ms_rel_err(got, want):
+    """max |got - want| over max(1, max |want|), float64, per output pair."""
+    return max(float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+               / max(1.0, float(np.abs(np.asarray(b, np.float64)).max()))
+               for a, b in zip(got, want))
+
+
+def ms_serve(torch, fa, mods, card, prefix, vocab):
+    """Phase 27 (a) (module docstring): ``prefix`` is phase 18's seed-0
+    BERT-base save at [None, DEPLOY_SEQ]."""
+    (jit, serve_model, wire_spec, sharding, ledger) = mods
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(27)
+    reqs = [rng.randint(0, vocab, (rows, DEPLOY_SEQ)).astype(np.int32) for rows in MS_ROWS]
+    full = rng.randint(0, vocab, (DEPLOY_BATCH, DEPLOY_SEQ)).astype(np.int32)
+    params = [p.detach() for p in jit.load(prefix, device="cpu").parameters()]
+    whole = sum(p.numel() * p.element_size() for p in params)
+    runs, bad = {}, []
+    for mesh in ("single",) + MS_MESHES:
+        m = sharding.ServingMesh.parse(mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # what the card held before this server
+        ledger.LEDGER.reset()
+        t = time.perf_counter()
+        srv = serve_model(prefix, dynamic_batching=True, max_batch_size=DEPLOY_BATCH,
+                          mesh=mesh, mesh_devices=None if m.is_single else [MS_CARD] * m.n_shards,
+                          watchdog_interval=0)
+        try:
+            up_s = time.perf_counter() - t
+            k0 = fa.launches
+            replies = []
+            for x in reqs:
+                status, outs, _ = _served(srv.port, wire_spec, x)
+                if status != 0:
+                    bad.append(f"(a) {mesh}: a {x.shape[0]}-row request answered status {status}")
+                replies.append(outs)
+            before = _stats(wire_spec, srv.port)
+            ms = []
+            for _ in range(MS_TIMED):
+                status, outs, one = _served(srv.port, wire_spec, full)
+                if (status != 0 or len(outs) != len(replies[0])
+                        or any(o.shape[0] != DEPLOY_BATCH for o in outs)):
+                    bad.append(f"(a) {mesh}: a timed {DEPLOY_BATCH}-row request answered "
+                               f"status {status}")
+                ms.append(one)
+            k1 = fa.launches - k0
+            stats = _stats(wire_spec, srv.port)
+            timed_batches = (sum(b["batches"] for rows in stats["buckets"].values() for b in rows)
+                             - sum(b["batches"] for rows in before["buckets"].values()
+                                   for b in rows))
+            if timed_batches < MS_TIMED:
+                bad.append(f"(a) {mesh}: the {MS_TIMED} timed requests ran {timed_batches} "
+                           "batches")
+            health = json.loads(_call(srv.port, wire_spec.build_request(wire_spec.CMD_HEALTH))[1])
+            peak = torch.cuda.max_memory_allocated() - base
+        finally:
+            srv.stop(drain=False)
+            del srv
+        buckets = [b for rows in stats["buckets"].values() for b in rows]
+        calls = sum(b["program_calls"] or 0 for b in buckets)
+        events = ledger.LEDGER.events("serving/")
+        runs[mesh] = dict(replies=replies, ms=_median(ms), k1=k1, calls=calls,
+                          batches=sum(b["batches"] for b in buckets), peak=peak, up_s=up_s,
+                          per_shard=m.per_shard_bytes(params),
+                          tags=sorted({str(e.get("mesh")) for e in events}),
+                          keys=sorted(e["key"] for e in events), stats_mesh=stats["mesh"],
+                          health_mesh=health["engine"]["mesh"])
+        if stats["mesh"] != mesh or health["engine"]["mesh"] != mesh:
+            bad.append(f"(a) {mesh}: cmd-5 reports mesh {stats['mesh']!r}, cmd-3 "
+                       f"{health['engine']['mesh']!r}")
+        want_tags = ["None"] if m.is_single else [mesh]
+        if runs[mesh]["tags"] != want_tags or not events:
+            bad.append(f"(a) {mesh}: the ledger's bucket events carry the tags "
+                       f"{runs[mesh]['tags']}, not {want_tags}")
+        if k1 != 12 * calls or calls != runs[mesh]["batches"] or not calls:
+            bad.append(f"(a) {mesh}: {k1} K1 launches over {calls} program calls of "
+                       f"{runs[mesh]['batches']} batches (12 a batch wanted)")
+    single = runs["single"]
+    for mesh in MS_MESHES:
+        r = runs[mesh]
+        r["err"] = max(ms_rel_err(g, w) for g, w in zip(r["replies"], single["replies"]))
+        r["bitwise"] = [_bitwise(g, w) for g, w in zip(r["replies"], single["replies"])]
+        if not r["err"] <= sharding.SHARDED_FLOAT_TOL:
+            bad.append(f"(a) {mesh}: replies {r['err']:.3e} of the single engine's (tolerance "
+                       f"{sharding.SHARDED_FLOAT_TOL})")
+    for mesh, r in runs.items():
+        log(f"[meshed] (a) BERT-base f32 behind serve_model(mesh={mesh!r}) on the wire: up in "
+            f"{r['up_s']:.1f} s; weights {r['per_shard'] / 2**20:.1f} MiB a shard of "
+            f"{whole / 2**20:.1f} MiB; peak {r['peak'] / 2**30:.2f} GiB over what the card held "
+            f"before; a {DEPLOY_BATCH}-row "
+            f"request {r['ms']:.2f} ms (median of {MS_TIMED}, host clock on the wire); K1 "
+            f"{r['k1']} launches over {r['calls']} program calls; ledger {r['keys']} tagged "
+            f"{r['tags']}; cmd-3/5 mesh {r['health_mesh']}/{r['stats_mesh']}"
+            + ("" if mesh == "single" else f"; replies {r['err']:.3e} of the single engine's, "
+               f"bitwise {r['bitwise']}") + f" [{card}]")
+    if bad:
+        fail("phase 27 (a): " + "; ".join(bad))
+    log(f"[meshed] (a) took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=sum(r["k1"] for r in runs.values()),
+                runs={k: {f: v for f, v in r.items() if f != "replies"} for k, r in runs.items()},
+                whole_bytes=whole)
+
+
+def ms_decode(torch, fa, mods, card, dm, n_layers):
+    """Phase 27 (b) (module docstring): ``dm`` is phase 7's
+    llama_decode_model over its bf16 Llama-2-7B-width model."""
+    (generation, DecodeEngine, sharding) = mods
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(270)
+    vocab = dm.vocab_size
+    prompts = [rng.randint(0, vocab, (int(n),)).astype(np.int32)
+               for n in rng.randint(16, ENGINE_PROMPT + 1, MS_PROMPTS)]
+    kw = dict(max_prompt_len=ENGINE_PROMPT, min_seq_bucket=ENGINE_CHUNK, prefix=False,
+              watchdog_interval=0, device=MS_CARD)
+    runs, bad = {}, []
+    whole = sum(p.numel() * p.element_size() for _, p in dm.params.named_tensors())
+    for mesh in ("single", "tp2"):
+        m = sharding.ServingMesh.parse(mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # phase 7's weights among it
+        t = time.perf_counter()
+        eng = DecodeEngine(dm, mesh=mesh, name=f"meshed-{mesh}",
+                           mesh_devices=None if m.is_single else [MS_CARD] * m.n_shards, **kw)
+        try:
+            eng.warmup()
+            up_s = time.perf_counter() - t
+            st0 = eng.stats()
+            k0 = fa.launches
+            reqs = [eng.submit(p, max_new_tokens=MS_NEW) for p in prompts]
+            together = [r.result(timeout=600).tolist() for r in reqs]
+            alone = [eng.generate(p, max_new_tokens=MS_NEW, timeout=600).tolist()
+                     for p in prompts]
+            st = eng.stats()
+            k1 = fa.launches - k0
+            replay = eng._programs[eng._step_key]
+            step_ms = one_call_device_ms(torch, replay)
+            del replay
+            peak = torch.cuda.max_memory_allocated() - base
+            # every stream teacher-forced on the single mesh's tokens, through
+            # this engine's weights (its mesh's products): the logits of each
+            # of its MS_NEW tokens, held below past the point where the
+            # engines' own streams part
+            forced = [generation.llama_sequence_logits(
+                eng._model, np.concatenate([p, np.asarray(t[:-1], np.int32)]), p.size - 1).cpu()
+                for p, t in zip(prompts, (runs.get("single") or {}).get("together", together))]
+        finally:
+            eng.close()
+            del eng
+        fills = st["prefix_fill_steps"] - st0["prefix_fill_steps"]
+        steps = st["steps"] - st0["steps"]
+        runs[mesh] = dict(together=together, alone=alone, k1=k1, fills=fills, steps=steps,
+                          forced=forced,
+                          step_ms=step_ms, peak=peak, up_s=up_s, stats_mesh=st["mesh"],
+                          per_shard=m.per_shard_bytes(
+                              [p for _, p in dm.params.named_tensors()]))
+        if together != alone:
+            bad.append(f"(b) {mesh}: prompts decoded together differ from each alone")
+        if k1 != n_layers * (fills + steps) or st["k1_launches"] - st0["k1_launches"] != k1:
+            bad.append(f"(b) {mesh}: {k1} K1 launches for {fills} fill replays and {steps} "
+                       f"steps at depth {n_layers}")
+        if st["mesh"] != mesh:
+            bad.append(f"(b) {mesh}: stats report mesh {st['mesh']!r}")
+    parts = []  # (token index, gap of the logits' max) where a stream parts
+    for p, got, want in zip(prompts, runs["tp2"]["together"], runs["single"]["together"]):
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a != b:
+                logits = generation.llama_prompt_logits(dm, np.concatenate(
+                    [p, np.asarray(want[:i], np.int32)]))
+                gap = abs(float(logits[a] - logits[b])) / float(logits.abs().max())
+                parts.append((i, gap))
+                if not gap <= MS_NEAR_TIE:
+                    bad.append(f"(b) tp2 parts from the single mesh at token {i} of a "
+                               f"{p.size}-token prompt by {gap:.3e} of the logits' max")
+                break
+    # the whole streams, teacher-forced: at each of the 4 x MS_NEW positions
+    # tp2's logits within TOL_GEN_LOGITS of the single mesh's (of the row's
+    # max |logit|), and tp2's top token the single mesh's or a near-tie
+    forced_err, forced_ties = 0.0, []
+    for p, want, lt_all, ls_all in zip(prompts, runs["single"]["together"],
+                                       runs["tp2"]["forced"], runs["single"]["forced"]):
+        for i, (b, lt, ls) in enumerate(zip(want, lt_all, ls_all)):
+            top = float(ls.abs().max())
+            err = float((lt - ls).abs().max()) / top
+            forced_err = max(forced_err, err)
+            a = int(lt.argmax())
+            gap = abs(float(ls[a] - ls[b])) / top if a != b else 0.0
+            if a != b:
+                forced_ties.append((i, gap))
+            if not (err <= TOL_GEN_LOGITS["bfloat16"] and gap <= MS_NEAR_TIE):
+                bad.append(f"(b) teacher-forced token {i} of a {p.size}-token prompt: tp2's "
+                           f"logits {err:.3e} of the single mesh's max (tolerance "
+                           f"{TOL_GEN_LOGITS['bfloat16']}), top token {a} vs {b} by {gap:.3e}")
+    n_forced = sum(len(t) for t in runs["single"]["together"])
+    for mesh, r in runs.items():
+        log(f"[meshed] (b) Llama-2-7B width, depth {n_layers}, bf16, DecodeEngine(mesh="
+            f"{mesh!r}), {dm.max_slots} slots x {dm.max_seq_len}: warmup (captures; the "
+            f"weights digest where not yet taken) {r['up_s']:.1f} s; "
+            f"weights {r['per_shard'] / 2**30:.2f} GiB a shard of {whole / 2**30:.2f} GiB; peak "
+            f"{r['peak'] / 2**30:.2f} GiB over what the card held before (phase 7's weights); "
+            f"a step replay {_fmt(r['step_ms'])} ms device; K1 "
+            f"{r['k1']} = {n_layers} x ({r['fills']} fills + {r['steps']} steps); together = "
+            f"alone bitwise {r['together'] == r['alone']}; stats mesh {r['stats_mesh']} [{card}]")
+    log(f"[meshed] (b) tp2 vs single: {MS_PROMPTS} streams of {MS_NEW} tokens, {len(parts)} "
+        "part(s) (token, the two tokens' logit gap of the max): "
+        + (", ".join(f"({i}, {g:.2e})" for i, g in parts) or "none")
+        + f", each a near-tie ({MS_NEAR_TIE}): {all(g <= MS_NEAR_TIE for _, g in parts)}; "
+        f"teacher-forced on the single mesh's tokens, all {n_forced} positions: tp2's logits "
+        f"at most {forced_err:.3e} of the row's max (tolerance {TOL_GEN_LOGITS['bfloat16']}), "
+        f"{len(forced_ties)} top token(s) differ: "
+        + (", ".join(f"({i}, {g:.2e})" for i, g in forced_ties) or "none")
+        + f" ({time.perf_counter() - t_phase:.1f} s)")
+    if bad:
+        fail("phase 27 (b): " + "; ".join(bad))
+    return dict(launches=sum(r["k1"] for r in runs.values()),
+                runs={k: {f: v for f, v in r.items() if f not in ("together", "alone", "forced")}
+                      for k, r in runs.items()}, parts=parts, whole_bytes=whole,
+                forced_err=forced_err, forced_ties=forced_ties, n_forced=n_forced)
+
+
+def ms_rank(torch, mods, rank, out):
+    """Phase 27 (c) in one of phase 23's ranks: rank 0 saves a seed-0
+    BERT-base at [None, DEPLOY_SEQ]; both ranks serve it through a tp2
+    BatchingEngine over the rank backing (one shard a rank, the products'
+    all_gathers over gloo, eagerly) in lockstep; rank 0 then serves the same
+    requests through a single engine and compares."""
+    (BertModel, jit, InputSpec, BatchingEngine, sharding, dist, fa) = mods
+    t0 = time.perf_counter()
+    prefix = os.path.join(out, "ms_bert")
+    if rank == 0:
+        model = BertModel(device="cuda", generator=torch.Generator().manual_seed(0)).eval()
+        jit.save(model, prefix, input_spec=[InputSpec([None, DEPLOY_SEQ], "int32")])
+        del model
+    dist.barrier()
+    layer = jit.load(prefix, device="cpu")  # the blocks go to the card, the rest stays
+    whole = sum(p.numel() * p.element_size() for p in layer.parameters())
+    vocab = next(p.shape[0] for p in layer.parameters()
+                 if p.param_name == "embeddings.word_embeddings.weight")
+    rng = np.random.RandomState(271)
+    reqs = [rng.randint(0, vocab, (rows, DEPLOY_SEQ)).astype(np.int32) for rows in MS_RANK_ROWS]
+    k0 = fa.launches
+    eng = BatchingEngine.for_layer(layer, mesh="tp2", max_batch_size=MS_RANK_BATCH,
+                                   watchdog_interval=0, name=f"ms-rank{rank}")
+    del layer
+    held = sum(w.nbytes_here() if hasattr(w, "nbytes_here") else w.numel() * w.element_size()
+               for w in eng._runner._layer._weights)
+    try:
+        eng.warmup()
+        t = time.perf_counter()
+        meshed = [eng.infer([x], timeout=600) for x in reqs]
+        ms = (time.perf_counter() - t) * 1e3 / len(reqs)
+        stats = eng.stats()
+        devices = eng._runner.mesh_devices
+    finally:
+        eng.close()
+    res = dict(mesh=stats["mesh"], devices=devices, k1=fa.launches - k0,
+               calls=sum(b["program_calls"] or 0 for rows in stats["buckets"].values()
+                         for b in rows) + len(eng.declared_buckets()),
+               held_bytes=held, whole_bytes=whole, ms=ms)
+    if rank == 0:
+        single = BatchingEngine.for_layer(jit.load(prefix), max_batch_size=MS_RANK_BATCH,
+                                          watchdog_interval=0, name="ms-rank-single")
+        try:
+            single.warmup()
+            want = [single.infer([x], timeout=600) for x in reqs]
+        finally:
+            single.close()
+        res["err"] = max(ms_rel_err(g, w) for g, w in zip(meshed, want))
+        res["bitwise"] = [_bitwise(g, w) for g, w in zip(meshed, want)]
+        res["tol"] = sharding.SHARDED_FLOAT_TOL
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def ms_ranks_check(ranks, card):
+    """Phase 27 (c)'s checks on what the ranks returned."""
+    r0, r1 = (r["meshed_serving"] for r in ranks)
+    bad = []
+    if not r0["err"] <= r0["tol"]:
+        bad.append(f"rank 0's replies {r0['err']:.3e} of its single engine's")
+    for r in (r0, r1):
+        if r["mesh"] != "tp2" or "rank" not in str(r["devices"]):
+            bad.append(f"a rank served mesh {r['mesh']!r} over {r['devices']}")
+        if r["k1"] != 12 * r["calls"]:
+            bad.append(f"a rank made {r['k1']} K1 launches over {r['calls']} program calls")
+        if not r["held_bytes"] < r["whole_bytes"]:
+            bad.append(f"a rank holds {r['held_bytes']} weight bytes of {r['whole_bytes']}")
+    log(f"[meshed] (c) BERT-base f32 under tp2 over two launcher ranks (gloo, eager): rank 0's "
+        f"replies {r0['err']:.3e} of its single engine's, bitwise {r0['bitwise']}; a rank holds "
+        f"{r0['held_bytes'] / 2**20:.1f} / {r1['held_bytes'] / 2**20:.1f} MiB of "
+        f"{r0['whole_bytes'] / 2**20:.1f} MiB; a request {r0['ms']:.1f} ms (host clock, the "
+        f"gathers through the host); K1 {r0['k1']} + {r1['k1']} launches over {r0['calls']} + "
+        f"{r1['calls']} program calls; rank 0's phase {r0['seconds']:.1f} s [{card}]")
+    if bad:
+        fail("phase 27 (c): " + "; ".join(bad))
+    return dict(launches=r0["k1"] + r1["k1"], err=r0["err"], bitwise=r0["bitwise"])
+
+
+def meshed_serving_alone(torch, fa, mods, card):
+    """``--meshed-serving``: phase 27 (a) and (b) over models of their own:
+    a seed-0 BERT-base save and a seed-0 Llama-2-7B-width bf16 model of
+    LLAMA_LAYERS layers (phase 7's construction)."""
+    (jit, serve_model, wire_spec, sharding, ledger, generation, DecodeEngine, BertModel,
+     LlamaModel, InputSpec) = mods
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="paddle_tpu_torch_meshed_")
+    try:
+        model = BertModel(device="cuda", generator=torch.Generator().manual_seed(0)).eval()
+        prefix = os.path.join(tmp, "bert")
+        jit.save(model, prefix, input_spec=[InputSpec([None, DEPLOY_SEQ], "int32")])
+        vocab = model.vocab_size
+        del model
+        a = ms_serve(torch, fa, (jit, serve_model, wire_spec, sharding, ledger), card, prefix,
+                     vocab)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    model = LlamaModel(num_layers=LLAMA_LAYERS, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    model.to(torch.bfloat16).eval()
+    dm = generation.llama_decode_model(model, ENGINE_SLOTS, ENGINE_SEQ)
+    b = ms_decode(torch, fa, (generation, DecodeEngine, sharding), card, dm, len(model.layers))
+    return a, b
+
+
 def stop_children(grace=5.0):
     """End the processes this one started that are still alive at the end,
     each logged with its command line: the script leaves none running.
@@ -10768,14 +11154,15 @@ def main():
     sweep = None
     leaves_alone = sys.argv[1:] == ["--leaves"]
     dp_alone = sys.argv[1:] == ["--dp"]
+    meshed_alone = sys.argv[1:] == ["--meshed-serving"]
     if len(sys.argv) > 1 and sys.argv[1] == "--decode-replica":
         return decode_replica(sys.argv[2:])
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":
         return dp_rank(sys.argv[2:])
-    if len(sys.argv) > 1 and not (leaves_alone or dp_alone):
+    if len(sys.argv) > 1 and not (leaves_alone or dp_alone or meshed_alone):
         if len(sys.argv) != 3 or sys.argv[1] not in ("--fill-sweep", "--depth-sweep"):
             fail("usage: chip_smoke.py [--fill-sweep C1,C2,... | --depth-sweep D1,D2,... | "
-                 "--leaves | --dp | "
+                 "--leaves | --dp | --meshed-serving | "
                  "--decode-replica PORTFILE PHASE PREFIX_DIR | --dp-rank OUT]")
         sweep = [int(c) for c in sys.argv[2].split(",")]
     # a failed check ends the run through sys.exit: the processes it started
@@ -10820,6 +11207,8 @@ def main():
         from paddle_tpu_torch.vision import ops as vision_ops
         import paddle_tpu_torch.distributed as pdist
         from paddle_tpu_torch.distributed import launch_mod, parallel, topology
+        from paddle_tpu_torch.inference import sharding as psharding
+        from paddle_tpu_torch.obs import ledger as pledger
     except ImportError as e:
         fail(f"the port is not importable from this directory: {e}")
 
@@ -10848,7 +11237,7 @@ def main():
 
     phase_build(torch, cuda_build, fa, kernels)
     took("build")
-    if not (dp_alone or sweep):
+    if not (dp_alone or sweep or meshed_alone):
         start_nms_server()  # its import overlaps the phases before 22
     leaves_mods = (paddle, vision_ops, LlamaModel, generation, DecodeEngine, quantization, utils,
                    distribution, incubate_autograd)
@@ -10863,6 +11252,12 @@ def main():
         phase_dp(torch, fa, dp_mods, card)
         took("dp")
         stop_children()
+        return
+    if meshed_alone:
+        meshed_serving_alone(torch, fa, (jit, serve_model, wire_spec, psharding, pledger,
+                                         generation, DecodeEngine, BertModel, LlamaModel,
+                                         InputSpec), card)
+        took("meshed serving")
         return
     if sweep and sys.argv[1] == "--depth-sweep":
         depth_sweep(torch, fa, (
@@ -10908,6 +11303,10 @@ def main():
     robust = phase_robust(torch, fa, (generation, DecodeEngine, BatchingEngine, PredictorServer,
                                       wire_spec, chaos, obs), card, eng, serving["model"])
     took("robust")
+    # phase 27 (b) on phase 7's bf16 7B, before it goes
+    ms_b = ms_decode(torch, fa, (generation, DecodeEngine, psharding), card, eng["dm"],
+                     len(eng["model"].layers))
+    took("meshed serving (b)")
     # phase 10's engines are closed; its (phase 7's) bf16 7B goes before the f32 one comes
     eng.pop("model")
     eng.pop("dm")
@@ -10961,6 +11360,9 @@ def main():
         fleet = phase_fleet(torch, (inference, fleet_mod, router_mod, wire_spec, goodput),
                             card, deploy)
         took("fleet")
+        ms_a = ms_serve(torch, fa, (jit, serve_model, wire_spec, psharding, pledger), card,
+                        deploy["saves"][0], deploy["vocab"])
+        took("meshed serving (a)")
     finally:
         shutil.rmtree(saves, ignore_errors=True)
     gc.collect()
@@ -10977,6 +11379,16 @@ def main():
     torch.cuda.set_per_process_memory_fraction(1.0)
     dp = phase_dp(torch, fa, dp_mods, card, one_rank_ms=train["step_ms"], started=dp_started)
     took("dp")
+    ms_c = dp["meshed_serving"]
+    log("[meshed] phase 27: (a) " + ", ".join(
+        f"{m} {r['ms']:.2f} ms a {DEPLOY_BATCH}-row reply, {r['per_shard'] / 2**20:.1f} MiB a "
+        f"shard, peak +{r['peak'] / 2**30:.2f} GiB" for m, r in ms_a["runs"].items())
+        + "; (b) " + ", ".join(f"{m} step {_fmt(r['step_ms'])} ms device, "
+                               f"{r['per_shard'] / 2**30:.2f} GiB a shard, peak "
+                               f"+{r['peak'] / 2**30:.2f} GiB" for m, r in ms_b["runs"].items())
+        + f", tp2 teacher-forced logits {ms_b['forced_err']:.3e} of the single's over "
+        f"{ms_b['n_forced']} positions"
+        + f"; (c) rank 0 {ms_c['err']:.3e} of the single engine [{card}]")
 
     # K1 at the largest shape BERT-base serving gives it (a full batch of 8
     # at seq 512, float32); K2 and K3 at the shape BERT-base training gives
@@ -11083,7 +11495,12 @@ def main():
                        + mtt["parity_counts"][0] + dyg["counts"]["fwd"] + dyg["extra"][0]
                        + deploy["launches"][0] + static["launches"][0] + fleet["launches"]
                        + safety["launches"][0] + leaves["k1_launches"] + dp["counts"][0]
-                       + dp["meshed"]["counts"][0] + mpar["counts"][0]),
+                       + dp["meshed"]["counts"][0] + mpar["counts"][0] + ms_a["launches"]
+                       + ms_b["launches"] + ms_c["launches"]),
+             # phase 27's: (a) the served BERT-base's batches under each mesh
+             # (single too), (b) the 7B engines' fills and steps (single and
+             # tp2), (c) both ranks' program calls
+             meshed_serving_launches=ms_a["launches"] + ms_b["launches"] + ms_c["launches"],
              # phase 23's: both ranks' (a) O0, (b) O1 and (c) eager steps
              dp_launches=dp["counts"][0],
              # phase 24's: both ranks' every mode (FSDP's recompute twice a layer)

@@ -53,12 +53,22 @@ K1 keeps a row's bits beside any neighbours and LayerNorm is per row. A
 1-row tail chunk of a split request pads to bucket 2, as in the
 reference.
 
-Not ported: cold-compile threads and meshed serving (ROADMAP Queue 1),
-and the artifact store of compiled programs (``for_layer``'s
-``artifact_store`` raises; ROADMAP Queue 3 (b)). The port's runners
-compile nothing: the first batch of a bucket (or its warmup) is counted
-as its one ``inline`` compile, as it builds the kernels and grows the
-allocator.
+**Meshed serving** (the reference's): ``for_layer(layer, mesh="tp2",
+mesh_devices=...)`` serves the layer's sharded form
+(``TranslatedLayer.sharded``, inference/sharding.py): the weights are
+split once, at construction (too few devices raise there), and every
+bucket runs the same rewritten program, whose products run per shard.
+The mesh is the ``mesh`` const label of the compiles and ``stats()`` /
+``health()["mesh"]``. Integer and bool replies are bitwise the single
+mesh's; float replies sit within ``sharding.SHARDED_FLOAT_TOL``.
+
+Not ported: cold-compile threads, and the artifact store of compiled
+programs (``for_layer``'s ``artifact_store`` raises; ROADMAP Queue 3
+(b)). The port's runners compile nothing: the first batch of a bucket
+(or its warmup) is counted as its one ``inline`` compile, as it builds
+the kernels and grows the allocator; a loaded layer's is a compile-ledger
+event (obs/ledger.py), ``serving/bucket{b}``, with the program's ATen
+ops.
 """
 import threading
 import time
@@ -69,7 +79,9 @@ import numpy as np
 
 from ..obs import metrics as obs_metrics
 from ..obs import tracing as obs_tracing
+from ..obs.ledger import LEDGER
 from ..resilience import chaos
+from . import sharding
 from .wire_spec import STATUS_RETRYABLE
 
 
@@ -244,11 +256,30 @@ class AotLayerRunner:
     reference's ``AotLayerRunner``): its program must be batch-polymorphic
     in dim 0 of every input and concrete elsewhere. The weights stay on
     the layer's device, shared by every bucket; each batch runs the
-    layer's slabs (the module docstring's contract)."""
+    layer's slabs (the module docstring's contract).
 
-    def __init__(self, layer):
-        self._layer = layer
+    ``mesh`` (None reads ``PADDLE_TPU_SERVING_MESH``, else "single"): a
+    sharded serving mesh (inference/sharding.py) is built here, failing
+    fast without enough devices, and the layer is replaced by its sharded
+    form over ``mesh_devices`` (or the launcher's ranks), once; the runner
+    keeps no reference to the whole weights. A save that recorded another
+    mesh's shard count is refused (``sharding.check_nr_devices``)."""
+
+    def __init__(self, layer, mesh=None, mesh_devices=None):
+        self._mesh = sharding.resolve(mesh)
+        self.mesh_desc = self._mesh.descriptor
         self.quant_mode = getattr(layer, "_quant_mode", None)
+        self.mesh_devices = None
+        sharding.check_nr_devices(getattr(layer, "_serving_mesh", None), self._mesh)
+        if not self._mesh.is_single:
+            placement = self._mesh.build(mesh_devices)
+            if self.quant_mode is not None:
+                raise NotImplementedError(
+                    f"serving a {self.quant_mode} save under mesh {self.mesh_desc!r}: "
+                    "quantized weights under a mesh are a ROADMAP follow-up (meshed serving)")
+            layer = layer.sharded(placement)
+            self.mesh_devices = placement.describe()
+        self._layer = layer
         # the port's counters (stats' "program_calls", "k1_launches"): the
         # layer's program calls (slabs) and the K1 launches made in them
         self.program_calls = 0
@@ -278,6 +309,19 @@ class AotLayerRunner:
     def default_signature(self):
         """The saved model's batch signature (for warmup)."""
         return tuple((dt.str, tr) for dt, tr in zip(self._dtypes, self._trailing))
+
+    def record_first_run(self, bucket, sig, seconds):
+        """A bucket's first run, as the reference records its compile: a
+        compile-ledger event ``serving/bucket{b}`` with the program's ATen
+        ops, tagged with the quant mode and the mesh where they are not
+        f32 and "single"."""
+        extra = {"bucket": bucket, "signature": [[dt, list(tr)] for dt, tr in sig]}
+        if self.quant_mode:
+            extra["quant"] = self.quant_mode
+        if self.mesh_desc != sharding.SINGLE:
+            extra["mesh"] = self.mesh_desc
+        LEDGER.record(f"serving/bucket{bucket}", duration_s=seconds,
+                      graph=self._layer.program_graph(), kind="aot", extra=extra)
 
     def run(self, batch_arrays):
         import torch
@@ -358,10 +402,12 @@ class BatchingEngine:
         return cls(CallableRunner(fn), **kw)
 
     @classmethod
-    def for_layer(cls, layer, artifact_store=None, **kw):
+    def for_layer(cls, layer, artifact_store=None, mesh=None, mesh_devices=None, **kw):
         """Engine over a ``jit.load``-ed batch-polymorphic TranslatedLayer
-        (``AotLayerRunner``). ``artifact_store`` (the reference's store of
-        each bucket's compiled program) is not ported and raises: the
+        (``AotLayerRunner``; ``mesh`` and ``mesh_devices``: its serving
+        mesh, built here, so too few devices raise at once).
+        ``artifact_store`` (the reference's store of each bucket's compiled
+        program) is not ported and raises: the
         loaded layer is already one ``torch.export`` program with no
         per-bucket compile to keep, and the port's engine programs are
         CUDA graphs, which have no serialized form across processes
@@ -371,12 +417,17 @@ class BatchingEngine:
                 "BatchingEngine.for_layer(artifact_store=...): a loaded layer is one "
                 "torch.export program with no per-bucket compile for a store to keep, and "
                 "CUDA graphs have no serialized form across processes (ROADMAP Queue 3 (b))")
-        return cls(AotLayerRunner(layer), **kw)
+        return cls(AotLayerRunner(layer, mesh=mesh, mesh_devices=mesh_devices), **kw)
 
     @property
     def quant(self):
         """The served layer's quant mode, "f32" for none."""
         return getattr(self._runner, "quant_mode", None) or "f32"
+
+    @property
+    def mesh(self):
+        """The served layer's serving mesh descriptor, "single" for none."""
+        return getattr(self._runner, "mesh_desc", None) or sharding.SINGLE
 
     # ---------------------------------------------------------- telemetry
     def _init_metrics(self):
@@ -407,7 +458,7 @@ class BatchingEngine:
             "Bucket program materializations (source: inline = the bucket's first run; "
             "quant: the serving quantization mode; mesh: the serving mesh descriptor)",
             labelnames=("bucket", "source"),
-            const_labels={**cl, "quant": self.quant, "mesh": "single"})
+            const_labels={**cl, "quant": self.quant, "mesh": self.mesh})
         self._m_batches = M.Counter("paddle_serving_batches_total", "Batches executed",
                                     labelnames=("bucket",), const_labels=cl)
         self._m_batch_rows = M.Counter("paddle_serving_batch_rows_total",
@@ -716,7 +767,7 @@ class BatchingEngine:
                 # a restart failed this group while it ran: its results go
                 # nowhere (the waiters already hold SchedulerRestarted)
                 return
-            self._count_first_run((bucket, sig))
+            self._count_first_run((bucket, sig), dt)
             st = self._bucket_stats.get((bucket, sig))
             if st is None:
                 st = self._bucket_stats[(bucket, sig)] = _BucketStats()
@@ -741,12 +792,16 @@ class BatchingEngine:
             off += r.rows
             r.event.set()
 
-    def _count_first_run(self, key):
-        """Under the lock: a bucket's first run (warmup or a batch) is its
-        one ``inline`` materialization."""
+    def _count_first_run(self, key, seconds):
+        """Under the lock: a bucket's first run (warmup or a batch, of
+        ``seconds``) is its one ``inline`` materialization, and a loaded
+        layer's runner records it in the compile ledger."""
         if key not in self._warm:
             self._warm.add(key)
             self._m_compiles.inc(bucket=str(key[0]), source="inline")
+            record = getattr(self._runner, "record_first_run", None)
+            if record is not None:
+                record(key[0], key[1], seconds)
 
     def _breaker_for(self, key):
         """Under the lock: the bucket's breaker, made at first use."""
@@ -830,9 +885,10 @@ class BatchingEngine:
         buckets = sorted({bucket_rows(int(b), self.max_batch_size) for b in buckets})
         for b in buckets:
             batch = [np.zeros((b,) + tr, dt) for dt, tr in sig]
+            t0 = time.monotonic()
             self._runner.run(batch)
             with self._lock:
-                self._count_first_run((b, _signature(batch)))
+                self._count_first_run((b, _signature(batch)), time.monotonic() - t0)
         with self._lock:
             self._declared = buckets
         return buckets
@@ -881,10 +937,10 @@ class BatchingEngine:
                     "trips": sum(br.trips for br in self._breakers.values()),
                 },
                 "compiles": len(self._warm),
-                # no artifact store and one card (ROADMAP Queue 1): the
-                # reference's keys, at what they read here
+                # no artifact store (ROADMAP Queue 3 (b)): the reference's
+                # key, at what it reads here
                 "store_loads": 0,
-                "mesh": "single",
+                "mesh": self.mesh,
                 "buckets": buckets,
             }
 
@@ -905,7 +961,7 @@ class BatchingEngine:
                 "declared_buckets": list(self._declared),
                 "cold_compiles_inflight": 0,
                 "artifact_store": None,
-                "mesh": "single",
+                "mesh": self.mesh,
             }
 
     # -------------------------------------------------------------- close

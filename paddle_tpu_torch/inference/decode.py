@@ -238,10 +238,19 @@ publishes its longest boundary once: under the exec lock the staging
 rows are copied on the device (bf16 widened to f32, exactly), and the
 block is brought to the host, encoded and written after it.
 
+**Meshed serving** (the reference's, decode.py :295-307): ``mesh="tp2"``
+(or any serving mesh, inference/sharding.py) splits the model's weights
+once, at construction, into ``ShardedWeight``s over ``mesh_devices``;
+the fill and the step run every product per shard through ``wmatmul``
+and read an embedding's rows from the blocks, so the programs keep their
+shapes and are captured as before. The mesh is the ``mesh`` const label,
+``stats()["mesh"]`` and the snapshot header's ``mesh``: a snapshot taken
+under one mesh is refused by an engine on another. Each program's build
+is a compile-ledger event (obs/ledger.py), ``decode/{phase}{rows}x{seq}``.
+
 Not ported: the engines' artifact store of compiled programs (``store``
 raises ``NotImplementedError``: the port's programs are CUDA graphs,
-which have no serialized form across processes; ROADMAP Queue 3 (b))
-and meshed serving (``mesh`` other than "single"; ROADMAP Queue 1). The
+which have no serialized form across processes; ROADMAP Queue 3 (b)). The
 reference's engine decodes greedily, as this one does. The port reads no
 environment: ``quant`` defaults to f32 (the reference's
 ``PADDLE_TPU_SERVING_QUANT`` is not read), ``phase`` to "both" (its
@@ -268,9 +277,10 @@ from ..core.cuda_graph import Graph, pool_bytes
 from ..core.place import resolve_device
 from ..obs import metrics as obs_metrics
 from ..obs import tracing as obs_tracing
+from ..obs.ledger import LEDGER
 from ..ops import flash_attention
 from ..resilience import chaos
-from . import wire_spec
+from . import sharding, wire_spec
 from .batching import (BucketQuarantined, DeadlineExceeded, EngineClosed, EngineOverloaded,
                        RetryableError, SchedulerRestarted, _Breaker)
 from .prefix_cache import PrefixCache, feature_seed, prefix_hashes
@@ -283,17 +293,12 @@ _RETIRE_REASONS = ("eos", "max_tokens", "max_seq_len", "deadline", "error", "can
 
 # options of the reference's engine that are not ported, and the values
 # that ask for nothing (the reference's "off")
-_UNPORTED = {"store": (None,), "mesh": (None, "single")}
+_UNPORTED = {"store": (None,)}
 _UNPORTED_WHY = {
     "store": "the engines' artifact store keeps compiled programs, and the port's programs "
              "are CUDA graphs, which have no serialized form across processes; the store's "
              "user in the port is the persistent prefix tier (prefix_dir) (ROADMAP Queue 3 (b))",
-    "mesh": "not ported yet (ROADMAP Queue 1)",
 }
-
-# the mesh a snapshot header carries besides the fingerprint, the weights
-# digest and the quant mode: the port serves on one card
-_MESH = "single"
 
 
 class _Superseded(BaseException):
@@ -399,7 +404,8 @@ class DecodeModel:
         param's copy to the host runs on a thread while this one hashes
         (both release the GIL), so the digest costs about the hashing."""
         def host(p):
-            t = p.detach().contiguous()
+            # a serving mesh's ShardedWeight: the whole weight's bits
+            t = (p.joined() if hasattr(p, "joined") else p).detach().contiguous()
             head = _dtype_name(t.dtype).encode(), str(tuple(t.shape)).encode()
             if t.dtype in (torch.bfloat16, torch.float16):
                 t = t.view(torch.int16)
@@ -1015,14 +1021,21 @@ class DecodeEngine:
     process need names of their own. ``quant``: serve an f32 model under a
     quantization mode, "w8" or "bf16w" ("f32" or None: as it is, the
     default); a model that already carries a mode must be asked for that
-    mode."""
+    mode. ``mesh``: the serving mesh (inference/sharding.py; None reads
+    ``PADDLE_TPU_SERVING_MESH``, else "single"); a sharded mesh splits the
+    model's weights over ``mesh_devices`` (default ``cuda:0 .. cuda:n-1``;
+    ``["cpu"] * n`` or ``["cuda:0"] * n`` put every shard on one device,
+    whose first must be ``device``) and the fill and step run their
+    products per shard. f32 and bf16 weights only; over launcher ranks, and
+    with a quant mode, it raises NotImplementedError."""
 
     def __init__(self, model, max_slots=None, max_seq_len=None, max_queue=64,
                  min_seq_bucket=8, max_prompt_len=None, default_max_new_tokens=64,
                  name="decode", device="cuda", cuda_graph=True, prefix=True,
                  prefix_max_bytes=None, spec_k=None, breaker_threshold=None,
                  breaker_cooldown=None, watchdog_interval=None, wedge_timeout=None,
-                 quant=None, phase=None, prefix_dir=None, **unported):
+                 quant=None, phase=None, prefix_dir=None, mesh=None, mesh_devices=None,
+                 **unported):
         for key, val in unported.items():
             if key not in _UNPORTED:
                 raise TypeError(f"DecodeEngine got an unexpected keyword argument {key!r}")
@@ -1037,6 +1050,26 @@ class DecodeEngine:
         # draft follows the target's mode unless it carries its own
         draft = getattr(model, "draft", None)
         model_quant = getattr(model, "quant", None)
+        # the serving mesh: the reference's resolution, and its fail-fast
+        # build (too few devices raise here, never mid-request)
+        self._mesh = sharding.resolve(mesh)
+        self.mesh_desc = self._mesh.descriptor
+        placement = None
+        if not self._mesh.is_single:
+            placement = self._mesh.build(mesh_devices)
+            if placement.ranks:
+                raise NotImplementedError(
+                    f"DecodeEngine(mesh={self.mesh_desc!r}) over launcher ranks: meshed decode "
+                    "runs over devices in one process (mesh_devices); over ranks it is a "
+                    "ROADMAP follow-up (meshed serving)")
+            if (quant or model_quant or "f32") != "f32":
+                raise NotImplementedError(
+                    f"DecodeEngine(mesh={self.mesh_desc!r}) with quant "
+                    f"{quant or model_quant!r}: quantized weights under a mesh are a ROADMAP "
+                    "follow-up (meshed serving)")
+            if _indexed(placement.first) != self.device:
+                raise ValueError(f"the mesh's first device is {placement.first}, the engine "
+                                 f"runs on {self.device}")
         if quant is not None and quant != (model_quant or "f32"):
             if model_quant is not None:
                 raise ValueError(f"model is quantized as {model_quant!r} but the engine was "
@@ -1049,6 +1082,11 @@ class DecodeEngine:
                     draft = quantize_decode_model(draft, quant)
                 model.draft = draft
         self.quant = getattr(model, "quant", None) or "f32"
+        if placement is not None:
+            model = sharding.shard_decode_model(model, placement)
+            if draft is not None:
+                draft = sharding.shard_decode_model(draft, placement)
+            model.draft = draft
         if draft is not None:
             if draft.vocab_size != model.vocab_size:
                 raise ValueError(f"draft vocab {draft.vocab_size} != target vocab "
@@ -1173,7 +1211,7 @@ class DecodeEngine:
         through a collector in the process registry until ``close``.
         ``stats`` reads them under the engine lock."""
         cl = {"engine": self.name}
-        ident = {**cl, "quant": self.quant, "mesh": _MESH}
+        ident = {**cl, "quant": self.quant, "mesh": self.mesh_desc}
         M = obs_metrics
         lat = M.log_buckets(0.0001, 4.0, 10)
         self._m_requests = M.Counter("paddle_decode_requests_total",
@@ -1357,7 +1395,7 @@ class DecodeEngine:
         """The identity of the persistent prefix tier's keys and headers:
         the fields a snapshot's resume compares."""
         fp, wd = self._identity()
-        return {"fingerprint": fp, "weights": wd, "quant": self.quant, "mesh": _MESH}
+        return {"fingerprint": fp, "weights": wd, "quant": self.quant, "mesh": self.mesh_desc}
 
     def _build_snapshot(self, req, arrays, pos, last_token, n_generated):
         """Encode one kv-snapshot block (the reference's header and array
@@ -1368,7 +1406,7 @@ class DecodeEngine:
         t0 = time.perf_counter()
         fp, wd = self._identity()
         header = {
-            "fingerprint": fp, "weights": wd, "quant": self.quant, "mesh": _MESH,
+            "fingerprint": fp, "weights": wd, "quant": self.quant, "mesh": self.mesh_desc,
             "pos": int(pos), "last_token": int(last_token), "n_generated": int(n_generated),
             "prompt_len": int(req.prompt.size), "max_new_tokens": int(req.max_new_tokens),
             "eos_token_id": req.eos_token_id, "n_kv": len(self._model.kv_spec),
@@ -1422,8 +1460,8 @@ class DecodeEngine:
                          "values; a foreign KV cache would decode garbage")
         if header["quant"] != self.quant:
             self._refuse(f"quant mode {header['quant']!r} != {self.quant!r}")
-        if header["mesh"] != _MESH:
-            self._refuse(f"mesh {header['mesh']!r} != {_MESH!r}")
+        if header["mesh"] != self.mesh_desc:
+            self._refuse(f"mesh {header['mesh']!r} != {self.mesh_desc!r}")
         if n_kv != len(m.kv_spec):
             self._refuse(f"{n_kv} kv buffers != this model's {len(m.kv_spec)}")
         if len(arrays) != 2 + n_kv + len(m.feature_spec):
@@ -1683,7 +1721,21 @@ class DecodeEngine:
                     self._programs[key] = run
                     self._builds[key] += 1
                 self._m_compiles.inc(phase=key[0], source="inline")
+                LEDGER.record(f"decode/{key[0]}{key[1]}x{key[2]}", duration_s=dt,
+                              kind="cuda_graph" if self._graphs_of(key).capture else "eager",
+                              extra={"phase": key[0], "bucket": key[1], "seq": key[2],
+                                     **self._ledger_extra()})
         return run
+
+    def _ledger_extra(self):
+        """Ledger-event mode and mesh tags, where the reference puts them:
+        empty for f32 on the single mesh."""
+        extra = {}
+        if self.quant != "f32":
+            extra["quant"] = self.quant
+        if self.mesh_desc != sharding.SINGLE:
+            extra["mesh"] = self.mesh_desc
+        return extra
 
     def _call(self, key, fill, trace_id=None, site=None):
         """One call of ``key``'s program: hit the chaos ``site`` (outside
@@ -2483,6 +2535,7 @@ class DecodeEngine:
                 "name": self.name,
                 "phase": self.phase,
                 "quant": self.quant,
+                "mesh": self.mesh_desc,
                 "device": str(self.device),
                 "max_slots": self.max_slots,
                 "max_seq_len": self.max_seq_len,
@@ -2553,7 +2606,7 @@ class DecodeEngine:
                 "free_slots": self._slots.free_count(),
                 "queue_depth": len(self._pending),
                 "declared_programs": len(self._declared),
-                "mesh": _MESH,
+                "mesh": self.mesh_desc,
                 "prefix_entries": entries,
                 "spec_enabled": self.spec_enabled,
                 "device": str(self.device),

@@ -656,7 +656,8 @@ class PredictorServer:
 
 def serve_model(path_prefix, port=0, dynamic_batching=False, max_batch_size=32,
                 max_wait_ms=2.0, max_queue=256, warmup=True, metrics_port=None, quant=None,
-                mesh=None, phase=None, slab_rows=None, device=None, **engine_kwargs):
+                mesh=None, phase=None, slab_rows=None, device=None, mesh_devices=None,
+                **engine_kwargs):
     """Load a ``jit.save``-ed model and serve it (the reference's
     ``serve_model``). With ``dynamic_batching=True`` (a batch-polymorphic
     save) all connections share one ``BatchingEngine.for_layer`` whose
@@ -667,8 +668,16 @@ def serve_model(path_prefix, port=0, dynamic_batching=False, max_batch_size=32,
     ``quant`` (default: the environment's ``PADDLE_TPU_SERVING_QUANT``, read
     here once) declares the mode this replica must serve: the loaded save's
     recorded mode is checked at load and at every reload (cmd 4), so an f32
-    save is refused where w8 is declared. ``mesh`` other than "single"
-    raises (sharded serving is ROADMAP Queue 1). ``phase`` ("prefill" |
+    save is refused where w8 is declared. ``mesh`` (default: the
+    environment's ``PADDLE_TPU_SERVING_MESH``, read here once) declares the
+    serving mesh (inference/sharding.py): a bad descriptor raises at entry;
+    a save whose recorded mesh (``jit.save(mesh=)``) differs from the
+    declared one raises, at load and at every reload, and the mesh resolved
+    at the first load is pinned for every reload; a sharded mesh needs
+    ``dynamic_batching`` and splits the weights over ``mesh_devices``
+    (default ``cuda:0 .. cuda:n-1``; ``["cpu"] * n`` or ``["cuda:0"] * n``
+    put every shard on one device) or the ranks of a launcher job of the
+    mesh's size; its blocks are cut from a load on the host. ``phase`` ("prefill" |
     "decode" | "both", the default) declares the replica's pool in a
     disaggregated fleet, reported in health and stats; placement only.
     ``slab_rows``: the row count the
@@ -677,22 +686,28 @@ def serve_model(path_prefix, port=0, dynamic_batching=False, max_batch_size=32,
     cmd 8 (drain)."""
     import os
 
+    from ..core import place as place_mod
     from ..jit import load as jit_load
     from ..quantization.serving import check_mode
+    from . import sharding
 
     if quant is None:
         quant = os.environ.get("PADDLE_TPU_SERVING_QUANT") or None
     if quant not in (None, "f32"):
         check_mode(quant)
-    if mesh not in (None, "single"):
-        raise NotImplementedError(f"serve_model(mesh={mesh!r}): the port serves on one card "
-                                  "(mesh 'single'; sharded serving is ROADMAP Queue 1)")
+    # parsed at entry: a typo'd mesh fails here, not as a save mismatch later
+    declared_mesh = sharding.declared(mesh)
+    # the mesh resolved at the first load, pinned for every reload
+    pinned_mesh = {}
     if phase not in (None,) + wire_spec.REPLICA_PHASES:
         raise ValueError(f"unknown replica phase {phase!r} (expected one of "
                          f"{wire_spec.REPLICA_PHASES})")
 
     def loader(prefix):
-        layer = jit_load(prefix, device=device, slab_rows=slab_rows)
+        # one load on the host: a sharded mesh's blocks go from there to their
+        # devices (the whole weights never sit on a card beside them), a
+        # single mesh's weights go to ``device`` whole
+        layer = jit_load(prefix, device="cpu", slab_rows=slab_rows)
         if quant is not None:
             have = getattr(layer, "_quant_mode", None) or "f32"
             if have != quant:
@@ -700,14 +715,15 @@ def serve_model(path_prefix, port=0, dynamic_batching=False, max_batch_size=32,
                     f"{prefix}: saved quant mode {have!r} does not match the declared serving "
                     f"mode {quant!r} (PADDLE_TPU_SERVING_QUANT / serve_model(quant=)); re-save "
                     "with jit.save(..., quant=...) or fix the deployment knob")
-        recorded = getattr(layer, "_serving_mesh", None)
-        if recorded not in (None, "single"):
-            raise ValueError(f"{prefix}: saved for serving mesh {recorded!r}; the port serves "
-                             "on one card")
-
-        def run(*arrays):
-            out = layer(*arrays)
-            return out if isinstance(out, (list, tuple)) else [out]
+        eff_mesh = sharding.serving_mesh(layer._serving_mesh,
+                                         declared_mesh or pinned_mesh.get("desc"),
+                                         where=f"{prefix}: ")
+        pinned_mesh.setdefault("desc", eff_mesh)
+        if eff_mesh != sharding.SINGLE and not dynamic_batching:
+            raise ValueError(f"serving mesh {eff_mesh!r} needs the batching engine: pass "
+                             "dynamic_batching=True to serve_model")
+        if eff_mesh == sharding.SINGLE:
+            layer.to_device(place_mod.resolve_device(device))
 
         engine = None
         if dynamic_batching:
@@ -715,7 +731,16 @@ def serve_model(path_prefix, port=0, dynamic_batching=False, max_batch_size=32,
 
             engine = BatchingEngine.for_layer(layer, max_batch_size=max_batch_size,
                                               max_wait_ms=max_wait_ms, max_queue=max_queue,
+                                              mesh=eff_mesh, mesh_devices=mesh_devices,
                                               **engine_kwargs)
+            # a sharded engine holds the weights as its mesh places them:
+            # the direct path runs the engine's layer, not the whole one
+            layer = engine._runner._layer
+
+        def run(*arrays):
+            out = layer(*arrays)
+            return out if isinstance(out, (list, tuple)) else [out]
+
         return run, engine
 
     run, engine = loader(path_prefix)

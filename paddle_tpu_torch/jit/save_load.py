@@ -23,6 +23,12 @@ save of the JAX package (``format: "stablehlo"``) is refused by name.
 so every call of the program has one row count: cuBLAS picks its GEMM
 per M, and a row served in any batch then keeps the bits of its direct
 call (inference/batching.py).
+
+``save(mesh=)`` records a serving mesh (inference/sharding.py) and leaves
+the program alone. The engines serve a mesh through
+:class:`ShardedTranslatedLayer`: the weights cut into blocks once, at
+load, and the program rewritten once (:func:`shard_program`) so that its
+products run per shard.
 """
 import io as _io
 import json
@@ -105,12 +111,17 @@ def save(layer, path, input_spec=None, quant=None, quant_calib=None, mesh=None, 
     layer in place first (``quantization.serving.quantize_for_serving``)
     and is recorded and folded into the fingerprint; bf16w stores the
     float32 parameters as bfloat16 and the program upcasts them. ``mesh``
-    accepts "single" only (sharded serving is ROADMAP Queue 1)."""
+    records the serving mesh the save is meant for (its canonical
+    descriptor, inference/sharding.py; a bad one raises ValueError here):
+    the program does not change (the engines split the weights at load),
+    and ``serve_model`` refuses a save whose recorded mesh contradicts the
+    declared one, at load and at every reload."""
     if input_spec is None:
         raise ValueError("jit.save requires input_spec (list of InputSpec or Tensors)")
-    if mesh not in (None, "single"):
-        raise NotImplementedError(f"jit.save(mesh={mesh!r}): the port serves on one card "
-                                  "only (mesh 'single'; sharded serving is ROADMAP Queue 1)")
+    if mesh is not None:
+        from ..inference.sharding import ServingMesh
+
+        mesh = ServingMesh.parse(mesh).descriptor
     from ..quantization.serving import quantize_for_serving
 
     layer, quant_meta = quantize_for_serving(layer, quant, calib=quant_calib)
@@ -295,6 +306,145 @@ class TranslatedLayer(Layer):
                    for i in inputs]
         outs = self.run_slabs(tensors)
         return outs[0] if len(outs) == 1 else outs
+
+    def program_graph(self):
+        """The torch.fx graph one call runs (the compile ledger's ops)."""
+        return self._exported.graph
+
+    def sharded(self, placement):
+        """This program over a serving mesh's ``placement``
+        (inference/sharding.py): a :class:`ShardedTranslatedLayer`."""
+        return ShardedTranslatedLayer(self, placement)
+
+
+# the targets the sharding pass gives a rewritten node (module level: the
+# generated code of a graph module calls them by name)
+def sharded_matmul(x, w):
+    """``x @ w``, per shard for a serving mesh's ShardedWeight."""
+    from ..ops.quant_matmul import wmatmul
+
+    return wmatmul(x, w)
+
+
+def sharded_rows(w, idx):
+    """``w[idx]``, gathered from the blocks of a ShardedWeight."""
+    return w.rows(idx)
+
+
+def joined_weight(w):
+    """The whole weight of a ShardedWeight, for any other consumer."""
+    return w.joined()
+
+
+_ATEN = torch.ops.aten
+_PRODUCTS = (_ATEN.matmul.default, _ATEN.mm.default)
+
+
+def _last_dim(node, dim):
+    rank = node.meta["val"].dim() if "val" in node.meta else 2
+    return dim % rank == rank - 1
+
+
+def shard_program(exported, sharded):
+    """A copy of ``exported``'s flat graph module (inputs: the params,
+    the buffers, the program's inputs) in which the params at positions
+    ``sharded`` are serving-mesh ``ShardedWeight``s. Run once, at load:
+
+    - ``aten.matmul``/``aten.mm`` with such a weight as the right operand
+      becomes ``sharded_matmul`` (the products per shard);
+    - a product over ``aten.cat`` of weights along their last dim (a fused
+      QKV) becomes the cat of each weight's ``sharded_matmul``;
+    - ``aten.index.Tensor`` of such a weight by one index tensor (an
+      embedding lookup) becomes ``sharded_rows``;
+    - every other consumer reads ``joined_weight`` of it, once a call."""
+    import copy
+
+    gm = copy.deepcopy(exported.graph_module)
+    g = gm.graph
+    placeholders = [n for n in g.nodes if n.op == "placeholder"]
+    weights = {placeholders[i] for i in sharded}
+    for node in list(g.nodes):
+        if node.op != "call_function" or node.target not in _PRODUCTS:
+            continue
+        x, w = node.args[:2]
+        if w in weights:
+            node.target = sharded_matmul
+        elif (isinstance(w, torch.fx.Node) and w.target is _ATEN.cat.default
+              and any(a in weights for a in w.args[0])
+              and all(isinstance(a, torch.fx.Node) and a.op == "placeholder" for a in w.args[0])
+              and _last_dim(w, w.args[1] if len(w.args) > 1 else 0)):
+            with g.inserting_before(node):
+                parts = [g.call_function(sharded_matmul, (x, a)) for a in w.args[0]]
+                joined = g.call_function(_ATEN.cat.default, (parts, -1))
+            node.replace_all_uses_with(joined)
+            g.erase_node(node)
+            if not w.users:
+                g.erase_node(w)
+    for node in list(g.nodes):
+        if (node.op == "call_function" and node.target is _ATEN.index.Tensor
+                and node.args[0] in weights and len(node.args[1]) == 1
+                and node.args[1][0] is not None):
+            node.target = sharded_rows
+            node.args = (node.args[0], node.args[1][0])
+    # in placeholder order: under the rank backing a join is a collective,
+    # and every rank must meet them in one order
+    for p in [n for n in placeholders if n in weights]:
+        others = [u for u in p.users
+                  if not (u.target is sharded_matmul and u.args[1] is p)
+                  and not (u.target is sharded_rows and u.args[0] is p)]
+        if others:
+            with g.inserting_before(next(n for n in g.nodes if n.op != "placeholder")):
+                whole = g.call_function(joined_weight, (p,))
+            for u in others:
+                u.replace_input_with(p, whole)
+    g.lint()
+    gm.recompile()
+    return gm
+
+
+class ShardedTranslatedLayer(TranslatedLayer):
+    """A loaded program over a serving mesh (the engines' sharded form):
+    the weights as the ``placement`` holds them (``ShardedWeight``s and
+    whole tensors on its first device; the source layer's parameters are
+    not kept), the buffers on the first device, and the program rewritten
+    once by :func:`shard_program`. It runs as a ``TranslatedLayer`` does,
+    in slabs; K1 sees the joined q/k/v."""
+
+    def __init__(self, layer, placement):
+        Layer.__init__(self)
+        first = placement.first
+        self._placement = placement
+        self._exported = _on_device(layer._exported, first)
+        self._loaded_buffers = {n: b.to(first) for n, b in layer._loaded_buffers.items()}
+        self._input_specs = layer._input_specs
+        self._polymorphic = layer._polymorphic
+        self._model_fingerprint = layer._model_fingerprint
+        self._quant_mode = layer._quant_mode
+        self._serving_mesh = layer._serving_mesh
+        self._slab_rows = layer._slab_rows
+        self._weights = [placement.shard(p.detach()) for p in layer._parameters.values()]
+        self._program = shard_program(
+            self._exported, [i for i, w in enumerate(self._weights)
+                             if not isinstance(w, torch.Tensor)])
+        self._out_spec = self._exported.call_spec.out_spec
+
+    @property
+    def device(self):
+        return self._placement.first
+
+    def to_device(self, device):
+        raise NotImplementedError("a sharded program stays on its mesh's devices")
+
+    def program_graph(self):
+        return self._program.graph
+
+    def _call(self, inputs):
+        from torch.utils import _pytree
+
+        with torch.no_grad():
+            flat = self._program(*self._weights, *self._loaded_buffers.values(), *inputs)
+        out = _pytree.tree_unflatten(list(flat), self._out_spec)
+        return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
 
 def _split_arrays(npz, device):

@@ -249,9 +249,11 @@ _MATMULS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
 
 
 def wmatmul(x, w):
-    """``x @ w`` for a weight of any serving mode: a ``QuantWeight`` goes
-    to ``wq_matmul`` (the kernel on the card), a plain tensor to
-    ``torch.matmul``."""
-    if isinstance(w, QuantWeight):
-        return w.matmul(x)
-    return torch.matmul(x, w)
+    """``x @ w`` for a weight of any serving mode and mesh: a plain tensor
+    goes to ``torch.matmul``, any other weight to its own ``matmul``: a
+    ``QuantWeight`` to ``wq_matmul`` (the kernel on the card), a serving
+    mesh's ``ShardedWeight`` (inference/sharding.py) to its products per
+    shard."""
+    if isinstance(w, torch.Tensor):
+        return torch.matmul(x, w)
+    return w.matmul(x)

@@ -249,6 +249,31 @@ class _LlamaWeights:
                                 for lp in self.params["layers"]]
         return out
 
+    def sharded(self, placement):
+        """These weights over a serving mesh's ``placement``
+        (inference/sharding.py), as ``quantized`` converts them: every
+        array the mesh's rule splits becomes a ``ShardedWeight``, whose
+        products ``wmatmul`` runs per shard and whose rows ``embed``
+        gathers from the blocks; a split 1-D weight (a norm's) is read
+        whole by ``rms_norm``, so it is held joined. The computation and
+        ``named_tensors`` (the same names, shapes and values) stay the
+        single mesh's."""
+        out = copy.copy(self)
+        conv = {}
+        named = []
+        for name, param in self._named:
+            entry = placement.shard(param.detach())
+            if entry.dim() == 1 and not isinstance(entry, torch.Tensor):
+                entry = entry.joined()
+            conv[id(param)] = entry
+            named.append((name, entry))
+        out._named = named
+        out.params = {k: conv[id(v)] for k, v in self.params.items() if k != "layers"}
+        out.params["layers"] = [{k: conv[id(v)] for k, v in lp.items()}
+                                for lp in self.params["layers"]]
+        out.device = placement.first
+        return out
+
     def embed(self, tokens):
         """The embedding rows of ``tokens`` in the compute dtype; a
         quantized table dequantizes only the rows it gathers."""
@@ -416,13 +441,22 @@ def llama_prompt_logits(decode_model, prompt):
     prompt through its decoder maths (K1 causal over the prompt's own K and
     V), the last row's logits. What the engine's finishing step computes
     for the prompt, up to the products' summation order."""
+    return llama_sequence_logits(decode_model, prompt, len(prompt) - 1)[0]
+
+
+def llama_sequence_logits(decode_model, ids, first):
+    """float32 logits [len(ids) - first, vocab] at positions ``first`` ..
+    ``len(ids) - 1`` of one causal forward over ``ids`` (as
+    ``llama_prompt_logits``): row i predicts token ``first + i + 1``, so a
+    stream teacher-forced on ``prompt + tokens[:-1]`` from ``first =
+    len(prompt) - 1`` gives the logits of every token of ``tokens``."""
     w = decode_model.params
-    ids = torch.as_tensor(np.asarray(prompt), device=w.device).long().reshape(1, -1)
+    ids = torch.as_tensor(np.asarray(ids), device=w.device).long().reshape(1, -1)
     with torch.inference_mode():
         x = w.embed(ids)
         cos, sin = _rope_tables(w.hd, torch.arange(ids.shape[1], device=w.device), x.dtype)
         h = w.layers(x, cos, sin, lambda li, q, k, v: w.attention(q, k, v))
-        return w.logits(h[:, -1])[0].float()
+        return w.logits(h[0, first:]).float()
 
 
 def llama_layer_skip(model, num_layers):

@@ -352,6 +352,13 @@ def test_validation(model):
 @pytest.mark.parametrize("option", [dict(mesh="fsdp2xtp2"), dict(mesh="tp2"),
                                     dict(store="somewhere")])
 def test_unported_engine_options_raise(model, option):
+    """The artifact store is not ported. A mesh is (tests/test_torch_serving_mesh.py),
+    and with no device list it needs cards: here it raises at once, and
+    never falls back to the CPU or to the single mesh."""
+    if "mesh" in option:
+        with pytest.raises(ValueError, match="device"):
+            make_engine(model, **option)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_engine(model, **option)
 

@@ -232,7 +232,8 @@ def test_direct_serving_and_the_unserved_knobs(bert_saves):
         assert json.loads(_call(srv.port, ws.build_request(ws.CMD_STATS))[1])["engine"] is None
     finally:
         srv.stop()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a sharded mesh needs the batching engine (tests/test_torch_serving_mesh.py)
+    with pytest.raises(ValueError, match="mesh 'tp2' needs the batching engine"):
         serve_model(p1, mesh="tp2")
     srv = serve_model(p1, phase="prefill")  # a pool of a disaggregated fleet
     try:
